@@ -1,17 +1,203 @@
-"""Configuration: the JAX package's JAX-free dataclasses, plus the port's own
-map from dtype name to torch dtype (`supir_tpu.config.dtype_of` imports jax)."""
+"""Configuration: the port's own copy of the restore path's dataclasses.
+
+Field names, defaults and the `tiny()` / `scaled_for()` helpers are those of
+`supir_tpu/config.py`; `tests/test_torch_engine.py` holds the two copies
+equal. The port keeps its own so that it imports nothing of the JAX package.
+`dtype_of` maps a dtype name to the torch dtype.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional, Tuple
+
 import torch
 
-from supir_tpu.config import (  # noqa: F401  (re-exported)
-    ControlConfig,
-    SamplerConfig,
-    SUPIRConfig,
-    UNetConfig,
-    VAEConfig,
-)
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    """SDXL-base UNet (reference options/SUPIR_v0.yaml:43-64)."""
+
+    in_channels: int = 4
+    out_channels: int = 4
+    model_channels: int = 320
+    num_res_blocks: int = 2
+    attention_resolutions: Tuple[int, ...] = (4, 2)
+    channel_mult: Tuple[int, ...] = (1, 2, 4)
+    num_head_channels: int = 64
+    transformer_depth: Tuple[int, ...] = (1, 2, 10)
+    transformer_depth_middle: Optional[int] = None
+    context_dim: int = 2048
+    adm_in_channels: Optional[int] = 2816
+    dropout: float = 0.0
+
+    def tiny(self) -> "UNetConfig":
+        """Scaled-down config for tests (keeps the wiring, shrinks widths)."""
+        return dataclasses.replace(
+            self,
+            model_channels=32,
+            num_head_channels=16,
+            transformer_depth=(1, 1, 2),
+            context_dim=64,
+            adm_in_channels=96,
+        )
+
+    @property
+    def levels(self) -> int:
+        return len(self.channel_mult)
+
+    @property
+    def middle_depth(self) -> int:
+        return (
+            self.transformer_depth_middle
+            if self.transformer_depth_middle is not None
+            else self.transformer_depth[-1]
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    """AutoencoderKL f8/z4 (reference options/SUPIR_v0.yaml:107-125)."""
+
+    in_channels: int = 3
+    out_channels: int = 3
+    ch: int = 128
+    ch_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    z_channels: int = 4
+    double_z: bool = True
+    embed_dim: int = 4
+
+    def tiny(self) -> "VAEConfig":
+        return dataclasses.replace(self, ch=32)
+
+    @property
+    def downscale_factor(self) -> int:
+        return 2 ** (len(self.ch_mult) - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ControlConfig:
+    """GLVControl/LightGLVUNet wiring (reference SUPIR_v0.py:543-580); the
+    mode tables are the checkpoint contract, XL-base values below."""
+
+    mode: str = "XL-base"
+    project_type: str = "ZeroSFT"
+    project_channel_scale: float = 2.0
+    input_upscale: int = 1
+
+    @property
+    def cond_output_channels(self) -> Tuple[int, ...]:
+        if self.mode == "XL-base":
+            return tuple([320] * 4 + [640] * 3 + [1280] * 3)
+        if self.mode == "XL-refine":
+            return tuple([384] * 4 + [768] * 3 + [1536] * 6)
+        raise NotImplementedError(self.mode)
+
+    @property
+    def project_channels(self) -> Tuple[int, ...]:
+        if self.mode == "XL-base":
+            base = [160] * 4 + [320] * 3 + [640] * 3
+        elif self.mode == "XL-refine":
+            base = [192] * 4 + [384] * 3 + [768] * 6
+        else:
+            raise NotImplementedError(self.mode)
+        return tuple(int(c * self.project_channel_scale) for c in base)
+
+    @property
+    def concat_channels(self) -> Tuple[int, ...]:
+        if self.mode == "XL-base":
+            return tuple([320] * 2 + [640] * 3 + [1280] * 4 + [0])
+        if self.mode == "XL-refine":
+            return tuple([384] * 2 + [768] * 3 + [1536] * 7 + [0])
+        raise NotImplementedError(self.mode)
+
+    @property
+    def cross_attn_insert_idx(self) -> Tuple[int, ...]:
+        return (6, 3) if self.mode == "XL-base" else (9, 6, 3)
+
+    def scaled_for(self, unet: UNetConfig) -> "ControlConfig":
+        """Tables scaled to a (tiny) UNet width for tests."""
+        return _ScaledControlConfig(unet=unet, base=self)
+
+
+@dataclasses.dataclass(frozen=True)
+class _ScaledControlConfig(ControlConfig):
+    unet: UNetConfig = None
+    base: ControlConfig = None
+
+    def _scale(self, vals):
+        # base channel of the mode table (320 for XL-base, 384 for XL-refine)
+        r = self.unet.model_channels / float(self.base.cond_output_channels[0])
+        return tuple(int(v * r) for v in vals)
+
+    @property
+    def cond_output_channels(self):
+        return self._scale(self.base.cond_output_channels)
+
+    @property
+    def project_channels(self):
+        return self._scale(self.base.project_channels)
+
+    @property
+    def concat_channels(self):
+        return self._scale(self.base.concat_channels)
+
+    @property
+    def cross_attn_insert_idx(self):
+        return self.base.cross_attn_insert_idx
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerConfig:
+    name: str = "RestoreEDM"  # RestoreEDM | RestoreDPMPP2M | TiledRestoreEDM | ...
+    num_steps: int = 50
+    restore_cfg: float = 4.0
+    restore_cfg_s_tmin: float = 0.05
+    s_churn: float = 0.0
+    s_tmin: float = 0.0
+    s_tmax: float = float("inf")
+    s_noise: float = 1.003
+    eta: float = 1.0
+    cfg_scale: float = 7.5
+    cfg_scale_min: float = 4.0
+    use_linear_cfg: bool = True
+    tile_size: int = 128
+    tile_stride: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class SUPIRConfig:
+    unet: UNetConfig = UNetConfig()
+    vae: VAEConfig = VAEConfig()
+    control: ControlConfig = ControlConfig()
+    sampler: SamplerConfig = SamplerConfig()
+    scale_factor: float = 0.13025
+    num_idx: int = 1000
+    ae_dtype: str = "bf16"
+    diffusion_dtype: str = "bf16"
+    p_p: str = (
+        "Cinematic, High Contrast, highly detailed, taken using a Canon EOS R "
+        "camera, hyper detailed photo - realistic maximum detail, 32k, Color "
+        "Grading, ultra HD, extreme meticulous detailing, skin pore detailing, "
+        "hyper sharpness, perfect without deformations."
+    )
+    n_p: str = (
+        "painting, oil painting, illustration, drawing, art, sketch, oil "
+        "painting, cartoon, CG Style, 3D render, unreal engine, blurring, "
+        "dirty, messy, worst quality, low quality, frames, watermark, "
+        "signature, jpeg artifacts, deformed, lowres, over-smooth"
+    )
+
+    @classmethod
+    def tiny(cls) -> "SUPIRConfig":
+        unet = UNetConfig().tiny()
+        return cls(
+            unet=unet,
+            vae=VAEConfig().tiny(),
+            control=ControlConfig().scaled_for(unet),
+        )
+
 
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
 

@@ -1,4 +1,4 @@
-// K1: non-causal flash-attention forward for Hopper (sm_90a), bf16 in/out.
+// K1: flash-attention forward for Hopper (sm_90a), bf16 in/out, optionally causal.
 //
 // Replaces supir_tpu/ops/flash_attention.py:_attn_kernel_packed (:35) and
 // _attn_kernel_packed_single (:123), both launched from _flash_primal (:363).
@@ -9,7 +9,10 @@
 // What it computes: O = softmax(Q K^T / sqrt(D)) V over q [B,S,H,D] and
 // k/v [B,T,H,D], read in place through their strides (the innermost dim
 // must be contiguous), with fp32 running max, sum and accumulator. Keys past
-// T (the ragged last tile) are masked out.
+// T (the ragged last tile) are masked out. With `causal` (the TPU kernels'
+// `causal` flag, reached from _flash_primal :350,356), query row i sees keys
+// 0..i only: key tiles wholly above the diagonal are skipped, and the tile
+// on it is masked per row.
 //
 // What bounds it: at the main path's shapes ([2,4096,10,64] and
 // [2,1024,20,64]) attention is compute-bound (S*T*D multiply-adds against
@@ -83,7 +86,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  long long ksb, long long kss, long long ksh,
                  long long vsb, long long vss, long long vsh,
                  long long osb, long long oss, long long osh,
-                 float scale_log2) {
+                 float scale_log2, int causal) {
   using L = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem + L::Q);
@@ -117,8 +120,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   float* swarp = ss + warp * 16 * L::LDS;
   bf16* pwarp = sp + warp * 16 * L::LDP;
+  // keys this lane's row may see, and the key tiles the block must visit
+  const int lim = causal ? min(T, q0 + row + 1) : T;
+  const int kv_end = causal ? min(T, q0 + BM) : T;
 
-  for (int k0 = 0; k0 < T; k0 += BN) {
+  for (int k0 = 0; k0 < kv_end; k0 += BN) {
     __syncthreads();  // every warp is done with the previous K/V tile (and Q is stored)
     const int kv_valid = min(BN, T - k0);
     load_tile<D>(sk, kp + k0 * kss, kv_valid, kss, tid);
@@ -148,12 +154,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncwarp();
 
-    // online softmax over this lane's half row; keys >= T are masked
+    // online softmax over this lane's half row; keys >= lim are masked
     const float* srow = ss + row * L::LDS + half * HC;
     const int col0 = k0 + half * HC;
     float mx = NEG_INF;
 #pragma unroll
-    for (int j = 0; j < HC; ++j) mx = fmaxf(mx, (col0 + j < T) ? srow[j] : NEG_INF);
+    for (int j = 0; j < HC; ++j) mx = fmaxf(mx, (col0 + j < lim) ? srow[j] : NEG_INF);
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     const float m_new = fmaxf(m, mx);
     const float corr = exp2f((m - m_new) * scale_log2);
@@ -162,8 +168,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* prow = sp + row * L::LDP + half * HC;
 #pragma unroll
     for (int j = 0; j < HC; j += 2) {
-      const float s0 = (col0 + j < T) ? srow[j] : NEG_INF;
-      const float s1 = (col0 + j + 1 < T) ? srow[j + 1] : NEG_INF;
+      const float s0 = (col0 + j < lim) ? srow[j] : NEG_INF;
+      const float s1 = (col0 + j + 1 < lim) ? srow[j + 1] : NEG_INF;
       const float p0 = exp2f(fmaf(s0, scale_log2, -mofs));
       const float p1 = exp2f(fmaf(s1, scale_log2, -mofs));
       psum += p0 + p1;
@@ -218,7 +224,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                    int B, int H, int S, int T, const long long* st,
-                   float scale_log2, cudaStream_t stream) {
+                   float scale_log2, int causal, cudaStream_t stream) {
   const size_t smem = Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -226,7 +232,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   const dim3 grid((S + BM - 1) / BM, B * H);
   flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
       q, k, v, o, H, S, T, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], st[11], scale_log2);
+      st[6], st[7], st[8], st[9], st[10], st[11], scale_log2, causal);
   return cudaGetLastError();
 }
 
@@ -234,10 +240,11 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 
 // Plain C entry point for ctypes. Strides are in elements, ordered
 // (batch, seq, head) for q, k, v, o in turn; the head dim has stride 1.
-// Returns the cudaError_t of the launch (0 on success).
+// causal is 0 or 1 (then S == T). Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int supir_flash_attn_fwd_bf16(
     const void* q, const void* k, const void* v, void* o,
-    int B, int H, int S, int T, int D,
+    int B, int H, int S, int T, int D, int causal,
     long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh,
@@ -250,7 +257,7 @@ extern "C" int supir_flash_attn_fwd_bf16(
   const bf16* vb = static_cast<const bf16*>(v);
   bf16* ob = static_cast<bf16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch<64>(qb, kb, vb, ob, B, H, S, T, st, scale_log2, s);
-  if (D == 128) return (int)launch<128>(qb, kb, vb, ob, B, H, S, T, st, scale_log2, s);
+  if (D == 64) return (int)launch<64>(qb, kb, vb, ob, B, H, S, T, st, scale_log2, causal, s);
+  if (D == 128) return (int)launch<128>(qb, kb, vb, ob, B, H, S, T, st, scale_log2, causal, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -19,6 +19,7 @@ import torch.nn as nn
 from supir_tpu_torch.config import SUPIRConfig
 from supir_tpu_torch.engine.supir import SUPIREngine, SUPIRModel
 from supir_tpu_torch.models.layers import Conv, Dense, FusedLayerNorm, GroupNorm32
+from supir_tpu_torch.utils.device import resolve_device
 
 
 @torch.no_grad()
@@ -42,7 +43,7 @@ def build_model(cfg: SUPIRConfig, device, state_dict: Optional[Mapping[str, torc
                 seed: int = 0) -> SUPIRModel:
     """SUPIRModel on `device`: filled from `state_dict` (strict) or, when
     none is given, randomly from `seed`."""
-    device = torch.device(device)
+    device = resolve_device(device)
     with torch.device("meta"):
         model = SUPIRModel(cfg)
     model = model.to_empty(device=device)
@@ -53,7 +54,7 @@ def build_model(cfg: SUPIRConfig, device, state_dict: Optional[Mapping[str, torc
     return model
 
 
-def create_engine(cfg: Optional[SUPIRConfig] = None, device="cpu",
+def create_engine(cfg: Optional[SUPIRConfig] = None, device="cuda",
                   state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                   seed: int = 0) -> SUPIREngine:
     cfg = cfg or SUPIRConfig()

@@ -3,9 +3,10 @@
 Counterpart of `supir_tpu/ops/attention.py:dot_product_attention`, with the
 routing of its auto mode (:107-113): self- or cross-attention where both
 sequences hold at least `FLASH_MIN_SEQ` tokens and the head dim is 64 or 128
-goes to K1 (`ops/flash_attention.py`); everything else - cross-attention to
-the 77 text tokens, the VAE mid-block's single 512-wide head - uses the
-plain fp32-softmax form. Shapes are [B, S, H, D].
+goes to K1 (`ops/flash_attention.py`), causal or not; everything else -
+cross-attention to the 77 text tokens, the VAE mid-block's single 512-wide
+head, a call with a bias, a causal call whose queries and keys differ in
+number - uses the plain fp32-softmax form. Shapes are [B, S, H, D].
 """
 
 from __future__ import annotations
@@ -21,8 +22,11 @@ def flash_eligible(s: int, t: int, d: int) -> bool:
     return s >= FLASH_MIN_SEQ and t >= FLASH_MIN_SEQ and d in HEAD_DIMS
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """[B, S, H, D] x [B, T, H, D] -> [B, S, H, D], non-causal, no bias."""
-    if flash_eligible(q.shape[1], k.shape[1], q.shape[-1]):
-        return flash_attention(q, k, v)
-    return attention_plain(q, k, v)
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
+              bias: torch.Tensor | None = None) -> torch.Tensor:
+    """[B, S, H, D] x [B, T, H, D] -> [B, S, H, D]. `causal` aligns the last
+    query with the last key (attention_plain); `bias` is added to the logits."""
+    s, t = q.shape[1], k.shape[1]
+    if bias is None and flash_eligible(s, t, q.shape[-1]) and (not causal or s == t):
+        return flash_attention(q, k, v, causal=causal)
+    return attention_plain(q, k, v, causal=causal, bias=bias)

@@ -4,7 +4,8 @@ Each source under `supir_tpu_torch/csrc/` is compiled on first use into a
 shared library with a plain C interface, under `build/supir_tpu_torch/` at
 the root of the checkout. The library's file name carries a hash of the
 source and the flags, so an edited source is rebuilt and a stale library is
-never loaded. Nothing here runs at import time.
+never loaded. `build_all` starts one nvcc per source, all at once. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -37,10 +40,8 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Compile `csrc/<source>` if needed and return the loaded library."""
-    if source in _loaded:
-        return _loaded[source]
+def _compile(source: str) -> Path:
+    """Compile `csrc/<source>` unless its library exists; return its path."""
     src = CSRC / source
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{src.stem}-{digest}.so"
@@ -61,6 +62,37 @@ def load_library(source: str) -> ctypes.CDLL:
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    lib = ctypes.CDLL(str(out))
+    return out
+
+
+def build_all(sources) -> dict[str, float]:
+    """Compile every source in parallel (one nvcc each), then load them;
+    returns the seconds each build took. A failed build raises."""
+
+    def one(source):
+        t0 = time.perf_counter()
+        _compile(source)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        futures = {source: pool.submit(one, source) for source in sources}
+        seconds = {source: f.result() for source, f in futures.items()}
+    for source in sources:
+        load_library(source)
+    return seconds
+
+
+def ptxas_report(source: str) -> str:
+    """The `-Xptxas -v` lines nvcc printed for `source`: registers, shared
+    memory and spills per kernel (empty if this process did not build it)."""
+    path = BUILD_DIR / f"{Path(source).stem}.ptxas.txt"
+    return path.read_text() if path.exists() else ""
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """Compile `csrc/<source>` if needed and return the loaded library."""
+    if source in _loaded:
+        return _loaded[source]
+    lib = ctypes.CDLL(str(_compile(source)))
     _loaded[source] = lib
     return lib

@@ -1,23 +1,22 @@
-"""The weight bridge: JAX parameter trees -> the port's state dict.
+"""The weight bridge: JAX parameter trees -> the port's state dicts.
 
-`state_dict_from_jax(params_np, cfg)` walks the JAX package's checkpoint
-rule tables (`supir_tpu/utils/ckpt.py`: light_glv_unet_rules :209,
-glv_control_rules :228, vae_rules :314) backwards: every rule names a
-reference torch key, a flax leaf path and a transform, and the inverse
-transform turns the leaf into the torch tensor:
+The bridge walks the rule tables of `utils/ckpt_rules.py` (the port's copy
+of `supir_tpu/utils/ckpt.py` and `supir_tpu/captioner/convert.py`)
+backwards: every rule names a reference torch key, a flax leaf path and a
+transform, and the inverse transform turns the leaf into the torch tensor:
 
   linear  [in, out] -> [out, in]
   conv    HWIO -> OIHW
-  other   as is (norm scale -> weight, biases)
+  other   as is (norm scale -> weight, biases, embeddings)
 
-The keys are the reference's (`model.diffusion_model.*`,
-`model.control_model.*`, `first_stage_model.*`), so the result loads into
-`SUPIRModel` with `strict=True`, and so will a real SDXL/SUPIR checkpoint.
-
-The rule helpers of `supir_tpu.utils.ckpt` import only numpy and
-`supir_tpu.config`. Its two top-level UNet tables import the flax models
-for their adapter list, so they are rebuilt here from the same helpers and
-the port's own `_build_adapter_specs` / `encoder_feature_channels`.
+The keys are the reference's, so the results load with `strict=True`:
+`state_dict_from_jax` into `SUPIRModel` (`model.diffusion_model.*`,
+`model.control_model.*`, `first_stage_model.*`), and
+`captioner_state_dict_from_jax` into the unquantized `LlavaForCausalLM`
+(HF LLaVA keys: `model.layers.{i}.self_attn.q_proj.weight`,
+`model.vision_tower.vision_tower.vision_model.*`, `model.mm_projector.*`,
+`lm_head.weight`). Quantization happens in the port
+(`captioner/llama.py:quantize_llama_state_dict`).
 """
 
 from __future__ import annotations
@@ -27,14 +26,14 @@ from typing import Any, Dict, List, Mapping
 import numpy as np
 import torch
 
-from supir_tpu.utils import ckpt as C
 from supir_tpu_torch.config import ControlConfig, SUPIRConfig, UNetConfig
 from supir_tpu_torch.models.control import _build_adapter_specs
 from supir_tpu_torch.models.unet import encoder_feature_channels
+from supir_tpu_torch.utils import ckpt_rules as C
 
 
 def light_glv_unet_rules(cfg: UNetConfig, ctrl: ControlConfig) -> List[C.Rule]:
-    """model.diffusion_model.* -> params['unet'] (as ckpt.py:209)."""
+    """model.diffusion_model.* -> params['unet'] (as supir_tpu/utils/ckpt.py:209)."""
     tk = "model.diffusion_model."
     rules = C._time_embed(tk, (), with_label=cfg.adm_in_channels is not None)
     rules += C.unet_encoder_rules(cfg, tk, ("enc",))
@@ -57,6 +56,15 @@ def supir_rules(cfg: SUPIRConfig) -> Dict[str, List[C.Rule]]:
     }
 
 
+def captioner_rules(cfg) -> Dict[str, List[C.Rule]]:
+    """The rule table of each branch of the captioner (a CaptionerConfig)."""
+    return {
+        "llama": C.llama_rules(cfg.llama),
+        "vision": C.vision_rules(cfg.vision),
+        "projector": C.projector_rules(),
+    }
+
+
 def _leaf(tree: Mapping[str, Any], path) -> np.ndarray:
     node = tree
     for p in path:
@@ -71,7 +79,7 @@ def _to_torch(kind, v: np.ndarray) -> np.ndarray:
         return np.transpose(v, (3, 2, 0, 1))
     if kind is None:
         return v
-    raise ValueError(f"rule kind {kind!r} has no place on the restore path")
+    raise ValueError(f"rule kind {kind!r} has no place in the bridge")
 
 
 def state_dict_from_rules(tree: Mapping[str, Any], rules: List[C.Rule]) -> Dict[str, torch.Tensor]:
@@ -81,10 +89,20 @@ def state_dict_from_rules(tree: Mapping[str, Any], rules: List[C.Rule]) -> Dict[
     }
 
 
+def _bridge(params_np: Mapping[str, Any], tables: Dict[str, List[C.Rule]]) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    for branch, rules in tables.items():
+        sd.update(state_dict_from_rules(params_np[branch], rules))
+    return sd
+
+
 def state_dict_from_jax(params_np: Mapping[str, Any], cfg: SUPIRConfig) -> Dict[str, torch.Tensor]:
     """{'unet', 'control', 'vae'} parameter trees (numpy or array leaves) ->
     fp32 CPU tensors under the reference torch keys."""
-    sd: Dict[str, torch.Tensor] = {}
-    for branch, rules in supir_rules(cfg).items():
-        sd.update(state_dict_from_rules(params_np[branch], rules))
-    return sd
+    return _bridge(params_np, supir_rules(cfg))
+
+
+def captioner_state_dict_from_jax(params_np: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """The JAX agent's unquantized {'vision', 'projector', 'llama'} trees ->
+    fp32 CPU tensors under the HF LLaVA keys (cfg: a CaptionerConfig)."""
+    return _bridge(params_np, captioner_rules(cfg))

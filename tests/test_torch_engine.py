@@ -12,8 +12,10 @@ between CPUs. For scale, semantic slips move the image further: CFG start
 5.9e-5.
 """
 
+import dataclasses
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +33,7 @@ from supir_tpu_torch.utils import weights as W
 from tests import torch_parity as P
 
 SLICE_BOUND = 5e-5
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
@@ -149,11 +152,79 @@ def test_dropped_engine_is_freed(tiny):
     assert all(r() is None for r in refs)
 
 
-def test_port_imports_no_jax():
-    code = (
-        "import sys, supir_tpu_torch.engine.supir, supir_tpu_torch.engine.factory, "
-        "supir_tpu_torch.utils.weights\n"
-        "bad = [m for m in ('jax', 'flax') if m in sys.modules]\n"
-        "assert not bad, bad\n"
-    )
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+def test_port_imports_no_jax(target):
+    """Every module of supir_tpu_torch, imported in a fresh interpreter,
+    leaves no jax, flax or supir_tpu in sys.modules; chip_smoke.py (whose
+    imports sit inside its phases) names none of them in any import."""
+    if target == "package":
+        code = (
+            "import importlib, pkgutil, sys, supir_tpu_torch\n"
+            "for m in pkgutil.walk_packages(supir_tpu_torch.__path__, 'supir_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'supir_tpu'))\n"
+            "assert not bad, bad\n"
+            "print(sum(m.startswith('supir_tpu_torch.') for m in sys.modules))\n"
+        )
+        out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                             capture_output=True, text=True, cwd=ROOT).stdout
+        assert int(out.split()[-1]) >= 30  # the walk reached the whole package
+        return
+    import ast
+
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert "supir_tpu_torch.engine.factory" in names
+    bad = [m for m in names if m.split(".")[0] in ("jax", "flax", "supir_tpu")]
+    assert not bad, bad
+
+
+def test_port_config_equals_jax():
+    """The port's own copy of the config dataclasses: the same fields and
+    defaults as supir_tpu/config.py, tiny and scaled tables included."""
+    from supir_tpu import config as JC
+    from supir_tpu.engine.factory import tiny_test_config
+    from supir_tpu_torch import config as TC
+
+    def fields(cls):
+        plain = lambda v: dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v  # noqa: E731
+        return [(f.name, plain(f.default)) for f in dataclasses.fields(cls)]
+
+    for name in ("UNetConfig", "VAEConfig", "ControlConfig", "SamplerConfig", "SUPIRConfig"):
+        assert fields(getattr(TC, name)) == fields(getattr(JC, name)), name
+    assert dataclasses.asdict(TC.SUPIRConfig()) == dataclasses.asdict(JC.SUPIRConfig())
+    assert dataclasses.asdict(TC.SUPIRConfig.tiny()) == dataclasses.asdict(JC.SUPIRConfig.tiny())
+    want, _ = tiny_test_config()
+    unet = dataclasses.replace(TC.UNetConfig().tiny(), context_dim=want.unet.context_dim,
+                               adm_in_channels=want.unet.adm_in_channels)
+    base = TC.SUPIRConfig.tiny()
+    got = dataclasses.replace(base, unet=unet, control=dataclasses.replace(base.control, unet=unet),
+                              ae_dtype="fp32", diffusion_dtype="fp32")
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for cfg_t, cfg_j in ((got, want), (TC.SUPIRConfig(), JC.SUPIRConfig())):
+        for prop in ("cond_output_channels", "project_channels", "concat_channels", "cross_attn_insert_idx"):
+            assert getattr(cfg_t.control, prop) == getattr(cfg_j.control, prop), prop
+        assert cfg_t.unet.middle_depth == cfg_j.unet.middle_depth
+        assert cfg_t.vae.downscale_factor == cfg_j.vae.downscale_factor
+
+
+def test_restore_rule_tables_equal_jax_at_full_width():
+    """The port's rule table (utils/ckpt_rules.py through utils/weights.py)
+    is the JAX package's, key for key and path for path, at full width."""
+    from supir_tpu_torch import config as TC
+
+    cfg = TC.SUPIRConfig()
+    got = W.supir_rules(cfg)
+    assert got["unet"] == C.light_glv_unet_rules(cfg.unet, cfg.control)
+    assert got["control"] == C.glv_control_rules(cfg.unet)
+    assert got["vae"] == C.vae_rules(cfg.vae)
+    assert len(got["unet"]) > 1000
+
+
+def test_create_engine_refuses_without_cuda(monkeypatch):
+    """The entry point runs on the card unless the caller names the CPU;
+    without a card it raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_engine(P.tiny_cfg())

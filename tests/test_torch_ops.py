@@ -42,6 +42,35 @@ def test_flash_plain_matches_pallas(s, t, bq, bkv):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
 
+@pytest.mark.parametrize("s", [256, 300])
+def test_flash_plain_causal_matches_pallas(s):
+    """K1's causal mask (the `causal` flag of the packed kernels): query i
+    sees keys 0..i."""
+    import jax.numpy as jnp
+
+    from supir_tpu.ops.flash_attention import flash_attention as jax_flash_attention
+
+    q, k, v = _qkv(3, 1, s, s, 2, 64)
+    want = jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                               bq=128, bkv=128, interpret=True)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_attention_routes_bias_and_causal(monkeypatch):
+    """As supir_tpu/ops/attention.py routes them: causal self-attention at
+    1024 tokens or more goes to K1; a biased call never does."""
+    calls = []
+    monkeypatch.setattr(attn_ops, "flash_attention",
+                        lambda q, k, v, causal=False: calls.append(causal) or attention_plain(q, k, v, causal))
+    q, k, v = (torch.from_numpy(a) for a in _qkv(4, 1, 1024, 1024, 1, 64))
+    attn_ops.attention(q, k, v, causal=True)
+    bias = torch.zeros(1, 1, 1024, 1024)
+    torch.testing.assert_close(attn_ops.attention(q, k, v, bias=bias), attention_plain(q, k, v))
+    attn_ops.attention(q[:, :1], k, v, causal=True)  # one decode query: plain form
+    assert calls == [True]
+
+
 @pytest.mark.parametrize("shape,silu,eps", [
     ((2, 8, 8, 64), True, 1e-5),
     ((2, 8, 8, 64), False, 1e-5),
@@ -129,6 +158,17 @@ def test_flash_kernel_matches_plain(cuda, b, s, t, h, d):
         pad = (0, 0, 0, 0, 0, 64 - t % 64)
         unmasked = flash_attention(q, torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad))
         assert _rel_l2(unmasked, want) > 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,d", [(1, 1100, 8, 128), (1, 2048, 4, 64)])
+def test_flash_kernel_causal_matches_plain(cuda, b, s, h, d):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    got = flash_attention(q, k, v, causal=True)
+    want = attention_plain(q.float(), k.float(), v.float(), causal=True)
+    assert _rel_l2(got, want) <= 1e-2
+    assert _rel_l2(flash_attention(q, k, v), want) > 1e-2  # the mask removed
 
 
 def _rel_l2(got, want):

@@ -1,0 +1,299 @@
+"""supir_tpu_torch.ops.quantize (the packers, K5-K8 and their plain
+versions) against supir_tpu.ops.quantize on the CPU, and the kernels against
+their plain versions on the card.
+
+On the CPU every wrapper returns its plain version, and the JAX functions
+run their XLA fallbacks (or `_qmm` in Pallas interpret mode). Tolerances:
+- packers and nearest-mode int8: bit for bit (bytes, int8 values, scales);
+- GEMVs in fp32: atol 1e-4 + rtol 1e-5 on outputs of magnitude ~10, which
+  covers fp32 summation order; a swapped nibble order moves them by O(1);
+- GEMVs at bf16 activations against the JAX functions at bf16: atol 2e-3 +
+  rtol 2e-3 (both round the prologue's output to bf16 at the same place,
+  and a rounding flip there moves an output by ~1e-3).
+On the card the kernels are held to their plain versions in fp32 on the
+same bf16 inputs by relative L2 <= 1e-2 (bf16 rounding of the prologue's
+output gives a few 1e-3), with planted faults that must break the bound.
+JAX is imported inside the parity tests only, so the `gpu` tests also run
+on a machine without it:
+python -m pytest --noconftest tests/test_torch_quantize.py -m gpu -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from supir_tpu_torch.ops import quantize as Q
+
+ATOL, RTOL = 1e-4, 1e-5
+BF16_TOL = 2e-3
+CARD_REL_BOUND = 1e-2
+
+
+def _weights(seed, cin, cout):
+    """fp32 [cin, cout] with two columns whose entries sit exactly on half
+    steps of the int4 grid (absmax 7, so scale 1), to pin round-half-even."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((cin, cout)).astype(np.float32)
+    halves = np.array([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5, -3.5], np.float32)
+    w[:, 0] = np.resize(halves, cin)
+    w[0, 0] = 7.0
+    w[:, 1] = -np.resize(halves, cin)
+    w[0, 1] = -7.0
+    return w
+
+
+def _np(t):
+    return np.array(t)  # a writable copy for torch.from_numpy
+
+
+# ------------------------------------------------------------------ packers
+
+
+@pytest.mark.parametrize("name", ["quantize_int4_paired", "quantize_int4"])
+def test_int4_packers_are_bit_exact(name):
+    import jax.numpy as jnp
+
+    from supir_tpu.ops import quantize as JQ
+
+    w = _weights(0, 64, 48)
+    want_q, want_s = getattr(JQ, name)(jnp.asarray(w))
+    got_q, got_s = getattr(Q, name)(torch.from_numpy(w))
+    assert got_q.dtype == torch.uint8 and got_s.dtype == torch.float32
+    np.testing.assert_array_equal(got_q.numpy(), _np(want_q))
+    np.testing.assert_array_equal(got_s.numpy(), _np(want_s))
+    unpack = Q.unpack_int4_paired if name == "quantize_int4_paired" else Q.unpack_int4
+    junpack = JQ.unpack_int4_paired if name == "quantize_int4_paired" else JQ.unpack_int4
+    np.testing.assert_array_equal(unpack(got_q).numpy(), _np(junpack(want_q)))
+    # the half steps of column 0 round to even: 0.5 -> 0, 1.5 -> 2, 2.5 -> 2
+    assert unpack(got_q)[1:4, 0].tolist() == [2, 2, 0]
+
+
+def test_int4_packers_refuse_odd_cin():
+    with pytest.raises(ValueError):
+        Q.quantize_int4_paired(torch.zeros(5, 8))
+
+
+def test_int8_nearest_is_bit_exact():
+    import jax.numpy as jnp
+
+    from supir_tpu.ops.quantize import quantize_int8
+
+    w = _weights(1, 96, 40) * 3.0
+    want_q, want_s = quantize_int8(jnp.asarray(w), interpret=True)  # nearest off the TPU
+    got_q, got_s = Q.quantize_int8(torch.from_numpy(w), stochastic=False)
+    assert got_q.dtype == torch.int8
+    np.testing.assert_array_equal(got_q.numpy(), _np(want_q))
+    np.testing.assert_array_equal(got_s.numpy(), _np(want_s))
+
+
+def test_int8_stochastic_plain():
+    """floor(w / scale + u): every value on floor or ceil of w / scale,
+    seeded, and unbiased over many draws (mean within 4 sigma of w)."""
+    w = torch.from_numpy(_weights(2, 64, 32))
+    q0, s = Q.quantize_int8_plain(w)
+    scaled = w / s
+    draws = []
+    for seed in range(64):
+        q, s2 = Q.quantize_int8(w, seed=seed)
+        torch.testing.assert_close(s2, s, rtol=0, atol=0)
+        assert ((q.float() == scaled.floor()) | (q.float() == scaled.ceil())).all()
+        draws.append(q.float())
+    a, b = Q.quantize_int8(w, seed=5)[0], Q.quantize_int8(w, seed=5)[0]
+    assert torch.equal(a, b) and not torch.equal(a, Q.quantize_int8(w, seed=6)[0])
+    mean = torch.stack(draws).mean(0)
+    # each draw's error is a Bernoulli step of 1 (variance <= 1/4)
+    sigma = 0.5 / len(draws) ** 0.5
+    assert ((mean - scaled).abs() <= 4 * sigma + 1e-6).float().mean() > 0.999
+    assert ((mean - scaled).abs() <= 6 * sigma).all()
+    # nearest mode is the u = None plain version
+    torch.testing.assert_close(Q.quantize_int8(w, stochastic=False)[0], q0, rtol=0, atol=0)
+
+
+# ---------------------------------------------------- plain versions vs JAX
+
+
+def _x(seed, b, cin, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal((b, cin)) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("prologue", ["none", "norm", "siluglu"])
+@pytest.mark.parametrize("with_residual", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_plain_matches_jax(prologue, with_residual, dtype):
+    import jax.numpy as jnp
+
+    from supir_tpu.ops import quantize as JQ
+
+    cin, cout, b = 128, 96, 3
+    packed, scale = JQ.quantize_int4_paired(jnp.asarray(_weights(3, cin, cout)))
+    x = _x(4, b, 2 * cin if prologue == "siluglu" else cin, 2.0)
+    gamma = (1.0 + 0.1 * np.random.default_rng(5).standard_normal(cin)).astype(np.float32)
+    residual = _x(6, b, cout) if with_residual else None
+    kw = dict(eps=1e-6, siluglu=prologue == "siluglu")
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = JQ.int4_paired_fused_matmul(
+        jnp.asarray(x, jdt), packed, scale, gamma=jnp.asarray(gamma) if prologue == "norm" else None,
+        residual=None if residual is None else jnp.asarray(residual), **kw)
+    got = Q.int4_paired_fused_matmul(
+        torch.from_numpy(x).to(tdt), torch.from_numpy(_np(packed)), torch.from_numpy(_np(scale)),
+        gamma=torch.from_numpy(gamma) if prologue == "norm" else None,
+        residual=None if residual is None else torch.from_numpy(residual), **kw)
+    assert got.dtype == torch.float32 and got.shape == (b, cout)
+    tol = dict(atol=ATOL, rtol=RTOL) if dtype == "float32" else dict(atol=BF16_TOL, rtol=BF16_TOL)
+    np.testing.assert_allclose(got.numpy(), _np(want), **tol)
+
+
+def test_paired_plain_matches_jax():
+    import jax.numpy as jnp
+
+    from supir_tpu.ops import quantize as JQ
+
+    packed, scale = JQ.quantize_int4_paired(jnp.asarray(_weights(7, 256, 64)))
+    x = _x(8, 5, 256)
+    want = JQ.int4_paired_matmul(jnp.asarray(x), packed, scale)
+    got = Q.int4_paired_matmul(torch.from_numpy(x), torch.from_numpy(_np(packed)),
+                               torch.from_numpy(_np(scale)))
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qmm_plain_matches_jax(bits):
+    """int8_matmul / int4_matmul against the JAX functions (XLA fallback) and
+    the Pallas `_qmm` kernel in interpret mode, as tests/test_quantize.py runs
+    it; bf16 activations, both sides' fp32 accumulation."""
+    import jax.numpy as jnp
+
+    from supir_tpu.ops import quantize as JQ
+
+    cin, cout = 512, 256
+    w = jnp.asarray(_weights(9, cin, cout))
+    q, s = JQ.quantize_int8(w, interpret=True) if bits == 8 else JQ.quantize_int4(w)
+    x = jnp.asarray(_x(10, 3, cin), jnp.bfloat16)
+    fn = JQ.int8_matmul if bits == 8 else JQ.int4_matmul
+    want = fn(x, q, s)
+    want_kernel = JQ._qmm(x, q, s, bits=bits, interpret=True)
+    xt = torch.from_numpy(np.asarray(x.astype(jnp.float32))).to(torch.bfloat16)
+    qt, st = torch.from_numpy(_np(q)), torch.from_numpy(_np(s))
+    got = (Q.int8_matmul if bits == 8 else Q.int4_matmul)(xt, qt, st)
+    torch.testing.assert_close(got, Q.qmm(xt, qt, st, bits), rtol=0, atol=0)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got.numpy(), _np(want_kernel), atol=ATOL, rtol=RTOL)
+
+
+def test_cpu_tensors_and_prefill_rows_never_reach_a_kernel():
+    counters = (Q.int4_paired_fused_matmul, Q.int4_paired_matmul, Q.qmm, Q.quantize_int8)
+    for fn in counters:
+        fn.launches = 0
+    w = torch.from_numpy(_weights(11, 64, 32))
+    packed, scale = Q.quantize_int4_paired(w)
+    for rows in (1, Q.DECODE_ROWS + 1):
+        x = torch.randn(rows, 64)
+        Q.int4_paired_fused_matmul(x, packed, scale, gamma=torch.ones(64))
+        Q.int4_paired_matmul(x, packed, scale)
+        Q.int4_matmul(x, *Q.quantize_int4(w))
+        Q.int8_matmul(x, *Q.quantize_int8(w))
+    assert all(fn.launches == 0 for fn in counters)
+
+
+def test_wrappers_refuse_bad_arguments():
+    packed, scale = Q.quantize_int4_paired(torch.randn(64, 32))
+    with pytest.raises(ValueError):
+        Q.int4_paired_fused_matmul(torch.randn(2, 64), packed, scale, gamma=torch.ones(64), siluglu=True)
+    with pytest.raises(ValueError):
+        Q.qmm(torch.randn(2, 64), packed, scale, bits=2)
+
+
+# ------------------------------------------------------------- on the card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel_l2(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def _card_weights(g, cin, cout, device):
+    return torch.randn(cin, cout, generator=g, device=device) * cin ** -0.5
+
+
+def _swap_nibbles(packed):
+    return ((packed >> 4) | (packed << 4)).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 32])
+@pytest.mark.parametrize("cin,cout,prologue,with_residual", [
+    (512, 1536, "norm", False),
+    (512, 512, "none", True),
+    (1536, 512, "siluglu", True),
+    (640, 264, "norm", True),
+])
+def test_fused_kernel_matches_plain(cuda, rows, cin, cout, prologue, with_residual):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    packed, scale = Q.quantize_int4_paired(_card_weights(g, cin, cout, cuda))
+    x = torch.randn(rows, 2 * cin if prologue == "siluglu" else cin, generator=g, device=cuda).to(torch.bfloat16)
+    gamma = 1.0 + 0.1 * torch.randn(cin, generator=g, device=cuda) if prologue == "norm" else None
+    residual = torch.randn(rows, cout, generator=g, device=cuda) if with_residual else None
+    kw = dict(gamma=gamma, siluglu=prologue == "siluglu", residual=residual)
+    before = Q.int4_paired_fused_matmul.launches
+    got = Q.int4_paired_fused_matmul(x, packed, scale, **kw)
+    torch.cuda.synchronize()
+    assert Q.int4_paired_fused_matmul.launches == before + 1
+    want = Q.int4_paired_fused_matmul_plain(x.float(), packed, scale, **kw)
+    assert _rel_l2(got, want) <= CARD_REL_BOUND
+    swapped = Q.int4_paired_fused_matmul(x, _swap_nibbles(packed), scale, **kw)
+    assert _rel_l2(swapped, want) > CARD_REL_BOUND
+    if prologue == "norm":
+        no_gamma = Q.int4_paired_fused_matmul(x, packed, scale, **dict(kw, gamma=torch.ones_like(gamma)))
+        assert _rel_l2(no_gamma, want) > CARD_REL_BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 5, 32])
+def test_paired_and_qmm_kernels_match_plain(cuda, rows):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    w = _card_weights(g, 1024, 768, cuda)
+    x = torch.randn(rows, 1024, generator=g, device=cuda).to(torch.bfloat16)
+    packed, scale = Q.quantize_int4_paired(w)
+    got = Q.int4_paired_matmul(x, packed, scale)
+    assert _rel_l2(got, Q.int4_paired_matmul_plain(x.float(), packed, scale)) <= CARD_REL_BOUND
+    q8, s8 = Q.quantize_int8(w, stochastic=False)
+    assert _rel_l2(Q.int8_matmul(x, q8, s8), Q.qmm_plain(x.float(), q8, s8, 8)) <= CARD_REL_BOUND
+    q4, s4 = Q.quantize_int4(w)
+    want4 = Q.qmm_plain(x.float(), q4, s4, 4)
+    assert _rel_l2(Q.int4_matmul(x, q4, s4), want4) <= CARD_REL_BOUND
+    # in the half-split layout, swapping the nibbles swaps the two halves
+    assert _rel_l2(Q.int4_matmul(x, _swap_nibbles(q4), s4), want4) > CARD_REL_BOUND
+
+
+@pytest.mark.gpu
+def test_quantize_int8_kernel(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    w = torch.randn(1000, 264, generator=g, device=cuda)
+    q, s = Q.quantize_int8(w, stochastic=False)
+    want_q, want_s = Q.quantize_int8_plain(w)
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+    scaled = w / s
+    a = Q.quantize_int8(w, seed=3)[0]
+    assert torch.equal(a, Q.quantize_int8(w, seed=3)[0])
+    assert ((a.float() == scaled.floor()) | (a.float() == scaled.ceil())).all()
+    mean = torch.stack([Q.quantize_int8(w, seed=i)[0].float() for i in range(64)]).mean(0)
+    assert ((mean - scaled).abs() <= 6 * 0.5 / 8).all()
+
+
+@pytest.mark.gpu
+def test_gemv_kernels_refuse_what_they_do_not_take(cuda):
+    packed, scale = Q.quantize_int4_paired(torch.randn(64, 32, device=cuda))
+    with pytest.raises(TypeError):
+        Q.int4_paired_matmul(torch.randn(2, 64, device=cuda), packed, scale)  # fp32
+    with pytest.raises(ValueError):
+        Q.int4_paired_matmul(torch.randn(2, 66, device=cuda).to(torch.bfloat16), packed, scale)
+    packed12, scale12 = Q.quantize_int4_paired(torch.randn(64, 12, device=cuda))
+    with pytest.raises(ValueError):
+        Q.int4_paired_matmul(torch.randn(2, 64, device=cuda).to(torch.bfloat16), packed12, scale12)
