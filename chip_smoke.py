@@ -7,15 +7,17 @@
 Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is switched off for matmuls and cuDNN convolutions.
-  2. build: the CUDA C++ kernels (K1, K5-K7, K8; one nvcc per source, all
-     at once, into build/supir_tpu_torch/) with ptxas' registers and spills,
-     and K2 (Triton).
+  2. build: the CUDA C++ kernels (K1 and K3, K4, K5-K7, K8; one nvcc per
+     source, all at once, into build/supir_tpu_torch/) with ptxas' registers
+     and spills, and K2 (Triton).
   3. kernels against their plain PyTorch versions on the card, with
      CUDA-event times of both, the least time the card could take (bound)
      and, where one PyTorch call computes the same function, its time:
      K1 and K2 at the restore path's shapes, K1 causal, and K5, K6, K7 and
-     K8 at the 13B captioner's decode shapes for 1 and 8 rows. Each is held
-     to a stated bound, and planted faults must break it.
+     K8 at the 13B captioner's decode shapes for 1 and 8 rows, and K3 (the
+     forward with logsumexp) and K4 (the backward) at the training path's
+     shapes and causal at Llama-13B's. Each is held to a stated bound, and
+     planted faults must break it.
   4. main path: a full-width SDXL/SUPIR engine (XL-base, bf16, random
      weights from a seeded CUDA generator) restores one image through
      SUPIREngine.batchify_sample with bench.py's headline settings: a
@@ -41,6 +43,20 @@ Phases, each printing its own lines:
      prefill logits and the logits of decode steps teacher-forced on the
      CPU's tokens must agree; a planted fault (nibble order swapped) must
      break the bound.
+  8. train: the full-width SUPIR control-path trainer (XL-base, fp32
+     parameters, bf16 autocast, remat; AdamW at lr 1e-5, EMA 0.9999; every
+     leaf random) takes 3 steps on a 1024^2 latent: s/step split into
+     forward+backward, optimizer and EMA, peak memory, each loss; frozen
+     leaves must stay bit-identical, every trainable leaf and the EMA must
+     move, and K1, K2, K3 and K4 must launch as often as the config says.
+     One more forward+backward holds every K3 and K4 call to its fp32 plain
+     version, and torch.profiler reads one step.
+  9. train reference: a reduced-width trainer takes one step on the card
+     (bf16, kernels) and on the CPU (fp32, plain versions) from the same
+     state with the same sigma and noise: the loss and the gradients of
+     each group (control net, UNet middle+decoder, adapters) must agree;
+     a planted fault (every gradient site sent to K1/K2, detached) must
+     break the bound.
 Then one JSON line with each kernel's numbers, the card line, and last
 `{"ok": true, "device": {...}}`. There is no fallback: without a CUDA
 device, or outside a checkout of the repository, it exits non-zero before
@@ -62,6 +78,11 @@ import time
 SIZE = 1024  # image side of the main path, as bench.py's headline
 SEED = 0
 K1_REL_BOUND = 1e-2   # K1 against its fp32 plain version, relative L2
+K3_LSE_BOUND = 1e-3   # K3's lse against the fp32 plain version, max abs
+K4_REL_BOUND = 2e-2   # K4's dq, dk, dv against their fp32 plain versions, relative L2 each
+TRAIN_LOSS_BOUND = 2e-2  # reduced-width train step, card against CPU: loss, relative
+TRAIN_GRAD_BOUND = 5e-2  # ... and each parameter group's gradient, relative L2
+TRAIN_STEPS = 3       # full-width train steps: one warm-up, two timed
 REF_REL_BOUND = 5e-2  # reduced-width card (bf16, kernels) against CPU (fp32, plain), relative L2
 GEMV_REL_BOUND = 1e-2  # K5-K7 against their fp32 plain versions, relative L2
 CAP_REF_REL_BOUND = 5e-2  # reduced-width captioner logits, card against CPU, relative L2
@@ -229,6 +250,7 @@ def phase_build():
     from supir_tpu_torch.ops import cuda_build, groupnorm as k2
     from supir_tpu_torch.ops import flash_attention as k1, quantize as kq
 
+    # K1 and K3 share flash_attn_fwd.cu; K4 is flash_attn_bwd.cu
     sources = k1.SOURCES + kq.SOURCES
     t0 = time.perf_counter()
     seconds = cuda_build.build_all(sources)
@@ -641,32 +663,43 @@ def phase_main(steps: int, repeat: int):
 
 def _randomize_all(model, seed: int):
     """Fill every parameter, zero-initialised layers included, so that the
-    whole network reaches the output."""
+    whole network reaches the output (and, in training, every leaf gets a
+    gradient from the first step). Draws on the parameters' device."""
     import torch
 
-    g = torch.Generator().manual_seed(seed)
+    device = next(model.parameters()).device
+    g = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
+            noise = torch.randn(p.shape, generator=g, device=device)
             if p.dim() > 1:
-                p.copy_(torch.randn(p.shape, generator=g) * p[0].numel() ** -0.5)
+                p.copy_(noise * p[0].numel() ** -0.5)
             elif name.endswith("weight"):
-                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=g))
+                p.copy_(1.0 + 0.1 * noise)
             else:
-                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+                p.copy_(0.1 * noise)
+
+
+def _reduced_cfg():
+    """The references' reduced width: model_channels 128, transformer depth
+    1 per level, 64-wide heads, context and ADM 256, VAE ch 32. At 512^2 its
+    32^2 level's self-attention (1024 tokens) still reaches flash attention."""
+    from supir_tpu_torch.config import ControlConfig, SUPIRConfig, UNetConfig, VAEConfig
+
+    unet = dataclasses.replace(UNetConfig(), model_channels=128, transformer_depth=(1, 1, 1),
+                               context_dim=256, adm_in_channels=256)
+    return SUPIRConfig(unet=unet, vae=VAEConfig().tiny(), control=ControlConfig().scaled_for(unet))
 
 
 def phase_reference():
     import torch
 
-    from supir_tpu_torch.config import ControlConfig, SUPIRConfig, UNetConfig, VAEConfig
     from supir_tpu_torch.engine.factory import build_model, create_engine
     from supir_tpu_torch.engine.supir import SUPIREngine
     from supir_tpu_torch.ops.flash_attention import flash_attention
     from supir_tpu_torch.ops.groupnorm import group_norm
 
-    unet = dataclasses.replace(UNetConfig(), model_channels=128, transformer_depth=(1, 1, 1),
-                               context_dim=256, adm_in_channels=256)
-    cfg = SUPIRConfig(unet=unet, vae=VAEConfig().tiny(), control=ControlConfig().scaled_for(unet))
+    cfg = _reduced_cfg()
     size = 512
     cpu_cfg = dataclasses.replace(cfg, ae_dtype="fp32", diffusion_dtype="fp32")
     cpu_model = build_model(cpu_cfg, "cpu", seed=SEED)
@@ -982,6 +1015,470 @@ def phase_captioner_reference(image):
         del cpu, card
 
 
+# ------------------------------------------------------------- training
+
+LOG2E = 1.4426950408889634
+# K3/K4 at the training path's two self-attention shapes (the 64^2 and 32^2
+# levels of a 1024^2 latent, batch 1) and causal at Llama-13B's heads
+FLASH_TRAIN_SHAPES = ((1, 4096, 10, 64, False), (1, 1024, 20, 64, False), (1, 2048, 40, 128, True))
+
+
+def _flash_flops(b: int, s: int, h: int, d: int, causal: bool, products: int) -> int:
+    """Operations of `products` [S x T x D] products (two per multiply-add)
+    over the query-key pairs the mask keeps (S == T)."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 2 * products * b * h * pairs * d
+
+
+def _k4_rels(grads, want):
+    return [rel_l2(a, w) for a, w in zip(grads, want)]
+
+
+def phase_flash_train_kernels():
+    """K3 and K4 against their fp32 plain versions at FLASH_TRAIN_SHAPES,
+    with planted faults; returns each kernel's JSON numbers (times at the
+    first shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from supir_tpu_torch.ops.flash_attention import (
+        attention_bwd_plain,
+        attention_fwd_lse_plain,
+        flash_attention_bwd,
+        flash_attention_fwd_lse,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4242)
+    rows = {"K3": [], "K4": []}
+    for b, s, h, d, causal in FLASH_TRAIN_SHAPES:
+        tag = f"[{b},{s},{h},{d}]{' causal' if causal else ''}"
+        q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16) for _ in range(4))
+        out, lse = flash_attention_fwd_lse(q, k, v, causal)
+        want_out, want_lse = attention_fwd_lse_plain(q.float(), k.float(), v.float(), causal)
+        rel, lse_err = rel_l2(out, want_out), (lse - want_lse).abs().max().item()
+        # K4 on K3's residuals; its plain version on the same values in fp32
+        grads = flash_attention_bwd(q, k, v, out, lse, dout, causal)
+        want = attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse, dout.float(), causal)
+        rels = _k4_rels(grads, want)
+        same = all(torch.equal(a, a2) for a, a2 in zip(grads, flash_attention_bwd(q, k, v, out, lse, dout, causal)))
+
+        k3_ms = cuda_ms(lambda: flash_attention_fwd_lse(q, k, v, causal), 20)
+        k3_plain = cuda_ms(lambda: attention_fwd_lse_plain(q, k, v, causal), 5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        k3_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), 20)
+        k3_bound, k3_by = bound(nbytes(q, k, v, out, lse), _flash_flops(b, s, h, d, causal, 2))
+        k4_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout, causal), 20)
+        k4_plain = cuda_ms(lambda: attention_bwd_plain(q, k, v, out, lse, dout, causal), 5)
+        # the library yardstick: SDPA's backward alone, through autograd
+        leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        lib_grad = dout.transpose(1, 2)
+        k4_lib = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, lib_grad, retain_graph=True), 20)
+        k4_bound, k4_by = bound(nbytes(q, k, v, out, dout, lse, *grads), _flash_flops(b, s, h, d, causal, 5))
+        del leaves, lib_out
+        log(f"[kernels] K3 {tag} bf16 vs fp32 plain: out rel_l2 {rel:.3e} (bound {K1_REL_BOUND:g}), lse max_abs_err "
+            f"{lse_err:.3e} (bound {K3_LSE_BOUND:g}); {k3_ms:.3f} ms vs plain {k3_plain:.3f} ms, SDPA forward "
+            f"{k3_lib:.3f} ms, bound {k3_bound:.4f} ms ({k3_by})")
+        log(f"[kernels] K4 {tag} bf16 vs fp32 plain: rel_l2 dq {rels[0]:.3e}, dk {rels[1]:.3e}, dv {rels[2]:.3e} "
+            f"(bound {K4_REL_BOUND:g} each), two runs bit-identical {same}; {k4_ms:.3f} ms vs plain "
+            f"{k4_plain:.3f} ms, SDPA backward {k4_lib:.3f} ms, bound {k4_bound:.4f} ms ({k4_by})")
+        _check_rel(f"K3 {tag}", rel, K1_REL_BOUND)
+        if not lse_err <= K3_LSE_BOUND:
+            raise AssertionError(f"K3 {tag}: lse max_abs_err {lse_err} over {K3_LSE_BOUND}")
+        _check_rel(f"K4 {tag}", max(rels), K4_REL_BOUND)
+        if not same:
+            raise AssertionError(f"K4 {tag}: two runs differ")
+
+        # planted faults: lse in log2 units (K3's exp2 bookkeeping slipped),
+        # delta dropped (zero O gives delta 0), dK without its scale
+        log2_lse = lse * LOG2E
+        _check_fault(f"K3 lse in log2 units {tag}: lse max_abs_err", (log2_lse - want_lse).abs().max().item(),
+                     K3_LSE_BOUND)
+        _check_fault(f"K4 given lse in log2 units {tag}",
+                     max(_k4_rels(flash_attention_bwd(q, k, v, out, log2_lse, dout, causal), want)), K4_REL_BOUND)
+        _check_fault(f"K4 delta dropped {tag}", max(_k4_rels(
+            flash_attention_bwd(q, k, v, torch.zeros_like(out), lse, dout, causal), want)), K4_REL_BOUND)
+        _check_fault(f"K4 dK without scale {tag}", rel_l2(grads[1] * d ** 0.5, want[1]), K4_REL_BOUND)
+        rows["K3"].append(dict(max_abs_err=(out.float() - want_out).abs().max().item(), ms=k3_ms,
+                               plain_ms=k3_plain, library_ms=k3_lib, bound_ms=k3_bound, bound_by=k3_by))
+        rows["K4"].append(dict(max_abs_err=max((a.float() - w).abs().max().item() for a, w in zip(grads, want)),
+                               ms=k4_ms, plain_ms=k4_plain, library_ms=k4_lib, bound_ms=k4_bound, bound_by=k4_by))
+        del q, k, v, dout, out, lse, grads, want, want_out, want_lse
+        torch.cuda.empty_cache()
+    return {name: dict(r[0], max_abs_err=max(x["max_abs_err"] for x in r)) for name, r in rows.items()}
+
+
+def expected_train_launches(cfg, lat: int, remat: bool) -> dict:
+    """Kernel launches of one train step, derived from the config. K1 runs
+    at the frozen UNet encoder's flash sites (nothing there is
+    differentiated); K3 and K4 at every flash site that trains (the control
+    net's encoder and middle, the UNet's middle and decoder, the
+    ZeroCrossAttns), K3 twice where remat recomputes the SpatialTransformer
+    in the backward pass (all but the ZeroCrossAttns); K2 at the frozen
+    encoder's GroupNorms, two per ResBlock and one per SpatialTransformer.
+    Every other GroupNorm is differentiated and takes the plain form."""
+    from supir_tpu_torch.ops.attention import flash_eligible
+
+    u = cfg.unet
+    frozen = transformer = xattn = 0
+    for level in range(u.levels):
+        ds = 2**level
+        tokens = (lat // ds) ** 2
+        if ds in u.attention_resolutions and flash_eligible(tokens, tokens, u.num_head_channels):
+            frozen += u.num_res_blocks * u.transformer_depth[level]             # UNet encoder
+            transformer += u.num_res_blocks * u.transformer_depth[level]        # control encoder
+            transformer += (u.num_res_blocks + 1) * u.transformer_depth[level]  # UNet decoder
+        if level > 0 and flash_eligible(tokens, tokens, 64):
+            xattn += 1
+    mid = (lat // 2 ** (u.levels - 1)) ** 2
+    if (2 ** (u.levels - 1)) in u.attention_resolutions and flash_eligible(mid, mid, u.num_head_channels):
+        transformer += 2 * u.middle_depth
+    if frozen + transformer + xattn != expected_flash_sites(cfg, lat):
+        raise AssertionError("the training site count disagrees with expected_flash_sites")
+    encoder_transformers = sum(u.num_res_blocks for level in range(u.levels) if 2**level in u.attention_resolutions)
+    return {"K1": frozen, "K2": 2 * u.levels * u.num_res_blocks + encoder_transformers,
+            "K3": transformer * (2 if remat else 1) + xattn, "K4": transformer + xattn}
+
+
+def _train_counters():
+    from supir_tpu_torch.ops import flash_attention as fa
+    from supir_tpu_torch.ops.groupnorm import group_norm
+
+    return {"K1": fa.flash_attention, "K2": group_norm, "K3": fa.flash_attention_fwd_lse,
+            "K4": fa.flash_attention_bwd}
+
+
+class _Watched:
+    """A kernel wrapper that runs `check(result, *args)` after each call.
+    It stands in the wrapper's own module, where the wrapper counts its
+    launches through its module-level name, so `launches` here is the
+    wrapped function's: a launch counts once, whichever name it goes by."""
+
+    def __init__(self, fn, check):
+        self.fn, self.check = fn, check
+
+    def __call__(self, *args):
+        result = self.fn(*args)
+        self.check(result, *args)
+        return result
+
+    launches = property(lambda self: self.fn.launches, lambda self, n: setattr(self.fn, "launches", n))
+
+
+@contextlib.contextmanager
+def flash_train_sites():
+    """Hold every K3 and K4 call to its fp32 plain version on that call's
+    inputs (K4's plain version on K4's own residuals); the readings land in
+    the dict this yields."""
+    from supir_tpu_torch.ops import flash_attention as fa
+
+    readings = {"K3 out": [], "K3 lse": [], "K4": []}
+    k3, k4 = fa.flash_attention_fwd_lse, fa.flash_attention_bwd
+
+    def check_k3(result, q, k, v, causal=False):
+        out, lse = result
+        want_out, want_lse = fa.attention_fwd_lse_plain(q.float(), k.float(), v.float(), causal)
+        readings["K3 out"].append(rel_l2(out, want_out))
+        readings["K3 lse"].append((lse - want_lse).abs().max().item())
+
+    def check_k4(grads, q, k, v, out, lse, dout, causal=False):
+        want = fa.attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse, dout.float(), causal)
+        readings["K4"].append(max(_k4_rels(grads, want)))
+
+    fa.flash_attention_fwd_lse, fa.flash_attention_bwd = _Watched(k3, check_k3), _Watched(k4, check_k4)
+    try:
+        yield readings
+    finally:
+        fa.flash_attention_fwd_lse, fa.flash_attention_bwd = k3, k4
+
+
+def _check_train_sites(label: str, readings) -> None:
+    log(f"[{label}] every K3/K4 call vs fp32 plain: {len(readings['K3 out'])} K3 calls, worst out rel_l2 "
+        f"{max(readings['K3 out']):.3e} (bound {K1_REL_BOUND:g}), worst lse max_abs_err {max(readings['K3 lse']):.3e} "
+        f"(bound {K3_LSE_BOUND:g}); {len(readings['K4'])} K4 calls, worst rel_l2 {max(readings['K4']):.3e} "
+        f"(bound {K4_REL_BOUND:g})")
+    if not (max(readings["K3 out"]) <= K1_REL_BOUND and max(readings["K3 lse"]) <= K3_LSE_BOUND
+            and max(readings["K4"]) <= K4_REL_BOUND):
+        raise AssertionError(f"{label}: a K3/K4 site disagrees with its plain version")
+
+
+@contextlib.contextmanager
+def detached_grad_sites():
+    """Planted fault: the port before its repair. Every attention and
+    GroupNorm site that trains runs K1 or K2 on detached inputs, so no
+    gradient flows through it."""
+    from supir_tpu_torch.models import layers
+    from supir_tpu_torch.ops import attention as attn_ops
+    from supir_tpu_torch.ops.flash_attention import flash_attention
+    from supir_tpu_torch.ops.groupnorm import group_norm
+
+    class Detached:
+        @staticmethod
+        def apply(q, k, v, causal=False):
+            return flash_attention(q.detach(), k.detach(), v.detach(), causal=causal)
+
+    def detached_norm(x, w, b, groups=32, eps=1e-5, silu=False):
+        return group_norm(x.detach().contiguous(), w.detach(), b.detach(), groups, eps, silu)
+
+    saved = attn_ops.FlashAttention, layers.group_norm_plain
+    attn_ops.FlashAttention, layers.group_norm_plain = Detached, detached_norm
+    try:
+        yield
+    finally:
+        attn_ops.FlashAttention, layers.group_norm_plain = saved
+
+
+def _bit_sums(tensors):
+    """Per tensor, the int64 sum of its fp32 bit patterns: it changes when
+    an element changes (short of a cancellation no optimizer step makes)."""
+    import torch
+
+    return torch.stack([t.detach().view(torch.int32).sum(dtype=torch.int64) for t in tensors]).cpu()
+
+
+# kernel name -> category of the train profile; the first match wins
+TRAIN_PROFILE_GROUPS = (
+    ("K1 (flash_fwd_kernel<D, false>)", lambda k: "flash_fwd_kernel<" in k and "false>" in k),
+    ("K3 (flash_fwd_kernel<D, true>)", lambda k: "flash_fwd_kernel<" in k and "true>" in k),
+    ("K4 (flash_bwd_*)", lambda k: "flash_bwd" in k),
+    ("K2 (_gn_*)", lambda k: "_gn_" in k),
+    ("convolutions (cuDNN, with its layout transposes)",
+     lambda k: any(w in k for w in ("cudnn", "fprop", "dgrad", "wgrad", "conv", "Conv"))),
+    ("GEMMs (cuBLAS)", lambda k: any(w in k for w in ("nvjet", "gemm", "Gemm", "xmma", "cutlass"))),
+    ("optimizer and EMA (multi_tensor_apply)", lambda k: "multi_tensor_apply" in k),
+    ("copies and casts", lambda k: "copy_kernel" in k),
+    ("everything else (elementwise, reductions, norms)", lambda k: True),
+)
+
+
+def profile_train_step(trainer, z, cond, generator):
+    """torch.profiler over one train step: wall time, device busy share,
+    device time by category (TRAIN_PROFILE_GROUPS) and the top 12 kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(z, cond, generator)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # kernels only: the optimizer's annotation carries device time too
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
+    busy = sum(r[1] for r in rows) / 1e3  # ms
+    log(f"[profile train] one step: wall {wall:.3f} s with the profiler on, device busy {busy:.1f} ms "
+        f"({busy / (wall * 1e3):.1%}), {sum(r[2] for r in rows)} kernels")
+    sums = {name: [0.0, 0] for name, _ in TRAIN_PROFILE_GROUPS}
+    for key, us, count in rows:
+        name = next(n for n, match in TRAIN_PROFILE_GROUPS if match(key))
+        sums[name][0] += us / 1e3
+        sums[name][1] += count
+    for name, (ms, count) in sums.items():
+        log(f"[profile train]   {name}: {ms:.1f} ms ({ms / busy:.1%} of busy), {count} kernels")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
+        log(f"[profile train]   {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+
+
+def phase_train():
+    """The full-width control-path trainer: TRAIN_STEPS steps, then one
+    forward+backward with every K3/K4 call checked, then a profiled step.
+    Returns the counted launches of the TRAIN_STEPS steps."""
+    import gc
+
+    import torch
+
+    from supir_tpu_torch.config import SUPIRConfig
+    from supir_tpu_torch.engine.factory import create_trainer
+    from supir_tpu_torch.models.layers import GroupNorm32
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = SUPIRConfig()
+    dev = torch.device("cuda")
+    lat = SIZE // cfg.vae.downscale_factor
+    t0 = time.perf_counter()
+    trainer = create_trainer(cfg, dev, seed=SEED, remat=True, learning_rate=1e-5, ema_decay=0.9999)
+    _randomize_all(trainer.engine.model, SEED + 8)
+    trainer.init_state()
+    torch.cuda.synchronize()
+    model = trainer.engine.model
+    n_train = sum(p.numel() for p in trainer.params.values())
+    n_all = sum(p.numel() for p in model.parameters())
+    log(f"[train] XL-base trainer, fp32 parameters, bf16 autocast, remat: {n_all / 1e9:.3f} B parameters, "
+        f"{n_train / 1e9:.3f} B train ({len(trainer.params)} leaves), {len(trainer.stopped)} stop-gradient leaves; "
+        f"AdamW lr 1e-5, EMA 0.9999; built and randomised on the card in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    z = torch.randn(1, lat, lat, 4, generator=g, device=dev)
+    cond = {"crossattn": torch.randn(1, 77, cfg.unet.context_dim, generator=g, device=dev),
+            "vector": torch.randn(1, cfg.unet.adm_in_channels, generator=g, device=dev),
+            "control": torch.randn(1, lat, lat, 4, generator=g, device=dev)}
+    frozen = {k: p for k, p in model.named_parameters() if not p.requires_grad}
+    frozen_saved = {k: p.detach().cpu() for k, p in frozen.items()}
+    params_before, ema_before = _bit_sums(trainer.params.values()), _bit_sums(trainer.ema_params.values())
+
+    split = {"optimizer": [], "ema": []}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            split[name].append(time.perf_counter() - t)
+            return out
+        return wrapper
+
+    trainer.optimizer.step = timed("optimizer", trainer.optimizer.step)
+    trainer.ema.update = timed("ema", trainer.ema.update)
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    GroupNorm32.plain_sites = 0
+    losses, steps, fwd_bwd = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.loss_and_grads(z, cond, g)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.apply_gradients()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        losses.append(loss.item())
+        steps.append(t2 - t0)
+        fwd_bwd.append(t1 - t0)
+        log(f"[train] step {i + 1}/{TRAIN_STEPS}{' (warm-up)' if i == 0 else ''}: loss {losses[-1]:.6g}, "
+            f"{steps[-1]:.3f} s (forward+backward {fwd_bwd[-1]:.3f} s, optimizer {split['optimizer'][-1]:.3f} s, "
+            f"EMA {split['ema'][-1]:.3f} s); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    plain_sites = GroupNorm32.plain_sites
+    n_timed = TRAIN_STEPS - 1
+    log(f"[train] {SIZE}^2 image (latent {lat}^2), batch 1: {sum(steps[1:]) / n_timed:.3f} s/step over {n_timed} "
+        f"timed steps (forward+backward {sum(fwd_bwd[1:]) / n_timed:.3f} s, optimizer "
+        f"{sum(split['optimizer'][1:]) / n_timed:.3f} s, EMA {sum(split['ema'][1:]) / n_timed:.3f} s); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    per_step = expected_train_launches(cfg, lat, remat=True)
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    log(f"[train] launches over {TRAIN_STEPS} steps {launches} (expected {want}: per step {per_step}); "
+        f"GroupNorm calls on the plain differentiable form {plain_sites} ({plain_sites // TRAIN_STEPS} per step)")
+    if launches != want:
+        raise AssertionError(f"train launches {launches}, expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    changed = [k for k, p in frozen.items() if not torch.equal(p.detach().cpu(), frozen_saved[k])]
+    unmoved = [k for k, a, b in zip(trainer.params, params_before, _bit_sums(trainer.params.values())) if a == b]
+    ema_unmoved = [k for k, a, b in zip(trainer.ema_params, ema_before, _bit_sums(trainer.ema_params.values()))
+                   if a == b]
+    log(f"[train] after {TRAIN_STEPS} steps: {len(frozen) - len(changed)}/{len(frozen)} frozen leaves bit-identical "
+        f"(stop-gradient UNet encoder and the VAE), {len(trainer.params) - len(unmoved)}/{len(trainer.params)} "
+        f"trainable leaves moved, {len(trainer.ema_params) - len(ema_unmoved)}/{len(trainer.ema_params)} EMA leaves moved")
+    if changed or unmoved or ema_unmoved:
+        raise AssertionError(f"frozen changed {changed[:3]}, trainable unmoved {unmoved[:3]}, "
+                             f"EMA unmoved {ema_unmoved[:3]}")
+    del frozen_saved
+
+    with flash_train_sites() as readings:
+        trainer.loss_and_grads(z, cond, g)
+    _check_train_sites("train", readings)
+    profile_train_step(trainer, z, cond, g)
+    del trainer, model, frozen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+GRAD_GROUPS = {
+    "control": ("model.control_model.",),
+    "UNet middle+decoder": ("model.diffusion_model.middle_block.", "model.diffusion_model.output_blocks.",
+                            "model.diffusion_model.out."),
+    "adapters": ("model.diffusion_model.project_modules.",),
+}
+
+
+def _group_rels(got, want):
+    """Relative L2 of each GRAD_GROUPS group's gradients, all its leaves
+    taken as one vector; a missing gradient counts as zero."""
+    rels = {}
+    for group, prefixes in GRAD_GROUPS.items():
+        keys = [k for k in want if k.startswith(prefixes)]
+        err = sum(float(((got[k] if got[k] is not None else 0.0) - want[k]).norm() ** 2) for k in keys)
+        rels[group] = (err / sum(float(want[k].norm() ** 2) for k in keys)) ** 0.5
+    return rels
+
+
+def phase_train_reference():
+    """One reduced-width train step on the card (bf16 autocast, kernels) and
+    on the CPU (fp32, plain versions) from the same state with the same
+    sigma and noise: loss and gradients must agree; the detached-sites
+    fault must break the bound."""
+    import torch
+
+    from supir_tpu_torch.diffusion.sigma_sampling import discrete_sampling
+    from supir_tpu_torch.engine.factory import create_trainer
+
+    cfg = _reduced_cfg()
+    size = 512
+    lat = size // cfg.vae.downscale_factor
+    cpu = create_trainer(cfg, "cpu", seed=SEED, remat=False)
+    _randomize_all(cpu.engine.model, SEED + 10)
+    card = create_trainer(cfg, "cuda", state_dict=cpu.engine.model.state_dict())
+    g = torch.Generator().manual_seed(SEED + 11)
+    z = torch.randn(1, lat, lat, 4, generator=g)
+    cond = {"crossattn": torch.randn(1, 77, cfg.unet.context_dim, generator=g),
+            "vector": torch.randn(1, cfg.unet.adm_in_channels, generator=g),
+            "control": torch.randn(1, lat, lat, 4, generator=g)}
+    sigma, _ = discrete_sampling(g, 1)
+    noise = torch.randn(1, lat, lat, 4, generator=g)
+
+    t0 = time.perf_counter()
+    want_loss = cpu.loss_and_grads(z, cond, sigma=sigma, noise=noise).item()
+    cpu_s = time.perf_counter() - t0
+    want = {k: p.grad for k, p in cpu.params.items()}
+    dev = torch.device("cuda")
+    args = (z.to(dev), {k: v.to(dev) for k, v in cond.items()})
+    kw = dict(sigma=sigma.to(dev), noise=noise.to(dev))
+
+    def step():
+        loss = card.loss_and_grads(*args, **kw).item()
+        return loss, {k: None if p.grad is None else p.grad.float().cpu() for k, p in card.params.items()}
+
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with flash_train_sites() as readings:
+        got_loss, got = step()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    expected = expected_train_launches(cfg, lat, remat=True)
+    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+    rels = _group_rels(got, want)
+    log(f"[train reference] reduced width, {size}^2, sigma {sigma.item():.4f}: card bf16 loss {got_loss:.6g} vs "
+        f"CPU fp32 {want_loss:.6g} ({cpu_s:.1f} s), relative {loss_rel:.3e} (bound {TRAIN_LOSS_BOUND:g}); gradients "
+        f"rel_l2 " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()) + f" (bound {TRAIN_GRAD_BOUND:g}); "
+        f"launches {launches} (expected {expected})")
+    _check_train_sites("train reference", readings)
+    if not (loss_rel <= TRAIN_LOSS_BOUND and max(rels.values()) <= TRAIN_GRAD_BOUND and math.isfinite(got_loss)):
+        raise AssertionError(f"train reference: card and CPU disagree (loss {loss_rel}, gradients {rels})")
+    if launches != expected:
+        raise AssertionError(f"train reference launched {launches}, expected {expected}")
+
+    with detached_grad_sites():
+        bad_loss, bad = step()
+    bad_rels = _group_rels(bad, want)
+    log(f"[train reference] control (gradient sites sent to K1/K2, detached): loss relative "
+        f"{abs(bad_loss - want_loss) / abs(want_loss):.3e}, gradients rel_l2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in bad_rels.items()))
+    if not max(bad_rels.values()) > TRAIN_GRAD_BOUND:
+        raise AssertionError(f"the train reference bound misses detached gradient sites: {bad_rels}")
+    del cpu, card
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4, help="RestoreEDM steps of the main path")
@@ -999,6 +1496,7 @@ def main() -> int:
     phase_build()
     results = phase_kernels()
     results.update(phase_quant_kernels())
+    results.update(phase_flash_train_kernels())
     launches = phase_main(args.steps, args.repeat)
     phase_reference()
     image = _caption_image()
@@ -1008,10 +1506,16 @@ def main() -> int:
         counted = phase_captioner(label, bits, fused_glue, image)
         launches.update({k: counted[k] for k in kernels_of_mode})
     phase_captioner_reference(image)
+    # K1 and K2 keep the restore path's counts; K3 and K4 run on the trainer's
+    train = phase_train()
+    launches.update({k: train[k] for k in ("K3", "K4")})
+    phase_train_reference()
 
     sources = {
         "K1": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:35"),
         "K2": ("triton", "supir_tpu_torch/ops/groupnorm.py", "supir_tpu/ops/groupnorm.py:40"),
+        "K3": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:164"),
+        "K4": ("cuda", "supir_tpu_torch/csrc/flash_attn_bwd.cu", "supir_tpu/ops/flash_attention.py:499"),
         "K5": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:260"),
         "K6": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:116"),
         "K7": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:606"),
@@ -1019,6 +1523,7 @@ def main() -> int:
     }
     # where each kernel's times were taken
     at = {"K1": "[2,4096,10,64] bf16", "K2": "[2,320,128,128] bf16, SiLU",
+          "K3": "[1,4096,10,64] bf16, with lse", "K4": "[1,4096,10,64] bf16, dq dk dv",
           "K5": "one 13B layer (qkv, o, gate-up, down), 1 row", "K6": "one 13B layer, 1 row",
           "K7": "one 13B layer, int8, 1 row", "K8": "one 13B layer's four fp32 kernels"}
     kernels = []

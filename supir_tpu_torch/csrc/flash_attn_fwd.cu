@@ -1,10 +1,21 @@
-// K1: flash-attention forward for Hopper (sm_90a), bf16 in/out, optionally causal.
+// K1 and K3: flash-attention forward for Hopper (sm_90a), bf16 in/out,
+// optionally causal; K3 also writes the row logsumexp.
 //
-// Replaces supir_tpu/ops/flash_attention.py:_attn_kernel_packed (:35) and
+// K1 replaces supir_tpu/ops/flash_attention.py:_attn_kernel_packed (:35) and
 // _attn_kernel_packed_single (:123), both launched from _flash_primal (:363).
 // The TPU pair exists because of TPU layout (128-lane head packing, one
 // closed-form variant when all keys fit one VMEM block); on the card one
 // kernel covers both.
+//
+// K3 replaces _attn_kernel (:164) with with_lse=True, launched from
+// _flash_fwd_lse (:434, pallas_call :459): the forward rule of the
+// flash_attention custom_vjp. It is the same kernel instantiated with
+// WITH_LSE, which also stores lse = logsumexp(scale * q k^T) per query row
+// in natural-log units, as the TPU kernel stores it (:233-239). The running
+// max m is kept in raw-score units and l sums exp2((s - m) * scale * log2 e),
+// so lse = m * scale + ln(l). The TPU stored it lane-broadcast as
+// [B*H, S_pad, 128] for its (8, 128) tiling; here it is a plain [B, H, S]
+// fp32 array. The backward (flash_attn_bwd.cu, K4) reads it.
 //
 // What it computes: O = softmax(Q K^T / sqrt(D)) V over q [B,S,H,D] and
 // k/v [B,T,H,D], read in place through their strides (the innermost dim
@@ -77,11 +88,11 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int valid,
   }
 }
 
-template <int D>
+template <int D, bool WITH_LSE>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                 int H, int S, int T,
+                 float* __restrict__ lse, int H, int S, int T,
                  long long qsb, long long qss, long long qsh,
                  long long ksb, long long kss, long long ksh,
                  long long vsb, long long vss, long long vsh,
@@ -218,22 +229,40 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         packed[i] = __floats2bfloat162_rn(acc[j + 2 * i] * inv, acc[j + 2 * i + 1] * inv);
       *reinterpret_cast<uint4*>(orow + j) = *reinterpret_cast<const uint4*>(packed);
     }
+    // both lanes of a row hold the same m and l; one writes the row's lse
+    if (WITH_LSE && half == 0)
+      lse[(long long)blockIdx.y * S + qrow] = m * scale_log2 * 0.6931471805599453f + logf(fmaxf(l, 1e-30f));
   }
 }
 
-template <int D>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+template <int D, bool WITH_LSE>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
                    int B, int H, int S, int T, const long long* st,
                    float scale_log2, int causal, cudaStream_t stream) {
   const size_t smem = Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<D, WITH_LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BM - 1) / BM, B * H);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, H, S, T, st[0], st[1], st[2], st[3], st[4], st[5],
+  flash_fwd_kernel<D, WITH_LSE><<<grid, THREADS, smem, stream>>>(
+      q, k, v, o, lse, H, S, T, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11], scale_log2, causal);
   return cudaGetLastError();
+}
+
+template <bool WITH_LSE>
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+             int B, int H, int S, int T, int D, int causal, const long long* st,
+             float scale, void* stream) {
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  bf16* ob = static_cast<bf16*>(o);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) return (int)launch<64, WITH_LSE>(qb, kb, vb, ob, lse, B, H, S, T, st, scale_log2, causal, s);
+  if (D == 128) return (int)launch<128, WITH_LSE>(qb, kb, vb, ob, lse, B, H, S, T, st, scale_log2, causal, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -251,13 +280,19 @@ extern "C" int supir_flash_attn_fwd_bf16(
     long long osb, long long oss, long long osh,
     float scale, void* stream) {
   const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh};
-  const float scale_log2 = scale * 1.4426950408889634f;
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  bf16* ob = static_cast<bf16*>(o);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch<64>(qb, kb, vb, ob, B, H, S, T, st, scale_log2, causal, s);
-  if (D == 128) return (int)launch<128>(qb, kb, vb, ob, B, H, S, T, st, scale_log2, causal, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(q, k, v, o, nullptr, B, H, S, T, D, causal, st, scale, stream);
+}
+
+// K3: the same, and lse [B, H, S] fp32 (contiguous) receives each query
+// row's natural-log logsumexp of the scaled scores.
+extern "C" int supir_flash_attn_fwd_lse_bf16(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int B, int H, int S, int T, int D, int causal,
+    long long qsb, long long qss, long long qsh,
+    long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh,
+    long long osb, long long oss, long long osh,
+    float scale, void* stream) {
+  const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh};
+  return dispatch<true>(q, k, v, o, static_cast<float*>(lse), B, H, S, T, D, causal, st, scale, stream);
 }

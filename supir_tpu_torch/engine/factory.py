@@ -1,5 +1,5 @@
-"""Engine construction: random init from a seed, or a given state dict
-(counterpart of supir_tpu/engine/factory.py).
+"""Engine and trainer construction: random init from a seed, or a given
+state dict (counterpart of supir_tpu/engine/factory.py).
 
 The modules are built on the meta device and materialised directly on the
 target device in the target dtype, so a full-width engine never exists as
@@ -18,6 +18,7 @@ import torch.nn as nn
 
 from supir_tpu_torch.config import SUPIRConfig
 from supir_tpu_torch.engine.supir import SUPIREngine, SUPIRModel
+from supir_tpu_torch.engine.training import SUPIRTrainer
 from supir_tpu_torch.models.layers import Conv, Dense, FusedLayerNorm, GroupNorm32
 from supir_tpu_torch.utils.device import resolve_device
 
@@ -40,12 +41,13 @@ def init_random(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model(cfg: SUPIRConfig, device, state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                seed: int = 0) -> SUPIRModel:
+                seed: int = 0, param_dtype: Optional[torch.dtype] = None) -> SUPIRModel:
     """SUPIRModel on `device`: filled from `state_dict` (strict) or, when
-    none is given, randomly from `seed`."""
+    none is given, randomly from `seed`; every parameter in `param_dtype`
+    if given, else in the config's dtypes."""
     device = resolve_device(device)
     with torch.device("meta"):
-        model = SUPIRModel(cfg)
+        model = SUPIRModel(cfg, param_dtype=param_dtype)
     model = model.to_empty(device=device)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
@@ -56,6 +58,21 @@ def build_model(cfg: SUPIRConfig, device, state_dict: Optional[Mapping[str, torc
 
 def create_engine(cfg: Optional[SUPIRConfig] = None, device="cuda",
                   state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                  seed: int = 0) -> SUPIREngine:
+                  seed: int = 0, param_dtype: Optional[torch.dtype] = None) -> SUPIREngine:
     cfg = cfg or SUPIRConfig()
-    return SUPIREngine(cfg, build_model(cfg, device, state_dict, seed))
+    return SUPIREngine(cfg, build_model(cfg, device, state_dict, seed, param_dtype))
+
+
+def create_trainer(cfg: Optional[SUPIRConfig] = None, device="cuda",
+                   state_dict: Optional[Mapping[str, torch.Tensor]] = None, seed: int = 0,
+                   remat: bool = True, learning_rate: float = 1e-5, weight_decay: float = 0.0,
+                   ema_decay: Optional[float] = 0.9999) -> SUPIRTrainer:
+    """A SUPIRTrainer over an engine with fp32 parameters (the JAX trainer's
+    default, `create_engine(param_dtype=None)`); on the card its steps run
+    under bf16 autocast. `remat` recomputes ResBlocks and
+    SpatialTransformers in the backward pass. Raises without a card unless
+    `device="cpu"`."""
+    engine = create_engine(cfg, device, state_dict, seed, param_dtype=torch.float32)
+    for name in ("diffusion_model", "control_model"):
+        engine.model.model[name].remat = remat
+    return SUPIRTrainer(engine, learning_rate, weight_decay, ema_decay)

@@ -31,17 +31,19 @@ from supir_tpu_torch.utils.colorfix import adaptive_instance_normalization, wave
 
 class SUPIRModel(nn.Module):
     """The restore path's modules under the reference's state-dict keys:
-    model.diffusion_model.*, model.control_model.*, first_stage_model.*."""
+    model.diffusion_model.*, model.control_model.*, first_stage_model.*.
+    Parameters are in the config's dtypes, or all in `param_dtype` if given
+    (the trainer's fp32 parameters)."""
 
-    def __init__(self, cfg: SUPIRConfig, device=None):
+    def __init__(self, cfg: SUPIRConfig, device=None, param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        diff = dict(device=device, dtype=dtype_of(cfg.diffusion_dtype))
+        diff = dict(device=device, dtype=param_dtype or dtype_of(cfg.diffusion_dtype))
         self.model = nn.ModuleDict({
             "diffusion_model": LightGLVUNet(cfg.unet, cfg.control, **diff),
             "control_model": GLVControl(cfg.unet, cfg.control.input_upscale, **diff),
         })
         self.first_stage_model = AutoencoderKL(
-            cfg.vae, device=device, dtype=dtype_of(cfg.ae_dtype)
+            cfg.vae, device=device, dtype=param_dtype or dtype_of(cfg.ae_dtype)
         )
 
 

@@ -151,8 +151,11 @@ class LightGLVUNet(UNetEncoder):
         x = x.to(dtype)
         context = context.to(dtype)
         control = [c.to(dtype) for c in control]
-        emb = self.embed_time(timesteps, y)
-        hs, h = self.encode(x, emb, context)
+        # the reference's no_grad region: time embedding and input blocks are
+        # frozen, the middle block, adapters and decoder train
+        # (supir_tpu/models/control.py:229, unet.py:158-160)
+        emb = self.embed_time(timesteps, y).detach()
+        hs, h = self.encode(x, emb, context, detach_inputs=True)
 
         adapter = len(self.project_modules) - 1
         ctrl_idx = len(control) - 1
@@ -164,13 +167,13 @@ class LightGLVUNet(UNetEncoder):
             h = self.project_modules[adapter](control[ctrl_idx], hs.pop(), h, control_scale=control_scale)
             adapter -= 1
             if isinstance(block[-1], Upsample):
-                h = run_block(block[:-1], h, emb, context)
+                h = run_block(block[:-1], h, emb, context, self.remat)
                 # ZeroCrossAttn before each Upsample
                 h = self.project_modules[adapter](control[ctrl_idx], h, control_scale=control_scale)
                 adapter -= 1
                 h = block[-1](h)
             else:
-                h = run_block(block, h, emb, context)
+                h = run_block(block, h, emb, context, self.remat)
             ctrl_idx -= 1
         if adapter != -1 or ctrl_idx != -1:
             raise RuntimeError(f"adapter/control bookkeeping off: {adapter}, {ctrl_idx}")

@@ -15,7 +15,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from supir_tpu_torch.ops.groupnorm import group_norm
+from supir_tpu_torch.ops.grad_guard import needs_grad
+from supir_tpu_torch.ops.groupnorm import group_norm, group_norm_plain
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -36,9 +37,19 @@ class GroupNorm32(nn.Module):
     """GroupNorm(32) with fp32 statistics, output in the input's dtype.
 
     eps is 1e-5 by default (UNet) and 1e-6 in the VAE and SpatialTransformer.
-    `fuse_silu` applies SiLU in the same pass. On CUDA every site runs K2
-    (`ops/groupnorm.py`); on the CPU its plain version.
+    `fuse_silu` applies SiLU in the same pass.
+
+    Routing: where something is differentiated (grad mode on, and x or the
+    affine parameters require grad) the site takes `group_norm_plain`, which
+    autograd differentiates; the JAX trainer differentiates XLA's GroupNorm
+    there, since its Pallas kernel is opt-in and has no VJP
+    (`supir_tpu/ops/groupnorm.py:32`). Every other site calls `group_norm`:
+    K2 on CUDA, the plain version on the CPU. That includes the frozen UNet
+    encoder during training. `GroupNorm32.plain_sites` counts the calls
+    routed to the plain form.
     """
+
+    plain_sites = 0
 
     def __init__(self, channels: int, eps: float = 1e-5, fuse_silu: bool = False,
                  device=None, dtype=None):
@@ -49,6 +60,9 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels, device=device, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if needs_grad(x, self.weight, self.bias):
+            GroupNorm32.plain_sites += 1
+            return group_norm_plain(x, self.weight, self.bias, 32, self.eps, self.fuse_silu)
         return group_norm(x, self.weight, self.bias, 32, self.eps, self.fuse_silu)
 
 

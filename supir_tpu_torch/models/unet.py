@@ -6,6 +6,18 @@ package nests the time embedding and the encoder under scopes of their own;
 here `TimeEmbedding` and `UNetEncoder` are base classes of the models that
 own them (GLVControl, LightGLVUNet), so their children sit at the root of the
 state dict as the reference's do.
+
+Training: `remat` (off by default) recomputes each ResBlock and
+SpatialTransformer in the backward pass, through
+`torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`, as the JAX
+modules wrap those two in `nn.remat` (`supir_tpu/models/unet.py:119-120,
+198`; `models/control.py:274`); it takes effect only under grad mode. It
+also recomputes LightGLVUNet's decoder SpatialTransformers, which the JAX
+decoder keeps (its `remat` wraps only the decoder's ResBlocks), so that on
+one card no transformer's activations outlive its forward pass.
+`encode(..., detach_inputs=True)` is the JAX encoder's `stop_grad_inputs`
+(:158-160): the input-block features and the pre-middle state are
+detached, so the input blocks get no gradient and the middle block trains.
 """
 
 from __future__ import annotations
@@ -14,6 +26,7 @@ from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from supir_tpu_torch.config import UNetConfig
 from supir_tpu_torch.models.attention import SpatialTransformer
@@ -119,6 +132,7 @@ class TimeEmbedding(nn.Module):
         kw = dict(device=device, dtype=dtype)
         ted = cfg.model_channels * 4
         self.cfg = cfg
+        self.remat = False
         self.time_embed = TimestepEmbedMLP(cfg.model_channels, ted, **kw)
         if cfg.adm_in_channels is not None:
             self.label_emb = nn.Sequential(TimestepEmbedMLP(cfg.adm_in_channels, ted, **kw))
@@ -163,27 +177,33 @@ class UNetEncoder(TimeEmbedding):
         ])
 
     def encode(self, x: torch.Tensor, emb: torch.Tensor, context: torch.Tensor,
-               hint: Optional[torch.Tensor] = None) -> Tuple[List[torch.Tensor], torch.Tensor]:
+               hint: Optional[torch.Tensor] = None,
+               detach_inputs: bool = False) -> Tuple[List[torch.Tensor], torch.Tensor]:
         h = self.input_blocks[0][0](x)
         if hint is not None:
             h = h + hint
         hs = [h]
         for block in self.input_blocks[1:]:
-            h = run_block(block, h, emb, context)
+            h = run_block(block, h, emb, context, self.remat)
             hs.append(h)
-        h = run_block(self.middle_block, h, emb, context)
+        if detach_inputs:
+            hs = [t.detach() for t in hs]
+            h = h.detach()
+        h = run_block(self.middle_block, h, emb, context, self.remat)
         return hs, h
 
 
 def run_block(block: nn.ModuleList, h: torch.Tensor, emb: torch.Tensor,
-              context: torch.Tensor) -> torch.Tensor:
+              context: torch.Tensor, remat: bool = False) -> torch.Tensor:
     """Apply a TimestepEmbedSequential-style block: ResBlocks take emb,
-    SpatialTransformers take the text context, the rest take h alone."""
+    SpatialTransformers take the text context, the rest take h alone. With
+    `remat` under grad mode, ResBlocks and SpatialTransformers are
+    recomputed in the backward pass instead of keeping their activations."""
+    remat = remat and torch.is_grad_enabled()
     for layer in block:
-        if isinstance(layer, ResBlock):
-            h = layer(h, emb)
-        elif isinstance(layer, SpatialTransformer):
-            h = layer(h, context)
+        if isinstance(layer, (ResBlock, SpatialTransformer)):
+            arg = emb if isinstance(layer, ResBlock) else context
+            h = checkpoint(layer, h, arg, use_reentrant=False) if remat else layer(h, arg)
         else:
             h = layer(h)
     return h

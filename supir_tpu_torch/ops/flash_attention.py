@@ -1,14 +1,32 @@
-"""K1: flash-attention forward, written by hand in CUDA C++ for Hopper.
+"""Flash attention, written by hand in CUDA C++ for Hopper: the forward K1,
+the forward with logsumexp K3, and the backward K4.
 
-Replaces `supir_tpu/ops/flash_attention.py:_attn_kernel_packed` (:35) and
-`_attn_kernel_packed_single` (:123), launched from `_flash_primal` (:363):
-softmax(Q K^T / sqrt(D)) V over [B, S, H, D] with a ragged last kv block,
-and with the TPU kernels' causal mask (query i sees keys 0..i, S == T). The kernel is `supir_tpu_torch/csrc/flash_attn_fwd.cu`; its header
-says what bounds it on the card and how it is laid out.
+- K1 replaces `supir_tpu/ops/flash_attention.py:_attn_kernel_packed` (:35)
+  and `_attn_kernel_packed_single` (:123), launched from `_flash_primal`
+  (:363): softmax(Q K^T / sqrt(D)) V over [B, S, H, D] with a ragged last kv
+  block, and with the TPU kernels' causal mask (query i sees keys 0..i,
+  S == T). Source `supir_tpu_torch/csrc/flash_attn_fwd.cu`.
+- K3 replaces `_attn_kernel` (:164) with `with_lse`, launched from
+  `_flash_fwd_lse` (:434, `pallas_call` :459): the same forward, plus each
+  query row's natural-log logsumexp of the scaled scores, [B, H, S] fp32.
+  It is K1's kernel instantiated with a flag, in the same source.
+- K4 replaces `_bwd_dq_kernel` (:499) and `_bwd_dkv_kernel` (:539),
+  launched from `_flash_bwd` (:592): dQ, dK and dV from the residuals q, k,
+  v, out and lse and the output gradient. Source
+  `supir_tpu_torch/csrc/flash_attn_bwd.cu`.
+Each source's header says what bounds it on the card and how it is laid out.
 
-`flash_attention` is the wrapper: on a CPU tensor it returns the plain
-version, `attention_plain`; on a CUDA tensor it launches the kernel or
-raises. `flash_attention.launches` counts kernel launches.
+Routing under autograd, as the JAX function is differentiable through its
+`custom_vjp` (`_make_diff_fn`, :305-325): the kernel wrappers
+`flash_attention`, `flash_attention_fwd_lse` and `flash_attention_bwd` write
+into fresh tensors, so they serve only calls where nothing is
+differentiated, and raise when grad mode is on and an input requires grad.
+`FlashAttention` is the counterpart of the `custom_vjp`: its forward runs
+K3 and saves q, k, v, out and lse, its backward runs K4.
+
+Each wrapper, on a CPU tensor, returns its plain version (`attention_plain`,
+`attention_fwd_lse_plain`, `attention_bwd_plain`); on a CUDA tensor it
+launches its kernel or raises. `<wrapper>.launches` counts launching calls.
 """
 
 from __future__ import annotations
@@ -17,96 +35,258 @@ import ctypes
 
 import torch
 
-_SOURCE = "flash_attn_fwd.cu"
+from supir_tpu_torch.ops.grad_guard import refuse_grad
+
+_FWD_SOURCE = "flash_attn_fwd.cu"
+_BWD_SOURCE = "flash_attn_bwd.cu"
+SOURCES = (_FWD_SOURCE, _BWD_SOURCE)  # for cuda_build.build_all
 HEAD_DIMS = (64, 128)
+
+
+def _causal_keep(s: int, t: int, device) -> torch.Tensor:
+    """Query i sees keys up to i + T - S (the last S keys end on the
+    diagonal, which is the plain causal mask when S == T)."""
+    return torch.ones(s, t, dtype=torch.bool, device=device).tril(t - s)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """scale * q k^T as [B, H, S, T] in q's (float) dtype, causal-masked."""
+    logits = torch.einsum("bshd,bthd->bhst", q, k) * q.shape[-1] ** -0.5
+    if causal:
+        s, t = logits.shape[-2:]
+        logits = logits.masked_fill(~_causal_keep(s, t, q.device), torch.finfo(logits.dtype).min)
+    return logits
+
+
+def _float(*tensors: torch.Tensor):
+    """The tensors in fp32, or fp64 if they are fp64."""
+    dtype = torch.promote_types(tensors[0].dtype, torch.float32)
+    return tuple(t.to(dtype) for t in tensors)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
                     bias: torch.Tensor | None = None) -> torch.Tensor:
-    """[B,S,H,D] x [B,T,H,D] -> [B,S,H,D] with an fp32 softmax: the form of
-    `supir_tpu/ops/attention.py:_xla_attention` (:63-76). `bias` is added to
-    the fp32 logits; `causal` lets query i see keys up to i + T - S (the last
-    S keys end on the diagonal, which is the plain causal mask when S == T)."""
-    scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
-    if bias is not None:
-        logits = logits + bias.float()
-    if causal:
-        s, t = logits.shape[-2:]
-        keep = torch.ones(s, t, dtype=torch.bool, device=q.device).tril(t - s)
-        logits = logits.masked_fill(~keep, torch.finfo(torch.float32).min)
-    weights = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhst,bthd->bshd", weights, v)
+    """[B,S,H,D] x [B,T,H,D] -> [B,S,H,D] with fp32 logits and softmax: the
+    form of `supir_tpu/ops/attention.py:_xla_attention` (:63-76). `bias` is
+    added to the fp32 logits; `causal` lets query i see keys up to
+    i + T - S. Autocast is off inside, so the logits stay fp32 under it, as
+    XLA's preferred_element_type=float32 keeps them."""
+    with torch.autocast(q.device.type, enabled=False):
+        scale = q.shape[-1] ** -0.5
+        logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+        if bias is not None:
+            logits = logits + bias.float()
+        if causal:
+            s, t = logits.shape[-2:]
+            logits = logits.masked_fill(~_causal_keep(s, t, q.device), torch.finfo(torch.float32).min)
+        weights = torch.softmax(logits, dim=-1).to(q.dtype)
+        return torch.einsum("bhst,bthd->bshd", weights, v)
 
 
-def _library() -> ctypes.CDLL:
+def attention_fwd_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            causal: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's plain version: (out [B,S,H,D] in q's dtype, lse [B,H,S]), lse the
+    natural-log logsumexp of the scaled, masked scores, in fp32 (fp64 for
+    fp64 inputs)."""
+    with torch.autocast(q.device.type, enabled=False):
+        qf, kf = _float(q, k)
+        logits = _scores(qf, kf, causal)
+        lse = torch.logsumexp(logits, dim=-1)
+        weights = torch.exp(logits - lse[..., None]).to(q.dtype)
+        return torch.einsum("bhst,bthd->bshd", weights, v), lse
+
+
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor, causal: bool = False):
+    """K4's plain version, written out in fp32 (fp64 for fp64 inputs) as the
+    reference for the kernel: P = exp(scale S - lse), delta = rowsum(dO * O),
+    dS = P * (dO V^T - delta), dQ = scale dS K, dK = scale dS^T Q,
+    dV = P^T dO; masked entries give zero. Returns (dq, dk, dv) in q's dtype."""
+    with torch.autocast(q.device.type, enabled=False):
+        qf, kf, vf, of, gf = _float(q, k, v, out, dout)
+        scale = q.shape[-1] ** -0.5
+        p = torch.exp(_scores(qf, kf, False) - lse.to(qf.dtype)[..., None])
+        if causal:
+            p = p.masked_fill(~_causal_keep(p.shape[-2], p.shape[-1], q.device), 0.0)
+        delta = (gf * of).sum(-1).transpose(1, 2)  # [B, H, S]
+        dp = torch.einsum("bshd,bthd->bhst", gf, vf)
+        ds = p * (dp - delta[..., None])
+        dq = torch.einsum("bhst,bthd->bshd", ds, kf) * scale
+        dk = torch.einsum("bhst,bshd->bthd", ds, qf) * scale
+        dv = torch.einsum("bhst,bshd->bthd", p, gf)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _fwd_library() -> ctypes.CDLL:
     from supir_tpu_torch.ops.cuda_build import load_library
 
-    lib = load_library(_SOURCE)
-    fn = lib.supir_flash_attn_fwd_bf16
+    lib = load_library(_FWD_SOURCE)
+    for fn, n_ptrs in ((lib.supir_flash_attn_fwd_bf16, 4), (lib.supir_flash_attn_fwd_lse_bf16, 5)):
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * n_ptrs
+            + [ctypes.c_int] * 6
+            + [ctypes.c_longlong] * 12
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+    return lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    from supir_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library(_BWD_SOURCE)
+    fn = lib.supir_flash_attn_bwd_bf16
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 4
+        [ctypes.c_void_p] * 10
         + [ctypes.c_int] * 6
-        + [ctypes.c_longlong] * 12
-        + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
     )
     return lib
 
 
-SOURCES = (_SOURCE,)  # for cuda_build.build_all
+def _on_card(kernel: str, q: torch.Tensor, inputs) -> bool:
+    """False for a CPU tensor (the plain route); for any other device,
+    refuse an input that asks for a gradient, then require CUDA."""
+    if q.device.type == "cpu":
+        return False
+    refuse_grad(kernel, *inputs)
+    if q.device.type != "cuda":
+        raise ValueError(f"{kernel} runs on CPU or CUDA tensors, not {q.device}")
+    return True
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, *more) -> None:
+    """Shapes, dtype, device and layout the kernels take: q [B,S,H,D], k/v
+    [B,T,H,D]; `more` are further [B,*,H,D] operands (out, dout)."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(f"flash_attention wants q [B,S,H,D], k/v [B,T,H,D]; got {q.shape}, {k.shape}, {v.shape}")
+        raise ValueError(f"flash attention wants q [B,S,H,D], k/v [B,T,H,D]; got {q.shape}, {k.shape}, {v.shape}")
     if q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree on batch, heads or head dim")
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError(f"the causal kernel wants as many queries as keys; got {q.shape[1]} and {k.shape[1]}")
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for i, t in enumerate((q, k, v) + more):
+        name = ("q", "k", "v", "out", "dout")[i]
+        if i >= 3 and t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} is not shaped like q {tuple(q.shape)}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"the flash kernel takes bf16; {name} is {t.dtype}")
+            raise TypeError(f"the flash kernels take bf16; {name} is {t.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous (stride {t.stride()})")
         if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned with strides in multiples of 8 (stride {t.stride()})")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = False) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D)) v over q [B,S,H,D] and k/v [B,T,H,D]; with
-    `causal`, query i sees keys 0..i (S == T)."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CPU or CUDA tensors, not {q.device}")
-    _check(q, k, v, causal)
+def _strides(*tensors: torch.Tensor):
+    return [s for t in tensors for s in t.stride()[:3]]
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+
+
+def _forward(q, k, v, causal: bool, with_lse: bool):
+    """Launch K1 (with_lse False) or K3; returns (out, lse or None)."""
     b, s, h, d = q.shape
     t = k.shape[1]
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
     if s == 0 or b * h == 0:
-        return out
-    fn = _library().supir_flash_attn_fwd_bf16
+        return out, lse
+    lib = _fwd_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, s, t, d, int(causal),
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(2),
-            d ** -0.5, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
+        ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+        fn = lib.supir_flash_attn_fwd_bf16
+        if with_lse:
+            ptrs.append(lse.data_ptr())
+            fn = lib.supir_flash_attn_fwd_lse_bf16
+        err = fn(*ptrs, b, h, s, t, d, int(causal), *_strides(q, k, v, out), d ** -0.5, stream)
+    _raise_on(err, "flash attention forward" + (" (lse)" if with_lse else ""))
+    return out, lse
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False) -> torch.Tensor:
+    """K1: softmax(q k^T / sqrt(D)) v over q [B,S,H,D] and k/v [B,T,H,D];
+    with `causal`, query i sees keys 0..i (S == T). Not differentiable on
+    the card: raises there if grad mode is on and an input requires grad."""
+    if not _on_card("flash_attention (K1)", q, (q, k, v)):
+        return attention_plain(q, k, v, causal=causal)
+    _check(q, k, v, causal)
+    out, _ = _forward(q, k, v, causal, with_lse=False)
     flash_attention.launches += 1
     return out
 
 
+def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            causal: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3: (out [B,S,H,D], lse [B,H,S] fp32), lse the natural-log
+    logsumexp of each query row's scaled scores."""
+    if not _on_card("flash_attention_fwd_lse (K3)", q, (q, k, v)):
+        return attention_fwd_lse_plain(q, k, v, causal)
+    _check(q, k, v, causal)
+    out, lse = _forward(q, k, v, causal, with_lse=True)
+    flash_attention_fwd_lse.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor, causal: bool = False):
+    """K4: (dq, dk, dv) in q's dtype from the forward's residuals (q, k, v,
+    out, lse as K3 returns them) and the output gradient dout."""
+    if not _on_card("flash_attention_bwd (K4)", q, (q, k, v, out, lse, dout)):
+        return attention_bwd_plain(q, k, v, out, lse, dout, causal)
+    _check(q, k, v, causal, out, dout)
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous fp32 [{b},{h},{s}] tensor, got {lse.dtype} {tuple(lse.shape)}")
+    dq, dk, dv = (torch.empty_like(x, memory_format=torch.contiguous_format) for x in (q, k, v))
+    if s == 0 or t == 0 or b * h == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*_strides(q, k, v, out, dout, dq, dk, dv))
+    fn = _bwd_library().supir_flash_attn_bwd_bf16
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 b, h, s, t, d, int(causal), strides, d ** -0.5, stream)
+    _raise_on(err, "flash attention backward")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
 flash_attention.launches = 0
+flash_attention_fwd_lse.launches = 0
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention, the counterpart of the JAX function's
+    `custom_vjp` (`_make_diff_fn`, :305-325): the forward runs K3 and saves
+    q, k, v, out and lse; the backward runs K4. On CPU tensors both are the
+    plain versions, so the CPU tests run the backward's arithmetic. The
+    backward runs under the forward's autocast state."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, q, k, v, causal=False):
+        out, lse = flash_attention_fwd_lse(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.to(out.dtype).contiguous(), ctx.causal)
+        return dq, dk, dv, None

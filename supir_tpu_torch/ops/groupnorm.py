@@ -24,13 +24,19 @@ machines without it.
 
 `group_norm` is the wrapper: on a CPU tensor it returns the plain version,
 `group_norm_plain`; on a CUDA tensor it launches the kernels or raises.
-`group_norm.launches` counts calls that launched the pair.
+`group_norm.launches` counts calls that launched the pair. The kernels write
+into a fresh tensor and have no backward (the TPU kernel had none either), so
+on the card the wrapper raises when grad mode is on and x or the affine
+parameters require grad; `GroupNorm32` (models/layers.py) sends such a site
+to `group_norm_plain`, which autograd differentiates.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from supir_tpu_torch.ops.grad_guard import refuse_grad
 
 BLOCK = 1024            # elements per program per loop step
 TARGET_PROGRAMS = 1024  # about 8 programs per SM on 132 SMs
@@ -135,6 +141,7 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """GroupNorm (+ SiLU) over NCHW x with fp32 statistics, in x's dtype."""
     if x.device.type == "cpu":
         return group_norm_plain(x, weight, bias, groups, eps, silu)
+    refuse_grad("group_norm (K2)", x, weight, bias)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm runs on CPU or CUDA tensors, not {x.device}")
     _check(x, weight, bias, groups)

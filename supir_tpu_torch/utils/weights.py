@@ -17,6 +17,11 @@ The keys are the reference's, so the results load with `strict=True`:
 `model.vision_tower.vision_tower.vision_model.*`, `model.mm_projector.*`,
 `lm_head.weight`). Quantization happens in the port
 (`captioner/llama.py:quantize_llama_state_dict`).
+
+`train_state_from_jax` carries a JAX trainer state (params, optax's AdamW
+mu and nu, the EMA and the step) into the port's trainer state by the same
+rules: the transforms are linear, so they serve the moments and the EMA as
+they serve the parameters.
 """
 
 from __future__ import annotations
@@ -106,3 +111,22 @@ def captioner_state_dict_from_jax(params_np: Mapping[str, Any], cfg) -> Dict[str
     """The JAX agent's unquantized {'vision', 'projector', 'llama'} trees ->
     fp32 CPU tensors under the HF LLaVA keys (cfg: a CaptionerConfig)."""
     return _bridge(params_np, captioner_rules(cfg))
+
+
+def train_state_from_jax(state_np: Mapping[str, Any], cfg: SUPIRConfig) -> Dict[str, Any]:
+    """A JAX `SUPIRTrainer.init_state` (numpy or array leaves) -> the state
+    `supir_tpu_torch.engine.training.SUPIRTrainer.load_state` takes:
+    'params' (every parameter), 'exp_avg' / 'exp_avg_sq' (optax's mu / nu)
+    and 'ema' over the trainable branches (control, unet), and 'step'."""
+    tables = supir_rules(cfg)
+    trainable = {k: tables[k] for k in ("control", "unet")}
+    adam = next(s for s in state_np["opt"] if hasattr(s, "mu"))
+    out = {
+        "params": _bridge(state_np["params"], tables),
+        "exp_avg": _bridge(adam.mu, trainable),
+        "exp_avg_sq": _bridge(adam.nu, trainable),
+        "step": int(np.asarray(state_np["step"])),
+    }
+    if "ema" in state_np:
+        out["ema"] = _bridge(state_np["ema"], trainable)
+    return out

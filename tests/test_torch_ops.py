@@ -1,10 +1,14 @@
-"""supir_tpu_torch kernels (K1 flash attention, K2 GroupNorm+SiLU) against
-the JAX package's Pallas kernels, run in interpret mode on the CPU.
+"""supir_tpu_torch kernels (K1 flash attention, K2 GroupNorm+SiLU, K3 the
+forward with logsumexp, K4 the backward) against the JAX package's Pallas
+kernels, run in interpret mode on the CPU.
 
 On the CPU each wrapper returns its plain PyTorch version, so these tests
 hold the plain versions to the Pallas kernels at atol 2e-5 (fp32, the bound
 of tests/test_flash_attention.py and tests/test_groupnorm_kernel.py), and
-check that a CPU tensor never reaches a kernel. The kernels themselves are
+check that a CPU tensor never reaches a kernel, that a kernel wrapper
+refuses an input that asks for a gradient, and that the sites route by
+grad mode: `FlashAttention` (K3/K4) and the plain GroupNorm where something
+is differentiated, K1 and K2 elsewhere. The kernels themselves are
 held to their plain versions on the card by the tests marked `gpu`. JAX is
 imported inside the parity tests only, so the `gpu` tests also run on a
 machine without it: python -m pytest --noconftest tests/test_torch_ops.py -m gpu
@@ -14,8 +18,17 @@ import numpy as np
 import pytest
 import torch
 
+from supir_tpu_torch.models import layers
 from supir_tpu_torch.ops import attention as attn_ops
-from supir_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+from supir_tpu_torch.ops.flash_attention import (
+    FlashAttention,
+    attention_bwd_plain,
+    attention_fwd_lse_plain,
+    attention_plain,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_fwd_lse,
+)
 from supir_tpu_torch.ops.groupnorm import group_norm, group_norm_plain
 
 
@@ -55,6 +68,160 @@ def test_flash_plain_causal_matches_pallas(s):
                                bq=128, bkv=128, interpret=True)
     got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+# the cases of tests/test_flash_attention_bwd.py: block-aligned, causal,
+# ragged causal (padded rows and columns must not leak), cross with q != t
+LSE_CASES = [(128, 128, False), (128, 128, True), (100, 100, True), (96, 200, False)]
+
+
+def _qkvg(seed, s, t, h=2, d=64, b=2):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((b, s, h, d), (b, t, h, d), (b, t, h, d), (b, s, h, d)))
+
+
+def _jax_fwd_lse(q, k, v, causal):
+    """JAX's forward rule (_flash_fwd_lse, interpret mode): out [B,S,H,D] and
+    lse [B,H,S], read from its lane-broadcast [B*H, S_pad, 128] layout."""
+    import jax.numpy as jnp
+
+    from supir_tpu.ops.flash_attention import _flash_fwd_lse
+
+    b, s, h, _ = q.shape
+    out, lse = _flash_fwd_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, None, 64, 64, True)
+    return out, lse, np.asarray(lse)[:, :s, 0].reshape(b, h, s)
+
+
+@pytest.mark.parametrize("s,t,causal", LSE_CASES)
+def test_fwd_lse_plain_matches_pallas(s, t, causal):
+    """K3's plain version against _flash_fwd_lse: the output, and the
+    natural-log logsumexp of the scaled scores."""
+    q, k, v, _ = _qkvg(5, s, t)
+    want_out, _, want_lse = _jax_fwd_lse(q, k, v, causal)
+    out, lse = flash_attention_fwd_lse(*map(torch.from_numpy, (q, k, v)), causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=2e-5)
+
+
+@pytest.mark.parametrize("s,t,causal", LSE_CASES)
+def test_bwd_plain_matches_pallas(s, t, causal):
+    """K4's plain version against _flash_bwd on the same residuals, and the
+    port's FlashAttention gradients against jax.grad through flash_attention."""
+    import jax
+    import jax.numpy as jnp
+
+    from supir_tpu.ops.flash_attention import _flash_bwd
+    from supir_tpu.ops.flash_attention import flash_attention as jax_flash_attention
+
+    q, k, v, g = _qkvg(6, s, t)
+    out, lse_lanes, lse = _jax_fwd_lse(q, k, v, causal)
+    want = _flash_bwd(*map(jnp.asarray, (q, k, v)), out, lse_lanes, jnp.asarray(g), causal, None, 64, 64, True)
+    got = flash_attention_bwd(*map(torch.from_numpy, (q, k, v, np.array(out), lse, g)), causal)
+    for name, a, w in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=2e-5, err_msg=f"d{name}")
+
+    want = jax.grad(lambda *a: jnp.sum(jax_flash_attention(*a, causal=causal, bq=64, bkv=64, interpret=True) * g),
+                    argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    (FlashAttention.apply(qt, kt, vt, causal) * torch.from_numpy(g)).sum().backward()
+    for name, a, w in zip("qkv", (qt.grad, kt.grad, vt.grad), want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=2e-5, err_msg=f"d{name} via autograd")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_function_gradcheck(causal):
+    """FlashAttention's backward (K4's plain arithmetic) is the derivative
+    of its forward: gradcheck in float64, ragged sizes."""
+    rng = np.random.default_rng(7)
+    s, t = (9, 9) if causal else (7, 11)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, n, 2, 4))).requires_grad_() for n in (s, t, t))
+    assert torch.autograd.gradcheck(lambda *a: FlashAttention.apply(*a, causal), (q, k, v))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_function_matches_plain_autograd(causal):
+    q, k, v, g = (torch.from_numpy(a) for a in _qkvg(8, 64, 64, h=3, d=32))
+    grads = []
+    for fn in (lambda *a: FlashAttention.apply(*a, causal), lambda *a: attention_plain(*a, causal=causal)):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves)
+        (out * g).sum().backward()
+        grads.append([out.detach()] + [x.grad for x in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4"])
+def test_kernel_wrappers_refuse_to_drop_gradients(kernel):
+    """Off the CPU a wrapper checks grad mode before anything else: handed a
+    tensor that requires grad it raises (a kernel's result has no autograd
+    history), so no gradient is dropped without a word. Meta tensors stand
+    in for the card here: they take the same branch, and without the guard
+    they reach the device check, a ValueError."""
+    meta = dict(device="meta")
+    q = torch.empty(1, 1024, 2, 64, **meta)
+    lse = torch.empty(1, 2, 1024, **meta)
+    x, w = torch.empty(1, 64, 8, 8, **meta), torch.empty(64, **meta)
+    calls = {
+        "K1": lambda a: flash_attention(a, q, q),
+        "K3": lambda a: flash_attention_fwd_lse(a, q, q),
+        "K4": lambda a: flash_attention_bwd(a, q, q, q, lse, q),
+        "K2": lambda a: group_norm(x, a, w),
+    }
+    leaf = (w if kernel == "K2" else q).clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="gradient"):
+        calls[kernel](leaf)
+    with torch.no_grad(), pytest.raises(ValueError, match="CPU or CUDA"):
+        calls[kernel](leaf)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        calls[kernel](leaf.detach())
+
+
+def test_group_norm_sites_route_by_grad(monkeypatch):
+    """GroupNorm32: the plain, differentiable form where x or the affine
+    parameters require grad under grad mode (counted), K2 everywhere else."""
+    kernel_calls = []
+    monkeypatch.setattr(layers, "group_norm", lambda *a: kernel_calls.append(1) or group_norm_plain(*a))
+    norm = layers.GroupNorm32(64, fuse_silu=True)
+    x = torch.randn(1, 64, 4, 4)
+    before = layers.GroupNorm32.plain_sites
+    y = norm(x)  # the affine parameters require grad
+    assert y.requires_grad and kernel_calls == [] and layers.GroupNorm32.plain_sites == before + 1
+    y.sum().backward()
+    assert norm.weight.grad is not None
+    with torch.no_grad():
+        norm(x)
+    norm.requires_grad_(False)
+    norm(x)  # frozen parameters, input without grad: nothing to differentiate
+    assert kernel_calls == [1, 1]
+    norm(x.requires_grad_())
+    assert kernel_calls == [1, 1] and layers.GroupNorm32.plain_sites == before + 2
+
+
+def test_attention_sites_route_by_grad(monkeypatch):
+    """A flash-eligible site whose inputs require grad goes to FlashAttention
+    (K3/K4); without grad, to K1; an ineligible one to the plain form."""
+    routes = []
+    monkeypatch.setattr(attn_ops, "flash_attention", lambda q, k, v, causal=False: routes.append("K1")
+                        or attention_plain(q, k, v, causal))
+
+    class Recorded(FlashAttention):
+        @staticmethod
+        def forward(ctx, q, k, v, causal=False):
+            routes.append("FlashAttention")
+            return FlashAttention.forward(ctx, q, k, v, causal)
+
+    monkeypatch.setattr(attn_ops, "FlashAttention", Recorded)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(9, 1, 1024, 1024, 1, 64))
+    attn_ops.attention(q, k, v)
+    out = attn_ops.attention(q.requires_grad_(), k, v)
+    out.sum().backward()
+    assert q.grad is not None and routes == ["K1", "FlashAttention"]
+    with torch.no_grad():
+        attn_ops.attention(q, k, v)
+    attn_ops.attention(q, k[:, :77], v[:, :77])  # text cross-attention: plain
+    assert routes == ["K1", "FlashAttention", "K1"]
 
 
 def test_attention_routes_bias_and_causal(monkeypatch):
@@ -195,6 +362,34 @@ def test_group_norm_kernel_matches_plain(cuda, shape, eps, silu):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,s,t,h,d,causal", [
+    (1, 4096, 4096, 10, 64, False),
+    (1, 1024, 1024, 20, 64, False),
+    (1, 1100, 1100, 4, 64, True),
+    (2, 1000, 1500, 3, 128, False),
+])
+def test_flash_lse_and_backward_kernels_match_plain(cuda, b, s, t, h, d, causal):
+    """K3 and K4 against their fp32 plain versions (bounds: out and each
+    gradient rel-L2 1e-2 / 2e-2, lse max abs 1e-3), deterministic, and a
+    planted fault (lse in log2 units) outside the gradients' bound."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(b, n, h, d, generator=g, device=cuda).to(torch.bfloat16) for n in (s, t, t))
+    dout = torch.randn(b, s, h, d, generator=g, device=cuda).to(torch.bfloat16)
+    out, lse = flash_attention_fwd_lse(q, k, v, causal)
+    want_out, want_lse = attention_fwd_lse_plain(q.float(), k.float(), v.float(), causal)
+    assert _rel_l2(out, want_out) <= 1e-2
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    want = attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), want_lse, dout.float(), causal)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16 and _rel_l2(a, w) <= 2e-2
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    bad = flash_attention_bwd(q, k, v, out, lse * 1.4426950408889634, dout, causal)
+    assert _rel_l2(bad[0], want[0]) > 2e-2
+
+
+@pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.randn(1, 1024, 2, 64, device=cuda)  # fp32
     with pytest.raises(TypeError):
@@ -202,3 +397,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.randn(1, 64, 8, 8, device=cuda).transpose(2, 3)
     with pytest.raises(ValueError):
         group_norm(x, torch.ones(64, device=cuda), torch.zeros(64, device=cuda))
+    qb = q.to(torch.bfloat16).requires_grad_()
+    with pytest.raises(RuntimeError, match="gradient"):
+        flash_attention(qb, qb, qb)
+    w = torch.ones(64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="gradient"):
+        group_norm(x.contiguous(), w, torch.zeros(64, device=cuda))
