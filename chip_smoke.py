@@ -7,17 +7,19 @@
 Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is switched off for matmuls and cuDNN convolutions.
-  2. build: the CUDA C++ kernels (K1 and K3, K4, K5-K7, K8; one nvcc per
-     source, all at once, into build/supir_tpu_torch/) with ptxas' registers
-     and spills, and K2 (Triton).
+  2. build: the CUDA C++ kernels (K1 and K3, K4, K5-K7 with K10 and K11,
+     K8, K9; one nvcc per source, all at once, into build/supir_tpu_torch/)
+     with ptxas' registers and spills, and K2 (Triton).
   3. kernels against their plain PyTorch versions on the card, with
-     CUDA-event times of both, the least time the card could take (bound)
-     and, where one PyTorch call computes the same function, its time:
-     K1 and K2 at the restore path's shapes, K1 causal, and K5, K6, K7 and
-     K8 at the 13B captioner's decode shapes for 1 and 8 rows, and K3 (the
-     forward with logsumexp) and K4 (the backward) at the training path's
-     shapes and causal at Llama-13B's. Each is held to a stated bound, and
-     planted faults must break it.
+     CUDA-event or CUDA-graph times of both, the least time the card could
+     take (bound) and, where one PyTorch call computes the same function,
+     its time: K1 and K2 at the restore path's shapes, K1 causal, and K5
+     (also in its act_int8 mode), K6, K7, K8, K10 and K11 at the 13B
+     captioner's decode shapes and K9 at its two pairs per layer, for 1 and
+     8 rows (with K9's co-resident grid), and K3 (the forward with
+     logsumexp) and K4 (the backward) at the training path's shapes and
+     causal at Llama-13B's. Each is held to a stated bound, and planted
+     faults must break it.
   4. main path: a full-width SDXL/SUPIR engine (XL-base, bf16, random
      weights from a seeded CUDA generator) restores one image through
      SUPIREngine.batchify_sample with bench.py's headline settings: a
@@ -32,17 +34,21 @@ Phases, each printing its own lines:
      with exp2 without the log2(e) fold) must break the bound.
   6. captioner: LLaVA-1.5-13B at full width (CLIP ViT-L/14-336, Llama-13B,
      random weights drawn and quantized layer by layer on the card) captions
-     a 1024^2 image through CaptionerAgent.gen_image_caption, greedy, in
-     three weight modes: int4 (K5), int4 without fused glue (K6) and int8
-     (K8 at load, K7 in decode). The counters are zeroed before each mode's
-     load and read after its caption; every GEMV call of one decode step is
-     then held to its fp32 plain version on that call's inputs, and
-     torch.profiler reads three decode steps (device busy share, kernels).
+     a 1024^2 image through CaptionerAgent.gen_image_caption, greedy, 32
+     tokens, in each mode of CAPTION_MODES: int4 (K5), int4 without fused
+     glue (K6), int8 (K8 at load, K7 in decode), int4-lean (fused pairs,
+     int8 KV cache, int8 head: K9, K5, K7; K8 at load), int4-w4a8 (K5's
+     act_int8 mode), int4-w4a8-unfused (K10) and int4-native (K11). The
+     counters are zeroed before each mode's load and read after its caption
+     and must equal expected_caption_launches; every GEMV call of one
+     decode step is then held to its fp32 plain version on that call's
+     inputs, and torch.profiler reads three decode steps (device busy
+     share, kernels). In int4-lean, one text-only `chat` turn follows.
   7. captioner reference: a reduced-width captioner on the card (bf16,
-     kernels) and on the CPU (fp32, plain versions) with the same weights:
-     prefill logits and the logits of decode steps teacher-forced on the
-     CPU's tokens must agree; a planted fault (nibble order swapped) must
-     break the bound.
+     kernels) and on the CPU (fp32, plain versions) with the same weights,
+     in every mode: prefill logits and the logits of decode steps
+     teacher-forced on the CPU's tokens must agree; a planted fault (nibble
+     order swapped) must break the bound.
   8. train: the full-width SUPIR control-path trainer (XL-base, fp32
      parameters, bf16 autocast, remat; AdamW at lr 1e-5, EMA 0.9999; every
      leaf random) takes 3 steps on a 1024^2 latent: s/step split into
@@ -84,7 +90,8 @@ TRAIN_LOSS_BOUND = 2e-2  # reduced-width train step, card against CPU: loss, rel
 TRAIN_GRAD_BOUND = 5e-2  # ... and each parameter group's gradient, relative L2
 TRAIN_STEPS = 3       # full-width train steps: one warm-up, two timed
 REF_REL_BOUND = 5e-2  # reduced-width card (bf16, kernels) against CPU (fp32, plain), relative L2
-GEMV_REL_BOUND = 1e-2  # K5-K7 against their fp32 plain versions, relative L2
+GEMV_REL_BOUND = 1e-2  # K5-K7, K9, K11 and K5's act_int8 mode against their fp32 plain versions, relative L2
+W4A8_REL_BOUND = 1e-6  # K10 against its plain version: exact integer sums, two rounded scale multiplies
 CAP_REF_REL_BOUND = 5e-2  # reduced-width captioner logits, card against CPU, relative L2
 CAP_TOKENS = 32       # max_new_tokens of the full-width caption
 REF_STEPS = 8         # teacher-forced decode steps of the captioner reference
@@ -93,6 +100,9 @@ BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor cores
 # the 13B decode projections per layer: name, cin, cout, prologue, residual
 LLAMA_13B_SHAPES = (("qkv", 5120, 15360, "norm", False), ("o", 5120, 5120, None, True),
                     ("gateup", 5120, 27648, "norm", False), ("down", 13824, 5120, "siluglu", True))
+# K9's two pairs per layer: label, first projection, second projection, SiLU-GLU before the first
+LLAMA_13B_PAIRS = (("A: o + residual -> norm -> gate-up", "o", "gateup", False),
+                   ("B: SiLU-GLU + down + residual -> norm -> next qkv", "down", "qkv", True))
 
 
 def log(msg: str) -> None:
@@ -257,6 +267,8 @@ def phase_build():
     wall = time.perf_counter() - t0
     for source in sources:
         log(f"[build] {source}: nvcc {seconds[source]:.1f} s; ptxas: {_ptxas_summary(cuda_build.ptxas_report(source))}")
+    log(f"[build] K9 grid: {kq.pair_grid_blocks(1)} co-resident blocks at 1 row, {kq.pair_grid_blocks(8)} at 8 "
+        f"(occupancy API x SMs; its cooperative launch takes at most that many)")
     t1 = time.perf_counter()
     k2.build()
     log(f"[build] nvcc wall {wall:.1f} s for {len(sources)} sources in parallel; K2 triton import "
@@ -388,29 +400,40 @@ def _swap_nibbles(packed):
 L2_BYTES = 50 * 2**20  # H100 L2 cache
 
 
-def _gemv_row(label, kernel, plain, x, weights, out_bytes, faults=()):
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _worst_rel(got, want) -> float:
+    """The largest relative L2 error over a call's outputs (K9 has two)."""
+    return max(rel_l2(g_, w_) for g_, w_ in zip(_outputs(got), _outputs(want)))
+
+
+def _gemv_row(label, kernel, plain, x, weights, out_bytes, faults=(), rel_bound=GEMV_REL_BOUND):
     """Hold one GEMV kernel call, kernel(x, *weights), to its plain version
-    in fp32 on the same inputs, and time both as the decode meets them:
-    device time from a CUDA graph (graph_ms) over copies of the weights
-    that together exceed the L2 cache, so each call streams its weights
-    from device memory. Each planted fault (label, call of x) must break
-    the bound. Returns the row's numbers."""
+    in fp32 on the same inputs (each output by relative L2), and time both
+    as the decode meets them: device time from a CUDA graph (graph_ms) over
+    copies of the weights that together exceed the L2 cache, so each call
+    streams its weights from device memory. Each planted fault (label, call
+    of x) must break the bound. Returns the row's numbers."""
     import torch
 
     out = kernel(x, *weights)
     want = plain(x.float(), *weights)
-    rel, err = rel_l2(out, want), (out - want).abs().max().item()
+    rel = _worst_rel(out, want)
+    err = max((g_ - w_).abs().max().item() for g_, w_ in zip(_outputs(out), _outputs(want)))
     w_bytes = nbytes(*weights)
     copies = [weights] + [tuple(t.clone() for t in weights) for _ in range(int(2 * L2_BYTES // w_bytes))]
     ms = graph_ms([lambda c=c: kernel(x, *c) for c in copies for _ in range(2)])
     plain_ms = graph_ms([lambda c=c: plain(x, *c) for c in copies[:4]], replays=2)
     bound_ms, bound_by = bound(nbytes(x) + w_bytes + out_bytes)
-    log(f"[kernels] {label}: rel_l2 {rel:.3e} (bound {GEMV_REL_BOUND:g}), max_abs_err {err:.3e}, "
-        f"max|ref| {want.abs().max().item():.2f}; {ms:.4f} ms vs plain {plain_ms:.4f} ms (device, CUDA graph, "
+    ref = max(w_.abs().max().item() for w_ in _outputs(want))
+    log(f"[kernels] {label}: rel_l2 {rel:.3e} (bound {rel_bound:g}), max_abs_err {err:.3e}, "
+        f"max|ref| {ref:.2f}; {ms:.4f} ms vs plain {plain_ms:.4f} ms (device, CUDA graph, "
         f"{len(copies)} weight copies), bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.0%} of it)")
-    _check_rel(label, rel, GEMV_REL_BOUND)
+    _check_rel(label, rel, rel_bound)
     for name, bad in faults:
-        _check_fault(f"{label} {name}", rel_l2(bad(x), want), GEMV_REL_BOUND)
+        _check_fault(f"{label} {name}", _worst_rel(bad(x), want), rel_bound)
     del copies
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, rel=rel, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
@@ -452,9 +475,11 @@ def _check_int8_quantizer(label, w, seeds: int = 64):
 
 
 def phase_quant_kernels():
-    """K5, K6, K7 (int8 and half-split int4) and K8 at the 13B decode shapes,
-    for 1 and 8 rows; returns each kernel's JSON numbers, its times summed
-    over one layer's four projections at 1 row (the main path's)."""
+    """K5 (also in its act_int8 mode), K6, K7 (int8 and half-split int4),
+    K8, K10 and K11 at the 13B decode shapes, and K9 at the layer's two
+    pairs, for 1 and 8 rows; returns each kernel's JSON numbers, its times
+    summed over one layer's projections (K9: its two pairs) at 1 row (the
+    main path's)."""
     import gc
 
     import torch
@@ -463,7 +488,7 @@ def phase_quant_kernels():
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4321)
-    names = ("K5", "K6", "K7", "K7-int4", "K8")
+    names = ("K5", "K5-act", "K6", "K7", "K7-int4", "K8", "K9", "K10", "K11")
     layer = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by="bytes") for k in names}
 
     def add(name, row):
@@ -472,10 +497,12 @@ def phase_quant_kernels():
         for key in ("ms", "plain_ms", "bound_ms"):
             acc[key] += row[key]
 
+    paired = {}
     for proj, cin, cout, prologue, with_residual in LLAMA_13B_SHAPES:
         w = torch.randn(cin, cout, generator=g, device=dev) * cin ** -0.5
-        packed, scale = Q.quantize_int4_paired(w)
+        packed, scale = paired[proj] = Q.quantize_int4_paired(w)
         q4, s4 = Q.quantize_int4(w)
+        qn, sn = Q.quantize_int4_native(w)
         add("K8", _check_int8_quantizer(f"K8 {proj} [{cin},{cout}] fp32", w))
         q8, s8 = Q.quantize_int8(w, seed=SEED)
         del w
@@ -488,8 +515,9 @@ def phase_quant_kernels():
             kw = dict(gamma=gamma, siluglu=prologue == "siluglu", residual=residual)
             out_bytes = rows * cout * 4
             tag = f"{proj} [{rows},{cin}]->[{rows},{cout}]"
-            faults = [("nibble order swapped", lambda xx: Q.int4_paired_fused_matmul(
-                xx, _swap_nibbles(packed), scale, **kw))]
+            swapped = ("nibble order swapped", lambda xx: Q.int4_paired_fused_matmul(
+                xx, _swap_nibbles(packed), scale, **kw))
+            faults = [swapped]
             if gamma is not None:
                 faults.append(("RMSNorm without gamma", lambda xx: Q.int4_paired_fused_matmul(
                     xx, packed, scale, **dict(kw, gamma=torch.ones_like(gamma)))))
@@ -500,11 +528,35 @@ def phase_quant_kernels():
                             (packed, scale), out_bytes + extra, faults)
             if rows == 1:
                 add("K5", row)
+            act_faults = [("nibble order swapped", lambda xx: Q.int4_paired_fused_matmul(
+                xx, _swap_nibbles(packed), scale, act_int8=True, **kw))]
+            if gamma is not None:
+                # the activation quantized after bf16 rounding of an RMSNorm without gamma
+                act_faults.append(("quantized after bf16 rounding of RMSNorm without gamma",
+                                   lambda xx: Q.int4_w4a8_matmul(Q._prologue(xx, cin, torch.ones_like(gamma), 1e-6,
+                                                                             False).to(xx.dtype), packed, scale)))
+            row = _gemv_row(f"K5 act_int8 {tag} prologue {prologue} residual {with_residual}",
+                            lambda xx, p, sc: Q.int4_paired_fused_matmul(xx, p, sc, act_int8=True, **kw),
+                            lambda xx, p, sc: Q.int4_paired_fused_matmul_plain(xx, p, sc, act_int8=True, **kw), x,
+                            (packed, scale), out_bytes + extra, act_faults)
+            if rows == 1:
+                add("K5-act", row)
             row = _gemv_row(f"K6 {tag}", Q.int4_paired_matmul, Q.int4_paired_matmul_plain, xg, (packed, scale),
                             out_bytes,
                             [("nibble order swapped", lambda xx: Q.int4_paired_matmul(xx, _swap_nibbles(packed), scale))])
             if rows == 1:
                 add("K6", row)
+            row = _gemv_row(f"K10 {tag}", Q.int4_w4a8_matmul, Q.int4_w4a8_matmul_plain, xg, (packed, scale),
+                            out_bytes,
+                            [("activation scale without 1/127", lambda xx: Q.int4_w4a8_matmul(xx, packed, scale) * 127),
+                             ("nibble order swapped", lambda xx: Q.int4_w4a8_matmul(xx, _swap_nibbles(packed), scale))],
+                            rel_bound=W4A8_REL_BOUND)
+            if rows == 1:
+                add("K10", row)
+            row = _gemv_row(f"K11 {tag}", Q.int4_native_matmul, Q.int4_native_matmul_plain, xg, (qn, sn), out_bytes,
+                            [("column nibbles swapped", lambda xx: Q.int4_native_matmul(xx, _swap_nibbles(qn), sn))])
+            if rows == 1:
+                add("K11", row)
             row = _gemv_row(f"K7 int8 {tag}", Q.int8_matmul, lambda xx, q, sc: Q.qmm_plain(xx, q, sc, 8), xg,
                             (q8, s8), out_bytes)
             if rows == 1:
@@ -514,12 +566,33 @@ def phase_quant_kernels():
                             [("halves swapped", lambda xx: Q.int4_matmul(xx, _swap_nibbles(q4), s4))])
             if rows == 1:
                 add("K7-int4", row)
-        del packed, q4, q8
+        del q4, q8, qn
+    for label, first, second, siluglu1 in LLAMA_13B_PAIRS:
+        (qp1, sc1), (qp2, sc2) = paired[first], paired[second]
+        cin1, cout1, cout2 = 2 * qp1.shape[0], qp1.shape[1], qp2.shape[1]
+        for rows in (1, 8):
+            x = torch.randn(rows, 2 * cin1 if siluglu1 else cin1, generator=g, device=dev).to(torch.bfloat16)
+            residual = torch.randn(rows, cout1, generator=g, device=dev)
+            gamma = 1.0 + 0.1 * torch.randn(cout1, generator=g, device=dev)
+            weights = (qp1, sc1, residual, gamma, qp2, sc2)
+            row = _gemv_row(
+                f"K9 pair {label} [{rows},{x.shape[1]}]->[{rows},{cout1}]->[{rows},{cout2}]",
+                lambda xx, *wt: Q.int4_paired_fused_pair(xx, *wt, siluglu1=siluglu1),
+                lambda xx, *wt: Q.int4_paired_fused_pair_plain(xx, *wt, siluglu1=siluglu1), x, weights,
+                rows * (cout1 + cout2) * 4,
+                [("phase 2 normalised by one strip's statistics", lambda xx: Q.int4_paired_fused_pair(
+                    xx, *weights, siluglu1=siluglu1, _norm_cols=32)),
+                 ("nibble order swapped", lambda xx: Q.int4_paired_fused_pair(
+                     xx, qp1, sc1, residual, gamma, _swap_nibbles(qp2), sc2, siluglu1=siluglu1))])
+            if rows == 1:
+                add("K9", row)
+    del paired
     gc.collect()  # the fault closures hold weights in reference cycles
     torch.cuda.empty_cache()
     for name in names:
         r = layer[name]
-        log(f"[kernels] {name} over one 13B layer's four projections (1 row): {r['ms']:.4f} ms vs plain "
+        what = "two pairs" if name == "K9" else "four projections"
+        log(f"[kernels] {name} over one 13B layer's {what} (1 row): {r['ms']:.4f} ms vs plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); x40 layers: "
             f"{40 * r['ms']:.3f} ms, bound {40 * r['bound_ms']:.3f} ms")
     return layer
@@ -773,22 +846,78 @@ def _caption_image():
     return torch.randint(0, 256, (SIZE, SIZE, 3), generator=g, dtype=torch.uint8).numpy()
 
 
-GEMV_KERNELS = ("K5", "K6", "K7")
+GEMV_KERNELS = ("K5", "K5-act", "K6", "K7", "K9", "K10", "K11")
+# the captioner's modes at full width: label -> (LlamaConfig flags, kv_dtype)
+_INT4 = dict(quantize_int4=True, fused_qkv=True)
+CAPTION_MODES = {
+    "int4": (_INT4, "bfloat16"),
+    "int4-unfused": (dict(_INT4, fused_glue=False), "bfloat16"),
+    "int8": (dict(quantize_int8=True, fused_qkv=True), "bfloat16"),
+    "int4-lean": (dict(_INT4, fused_pairs=True, head_int8=True), "int8"),
+    "int4-w4a8": (dict(_INT4, act_int8=True), "bfloat16"),
+    "int4-w4a8-unfused": (dict(_INT4, act_int8=True, fused_glue=False), "bfloat16"),
+    "int4-native": (dict(_INT4, int4_native=True), "bfloat16"),
+}
+
+
+class _ActInt8Count:
+    """K5's act_int8 launches, read and reset like a wrapper's counter."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    launches = property(lambda self: self.fn.act_int8_launches,
+                        lambda self, n: setattr(self.fn, "act_int8_launches", n))
 
 
 def _counters():
     from supir_tpu_torch.ops import quantize as Q
 
-    return {"K5": Q.int4_paired_fused_matmul, "K6": Q.int4_paired_matmul, "K7": Q.qmm, "K8": Q.quantize_int8}
+    return {"K5": Q.int4_paired_fused_matmul, "K5-act": _ActInt8Count(Q.int4_paired_fused_matmul),
+            "K6": Q.int4_paired_matmul, "K7": Q.qmm, "K8": Q.quantize_int8, "K9": Q.int4_paired_fused_pair,
+            "K10": Q.int4_w4a8_matmul, "K11": Q.int4_native_matmul}
+
+
+def expected_caption_launches(llama, steps: int, load: bool = True) -> dict:
+    """Kernel launches of `steps` decode steps, and of the load unless
+    `load` is False, derived from the LlamaConfig. The prefill's rows exceed
+    DECODE_ROWS, so it takes the plain versions and launches no GEMV. Per
+    step: under fused_pairs 2 x layers - 1 K9 launches and 2 K5 (layer 0's
+    qkv, the last layer's down); with fused glue 4 K5 per layer (counted
+    also as K5-act under act_int8); else one launch per projection (4 per
+    layer with merged qkv and gate-up, 7 without) of K11 (native), K10
+    (act_int8), K6 (paired), K7 (half-split or int8); one K7 for an int8
+    head. K8 quantizes at load every int8 projection and an int8 head."""
+    n_layers = llama.layers
+    per_layer = 4 if llama.fused_qkv else 7
+    want = dict.fromkeys(("K5", "K5-act", "K6", "K7", "K8", "K9", "K10", "K11"), 0)
+    if llama.fused_pairs:
+        want["K9"], want["K5"] = (2 * n_layers - 1) * steps, 2 * steps
+    elif llama.use_fused_glue:
+        want["K5"] = 4 * n_layers * steps
+        want["K5-act"] = want["K5"] if llama.act_int8 else 0
+    elif llama.quantize_int4:
+        kernel = ("K11" if llama.int4_native else ("K10" if llama.act_int8 else "K6") if llama.int4_paired
+                  else "K7")
+        want[kernel] = per_layer * n_layers * steps
+    elif llama.quantize_int8:
+        want["K7"] = per_layer * n_layers * steps
+        want["K8"] = per_layer * n_layers if load else 0
+    if llama.head_int8:
+        want["K7"] += steps
+        want["K8"] += 1 if load else 0
+    return want
 
 
 @contextlib.contextmanager
 def gemv_sites():
-    """Hold every K5, K6 and K7 call of the captioner's Llama that reaches
-    its kernel (at most DECODE_ROWS rows) to its plain version in fp32 on
-    that call's inputs; the relative L2 errors land in the dict this
-    yields, by kernel. The Llama module sees a copy of the quantize module
-    with watched wrappers; the wrappers themselves stay as they are."""
+    """Hold every K5, K6, K7, K9, K10 and K11 call of the captioner's Llama
+    that reaches its kernel (at most DECODE_ROWS rows) to its plain version
+    in fp32 on that call's inputs; the relative L2 errors (K9: the larger
+    of its two outputs') land in the dict this yields, by kernel, K5's
+    act_int8 calls under "K5-act". The Llama module sees a copy of the
+    quantize module with watched wrappers; the wrappers themselves stay as
+    they are."""
     import types
 
     from supir_tpu_torch.captioner import llama
@@ -800,7 +929,8 @@ def gemv_sites():
         def watched(x, *args, **kwargs):
             out = kernel(x, *args, **kwargs)
             if x.shape[0] <= Q.DECODE_ROWS:
-                rels[name].append(rel_l2(out, plain(x.float(), *args, **kwargs)))
+                site = "K5-act" if name == "K5" and kwargs.get("act_int8") else name
+                rels[site].append(_worst_rel(out, plain(x.float(), *args, **kwargs)))
             return out
         return watched
 
@@ -809,11 +939,34 @@ def gemv_sites():
     proxy.int4_paired_matmul = watch("K6", Q.int4_paired_matmul, Q.int4_paired_matmul_plain)
     proxy.int8_matmul = watch("K7", Q.int8_matmul, lambda x, q, s: Q.qmm_plain(x, q, s, 8))
     proxy.int4_matmul = watch("K7", Q.int4_matmul, lambda x, q, s: Q.qmm_plain(x, q, s, 4))
+    proxy.int4_paired_fused_pair = watch("K9", Q.int4_paired_fused_pair, Q.int4_paired_fused_pair_plain)
+    proxy.int4_w4a8_matmul = watch("K10", Q.int4_w4a8_matmul, Q.int4_w4a8_matmul_plain)
+    proxy.int4_native_matmul = watch("K11", Q.int4_native_matmul, Q.int4_native_matmul_plain)
     llama.Q = proxy
     try:
         yield rels
     finally:
         llama.Q = Q
+
+
+def _site_bound(kernel: str) -> float:
+    return W4A8_REL_BOUND if kernel == "K10" else GEMV_REL_BOUND
+
+
+def _check_sites(label: str, rels, want_one_step) -> str:
+    """Every GEMV call of one decode step within its bound, and as many calls
+    of each kernel as one step launches; returns a summary."""
+    want = dict(want_one_step, K5=want_one_step["K5"] - want_one_step["K5-act"])
+    got = {k: len(v) for k, v in rels.items()}
+    if any(got[k] != want[k] for k in GEMV_KERNELS):
+        raise AssertionError(f"{label}: GEMV calls in one decode step {got}, expected "
+                             f"{ {k: want[k] for k in GEMV_KERNELS} }")
+    parts = []
+    for k in GEMV_KERNELS:
+        if rels[k]:
+            _check_rel(f"{label} {k} sites", max(rels[k]), _site_bound(k))
+            parts.append(f"{len(rels[k])} {k} calls worst rel_l2 {max(rels[k]):.3e} (bound {_site_bound(k):g})")
+    return "; ".join(parts)
 
 
 def profile_decode(label: str, agent, image, steps: int = 3):
@@ -843,20 +996,26 @@ def profile_decode(label: str, agent, image, steps: int = 3):
         log(f"[profile {label}]   {us / 1e3 / steps:8.3f} ms/step  {count // steps:5d}/step  {key[:90]}")
 
 
-def phase_captioner(label: str, bits, fused_glue: bool, image):
-    """LLaVA-1.5-13B at full width on the card in one weight mode: load
-    (random weights drawn and quantized layer by layer), one counted
-    gen_image_caption, one timed again warm, then every GEMV call of one
-    decode step held to its plain version, and a profile of three decode
-    steps. Returns the counted launches."""
+def _mode_cfg(cfg, label: str):
+    """cfg with the LlamaConfig flags and KV cache of CAPTION_MODES[label]."""
+    flags, kv = CAPTION_MODES[label]
+    return dataclasses.replace(cfg, kv_dtype=kv, llama=dataclasses.replace(cfg.llama, **flags))
+
+
+def phase_captioner(label: str, image, chat: bool = False):
+    """LLaVA-1.5-13B at full width on the card in one mode of CAPTION_MODES:
+    load (random weights drawn and quantized layer by layer), one counted
+    gen_image_caption, one timed again warm, then
+    every GEMV call of one decode step held to its plain version, a profile
+    of three decode steps and, with `chat`, one text-only chat turn.
+    Returns the counted launches."""
     import gc
 
     import torch
 
     from supir_tpu_torch.captioner.agent import CaptionerConfig, create_captioner
 
-    cfg = dataclasses.replace(CaptionerConfig(), compute_dtype="bfloat16", kv_dtype="bfloat16",
-                              max_new_tokens=CAP_TOKENS)
+    cfg = _mode_cfg(dataclasses.replace(CaptionerConfig(), compute_dtype="bfloat16", max_new_tokens=CAP_TOKENS), label)
     counters = _counters()
     gc.collect()
     torch.cuda.empty_cache()
@@ -864,7 +1023,7 @@ def phase_captioner(label: str, bits, fused_glue: bool, image):
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    agent = create_captioner(cfg, "cuda", bits=bits, fused_glue=fused_glue, seed=SEED)
+    agent = create_captioner(cfg, "cuda", seed=SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     model_bytes = nbytes(*agent.model.parameters(), *agent.model.buffers())
@@ -905,9 +1064,9 @@ def phase_captioner(label: str, bits, fused_glue: bool, image):
     first = dict(marks)
     peak = torch.cuda.max_memory_allocated()
     text_warm, n_warm, decode_ms_warm = caption()
-    log(f"[captioner {label}] LLaVA-1.5-13B full width, bf16 activations and KV cache (cache_len {cfg.cache_len}): "
-        f"{model_bytes / 1e9:.3f} GB of parameters and buffers on the card; init and quantize {init_s:.1f} s; "
-        f"peak memory {peak / 2**30:.2f} GiB")
+    log(f"[captioner {label}] LLaVA-1.5-13B full width, bf16 activations, {cfg.kv_dtype} KV cache "
+        f"(cache_len {cfg.cache_len}), flags {CAPTION_MODES[label][0]}: {model_bytes / 1e9:.3f} GB of parameters "
+        f"and buffers on the card; init and quantize {init_s:.1f} s; peak memory {peak / 2**30:.2f} GiB")
     log(f"[captioner {label}] first run: vision+projector {first['vision'] * 1e3:.1f} ms, prefill "
         f"{first['prefill'] * 1e3:.1f} ms, decode {decode_ms:.2f} ms/token over {n - 1} tokens; "
         f"warm run: vision+projector {marks['vision'] * 1e3:.1f} ms, prefill {marks['prefill'] * 1e3:.1f} ms, "
@@ -915,15 +1074,9 @@ def phase_captioner(label: str, bits, fused_glue: bool, image):
     if text_warm != text:
         raise AssertionError(f"greedy captions differ between two runs: {text!r} vs {text_warm!r}")
 
-    # launches: each decode step after the first token runs 4 GEMVs per layer
-    layers = agent.cfg.llama.layers
-    decode_kernel = "K7" if bits == 8 else ("K5" if fused_glue else "K6")
-    want = {k: 0 for k in counters}
-    want[decode_kernel] = 4 * layers * (n - 1)
-    if bits == 8:
-        want["K8"] = 4 * layers
-    log(f"[captioner {label}] launches {launches} (expected {want}: 4 x {layers} layers x {n - 1} decoded tokens"
-        f"{f'; K8 4 x {layers} at load' if bits == 8 else ''})")
+    want = expected_caption_launches(agent.cfg.llama, n - 1)
+    log(f"[captioner {label}] launches {launches} (expected from the config for {n - 1} decoded tokens and the "
+        f"load: {want})")
     if launches != want:
         raise AssertionError(f"captioner {label} launched {launches}, expected {want}")
 
@@ -931,13 +1084,21 @@ def phase_captioner(label: str, bits, fused_glue: bool, image):
     with gemv_sites() as rels, torch.no_grad():
         tok, plen, caches, _, _ = agent._prefill_images([image], None, "vicuna_v1")
         agent._step(tok, plen, caches)
-    site = rels[decode_kernel]
-    log(f"[captioner {label}] prompt {plen} tokens; one decode step: {len(site)} {decode_kernel} calls vs fp32 "
-        f"plain, worst rel_l2 {max(site):.3e} (bound {GEMV_REL_BOUND:g})")
-    if len(site) != 4 * layers or any(rels[k] for k in GEMV_KERNELS if k != decode_kernel):
-        raise AssertionError(f"unexpected GEMV calls in one decode step: { {k: len(v) for k, v in rels.items()} }")
-    _check_rel(f"captioner {label} per-site", max(site), GEMV_REL_BOUND)
+    summary = _check_sites(f"captioner {label}", rels, expected_caption_launches(agent.cfg.llama, 1, load=False))
+    log(f"[captioner {label}] prompt {plen} tokens; one decode step vs fp32 plain: {summary}")
     profile_decode(label, agent, image)
+    if chat:
+        question = "What makes a photograph look sharp and detailed?"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reply = agent.chat(question, temperature=0.0)
+        torch.cuda.synchronize()
+        chat_s = time.perf_counter() - t0
+        tokens = marks["seqs"].shape[1]
+        log(f"[chat] {label}, full width: one text-only turn of {tokens} tokens in {chat_s:.3f} s "
+            f"(prefill {marks['prefill'] * 1e3:.1f} ms, no image); reply {reply[:48]!r}")
+        if tokens < 1:
+            raise AssertionError("chat produced no token")
     del agent, caches
     gc.collect()
     torch.cuda.empty_cache()
@@ -965,8 +1126,10 @@ def phase_captioner_reference(image):
     """A reduced-width captioner (Llama dim 512, 4 layers, 8 heads of 64,
     hidden 1536; CLIP width 256, 2 layers, 112^2) with the same random
     weights on the card (bf16, kernels) and on the CPU (fp32, plain), in
-    each weight mode; logits compared by relative L2, the card teacher-forced
-    on the CPU's greedy tokens."""
+    each mode of CAPTION_MODES; logits compared by relative L2, the card
+    teacher-forced on the CPU's greedy tokens. The int8 KV cache and W4A8
+    quantize activations on both sides, from bf16 values on the card and
+    fp32 ones on the CPU, so a few roundings differ: the bound is the same."""
     import torch
 
     from supir_tpu_torch.captioner.agent import CaptionerConfig, create_captioner
@@ -977,31 +1140,36 @@ def phase_captioner_reference(image):
         vision=CLIPVisionConfig(image_size=112, patch_size=14, width=256, layers=2, heads=4),
         llama=LlamaConfig(dim=512, layers=4, heads=8, kv_heads=8, hidden_dim=1536),
         max_new_tokens=REF_STEPS + 1, cache_len=512)
-    card_cfg = dataclasses.replace(cfg, compute_dtype="bfloat16", kv_dtype="bfloat16")
     sd = create_captioner(cfg, "cpu", seed=SEED + 7).model.state_dict()
     counters = _counters()
-    for label, bits, fused_glue in (("int4", 4, True), ("int4-unfused", 4, False), ("int8", 8, True)):
-        kernel = "K7" if bits == 8 else ("K5" if fused_glue else "K6")
-        cpu = create_captioner(cfg, "cpu", bits=bits, fused_glue=fused_glue, state_dict=sd, stochastic=False)
-        card = create_captioner(card_cfg, "cuda", bits=bits, fused_glue=fused_glue, state_dict=sd, stochastic=False)
+    for label in CAPTION_MODES:
+        card_cfg = dataclasses.replace(_mode_cfg(cfg, label), compute_dtype="bfloat16")
+        cpu_cfg = dataclasses.replace(card_cfg, compute_dtype="float32",
+                                      kv_dtype="int8" if card_cfg.kv_dtype == "int8" else "float32")
+        cpu = create_captioner(cpu_cfg, "cpu", state_dict=sd, stochastic=False)
+        card = create_captioner(card_cfg, "cuda", state_dict=sd, stochastic=False)
         t0 = time.perf_counter()
         want, toks = _logit_stream(cpu, image)
         cpu_s = time.perf_counter() - t0
-        counters[kernel].launches = 0
+        for fn in counters.values():
+            fn.launches = 0
         with gemv_sites() as rels:
             got, _ = _logit_stream(card, image, forced=toks)
-        launches = counters[kernel].launches
+        launches = {k: fn.launches for k, fn in counters.items()}
+        expected = expected_caption_launches(card.cfg.llama, REF_STEPS, load=False)
         rel = max(rel_l2(g_, w_) for g_, w_ in zip(got, want))
-        site = max(rels[kernel])
-        log(f"[captioner reference {label}] reduced width, card bf16 vs CPU fp32 ({cpu_s:.1f} s): prefill and "
-            f"{REF_STEPS} teacher-forced decode steps, worst logits rel_l2 {rel:.4e} (bound {CAP_REF_REL_BOUND:g}), "
-            f"prefill rel_l2 {rel_l2(got[0], want[0]):.4e}; {kernel} launches {launches} (expected "
-            f"{4 * cfg.llama.layers * REF_STEPS}), worst site rel_l2 {site:.3e} (bound {GEMV_REL_BOUND:g})")
-        if not (rel <= CAP_REF_REL_BOUND and site <= GEMV_REL_BOUND and torch.isfinite(got).all()):
-            raise AssertionError(f"captioner reference {label}: card and CPU disagree (rel_l2 {rel}, site {site})")
-        if launches != 4 * cfg.llama.layers * REF_STEPS:
-            raise AssertionError(f"captioner reference {label}: {kernel} launched {launches} times")
-        if label == "int4":
+        sites = _check_sites(f"captioner reference {label}", rels,
+                             expected_caption_launches(card.cfg.llama, REF_STEPS, load=False))
+        log(f"[captioner reference {label}] reduced width, card bf16 ({card_cfg.kv_dtype} KV) vs CPU fp32 "
+            f"({cpu_cfg.kv_dtype} KV, "
+            f"{cpu_s:.1f} s): prefill and {REF_STEPS} teacher-forced decode steps, worst logits rel_l2 {rel:.4e} "
+            f"(bound {CAP_REF_REL_BOUND:g}), prefill rel_l2 {rel_l2(got[0], want[0]):.4e}; launches "
+            f"{ {k: v for k, v in launches.items() if v} } (expected {expected}); {sites}")
+        if not (rel <= CAP_REF_REL_BOUND and torch.isfinite(got).all()):
+            raise AssertionError(f"captioner reference {label}: card and CPU disagree (rel_l2 {rel})")
+        if launches != expected:
+            raise AssertionError(f"captioner reference {label}: launched {launches}, expected {expected}")
+        if label in ("int4", "int4-lean"):
             # planted fault: every packed byte with its nibbles exchanged
             packed = [m.qp for m in card.model.modules() if hasattr(m, "qp")]
             for t in packed:
@@ -1500,11 +1668,13 @@ def main() -> int:
     launches = phase_main(args.steps, args.repeat)
     phase_reference()
     image = _caption_image()
-    for label, bits, fused_glue, kernels_of_mode in (("int4", 4, True, ("K5",)),
-                                                     ("int4-unfused", 4, False, ("K6",)),
-                                                     ("int8", 8, True, ("K7", "K8"))):
-        counted = phase_captioner(label, bits, fused_glue, image)
-        launches.update({k: counted[k] for k in kernels_of_mode})
+    # each captioner kernel takes the launches of the mode whose path it serves
+    # (K5's act_int8 mode, K10 and K11 their W4A8 and native modes, K9 the lean one)
+    counted_in = {"K5": "int4", "K6": "int4-unfused", "K7": "int8", "K8": "int8", "K9": "int4-lean",
+                  "K5-act": "int4-w4a8", "K10": "int4-w4a8-unfused", "K11": "int4-native"}
+    for label in CAPTION_MODES:
+        counted = phase_captioner(label, image, chat=label == "int4-lean")
+        launches.update({k: counted[k] for k, mode in counted_in.items() if mode == label})
     phase_captioner_reference(image)
     # K1 and K2 keep the restore path's counts; K3 and K4 run on the trainer's
     train = phase_train()
@@ -1520,17 +1690,23 @@ def main() -> int:
         "K6": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:116"),
         "K7": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:606"),
         "K8": ("cuda", "supir_tpu_torch/csrc/quantize_int8.cu", "supir_tpu/ops/quantize.py:21"),
+        "K5-act": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:291"),
+        "K9": ("cuda", "supir_tpu_torch/csrc/quant_pair.cu", "supir_tpu/ops/quantize.py:398"),
+        "K10": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:191"),
+        "K11": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:555"),
     }
     # where each kernel's times were taken
     at = {"K1": "[2,4096,10,64] bf16", "K2": "[2,320,128,128] bf16, SiLU",
           "K3": "[1,4096,10,64] bf16, with lse", "K4": "[1,4096,10,64] bf16, dq dk dv",
           "K5": "one 13B layer (qkv, o, gate-up, down), 1 row", "K6": "one 13B layer, 1 row",
-          "K7": "one 13B layer, int8, 1 row", "K8": "one 13B layer's four fp32 kernels"}
+          "K7": "one 13B layer, int8, 1 row", "K8": "one 13B layer's four fp32 kernels",
+          "K5-act": "one 13B layer, act_int8, 1 row", "K9": "one 13B layer's two pairs, 1 row",
+          "K10": "one 13B layer, 1 row", "K11": "one 13B layer, 1 row"}
     kernels = []
     for name, (route, source, replaces) in sources.items():
         r = results[name]
         kernels.append({
-            "name": name, "route": route, "source": source, "replaces": replaces,
+            "name": "K5 act_int8" if name == "K5-act" else name, "route": route, "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "at": at[name],

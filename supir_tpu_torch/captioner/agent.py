@@ -14,8 +14,12 @@ byte fallback (agent.py:276-285), so the path needs no download.
 
 `create_captioner` builds the model on the card (the CPU only when asked),
 from a state dict under HF LLaVA keys or from random weights drawn on the
-device from a seed; in the quantized modes each projection's weights are
-drawn and quantized at once, so a full bf16 13B copy never exists.
+device from a seed, in every weight and execution mode of `LlamaConfig`
+and every KV-cache type of `CaptionerConfig`; in the quantized modes each
+projection's weights are drawn and quantized at once, so a full bf16 13B
+copy never exists. Under `fused_pairs` the decode step is
+`llama.fused_pair_decode_step` (two K9 launches per layer); prefill keeps
+the block modules, as the JAX agent's does (agent.py:416-429).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from supir_tpu_torch.captioner.llama import (
     LlamaForCausalLM,
     RMSNorm,
     _QuantLinear,
+    fused_pair_decode_step,
     quantize_llama_state_dict,
     quantize_projection,
 )
@@ -47,6 +52,7 @@ from supir_tpu_torch.utils.device import resolve_device
 
 DEFAULT_QUESTION = "Describe this image and its style in a very detailed manner."
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_KV_DTYPES = dict(_DTYPES, int8=torch.int8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +66,9 @@ class CaptionerConfig:
     max_new_tokens: int = 512
     cache_len: int = 1536
     compute_dtype: str = "float32"   # "float32" | "bfloat16"
-    kv_dtype: str = "float32"        # "float32" | "bfloat16"
+    # "float32" | "bfloat16" | "int8": per-(position, head) scaled int8
+    # entries (llama._quant_kv), attended in the scales-factored form
+    kv_dtype: str = "float32"
 
     @classmethod
     def tiny(cls) -> "CaptionerConfig":
@@ -108,9 +116,9 @@ class CaptionerAgent:
         self.cfg = cfg
         self.model = model
         self.tokenizer = tokenizer
-        self.device = model.lm_head.weight.device
+        self.device = model.device
         self.dtype = _DTYPES[cfg.compute_dtype]
-        self.kv_dtype = _DTYPES[cfg.kv_dtype]
+        self.kv_dtype = _KV_DTYPES[cfg.kv_dtype]
 
     # ------------------------------------------------------------ tokenize
 
@@ -149,7 +157,10 @@ class CaptionerAgent:
     def _step(self, tok: torch.Tensor, pos: int, caches) -> torch.Tensor:
         """One decode step: token ids [B] at position `pos` -> fp32 logits [B, vocab]."""
         positions = torch.full((tok.shape[0], 1), pos, dtype=torch.long, device=self.device)
-        return self.model(self.model.embed(tok[:, None]), positions, caches, cache_index=pos)[:, -1]
+        emb = self.model.embed(tok[:, None])
+        if self.cfg.llama.fused_pairs:
+            return fused_pair_decode_step(self.model, emb, positions, caches, pos)[:, -1]
+        return self.model(emb, positions, caches, cache_index=pos)[:, -1]
 
     def _prefill_images(self, images, qs: Optional[str], conv_mode: str):
         """Prompt, image splice and prefill -> decode-ready state."""
@@ -281,6 +292,21 @@ class CaptionerAgent:
                                                       eos_id, stopper):
             yield self._texts_from(seqs, stop_at, eos_id, stop_str)
 
+    def chat(self, text: str, temperature: float = 0.2, top_p: float = 0.7, seed: int = 0, eos_id: int = 2,
+             conv_mode: str = "vicuna_v1") -> str:
+        """A text-only turn, no image spliced in (agent.py:605-634): the
+        reference CLI's non-image path."""
+        cfg = self.cfg
+        stopper, stop_str = self._make_stopper(conv_mode)
+        ids = self._tokenize(build_prompt(conv_mode, text, with_image=False))
+        ids = ids[: cfg.cache_len - cfg.max_new_tokens]
+        embeds = self._embed(ids, 1)
+        caches = self.model.init_cache(1, cfg.cache_len, dtype=self.kv_dtype)
+        tok = self._prefill(embeds, caches).argmax(-1)
+        seqs, stop_at = self._decode_tokens(tok, embeds.shape[1], caches, seed, temperature, top_p, eos_id,
+                                            stopper)
+        return self._finalize_row(seqs[0], stop_at[0], eos_id, stop_str)
+
 
 def top_p_filter(logits: torch.Tensor, temperature: float, top_p: float):
     """The sampling filter of agent.py:432-442: temperature, softmax, the
@@ -313,7 +339,7 @@ def _init_random(model: LlavaForCausalLM, cfg: CaptionerConfig, generator: torch
             w.normal_(0.0, module.cin ** -0.5, generator=generator)
             bits = 8 if module.qname == "q" else 4
             for k, v in quantize_projection(w, bits, paired=module.qname == "qp", seed=seed + n,
-                                            stochastic=stochastic).items():
+                                            stochastic=stochastic, native=module.qname == "qn").items():
                 getattr(module, k).copy_(v)
             n += 1
             del w
@@ -329,8 +355,22 @@ def _init_random(model: LlavaForCausalLM, cfg: CaptionerConfig, generator: torch
         elif isinstance(module, RMSNorm):
             module.weight.fill_(1.0)
     model.vision.embeddings.class_embedding.normal_(0.0, 0.02, generator=generator)
-    if cfg.llama.quantize_int4 or cfg.llama.quantize_int8:
+    if (cfg.llama.quantize_int4 or cfg.llama.quantize_int8) and not cfg.llama.head_int8:
         model.lm_head.weight.copy_(model.lm_head.weight.to(torch.bfloat16))
+
+
+def _quantize_at_load(sd: Mapping[str, torch.Tensor], llama: LlamaConfig, seed: int, stochastic: bool):
+    """An unquantized state dict -> the layout `llama` selects; a state dict
+    that is already quantized (utils/weights.captioner_state_dict_from_jax
+    of a quantized JAX tree) passes as it is."""
+    bits = 4 if llama.quantize_int4 else (8 if llama.quantize_int8 else None)
+    fp_projections = "model.layers.0.self_attn.o_proj.weight" in sd
+    fp_head = "lm_head.weight" in sd
+    if (bits is None or not fp_projections) and not (llama.head_int8 and fp_head):
+        return sd
+    return quantize_llama_state_dict(sd, llama, bits if fp_projections else None, fuse=llama.fused_qkv,
+                                     paired=llama.int4_paired, native=llama.int4_native,
+                                     head_int8=llama.head_int8, seed=seed, stochastic=stochastic)
 
 
 def create_captioner(cfg: Optional[CaptionerConfig] = None, device="cuda", bits: Optional[int] = None,
@@ -339,15 +379,18 @@ def create_captioner(cfg: Optional[CaptionerConfig] = None, device="cuda", bits:
                      tokenizer=None, stochastic: bool = True) -> CaptionerAgent:
     """A CaptionerAgent on `device` (the card unless the caller names the CPU).
 
-    cfg: defaults to LLaVA-1.5-13B in bf16 with a bf16 KV cache. bits None
-    keeps the projections unquantized; 4 is --load_4bit_llava (paired int4,
-    merged qkv and gate-up, with the glue folded into K5 unless
-    `fused_glue` is False, then K6); 8 is --load_8bit_llava (K8 at load, K7
-    in decode). state_dict: unquantized weights under HF LLaVA keys (e.g.
-    from utils/weights.captioner_state_dict_from_jax), quantized here; None
-    draws random weights on the device from `seed`. stochastic: K8 rounds
-    the int8 weights stochastically, as the TPU kernel does; False rounds to
-    nearest, as the JAX package does off the TPU."""
+    cfg: defaults to LLaVA-1.5-13B in bf16 with a bf16 KV cache; every flag
+    of cfg.llama (int4_native, act_int8, fused_glue, fused_pairs, head_int8,
+    ...) and cfg.kv_dtype is honoured. bits None keeps cfg.llama's
+    quantization; 4 is --load_4bit_llava (paired int4, merged qkv and
+    gate-up, with the glue folded into K5 unless `fused_glue` is False,
+    then K6); 8 is --load_8bit_llava (K8 at load, K7 in decode).
+    state_dict: weights under HF LLaVA keys (e.g. from
+    utils/weights.captioner_state_dict_from_jax), unquantized and then
+    quantized here in the layout cfg.llama selects, or already quantized;
+    None draws random weights on the device from `seed`. stochastic: K8
+    rounds the int8 weights stochastically, as the TPU kernel does; False
+    rounds to nearest, as the JAX package does off the TPU."""
     device = resolve_device(device)
     if cfg is None:
         cfg = dataclasses.replace(CaptionerConfig(), compute_dtype="bfloat16", kv_dtype="bfloat16")
@@ -364,9 +407,6 @@ def create_captioner(cfg: Optional[CaptionerConfig] = None, device="cuda", bits:
     if state_dict is None:
         _init_random(model, cfg, torch.Generator(device=device).manual_seed(seed), seed, stochastic)
     else:
-        if bits is not None:
-            state_dict = quantize_llama_state_dict(state_dict, cfg.llama, bits, seed=seed,
-                                                   stochastic=stochastic)
-        model.load_state_dict(state_dict, strict=True)
+        model.load_state_dict(_quantize_at_load(state_dict, cfg.llama, seed, stochastic), strict=True)
     model.eval().requires_grad_(False)
     return CaptionerAgent(cfg, model, tokenizer=tokenizer)

@@ -243,10 +243,10 @@ class KeywordStopper:
         return None
 
 
-def build_prompt(conv_mode: str, question: str) -> str:
-    """One-shot prompt for a single question: the user's question with an
-    <image> slot, and an empty assistant turn."""
+def build_prompt(conv_mode: str, question: str, with_image: bool = True) -> str:
+    """One-shot prompt for a single question: the user's question (with an
+    <image> slot unless `with_image` is False), and an empty assistant turn."""
     conv = conv_templates[conv_mode].copy()
-    conv.append_message(conv.roles[0], f"<image>\n{question}")
+    conv.append_message(conv.roles[0], f"<image>\n{question}" if with_image else question)
     conv.append_message(conv.roles[1], None)
     return conv.get_prompt()

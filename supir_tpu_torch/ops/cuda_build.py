@@ -3,9 +3,9 @@
 Each source under `supir_tpu_torch/csrc/` is compiled on first use into a
 shared library with a plain C interface, under `build/supir_tpu_torch/` at
 the root of the checkout. The library's file name carries a hash of the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded. `build_all` starts one nvcc per source, all at once. Nothing
-here runs at import time.
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
+source is rebuilt and a stale library is never loaded. `build_all` starts
+one nvcc per source, all at once. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -43,7 +43,10 @@ def nvcc_path() -> str:
 def _compile(source: str) -> Path:
     """Compile `csrc/<source>` unless its library exists; return its path."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the shared headers are hashed too: a source that includes an edited
+    # header is rebuilt
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{src.stem}-{digest}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -15,8 +15,12 @@ The keys are the reference's, so the results load with `strict=True`:
 `captioner_state_dict_from_jax` into the unquantized `LlavaForCausalLM`
 (HF LLaVA keys: `model.layers.{i}.self_attn.q_proj.weight`,
 `model.vision_tower.vision_tower.vision_model.*`, `model.mm_projector.*`,
-`lm_head.weight`). Quantization happens in the port
-(`captioner/llama.py:quantize_llama_state_dict`).
+`lm_head.weight`). A quantized JAX captioner tree (`quantize_llama_params`)
+crosses too: each quantized projection's leaves under the module's name
+(`model.layers.{i}.self_attn.qkv_proj.qp`, `.scale`, ...), `jnp.int4`
+weights (`qn`, whose numpy form is `ml_dtypes.int4`) repacked to K11's
+column pairs, and the int8 head as `lm_head.q` / `lm_head.scale`; else
+quantization happens in the port (`captioner/llama.py:quantize_llama_state_dict`).
 
 `train_state_from_jax` carries a JAX trainer state (params, optax's AdamW
 mu and nu, the EMA and the step) into the port's trainer state by the same
@@ -107,10 +111,57 @@ def state_dict_from_jax(params_np: Mapping[str, Any], cfg: SUPIRConfig) -> Dict[
     return _bridge(params_np, supir_rules(cfg))
 
 
+def _has(tree: Mapping[str, Any], path) -> bool:
+    node = tree
+    for p in path:
+        if not isinstance(node, Mapping) or p not in node:
+            return False
+        node = node[p]
+    return True
+
+
+_MLP = ("gate_proj", "up_proj", "down_proj", "gateup_proj")
+
+
+def _quantized_leaf(name: str, v: np.ndarray) -> torch.Tensor:
+    from supir_tpu_torch.ops.quantize import pack_int4_native
+
+    if name == "qn":  # jnp.int4 values [in, out] -> K11's column pairs
+        return pack_int4_native(torch.from_numpy(np.asarray(v).astype(np.int8)))
+    dtype = {"qp": np.uint8, "q4": np.uint8, "q": np.int8, "scale": np.float32}[name]
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(v), dtype))
+
+
+def _quantized_llama(llama: Mapping[str, Any], layers: int) -> Dict[str, torch.Tensor]:
+    """The quantized leaves of a `quantize_llama_params` tree under the
+    port's keys: every projection node that holds a `scale`, and the int8
+    head."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(layers):
+        for name, node in llama["model"][f"layer_{i}"].items():
+            if isinstance(node, Mapping) and "scale" in node:
+                group = "mlp" if name in _MLP else "self_attn"
+                for leaf, v in node.items():
+                    sd[f"model.layers.{i}.{group}.{name}.{leaf}"] = _quantized_leaf(leaf, v)
+    head = llama["lm_head"]
+    if "q" in head:
+        sd["lm_head.q"] = _quantized_leaf("q", head["q"])
+        sd["lm_head.scale"] = _quantized_leaf("scale", head["scale"])
+    return sd
+
+
 def captioner_state_dict_from_jax(params_np: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
-    """The JAX agent's unquantized {'vision', 'projector', 'llama'} trees ->
-    fp32 CPU tensors under the HF LLaVA keys (cfg: a CaptionerConfig)."""
-    return _bridge(params_np, captioner_rules(cfg))
+    """The JAX agent's {'vision', 'projector', 'llama'} trees -> CPU tensors
+    under the HF LLaVA keys (cfg: a CaptionerConfig): fp32 for unquantized
+    leaves (a bf16 head included), the quantized leaves of a quantized
+    'llama' tree in the port's buffer types (uint8 qp/q4/qn, int8 q, fp32
+    scale)."""
+    tables = captioner_rules(cfg)
+    llama = params_np["llama"]
+    tables["llama"] = [r for r in tables["llama"] if _has(llama, r[1])]
+    sd = _bridge(params_np, tables)
+    sd.update(_quantized_llama(llama, cfg.llama.layers))
+    return sd
 
 
 def train_state_from_jax(state_np: Mapping[str, Any], cfg: SUPIRConfig) -> Dict[str, Any]:

@@ -367,6 +367,22 @@ def test_create_captioner_refuses_without_cuda(monkeypatch):
 
 
 def test_unported_llama_options_raise():
-    cfg = dataclasses.replace(TA.CaptionerConfig.tiny().llama, act_int8=True)
-    with pytest.raises(NotImplementedError):
-        TL.LlamaBlock(cfg)
+    """Every LlamaConfig option of the JAX captioner builds in the port now
+    (each module the flag selects, and a decode step through it); int4
+    together with int8 still raises."""
+    base = dataclasses.replace(TA.CaptionerConfig.tiny().llama, quantize_int4=True, fused_qkv=True)
+    for flag, module in (("int4_native", TL.Int4NativeLinear), ("act_int8", TL.Int4PairedLinear),
+                         ("head_int8", TL.Int8Linear), ("fused_pairs", TL.Int4PairedLinear)):
+        cfg = dataclasses.replace(base, **{flag: True}, fused_glue=flag != "act_int8")
+        model = TL.LlamaForCausalLM(cfg)
+        assert isinstance(model.lm_head if flag == "head_int8" else model.model.layers[0].self_attn.o_proj, module)
+        with torch.no_grad():
+            caches = model.init_cache(1, 8, dtype=torch.int8)
+            model.forward_ids(torch.zeros(1, 2, dtype=torch.long), torch.arange(2)[None], caches, cache_index=0)
+            if flag == "fused_pairs":
+                logits = TL.fused_pair_decode_step(model, model.embed(torch.zeros(1, 1, dtype=torch.long)),
+                                                   torch.full((1, 1), 2), caches, 2)
+                assert logits.shape == (1, 1, cfg.vocab_size) and torch.isfinite(logits).all()
+    assert TL.LlamaForCausalLM(dataclasses.replace(base, act_int8=True)).model.layers[0].self_attn.o_proj.act_int8
+    with pytest.raises(ValueError):
+        TL.LlamaBlock(dataclasses.replace(base, quantize_int8=True))

@@ -1,4 +1,4 @@
-"""supir_tpu_torch.ops.quantize (the packers, K5-K8 and their plain
+"""supir_tpu_torch.ops.quantize (the packers, K5-K11 and their plain
 versions) against supir_tpu.ops.quantize on the CPU, and the kernels against
 their plain versions on the card.
 
@@ -9,10 +9,14 @@ run their XLA fallbacks (or `_qmm` in Pallas interpret mode). Tolerances:
   covers fp32 summation order; a swapped nibble order moves them by O(1);
 - GEMVs at bf16 activations against the JAX functions at bf16: atol 2e-3 +
   rtol 2e-3 (both round the prologue's output to bf16 at the same place,
-  and a rounding flip there moves an output by ~1e-3).
+  and a rounding flip there moves an output by ~1e-3);
+- the W4A8 activation quantizer bit for bit; the W4A8 GEMV 1e-6 relative
+  (exact integer sums, two rounded scale multiplies); K5's act_int8 mode,
+  the chained pair (K9) and native int4 (K11) 1e-5.
 On the card the kernels are held to their plain versions in fp32 on the
 same bf16 inputs by relative L2 <= 1e-2 (bf16 rounding of the prologue's
-output gives a few 1e-3), with planted faults that must break the bound.
+output gives a few 1e-3; K10 by 1e-6), with planted faults that must break
+the bound.
 JAX is imported inside the parity tests only, so the `gpu` tests also run
 on a machine without it:
 python -m pytest --noconftest tests/test_torch_quantize.py -m gpu -q
@@ -27,6 +31,7 @@ from supir_tpu_torch.ops import quantize as Q
 ATOL, RTOL = 1e-4, 1e-5
 BF16_TOL = 2e-3
 CARD_REL_BOUND = 1e-2
+W4A8_REL_BOUND = 1e-6  # K10: exact integer sums, two rounded scale multiplies
 
 
 def _weights(seed, cin, cout):
@@ -181,18 +186,25 @@ def test_qmm_plain_matches_jax(bits):
 
 
 def test_cpu_tensors_and_prefill_rows_never_reach_a_kernel():
-    counters = (Q.int4_paired_fused_matmul, Q.int4_paired_matmul, Q.qmm, Q.quantize_int8)
+    counters = (Q.int4_paired_fused_matmul, Q.int4_paired_matmul, Q.qmm, Q.quantize_int8, Q.int4_w4a8_matmul,
+                Q.int4_native_matmul, Q.int4_paired_fused_pair)
     for fn in counters:
         fn.launches = 0
     w = torch.from_numpy(_weights(11, 64, 32))
     packed, scale = Q.quantize_int4_paired(w)
+    qp2, sc2 = Q.quantize_int4_paired(torch.from_numpy(_weights(12, 32, 64)))
     for rows in (1, Q.DECODE_ROWS + 1):
         x = torch.randn(rows, 64)
         Q.int4_paired_fused_matmul(x, packed, scale, gamma=torch.ones(64))
+        Q.int4_paired_fused_matmul(x, packed, scale, gamma=torch.ones(64), act_int8=True)
         Q.int4_paired_matmul(x, packed, scale)
         Q.int4_matmul(x, *Q.quantize_int4(w))
         Q.int8_matmul(x, *Q.quantize_int8(w))
+        Q.int4_w4a8_matmul(x, packed, scale)
+        Q.int4_native_matmul(x, *Q.quantize_int4_native(w))
+        Q.int4_paired_fused_pair(x, packed, scale, torch.zeros(rows, 32), torch.ones(32), qp2, sc2)
     assert all(fn.launches == 0 for fn in counters)
+    assert Q.int4_paired_fused_matmul.act_int8_launches == 0
 
 
 def test_wrappers_refuse_bad_arguments():
@@ -201,6 +213,134 @@ def test_wrappers_refuse_bad_arguments():
         Q.int4_paired_fused_matmul(torch.randn(2, 64), packed, scale, gamma=torch.ones(64), siluglu=True)
     with pytest.raises(ValueError):
         Q.qmm(torch.randn(2, 64), packed, scale, bits=2)
+
+
+# ------------------------------------------------------- W4A8, native, pair
+
+
+def test_quantize_act_int8_is_bit_exact():
+    import jax.numpy as jnp
+
+    from supir_tpu.ops import quantize as JQ
+
+    x = _x(13, 5, 96, 3.0)
+    x[1] = 0.0  # the 1e-6 floor of an all-zero row
+    # exact half steps: 127 x / xs = 63.5 must round to 64 (a division, not
+    # a multiplication by the reciprocal, gives exactly 63.5 here)
+    x[2, :4] = np.array([5.1875, 2.59375, -2.59375, 0.0], np.float32)
+    x[2, 4:] = np.clip(x[2, 4:], -5.0, 5.0)
+    for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        xj = jnp.asarray(x, jdt)
+        want_q, want_s = JQ.quantize_act_int8(xj)
+        got_q, got_s = Q.quantize_act_int8(torch.from_numpy(_np(xj.astype(jnp.float32))).to(tdt))
+        assert got_q.dtype == torch.int8 and got_s.shape == (5, 1)
+        np.testing.assert_array_equal(got_q.numpy(), _np(want_q))
+        np.testing.assert_array_equal(got_s.numpy(), _np(want_s))
+        assert got_q[2, :3].tolist() == [127, 64, -64]
+
+
+def test_w4a8_plain_matches_jax():
+    """int4_w4a8_matmul_plain (exact integer dot as an fp32 matmul) against
+    the JAX function's int32 dot: relative 1e-6, fp32 bf16 inputs alike."""
+    import jax.numpy as jnp
+
+    from supir_tpu.ops import quantize as JQ
+
+    packed, scale = JQ.quantize_int4_paired(jnp.asarray(_weights(14, 256, 96)))
+    for dtype in ("float32", "bfloat16"):
+        x = jnp.asarray(_x(15, 4, 256, 2.0), getattr(jnp, dtype))
+        want = JQ.int4_w4a8_matmul(x, packed, scale)
+        xt = torch.from_numpy(_np(x.astype(jnp.float32))).to(getattr(torch, dtype))
+        got = Q.int4_w4a8_matmul(xt, torch.from_numpy(_np(packed)), torch.from_numpy(_np(scale)))
+        assert got.dtype == torch.float32 and got.shape == (4, 96)
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-6, atol=1e-6 * np.abs(_np(want)).max())
+
+
+@pytest.mark.parametrize("prologue", ["none", "norm", "siluglu"])
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_fused_act_int8_plain_matches_jax(prologue, with_residual):
+    """K5's act_int8 plain version against the JAX function with
+    act_int8=True on the same fp32 x: 1e-5 (the prologue's fp32 sums in
+    another order may flip a quantizer rounding, ~1/127 of one term)."""
+    import jax.numpy as jnp
+
+    from supir_tpu.ops import quantize as JQ
+
+    cin, cout, b = 128, 96, 3
+    packed, scale = JQ.quantize_int4_paired(jnp.asarray(_weights(16, cin, cout)))
+    x = _x(17, b, 2 * cin if prologue == "siluglu" else cin, 2.0)
+    gamma = (1.0 + 0.1 * np.random.default_rng(18).standard_normal(cin)).astype(np.float32)
+    residual = _x(19, b, cout) if with_residual else None
+    kw = dict(eps=1e-6, siluglu=prologue == "siluglu", act_int8=True)
+    want = JQ.int4_paired_fused_matmul(
+        jnp.asarray(x), packed, scale, gamma=jnp.asarray(gamma) if prologue == "norm" else None,
+        residual=None if residual is None else jnp.asarray(residual), **kw)
+    got = Q.int4_paired_fused_matmul(
+        torch.from_numpy(x), torch.from_numpy(_np(packed)), torch.from_numpy(_np(scale)),
+        gamma=torch.from_numpy(gamma) if prologue == "norm" else None,
+        residual=None if residual is None else torch.from_numpy(residual), **kw)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("siluglu1", [False, True])
+def test_fused_pair_plain_matches_jax(siluglu1):
+    import jax.numpy as jnp
+
+    from supir_tpu.ops import quantize as JQ
+
+    cin1, cout1, cout2, b = (256, 128, 192, 2) if siluglu1 else (128, 128, 256, 2)
+    qp1, sc1 = JQ.quantize_int4_paired(jnp.asarray(_weights(20, cin1, cout1)))
+    qp2, sc2 = JQ.quantize_int4_paired(jnp.asarray(_weights(21, cout1, cout2)))
+    x = _x(22, b, 2 * cin1 if siluglu1 else cin1)
+    residual = _x(23, b, cout1)
+    gamma = (1.0 + 0.1 * np.random.default_rng(24).standard_normal(cout1)).astype(np.float32)
+    want = JQ.int4_paired_fused_pair(jnp.asarray(x), qp1, sc1, jnp.asarray(residual), jnp.asarray(gamma), qp2, sc2,
+                                     siluglu1=siluglu1, eps=1e-6)
+    t = lambda a: torch.from_numpy(_np(a))  # noqa: E731
+    got = Q.int4_paired_fused_pair(t(x), t(qp1), t(sc1), t(residual), t(gamma), t(qp2), t(sc2),
+                                   siluglu1=siluglu1, eps=1e-6)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), _np(w), atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError):
+        Q.int4_paired_fused_pair(t(x), t(qp1), t(sc1), t(residual), t(gamma), t(qp2)[:8], t(sc2), siluglu1=siluglu1)
+
+
+def test_int4_native_packer_matches_jax_and_round_trips():
+    """quantize_int4_native: the JAX function's s4 values and scales bit for
+    bit (and quantize_int4_paired's), packed two columns to a byte, low
+    nibble first; pack and unpack invert each other."""
+    import jax.numpy as jnp
+
+    from supir_tpu.ops import quantize as JQ
+
+    w = _weights(25, 64, 48)
+    want_q, want_s = JQ.quantize_int4_native(jnp.asarray(w))
+    packed, scale = Q.quantize_int4_native(torch.from_numpy(w))
+    assert packed.dtype == torch.uint8 and packed.shape == (64, 24)
+    values = Q.unpack_int4_native(packed)
+    np.testing.assert_array_equal(values.numpy(), np.asarray(want_q).astype(np.int8))
+    np.testing.assert_array_equal(scale.numpy(), _np(want_s))
+    np.testing.assert_array_equal(values.numpy(), Q.unpack_int4_paired(Q.quantize_int4_paired(torch.from_numpy(w))[0]).numpy())
+    assert torch.equal(packed[:, 0] & 0xF, (values[:, 0] & 0xF).to(torch.uint8))
+    assert torch.equal(packed[:, 0] >> 4, (values[:, 1] & 0xF).to(torch.uint8))
+    assert torch.equal(Q.pack_int4_native(values), packed)
+    with pytest.raises(ValueError):
+        Q.quantize_int4_native(torch.zeros(4, 5))
+
+
+def test_int4_native_plain_matches_jax():
+    import jax.numpy as jnp
+
+    from supir_tpu.ops import quantize as JQ
+
+    w = jnp.asarray(_weights(26, 256, 64))
+    qn, s = JQ.quantize_int4_native(w)
+    x = _x(27, 3, 256)
+    want = JQ.int4_native_matmul(jnp.asarray(x), qn, s)
+    packed, scale = Q.quantize_int4_native(torch.from_numpy(np.asarray(w)))
+    got = Q.int4_native_matmul(torch.from_numpy(x), packed, scale)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-5, rtol=1e-5)
 
 
 # ------------------------------------------------------------- on the card
@@ -297,3 +437,100 @@ def test_gemv_kernels_refuse_what_they_do_not_take(cuda):
     packed12, scale12 = Q.quantize_int4_paired(torch.randn(64, 12, device=cuda))
     with pytest.raises(ValueError):
         Q.int4_paired_matmul(torch.randn(2, 64, device=cuda).to(torch.bfloat16), packed12, scale12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 32])
+@pytest.mark.parametrize("cin,cout", [(512, 1536), (1536, 520)])
+def test_w4a8_kernel_matches_plain(cuda, rows, cin, cout):
+    """K10: the integer sums are exact on both sides, so only the two scale
+    multiplies round: relative L2 <= 1e-6. The activation scale without its
+    1/127 and a swapped nibble order must break it."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    packed, scale = Q.quantize_int4_paired(_card_weights(g, cin, cout, cuda))
+    x = torch.randn(rows, cin, generator=g, device=cuda).to(torch.bfloat16)
+    before = Q.int4_w4a8_matmul.launches
+    got = Q.int4_w4a8_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert Q.int4_w4a8_matmul.launches == before + 1
+    want = Q.int4_w4a8_matmul_plain(x.float(), packed, scale)
+    assert _rel_l2(got, want) <= W4A8_REL_BOUND
+    assert _rel_l2(got * 127.0, want) > W4A8_REL_BOUND
+    assert _rel_l2(Q.int4_w4a8_matmul(x, _swap_nibbles(packed), scale), want) > CARD_REL_BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("cin,cout,prologue,with_residual", [
+    (512, 1536, "norm", False),
+    (512, 512, "none", True),
+    (1536, 512, "siluglu", True),
+])
+def test_fused_act_int8_kernel_matches_plain(cuda, rows, cin, cout, prologue, with_residual):
+    """K5's act_int8 mode against its fp32 plain version: relative L2 <=
+    1e-2 (the prologue's fp32 sums in another order can flip a few
+    roundings of the activation quantizer)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    packed, scale = Q.quantize_int4_paired(_card_weights(g, cin, cout, cuda))
+    x = torch.randn(rows, 2 * cin if prologue == "siluglu" else cin, generator=g, device=cuda).to(torch.bfloat16)
+    gamma = 1.0 + 0.1 * torch.randn(cin, generator=g, device=cuda) if prologue == "norm" else None
+    residual = torch.randn(rows, cout, generator=g, device=cuda) if with_residual else None
+    kw = dict(gamma=gamma, siluglu=prologue == "siluglu", residual=residual)
+    before = Q.int4_paired_fused_matmul.act_int8_launches
+    got = Q.int4_paired_fused_matmul(x, packed, scale, act_int8=True, **kw)
+    torch.cuda.synchronize()
+    assert Q.int4_paired_fused_matmul.act_int8_launches == before + 1
+    want = Q.int4_paired_fused_matmul_plain(x.float(), packed, scale, act_int8=True, **kw)
+    assert _rel_l2(got, want) <= CARD_REL_BOUND
+    swapped = Q.int4_paired_fused_matmul(x, _swap_nibbles(packed), scale, act_int8=True, **kw)
+    assert _rel_l2(swapped, want) > CARD_REL_BOUND
+    if prologue == "norm":
+        # planted fault: the activation quantized after bf16 rounding of an
+        # RMSNorm without gamma
+        xn = Q._prologue(x, cin, torch.ones_like(gamma), 1e-6, False).to(torch.bfloat16)
+        assert _rel_l2(Q.int4_w4a8_matmul(xn, packed, scale), want) > CARD_REL_BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 32])
+@pytest.mark.parametrize("cin,cout", [(512, 1536), (1536, 520)])
+def test_native_kernel_matches_plain(cuda, rows, cin, cout):
+    """K11 against its fp32 plain version; the two column nibbles of each
+    byte swapped must break the bound."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    packed, scale = Q.quantize_int4_native(_card_weights(g, cin, cout, cuda))
+    x = torch.randn(rows, cin, generator=g, device=cuda).to(torch.bfloat16)
+    before = Q.int4_native_matmul.launches
+    got = Q.int4_native_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert Q.int4_native_matmul.launches == before + 1
+    want = Q.int4_native_matmul_plain(x.float(), packed, scale)
+    assert _rel_l2(got, want) <= CARD_REL_BOUND
+    assert _rel_l2(Q.int4_native_matmul(x, _swap_nibbles(packed), scale), want) > CARD_REL_BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 20])
+@pytest.mark.parametrize("siluglu1", [False, True])
+def test_pair_kernel_matches_plain(cuda, rows, siluglu1):
+    """K9 against its fp32 plain version, small and big by relative L2 <=
+    1e-2; phase 2 normalising by one strip's statistics instead of the
+    whole row must break it."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    cin1, cout1, cout2 = (1536, 512, 1032) if siluglu1 else (512, 512, 1536)
+    qp1, sc1 = Q.quantize_int4_paired(_card_weights(g, cin1, cout1, cuda))
+    qp2, sc2 = Q.quantize_int4_paired(_card_weights(g, cout1, cout2, cuda))
+    x = torch.randn(rows, 2 * cin1 if siluglu1 else cin1, generator=g, device=cuda).to(torch.bfloat16)
+    residual = torch.randn(rows, cout1, generator=g, device=cuda)
+    gamma = 1.0 + 0.1 * torch.randn(cout1, generator=g, device=cuda)
+    args = (qp1, sc1, residual, gamma, qp2, sc2)
+    assert Q.pair_grid_blocks(rows) > 0
+    before = Q.int4_paired_fused_pair.launches
+    small, big = Q.int4_paired_fused_pair(x, *args, siluglu1=siluglu1)
+    torch.cuda.synchronize()
+    assert Q.int4_paired_fused_pair.launches == before + 1
+    want_small, want_big = Q.int4_paired_fused_pair_plain(x.float(), *args, siluglu1=siluglu1)
+    assert _rel_l2(small, want_small) <= CARD_REL_BOUND
+    assert _rel_l2(big, want_big) <= CARD_REL_BOUND
+    _, bad = Q.int4_paired_fused_pair(x, *args, siluglu1=siluglu1, _norm_cols=32)
+    assert _rel_l2(bad, want_big) > CARD_REL_BOUND
