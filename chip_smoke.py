@@ -18,8 +18,9 @@ Phases, each printing its own lines:
      captioner's decode shapes and K9 at its two pairs per layer, for 1 and
      8 rows (with K9's co-resident grid), and K3 (the forward with
      logsumexp) and K4 (the backward) at the training path's shapes and
-     causal at Llama-13B's. Each is held to a stated bound, and planted
-     faults must break it.
+     causal at Llama-13B's, and K3 ALiBi and K4 ALiBi at the MPT-7B
+     prefill's shape and a non-causal one. Each is held to a stated bound,
+     and planted faults must break it.
   4. main path: a full-width SDXL/SUPIR engine (XL-base, bf16, random
      weights from a seeded CUDA generator) restores one image through
      SUPIREngine.batchify_sample with bench.py's headline settings: a
@@ -63,6 +64,22 @@ Phases, each printing its own lines:
      each group (control net, UNet middle+decoder, adapters) must agree;
      a planted fault (every gradient site sent to K1/K2, detached) must
      break the bound.
+ 10. mpt generate: MPT-7B at full width and depth (random bf16 weights
+     drawn on the card) runs mpt_generate on a 1536-token prompt of random
+     ids, cache_len 2048, 32 greedy tokens: the prefill's attention is K3
+     ALiBi at every layer (counted: as many launches as layers), decode
+     the plain biased route; prefill ms, ms/token, torch.profiler over
+     three decode steps, peak memory, and every prefill attention held to
+     its fp32 plain version.
+ 11. mpt grad: one causal-LM loss and its backward through MPT-7B (bf16
+     parameters) on a 2048-token conversation labelled by preprocess_mpt:
+     K3 ALiBi with lse and K4 ALiBi once per layer, every call held to its
+     plain version; s per forward+backward and peak memory.
+ 12. mpt reference: reduced-width MPT (512 wide, 4 layers; 8 heads,
+     multiquery, and 6 heads on the plain route) on the card (bf16,
+     kernels) and on the CPU (fp32, plain versions) with the same weights:
+     logits, each gradient group, greedy tokens up to the first
+     divergence, prefix-LM logits.
 Then one JSON line with each kernel's numbers, the card line, and last
 `{"ok": true, "device": {...}}`. There is no fallback: without a CUDA
 device, or outside a checkout of the repository, it exits non-zero before
@@ -214,7 +231,9 @@ def kernels_at_sites(k1, k2):
 
     rels = []
 
-    def watched(q, k, v, causal=False):
+    def watched(q, k, v, causal=False, alibi_slopes=None):
+        if alibi_slopes is not None:
+            raise AssertionError("an ALiBi site on the restore path")
         out = k1(q, k, v, causal=causal)
         rels.append(rel_l2(out, attention_plain(q.float(), k.float(), v.float(), causal=causal)))
         return out
@@ -281,8 +300,9 @@ def _check_rel(label: str, rel: float, bound_: float):
 
 
 def _check_fault(label: str, rel: float, bound_: float):
+    """A planted fault must break the bound; a NaN reading breaks it too."""
     log(f"[kernels] control ({label}): rel_l2 {rel:.3e}")
-    if not rel > bound_:
+    if rel <= bound_:
         raise AssertionError(f"the bound {bound_:g} misses a planted fault ({label}): rel_l2 {rel:.3e}")
 
 
@@ -1320,8 +1340,9 @@ def _train_counters():
 class _Watched:
     """A kernel wrapper that runs `check(result, *args)` after each call.
     It stands in the wrapper's own module, where the wrapper counts its
-    launches through its module-level name, so `launches` here is the
-    wrapped function's: a launch counts once, whichever name it goes by."""
+    launches through its module-level name, so `launches` and
+    `alibi_launches` here are the wrapped function's: a launch counts once,
+    whichever name it goes by."""
 
     def __init__(self, fn, check):
         self.fn, self.check = fn, check
@@ -1332,6 +1353,8 @@ class _Watched:
         return result
 
     launches = property(lambda self: self.fn.launches, lambda self, n: setattr(self.fn, "launches", n))
+    alibi_launches = property(lambda self: self.fn.alibi_launches,
+                              lambda self, n: setattr(self.fn, "alibi_launches", n))
 
 
 @contextlib.contextmanager
@@ -1344,14 +1367,15 @@ def flash_train_sites():
     readings = {"K3 out": [], "K3 lse": [], "K4": []}
     k3, k4 = fa.flash_attention_fwd_lse, fa.flash_attention_bwd
 
-    def check_k3(result, q, k, v, causal=False):
+    def check_k3(result, q, k, v, causal=False, alibi_slopes=None):
         out, lse = result
-        want_out, want_lse = fa.attention_fwd_lse_plain(q.float(), k.float(), v.float(), causal)
+        want_out, want_lse = fa.attention_fwd_lse_plain(q.float(), k.float(), v.float(), causal, alibi_slopes)
         readings["K3 out"].append(rel_l2(out, want_out))
         readings["K3 lse"].append((lse - want_lse).abs().max().item())
 
-    def check_k4(grads, q, k, v, out, lse, dout, causal=False):
-        want = fa.attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse, dout.float(), causal)
+    def check_k4(grads, q, k, v, out, lse, dout, causal=False, alibi_slopes=None):
+        want = fa.attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse, dout.float(), causal,
+                                      alibi_slopes)
         readings["K4"].append(max(_k4_rels(grads, want)))
 
     fa.flash_attention_fwd_lse, fa.flash_attention_bwd = _Watched(k3, check_k3), _Watched(k4, check_k4)
@@ -1383,8 +1407,8 @@ def detached_grad_sites():
 
     class Detached:
         @staticmethod
-        def apply(q, k, v, causal=False):
-            return flash_attention(q.detach(), k.detach(), v.detach(), causal=causal)
+        def apply(q, k, v, causal=False, alibi_slopes=None):
+            return flash_attention(q.detach(), k.detach(), v.detach(), causal, alibi_slopes)
 
     def detached_norm(x, w, b, groups=32, eps=1e-5, silu=False):
         return group_norm(x.detach().contiguous(), w.detach(), b.detach(), groups, eps, silu)
@@ -1647,6 +1671,456 @@ def phase_train_reference():
     del cpu, card
 
 
+# ------------------------------------------------------------------- MPT
+
+MPT_PROMPT = 1536     # prompt tokens of the full-width generate (random ids)
+MPT_TOKENS = 32       # greedy tokens decoded after it
+MPT_CACHE = 2048      # cache_len: MPT-7B's context
+MPT_GRAD_TOKENS = 2048  # one sequence of the gradient phase
+MPT_REF_TOKENS = 1024  # reduced-width reference: flash-eligible sequences
+MPT_REF_NEW = 16      # greedy tokens of the reduced-width reference
+# K3/K4 ALiBi: the MPT-7B prefill of 2048 tokens (causal), and a non-causal shape
+ALIBI_SHAPES = ((1, 2048, 32, 128, True), (1, 1024, 8, 64, False))
+
+
+class _AlibiCount:
+    """The ALiBi launches of `fns` (their `alibi_launches`), read as one
+    counter and reset together: K3 ALiBi runs under K1's wrapper (no lse,
+    no grad) and K3's (with lse, under grad)."""
+
+    def __init__(self, *fns):
+        self.fns = fns
+
+    launches = property(lambda self: sum(f.alibi_launches for f in self.fns),
+                        lambda self, n: [setattr(f, "alibi_launches", n) for f in self.fns])
+
+
+def _mpt_counters():
+    from supir_tpu_torch.ops import flash_attention as fa
+
+    return {"K3-alibi": _AlibiCount(fa.flash_attention, fa.flash_attention_fwd_lse),
+            "K3-alibi lse": _AlibiCount(fa.flash_attention_fwd_lse), "K4-alibi": _AlibiCount(fa.flash_attention_bwd),
+            "K1": fa.flash_attention, "K3": fa.flash_attention_fwd_lse, "K4": fa.flash_attention_bwd}
+
+
+def _reset(counters):
+    for c in counters.values():
+        c.launches = 0
+
+
+def _read(counters):
+    return {name: c.launches for name, c in counters.items()}
+
+
+def phase_alibi_kernels():
+    """K3 ALiBi and K4 ALiBi against their fp32 plain versions at
+    ALIBI_SHAPES with MPT's slopes, and their planted faults; returns each
+    kernel's JSON numbers (times at the MPT-7B prefill shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from supir_tpu_torch.captioner.mpt import alibi_slopes
+    from supir_tpu_torch.ops.flash_attention import (
+        alibi_bias,
+        attention_bwd_plain,
+        attention_fwd_lse_plain,
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_fwd_lse,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5151)
+    rows = {"K3-alibi": [], "K4-alibi": []}
+    for b, s, h, d, causal in ALIBI_SHAPES:
+        tag = f"[{b},{s},{h},{d}]{' causal' if causal else ''}"
+        q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16) for _ in range(4))
+        slopes = torch.from_numpy(alibi_slopes(h)).to(dev)
+        out, lse = flash_attention_fwd_lse(q, k, v, causal, slopes)
+        want_out, want_lse = attention_fwd_lse_plain(q.float(), k.float(), v.float(), causal, slopes)
+        rel, lse_err = rel_l2(out, want_out), (lse - want_lse).abs().max().item()
+        same_primal = torch.equal(flash_attention(q, k, v, causal, slopes), out)
+        grads = flash_attention_bwd(q, k, v, out, lse, dout, causal, slopes)
+        want = attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse, dout.float(), causal, slopes)
+        rels = _k4_rels(grads, want)
+        same = all(torch.equal(a, a2) for a, a2 in zip(grads, flash_attention_bwd(q, k, v, out, lse, dout, causal,
+                                                                                   slopes)))
+
+        k3_ms = cuda_ms(lambda: flash_attention_fwd_lse(q, k, v, causal, slopes), 20)
+        # the instantiation without lse, which the generate path's prefill runs
+        k3_primal_ms = cuda_ms(lambda: flash_attention(q, k, v, causal, slopes), 20)
+        k3_plain = cuda_ms(lambda: attention_fwd_lse_plain(q, k, v, causal, slopes), 5)
+        # the library yardstick: SDPA with the ALiBi bias (and the causal
+        # mask) materialised as a float attn_mask
+        mask = alibi_bias(slopes, s, dev).expand(b, h, s, s)
+        if causal:
+            mask = mask.masked_fill(~torch.ones(s, s, dtype=torch.bool, device=dev).tril(), float("-inf"))
+        mask = mask.to(torch.bfloat16).contiguous()
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        k3_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 20)
+        k3_bound, k3_by = bound(nbytes(q, k, v, out, lse, slopes), _flash_flops(b, s, h, d, causal, 2))
+        k4_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout, causal, slopes), 20)
+        k4_plain = cuda_ms(lambda: attention_bwd_plain(q, k, v, out, lse, dout, causal, slopes), 5)
+        leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        lib_grad = dout.transpose(1, 2)
+        k4_lib = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, lib_grad, retain_graph=True), 20)
+        k4_bound, k4_by = bound(nbytes(q, k, v, out, dout, lse, slopes, *grads), _flash_flops(b, s, h, d, causal, 5))
+        del leaves, lib_out, mask
+        log(f"[kernels] K3-alibi {tag} bf16 vs fp32 plain: out rel_l2 {rel:.3e} (bound {K1_REL_BOUND:g}), lse "
+            f"max_abs_err {lse_err:.3e} (bound {K3_LSE_BOUND:g}), without lse the same output {same_primal}; "
+            f"{k3_ms:.3f} ms (without lse {k3_primal_ms:.3f} ms) vs plain {k3_plain:.3f} ms, SDPA forward with "
+            f"the bias as attn_mask {k3_lib:.3f} ms, bound {k3_bound:.4f} ms ({k3_by})")
+        log(f"[kernels] K4-alibi {tag} bf16 vs fp32 plain: rel_l2 dq {rels[0]:.3e}, dk {rels[1]:.3e}, dv "
+            f"{rels[2]:.3e} (bound {K4_REL_BOUND:g} each), two runs bit-identical {same}; {k4_ms:.3f} ms vs plain "
+            f"{k4_plain:.3f} ms, SDPA backward with the mask {k4_lib:.3f} ms, bound {k4_bound:.4f} ms ({k4_by})")
+        _check_rel(f"K3-alibi {tag}", rel, K1_REL_BOUND)
+        if not lse_err <= K3_LSE_BOUND:
+            raise AssertionError(f"K3-alibi {tag}: lse max_abs_err {lse_err} over {K3_LSE_BOUND}")
+        _check_rel(f"K4-alibi {tag}", max(rels), K4_REL_BOUND)
+        if not (same and same_primal):
+            raise AssertionError(f"K3/K4-alibi {tag}: two runs differ")
+
+        # planted faults: the bias in scaled instead of raw units (the kernel
+        # adding slope * dist to raw q.k), the heads' slopes reversed, and K4
+        # recomputing P without the bias. The -(T - 1) offset dropped is
+        # emulated on the sound kernel's lse (slope_h * (T - 1) more on every
+        # row): no kernel is built without it, and the O it prints is the
+        # sound kernel's, which the per-row constant cannot change in exact
+        # arithmetic; the lse bound must see it, and K4 given that lse
+        scaled, _ = flash_attention_fwd_lse(q, k, v, causal, slopes * d ** -0.5)
+        _check_fault(f"K3-alibi bias in scaled units {tag}: out", rel_l2(scaled, want_out), K1_REL_BOUND)
+        flipped, _ = flash_attention_fwd_lse(q, k, v, causal, slopes.flip(0))
+        _check_fault(f"K3-alibi slopes reversed {tag}: out", rel_l2(flipped, want_out), K1_REL_BOUND)
+        no_offset = lse + (slopes * (s - 1))[None, :, None]
+        log(f"[kernels] control (K3-alibi offset -(T-1) dropped {tag}, emulated on the lse): the sound "
+            f"kernel's out rel_l2 {rel:.3e} (inside {K1_REL_BOUND:g}), emulated lse max_abs_err "
+            f"{(no_offset - want_lse).abs().max().item():.3e}")
+        _check_fault(f"K3-alibi offset dropped (emulated) {tag}: lse max_abs_err",
+                     (no_offset - want_lse).abs().max().item(), K3_LSE_BOUND)
+        _check_fault(f"K4-alibi given the emulated offset-dropped lse {tag}",
+                     max(_k4_rels(flash_attention_bwd(q, k, v, out, no_offset, dout, causal, slopes), want)),
+                     K4_REL_BOUND)
+        _check_fault(f"K4-alibi without the bias {tag}",
+                     max(_k4_rels(flash_attention_bwd(q, k, v, out, lse, dout, causal), want)), K4_REL_BOUND)
+        rows["K3-alibi"].append(dict(max_abs_err=(out.float() - want_out).abs().max().item(), ms=k3_ms,
+                                     plain_ms=k3_plain, library_ms=k3_lib, bound_ms=k3_bound, bound_by=k3_by))
+        rows["K4-alibi"].append(dict(max_abs_err=max((a.float() - w).abs().max().item() for a, w in zip(grads, want)),
+                                     ms=k4_ms, plain_ms=k4_plain, library_ms=k4_lib, bound_ms=k4_bound,
+                                     bound_by=k4_by))
+        del q, k, v, dout, out, lse, grads, want, want_out, want_lse
+        torch.cuda.empty_cache()
+    return {name: dict(r[0], max_abs_err=max(x["max_abs_err"] for x in r)) for name, r in rows.items()}
+
+
+@contextlib.contextmanager
+def alibi_prefill_sites():
+    """Hold every K3-alibi call without lse (the prefill's attention sites)
+    to its fp32 plain version on that call's inputs; the relative L2 errors
+    land in the list this yields."""
+    from supir_tpu_torch.ops import attention as attn_ops
+    from supir_tpu_torch.ops.flash_attention import attention_plain
+
+    rels = []
+    k1 = attn_ops.flash_attention
+
+    def check(out, q, k, v, causal=False, alibi_slopes=None):
+        rels.append(rel_l2(out, attention_plain(q.float(), k.float(), v.float(), causal, alibi_slopes=alibi_slopes)))
+
+    attn_ops.flash_attention = _Watched(k1, check)
+    try:
+        yield rels
+    finally:
+        attn_ops.flash_attention = k1
+
+
+def _free():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def profile_mpt_decode(model, tok, plen: int, caches, steps: int = 3):
+    """torch.profiler over `steps` cached decode steps: wall per step, the
+    device's busy share, kernels per step and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                logits, caches = model(tok[:, None], caches=caches, cache_index=plen + i)
+                tok = logits[:, -1].argmax(-1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(r[1] for r in rows) / 1e3
+    log(f"[profile mpt] {steps} decode steps: wall {wall * 1e3 / steps:.2f} ms/step with the profiler on, device "
+        f"busy {busy / steps:.2f} ms/step ({busy / (wall * 1e3):.1%}), {sum(r[2] for r in rows) // steps} kernels/step")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:8]:
+        log(f"[profile mpt]   {us / 1e3 / steps:8.3f} ms/step  {count // steps:5d}/step  {key[:90]}")
+
+
+def phase_mpt_generate():
+    """MPT-7B at full width and depth (random bf16 weights drawn on the
+    card) generates MPT_TOKENS greedy tokens after a MPT_PROMPT-token prompt
+    through mpt_generate: the prefill's attention is K3 ALiBi at every layer,
+    the decode steps take the plain biased route; the launches of that run
+    must match the config."""
+    import torch
+
+    from supir_tpu_torch.captioner.mpt import MPTConfig, create_mpt, mpt_generate
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = MPTConfig()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = create_mpt(cfg, dev, torch.bfloat16, seed=SEED + 20).requires_grad_(False)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"[mpt generate] MPT-7B (d_model {cfg.d_model}, {cfg.n_layers} layers, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}): {n / 1e9:.3f} B parameters, bf16, drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    ids = torch.randint(0, cfg.vocab_size, (1, MPT_PROMPT), generator=torch.Generator().manual_seed(SEED + 21))
+    ids = ids.to(dev)
+    mpt_generate(model, ids, max_new_tokens=2, cache_len=MPT_CACHE, eos_id=-1)  # warm-up
+    counters = _mpt_counters()
+    _reset(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = mpt_generate(model, ids, max_new_tokens=MPT_TOKENS, cache_len=MPT_CACHE, eos_id=-1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    want = {"K3-alibi": cfg.n_layers, "K3-alibi lse": 0, "K4-alibi": 0, "K1": 0, "K3": 0, "K4": 0}
+    log(f"[mpt generate] mpt_generate, prompt {MPT_PROMPT} tokens, cache_len {MPT_CACHE}, {toks.shape[1]} greedy "
+        f"tokens in {wall:.3f} s; launches {launches} (expected {want}); tokens {toks[0, :12].tolist()}...")
+    if launches != want:
+        raise AssertionError(f"mpt generate launched {launches}, expected {want}")
+    if toks.shape != (1, MPT_TOKENS) or not (0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size):
+        raise AssertionError(f"mpt generate: tokens {tuple(toks.shape)} out of shape or range")
+
+    with torch.no_grad():
+        caches = model.init_cache(1, MPT_CACHE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model(ids, caches=caches, cache_index=0)
+        torch.cuda.synchronize()
+        prefill = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        tok = logits[:, -1].argmax(-1)
+        steps = 8
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step_logits, caches = model(tok[:, None], caches=caches, cache_index=MPT_PROMPT + i)
+            tok = step_logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        per_token = (time.perf_counter() - t0) / steps
+        log(f"[mpt generate] prefill {MPT_PROMPT} tokens {prefill * 1e3:.1f} ms (logits {tuple(logits.shape)} "
+            f"{logits.dtype}, finite {finite}); decode {per_token * 1e3:.2f} ms/token over {steps} steps "
+            f"(synchronised each step); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not finite:
+            raise AssertionError("mpt prefill logits are not finite")
+        profile_mpt_decode(model, tok, MPT_PROMPT + steps, caches)
+        del caches, logits, step_logits
+        with alibi_prefill_sites() as rels:
+            model(ids, caches=model.init_cache(1, MPT_CACHE), cache_index=0)
+    log(f"[mpt generate] every prefill attention (K3-alibi) vs fp32 plain: {len(rels)} calls, worst rel_l2 "
+        f"{max(rels):.3e} (bound {K1_REL_BOUND:g})")
+    if len(rels) != cfg.n_layers or not max(rels) <= K1_REL_BOUND:
+        raise AssertionError(f"mpt prefill sites: {len(rels)} calls, worst {max(rels)}")
+    del model
+    _free()
+
+
+def _mpt_labels(n: int):
+    """(ids, labels) of one n-token sequence: a generated conversation in
+    MPT's template through preprocess_mpt on the byte tokenizer (no bos),
+    the user turns masked, cut to n tokens."""
+    import numpy as np
+
+    from supir_tpu_torch.captioner.preprocess import ByteTokenizer, preprocess_mpt
+
+    rng = np.random.default_rng(SEED + 22)
+    words = ["harbor", "ship", "amber", "teal", "light", "water", "sail", "grey", "dusk", "wave", "stone", "mast"]
+    turns = []
+    while sum(len(t["value"]) for t in turns) < 2 * n:
+        for who in ("human", "gpt"):
+            turns.append({"from": who, "value": " ".join(rng.choice(words, 40)) + "."})
+    out = preprocess_mpt([turns], ByteTokenizer(bos=False))
+    ids, labels = np.asarray(out["input_ids"][0][:n]), np.asarray(out["labels"][0][:n])
+    if len(ids) != n or (labels == -100).all():
+        raise AssertionError(f"the generated conversation holds {len(ids)} tokens (wanted {n}), "
+                             f"{int((labels != -100).sum())} unmasked labels")
+    return ids, labels
+
+
+def phase_mpt_grad():
+    """One causal-LM loss and its backward through MPT-7B at full width and
+    depth, bf16 parameters, one MPT_GRAD_TOKENS-token sequence: a warm-up
+    with every K3/K4 ALiBi call held to its plain version, then the counted
+    and timed run. Returns the counted launches."""
+    import torch
+
+    from supir_tpu_torch.captioner.mpt import MPTConfig, create_mpt
+    from supir_tpu_torch.captioner.train import IGNORE_INDEX, causal_lm_loss
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = MPTConfig()
+    dev = torch.device("cuda")
+    model = create_mpt(cfg, dev, torch.bfloat16, seed=SEED + 23)
+    ids, labels = _mpt_labels(MPT_GRAD_TOKENS)
+    ids, labels = torch.from_numpy(ids)[None].to(dev), torch.from_numpy(labels)[None].to(dev)
+    log(f"[mpt grad] MPT-7B, bf16 parameters ({sum(p.numel() for p in model.parameters()) / 1e9:.3f} B, all "
+        f"trained), one sequence of {MPT_GRAD_TOKENS} tokens from preprocess_mpt, "
+        f"{int((labels != IGNORE_INDEX).sum())} unmasked labels")
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = causal_lm_loss(model(ids), labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), time.perf_counter() - t0
+
+    with flash_train_sites() as readings:
+        warm_loss, warm_s = step()
+    _check_train_sites("mpt grad", readings)
+    counters = _mpt_counters()
+    _reset(counters)
+    loss, seconds = step()
+    launches = _read(counters)
+    want = {"K3-alibi": cfg.n_layers, "K3-alibi lse": cfg.n_layers, "K4-alibi": cfg.n_layers, "K1": 0, "K3": 0,
+            "K4": 0}
+    grads = [p.grad for p in model.parameters()]
+    sq = sum(float(g.float().pow(2).sum()) for g in grads if g is not None)
+    missing = sum(g is None for g in grads)
+    log(f"[mpt grad] loss {loss:.6g} (warm-up, sites checked: {warm_loss:.6g}, {warm_s:.3f} s); forward+backward "
+        f"{seconds:.3f} s; gradient norm {sq ** 0.5:.4g}, {missing} parameters without a gradient; launches "
+        f"{launches} (expected {want}); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches != want:
+        raise AssertionError(f"mpt grad launched {launches}, expected {want}")
+    if not (math.isfinite(loss) and math.isfinite(sq) and sq > 0 and missing == 0):
+        raise AssertionError(f"mpt grad: loss {loss}, gradient norm^2 {sq}, {missing} missing")
+    del model, grads
+    _free()
+    return launches
+
+
+MPT_GRAD_GROUPS = {
+    "embedding": (".wte.",),
+    "attention": (".attn.",),
+    "MLP": (".ffn.",),
+    "norms": (".norm_",),
+}
+
+
+def _mpt_group_rels(got, want):
+    rels = {}
+    for group, keys in MPT_GRAD_GROUPS.items():
+        names = [k for k in want if any(s in k for s in keys)]
+        err = sum(float((got[k] - want[k]).norm() ** 2) for k in names)
+        rels[group] = (err / sum(float(want[k].norm() ** 2) for k in names)) ** 0.5
+    return rels
+
+
+def phase_mpt_reference():
+    """Reduced-width MPT (d_model 512, 8 heads of 64, 4 layers; multiquery
+    too; six heads on the plain route) on the card (bf16 parameters,
+    kernels) and on the CPU (fp32, plain versions) with the same weights:
+    logits, gradient groups, greedy tokens, prefix-LM logits."""
+    import numpy as np
+    import torch
+
+    from supir_tpu_torch.captioner.mpt import MPTConfig, create_mpt, init_mpt_params, mpt_generate
+    from supir_tpu_torch.captioner.train import causal_lm_loss
+    from supir_tpu_torch.ops.attention import flash_eligible
+    from supir_tpu_torch.utils.weights import mpt_state_dict_from_jax
+
+    dev = torch.device("cuda")
+    base = MPTConfig(d_model=512, n_layers=4, n_heads=8)
+    variants = {
+        "8 heads": (base, MPT_REF_TOKENS),
+        "multiquery": (dataclasses.replace(base, multiquery=True), MPT_REF_TOKENS),
+        "6 heads, plain route": (dataclasses.replace(base, d_model=384, n_heads=6), MPT_REF_TOKENS // 2),
+    }
+    counters = _mpt_counters()
+    for label, (cfg, n) in variants.items():
+        sd = mpt_state_dict_from_jax(init_mpt_params(cfg, seed=SEED + 24), cfg)
+        cpu = create_mpt(cfg, "cpu", torch.float32, state_dict=sd)
+        card = create_mpt(cfg, dev, torch.bfloat16, state_dict=sd)
+        rng = np.random.default_rng(SEED + 25)
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n)))
+        labels = ids.clone()
+        labels[:, : n // 4] = -100
+        flash = flash_eligible(n, n, cfg.head_dim)
+
+        t0 = time.perf_counter()
+        want_logits = cpu(ids)
+        want_loss = causal_lm_loss(want_logits, labels)
+        want_loss.backward()
+        cpu_s = time.perf_counter() - t0
+        want = {k: p.grad for k, p in cpu.named_parameters()}
+        _reset(counters)
+        with torch.no_grad():
+            logits = card(ids.to(dev))
+        fwd = _read(counters)
+        _reset(counters)
+        loss = causal_lm_loss(card(ids.to(dev)), labels.to(dev))
+        loss.backward()
+        bwd = _read(counters)
+        got = {k: p.grad.float().cpu() for k, p in card.named_parameters()}
+        logit_rel = rel_l2(logits.cpu(), want_logits.detach())
+        loss_rel = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+        rels = _mpt_group_rels(got, want)
+        log(f"[mpt reference] {label} (d_model {cfg.d_model}, {cfg.n_layers} layers, {n} tokens): card bf16 vs CPU "
+            f"fp32 ({cpu_s:.1f} s): logits rel_l2 {logit_rel:.3e}, loss {loss.item():.6g} vs {want_loss.item():.6g} "
+            f"(relative {loss_rel:.3e}); gradients rel_l2 " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+            + f" (bound {REF_REL_BOUND:g}); launches forward {fwd}, forward+backward {bwd}")
+        k = cfg.n_layers if flash else 0
+        if fwd["K3-alibi"] != k or bwd["K3-alibi lse"] != k or bwd["K4-alibi"] != k:
+            raise AssertionError(f"mpt reference {label}: launches {fwd} / {bwd}, expected {k} of each")
+        if not (logit_rel <= REF_REL_BOUND and max(rels.values()) <= REF_REL_BOUND):
+            raise AssertionError(f"mpt reference {label}: card and CPU disagree ({logit_rel}, {rels})")
+        del want, got, logits, want_logits
+
+        if label == "8 heads":
+            # greedy tokens up to the first divergence (bf16 against fp32:
+            # a near tie may flip a token, after which the streams part)
+            want_toks = mpt_generate(cpu, ids, max_new_tokens=MPT_REF_NEW, eos_id=-1)
+            got_toks = mpt_generate(card, ids.to(dev), max_new_tokens=MPT_REF_NEW, eos_id=-1)
+            agree = next((i for i in range(MPT_REF_NEW) if got_toks[0, i] != want_toks[0, i]), MPT_REF_NEW)
+            log(f"[mpt reference] greedy: {agree}/{MPT_REF_NEW} tokens agree before the first divergence "
+                f"(card {got_toks[0, :8].tolist()}, CPU {want_toks[0, :8].tolist()})")
+            # prefix-LM on the plain route (no kernel): the first quarter is the prefix
+            pcfg = dataclasses.replace(cfg, prefix_lm=True)
+            pcpu = create_mpt(pcfg, "cpu", torch.float32, state_dict=sd)
+            pcard = create_mpt(pcfg, dev, torch.bfloat16, state_dict=sd)
+            mask = torch.zeros(1, n, dtype=torch.long)
+            mask[:, : n // 4] = 1
+            _reset(counters)
+            with torch.no_grad():
+                prel = rel_l2(pcard(ids.to(dev), prefix_mask=mask.to(dev)).cpu(), pcpu(ids, prefix_mask=mask))
+            plaunch = _read(counters)
+            log(f"[mpt reference] prefix-LM ({n // 4}-token prefix): logits rel_l2 {prel:.3e} (bound "
+                f"{REF_REL_BOUND:g}); launches {plaunch} (the plain route: none)")
+            if not prel <= REF_REL_BOUND or any(plaunch.values()):
+                raise AssertionError(f"mpt reference prefix-LM: rel_l2 {prel}, launches {plaunch}")
+            del pcpu, pcard
+        del cpu, card
+        _free()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4, help="RestoreEDM steps of the main path")
@@ -1665,6 +2139,7 @@ def main() -> int:
     results = phase_kernels()
     results.update(phase_quant_kernels())
     results.update(phase_flash_train_kernels())
+    results.update(phase_alibi_kernels())
     launches = phase_main(args.steps, args.repeat)
     phase_reference()
     image = _caption_image()
@@ -1680,6 +2155,13 @@ def main() -> int:
     train = phase_train()
     launches.update({k: train[k] for k in ("K3", "K4")})
     phase_train_reference()
+    # the generate path's prefill (K3 ALiBi without lse) asserts its launches
+    # in its phase; the K3 ALiBi row is the instantiation with lse, timed at
+    # the gradient's shape, so it takes the gradient path's launches
+    phase_mpt_generate()
+    grad = phase_mpt_grad()
+    launches.update({"K3-alibi": grad["K3-alibi lse"], "K4-alibi": grad["K4-alibi"]})
+    phase_mpt_reference()
 
     sources = {
         "K1": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:35"),
@@ -1694,6 +2176,8 @@ def main() -> int:
         "K9": ("cuda", "supir_tpu_torch/csrc/quant_pair.cu", "supir_tpu/ops/quantize.py:398"),
         "K10": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:191"),
         "K11": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:555"),
+        "K3-alibi": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:197"),
+        "K4-alibi": ("cuda", "supir_tpu_torch/csrc/flash_attn_bwd.cu", "supir_tpu/ops/flash_attention.py:481"),
     }
     # where each kernel's times were taken
     at = {"K1": "[2,4096,10,64] bf16", "K2": "[2,320,128,128] bf16, SiLU",
@@ -1701,12 +2185,15 @@ def main() -> int:
           "K5": "one 13B layer (qkv, o, gate-up, down), 1 row", "K6": "one 13B layer, 1 row",
           "K7": "one 13B layer, int8, 1 row", "K8": "one 13B layer's four fp32 kernels",
           "K5-act": "one 13B layer, act_int8, 1 row", "K9": "one 13B layer's two pairs, 1 row",
-          "K10": "one 13B layer, 1 row", "K11": "one 13B layer, 1 row"}
+          "K10": "one 13B layer, 1 row", "K11": "one 13B layer, 1 row",
+          "K3-alibi": "[1,2048,32,128] bf16 causal, with lse (the MPT-7B gradient's forward)",
+          "K4-alibi": "[1,2048,32,128] bf16 causal, dq dk dv"}
     kernels = []
     for name, (route, source, replaces) in sources.items():
         r = results[name]
         kernels.append({
-            "name": "K5 act_int8" if name == "K5-act" else name, "route": route, "source": source, "replaces": replaces,
+            "name": {"K5-act": "K5 act_int8", "K3-alibi": "K3 ALiBi", "K4-alibi": "K4 ALiBi"}.get(name, name),
+            "route": route, "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "at": at[name],

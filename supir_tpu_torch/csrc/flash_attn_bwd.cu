@@ -32,6 +32,16 @@
 // With `causal` (S == T) the dQ kernel stops at the diagonal key tile and the
 // dK/dV kernel starts at the diagonal query tile. As in K1, two lanes share a
 // row of a score tile (32 columns each). No wgmma, TMA or cp.async yet.
+//
+// ALiBi (the TPU kernels' `alibi` branch of _bwd_scores, :481-497): with fp32
+// slopes [H] (null for none), the recomputed scores get the forward's bias
+// back, slope_h * (key - (T - 1)) in scaled units, before exp2(... - lse2);
+// lse is then K3's lse of the biased scores. In raw q.k units, as the scores
+// are kept, the bias is slope_h / scale * (key - (T - 1)). The dQ kernel's
+// tile has the key as its column; the dK/dV kernel's tile is transposed, the
+// key is its row, so there the bias is one constant per lane. delta and the
+// products do not change: the bias has no gradient. ALIBI is a template
+// flag, so the kernels without it are K4's code unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -191,12 +201,12 @@ __global__ void flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* _
   delta[(b * H + h) * S + s] = acc;
 }
 
-template <int D>
+template <int D, bool ALIBI>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int H, int S, int T, Strides st,
+                    const float* __restrict__ slopes, bf16* __restrict__ dq, int H, int S, int T, Strides st,
                     float scale, int causal) {
   using L = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -231,6 +241,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float dlt = row_ok ? delta[bh * S + qrow] : 0.f;
   const int lim = !row_ok ? 0 : (causal ? min(T, qrow + 1) : T);
   const int kv_end = causal ? min(T, q0 + BM) : T;
+  const float ab = ALIBI ? slopes[h] / scale : 0.f;  // ALiBi slope, raw units
 
   Acc acc[D / 16];
 #pragma unroll
@@ -257,10 +268,13 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float* dprow = sdp + row * L::LDS + half * HC;
     bf16* dsrow = sds + row * L::LDP + half * HC;
     const int col0 = k0 + half * HC;
+    const float dist0 = (float)(col0 + 1 - T);  // this half row's first key less (T - 1)
 #pragma unroll
     for (int j = 0; j < HC; j += 2) {
-      const float p0 = (col0 + j < lim) ? exp2f(fmaf(srow[j], scale_log2, -lse2)) : 0.f;
-      const float p1 = (col0 + j + 1 < lim) ? exp2f(fmaf(srow[j + 1], scale_log2, -lse2)) : 0.f;
+      const float s0 = ALIBI ? fmaf(ab, dist0 + (float)j, srow[j]) : srow[j];
+      const float s1 = ALIBI ? fmaf(ab, dist0 + (float)(j + 1), srow[j + 1]) : srow[j + 1];
+      const float p0 = (col0 + j < lim) ? exp2f(fmaf(s0, scale_log2, -lse2)) : 0.f;
+      const float p1 = (col0 + j + 1 < lim) ? exp2f(fmaf(s1, scale_log2, -lse2)) : 0.f;
       *reinterpret_cast<__nv_bfloat162*>(dsrow + j) =
           __floats2bfloat162_rn(p0 * (dprow[j] - dlt), p1 * (dprow[j + 1] - dlt));
     }
@@ -272,12 +286,13 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 dq + b * st.dq[0] + h * st.dq[2] + (long long)qrow * st.dq[1] + half * (D / 2), row_ok);
 }
 
-template <int D>
+template <int D, bool ALIBI>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int S, int T,
+                     const float* __restrict__ slopes, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                     int H, int S, int T,
                      Strides st, float scale, int causal) {
   using L = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -309,6 +324,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int half = lane & 1;
   const int key = k0 + row;
   const bool row_ok = key < T;
+  // ALiBi: the key is this lane's row, so its bias (raw units) is one constant
+  const float kbias = ALIBI ? slopes[h] / scale * (float)(key + 1 - T) : 0.f;
 
   Acc dk_acc[D / 16], dv_acc[D / 16];
 #pragma unroll
@@ -354,8 +371,10 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < HC; j += 2) {
       const bool ok0 = row_ok && col0 + j < S && (!causal || key <= col0 + j);
       const bool ok1 = row_ok && col0 + j + 1 < S && (!causal || key <= col0 + j + 1);
-      const float p0 = ok0 ? exp2f(fmaf(srow[j], scale_log2, -lrow[j])) : 0.f;
-      const float p1 = ok1 ? exp2f(fmaf(srow[j + 1], scale_log2, -lrow[j + 1])) : 0.f;
+      const float s0 = ALIBI ? srow[j] + kbias : srow[j];
+      const float s1 = ALIBI ? srow[j + 1] + kbias : srow[j + 1];
+      const float p0 = ok0 ? exp2f(fmaf(s0, scale_log2, -lrow[j])) : 0.f;
+      const float p1 = ok1 ? exp2f(fmaf(s1, scale_log2, -lrow[j + 1])) : 0.f;
       *reinterpret_cast<__nv_bfloat162*>(prow + j) = __floats2bfloat162_rn(p0, p1);
       *reinterpret_cast<__nv_bfloat162*>(dsrow + j) =
           __floats2bfloat162_rn(p0 * (dprow[j] - drow[j]), p1 * (dprow[j + 1] - drow[j + 1]));
@@ -372,17 +391,17 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   write_rows<D>(dv_acc, 1.f, swarp, res_row, dv + dv_off, row_ok);
 }
 
-template <int D>
+template <int D, bool ALIBI>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
-                   const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv,
+                   const float* lse, float* delta, const float* slopes, bf16* dq, bf16* dk, bf16* dv,
                    int B, int H, int S, int T, const Strides& st, float scale, int causal,
                    cudaStream_t stream) {
   const size_t smem = Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dq_kernel<D, ALIBI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dkv_kernel<D, ALIBI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
 
   const long long rows = (long long)B * S * H;
@@ -391,12 +410,12 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, c
       o, dout, delta, H, S, rows, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<D><<<dim3((S + BM - 1) / BM, B * H), THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, H, S, T, st, scale, causal);
+  flash_bwd_dq_kernel<D, ALIBI><<<dim3((S + BM - 1) / BM, B * H), THREADS, smem, stream>>>(
+      q, k, v, dout, lse, delta, slopes, dq, H, S, T, st, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<D><<<dim3((T + BM - 1) / BM, B * H), THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, H, S, T, st, scale, causal);
+  flash_bwd_dkv_kernel<D, ALIBI><<<dim3((T + BM - 1) / BM, B * H), THREADS, smem, stream>>>(
+      q, k, v, dout, lse, delta, slopes, dk, dv, H, S, T, st, scale, causal);
   return cudaGetLastError();
 }
 
@@ -405,12 +424,13 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, c
 // Plain C entry point for ctypes. `strides` holds 24 element strides,
 // (batch, seq, head) for q, k, v, o, dout, dq, dk, dv in turn; the head dim
 // has stride 1. lse is [B, H, S] fp32 (contiguous); delta is fp32 scratch of
-// B*H*S values. causal is 0 or 1 (then S == T). Launches the delta pre-pass,
+// B*H*S values. causal is 0 or 1 (then S == T). slopes: fp32 [H] ALiBi
+// slopes on the device, or null for none. Launches the delta pre-pass,
 // the dQ kernel and the dK/dV kernel on `stream`; returns the cudaError_t of
 // the first launch that fails (0 on success).
 extern "C" int supir_flash_attn_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
-    const void* lse, void* delta, void* dq, void* dk, void* dv,
+    const void* lse, void* delta, const void* slopes, void* dq, void* dk, void* dv,
     int B, int H, int S, int T, int D, int causal, const long long* strides,
     float scale, void* stream) {
   Strides st;
@@ -423,11 +443,14 @@ extern "C" int supir_flash_attn_bwd_bf16(
   const bf16* gb = static_cast<const bf16*>(dout);
   const float* lb = static_cast<const float*>(lse);
   float* db = static_cast<float*>(delta);
+  const float* sl = static_cast<const float*>(slopes);
   bf16* dqb = static_cast<bf16*>(dq);
   bf16* dkb = static_cast<bf16*>(dk);
   bf16* dvb = static_cast<bf16*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch<64>(qb, kb, vb, ob, gb, lb, db, dqb, dkb, dvb, B, H, S, T, st, scale, causal, s);
-  if (D == 128) return (int)launch<128>(qb, kb, vb, ob, gb, lb, db, dqb, dkb, dvb, B, H, S, T, st, scale, causal, s);
+  if (D == 64 && sl) return (int)launch<64, true>(qb, kb, vb, ob, gb, lb, db, sl, dqb, dkb, dvb, B, H, S, T, st, scale, causal, s);
+  if (D == 64) return (int)launch<64, false>(qb, kb, vb, ob, gb, lb, db, sl, dqb, dkb, dvb, B, H, S, T, st, scale, causal, s);
+  if (D == 128 && sl) return (int)launch<128, true>(qb, kb, vb, ob, gb, lb, db, sl, dqb, dkb, dvb, B, H, S, T, st, scale, causal, s);
+  if (D == 128) return (int)launch<128, false>(qb, kb, vb, ob, gb, lb, db, sl, dqb, dkb, dvb, B, H, S, T, st, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -40,6 +40,18 @@
 // lives in registers in the same (row, half) layout: each tile's P V product
 // goes through the warp's slice of the score buffer and is folded in as
 // acc = acc * corr + pv. No wgmma, TMA or cp.async yet: correctness first.
+//
+// ALiBi (MPT's positional bias, the TPU kernel's `alibi` branch, :197-201,
+// with its slopes operand :395-396, :456-458): given fp32 slopes [H], head h
+// adds slope_h * (col - (T - 1)) to its scaled scores, T the unpadded key
+// length, causal or not; null slopes add nothing. The running max stays in
+// raw q.k units, so the bias enters as slope_h / scale * (col - (T - 1)):
+// the max, the sum and the lse then all see the biased scores, and the lse
+// written is the natural-log logsumexp of the biased scaled scores. The
+// offset -(T - 1) cancels in O (it is constant along a row) but not in the
+// lse, which the backward reads. Slope index = blockIdx.y % H, as the TPU
+// kernel tiles the slopes over the batch (:396). ALIBI is a template flag,
+// so the kernels without it are K1's and K3's code unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,11 +100,11 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int valid,
   }
 }
 
-template <int D, bool WITH_LSE>
+template <int D, bool WITH_LSE, bool ALIBI>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H, int S, int T,
+                 float* __restrict__ lse, const float* __restrict__ slopes, int H, int S, int T,
                  long long qsb, long long qss, long long qsh,
                  long long ksb, long long kss, long long ksh,
                  long long vsb, long long vss, long long vsh,
@@ -134,6 +146,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // keys this lane's row may see, and the key tiles the block must visit
   const int lim = causal ? min(T, q0 + row + 1) : T;
   const int kv_end = causal ? min(T, q0 + BM) : T;
+  // ALiBi slope in raw score units (scale = scale_log2 / log2 e)
+  const float ab = ALIBI ? slopes[h] * 1.4426950408889634f / scale_log2 : 0.f;
 
   for (int k0 = 0; k0 < kv_end; k0 += BN) {
     __syncthreads();  // every warp is done with the previous K/V tile (and Q is stored)
@@ -165,12 +179,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncwarp();
 
-    // online softmax over this lane's half row; keys >= lim are masked
+    // online softmax over this lane's half row, ALiBi added; keys >= lim
+    // are masked. dist0 is this half row's first column less (T - 1).
     const float* srow = ss + row * L::LDS + half * HC;
     const int col0 = k0 + half * HC;
+    const float dist0 = (float)(col0 + 1 - T);
     float mx = NEG_INF;
 #pragma unroll
-    for (int j = 0; j < HC; ++j) mx = fmaxf(mx, (col0 + j < lim) ? srow[j] : NEG_INF);
+    for (int j = 0; j < HC; ++j)
+      mx = fmaxf(mx, (col0 + j < lim) ? (ALIBI ? fmaf(ab, dist0 + (float)j, srow[j]) : srow[j]) : NEG_INF);
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     const float m_new = fmaxf(m, mx);
     const float corr = exp2f((m - m_new) * scale_log2);
@@ -179,8 +196,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* prow = sp + row * L::LDP + half * HC;
 #pragma unroll
     for (int j = 0; j < HC; j += 2) {
-      const float s0 = (col0 + j < lim) ? srow[j] : NEG_INF;
-      const float s1 = (col0 + j + 1 < lim) ? srow[j + 1] : NEG_INF;
+      const float b0 = ALIBI ? fmaf(ab, dist0 + (float)j, srow[j]) : srow[j];
+      const float b1 = ALIBI ? fmaf(ab, dist0 + (float)(j + 1), srow[j + 1]) : srow[j + 1];
+      const float s0 = (col0 + j < lim) ? b0 : NEG_INF;
+      const float s1 = (col0 + j + 1 < lim) ? b1 : NEG_INF;
       const float p0 = exp2f(fmaf(s0, scale_log2, -mofs));
       const float p1 = exp2f(fmaf(s1, scale_log2, -mofs));
       psum += p0 + p1;
@@ -235,33 +254,36 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, bool WITH_LSE>
+template <int D, bool WITH_LSE, bool ALIBI>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
-                   int B, int H, int S, int T, const long long* st,
+                   const float* slopes, int B, int H, int S, int T, const long long* st,
                    float scale_log2, int causal, cudaStream_t stream) {
   const size_t smem = Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, WITH_LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<D, WITH_LSE, ALIBI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BM - 1) / BM, B * H);
-  flash_fwd_kernel<D, WITH_LSE><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, lse, H, S, T, st[0], st[1], st[2], st[3], st[4], st[5],
+  flash_fwd_kernel<D, WITH_LSE, ALIBI><<<grid, THREADS, smem, stream>>>(
+      q, k, v, o, lse, slopes, H, S, T, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11], scale_log2, causal);
   return cudaGetLastError();
 }
 
 template <bool WITH_LSE>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
-             int B, int H, int S, int T, int D, int causal, const long long* st,
+             const void* slopes, int B, int H, int S, int T, int D, int causal, const long long* st,
              float scale, void* stream) {
   const float scale_log2 = scale * 1.4426950408889634f;
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
   bf16* ob = static_cast<bf16*>(o);
+  const float* sl = static_cast<const float*>(slopes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch<64, WITH_LSE>(qb, kb, vb, ob, lse, B, H, S, T, st, scale_log2, causal, s);
-  if (D == 128) return (int)launch<128, WITH_LSE>(qb, kb, vb, ob, lse, B, H, S, T, st, scale_log2, causal, s);
+  if (D == 64 && sl) return (int)launch<64, WITH_LSE, true>(qb, kb, vb, ob, lse, sl, B, H, S, T, st, scale_log2, causal, s);
+  if (D == 64) return (int)launch<64, WITH_LSE, false>(qb, kb, vb, ob, lse, sl, B, H, S, T, st, scale_log2, causal, s);
+  if (D == 128 && sl) return (int)launch<128, WITH_LSE, true>(qb, kb, vb, ob, lse, sl, B, H, S, T, st, scale_log2, causal, s);
+  if (D == 128) return (int)launch<128, WITH_LSE, false>(qb, kb, vb, ob, lse, sl, B, H, S, T, st, scale_log2, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -269,10 +291,11 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 // Plain C entry point for ctypes. Strides are in elements, ordered
 // (batch, seq, head) for q, k, v, o in turn; the head dim has stride 1.
-// causal is 0 or 1 (then S == T). Returns the cudaError_t of the launch
-// (0 on success).
+// causal is 0 or 1 (then S == T). slopes: fp32 [H] ALiBi slopes on the
+// device, or null for none. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int supir_flash_attn_fwd_bf16(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, const void* slopes,
     int B, int H, int S, int T, int D, int causal,
     long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh,
@@ -280,13 +303,13 @@ extern "C" int supir_flash_attn_fwd_bf16(
     long long osb, long long oss, long long osh,
     float scale, void* stream) {
   const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh};
-  return dispatch<false>(q, k, v, o, nullptr, B, H, S, T, D, causal, st, scale, stream);
+  return dispatch<false>(q, k, v, o, nullptr, slopes, B, H, S, T, D, causal, st, scale, stream);
 }
 
 // K3: the same, and lse [B, H, S] fp32 (contiguous) receives each query
-// row's natural-log logsumexp of the scaled scores.
+// row's natural-log logsumexp of the scaled (and ALiBi-biased) scores.
 extern "C" int supir_flash_attn_fwd_lse_bf16(
-    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* q, const void* k, const void* v, void* o, void* lse, const void* slopes,
     int B, int H, int S, int T, int D, int causal,
     long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh,
@@ -294,5 +317,5 @@ extern "C" int supir_flash_attn_fwd_lse_bf16(
     long long osb, long long oss, long long osh,
     float scale, void* stream) {
   const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh};
-  return dispatch<true>(q, k, v, o, static_cast<float*>(lse), B, H, S, T, D, causal, st, scale, stream);
+  return dispatch<true>(q, k, v, o, static_cast<float*>(lse), slopes, B, H, S, T, D, causal, st, scale, stream);
 }

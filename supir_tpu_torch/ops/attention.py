@@ -14,6 +14,11 @@ goes to `FlashAttention` (K3 forward, K4 backward), as JAX differentiates
 `flash_attention` through its `custom_vjp`
 (`supir_tpu/ops/flash_attention.py:263-267, 305-325`); every other flash
 site, where nothing is differentiated, goes to K1 (`flash_attention`).
+
+`alibi_slopes` [H] adds MPT's ALiBi column bias (:79-125): a flash site
+takes it into the kernel (K3 ALiBi through `flash_attention`, or
+`FlashAttention` under grad); every other site takes the plain route,
+which adds the materialised [1, H, 1, T] bias to the logits.
 """
 
 from __future__ import annotations
@@ -31,12 +36,13 @@ def flash_eligible(s: int, t: int, d: int) -> bool:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
-              bias: torch.Tensor | None = None) -> torch.Tensor:
+              bias: torch.Tensor | None = None, alibi_slopes=None) -> torch.Tensor:
     """[B, S, H, D] x [B, T, H, D] -> [B, S, H, D]. `causal` aligns the last
-    query with the last key (attention_plain); `bias` is added to the logits."""
+    query with the last key (attention_plain); `bias` is added to the logits,
+    and so is the ALiBi column bias of `alibi_slopes`."""
     s, t = q.shape[1], k.shape[1]
     if bias is None and flash_eligible(s, t, q.shape[-1]) and (not causal or s == t):
         if needs_grad(q, k, v):
-            return FlashAttention.apply(q, k, v, causal)
-        return flash_attention(q, k, v, causal=causal)
-    return attention_plain(q, k, v, causal=causal, bias=bias)
+            return FlashAttention.apply(q, k, v, causal, alibi_slopes)
+        return flash_attention(q, k, v, causal, alibi_slopes)
+    return attention_plain(q, k, v, causal=causal, bias=bias, alibi_slopes=alibi_slopes)

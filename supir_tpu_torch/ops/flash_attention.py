@@ -16,6 +16,17 @@ the forward with logsumexp K3, and the backward K4.
   `supir_tpu_torch/csrc/flash_attn_bwd.cu`.
 Each source's header says what bounds it on the card and how it is laid out.
 
+ALiBi (MPT's positional bias; the TPU kernels' `alibi` branch, :197-201 and
+`_bwd_scores` :481-497): every function here takes `alibi_slopes`, fp32 [H]
+(a tensor or anything `torch.as_tensor` takes), and adds
+slope_h * (col - (T - 1)) to head h's scaled scores before the mask, T the
+key length; the lse is then that of the biased scores, and the backward
+re-adds the bias. The kernels take it as a runtime argument (K3 ALiBi in
+`flash_attn_fwd.cu`, K4 ALiBi in `flash_attn_bwd.cu`). ALiBi is never
+head-packed on the TPU (:339), so its forward is `_attn_kernel`, K3's
+kernel, with or without the lse: a wrapper's ALiBi launches are counted in
+`<wrapper>.alibi_launches`, apart from `launches`.
+
 Routing under autograd, as the JAX function is differentiable through its
 `custom_vjp` (`_make_diff_fn`, :305-325): the kernel wrappers
 `flash_attention`, `flash_attention_fwd_lse` and `flash_attention_bwd` write
@@ -49,9 +60,20 @@ def _causal_keep(s: int, t: int, device) -> torch.Tensor:
     return torch.ones(s, t, dtype=torch.bool, device=device).tril(t - s)
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
-    """scale * q k^T as [B, H, S, T] in q's (float) dtype, causal-masked."""
+def alibi_bias(slopes, t: int, device=None) -> torch.Tensor:
+    """The [1, H, 1, T] fp32 ALiBi column bias slope_h * (col - (T - 1)),
+    as `supir_tpu/ops/attention.py` materialises it (:119-124)."""
+    slopes = torch.as_tensor(slopes, dtype=torch.float32, device=device)
+    col = torch.arange(t, dtype=torch.float32, device=slopes.device) - (t - 1)
+    return slopes[None, :, None, None] * col
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, alibi_slopes=None) -> torch.Tensor:
+    """scale * q k^T (+ the ALiBi column bias) as [B, H, S, T] in q's
+    (float) dtype, causal-masked."""
     logits = torch.einsum("bshd,bthd->bhst", q, k) * q.shape[-1] ** -0.5
+    if alibi_slopes is not None:
+        logits = logits + alibi_bias(alibi_slopes, k.shape[1], q.device).to(logits.dtype)
     if causal:
         s, t = logits.shape[-2:]
         logits = logits.masked_fill(~_causal_keep(s, t, q.device), torch.finfo(logits.dtype).min)
@@ -65,47 +87,52 @@ def _float(*tensors: torch.Tensor):
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
-                    bias: torch.Tensor | None = None) -> torch.Tensor:
+                    bias: torch.Tensor | None = None, alibi_slopes=None) -> torch.Tensor:
     """[B,S,H,D] x [B,T,H,D] -> [B,S,H,D] with fp32 logits and softmax: the
-    form of `supir_tpu/ops/attention.py:_xla_attention` (:63-76). `bias` is
-    added to the fp32 logits; `causal` lets query i see keys up to
-    i + T - S. Autocast is off inside, so the logits stay fp32 under it, as
-    XLA's preferred_element_type=float32 keeps them."""
+    form of `supir_tpu/ops/attention.py:_xla_attention` (:63-76). `bias` and
+    the ALiBi column bias of `alibi_slopes` are added to the fp32 logits;
+    `causal` lets query i see keys up to i + T - S. Autocast is off inside,
+    so the logits stay fp32 under it, as XLA's preferred_element_type=float32
+    keeps them. The weights are rounded to q's dtype and meet v in the wider
+    of the two dtypes, as jnp.einsum promotes them."""
     with torch.autocast(q.device.type, enabled=False):
         scale = q.shape[-1] ** -0.5
         logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
         if bias is not None:
             logits = logits + bias.float()
+        if alibi_slopes is not None:
+            logits = logits + alibi_bias(alibi_slopes, k.shape[1], q.device)
         if causal:
             s, t = logits.shape[-2:]
             logits = logits.masked_fill(~_causal_keep(s, t, q.device), torch.finfo(torch.float32).min)
         weights = torch.softmax(logits, dim=-1).to(q.dtype)
-        return torch.einsum("bhst,bthd->bshd", weights, v)
+        dtype = torch.promote_types(weights.dtype, v.dtype)
+        return torch.einsum("bhst,bthd->bshd", weights.to(dtype), v.to(dtype))
 
 
 def attention_fwd_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            causal: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+                            causal: bool = False, alibi_slopes=None) -> tuple[torch.Tensor, torch.Tensor]:
     """K3's plain version: (out [B,S,H,D] in q's dtype, lse [B,H,S]), lse the
-    natural-log logsumexp of the scaled, masked scores, in fp32 (fp64 for
-    fp64 inputs)."""
+    natural-log logsumexp of the scaled (ALiBi-biased), masked scores, in
+    fp32 (fp64 for fp64 inputs)."""
     with torch.autocast(q.device.type, enabled=False):
         qf, kf = _float(q, k)
-        logits = _scores(qf, kf, causal)
+        logits = _scores(qf, kf, causal, alibi_slopes)
         lse = torch.logsumexp(logits, dim=-1)
         weights = torch.exp(logits - lse[..., None]).to(q.dtype)
         return torch.einsum("bhst,bthd->bshd", weights, v), lse
 
 
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-                        lse: torch.Tensor, dout: torch.Tensor, causal: bool = False):
+                        lse: torch.Tensor, dout: torch.Tensor, causal: bool = False, alibi_slopes=None):
     """K4's plain version, written out in fp32 (fp64 for fp64 inputs) as the
-    reference for the kernel: P = exp(scale S - lse), delta = rowsum(dO * O),
+    reference for the kernel: P = exp(scale S + alibi - lse), delta = rowsum(dO * O),
     dS = P * (dO V^T - delta), dQ = scale dS K, dK = scale dS^T Q,
     dV = P^T dO; masked entries give zero. Returns (dq, dk, dv) in q's dtype."""
     with torch.autocast(q.device.type, enabled=False):
         qf, kf, vf, of, gf = _float(q, k, v, out, dout)
         scale = q.shape[-1] ** -0.5
-        p = torch.exp(_scores(qf, kf, False) - lse.to(qf.dtype)[..., None])
+        p = torch.exp(_scores(qf, kf, False, alibi_slopes) - lse.to(qf.dtype)[..., None])
         if causal:
             p = p.masked_fill(~_causal_keep(p.shape[-2], p.shape[-1], q.device), 0.0)
         delta = (gf * of).sum(-1).transpose(1, 2)  # [B, H, S]
@@ -121,7 +148,8 @@ def _fwd_library() -> ctypes.CDLL:
     from supir_tpu_torch.ops.cuda_build import load_library
 
     lib = load_library(_FWD_SOURCE)
-    for fn, n_ptrs in ((lib.supir_flash_attn_fwd_bf16, 4), (lib.supir_flash_attn_fwd_lse_bf16, 5)):
+    # q, k, v, out[, lse], slopes
+    for fn, n_ptrs in ((lib.supir_flash_attn_fwd_bf16, 5), (lib.supir_flash_attn_fwd_lse_bf16, 6)):
         fn.restype = ctypes.c_int
         fn.argtypes = (
             [ctypes.c_void_p] * n_ptrs
@@ -139,7 +167,7 @@ def _bwd_library() -> ctypes.CDLL:
     fn = lib.supir_flash_attn_bwd_bf16
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 10
+        [ctypes.c_void_p] * 11  # q, k, v, out, dout, lse, delta, slopes, dq, dk, dv
         + [ctypes.c_int] * 6
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
     )
@@ -182,6 +210,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, *mor
             raise ValueError(f"{name} must be 16-byte aligned with strides in multiples of 8 (stride {t.stride()})")
 
 
+def _slopes(alibi_slopes, q: torch.Tensor) -> torch.Tensor | None:
+    """The ALiBi slopes as the kernels take them: fp32 [H], contiguous, on
+    q's device; None for no ALiBi."""
+    if alibi_slopes is None:
+        return None
+    slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32, device=q.device).contiguous()
+    if slopes.shape != (q.shape[2],):
+        raise ValueError(f"alibi_slopes must be [{q.shape[2]}] (one per head), got {tuple(slopes.shape)}")
+    return slopes
+
+
 def _strides(*tensors: torch.Tensor):
     return [s for t in tensors for s in t.stride()[:3]]
 
@@ -191,8 +230,9 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
 
 
-def _forward(q, k, v, causal: bool, with_lse: bool):
-    """Launch K1 (with_lse False) or K3; returns (out, lse or None)."""
+def _forward(q, k, v, causal: bool, with_lse: bool, slopes: torch.Tensor | None = None):
+    """Launch K1 (with_lse False) or K3, with ALiBi if `slopes` (K3's
+    kernel with or without the lse); returns (out, lse or None)."""
     b, s, h, d = q.shape
     t = k.shape[1]
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -207,43 +247,57 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
         if with_lse:
             ptrs.append(lse.data_ptr())
             fn = lib.supir_flash_attn_fwd_lse_bf16
+        ptrs.append(None if slopes is None else slopes.data_ptr())
         err = fn(*ptrs, b, h, s, t, d, int(causal), *_strides(q, k, v, out), d ** -0.5, stream)
     _raise_on(err, "flash attention forward" + (" (lse)" if with_lse else ""))
     return out, lse
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = False) -> torch.Tensor:
+                    causal: bool = False, alibi_slopes=None) -> torch.Tensor:
     """K1: softmax(q k^T / sqrt(D)) v over q [B,S,H,D] and k/v [B,T,H,D];
-    with `causal`, query i sees keys 0..i (S == T). Not differentiable on
-    the card: raises there if grad mode is on and an input requires grad."""
+    with `causal`, query i sees keys 0..i (S == T). With `alibi_slopes` it
+    is K3 ALiBi without the lse (counted in `alibi_launches`). Not
+    differentiable on the card: raises there if grad mode is on and an input
+    requires grad."""
     if not _on_card("flash_attention (K1)", q, (q, k, v)):
-        return attention_plain(q, k, v, causal=causal)
+        return attention_plain(q, k, v, causal=causal, alibi_slopes=alibi_slopes)
     _check(q, k, v, causal)
-    out, _ = _forward(q, k, v, causal, with_lse=False)
-    flash_attention.launches += 1
+    slopes = _slopes(alibi_slopes, q)
+    out, _ = _forward(q, k, v, causal, with_lse=False, slopes=slopes)
+    if slopes is None:
+        flash_attention.launches += 1
+    else:
+        flash_attention.alibi_launches += 1
     return out
 
 
 def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            causal: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+                            causal: bool = False, alibi_slopes=None) -> tuple[torch.Tensor, torch.Tensor]:
     """K3: (out [B,S,H,D], lse [B,H,S] fp32), lse the natural-log
-    logsumexp of each query row's scaled scores."""
+    logsumexp of each query row's scaled (ALiBi-biased) scores. ALiBi
+    launches are counted in `alibi_launches`."""
     if not _on_card("flash_attention_fwd_lse (K3)", q, (q, k, v)):
-        return attention_fwd_lse_plain(q, k, v, causal)
+        return attention_fwd_lse_plain(q, k, v, causal, alibi_slopes)
     _check(q, k, v, causal)
-    out, lse = _forward(q, k, v, causal, with_lse=True)
-    flash_attention_fwd_lse.launches += 1
+    slopes = _slopes(alibi_slopes, q)
+    out, lse = _forward(q, k, v, causal, with_lse=True, slopes=slopes)
+    if slopes is None:
+        flash_attention_fwd_lse.launches += 1
+    else:
+        flash_attention_fwd_lse.alibi_launches += 1
     return out, lse
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-                        lse: torch.Tensor, dout: torch.Tensor, causal: bool = False):
+                        lse: torch.Tensor, dout: torch.Tensor, causal: bool = False, alibi_slopes=None):
     """K4: (dq, dk, dv) in q's dtype from the forward's residuals (q, k, v,
-    out, lse as K3 returns them) and the output gradient dout."""
+    out, lse as K3 returns them, with the same `alibi_slopes`) and the
+    output gradient dout. ALiBi launches are counted in `alibi_launches`."""
     if not _on_card("flash_attention_bwd (K4)", q, (q, k, v, out, lse, dout)):
-        return attention_bwd_plain(q, k, v, out, lse, dout, causal)
+        return attention_bwd_plain(q, k, v, out, lse, dout, causal, alibi_slopes)
     _check(q, k, v, causal, out, dout)
+    slopes = _slopes(alibi_slopes, q)
     b, s, h, d = q.shape
     t = k.shape[1]
     if lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
@@ -257,36 +311,43 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 b, h, s, t, d, int(causal), strides, d ** -0.5, stream)
+                 lse.data_ptr(), delta.data_ptr(), None if slopes is None else slopes.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s, t, d, int(causal), strides,
+                 d ** -0.5, stream)
     _raise_on(err, "flash attention backward")
-    flash_attention_bwd.launches += 1
+    if slopes is None:
+        flash_attention_bwd.launches += 1
+    else:
+        flash_attention_bwd.alibi_launches += 1
     return dq, dk, dv
 
 
-flash_attention.launches = 0
-flash_attention_fwd_lse.launches = 0
-flash_attention_bwd.launches = 0
+for _wrapper in (flash_attention, flash_attention_fwd_lse, flash_attention_bwd):
+    _wrapper.launches = 0
+    _wrapper.alibi_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention, the counterpart of the JAX function's
     `custom_vjp` (`_make_diff_fn`, :305-325): the forward runs K3 and saves
-    q, k, v, out and lse; the backward runs K4. On CPU tensors both are the
-    plain versions, so the CPU tests run the backward's arithmetic. The
-    backward runs under the forward's autocast state."""
+    q, k, v, out and lse (and the ALiBi slopes); the backward runs K4. On
+    CPU tensors both are the plain versions, so the CPU tests run the
+    backward's arithmetic. The backward runs under the forward's autocast
+    state."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
-    def forward(ctx, q, k, v, causal=False):
-        out, lse = flash_attention_fwd_lse(q, k, v, causal)
+    def forward(ctx, q, k, v, causal=False, alibi_slopes=None):
+        out, lse = flash_attention_fwd_lse(q, k, v, causal, alibi_slopes)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
+        ctx.alibi_slopes = alibi_slopes
         return out
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.to(out.dtype).contiguous(), ctx.causal)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.to(out.dtype).contiguous(), ctx.causal,
+                                         ctx.alibi_slopes)
+        return dq, dk, dv, None, None

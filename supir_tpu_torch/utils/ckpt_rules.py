@@ -2,7 +2,7 @@
 
 The port's own copy of the rule helpers of `supir_tpu/utils/ckpt.py`
 (:54-322) and of the captioner's tables in `supir_tpu/captioner/convert.py`
-(:25-72). The weight bridge (`utils/weights.py`) walks them backwards to
+(:25-72, and MPT's :104-124). The weight bridge (`utils/weights.py`) walks them backwards to
 turn a JAX parameter tree into a state dict under the reference's torch
 keys. `tests/test_torch_engine.py` and `tests/test_torch_captioner.py` hold
 each table equal to the JAX package's, key for key and path for path.
@@ -303,3 +303,27 @@ def vision_rules(cfg) -> List[Rule]:
 def projector_rules() -> List[Rule]:
     """model.mm_projector.{0,2}.* -> params['projector'] (mlp2x_gelu)."""
     return _dense("model.mm_projector.0", ("fc1",)) + _dense("model.mm_projector.2", ("fc2",))
+
+
+def mpt_rules(cfg) -> List[Rule]:
+    """The reference's MPT key space (transformer.wte / transformer.blocks.{i}.
+    {norm_1, attn.Wqkv, attn.out_proj, norm_2, ffn.up_proj, ffn.down_proj} /
+    transformer.norm_f) -> the MPTForCausalLM tree (an MPTConfig;
+    supir_tpu/captioner/convert.py:104-124)."""
+    tk = "transformer"
+    rules: List[Rule] = [
+        (f"{tk}.wte.weight", ("wte", "embedding"), None),
+        (f"{tk}.norm_f.weight", ("norm_f", "ln", "scale"), None),
+        (f"{tk}.norm_f.bias", ("norm_f", "ln", "bias"), None),
+    ]
+    for i in range(cfg.n_layers):
+        lt = f"{tk}.blocks.{i}"
+        lf = (f"block_{i}",)
+        for n in ("norm_1", "norm_2"):
+            rules.append((f"{lt}.{n}.weight", lf + (n, "ln", "scale"), None))
+            rules.append((f"{lt}.{n}.bias", lf + (n, "ln", "bias"), None))
+        rules += _dense(f"{lt}.attn.Wqkv", lf + ("Wqkv",), bias=False)
+        rules += _dense(f"{lt}.attn.out_proj", lf + ("out_proj",), bias=False)
+        rules += _dense(f"{lt}.ffn.up_proj", lf + ("up_proj",), bias=False)
+        rules += _dense(f"{lt}.ffn.down_proj", lf + ("down_proj",), bias=False)
+    return rules

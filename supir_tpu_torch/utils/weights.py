@@ -22,6 +22,14 @@ weights (`qn`, whose numpy form is `ml_dtypes.int4`) repacked to K11's
 column pairs, and the int8 head as `lm_head.q` / `lm_head.scale`; else
 quantization happens in the port (`captioner/llama.py:quantize_llama_state_dict`).
 
+`mpt_state_dict_from_jax` carries a JAX MPTForCausalLM tree
+(`captioner/mpt.py:init_mpt_params` builds one in numpy) into the port's MPT
+under the reference's HF keys (`transformer.blocks.{i}.attn.Wqkv.weight`,
+...); `convert_mpt_state_dict` takes a reference MPT state dict as it is,
+fills the LayerNorm biases that the no_bias family (mpt-7b) strips with
+zeros and reports every other key that is missing or unused, as
+`supir_tpu/captioner/convert.py:convert_mpt_state_dict` (:127-152) does.
+
 `train_state_from_jax` carries a JAX trainer state (params, optax's AdamW
 mu and nu, the EMA and the step) into the port's trainer state by the same
 rules: the transforms are linear, so they serve the moments and the EMA as
@@ -30,7 +38,8 @@ they serve the parameters.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping
+import dataclasses
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -181,3 +190,46 @@ def train_state_from_jax(state_np: Mapping[str, Any], cfg: SUPIRConfig) -> Dict[
     if "ema" in state_np:
         out["ema"] = _bridge(state_np["ema"], trainable)
     return out
+
+
+def mpt_state_dict_from_jax(params_np: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """A JAX MPTForCausalLM parameter tree (numpy or array leaves) -> fp32
+    CPU tensors under the HF MPT keys (cfg: an MPTConfig)."""
+    return state_dict_from_rules(params_np, C.mpt_rules(cfg))
+
+
+@dataclasses.dataclass
+class ConversionReport:
+    """What a conversion found, as `supir_tpu/utils/ckpt.py:ConversionReport`
+    counts it: leaves filled, rule keys missing from the checkpoint
+    ("torch key -> flax/path"), checkpoint keys no rule used."""
+
+    filled: int = 0
+    missing: List[str] = dataclasses.field(default_factory=list)
+    unused: List[str] = dataclasses.field(default_factory=list)
+
+    def summary(self) -> str:
+        return (f"filled={self.filled} missing_flax_leaves={len(self.missing)} "
+                f"unused_torch_keys={len(self.unused)}")
+
+
+def convert_mpt_state_dict(torch_sd: Mapping[str, Any], cfg) -> Tuple[Dict[str, torch.Tensor], ConversionReport]:
+    """A reference MPT state dict -> (the port's state dict, report). The
+    keys are the port's already; a missing LayerNorm bias (the no_bias
+    checkpoint family, mpt-7b) is filled with zeros, any other missing key
+    stays in `report.missing`, and keys no rule reads land in
+    `report.unused`."""
+    report = ConversionReport()
+    sd: Dict[str, torch.Tensor] = {}
+    for tkey, fpath, _ in C.mpt_rules(cfg):
+        if tkey in torch_sd:
+            v = torch_sd[tkey]
+            sd[tkey] = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+        elif tkey.endswith(".bias") and fpath[-2] == "ln":
+            sd[tkey] = torch.zeros(cfg.d_model, dtype=torch.float32)
+        else:
+            report.missing.append(tkey + " -> " + "/".join(fpath))
+            continue
+        report.filled += 1
+    report.unused = sorted(k for k in torch_sd if k not in sd)
+    return sd, report

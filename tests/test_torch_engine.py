@@ -164,6 +164,8 @@ def test_port_imports_no_jax(target):
             "    importlib.import_module(m.name)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'supir_tpu'))\n"
             "assert not bad, bad\n"
+            "assert {'supir_tpu_torch.captioner.mpt', 'supir_tpu_torch.captioner.preprocess',\n"
+            "        'supir_tpu_torch.captioner.train'} <= set(sys.modules)\n"
             "print(sum(m.startswith('supir_tpu_torch.') for m in sys.modules))\n"
         )
         out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

@@ -1,6 +1,7 @@
 """supir_tpu_torch kernels (K1 flash attention, K2 GroupNorm+SiLU, K3 the
-forward with logsumexp, K4 the backward) against the JAX package's Pallas
-kernels, run in interpret mode on the CPU.
+forward with logsumexp, K4 the backward, and the ALiBi variants of K3 and
+K4) against the JAX package's Pallas kernels, run in interpret mode on the
+CPU.
 
 On the CPU each wrapper returns its plain PyTorch version, so these tests
 hold the plain versions to the Pallas kernels at atol 2e-5 (fp32, the bound
@@ -14,6 +15,8 @@ imported inside the parity tests only, so the `gpu` tests also run on a
 machine without it: python -m pytest --noconftest tests/test_torch_ops.py -m gpu
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,7 @@ from supir_tpu_torch.models import layers
 from supir_tpu_torch.ops import attention as attn_ops
 from supir_tpu_torch.ops.flash_attention import (
     FlashAttention,
+    alibi_bias,
     attention_bwd_plain,
     attention_fwd_lse_plain,
     attention_plain,
@@ -129,6 +133,181 @@ def test_bwd_plain_matches_pallas(s, t, causal):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=2e-5, err_msg=f"d{name} via autograd")
 
 
+def _slopes(h):
+    """MPT's slopes for h heads (bias_max 8), as numpy fp32."""
+    return (1.0 / 2.0 ** (np.arange(1, h + 1, dtype=np.float32) * 8.0 / h)).astype(np.float32)
+
+
+# ALiBi: causal and not, block-aligned and ragged T (the bias offset uses the
+# unpadded key length), cross with S != T
+ALIBI_CASES = [(128, 128, True), (100, 100, True), (128, 128, False), (96, 200, False)]
+
+
+@pytest.mark.parametrize("s,t,causal", ALIBI_CASES)
+def test_alibi_fwd_lse_plain_matches_pallas(s, t, causal):
+    """K3 ALiBi's plain version against the Pallas kernel with its `alibi`
+    operand: the output of the primal (_flash_primal's unpacked branch) and
+    of the forward rule, and the lse of the biased scores."""
+    import jax.numpy as jnp
+
+    from supir_tpu.ops.flash_attention import _flash_fwd_lse
+    from supir_tpu.ops.flash_attention import flash_attention as jax_flash_attention
+
+    q, k, v, _ = _qkvg(11, s, t, h=4)
+    slopes = _slopes(4)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    primal = jax_flash_attention(jq, jk, jv, causal=causal, alibi_slopes=slopes, bq=64, bkv=64, interpret=True)
+    want_out, lse_lanes = _flash_fwd_lse(jq, jk, jv, causal, tuple(float(x) for x in slopes), 64, 64, True)
+    want_lse = np.asarray(lse_lanes)[:, :s, 0].reshape(2, 4, s)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out, lse = flash_attention_fwd_lse(tq, tk, tv, causal, alibi_slopes=torch.from_numpy(slopes))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=2e-5)
+    got = flash_attention(tq, tk, tv, causal, alibi_slopes=slopes)
+    np.testing.assert_allclose(got.numpy(), np.asarray(primal), atol=2e-5)
+
+
+@pytest.mark.parametrize("s,t,causal", ALIBI_CASES)
+def test_alibi_bwd_plain_matches_pallas(s, t, causal):
+    """K4 ALiBi's plain version against _flash_bwd with the slopes, on the
+    same residuals; FlashAttention's ALiBi gradients against jax.vjp of
+    flash_attention (its custom VJP)."""
+    import jax
+    import jax.numpy as jnp
+
+    from supir_tpu.ops.flash_attention import _flash_bwd, _flash_fwd_lse
+    from supir_tpu.ops.flash_attention import flash_attention as jax_flash_attention
+
+    q, k, v, g = _qkvg(12, s, t, h=4)
+    slopes = _slopes(4)
+    st = tuple(float(x) for x in slopes)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    out, lse_lanes = _flash_fwd_lse(jq, jk, jv, causal, st, 64, 64, True)
+    lse = np.asarray(lse_lanes)[:, :s, 0].reshape(2, 4, s)
+    want = _flash_bwd(jq, jk, jv, out, lse_lanes, jnp.asarray(g), causal, st, 64, 64, True)
+    got = flash_attention_bwd(*map(torch.from_numpy, (q, k, v, np.array(out), lse, g)), causal,
+                              alibi_slopes=slopes)
+    for name, a, w in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=2e-5, err_msg=f"d{name}")
+
+    _, vjp = jax.vjp(lambda *a: jax_flash_attention(*a, causal=causal, alibi_slopes=slopes, bq=64, bkv=64,
+                                                    interpret=True), jq, jk, jv)
+    want = vjp(jnp.asarray(g))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    (FlashAttention.apply(*leaves, causal, torch.from_numpy(slopes)) * torch.from_numpy(g)).sum().backward()
+    for name, a, w in zip("qkv", leaves, want):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(w), atol=2e-5, err_msg=f"d{name} via autograd")
+
+
+def test_alibi_flash_attention_function_gradcheck():
+    """FlashAttention with ALiBi: its backward is the derivative of its
+    forward (float64, ragged)."""
+    rng = np.random.default_rng(13)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 9, 2, 4))).requires_grad_() for _ in range(3))
+    slopes = torch.tensor([0.5, 0.0625], dtype=torch.float64)
+    assert torch.autograd.gradcheck(lambda *a: FlashAttention.apply(*a, True, slopes), (q, k, v))
+
+
+@pytest.mark.parametrize("s,causal,route", [
+    (1024, True, "flash"),   # flash-eligible: K3 ALiBi (K1's wrapper) / FlashAttention
+    (1024, False, "flash"),
+    (77, True, "xla"),       # short: the materialised column bias
+    (40, False, "xla"),
+])
+def test_attention_alibi_matches_dot_product_attention(s, causal, route):
+    """attention(..., alibi_slopes=) against JAX's dot_product_attention on
+    the route the port takes: the Pallas kernel for a flash-eligible site,
+    the XLA form with the materialised bias otherwise; forward and, through
+    autograd, the gradients."""
+    import jax
+    import jax.numpy as jnp
+
+    from supir_tpu.ops.attention import dot_product_attention
+
+    assert attn_ops.flash_eligible(s, s, 64) == (route == "flash")
+    q, k, v, g = _qkvg(14, s, s, h=2, b=1)
+    slopes = _slopes(2)
+
+    def jax_fn(*a):
+        return dot_product_attention(*a, causal=causal, alibi_slopes=slopes, impl=route)
+
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want, vjp = jax.vjp(jax_fn, jq, jk, jv)
+    want_grads = vjp(jnp.asarray(g))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = attn_ops.attention(*leaves, causal=causal, alibi_slopes=slopes)
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), atol=2e-5)
+    for name, a, w in zip("qkv", leaves, want_grads):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(w), atol=2e-5, err_msg=f"d{name}")
+    with torch.no_grad():
+        again = attn_ops.attention(*map(torch.from_numpy, (q, k, v)), causal=causal, alibi_slopes=slopes)
+    np.testing.assert_allclose(again.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_attention_alibi_with_bias_adds_the_column_bias():
+    """A biased call with slopes takes the plain route with bias + the
+    [1, H, 1, T] column bias, as JAX's XLA route adds them (:119-124)."""
+    import jax.numpy as jnp
+
+    from supir_tpu.ops.attention import dot_product_attention
+
+    q, k, v, _ = _qkvg(15, 24, 24, h=2, b=1)
+    bias = np.random.default_rng(16).standard_normal((1, 2, 24, 24)).astype(np.float32)
+    slopes = _slopes(2)
+    want = dot_product_attention(*map(jnp.asarray, (q, k, v)), bias=jnp.asarray(bias), alibi_slopes=slopes,
+                                 impl="xla")
+    got = attn_ops.attention(*map(torch.from_numpy, (q, k, v)), bias=torch.from_numpy(bias), alibi_slopes=slopes)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    col = alibi_bias(slopes, 24)
+    assert col.shape == (1, 2, 1, 24) and float(col[0, 0, 0, -1]) == 0.0
+    np.testing.assert_allclose(col[0, :, 0, 0].numpy(), -23 * slopes, rtol=1e-6)
+
+
+def test_attention_plain_promotes_like_xla():
+    """bf16 weights against fp32 values (a bf16 query over an fp32 cache):
+    the plain form promotes them as jnp.einsum does in `_xla_attention`,
+    where torch's einsum would refuse the mix."""
+    import jax.numpy as jnp
+
+    from supir_tpu.ops.attention import _xla_attention
+
+    q, k, v, _ = _qkvg(18, 3, 20, h=2, b=1)
+    bias = np.random.default_rng(19).standard_normal((1, 2, 3, 20)).astype(np.float32)
+    want = _xla_attention(jnp.asarray(q, jnp.bfloat16), jnp.asarray(k), jnp.asarray(v), bias=jnp.asarray(bias))
+    got = attention_plain(torch.from_numpy(q).bfloat16(), torch.from_numpy(k), torch.from_numpy(v),
+                          bias=torch.from_numpy(bias))
+    assert str(want.dtype) == "float32" and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)  # the same roundings on both sides
+
+
+def test_attention_routes_alibi(monkeypatch):
+    """An ALiBi site at 1024 tokens or more goes to the kernel with its
+    slopes (K3 ALiBi without grad, FlashAttention with); a biased or short
+    one never does."""
+    calls = []
+
+    def k1(q, k, v, causal=False, alibi_slopes=None):
+        calls.append(("K1", alibi_slopes is not None))
+        return attention_plain(q, k, v, causal, alibi_slopes=alibi_slopes)
+
+    class Recorded(FlashAttention):
+        @staticmethod
+        def forward(ctx, q, k, v, causal=False, alibi_slopes=None):
+            calls.append(("FlashAttention", alibi_slopes is not None))
+            return FlashAttention.forward(ctx, q, k, v, causal, alibi_slopes)
+
+    monkeypatch.setattr(attn_ops, "flash_attention", k1)
+    monkeypatch.setattr(attn_ops, "FlashAttention", Recorded)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(17, 1, 1024, 1024, 2, 64))
+    slopes = _slopes(2)
+    attn_ops.attention(q, k, v, causal=True, alibi_slopes=slopes)
+    attn_ops.attention(q.requires_grad_(), k, v, causal=True, alibi_slopes=slopes).sum().backward()
+    attn_ops.attention(q, k, v, bias=torch.zeros(1, 2, 1024, 1024), alibi_slopes=slopes)
+    attn_ops.attention(q[:, :100], k[:, :100], v[:, :100], causal=True, alibi_slopes=slopes)
+    assert calls == [("K1", True), ("FlashAttention", True)]
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_attention_function_gradcheck(causal):
     """FlashAttention's backward (K4's plain arithmetic) is the derivative
@@ -152,7 +331,7 @@ def test_flash_attention_function_matches_plain_autograd(causal):
         torch.testing.assert_close(a, b, atol=2e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K3-alibi", "K4-alibi"])
 def test_kernel_wrappers_refuse_to_drop_gradients(kernel):
     """Off the CPU a wrapper checks grad mode before anything else: handed a
     tensor that requires grad it raises (a kernel's result has no autograd
@@ -163,11 +342,14 @@ def test_kernel_wrappers_refuse_to_drop_gradients(kernel):
     q = torch.empty(1, 1024, 2, 64, **meta)
     lse = torch.empty(1, 2, 1024, **meta)
     x, w = torch.empty(1, 64, 8, 8, **meta), torch.empty(64, **meta)
+    slopes = torch.ones(2, **meta)
     calls = {
         "K1": lambda a: flash_attention(a, q, q),
         "K3": lambda a: flash_attention_fwd_lse(a, q, q),
         "K4": lambda a: flash_attention_bwd(a, q, q, q, lse, q),
         "K2": lambda a: group_norm(x, a, w),
+        "K3-alibi": lambda a: flash_attention_fwd_lse(a, q, q, True, slopes),
+        "K4-alibi": lambda a: flash_attention_bwd(a, q, q, q, lse, q, True, slopes),
     }
     leaf = (w if kernel == "K2" else q).clone().requires_grad_()
     with pytest.raises(RuntimeError, match="gradient"):
@@ -203,14 +385,14 @@ def test_attention_sites_route_by_grad(monkeypatch):
     """A flash-eligible site whose inputs require grad goes to FlashAttention
     (K3/K4); without grad, to K1; an ineligible one to the plain form."""
     routes = []
-    monkeypatch.setattr(attn_ops, "flash_attention", lambda q, k, v, causal=False: routes.append("K1")
-                        or attention_plain(q, k, v, causal))
+    monkeypatch.setattr(attn_ops, "flash_attention", lambda q, k, v, causal=False, alibi_slopes=None:
+                        routes.append("K1") or attention_plain(q, k, v, causal))
 
     class Recorded(FlashAttention):
         @staticmethod
-        def forward(ctx, q, k, v, causal=False):
+        def forward(ctx, q, k, v, causal=False, alibi_slopes=None):
             routes.append("FlashAttention")
-            return FlashAttention.forward(ctx, q, k, v, causal)
+            return FlashAttention.forward(ctx, q, k, v, causal, alibi_slopes)
 
     monkeypatch.setattr(attn_ops, "FlashAttention", Recorded)
     q, k, v = (torch.from_numpy(a) for a in _qkv(9, 1, 1024, 1024, 1, 64))
@@ -229,7 +411,8 @@ def test_attention_routes_bias_and_causal(monkeypatch):
     1024 tokens or more goes to K1; a biased call never does."""
     calls = []
     monkeypatch.setattr(attn_ops, "flash_attention",
-                        lambda q, k, v, causal=False: calls.append(causal) or attention_plain(q, k, v, causal))
+                        lambda q, k, v, causal=False, alibi_slopes=None: calls.append(causal)
+                        or attention_plain(q, k, v, causal))
     q, k, v = (torch.from_numpy(a) for a in _qkv(4, 1, 1024, 1024, 1, 64))
     attn_ops.attention(q, k, v, causal=True)
     bias = torch.zeros(1, 1, 1024, 1024)
@@ -275,11 +458,14 @@ def test_cpu_tensors_never_reach_a_kernel():
     q, k, v = (torch.from_numpy(a) for a in _qkv(2, 1, 1024, 1024, 2, 64))
     out = attn_ops.attention(q, k, v)
     torch.testing.assert_close(out, attention_plain(q, k, v), rtol=0, atol=0)
+    slopes = torch.tensor([0.25, 0.0625])
+    out = attn_ops.attention(q, k, v, causal=True, alibi_slopes=slopes)
+    torch.testing.assert_close(out, attention_plain(q, k, v, True, alibi_slopes=slopes), rtol=0, atol=0)
     x = torch.randn(1, 64, 4, 4)
     w, b = torch.ones(64), torch.zeros(64)
     torch.testing.assert_close(group_norm(x, w, b, 32, 1e-5, True),
                                group_norm_plain(x, w, b, 32, 1e-5, True), rtol=0, atol=0)
-    assert flash_attention.launches == 0
+    assert flash_attention.launches == 0 and flash_attention.alibi_launches == 0
     assert group_norm.launches == 0
 
 
@@ -387,6 +573,65 @@ def test_flash_lse_and_backward_kernels_match_plain(cuda, b, s, t, h, d, causal)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
     bad = flash_attention_bwd(q, k, v, out, lse * 1.4426950408889634, dout, causal)
     assert _rel_l2(bad[0], want[0]) > 2e-2
+
+
+LOG2E = 1.4426950408889634
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,t,h,d,causal,mqa", [
+    (1, 2048, 2048, 32, 128, True, False),   # the MPT-7B prefill
+    (1, 1024, 1024, 8, 64, False, False),
+    (1, 1100, 1100, 6, 64, True, False),     # ragged T, 6 heads (interleaved slopes)
+    (2, 1000, 1500, 4, 128, False, False),   # cross, S != T
+    (1, 1024, 1024, 8, 64, True, True),      # multiquery: k, v expanded, head stride 0
+])
+def test_alibi_kernels_match_plain(cuda, b, s, t, h, d, causal, mqa):
+    """K3 ALiBi and K4 ALiBi against their fp32 plain versions (K3's and
+    K4's bounds: out rel-L2 1e-2, lse max abs 1e-3, each gradient rel-L2
+    2e-2), deterministic, with the planted faults of each: the bias in
+    scaled instead of raw units and the slopes reversed break O; the offset
+    -(T - 1) dropped keeps O and breaks the lse; K4 without the bias breaks
+    the gradients."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(b, s, h, d, generator=g, device=cuda).to(torch.bfloat16)
+    if mqa:
+        k, v = (torch.randn(b, t, 1, d, generator=g, device=cuda).to(torch.bfloat16).expand(b, t, h, d)
+                for _ in range(2))
+    else:
+        k, v = (torch.randn(b, t, h, d, generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
+    dout = torch.randn(b, s, h, d, generator=g, device=cuda).to(torch.bfloat16)
+    ceil = 2 ** math.ceil(math.log2(h))
+    slopes = 1.0 / 2.0 ** (torch.arange(1, ceil + 1, dtype=torch.float32, device=cuda) * 8.0 / ceil)
+    if ceil != h:
+        slopes = torch.cat([slopes[1::2], slopes[::2]])[:h]
+    before = (flash_attention_fwd_lse.alibi_launches, flash_attention_bwd.alibi_launches,
+              flash_attention_fwd_lse.launches)
+    out, lse = flash_attention_fwd_lse(q, k, v, causal, slopes)
+    want_out, want_lse = attention_fwd_lse_plain(q.float(), k.float(), v.float(), causal, slopes)
+    assert _rel_l2(out, want_out) <= 1e-2
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    primal = flash_attention(q, k, v, causal, slopes)
+    assert torch.equal(primal, out)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal, slopes)
+    want = attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), want_lse, dout.float(), causal, slopes)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16 and _rel_l2(a, w) <= 2e-2
+    assert all(torch.equal(a, a2) for a, a2 in zip(got, flash_attention_bwd(q, k, v, out, lse, dout, causal,
+                                                                             slopes)))
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd_lse.alibi_launches, flash_attention_bwd.alibi_launches,
+            flash_attention_fwd_lse.launches) == (before[0] + 1, before[1] + 2, before[2])
+
+    scaled_units, _ = flash_attention_fwd_lse(q, k, v, causal, slopes * d ** -0.5)
+    assert _rel_l2(scaled_units, want_out) > 1e-2
+    reversed_, _ = flash_attention_fwd_lse(q, k, v, causal, slopes.flip(0))
+    assert _rel_l2(reversed_, want_out) > 1e-2
+    # the offset dropped adds slope_h * (T - 1) to every row's lse, O unchanged
+    no_offset = lse + (slopes * (t - 1))[None, :, None]
+    assert (no_offset - want_lse).abs().max().item() > 1e-3
+    bad = flash_attention_bwd(q, k, v, out, lse, dout, causal)  # bias left out of the recomputed scores
+    assert not max(_rel_l2(a, w) for a, w in zip(bad, want)) <= 2e-2  # NaN (exp overflow) breaks it too
 
 
 @pytest.mark.gpu
