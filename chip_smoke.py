@@ -8,8 +8,9 @@ Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is switched off for matmuls and cuDNN convolutions.
   2. build: the CUDA C++ kernels (K1 and K3, K4, K5-K7 with K10 and K11,
-     K8, K9; one nvcc per source, all at once, into build/supir_tpu_torch/)
-     with ptxas' registers and spills, and K2 (Triton).
+     K8, K9, the probes' kernels and their GEMV geometries; one nvcc per
+     source, all at once, into build/supir_tpu_torch/) with ptxas'
+     registers and spills, and K2 (Triton).
   3. kernels against their plain PyTorch versions on the card, with
      CUDA-event or CUDA-graph times of both, the least time the card could
      take (bound) and, where one PyTorch call computes the same function,
@@ -21,6 +22,16 @@ Phases, each printing its own lines:
      causal at Llama-13B's, and K3 ALiBi and K4 ALiBi at the MPT-7B
      prefill's shape and a non-causal one. Each is held to a stated bound,
      and planted faults must break it.
+  3b. probes: the four decode-GEMV probes (supir_tpu_torch/tools/:
+     stream_ceiling T1, gemv_sweep T2, bitcast_probe T3, int4_native_probe
+     T4) run through their `main` at 3 replays, with the launch counters of
+     T1a-T4b zeroed just before and read just after (each must be > 0);
+     the card's measured streaming ceiling; then each probe kernel at one
+     geometry against its plain version: the column sum 1-D (strip 512) and
+     2-D (1280x1920), the nibble unpack and the native cast bit for bit;
+     W4A8 at split-K 2 by 1e-6; the single-cast GEMV (strip 256) and K7
+     (strip 128) and K11 (strip 256) instances by rel-L2 1e-2; each with
+     planted faults that must break it.
   4. main path: a full-width SDXL/SUPIR engine (XL-base, bf16, random
      weights from a seeded CUDA generator) restores one image through
      SUPIREngine.batchify_sample with bench.py's headline settings: a
@@ -146,27 +157,9 @@ def graph_ms(fns, replays: int = 5) -> float:
     """Mean device milliseconds per call of the calls in `fns`, captured in
     order into one CUDA graph and replayed: the card's time without the
     host's launch cost, which exceeds a small kernel's own time."""
-    import torch
+    from supir_tpu_torch.tools.timing import chain_ms
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for fn in fns:
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for fn in fns:
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (replays * len(fns))
+    return chain_ms(fns, replays)
 
 
 def expected_flash_sites(cfg, lat: int) -> int:
@@ -277,10 +270,10 @@ def _ptxas_summary(report: str) -> str:
 
 def phase_build():
     from supir_tpu_torch.ops import cuda_build, groupnorm as k2
-    from supir_tpu_torch.ops import flash_attention as k1, quantize as kq
+    from supir_tpu_torch.ops import flash_attention as k1, probes as kp, quantize as kq
 
     # K1 and K3 share flash_attn_fwd.cu; K4 is flash_attn_bwd.cu
-    sources = k1.SOURCES + kq.SOURCES
+    sources = k1.SOURCES + kq.SOURCES + kp.SOURCES
     t0 = time.perf_counter()
     seconds = cuda_build.build_all(sources)
     wall = time.perf_counter() - t0
@@ -409,6 +402,163 @@ def phase_kernels():
                        bound_by=bound_by))
     results["K2"] = dict(k2[0], max_abs_err=max(r["max_abs_err"] for r in k2))
     return results
+
+
+class _GeometryCount:
+    """A GEMV wrapper's launches at a non-default geometry (its
+    `geometry_launches`), read and reset as one counter."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    launches = property(lambda self: self.fn.geometry_launches,
+                        lambda self, n: setattr(self.fn, "geometry_launches", n))
+
+
+def _probe_counters():
+    from supir_tpu_torch.ops import probes as P, quantize as Q
+
+    return {"T1a": P.column_sum, "T1b": P.column_sum_2d, "T1c": _GeometryCount(Q.qmm), "T2": P.w4a8_preact,
+            "T3a": P.unpack_nibbles, "T3b": P.int4_single_cast_matmul, "T4a": P.native_cast,
+            "T4b": _GeometryCount(Q.int4_native_matmul)}
+
+
+def _probe_row(label, kernel, plain, copies, moved_bytes, faults, want=None, rel_bound=None, library=None):
+    """One probe kernel at one geometry: kernel(*copies[0]) against `want`
+    (default plain(*copies[0])), bit for bit when rel_bound is None, else by
+    relative L2; each planted fault (name, call) must break that. Device
+    times chained over the copies through one CUDA graph (graph_ms), the
+    plain version over at most four of them; `library` is one PyTorch
+    call computing the same function, timed beside it."""
+    import torch
+
+    out = kernel(*copies[0])
+    want = plain(*copies[0]) if want is None else want
+    err = (out.float() - want.float()).abs().max().item()
+    if rel_bound is None:
+        ok, reading = torch.equal(out, want), f"bit for bit {torch.equal(out, want)}"
+    else:
+        rel = rel_l2(out, want)
+        ok, reading = rel <= rel_bound, f"rel_l2 {rel:.3e} (bound {rel_bound:g})"
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version: {reading}, max_abs_err {err:.3e}")
+    for name, bad in faults:
+        got = bad()
+        if rel_bound is None:
+            broken = not torch.equal(got, want)
+            log(f"[probes] control ({label} {name}): equal {not broken}")
+        else:
+            rel = rel_l2(got, want)
+            broken = not rel <= rel_bound
+            log(f"[probes] control ({label} {name}): rel_l2 {rel:.3e}")
+        if not broken:
+            raise AssertionError(f"the bound misses a planted fault ({label} {name})")
+    ms = graph_ms([lambda c=c: kernel(*c) for c in copies])
+    plain_ms = graph_ms([lambda c=c: plain(*c) for c in copies[:4]], replays=2)
+    lib_ms = graph_ms([lambda c=c: library(*c) for c in copies]) if library else None
+    bound_ms, bound_by = bound(moved_bytes)
+    log(f"[probes] {label}: {reading}, max_abs_err {err:.3e}; {ms:.4f} ms vs plain {plain_ms:.4f} ms"
+        f"{'' if lib_ms is None else f', torch.sum {lib_ms:.4f} ms'} (device, CUDA graph over {len(copies)} "
+        f"copies), bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.0%} of it)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
+def phase_probes():
+    """[probes]: the four probes' mains on the card at 3 replays, counted;
+    the measured streaming ceiling; each probe kernel at one geometry
+    against its plain version. Returns the JSON numbers and the launches of
+    T1a-T4b."""
+    import gc
+
+    import torch
+
+    from supir_tpu_torch.ops import probes as P, quantize as Q
+    from supir_tpu_torch.tools import bitcast_probe, gemv_sweep, int4_native_probe, stream_ceiling
+
+    counters = _probe_counters()
+    t0 = time.perf_counter()
+    _reset(counters)
+    ceiling = stream_ceiling.main(["--reps", "3"])["ceiling"]
+    gemv_sweep.main(["--reps", "3"])
+    bitcast_probe.main(["--reps", "3"])
+    int4_native_probe.main(["--reps", "3"])
+    launches = _read(counters)
+    log(f"[probes] the four probes' mains: {time.perf_counter() - t0:.1f} s; launches {launches}")
+    log(f"[probes] measured streaming ceiling: {ceiling['gb_per_s']:.1f} GB/s read "
+        f"({ceiling['share']:.1%} of 3.35 TB/s) by {ceiling['name']}")
+    for name, n in launches.items():
+        if not n > 0:
+            raise AssertionError(f"{name} was never launched by the probes")
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    cin, cout = 5120, 15360          # T1's weight, also the 13B qkv projection
+    qs = [(torch.randint(0, 256, (cin // 2, cout), dtype=torch.uint8, generator=g, device=dev),) for _ in range(8)]
+    per = cin // 2 * cout
+    scale = torch.rand(1, cout, generator=g, device=dev) * 0.01 + 0.001
+    ones = torch.ones_like(scale)
+    q0 = qs[0][0]
+    lib = lambda q: torch.sum(q, 0, dtype=torch.int32)  # noqa: E731
+    rows = {}
+    rows["T1a"] = _probe_row(
+        "T1a column sum 1-D [2560,15360] u8 strip 512", lambda q: P.column_sum(q, 512), P.column_sum_plain, qs,
+        per + cout * 4, [("bytes read as int8", lambda: P.column_sum(q0, 512, _fault=1))], library=lib)
+    rows["T1b"] = _probe_row(
+        "T1b column sum 2-D [2560,15360] u8 1280x1920", lambda q: P.column_sum_2d(q, 1280, 1920),
+        P.column_sum_plain, qs, per + cout * 4,
+        [("bytes read as int8", lambda: P.column_sum_2d(q0, 1280, 1920, _fault=1)),
+         ("last row block dropped", lambda: P.column_sum_2d(q0, 1280, 1920, _fault=2))], library=lib)
+    x8 = torch.randn(8, cin, generator=g, device=dev).to(torch.bfloat16)
+    rows["T1c"] = _probe_row(
+        "T1c K7 int4 half-split [8,5120]x[2560,15360] strip 128", lambda q: Q.int4_matmul(x8, q, scale, strip=128),
+        lambda q: Q.qmm_plain(x8, q, scale, 4), qs, per + nbytes(x8, scale) + 8 * cout * 4,
+        [("scale left out", lambda: Q.int4_matmul(x8, q0, ones, strip=128))],
+        want=Q.qmm_plain(x8.float(), q0, scale, 4), rel_bound=GEMV_REL_BOUND)
+    xq = torch.randint(-127, 128, (1, cin), dtype=torch.int8, generator=g, device=dev)
+    rows["T2"] = _probe_row(
+        "T2 W4A8 qkv [1,5120]x[2560,15360] strip 32 split-K 2", lambda q: P.w4a8_preact(xq, q, scale, 32, 2),
+        lambda q: P.w4a8_preact_plain(xq, q, scale), qs, per + nbytes(xq, scale) + cout * 4,
+        [("one partial dropped", lambda: P.w4a8_preact(xq, q0, scale, 32, 2, _skip_split=1))],
+        rel_bound=W4A8_REL_BOUND)
+    rows["T3b"] = _probe_row(
+        "T3b single-cast GEMV qkv [8,5120]x[2560,15360] strip 256",
+        lambda q: P.int4_single_cast_matmul(x8, q, scale, 256), lambda q: P.int4_single_cast_matmul_plain(x8, q, scale),
+        qs, per + nbytes(x8, scale) + 8 * cout * 4,
+        [("scale left out", lambda: P.int4_single_cast_matmul(x8, q0, ones, 256))],
+        want=P.int4_single_cast_matmul_plain(x8.float(), q0, scale), rel_bound=GEMV_REL_BOUND)
+    del qs, q0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dcin, dcout = 13824, 5120        # the 13B down projection
+    qn = [(torch.randint(0, 256, (dcin, dcout // 2), dtype=torch.uint8, generator=g, device=dev),)
+          for _ in range(8)]
+    sn = torch.rand(1, dcout, generator=g, device=dev) * 0.01 + 0.001
+    x1 = torch.randn(1, dcin, generator=g, device=dev).to(torch.bfloat16)
+    rows["T4b"] = _probe_row(
+        "T4b K11 down [1,13824]x[13824,5120] strip 256", lambda q: Q.int4_native_matmul(x1, q, sn, strip=256),
+        lambda q: Q.int4_native_matmul_plain(x1, q, sn), qn, dcin * dcout // 2 + nbytes(x1, sn) + dcout * 4,
+        [("scale left out", lambda: Q.int4_native_matmul(x1, qn[0][0], torch.ones_like(sn), strip=256))],
+        want=Q.int4_native_matmul_plain(x1.float(), qn[0][0], sn), rel_bound=GEMV_REL_BOUND)
+    del qn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    every = torch.arange(256, dtype=torch.int32).to(torch.uint8).reshape(2, 128).to(dev)
+    rows["T3a"] = _probe_row(
+        "T3a nibble unpack, all 256 bytes [2,128] u8", P.unpack_nibbles, P.unpack_nibbles_plain,
+        [(every.clone(),) for _ in range(8)], every.numel() * 9,
+        [("nibbles swapped", lambda: P.unpack_nibbles(every, _fault=1)),
+         ("sign not extended", lambda: P.unpack_nibbles(every, _fault=2))])
+    # every int4 value, -8..7: the TPU probe's block (arange % 7) holds no
+    # negative one, so a cast that drops the sign would pass it
+    block = Q.pack_int4_native((torch.arange(128 * 128, device=dev).reshape(128, 128) % 16 - 8).to(torch.int8))
+    rows["T4a"] = _probe_row(
+        "T4a native cast [128,128] int4, every value -> bf16 x 2", P.native_cast, P.native_cast_plain,
+        [(block.clone(),) for _ in range(8)], block.numel() * 5,
+        [("nibbles swapped", lambda: P.native_cast(block, _fault=1)),
+         ("sign not extended", lambda: P.native_cast(block, _fault=2))])
+    return rows, launches, ceiling
 
 
 def _swap_nibbles(packed):
@@ -2140,7 +2290,10 @@ def main() -> int:
     results.update(phase_quant_kernels())
     results.update(phase_flash_train_kernels())
     results.update(phase_alibi_kernels())
+    probe_rows, probe_launches, ceiling = phase_probes()
+    results.update(probe_rows)
     launches = phase_main(args.steps, args.repeat)
+    launches.update(probe_launches)
     phase_reference()
     image = _caption_image()
     # each captioner kernel takes the launches of the mode whose path it serves
@@ -2178,6 +2331,14 @@ def main() -> int:
         "K11": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:555"),
         "K3-alibi": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:197"),
         "K4-alibi": ("cuda", "supir_tpu_torch/csrc/flash_attn_bwd.cu", "supir_tpu/ops/flash_attention.py:481"),
+        "T1a": ("cuda", "supir_tpu_torch/csrc/probes.cu", "tools/stream_ceiling.py:48"),
+        "T1b": ("cuda", "supir_tpu_torch/csrc/probes.cu", "tools/stream_ceiling.py:99"),
+        "T1c": ("cuda", "supir_tpu_torch/csrc/gemv_sweep.cu", "tools/stream_ceiling.py:162"),
+        "T2": ("cuda", "supir_tpu_torch/csrc/gemv_sweep.cu", "tools/gemv_sweep.py:48"),
+        "T3a": ("cuda", "supir_tpu_torch/csrc/probes.cu", "tools/bitcast_probe.py:33"),
+        "T3b": ("cuda", "supir_tpu_torch/csrc/probes.cu", "tools/bitcast_probe.py:63"),
+        "T4a": ("cuda", "supir_tpu_torch/csrc/probes.cu", "tools/int4_native_probe.py:46"),
+        "T4b": ("cuda", "supir_tpu_torch/csrc/gemv_sweep.cu", "tools/int4_native_probe.py:58"),
     }
     # where each kernel's times were taken
     at = {"K1": "[2,4096,10,64] bf16", "K2": "[2,320,128,128] bf16, SiLU",
@@ -2187,7 +2348,11 @@ def main() -> int:
           "K5-act": "one 13B layer, act_int8, 1 row", "K9": "one 13B layer's two pairs, 1 row",
           "K10": "one 13B layer, 1 row", "K11": "one 13B layer, 1 row",
           "K3-alibi": "[1,2048,32,128] bf16 causal, with lse (the MPT-7B gradient's forward)",
-          "K4-alibi": "[1,2048,32,128] bf16 causal, dq dk dv"}
+          "K4-alibi": "[1,2048,32,128] bf16 causal, dq dk dv",
+          "T1a": "u8 [2560,15360], strip 512", "T1b": "u8 [2560,15360], 1280x1920 blocks",
+          "T1c": "K7 int4 [8,5120]x[2560,15360], strip 128", "T2": "W4A8 qkv, 1 row, strip 32, split-K 2",
+          "T3a": "u8 [2,128], all 256 bytes", "T3b": "qkv, 8 rows, strip 256",
+          "T4a": "int4 [128,128], every value -8..7", "T4b": "K11 down [1,13824]x[13824,5120], strip 256"}
     kernels = []
     for name, (route, source, replaces) in sources.items():
         r = results[name]
@@ -2200,6 +2365,13 @@ def main() -> int:
         })
         if not launches[name] > 0:
             raise AssertionError(f"{name} was never launched on its path")
+    # each bytes-bound row's read rate (its bound's bytes over its time) as a
+    # share of the streaming ceiling that [probes] measured in this run
+    for k in kernels:
+        if k["bound_by"] == "bytes":
+            rate = k["bound_ms"] / k["ms"] * HBM_BYTES_PER_S / 1e9
+            log(f"[ceiling] {k['name']} ({k['at']}): {rate:.1f} GB/s, {rate / ceiling['gb_per_s']:.1%} of the "
+                f"measured {ceiling['gb_per_s']:.1f} GB/s, {rate * 1e9 / HBM_BYTES_PER_S:.1%} of 3.35 TB/s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -386,11 +386,15 @@ def create_captioner(cfg: Optional[CaptionerConfig] = None, device="cuda", bits:
     gate-up, with the glue folded into K5 unless `fused_glue` is False,
     then K6); 8 is --load_8bit_llava (K8 at load, K7 in decode).
     state_dict: weights under HF LLaVA keys (e.g. from
-    utils/weights.captioner_state_dict_from_jax), unquantized and then
-    quantized here in the layout cfg.llama selects, or already quantized;
-    None draws random weights on the device from `seed`. stochastic: K8
+    utils/weights.captioner_state_dict_from_jax, or a reference checkpoint:
+    utils/weights.convert_llava_state_dict drops the keys the port's tree
+    leaves unused, such as the vision tower's post_layernorm), unquantized
+    and then quantized here in the layout cfg.llama selects, or already
+    quantized; None draws random weights on the device from `seed`. stochastic: K8
     rounds the int8 weights stochastically, as the TPU kernel does; False
     rounds to nearest, as the JAX package does off the TPU."""
+    from supir_tpu_torch.utils.weights import convert_llava_state_dict
+
     device = resolve_device(device)
     if cfg is None:
         cfg = dataclasses.replace(CaptionerConfig(), compute_dtype="bfloat16", kv_dtype="bfloat16")
@@ -407,6 +411,7 @@ def create_captioner(cfg: Optional[CaptionerConfig] = None, device="cuda", bits:
     if state_dict is None:
         _init_random(model, cfg, torch.Generator(device=device).manual_seed(seed), seed, stochastic)
     else:
+        state_dict, _ = convert_llava_state_dict(state_dict, cfg)
         model.load_state_dict(_quantize_at_load(state_dict, cfg.llama, seed, stochastic), strict=True)
     model.eval().requires_grad_(False)
     return CaptionerAgent(cfg, model, tokenizer=tokenizer)

@@ -47,244 +47,19 @@
 // reads 4 bytes (8 columns) per load where the others read 8, so a 32-byte
 // sector of its rows is shared by two neighbouring blocks. No wgmma, TMA or
 // cp.async yet: a simple right kernel first.
+//
+// The kernels' bodies (gemv_kernel, w4a8_kernel) live in quant_gemv.cuh with
+// the strip width and K10's split-K count as template parameters; this file
+// holds the instances the model paths run (strip 32, no split) and their
+// launch. csrc/gemv_sweep.cu instantiates the other geometries for the
+// decode-GEMV probes, in a translation unit of its own so that this one,
+// the slowest to build, does not grow.
 
 #include "quant_gemv.cuh"
 
 using namespace qgemv;
 
 namespace {
-
-template <int MODE, int BT, int PRO, bool RESIDUAL>
-__global__ void __launch_bounds__(THREADS)
-gemv_kernel(const bf16* __restrict__ x, int ldx, const float* __restrict__ gamma, float eps,
-            const uint8_t* __restrict__ w, const float* __restrict__ scale,
-            const float* __restrict__ residual, float* __restrict__ out,
-            int B, int cin, int cout) {
-  __shared__ __align__(16) float xs[Chunk<MODE, BT>::FLOATS];
-  __shared__ float red[WARPS * BT * STRIP];
-  __shared__ float rstd[BT];
-
-  const int b0 = blockIdx.y * BT;
-  const int nb = min(BT, B - b0);                     // rows of this tile
-  const bf16* xt = x + (size_t)b0 * ldx;
-
-  if (PRO == PRO_NORM) {
-    float ss[BT];
-#pragma unroll
-    for (int b = 0; b < BT; ++b) ss[b] = 0.f;
-    for (int k = threadIdx.x; k < cin; k += THREADS)
-#pragma unroll
-      for (int b = 0; b < BT; ++b)
-        if (b < nb) {
-          const float v = __bfloat162float(xt[(size_t)b * ldx + k]);
-          ss[b] = fmaf(v, v, ss[b]);
-        }
-    block_sum<BT>(ss, red, rstd);
-    if (threadIdx.x < BT) rstd[threadIdx.x] = rsqrtf(rstd[threadIdx.x] / (float)cin + eps);
-    // strip_dot's first __syncthreads publishes rstd
-  }
-
-  float acc[BT][8];
-  if (PRO == PRO_NORM)
-    strip_dot<MODE, BT>(ActNorm{xt, ldx, gamma, rstd}, nb, w, cin, cout, blockIdx.x, xs, acc);
-  else if (PRO == PRO_SILUGLU)
-    strip_dot<MODE, BT>(ActSiluGlu{xt, ldx, cin}, nb, w, cin, cout, blockIdx.x, xs, acc);
-  else
-    strip_dot<MODE, BT>(ActPlain{xt, ldx}, nb, w, cin, cout, blockIdx.x, xs, acc);
-  strip_store<BT, RESIDUAL>(acc, red, nb, b0, blockIdx.x, scale, residual, out, cout);
-}
-
-// ---------------------------------------------------------------- W4A8
-
-constexpr int QUNROLL = 4;                   // quads (two packed rows) in flight per thread: 4 x 16 bytes
-constexpr int QBATCH = KGROUPS * QUNROLL;    // quads per load batch
-constexpr int XQ_WORDS = 8192;               // 32 KB of staged int8 activations, 4 to a word
-
-// the four signed bytes (k = 4q .. 4q+3) of one column from its bytes in
-// packed rows 2q (a, low byte lane `sel`) and 2q+1 (b)
-__device__ __forceinline__ int quad_weights(uint32_t a, uint32_t b, uint32_t lane) {
-  const uint32_t u = __byte_perm(a, b, lane | ((lane + 4u) << 8));   // byte 0 = a's, byte 2 = b's
-  const uint32_t v = (u & 0x000F000Fu) | ((u << 4) & 0x0F000F00u);   // nibbles a_lo, a_hi, b_lo, b_hi
-  return (int)__vsub4(v ^ 0x08080808u, 0x08080808u);                 // sign-extend each byte
-}
-
-// K5's prologue in fp32, without rounding: what act_int8 quantizes
-template <int PRO>
-__device__ __forceinline__ float prologue_f32(const bf16* xr, int k, int cin, const float* gamma, float rstd) {
-  const float v = __bfloat162float(xr[k]);
-  if (PRO == PRO_NORM) return (v * rstd) * gamma[k];
-  if (PRO == PRO_SILUGLU) return silu_glu(v, __bfloat162float(xr[k + cin]));
-  return v;
-}
-
-template <int BT, int PRO, bool RESIDUAL, bool QIN>
-__global__ void __launch_bounds__(THREADS)
-w4a8_kernel(const void* __restrict__ xin, int ldx, const float* __restrict__ xsc,
-            const float* __restrict__ gamma, float eps,
-            const uint8_t* __restrict__ w, const float* __restrict__ scale,
-            const float* __restrict__ residual, float* __restrict__ out,
-            int B, int cin, int cout) {
-  constexpr int QROWS = (XQ_WORDS / BT) / QBATCH * QBATCH;   // quads per chunk
-  static_assert(QROWS >= QBATCH, "a chunk holds at least one load batch");
-  __shared__ int xq[BT * QROWS];
-  __shared__ int red[WARPS][BT][STRIP];
-  __shared__ float fred[WARPS * BT];
-  __shared__ float rstd[BT], mul[BT], rowscale[BT];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int ct = lane % COL_THREADS;
-  const int kg = tid / COL_THREADS;
-  const int c0 = blockIdx.x * STRIP + ct * 8;
-  const int b0 = blockIdx.y * BT;
-  const int nb = min(BT, B - b0);
-  const bool col_ok = c0 < cout;
-  const int nquads = cin / 4;
-  const bf16* x = static_cast<const bf16*>(xin) + (size_t)b0 * ldx;
-  const int8_t* xq_in = static_cast<const int8_t*>(xin) + (size_t)b0 * ldx;
-
-  if (QIN) {
-    if (tid < BT) rowscale[tid] = tid < nb ? xsc[b0 + tid] * (1.f / 127.f) : 0.f;
-  } else {
-    if (PRO == PRO_NORM) {
-      float ss[BT];
-#pragma unroll
-      for (int b = 0; b < BT; ++b) ss[b] = 0.f;
-      for (int k = tid; k < cin; k += THREADS)
-#pragma unroll
-        for (int b = 0; b < BT; ++b)
-          if (b < nb) {
-            const float v = __bfloat162float(x[(size_t)b * ldx + k]);
-            ss[b] = fmaf(v, v, ss[b]);
-          }
-      block_sum<BT>(ss, fred, rstd);
-      if (tid < BT) rstd[tid] = rsqrtf(rstd[tid] / (float)cin + eps);
-      __syncthreads();
-    }
-    // each row's absmax of the fp32 prologue output
-    float mx[BT];
-#pragma unroll
-    for (int b = 0; b < BT; ++b) mx[b] = 0.f;
-    for (int k = tid; k < cin; k += THREADS)
-#pragma unroll
-      for (int b = 0; b < BT; ++b)
-        if (b < nb)
-          mx[b] = fmaxf(mx[b], fabsf(prologue_f32<PRO>(x + (size_t)b * ldx, k, cin, gamma,
-                                                        PRO == PRO_NORM ? rstd[b] : 0.f)));
-#pragma unroll
-    for (int b = 0; b < BT; ++b) {
-      float m = mx[b];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      if (lane == 0) fred[warp * BT + b] = m;
-    }
-    __syncthreads();
-    if (tid < BT) {
-      float m = 0.f;
-#pragma unroll
-      for (int wi = 0; wi < WARPS; ++wi) m = fmaxf(m, fred[wi * BT + tid]);
-      const float xs = fmaxf(m, 1e-6f);
-      mul[tid] = 127.f / xs;
-      rowscale[tid] = xs * (1.f / 127.f);
-    }
-    // the staging loop's first __syncthreads publishes mul and rowscale
-  }
-
-  int acc[BT][8];
-#pragma unroll
-  for (int b = 0; b < BT; ++b)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[b][j] = 0;
-
-  for (int qc0 = 0; qc0 < nquads; qc0 += QROWS) {
-    const int rows = min(QROWS, nquads - qc0);
-    __syncthreads();  // every thread is done with the previous chunk
-    for (int i = tid; i < BT * QROWS; i += THREADS) {
-      const int b = i / QROWS;
-      const int r = i % QROWS;
-      int word = 0;
-      if (b < nb && r < rows) {
-        const int k0 = 4 * (qc0 + r);
-        if (QIN) {
-          word = *reinterpret_cast<const int*>(xq_in + (size_t)b * ldx + k0);
-        } else {
-          const bf16* xr = x + (size_t)b * ldx;
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            const float v = prologue_f32<PRO>(xr, k0 + t, cin, gamma, PRO == PRO_NORM ? rstd[b] : 0.f);
-            const int q = max(-127, min(127, __float2int_rn(v * mul[b])));
-            word |= (q & 0xFF) << (8 * t);
-          }
-        }
-      }
-      xq[i] = word;
-    }
-    __syncthreads();
-
-    for (int r0 = 0; r0 < rows; r0 += QBATCH) {
-      uint2 wa[QUNROLL], wb[QUNROLL];
-#pragma unroll
-      for (int u = 0; u < QUNROLL; ++u) {
-        const int qd = qc0 + r0 + u * KGROUPS + kg;
-        wa[u] = wb[u] = make_uint2(0u, 0u);   // decodes to zero weights
-        if (col_ok && qd < nquads) {
-          const uint8_t* src = w + (size_t)(2 * qd) * cout + c0;
-          wa[u] = __ldg(reinterpret_cast<const uint2*>(src));
-          wb[u] = __ldg(reinterpret_cast<const uint2*>(src + cout));
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < QUNROLL; ++u) {
-        const int r = r0 + u * KGROUPS + kg;  // < QROWS: QROWS is a multiple of QBATCH
-        int wq[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          wq[j] = quad_weights(j < 4 ? wa[u].x : wa[u].y, j < 4 ? wb[u].x : wb[u].y, j % 4);
-#pragma unroll
-        for (int b = 0; b < BT; ++b) {
-          const int xw = xq[b * QROWS + r];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[b][j] = __dp4a(xw, wq[j], acc[b][j]);
-        }
-      }
-    }
-  }
-
-  // sum the 8 k-groups of each warp that share a column thread, exactly
-#pragma unroll
-  for (int b = 0; b < BT; ++b)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      int v = acc[b][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[b][j] = v;
-    }
-  if (lane < COL_THREADS) {
-#pragma unroll
-    for (int b = 0; b < BT; ++b)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) red[warp][b][ct * 8 + j] = acc[b][j];
-  }
-  __syncthreads();
-
-  for (int i = tid; i < BT * STRIP; i += THREADS) {
-    const int b = i / STRIP;
-    const int col = i % STRIP;
-    const int row = b0 + b;
-    const int c = blockIdx.x * STRIP + col;
-    if (b >= nb || c >= cout) continue;
-    int total = 0;
-#pragma unroll
-    for (int wi = 0; wi < WARPS; ++wi) total += red[wi][b][col];
-    float s = (float)total;
-    s = QIN ? (s * scale[c]) * rowscale[b] : (s * rowscale[b]) * scale[c];
-    if (RESIDUAL) s += residual[(size_t)row * cout + c];
-    out[(size_t)row * cout + c] = s;
-  }
-}
 
 // ---------------------------------------------------------------- launch
 
@@ -330,7 +105,7 @@ template <int BT, int PRO, bool RES, bool QIN>
 cudaError_t launch_w4a8(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.cout + STRIP - 1) / STRIP, (a.B + BT - 1) / BT);
   w4a8_kernel<BT, PRO, RES, QIN><<<grid, THREADS, 0, stream>>>(
-      a.x, a.ldx, a.xs, a.gamma, a.eps, a.w, a.scale, a.residual, a.out, a.B, a.cin, a.cout);
+      a.x, a.ldx, a.xs, a.gamma, a.eps, a.w, a.scale, a.residual, a.out, a.B, a.cin, a.cout, nullptr, -1);
   return cudaGetLastError();
 }
 

@@ -28,6 +28,16 @@ K5-K7, K10 and K11 are `csrc/quant_gemv.cu`, K8 is `csrc/quantize_int8.cu`,
 K9 `csrc/quant_pair.cu`; their headers say what bounds them on the card and
 how they are laid out.
 
+Launch geometry: `qmm` (K7, half-split int4), `int4_native_matmul` (K11)
+and `int4_w4a8_matmul` (K10) take `strip=`, the output columns per block
+(32, the default, or 64, 128, 256), and K10 also `split_k=` (1, the
+default, 2 or 4 slices of the contraction summed exactly in int32). The
+default is the geometry the model paths run (`csrc/quant_gemv.cu`); the
+others are instances in `csrc/gemv_sweep.cu` for the decode-GEMV probes
+(`supir_tpu_torch/tools/`). On a CPU tensor the keywords change nothing; on
+a CUDA tensor a geometry that was not built raises. Launches at a
+non-default geometry are counted also in `geometry_launches`.
+
 Routing follows the JAX functions: an activation of at most `DECODE_ROWS`
 rows (decode) goes to the kernel; more rows (prefill) go to the plain
 version, dequantize then one fp32 matmul, as the JAX package leaves that
@@ -54,6 +64,10 @@ import torch
 _GEMV_SOURCE = "quant_gemv.cu"
 _QUANT_SOURCE = "quantize_int8.cu"
 _PAIR_SOURCE = "quant_pair.cu"
+_SWEEP_SOURCE = "gemv_sweep.cu"
+STRIP = 32                     # output columns per block on the model paths
+GEMV_STRIPS = (32, 64, 128, 256)
+W4A8_SPLITS = (1, 2, 4)
 DECODE_ROWS = 32  # the largest activation the TPU functions send to a kernel
 _MODES = {"paired": 0, "half": 1, "int8": 2, "native": 3}
 
@@ -282,7 +296,28 @@ def _quant_library() -> ctypes.CDLL:
     return lib
 
 
-SOURCES = (_GEMV_SOURCE, _QUANT_SOURCE, _PAIR_SOURCE)  # for cuda_build.build_all
+def _sweep_library() -> ctypes.CDLL:
+    from supir_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library(_SWEEP_SOURCE)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.supir_qgemv_geo.restype = i
+    lib.supir_qgemv_geo.argtypes = [p, i, p, p, p, i, i, i, i, i, p]
+    lib.supir_qgemv_w4a8_geo.restype = i
+    lib.supir_qgemv_w4a8_geo.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, p]
+    return lib
+
+
+SOURCES = (_GEMV_SOURCE, _QUANT_SOURCE, _PAIR_SOURCE, _SWEEP_SOURCE)  # for cuda_build.build_all
+
+
+def check_geometry(strip: int, split_k: int = 1) -> bool:
+    """Raise on a launch geometry that no instance was built for; return
+    whether it is a non-default one."""
+    if strip not in GEMV_STRIPS or split_k not in W4A8_SPLITS:
+        raise ValueError(f"no GEMV instance at strip {strip}, split-K {split_k}: strips {GEMV_STRIPS}, "
+                         f"split-K {W4A8_SPLITS}")
+    return (strip, split_k) != (STRIP, 1)
 
 
 def _stream(device) -> int:
@@ -330,9 +365,11 @@ def _gamma_residual(gamma, residual, cin: int, rows: int, cout: int):
 
 
 def _launch_gemv(x, w, scale, mode: str, cin: int, gamma=None, eps: float = 1e-6,
-                 prologue: int = 0, residual=None) -> torch.Tensor:
+                 prologue: int = 0, residual=None, strip: int = STRIP) -> torch.Tensor:
     """One launch of `csrc/quant_gemv.cu` over x [B, cin] (or [B, 2 cin] with
-    the SiLU-GLU prologue) bf16; returns [B, cout] fp32."""
+    the SiLU-GLU prologue) bf16, or of `csrc/gemv_sweep.cu` at another strip
+    (half-split and native int4, no prologue, no residual); returns
+    [B, cout] fp32."""
     cout = 2 * w.shape[-1] if mode == "native" else w.shape[-1]
     _check_activation(x, 2 * cin if prologue == 2 else cin)
     if cin % 2 or cout % 8:
@@ -343,6 +380,17 @@ def _launch_gemv(x, w, scale, mode: str, cin: int, gamma=None, eps: float = 1e-6
     _check_on_card("the GEMV kernels", x, (("weights", w), ("scale", scale), ("gamma", gamma),
                                            ("residual", residual)))
     out = torch.empty((x.shape[0], cout), dtype=torch.float32, device=x.device)
+    if strip != STRIP:
+        if mode not in ("half", "native") or prologue or residual is not None:
+            raise ValueError(f"strip {strip} is built for the half-split and native GEMVs without prologue "
+                             f"or residual, not {mode} with prologue {prologue}")
+        with torch.cuda.device(x.device):
+            err = _sweep_library().supir_qgemv_geo(
+                x.data_ptr(), x.stride(0), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                x.shape[0], cin, cout, _MODES[mode], strip, _stream(x.device))
+        if err != 0:
+            raise RuntimeError(f"GEMV kernel launch failed ({mode}, strip {strip}): cudaError {err}")
+        return out
     with torch.cuda.device(x.device):
         err = _gemv_library().supir_qgemv(
             x.data_ptr(), x.stride(0), _ptr(gamma), float(eps), prologue,
@@ -355,11 +403,13 @@ def _launch_gemv(x, w, scale, mode: str, cin: int, gamma=None, eps: float = 1e-6
 
 
 def _launch_w4a8(x, xs, packed, scale, gamma=None, eps: float = 1e-6, prologue: int = 0,
-                 residual=None) -> torch.Tensor:
+                 residual=None, strip: int = STRIP, split_k: int = 1, skip_split: int = -1) -> torch.Tensor:
     """One launch of the W4A8 GEMV of `csrc/quant_gemv.cu`: x int8 [B, cin]
     with its row scales xs fp32 [B, 1] (K10), or x bf16 [B, cin] (or
     [B, 2 cin]) that the kernel runs through the prologue and quantizes
-    itself (K5's act_int8 mode, xs None); returns [B, cout] fp32."""
+    itself (K5's act_int8 mode, xs None); returns [B, cout] fp32. Another
+    strip or split-K (K10's form only) launches `csrc/gemv_sweep.cu`;
+    `skip_split` leaves one slice out, for planted faults only."""
     cin, cout = 2 * packed.shape[0], packed.shape[1]
     quantized = xs is not None
     _check_activation(x, 2 * cin if prologue == 2 else cin, torch.int8 if quantized else torch.bfloat16)
@@ -372,6 +422,19 @@ def _launch_w4a8(x, xs, packed, scale, gamma=None, eps: float = 1e-6, prologue: 
     _check_on_card("the W4A8 kernel", x, (("xs", xs), ("weights", packed), ("scale", scale), ("gamma", gamma),
                                           ("residual", residual)))
     out = torch.empty((x.shape[0], cout), dtype=torch.float32, device=x.device)
+    if (strip, split_k) != (STRIP, 1):
+        if not quantized or prologue or residual is not None:
+            raise ValueError("another W4A8 geometry is built for K10's form only: int8 x with its scales, "
+                             "no prologue, no residual")
+        # split-K's slices add their exact int32 sums here, in any order
+        acc = torch.zeros((x.shape[0], cout), dtype=torch.int32, device=x.device) if split_k > 1 else None
+        with torch.cuda.device(x.device):
+            err = _sweep_library().supir_qgemv_w4a8_geo(
+                x.data_ptr(), x.stride(0), xs.data_ptr(), packed.data_ptr(), scale.data_ptr(), _ptr(acc),
+                out.data_ptr(), x.shape[0], cin, cout, strip, split_k, skip_split, _stream(x.device))
+        if err != 0:
+            raise RuntimeError(f"W4A8 kernel launch failed (strip {strip}, split-K {split_k}): cudaError {err}")
+        return out
     with torch.cuda.device(x.device):
         err = _gemv_library().supir_qgemv_w4a8(
             x.data_ptr(), x.stride(0), _ptr(xs), int(quantized), _ptr(gamma), float(eps), prologue,
@@ -412,16 +475,21 @@ def int4_paired_matmul(x, packed, scale):
     return out
 
 
-def qmm(x, q, scale, bits: int):
+def qmm(x, q, scale, bits: int, strip: int = STRIP):
     """K7: x [B, cin] @ dequant(q) * scale -> [B, cout] fp32, q int8
-    [cin, cout] (bits 8) or half-split uint8 [cin/2, cout] (bits 4)."""
+    [cin, cout] (bits 8) or half-split uint8 [cin/2, cout] (bits 4); the
+    half-split instance also at another `strip` (T1c's sweep)."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
+    other = check_geometry(strip)
+    if bits == 8 and other:
+        raise ValueError(f"K7's int8 instance is built at strip {STRIP} only")
     if x.device.type == "cpu" or x.shape[0] > DECODE_ROWS:
         return qmm_plain(x, q, scale, bits)
     cin = q.shape[0] if bits == 8 else 2 * q.shape[0]
-    out = _launch_gemv(x, q, scale, "int8" if bits == 8 else "half", cin)
+    out = _launch_gemv(x, q, scale, "int8" if bits == 8 else "half", cin, strip=strip)
     qmm.launches += 1
+    qmm.geometry_launches += other
     return out
 
 
@@ -429,27 +497,33 @@ def int8_matmul(x, q, scale):
     return qmm(x, q, scale, 8)
 
 
-def int4_w4a8_matmul(x, packed, scale):
+def int4_w4a8_matmul(x, packed, scale, strip: int = STRIP, split_k: int = 1):
     """K10: x [B, cin] float @ dequant(packed, adjacent pairs) -> [B, cout]
     fp32 through per-row int8 activations; see int4_w4a8_matmul_plain. The
     activation quantizer runs as torch ops before the launch, as XLA runs
     it outside the TPU kernel (quantize.py:227); the kernel applies the
-    weight scales and then the row scales xs / 127."""
+    weight scales and then the row scales xs / 127, at `strip` columns per
+    block and `split_k` slices of the contraction."""
+    other = check_geometry(strip, split_k)
     if x.device.type == "cpu" or x.shape[0] > DECODE_ROWS:
         return int4_w4a8_matmul_plain(x, packed, scale)
     xq, xs = quantize_act_int8(x)
-    out = _launch_w4a8(xq, xs, packed, scale)
+    out = _launch_w4a8(xq, xs, packed, scale, strip=strip, split_k=split_k)
     int4_w4a8_matmul.launches += 1
+    int4_w4a8_matmul.geometry_launches += other
     return out
 
 
-def int4_native_matmul(x, packed, scale):
+def int4_native_matmul(x, packed, scale, strip: int = STRIP):
     """K11: x [B, cin] bf16 @ dequant(packed, column pairs) * scale ->
-    [B, cout] fp32; packed uint8 [cin, cout/2] from quantize_int4_native."""
+    [B, cout] fp32; packed uint8 [cin, cout/2] from quantize_int4_native;
+    at `strip` columns per block (T4b runs 256)."""
+    other = check_geometry(strip)
     if x.device.type == "cpu" or x.shape[0] > DECODE_ROWS:
         return int4_native_matmul_plain(x, packed, scale)
-    out = _launch_gemv(x, packed, scale, "native", packed.shape[0])
+    out = _launch_gemv(x, packed, scale, "native", packed.shape[0], strip=strip)
     int4_native_matmul.launches += 1
+    int4_native_matmul.geometry_launches += other
     return out
 
 
@@ -502,8 +576,8 @@ def int4_paired_fused_pair(x, qp1, sc1, residual, gamma, qp2, sc2, *, siluglu1: 
     return small, big
 
 
-def int4_matmul(x, packed, scale):
-    return qmm(x, packed, scale, 4)
+def int4_matmul(x, packed, scale, strip: int = STRIP):
+    return qmm(x, packed, scale, 4, strip)
 
 
 def quantize_int8(w: torch.Tensor, seed: int = 0, stochastic: bool = True):
@@ -539,7 +613,10 @@ int4_paired_fused_matmul.launches = 0
 int4_paired_fused_matmul.act_int8_launches = 0
 int4_paired_matmul.launches = 0
 int4_w4a8_matmul.launches = 0
+int4_w4a8_matmul.geometry_launches = 0
 int4_native_matmul.launches = 0
+int4_native_matmul.geometry_launches = 0
 int4_paired_fused_pair.launches = 0
 qmm.launches = 0
+qmm.geometry_launches = 0
 quantize_int8.launches = 0

@@ -30,6 +30,12 @@ fills the LayerNorm biases that the no_bias family (mpt-7b) strips with
 zeros and reports every other key that is missing or unused, as
 `supir_tpu/captioner/convert.py:convert_mpt_state_dict` (:127-152) does.
 
+`convert_llava_state_dict` takes a reference LLaVA state dict (HF keys, as
+`supir_tpu/data/ref_key_manifests.json["llava"]` lists them) to the port's
+tree: it drops the keys that the JAX converter also leaves unused
+(`supir_tpu/captioner/convert.py:84,151`) and the port's `LlavaForCausalLM`
+does not hold, and reports them.
+
 `train_state_from_jax` carries a JAX trainer state (params, optax's AdamW
 mu and nu, the EMA and the step) into the port's trainer state by the same
 rules: the transforms are linear, so they serve the moments and the EMA as
@@ -232,4 +238,37 @@ def convert_mpt_state_dict(torch_sd: Mapping[str, Any], cfg) -> Tuple[Dict[str, 
             continue
         report.filled += 1
     report.unused = sorted(k for k in torch_sd if k not in sd)
+    return sd, report
+
+
+# keys of a reference LLaVA checkpoint that no rule of the JAX converter reads
+# (the allowlist of tests/test_ckpt_manifest.py:186-196) and that the port's
+# tree may lack
+LLAVA_UNUSED_SUFFIXES = (
+    "vision_model.post_layernorm.weight",   # applied after the hidden layer the features come from
+    "vision_model.post_layernorm.bias",
+    ".position_ids",                         # buffers of the reference's modules, not weights
+    "rotary_emb.inv_freq",
+)
+
+
+def convert_llava_state_dict(torch_sd: Mapping[str, Any], cfg) -> Tuple[Dict[str, Any], ConversionReport]:
+    """A reference LLaVA state dict -> (the port's state dict, report) for
+    `LlavaForCausalLM(cfg)` (cfg: a CaptionerConfig). Keys that end in one
+    of LLAVA_UNUSED_SUFFIXES and that the port's tree does not hold are
+    dropped and listed in `report.unused`; every other key passes as it is,
+    so a strict load still refuses any other stray key."""
+    from supir_tpu_torch.captioner.agent import LlavaForCausalLM
+
+    with torch.device("meta"):
+        held = set(LlavaForCausalLM(cfg).state_dict())
+    report = ConversionReport()
+    sd: Dict[str, Any] = {}
+    for key, value in torch_sd.items():
+        if key not in held and key.endswith(LLAVA_UNUSED_SUFFIXES):
+            report.unused.append(key)
+        else:
+            sd[key] = value
+    report.filled = len(sd)
+    report.unused.sort()
     return sd, report

@@ -1,0 +1,567 @@
+"""The decode-GEMV probes' kernels (supir_tpu_torch/ops/probes.py, T1-T4) and
+the geometry keywords of ops/quantize.py against the JAX probes in tools/
+on the CPU, the probes' entry points, the LLaVA loader's conversion of
+reference keys, and the kernels against their plain versions on the card.
+
+The JAX probes are loaded from their files (tools/ is no package). Their
+Pallas kernels run in interpret mode: through a pallas_call built here with
+the tool's own BlockSpecs and interpret=True, or through the tool's own
+function with its module's `pl` replaced by a copy whose pallas_call
+interprets. The closures `sum2d_kernel` (inside stream_ceiling.main) and `k`
+(inside int4_native_probe.stage2_mosaic) are reached by running those
+functions with a pallas_call that records the kernel it is handed.
+
+Tolerances:
+- column sum, nibble unpack, native cast: bit for bit (integers, and small
+  integers times 2 in bf16);
+- W4A8 before the activation scale: 1e-6 relative (exact integer sums, one
+  rounded scale multiply on each side);
+- single-cast GEMV, native GEMV, K7 at a forced width: relative L2 1e-5 (the
+  same exact products summed in another order).
+On the card the kernels are held to their plain versions: the bit-exact
+ones bit for bit, the GEMVs by relative L2 1e-2 (K10's body 1e-6), with
+planted faults that must break the bound.
+JAX is imported inside the parity tests only, so the `gpu` tests also run on
+a machine without it:
+python -m pytest --noconftest tests/test_torch_probes.py -m gpu -q
+"""
+
+import functools
+import importlib
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from supir_tpu_torch.ops import probes as P
+from supir_tpu_torch.ops import quantize as Q
+
+ROOT = Path(__file__).resolve().parents[1]
+PROBES = ("stream_ceiling", "gemv_sweep", "bitcast_probe", "int4_native_probe")
+REL_1E5 = 1e-5
+W4A8_REL = 1e-6
+CARD_REL_BOUND = 1e-2
+
+
+def _tool(name):
+    """The JAX probe tools/<name>.py as a module."""
+    spec = importlib.util.spec_from_file_location(f"jax_tool_{name}", ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _interpreting_pl(record=None):
+    """A stand-in for a tool's `pl`: the real module's names, with a
+    pallas_call that runs in interpret mode (and hands each kernel to
+    `record` first)."""
+    from jax.experimental import pallas as pl
+
+    def pallas_call(kernel, **kw):
+        if record is not None:
+            record.append(kernel)
+        return pl.pallas_call(kernel, interpret=True, **kw)
+
+    names = {n: getattr(pl, n) for n in dir(pl) if not n.startswith("_")}
+    return types.SimpleNamespace(**dict(names, pallas_call=pallas_call))
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+def _bytes(seed, *shape):
+    return np.random.default_rng(seed).integers(0, 256, shape).astype(np.uint8)
+
+
+# ------------------------------------------------------------ T1: column sum
+
+
+@pytest.fixture(scope="module")
+def sum2d_kernel():
+    """stream_ceiling.main's sum2d_kernel closure, recorded by running main
+    at a small CIN/COUT/L with a pallas_call that records and refuses (main
+    catches that and goes on, as it does for a grid that does not fit)."""
+    mod = _tool("stream_ceiling")
+    recorded = []
+
+    def refuse(kernel, **kw):
+        recorded.append(kernel)
+        raise RuntimeError("recorded")
+
+    real = _interpreting_pl()
+    mod.pl = types.SimpleNamespace(**vars(real))
+    mod.pl.pallas_call = refuse
+    mod.CIN, mod.COUT, mod.L = 256, 512, 1
+    mod.main()
+    mod.pl = real
+    kernels = [k for k in recorded if getattr(k, "__name__", None) == "sum2d_kernel"]
+    assert len(kernels) == 4  # one closure per (brow, bout) pair of main
+    return mod, kernels[0]
+
+
+@pytest.mark.parametrize("brow,bout", [(16, 128), (32, 64)])
+def test_column_sum_matches_sum2d_kernel(sum2d_kernel, brow, bout):
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    mod, kernel = sum2d_kernel
+    q = _bytes(0, 64, 256)
+    rows, cout = q.shape
+    want = pl.pallas_call(
+        kernel,
+        grid=(cout // bout, rows // brow),
+        in_specs=[pl.BlockSpec((brow, bout), lambda oo, ii: (ii, oo))],
+        out_specs=pl.BlockSpec((1, bout), lambda oo, ii: (0, oo)),
+        out_shape=jax.ShapeDtypeStruct((1, cout), jnp.float32),
+        interpret=True,
+    )(jnp.asarray(q))
+    qt = torch.from_numpy(q)
+    np.testing.assert_array_equal(P.column_sum_2d(qt, brow, bout).numpy(), np.asarray(want))
+    np.testing.assert_array_equal(P.column_sum(qt).numpy(), np.asarray(want))
+
+
+def _sum_kernel_call(q, bout):
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    mod = _tool("stream_ceiling")
+    rows, cout = q.shape
+    return np.asarray(pl.pallas_call(
+        mod.sum_kernel,
+        grid=(cout // bout,),
+        in_specs=[pl.BlockSpec((rows, bout), lambda oo: (0, oo))],
+        out_specs=pl.BlockSpec((1, bout), lambda oo: (0, oo)),
+        out_shape=jax.ShapeDtypeStruct((1, cout), jnp.float32),
+        interpret=True,
+    )(jnp.asarray(q)))
+
+
+def test_column_sum_matches_sum_kernel_at_one_block():
+    q = _bytes(1, 64, 256)
+    want = _sum_kernel_call(q, 256)
+    np.testing.assert_array_equal(P.column_sum(torch.from_numpy(q), strip=256).numpy(), want)
+
+
+def test_sum_kernel_defect_leaves_later_blocks_uninitialised():
+    """The reference probe's defect, not the port's: sum_kernel zeroes its
+    output only at grid step 0, so each later output block accumulates onto
+    memory it never initialised (NaN in interpret mode). The first block is
+    the column sum; the others are not."""
+    q = _bytes(2, 64, 256)
+    got = _sum_kernel_call(q, 128)
+    want = P.column_sum(torch.from_numpy(q)).numpy()
+    np.testing.assert_array_equal(got[:, :128], want[:, :128])
+    assert np.isnan(got[:, 128:]).all()
+
+
+# ------------------------------------------------------- T3: order, GEMV
+
+
+def test_unpack_matches_order_kernel_on_every_byte():
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    mod = _tool("bitcast_probe")
+    q = np.arange(256, dtype=np.int32).astype(np.uint8).reshape(2, 128)
+    want = pl.pallas_call(mod.order_kernel, out_shape=jax.ShapeDtypeStruct((4, 128), jnp.float32),
+                          interpret=True)(jnp.asarray(q))
+    got = P.unpack_nibbles(torch.from_numpy(q))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # and it is quantize_int4_paired's order: row 2i low nibble, 2i+1 high
+    w = torch.arange(16 * 128).reshape(16, 128).remainder(15).sub(7).float()
+    w[0] = 7.0
+    packed, scale = Q.quantize_int4_paired(w)
+    assert torch.equal(scale, torch.ones_like(scale))
+    assert torch.equal(P.unpack_nibbles(packed), w)
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+def test_single_cast_matches_gemv_kernel_bitcast(rows):
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    mod = _tool("bitcast_probe")
+    cin, cout, bout = 512, 512, 256
+    rng = np.random.default_rng(3)
+    x = jnp.asarray(rng.standard_normal((rows, cin)).astype(np.float32)).astype(jnp.bfloat16)
+    packed = _bytes(4, cin // 2, cout)
+    scale = (rng.random((1, cout)) * 0.1 + 0.01).astype(np.float32)
+    want = pl.pallas_call(
+        mod.gemv_kernel_bitcast,
+        grid=(cout // bout,),
+        in_specs=[pl.BlockSpec((rows, cin), lambda oo: (0, 0)),
+                  pl.BlockSpec((cin // 2, bout), lambda oo: (0, oo)),
+                  pl.BlockSpec((1, bout), lambda oo: (0, oo))],
+        out_specs=pl.BlockSpec((rows, bout), lambda oo: (0, oo)),
+        out_shape=jax.ShapeDtypeStruct((rows, cout), jnp.float32),
+        interpret=True,
+    )(x, jnp.asarray(packed), jnp.asarray(scale))
+    xt = torch.from_numpy(np.array(x.astype(jnp.float32)))
+    for strip in Q.GEMV_STRIPS:
+        got = P.int4_single_cast_matmul(xt, torch.from_numpy(packed), torch.from_numpy(scale), strip=strip)
+        assert _rel(got.numpy(), want) <= REL_1E5
+
+
+# --------------------------------------------------------------- T2: W4A8
+
+
+@pytest.mark.parametrize("direct", [False, True])
+@pytest.mark.parametrize("rows", [1, 8])
+def test_w4a8_preact_matches_jax(direct, rows):
+    import jax.numpy as jnp
+
+    mod = _tool("gemv_sweep")
+    mod.pl = _interpreting_pl()
+    cin, cout = 512, 512   # _paired_bout needs cout >= 512
+    rng = np.random.default_rng(5 + rows)
+    xq = rng.integers(-127, 128, (rows, cin)).astype(np.int8)
+    packed = _bytes(6, cin // 2, cout)
+    scale = (rng.random((1, cout)) * 0.1 + 0.01).astype(np.float32)
+    want = np.asarray(mod.w4a8_matmul(jnp.asarray(xq), jnp.asarray(packed), jnp.asarray(scale), direct=direct))
+    args = (torch.from_numpy(xq), torch.from_numpy(packed), torch.from_numpy(scale))
+    base = P.w4a8_preact(*args)
+    assert _rel(base.numpy(), want) <= W4A8_REL
+    for strip in Q.GEMV_STRIPS:
+        for split in Q.W4A8_SPLITS:
+            assert torch.equal(P.w4a8_preact(*args, strip=strip, split_k=split), base)
+
+
+# --------------------------------------------------------------- T4: native
+
+
+def test_native_cast_matches_stage2_kernel():
+    """stage2_mosaic's closure k, recorded with the int4 block it was given,
+    against the port's native cast of the same integers, bit for bit, and
+    on every int4 value."""
+    import jax
+    import jax.numpy as jnp
+
+    mod = _tool("int4_native_probe")
+    recorded, calls = [], []
+    pl_interp = _interpreting_pl(recorded)
+
+    def pallas_call(kernel, **kw):
+        run = pl_interp.pallas_call(kernel, **kw)
+
+        def call(*args):
+            out = run(*args)
+            calls.append((args, out))
+            return out
+
+        return call
+
+    mod.pl = types.SimpleNamespace(**vars(pl_interp))
+    mod.pl.pallas_call = pallas_call
+    mod.stage2_mosaic()
+    assert [k.__name__ for k in recorded] == ["k"]
+    (a,), want = calls[0]
+    ints = torch.from_numpy(np.array(a.astype(jnp.int8)))
+    got = P.native_cast(Q.pack_int4_native(ints))
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+    # the probe's block holds 0..6 only; the same k on every int4 value
+    every = (np.arange(128 * 128).reshape(128, 128) % 16 - 8).astype(np.int8)
+    want = pl_interp.pallas_call(recorded[0], out_shape=jax.ShapeDtypeStruct((128, 128), jnp.bfloat16))(
+        jnp.asarray(every).astype(jnp.int4))
+    got = P.native_cast(Q.pack_int4_native(torch.from_numpy(every)))
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+def test_native_gemv_matches_native_int4_matmul(rows):
+    import jax.numpy as jnp
+
+    mod = _tool("int4_native_probe")
+    mod.pl = _interpreting_pl()
+    cin, cout = 384, 512
+    rng = np.random.default_rng(7 + rows)
+    x = jnp.asarray(rng.standard_normal((rows, cin)).astype(np.float32)).astype(jnp.bfloat16)
+    q = rng.integers(-8, 8, (cin, cout)).astype(np.int8)
+    scale = (rng.random((1, cout)) * 0.1 + 0.01).astype(np.float32)
+    want = np.asarray(mod.native_int4_matmul(x, jnp.asarray(q).astype(jnp.int4), jnp.asarray(scale), bout=256))
+    xt = torch.from_numpy(np.array(x.astype(jnp.float32)))
+    packed = Q.pack_int4_native(torch.from_numpy(q))
+    for strip in (Q.STRIP, 256):
+        got = Q.int4_native_matmul(xt, packed, torch.from_numpy(scale), strip=strip)
+        assert _rel(got.numpy(), want) <= REL_1E5
+
+
+# ----------------------------------------------------- T1c: K7, forced bout
+
+
+@pytest.mark.parametrize("bout", [256, 512])
+def test_k7_strip_matches_forced_bout_qmm_kernel(bout):
+    """K7's half-split GEMV against quantize._qmm_kernel under
+    stream_ceiling's BlockSpecs (8 rows, full contraction, forced bout)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    from supir_tpu.ops import quantize as qz
+
+    cin, cout = 256, 1024
+    rng = np.random.default_rng(bout)
+    x = jnp.asarray(rng.standard_normal((8, cin)).astype(np.float32)).astype(jnp.bfloat16)
+    q = _bytes(8, cin // 2, cout)
+    scale = (rng.random((1, cout)) * 0.1 + 0.01).astype(np.float32)
+    want = pl.pallas_call(
+        functools.partial(qz._qmm_kernel, bits=4),
+        grid=(cout // bout,),
+        in_specs=[pl.BlockSpec((8, cin), lambda oo: (0, 0)),
+                  pl.BlockSpec((cin // 2, bout), lambda oo: (0, oo)),
+                  pl.BlockSpec((1, bout), lambda oo: (0, oo))],
+        out_specs=pl.BlockSpec((8, bout), lambda oo: (0, oo)),
+        out_shape=jax.ShapeDtypeStruct((8, cout), jnp.float32),
+        interpret=True,
+    )(x, jnp.asarray(q), jnp.asarray(scale))
+    xt = torch.from_numpy(np.array(x.astype(jnp.float32)))
+    got = Q.int4_matmul(xt, torch.from_numpy(q), torch.from_numpy(scale), strip=128)
+    assert _rel(got.numpy(), want) <= REL_1E5
+
+
+# ------------------------------------------------------ geometry keywords
+
+
+def test_geometry_keywords_leave_cpu_results_unchanged():
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(256, 512, generator=g)
+    x = torch.randn(3, 256, generator=g).to(torch.bfloat16)
+    q4, s4 = Q.quantize_int4(w)
+    qp, sp = Q.quantize_int4_paired(w)
+    qn, sn = Q.quantize_int4_native(w)
+    for strip in Q.GEMV_STRIPS:
+        assert torch.equal(Q.int4_matmul(x, q4, s4, strip=strip), Q.int4_matmul(x, q4, s4))
+        assert torch.equal(Q.qmm(x, q4, s4, 4, strip=strip), Q.qmm(x, q4, s4, 4))
+        assert torch.equal(Q.int4_native_matmul(x, qn, sn, strip=strip), Q.int4_native_matmul(x, qn, sn))
+        for split in Q.W4A8_SPLITS:
+            assert torch.equal(Q.int4_w4a8_matmul(x, qp, sp, strip=strip, split_k=split),
+                               Q.int4_w4a8_matmul(x, qp, sp))
+    # a geometry no instance was built for raises, on any device
+    with pytest.raises(ValueError):
+        Q.int4_matmul(x, q4, s4, strip=48)
+    with pytest.raises(ValueError):
+        Q.int4_w4a8_matmul(x, qp, sp, split_k=3)
+    q8, s8 = Q.quantize_int8(w, stochastic=False)
+    with pytest.raises(ValueError):
+        Q.qmm(x, q8, s8, 8, strip=64)   # K7's int8 instance exists at strip 32 only
+
+
+# ---------------------------------------------------------- entry points
+
+
+@pytest.mark.parametrize("name", PROBES)
+def test_probe_main_exits_without_cuda(name, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(f"supir_tpu_torch.tools.{name}")
+    with pytest.raises(SystemExit) as exc:
+        mod.main(["--reps", "1"])
+    assert exc.value.code not in (0, None)
+    assert "no CUDA device" in str(exc.value.code)
+
+
+def test_probe_entry_points_exit_nonzero_without_cuda():
+    """`python -m supir_tpu_torch.tools.<name>` for each probe, in a fresh
+    interpreter with no card visible: every one exits non-zero, and none
+    imports jax, flax or supir_tpu."""
+    code = (
+        "import runpy, sys\n"
+        "codes = []\n"
+        f"for name in {list(PROBES)!r}:\n"
+        "    try:\n"
+        "        runpy.run_module('supir_tpu_torch.tools.' + name, run_name='__main__')\n"
+        "        codes.append(0)\n"
+        "    except SystemExit as e:\n"
+        "        codes.append(0 if e.code in (0, None) else 1)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'supir_tpu'))\n"
+        "print(codes, bad)\n"
+    )
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120, capture_output=True, text=True,
+                         cwd=ROOT, env=env).stdout
+    assert out.strip().splitlines()[-1] == "[1, 1, 1, 1] []"
+
+
+# ------------------------------------------------- LLaVA reference keys
+
+
+def _manifest():
+    return json.loads((ROOT / "supir_tpu" / "data" / "ref_key_manifests.json").read_text())["llava"]
+
+
+POST_LN = ["model.vision_tower.vision_tower.vision_model.post_layernorm.bias",
+           "model.vision_tower.vision_tower.vision_model.post_layernorm.weight"]
+
+
+def test_llava_manifest_loads_strict_through_create_captioner():
+    """Every key and shape of the reference's 758-key LLaVA-1.5-13B tree, on
+    the meta device, converts and loads through create_captioner with
+    strict=True; exactly the two post_layernorm keys are reported unused;
+    the loaded tree's keys and shapes equal the converted dict's."""
+    from supir_tpu_torch.captioner.agent import CaptionerConfig, create_captioner
+    from supir_tpu_torch.utils.weights import convert_llava_state_dict
+
+    man = _manifest()
+    assert len(man) == 758
+    sd = {k: torch.empty(shape, device="meta") for k, shape in man.items()}
+    cfg = CaptionerConfig()
+    converted, report = convert_llava_state_dict(sd, cfg)
+    assert report.unused == POST_LN
+    assert report.filled == 756 and not report.missing
+    agent = create_captioner(cfg, device="meta", state_dict=sd)
+    held = {k: tuple(v.shape) for k, v in agent.model.state_dict().items()}
+    assert held == {k: tuple(v.shape) for k, v in converted.items()}
+
+
+def _tiny_reference_dict(seed=0):
+    """The tiny captioner's state dict under HF LLaVA keys, random, plus the
+    keys a reference checkpoint holds that the port's tree lacks."""
+    from supir_tpu_torch.captioner.agent import CaptionerConfig, LlavaForCausalLM
+
+    cfg = CaptionerConfig.tiny()
+    g = torch.Generator().manual_seed(seed)
+    sd = {k: torch.randn(v.shape, generator=g) for k, v in LlavaForCausalLM(cfg).state_dict().items()}
+    width = cfg.vision.width
+    sd[POST_LN[0]] = torch.randn(width, generator=g)
+    sd[POST_LN[1]] = torch.randn(width, generator=g)
+    sd["model.vision_tower.vision_tower.vision_model.embeddings.position_ids"] = torch.arange(4)[None]
+    return cfg, sd
+
+
+def test_llava_reference_dict_loads_on_cpu_and_reports_unused():
+    from supir_tpu_torch.captioner.agent import create_captioner
+    from supir_tpu_torch.utils.weights import convert_llava_state_dict
+
+    cfg, sd = _tiny_reference_dict()
+    _, report = convert_llava_state_dict(sd, cfg)
+    assert report.unused == sorted(POST_LN + ["model.vision_tower.vision_tower.vision_model.embeddings.position_ids"])
+    agent = create_captioner(cfg, device="cpu", state_dict=sd)
+    held = agent.model.state_dict()
+    assert set(held) == set(sd) - set(report.unused)
+    for k, v in held.items():
+        assert torch.equal(v, sd[k]), k
+
+
+@pytest.mark.parametrize("stray", ["model.foo.weight", "model.layers.0.post_layernorm.weight",
+                                   "model.vision_tower.vision_tower.vision_model.post_layernorm.scale"])
+def test_llava_other_stray_keys_still_raise(stray):
+    from supir_tpu_torch.captioner.agent import create_captioner
+
+    cfg, sd = _tiny_reference_dict()
+    sd[stray] = torch.zeros(4)
+    with pytest.raises(RuntimeError, match="Unexpected key"):
+        create_captioner(cfg, device="cpu", state_dict=sd)
+
+
+# ------------------------------------------------------------- on the card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _card_rel(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cout,strip", [(2560, 15360, 512), (100, 272, 16), (700, 4096, 15360 // 4),
+                                             (33, 8192, 64)])
+def test_column_sum_kernel(cuda, rows, cout, strip):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randint(0, 256, (rows, cout), dtype=torch.uint8, generator=g, device=cuda)
+    want = P.column_sum_plain(q)
+    before = P.column_sum.launches
+    assert torch.equal(P.column_sum(q, strip), want)
+    assert P.column_sum.launches == before + 1
+    assert not torch.equal(P.column_sum(q, strip, _fault=1), want)
+    for brow, bout in ((rows // 3 + 1, strip), (64, 256), (rows, 1024)):
+        before = P.column_sum_2d.launches
+        assert torch.equal(P.column_sum_2d(q, brow, bout), want)
+        assert P.column_sum_2d.launches == before + 1
+        assert not torch.equal(P.column_sum_2d(q, brow, bout, _fault=1), want)
+        if brow < rows:
+            assert not torch.equal(P.column_sum_2d(q, brow, bout, _fault=2), want)
+
+
+@pytest.mark.gpu
+def test_unpack_and_native_cast_kernels(cuda):
+    every = torch.arange(256, dtype=torch.int32).to(torch.uint8).reshape(2, 128).to(cuda)
+    big = torch.randint(0, 256, (300, 1000), dtype=torch.uint8, device=cuda)
+    for q in (every, big):
+        want = P.unpack_nibbles_plain(q)
+        before = P.unpack_nibbles.launches
+        assert torch.equal(P.unpack_nibbles(q), want)
+        assert P.unpack_nibbles.launches == before + 1
+        assert not torch.equal(P.unpack_nibbles(q, _fault=1), want)
+        assert not torch.equal(P.unpack_nibbles(q, _fault=2), want)
+        want = P.native_cast_plain(q)
+        before = P.native_cast.launches
+        assert torch.equal(P.native_cast(q).view(torch.int16), want.view(torch.int16))
+        assert P.native_cast.launches == before + 1
+        assert not torch.equal(P.native_cast(q, _fault=1), want)
+        assert not torch.equal(P.native_cast(q, _fault=2), want)
+
+
+def _card_weights(g, cin, cout, device):
+    return torch.randn(cin, cout, generator=g, device=device) * cin ** -0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 20])
+@pytest.mark.parametrize("strip", [32, 64, 128, 256])
+def test_single_cast_and_strip_instances(cuda, rows, strip):
+    """T3b, and K7's half-split and K11's native instances at each strip,
+    against their fp32 plain versions; the scale left out must break it."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    cin, cout = 1024, 1544
+    w = _card_weights(g, cin, cout, cuda)
+    x = torch.randn(rows, cin, generator=g, device=cuda).to(torch.bfloat16)
+    for kernel, plain, (q, s) in (
+        (lambda xx, q, s: P.int4_single_cast_matmul(xx, q, s, strip), P.int4_single_cast_matmul_plain,
+         Q.quantize_int4_paired(w)),
+        (lambda xx, q, s: Q.int4_matmul(xx, q, s, strip=strip), lambda xx, q, s: Q.qmm_plain(xx, q, s, 4),
+         Q.quantize_int4(w)),
+        (lambda xx, q, s: Q.int4_native_matmul(xx, q, s, strip=strip), Q.int4_native_matmul_plain,
+         Q.quantize_int4_native(w)),
+    ):
+        want = plain(x.float(), q, s)
+        assert _card_rel(kernel(x, q, s), want) <= CARD_REL_BOUND
+        assert _card_rel(kernel(x, q, torch.ones_like(s)), want) > CARD_REL_BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 20])
+@pytest.mark.parametrize("strip", [32, 64, 128, 256])
+@pytest.mark.parametrize("split", [1, 2, 4])
+def test_w4a8_geometry_instances(cuda, rows, strip, split):
+    """T2: K10's body at each strip x split-K, exact integer sums: relative
+    1e-6 against the plain version; one slice dropped must break it."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    cin, cout = 1536, 520
+    packed, scale = Q.quantize_int4_paired(_card_weights(g, cin, cout, cuda))
+    xq = torch.randint(-127, 128, (rows, cin), dtype=torch.int8, generator=g, device=cuda)
+    want = P.w4a8_preact_plain(xq, packed, scale)
+    before = P.w4a8_preact.launches
+    assert _card_rel(P.w4a8_preact(xq, packed, scale, strip, split), want) <= W4A8_REL
+    assert P.w4a8_preact.launches == before + 1
+    if split > 1:
+        assert _card_rel(P.w4a8_preact(xq, packed, scale, strip, split, _skip_split=split - 1), want) > W4A8_REL
+    x = torch.randn(rows, cin, generator=g, device=cuda).to(torch.bfloat16)
+    got = Q.int4_w4a8_matmul(x, packed, scale, strip=strip, split_k=split)
+    assert _card_rel(got, Q.int4_w4a8_matmul_plain(x.float(), packed, scale)) <= W4A8_REL
