@@ -10,7 +10,8 @@ Phases, each printing its own lines:
   2. build: the CUDA C++ kernels (K1 and K3, K4, K5-K7 with K10 and K11,
      K8, K9, the probes' kernels and their GEMV geometries; one nvcc per
      source, all at once, into build/supir_tpu_torch/) with ptxas'
-     registers and spills, and K2 (Triton).
+     registers and spills (for each of the forward's eight instantiations,
+     K1/K3 x D 64/128 x ALiBi), and K2 (Triton).
   3. kernels against their plain PyTorch versions on the card, with
      CUDA-event or CUDA-graph times of both, the least time the card could
      take (bound) and, where one PyTorch call computes the same function,
@@ -104,6 +105,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -257,8 +259,6 @@ def phase_device():
 def _ptxas_summary(report: str) -> str:
     """One line from nvcc's -Xptxas -v output: kernels, register range,
     spills."""
-    import re
-
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
     stores = [int(r) for r in re.findall(r"(\d+) bytes spill stores", report)]
     loads = [int(r) for r in re.findall(r"(\d+) bytes spill loads", report)]
@@ -266,6 +266,27 @@ def _ptxas_summary(report: str) -> str:
         return "no ptxas report (library built earlier)"
     return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, spill stores max {max(stores, default=0)} B, "
             f"spill loads max {max(loads, default=0)} B")
+
+
+def _fwd_instances(report: str):
+    """(D, with lse, ALiBi, registers, spill stores, spill loads) of each
+    flash_fwd_kernel instantiation in nvcc's -Xptxas -v output."""
+    rows, current = [], None
+    for line in report.splitlines():
+        name = re.search(r"(?:Compiling entry function|Function properties for) '?(\S*flash_fwd_kernel\S*?)'?(?: |$)",
+                         line)
+        if name:
+            args = re.search(r"ILi(\d+)ELb([01])ELb([01])E", name.group(1))
+            current = (int(args.group(1)), args.group(2) == "1", args.group(3) == "1") if args else None
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if current and spill:
+            spills = (int(spill.group(1)), int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if current and used:
+            rows.append(current + (int(used.group(1)),) + spills)
+            current = None
+    return rows
 
 
 def phase_build():
@@ -279,12 +300,34 @@ def phase_build():
     wall = time.perf_counter() - t0
     for source in sources:
         log(f"[build] {source}: nvcc {seconds[source]:.1f} s; ptxas: {_ptxas_summary(cuda_build.ptxas_report(source))}")
+    # the forward's eight instantiations (K1 and K3, D 64/128, with and
+    # without ALiBi); setmaxnreg raises the consumers to 240 past what ptxas
+    # reports for the block's 384 threads
+    fwd = _fwd_instances(cuda_build.ptxas_report(k1._FWD_SOURCE))
+    for d, with_lse, alibi, regs, stores, loads in sorted(fwd):
+        log(f"[build] flash_fwd_kernel<D={d}, lse={with_lse}, alibi={alibi}> ({'K3' if with_lse else 'K1'}"
+            f"{' ALiBi' if alibi else ''}): {regs} registers, spill stores {stores} B, spill loads {loads} B")
+    if fwd and len(fwd) != 8:
+        raise AssertionError(f"expected 8 forward instantiations in the ptxas report, found {len(fwd)}")
     log(f"[build] K9 grid: {kq.pair_grid_blocks(1)} co-resident blocks at 1 row, {kq.pair_grid_blocks(8)} at 8 "
         f"(occupancy API x SMs; its cooperative launch takes at most that many)")
     t1 = time.perf_counter()
     k2.build()
     log(f"[build] nvcc wall {wall:.1f} s for {len(sources)} sources in parallel; K2 triton import "
         f"{time.perf_counter() - t1:.1f} s (Triton compiles each specialisation at its first launch)")
+
+
+def _vs(ms: float, bound_ms: float, lib_ms: float) -> str:
+    """A kernel's time as a share of its bound and as a multiple of SDPA's."""
+    return f"{bound_ms / ms:.1%} of the bound, {ms / lib_ms:.2f}x SDPA"
+
+
+def _graph_vs(kernel, library, bound_ms: float, calls: int = 10) -> str:
+    """The flash forward and its SDPA yardstick timed by CUDA-graph replay
+    (device time without the host's launch cost, which the event times of
+    the small shapes include), with _vs."""
+    ms, lib_ms = graph_ms([kernel] * calls), graph_ms([library] * calls)
+    return f"graph replay {ms:.4f} ms vs SDPA {lib_ms:.4f} ms: {_vs(ms, bound_ms, lib_ms)}"
 
 
 def _check_rel(label: str, rel: float, bound_: float):
@@ -332,24 +375,30 @@ def phase_kernels():
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
         bound_ms, bound_by = bound(nbytes(q, k, v, out), 4 * b * h * s * s * d)
+        graph = _graph_vs(lambda: flash_attention(q, k, v), lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                          bound_ms)
         log(f"[kernels] K1 [{b},{s},{h},{d}] bf16 vs fp32 plain: rel_l2 {rel:.3e} (bound {K1_REL_BOUND:g}), "
             f"max_abs_err {err:.3e} (bound 2e-2), max|ref| {want.abs().max().item():.3f}; "
-            f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}); first call {first:.2f} s")
+            f"{ms:.4f} ms vs plain {plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}): {_vs(ms, bound_ms, lib_ms)}; {graph}; first call {first:.2f} s")
         if not (rel <= K1_REL_BOUND and err <= 2e-2):
             raise AssertionError(f"K1 disagrees with its plain version at [{b},{s},{h},{d}]: rel {rel}, max {err}")
         k1.append(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                        bound_by=bound_by))
-        if s % 64:
+        if s % 128:
             # planted faults the bound must catch: the kernel run on k/v
-            # zero-padded to its 64-key tile is what a kernel that stops
+            # zero-padded to its 128-key tile is what a kernel that stops
             # masking keys past T computes; q scaled by ln 2 is exp2 without
-            # the log2(e) fold
-            pad = (0, 0, 0, 0, 0, 64 - s % 64)
+            # the log2(e) fold; k/v shifted by one key (key 0 dropped, a zero
+            # key after T) is a tile-offset error in the TMA coordinates
+            pad = (0, 0, 0, 0, 0, -s % 128)
             _check_fault(f"K1 unmasked ragged tile [{b},{s},{h},{d}]",
                          rel_l2(flash_attention(q, F.pad(k, pad), F.pad(v, pad)), want), K1_REL_BOUND)
             _check_fault(f"K1 exp2 without log2(e) [{b},{s},{h},{d}]",
                          rel_l2(flash_attention((q.float() * math.log(2)).to(q.dtype), k, v), want), K1_REL_BOUND)
+            shift = (0, 0, 0, 0, 0, 1)
+            shifted = flash_attention(q, F.pad(k[:, 1:], shift), F.pad(v[:, 1:], shift))
+            _check_fault(f"K1 k/v shifted by one key [{b},{s},{h},{d}]", rel_l2(shifted, want), K1_REL_BOUND)
 
     # K1 with the TPU kernels' causal mask, at Llama-13B head shapes (the
     # caption prompt stays under 1024 tokens, so these are fixed shapes)
@@ -363,12 +412,18 @@ def phase_kernels():
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20)
         bound_ms, bound_by = bound(nbytes(q, k, v, out), 4 * b * h * d * s * (s + 1) // 2)
+        graph = _graph_vs(lambda: flash_attention(q, k, v, causal=True),
+                          lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), bound_ms)
         log(f"[kernels] K1 causal [{b},{s},{h},{d}] bf16 vs fp32 plain causal: rel_l2 {rel:.3e} "
             f"(bound {K1_REL_BOUND:g}), max_abs_err {(out.float() - want).abs().max().item():.3e}; "
-            f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, SDPA causal {lib_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"{ms:.4f} ms vs plain {plain_ms:.3f} ms, SDPA causal {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}): {_vs(ms, bound_ms, lib_ms)}; {graph}")
         _check_rel(f"K1 causal [{b},{s},{h},{d}]", rel, K1_REL_BOUND)
         _check_fault(f"K1 causal mask removed [{b},{s},{h},{d}]", rel_l2(flash_attention(q, k, v), want),
                      K1_REL_BOUND)
+        shift = (0, 0, 0, 0, 0, 1)
+        _check_fault(f"K1 causal k/v shifted by one key [{b},{s},{h},{d}]", rel_l2(flash_attention(
+            q, F.pad(k[:, 1:], shift), F.pad(v[:, 1:], shift), causal=True), want), K1_REL_BOUND)
     results["K1"] = dict(k1[0], max_abs_err=max(r["max_abs_err"] for r in k1))
 
     k2 = []
@@ -1406,6 +1461,8 @@ def phase_flash_train_kernels():
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         k3_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), 20)
         k3_bound, k3_by = bound(nbytes(q, k, v, out, lse), _flash_flops(b, s, h, d, causal, 2))
+        graph = _graph_vs(lambda: flash_attention_fwd_lse(q, k, v, causal),
+                          lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), k3_bound)
         k4_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout, causal), 20)
         k4_plain = cuda_ms(lambda: attention_bwd_plain(q, k, v, out, lse, dout, causal), 5)
         # the library yardstick: SDPA's backward alone, through autograd
@@ -1416,8 +1473,8 @@ def phase_flash_train_kernels():
         k4_bound, k4_by = bound(nbytes(q, k, v, out, dout, lse, *grads), _flash_flops(b, s, h, d, causal, 5))
         del leaves, lib_out
         log(f"[kernels] K3 {tag} bf16 vs fp32 plain: out rel_l2 {rel:.3e} (bound {K1_REL_BOUND:g}), lse max_abs_err "
-            f"{lse_err:.3e} (bound {K3_LSE_BOUND:g}); {k3_ms:.3f} ms vs plain {k3_plain:.3f} ms, SDPA forward "
-            f"{k3_lib:.3f} ms, bound {k3_bound:.4f} ms ({k3_by})")
+            f"{lse_err:.3e} (bound {K3_LSE_BOUND:g}); {k3_ms:.4f} ms vs plain {k3_plain:.3f} ms, SDPA forward "
+            f"{k3_lib:.4f} ms, bound {k3_bound:.4f} ms ({k3_by}): {_vs(k3_ms, k3_bound, k3_lib)}; {graph}")
         log(f"[kernels] K4 {tag} bf16 vs fp32 plain: rel_l2 dq {rels[0]:.3e}, dk {rels[1]:.3e}, dv {rels[2]:.3e} "
             f"(bound {K4_REL_BOUND:g} each), two runs bit-identical {same}; {k4_ms:.3f} ms vs plain "
             f"{k4_plain:.3f} ms, SDPA backward {k4_lib:.3f} ms, bound {k4_bound:.4f} ms ({k4_by})")
@@ -1581,8 +1638,8 @@ def _bit_sums(tensors):
 
 # kernel name -> category of the train profile; the first match wins
 TRAIN_PROFILE_GROUPS = (
-    ("K1 (flash_fwd_kernel<D, false>)", lambda k: "flash_fwd_kernel<" in k and "false>" in k),
-    ("K3 (flash_fwd_kernel<D, true>)", lambda k: "flash_fwd_kernel<" in k and "true>" in k),
+    ("K1 (flash_fwd_kernel<D, false, *>)", lambda k: re.search(r"flash_fwd_kernel<\d+, false", k) is not None),
+    ("K3 (flash_fwd_kernel<D, true, *>)", lambda k: re.search(r"flash_fwd_kernel<\d+, true", k) is not None),
     ("K4 (flash_bwd_*)", lambda k: "flash_bwd" in k),
     ("K2 (_gn_*)", lambda k: "_gn_" in k),
     ("convolutions (cuDNN, with its layout transposes)",
@@ -1909,6 +1966,8 @@ def phase_alibi_kernels():
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         k3_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 20)
         k3_bound, k3_by = bound(nbytes(q, k, v, out, lse, slopes), _flash_flops(b, s, h, d, causal, 2))
+        graph = _graph_vs(lambda: flash_attention_fwd_lse(q, k, v, causal, slopes),
+                          lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), k3_bound)
         k4_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout, causal, slopes), 20)
         k4_plain = cuda_ms(lambda: attention_bwd_plain(q, k, v, out, lse, dout, causal, slopes), 5)
         leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
@@ -1919,8 +1978,9 @@ def phase_alibi_kernels():
         del leaves, lib_out, mask
         log(f"[kernels] K3-alibi {tag} bf16 vs fp32 plain: out rel_l2 {rel:.3e} (bound {K1_REL_BOUND:g}), lse "
             f"max_abs_err {lse_err:.3e} (bound {K3_LSE_BOUND:g}), without lse the same output {same_primal}; "
-            f"{k3_ms:.3f} ms (without lse {k3_primal_ms:.3f} ms) vs plain {k3_plain:.3f} ms, SDPA forward with "
-            f"the bias as attn_mask {k3_lib:.3f} ms, bound {k3_bound:.4f} ms ({k3_by})")
+            f"{k3_ms:.4f} ms (without lse {k3_primal_ms:.4f} ms) vs plain {k3_plain:.3f} ms, SDPA forward with "
+            f"the bias as attn_mask {k3_lib:.4f} ms, bound {k3_bound:.4f} ms ({k3_by}): "
+            f"{_vs(k3_ms, k3_bound, k3_lib)}; {graph}")
         log(f"[kernels] K4-alibi {tag} bf16 vs fp32 plain: rel_l2 dq {rels[0]:.3e}, dk {rels[1]:.3e}, dv "
             f"{rels[2]:.3e} (bound {K4_REL_BOUND:g} each), two runs bit-identical {same}; {k4_ms:.3f} ms vs plain "
             f"{k4_plain:.3f} ms, SDPA backward with the mask {k4_lib:.3f} ms, bound {k4_bound:.4f} ms ({k4_by})")

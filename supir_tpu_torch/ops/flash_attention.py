@@ -38,11 +38,19 @@ K3 and saves q, k, v, out and lse, its backward runs K4.
 Each wrapper, on a CPU tensor, returns its plain version (`attention_plain`,
 `attention_fwd_lse_plain`, `attention_bwd_plain`); on a CUDA tensor it
 launches its kernel or raises. `<wrapper>.launches` counts launching calls.
+
+The forward reads q, k and v through TMA tensor maps. `tma_plan` lays each
+one out in Python (dims innermost-first, byte strides, box, and where the
+seq, head and batch coordinates go), so the CPU tests reach it; the C side
+only encodes the plan (`cuTensorMapEncodeTiled`) and raises nothing itself:
+a failed encode comes back as a negative code and the wrapper raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -52,6 +60,81 @@ _FWD_SOURCE = "flash_attn_fwd.cu"
 _BWD_SOURCE = "flash_attn_bwd.cu"
 SOURCES = (_FWD_SOURCE, _BWD_SOURCE)  # for cuda_build.build_all
 HEAD_DIMS = (64, 128)
+# the forward's tiles (csrc/flash_attn_fwd.cu: BM, BN, SLAB)
+BLOCK_M = 128  # query rows per block: two consumer warpgroups of 64
+BLOCK_N = 128  # keys per K/V tile
+SLAB = 64      # head-dim columns per 128-byte swizzle slab (one TMA box)
+PLAN_LEN = 15  # values of a packed plan: rank, dims[4], strides[3], box[4], positions[3]
+
+
+@dataclasses.dataclass(frozen=True)
+class TmaPlan:
+    """One operand's TMA tensor map as the forward kernel encodes it.
+
+    dims: element counts innermost-first, (D, seq[, head][, batch]);
+    strides: byte strides of dims[1:]; box: the copy's extent per dim,
+    (SLAB, rows, 1, ...): one 128-byte swizzle slab of `rows` rows, so a
+    D = 128 tile is two copies; seq, head, batch: the map position
+    of each coordinate, -1 for an axis dropped from the map (stride 0, as
+    MPT's multiquery k/v expanded over heads, or extent 1). The kernel then
+    passes no coordinate for it."""
+
+    dims: tuple[int, ...]
+    strides: tuple[int, ...]
+    box: tuple[int, ...]
+    seq: int
+    head: int
+    batch: int
+
+    def packed(self) -> list[int]:
+        """The PLAN_LEN values the C entry points read."""
+        def pad(xs, n):
+            return list(xs) + [0] * (n - len(xs))
+
+        return ([len(self.dims)] + pad(self.dims, 4) + pad(self.strides, 3) + pad(self.box, 4)
+                + [self.seq, self.head, self.batch])
+
+
+def tma_plan(x: torch.Tensor, rows: int) -> TmaPlan:
+    """The tensor map of a [B, N, H, D] bf16 operand read in boxes of
+    `rows` rows (BLOCK_M for q, BLOCK_N for k and v). Raises ValueError on
+    what TMA cannot take: a head dim that is not contiguous or not a whole
+    number of slabs, a base address that is not 16-byte aligned, or a kept
+    stride that is not a multiple of 16 bytes."""
+    if x.dim() != 4 or x.shape[-1] % SLAB or x.stride(-1) != 1:
+        raise ValueError(f"a TMA plan wants [B,N,H,D] with a contiguous D a multiple of {SLAB}; got "
+                         f"{tuple(x.shape)} with strides {x.stride()}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"TMA needs a 16-byte aligned base address; this view starts {x.data_ptr() % 16} bytes off")
+    return _layout_plan(tuple(x.shape), x.stride(), x.element_size(), rows)
+
+
+@functools.lru_cache(maxsize=256)
+def _layout_plan(shape, stride, size: int, rows: int) -> TmaPlan:
+    """tma_plan's layout part, which depends on shape and strides alone:
+    cached, since the main path calls the same few layouts thousands of
+    times."""
+    b, n, h, d = shape
+    dims, strides, box, pos = [d], [], [SLAB], {}
+    for name, extent, step, keep in (("seq", n, stride[1], True), ("head", h, stride[2], False),
+                                     ("batch", b, stride[0], False)):
+        if not keep and (step == 0 or extent == 1):
+            pos[name] = -1
+            continue
+        if (step * size) % 16:
+            raise ValueError(f"TMA needs {name} strides in multiples of 16 bytes; got {step * size} bytes")
+        pos[name] = len(dims)
+        dims.append(extent)
+        strides.append(step * size)
+        box.append(rows if name == "seq" else 1)
+    return TmaPlan(tuple(dims), tuple(strides), tuple(box), **pos)
+
+
+@functools.lru_cache(maxsize=256)
+def _packed_plans(*plans: TmaPlan):
+    """The plans of q, k and v as the C entry points read them (read-only
+    there, so one array serves every call with these layouts)."""
+    return (ctypes.c_longlong * (len(plans) * PLAN_LEN))(*(x for plan in plans for x in plan.packed()))
 
 
 def _causal_keep(s: int, t: int, device) -> torch.Tensor:
@@ -144,17 +227,19 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+@functools.cache
 def _fwd_library() -> ctypes.CDLL:
     from supir_tpu_torch.ops.cuda_build import load_library
 
     lib = load_library(_FWD_SOURCE)
-    # q, k, v, out[, lse], slopes
+    # q, k, v, out[, lse], slopes; B H S T D causal; the three plans; out's strides
     for fn, n_ptrs in ((lib.supir_flash_attn_fwd_bf16, 5), (lib.supir_flash_attn_fwd_lse_bf16, 6)):
         fn.restype = ctypes.c_int
         fn.argtypes = (
             [ctypes.c_void_p] * n_ptrs
             + [ctypes.c_int] * 6
-            + [ctypes.c_longlong] * 12
+            + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_longlong] * 3
             + [ctypes.c_float, ctypes.c_void_p]
         )
     return lib
@@ -239,6 +324,9 @@ def _forward(q, k, v, causal: bool, with_lse: bool, slopes: torch.Tensor | None 
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
     if s == 0 or b * h == 0:
         return out, lse
+    if t == 0:  # no keys: what the plain version gives (TMA takes no empty dim)
+        return out.zero_(), None if lse is None else lse.fill_(float("-inf"))
+    plans = _packed_plans(tma_plan(q, BLOCK_M), tma_plan(k, BLOCK_N), tma_plan(v, BLOCK_N))
     lib = _fwd_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -248,7 +336,9 @@ def _forward(q, k, v, causal: bool, with_lse: bool, slopes: torch.Tensor | None 
             ptrs.append(lse.data_ptr())
             fn = lib.supir_flash_attn_fwd_lse_bf16
         ptrs.append(None if slopes is None else slopes.data_ptr())
-        err = fn(*ptrs, b, h, s, t, d, int(causal), *_strides(q, k, v, out), d ** -0.5, stream)
+        err = fn(*ptrs, b, h, s, t, d, int(causal), plans, *out.stride()[:3], d ** -0.5, stream)
+    if err < 0:
+        raise RuntimeError(f"flash attention forward: cuTensorMapEncodeTiled failed with CUresult {-err}")
     _raise_on(err, "flash attention forward" + (" (lse)" if with_lse else ""))
     return out, lse
 

@@ -20,6 +20,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from supir_tpu_torch.models import layers
 from supir_tpu_torch.ops import attention as attn_ops
@@ -526,6 +527,90 @@ def test_flash_kernel_causal_matches_plain(cuda, b, s, h, d):
 
 def _rel_l2(got, want):
     return ((got.float() - want).norm() / want.norm()).item()
+
+
+def _forward_inputs(cuda, seed, b, s, t, h, d, layout):
+    """q [B,S,H,D], k/v [B,T,H,D] in bf16: contiguous, non-contiguous views
+    of one packed [B,S,3,H,D] tensor (S == T), or multiquery k/v expanded
+    over heads with head stride 0."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(torch.bfloat16)
+
+    if layout == "packed":
+        return randn(b, s, 3, h, d).unbind(2)
+    q = randn(b, s, h, d)
+    if layout == "mqa":
+        return (q, *(randn(b, t, 1, d).expand(b, t, h, d) for _ in range(2)))
+    return q, randn(b, t, h, d), randn(b, t, h, d)
+
+
+def _slopes_for(h, device):
+    ceil = 2 ** math.ceil(math.log2(h))
+    slopes = 1.0 / 2.0 ** (torch.arange(1, ceil + 1, dtype=torch.float32, device=device) * 8.0 / ceil)
+    return slopes if ceil == h else torch.cat([slopes[1::2], slopes[::2]])[:h]
+
+
+# the forward's tile edges: 128-row query blocks, 128-key tiles, the causal
+# diagonal cutting a block inside its second 64-row half (1088 = 8.5 x 128,
+# 1100), cross attention, strided and multiquery inputs, and B*H = 400
+FORWARD_EDGES = [
+    (1, 1100, 1100, 4, 64, False, "contiguous"),
+    (1, 1088, 1088, 4, 128, False, "contiguous"),
+    (2, 1000, 1500, 3, 64, False, "contiguous"),
+    (2, 1000, 1500, 3, 128, False, "contiguous"),
+    (1, 1088, 1088, 4, 64, True, "contiguous"),
+    (1, 1100, 1100, 4, 128, True, "contiguous"),
+    (2, 1100, 1100, 4, 64, False, "packed"),
+    (1, 1088, 1088, 4, 128, True, "packed"),
+    (1, 1100, 1100, 8, 128, True, "mqa"),
+    (2, 1000, 1000, 4, 64, False, "mqa"),
+    (10, 256, 256, 40, 128, False, "contiguous"),
+    (10, 300, 300, 40, 64, True, "contiguous"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,t,h,d,causal,layout", FORWARD_EDGES)
+def test_flash_forward_tile_edges(cuda, b, s, t, h, d, causal, layout):
+    """K1 and K3, with and without ALiBi, against the fp32 plain version at
+    the tile edges (out rel-L2 1e-2, lse max abs 1e-3); K1 and K3 are one
+    kernel, so their outputs are bit-identical."""
+    q, k, v = _forward_inputs(cuda, 4, b, s, t, h, d, layout)
+    for slopes in (None, _slopes_for(h, cuda)):
+        before = (flash_attention.launches, flash_attention.alibi_launches)
+        primal = flash_attention(q, k, v, causal, slopes)
+        out, lse = flash_attention_fwd_lse(q, k, v, causal, slopes)
+        torch.cuda.synchronize()
+        assert (flash_attention.launches, flash_attention.alibi_launches) == (
+            before[0] + (slopes is None), before[1] + (slopes is not None))
+        want_out, want_lse = attention_fwd_lse_plain(q.float(), k.float(), v.float(), causal, slopes)
+        assert _rel_l2(out, want_out) <= 1e-2, slopes is not None
+        assert (lse - want_lse).abs().max().item() <= 1e-3, slopes is not None
+        assert torch.equal(primal, out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,d,causal", [(1100, 64, False), (1088, 128, True), (1100, 128, True)])
+def test_flash_forward_planted_faults(cuda, s, d, causal):
+    """Each planted fault breaks the bound the sound kernel keeps: keys
+    past T unmasked (k/v zero-padded to the 128-key tile), exp2 without
+    log2(e), the causal mask removed, the lse in log2 units, and k/v
+    shifted by one key (a tile-offset error in the TMA coordinates)."""
+    q, k, v = _forward_inputs(cuda, 5, 1, s, s, 4, d, "contiguous")
+    want, want_lse = attention_fwd_lse_plain(q.float(), k.float(), v.float(), causal)
+    out, lse = flash_attention_fwd_lse(q, k, v, causal)
+    assert _rel_l2(out, want) <= 1e-2 and (lse - want_lse).abs().max().item() <= 1e-3
+    pad = (0, 0, 0, 0, 0, -s % 128)
+    if not causal:  # padding would change T and so the causal diagonal
+        assert _rel_l2(flash_attention(q, F.pad(k, pad), F.pad(v, pad)), want) > 1e-2
+    assert _rel_l2(flash_attention((q.float() * math.log(2)).to(q.dtype), k, v, causal), want) > 1e-2
+    if causal:
+        assert _rel_l2(flash_attention(q, k, v), want) > 1e-2
+    assert (lse * LOG2E - want_lse).abs().max().item() > 1e-3
+    shift = (0, 0, 0, 0, 0, 1)
+    assert _rel_l2(flash_attention(q, F.pad(k[:, 1:], shift), F.pad(v[:, 1:], shift), causal), want) > 1e-2
 
 
 @pytest.mark.gpu
