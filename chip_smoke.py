@@ -268,16 +268,18 @@ def _ptxas_summary(report: str) -> str:
             f"spill loads max {max(loads, default=0)} B")
 
 
-def _fwd_instances(report: str):
-    """(D, with lse, ALiBi, registers, spill stores, spill loads) of each
-    flash_fwd_kernel instantiation in nvcc's -Xptxas -v output."""
+def _instances(report: str, kernel: str):
+    """(kernel, D, flags..., registers, spill stores, spill loads) of each
+    instantiation of a flash kernel (`kernel`, a regex of its name, template
+    arguments <int D, bool...>) in nvcc's -Xptxas -v output."""
     rows, current = [], None
     for line in report.splitlines():
-        name = re.search(r"(?:Compiling entry function|Function properties for) '?(\S*flash_fwd_kernel\S*?)'?(?: |$)",
+        name = re.search(rf"(?:Compiling entry function|Function properties for) '?(\S*(?:{kernel})\S*?)'?(?: |$)",
                          line)
         if name:
-            args = re.search(r"ILi(\d+)ELb([01])ELb([01])E", name.group(1))
-            current = (int(args.group(1)), args.group(2) == "1", args.group(3) == "1") if args else None
+            args = re.search(rf"({kernel})ILi(\d+)E((?:Lb[01]E)+)", name.group(1))
+            current = ((args.group(1), int(args.group(2)), *(f == "1" for f in re.findall(r"Lb([01])E", args.group(3))))
+                       if args else None)
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if current and spill:
@@ -301,14 +303,21 @@ def phase_build():
     for source in sources:
         log(f"[build] {source}: nvcc {seconds[source]:.1f} s; ptxas: {_ptxas_summary(cuda_build.ptxas_report(source))}")
     # the forward's eight instantiations (K1 and K3, D 64/128, with and
-    # without ALiBi); setmaxnreg raises the consumers to 240 past what ptxas
-    # reports for the block's 384 threads
-    fwd = _fwd_instances(cuda_build.ptxas_report(k1._FWD_SOURCE))
-    for d, with_lse, alibi, regs, stores, loads in sorted(fwd):
+    # without ALiBi) and the backward's eight (the dQ and the dK/dV kernel,
+    # D 64/128, with and without ALiBi); setmaxnreg raises the consumers to
+    # 240 past what ptxas reports for the block's 384 threads
+    reports = {source: cuda_build.ptxas_report(source) for source in k1.SOURCES}
+    fwd = _instances(reports[k1._FWD_SOURCE], "flash_fwd_kernel")
+    for _, d, with_lse, alibi, regs, stores, loads in sorted(fwd):
         log(f"[build] flash_fwd_kernel<D={d}, lse={with_lse}, alibi={alibi}> ({'K3' if with_lse else 'K1'}"
             f"{' ALiBi' if alibi else ''}): {regs} registers, spill stores {stores} B, spill loads {loads} B")
-    if fwd and len(fwd) != 8:
-        raise AssertionError(f"expected 8 forward instantiations in the ptxas report, found {len(fwd)}")
+    bwd = _instances(reports[k1._BWD_SOURCE], "flash_bwd_dq_kernel|flash_bwd_dkv_kernel")
+    for name, d, alibi, regs, stores, loads in sorted(bwd):
+        log(f"[build] {name}<D={d}, alibi={alibi}> (K4{' ALiBi' if alibi else ''} "
+            f"{'dQ' if '_dq_' in name else 'dK/dV'}): {regs} registers, spill stores {stores} B, spill loads {loads} B")
+    for source, rows in ((k1._FWD_SOURCE, fwd), (k1._BWD_SOURCE, bwd)):
+        if reports[source] and len(rows) != 8:  # no report: the library was built earlier
+            raise AssertionError(f"expected 8 instantiations in the ptxas report of {source}, found {len(rows)}")
     log(f"[build] K9 grid: {kq.pair_grid_blocks(1)} co-resident blocks at 1 row, {kq.pair_grid_blocks(8)} at 8 "
         f"(occupancy API x SMs; its cooperative launch takes at most that many)")
     t1 = time.perf_counter()
@@ -328,6 +337,53 @@ def _graph_vs(kernel, library, bound_ms: float, calls: int = 10) -> str:
     the small shapes include), with _vs."""
     ms, lib_ms = graph_ms([kernel] * calls), graph_ms([library] * calls)
     return f"graph replay {ms:.4f} ms vs SDPA {lib_ms:.4f} ms: {_vs(ms, bound_ms, lib_ms)}"
+
+
+def _k4_graph_vs(kernel, qkv, grad, bound_ms: float, calls: int = 10, **sdpa) -> str:
+    """K4 and SDPA's backward timed by CUDA-graph replay, with _vs. Autograd
+    runs a backward op on the stream of its forward, so SDPA's backward is
+    captured together with its forward, on fresh leaves made from `qkv`
+    ([B,H,N,D] views) inside the capture: its graph time is that of forward
+    and backward less that of the forward alone."""
+    import torch
+    import torch.nn.functional as F
+
+    def forward():
+        leaves = [x.detach().requires_grad_() for x in qkv]
+        return leaves, F.scaled_dot_product_attention(*leaves, **sdpa)
+
+    def forward_backward():
+        leaves, out = forward()
+        return torch.autograd.grad(out, leaves, grad)
+
+    ms = graph_ms([kernel] * calls)
+    lib_ms = graph_ms([forward_backward] * calls) - graph_ms([forward] * calls)
+    return f"graph replay {ms:.4f} ms vs SDPA backward {lib_ms:.4f} ms: {_vs(ms, bound_ms, lib_ms)}"
+
+
+def _k4_faults(tag: str, run, q, k, v, out, lse, dout, grads, want, alibi: bool = False) -> None:
+    """K4's planted faults, emulated on the sound kernel's inputs (or, for
+    dK, its output `grads`): each must break the gradients' bound.
+    `run(q, k, v, out, lse, dout)` is the kernel at the case's causal flag
+    and slopes. The lse in log2 units (K3's exp2
+    bookkeeping slipped), delta dropped (a zero out gives delta 0), dK
+    without its scale, dO shifted by one query row and k/v shifted by one
+    key (tile-offset errors in the TMA coordinates)."""
+    import torch
+    import torch.nn.functional as F
+
+    name = "K4-alibi" if alibi else "K4"
+    shift = (0, 0, 0, 0, 0, 1)
+    _check_fault(f"{name} given lse in log2 units {tag}", max(_k4_rels(run(q, k, v, out, lse * LOG2E, dout), want)),
+                 K4_REL_BOUND)
+    _check_fault(f"{name} delta dropped {tag}", max(_k4_rels(run(q, k, v, torch.zeros_like(out), lse, dout), want)),
+                 K4_REL_BOUND)
+    _check_fault(f"{name} dK without scale {tag}", rel_l2(grads[1] * q.shape[-1] ** 0.5, want[1]), K4_REL_BOUND)
+    _check_fault(f"{name} dO shifted by one query row {tag}",
+                 max(_k4_rels(run(q, k, v, out, lse, F.pad(dout[:, 1:], shift)), want)), K4_REL_BOUND)
+    _check_fault(f"{name} k/v shifted by one key {tag}",
+                 max(_k4_rels(run(q, F.pad(k[:, 1:], shift), F.pad(v[:, 1:], shift), out, lse, dout), want)),
+                 K4_REL_BOUND)
 
 
 def _check_rel(label: str, rel: float, bound_: float):
@@ -1471,13 +1527,16 @@ def phase_flash_train_kernels():
         lib_grad = dout.transpose(1, 2)
         k4_lib = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, lib_grad, retain_graph=True), 20)
         k4_bound, k4_by = bound(nbytes(q, k, v, out, dout, lse, *grads), _flash_flops(b, s, h, d, causal, 5))
+        k4_graph = _k4_graph_vs(lambda: flash_attention_bwd(q, k, v, out, lse, dout, causal), (qt, kt, vt), lib_grad,
+                                k4_bound, is_causal=causal)
         del leaves, lib_out
         log(f"[kernels] K3 {tag} bf16 vs fp32 plain: out rel_l2 {rel:.3e} (bound {K1_REL_BOUND:g}), lse max_abs_err "
             f"{lse_err:.3e} (bound {K3_LSE_BOUND:g}); {k3_ms:.4f} ms vs plain {k3_plain:.3f} ms, SDPA forward "
             f"{k3_lib:.4f} ms, bound {k3_bound:.4f} ms ({k3_by}): {_vs(k3_ms, k3_bound, k3_lib)}; {graph}")
         log(f"[kernels] K4 {tag} bf16 vs fp32 plain: rel_l2 dq {rels[0]:.3e}, dk {rels[1]:.3e}, dv {rels[2]:.3e} "
             f"(bound {K4_REL_BOUND:g} each), two runs bit-identical {same}; {k4_ms:.3f} ms vs plain "
-            f"{k4_plain:.3f} ms, SDPA backward {k4_lib:.3f} ms, bound {k4_bound:.4f} ms ({k4_by})")
+            f"{k4_plain:.3f} ms, SDPA backward {k4_lib:.3f} ms, bound {k4_bound:.4f} ms ({k4_by}): "
+            f"{_vs(k4_ms, k4_bound, k4_lib)}; {k4_graph}")
         _check_rel(f"K3 {tag}", rel, K1_REL_BOUND)
         if not lse_err <= K3_LSE_BOUND:
             raise AssertionError(f"K3 {tag}: lse max_abs_err {lse_err} over {K3_LSE_BOUND}")
@@ -1485,16 +1544,11 @@ def phase_flash_train_kernels():
         if not same:
             raise AssertionError(f"K4 {tag}: two runs differ")
 
-        # planted faults: lse in log2 units (K3's exp2 bookkeeping slipped),
-        # delta dropped (zero O gives delta 0), dK without its scale
-        log2_lse = lse * LOG2E
-        _check_fault(f"K3 lse in log2 units {tag}: lse max_abs_err", (log2_lse - want_lse).abs().max().item(),
+        # planted faults: K3's lse in log2 units (its exp2 bookkeeping
+        # slipped), and K4's (_k4_faults)
+        _check_fault(f"K3 lse in log2 units {tag}: lse max_abs_err", (lse * LOG2E - want_lse).abs().max().item(),
                      K3_LSE_BOUND)
-        _check_fault(f"K4 given lse in log2 units {tag}",
-                     max(_k4_rels(flash_attention_bwd(q, k, v, out, log2_lse, dout, causal), want)), K4_REL_BOUND)
-        _check_fault(f"K4 delta dropped {tag}", max(_k4_rels(
-            flash_attention_bwd(q, k, v, torch.zeros_like(out), lse, dout, causal), want)), K4_REL_BOUND)
-        _check_fault(f"K4 dK without scale {tag}", rel_l2(grads[1] * d ** 0.5, want[1]), K4_REL_BOUND)
+        _k4_faults(tag, lambda *a: flash_attention_bwd(*a, causal), q, k, v, out, lse, dout, grads, want)
         rows["K3"].append(dict(max_abs_err=(out.float() - want_out).abs().max().item(), ms=k3_ms,
                                plain_ms=k3_plain, library_ms=k3_lib, bound_ms=k3_bound, bound_by=k3_by))
         rows["K4"].append(dict(max_abs_err=max((a.float() - w).abs().max().item() for a, w in zip(grads, want)),
@@ -1975,6 +2029,8 @@ def phase_alibi_kernels():
         lib_grad = dout.transpose(1, 2)
         k4_lib = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, lib_grad, retain_graph=True), 20)
         k4_bound, k4_by = bound(nbytes(q, k, v, out, dout, lse, slopes, *grads), _flash_flops(b, s, h, d, causal, 5))
+        k4_graph = _k4_graph_vs(lambda: flash_attention_bwd(q, k, v, out, lse, dout, causal, slopes), (qt, kt, vt),
+                                lib_grad, k4_bound, attn_mask=mask)
         del leaves, lib_out, mask
         log(f"[kernels] K3-alibi {tag} bf16 vs fp32 plain: out rel_l2 {rel:.3e} (bound {K1_REL_BOUND:g}), lse "
             f"max_abs_err {lse_err:.3e} (bound {K3_LSE_BOUND:g}), without lse the same output {same_primal}; "
@@ -1983,7 +2039,8 @@ def phase_alibi_kernels():
             f"{_vs(k3_ms, k3_bound, k3_lib)}; {graph}")
         log(f"[kernels] K4-alibi {tag} bf16 vs fp32 plain: rel_l2 dq {rels[0]:.3e}, dk {rels[1]:.3e}, dv "
             f"{rels[2]:.3e} (bound {K4_REL_BOUND:g} each), two runs bit-identical {same}; {k4_ms:.3f} ms vs plain "
-            f"{k4_plain:.3f} ms, SDPA backward with the mask {k4_lib:.3f} ms, bound {k4_bound:.4f} ms ({k4_by})")
+            f"{k4_plain:.3f} ms, SDPA backward with the mask {k4_lib:.3f} ms, bound {k4_bound:.4f} ms ({k4_by}): "
+            f"{_vs(k4_ms, k4_bound, k4_lib)}; {k4_graph}")
         _check_rel(f"K3-alibi {tag}", rel, K1_REL_BOUND)
         if not lse_err <= K3_LSE_BOUND:
             raise AssertionError(f"K3-alibi {tag}: lse max_abs_err {lse_err} over {K3_LSE_BOUND}")
@@ -2013,6 +2070,8 @@ def phase_alibi_kernels():
                      K4_REL_BOUND)
         _check_fault(f"K4-alibi without the bias {tag}",
                      max(_k4_rels(flash_attention_bwd(q, k, v, out, lse, dout, causal), want)), K4_REL_BOUND)
+        _k4_faults(tag, lambda *a: flash_attention_bwd(*a, causal, slopes), q, k, v, out, lse, dout, grads, want,
+                   alibi=True)
         rows["K3-alibi"].append(dict(max_abs_err=(out.float() - want_out).abs().max().item(), ms=k3_ms,
                                      plain_ms=k3_plain, library_ms=k3_lib, bound_ms=k3_bound, bound_by=k3_by))
         rows["K4-alibi"].append(dict(max_abs_err=max((a.float() - w).abs().max().item() for a, w in zip(grads, want)),

@@ -39,11 +39,12 @@ Each wrapper, on a CPU tensor, returns its plain version (`attention_plain`,
 `attention_fwd_lse_plain`, `attention_bwd_plain`); on a CUDA tensor it
 launches its kernel or raises. `<wrapper>.launches` counts launching calls.
 
-The forward reads q, k and v through TMA tensor maps. `tma_plan` lays each
-one out in Python (dims innermost-first, byte strides, box, and where the
-seq, head and batch coordinates go), so the CPU tests reach it; the C side
-only encodes the plan (`cuTensorMapEncodeTiled`) and raises nothing itself:
-a failed encode comes back as a negative code and the wrapper raises.
+The forward reads q, k and v, the backward q, k, v and dout, through TMA
+tensor maps. `tma_plan` lays each one out in Python (dims innermost-first,
+byte strides, box, and where the seq, head and batch coordinates go), so
+the CPU tests reach it; the C side only encodes the plan
+(`cuTensorMapEncodeTiled`) and raises nothing itself: a failed encode comes
+back as a negative code and the wrapper raises.
 """
 
 from __future__ import annotations
@@ -65,6 +66,9 @@ BLOCK_M = 128  # query rows per block: two consumer warpgroups of 64
 BLOCK_N = 128  # keys per K/V tile
 SLAB = 64      # head-dim columns per 128-byte swizzle slab (one TMA box)
 PLAN_LEN = 15  # values of a packed plan: rank, dims[4], strides[3], box[4], positions[3]
+# the backward's tiles (csrc/flash_attn_bwd.cu: BLOCK, BOX)
+BWD_BLOCK = 128  # rows a backward block owns; the lse/delta scratch is padded to it
+BWD_BOX = 64     # rows of every backward TMA box (q, k, v and dout)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +101,8 @@ class TmaPlan:
 
 def tma_plan(x: torch.Tensor, rows: int) -> TmaPlan:
     """The tensor map of a [B, N, H, D] bf16 operand read in boxes of
-    `rows` rows (BLOCK_M for q, BLOCK_N for k and v). Raises ValueError on
+    `rows` rows (the forward: BLOCK_M for q, BLOCK_N for k and v; the
+    backward: BWD_BOX for q, k, v and dout). Raises ValueError on
     what TMA cannot take: a head dim that is not contiguous or not a whole
     number of slabs, a base address that is not 16-byte aligned, or a kept
     stride that is not a multiple of 16 bytes."""
@@ -132,8 +137,9 @@ def _layout_plan(shape, stride, size: int, rows: int) -> TmaPlan:
 
 @functools.lru_cache(maxsize=256)
 def _packed_plans(*plans: TmaPlan):
-    """The plans of q, k and v as the C entry points read them (read-only
-    there, so one array serves every call with these layouts)."""
+    """The plans of q, k and v (and dout, for the backward) as the C entry
+    points read them (read-only there, so one array serves every call with
+    these layouts)."""
     return (ctypes.c_longlong * (len(plans) * PLAN_LEN))(*(x for plan in plans for x in plan.packed()))
 
 
@@ -252,9 +258,10 @@ def _bwd_library() -> ctypes.CDLL:
     fn = lib.supir_flash_attn_bwd_bf16
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 11  # q, k, v, out, dout, lse, delta, slopes, dq, dk, dv
-        + [ctypes.c_int] * 6
-        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+        [ctypes.c_void_p] * 11  # q, k, v, out, dout, lse, rows, slopes, dq, dk, dv
+        + [ctypes.c_int] * 6    # B H S T D causal
+        + [ctypes.POINTER(ctypes.c_longlong)] * 2  # the four plans; strides of out, dout, dq, dk, dv
+        + [ctypes.c_float, ctypes.c_void_p]
     )
     return lib
 
@@ -304,6 +311,12 @@ def _slopes(alibi_slopes, q: torch.Tensor) -> torch.Tensor | None:
     if slopes.shape != (q.shape[2],):
         raise ValueError(f"alibi_slopes must be [{q.shape[2]}] (one per head), got {tuple(slopes.shape)}")
     return slopes
+
+
+def bwd_rows(s: int) -> int:
+    """Query rows of the backward's lse/delta scratch per (b, h): S rounded
+    up to BWD_BLOCK (the C side's S_pad)."""
+    return -(-s // BWD_BLOCK) * BWD_BLOCK
 
 
 def _strides(*tensors: torch.Tensor):
@@ -395,15 +408,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     dq, dk, dv = (torch.empty_like(x, memory_format=torch.contiguous_format) for x in (q, k, v))
     if s == 0 or t == 0 or b * h == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 24)(*_strides(q, k, v, out, dout, dq, dk, dv))
+    # delta and lse * log2 e per query row, padded to whole blocks (the pre-pass fills it)
+    rows = torch.empty(2 * b * h * bwd_rows(s), dtype=torch.float32, device=q.device)
+    plans = _packed_plans(*(tma_plan(x, BWD_BOX) for x in (q, k, v, dout)))
+    strides = (ctypes.c_longlong * 15)(*_strides(out, dout, dq, dk, dv))
     fn = _bwd_library().supir_flash_attn_bwd_bf16
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), None if slopes is None else slopes.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s, t, d, int(causal), strides,
+                 lse.data_ptr(), rows.data_ptr(), None if slopes is None else slopes.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s, t, d, int(causal), plans, strides,
                  d ** -0.5, stream)
+    if err < 0:
+        raise RuntimeError(f"flash attention backward: cuTensorMapEncodeTiled failed with CUresult {-err}")
     _raise_on(err, "flash attention backward")
     if slopes is None:
         flash_attention_bwd.launches += 1

@@ -109,7 +109,12 @@ def test_fwd_lse_plain_matches_pallas(s, t, causal):
     np.testing.assert_allclose(lse.numpy(), want_lse, atol=2e-5)
 
 
-@pytest.mark.parametrize("s,t,causal", LSE_CASES)
+# the backward's tile edges on the CPU: one short of, one past and past two
+# 64-row tiles, S != T both ways, causal
+BWD_EDGE_CASES = [(63, 65, False), (65, 129, False), (129, 63, False), (129, 129, True), (65, 65, True)]
+
+
+@pytest.mark.parametrize("s,t,causal", LSE_CASES + BWD_EDGE_CASES)
 def test_bwd_plain_matches_pallas(s, t, causal):
     """K4's plain version against _flash_bwd on the same residuals, and the
     port's FlashAttention gradients against jax.grad through flash_attention."""
@@ -168,7 +173,7 @@ def test_alibi_fwd_lse_plain_matches_pallas(s, t, causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(primal), atol=2e-5)
 
 
-@pytest.mark.parametrize("s,t,causal", ALIBI_CASES)
+@pytest.mark.parametrize("s,t,causal", ALIBI_CASES + BWD_EDGE_CASES)
 def test_alibi_bwd_plain_matches_pallas(s, t, causal):
     """K4 ALiBi's plain version against _flash_bwd with the slopes, on the
     same residuals; FlashAttention's ALiBi gradients against jax.vjp of
@@ -611,6 +616,76 @@ def test_flash_forward_planted_faults(cuda, s, d, causal):
     assert (lse * LOG2E - want_lse).abs().max().item() > 1e-3
     shift = (0, 0, 0, 0, 0, 1)
     assert _rel_l2(flash_attention(q, F.pad(k[:, 1:], shift), F.pad(v[:, 1:], shift), causal), want) > 1e-2
+
+
+# the backward's tile edges: the forward's, plus a ragged block whose second
+# 64-row box lies wholly past S = T (1030) and short, unaligned S != T
+BACKWARD_EDGES = FORWARD_EDGES + [
+    (1, 1030, 1030, 4, 128, True, "contiguous"),
+    (2, 65, 129, 2, 64, False, "contiguous"),
+]
+
+
+def _backward_case(cuda, b, s, t, h, d, causal, layout, slopes, seed=6):
+    """Inputs, K3's residuals and the fp32 plain gradients for one case."""
+    q, k, v = _forward_inputs(cuda, seed, b, s, t, h, d, layout)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    dout = torch.randn(b, s, h, d, generator=g, device=cuda).to(torch.bfloat16)
+    out, lse = flash_attention_fwd_lse(q, k, v, causal, slopes)
+    want = attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse, dout.float(), causal, slopes)
+    return q, k, v, dout, out, lse, want
+
+
+def _worst(got, want):
+    return max(_rel_l2(a, w) for a, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,t,h,d,causal,layout", BACKWARD_EDGES)
+def test_flash_backward_tile_edges(cuda, b, s, t, h, d, causal, layout):
+    """K4 and K4 ALiBi against the fp32 plain version on K3's residuals at
+    the tile edges: every gradient within rel-L2 2e-2, two runs
+    bit-identical, one launch counted per call."""
+    for slopes in (None, _slopes_for(h, cuda)):
+        q, k, v, dout, out, lse, want = _backward_case(cuda, b, s, t, h, d, causal, layout, slopes)
+        before = (flash_attention_bwd.launches, flash_attention_bwd.alibi_launches)
+        got = flash_attention_bwd(q, k, v, out, lse, dout, causal, slopes)
+        again = flash_attention_bwd(q, k, v, out, lse, dout, causal, slopes)
+        torch.cuda.synchronize()
+        assert (flash_attention_bwd.launches, flash_attention_bwd.alibi_launches) == (
+            before[0] + 2 * (slopes is None), before[1] + 2 * (slopes is not None))
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            assert a.dtype == torch.bfloat16 and a.shape == w.shape, name
+            assert _rel_l2(a, w) <= 2e-2, (name, slopes is not None, _rel_l2(a, w))
+        assert all(torch.equal(a, a2) for a, a2 in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,d,causal", [(1100, 64, False), (1088, 128, True), (1100, 128, True)])
+def test_flash_backward_planted_faults(cuda, s, d, causal):
+    """Each planted fault breaks K4's 2e-2 bound, emulated on the inputs of
+    the sound kernel: the lse in log2 units, delta dropped (a zero out gives
+    delta 0), dK without its scale, dO shifted by one query row and k/v
+    shifted by one key (tile-offset errors in the TMA coordinates); with
+    ALiBi also the bias left out of the recomputed scores."""
+    for slopes in (None, _slopes_for(4, cuda)):
+        q, k, v, dout, out, lse, want = _backward_case(cuda, 1, s, s, 4, d, causal, "contiguous", slopes, seed=8)
+        got = flash_attention_bwd(q, k, v, out, lse, dout, causal, slopes)
+        assert _worst(got, want) <= 2e-2
+        shift = (0, 0, 0, 0, 0, 1)
+        faults = {
+            "lse in log2 units": flash_attention_bwd(q, k, v, out, lse * LOG2E, dout, causal, slopes),
+            "delta dropped": flash_attention_bwd(q, k, v, torch.zeros_like(out), lse, dout, causal, slopes),
+            "dK without scale": (got[0], got[1] * d ** 0.5, got[2]),
+            "dO shifted by one query": flash_attention_bwd(q, k, v, out, lse, F.pad(dout[:, 1:], shift), causal,
+                                                           slopes),
+            "k/v shifted by one key": flash_attention_bwd(q, F.pad(k[:, 1:], shift), F.pad(v[:, 1:], shift), out,
+                                                          lse, dout, causal, slopes),
+        }
+        if slopes is not None:
+            faults["bias left out"] = flash_attention_bwd(q, k, v, out, lse, dout, causal)
+        for name, bad in faults.items():
+            assert not _worst(bad, want) <= 2e-2, (name, slopes is not None)  # NaN breaks it too
 
 
 @pytest.mark.gpu
