@@ -8,17 +8,25 @@ Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is switched off for matmuls and cuDNN convolutions.
   2. build: the CUDA C++ kernels (K1 and K3, K4, K5-K7 with K10 and K11,
-     K8, K9, the probes' kernels and their GEMV geometries; one nvcc per
-     source, all at once, into build/supir_tpu_torch/) with ptxas'
-     registers and spills (for each of the forward's eight instantiations,
-     K1/K3 x D 64/128 x ALiBi), and K2 (Triton).
+     the tensor-core GEMV of K5, K6 and K7 int8, K8, K9, the probes'
+     kernels and their GEMV geometries; one nvcc per source, all at once,
+     into build/supir_tpu_torch/) with ptxas' registers and spills (for
+     each of the forward's eight instantiations, K1/K3 x D 64/128 x ALiBi,
+     and the tensor-core GEMV's six, which may not spill), and K2 (Triton).
   3. kernels against their plain PyTorch versions on the card, with
      CUDA-event or CUDA-graph times of both, the least time the card could
      take (bound) and, where one PyTorch call computes the same function,
      its time: K1 and K2 at the restore path's shapes, K1 causal, and K5
      (also in its act_int8 mode), K6, K7, K8, K10 and K11 at the 13B
      captioner's decode shapes and K9 at its two pairs per layer, for 1 and
-     8 rows (with K9's co-resident grid), and K3 (the forward with
+     8 rows (with K9's co-resident grid), K5 and K7 int8 also at 32 rows
+     and in turns with the strip body they replaced (gemv_sweep.cu's
+     instances), with the tensor-core body's planted faults (one block's
+     share dropped, the combine run twice, x' staged out of order) and two
+     runs bit-identical; beside K6, K7 and K11 one PyTorch call computing
+     the same function (torch._weight_int8pack_mm, torch._weight_int4pack_mm),
+     held to the plain version, and beside K5 the int4 call without the
+     prologue; and K3 (the forward with
      logsumexp) and K4 (the backward) at the training path's shapes and
      causal at Llama-13B's, and K3 ALiBi and K4 ALiBi at the MPT-7B
      prefill's shape and a non-causal one. Each is held to a stated bound,
@@ -291,6 +299,26 @@ def _instances(report: str, kernel: str):
     return rows
 
 
+def _tc_instances(report: str):
+    """(mode, n-tiles, registers, spill stores, spill loads) of each
+    qgemv_tc_kernel<MODE, NT> instance in nvcc's -Xptxas -v output."""
+    rows, current, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        name = re.search(r"(?:Compiling entry function|Function properties for) '?\S*qgemv_tc_kernelILi(\d+)ELi(\d+)E",
+                         line)
+        if name:
+            current = (int(name.group(1)), int(name.group(2)))
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if current and spill:
+            spills = (int(spill.group(1)), int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if current and used:
+            rows.append(current + (int(used.group(1)),) + spills)
+            current, spills = None, (0, 0)
+    return rows
+
+
 def phase_build():
     from supir_tpu_torch.ops import cuda_build, groupnorm as k2
     from supir_tpu_torch.ops import flash_attention as k1, probes as kp, quantize as kq
@@ -318,6 +346,16 @@ def phase_build():
     for source, rows in ((k1._FWD_SOURCE, fwd), (k1._BWD_SOURCE, bwd)):
         if reports[source] and len(rows) != 8:  # no report: the library was built earlier
             raise AssertionError(f"expected 8 instantiations in the ptxas report of {source}, found {len(rows)}")
+    # the tensor-core GEMV's six instances (K5/K6 paired and K7 int8, 1, 2 or
+    # 4 n-tiles of 8 rows): registers and spills, and no spill allowed
+    report = cuda_build.ptxas_report(kq._TC_SOURCE)
+    tc = _tc_instances(report)
+    for mode, nt, regs, stores, loads in sorted(tc):
+        log(f"[build] qgemv_tc_kernel<{'paired' if mode == 0 else 'int8'}, n-tiles {nt}> "
+            f"({'K5/K6' if mode == 0 else 'K7 int8'}, up to {8 * nt} rows): {regs} registers, spill stores "
+            f"{stores} B, spill loads {loads} B")
+    if report and (len(tc) != 6 or any(st or ld for *_, st, ld in tc)):
+        raise AssertionError(f"the tensor-core GEMV's instances: expected 6 without spills, found {tc}")
     log(f"[build] K9 grid: {kq.pair_grid_blocks(1)} co-resident blocks at 1 row, {kq.pair_grid_blocks(8)} at 8 "
         f"(occupancy API x SMs; its cooperative launch takes at most that many)")
     t1 = time.perf_counter()
@@ -534,13 +572,16 @@ def _probe_counters():
             "T4b": _GeometryCount(Q.int4_native_matmul)}
 
 
-def _probe_row(label, kernel, plain, copies, moved_bytes, faults, want=None, rel_bound=None, library=None):
+def _probe_row(label, kernel, plain, copies, moved_bytes, faults, want=None, rel_bound=None, library=None,
+               lib_copies=None, lib_name="torch.sum"):
     """One probe kernel at one geometry: kernel(*copies[0]) against `want`
     (default plain(*copies[0])), bit for bit when rel_bound is None, else by
     relative L2; each planted fault (name, call) must break that. Device
     times chained over the copies through one CUDA graph (graph_ms), the
     plain version over at most four of them; `library` is one PyTorch
-    call computing the same function, timed beside it."""
+    call computing the same function, timed beside it over `copies`, or
+    over `lib_copies` (its own layout of the same weights; then held to
+    `want` by rel_bound first)."""
     import torch
 
     out = kernel(*copies[0])
@@ -566,10 +607,12 @@ def _probe_row(label, kernel, plain, copies, moved_bytes, faults, want=None, rel
             raise AssertionError(f"the bound misses a planted fault ({label} {name})")
     ms = graph_ms([lambda c=c: kernel(*c) for c in copies])
     plain_ms = graph_ms([lambda c=c: plain(*c) for c in copies[:4]], replays=2)
-    lib_ms = graph_ms([lambda c=c: library(*c) for c in copies]) if library else None
+    if lib_copies is not None:
+        _check_rel(f"{label} {lib_name}", rel_l2(library(*lib_copies[0]), want), rel_bound)
+    lib_ms = graph_ms([lambda c=c: library(*c) for c in lib_copies or copies]) if library else None
     bound_ms, bound_by = bound(moved_bytes)
     log(f"[probes] {label}: {reading}, max_abs_err {err:.3e}; {ms:.4f} ms vs plain {plain_ms:.4f} ms"
-        f"{'' if lib_ms is None else f', torch.sum {lib_ms:.4f} ms'} (device, CUDA graph over {len(copies)} "
+        f"{'' if lib_ms is None else f', {lib_name} {lib_ms:.4f} ms'} (device, CUDA graph over {len(copies)} "
         f"copies), bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.0%} of it)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
@@ -620,11 +663,23 @@ def phase_probes():
         [("bytes read as int8", lambda: P.column_sum_2d(q0, 1280, 1920, _fault=1)),
          ("last row block dropped", lambda: P.column_sum_2d(q0, 1280, 1920, _fault=2))], library=lib)
     x8 = torch.randn(8, cin, generator=g, device=dev).to(torch.bfloat16)
+
+    def tinygemm(unpack, layouts, xx):
+        """The int4 yardstick (tinygemm) of these weights' values, its own
+        layout made once per copy; (fn of the copy, copies), or (None, None)."""
+        made = [_try_library(_int4_library, unpack(q), scale) for (q,) in layouts]
+        if any(m is None for m in made):
+            return None, None
+        return (lambda w_, s_: made[0][0](xx, w_, s_)), [m[1] for m in made]
+
+    lib, lib_qs = tinygemm(Q.unpack_int4, qs, x8)
     rows["T1c"] = _probe_row(
         "T1c K7 int4 half-split [8,5120]x[2560,15360] strip 128", lambda q: Q.int4_matmul(x8, q, scale, strip=128),
         lambda q: Q.qmm_plain(x8, q, scale, 4), qs, per + nbytes(x8, scale) + 8 * cout * 4,
         [("scale left out", lambda: Q.int4_matmul(x8, q0, ones, strip=128))],
-        want=Q.qmm_plain(x8.float(), q0, scale, 4), rel_bound=GEMV_REL_BOUND)
+        want=Q.qmm_plain(x8.float(), q0, scale, 4), rel_bound=GEMV_REL_BOUND, library=lib, lib_copies=lib_qs,
+        lib_name="tinygemm")
+    lib, lib_qs = tinygemm(Q.unpack_int4_paired, qs, x8)
     xq = torch.randint(-127, 128, (1, cin), dtype=torch.int8, generator=g, device=dev)
     rows["T2"] = _probe_row(
         "T2 W4A8 qkv [1,5120]x[2560,15360] strip 32 split-K 2", lambda q: P.w4a8_preact(xq, q, scale, 32, 2),
@@ -636,8 +691,9 @@ def phase_probes():
         lambda q: P.int4_single_cast_matmul(x8, q, scale, 256), lambda q: P.int4_single_cast_matmul_plain(x8, q, scale),
         qs, per + nbytes(x8, scale) + 8 * cout * 4,
         [("scale left out", lambda: P.int4_single_cast_matmul(x8, q0, ones, 256))],
-        want=P.int4_single_cast_matmul_plain(x8.float(), q0, scale), rel_bound=GEMV_REL_BOUND)
-    del qs, q0
+        want=P.int4_single_cast_matmul_plain(x8.float(), q0, scale), rel_bound=GEMV_REL_BOUND, library=lib,
+        lib_copies=lib_qs, lib_name="tinygemm")
+    del qs, q0, lib, lib_qs
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -646,12 +702,15 @@ def phase_probes():
           for _ in range(8)]
     sn = torch.rand(1, dcout, generator=g, device=dev) * 0.01 + 0.001
     x1 = torch.randn(1, dcin, generator=g, device=dev).to(torch.bfloat16)
+    scale = sn
+    lib, lib_qs = tinygemm(Q.unpack_int4_native, qn, x1)
     rows["T4b"] = _probe_row(
         "T4b K11 down [1,13824]x[13824,5120] strip 256", lambda q: Q.int4_native_matmul(x1, q, sn, strip=256),
         lambda q: Q.int4_native_matmul_plain(x1, q, sn), qn, dcin * dcout // 2 + nbytes(x1, sn) + dcout * 4,
         [("scale left out", lambda: Q.int4_native_matmul(x1, qn[0][0], torch.ones_like(sn), strip=256))],
-        want=Q.int4_native_matmul_plain(x1.float(), qn[0][0], sn), rel_bound=GEMV_REL_BOUND)
-    del qn
+        want=Q.int4_native_matmul_plain(x1.float(), qn[0][0], sn), rel_bound=GEMV_REL_BOUND, library=lib,
+        lib_copies=lib_qs, lib_name="tinygemm")
+    del qn, lib, lib_qs
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -690,13 +749,45 @@ def _worst_rel(got, want) -> float:
     return max(rel_l2(g_, w_) for g_, w_ in zip(_outputs(got), _outputs(want)))
 
 
-def _gemv_row(label, kernel, plain, x, weights, out_bytes, faults=(), rel_bound=GEMV_REL_BOUND):
+def _copies(weights, w_bytes: int):
+    """The weights and enough clones that together they exceed twice the L2
+    cache, so each call of a chain streams its weights from device memory."""
+    return [weights] + [tuple(t.clone() for t in weights) for _ in range(int(2 * L2_BYTES // w_bytes))]
+
+
+def _library_row(label, library, x, want, rel_bound):
+    """One PyTorch call computing a GEMV's function, library = (fn, weights
+    in its own layout, made once): held to the plain version's `want` by
+    `rel_bound` and timed like the kernel (CUDA graph over weight copies
+    larger than L2). Returns (ms, note); ms None and the error in the note
+    when the op raises at this shape."""
+    import torch
+
+    fn, lw = library
+    try:
+        rel = _worst_rel(fn(x, *lw), want)
+    except RuntimeError as exc:  # the op refuses this shape or layout
+        return None, f"none ({str(exc).splitlines()[0][:160]})"
+    _check_rel(f"{label} library call", rel, rel_bound)
+    copies = _copies(lw, nbytes(*lw))
+    ms = graph_ms([lambda c=c: fn(x, *c) for c in copies])
+    del copies
+    torch.cuda.empty_cache()
+    return ms, f"rel_l2 {rel:.3e}"
+
+
+def _gemv_row(label, kernel, plain, x, weights, out_bytes, faults=(), rel_bound=GEMV_REL_BOUND, library=None,
+              before=None):
     """Hold one GEMV kernel call, kernel(x, *weights), to its plain version
     in fp32 on the same inputs (each output by relative L2), and time both
-    as the decode meets them: device time from a CUDA graph (graph_ms) over
-    copies of the weights that together exceed the L2 cache, so each call
-    streams its weights from device memory. Each planted fault (label, call
-    of x) must break the bound. Returns the row's numbers."""
+    as the decode meets them: device time from a CUDA graph (graph_ms) of
+    one call on each of several copies of the weights that together exceed
+    twice the L2 cache, so each call streams its weights from device memory. Each planted fault (label, call
+    of x) must break the bound. `library`: (fn, its weights), one PyTorch
+    call computing the same function (_library_row). `before`: an older
+    kernel of the same function, held to the same bound and timed in turns
+    with this one (before, kernel, kernel, before). Returns the row's
+    numbers."""
     import torch
 
     out = kernel(x, *weights)
@@ -704,20 +795,35 @@ def _gemv_row(label, kernel, plain, x, weights, out_bytes, faults=(), rel_bound=
     rel = _worst_rel(out, want)
     err = max((g_ - w_).abs().max().item() for g_, w_ in zip(_outputs(out), _outputs(want)))
     w_bytes = nbytes(*weights)
-    copies = [weights] + [tuple(t.clone() for t in weights) for _ in range(int(2 * L2_BYTES // w_bytes))]
-    ms = graph_ms([lambda c=c: kernel(x, *c) for c in copies for _ in range(2)])
+    copies = _copies(weights, w_bytes)
+    chain = [lambda c=c: kernel(x, *c) for c in copies]  # each copy once: a copy read twice in a row hits L2
+    before_ms = before_note = None
+    if before is not None:
+        brel = _worst_rel(before(x, *weights), want)
+        _check_rel(f"{label} (before)", brel, rel_bound)
+        old = [lambda c=c: before(x, *c) for c in copies]
+        t_old, t_new, t_new2, t_old2 = graph_ms(old), graph_ms(chain), graph_ms(chain), graph_ms(old)
+        ms, before_ms = (t_new + t_new2) / 2, (t_old + t_old2) / 2
+        before_note = (f"; before {t_old:.4f}, {t_old2:.4f} ms, now {t_new:.4f}, {t_new2:.4f} ms in turns "
+                       f"({before_ms / ms:.2f}x)")
+    else:
+        ms = graph_ms(chain)
     plain_ms = graph_ms([lambda c=c: plain(x, *c) for c in copies[:4]], replays=2)
     bound_ms, bound_by = bound(nbytes(x) + w_bytes + out_bytes)
     ref = max(w_.abs().max().item() for w_ in _outputs(want))
+    del copies, chain
+    torch.cuda.empty_cache()
+    lib_ms, lib_note = _library_row(label, library, x, want, rel_bound) if library else (None, "none")
     log(f"[kernels] {label}: rel_l2 {rel:.3e} (bound {rel_bound:g}), max_abs_err {err:.3e}, "
         f"max|ref| {ref:.2f}; {ms:.4f} ms vs plain {plain_ms:.4f} ms (device, CUDA graph, "
-        f"{len(copies)} weight copies), bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.0%} of it)")
+        f"{int(2 * L2_BYTES // w_bytes) + 1} weight copies), bound {bound_ms:.4f} ms ({bound_by}, "
+        f"{bound_ms / ms:.0%} of it){before_note or ''}; library "
+        + (lib_note if lib_ms is None else f"{lib_ms:.4f} ms ({lib_note}, kernel {lib_ms / ms:.2f}x its speed)"))
     _check_rel(label, rel, rel_bound)
     for name, bad in faults:
         _check_fault(f"{label} {name}", _worst_rel(bad(x), want), rel_bound)
-    del copies
-    torch.cuda.empty_cache()
-    return dict(max_abs_err=err, rel=rel, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=err, rel=rel, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms, before_ms=before_ms, library_note=lib_note)
 
 
 def _check_int8_quantizer(label, w, seeds: int = 64):
@@ -755,28 +861,91 @@ def _check_int8_quantizer(label, w, seeds: int = 64):
     return dict(max_abs_err=float(mismatched), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
+TINYGEMM_GROUP = 128  # the int4 yardstick's group size: every 13B cin is a multiple of it
+
+
+def _int8_library(q8, s8):
+    """K7's function as one PyTorch call, torch._weight_int8pack_mm: the
+    int8 weight as [N, K] and the scales in bf16 (the layout work done once,
+    here). Its output is bf16."""
+    import torch
+
+    return (lambda xx, w_, s_: torch._weight_int8pack_mm(xx, w_, s_)), (q8.t().contiguous(),
+                                                                       s8.reshape(-1).to(torch.bfloat16))
+
+
+def _int4_library(q, scale):
+    """The int4 weight-only GEMV as one PyTorch call, the tinygemm kernel
+    torch._weight_int4pack_mm: q the int4 values [K, N] in [-8, 7] (any of
+    the port's three layouts, unpacked), packed offset by +8 as [N, K/2]
+    bytes (even k in the high nibble) through _convert_weight_to_int4pack;
+    the per-channel scale repeated over groups of TINYGEMM_GROUP, zeros 0."""
+    import torch
+
+    u = (q.to(torch.int32) + 8).t().contiguous()
+    packed = torch._convert_weight_to_int4pack(((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8), 8)
+    groups = q.shape[0] // TINYGEMM_GROUP
+    sz = torch.stack([scale.reshape(1, -1).float().expand(groups, -1),
+                      torch.zeros(groups, q.shape[1], device=q.device)], -1).to(torch.bfloat16).contiguous()
+    return (lambda xx, w_, s_: torch._weight_int4pack_mm(xx, w_, TINYGEMM_GROUP, s_)), (packed, sz)
+
+
+def _try_library(make, *args):
+    """(fn, weights) from `make`, or None with the error logged when the op
+    is missing or refuses the layout."""
+    try:
+        return make(*args)
+    except (RuntimeError, AttributeError) as exc:
+        log(f"[kernels] library yardstick {make.__name__}: none ({str(exc).splitlines()[0][:160]})")
+        return None
+
+
 def phase_quant_kernels():
     """K5 (also in its act_int8 mode), K6, K7 (int8 and half-split int4),
     K8, K10 and K11 at the 13B decode shapes, and K9 at the layer's two
-    pairs, for 1 and 8 rows; returns each kernel's JSON numbers, its times
-    summed over one layer's projections (K9: its two pairs) at 1 row (the
-    main path's)."""
+    pairs, for 1 and 8 rows, K5 and K7 int8 also 32; K5 and K7 int8 in
+    turns with the strip body they replaced; the library yardsticks of K6,
+    K7 (int8 and int4) and K11. Returns each kernel's JSON numbers, its
+    times summed over one layer's projections (K9: its two pairs) at 1 row
+    (the main path's)."""
     import gc
 
     import torch
 
-    from supir_tpu_torch.ops import quantize as Q
+    from supir_tpu_torch.ops import gemv_plan as GP, quantize as Q
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4321)
     names = ("K5", "K5-act", "K6", "K7", "K7-int4", "K8", "K9", "K10", "K11")
-    layer = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by="bytes") for k in names}
+    layer = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by="bytes", library_ms=0.0)
+             for k in names}
+    by_rows = {}  # (kernel, rows) -> [ms, before ms, bound ms] over the layer
 
-    def add(name, row):
-        acc = layer[name]
-        acc["max_abs_err"] = max(acc["max_abs_err"], row["max_abs_err"])
-        for key in ("ms", "plain_ms", "bound_ms"):
-            acc[key] += row[key]
+    def add(name, row, rows=1):
+        if rows == 1:
+            acc = layer[name]
+            acc["max_abs_err"] = max(acc["max_abs_err"], row["max_abs_err"])
+            for key in ("ms", "plain_ms", "bound_ms"):
+                acc[key] += row[key]
+            lib = row.get("library_ms")
+            acc["library_ms"] = None if lib is None or acc["library_ms"] is None else acc["library_ms"] + lib
+        if row.get("before_ms") is not None:
+            acc = by_rows.setdefault((name, rows), [0.0, 0.0, 0.0])
+            for i, key in enumerate(("ms", "before_ms", "bound_ms")):
+                acc[i] += row[key]
+
+    def tc_faults(mode, cin, rows, cout, call, **kw):
+        """The tensor-core body's planted faults (gemv_plan.FAULT_*), and two
+        runs bit-identical."""
+        first = call()
+        if not torch.equal(first, call()):
+            raise AssertionError(f"two runs of the tensor-core GEMV ({mode}, {rows} rows, cout {cout}) differ")
+        faults = [("one share dropped", GP.FAULT_DROP_SHARE), ("x' staged in the wrong k order", GP.FAULT_X_ORDER)]
+        if GP.tc_plan(mode, rows, cin, cout, torch.cuda.get_device_properties(dev).multi_processor_count).slices > 1:
+            faults.append(("combine run twice", GP.FAULT_COMBINE_TWICE))
+        return [(name, lambda xx, f=f: Q._launch_gemv(xx, *kw["weights"], mode, cin, kw.get("gamma"), 1e-6,
+                                                           kw.get("prologue", 0), kw.get("residual"), _fault=f))
+                for name, f in faults]
 
     paired = {}
     for proj, cin, cout, prologue, with_residual in LLAMA_13B_SHAPES:
@@ -787,7 +956,9 @@ def phase_quant_kernels():
         add("K8", _check_int8_quantizer(f"K8 {proj} [{cin},{cout}] fp32", w))
         q8, s8 = Q.quantize_int8(w, seed=SEED)
         del w
-        for rows in (1, 8):
+        lib8 = _try_library(_int8_library, q8, s8)
+        lib4 = _try_library(_int4_library, Q.unpack_int4_paired(packed), scale)
+        for rows in (1, 8, 32):
             xin = 2 * cin if prologue == "siluglu" else cin
             x = torch.randn(rows, xin, generator=g, device=dev).to(torch.bfloat16)
             xg = x[:, :cin].contiguous()
@@ -798,7 +969,10 @@ def phase_quant_kernels():
             tag = f"{proj} [{rows},{cin}]->[{rows},{cout}]"
             swapped = ("nibble order swapped", lambda xx: Q.int4_paired_fused_matmul(
                 xx, _swap_nibbles(packed), scale, **kw))
-            faults = [swapped]
+            pro = 1 if gamma is not None else (2 if kw["siluglu"] else 0)
+            faults = [swapped] + tc_faults("paired", cin, rows, cout,
+                                           lambda: Q.int4_paired_fused_matmul(x, packed, scale, **kw),
+                                           weights=(packed, scale), gamma=gamma, prologue=pro, residual=residual)
             if gamma is not None:
                 faults.append(("RMSNorm without gamma", lambda xx: Q.int4_paired_fused_matmul(
                     xx, packed, scale, **dict(kw, gamma=torch.ones_like(gamma)))))
@@ -806,9 +980,24 @@ def phase_quant_kernels():
             row = _gemv_row(f"K5 {tag} prologue {prologue} residual {with_residual}",
                             lambda xx, p, sc: Q.int4_paired_fused_matmul(xx, p, sc, **kw),
                             lambda xx, p, sc: Q.int4_paired_fused_matmul_plain(xx, p, sc, **kw), x,
-                            (packed, scale), out_bytes + extra, faults)
-            if rows == 1:
-                add("K5", row)
+                            (packed, scale), out_bytes + extra, faults,
+                            before=lambda xx, p, sc: Q.strip_body_gemv(xx, p, sc, "paired", **kw))
+            add("K5", row, rows)
+            if lib4 is not None:
+                # no torch call fuses the prologue: tinygemm on the same weights without it
+                lib_ms, note = _library_row(f"K5 {tag} tinygemm", lib4, xg,
+                                            Q.int4_paired_matmul_plain(xg.float(), packed, scale), GEMV_REL_BOUND)
+                log(f"[kernels] K5 {tag}: tinygemm on the same weights without the prologue "
+                    + (note if lib_ms is None else f"{lib_ms:.4f} ms ({note}); K5 {row['ms']:.4f} ms"))
+            want8 = Q.qmm_plain(xg.float(), q8, s8, 8)
+            row = _gemv_row(f"K7 int8 {tag}", Q.int8_matmul, lambda xx, q, sc: Q.qmm_plain(xx, q, sc, 8), xg,
+                            (q8, s8), out_bytes,
+                            tc_faults("int8", cin, rows, cout, lambda: Q.int8_matmul(xg, q8, s8), weights=(q8, s8)),
+                            library=lib8, before=lambda xx, q, sc: Q.strip_body_gemv(xx, q, sc, "int8"))
+            del want8
+            add("K7", row, rows)
+            if rows == 32:
+                continue
             act_faults = [("nibble order swapped", lambda xx: Q.int4_paired_fused_matmul(
                 xx, _swap_nibbles(packed), scale, act_int8=True, **kw))]
             if gamma is not None:
@@ -820,34 +1009,29 @@ def phase_quant_kernels():
                             lambda xx, p, sc: Q.int4_paired_fused_matmul(xx, p, sc, act_int8=True, **kw),
                             lambda xx, p, sc: Q.int4_paired_fused_matmul_plain(xx, p, sc, act_int8=True, **kw), x,
                             (packed, scale), out_bytes + extra, act_faults)
-            if rows == 1:
-                add("K5-act", row)
+            add("K5-act", row, rows)
             row = _gemv_row(f"K6 {tag}", Q.int4_paired_matmul, Q.int4_paired_matmul_plain, xg, (packed, scale),
                             out_bytes,
-                            [("nibble order swapped", lambda xx: Q.int4_paired_matmul(xx, _swap_nibbles(packed), scale))])
-            if rows == 1:
-                add("K6", row)
+                            [("nibble order swapped", lambda xx: Q.int4_paired_matmul(xx, _swap_nibbles(packed), scale))]
+                            + tc_faults("paired", cin, rows, cout, lambda: Q.int4_paired_matmul(xg, packed, scale),
+                                        weights=(packed, scale)),
+                            library=lib4)
+            add("K6", row, rows)
             row = _gemv_row(f"K10 {tag}", Q.int4_w4a8_matmul, Q.int4_w4a8_matmul_plain, xg, (packed, scale),
                             out_bytes,
                             [("activation scale without 1/127", lambda xx: Q.int4_w4a8_matmul(xx, packed, scale) * 127),
                              ("nibble order swapped", lambda xx: Q.int4_w4a8_matmul(xx, _swap_nibbles(packed), scale))],
                             rel_bound=W4A8_REL_BOUND)
-            if rows == 1:
-                add("K10", row)
+            add("K10", row, rows)
             row = _gemv_row(f"K11 {tag}", Q.int4_native_matmul, Q.int4_native_matmul_plain, xg, (qn, sn), out_bytes,
-                            [("column nibbles swapped", lambda xx: Q.int4_native_matmul(xx, _swap_nibbles(qn), sn))])
-            if rows == 1:
-                add("K11", row)
-            row = _gemv_row(f"K7 int8 {tag}", Q.int8_matmul, lambda xx, q, sc: Q.qmm_plain(xx, q, sc, 8), xg,
-                            (q8, s8), out_bytes)
-            if rows == 1:
-                add("K7", row)
+                            [("column nibbles swapped", lambda xx: Q.int4_native_matmul(xx, _swap_nibbles(qn), sn))],
+                            library=lib4)
+            add("K11", row, rows)
             row = _gemv_row(f"K7 int4 half-split {tag}", Q.int4_matmul, lambda xx, q, sc: Q.qmm_plain(xx, q, sc, 4),
                             xg, (q4, s4), out_bytes,
-                            [("halves swapped", lambda xx: Q.int4_matmul(xx, _swap_nibbles(q4), s4))])
-            if rows == 1:
-                add("K7-int4", row)
-        del q4, q8, qn
+                            [("halves swapped", lambda xx: Q.int4_matmul(xx, _swap_nibbles(q4), s4))], library=lib4)
+            add("K7-int4", row, rows)
+        del q4, q8, qn, lib8, lib4
     for label, first, second, siluglu1 in LLAMA_13B_PAIRS:
         (qp1, sc1), (qp2, sc2) = paired[first], paired[second]
         cin1, cout1, cout2 = 2 * qp1.shape[0], qp1.shape[1], qp2.shape[1]
@@ -873,9 +1057,16 @@ def phase_quant_kernels():
     for name in names:
         r = layer[name]
         what = "two pairs" if name == "K9" else "four projections"
+        lib = "" if r["library_ms"] is None or not r["library_ms"] else f", library {r['library_ms']:.4f} ms"
         log(f"[kernels] {name} over one 13B layer's {what} (1 row): {r['ms']:.4f} ms vs plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); x40 layers: "
-            f"{40 * r['ms']:.3f} ms, bound {40 * r['bound_ms']:.3f} ms")
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} "
+            f"of it){lib}; x40 layers: {40 * r['ms']:.3f} ms, bound {40 * r['bound_ms']:.3f} ms")
+        if name in ("K5", "K8", "K9", "K10", "K5-act") or not r["library_ms"]:
+            r["library_ms"] = None   # no torch call computes the function (or it refused a projection)
+    for (name, rows), (ms, before_ms, bound_ms) in sorted(by_rows.items()):
+        log(f"[kernels] {name} over one 13B layer at {rows} rows: {ms:.4f} ms (strip body before it "
+            f"{before_ms:.4f} ms, {before_ms / ms:.2f}x), bound {bound_ms:.4f} ms, {bound_ms / ms:.1%} of it; "
+            f"{ms / by_rows[(name, 1)][0]:.2f}x its 1-row time")
     return layer
 
 
@@ -2440,9 +2631,9 @@ def main() -> int:
         "K2": ("triton", "supir_tpu_torch/ops/groupnorm.py", "supir_tpu/ops/groupnorm.py:40"),
         "K3": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:164"),
         "K4": ("cuda", "supir_tpu_torch/csrc/flash_attn_bwd.cu", "supir_tpu/ops/flash_attention.py:499"),
-        "K5": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:260"),
-        "K6": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:116"),
-        "K7": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:606"),
+        "K5": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:260"),
+        "K6": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:116"),
+        "K7": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:606"),
         "K8": ("cuda", "supir_tpu_torch/csrc/quantize_int8.cu", "supir_tpu/ops/quantize.py:21"),
         "K5-act": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:291"),
         "K9": ("cuda", "supir_tpu_torch/csrc/quant_pair.cu", "supir_tpu/ops/quantize.py:398"),

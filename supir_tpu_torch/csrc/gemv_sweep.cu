@@ -1,7 +1,11 @@
 // The decode GEMVs at other launch geometries, for the probes T1c, T2 and
 // T4b (supir_tpu_torch/tools/): the bodies of quant_gemv.cuh, instantiated
 // at strips of 64, 128 and 256 output columns per block and, for K10's
-// W4A8 body, split-K of 2 and 4 as well.
+// W4A8 body, split-K of 2 and 4 as well. And the strip body's paired
+// (every prologue, with and without residual) and int8 instances at the
+// model paths' strip of 32 (supir_qgemv_strip): the kernel K5, K6 and K7
+// int8 ran before quant_gemv_tc.cu, kept so that one run can time the two
+// side by side; no model path launches it from here.
 //
 // Replace the TPU probes' forced block widths:
 //   T1c  tools/stream_ceiling.py:162, K7's _qmm_kernel (supir_tpu/ops/
@@ -91,7 +95,55 @@ cudaError_t w4a8_split(const void* xq, int ldx, const void* xs, const void* w, c
   return cudaErrorInvalidValue;
 }
 
+template <int MODE, int BT, int PRO, bool RES>
+cudaError_t launch_strip(const void* x, int ldx, const float* gamma, float eps, const void* w, const void* scale,
+                         const float* residual, void* out, int B, int cin, int cout, cudaStream_t stream) {
+  const dim3 grid((cout + STRIP - 1) / STRIP, (B + BT - 1) / BT);
+  gemv_kernel<MODE, BT, PRO, RES><<<grid, THREADS, 0, stream>>>(
+      static_cast<const bf16*>(x), ldx, gamma, eps, static_cast<const uint8_t*>(w),
+      static_cast<const float*>(scale), residual, static_cast<float*>(out), B, cin, cout);
+  return cudaGetLastError();
+}
+
+template <int BT>
+cudaError_t strip_flags(const void* x, int ldx, const float* gamma, float eps, int pro, const void* w,
+                        const void* scale, const float* res, void* out, int B, int cin, int cout, int mode,
+                        cudaStream_t s) {
+  if (mode == INT8) {
+    if (pro != PRO_NONE || res) return cudaErrorInvalidValue;
+    return launch_strip<INT8, BT, PRO_NONE, false>(x, ldx, gamma, eps, w, scale, res, out, B, cin, cout, s);
+  }
+  if (mode != PAIRED) return cudaErrorInvalidValue;
+  if (pro == PRO_NONE)
+    return res ? launch_strip<PAIRED, BT, PRO_NONE, true>(x, ldx, gamma, eps, w, scale, res, out, B, cin, cout, s)
+               : launch_strip<PAIRED, BT, PRO_NONE, false>(x, ldx, gamma, eps, w, scale, res, out, B, cin, cout, s);
+  if (pro == PRO_NORM)
+    return res ? launch_strip<PAIRED, BT, PRO_NORM, true>(x, ldx, gamma, eps, w, scale, res, out, B, cin, cout, s)
+               : launch_strip<PAIRED, BT, PRO_NORM, false>(x, ldx, gamma, eps, w, scale, res, out, B, cin, cout, s);
+  if (pro == PRO_SILUGLU)
+    return res ? launch_strip<PAIRED, BT, PRO_SILUGLU, true>(x, ldx, gamma, eps, w, scale, res, out, B, cin, cout, s)
+               : launch_strip<PAIRED, BT, PRO_SILUGLU, false>(x, ldx, gamma, eps, w, scale, res, out, B, cin, cout,
+                                                              s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// supir_qgemv_strip: the strip body's paired (mode 0) and int8 (mode 2)
+// GEMV at strip 32, with the arguments of quant_gemv.cu's supir_qgemv;
+// tiles of 1 row, or 8 rows (more rows take further tiles). Returns the
+// launch's cudaError_t.
+extern "C" int supir_qgemv_strip(const void* x, int ldx, const void* gamma, float eps, int prologue, const void* w,
+                                 const void* scale, const void* residual, void* out, int B, int cin, int cout,
+                                 int mode, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || cin <= 0 || cout <= 0 || cout % 8 || cin % 2) return (int)cudaErrorInvalidValue;
+  if (prologue == PRO_NORM && gamma == nullptr) return (int)cudaErrorInvalidValue;
+  const float* gm = static_cast<const float*>(gamma);
+  const float* res = static_cast<const float*>(residual);
+  if (B <= 1) return (int)strip_flags<1>(x, ldx, gm, eps, prologue, w, scale, res, out, B, cin, cout, mode, s);
+  return (int)strip_flags<8>(x, ldx, gm, eps, prologue, w, scale, res, out, B, cin, cout, mode, s);
+}
 
 // supir_qgemv_geo: K7's half-split int4 (mode 1) or K11's native int4
 // (mode 3) GEMV at a strip of 64, 128 or 256 columns; x bf16 [B, >= cin]

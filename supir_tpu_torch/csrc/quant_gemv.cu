@@ -45,8 +45,14 @@
 // stream; nothing of the prologue goes to device memory. More than 8 rows
 // take further row tiles (grid.y), each streaming the weights again. K11
 // reads 4 bytes (8 columns) per load where the others read 8, so a 32-byte
-// sector of its rows is shared by two neighbouring blocks. No wgmma, TMA or
-// cp.async yet: a simple right kernel first.
+// sector of its rows is shared by two neighbouring blocks.
+//
+// K5, K6 and K7's int8 instance run on the tensor cores with a TMA weight
+// stream instead (csrc/quant_gemv_tc.cu) whenever the call allows it
+// (cout % 16 == 0 and 16-byte aligned weights and rows: every model shape;
+// ops/gemv_plan.py:tc_eligible). Their instances here take the rest, a
+// cout of 8 mod 16 or an unaligned view; the half-split and native
+// layouts and W4A8 run only here.
 //
 // The kernels' bodies (gemv_kernel, w4a8_kernel) live in quant_gemv.cuh with
 // the strip width and K10's split-K count as template parameters; this file

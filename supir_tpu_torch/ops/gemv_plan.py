@@ -1,0 +1,382 @@
+"""The plan of the tensor-core decode GEMV (`csrc/quant_gemv_tc.cu`), which
+K5, K6 and K7's int8 instance launch: how the work is split over the SMs,
+how each thread maps its shared-memory words onto `mma.sync` fragments, and
+how the staged activations are ordered. The kernel walks exactly these
+rules; they live here so that the CPU tests reach them (`tc_emulate` walks
+the plan in torch and must equal the plain GEMVs).
+
+Work: the weights [wrows, cout] (paired int4 bytes, wrows = cin / 2, or int8,
+wrows = cin) are cut into strips of TC_STRIP output columns and chunks of
+TC_CHUNK_K values of the contraction (one TMA box: 64 packed rows or 128
+int8 rows by 128 bytes), and each strip's chunks into `slices` contiguous
+k-slices. A tile is one (strip, slice), numbered slice-major, and block b
+of a grid of G takes the tiles b, b + G, b + 2G, ...: at any moment the
+blocks work on one or two neighbouring k-slices of every strip, so the rows
+they read are read whole (a DRAM page is opened once, not once per block),
+and each block's work is within one tile of equal. `slices` is chosen per
+shape (`_choose_slices`): the most even split, traded against the partial
+sums it writes. A strip of one slice is stored by its tile's block; the
+slices of a strip are summed from their partials in slice order by the
+block that took its last slice (in the final round), so two runs give the
+same bits.
+
+Threads: 4 groups of 32 columns of the strip, TC_PARTS consumer warps each,
+each taking a part of every chunk's 16-k steps into `acc_sets(nt)`
+accumulator sets; at the tile's end each warp sums its sets in order, and
+the parts are summed in part order. Lane (g = lane / 4,
+t = lane % 4) reads one 4-byte word (4 columns) per weight row it needs, in
+the 128-byte swizzle TMA writes (16-byte chunk c of row r at c ^ (r % 8)):
+paired rows 2t and 2t + 1 of each 8-row (16 k) step, int8 rows 2t, 2t + 1,
+2t + 8, 2t + 9 of each 16-row step, so each load of a warp meets 32 banks.
+Columns 4g + 2F and 4g + 2F + 1 of the warp's 32 are rows g and g + 8 of A
+fragment F (F = 0, 1). In the paired layout a byte holds k = 2p and 2p + 1
+of one column, one bf16x2 register of A; the rows 2t and 2t + 1 the lane
+reads stand for the fragment's k pairs t and t + 4, a permutation of k
+inside the 16-k step that the activations are staged in too. In int8 the
+fragments' k order is the natural one.
+
+Activations: x' (bf16, after K5's prologue) is staged per row as 32-bit
+words, 8 per 16-k step: the word of k pair p at (p % 4) * 2 + p // 4, so
+that a lane's two B registers (pairs t and t + 4) are one 8-byte load; rows
+are `xrs` words apart (8 mod 32: the 8-byte loads of a warp meet no bank
+twice).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import torch
+
+TC_STRIP = 128      # output columns per strip: one 128-byte TMA box row
+TC_CHUNK_K = 128    # contraction values per chunk (a ring stage)
+TC_WARPS = 4        # column groups of 32 columns
+TC_MAX_ROWS = 32    # activation rows a launch takes (DECODE_ROWS)
+TC_BOX_ROWS = {"paired": 64, "int8": 128}   # weight rows per chunk
+TC_STAGES = {"paired": 16, "int8": 8}       # ring depth: 128 KB either way
+TC_XS_BYTES = 57344                         # staged-x' budget
+TC_MAX_STRIPS = 4096                        # the per-strip counters a device keeps
+TC_PART_BYTES = 16 * 2 ** 20                # the partial-sum scratch a device keeps
+TC_RED_BYTES = TC_WARPS * 32 * 32 * 4       # the step halves' sums: 32 lanes x up to 32 floats a group
+# csrc/quant_gemv_tc.cu's planted faults (tests and chip_smoke only)
+FAULT_DROP_SHARE, FAULT_COMBINE_TWICE, FAULT_X_ORDER = 1, 2, 3
+PLAN_FIELDS = ("rows", "cin", "cout", "wrows", "strips", "chunks", "slices", "tiles", "grid", "wch", "xrs",
+               "smem", "nt", "stages", "box_rows")
+
+
+TC_PARTS = 2        # consumer warps per column group: part p takes steps [4p, 4p + 4) of every chunk
+
+
+def acc_sets(nt: int) -> int:
+    """Accumulator sets per warp (csrc/quant_gemv_tc.cu:TcWarps::SETS): a
+    part's i-th step adds into set i % sets; the sets are summed in order at
+    the tile's end, then the parts in order."""
+    return 4 if nt == 1 else (2 if nt == 2 else 1)
+
+
+def tc_eligible(mode: str, cin: int, cout: int, w_ptr: int, x_ptr: int, ldx: int) -> bool:
+    """Whether the TMA body takes this call: the paired or int8 layout, a
+    weight row stride (cout bytes) that is a multiple of 16, a 16-byte
+    aligned weight base, and activation rows (and SiLU-GLU's second half,
+    cin % 8 == 0) that start 16-byte aligned. Anything else keeps the
+    strip body of quant_gemv.cuh."""
+    return (mode in TC_BOX_ROWS and cin % 8 == 0 and cout % 16 == 0 and w_ptr % 16 == 0 and x_ptr % 16 == 0
+            and ldx % 8 == 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class TcPlan:
+    mode: str
+    rows: int       # activation rows B
+    cin: int
+    cout: int
+    wrows: int      # weight rows: cin / 2 (paired) or cin (int8)
+    strips: int
+    chunks: int     # chunks per strip
+    slices: int     # k-slices per strip
+    tiles: int      # strips * slices
+    grid: int       # blocks, at most one per SM
+    wch: int        # chunks of x' one staging holds
+    xrs: int        # staged-x' row stride, 32-bit words
+    smem: int       # dynamic shared memory, bytes
+    nt: int         # n-tiles of 8 rows: 1, 2 or 4
+    stages: int
+    box_rows: int
+
+    def slice_chunks(self, p: int) -> tuple[int, int]:
+        """Slice p's chunks [c0, c1)."""
+        return p * self.chunks // self.slices, (p + 1) * self.chunks // self.slices
+
+    def tile(self, t: int) -> tuple[int, int]:
+        """Tile t's (strip, slice)."""
+        return t % self.strips, t // self.strips
+
+    def tiles_of(self, b: int) -> range:
+        """Block b's tiles, in the order it takes them."""
+        return range(b, self.tiles, self.grid)
+
+    def contributors(self, strip: int) -> list[int]:
+        """The tiles of `strip`, in the order the combine adds their partials."""
+        return [p * self.strips + strip for p in range(self.slices)]
+
+    def packed(self):
+        return _packed(self)
+
+
+@functools.lru_cache(maxsize=1024)
+def _packed(plan: TcPlan):
+    return (ctypes.c_int * len(PLAN_FIELDS))(*(getattr(plan, f) for f in PLAN_FIELDS))
+
+
+def _makespan(strips: int, chunks: int, slices: int, grid: int) -> int:
+    """The most chunks one block streams when `slices` k-slices per strip
+    are dealt round-robin over `grid` blocks."""
+    size = [(p + 1) * chunks // slices - p * chunks // slices for p in range(slices)]
+    tiles = strips * slices
+    return max(sum(size[t // strips] for t in range(b, tiles, grid)) for b in range(min(grid, tiles)))
+
+
+def _choose_slices(strips: int, chunks: int, grid: int, rows: int, chunk_bytes: int) -> int:
+    """The k-slices per strip: the least of (the bytes the busiest block
+    streams + a chunk a tile for its end + a quarter of the partial sums it
+    writes and the combine reads back, which stay in L2 + the combine's
+    wait, a quarter chunk a slice), the fewest slices on a tie, within the
+    device's partial-sum scratch."""
+    best = None
+    for slices in range(1, chunks + 1):
+        tiles = strips * slices
+        if slices > 1 and tiles * rows * TC_STRIP * 4 > TC_PART_BYTES:
+            break
+        per_block = -(-tiles // grid)
+        part = 0 if slices == 1 else per_block * rows * TC_STRIP * 4 * 2
+        # each tile's end holds the consumers about a chunk's streaming time,
+        # and the combine waits on one L2 read per slice, 8 at a time: about a
+        # quarter chunk a slice
+        cost = ((_makespan(strips, chunks, slices, grid) + per_block) * chunk_bytes + part // 4
+                + slices * chunk_bytes // 4)
+        if best is None or cost < best[0]:
+            best = (cost, slices)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=1024)
+def tc_plan(mode: str, rows: int, cin: int, cout: int, sms: int) -> TcPlan:
+    """The plan of one launch: `rows` activation rows against [cin, cout]
+    weights in `mode` ("paired" or "int8") on a card of `sms` SMs."""
+    if mode not in TC_BOX_ROWS:
+        raise ValueError(f"the tensor-core GEMV takes the paired and int8 layouts, not {mode}")
+    if not 1 <= rows <= TC_MAX_ROWS:
+        raise ValueError(f"the tensor-core GEMV takes 1-{TC_MAX_ROWS} activation rows, got {rows}")
+    if cin <= 0 or cin % 8 or cout <= 0 or cout % 16:
+        raise ValueError(f"the tensor-core GEMV needs cin % 8 == 0 and cout % 16 == 0, got {cin}, {cout}")
+    box_rows = TC_BOX_ROWS[mode]
+    wrows = cin // 2 if mode == "paired" else cin
+    strips = -(-cout // TC_STRIP)
+    if strips > TC_MAX_STRIPS:
+        raise ValueError(f"cout {cout} has more than {TC_MAX_STRIPS} strips")
+    chunks = -(-wrows // box_rows)
+    stage_bytes = box_rows * TC_STRIP
+    slices = _choose_slices(strips, chunks, sms, rows, stage_bytes)
+    tiles = strips * slices
+    grid = min(tiles, sms)
+    nt = 1 if rows <= 8 else (2 if rows <= 16 else 4)
+    # x' staging: `rows` rows of wch chunks (64 words each) plus 8 words of pad
+    wch = max(1, min(chunks, (TC_XS_BYTES // (4 * rows) - 8) // 64))
+    xrs = 64 * wch + 8
+    stages = TC_STAGES[mode]
+    # ring | x' window | the step halves' sums | rstd | finished tiles | barriers (+ go) | alignment slack
+    smem = (stages * stage_bytes + -(-4 * rows * xrs // 16) * 16 + TC_RED_BYTES + 4 * TC_MAX_ROWS + 16
+            + 16 * stages + 8 + 1024)
+    return TcPlan(mode, rows, cin, cout, wrows, strips, chunks, slices, tiles, grid, wch, xrs, smem, nt, stages,
+                  box_rows)
+
+
+# ------------------------------------------------- the kernel's index rules
+# Each mirrors one expression of csrc/quant_gemv_tc.cu.
+
+
+def swizzle(row: int, col: int) -> int:
+    """Byte offset in a stage of weight byte (row, col) as TMA writes it in
+    the 128-byte swizzle."""
+    return row * TC_STRIP + (((col >> 4) ^ (row & 7)) << 4) + (col & 15)
+
+
+def a_rows(mode: str, step: int, t: int) -> tuple[int, ...]:
+    """The stage rows lane (., t) reads in 16-k step `step`: paired 2t, 2t+1
+    of the step's 8 packed rows; int8 2t, 2t+1, 2t+8, 2t+9 of its 16."""
+    if mode == "paired":
+        r = 8 * step + 2 * t
+        return r, r + 1
+    r = 16 * step + 2 * t
+    return r, r + 1, r + 8, r + 9
+
+
+def a_word_offset(row: int, warp: int, g: int) -> int:
+    """Byte offset of the 4-byte word lane (g, .) of `warp` reads from stage
+    row `row`: columns 32 warp + 4g .. + 3."""
+    chunk = 2 * warp + (g >> 2)
+    return row * TC_STRIP + ((chunk ^ (row & 7)) << 4) + 4 * (g & 3)
+
+
+def a_register(mode: str, words, frag: int, reg: int):
+    """Register `reg` (0-3) of A fragment `frag` from the lane's words: as
+    (word index, byte index, nibble) for each of its two bf16 halves (low
+    half first); nibble is 0 (low), 1 (high) or None (an int8 byte).
+    reg 0: row g, k pair t; 1: row g + 8, pair t; 2: row g, pair t + 4;
+    3: row g + 8, pair t + 4 (the PTX m16n8k16 A layout)."""
+    byte = 2 * frag + (reg & 1)           # column 4g + 2 frag (+1 for row g + 8)
+    if mode == "paired":
+        word = reg >> 1                   # pair t: row 2t; pair t + 4: row 2t + 1
+        return (word, byte, 0), (word, byte, 1)
+    first = 2 * (reg >> 1)                # k 2t, 2t+1: rows 2t, 2t+1; k + 8: rows 2t+8, 2t+9
+    return (first, byte, None), (first + 1, byte, None)
+
+
+def x_word_k(mode: str, pos: int, fault: int = 0) -> tuple[int, int]:
+    """The two k offsets (inside a 16-k step) of staged word `pos`, low half
+    first. In the paired layout the lanes' row order and the word
+    interleave cancel, so its words hold k in natural order. FAULT_X_ORDER
+    drops the interleave (word pos holds k pair pos)."""
+    pair = pos if fault == FAULT_X_ORDER else (pos >> 1) + 4 * (pos & 1)   # pair p sits at (p % 4) * 2 + p // 4
+    if mode == "paired":
+        row = 2 * pair if pair < 4 else 2 * (pair - 4) + 1
+        return 2 * row, 2 * row + 1
+    return 2 * pair, 2 * pair + 1
+
+
+def c_column(warp: int, g: int, frag: int, reg: int) -> int:
+    """Strip column of accumulator register `reg` (0-3) of fragment `frag`:
+    c0, c1 row g, c2, c3 row g + 8 of the fragment."""
+    return 32 * warp + 4 * g + 2 * frag + (reg >> 1)
+
+
+# ------------------------------------------------------- torch emulation
+
+
+def _prologue_bf16(x, cin, gamma, eps, prologue):
+    """x' as the kernel stages it: fp32 prologue rounded to bf16, as float."""
+    xf = x.float()
+    if prologue == 1:
+        rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        xf = (xf * rstd) * gamma.float()
+    elif prologue == 2:
+        a = xf[:, :cin]
+        xf = (a * torch.sigmoid(a)) * xf[:, cin:2 * cin]
+    return xf[:, :cin].to(torch.bfloat16).float()
+
+
+def _decode(mode, stage, offs, nibble):
+    """Bytes of a stage image at offsets -> values (int4 nibble or int8)."""
+    b = stage[offs]
+    if mode == "paired":
+        v = (b >> (4 * nibble)) & 0xF
+        return ((v ^ 8) - 8).float()
+    return b.to(torch.int8).float()
+
+
+@functools.lru_cache(maxsize=8)
+def _fragment_maps(mode: str):
+    """Index maps of one warp's 16-k step: for each warp, step, fragment
+    and A element (m, kl): the stage byte offset and nibble it decodes; for
+    each B element (kl, word half): the staged word position. Built from
+    the lane-level rules above, through the PTX fragment layouts."""
+    steps = TC_BOX_ROWS[mode] // (8 if mode == "paired" else 16)
+    offs = torch.zeros(TC_WARPS, steps, 2, 16, 16, dtype=torch.long)
+    nib = torch.zeros(TC_WARPS, steps, 2, 16, 16, dtype=torch.long)
+    bpos = torch.zeros(16, dtype=torch.long)     # logical k -> staged word position
+    bhalf = torch.zeros(16, dtype=torch.long)
+    for warp in range(TC_WARPS):
+        for step in range(steps):
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                words = [a_word_offset(r, warp, g) for r in a_rows(mode, step, t)]
+                for frag in range(2):
+                    for reg in range(4):
+                        m = g + 8 * (reg & 1)
+                        for half, (wi, byte, nibble) in enumerate(a_register(mode, words, frag, reg)):
+                            kl = 2 * t + half + 8 * (reg >> 1)
+                            offs[warp, step, frag, m, kl] = words[wi] + byte
+                            nib[warp, step, frag, m, kl] = nibble or 0
+    for t in range(4):
+        for reg in range(2):          # b0: k 2t, 2t+1 (pair t); b1: k 2t+8, 2t+9 (pair t + 4)
+            for half in range(2):
+                kl = 2 * t + half + 8 * reg
+                bpos[kl] = 2 * t + reg    # one 8-byte load: words 2t (pair t), 2t + 1 (pair t + 4)
+                bhalf[kl] = half
+    return offs, nib, bpos, bhalf
+
+
+def tc_emulate(plan: TcPlan, x, w, scale, gamma=None, eps: float = 1e-6, prologue: int = 0, residual=None,
+               fault: int = 0) -> torch.Tensor:
+    """The kernel's arithmetic in fp32 on the CPU, walking `plan`: per block
+    its tiles; per chunk of a tile each warp's 16-k steps as products of the
+    A fragments decoded from a TMA-swizzled stage image and the B fragments
+    read from the staged x', summed per part of the chunk's steps and per
+    accumulator set, the sets and then the parts added at the tile's end in
+    order; per strip a direct store or
+    its slices' partials combined in slice order. The tensor cores' sums inside a step
+    are taken as fp32 matmuls. `fault` plants csrc/quant_gemv_tc.cu's
+    faults."""
+    mode, B, cin, cout = plan.mode, plan.rows, plan.cin, plan.cout
+    offs, nib, bpos, bhalf = _fragment_maps(mode)
+    nparts, nsets = TC_PARTS, acc_sets(plan.nt)
+    steps, box_rows = offs.shape[1], plan.box_rows
+    kstep = 16
+    xp = _prologue_bf16(x, cin, gamma, eps, prologue)                       # [B, cin]
+    kpad = plan.chunks * TC_CHUNK_K
+    xp = torch.nn.functional.pad(xp, (0, kpad - cin))
+    # staged words: word position pos of step holds k offsets x_word_k(pos)
+    src = torch.tensor([x_word_k(mode, pos, fault) for pos in range(8)])   # [8, 2]
+    staged = xp.reshape(B, -1, kstep)[:, :, src]                            # [B, steps, 8, 2]
+    blog = staged[:, :, bpos, bhalf]                                        # [B, steps, 16]: logical k
+    wbytes = w.view(torch.uint8) if w.dtype == torch.int8 else w
+    wpad = torch.zeros(plan.chunks * box_rows, plan.strips * TC_STRIP, dtype=torch.uint8)
+    wpad[: plan.wrows, :cout] = wbytes
+    scatter = torch.tensor([[swizzle(r, c) for c in range(TC_STRIP)] for r in range(box_rows)])
+    col_of = torch.tensor([[[c_column(warp, m % 8, frag, 2 * (m // 8)) for m in range(16)] for frag in range(2)]
+                           for warp in range(TC_WARPS)])                    # [warps, 2, 16]
+    partials = {}
+    out = torch.zeros(B, plan.strips * TC_STRIP)
+    for b in range(plan.grid):
+        for t in plan.tiles_of(b):
+            s, p = plan.tile(t)
+            acc = torch.zeros(nparts, nsets, TC_WARPS, 2, 16, B)   # per part and set of each chunk's steps
+            c0, c1 = plan.slice_chunks(p)
+            for j in range(c0, c1):
+                stage = torch.zeros(box_rows * TC_STRIP, dtype=torch.uint8)
+                stage[scatter.flatten()] = wpad[j * box_rows:(j + 1) * box_rows,
+                                                s * TC_STRIP:(s + 1) * TC_STRIP].flatten()
+                if not (fault == FAULT_DROP_SHARE and b == 0):
+                    for step in range(steps):
+                        a = _decode(mode, stage, offs[:, step], nib[:, step])     # [warps, 2, 16 m, 16 kl]
+                        bk = blog[:, j * steps + step].T                           # [16 kl, B]
+                        part = next(q for q in range(nparts) if step < steps * (q + 1) // nparts)
+                        i = step - steps * part // nparts
+                        acc[part, i % nsets] += a @ bk
+            total = None
+            for part in range(nparts):
+                psum = acc[part, 0]
+                for q in range(1, nsets):
+                    psum = psum + acc[part, q]
+                total = psum if total is None else total + psum
+            cols = s * TC_STRIP + col_of.flatten()
+            vals = total.reshape(-1, B).T                                          # [B, 128] by col_of
+            if plan.slices == 1:
+                out[:, cols] = vals
+            else:
+                partials[t] = (cols, vals)
+    if plan.slices > 1:
+        for s in range(plan.strips):
+            total = None
+            for t in plan.contributors(s):
+                cols, vals = partials[t]
+                total = vals if total is None else total + vals
+            if fault == FAULT_COMBINE_TWICE:
+                total = total + total
+            out[:, cols] = total
+    out = out[:, :cout] * scale.float().reshape(1, -1)
+    if residual is not None:
+        out = out + residual.float()
+    return out

@@ -24,9 +24,18 @@ Kernels, each with its plain version beside it and a launch counter:
      per-row int8 activations, exact int32 accumulation
   K11 int4_native_matmul       (_qmm_native_kernel :555)  GEMV against
      column-pair-packed int4 weights
-K5-K7, K10 and K11 are `csrc/quant_gemv.cu`, K8 is `csrc/quantize_int8.cu`,
-K9 `csrc/quant_pair.cu`; their headers say what bounds them on the card and
-how they are laid out.
+K5, K6 and K7's int8 instance launch `csrc/quant_gemv_tc.cu` (TMA weight
+stream, `mma.sync`, k-slice tiles planned in `ops/gemv_plan.py`) where
+the call allows it (`gemv_plan.tc_eligible`: cin % 8 == 0, cout % 16 == 0
+and 16-byte aligned weights and activation rows, which every model shape
+meets), else
+the strip body of `csrc/quant_gemv.cu`, which K7's half-split instance, K10
+and K11 always launch. K8 is `csrc/quantize_int8.cu`, K9
+`csrc/quant_pair.cu`; their headers say what bounds them on the card and
+how they are laid out. The tensor-core body's weight tensor maps are
+encoded once per weight and cached here (`_tc_map`), and each device keeps
+one partial-sum scratch and one set of strip counters (`_tc_scratch`), so
+its launches must be ordered on one stream.
 
 Launch geometry: `qmm` (K7, half-split int4), `int4_native_matmul` (K11)
 and `int4_w4a8_matmul` (K10) take `strip=`, the output columns per block
@@ -58,13 +67,17 @@ over cin terms stays below 127 * 7 * cin, 1.23e7 at the widest cin of the
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+
+from supir_tpu_torch.ops import gemv_plan as GP
 
 _GEMV_SOURCE = "quant_gemv.cu"
 _QUANT_SOURCE = "quantize_int8.cu"
 _PAIR_SOURCE = "quant_pair.cu"
 _SWEEP_SOURCE = "gemv_sweep.cu"
+_TC_SOURCE = "quant_gemv_tc.cu"
 STRIP = 32                     # output columns per block on the model paths
 GEMV_STRIPS = (32, 64, 128, 256)
 W4A8_SPLITS = (1, 2, 4)
@@ -305,10 +318,25 @@ def _sweep_library() -> ctypes.CDLL:
     lib.supir_qgemv_geo.argtypes = [p, i, p, p, p, i, i, i, i, i, p]
     lib.supir_qgemv_w4a8_geo.restype = i
     lib.supir_qgemv_w4a8_geo.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.supir_qgemv_strip.restype = i
+    lib.supir_qgemv_strip.argtypes = [p, i, p, ctypes.c_float, i, p, p, p, p, i, i, i, i, p]
     return lib
 
 
-SOURCES = (_GEMV_SOURCE, _QUANT_SOURCE, _PAIR_SOURCE, _SWEEP_SOURCE)  # for cuda_build.build_all
+@functools.lru_cache(maxsize=None)
+def _tc_library() -> ctypes.CDLL:
+    from supir_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library(_TC_SOURCE)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.supir_qgemv_tc.restype = i
+    lib.supir_qgemv_tc.argtypes = [p, p, i, p, i, p, f, i, p, p, p, p, p, i, p]
+    lib.supir_qgemv_tc_map.restype = i
+    lib.supir_qgemv_tc_map.argtypes = [p, ctypes.c_longlong, ctypes.c_longlong, i, p]
+    return lib
+
+
+SOURCES = (_GEMV_SOURCE, _QUANT_SOURCE, _PAIR_SOURCE, _SWEEP_SOURCE, _TC_SOURCE)  # for cuda_build.build_all
 
 
 def check_geometry(strip: int, split_k: int = 1) -> bool:
@@ -365,11 +393,14 @@ def _gamma_residual(gamma, residual, cin: int, rows: int, cout: int):
 
 
 def _launch_gemv(x, w, scale, mode: str, cin: int, gamma=None, eps: float = 1e-6,
-                 prologue: int = 0, residual=None, strip: int = STRIP) -> torch.Tensor:
-    """One launch of `csrc/quant_gemv.cu` over x [B, cin] (or [B, 2 cin] with
-    the SiLU-GLU prologue) bf16, or of `csrc/gemv_sweep.cu` at another strip
-    (half-split and native int4, no prologue, no residual); returns
-    [B, cout] fp32."""
+                 prologue: int = 0, residual=None, strip: int = STRIP, _fault: int = 0) -> torch.Tensor:
+    """One launch over x [B, cin] (or [B, 2 cin] with the SiLU-GLU prologue)
+    bf16; returns [B, cout] fp32. The paired and int8 layouts go to the
+    tensor-core body (`csrc/quant_gemv_tc.cu`) when `gemv_plan.tc_eligible`
+    holds, everything else to the strip body of `csrc/quant_gemv.cu`, or of
+    `csrc/gemv_sweep.cu` at another strip (half-split and native int4, no
+    prologue, no residual). `_fault` plants one of the tensor-core body's
+    faults (gemv_plan.FAULT_*), for checks only."""
     cout = 2 * w.shape[-1] if mode == "native" else w.shape[-1]
     _check_activation(x, 2 * cin if prologue == 2 else cin)
     if cin % 2 or cout % 8:
@@ -380,6 +411,11 @@ def _launch_gemv(x, w, scale, mode: str, cin: int, gamma=None, eps: float = 1e-6
     _check_on_card("the GEMV kernels", x, (("weights", w), ("scale", scale), ("gamma", gamma),
                                            ("residual", residual)))
     out = torch.empty((x.shape[0], cout), dtype=torch.float32, device=x.device)
+    if strip == STRIP and GP.tc_eligible(mode, cin, cout, w.data_ptr(), x.data_ptr(), x.stride(0)):
+        return _launch_tc(x, w, scale, mode, cin, cout, gamma, eps, prologue, residual, out, _fault)
+    if _fault:
+        raise ValueError(f"planted faults are the tensor-core body's; this call ({mode}, cout {cout}) takes the "
+                         "strip body")
     if strip != STRIP:
         if mode not in ("half", "native") or prologue or residual is not None:
             raise ValueError(f"strip {strip} is built for the half-split and native GEMVs without prologue "
@@ -399,6 +435,97 @@ def _launch_gemv(x, w, scale, mode: str, cin: int, gamma=None, eps: float = 1e-6
         )
     if err != 0:
         raise RuntimeError(f"GEMV kernel launch failed ({mode}, prologue {prologue}): cudaError {err}")
+    return out
+
+
+_TC_MAPS: dict = {}       # (device, weight address, rows, cols, box rows) -> (buffer, its address)
+_TC_SCRATCH: dict = {}    # device index -> (partials, strip counters, their addresses)
+_TC_PLANS: dict = {}      # (mode, rows, cin, cout, device index) -> (plan, its packed fields' address)
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _tc_map(w: torch.Tensor, plan: GP.TcPlan, index: int) -> int:
+    """The address of w's encoded tensor map (128 bytes), encoded at the
+    first launch over this weight and kept: a map depends only on the
+    address, extent and box, which a weight never changes."""
+    key = (index, w.data_ptr(), plan.wrows, plan.cout, plan.box_rows)
+    hit = _TC_MAPS.get(key)
+    if hit is None:
+        if len(_TC_MAPS) >= 8192:
+            _TC_MAPS.clear()
+        buf = (ctypes.c_ubyte * 128)()
+        err = _tc_library().supir_qgemv_tc_map(w.data_ptr(), plan.wrows, plan.cout, plan.box_rows,
+                                               ctypes.addressof(buf))
+        if err != 0:
+            raise RuntimeError(f"the GEMV weight's tensor map failed to encode ({plan.wrows} x {plan.cout} bytes): "
+                               f"{'CUresult ' + str(-err) if err < 0 else 'cudaError ' + str(err)}")
+        hit = _TC_MAPS[key] = (buf, ctypes.addressof(buf))
+    return hit[1]
+
+
+def _tc_scratch(device: torch.device):
+    """The device's partial sums (gemv_plan.TC_PART_BYTES of fp32, which
+    every plan stays within) and strip counters (zero; each launch leaves
+    them zero). Allocated once, so a captured CUDA graph keeps valid
+    addresses."""
+    hit = _TC_SCRATCH.get(device.index)
+    if hit is None:
+        part = torch.empty(GP.TC_PART_BYTES // 4, dtype=torch.float32, device=device)
+        counters = torch.zeros(GP.TC_MAX_STRIPS, dtype=torch.int32, device=device)
+        hit = _TC_SCRATCH[device.index] = (part, counters, part.data_ptr(), counters.data_ptr())
+    return hit
+
+
+def _launch_tc(x, w, scale, mode, cin, cout, gamma, eps, prologue, residual, out, fault=0):
+    """One launch of `csrc/quant_gemv_tc.cu` (K5, K6, K7 int8)."""
+    if gamma is not None and gamma.data_ptr() % 16:
+        gamma = gamma.clone()  # the kernel reads gamma in 16-byte vectors
+    device = x.device
+    index = device.index
+    key = (mode, x.shape[0], cin, cout, index)
+    hit = _TC_PLANS.get(key)
+    if hit is None:
+        plan = GP.tc_plan(mode, x.shape[0], cin, cout, _sm_count(index))
+        hit = _TC_PLANS[key] = (plan, ctypes.addressof(plan.packed()))
+    plan, plan_addr = hit
+    _, _, part, counters = _tc_scratch(device)
+    with torch.cuda.device(device):
+        err = _tc_library().supir_qgemv_tc(
+            _tc_map(w, plan, index), plan_addr, _MODES[mode], x.data_ptr(), x.stride(0), _ptr(gamma), float(eps),
+            prologue, scale.data_ptr(), _ptr(residual), out.data_ptr(), part, counters, fault, _stream(device))
+    if err != 0:
+        raise RuntimeError(f"tensor-core GEMV launch failed ({mode}, prologue {prologue}, {x.shape[0]} rows): "
+                           f"cudaError {err}")
+    return out
+
+
+def strip_body_gemv(x, w, scale, mode: str, gamma=None, eps: float = 1e-6, siluglu: bool = False,
+                    residual=None) -> torch.Tensor:
+    """The strip body (K5, K6 and K7 int8's kernel before the tensor-core
+    body) at the model paths' geometry, from `csrc/gemv_sweep.cu`: for
+    comparing it with the tensor-core body on one card. No model path calls it, and it counts no
+    launch. x bf16 [B, cin] ([B, 2 cin] with siluglu); w paired uint8
+    [cin/2, cout] (mode "paired") or int8 [cin, cout] (mode "int8")."""
+    if mode not in ("paired", "int8"):
+        raise ValueError(f"the strip body's comparison instances are paired and int8, not {mode}")
+    cin = 2 * w.shape[0] if mode == "paired" else w.shape[0]
+    cout = w.shape[1]
+    prologue = 1 if gamma is not None else (2 if siluglu else 0)
+    _check_activation(x, 2 * cin if prologue == 2 else cin)
+    _check_weights(w, scale, w.shape[0], cout, cout, torch.int8 if mode == "int8" else torch.uint8)
+    gamma, residual = _gamma_residual(gamma, residual, cin, x.shape[0], cout)
+    _check_on_card("the strip body", x, (("weights", w), ("scale", scale), ("gamma", gamma), ("residual", residual)))
+    out = torch.empty((x.shape[0], cout), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _sweep_library().supir_qgemv_strip(
+            x.data_ptr(), x.stride(0), _ptr(gamma), float(eps), prologue, w.data_ptr(), scale.data_ptr(),
+            _ptr(residual), out.data_ptr(), x.shape[0], cin, cout, _MODES[mode], _stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"strip-body GEMV launch failed ({mode}, prologue {prologue}): cudaError {err}")
     return out
 
 

@@ -534,3 +534,99 @@ def test_pair_kernel_matches_plain(cuda, rows, siluglu1):
     assert _rel_l2(big, want_big) <= CARD_REL_BOUND
     _, bad = Q.int4_paired_fused_pair(x, *args, siluglu1=siluglu1, _norm_cols=32)
     assert _rel_l2(bad, want_big) > CARD_REL_BOUND
+
+
+# ------------------------------------- the tensor-core body (K5, K6, K7 int8)
+# csrc/quant_gemv_tc.cu: TMA weight stream, mma.sync, k-slice tiles combined
+# in slice order (ops/gemv_plan.py). Held to the fp32 plain versions by
+# relative L2 <= 1e-2 (bf16 rounding of x' gives a few 1e-3; K6 and K7,
+# whose x is bf16 already, agree to ~1e-6), at tile edges (cout not a
+# multiple of the 128-column strip, cin not a multiple of the 128-k chunk
+# or of a 16-k step) and at 1-32 rows.
+
+TC_SHAPES = [(5120, 5120), (640, 272), (1000, 144), (264, 400), (13824, 5120)]
+
+
+def _tc_case(cuda, seed, rows, cin, cout, prologue, with_residual):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w = _card_weights(g, cin, cout, cuda)
+    x = torch.randn(rows, 2 * cin if prologue == "siluglu" else cin, generator=g, device=cuda).to(torch.bfloat16)
+    gamma = 1.0 + 0.1 * torch.randn(cin, generator=g, device=cuda) if prologue == "norm" else None
+    residual = torch.randn(rows, cout, generator=g, device=cuda) if with_residual else None
+    return w, x, dict(gamma=gamma, siluglu=prologue == "siluglu", residual=residual)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 17, 32])
+@pytest.mark.parametrize("cin,cout", TC_SHAPES)
+@pytest.mark.parametrize("prologue,with_residual", [("none", False), ("none", True), ("norm", False),
+                                                    ("norm", True), ("siluglu", False), ("siluglu", True)])
+def test_tc_fused_kernel_matches_plain(cuda, rows, cin, cout, prologue, with_residual):
+    from supir_tpu_torch.ops import gemv_plan as GP
+
+    w, x, kw = _tc_case(cuda, 10, rows, cin, cout, prologue, with_residual)
+    packed, scale = Q.quantize_int4_paired(w)
+    assert GP.tc_eligible("paired", cin, cout, packed.data_ptr(), x.data_ptr(), x.stride(0))
+    before = Q.int4_paired_fused_matmul.launches
+    got = Q.int4_paired_fused_matmul(x, packed, scale, **kw)
+    torch.cuda.synchronize()
+    assert Q.int4_paired_fused_matmul.launches == before + 1
+    assert _rel_l2(got, Q.int4_paired_fused_matmul_plain(x.float(), packed, scale, **kw)) <= CARD_REL_BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 17, 32])
+@pytest.mark.parametrize("cin,cout", TC_SHAPES)
+def test_tc_paired_and_int8_kernels_match_plain(cuda, rows, cin, cout):
+    w, x, _ = _tc_case(cuda, 11, rows, cin, cout, "none", False)
+    packed, scale = Q.quantize_int4_paired(w)
+    assert _rel_l2(Q.int4_paired_matmul(x, packed, scale), Q.int4_paired_matmul_plain(x.float(), packed, scale)) \
+        <= CARD_REL_BOUND
+    q8, s8 = Q.quantize_int8(w, stochastic=False)
+    assert _rel_l2(Q.int8_matmul(x, q8, s8), Q.qmm_plain(x.float(), q8, s8, 8)) <= CARD_REL_BOUND
+    # the strip body the tensor-core body replaced, kept for comparisons
+    assert _rel_l2(Q.strip_body_gemv(x, q8, s8, "int8"), Q.qmm_plain(x.float(), q8, s8, 8)) <= CARD_REL_BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 32])
+def test_tc_two_runs_are_bit_identical(cuda, rows):
+    w, x, kw = _tc_case(cuda, 12, rows, 5120, 5120, "norm", True)
+    packed, scale = Q.quantize_int4_paired(w)
+    first = Q.int4_paired_fused_matmul(x, packed, scale, **kw)
+    assert all(torch.equal(first, Q.int4_paired_fused_matmul(x, packed, scale, **kw)) for _ in range(3))
+    q8, s8 = Q.quantize_int8(w, stochastic=False)
+    first = Q.int8_matmul(x, q8, s8)
+    assert all(torch.equal(first, Q.int8_matmul(x, q8, s8)) for _ in range(3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["paired", "int8"])
+@pytest.mark.parametrize("rows", [1, 8])
+def test_tc_planted_faults_break_the_bound(cuda, mode, rows):
+    """One block's share dropped, the combine run twice, x' staged without
+    its word interleave, the nibbles swapped: each must break the bound.
+    The shape is cut into k-slices on this card, so the combine runs."""
+    from supir_tpu_torch.ops import gemv_plan as GP
+
+    cin, cout = 5120, 5120
+    prologue = "norm" if mode == "paired" else "none"
+    w, x, kw = _tc_case(cuda, 13, rows, cin, cout, prologue, False)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert GP.tc_plan(mode, rows, cin, cout, sms).slices > 1
+    if mode == "paired":
+        weights = Q.quantize_int4_paired(w)
+        want = Q.int4_paired_fused_matmul_plain(x.float(), *weights, **kw)
+        pro, gamma = 1, kw["gamma"]
+        assert _rel_l2(Q.int4_paired_fused_matmul(x, _swap_nibbles(weights[0]), weights[1], **kw), want) \
+            > CARD_REL_BOUND
+    else:
+        weights = Q.quantize_int8(w, stochastic=False)
+        want = Q.qmm_plain(x.float(), *weights, 8)
+        pro, gamma = 0, None
+    assert _rel_l2(Q._launch_gemv(x, *weights, mode, cin, gamma, 1e-6, pro), want) <= CARD_REL_BOUND
+    for fault in (GP.FAULT_DROP_SHARE, GP.FAULT_COMBINE_TWICE, GP.FAULT_X_ORDER):
+        got = Q._launch_gemv(x, *weights, mode, cin, gamma, 1e-6, pro, _fault=fault)
+        assert _rel_l2(got, want) > CARD_REL_BOUND, fault
+    # a planted fault leaves the strip counters as it found them
+    assert _rel_l2(Q._launch_gemv(x, *weights, mode, cin, gamma, 1e-6, pro), want) <= CARD_REL_BOUND
