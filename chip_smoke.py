@@ -7,21 +7,22 @@
 Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is switched off for matmuls and cuDNN convolutions.
-  2. build: the CUDA C++ kernels (K1 and K3, K4, K5-K7 with K10 and K11,
-     the tensor-core GEMV of K5, K6 and K7 int8, K8, K9, the probes'
-     kernels and their GEMV geometries; one nvcc per source, all at once,
-     into build/supir_tpu_torch/) with ptxas' registers and spills (for
-     each of the forward's eight instantiations, K1/K3 x D 64/128 x ALiBi,
-     and the tensor-core GEMV's six, which may not spill), and K2 (Triton).
+  2. build: the CUDA C++ kernels (K1 and K3, K4, the strip-body GEMVs with
+     K10 and K5's act_int8 mode, the tensor-core GEMV of K5, K6, K7 and
+     K11, K8, K9, the probes' kernels and their GEMV geometries; one nvcc
+     per source, all at once, into build/supir_tpu_torch/) with ptxas'
+     registers and spills (for each of the forward's eight instantiations,
+     K1/K3 x D 64/128 x ALiBi, and the tensor-core GEMV's twelve, four
+     layouts x three row tiles, which may not spill), and K2 (Triton).
   3. kernels against their plain PyTorch versions on the card, with
      CUDA-event or CUDA-graph times of both, the least time the card could
      take (bound) and, where one PyTorch call computes the same function,
      its time: K1 and K2 at the restore path's shapes, K1 causal, and K5
      (also in its act_int8 mode), K6, K7, K8, K10 and K11 at the 13B
      captioner's decode shapes and K9 at its two pairs per layer, for 1 and
-     8 rows (with K9's co-resident grid), K5 and K7 int8 also at 32 rows
-     and in turns with the strip body they replaced (gemv_sweep.cu's
-     instances), with the tensor-core body's planted faults (one block's
+     8 rows (with K9's co-resident grid), K5, K7 (int8 and half-split int4)
+     and K11 also at 32 rows and in turns with the strip body they
+     replaced, with the tensor-core body's planted faults (one block's
      share dropped, the combine run twice, x' staged out of order) and two
      runs bit-identical; beside K6, K7 and K11 one PyTorch call computing
      the same function (torch._weight_int8pack_mm, torch._weight_int4pack_mm),
@@ -40,7 +41,9 @@ Phases, each printing its own lines:
      2-D (1280x1920), the nibble unpack and the native cast bit for bit;
      W4A8 at split-K 2 by 1e-6; the single-cast GEMV (strip 256) and K7
      (strip 128) and K11 (strip 256) instances by rel-L2 1e-2; each with
-     planted faults that must break it.
+     planted faults that must break it, and beside T1c, T3b and T4b the
+     tensor-core body at the same shape (K7 int4, K6, K11 at the default
+     geometry).
   4. main path: a full-width SDXL/SUPIR engine (XL-base, bf16, random
      weights from a seeded CUDA generator) restores one image through
      SUPIREngine.batchify_sample with bench.py's headline settings: a
@@ -59,7 +62,8 @@ Phases, each printing its own lines:
      tokens, in each mode of CAPTION_MODES: int4 (K5), int4 without fused
      glue (K6), int8 (K8 at load, K7 in decode), int4-lean (fused pairs,
      int8 KV cache, int8 head: K9, K5, K7; K8 at load), int4-w4a8 (K5's
-     act_int8 mode), int4-w4a8-unfused (K10) and int4-native (K11). The
+     act_int8 mode), int4-w4a8-unfused (K10), int4-native (K11) and
+     int4-half (the half-split layout: K7 int4). The
      counters are zeroed before each mode's load and read after its caption
      and must equal expected_caption_launches; every GEMV call of one
      decode step is then held to its fp32 plain version on that call's
@@ -346,16 +350,17 @@ def phase_build():
     for source, rows in ((k1._FWD_SOURCE, fwd), (k1._BWD_SOURCE, bwd)):
         if reports[source] and len(rows) != 8:  # no report: the library was built earlier
             raise AssertionError(f"expected 8 instantiations in the ptxas report of {source}, found {len(rows)}")
-    # the tensor-core GEMV's six instances (K5/K6 paired and K7 int8, 1, 2 or
-    # 4 n-tiles of 8 rows): registers and spills, and no spill allowed
+    # the tensor-core GEMV's twelve instances (K5/K6 paired, K7 half-split
+    # int4, K7 int8, K11 native; 1, 2 or 4 n-tiles of 8 rows): registers and
+    # spills, and no spill allowed
     report = cuda_build.ptxas_report(kq._TC_SOURCE)
     tc = _tc_instances(report)
+    layouts = {0: ("paired", "K5/K6"), 1: ("half", "K7 int4"), 2: ("int8", "K7 int8"), 3: ("native", "K11")}
     for mode, nt, regs, stores, loads in sorted(tc):
-        log(f"[build] qgemv_tc_kernel<{'paired' if mode == 0 else 'int8'}, n-tiles {nt}> "
-            f"({'K5/K6' if mode == 0 else 'K7 int8'}, up to {8 * nt} rows): {regs} registers, spill stores "
-            f"{stores} B, spill loads {loads} B")
-    if report and (len(tc) != 6 or any(st or ld for *_, st, ld in tc)):
-        raise AssertionError(f"the tensor-core GEMV's instances: expected 6 without spills, found {tc}")
+        log(f"[build] qgemv_tc_kernel<{layouts[mode][0]}, n-tiles {nt}> ({layouts[mode][1]}, up to {8 * nt} rows): "
+            f"{regs} registers, spill stores {stores} B, spill loads {loads} B")
+    if report and (len(tc) != 12 or any(st or ld for *_, st, ld in tc)):
+        raise AssertionError(f"the tensor-core GEMV's instances: expected 12 without spills, found {tc}")
     log(f"[build] K9 grid: {kq.pair_grid_blocks(1)} co-resident blocks at 1 row, {kq.pair_grid_blocks(8)} at 8 "
         f"(occupancy API x SMs; its cooperative launch takes at most that many)")
     t1 = time.perf_counter()
@@ -620,8 +625,9 @@ def _probe_row(label, kernel, plain, copies, moved_bytes, faults, want=None, rel
 def phase_probes():
     """[probes]: the four probes' mains on the card at 3 replays, counted;
     the measured streaming ceiling; each probe kernel at one geometry
-    against its plain version. Returns the JSON numbers and the launches of
-    T1a-T4b."""
+    against its plain version, and beside T1c, T3b and T4b the tensor-core
+    body at the same shape (K7 int4, K6, K11 at the default geometry).
+    Returns the JSON numbers and the launches of T1a-T4b."""
     import gc
 
     import torch
@@ -653,7 +659,14 @@ def phase_probes():
     ones = torch.ones_like(scale)
     q0 = qs[0][0]
     lib = lambda q: torch.sum(q, 0, dtype=torch.int32)  # noqa: E731
-    rows = {}
+    rows, beside = {}, {}
+
+    def tc_beside(probe, label, kernel, plain, copies, moved_bytes, want):
+        """The tensor-core body on the probe row's inputs, held to the same
+        bound and timed the same way."""
+        beside[probe] = (label, _probe_row(f"{probe}'s shape on the tensor-core body: {label}", kernel, plain, copies,
+                                           moved_bytes, [], want=want, rel_bound=GEMV_REL_BOUND)["ms"])
+
     rows["T1a"] = _probe_row(
         "T1a column sum 1-D [2560,15360] u8 strip 512", lambda q: P.column_sum(q, 512), P.column_sum_plain, qs,
         per + cout * 4, [("bytes read as int8", lambda: P.column_sum(q0, 512, _fault=1))], library=lib)
@@ -679,6 +692,9 @@ def phase_probes():
         [("scale left out", lambda: Q.int4_matmul(x8, q0, ones, strip=128))],
         want=Q.qmm_plain(x8.float(), q0, scale, 4), rel_bound=GEMV_REL_BOUND, library=lib, lib_copies=lib_qs,
         lib_name="tinygemm")
+    tc_beside("T1c", "K7 int4 [8,5120]x[2560,15360]", lambda q: Q.int4_matmul(x8, q, scale),
+              lambda q: Q.qmm_plain(x8, q, scale, 4), qs, per + nbytes(x8, scale) + 8 * cout * 4,
+              Q.qmm_plain(x8.float(), q0, scale, 4))
     lib, lib_qs = tinygemm(Q.unpack_int4_paired, qs, x8)
     xq = torch.randint(-127, 128, (1, cin), dtype=torch.int8, generator=g, device=dev)
     rows["T2"] = _probe_row(
@@ -693,6 +709,9 @@ def phase_probes():
         [("scale left out", lambda: P.int4_single_cast_matmul(x8, q0, ones, 256))],
         want=P.int4_single_cast_matmul_plain(x8.float(), q0, scale), rel_bound=GEMV_REL_BOUND, library=lib,
         lib_copies=lib_qs, lib_name="tinygemm")
+    tc_beside("T3b", "K6 [8,5120]x[2560,15360]", lambda q: Q.int4_paired_matmul(x8, q, scale),
+              lambda q: Q.int4_paired_matmul_plain(x8, q, scale), qs, per + nbytes(x8, scale) + 8 * cout * 4,
+              Q.int4_paired_matmul_plain(x8.float(), q0, scale))
     del qs, q0, lib, lib_qs
     gc.collect()
     torch.cuda.empty_cache()
@@ -710,6 +729,9 @@ def phase_probes():
         [("scale left out", lambda: Q.int4_native_matmul(x1, qn[0][0], torch.ones_like(sn), strip=256))],
         want=Q.int4_native_matmul_plain(x1.float(), qn[0][0], sn), rel_bound=GEMV_REL_BOUND, library=lib,
         lib_copies=lib_qs, lib_name="tinygemm")
+    tc_beside("T4b", "K11 [1,13824]x[13824,5120]", lambda q: Q.int4_native_matmul(x1, q, sn),
+              lambda q: Q.int4_native_matmul_plain(x1, q, sn), qn, dcin * dcout // 2 + nbytes(x1, sn) + dcout * 4,
+              Q.int4_native_matmul_plain(x1.float(), qn[0][0], sn))
     del qn, lib, lib_qs
     gc.collect()
     torch.cuda.empty_cache()
@@ -728,6 +750,11 @@ def phase_probes():
         [(block.clone(),) for _ in range(8)], block.numel() * 5,
         [("nibbles swapped", lambda: P.native_cast(block, _fault=1)),
          ("sign not extended", lambda: P.native_cast(block, _fault=2))])
+    for probe, (label, ms) in beside.items():
+        r = rows[probe]
+        lib = "" if r["library_ms"] is None else f"; tinygemm {r['library_ms']:.4f} ms"
+        log(f"[probes] {probe} {r['ms']:.4f} ms beside the tensor-core body at its shape ({label}) {ms:.4f} ms: "
+            f"{r['ms'] / ms:.2f}x its time{lib}")
     return rows, launches, ceiling
 
 
@@ -903,7 +930,7 @@ def _try_library(make, *args):
 def phase_quant_kernels():
     """K5 (also in its act_int8 mode), K6, K7 (int8 and half-split int4),
     K8, K10 and K11 at the 13B decode shapes, and K9 at the layer's two
-    pairs, for 1 and 8 rows, K5 and K7 int8 also 32; K5 and K7 int8 in
+    pairs, for 1 and 8 rows, K5, K7 and K11 also 32; K5, K7 and K11 in
     turns with the strip body they replaced; the library yardsticks of K6,
     K7 (int8 and int4) and K11. Returns each kernel's JSON numbers, its
     times summed over one layer's projections (K9: its two pairs) at 1 row
@@ -996,6 +1023,18 @@ def phase_quant_kernels():
                             library=lib8, before=lambda xx, q, sc: Q.strip_body_gemv(xx, q, sc, "int8"))
             del want8
             add("K7", row, rows)
+            row = _gemv_row(f"K11 {tag}", Q.int4_native_matmul, Q.int4_native_matmul_plain, xg, (qn, sn), out_bytes,
+                            [("column nibbles swapped", lambda xx: Q.int4_native_matmul(xx, _swap_nibbles(qn), sn))]
+                            + tc_faults("native", cin, rows, cout, lambda: Q.int4_native_matmul(xg, qn, sn),
+                                        weights=(qn, sn)),
+                            library=lib4, before=lambda xx, q, sc: Q.strip_body_gemv(xx, q, sc, "native"))
+            add("K11", row, rows)
+            row = _gemv_row(f"K7 int4 half-split {tag}", Q.int4_matmul, lambda xx, q, sc: Q.qmm_plain(xx, q, sc, 4),
+                            xg, (q4, s4), out_bytes,
+                            [("halves swapped", lambda xx: Q.int4_matmul(xx, _swap_nibbles(q4), s4))]
+                            + tc_faults("half", cin, rows, cout, lambda: Q.int4_matmul(xg, q4, s4), weights=(q4, s4)),
+                            library=lib4, before=lambda xx, q, sc: Q.strip_body_gemv(xx, q, sc, "half"))
+            add("K7-int4", row, rows)
             if rows == 32:
                 continue
             act_faults = [("nibble order swapped", lambda xx: Q.int4_paired_fused_matmul(
@@ -1023,14 +1062,6 @@ def phase_quant_kernels():
                              ("nibble order swapped", lambda xx: Q.int4_w4a8_matmul(xx, _swap_nibbles(packed), scale))],
                             rel_bound=W4A8_REL_BOUND)
             add("K10", row, rows)
-            row = _gemv_row(f"K11 {tag}", Q.int4_native_matmul, Q.int4_native_matmul_plain, xg, (qn, sn), out_bytes,
-                            [("column nibbles swapped", lambda xx: Q.int4_native_matmul(xx, _swap_nibbles(qn), sn))],
-                            library=lib4)
-            add("K11", row, rows)
-            row = _gemv_row(f"K7 int4 half-split {tag}", Q.int4_matmul, lambda xx, q, sc: Q.qmm_plain(xx, q, sc, 4),
-                            xg, (q4, s4), out_bytes,
-                            [("halves swapped", lambda xx: Q.int4_matmul(xx, _swap_nibbles(q4), s4))], library=lib4)
-            add("K7-int4", row, rows)
         del q4, q8, qn, lib8, lib4
     for label, first, second, siluglu1 in LLAMA_13B_PAIRS:
         (qp1, sc1), (qp2, sc2) = paired[first], paired[second]
@@ -1329,6 +1360,7 @@ CAPTION_MODES = {
     "int4-w4a8": (dict(_INT4, act_int8=True), "bfloat16"),
     "int4-w4a8-unfused": (dict(_INT4, act_int8=True, fused_glue=False), "bfloat16"),
     "int4-native": (dict(_INT4, int4_native=True), "bfloat16"),
+    "int4-half": (dict(_INT4, int4_paired=False), "bfloat16"),   # the JAX Int4Dense {q4, scale} layout
 }
 
 
@@ -2607,12 +2639,14 @@ def main() -> int:
     phase_reference()
     image = _caption_image()
     # each captioner kernel takes the launches of the mode whose path it serves
-    # (K5's act_int8 mode, K10 and K11 their W4A8 and native modes, K9 the lean one)
-    counted_in = {"K5": "int4", "K6": "int4-unfused", "K7": "int8", "K8": "int8", "K9": "int4-lean",
-                  "K5-act": "int4-w4a8", "K10": "int4-w4a8-unfused", "K11": "int4-native"}
+    # (K5's act_int8 mode, K10 and K11 their W4A8 and native modes, K9 the
+    # lean one, K7's half-split instance the half-split one): row -> (mode, counter)
+    counted_in = {"K5": ("int4", "K5"), "K6": ("int4-unfused", "K6"), "K7": ("int8", "K7"), "K8": ("int8", "K8"),
+                  "K9": ("int4-lean", "K9"), "K5-act": ("int4-w4a8", "K5-act"), "K10": ("int4-w4a8-unfused", "K10"),
+                  "K11": ("int4-native", "K11"), "K7-int4": ("int4-half", "K7")}
     for label in CAPTION_MODES:
         counted = phase_captioner(label, image, chat=label == "int4-lean")
-        launches.update({k: counted[k] for k, mode in counted_in.items() if mode == label})
+        launches.update({row: counted[k] for row, (mode, k) in counted_in.items() if mode == label})
     phase_captioner_reference(image)
     # K1 and K2 keep the restore path's counts; K3 and K4 run on the trainer's
     train = phase_train()
@@ -2634,11 +2668,12 @@ def main() -> int:
         "K5": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:260"),
         "K6": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:116"),
         "K7": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:606"),
+        "K7-int4": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:606"),
         "K8": ("cuda", "supir_tpu_torch/csrc/quantize_int8.cu", "supir_tpu/ops/quantize.py:21"),
         "K5-act": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:291"),
         "K9": ("cuda", "supir_tpu_torch/csrc/quant_pair.cu", "supir_tpu/ops/quantize.py:398"),
         "K10": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:191"),
-        "K11": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:555"),
+        "K11": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:555"),
         "K3-alibi": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:197"),
         "K4-alibi": ("cuda", "supir_tpu_torch/csrc/flash_attn_bwd.cu", "supir_tpu/ops/flash_attention.py:481"),
         "T1a": ("cuda", "supir_tpu_torch/csrc/probes.cu", "tools/stream_ceiling.py:48"),
@@ -2654,7 +2689,7 @@ def main() -> int:
     at = {"K1": "[2,4096,10,64] bf16", "K2": "[2,320,128,128] bf16, SiLU",
           "K3": "[1,4096,10,64] bf16, with lse", "K4": "[1,4096,10,64] bf16, dq dk dv",
           "K5": "one 13B layer (qkv, o, gate-up, down), 1 row", "K6": "one 13B layer, 1 row",
-          "K7": "one 13B layer, int8, 1 row", "K8": "one 13B layer's four fp32 kernels",
+          "K7": "one 13B layer, int8, 1 row", "K7-int4": "one 13B layer, half-split int4, 1 row", "K8": "one 13B layer's four fp32 kernels",
           "K5-act": "one 13B layer, act_int8, 1 row", "K9": "one 13B layer's two pairs, 1 row",
           "K10": "one 13B layer, 1 row", "K11": "one 13B layer, 1 row",
           "K3-alibi": "[1,2048,32,128] bf16 causal, with lse (the MPT-7B gradient's forward)",
@@ -2667,7 +2702,8 @@ def main() -> int:
     for name, (route, source, replaces) in sources.items():
         r = results[name]
         kernels.append({
-            "name": {"K5-act": "K5 act_int8", "K3-alibi": "K3 ALiBi", "K4-alibi": "K4 ALiBi"}.get(name, name),
+            "name": {"K5-act": "K5 act_int8", "K7-int4": "K7 int4", "K3-alibi": "K3 ALiBi",
+                     "K4-alibi": "K4 ALiBi"}.get(name, name),
             "route": route, "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

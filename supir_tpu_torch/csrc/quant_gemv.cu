@@ -47,12 +47,13 @@
 // reads 4 bytes (8 columns) per load where the others read 8, so a 32-byte
 // sector of its rows is shared by two neighbouring blocks.
 //
-// K5, K6 and K7's int8 instance run on the tensor cores with a TMA weight
-// stream instead (csrc/quant_gemv_tc.cu) whenever the call allows it
-// (cout % 16 == 0 and 16-byte aligned weights and rows: every model shape;
-// ops/gemv_plan.py:tc_eligible). Their instances here take the rest, a
-// cout of 8 mod 16 or an unaligned view; the half-split and native
-// layouts and W4A8 run only here.
+// K5, K6, K7 (int8 and half-split int4) and K11 run on the tensor cores
+// with a TMA weight stream instead (csrc/quant_gemv_tc.cu) whenever the
+// call allows it (a weight row stride that is a multiple of 16 bytes and
+// 16-byte aligned weights and rows: every model shape;
+// ops/gemv_plan.py:tc_eligible). Their instances here take the rest, such
+// as a cout of 8 mod 16 (native: 16 mod 32) or an unaligned view; W4A8
+// (K10, K5's act_int8 mode) runs only here.
 //
 // The kernels' bodies (gemv_kernel, w4a8_kernel) live in quant_gemv.cuh with
 // the strip width and K10's split-K count as template parameters; this file

@@ -1,5 +1,7 @@
-// K5, K6 and K7's int8 instance on the tensor cores: the decode GEMV for
-// Hopper (sm_90a) with a TMA weight stream, mma.sync and k-slice tiles that all blocks walk together.
+// K5, K6, K7 (int8 and half-split int4) and K11 on the tensor cores: the
+// decode GEMV for Hopper (sm_90a) with a TMA weight stream, mma.sync and
+// k-slice tiles that all blocks walk together. One body, four weight
+// layouts (template MODE).
 //
 // Replaces, in supir_tpu/ops/quantize.py:
 //   K5  _qmm_fused_kernel  (:260, pallas_call :357, int4_paired_fused_matmul):
@@ -7,12 +9,37 @@
 //       optional fp32 residual
 //   K6  _qmm_paired_kernel (:116, pallas_call :171, int4_paired_matmul): the
 //       same without prologue or residual
-//   K7  _qmm_kernel        (:606, pallas_call :674, int8_matmul): int8
-//       weights, bf16 x, fp32 accumulation, x scale
-// for 1-32 activation rows. The half-split and native layouts, W4A8 and
-// K9 keep the strip body of quant_gemv.cuh, and so do the calls this body
-// does not take (a cout that is not a multiple of 16, unaligned pointers:
+//   K7  _qmm_kernel        (:606, pallas_call :674, int8_matmul and
+//       int4_matmul): int8 or half-split int4 weights, bf16 x, fp32
+//       accumulation, x scale
+//   K11 _qmm_native_kernel (:555, pallas_call :579, int4_native_matmul): s4
+//       weights, stored here as column pairs, uint8 [cin, cout/2]
+// for 1-32 activation rows. W4A8 and K9 keep the strip body of
+// quant_gemv.cuh, and so do the calls this body does not take (a weight row
+// stride that is not a multiple of 16 bytes, unaligned pointers:
 // ops/gemv_plan.py:tc_eligible).
+//
+// How each layout meets the A fragments (lane g = lane / 4, t = lane % 4;
+// rows g and g + 8 of fragment F are columns 4g + 2F and 4g + 2F + 1):
+// - paired (MODE_PAIRED): byte = k 2p (low nibble) and 2p + 1 of one
+//   column: one bf16x2 register of A by a byte permute, a lop3 and an
+//   hsub2 (nib2). The lane reads rows 2t and 2t + 1 of each 8-row step, a
+//   word of 4 columns each; they stand for the k pairs t and t + 4.
+// - half-split (MODE_HALF): byte p = k p (low) and k p + cin/2 (high): the
+//   paired layout with the contraction permuted, so the A path is the
+//   paired one unchanged, the pair standing for (p, p + cin/2). Only x' is
+//   staged otherwise: the word of packed row p holds (x[p], x[p + cin/2]),
+//   two 16-byte loads a step.
+// - int8 (MODE_INT8): a byte becomes an exact float by the exponent trick,
+//   two of them a bf16x2 by a permute of their high halves; rows 2t, 2t+1,
+//   2t+8, 2t+9 of each 16-row step, natural k order.
+// - native (MODE_NATIVE): byte (k, j) = column 2j (low) and 2j + 1 (high):
+//   byte F of the lane's 2 bytes in a row is exactly rows g and g + 8 of
+//   fragment F. The lane reads the int8 layout's rows, 2 bytes each, from a
+//   box of 128 rows x 64 bytes (the 128-column strip; TMA's 64-byte
+//   swizzle); one permute joins rows 2t and 2t + 1, and nib2's permute,
+//   lop3 and hsub2 on the low nibbles give one A register, on the high
+//   nibbles (the word >> 4) the next.
 //
 // What it computes: out[b, c] = (sum_k x'[b, k] q[k, c]) * scale[c]
 // (+ residual[b, c]), fp32, x' = x or K5's prologue (RMSNorm: bf16((x *
@@ -26,8 +53,9 @@
 // quant_gemv.cuh spends about 4 ALU operations a weight at one row and
 // grows 4.3x at 8 rows). What the design does about it:
 // - The weight stream is asynchronous. One producer warp issues TMA copies
-//   (a box of 128 bytes x 64 packed or 128 int8 rows, 8 or 16 KB) into a
-//   ring of 16 or 8 stages (128 KB) with full and empty mbarriers; the
+//   (a box of 128 bytes x 64 packed rows or 128 int8 rows, or 64 bytes x
+//   128 native rows: 8, 16 or 8 KB) into a ring of 16 or 8 stages (128 KB)
+//   with full and empty mbarriers; the
 //   first stages are requested at block entry, before the prologue. At the
 //   loaded latency of device memory (3-4 us on the H100) a block needs
 //   about that much in flight. The tensor map is encoded once per weight
@@ -43,15 +71,13 @@
 // - The products run on the tensor cores: mma.sync m16n8k16, bf16 in, fp32
 //   accumulate. The dequantized weights are the A operand (16 output
 //   columns x 16 k in registers), x' the B operand (16 k x 8 rows per
-//   n-tile), so 1-32 rows stream the weights once. A paired byte holds
-//   k = 2p and 2p + 1 of one column: one bf16x2 A register, decoded by one
-//   byte permute, one lop3 and one hsub2 (nib2_bf16's exponent trick). An
-//   int8 byte becomes an exact float by the exponent trick and two of them
-//   one bf16x2 register by a byte permute of their high halves.
+//   n-tile), so 1-32 rows stream the weights once; each layout's decode is
+//   above.
 // - The shared-memory reads meet no bank twice: each lane reads 4-byte
-//   words of the TMA-swizzled stage from rows chosen so that a warp's 32
-//   words fall in 32 banks (ops/gemv_plan.py says which); the staged x' is
-//   ordered so that a lane's two B registers are one 8-byte load.
+//   words (native: 2 bytes) of the TMA-swizzled stage from rows chosen so
+//   that a warp's distinct words fall in distinct banks (ops/gemv_plan.py
+//   says which); the staged x' is ordered so that a lane's two B registers
+//   are one 8-byte load.
 // - A strip cut into slices is summed from their partials in slice order,
 //   so two runs give the same bits: a signal warp counts each finished tile
 //   but a last slice's in on the strip's counter (behind one gpu-scope
@@ -101,19 +127,22 @@ template <int NT> struct TcWarps {
 };
 constexpr int TC_STRIP = 128;                         // output columns per strip (one box row)
 constexpr int TC_MAX_ROWS = 32;
-constexpr int MODE_PAIRED = 0, MODE_INT8 = 2;         // ops/quantize.py:_MODES
+constexpr int MODE_PAIRED = 0, MODE_HALF = 1, MODE_INT8 = 2, MODE_NATIVE = 3;   // ops/quantize.py:_MODES
+constexpr int TC_RING_BYTES = 128 * 1024;
 constexpr int FAULT_DROP_SHARE = 1, FAULT_COMBINE_TWICE = 2, FAULT_X_ORDER = 3;
 constexpr int CONSUMER_BAR = 1;                       // named barrier of the consumer threads
 
 // ops/gemv_plan.py:PLAN_FIELDS, in that order
 struct TcPlan {
-  int rows, cin, cout, wrows, strips, chunks, slices, tiles, grid, wch, xrs, smem, nt, stages, box_rows;
+  int rows, cin, cout, wrows, strips, chunks, slices, tiles, grid, wch, xrs, smem, nt, stages, box_rows, wcols;
 };
 
 template <int MODE> struct TcMode {
-  static constexpr int BOX_ROWS = MODE == MODE_PAIRED ? 64 : 128;   // weight rows per chunk
-  static constexpr int STAGES = MODE == MODE_PAIRED ? 16 : 8;      // 128 KB
-  static constexpr int STAGE_BYTES = BOX_ROWS * TC_STRIP;
+  static constexpr int BOX_ROWS = MODE == MODE_PAIRED || MODE == MODE_HALF ? 64 : 128;   // weight rows per chunk
+  static constexpr int BOX_BYTES = MODE == MODE_NATIVE ? 64 : 128;  // a strip's bytes of a row; the swizzle's span
+  static constexpr int STAGE_BYTES = BOX_ROWS * BOX_BYTES;
+  static constexpr int STEP_BYTES = STAGE_BYTES / 8;                // a 16-k step's rows
+  static constexpr int STAGES = TC_RING_BYTES / STAGE_BYTES;
   static constexpr int RING = STAGES * STAGE_BYTES;
 };
 
@@ -160,18 +189,25 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// the two nibbles of byte i of w (w4 = w >> 4) as a bf16x2, low nibble in
-// the low half: nib2_bf16's exponent trick by one byte permute, one lop3
-// ((r & 0x000F000F) ^ 0x43084308: each nibble's sign bit flipped under the
-// exponent of 128) and one hsub2
-__device__ __forceinline__ uint32_t nib2(uint32_t w, uint32_t w4, int i) {
-  const uint32_t r = __byte_perm(w, w4, i | ((4 + i) << 8));            // byte 0: b_i, byte 2: b_i >> 4
+// two nibbles as a bf16x2: the low nibbles of bytes 0 and 2 of
+// __byte_perm(w, w4, sel) (w4 = w >> 4: byte i + 4 of the pair is byte i's
+// high nibble), the first in the low half; nib2_bf16's exponent trick by
+// that permute, one lop3 ((r & 0x000F000F) ^ 0x43084308: each nibble's sign
+// bit flipped under the exponent of 128) and one hsub2
+__device__ __forceinline__ uint32_t nib2_sel(uint32_t w, uint32_t w4, int sel) {
+  const uint32_t r = __byte_perm(w, w4, sel);
   uint32_t bits;                                                        // bf16 128 + (n ^ 8)
   asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n" : "=r"(bits) : "r"(r), "r"(0x000F000Fu), "r"(0x43084308u));
   const uint32_t k136 = 0x43084308u;
   const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&bits),
                                    *reinterpret_cast<const __nv_bfloat162*>(&k136));
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the two nibbles of byte i of w, low nibble in the low half (a paired or
+// half-split byte: one column's k pair)
+__device__ __forceinline__ uint32_t nib2(uint32_t w, uint32_t w4, int i) {
+  return nib2_sel(w, w4, i | ((4 + i) << 8));                           // byte 0: b_i, byte 2: b_i >> 4
 }
 
 // signed byte i of wx (= w ^ 0x80808080) as an exact float
@@ -184,11 +220,13 @@ __device__ __forceinline__ uint32_t pack_hi(float lo, float hi) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
-// ops/gemv_plan.py:x_word_k: the k offsets (inside a 16-k step) of staged word pos
-// (the paired rows' order and the word interleave cancel: natural k order);
-// FAULT_X_ORDER drops the interleave
+// ops/gemv_plan.py:x_word_k: the values (of a step's 16, step_values) of
+// staged word pos (the paired rows' order and the word interleave cancel:
+// natural k order; half-split: packed row pos's two halves); FAULT_X_ORDER
+// drops the interleave, and stages the half-split step in natural order
 template <int MODE>
 __device__ __forceinline__ int2 x_word_k(int pos, int fault) {
+  if (MODE == MODE_HALF) return fault == FAULT_X_ORDER ? make_int2(2 * pos, 2 * pos + 1) : make_int2(pos, pos + 8);
   const int pair = fault == FAULT_X_ORDER ? pos : (pos >> 1) + 4 * (pos & 1);
   const int r = MODE == MODE_PAIRED ? (pair < 4 ? 2 * pair : 2 * (pair - 4) + 1) : pair;
   return make_int2(2 * r, 2 * r + 1);
@@ -237,7 +275,26 @@ __device__ __forceinline__ void step_values(float (&v)[16], const qgemv::bf16* x
   }
 }
 
-// the 8 staged words of one step from its 16 values in natural k order
+// MODE_HALF: the 16 values of the step of packed rows p0..p0+7, x[p0 ..
+// p0+7] then x[h + p0 .. h + p0+7] (h = cin / 2, ops/gemv_plan.py:
+// step_values); h % 8 == 0, so a step is whole or past the edge (zeros)
+__device__ __forceinline__ void half_step_values(float (&v)[16], const qgemv::bf16* xr, int p0, int h) {
+  if (p0 + 8 <= h) {
+    const uint4 lo = *reinterpret_cast<const uint4*>(xr + p0), hi = *reinterpret_cast<const uint4*>(xr + h + p0);
+    const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) v[i] = 0.f;
+  }
+}
+
+// the 8 staged words of one step from its 16 values
 template <int MODE, int FAULT>
 __device__ __forceinline__ void step_words(uint32_t (&out)[8], const float (&v)[16]) {
 #pragma unroll
@@ -258,7 +315,7 @@ __device__ void stage_x(uint32_t* xw, const TcPlan& p, const qgemv::bf16* x, int
   const int steps = (jb - ja) * 8;                   // 128 k a chunk, 16 k a step
 #pragma unroll 2
   for (int st = threadIdx.x; st < steps; st += 32 * CONSUMERS) {
-    const int k0 = (ja * 8 + st) * 16;
+    const int k0 = (ja * 8 + st) * 16;                 // half-split: packed rows (ja * 8 + st) * 8 ..
     float gm[16];
 #pragma unroll
     for (int i = 0; i < 16; ++i) gm[i] = 0.f;
@@ -277,7 +334,8 @@ __device__ void stage_x(uint32_t* xw, const TcPlan& p, const qgemv::bf16* x, int
 #pragma unroll 2
     for (int n = 0; n < p.rows; ++n) {
       float v[16];
-      step_values(v, x + (size_t)n * ldx, k0, p.cin, pro, gm, pro == PRO_NORM ? rstd[n] : 0.f);
+      if (MODE == MODE_HALF) half_step_values(v, x + (size_t)n * ldx, k0 / 2, p.cin / 2);
+      else step_values(v, x + (size_t)n * ldx, k0, p.cin, pro, gm, pro == PRO_NORM ? rstd[n] : 0.f);
       uint32_t w[8];
       if (fault == FAULT_X_ORDER) step_words<MODE, FAULT_X_ORDER>(w, v);
       else step_words<MODE, 0>(w, v);
@@ -302,7 +360,7 @@ __device__ __forceinline__ void chunk_products(float (&acc)[TcWarps<NT>::SETS][N
                                                const uint32_t* xlane, int xrs, unsigned live, const int (&aoff)[4],
                                                int part) {
   constexpr int PARTS = TcWarps<NT>::PARTS;
-  constexpr int STEP_BYTES = (MODE == MODE_PAIRED ? 8 : 16) * TC_STRIP;   // a step's weight rows
+  constexpr int STEP_BYTES = TcMode<MODE>::STEP_BYTES;
 #pragma unroll
   for (int i = 0; i < 8 / PARTS; ++i) {
     const int step = 8 / PARTS * part + i;            // this warp's part of the chunk's 8 steps
@@ -313,8 +371,9 @@ __device__ __forceinline__ void chunk_products(float (&acc)[TcWarps<NT>::SETS][N
     for (int nt = 0; nt < NT; ++nt)
       bx[nt] = (live >> nt) & 1 ? *reinterpret_cast<const uint2*>(xlane + 8 * nt * xrs + 8 * step) : make_uint2(0u, 0u);
     uint32_t a[2][4];
-    if (MODE == MODE_PAIRED) {
-      // rows 2t and 2t + 1 of the step: k pairs t and t + 4
+    if (MODE == MODE_PAIRED || MODE == MODE_HALF) {
+      // rows 2t and 2t + 1 of the step: k pairs t and t + 4 (half-split: the
+      // pairs (p, p + cin/2) of packed rows p)
       const uint32_t w0 = *reinterpret_cast<const uint32_t*>(rows + aoff[0]);
       const uint32_t w1 = *reinterpret_cast<const uint32_t*>(rows + aoff[1]);
       const uint32_t w0s = w0 >> 4, w1s = w1 >> 4;
@@ -324,6 +383,23 @@ __device__ __forceinline__ void chunk_products(float (&acc)[TcWarps<NT>::SETS][N
         a[f][1] = nib2(w0, w0s, 2 * f + 1);
         a[f][2] = nib2(w1, w1s, 2 * f);
         a[f][3] = nib2(w1, w1s, 2 * f + 1);
+      }
+    } else if (MODE == MODE_NATIVE) {
+      // rows 2t | 2t + 1 and 2t + 8 | 2t + 9 of the step, 2 bytes each
+      // (columns 4g .. 4g + 3): byte f of a row holds column 4g + 2f in its
+      // low nibble and 4g + 2f + 1 in its high one, rows g and g + 8 of
+      // fragment f; a register takes one column at k 2t, 2t + 1 (or + 8)
+      const uint32_t lo = __byte_perm(*reinterpret_cast<const uint16_t*>(rows + aoff[0]),
+                                      *reinterpret_cast<const uint16_t*>(rows + aoff[1]), 0x5410);
+      const uint32_t hi = __byte_perm(*reinterpret_cast<const uint16_t*>(rows + aoff[2]),
+                                      *reinterpret_cast<const uint16_t*>(rows + aoff[3]), 0x5410);
+      const uint32_t lo4 = lo >> 4, hi4 = hi >> 4;
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        a[f][0] = nib2_sel(lo, lo4, f | ((2 + f) << 8));          // low nibbles: column 4g + 2f
+        a[f][1] = nib2_sel(lo, lo4, (4 + f) | ((6 + f) << 8));    // high nibbles: column 4g + 2f + 1
+        a[f][2] = nib2_sel(hi, hi4, f | ((2 + f) << 8));
+        a[f][3] = nib2_sel(hi, hi4, (4 + f) | ((6 + f) << 8));
       }
     } else {
       uint32_t wx[4];
@@ -347,17 +423,20 @@ __device__ __forceinline__ void chunk_products(float (&acc)[TcWarps<NT>::SETS][N
 }
 
 // The byte offsets, inside a step's rows of a TMA-swizzled stage, of the
-// words lane (g, t) of column group `group` reads: rows 2t, 2t + 1
-// (paired) or 2t, 2t + 1, 2t + 8, 2t + 9 (int8), columns 32 group + 4g ..
-// + 3 (16-byte chunk c of row r at c ^ (r % 8); a step is 8 or 16 rows, so
-// r % 8 does not depend on the step)
+// pieces lane (g, t) of column group `group` reads: rows 2t, 2t + 1
+// (paired, half-split) or 2t, 2t + 1, 2t + 8, 2t + 9 (int8, native),
+// columns 32 group + 4g .. + 3: a word of a 128-byte row (16-byte chunk c
+// of row r at c ^ (r % 8)), or native bytes 16 group + 2g, + 1 of a
+// 64-byte row (chunk c at c ^ (r / 2 % 4)). A step is 8 or 16 rows, so
+// neither depends on the step.
 template <int MODE>
 __device__ __forceinline__ void stage_offsets(int (&aoff)[4], int group, int g, int t) {
   const int chunk0 = 2 * group + (g >> 2), within = 4 * (g & 3);
 #pragma unroll
   for (int l = 0; l < 4; ++l) {
-    const int r = MODE == MODE_PAIRED ? 2 * t + (l & 1) : 2 * t + (l & 1) + 8 * (l >> 1);
-    aoff[l] = r * TC_STRIP + ((chunk0 ^ (r & 7)) << 4) + within;
+    const int r = MODE == MODE_PAIRED || MODE == MODE_HALF ? 2 * t + (l & 1) : 2 * t + (l & 1) + 8 * (l >> 1);
+    if (MODE == MODE_NATIVE) aoff[l] = r * 64 + ((group ^ ((r >> 1) & 3)) << 4) + 2 * g;
+    else aoff[l] = r * TC_STRIP + ((chunk0 ^ (r & 7)) << 4) + within;
   }
 }
 
@@ -411,7 +490,7 @@ qgemv_tc_kernel(const __grid_constant__ CUtensorMap wmap, const TcPlan p, const 
           const int st = n % M::STAGES;
           mbar_wait(empty + 8 * st, ((n / M::STAGES) & 1) ^ 1);   // a fresh barrier passes parity 1
           mbar_expect_tx(full + 8 * st, M::STAGE_BYTES);
-          tma_load_2d(base + st * M::STAGE_BYTES, &wmap, full + 8 * st, s * TC_STRIP, j * M::BOX_ROWS);
+          tma_load_2d(base + st * M::STAGE_BYTES, &wmap, full + 8 * st, s * M::BOX_BYTES, j * M::BOX_ROWS);
         }
       }
     }
@@ -627,35 +706,42 @@ cudaError_t launch_nt(const CUtensorMap& map, const TcPlan& p, const void* x, in
 
 // Encodes the weight's tensor map into map_out (128 bytes, CUtensorMap):
 // uint8 [rows, cols] row-major (cols bytes a row, a multiple of 16; base
-// 16-byte aligned), box 128 bytes x box_rows rows, 128-byte swizzle, zeros
-// past the edges. Returns 0, a cudaError_t from the entry-point query, or
-// minus the CUresult of a failed encode.
-extern "C" int supir_qgemv_tc_map(const void* w, long long rows, long long cols, int box_rows, void* map_out) {
+// 16-byte aligned), box box_cols bytes x box_rows rows, the 64- or 128-byte
+// swizzle (swizzle_bytes, at least box_cols), zeros past the edges. Returns
+// 0, a cudaError_t from the entry-point query, or minus the CUresult of a
+// failed encode.
+extern "C" int supir_qgemv_tc_map(const void* w, long long rows, long long cols, int box_rows, int box_cols,
+                                  int swizzle_bytes, void* map_out) {
+  if ((swizzle_bytes != 64 && swizzle_bytes != 128) || box_cols <= 0 || box_cols > swizzle_bytes)
+    return (int)cudaErrorInvalidValue;
   EncodeTiled fn;
   const cudaError_t found = encode_tiled(&fn);
   if (found != cudaSuccess) return static_cast<int>(found);
   alignas(64) CUtensorMap map;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(TC_STRIP), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = fn(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   memcpy(map_out, &map, sizeof(map));
   return 0;
 }
 
-// supir_qgemv_tc (K5, K6, K7 int8): map from supir_qgemv_tc_map for the
-// weights (paired uint8 [cin/2, cout], mode 0, or int8 [cin, cout], mode
-// 2); plan: ops/gemv_plan.py:PLAN_FIELDS; x bf16 [rows, >= cin] (>= 2 cin
-// with SiLU-GLU), row stride ldx, 16-byte aligned rows; gamma fp32 [cin]
-// (RMSNorm only); prologue 0 none, 1 RMSNorm, 2 SiLU-GLU (paired only);
-// scale fp32 [cout]; residual fp32 [rows, cout] or null; out fp32 [rows,
-// cout]; part fp32 [grid, 2, 32, 128] scratch; counters int32 [strips],
-// zero, and zero again when the launch ends. fault: a planted fault (0 for
-// none). Returns the launch's cudaError_t.
+// supir_qgemv_tc (K5, K6, K7, K11): map from supir_qgemv_tc_map for the
+// weights (paired uint8 [cin/2, cout], mode 0; half-split uint8 [cin/2,
+// cout], mode 1, cin % 16 == 0; int8 [cin, cout], mode 2; native uint8
+// [cin, cout/2], mode 3, cout % 32 == 0); plan: ops/gemv_plan.py:
+// PLAN_FIELDS; x bf16 [rows, >= cin] (>= 2 cin with SiLU-GLU), row stride
+// ldx, 16-byte aligned rows; gamma fp32 [cin] (RMSNorm only); prologue 0
+// none, 1 RMSNorm, 2 SiLU-GLU (prologue and residual: paired only); scale
+// fp32 [cout]; residual fp32 [rows, cout] or null; out fp32 [rows, cout];
+// part fp32 [grid, 2, 32, 128] scratch; counters int32 [strips], zero, and
+// zero again when the launch ends. fault: a planted fault (0 for none).
+// Returns the launch's cudaError_t.
 extern "C" int supir_qgemv_tc(const void* map, const int* plan, int mode, const void* x, int ldx, const void* gamma,
                               float eps, int prologue, const void* scale, const void* residual, void* out, void* part,
                               void* counters, int fault, void* stream) {
@@ -663,7 +749,9 @@ extern "C" int supir_qgemv_tc(const void* map, const int* plan, int mode, const 
   memcpy(&m, map, sizeof(m));
   TcPlan p;
   memcpy(&p, plan, sizeof(p));
-  if (p.rows <= 0 || p.rows > TC_MAX_ROWS || p.grid <= 0 || p.cout % 16 || p.cin % 8 || ldx % 8) return (int)cudaErrorInvalidValue;
+  if (p.rows <= 0 || p.rows > TC_MAX_ROWS || p.grid <= 0 || p.cout % 16 || p.cin % 8 || ldx % 8 || p.wcols % 16 ||
+      p.wcols != (mode == MODE_NATIVE ? p.cout / 2 : p.cout))
+    return (int)cudaErrorInvalidValue;
   if (prologue == PRO_NORM && gamma == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* gm = static_cast<const float*>(gamma);
@@ -674,7 +762,12 @@ extern "C" int supir_qgemv_tc(const void* map, const int* plan, int mode, const 
   int* ct = static_cast<int*>(counters);
   if (mode == MODE_PAIRED && p.box_rows == TcMode<MODE_PAIRED>::BOX_ROWS)
     return (int)launch_nt<MODE_PAIRED>(m, p, x, ldx, gm, eps, prologue, sc, rs, o, pt, ct, fault, s);
-  if (mode == MODE_INT8 && prologue == PRO_NONE && residual == nullptr && p.box_rows == TcMode<MODE_INT8>::BOX_ROWS)
+  if (prologue != PRO_NONE || residual != nullptr) return (int)cudaErrorInvalidValue;   // K7 and K11 take neither
+  if (mode == MODE_HALF && p.cin % 16 == 0 && p.box_rows == TcMode<MODE_HALF>::BOX_ROWS)
+    return (int)launch_nt<MODE_HALF>(m, p, x, ldx, gm, eps, prologue, sc, rs, o, pt, ct, fault, s);
+  if (mode == MODE_INT8 && p.box_rows == TcMode<MODE_INT8>::BOX_ROWS)
     return (int)launch_nt<MODE_INT8>(m, p, x, ldx, gm, eps, prologue, sc, rs, o, pt, ct, fault, s);
+  if (mode == MODE_NATIVE && p.box_rows == TcMode<MODE_NATIVE>::BOX_ROWS)
+    return (int)launch_nt<MODE_NATIVE>(m, p, x, ldx, gm, eps, prologue, sc, rs, o, pt, ct, fault, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,45 +1,53 @@
 """The plan of the tensor-core decode GEMV (`csrc/quant_gemv_tc.cu`), which
-K5, K6 and K7's int8 instance launch: how the work is split over the SMs,
-how each thread maps its shared-memory words onto `mma.sync` fragments, and
-how the staged activations are ordered. The kernel walks exactly these
-rules; they live here so that the CPU tests reach them (`tc_emulate` walks
-the plan in torch and must equal the plain GEMVs).
+K5, K6, K7 (int8 and half-split int4) and K11 launch: how the work is
+split over the SMs, how each thread maps its shared-memory words onto
+`mma.sync` fragments, and how the staged activations are ordered. The
+kernel walks exactly these rules; they live here so that the CPU tests
+reach them (`tc_emulate` walks the plan in torch and must equal the plain
+GEMVs).
 
-Work: the weights [wrows, cout] (paired int4 bytes, wrows = cin / 2, or int8,
-wrows = cin) are cut into strips of TC_STRIP output columns and chunks of
-TC_CHUNK_K values of the contraction (one TMA box: 64 packed rows or 128
-int8 rows by 128 bytes), and each strip's chunks into `slices` contiguous
-k-slices. A tile is one (strip, slice), numbered slice-major, and block b
-of a grid of G takes the tiles b, b + G, b + 2G, ...: at any moment the
-blocks work on one or two neighbouring k-slices of every strip, so the rows
-they read are read whole (a DRAM page is opened once, not once per block),
-and each block's work is within one tile of equal. `slices` is chosen per
-shape (`_choose_slices`): the most even split, traded against the partial
-sums it writes. A strip of one slice is stored by its tile's block; the
-slices of a strip are summed from their partials in slice order by the
-block that took its last slice (in the final round), so two runs give the
-same bits.
+Work: the weights [wrows, wcols] bytes (paired or half-split int4, wrows =
+cin / 2, wcols = cout; int8, cin x cout; native int4 column pairs, cin x
+cout / 2) are cut into strips of TC_STRIP output columns (one TMA box row:
+128 bytes, or 64 native bytes) and chunks of TC_CHUNK_K values of the
+contraction (one TMA box: 64 packed rows or 128 int8 or native rows), and
+each strip's chunks into `slices` contiguous k-slices. A tile is one
+(strip, slice), numbered slice-major, and block b of a grid of G takes the
+tiles b, b + G, b + 2G, ...: at any moment the blocks work on one or two
+neighbouring k-slices of every strip, so the rows they read are read whole
+(a DRAM page is opened once, not once per block), and each block's work is
+within one tile of equal. `slices` is chosen per shape (`_choose_slices`):
+the most even split, traded against the partial sums it writes. A strip of
+one slice is stored by its tile's block; the slices of a strip are summed
+from their partials in slice order by the block that took its last slice
+(in the final round), so two runs give the same bits.
 
 Threads: 4 groups of 32 columns of the strip, TC_PARTS consumer warps each,
 each taking a part of every chunk's 16-k steps into `acc_sets(nt)`
 accumulator sets; at the tile's end each warp sums its sets in order, and
-the parts are summed in part order. Lane (g = lane / 4,
-t = lane % 4) reads one 4-byte word (4 columns) per weight row it needs, in
-the 128-byte swizzle TMA writes (16-byte chunk c of row r at c ^ (r % 8)):
-paired rows 2t and 2t + 1 of each 8-row (16 k) step, int8 rows 2t, 2t + 1,
-2t + 8, 2t + 9 of each 16-row step, so each load of a warp meets 32 banks.
-Columns 4g + 2F and 4g + 2F + 1 of the warp's 32 are rows g and g + 8 of A
-fragment F (F = 0, 1). In the paired layout a byte holds k = 2p and 2p + 1
-of one column, one bf16x2 register of A; the rows 2t and 2t + 1 the lane
-reads stand for the fragment's k pairs t and t + 4, a permutation of k
-inside the 16-k step that the activations are staged in too. In int8 the
-fragments' k order is the natural one.
+the parts are summed in part order. Lane (g = lane / 4, t = lane % 4)
+reads, per weight row it needs, the bytes of its 4 columns in the swizzle
+TMA writes (`swizzle`): paired and half-split rows 2t and 2t + 1 of each
+8-row (16 k) step, one 4-byte word each; int8 rows 2t, 2t + 1, 2t + 8,
+2t + 9 of each 16-row step, a word each; native the same rows, 2 bytes
+each. Each load of a warp meets no bank twice. Columns 4g + 2F and
+4g + 2F + 1 of the warp's 32 are rows g and g + 8 of A fragment F (F = 0,
+1). A paired byte holds k = 2p and 2p + 1 of one column, one bf16x2
+register of A; the rows 2t and 2t + 1 the lane reads stand for the
+fragment's k pairs t and t + 4, a permutation of k inside the 16-k step
+that the activations are staged in too. A half-split byte holds k = p and
+p + cin / 2: the same A path, with the pair standing for (p, p + cin / 2).
+In int8 the fragments' k order is the natural one. A native byte holds
+columns 4g + 2F and 4g + 2F + 1 of one k, rows g and g + 8 of fragment F:
+its low nibbles in rows 2t and 2t + 1 make one A register, its high
+nibbles the next, in the natural k order.
 
 Activations: x' (bf16, after K5's prologue) is staged per row as 32-bit
 words, 8 per 16-k step: the word of k pair p at (p % 4) * 2 + p // 4, so
 that a lane's two B registers (pairs t and t + 4) are one 8-byte load; rows
 are `xrs` words apart (8 mod 32: the 8-byte loads of a warp meet no bank
-twice).
+twice). In the half-split layout a step is 8 packed rows p0..p0 + 7 and
+its word of packed row p holds (x[p], x[p + cin / 2]).
 """
 
 from __future__ import annotations
@@ -50,20 +58,23 @@ import functools
 
 import torch
 
-TC_STRIP = 128      # output columns per strip: one 128-byte TMA box row
+TC_STRIP = 128      # output columns per strip: one TMA box row
 TC_CHUNK_K = 128    # contraction values per chunk (a ring stage)
 TC_WARPS = 4        # column groups of 32 columns
 TC_MAX_ROWS = 32    # activation rows a launch takes (DECODE_ROWS)
-TC_BOX_ROWS = {"paired": 64, "int8": 128}   # weight rows per chunk
-TC_STAGES = {"paired": 16, "int8": 8}       # ring depth: 128 KB either way
+TC_BOX_ROWS = {"paired": 64, "half": 64, "int8": 128, "native": 128}     # weight rows per chunk
+TC_BOX_BYTES = {"paired": 128, "half": 128, "int8": 128, "native": 64}   # a strip's bytes of a weight row
+TC_STAGES = {"paired": 16, "half": 16, "int8": 8, "native": 16}          # ring depth: 128 KB each
 TC_XS_BYTES = 57344                         # staged-x' budget
 TC_MAX_STRIPS = 4096                        # the per-strip counters a device keeps
 TC_PART_BYTES = 16 * 2 ** 20                # the partial-sum scratch a device keeps
 TC_RED_BYTES = TC_WARPS * 32 * 32 * 4       # the step halves' sums: 32 lanes x up to 32 floats a group
 # csrc/quant_gemv_tc.cu's planted faults (tests and chip_smoke only)
 FAULT_DROP_SHARE, FAULT_COMBINE_TWICE, FAULT_X_ORDER = 1, 2, 3
+# wcols last: only the C entry reads it, and the fields the kernel reads keep
+# their offsets (moving them reschedules the kernel's code)
 PLAN_FIELDS = ("rows", "cin", "cout", "wrows", "strips", "chunks", "slices", "tiles", "grid", "wch", "xrs",
-               "smem", "nt", "stages", "box_rows")
+               "smem", "nt", "stages", "box_rows", "wcols")
 
 
 TC_PARTS = 2        # consumer warps per column group: part p takes steps [4p, 4p + 4) of every chunk
@@ -77,12 +88,14 @@ def acc_sets(nt: int) -> int:
 
 
 def tc_eligible(mode: str, cin: int, cout: int, w_ptr: int, x_ptr: int, ldx: int) -> bool:
-    """Whether the TMA body takes this call: the paired or int8 layout, a
-    weight row stride (cout bytes) that is a multiple of 16, a 16-byte
-    aligned weight base, and activation rows (and SiLU-GLU's second half,
-    cin % 8 == 0) that start 16-byte aligned. Anything else keeps the
-    strip body of quant_gemv.cuh."""
-    return (mode in TC_BOX_ROWS and cin % 8 == 0 and cout % 16 == 0 and w_ptr % 16 == 0 and x_ptr % 16 == 0
+    """Whether the TMA body takes this call: a weight row stride that is a
+    multiple of 16 bytes (cout % 16 == 0; native, whose rows are cout / 2
+    bytes: cout % 32 == 0), a 16-byte aligned weight base, and activation
+    rows (and SiLU-GLU's second half, cin % 8 == 0; the half-split
+    layout's second half, cin % 16 == 0) that start 16-byte aligned.
+    Anything else keeps the strip body of quant_gemv.cuh."""
+    return (mode in TC_BOX_ROWS and cin % (16 if mode == "half" else 8) == 0
+            and cout % (32 if mode == "native" else 16) == 0 and w_ptr % 16 == 0 and x_ptr % 16 == 0
             and ldx % 8 == 0)
 
 
@@ -92,7 +105,8 @@ class TcPlan:
     rows: int       # activation rows B
     cin: int
     cout: int
-    wrows: int      # weight rows: cin / 2 (paired) or cin (int8)
+    wrows: int      # weight rows: cin / 2 (paired, half) or cin (int8, native)
+    wcols: int      # bytes of a weight row: cout, or cout / 2 (native)
     strips: int
     chunks: int     # chunks per strip
     slices: int     # k-slices per strip
@@ -104,6 +118,11 @@ class TcPlan:
     nt: int         # n-tiles of 8 rows: 1, 2 or 4
     stages: int
     box_rows: int
+
+    @property
+    def box_bytes(self) -> int:
+        """A box row's bytes, which is also the TMA swizzle's span."""
+        return TC_BOX_BYTES[self.mode]
 
     def slice_chunks(self, p: int) -> tuple[int, int]:
         """Slice p's chunks [c0, c1)."""
@@ -164,20 +183,24 @@ def _choose_slices(strips: int, chunks: int, grid: int, rows: int, chunk_bytes: 
 @functools.lru_cache(maxsize=1024)
 def tc_plan(mode: str, rows: int, cin: int, cout: int, sms: int) -> TcPlan:
     """The plan of one launch: `rows` activation rows against [cin, cout]
-    weights in `mode` ("paired" or "int8") on a card of `sms` SMs."""
+    weights in `mode` ("paired", "half", "int8" or "native") on a card of
+    `sms` SMs."""
     if mode not in TC_BOX_ROWS:
-        raise ValueError(f"the tensor-core GEMV takes the paired and int8 layouts, not {mode}")
+        raise ValueError(f"the tensor-core GEMV takes the layouts {sorted(TC_BOX_ROWS)}, not {mode}")
     if not 1 <= rows <= TC_MAX_ROWS:
         raise ValueError(f"the tensor-core GEMV takes 1-{TC_MAX_ROWS} activation rows, got {rows}")
-    if cin <= 0 or cin % 8 or cout <= 0 or cout % 16:
-        raise ValueError(f"the tensor-core GEMV needs cin % 8 == 0 and cout % 16 == 0, got {cin}, {cout}")
+    kmod, cmod = 16 if mode == "half" else 8, 32 if mode == "native" else 16
+    if cin <= 0 or cin % kmod or cout <= 0 or cout % cmod:
+        raise ValueError(f"the tensor-core GEMV ({mode}) needs cin % {kmod} == 0 and cout % {cmod} == 0, got "
+                         f"{cin}, {cout}")
     box_rows = TC_BOX_ROWS[mode]
-    wrows = cin // 2 if mode == "paired" else cin
+    wrows = cin // 2 if mode in ("paired", "half") else cin
+    wcols = cout // 2 if mode == "native" else cout
     strips = -(-cout // TC_STRIP)
     if strips > TC_MAX_STRIPS:
         raise ValueError(f"cout {cout} has more than {TC_MAX_STRIPS} strips")
     chunks = -(-wrows // box_rows)
-    stage_bytes = box_rows * TC_STRIP
+    stage_bytes = box_rows * TC_BOX_BYTES[mode]
     slices = _choose_slices(strips, chunks, sms, rows, stage_bytes)
     tiles = strips * slices
     grid = min(tiles, sms)
@@ -189,7 +212,7 @@ def tc_plan(mode: str, rows: int, cin: int, cout: int, sms: int) -> TcPlan:
     # ring | x' window | the step halves' sums | rstd | finished tiles | barriers (+ go) | alignment slack
     smem = (stages * stage_bytes + -(-4 * rows * xrs // 16) * 16 + TC_RED_BYTES + 4 * TC_MAX_ROWS + 16
             + 16 * stages + 8 + 1024)
-    return TcPlan(mode, rows, cin, cout, wrows, strips, chunks, slices, tiles, grid, wch, xrs, smem, nt, stages,
+    return TcPlan(mode, rows, cin, cout, wrows, wcols, strips, chunks, slices, tiles, grid, wch, xrs, smem, nt, stages,
                   box_rows)
 
 
@@ -197,25 +220,33 @@ def tc_plan(mode: str, rows: int, cin: int, cout: int, sms: int) -> TcPlan:
 # Each mirrors one expression of csrc/quant_gemv_tc.cu.
 
 
-def swizzle(row: int, col: int) -> int:
-    """Byte offset in a stage of weight byte (row, col) as TMA writes it in
-    the 128-byte swizzle."""
-    return row * TC_STRIP + (((col >> 4) ^ (row & 7)) << 4) + (col & 15)
+def swizzle(row: int, col: int, width: int = TC_STRIP) -> int:
+    """Byte offset in a stage of weight byte (row, col) of a box `width`
+    bytes wide, as TMA writes it in the swizzle of that span (128 or 64
+    bytes): address bits 4.. (the 16-byte chunk) XOR bits 7.. of the same
+    address. At 128 bytes chunk c of row r lands at c ^ (r % 8); at 64
+    bytes at c ^ (r / 2 % 4)."""
+    addr = row * width + col
+    return addr ^ (((addr >> 7) & (width // 16 - 1)) << 4)
 
 
 def a_rows(mode: str, step: int, t: int) -> tuple[int, ...]:
-    """The stage rows lane (., t) reads in 16-k step `step`: paired 2t, 2t+1
-    of the step's 8 packed rows; int8 2t, 2t+1, 2t+8, 2t+9 of its 16."""
-    if mode == "paired":
+    """The stage rows lane (., t) reads in 16-k step `step`: paired and
+    half-split 2t, 2t+1 of the step's 8 packed rows; int8 and native 2t,
+    2t+1, 2t+8, 2t+9 of its 16."""
+    if mode in ("paired", "half"):
         r = 8 * step + 2 * t
         return r, r + 1
     r = 16 * step + 2 * t
     return r, r + 1, r + 8, r + 9
 
 
-def a_word_offset(row: int, warp: int, g: int) -> int:
-    """Byte offset of the 4-byte word lane (g, .) of `warp` reads from stage
-    row `row`: columns 32 warp + 4g .. + 3."""
+def a_word_offset(mode: str, row: int, warp: int, g: int) -> int:
+    """Byte offset of the piece lane (g, .) of `warp` reads from stage row
+    `row`: columns 32 warp + 4g .. + 3, a 4-byte word, or in the native
+    layout their 2 bytes 16 warp + 2g, + 1 of a 64-byte row."""
+    if mode == "native":
+        return row * 64 + ((warp ^ ((row >> 1) & 3)) << 4) + 2 * g
     chunk = 2 * warp + (g >> 2)
     return row * TC_STRIP + ((chunk ^ (row & 7)) << 4) + 4 * (g & 3)
 
@@ -226,19 +257,25 @@ def a_register(mode: str, words, frag: int, reg: int):
     half first); nibble is 0 (low), 1 (high) or None (an int8 byte).
     reg 0: row g, k pair t; 1: row g + 8, pair t; 2: row g, pair t + 4;
     3: row g + 8, pair t + 4 (the PTX m16n8k16 A layout)."""
+    first = 2 * (reg >> 1)                # k 2t, 2t+1: rows 2t, 2t+1; k + 8: rows 2t+8, 2t+9
+    if mode == "native":                  # byte frag: columns 4g + 2 frag (low), + 1 (high nibble)
+        return (first, frag, reg & 1), (first + 1, frag, reg & 1)
     byte = 2 * frag + (reg & 1)           # column 4g + 2 frag (+1 for row g + 8)
-    if mode == "paired":
+    if mode in ("paired", "half"):
         word = reg >> 1                   # pair t: row 2t; pair t + 4: row 2t + 1
         return (word, byte, 0), (word, byte, 1)
-    first = 2 * (reg >> 1)                # k 2t, 2t+1: rows 2t, 2t+1; k + 8: rows 2t+8, 2t+9
     return (first, byte, None), (first + 1, byte, None)
 
 
 def x_word_k(mode: str, pos: int, fault: int = 0) -> tuple[int, int]:
-    """The two k offsets (inside a 16-k step) of staged word `pos`, low half
-    first. In the paired layout the lanes' row order and the word
-    interleave cancel, so its words hold k in natural order. FAULT_X_ORDER
-    drops the interleave (word pos holds k pair pos)."""
+    """The two values (indices into a step's 16, `step_values`) of staged
+    word `pos`, low half first. In the paired layout the lanes' row order
+    and the word interleave cancel, so its words hold k in natural order;
+    in the half-split layout word pos holds packed row pos's two halves.
+    FAULT_X_ORDER drops the interleave (word pos holds k pair pos), and in
+    the half-split layout stages the step's values in natural order."""
+    if mode == "half":
+        return (2 * pos, 2 * pos + 1) if fault == FAULT_X_ORDER else (pos, pos + 8)
     pair = pos if fault == FAULT_X_ORDER else (pos >> 1) + 4 * (pos & 1)   # pair p sits at (p % 4) * 2 + p // 4
     if mode == "paired":
         row = 2 * pair if pair < 4 else 2 * (pair - 4) + 1
@@ -267,10 +304,25 @@ def _prologue_bf16(x, cin, gamma, eps, prologue):
     return xf[:, :cin].to(torch.bfloat16).float()
 
 
+def step_values(mode: str, xp, chunks: int) -> torch.Tensor:
+    """x' [B, cin] -> [B, steps, 16], the 16 values each 16-k step stages
+    its words from (zeros past the weight's edge): k0..k0 + 15, or in the
+    half-split layout x[p0..p0 + 7] then x[h + p0 .. h + p0 + 7] for the
+    step's packed rows p0..p0 + 7, h = cin / 2."""
+    B, cin = xp.shape
+    kpad = chunks * TC_CHUNK_K
+    if mode != "half":
+        return torch.nn.functional.pad(xp, (0, kpad - cin)).reshape(B, -1, 16)
+    h, hpad = cin // 2, kpad // 2
+    lo = torch.nn.functional.pad(xp[:, :h], (0, hpad - h)).reshape(B, -1, 8)
+    hi = torch.nn.functional.pad(xp[:, h:], (0, hpad - h)).reshape(B, -1, 8)
+    return torch.cat([lo, hi], -1)
+
+
 def _decode(mode, stage, offs, nibble):
     """Bytes of a stage image at offsets -> values (int4 nibble or int8)."""
     b = stage[offs]
-    if mode == "paired":
+    if mode != "int8":
         v = (b >> (4 * nibble)) & 0xF
         return ((v ^ 8) - 8).float()
     return b.to(torch.int8).float()
@@ -282,7 +334,7 @@ def _fragment_maps(mode: str):
     and A element (m, kl): the stage byte offset and nibble it decodes; for
     each B element (kl, word half): the staged word position. Built from
     the lane-level rules above, through the PTX fragment layouts."""
-    steps = TC_BOX_ROWS[mode] // (8 if mode == "paired" else 16)
+    steps = TC_CHUNK_K // 16
     offs = torch.zeros(TC_WARPS, steps, 2, 16, 16, dtype=torch.long)
     nib = torch.zeros(TC_WARPS, steps, 2, 16, 16, dtype=torch.long)
     bpos = torch.zeros(16, dtype=torch.long)     # logical k -> staged word position
@@ -291,7 +343,7 @@ def _fragment_maps(mode: str):
         for step in range(steps):
             for lane in range(32):
                 g, t = lane >> 2, lane & 3
-                words = [a_word_offset(r, warp, g) for r in a_rows(mode, step, t)]
+                words = [a_word_offset(mode, r, warp, g) for r in a_rows(mode, step, t)]
                 for frag in range(2):
                     for reg in range(4):
                         m = g + 8 * (reg & 1)
@@ -315,28 +367,25 @@ def tc_emulate(plan: TcPlan, x, w, scale, gamma=None, eps: float = 1e-6, prologu
     A fragments decoded from a TMA-swizzled stage image and the B fragments
     read from the staged x', summed per part of the chunk's steps and per
     accumulator set, the sets and then the parts added at the tile's end in
-    order; per strip a direct store or
-    its slices' partials combined in slice order. The tensor cores' sums inside a step
-    are taken as fp32 matmuls. `fault` plants csrc/quant_gemv_tc.cu's
-    faults."""
+    order; per strip a direct store or its slices' partials combined in
+    slice order. The tensor cores' sums inside a step are taken as fp32
+    matmuls. `fault` plants csrc/quant_gemv_tc.cu's faults."""
     mode, B, cin, cout = plan.mode, plan.rows, plan.cin, plan.cout
     offs, nib, bpos, bhalf = _fragment_maps(mode)
     nparts, nsets = TC_PARTS, acc_sets(plan.nt)
-    steps, box_rows = offs.shape[1], plan.box_rows
-    kstep = 16
+    steps, box_rows, width = offs.shape[1], plan.box_rows, plan.box_bytes
     xp = _prologue_bf16(x, cin, gamma, eps, prologue)                       # [B, cin]
-    kpad = plan.chunks * TC_CHUNK_K
-    xp = torch.nn.functional.pad(xp, (0, kpad - cin))
-    # staged words: word position pos of step holds k offsets x_word_k(pos)
+    # staged words: word position pos of step holds values x_word_k(pos) of the step
     src = torch.tensor([x_word_k(mode, pos, fault) for pos in range(8)])   # [8, 2]
-    staged = xp.reshape(B, -1, kstep)[:, :, src]                            # [B, steps, 8, 2]
+    staged = step_values(mode, xp, plan.chunks)[:, :, src]                  # [B, steps, 8, 2]
     blog = staged[:, :, bpos, bhalf]                                        # [B, steps, 16]: logical k
     wbytes = w.view(torch.uint8) if w.dtype == torch.int8 else w
-    wpad = torch.zeros(plan.chunks * box_rows, plan.strips * TC_STRIP, dtype=torch.uint8)
-    wpad[: plan.wrows, :cout] = wbytes
-    scatter = torch.tensor([[swizzle(r, c) for c in range(TC_STRIP)] for r in range(box_rows)])
+    wpad = torch.zeros(plan.chunks * box_rows, plan.strips * width, dtype=torch.uint8)
+    wpad[: plan.wrows, : plan.wcols] = wbytes
+    scatter = torch.tensor([[swizzle(r, c, width) for c in range(width)] for r in range(box_rows)])
     col_of = torch.tensor([[[c_column(warp, m % 8, frag, 2 * (m // 8)) for m in range(16)] for frag in range(2)]
                            for warp in range(TC_WARPS)])                    # [warps, 2, 16]
+    part_of = [next(q for q in range(nparts) if step < steps * (q + 1) // nparts) for step in range(steps)]
     partials = {}
     out = torch.zeros(B, plan.strips * TC_STRIP)
     for b in range(plan.grid):
@@ -345,16 +394,15 @@ def tc_emulate(plan: TcPlan, x, w, scale, gamma=None, eps: float = 1e-6, prologu
             acc = torch.zeros(nparts, nsets, TC_WARPS, 2, 16, B)   # per part and set of each chunk's steps
             c0, c1 = plan.slice_chunks(p)
             for j in range(c0, c1):
-                stage = torch.zeros(box_rows * TC_STRIP, dtype=torch.uint8)
-                stage[scatter.flatten()] = wpad[j * box_rows:(j + 1) * box_rows,
-                                                s * TC_STRIP:(s + 1) * TC_STRIP].flatten()
-                if not (fault == FAULT_DROP_SHARE and b == 0):
-                    for step in range(steps):
-                        a = _decode(mode, stage, offs[:, step], nib[:, step])     # [warps, 2, 16 m, 16 kl]
-                        bk = blog[:, j * steps + step].T                           # [16 kl, B]
-                        part = next(q for q in range(nparts) if step < steps * (q + 1) // nparts)
-                        i = step - steps * part // nparts
-                        acc[part, i % nsets] += a @ bk
+                if fault == FAULT_DROP_SHARE and b == 0:
+                    continue
+                stage = torch.zeros(box_rows * width, dtype=torch.uint8)
+                stage[scatter.flatten()] = wpad[j * box_rows:(j + 1) * box_rows, s * width:(s + 1) * width].flatten()
+                a = _decode(mode, stage, offs, nib)                                # [warps, steps, 2, 16 m, 16 kl]
+                prods = torch.einsum("wsfmk,bsk->swfmb", a, blog[:, j * steps:(j + 1) * steps])
+                for step in range(steps):
+                    part = part_of[step]
+                    acc[part, (step - steps * part // nparts) % nsets] += prods[step]
             total = None
             for part in range(nparts):
                 psum = acc[part, 0]

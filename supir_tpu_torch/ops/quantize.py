@@ -24,13 +24,13 @@ Kernels, each with its plain version beside it and a launch counter:
      per-row int8 activations, exact int32 accumulation
   K11 int4_native_matmul       (_qmm_native_kernel :555)  GEMV against
      column-pair-packed int4 weights
-K5, K6 and K7's int8 instance launch `csrc/quant_gemv_tc.cu` (TMA weight
-stream, `mma.sync`, k-slice tiles planned in `ops/gemv_plan.py`) where
-the call allows it (`gemv_plan.tc_eligible`: cin % 8 == 0, cout % 16 == 0
-and 16-byte aligned weights and activation rows, which every model shape
-meets), else
-the strip body of `csrc/quant_gemv.cu`, which K7's half-split instance, K10
-and K11 always launch. K8 is `csrc/quantize_int8.cu`, K9
+K5, K6, K7 (int8 and half-split int4) and K11 launch `csrc/quant_gemv_tc.cu`
+(TMA weight stream, `mma.sync`, k-slice tiles planned in
+`ops/gemv_plan.py`) where the call allows it (`gemv_plan.tc_eligible`:
+cin % 8 == 0 (half-split 16), cout % 16 == 0 (native 32) and 16-byte
+aligned weights and activation rows, which every model shape meets), else
+the strip body of `csrc/quant_gemv.cu`, which K10 and K5's act_int8 mode
+always launch. K8 is `csrc/quantize_int8.cu`, K9
 `csrc/quant_pair.cu`; their headers say what bounds them on the card and
 how they are laid out. The tensor-core body's weight tensor maps are
 encoded once per weight and cached here (`_tc_map`), and each device keeps
@@ -332,7 +332,7 @@ def _tc_library() -> ctypes.CDLL:
     lib.supir_qgemv_tc.restype = i
     lib.supir_qgemv_tc.argtypes = [p, p, i, p, i, p, f, i, p, p, p, p, p, i, p]
     lib.supir_qgemv_tc_map.restype = i
-    lib.supir_qgemv_tc_map.argtypes = [p, ctypes.c_longlong, ctypes.c_longlong, i, p]
+    lib.supir_qgemv_tc_map.argtypes = [p, ctypes.c_longlong, ctypes.c_longlong, i, i, i, p]
     return lib
 
 
@@ -395,12 +395,13 @@ def _gamma_residual(gamma, residual, cin: int, rows: int, cout: int):
 def _launch_gemv(x, w, scale, mode: str, cin: int, gamma=None, eps: float = 1e-6,
                  prologue: int = 0, residual=None, strip: int = STRIP, _fault: int = 0) -> torch.Tensor:
     """One launch over x [B, cin] (or [B, 2 cin] with the SiLU-GLU prologue)
-    bf16; returns [B, cout] fp32. The paired and int8 layouts go to the
-    tensor-core body (`csrc/quant_gemv_tc.cu`) when `gemv_plan.tc_eligible`
-    holds, everything else to the strip body of `csrc/quant_gemv.cu`, or of
-    `csrc/gemv_sweep.cu` at another strip (half-split and native int4, no
-    prologue, no residual). `_fault` plants one of the tensor-core body's
-    faults (gemv_plan.FAULT_*), for checks only."""
+    bf16; returns [B, cout] fp32. At the default strip every layout goes to
+    the tensor-core body (`csrc/quant_gemv_tc.cu`) when
+    `gemv_plan.tc_eligible` holds, everything else to the strip body of
+    `csrc/quant_gemv.cu`; another strip (half-split and native int4, no
+    prologue, no residual) launches `csrc/gemv_sweep.cu`. `_fault` plants
+    one of the tensor-core body's faults (gemv_plan.FAULT_*), for checks
+    only."""
     cout = 2 * w.shape[-1] if mode == "native" else w.shape[-1]
     _check_activation(x, 2 * cin if prologue == 2 else cin)
     if cin % 2 or cout % 8:
@@ -438,7 +439,7 @@ def _launch_gemv(x, w, scale, mode: str, cin: int, gamma=None, eps: float = 1e-6
     return out
 
 
-_TC_MAPS: dict = {}       # (device, weight address, rows, cols, box rows) -> (buffer, its address)
+_TC_MAPS: dict = {}       # (device, weight address, rows, row bytes, box) -> (buffer, its address)
 _TC_SCRATCH: dict = {}    # device index -> (partials, strip counters, their addresses)
 _TC_PLANS: dict = {}      # (mode, rows, cin, cout, device index) -> (plan, its packed fields' address)
 
@@ -452,16 +453,17 @@ def _tc_map(w: torch.Tensor, plan: GP.TcPlan, index: int) -> int:
     """The address of w's encoded tensor map (128 bytes), encoded at the
     first launch over this weight and kept: a map depends only on the
     address, extent and box, which a weight never changes."""
-    key = (index, w.data_ptr(), plan.wrows, plan.cout, plan.box_rows)
+    key = (index, w.data_ptr(), plan.wrows, plan.wcols, plan.box_rows, plan.box_bytes)
     hit = _TC_MAPS.get(key)
     if hit is None:
         if len(_TC_MAPS) >= 8192:
             _TC_MAPS.clear()
         buf = (ctypes.c_ubyte * 128)()
-        err = _tc_library().supir_qgemv_tc_map(w.data_ptr(), plan.wrows, plan.cout, plan.box_rows,
-                                               ctypes.addressof(buf))
+        # the box is one strip's bytes of a row, and the swizzle spans it
+        err = _tc_library().supir_qgemv_tc_map(w.data_ptr(), plan.wrows, plan.wcols, plan.box_rows, plan.box_bytes,
+                                               plan.box_bytes, ctypes.addressof(buf))
         if err != 0:
-            raise RuntimeError(f"the GEMV weight's tensor map failed to encode ({plan.wrows} x {plan.cout} bytes): "
+            raise RuntimeError(f"the GEMV weight's tensor map failed to encode ({plan.wrows} x {plan.wcols} bytes): "
                                f"{'CUresult ' + str(-err) if err < 0 else 'cudaError ' + str(err)}")
         hit = _TC_MAPS[key] = (buf, ctypes.addressof(buf))
     return hit[1]
@@ -481,7 +483,7 @@ def _tc_scratch(device: torch.device):
 
 
 def _launch_tc(x, w, scale, mode, cin, cout, gamma, eps, prologue, residual, out, fault=0):
-    """One launch of `csrc/quant_gemv_tc.cu` (K5, K6, K7 int8)."""
+    """One launch of `csrc/quant_gemv_tc.cu` (K5, K6, K7, K11)."""
     if gamma is not None and gamma.data_ptr() % 16:
         gamma = gamma.clone()  # the kernel reads gamma in 16-byte vectors
     device = x.device
@@ -505,25 +507,36 @@ def _launch_tc(x, w, scale, mode, cin, cout, gamma, eps, prologue, residual, out
 
 def strip_body_gemv(x, w, scale, mode: str, gamma=None, eps: float = 1e-6, siluglu: bool = False,
                     residual=None) -> torch.Tensor:
-    """The strip body (K5, K6 and K7 int8's kernel before the tensor-core
-    body) at the model paths' geometry, from `csrc/gemv_sweep.cu`: for
-    comparing it with the tensor-core body on one card. No model path calls it, and it counts no
+    """The strip body (K5, K6, K7 and K11's kernel before the tensor-core
+    body) at the model paths' geometry: for comparing it with the
+    tensor-core body on one card. No model path calls it, and it counts no
     launch. x bf16 [B, cin] ([B, 2 cin] with siluglu); w paired uint8
-    [cin/2, cout] (mode "paired") or int8 [cin, cout] (mode "int8")."""
-    if mode not in ("paired", "int8"):
-        raise ValueError(f"the strip body's comparison instances are paired and int8, not {mode}")
-    cin = 2 * w.shape[0] if mode == "paired" else w.shape[0]
-    cout = w.shape[1]
+    [cin/2, cout] (mode "paired", from `csrc/gemv_sweep.cu`), int8 [cin,
+    cout] ("int8", the same), half-split uint8 [cin/2, cout] ("half") or
+    native uint8 [cin, cout/2] ("native"), these two without prologue or
+    residual from `csrc/quant_gemv.cu`, which still launches them for the
+    calls the tensor-core body does not take."""
+    if mode not in _MODES:
+        raise ValueError(f"the strip body's layouts are {sorted(_MODES)}, not {mode}")
+    cin = 2 * w.shape[0] if mode in ("paired", "half") else w.shape[0]
+    cout = 2 * w.shape[1] if mode == "native" else w.shape[1]
     prologue = 1 if gamma is not None else (2 if siluglu else 0)
+    if mode in ("half", "native") and (prologue or residual is not None):
+        raise ValueError(f"the strip body takes no prologue or residual in the {mode} layout")
     _check_activation(x, 2 * cin if prologue == 2 else cin)
-    _check_weights(w, scale, w.shape[0], cout, cout, torch.int8 if mode == "int8" else torch.uint8)
+    _check_weights(w, scale, w.shape[0], w.shape[1], cout, torch.int8 if mode == "int8" else torch.uint8)
     gamma, residual = _gamma_residual(gamma, residual, cin, x.shape[0], cout)
     _check_on_card("the strip body", x, (("weights", w), ("scale", scale), ("gamma", gamma), ("residual", residual)))
     out = torch.empty((x.shape[0], cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _sweep_library().supir_qgemv_strip(
-            x.data_ptr(), x.stride(0), _ptr(gamma), float(eps), prologue, w.data_ptr(), scale.data_ptr(),
-            _ptr(residual), out.data_ptr(), x.shape[0], cin, cout, _MODES[mode], _stream(x.device))
+        if mode in ("half", "native"):
+            err = _gemv_library().supir_qgemv(
+                x.data_ptr(), x.stride(0), None, float(eps), 0, w.data_ptr(), scale.data_ptr(), None,
+                out.data_ptr(), x.shape[0], cin, cout, _MODES[mode], _stream(x.device))
+        else:
+            err = _sweep_library().supir_qgemv_strip(
+                x.data_ptr(), x.stride(0), _ptr(gamma), float(eps), prologue, w.data_ptr(), scale.data_ptr(),
+                _ptr(residual), out.data_ptr(), x.shape[0], cin, cout, _MODES[mode], _stream(x.device))
     if err != 0:
         raise RuntimeError(f"strip-body GEMV launch failed ({mode}, prologue {prologue}): cudaError {err}")
     return out

@@ -12,7 +12,8 @@ nibble pair, the counterpart of the JAX package's `tools/bitcast_probe.py`.
   bench_gemv   T3b's single-cast GEMV (bf16 x [8, cin] x paired int4, one
                packed bf16 subtract per byte, fp32 sums) at the 13B decode
                shapes and strips of 32-256 columns per block, against K6
-               (int4_paired_matmul, the "shiftpair" line of the TPU probe),
+               (int4_paired_matmul on csrc/quant_gemv_tc.cu, in place of the
+               "shiftpair" line of the TPU probe),
                chained over L distinct weight copies (timing.py). The TPU's
                bouts 256-2048 were VMEM block widths; the card's strip stops
                at 256 (csrc/gemv_sweep.cu).
@@ -84,7 +85,7 @@ def bench_gemv(dev, layers: int, reps: int) -> dict:
             results[key] = timing.report(f"{name:6s} [8,{cin}]x[{cin},{cout}] single-cast strip {strip}", ms, per,
                                          per * layers, note=f"[{-(-cout // strip)} blocks]")
         ms = timing.chain_ms([lambda q=q: Q.int4_paired_matmul(x0, q, scale) for q in packed], reps)
-        results[f"{name} K6"] = timing.report(f"{name:6s} [8,{cin}]x[{cin},{cout}] K6 (shift-pair, strip 32)", ms,
+        results[f"{name} K6"] = timing.report(f"{name:6s} [8,{cin}]x[{cin},{cout}] K6 (tensor-core body)", ms,
                                               per, per * layers)
         del packed
         torch.cuda.empty_cache()

@@ -1,6 +1,9 @@
-"""The host's cost of one decode-GEMV call, K5 (RMSNorm prologue) and K7
-(int8), from several source trees on one card, in turns: the tool that
-shows a change of the GEMV wrappers does not add host time per launch.
+"""The host's cost of one decode-GEMV call, K5 (RMSNorm prologue), K7
+(int8 and half-split int4) and K11 (native int4), and the card's time of
+K5, K6, K7 (int8, int4) and K11 over one 13B decode layer, from several
+source trees on one card, in turns: the tool that shows a change of the
+GEMV wrappers or kernels adds no host time per launch and slows no other
+kernel.
 
 Each variant is NAME=DIR, DIR the root of a source tree holding a
 `supir_tpu_torch` package (`.` for this checkout; an older one unpacked
@@ -10,8 +13,12 @@ wrappers and builds its own kernels (into DIR/build/). A process warms the
 wrapper up, then sums the host clock over `--calls` calls, each timed on
 its own, with a synchronise every 10 calls (outside the timed spans) so
 that the card's queue never fills and paces the host; rows 1, cin = cout =
-512; it prints µs per call. The variants run in the order given, then in
-reverse.
+512; it prints µs per call. Then the device time of one 13B layer's four
+projections (qkv, o, gate-up, down) at 1 row, each chained through one CUDA
+graph over weight copies that together exceed twice the L2 (timing.py),
+K5 in each projection's form (RMSNorm, residual, RMSNorm, SiLU-GLU and
+residual); it prints ms per layer. The variants run in the order given,
+then in reverse.
 
 Run on the card: python -m supir_tpu_torch.tools.gemv_host_cost
 --variant new=. --variant old=build/old [--calls 1000]
@@ -28,6 +35,9 @@ import time
 from pathlib import Path
 
 WIDTH = 512  # cin = cout: the card's time per call stays well under the host's
+# one 13B decode layer: projection, cin, cout, K5's prologue, K5's residual
+LAYER = (("qkv", 5120, 15360, "norm", False), ("o", 5120, 5120, None, True),
+         ("gateup", 5120, 27648, "norm", False), ("down", 13824, 5120, "siluglu", True))
 
 
 def child(calls: int) -> dict:
@@ -41,10 +51,13 @@ def child(calls: int) -> dict:
     w = torch.randn(WIDTH, WIDTH, generator=g, device=dev) * WIDTH ** -0.5
     packed, scale = Q.quantize_int4_paired(w)
     q8, s8 = Q.quantize_int8(w, stochastic=False)
+    q4, s4 = Q.quantize_int4(w)
+    qn, sn = Q.quantize_int4_native(w)
     x = torch.randn(1, WIDTH, generator=g, device=dev).to(torch.bfloat16)
     gamma = 1.0 + 0.1 * torch.randn(WIDTH, generator=g, device=dev)
     calls_of = {"K5": lambda: Q.int4_paired_fused_matmul(x, packed, scale, gamma=gamma),
-                "K7": lambda: Q.int8_matmul(x, q8, s8)}
+                "K7": lambda: Q.int8_matmul(x, q8, s8), "K7 int4": lambda: Q.int4_matmul(x, q4, s4),
+                "K11": lambda: Q.int4_native_matmul(x, qn, sn)}
     out = {"package": str(Path(Q.__file__).resolve().parents[1])}
     for name, fn in calls_of.items():
         for _ in range(100):
@@ -58,7 +71,39 @@ def child(calls: int) -> dict:
             host += time.perf_counter() - t0
         torch.cuda.synchronize()
         out[name] = host / calls * 1e6
+    out["device"] = layer_ms(dev)
     return out
+
+
+def layer_ms(dev, reps: int = 20) -> dict:
+    """Device ms of each GEMV over one 13B layer's four projections at 1 row."""
+    import torch
+
+    from supir_tpu_torch.ops import quantize as Q
+    from supir_tpu_torch.tools import timing
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    total = dict.fromkeys(("K5", "K6", "K7", "K7 int4", "K11"), 0.0)
+    for _, cin, cout, prologue, with_residual in LAYER:
+        w = torch.randn(cin, cout, generator=g, device=dev) * cin ** -0.5
+        x = torch.randn(1, 2 * cin if prologue == "siluglu" else cin, generator=g, device=dev).to(torch.bfloat16)
+        xg = x[:, :cin].contiguous()
+        kw = dict(gamma=1.0 + 0.1 * torch.randn(cin, generator=g, device=dev) if prologue == "norm" else None,
+                  siluglu=prologue == "siluglu",
+                  residual=torch.randn(1, cout, generator=g, device=dev) if with_residual else None)
+        paired = Q.quantize_int4_paired(w)
+        layouts = {"K5": (paired, lambda q, s: Q.int4_paired_fused_matmul(x, q, s, **kw)),
+                   "K6": (paired, lambda q, s: Q.int4_paired_matmul(xg, q, s)),
+                   "K7": (Q.quantize_int8(w, stochastic=False), lambda q, s: Q.int8_matmul(xg, q, s)),
+                   "K7 int4": (Q.quantize_int4(w), lambda q, s: Q.int4_matmul(xg, q, s)),
+                   "K11": (Q.quantize_int4_native(w), lambda q, s: Q.int4_native_matmul(xg, q, s))}
+        del w
+        for name, ((q, s), fn) in layouts.items():
+            copies = [(q, s)] + [(q.clone(), s) for _ in range(int(2 * timing.L2_BYTES // q.nbytes))]
+            total[name] += timing.chain_ms([lambda c=c, fn=fn: fn(*c) for c in copies], reps)
+            del copies
+        torch.cuda.empty_cache()
+    return total
 
 
 def main(argv=None) -> dict:
@@ -87,8 +132,12 @@ def main(argv=None) -> dict:
             raise SystemExit(f"gemv_host_cost: variant {name} failed:\n{proc.stderr[-4000:]}")
         reading = json.loads(proc.stdout.strip().splitlines()[-1])
         results[name].append(reading)
-        print(f"[host cost] {name} ({reading['package']}): K5 {reading['K5']:.2f} us, K7 {reading['K7']:.2f} us "
-              f"per call (host clock, {args.calls} calls, rows 1, {WIDTH} x {WIDTH})", flush=True)
+        each = ", ".join(f"{k} {v:.2f} us" for k, v in reading.items() if k not in ("package", "device"))
+        print(f"[host cost] {name} ({reading['package']}): {each} per call (host clock, {args.calls} calls, rows 1, "
+              f"{WIDTH} x {WIDTH})", flush=True)
+        each = ", ".join(f"{k} {v:.4f} ms" for k, v in reading["device"].items())
+        print(f"[device] {name}: {each} over one 13B layer's four projections, 1 row (CUDA graph over weight "
+              f"copies beyond twice the L2)", flush=True)
     print(f"[host cost] card: {timing.card_line()}", flush=True)
     return results
 

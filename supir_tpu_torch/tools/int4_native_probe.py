@@ -15,8 +15,9 @@ package's `tools/int4_native_probe.py`.
            distinct weight copies (timing.py; the TPU probe chained 8 calls
            on one 35.4 MB copy, which here would sit in the 50 MB L2): K7's
            half-split int4 ("packed-uint8"), K11 at strip 256 (the TPU
-           probe's native_int4_matmul at bout 256, T4b) and at strip 32 (the
-           model paths'), and the plain dequantize-and-matmul
+           probe's native_int4_matmul at bout 256, T4b) and at the default
+           geometry (the model paths' tensor-core body, csrc/
+           quant_gemv_tc.cu), and the plain dequantize-and-matmul
            ("xla-int4-dot", no kernel). ms per GEMV and GB/s.
 It exits non-zero if stage 1 or 2 fails.
 
@@ -74,7 +75,7 @@ def stage3_timing(dev, layers: int, reps: int) -> dict:
     for name, calls in (
         ("packed-uint8 (K7 half-split)", [lambda q=q, s=s: Q.int4_matmul(x, q, s) for q, s in half]),
         ("native-int4 strip 256 (K11)", [lambda q=q, s=s: Q.int4_native_matmul(x, q, s, strip=256) for q, s in native]),
-        ("native-int4 strip 32 (K11)", [lambda q=q, s=s: Q.int4_native_matmul(x, q, s) for q, s in native]),
+        ("native-int4 tensor-core body (K11)", [lambda q=q, s=s: Q.int4_native_matmul(x, q, s) for q, s in native]),
         ("xla-int4-dot: plain (no kernel)", [lambda q=q, s=s: Q.int4_native_matmul_plain(x, q, s)
                                              for q, s in native[:4]]),
     ):

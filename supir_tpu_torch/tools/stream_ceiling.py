@@ -17,10 +17,11 @@ L = 8 distinct copies (315 MB) chained through one CUDA graph (timing.py):
                   place of dot_bf16_xla.
   copy            a device-to-device copy of each copy (read and write).
   K7 strips       T1c: K7's half-split int4 GEMV, [8, CIN] bf16 x [CIN/2,
-                  COUT], at strips of 32 (the model paths') to 256 columns
+                  COUT], on the strip body at strips of 64 to 256 columns
                   per block (ops/quantize.py's `strip=`), for the TPU's
                   forced bouts 512-3840 (csrc/gemv_sweep.cu says why the
-                  card's strip stops at 256).
+                  card's strip stops at 256), and at the default geometry:
+                  the model paths' tensor-core body (csrc/quant_gemv_tc.cu).
 Each line gives ms per call and the read rate against the data-sheet 3.35
 TB/s; the last line names the card's measured streaming ceiling: the highest
 read rate any variant sustained, and which one.
@@ -86,9 +87,10 @@ def main(argv=None) -> dict:
     x8 = torch.randn(8, CIN, generator=g, device=dev).to(torch.bfloat16)
     scale = torch.rand(1, COUT, generator=g, device=dev) * 0.01
     for strip in GEMV_STRIPS:
-        run(f"K7 int4 half-split [8,5120] strip {strip}", [lambda q=q, s=strip: Q.int4_matmul(x8, q, scale, strip=s)
-                                                            for q in qs], per,
-            note=f"[{-(-COUT // strip)} blocks]")
+        default = strip == Q.STRIP
+        run(f"K7 int4 half-split [8,5120] {'tensor-core body' if default else f'strip {strip}'}",
+            [lambda q=q, s=strip: Q.int4_matmul(x8, q, scale, strip=s) for q in qs], per,
+            note="" if default else f"[{-(-COUT // strip)} blocks]")
 
     best = max(results.values(), key=lambda r: r["gb_per_s"])
     print(f"streaming ceiling: {best['gb_per_s']:.1f} GB/s read ({best['share']:.1%} of 3.35 TB/s) by "

@@ -1,12 +1,15 @@
 """The tensor-core decode GEMV's plan (`supir_tpu_torch/ops/gemv_plan.py`),
-on the CPU: the k-slice tiles and their order, the fixed combine order, the weight tensor
-map's box and stride, the shared-memory words each lane reads, and
-`tc_emulate`, which walks the plan in torch (shares, the k permutation
-inside each 16-k step, the combine order) and must equal the plain K5 (every
-prologue and residual form) and K7 int8 at the fp32 tolerance of
-tests/test_torch_quantize.py (atol 1e-4 + rtol 1e-5), and the JAX functions
-at that file's tolerances. The kernel itself (`csrc/quant_gemv_tc.cu`) runs
-only on the card (tests/test_torch_quantize.py, `gpu`)."""
+on the CPU, in its four weight layouts (paired int4, half-split int4, int8,
+native int4 column pairs): the k-slice tiles and their order, the fixed
+combine order, the weight tensor map's box and stride, the shared-memory
+pieces each lane reads, and `tc_emulate`, which walks the plan in torch
+(shares, the k permutation inside each 16-k step, the combine order) and
+must equal the plain K5 (every prologue and residual form), K6, K7 (int8
+and half-split int4) and K11 at the fp32 tolerance of
+tests/test_torch_quantize.py (atol 1e-4 + rtol 1e-5), and the JAX
+functions at that file's tolerances. The kernel itself
+(`csrc/quant_gemv_tc.cu`) runs only on the card
+(tests/test_torch_quantize.py, `gpu`)."""
 
 import numpy as np
 import pytest
@@ -19,12 +22,15 @@ ATOL, RTOL = 1e-4, 1e-5
 BF16_TOL = 2e-3
 LLAMA_13B = ((5120, 15360), (5120, 5120), (5120, 27648), (13824, 5120))
 RAGGED = ((640, 272), (1000, 144), (256, 16))   # cout % 128 != 0; cin % 128 != 0
+# the same cuts where the half-split layout needs cin % 16 == 0 and the native one cout % 32 == 0
+RAGGED_OF = {"paired": RAGGED, "int8": RAGGED, "half": ((640, 272), (1008, 144), (256, 16)),
+             "native": ((640, 288), (1000, 160), (256, 32))}
+MODES = ("paired", "int8", "half", "native")
 SMS = 132
 
 
 def _all_shapes():
-    return [(m, cin, cout, rows) for m in ("paired", "int8") for cin, cout in LLAMA_13B + RAGGED
-            for rows in (1, 8, 32)]
+    return [(m, cin, cout, rows) for m in MODES for cin, cout in LLAMA_13B + RAGGED_OF[m] for rows in (1, 8, 32)]
 
 
 @pytest.mark.parametrize("mode,cin,cout,rows", _all_shapes())
@@ -43,16 +49,19 @@ def test_tiles_cover_every_weight_byte_once(mode, cin, cout, rows):
     # slices cut the chunks in order; tiles tile the weight: strips x chunk ranges
     assert plan.slice_chunks(0)[0] == 0 and plan.slice_chunks(plan.slices - 1)[1] == plan.chunks
     assert all(plan.slice_chunks(p)[1] == plan.slice_chunks(p + 1)[0] for p in range(plan.slices - 1))
-    owner = torch.full((plan.chunks * plan.box_rows, plan.strips * GP.TC_STRIP), -1, dtype=torch.int32)
+    width = plan.box_bytes
+    owner = torch.full((plan.chunks * plan.box_rows, plan.strips * width), -1, dtype=torch.int32)
     for b in range(plan.grid):
         for t in plan.tiles_of(b):
             s, p = plan.tile(t)
             c0, c1 = plan.slice_chunks(p)
-            tile = owner[c0 * plan.box_rows:c1 * plan.box_rows, s * GP.TC_STRIP:(s + 1) * GP.TC_STRIP]
+            tile = owner[c0 * plan.box_rows:c1 * plan.box_rows, s * width:(s + 1) * width]
             assert (tile == -1).all()
             tile.fill_(b)
     assert (owner >= 0).all()
-    assert plan.wrows == (cin // 2 if mode == "paired" else cin)
+    assert owner.shape[0] >= plan.wrows and owner.shape[1] >= plan.wcols     # every weight byte has its block
+    assert plan.wrows == (cin // 2 if mode in ("paired", "half") else cin)
+    assert plan.wcols == (cout // 2 if mode == "native" else cout)
 
 
 @pytest.mark.parametrize("mode,cin,cout,rows", _all_shapes())
@@ -81,14 +90,16 @@ def test_combine_order_is_fixed(mode, cin, cout, rows):
 @pytest.mark.parametrize("mode,cin,cout,rows", _all_shapes())
 def test_tensor_map_and_smem_are_legal(mode, cin, cout, rows):
     plan = GP.tc_plan(mode, rows, cin, cout, SMS)
-    # the map supir_qgemv_tc_map encodes: uint8 [wrows, cout], row stride
-    # cout bytes, box 128 bytes x box_rows rows, 128-byte swizzle
-    box = (GP.TC_STRIP, plan.box_rows)
+    # the map supir_qgemv_tc_map encodes: uint8 [wrows, wcols], row stride
+    # wcols bytes, box box_bytes x box_rows rows, the swizzle of box_bytes
+    box = (plan.box_bytes, plan.box_rows)
     assert box[0] % 16 == 0 and all(1 <= b <= 256 for b in box)
-    assert box[0] == 128                              # the 128-byte swizzle's span
-    assert plan.cout % 16 == 0 and plan.cout < 2 ** 40
-    assert plan.wrows == (cin // 2 if mode == "paired" else cin) and max(plan.cout, plan.wrows) < 2 ** 32
+    assert box[0] == (64 if mode == "native" else 128)   # the swizzle's span, one strip's bytes of a row
+    assert box[0] * (2 if mode == "native" else 1) == GP.TC_STRIP
+    assert plan.wcols % 16 == 0 and plan.wcols < 2 ** 40    # TMA's global row stride
+    assert max(plan.wcols, plan.wrows) < 2 ** 32
     assert (box[0] * box[1]) % 1024 == 0              # stages stay 1024-byte aligned
+    assert plan.stages * box[0] * box[1] == 128 * 1024
     assert plan.smem <= 227 * 1024
     assert plan.xrs % 32 == 8 and plan.rows * plan.xrs * 4 <= GP.TC_XS_BYTES
     assert plan.nt * 8 >= rows
@@ -96,35 +107,63 @@ def test_tensor_map_and_smem_are_legal(mode, cin, cout, rows):
 
 def test_what_the_tensor_cores_do_not_take():
     assert not GP.tc_eligible("paired", 640, 264, 0, 0, 640)       # cout 8 mod 16: no TMA row stride
-    assert not GP.tc_eligible("half", 640, 256, 0, 0, 640)
-    assert not GP.tc_eligible("native", 640, 256, 0, 0, 640)
+    assert not GP.tc_eligible("half", 640, 264, 0, 0, 640)
+    assert not GP.tc_eligible("native", 640, 272, 0, 0, 640)       # rows of 136 bytes: 8 mod 16
+    assert not GP.tc_eligible("half", 1000, 256, 0, 0, 1000)       # the second half starts 8-byte aligned
     assert not GP.tc_eligible("paired", 640, 256, 8, 0, 640)       # weights 8-byte aligned only
+    assert not GP.tc_eligible("native", 640, 256, 8, 0, 640)
     assert not GP.tc_eligible("int8", 640, 256, 0, 4, 640)
+    assert not GP.tc_eligible("half", 640, 256, 0, 4, 640)
     assert not GP.tc_eligible("paired", 644, 256, 0, 0, 648)       # SiLU-GLU's second half unaligned
+    assert not GP.tc_eligible("w4a8", 640, 256, 0, 0, 640)
     assert GP.tc_eligible("int8", 640, 256, 0, 0, 640) and GP.tc_eligible("paired", 5120, 5120, 256, 512, 5120)
+    assert GP.tc_eligible("half", 640, 272, 0, 0, 640) and GP.tc_eligible("native", 1000, 288, 0, 0, 1000)
     with pytest.raises(ValueError):
         GP.tc_plan("paired", 33, 512, 256, SMS)
     with pytest.raises(ValueError):
         GP.tc_plan("paired", 1, 512, 264, SMS)
     with pytest.raises(ValueError):
-        GP.tc_plan("native", 1, 512, 256, SMS)
+        GP.tc_plan("native", 1, 512, 272, SMS)
+    with pytest.raises(ValueError):
+        GP.tc_plan("half", 1, 1000, 256, SMS)
+    with pytest.raises(ValueError):
+        GP.tc_plan("w4a8", 1, 512, 256, SMS)
 
 
-@pytest.mark.parametrize("mode", ["paired", "int8"])
+@pytest.mark.parametrize("mode", MODES)
+def test_every_13b_shape_is_taken(mode):
+    """Every projection of the 13B decode, in every layout, at 16-byte
+    aligned tensors: the tensor-core body takes it."""
+    for cin, cout in LLAMA_13B:
+        assert GP.tc_eligible(mode, cin, cout, 1 << 20, 1 << 12, cin)
+        assert GP.tc_plan(mode, 1, cin, cout, SMS).wcols % 16 == 0
+
+
+@pytest.mark.parametrize("mode", MODES)
 def test_lane_reads_meet_no_bank_twice(mode):
-    steps = GP.TC_BOX_ROWS[mode] // (8 if mode == "paired" else 16)
+    steps = GP.TC_CHUNK_K // 16
+    width = GP.TC_BOX_BYTES[mode]
     for warp in range(GP.TC_WARPS):
         for step in range(steps):
-            loads = [[GP.a_word_offset(r, warp, lane >> 2) for r in GP.a_rows(mode, step, lane & 3)]
+            loads = [[GP.a_word_offset(mode, r, warp, lane >> 2) for r in GP.a_rows(mode, step, lane & 3)]
                      for lane in range(32)]
             for i in range(len(loads[0])):
                 offs = [load[i] for load in loads]
-                assert all(o % 4 == 0 for o in offs)
-                assert len({(o // 4) % 32 for o in offs}) == 32
-                # and the lane's word holds the columns the fragment rules say
+                if mode == "native":
+                    # 2-byte loads: two lanes share each 4-byte word (a broadcast),
+                    # and the warp's 16 distinct words meet 16 banks
+                    words = {o // 4 for o in offs}
+                    assert all(o % 2 == 0 for o in offs) and len(words) == 16
+                    assert len({w % 32 for w in words}) == len(words)
+                else:
+                    assert all(o % 4 == 0 for o in offs)
+                    assert len({(o // 4) % 32 for o in offs}) == 32
+                # and the lane's piece holds the columns the fragment rules say
                 for lane in range(32):
                     r = GP.a_rows(mode, step, lane & 3)[i]
-                    assert offs[lane] == GP.swizzle(r, 32 * warp + 4 * (lane >> 2))
+                    col = 16 * warp + 2 * (lane >> 2) if mode == "native" else 32 * warp + 4 * (lane >> 2)
+                    assert offs[lane] == GP.swizzle(r, col, width)
+                    assert r < GP.TC_BOX_ROWS[mode] and GP.swizzle(r, col, width) // width == r
     # the B fragments: an 8-byte load a lane, rows 8 nt + g, words 2t, 2t+1; served in half-warps
     for rows, cin in ((8, 5120), (32, 13824), (8, 13824)):
         plan = GP.tc_plan(mode, rows, cin, 5120, SMS)
@@ -133,26 +172,48 @@ def test_lane_reads_meet_no_bank_twice(mode):
             assert len(set(banks)) == 32
 
 
-def test_staged_word_order_is_a_permutation():
-    for mode in ("paired", "int8"):
-        ks = sorted(k for pos in range(8) for k in GP.x_word_k(mode, pos))
-        assert ks == list(range(16))
-        # the planted fault (the word interleave dropped) moves k in both layouts
-        assert [GP.x_word_k(mode, pos, GP.FAULT_X_ORDER) for pos in range(8)] != \
-            [GP.x_word_k(mode, pos) for pos in range(8)]
-    # paired: the lanes' row order (k pairs t, t + 4 in rows 2t, 2t + 1) and
-    # the interleave cancel, so the words hold k in natural order; int8's do not
-    assert [GP.x_word_k("paired", pos) for pos in range(8)] == [(2 * pos, 2 * pos + 1) for pos in range(8)]
-    assert [GP.x_word_k("int8", pos) for pos in range(8)] != [(2 * pos, 2 * pos + 1) for pos in range(8)]
+@pytest.mark.parametrize("mode", MODES)
+def test_staged_word_order_is_a_permutation(mode):
+    ks = sorted(k for pos in range(8) for k in GP.x_word_k(mode, pos))
+    assert ks == list(range(16))
+    # the planted fault (the word interleave dropped; the half-split pairs
+    # staged in natural order) moves values in every layout
+    assert [GP.x_word_k(mode, pos, GP.FAULT_X_ORDER) for pos in range(8)] != \
+        [GP.x_word_k(mode, pos) for pos in range(8)]
+    natural = [(2 * pos, 2 * pos + 1) for pos in range(8)]
+    words = [GP.x_word_k(mode, pos) for pos in range(8)]
+    if mode == "paired":
+        # the lanes' row order (k pairs t, t + 4 in rows 2t, 2t + 1) and the
+        # interleave cancel, so the words hold k in natural order
+        assert words == natural
+    elif mode == "half":
+        # word p: packed row p's two halves, x[p0 + p] and x[h + p0 + p]
+        assert words == [(pos, pos + 8) for pos in range(8)]
+        assert [GP.x_word_k(mode, pos, GP.FAULT_X_ORDER) for pos in range(8)] == natural
+    else:
+        assert words != natural and words == [GP.x_word_k("int8", pos) for pos in range(8)]
+
+
+def test_half_split_steps_take_both_halves():
+    x = torch.arange(2 * 200, dtype=torch.float32).reshape(2, 200)   # cin 200: h 100, 2 chunks of 64 packed rows
+    v = GP.step_values("half", x, 2)
+    assert v.shape == (2, 16, 16)
+    assert v[1, 3, :8].tolist() == list(range(200 + 24, 200 + 32))
+    assert v[1, 3, 8:].tolist() == list(range(200 + 124, 200 + 132))
+    assert v[0, 12, :4].tolist() == [96, 97, 98, 99] and (v[0, 12, 4:8] == 0).all() and (v[0, 13:] == 0).all()
+    assert v[0, 12, 8:12].tolist() == [196, 197, 198, 199] and (v[0, 12, 12:] == 0).all()
+    n = GP.step_values("native", x, 2)
+    assert n.shape == (2, 16, 16) and n[1, 2].tolist() == list(range(232, 248)) and (n[:, 13:] == 0).all()
+
+
+QUANTIZERS = {"paired": Q.quantize_int4_paired, "half": Q.quantize_int4, "int8": Q.quantize_int8_plain,
+              "native": Q.quantize_int4_native}
 
 
 def _case(mode, rows, cin, cout, prologue, with_residual, seed):
     g = torch.Generator().manual_seed(seed)
     w = torch.randn(cin, cout, generator=g) * cin ** -0.5
-    if mode == "paired":
-        wq, scale = Q.quantize_int4_paired(w)
-    else:
-        wq, scale = Q.quantize_int8_plain(w)
+    wq, scale = QUANTIZERS[mode](w)
     x = (torch.randn(rows, 2 * cin if prologue == 2 else cin, generator=g) * 2).to(torch.bfloat16)
     gamma = 1.0 + 0.1 * torch.randn(cin, generator=g) if prologue == 1 else None
     residual = torch.randn(rows, cout, generator=g) if with_residual else None
@@ -162,7 +223,9 @@ def _case(mode, rows, cin, cout, prologue, with_residual, seed):
 def _plain(mode, x, wq, scale, gamma, prologue, residual):
     if mode == "paired":
         return Q.int4_paired_fused_matmul_plain(x, wq, scale, gamma=gamma, siluglu=prologue == 2, residual=residual)
-    return Q.qmm_plain(x, wq, scale, 8)
+    if mode == "native":
+        return Q.int4_native_matmul_plain(x, wq, scale)
+    return Q.qmm_plain(x, wq, scale, 4 if mode == "half" else 8)
 
 
 FORMS = [("paired", 0, False), ("paired", 0, True), ("paired", 1, False), ("paired", 1, True),
@@ -180,9 +243,27 @@ def test_emulation_matches_plain(mode, prologue, with_residual, rows, cin, cout,
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("mode", ["paired", "int8"])
+@pytest.mark.parametrize("mode,rows,cin,cout,sms", [(m, r, cin, cout, sms) for m in ("half", "native")
+                                                     for r in (1, 8, 32)
+                                                     for (cin, cout), sms in zip(RAGGED_OF[m] + ((2048, 384),),
+                                                                                 (4, 3, 7, 9))]
+                         + [("half", 1, 13824, 5120, SMS), ("native", 1, 13824, 5120, SMS)])
+def test_emulation_matches_plain_int4_layouts(mode, rows, cin, cout, sms):
+    """K7's half-split instance and K11 against qmm_plain(bits=4) and
+    int4_native_matmul_plain: ragged shapes (cout a multiple of 16 or 32
+    but not of the strip, cin not a multiple of the chunk, a native cin
+    that ends inside a 16-k step), one cut into k-slices, and the 13B down
+    projection at one row."""
+    wq, scale, x, _, _ = _case(mode, rows, cin, cout, 0, False, rows + cin + cout)
+    plan = GP.tc_plan(mode, rows, cin, cout, sms)
+    got = GP.tc_emulate(plan, x, wq, scale)
+    want = _plain(mode, x, wq, scale, None, 0, None)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("mode", MODES)
 def test_emulated_faults_break_the_bound(mode):
-    rows, cin, cout = 4, 640, 272
+    rows, cin, cout = 4, 640, 288 if mode == "native" else 272
     wq, scale, x, gamma, residual = _case(mode, rows, cin, cout, 1 if mode == "paired" else 0, False, 5)
     prologue = 1 if gamma is not None else 0
     plan = GP.tc_plan(mode, rows, cin, cout, 12)
@@ -195,7 +276,9 @@ def test_emulated_faults_break_the_bound(mode):
     assert rel(GP.tc_emulate(plan, x, wq, scale, gamma, 1e-6, prologue)) < 1e-5
     for fault in (GP.FAULT_DROP_SHARE, GP.FAULT_COMBINE_TWICE, GP.FAULT_X_ORDER):
         assert rel(GP.tc_emulate(plan, x, wq, scale, gamma, 1e-6, prologue, fault=fault)) > 1e-2, fault
-    if mode == "paired":
+    if mode != "int8":
+        # paired: the k order inside a byte; half-split: the two halves;
+        # native: the two columns of each byte
         swapped = ((wq >> 4) | (wq << 4)).contiguous()
         assert rel(GP.tc_emulate(plan, x, swapped, scale, gamma, 1e-6, prologue)) > 1e-2
 
@@ -247,6 +330,51 @@ def test_emulation_matches_jax_int8():
     np.testing.assert_allclose(got.numpy(), np.asarray(want_kernel), atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("rows", [1, 8, 32])
+def test_emulation_matches_jax_half_split(rows):
+    """K7's half-split instance against the JAX int4_matmul (XLA fallback)
+    and its Pallas `_qmm` kernel at bits=4 in interpret mode: atol 1e-4 +
+    rtol 1e-5, as test_emulation_matches_jax_int8."""
+    import jax.numpy as jnp
+
+    from supir_tpu.ops import quantize as JQ
+
+    cin, cout = 512, 256   # the TPU kernel's blocks take whole 128-column tiles
+    rng = np.random.default_rng(13 + rows)
+    w = jnp.asarray((rng.standard_normal((cin, cout)) * cin ** -0.5).astype(np.float32))
+    q, s = JQ.quantize_int4(w)
+    x = jnp.asarray(rng.standard_normal((rows, cin)).astype(np.float32), jnp.bfloat16)
+    want = JQ.int4_matmul(x, q, s)
+    want_kernel = JQ._qmm(x, q, s, bits=4, interpret=True)
+    xt = torch.from_numpy(np.asarray(x.astype(jnp.float32))).to(torch.bfloat16)
+    plan = GP.tc_plan("half", rows, cin, cout, 6)
+    got = GP.tc_emulate(plan, xt, torch.from_numpy(np.array(q)), torch.from_numpy(np.array(s)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_kernel), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 32])
+def test_emulation_matches_jax_native(rows):
+    """K11 against the JAX int4_native_matmul (its XLA path off the TPU)
+    on the s4 weights of quantize_int4_native, packed as the port's column
+    pairs: atol 1e-4 + rtol 1e-5."""
+    import jax.numpy as jnp
+
+    from supir_tpu.ops import quantize as JQ
+
+    cin, cout = 640, 288
+    rng = np.random.default_rng(17 + rows)
+    w = jnp.asarray((rng.standard_normal((cin, cout)) * cin ** -0.5).astype(np.float32))
+    qn, s = JQ.quantize_int4_native(w)
+    x = jnp.asarray(rng.standard_normal((rows, cin)).astype(np.float32), jnp.bfloat16)
+    want = JQ.int4_native_matmul(x, qn, s)
+    packed = Q.pack_int4_native(torch.from_numpy(np.asarray(qn).astype(np.int8)))
+    xt = torch.from_numpy(np.asarray(x.astype(jnp.float32))).to(torch.bfloat16)
+    plan = GP.tc_plan("native", rows, cin, cout, 5)
+    got = GP.tc_emulate(plan, xt, packed, torch.from_numpy(np.array(s)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
+
+
 def test_plan_is_cached_and_packed_in_field_order():
     a = GP.tc_plan("paired", 1, 5120, 15360, SMS)
     assert a is GP.tc_plan("paired", 1, 5120, 15360, SMS)
@@ -270,13 +398,63 @@ def test_the_kernel_source_walks_these_rules():
 
     src = (Path(GP.__file__).resolve().parents[1] / "csrc" / "quant_gemv_tc.cu").read_text()
     assert f"constexpr int TC_STRIP = {GP.TC_STRIP};" in src
-    assert "BOX_ROWS = MODE == MODE_PAIRED ? 64 : 128;" in src and GP.TC_BOX_ROWS == {"paired": 64, "int8": 128}
-    assert "STAGES = MODE == MODE_PAIRED ? 16 : 8;" in src and GP.TC_STAGES == {"paired": 16, "int8": 8}
+    assert "BOX_ROWS = MODE == MODE_PAIRED || MODE == MODE_HALF ? 64 : 128;" in src
+    assert GP.TC_BOX_ROWS == {"paired": 64, "half": 64, "int8": 128, "native": 128}
+    assert "BOX_BYTES = MODE == MODE_NATIVE ? 64 : 128;" in src
+    assert GP.TC_BOX_BYTES == {"paired": 128, "half": 128, "int8": 128, "native": 64}
+    assert "constexpr int TC_RING_BYTES = 128 * 1024;" in src and "STAGES = TC_RING_BYTES / STAGE_BYTES;" in src
+    assert all(GP.TC_STAGES[m] == 128 * 1024 // (GP.TC_BOX_ROWS[m] * GP.TC_BOX_BYTES[m]) for m in MODES)
+    assert "constexpr int MODE_PAIRED = 0, MODE_HALF = 1, MODE_INT8 = 2, MODE_NATIVE = 3;" in src
+    assert Q._MODES == {"paired": 0, "half": 1, "int8": 2, "native": 3}
     assert "static constexpr int PARTS = 2;" in src and GP.TC_PARTS == 2
     assert "SETS = NT == 1 ? 4 : (NT == 2 ? 2 : 1);" in src and [GP.acc_sets(n) for n in (1, 2, 4)] == [4, 2, 1]
     assert "FAULT_DROP_SHARE = 1, FAULT_COMBINE_TWICE = 2, FAULT_X_ORDER = 3;" in src
-    assert "int rows, cin, cout, wrows, strips, chunks, slices, tiles, grid, wch, xrs, smem, nt, stages, box_rows;" \
-        in src and ", ".join(GP.PLAN_FIELDS) == "rows, cin, cout, wrows, strips, chunks, slices, tiles, grid, wch, " \
-        "xrs, smem, nt, stages, box_rows"
+    fields = "rows, cin, cout, wrows, strips, chunks, slices, tiles, grid, wch, xrs, smem, nt, stages, box_rows, wcols"
+    assert f"int {fields};" in src and ", ".join(GP.PLAN_FIELDS) == fields
     assert "const int pair = fault == FAULT_X_ORDER ? pos : (pos >> 1) + 4 * (pos & 1);" in src
+    assert ("if (MODE == MODE_HALF) return fault == FAULT_X_ORDER ? make_int2(2 * pos, 2 * pos + 1) : "
+            "make_int2(pos, pos + 8);") in src
     assert "aoff[l] = r * TC_STRIP + ((chunk0 ^ (r & 7)) << 4) + within;" in src
+    assert "if (MODE == MODE_NATIVE) aoff[l] = r * 64 + ((group ^ ((r >> 1) & 3)) << 4) + 2 * g;" in src
+    assert "const int r = MODE == MODE_PAIRED || MODE == MODE_HALF ? 2 * t + (l & 1) : 2 * t + (l & 1) + 8 * (l >> 1);" \
+        in src
+    # native: the low nibbles of byte f in rows 2t, 2t + 1 (bytes f, 2 + f of the joined word), then the high ones
+    assert "a[f][0] = nib2_sel(lo, lo4, f | ((2 + f) << 8));" in src
+    assert "a[f][1] = nib2_sel(lo, lo4, (4 + f) | ((6 + f) << 8));" in src
+    assert "if (MODE == MODE_HALF) half_step_values(v, x + (size_t)n * ldx, k0 / 2, p.cin / 2);" in src
+    assert "swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B" in src
+
+
+@pytest.mark.parametrize("mode", ["half", "native"])
+def test_native_and_half_register_rules_decode_the_packers(mode):
+    """The A registers the lane rules name hold, for every lane of a step,
+    exactly the values the packer put at (column, k): built from one
+    swizzled stage of known values and read back through a_register."""
+    rows, width = GP.TC_BOX_ROWS[mode], GP.TC_BOX_BYTES[mode]
+    g_ = torch.Generator().manual_seed(3)
+    vals = torch.randint(-8, 8, (2 * rows if mode == "half" else rows, GP.TC_STRIP), generator=g_).to(torch.int8)
+    if mode == "native":
+        packed = Q.pack_int4_native(vals)
+    else:
+        u = (vals & 0xF).to(torch.uint8)
+        packed = u[:rows] | (u[rows:] << 4)            # the half-split byte: k p low, k p + rows high
+    stage = torch.zeros(rows * width, dtype=torch.uint8)
+    for r in range(rows):
+        for c in range(width):
+            stage[GP.swizzle(r, c, width)] = packed[r, c]
+    for warp in range(GP.TC_WARPS):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            words = [GP.a_word_offset(mode, r, warp, g) for r in GP.a_rows(mode, 0, t)]
+            for frag in range(2):
+                for reg in range(4):
+                    col = GP.c_column(warp, g, frag, 2 * (reg & 1))
+                    for half, (wi, byte, nibble) in enumerate(GP.a_register(mode, words, frag, reg)):
+                        got = GP._decode(mode, stage, torch.tensor(words[wi] + byte), torch.tensor(nibble)).item()
+                        kl = 2 * t + half + 8 * (reg >> 1)       # the fragment's k
+                        if mode == "native":
+                            k = kl                               # natural order
+                        else:                                    # pair t: row 2t, pair t + 4: row 2t + 1
+                            row = 2 * t + (reg >> 1)
+                            k = row if half == 0 else row + rows
+                        assert got == vals[k, col].item(), (warp, lane, frag, reg, half)

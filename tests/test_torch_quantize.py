@@ -536,15 +536,28 @@ def test_pair_kernel_matches_plain(cuda, rows, siluglu1):
     assert _rel_l2(bad, want_big) > CARD_REL_BOUND
 
 
-# ------------------------------------- the tensor-core body (K5, K6, K7 int8)
+# --------------------------------- the tensor-core body (K5, K6, K7, K11)
 # csrc/quant_gemv_tc.cu: TMA weight stream, mma.sync, k-slice tiles combined
 # in slice order (ops/gemv_plan.py). Held to the fp32 plain versions by
-# relative L2 <= 1e-2 (bf16 rounding of x' gives a few 1e-3; K6 and K7,
-# whose x is bf16 already, agree to ~1e-6), at tile edges (cout not a
+# relative L2 <= 1e-2 (bf16 rounding of x' gives a few 1e-3; K6, K7 and
+# K11, whose x is bf16 already, agree to ~1e-6), at tile edges (cout not a
 # multiple of the 128-column strip, cin not a multiple of the 128-k chunk
 # or of a 16-k step) and at 1-32 rows.
 
 TC_SHAPES = [(5120, 5120), (640, 272), (1000, 144), (264, 400), (13824, 5120)]
+# the same edges where the half-split layout needs cin % 16 == 0 and the native one cout % 32 == 0
+TC_INT4_SHAPES = {"half": [(5120, 5120), (640, 272), (1008, 144), (2048, 384), (13824, 5120)],
+                  "native": [(5120, 5120), (640, 288), (1000, 160), (2048, 384), (13824, 5120)]}
+
+
+def _int4_layout(mode, w, x):
+    """(weights, the wrapper's call on x, its fp32 plain version) of K7's
+    half-split instance or K11."""
+    if mode == "half":
+        q, s = Q.quantize_int4(w)
+        return (q, s), (lambda xx, qq=q: Q.int4_matmul(xx, qq, s)), Q.qmm_plain(x.float(), q, s, 4)
+    q, s = Q.quantize_int4_native(w)
+    return (q, s), (lambda xx, qq=q: Q.int4_native_matmul(xx, qq, s)), Q.int4_native_matmul_plain(x.float(), q, s)
 
 
 def _tc_case(cuda, seed, rows, cin, cout, prologue, with_residual):
@@ -589,6 +602,37 @@ def test_tc_paired_and_int8_kernels_match_plain(cuda, rows, cin, cout):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 17, 32])
+@pytest.mark.parametrize("mode,cin,cout", [(m, cin, cout) for m, shapes in TC_INT4_SHAPES.items()
+                                           for cin, cout in shapes])
+def test_tc_half_and_native_kernels_match_plain(cuda, rows, mode, cin, cout):
+    """K7's half-split instance and K11 on the tensor-core body, counted,
+    and the strip body they left, both within the bound."""
+    from supir_tpu_torch.ops import gemv_plan as GP
+
+    w, x, _ = _tc_case(cuda, 14, rows, cin, cout, "none", False)
+    weights, call, want = _int4_layout(mode, w, x)
+    assert GP.tc_eligible(mode, cin, cout, weights[0].data_ptr(), x.data_ptr(), x.stride(0))
+    counter = Q.qmm if mode == "half" else Q.int4_native_matmul
+    before = counter.launches
+    got = call(x)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert _rel_l2(got, want) <= CARD_REL_BOUND
+    assert _rel_l2(Q.strip_body_gemv(x, *weights, mode), want) <= CARD_REL_BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["half", "native"])
+@pytest.mark.parametrize("rows", [1, 32])
+def test_tc_int4_layouts_two_runs_are_bit_identical(cuda, mode, rows):
+    w, x, _ = _tc_case(cuda, 15, rows, 5120, 5120, "none", False)
+    _, call, _ = _int4_layout(mode, w, x)
+    first = call(x)
+    assert all(torch.equal(first, call(x)) for _ in range(3))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("rows", [1, 32])
 def test_tc_two_runs_are_bit_identical(cuda, rows):
     w, x, kw = _tc_case(cuda, 12, rows, 5120, 5120, "norm", True)
@@ -601,12 +645,14 @@ def test_tc_two_runs_are_bit_identical(cuda, rows):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["paired", "int8"])
+@pytest.mark.parametrize("mode", ["paired", "int8", "half", "native"])
 @pytest.mark.parametrize("rows", [1, 8])
 def test_tc_planted_faults_break_the_bound(cuda, mode, rows):
     """One block's share dropped, the combine run twice, x' staged without
-    its word interleave, the nibbles swapped: each must break the bound.
-    The shape is cut into k-slices on this card, so the combine runs."""
+    its word interleave (half-split: in natural order), the nibbles swapped
+    (half-split: the two halves; native: the two columns of a byte): each
+    must break the bound. The shape is cut into k-slices on this card, so
+    the combine runs."""
     from supir_tpu_torch.ops import gemv_plan as GP
 
     cin, cout = 5120, 5120
@@ -620,6 +666,11 @@ def test_tc_planted_faults_break_the_bound(cuda, mode, rows):
         pro, gamma = 1, kw["gamma"]
         assert _rel_l2(Q.int4_paired_fused_matmul(x, _swap_nibbles(weights[0]), weights[1], **kw), want) \
             > CARD_REL_BOUND
+    elif mode in ("half", "native"):
+        weights, call, want = _int4_layout(mode, w, x)
+        pro, gamma = 0, None
+        assert _rel_l2(call(x), want) <= CARD_REL_BOUND
+        assert _rel_l2(Q._launch_gemv(x, _swap_nibbles(weights[0]), weights[1], mode, cin), want) > CARD_REL_BOUND
     else:
         weights = Q.quantize_int8(w, stochastic=False)
         want = Q.qmm_plain(x.float(), *weights, 8)
