@@ -7,24 +7,29 @@
 Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is switched off for matmuls and cuDNN convolutions.
-  2. build: the CUDA C++ kernels (K1 and K3, K4, the strip-body GEMVs with
-     K10 and K5's act_int8 mode, the tensor-core GEMV of K5, K6, K7 and
-     K11, K8, K9, the probes' kernels and their GEMV geometries; one nvcc
-     per source, all at once, into build/supir_tpu_torch/) with ptxas'
+  2. build: the CUDA C++ kernels (K1 and K3, K4, the strip-body GEMVs, the
+     tensor-core GEMV of K5, K6, K7, K10, K5's act_int8 mode and K11, K8,
+     K9, the probes' kernels and their GEMV geometries; one nvcc per
+     source, all at once, into build/supir_tpu_torch/) with ptxas'
      registers and spills (for each of the forward's eight instantiations,
-     K1/K3 x D 64/128 x ALiBi, and the tensor-core GEMV's twelve, four
-     layouts x three row tiles, which may not spill), and K2 (Triton).
+     K1/K3 x D 64/128 x ALiBi, and the tensor-core GEMV's fourteen, four
+     layouts x three row tiles and W4A8 x two, which may not spill), and
+     K2 (Triton).
   3. kernels against their plain PyTorch versions on the card, with
      CUDA-event or CUDA-graph times of both, the least time the card could
      take (bound) and, where one PyTorch call computes the same function,
      its time: K1 and K2 at the restore path's shapes, K1 causal, and K5
      (also in its act_int8 mode), K6, K7, K8, K10 and K11 at the 13B
      captioner's decode shapes and K9 at its two pairs per layer, for 1 and
-     8 rows (with K9's co-resident grid), K5, K7 (int8 and half-split int4)
-     and K11 also at 32 rows and in turns with the strip body they
-     replaced, with the tensor-core body's planted faults (one block's
-     share dropped, the combine run twice, x' staged out of order) and two
-     runs bit-identical; beside K6, K7 and K11 one PyTorch call computing
+     8 rows (with K9's co-resident grid), K5 (also act_int8), K7 (int8 and
+     half-split int4), K10 and K11 also at 32 rows and in turns with the
+     strip body they replaced, with the tensor-core body's planted faults
+     (one block's share dropped, the combine run twice, x' staged out of
+     order; W4A8: the row scale applied twice) and two runs bit-identical;
+     K10 timed as the kernel alone on int8 x and as its wrapper with the
+     activation quantizer, and equal to the strip body bit for bit (K5's
+     act_int8 mode too where it has no prologue); beside K6, K7 and K11 one
+     PyTorch call computing
      the same function (torch._weight_int8pack_mm, torch._weight_int4pack_mm),
      held to the plain version, and beside K5 the int4 call without the
      prologue; and K3 (the forward with
@@ -350,17 +355,19 @@ def phase_build():
     for source, rows in ((k1._FWD_SOURCE, fwd), (k1._BWD_SOURCE, bwd)):
         if reports[source] and len(rows) != 8:  # no report: the library was built earlier
             raise AssertionError(f"expected 8 instantiations in the ptxas report of {source}, found {len(rows)}")
-    # the tensor-core GEMV's twelve instances (K5/K6 paired, K7 half-split
-    # int4, K7 int8, K11 native; 1, 2 or 4 n-tiles of 8 rows): registers and
-    # spills, and no spill allowed
+    # the tensor-core GEMV's fourteen instances (K5/K6 paired, K7 half-split
+    # int4, K7 int8, K11 native: 1, 2 or 4 n-tiles of 8 rows; K10/K5
+    # act_int8 W4A8: 1 or 2, 16 rows a launch): registers and spills, and no
+    # spill allowed
     report = cuda_build.ptxas_report(kq._TC_SOURCE)
     tc = _tc_instances(report)
-    layouts = {0: ("paired", "K5/K6"), 1: ("half", "K7 int4"), 2: ("int8", "K7 int8"), 3: ("native", "K11")}
+    layouts = {0: ("paired", "K5/K6"), 1: ("half", "K7 int4"), 2: ("int8", "K7 int8"), 3: ("native", "K11"),
+               4: ("w4a8", "K10/K5 act_int8")}
     for mode, nt, regs, stores, loads in sorted(tc):
         log(f"[build] qgemv_tc_kernel<{layouts[mode][0]}, n-tiles {nt}> ({layouts[mode][1]}, up to {8 * nt} rows): "
             f"{regs} registers, spill stores {stores} B, spill loads {loads} B")
-    if report and (len(tc) != 12 or any(st or ld for *_, st, ld in tc)):
-        raise AssertionError(f"the tensor-core GEMV's instances: expected 12 without spills, found {tc}")
+    if report and (len(tc) != 14 or any(st or ld for *_, st, ld in tc)):
+        raise AssertionError(f"the tensor-core GEMV's instances: expected 14 without spills, found {tc}")
     log(f"[build] K9 grid: {kq.pair_grid_blocks(1)} co-resident blocks at 1 row, {kq.pair_grid_blocks(8)} at 8 "
         f"(occupancy API x SMs; its cooperative launch takes at most that many)")
     t1 = time.perf_counter()
@@ -930,11 +937,12 @@ def _try_library(make, *args):
 def phase_quant_kernels():
     """K5 (also in its act_int8 mode), K6, K7 (int8 and half-split int4),
     K8, K10 and K11 at the 13B decode shapes, and K9 at the layer's two
-    pairs, for 1 and 8 rows, K5, K7 and K11 also 32; K5, K7 and K11 in
-    turns with the strip body they replaced; the library yardsticks of K6,
-    K7 (int8 and int4) and K11. Returns each kernel's JSON numbers, its
-    times summed over one layer's projections (K9: its two pairs) at 1 row
-    (the main path's)."""
+    pairs, for 1 and 8 rows, all but K6 and K9 also 32; K5 (both modes), K7,
+    K10 and K11 in turns with the strip body they replaced; K10 as the
+    kernel alone on int8 x (its JSON row) and as its wrapper with the torch
+    activation quantizer; the library yardsticks of K6, K7 (int8 and int4)
+    and K11. Returns each kernel's JSON numbers, its times summed over one
+    layer's projections (K9: its two pairs) at 1 row (the main path's)."""
     import gc
 
     import torch
@@ -947,6 +955,7 @@ def phase_quant_kernels():
     layer = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by="bytes", library_ms=0.0)
              for k in names}
     by_rows = {}  # (kernel, rows) -> [ms, before ms, bound ms] over the layer
+    wrapper = {}  # rows -> K10's wrapper (quantizer + kernel) ms over the layer
 
     def add(name, row, rows=1):
         if rows == 1:
@@ -962,17 +971,31 @@ def phase_quant_kernels():
                 acc[i] += row[key]
 
     def tc_faults(mode, cin, rows, cout, call, **kw):
-        """The tensor-core body's planted faults (gemv_plan.FAULT_*), and two
-        runs bit-identical."""
+        """The tensor-core body's planted faults (gemv_plan.FAULT_*; W4A8's
+        row scale applied twice besides, launched through _launch_w4a8 with
+        K10's row scales kw["xs"] or none), and two runs bit-identical."""
         first = call()
         if not torch.equal(first, call()):
             raise AssertionError(f"two runs of the tensor-core GEMV ({mode}, {rows} rows, cout {cout}) differ")
         faults = [("one share dropped", GP.FAULT_DROP_SHARE), ("x' staged in the wrong k order", GP.FAULT_X_ORDER)]
-        if GP.tc_plan(mode, rows, cin, cout, torch.cuda.get_device_properties(dev).multi_processor_count).slices > 1:
+        if mode == "w4a8":
+            faults.append(("row scale applied twice", GP.FAULT_ROW_SCALE))
+        launch_rows = min(rows, GP.TC_W4A8_ROWS) if mode == "w4a8" else rows   # W4A8: 16 rows a launch
+        if GP.tc_plan(mode, launch_rows, cin, cout,
+                      torch.cuda.get_device_properties(dev).multi_processor_count).slices > 1:
             faults.append(("combine run twice", GP.FAULT_COMBINE_TWICE))
-        return [(name, lambda xx, f=f: Q._launch_gemv(xx, *kw["weights"], mode, cin, kw.get("gamma"), 1e-6,
-                                                           kw.get("prologue", 0), kw.get("residual"), _fault=f))
+        args = (kw.get("gamma"), 1e-6, kw.get("prologue", 0), kw.get("residual"))
+        if mode == "w4a8":
+            return [(name, lambda xx, f=f: Q._launch_w4a8(xx, kw.get("xs"), *kw["weights"], *args, _fault=f))
+                    for name, f in faults]
+        return [(name, lambda xx, f=f: Q._launch_gemv(xx, *kw["weights"], mode, cin, *args, _fault=f))
                 for name, f in faults]
+
+    def same_bits(label, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: the tensor-core body differs from the strip body "
+                                 f"(max |diff| {(got - want).abs().max().item():.3e})")
+        log(f"[kernels] {label}: equal to the strip body bit for bit")
 
     paired = {}
     for proj, cin, cout, prologue, with_residual in LLAMA_13B_SHAPES:
@@ -1035,8 +1058,6 @@ def phase_quant_kernels():
                             + tc_faults("half", cin, rows, cout, lambda: Q.int4_matmul(xg, q4, s4), weights=(q4, s4)),
                             library=lib4, before=lambda xx, q, sc: Q.strip_body_gemv(xx, q, sc, "half"))
             add("K7-int4", row, rows)
-            if rows == 32:
-                continue
             act_faults = [("nibble order swapped", lambda xx: Q.int4_paired_fused_matmul(
                 xx, _swap_nibbles(packed), scale, act_int8=True, **kw))]
             if gamma is not None:
@@ -1044,24 +1065,46 @@ def phase_quant_kernels():
                 act_faults.append(("quantized after bf16 rounding of RMSNorm without gamma",
                                    lambda xx: Q.int4_w4a8_matmul(Q._prologue(xx, cin, torch.ones_like(gamma), 1e-6,
                                                                              False).to(xx.dtype), packed, scale)))
+            act_faults += tc_faults("w4a8", cin, rows, cout,
+                                    lambda: Q.int4_paired_fused_matmul(x, packed, scale, act_int8=True, **kw),
+                                    weights=(packed, scale), gamma=gamma, prologue=pro, residual=residual)
             row = _gemv_row(f"K5 act_int8 {tag} prologue {prologue} residual {with_residual}",
                             lambda xx, p, sc: Q.int4_paired_fused_matmul(xx, p, sc, act_int8=True, **kw),
                             lambda xx, p, sc: Q.int4_paired_fused_matmul_plain(xx, p, sc, act_int8=True, **kw), x,
-                            (packed, scale), out_bytes + extra, act_faults)
+                            (packed, scale), out_bytes + extra, act_faults,
+                            before=lambda xx, p, sc: Q.strip_body_w4a8(xx, None, p, sc, **kw))
             add("K5-act", row, rows)
+            if prologue is None:
+                same_bits(f"K5 act_int8 {tag}", Q.int4_paired_fused_matmul(x, packed, scale, act_int8=True, **kw),
+                          Q.strip_body_w4a8(x, None, packed, scale, **kw))
+            # K10: the kernel alone on the int8 x and row scales the wrapper's
+            # torch quantizer makes (the JSON row), then the wrapper
+            xq, xs = Q.quantize_act_int8(xg)
+            row = _gemv_row(f"K10 kernel {tag}", lambda xx, p, sc: Q._launch_w4a8(xx, xs, p, sc),
+                            lambda xx, p, sc: Q.w4a8_gemv_plain(xx, xs, p, sc), xq, (packed, scale),
+                            out_bytes + nbytes(xs),
+                            [("activation scale without 1/127", lambda xx: Q._launch_w4a8(xx, xs, packed, scale) * 127),
+                             ("nibble order swapped", lambda xx: Q._launch_w4a8(xx, xs, _swap_nibbles(packed), scale))]
+                            + tc_faults("w4a8", cin, rows, cout, lambda: Q._launch_w4a8(xq, xs, packed, scale),
+                                        weights=(packed, scale), xs=xs),
+                            rel_bound=W4A8_REL_BOUND, before=lambda xx, p, sc: Q.strip_body_w4a8(xx, xs, p, sc))
+            add("K10", row, rows)
+            same_bits(f"K10 {tag}", Q._launch_w4a8(xq, xs, packed, scale), Q.strip_body_w4a8(xq, xs, packed, scale))
+            row = _gemv_row(f"K10 wrapper (torch quantizer + kernel) {tag}", Q.int4_w4a8_matmul,
+                            Q.int4_w4a8_matmul_plain, xg, (packed, scale), out_bytes,
+                            [("nibble order swapped", lambda xx: Q.int4_w4a8_matmul(xx, _swap_nibbles(packed), scale))],
+                            rel_bound=W4A8_REL_BOUND)
+            wrapper[rows] = wrapper.get(rows, 0.0) + row["ms"]
+            if rows == 32:
+                continue
             row = _gemv_row(f"K6 {tag}", Q.int4_paired_matmul, Q.int4_paired_matmul_plain, xg, (packed, scale),
                             out_bytes,
-                            [("nibble order swapped", lambda xx: Q.int4_paired_matmul(xx, _swap_nibbles(packed), scale))]
+                            [("nibble order swapped",
+                              lambda xx: Q.int4_paired_matmul(xx, _swap_nibbles(packed), scale))]
                             + tc_faults("paired", cin, rows, cout, lambda: Q.int4_paired_matmul(xg, packed, scale),
                                         weights=(packed, scale)),
                             library=lib4)
             add("K6", row, rows)
-            row = _gemv_row(f"K10 {tag}", Q.int4_w4a8_matmul, Q.int4_w4a8_matmul_plain, xg, (packed, scale),
-                            out_bytes,
-                            [("activation scale without 1/127", lambda xx: Q.int4_w4a8_matmul(xx, packed, scale) * 127),
-                             ("nibble order swapped", lambda xx: Q.int4_w4a8_matmul(xx, _swap_nibbles(packed), scale))],
-                            rel_bound=W4A8_REL_BOUND)
-            add("K10", row, rows)
         del q4, q8, qn, lib8, lib4
     for label, first, second, siluglu1 in LLAMA_13B_PAIRS:
         (qp1, sc1), (qp2, sc2) = paired[first], paired[second]
@@ -1098,6 +1141,9 @@ def phase_quant_kernels():
         log(f"[kernels] {name} over one 13B layer at {rows} rows: {ms:.4f} ms (strip body before it "
             f"{before_ms:.4f} ms, {before_ms / ms:.2f}x), bound {bound_ms:.4f} ms, {bound_ms / ms:.1%} of it; "
             f"{ms / by_rows[(name, 1)][0]:.2f}x its 1-row time")
+    for rows, ms in sorted(wrapper.items()):
+        log(f"[kernels] K10 over one 13B layer at {rows} rows: the kernel {by_rows[('K10', rows)][0]:.4f} ms, its "
+            f"wrapper (torch activation quantizer + kernel) {ms:.4f} ms")
     return layer
 
 
@@ -2670,9 +2716,9 @@ def main() -> int:
         "K7": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:606"),
         "K7-int4": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:606"),
         "K8": ("cuda", "supir_tpu_torch/csrc/quantize_int8.cu", "supir_tpu/ops/quantize.py:21"),
-        "K5-act": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:291"),
+        "K5-act": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:291"),
         "K9": ("cuda", "supir_tpu_torch/csrc/quant_pair.cu", "supir_tpu/ops/quantize.py:398"),
-        "K10": ("cuda", "supir_tpu_torch/csrc/quant_gemv.cu", "supir_tpu/ops/quantize.py:191"),
+        "K10": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:191"),
         "K11": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:555"),
         "K3-alibi": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:197"),
         "K4-alibi": ("cuda", "supir_tpu_torch/csrc/flash_attn_bwd.cu", "supir_tpu/ops/flash_attention.py:481"),
@@ -2691,7 +2737,7 @@ def main() -> int:
           "K5": "one 13B layer (qkv, o, gate-up, down), 1 row", "K6": "one 13B layer, 1 row",
           "K7": "one 13B layer, int8, 1 row", "K7-int4": "one 13B layer, half-split int4, 1 row", "K8": "one 13B layer's four fp32 kernels",
           "K5-act": "one 13B layer, act_int8, 1 row", "K9": "one 13B layer's two pairs, 1 row",
-          "K10": "one 13B layer, 1 row", "K11": "one 13B layer, 1 row",
+          "K10": "one 13B layer, 1 row, the kernel alone on int8 x", "K11": "one 13B layer, 1 row",
           "K3-alibi": "[1,2048,32,128] bf16 causal, with lse (the MPT-7B gradient's forward)",
           "K4-alibi": "[1,2048,32,128] bf16 causal, dq dk dv",
           "T1a": "u8 [2560,15360], strip 512", "T1b": "u8 [2560,15360], 1280x1920 blocks",

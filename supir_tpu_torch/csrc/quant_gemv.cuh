@@ -357,7 +357,9 @@ __device__ __forceinline__ float prologue_f32(const bf16* xr, int k, int cin, co
   return v;
 }
 
-// K10 and K5's act_int8 mode: one strip of S columns, one tile of BT rows and
+// K10 and K5's act_int8 mode (the tensor-core body's W4A8 layout takes the
+// model paths' calls; this body the ones it refuses, the strip and split-K
+// probes, and comparisons): one strip of S columns, one tile of BT rows and
 // one of SPLIT slices of the contraction per block; grid (ceil(cout / S),
 // ceil(B / BT), SPLIT). With SPLIT > 1 (K10's form only, QIN) each block adds
 // its exact int32 sums into acc32 [B, cout] with atomics, in any order, and
@@ -539,9 +541,11 @@ w4a8_kernel(const void* __restrict__ xin, int ldx, const float* __restrict__ xsc
         atomicAdd(acc32 + (size_t)row * cout + c, total);
         continue;
       }
+      // each multiply and the add rounded on its own (no fma), as the plain
+      // versions and the tensor-core body's W4A8 layout round them
       float s = (float)total;
-      s = QIN ? (s * scale[c]) * rowscale[b] : (s * rowscale[b]) * scale[c];
-      if (RESIDUAL) s += residual[(size_t)row * cout + c];
+      s = QIN ? __fmul_rn(__fmul_rn(s, scale[c]), rowscale[b]) : __fmul_rn(__fmul_rn(s, rowscale[b]), scale[c]);
+      if (RESIDUAL) s = __fadd_rn(s, residual[(size_t)row * cout + c]);
       out[(size_t)row * cout + c] = s;
     }
   }

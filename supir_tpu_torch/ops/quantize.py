@@ -24,13 +24,14 @@ Kernels, each with its plain version beside it and a launch counter:
      per-row int8 activations, exact int32 accumulation
   K11 int4_native_matmul       (_qmm_native_kernel :555)  GEMV against
      column-pair-packed int4 weights
-K5, K6, K7 (int8 and half-split int4) and K11 launch `csrc/quant_gemv_tc.cu`
-(TMA weight stream, `mma.sync`, k-slice tiles planned in
-`ops/gemv_plan.py`) where the call allows it (`gemv_plan.tc_eligible`:
-cin % 8 == 0 (half-split 16), cout % 16 == 0 (native 32) and 16-byte
-aligned weights and activation rows, which every model shape meets), else
-the strip body of `csrc/quant_gemv.cu`, which K10 and K5's act_int8 mode
-always launch. K8 is `csrc/quantize_int8.cu`, K9
+K5, K6, K7 (int8 and half-split int4), K10, K5's act_int8 mode and K11
+launch `csrc/quant_gemv_tc.cu` (TMA weight stream, `mma.sync`, k-slice
+tiles planned in `ops/gemv_plan.py`; K10 and act_int8 on its integer
+W4A8 layout, `mma.sync` m16n8k32 s8 with exact int32 sums) where the call
+allows it at the default geometry (`gemv_plan.tc_eligible`: cin % 8 == 0
+(half-split 16), cout % 16 == 0 (native 32) and 16-byte aligned weights
+and activation rows, which every model shape meets), else the strip body
+of `csrc/quant_gemv.cu`. K8 is `csrc/quantize_int8.cu`, K9
 `csrc/quant_pair.cu`; their headers say what bounds them on the card and
 how they are laid out. The tensor-core body's weight tensor maps are
 encoded once per weight and cached here (`_tc_map`), and each device keeps
@@ -82,7 +83,7 @@ STRIP = 32                     # output columns per block on the model paths
 GEMV_STRIPS = (32, 64, 128, 256)
 W4A8_SPLITS = (1, 2, 4)
 DECODE_ROWS = 32  # the largest activation the TPU functions send to a kernel
-_MODES = {"paired": 0, "half": 1, "int8": 2, "native": 3}
+_MODES = {"paired": 0, "half": 1, "int8": 2, "native": 3, "w4a8": 4}
 
 
 # ------------------------------------------------------------------ packers
@@ -187,13 +188,19 @@ def _int_dot(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return xq.float() @ q.float()
 
 
+def w4a8_gemv_plain(xq, xs, packed, scale):
+    """K10's kernel alone on int8 xq [B, in] (any dtype holding the
+    integers) with its row scales xs [B, 1]: the integer dot against the
+    paired weights, then * scale, then * (xs / 127), in that order."""
+    out = _int_dot(xq, unpack_int4_paired(packed)) * scale.float()
+    return out * (xs.float().reshape(-1, 1) * (1.0 / 127.0))
+
+
 def int4_w4a8_matmul_plain(x, packed, scale):
     """x [B, in] float @ dequant(packed, adjacent pairs) -> [B, out] fp32
     through per-row int8 activations (quantize.py:250-257): the integer dot,
     then * scale, then * (xs / 127), in that order."""
-    xq, xs = quantize_act_int8(x)
-    out = _int_dot(xq, unpack_int4_paired(packed)) * scale.float()
-    return out * (xs * (1.0 / 127.0))
+    return w4a8_gemv_plain(*quantize_act_int8(x), packed, scale)
 
 
 def _prologue(x, cin: int, gamma, eps: float, siluglu: bool) -> torch.Tensor:
@@ -330,7 +337,7 @@ def _tc_library() -> ctypes.CDLL:
     lib = load_library(_TC_SOURCE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.supir_qgemv_tc.restype = i
-    lib.supir_qgemv_tc.argtypes = [p, p, i, p, i, p, f, i, p, p, p, p, p, i, p]
+    lib.supir_qgemv_tc.argtypes = [p, p, i, p, i, p, p, f, i, p, p, p, p, p, i, p]
     lib.supir_qgemv_tc_map.restype = i
     lib.supir_qgemv_tc_map.argtypes = [p, ctypes.c_longlong, ctypes.c_longlong, i, i, i, p]
     return lib
@@ -482,8 +489,9 @@ def _tc_scratch(device: torch.device):
     return hit
 
 
-def _launch_tc(x, w, scale, mode, cin, cout, gamma, eps, prologue, residual, out, fault=0):
-    """One launch of `csrc/quant_gemv_tc.cu` (K5, K6, K7, K11)."""
+def _launch_tc(x, w, scale, mode, cin, cout, gamma, eps, prologue, residual, out, fault=0, xs=None):
+    """One launch of `csrc/quant_gemv_tc.cu` (K5, K6, K7, K10, K11); xs:
+    K10's row scales (W4A8 only)."""
     if gamma is not None and gamma.data_ptr() % 16:
         gamma = gamma.clone()  # the kernel reads gamma in 16-byte vectors
     device = x.device
@@ -497,8 +505,9 @@ def _launch_tc(x, w, scale, mode, cin, cout, gamma, eps, prologue, residual, out
     _, _, part, counters = _tc_scratch(device)
     with torch.cuda.device(device):
         err = _tc_library().supir_qgemv_tc(
-            _tc_map(w, plan, index), plan_addr, _MODES[mode], x.data_ptr(), x.stride(0), _ptr(gamma), float(eps),
-            prologue, scale.data_ptr(), _ptr(residual), out.data_ptr(), part, counters, fault, _stream(device))
+            _tc_map(w, plan, index), plan_addr, _MODES[mode], x.data_ptr(), x.stride(0), _ptr(xs), _ptr(gamma),
+            float(eps), prologue, scale.data_ptr(), _ptr(residual), out.data_ptr(), part, counters, fault,
+            _stream(device))
     if err != 0:
         raise RuntimeError(f"tensor-core GEMV launch failed ({mode}, prologue {prologue}, {x.shape[0]} rows): "
                            f"cudaError {err}")
@@ -515,8 +524,9 @@ def strip_body_gemv(x, w, scale, mode: str, gamma=None, eps: float = 1e-6, silug
     cout] ("int8", the same), half-split uint8 [cin/2, cout] ("half") or
     native uint8 [cin, cout/2] ("native"), these two without prologue or
     residual from `csrc/quant_gemv.cu`, which still launches them for the
-    calls the tensor-core body does not take."""
-    if mode not in _MODES:
+    calls the tensor-core body does not take. W4A8's strip body is
+    `strip_body_w4a8`."""
+    if mode not in _MODES or mode == "w4a8":
         raise ValueError(f"the strip body's layouts are {sorted(_MODES)}, not {mode}")
     cin = 2 * w.shape[0] if mode in ("paired", "half") else w.shape[0]
     cout = 2 * w.shape[1] if mode == "native" else w.shape[1]
@@ -542,14 +552,32 @@ def strip_body_gemv(x, w, scale, mode: str, gamma=None, eps: float = 1e-6, silug
     return out
 
 
+def strip_body_w4a8(x, xs, packed, scale, gamma=None, eps: float = 1e-6, siluglu: bool = False,
+                    residual=None) -> torch.Tensor:
+    """The strip body (K10 and K5's act_int8 mode before the tensor-core
+    body, `csrc/quant_gemv.cu`'s `__dp4a` kernel) at the model paths'
+    geometry, for comparing it with the tensor-core body on one card: x
+    int8 with its row scales xs (K10), or bf16 x with xs None, through the
+    prologue and quantized in the kernel (act_int8). No model path calls it,
+    and it counts no launch."""
+    prologue = 1 if gamma is not None else (2 if siluglu else 0)
+    return _launch_w4a8(x, xs, packed, scale, gamma, eps, prologue, residual, _tensor_cores=False)
+
+
 def _launch_w4a8(x, xs, packed, scale, gamma=None, eps: float = 1e-6, prologue: int = 0,
-                 residual=None, strip: int = STRIP, split_k: int = 1, skip_split: int = -1) -> torch.Tensor:
-    """One launch of the W4A8 GEMV of `csrc/quant_gemv.cu`: x int8 [B, cin]
-    with its row scales xs fp32 [B, 1] (K10), or x bf16 [B, cin] (or
-    [B, 2 cin]) that the kernel runs through the prologue and quantizes
-    itself (K5's act_int8 mode, xs None); returns [B, cout] fp32. Another
-    strip or split-K (K10's form only) launches `csrc/gemv_sweep.cu`;
-    `skip_split` leaves one slice out, for planted faults only."""
+                 residual=None, strip: int = STRIP, split_k: int = 1, skip_split: int = -1, _fault: int = 0,
+                 _tensor_cores: bool = True) -> torch.Tensor:
+    """One call of the W4A8 GEMV: x int8 [B, cin] with its row scales xs
+    fp32 [B, 1] (K10), or x bf16 [B, cin] (or [B, 2 cin]) that the kernel
+    runs through the prologue and quantizes itself (K5's act_int8 mode, xs
+    None); returns [B, cout] fp32. At the default geometry the tensor-core
+    body (`csrc/quant_gemv_tc.cu`, W4A8 layout; one launch a block of
+    `gemv_plan.TC_W4A8_ROWS` rows) takes every call
+    `gemv_plan.tc_eligible` allows, the strip body of `csrc/quant_gemv.cu`
+    the rest (and `strip_body_w4a8`'s); another strip or split-K (K10's
+    form only) launches `csrc/gemv_sweep.cu`. `skip_split` leaves one slice
+    out and `_fault` plants one of the tensor-core body's faults
+    (gemv_plan.FAULT_*), for checks only."""
     cin, cout = 2 * packed.shape[0], packed.shape[1]
     quantized = xs is not None
     _check_activation(x, 2 * cin if prologue == 2 else cin, torch.int8 if quantized else torch.bfloat16)
@@ -562,6 +590,19 @@ def _launch_w4a8(x, xs, packed, scale, gamma=None, eps: float = 1e-6, prologue: 
     _check_on_card("the W4A8 kernel", x, (("xs", xs), ("weights", packed), ("scale", scale), ("gamma", gamma),
                                           ("residual", residual)))
     out = torch.empty((x.shape[0], cout), dtype=torch.float32, device=x.device)
+    if (_tensor_cores and (strip, split_k) == (STRIP, 1)
+            and GP.tc_eligible("w4a8", cin, cout, packed.data_ptr(), x.data_ptr(), x.stride(0))):
+        if x.shape[0] <= GP.TC_W4A8_ROWS:
+            return _launch_tc(x, packed, scale, "w4a8", cin, cout, gamma, eps, prologue, residual, out, _fault, xs)
+        # at most TC_W4A8_ROWS rows a launch: row blocks of 16 keep 16-byte aligned rows
+        for r0 in range(0, x.shape[0], GP.TC_W4A8_ROWS):
+            rs = slice(r0, r0 + GP.TC_W4A8_ROWS)
+            _launch_tc(x[rs], packed, scale, "w4a8", cin, cout, gamma, eps, prologue,
+                       None if residual is None else residual[rs], out[rs], _fault, None if xs is None else xs[rs])
+        return out
+    if _fault:
+        raise ValueError(f"planted faults are the tensor-core body's; this W4A8 call (cout {cout}) takes the strip "
+                         "body")
     if (strip, split_k) != (STRIP, 1):
         if not quantized or prologue or residual is not None:
             raise ValueError("another W4A8 geometry is built for K10's form only: int8 x with its scales, "
@@ -642,8 +683,9 @@ def int4_w4a8_matmul(x, packed, scale, strip: int = STRIP, split_k: int = 1):
     fp32 through per-row int8 activations; see int4_w4a8_matmul_plain. The
     activation quantizer runs as torch ops before the launch, as XLA runs
     it outside the TPU kernel (quantize.py:227); the kernel applies the
-    weight scales and then the row scales xs / 127, at `strip` columns per
-    block and `split_k` slices of the contraction."""
+    weight scales and then the row scales xs / 127. At the default geometry
+    it runs on the tensor-core body; `strip` columns per block and `split_k`
+    slices of the contraction select the strip body's probe instances."""
     other = check_geometry(strip, split_k)
     if x.device.type == "cpu" or x.shape[0] > DECODE_ROWS:
         return int4_w4a8_matmul_plain(x, packed, scale)

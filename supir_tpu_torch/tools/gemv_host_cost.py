@@ -1,9 +1,11 @@
-"""The host's cost of one decode-GEMV call, K5 (RMSNorm prologue), K7
-(int8 and half-split int4) and K11 (native int4), and the card's time of
-K5, K6, K7 (int8, int4) and K11 over one 13B decode layer, from several
-source trees on one card, in turns: the tool that shows a change of the
-GEMV wrappers or kernels adds no host time per launch and slows no other
-kernel.
+"""The host's cost of one decode-GEMV call, K5 (RMSNorm prologue, also in
+its act_int8 mode), K7 (int8 and half-split int4), K10 (its wrapper with
+the torch activation quantizer, and the kernel alone on int8 x) and K11
+(native int4), and the card's time of K5 (both modes), K6, K7 (int8,
+int4), K10 (the kernel alone, and the wrapper) and K11 over one 13B decode
+layer, from several source trees on one card, in turns: the tool that
+shows a change of the GEMV wrappers or kernels adds no host time per
+launch and slows no other kernel.
 
 Each variant is NAME=DIR, DIR the root of a source tree holding a
 `supir_tpu_torch` package (`.` for this checkout; an older one unpacked
@@ -17,7 +19,7 @@ that the card's queue never fills and paces the host; rows 1, cin = cout =
 projections (qkv, o, gate-up, down) at 1 row, each chained through one CUDA
 graph over weight copies that together exceed twice the L2 (timing.py),
 K5 in each projection's form (RMSNorm, residual, RMSNorm, SiLU-GLU and
-residual); it prints ms per layer. The variants run in the order given,
+residual) in both modes; it prints ms per layer. The variants run in the order given,
 then in reverse.
 
 Run on the card: python -m supir_tpu_torch.tools.gemv_host_cost
@@ -54,9 +56,13 @@ def child(calls: int) -> dict:
     q4, s4 = Q.quantize_int4(w)
     qn, sn = Q.quantize_int4_native(w)
     x = torch.randn(1, WIDTH, generator=g, device=dev).to(torch.bfloat16)
+    xq, xs = Q.quantize_act_int8(x)
     gamma = 1.0 + 0.1 * torch.randn(WIDTH, generator=g, device=dev)
     calls_of = {"K5": lambda: Q.int4_paired_fused_matmul(x, packed, scale, gamma=gamma),
+                "K5 act_int8": lambda: Q.int4_paired_fused_matmul(x, packed, scale, gamma=gamma, act_int8=True),
                 "K7": lambda: Q.int8_matmul(x, q8, s8), "K7 int4": lambda: Q.int4_matmul(x, q4, s4),
+                "K10": lambda: Q.int4_w4a8_matmul(x, packed, scale),
+                "K10 kernel": lambda: Q._launch_w4a8(xq, xs, packed, scale),
                 "K11": lambda: Q.int4_native_matmul(x, qn, sn)}
     out = {"package": str(Path(Q.__file__).resolve().parents[1])}
     for name, fn in calls_of.items():
@@ -83,7 +89,7 @@ def layer_ms(dev, reps: int = 20) -> dict:
     from supir_tpu_torch.tools import timing
 
     g = torch.Generator(device=dev).manual_seed(1)
-    total = dict.fromkeys(("K5", "K6", "K7", "K7 int4", "K11"), 0.0)
+    total = dict.fromkeys(("K5", "K5 act_int8", "K6", "K7", "K7 int4", "K10", "K10 wrapper", "K11"), 0.0)
     for _, cin, cout, prologue, with_residual in LAYER:
         w = torch.randn(cin, cout, generator=g, device=dev) * cin ** -0.5
         x = torch.randn(1, 2 * cin if prologue == "siluglu" else cin, generator=g, device=dev).to(torch.bfloat16)
@@ -92,8 +98,12 @@ def layer_ms(dev, reps: int = 20) -> dict:
                   siluglu=prologue == "siluglu",
                   residual=torch.randn(1, cout, generator=g, device=dev) if with_residual else None)
         paired = Q.quantize_int4_paired(w)
+        xq, xs = Q.quantize_act_int8(xg)
         layouts = {"K5": (paired, lambda q, s: Q.int4_paired_fused_matmul(x, q, s, **kw)),
+                   "K5 act_int8": (paired, lambda q, s: Q.int4_paired_fused_matmul(x, q, s, act_int8=True, **kw)),
                    "K6": (paired, lambda q, s: Q.int4_paired_matmul(xg, q, s)),
+                   "K10": (paired, lambda q, s, xq=xq, xs=xs: Q._launch_w4a8(xq, xs, q, s)),
+                   "K10 wrapper": (paired, lambda q, s: Q.int4_w4a8_matmul(xg, q, s)),
                    "K7": (Q.quantize_int8(w, stochastic=False), lambda q, s: Q.int8_matmul(xg, q, s)),
                    "K7 int4": (Q.quantize_int4(w), lambda q, s: Q.int4_matmul(xg, q, s)),
                    "K11": (Q.quantize_int4_native(w), lambda q, s: Q.int4_native_matmul(xg, q, s))}

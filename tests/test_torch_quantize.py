@@ -536,7 +536,7 @@ def test_pair_kernel_matches_plain(cuda, rows, siluglu1):
     assert _rel_l2(bad, want_big) > CARD_REL_BOUND
 
 
-# --------------------------------- the tensor-core body (K5, K6, K7, K11)
+# ---------------------------- the tensor-core body (K5, K6, K7, K10, K11)
 # csrc/quant_gemv_tc.cu: TMA weight stream, mma.sync, k-slice tiles combined
 # in slice order (ops/gemv_plan.py). Held to the fp32 plain versions by
 # relative L2 <= 1e-2 (bf16 rounding of x' gives a few 1e-3; K6, K7 and
@@ -681,3 +681,103 @@ def test_tc_planted_faults_break_the_bound(cuda, mode, rows):
         assert _rel_l2(got, want) > CARD_REL_BOUND, fault
     # a planted fault leaves the strip counters as it found them
     assert _rel_l2(Q._launch_gemv(x, *weights, mode, cin, gamma, 1e-6, pro), want) <= CARD_REL_BOUND
+
+
+# W4A8 on the tensor-core body (K10, and K5's act_int8 mode): the paired
+# weights against int8 x on mma.sync m16n8k32, exact int32 sums. K10 equals
+# the strip body it replaced bit for bit (the same integer dot, the same two
+# scale multiplies), and K5's act_int8 mode does too where no prologue's
+# fp32 statistics are summed in another order.
+
+W4A8_TC_SHAPES = [(5120, 15360), (5120, 5120), (5120, 27648), (13824, 5120), (640, 272), (1000, 144), (264, 400)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 32])
+@pytest.mark.parametrize("cin,cout", W4A8_TC_SHAPES)
+def test_tc_w4a8_equals_the_strip_body(cuda, rows, cin, cout):
+    """K10, counted, on the tensor-core body at every 13B shape and at
+    ragged ones (cout not a multiple of the strip, cin not of the chunk or
+    of a 32-k step): bit for bit the strip body's output, and within 1e-6 of
+    the plain version."""
+    from supir_tpu_torch.ops import gemv_plan as GP
+
+    w, x, _ = _tc_case(cuda, 16, rows, cin, cout, "none", False)
+    packed, scale = Q.quantize_int4_paired(w)
+    xq, xs = Q.quantize_act_int8(x)
+    assert GP.tc_eligible("w4a8", cin, cout, packed.data_ptr(), xq.data_ptr(), xq.stride(0))
+    before = Q.int4_w4a8_matmul.launches
+    got = Q.int4_w4a8_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert Q.int4_w4a8_matmul.launches == before + 1
+    assert torch.equal(got, Q._launch_w4a8(xq, xs, packed, scale))
+    assert torch.equal(got, Q.strip_body_w4a8(xq, xs, packed, scale))
+    assert _rel_l2(got, Q.int4_w4a8_matmul_plain(x.float(), packed, scale)) <= W4A8_REL_BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 17, 32])
+@pytest.mark.parametrize("cin,cout", [(5120, 5120), (640, 272), (1000, 144), (13824, 5120)])
+@pytest.mark.parametrize("prologue,with_residual", [("none", False), ("none", True), ("norm", False),
+                                                    ("norm", True), ("siluglu", False), ("siluglu", True)])
+def test_tc_act_int8_matches_plain(cuda, rows, cin, cout, prologue, with_residual):
+    """K5's act_int8 mode, counted, on the tensor-core body in every
+    prologue and residual form: relative L2 <= 1e-2 of the plain version,
+    as the strip body; without a prologue bit for bit the strip body's
+    output."""
+    from supir_tpu_torch.ops import gemv_plan as GP
+
+    w, x, kw = _tc_case(cuda, 17, rows, cin, cout, prologue, with_residual)
+    packed, scale = Q.quantize_int4_paired(w)
+    assert GP.tc_eligible("w4a8", cin, cout, packed.data_ptr(), x.data_ptr(), x.stride(0))
+    before = Q.int4_paired_fused_matmul.act_int8_launches
+    got = Q.int4_paired_fused_matmul(x, packed, scale, act_int8=True, **kw)
+    torch.cuda.synchronize()
+    assert Q.int4_paired_fused_matmul.act_int8_launches == before + 1
+    want = Q.int4_paired_fused_matmul_plain(x.float(), packed, scale, act_int8=True, **kw)
+    assert _rel_l2(got, want) <= CARD_REL_BOUND
+    strip = Q.strip_body_w4a8(x, None, packed, scale, **kw)
+    assert _rel_l2(strip, want) <= CARD_REL_BOUND
+    if prologue == "none":
+        assert torch.equal(got, strip)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 32])
+def test_tc_w4a8_two_runs_are_bit_identical(cuda, rows):
+    w, x, kw = _tc_case(cuda, 19, rows, 5120, 5120, "norm", True)
+    packed, scale = Q.quantize_int4_paired(w)
+    first = Q.int4_w4a8_matmul(x, packed, scale)
+    assert all(torch.equal(first, Q.int4_w4a8_matmul(x, packed, scale)) for _ in range(3))
+    first = Q.int4_paired_fused_matmul(x, packed, scale, act_int8=True, **kw)
+    assert all(torch.equal(first, Q.int4_paired_fused_matmul(x, packed, scale, act_int8=True, **kw))
+               for _ in range(3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["k10", "act_int8"])
+@pytest.mark.parametrize("rows", [1, 8])
+def test_tc_w4a8_planted_faults_break_the_bound(cuda, form, rows):
+    """One block's share dropped, the combine run twice, x staged without
+    its quad interleave, the row scale applied twice, the nibbles swapped:
+    each must break K10's bound (1e-6) or K5 act_int8's (1e-2). The shape
+    is cut into k-slices on this card, so the combine runs."""
+    from supir_tpu_torch.ops import gemv_plan as GP
+
+    cin, cout = 5120, 5120
+    w, x, kw = _tc_case(cuda, 20, rows, cin, cout, "norm" if form == "act_int8" else "none", False)
+    packed, scale = Q.quantize_int4_paired(w)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert GP.tc_plan("w4a8", rows, cin, cout, sms).slices > 1
+    if form == "k10":
+        args, extra, bound = Q.quantize_act_int8(x), {}, W4A8_REL_BOUND
+        want = Q.int4_w4a8_matmul_plain(x.float(), packed, scale)
+    else:
+        args, extra, bound = (x, None), dict(gamma=kw["gamma"], prologue=1), CARD_REL_BOUND
+        want = Q.int4_paired_fused_matmul_plain(x.float(), packed, scale, act_int8=True, **kw)
+    assert _rel_l2(Q._launch_w4a8(*args, packed, scale, **extra), want) <= bound
+    for fault in (GP.FAULT_DROP_SHARE, GP.FAULT_COMBINE_TWICE, GP.FAULT_X_ORDER, GP.FAULT_ROW_SCALE):
+        assert _rel_l2(Q._launch_w4a8(*args, packed, scale, **extra, _fault=fault), want) > bound, fault
+    assert _rel_l2(Q._launch_w4a8(*args, _swap_nibbles(packed), scale, **extra), want) > bound
+    # a planted fault leaves the strip counters as it found them
+    assert _rel_l2(Q._launch_w4a8(*args, packed, scale, **extra), want) <= bound
