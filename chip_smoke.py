@@ -8,24 +8,26 @@ Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is switched off for matmuls and cuDNN convolutions.
   2. build: the CUDA C++ kernels (K1 and K3, K4, the strip-body GEMVs, the
-     tensor-core GEMV of K5, K6, K7, K10, K5's act_int8 mode and K11, K8,
-     K9, the probes' kernels and their GEMV geometries; one nvcc per
-     source, all at once, into build/supir_tpu_torch/) with ptxas'
+     tensor-core GEMV of K5, K6, K7, K9, K10, K5's act_int8 mode and K11,
+     K8, K9's strip body, the probes' kernels and their GEMV geometries; one
+     nvcc per source, all at once, into build/supir_tpu_torch/) with ptxas'
      registers and spills (for each of the forward's eight instantiations,
-     K1/K3 x D 64/128 x ALiBi, and the tensor-core GEMV's fourteen, four
-     layouts x three row tiles and W4A8 x two, which may not spill), and
-     K2 (Triton).
+     K1/K3 x D 64/128 x ALiBi, and the tensor-core GEMV's seventeen, four
+     layouts x three row tiles, W4A8 x two and K9's pair x three, which may
+     not spill), and K2 (Triton).
   3. kernels against their plain PyTorch versions on the card, with
      CUDA-event or CUDA-graph times of both, the least time the card could
      take (bound) and, where one PyTorch call computes the same function,
      its time: K1 and K2 at the restore path's shapes, K1 causal, and K5
      (also in its act_int8 mode), K6, K7, K8, K10 and K11 at the 13B
      captioner's decode shapes and K9 at its two pairs per layer, for 1 and
-     8 rows (with K9's co-resident grid), K5 (also act_int8), K7 (int8 and
-     half-split int4), K10 and K11 also at 32 rows and in turns with the
-     strip body they replaced, with the tensor-core body's planted faults
-     (one block's share dropped, the combine run twice, x' staged out of
-     order; W4A8: the row scale applied twice) and two runs bit-identical;
+     8 rows, K5 (also act_int8), K7 (int8 and half-split int4), K9, K10 and
+     K11 also at 32 rows and in turns with the strip body they replaced (K9
+     also with its yardstick, the same products as two tensor-core K5
+     calls), with the tensor-core body's planted faults (one block's share
+     dropped, the combine run twice, x' staged out of order; W4A8: the row
+     scale applied twice; K9: phase 2 staged without waiting for phase 1,
+     the statistics from one strip) and two runs bit-identical;
      K10 timed as the kernel alone on int8 x and as its wrapper with the
      activation quantizer, and equal to the strip body bit for bit (K5's
      act_int8 mode too where it has no prologue); beside K6, K7 and K11 one
@@ -310,13 +312,15 @@ def _instances(report: str, kernel: str):
 
 def _tc_instances(report: str):
     """(mode, n-tiles, registers, spill stores, spill loads) of each
-    qgemv_tc_kernel<MODE, NT> instance in nvcc's -Xptxas -v output."""
+    qgemv_tc_kernel<MODE, NT> instance in nvcc's -Xptxas -v output, and of
+    each qpair_tc_kernel<NT> (K9) as mode "pair"."""
     rows, current, spills = [], None, (0, 0)
     for line in report.splitlines():
         name = re.search(r"(?:Compiling entry function|Function properties for) '?\S*qgemv_tc_kernelILi(\d+)ELi(\d+)E",
                          line)
-        if name:
-            current = (int(name.group(1)), int(name.group(2)))
+        pair = re.search(r"(?:Compiling entry function|Function properties for) '?\S*qpair_tc_kernelILi(\d+)E", line)
+        if name or pair:
+            current = (int(name.group(1)), int(name.group(2))) if name else ("pair", int(pair.group(1)))
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if current and spill:
@@ -355,21 +359,23 @@ def phase_build():
     for source, rows in ((k1._FWD_SOURCE, fwd), (k1._BWD_SOURCE, bwd)):
         if reports[source] and len(rows) != 8:  # no report: the library was built earlier
             raise AssertionError(f"expected 8 instantiations in the ptxas report of {source}, found {len(rows)}")
-    # the tensor-core GEMV's fourteen instances (K5/K6 paired, K7 half-split
+    # the tensor-core GEMV's seventeen instances (K5/K6 paired, K7 half-split
     # int4, K7 int8, K11 native: 1, 2 or 4 n-tiles of 8 rows; K10/K5
-    # act_int8 W4A8: 1 or 2, 16 rows a launch): registers and spills, and no
-    # spill allowed
+    # act_int8 W4A8: 1 or 2, 16 rows a launch; K9's pair kernel: 1, 2 or 4):
+    # registers and spills, and no spill allowed
     report = cuda_build.ptxas_report(kq._TC_SOURCE)
     tc = _tc_instances(report)
     layouts = {0: ("paired", "K5/K6"), 1: ("half", "K7 int4"), 2: ("int8", "K7 int8"), 3: ("native", "K11"),
                4: ("w4a8", "K10/K5 act_int8")}
-    for mode, nt, regs, stores, loads in sorted(tc):
-        log(f"[build] qgemv_tc_kernel<{layouts[mode][0]}, n-tiles {nt}> ({layouts[mode][1]}, up to {8 * nt} rows): "
-            f"{regs} registers, spill stores {stores} B, spill loads {loads} B")
-    if report and (len(tc) != 14 or any(st or ld for *_, st, ld in tc)):
-        raise AssertionError(f"the tensor-core GEMV's instances: expected 14 without spills, found {tc}")
-    log(f"[build] K9 grid: {kq.pair_grid_blocks(1)} co-resident blocks at 1 row, {kq.pair_grid_blocks(8)} at 8 "
-        f"(occupancy API x SMs; its cooperative launch takes at most that many)")
+    for mode, nt, regs, stores, loads in sorted(tc, key=str):
+        kernel = (f"qpair_tc_kernel<n-tiles {nt}> (K9" if mode == "pair"
+                  else f"qgemv_tc_kernel<{layouts[mode][0]}, n-tiles {nt}> ({layouts[mode][1]}")
+        log(f"[build] {kernel}, up to {8 * nt} rows): {regs} registers, spill stores {stores} B, spill loads {loads} B")
+    if report and (len(tc) != 17 or sum(m == "pair" for m, *_ in tc) != 3 or any(st or ld for *_, st, ld in tc)):
+        raise AssertionError(f"the tensor-core GEMV's instances: expected 17 (3 of K9's pair) without spills, "
+                             f"found {tc}")
+    log(f"[build] K9's strip body (comparisons and calls the tensor-core pair does not take): grid "
+        f"{kq.pair_grid_blocks(1)} co-resident blocks at 1 row, {kq.pair_grid_blocks(8)} at 8 (occupancy API x SMs)")
     t1 = time.perf_counter()
     k2.build()
     log(f"[build] nvcc wall {wall:.1f} s for {len(sources)} sources in parallel; K2 triton import "
@@ -934,11 +940,43 @@ def _try_library(make, *args):
         return None
 
 
+def _pair_yardstick(tag, x, weights, siluglu1):
+    """K9's yardstick, timed in turns with K9 (yardstick, K9, K9,
+    yardstick) as _gemv_row times a kernel: the same products as two
+    tensor-core K5 calls, glue(x) W1 s1 + residual and then RMSNorm(small)
+    W2 s2 on small rounded to bf16 once, outside the timing (no single
+    PyTorch call computes the pair). Held to the plain version; returns (K9
+    ms, yardstick ms)."""
+    import torch
+
+    from supir_tpu_torch.ops import quantize as Q
+
+    want = Q.int4_paired_fused_pair_plain(x.float(), *weights, siluglu1=siluglu1)
+    small_bf16 = want[0].to(torch.bfloat16)
+
+    def two_k5(w):
+        qp1, sc1, residual, gamma, qp2, sc2 = w
+        return (Q.int4_paired_fused_matmul(x, qp1, sc1, siluglu=siluglu1, residual=residual),
+                Q.int4_paired_fused_matmul(small_bf16, qp2, sc2, gamma=gamma))
+
+    _check_rel(f"{tag} yardstick", _worst_rel(two_k5(weights), want), GEMV_REL_BOUND)
+    copies = _copies(weights, nbytes(*weights))
+    yard = [lambda c=c: two_k5(c) for c in copies]
+    pair = [lambda c=c: Q.int4_paired_fused_pair(x, *c, siluglu1=siluglu1) for c in copies]
+    t_y, t_k, t_k2, t_y2 = graph_ms(yard), graph_ms(pair), graph_ms(pair), graph_ms(yard)
+    log(f"[kernels] {tag}: yardstick (two tensor-core K5 calls) {t_y:.4f}, {t_y2:.4f} ms, K9 {t_k:.4f}, "
+        f"{t_k2:.4f} ms in turns")
+    del copies, yard, pair
+    torch.cuda.empty_cache()
+    return (t_k + t_k2) / 2, (t_y + t_y2) / 2
+
+
 def phase_quant_kernels():
     """K5 (also in its act_int8 mode), K6, K7 (int8 and half-split int4),
     K8, K10 and K11 at the 13B decode shapes, and K9 at the layer's two
-    pairs, for 1 and 8 rows, all but K6 and K9 also 32; K5 (both modes), K7,
-    K10 and K11 in turns with the strip body they replaced; K10 as the
+    pairs, for 1 and 8 rows, all but K6 also 32; K5 (both modes), K7, K9,
+    K10 and K11 in turns with the strip body they replaced (K9 also with its
+    two-K5 yardstick, _pair_yardstick); K10 as the
     kernel alone on int8 x (its JSON row) and as its wrapper with the torch
     activation quantizer; the library yardsticks of K6, K7 (int8 and int4)
     and K11. Returns each kernel's JSON numbers, its times summed over one
@@ -1106,25 +1144,50 @@ def phase_quant_kernels():
                             library=lib4)
             add("K6", row, rows)
         del q4, q8, qn, lib8, lib4
+    yard = {}  # rows -> [K9 ms, its yardstick's ms] over the layer's two pairs, in turns
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, first, second, siluglu1 in LLAMA_13B_PAIRS:
         (qp1, sc1), (qp2, sc2) = paired[first], paired[second]
         cin1, cout1, cout2 = 2 * qp1.shape[0], qp1.shape[1], qp2.shape[1]
-        for rows in (1, 8):
+        for rows in (1, 8, 32):
             x = torch.randn(rows, 2 * cin1 if siluglu1 else cin1, generator=g, device=dev).to(torch.bfloat16)
             residual = torch.randn(rows, cout1, generator=g, device=dev)
             gamma = 1.0 + 0.1 * torch.randn(cout1, generator=g, device=dev)
             weights = (qp1, sc1, residual, gamma, qp2, sc2)
+            if not GP.tc_pair_eligible(rows, cin1, cout1, cout2, qp1.data_ptr(), qp2.data_ptr(), x.data_ptr(),
+                                       x.stride(0)):
+                raise AssertionError(f"K9 at {rows} rows, {cin1} -> {cout1} -> {cout2} misses the tensor-core pair")
+            tag = f"K9 pair {label} [{rows},{x.shape[1]}]->[{rows},{cout1}]->[{rows},{cout2}]"
+            first_out = Q.int4_paired_fused_pair(x, *weights, siluglu1=siluglu1)
+            again = Q.int4_paired_fused_pair(x, *weights, siluglu1=siluglu1)
+            if not all(torch.equal(a_, b_) for a_, b_ in zip(first_out, again)):
+                raise AssertionError(f"{tag}: two runs differ")
+            # one strip's statistics: strip 0's sums of squares alone (a mean over 32 columns,
+            # `_norm_cols=32`, can fall near the row's: on pair B at one row it moved big by 3.07e-3)
+            pair_faults = [("phase 2 normalised by one strip's statistics", GP.FAULT_ONE_STRIP),
+                           ("phase 2 staged without waiting for phase 1 (stale small)", GP.FAULT_STALE_SMALL),
+                           ("one share dropped", GP.FAULT_DROP_SHARE),
+                           ("x' staged in the wrong k order", GP.FAULT_X_ORDER)]
+            if GP.tc_pair_plan(rows, cin1, cout1, cout2, sms).first.slices > 1:
+                pair_faults.append(("phase 1's combine run twice", GP.FAULT_COMBINE_TWICE))
             row = _gemv_row(
-                f"K9 pair {label} [{rows},{x.shape[1]}]->[{rows},{cout1}]->[{rows},{cout2}]",
-                lambda xx, *wt: Q.int4_paired_fused_pair(xx, *wt, siluglu1=siluglu1),
+                tag, lambda xx, *wt: Q.int4_paired_fused_pair(xx, *wt, siluglu1=siluglu1),
                 lambda xx, *wt: Q.int4_paired_fused_pair_plain(xx, *wt, siluglu1=siluglu1), x, weights,
                 rows * (cout1 + cout2) * 4,
-                [("phase 2 normalised by one strip's statistics", lambda xx: Q.int4_paired_fused_pair(
-                    xx, *weights, siluglu1=siluglu1, _norm_cols=32)),
-                 ("nibble order swapped", lambda xx: Q.int4_paired_fused_pair(
-                     xx, qp1, sc1, residual, gamma, _swap_nibbles(qp2), sc2, siluglu1=siluglu1))])
-            if rows == 1:
-                add("K9", row)
+                [("nibble order swapped", lambda xx: Q.int4_paired_fused_pair(
+                     xx, qp1, sc1, residual, gamma, _swap_nibbles(qp2), sc2, siluglu1=siluglu1))]
+                + [(name, lambda xx, f=f: Q.int4_paired_fused_pair(xx, *weights, siluglu1=siluglu1, _fault=f))
+                   for name, f in pair_faults],
+                before=lambda xx, *wt: Q.strip_body_pair(xx, *wt, siluglu1=siluglu1))
+            log(f"[kernels] {tag}: two runs bit-identical")
+            add("K9", row, rows)
+            acc = yard.setdefault(rows, [0.0, 0.0])
+            for i, ms in enumerate(_pair_yardstick(tag, x, weights, siluglu1)):
+                acc[i] += ms
+    for rows, (ms, yard_ms) in sorted(yard.items()):
+        log(f"[kernels] K9 over one 13B layer's two pairs at {rows} rows, in turns with its yardstick (the same "
+            f"products as two tensor-core K5 calls a pair): K9 {ms:.4f} ms, yardstick {yard_ms:.4f} ms "
+            f"(K9 {yard_ms / ms:.2f}x its speed)")
     del paired
     gc.collect()  # the fault closures hold weights in reference cycles
     torch.cuda.empty_cache()
@@ -2717,7 +2780,7 @@ def main() -> int:
         "K7-int4": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:606"),
         "K8": ("cuda", "supir_tpu_torch/csrc/quantize_int8.cu", "supir_tpu/ops/quantize.py:21"),
         "K5-act": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:291"),
-        "K9": ("cuda", "supir_tpu_torch/csrc/quant_pair.cu", "supir_tpu/ops/quantize.py:398"),
+        "K9": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:398"),
         "K10": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:191"),
         "K11": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:555"),
         "K3-alibi": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:197"),

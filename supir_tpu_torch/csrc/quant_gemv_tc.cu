@@ -1,7 +1,8 @@
-// K5, K6, K7 (int8 and half-split int4), K10, K5's act_int8 mode and K11 on
-// the tensor cores: the decode GEMV for Hopper (sm_90a) with a TMA weight
-// stream, mma.sync and k-slice tiles that all blocks walk together. One
-// body, five layouts (template MODE).
+// K5, K6, K7 (int8 and half-split int4), K9, K10, K5's act_int8 mode and
+// K11 on the tensor cores: the decode GEMV for Hopper (sm_90a) with a TMA
+// weight stream, mma.sync and k-slice tiles that all blocks walk together.
+// One body, five layouts (template MODE); K9 runs the paired layout twice in
+// one launch (qpair_tc_kernel, below).
 //
 // Replaces, in supir_tpu/ops/quantize.py:
 //   K5  _qmm_fused_kernel  (:260, pallas_call :357, int4_paired_fused_matmul):
@@ -20,11 +21,14 @@
 //   K5 act_int8, the act_int8 branch of _qmm_fused_kernel (:291-297,
 //       pallas_call :357): K5's prologue in fp32, each row's absmax, int8
 //       quantization in the kernel, K10's integer dot, the residual
-// for 1-32 activation rows (W4A8 1-16 a launch). K9 keeps the strip body
-// of quant_gemv.cuh, and so do the calls this body does not take (a weight
-// row stride that is not a multiple of 16 bytes, unaligned pointers:
-// ops/gemv_plan.py:tc_eligible) and K10's other strips and split-K
-// (gemv_sweep.cu, the probes).
+//   K9  _qmm_pair_kernel   (:398, pallas_call :502, int4_paired_fused_pair):
+//       two chained paired GEMVs, the second's RMSNorm over the first's
+//       output, in one cooperative launch
+// for 1-32 activation rows (W4A8 1-16 a launch). The calls this body does
+// not take (a weight row stride that is not a multiple of 16 bytes,
+// unaligned pointers: ops/gemv_plan.py:tc_eligible, tc_pair_eligible) keep
+// the strip body of quant_gemv.cuh (K9's in quant_pair.cu), and so do K10's
+// other strips and split-K (gemv_sweep.cu, the probes).
 //
 // How each layout meets the A fragments (lane g = lane / 4, t = lane % 4;
 // rows g and g + 8 of fragment F are columns 4g + 2F and 4g + 2F + 1):
@@ -155,6 +159,8 @@ constexpr int TC_MAX_ROWS = 32;
 constexpr int MODE_PAIRED = 0, MODE_HALF = 1, MODE_INT8 = 2, MODE_NATIVE = 3, MODE_W4A8 = 4;   // ops/quantize.py:_MODES
 constexpr int TC_RING_BYTES = 128 * 1024;
 constexpr int FAULT_DROP_SHARE = 1, FAULT_COMBINE_TWICE = 2, FAULT_X_ORDER = 3, FAULT_ROW_SCALE = 4;
+constexpr int FAULT_STALE_SMALL = 5;                 // K9: phase 2 does not wait for phase 1's strips
+constexpr int FAULT_ONE_STRIP = 6;                   // K9: phase 2's statistics from strip 0's squares alone
 constexpr int CONSUMER_BAR = 1;                       // named barrier of the consumer threads
 
 // ops/gemv_plan.py:PLAN_FIELDS, in that order
@@ -892,6 +898,395 @@ qgemv_tc_kernel(const __grid_constant__ CUtensorMap wmap, const TcPlan p, const 
   }
 }
 
+// ------------------------------------------------------------ K9: the pair
+//
+// small = glue(x) W1 s1 + residual (glue: none or SiLU-GLU), then big =
+// bf16((small * rstd) * gamma) W2 s2, rstd = rsqrt(mean(small^2) + eps) per
+// row, in one launch (supir_tpu/ops/quantize.py:_qmm_pair_kernel :398,
+// pallas_call :502). Two paired plans over one grid (ops/gemv_plan.py:
+// tc_pair_plan): each block walks its phase-1 tiles, then its phase-2
+// tiles, through one ring, and the producer issues W2's first boxes right
+// after its last W1 box: W2 does not depend on `small`, so the weight stream
+// runs on through the phase boundary while the consumers finish phase 1.
+// Only the consumers wait, and only before staging phase 2's x': a phase-1
+// strip is final when its tile's block stores it (one slice) or its
+// last-slice owner has combined it; that block writes the strip's per-row
+// sum of squares (strip_ssq) and counts it in on a device counter (a
+// release). Every block then waits (an acquire) until all phase-1 strips are
+// counted in, which needs every block resident: the launch is cooperative
+// and is refused, never split in two, when the grid does not fit. The
+// strips' sums are added in a fixed order, so every block takes the same
+// rstd without an atomic on a value, and x' is staged from `small` in fp32
+// (read through L2: other blocks wrote it in this launch) and rounded to
+// bf16 once, the TPU kernel's precision. Both phases' partial sums share
+// the scratch: a block writes phase-2 partials only after the wait, so
+// after every phase-1 combine has read its own. The last block through
+// zeroes the phase counter; every launch leaves the counters zero.
+
+// sum of squares of columns [s * 128, s * 128 + 128) of `small`'s rows
+// (those below ncols), by the consumer threads after a consumer_sync that
+// orders the strip's stores: each warp's 32 columns of one row by the
+// butterfly, the strip's four warps in order, into ssq[s * rows + row]
+template <int CONSUMERS>
+__device__ __forceinline__ void strip_ssq(const float* small, int rows, int cout, int ncols, int s, float* red,
+                                          float* ssq) {
+  const int tid = threadIdx.x, lane = tid % 32;
+  for (int e0 = 0; e0 < rows * TC_STRIP; e0 += 32 * CONSUMERS) {
+    const int e = e0 + tid;                          // whole warps are in or out: rows * 128 % 32 == 0
+    if (e < rows * TC_STRIP) {
+      const int c = s * TC_STRIP + e % TC_STRIP;
+      float q = 0.f;
+      if (c < ncols) {
+        const float v = __ldcg(small + (size_t)(e / TC_STRIP) * cout + c);
+        q = v * v;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
+      if (lane == 0) red[e / 32] = q;                // red[4 row + warp of the strip]
+    }
+  }
+  consumer_sync<CONSUMERS>();
+  if (tid < rows) ssq[s * rows + tid] = ((red[4 * tid] + red[4 * tid + 1]) + red[4 * tid + 2]) + red[4 * tid + 3];
+  consumer_sync<CONSUMERS>();                        // red is free again
+}
+
+// Stage phase 2's x' = bf16((small * rstd) * gamma) for chunks [ja, jb):
+// small fp32 [rows, cin] (cin = cout1, a multiple of 16: a step is whole or
+// past the edge), read through L2
+template <int CONSUMERS>
+__device__ void stage_small(uint32_t* xw, const TcPlan& p, const float* small, const float* gamma, const float* rstd,
+                            int ja, int jb, int fault) {
+  const int steps = (jb - ja) * 8;
+#pragma unroll 2
+  for (int st = threadIdx.x; st < steps; st += 32 * CONSUMERS) {
+    const int k0 = (ja * 8 + st) * 16;
+    float gm[16];
+    gamma16(gm, gamma, k0, p.cin, PRO_NORM);
+#pragma unroll 2
+    for (int n = 0; n < p.rows; ++n) {
+      float v[16];
+      if (k0 < p.cin) {
+        const float4* sr = reinterpret_cast<const float4*>(small + (size_t)n * p.cin + k0);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 f = __ldcg(sr + q);
+          v[4 * q] = f.x, v[4 * q + 1] = f.y, v[4 * q + 2] = f.z, v[4 * q + 3] = f.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 16; ++i) v[i] = (v[i] * rstd[n]) * gm[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) v[i] = 0.f;
+      }
+      uint32_t w[8];
+      if (fault == FAULT_X_ORDER) step_words<MODE_PAIRED, FAULT_X_ORDER>(w, v);
+      else step_words<MODE_PAIRED, 0>(w, v);
+      uint4* dst = reinterpret_cast<uint4*>(xw + n * p.xrs + st * 8);
+      dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+      dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+    }
+  }
+}
+
+struct PairArgs {
+  const qgemv::bf16* x; int ldx; int pro1;           // phase 1's prologue: PRO_NONE or PRO_SILUGLU
+  const float* scale1; const float* residual; float* small;
+  const float* small_in;                             // what phase 2 reads: small (a stale buffer under FAULT_STALE_SMALL)
+  const float* gamma; float eps; int norm_cols;
+  const float* scale2; float* big;
+  float* part; int* counters; float* ssq; int fault;
+};
+
+// the producer's boxes of one phase: the block's tiles of plan p, from
+// ring position n on; in phase 1 the first EARLY stages go out at entry,
+// the rest once x' is staged
+template <int PHASE>
+__device__ __forceinline__ void pair_produce(const TcPlan& p, const CUtensorMap* map, int& n, uint32_t base,
+                                             uint32_t full, uint32_t empty, uint32_t go) {
+  using M = TcMode<MODE_PAIRED>;
+  for (int t = blockIdx.x; t < p.tiles; t += p.grid) {
+    const int s = t % p.strips, sl = t / p.strips;
+    for (int j = sl * p.chunks / p.slices; j < (sl + 1) * p.chunks / p.slices; ++j, ++n) {
+      if (PHASE == 0 && n == TC_EARLY_STAGES) mbar_wait(go, 0);
+      const int st = n % M::STAGES;
+      mbar_wait(empty + 8 * st, ((n / M::STAGES) & 1) ^ 1);
+      mbar_expect_tx(full + 8 * st, M::STAGE_BYTES);
+      tma_load_2d(base + st * M::STAGE_BYTES, map, full + 8 * st, s * M::BOX_BYTES, j * M::BOX_ROWS);
+    }
+  }
+}
+
+// The consumers' tiles of one phase (qgemv_tc_kernel's tile loop on the
+// paired layout): phase 1 stages glue(x), phase 2 x' from small; a tile of
+// a one-slice strip stores its outputs (phase 1: + residual, then its
+// strip's sums of squares), else leaves its partial. Returns the phase-1
+// strips this block made final.
+template <int NT, int PHASE>
+__device__ __forceinline__ int pair_tiles(const TcPlan& p, const PairArgs& a, unsigned char* smem, uint32_t* xw,
+                                          float* red, const float* rstd, int* tiles_done, uint32_t full,
+                                          uint32_t empty, uint32_t go, const int (&aoff)[4], unsigned live, int& n,
+                                          int& ti) {
+  using M = TcMode<MODE_PAIRED>;
+  constexpr int CONSUMERS = TcWarps<NT>::CONSUMERS, PARTS = TcWarps<NT>::PARTS, SETS = TcSets<MODE_PAIRED, NT>::SETS;
+  const int blk = blockIdx.x, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3, group = warp % TC_GROUPS, part = warp / TC_GROUPS;
+  const uint32_t* xlane = xw + g * p.xrs + 2 * t4;
+  int made = 0, xa = 0, xb = 0;
+  for (int t = blk; t < p.tiles; t += p.grid) {
+    const int s = t % p.strips, sl = t / p.strips;
+    float sets[SETS][NT][2][4];
+#pragma unroll
+    for (int q = 0; q < SETS; ++q)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) sets[q][nt][f][r] = 0.f;
+    for (int j = sl * p.chunks / p.slices; j < (sl + 1) * p.chunks / p.slices; ++j, ++n) {
+      if (j < xa || j >= xb) {
+        xa = j;
+        xb = min(p.chunks, j + p.wch);
+        consumer_sync<CONSUMERS>();
+        if (PHASE == 0)
+          stage_x<MODE_PAIRED, CONSUMERS>(xw, p, a.x, a.ldx, a.pro1, nullptr, nullptr, xa, xb, a.fault);
+        else
+          stage_small<CONSUMERS>(xw, p, a.small_in, a.gamma, rstd, xa, xb, a.fault);
+        consumer_sync<CONSUMERS>();
+        if (PHASE == 0 && n == 0 && tid == 0) mbar_arrive(go);
+      }
+      const int st = n % M::STAGES;
+      mbar_wait(full + 8 * st, (n / M::STAGES) & 1);
+      if (!(a.fault == FAULT_DROP_SHARE && blk == 0))
+        chunk_products<MODE_PAIRED, NT>(sets, smem + st * M::STAGE_BYTES, xlane + M::XWORDS * (j - xa), p.xrs, live,
+                                        aoff, part);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+    }
+    float acc[NT][2][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int f = 0; f < 2; ++f)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float v = sets[0][nt][f][r];
+#pragma unroll
+          for (int q = 1; q < SETS; ++q) v += sets[q][nt][f][r];
+          acc[nt][f][r] = v;
+        }
+    float* mine = red + group * 32 + lane;
+    if (part > 0) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) mine[128 * (((nt * 2 + f) * 4 + r) * (PARTS - 1) + part - 1)] = acc[nt][f][r];
+    }
+    consumer_sync<CONSUMERS>();
+    if (part == 0) {
+      float* dst = a.part + (size_t)t * p.rows * TC_STRIP;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int row = 8 * nt + 2 * t4 + (r & 1);
+            const int col = 32 * group + 4 * g + 2 * f + (r >> 1);
+            const int c = s * TC_STRIP + col;
+            float v = acc[nt][f][r];
+#pragma unroll
+            for (int q = 1; q < PARTS; ++q) v += mine[128 * (((nt * 2 + f) * 4 + r) * (PARTS - 1) + q - 1)];
+            if (row < p.rows) {
+              if (p.slices > 1) dst[row * TC_STRIP + col] = v;
+              else if (c < p.cout) {
+                const size_t i = (size_t)row * p.cout + c;
+                if (PHASE == 0) a.small[i] = v * a.scale1[c] + a.residual[i];
+                else a.big[i] = v * a.scale2[c];
+              }
+            }
+          }
+    }
+    consumer_sync<CONSUMERS>();                                 // red is free; the partial is written
+    if (PHASE == 0 && p.slices == 1) {
+      strip_ssq<CONSUMERS>(a.small, p.rows, p.cout, a.norm_cols, s, red, a.ssq);
+      ++made;
+    }
+    ++ti;
+    if (tid == 0) store_release_cta(tiles_done, ti);            // the signal warp counts the tile in
+  }
+  return made;
+}
+
+// The strips of one phase whose last slice this block took: wait until the
+// other slices are counted in, sum the partials in slice order, apply the
+// epilogue (phase 1: * scale1 + residual, then the strip's sums of squares;
+// phase 2: * scale2). Returns the phase-1 strips it made final.
+template <int CONSUMERS, int PHASE>
+__device__ __forceinline__ int pair_combine(const TcPlan& p, const PairArgs& a, int* counters, float* red) {
+  const int tid = threadIdx.x;
+  int made = 0;
+  if (p.slices == 1) return 0;
+  for (int t = blockIdx.x; t < p.tiles; t += p.grid) {
+    if (t / p.strips != p.slices - 1) continue;
+    const int s = t % p.strips;
+    if (tid == 0)
+      while (load_acquire(counters + s) < p.slices - 1) {
+      }
+    consumer_sync<CONSUMERS>();
+    for (int e = tid; e < p.rows * TC_STRIP; e += 32 * CONSUMERS) {
+      const int row = e / TC_STRIP, col = e % TC_STRIP;
+      const int c = s * TC_STRIP + col;
+      if (c >= p.cout) continue;
+      float v = 0.f;
+#pragma unroll 8
+      for (int q = 0; q < p.slices; ++q)
+        v += __ldcg(a.part + ((size_t)(q * p.strips + s) * p.rows + row) * TC_STRIP + col);
+      const size_t i = (size_t)row * p.cout + c;
+      if (PHASE == 0) {
+        if (a.fault == FAULT_COMBINE_TWICE) v += v;
+        a.small[i] = v * a.scale1[c] + a.residual[i];
+      } else {
+        a.big[i] = v * a.scale2[c];
+      }
+    }
+    if (tid == 0) counters[s] = 0;                   // ready for the next launch
+    if (PHASE == 0) {
+      consumer_sync<CONSUMERS>();                    // the strip's stores, before its sums of squares
+      strip_ssq<CONSUMERS>(a.small, p.rows, p.cout, a.norm_cols, s, red, a.ssq);
+      ++made;
+    }
+  }
+  return made;
+}
+
+__device__ __forceinline__ void count_add(int* counter, int v) {
+  asm volatile("red.relaxed.gpu.global.add.s32 [%0], %1;\n" ::"l"(counter), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ int atomic_add_acq_rel(int* counter, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n" : "=r"(old) : "l"(counter), "r"(v) : "memory");
+  return old;
+}
+
+template <int NT>
+__global__ void __launch_bounds__(TcWarps<NT>::THREADS, 1)
+qpair_tc_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant__ CUtensorMap map2, const TcPlan p1,
+                const TcPlan p2, const PairArgs a) {
+  using M = TcMode<MODE_PAIRED>;
+  constexpr int CONSUMERS = TcWarps<NT>::CONSUMERS;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  // ring | x' window (the larger phase's) | the step halves' sums | rstd |
+  // finished tiles | barriers (ops/gemv_plan.py:tc_pair_plan's smem)
+  uint32_t* xw = reinterpret_cast<uint32_t*>(smem + M::RING);
+  float* red = reinterpret_cast<float*>(smem + M::RING + ((4 * p1.rows * max(p1.xrs, p2.xrs) + 15) & ~15));
+  float* rstd = red + TC_RED_FLOATS;
+  int* tiles_done = reinterpret_cast<int*>(rstd + TC_MAX_ROWS);
+  const uint32_t full = smem_u32(tiles_done + 4);
+  const uint32_t empty = full + 8 * M::STAGES;
+  const uint32_t go = empty + 8 * M::STAGES;
+  int* counters1 = a.counters;
+  int* counters2 = a.counters + p1.strips;
+  int* done1 = counters2 + p2.strips;                // phase-1 strips counted in
+  int* through = done1 + 1;                          // blocks at their end
+
+  const int blk = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    *tiles_done = 0;
+    for (int s = 0; s < M::STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    mbar_init(go, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS) {
+    // producer: phase 1's boxes, then phase 2's, without a pause between
+    if (lane == 0) {
+      int n = 0;
+      pair_produce<0>(p1, &map1, n, base, full, empty, go);
+      pair_produce<1>(p2, &map2, n, base, full, empty, go);
+    }
+    return;
+  }
+  if (warp == CONSUMERS + 1) {
+    // signal warp: counts each finished tile but a last slice's in on its
+    // phase's strip counter, as qgemv_tc_kernel's
+    if (lane == 0 && (p1.slices > 1 || p2.slices > 1)) {
+      const int mine1 = blk < p1.grid ? (p1.tiles - 1 - blk) / p1.grid + 1 : 0;
+      const int mine = mine1 + (blk < p2.grid ? (p2.tiles - 1 - blk) / p2.grid + 1 : 0);
+      for (int sent = 0; sent < mine;) {
+        int done;
+        while ((done = load_acquire_cta(tiles_done)) == sent) {
+        }
+        fence_gpu();
+        for (; sent < done; ++sent) {
+          if (sent < mine1) {
+            const int t = blk + sent * p1.grid;
+            if (t / p1.strips < p1.slices - 1) count_in(counters1 + t % p1.strips);
+          } else {
+            const int t = blk + (sent - mine1) * p2.grid;
+            if (t / p2.strips < p2.slices - 1) count_in(counters2 + t % p2.strips);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x;
+  int aoff[4];
+  stage_offsets<MODE_PAIRED>(aoff, warp % TC_GROUPS, lane >> 2, lane & 3);
+  unsigned live = 0;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) live |= (8 * nt + (lane >> 2) < p1.rows ? 1u : 0u) << nt;
+  int n = 0, ti = 0;
+
+  int made = pair_tiles<NT, 0>(p1, a, smem, xw, red, rstd, tiles_done, full, empty, go, aoff, live, n, ti);
+  made += pair_combine<CONSUMERS, 0>(p1, a, counters1, red);
+  // release the strips this block made final (their stores and sums of
+  // squares, ordered before by the consumer_sync at strip_ssq's end)
+  if (tid == 0 && made > 0) {
+    fence_gpu();
+    count_add(done1, made);
+  }
+  if (a.fault != FAULT_STALE_SMALL && tid == 0)
+    while (load_acquire(done1) < p1.strips) {
+    }
+  consumer_sync<CONSUMERS>();
+  // rstd of each row: warp w takes rows w, w + CONSUMERS, ...; lane l sums
+  // strips l, l + 32, ... in order, the butterfly sums the lanes: the same
+  // bits in every block
+  const int stats_strips = a.fault == FAULT_ONE_STRIP ? 1 : p1.strips;
+  for (int row = warp; row < p1.rows; row += CONSUMERS) {
+    float ss = 0.f;
+    for (int k = lane; k < stats_strips; k += 32) ss += __ldcg(a.ssq + k * p1.rows + row);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if (lane == 0) rstd[row] = rsqrtf(ss / (float)a.norm_cols + a.eps);
+  }
+  // (the first phase-2 staging's consumer_sync publishes rstd)
+  pair_tiles<NT, 1>(p2, a, smem, xw, red, rstd, tiles_done, full, empty, go, aoff, live, n, ti);
+  pair_combine<CONSUMERS, 1>(p2, a, counters2, red);
+  // the last block through zeroes the phase counter for the next launch:
+  // every block has passed its wait, and the acq_rel chain orders every
+  // count before the reset
+  consumer_sync<CONSUMERS>();
+  if (tid == 0 && atomic_add_acq_rel(through, 1) == (int)gridDim.x - 1) {
+    *done1 = 0;
+    *through = 0;
+  }
+}
+
 // ------------------------------------------------------------------ host
 
 template <int MODE, int NT>
@@ -928,6 +1323,36 @@ cudaError_t launch_nt(const CUtensorMap& map, const TcPlan& p, const void* x, in
       return launch<MODE, 4>(map, p, x, ldx, xs, gamma, eps, pro, scale, residual, out, part, counters, fault, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// K9: one cooperative launch (cudaLaunchKernelExC with the cooperative
+// attribute, which stream capture records as a cooperative graph node), so
+// that the launch is refused rather than run when the grid cannot be
+// resident at once
+template <int NT>
+cudaError_t launch_pair(const CUtensorMap& m1, const CUtensorMap& m2, const TcPlan& p1, const TcPlan& p2, int grid,
+                        int smem, const PairArgs& a, cudaStream_t stream) {
+  static int attr_bytes = 0;
+  if (smem > attr_bytes) {
+    const cudaError_t err = cudaFuncSetAttribute(qpair_tc_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 smem);
+    if (err != cudaSuccess) return err;
+    attr_bytes = smem;
+  }
+  cudaLaunchAttribute coop[1];
+  coop[0].id = cudaLaunchAttributeCooperative;
+  coop[0].val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(grid);
+  config.blockDim = dim3(TcWarps<NT>::THREADS);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = coop;
+  config.numAttrs = 1;
+  void* args[] = {const_cast<CUtensorMap*>(&m1), const_cast<CUtensorMap*>(&m2), const_cast<TcPlan*>(&p1),
+                  const_cast<TcPlan*>(&p2), const_cast<PairArgs*>(&a)};
+  const cudaError_t err = cudaLaunchKernelExC(&config, reinterpret_cast<const void*>(qpair_tc_kernel<NT>), args);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
@@ -1006,5 +1431,46 @@ extern "C" int supir_qgemv_tc(const void* map, const int* plan, int mode, const 
     return (int)launch_nt<MODE_INT8>(m, p, x, ldx, nullptr, gm, eps, prologue, sc, rs, o, pt, ct, fault, s);
   if (mode == MODE_NATIVE && p.box_rows == TcMode<MODE_NATIVE>::BOX_ROWS)
     return (int)launch_nt<MODE_NATIVE>(m, p, x, ldx, nullptr, gm, eps, prologue, sc, rs, o, pt, ct, fault, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// supir_qpair_tc (K9): maps from supir_qgemv_tc_map for w1 (paired uint8
+// [cin1/2, cout1]) and w2 (paired uint8 [cout1/2, cout2]); plan:
+// ops/gemv_plan.py:PairPlan.packed (both plans' PLAN_FIELDS, then grid and
+// smem); x bf16 [rows, >= cin1] (>= 2 cin1 with siluglu1), row stride ldx,
+// 16-byte aligned rows; scale1 fp32 [cout1], residual fp32 [rows, cout1],
+// small fp32 [rows, cout1] out; small_in: small, or for FAULT_STALE_SMALL a
+// buffer phase 2 reads instead; gamma fp32 [cout1], 16-byte aligned; 0 <
+// norm_cols <= cout1 (cout1 but for planted faults); scale2 fp32 [cout2];
+// big fp32 [rows, cout2] out; part: the partial-sum scratch; counters int32
+// [strips1 + strips2 + 2], zero, and zero again when the launch ends; ssq
+// fp32 [strips1 x rows] scratch. Returns the launch's cudaError_t
+// (cudaErrorCooperativeLaunchTooLarge when the grid cannot be resident).
+extern "C" int supir_qpair_tc(const void* map1, const void* map2, const int* plan, const void* x, int ldx,
+                              int siluglu1, const void* scale1, const void* residual, void* small,
+                              const void* small_in, const void* gamma, float eps, int norm_cols, const void* scale2,
+                              void* big, void* part, void* counters, void* ssq, int fault, void* stream) {
+  alignas(64) CUtensorMap m1, m2;
+  memcpy(&m1, map1, sizeof(m1));
+  memcpy(&m2, map2, sizeof(m2));
+  TcPlan p1, p2;
+  memcpy(&p1, plan, sizeof(p1));
+  memcpy(&p2, plan + sizeof(TcPlan) / sizeof(int), sizeof(p2));
+  const int grid = plan[2 * sizeof(TcPlan) / sizeof(int)], smem = plan[2 * sizeof(TcPlan) / sizeof(int) + 1];
+  if (p1.rows <= 0 || p1.rows > TC_MAX_ROWS || p2.rows != p1.rows || p2.cin != p1.cout || p1.cout % 16 ||
+      p2.cout % 16 || p1.cin % 8 || ldx % 8 || p1.wcols != p1.cout || p2.wcols != p2.cout ||
+      p1.box_rows != TcMode<MODE_PAIRED>::BOX_ROWS || p2.box_rows != TcMode<MODE_PAIRED>::BOX_ROWS ||
+      grid < p1.grid || grid < p2.grid || norm_cols <= 0 || norm_cols > p1.cout)
+    return (int)cudaErrorInvalidValue;
+  if (residual == nullptr || gamma == nullptr || small_in == nullptr) return (int)cudaErrorInvalidValue;
+  const PairArgs a{static_cast<const qgemv::bf16*>(x), ldx, siluglu1 ? PRO_SILUGLU : PRO_NONE,
+                   static_cast<const float*>(scale1), static_cast<const float*>(residual), static_cast<float*>(small),
+                   static_cast<const float*>(small_in), static_cast<const float*>(gamma), eps, norm_cols,
+                   static_cast<const float*>(scale2), static_cast<float*>(big), static_cast<float*>(part),
+                   static_cast<int*>(counters), static_cast<float*>(ssq), fault};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p1.nt == 1) return (int)launch_pair<1>(m1, m2, p1, p2, grid, smem, a, s);
+  if (p1.nt == 2) return (int)launch_pair<2>(m1, m2, p1, p2, grid, smem, a, s);
+  if (p1.nt == 4) return (int)launch_pair<4>(m1, m2, p1, p2, grid, smem, a, s);
   return (int)cudaErrorInvalidValue;
 }

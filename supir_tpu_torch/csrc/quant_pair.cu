@@ -1,5 +1,10 @@
 // K9: two chained paired-int4 decode GEMVs in one cooperative launch, for
-// Hopper (sm_90a).
+// Hopper (sm_90a), on the strip body of quant_gemv.cuh. K9 runs on the
+// tensor-core body (quant_gemv_tc.cu: qpair_tc_kernel) wherever
+// ops/gemv_plan.py:tc_pair_eligible holds, which every 13B pair meets; this
+// kernel serves the calls that body refuses (a cout that is not a multiple
+// of 16, unaligned weights or rows) and, as ops/quantize.py:strip_body_pair,
+// comparisons with it on one card.
 //
 // Replaces, in supir_tpu/ops/quantize.py, _qmm_pair_kernel (:398,
 // pallas_call :502, int4_paired_fused_pair :461):

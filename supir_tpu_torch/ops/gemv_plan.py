@@ -68,6 +68,19 @@ fp32, takes each row's absmax and quantizes as it stages. The scales are
 applied once per output, in each function's order: K10 (acc * scale) *
 (xs / 127), K5 (acc * (xs / 127)) * scale (+ residual). A W4A8 launch takes
 at most TC_W4A8_ROWS rows.
+
+K9 (`PairPlan`): two paired plans over one grid, small = glue(x) W1 s1 +
+residual, then big = bf16(RMSNorm(small) gamma) W2 s2. Each block walks
+its phase-1 tiles, then its phase-2 tiles, on one ring: the producer runs
+on into W2's boxes, which do not depend on `small`. A phase-1 strip is
+final when its tile's block stores it (one slice) or its last-slice owner
+combines it; that block then writes the strip's per-row sum of squares of
+`small` and counts the strip in on a device counter (release). Before any
+phase-2 staging every block waits until all phase-1 strips are counted in
+(acquire), sums the strips' squares in a fixed order, so that every block
+takes the same rstd, and stages x' from `small` in fp32. `pair_schedule`
+runs the blocks' programs under those counters, `tc_emulate_pair` the
+arithmetic.
 """
 
 from __future__ import annotations
@@ -91,9 +104,14 @@ TC_XS_BYTES = 57344                         # staged-x' budget
 TC_MAX_STRIPS = 4096                        # the per-strip counters a device keeps
 TC_PART_BYTES = 16 * 2 ** 20                # the partial-sum scratch a device keeps
 TC_RED_BYTES = TC_WARPS * 32 * 32 * 4       # the step halves' sums: 32 lanes x up to 32 floats a group
-# csrc/quant_gemv_tc.cu's planted faults (tests and chip_smoke only); the
-# last is W4A8's: the row scale applied twice
-FAULT_DROP_SHARE, FAULT_COMBINE_TWICE, FAULT_X_ORDER, FAULT_ROW_SCALE = 1, 2, 3, 4
+# csrc/quant_gemv_tc.cu's planted faults (tests and chip_smoke only); then
+# W4A8's: the row scale applied twice; and K9's: phase 2 does not wait for
+# phase 1's strips (it reads `small` as it stood at launch), phase 2's
+# statistics from the first strip's sums of squares alone; (K9) the combine
+# run twice is phase 1's
+FAULT_DROP_SHARE, FAULT_COMBINE_TWICE, FAULT_X_ORDER, FAULT_ROW_SCALE, FAULT_STALE_SMALL = 1, 2, 3, 4, 5
+FAULT_ONE_STRIP = 6
+PAIR_COUNTERS = 2   # after the two phases' strip counters: the phase-1 strips counted in, the blocks through
 # wcols last: only the C entry reads it, and the fields the kernel reads keep
 # their offsets (moving them reschedules the kernel's code)
 PLAN_FIELDS = ("rows", "cin", "cout", "wrows", "strips", "chunks", "slices", "tiles", "grid", "wch", "xrs",
@@ -242,12 +260,62 @@ def tc_plan(mode: str, rows: int, cin: int, cout: int, sms: int) -> TcPlan:
     wch = max(1, min(chunks, (TC_XS_BYTES // (4 * rows) - 8) // words))
     xrs = words * wch + 8
     stages = TC_STAGES[mode]
-    # ring | x' window | the step halves' sums | rstd (W4A8: and the rows' 127 / xs and xs / 127) |
-    # finished tiles | barriers (+ go) | alignment slack
-    smem = (stages * stage_bytes + -(-4 * rows * xrs // 16) * 16 + TC_RED_BYTES
-            + 4 * TC_MAX_ROWS * (3 if mode == "w4a8" else 1) + 16 + 16 * stages + 8 + 1024)
+    smem = _smem(stages * stage_bytes, 4 * rows * xrs, 3 if mode == "w4a8" else 1, stages)
     return TcPlan(mode, rows, cin, cout, wrows, wcols, strips, chunks, slices, tiles, grid, wch, xrs, smem, nt, stages,
                   box_rows)
+
+
+def _smem(ring: int, window: int, row_floats: int, stages: int) -> int:
+    """Dynamic shared memory: ring | x' window | the step halves' sums |
+    rstd (W4A8: and the rows' 127 / xs and xs / 127) | finished tiles |
+    barriers (+ go) | alignment slack."""
+    return ring + -(-window // 16) * 16 + TC_RED_BYTES + 4 * TC_MAX_ROWS * row_floats + 16 + 16 * stages + 8 + 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class PairPlan:
+    """K9's launch: two paired plans walked by one grid of `grid` blocks,
+    one per SM (a cooperative launch, so that every block is resident
+    while the others wait for phase 1's strips)."""
+    first: TcPlan       # glue(x) [rows, cin1] @ W1 -> small [rows, cout1]
+    second: TcPlan      # x' [rows, cout1] @ W2 -> big [rows, cout2]
+    grid: int
+    smem: int           # the ring, the larger phase's x' window, the rest as tc_plan's
+
+    def packed(self):
+        return _pair_packed(self)
+
+
+@functools.lru_cache(maxsize=256)
+def _pair_packed(plan: PairPlan):
+    fields = [getattr(p, f) for p in (plan.first, plan.second) for f in PLAN_FIELDS] + [plan.grid, plan.smem]
+    return (ctypes.c_int * len(fields))(*fields)
+
+
+def tc_pair_eligible(rows: int, cin1: int, cout1: int, cout2: int, w1_ptr: int, w2_ptr: int, x_ptr: int,
+                     ldx: int) -> bool:
+    """Whether K9 runs on the tensor-core body: both weights as
+    `tc_eligible("paired", ...)` takes them (`small` is the wrapper's own,
+    16-byte aligned, rows cout1 floats apart), at most TC_MAX_ROWS rows, and
+    room for both phases' strip counters."""
+    return (1 <= rows <= TC_MAX_ROWS and tc_eligible("paired", cin1, cout1, w1_ptr, x_ptr, ldx)
+            and tc_eligible("paired", cout1, cout2, w2_ptr, 0, cout1)
+            and -(-cout1 // TC_STRIP) + -(-cout2 // TC_STRIP) + PAIR_COUNTERS <= TC_MAX_STRIPS)
+
+
+@functools.lru_cache(maxsize=256)
+def tc_pair_plan(rows: int, cin1: int, cout1: int, cout2: int, sms: int) -> PairPlan:
+    """K9's plan on a card of `sms` SMs: each phase as K5 would launch it
+    (its slices cut for the whole grid). Both phases' partial sums share the
+    device's scratch: phase 2 writes its first partial only after every
+    phase-1 combine has read its own."""
+    first = tc_plan("paired", rows, cin1, cout1, sms)
+    second = tc_plan("paired", rows, cout1, cout2, sms)
+    if first.strips + second.strips + PAIR_COUNTERS > TC_MAX_STRIPS:
+        raise ValueError(f"K9 at cout1 {cout1}, cout2 {cout2} needs more than {TC_MAX_STRIPS} strip counters")
+    window = 4 * rows * max(first.xrs, second.xrs)
+    smem = _smem(first.stages * first.box_rows * first.box_bytes, window, 1, first.stages)
+    return PairPlan(first, second, max(first.grid, second.grid), smem)
 
 
 def chunk_words(mode: str) -> int:
@@ -345,8 +413,9 @@ def c_column(warp: int, g: int, frag: int, reg: int) -> int:
 # ------------------------------------------------------- torch emulation
 
 
-def _prologue_bf16(x, cin, gamma, eps, prologue):
-    """x' as the kernel stages it: fp32 prologue rounded to bf16, as float."""
+def _prologue_bf16(x, cin, gamma, eps, prologue, dtype=torch.bfloat16):
+    """x' as the kernel stages it: fp32 prologue rounded to bf16 (or to
+    `dtype`), as float."""
     xf = x.float()
     if prologue == 1:
         rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
@@ -354,7 +423,7 @@ def _prologue_bf16(x, cin, gamma, eps, prologue):
     elif prologue == 2:
         a = xf[:, :cin]
         xf = (a * torch.sigmoid(a)) * xf[:, cin:2 * cin]
-    return xf[:, :cin].to(torch.bfloat16).float()
+    return xf[:, :cin].to(dtype).float()
 
 
 def step_values(mode: str, xp, chunks: int) -> torch.Tensor:
@@ -419,7 +488,7 @@ def _fragment_maps(mode: str):
 
 
 def tc_emulate(plan: TcPlan, x, w, scale, gamma=None, eps: float = 1e-6, prologue: int = 0, residual=None,
-               fault: int = 0, xs=None) -> torch.Tensor:
+               fault: int = 0, xs=None, stage_dtype=torch.bfloat16) -> torch.Tensor:
     """The kernel's arithmetic on the CPU, walking `plan`: per block its
     tiles; per chunk of a tile each warp's steps as products of the A
     fragments decoded from a TMA-swizzled stage image and the B fragments
@@ -432,7 +501,9 @@ def tc_emulate(plan: TcPlan, x, w, scale, gamma=None, eps: float = 1e-6, prologu
     with its row scales `xs` [B, 1] (K10), or, without xs, x in bf16 or fp32
     through K5's fp32 prologue and the plain per-row quantizer (K5's
     act_int8 mode; the card takes the prologue's statistics in another
-    order). `fault` plants csrc/quant_gemv_tc.cu's faults."""
+    order). `fault` plants csrc/quant_gemv_tc.cu's faults. x' is staged
+    in bf16 as the kernel stages it, or in `stage_dtype`: fp32 walks the
+    same plan at the fp32 plain versions' precision."""
     mode, B, cin, cout = plan.mode, plan.rows, plan.cin, plan.cout
     w4a8 = mode == "w4a8"
     offs, nib, bpos, bhalf = _fragment_maps(mode)
@@ -447,7 +518,7 @@ def tc_emulate(plan: TcPlan, x, w, scale, gamma=None, eps: float = 1e-6, prologu
             x, xs = quantize_act_int8(_prologue(x, cin, gamma, eps, prologue == 2))
         xp = x.to(torch.int64)                                               # [B, cin]
     else:
-        xp = _prologue_bf16(x, cin, gamma, eps, prologue)                   # [B, cin]
+        xp = _prologue_bf16(x, cin, gamma, eps, prologue, stage_dtype)      # [B, cin]
     # staged words: word position pos of step holds values x_word_k(pos) of the step
     src = torch.tensor([x_word_k(mode, pos, fault) for pos in range(8)])   # [8, per]
     staged = step_values(mode, xp, plan.chunks)[:, :, src]                  # [B, steps, 8, per]
@@ -510,3 +581,132 @@ def tc_emulate(plan: TcPlan, x, w, scale, gamma=None, eps: float = 1e-6, prologu
     if residual is not None:
         out = out + residual.float()
     return out
+
+
+# ---------------------------------------------------------------- K9's pair
+
+
+def pair_schedule(plan: PairPlan, fault: int = 0):
+    """Run the consumers' programs of K9's blocks, one step of each ready
+    block per round, under the counters that order them, as the kernel
+    does: phase-1 tiles (each but a last slice counted in on its strip), the
+    block's phase-1 combines (each waiting for its strip's other slices),
+    one release of the strips it made final, the wait for every phase-1
+    strip (FAULT_STALE_SMALL leaves it out), then phase 2's tiles and
+    combines. A block knows the strips it made final itself and, once it
+    has waited, every strip released before. Returns the events in the
+    order they ran, (block, what, strip or tile), and whether every phase-2
+    staging knew every phase-1 strip final: only then does it read
+    `small` as phase 1 left it. Raises if the programs cannot end."""
+    first, second = plan.first, plan.second
+    progs = []
+    for b in range(plan.grid):
+        ops = [("tile1", t) for t in first.tiles_of(b)]
+        if first.slices > 1:
+            ops += [("combine1", t) for t in first.tiles_of(b) if first.tile(t)[1] == first.slices - 1]
+        ops.append(("release", None))
+        if fault != FAULT_STALE_SMALL:
+            ops.append(("wait", None))
+        for t in second.tiles_of(b):
+            ops += [("stage2", t), ("tile2", t)]
+        if second.slices > 1:
+            ops += [("combine2", t) for t in second.tiles_of(b) if second.tile(t)[1] == second.slices - 1]
+        progs.append(ops)
+    counts = {1: [0] * first.strips, 2: [0] * second.strips}
+    final = [set() for _ in range(plan.grid)]      # strips this block made final, not yet released
+    known = [set() for _ in range(plan.grid)]      # phase-1 strips this block knows final
+    released = set()
+    pc = [0] * plan.grid
+    events, ordered = [], True
+    while any(pc[b] < len(progs[b]) for b in range(plan.grid)):
+        moved = False
+        for b in range(plan.grid):
+            if pc[b] == len(progs[b]):
+                continue
+            what, t = progs[b][pc[b]]
+            phase_plan = first if what.endswith("1") else second
+            if what in ("combine1", "combine2"):
+                s = phase_plan.tile(t)[0]
+                if counts[int(what[-1])][s] < phase_plan.slices - 1:
+                    continue
+            if what == "wait" and len(released) < first.strips:
+                continue
+            pc[b] += 1
+            moved = True
+            if what in ("tile1", "tile2"):
+                s, p = phase_plan.tile(t)
+                if phase_plan.slices == 1 and what == "tile1":
+                    final[b].add(s)
+                    known[b].add(s)
+                elif p < phase_plan.slices - 1:
+                    counts[int(what[-1])][s] += 1
+            elif what == "combine1":
+                s = first.tile(t)[0]
+                final[b].add(s)
+                known[b].add(s)
+            elif what == "release":
+                released |= final[b]
+            elif what == "wait":
+                known[b] |= released
+            elif what == "stage2":
+                ordered &= len(known[b]) == first.strips
+            events.append((b, what, t))
+        if not moved:
+            raise RuntimeError(f"K9's blocks cannot all end: {[progs[b][pc[b]] for b in range(plan.grid) if pc[b] < len(progs[b])][:4]}")
+    return events, ordered
+
+
+def _xor_tree(v: torch.Tensor) -> torch.Tensor:
+    """A warp's butterfly sum over the last dimension (32 lanes), as
+    `__shfl_xor_sync` with offsets 16 .. 1 leaves it in every lane."""
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ o]
+    return v[..., 0]
+
+
+def pair_rstd(small: torch.Tensor, plan: PairPlan, norm_cols: int, eps: float, fault: int = 0) -> torch.Tensor:
+    """Each row's rsqrt(mean square + eps) of `small`'s first `norm_cols`
+    columns in the kernel's order: per phase-1 strip the squares of each
+    warp's 32 columns summed by the butterfly, the strip's four warps in
+    order (the strip's sum of squares, `strip_ssq`); then lane l sums strips
+    l, l + 32, ... in order (FAULT_ONE_STRIP: strip 0 alone) and the
+    butterfly sums the lanes. [rows, 1]."""
+    rows, cout1 = small.shape
+    strips = plan.first.strips
+    v = torch.zeros(rows, strips * TC_STRIP, dtype=torch.float32)
+    v[:, :min(cout1, norm_cols)] = small[:, :min(cout1, norm_cols)].float()
+    warp = _xor_tree((v * v).reshape(rows, strips, 4, 32))            # [rows, strips, 4]
+    ssq = ((warp[..., 0] + warp[..., 1]) + warp[..., 2]) + warp[..., 3]
+    lane = torch.zeros(rows, 32, dtype=torch.float32)
+    for s in range(1 if fault == FAULT_ONE_STRIP else strips):
+        lane[:, s % 32] += ssq[:, s]
+    total = _xor_tree(lane)
+    return torch.rsqrt(total / norm_cols + eps).reshape(rows, 1)
+
+
+def tc_emulate_pair(plan: PairPlan, x, w1, s1, residual, gamma, w2, s2, siluglu1: bool = False,
+                    eps: float = 1e-6, norm_cols: int | None = None, fault: int = 0):
+    """K9's arithmetic on the CPU: phase 1 as `tc_emulate` walks
+    `plan.first` (SiLU-GLU or no prologue, the residual), the strips'
+    statistics in the kernel's order (`pair_rstd`, over the first
+    `norm_cols` columns: all of cout1 but for planted faults), x' =
+    (small * rstd) * gamma rounded as staged, and phase 2 as `tc_emulate`
+    walks `plan.second`. Phase 2 reads `small` as phase 1 left it only if
+    `pair_schedule` orders every phase-2 staging after every phase-1 strip;
+    otherwise as it stood at launch (zeros, as the card's fault hook fills
+    it). x' is staged in x's dtype: bf16 as on the card, or fp32, where the
+    walk meets the fp32 plain version. `fault`: FAULT_DROP_SHARE and
+    FAULT_X_ORDER in both phases, FAULT_COMBINE_TWICE in phase 1,
+    FAULT_STALE_SMALL, FAULT_ONE_STRIP. Returns (small, big)."""
+    dtype = x.dtype if x.dtype in (torch.bfloat16, torch.float32) else torch.float32
+    cout1 = plan.first.cout
+    both = fault if fault in (FAULT_DROP_SHARE, FAULT_X_ORDER) else 0
+    small = tc_emulate(plan.first, x, w1, s1, None, eps, 2 if siluglu1 else 0, residual,
+                       fault=both or (fault if fault == FAULT_COMBINE_TWICE else 0), stage_dtype=dtype)
+    _, ordered = pair_schedule(plan, fault)
+    seen = small if ordered else torch.zeros_like(small)
+    rstd = pair_rstd(seen, plan, cout1 if norm_cols is None else norm_cols, eps, fault)
+    xp = ((seen * rstd) * gamma.float()).to(dtype).float()
+    big = tc_emulate(plan.second, xp, w2, s2, fault=both, stage_dtype=dtype)
+    return small, big

@@ -20,6 +20,7 @@ Kernels, each with its plain version beside it and a launch counter:
   K8 quantize_int8             (_quant_kernel :21)        absmax int8, stochastic rounding
   K9 int4_paired_fused_pair    (_qmm_pair_kernel :398)    two chained paired int4
      GEMVs in one launch: small = glue(x) W1 s1 + residual, big = RMSNorm(small) W2 s2
+     (on the tensor-core body: both phases' plans over one cooperative grid)
   K10 int4_w4a8_matmul         (_qmm_w4a8_kernel :191)    paired int4 weights x
      per-row int8 activations, exact int32 accumulation
   K11 int4_native_matmul       (_qmm_native_kernel :555)  GEMV against
@@ -31,12 +32,14 @@ W4A8 layout, `mma.sync` m16n8k32 s8 with exact int32 sums) where the call
 allows it at the default geometry (`gemv_plan.tc_eligible`: cin % 8 == 0
 (half-split 16), cout % 16 == 0 (native 32) and 16-byte aligned weights
 and activation rows, which every model shape meets), else the strip body
-of `csrc/quant_gemv.cu`. K8 is `csrc/quantize_int8.cu`, K9
-`csrc/quant_pair.cu`; their headers say what bounds them on the card and
-how they are laid out. The tensor-core body's weight tensor maps are
-encoded once per weight and cached here (`_tc_map`), and each device keeps
-one partial-sum scratch and one set of strip counters (`_tc_scratch`), so
-its launches must be ordered on one stream.
+of `csrc/quant_gemv.cu`. K9 launches the same file's pair kernel where
+`gemv_plan.tc_pair_eligible` holds (both weights as `tc_eligible` takes
+them), else `csrc/quant_pair.cu`. K8 is `csrc/quantize_int8.cu`; the
+headers say what bounds each kernel on the card and how it is laid out.
+The tensor-core body's weight tensor maps are encoded once per weight and
+cached here (`_tc_map`), and each device keeps one partial-sum scratch, one
+set of strip counters and K9's per-strip sums of squares (`_tc_scratch`),
+so its launches must be ordered on one stream.
 
 Launch geometry: `qmm` (K7, half-split int4), `int4_native_matmul` (K11)
 and `int4_w4a8_matmul` (K10) take `strip=`, the output columns per block
@@ -340,6 +343,8 @@ def _tc_library() -> ctypes.CDLL:
     lib.supir_qgemv_tc.argtypes = [p, p, i, p, i, p, p, f, i, p, p, p, p, p, i, p]
     lib.supir_qgemv_tc_map.restype = i
     lib.supir_qgemv_tc_map.argtypes = [p, ctypes.c_longlong, ctypes.c_longlong, i, i, i, p]
+    lib.supir_qpair_tc.restype = i
+    lib.supir_qpair_tc.argtypes = [p, p, p, p, i, i, p, p, p, p, p, f, i, p, p, p, p, p, i, p]
     return lib
 
 
@@ -447,8 +452,9 @@ def _launch_gemv(x, w, scale, mode: str, cin: int, gamma=None, eps: float = 1e-6
 
 
 _TC_MAPS: dict = {}       # (device, weight address, rows, row bytes, box) -> (buffer, its address)
-_TC_SCRATCH: dict = {}    # device index -> (partials, strip counters, their addresses)
+_TC_SCRATCH: dict = {}    # device index -> (partials, strip counters, K9's sums of squares, their addresses)
 _TC_PLANS: dict = {}      # (mode, rows, cin, cout, device index) -> (plan, its packed fields' address)
+_PAIR_PLANS: dict = {}    # (rows, cin1, cout1, cout2, device index) -> (plan, its packed fields' address)
 
 
 @functools.lru_cache(maxsize=16)
@@ -478,14 +484,16 @@ def _tc_map(w: torch.Tensor, plan: GP.TcPlan, index: int) -> int:
 
 def _tc_scratch(device: torch.device):
     """The device's partial sums (gemv_plan.TC_PART_BYTES of fp32, which
-    every plan stays within) and strip counters (zero; each launch leaves
-    them zero). Allocated once, so a captured CUDA graph keeps valid
-    addresses."""
+    every plan stays within), strip counters (zero; each launch leaves them
+    zero) and K9's per-strip sums of squares (fp32 [strips x rows]).
+    Allocated once, so a captured CUDA graph keeps valid addresses. Returns
+    (partials, counters, sums of squares) and their addresses."""
     hit = _TC_SCRATCH.get(device.index)
     if hit is None:
         part = torch.empty(GP.TC_PART_BYTES // 4, dtype=torch.float32, device=device)
         counters = torch.zeros(GP.TC_MAX_STRIPS, dtype=torch.int32, device=device)
-        hit = _TC_SCRATCH[device.index] = (part, counters, part.data_ptr(), counters.data_ptr())
+        ssq = torch.zeros(GP.TC_MAX_STRIPS * GP.TC_MAX_ROWS, dtype=torch.float32, device=device)
+        hit = _TC_SCRATCH[device.index] = (part, counters, ssq, part.data_ptr(), counters.data_ptr(), ssq.data_ptr())
     return hit
 
 
@@ -502,7 +510,7 @@ def _launch_tc(x, w, scale, mode, cin, cout, gamma, eps, prologue, residual, out
         plan = GP.tc_plan(mode, x.shape[0], cin, cout, _sm_count(index))
         hit = _TC_PLANS[key] = (plan, ctypes.addressof(plan.packed()))
     plan, plan_addr = hit
-    _, _, part, counters = _tc_scratch(device)
+    part, counters = _tc_scratch(device)[3:5]
     with torch.cuda.device(device):
         err = _tc_library().supir_qgemv_tc(
             _tc_map(w, plan, index), plan_addr, _MODES[mode], x.data_ptr(), x.stride(0), _ptr(xs), _ptr(gamma),
@@ -710,9 +718,9 @@ def int4_native_matmul(x, packed, scale, strip: int = STRIP):
 
 
 def pair_grid_blocks(rows: int = 1) -> int:
-    """K9's grid on this card for `rows` activation rows: the blocks that
-    can be resident at once (blocks per SM from the occupancy API x SMs),
-    which a cooperative launch may not exceed."""
+    """The strip-body K9's grid on this card for `rows` activation rows: the
+    blocks that can be resident at once (blocks per SM from the occupancy
+    API x SMs), which its cooperative launch may not exceed."""
     blocks = ctypes.c_int(0)
     err = _pair_library().supir_qpair_grid(rows, ctypes.byref(blocks))
     if err != 0:
@@ -721,16 +729,38 @@ def pair_grid_blocks(rows: int = 1) -> int:
 
 
 def int4_paired_fused_pair(x, qp1, sc1, residual, gamma, qp2, sc2, *, siluglu1: bool = False,
-                           eps: float = 1e-6, _norm_cols: int | None = None):
+                           eps: float = 1e-6, _norm_cols: int | None = None, _fault: int = 0):
     """K9: two chained paired-int4 GEMVs in one cooperative launch ->
     (small [B, cout1], big [B, cout2]) fp32; see int4_paired_fused_pair_plain.
     On the card the RMSNorm reads `small` in fp32, as the TPU kernel does,
-    where the plain version rounds it to x's dtype first. `_norm_cols` is
-    for planted-fault checks only: the RMSNorm then takes its statistics
-    from the first `_norm_cols` columns of `small`."""
+    where the plain version rounds it to x's dtype first. Where
+    `gemv_plan.tc_pair_eligible` holds (every 13B shape) the launch is the
+    tensor-core body's pair kernel, else the strip body of
+    `csrc/quant_pair.cu`. For planted-fault checks only: `_norm_cols` takes
+    the RMSNorm's statistics from the first `_norm_cols` columns of `small`,
+    `_fault` plants one of the tensor-core pair's faults (gemv_plan:
+    FAULT_DROP_SHARE, FAULT_COMBINE_TWICE (phase 1's), FAULT_X_ORDER,
+    FAULT_STALE_SMALL, FAULT_ONE_STRIP)."""
     _check_pair_shapes(qp1, qp2)
     if x.device.type == "cpu" or x.shape[0] > DECODE_ROWS:
         return int4_paired_fused_pair_plain(x, qp1, sc1, residual, gamma, qp2, sc2, siluglu1=siluglu1, eps=eps)
+    out = _launch_pair(x, qp1, sc1, residual, gamma, qp2, sc2, siluglu1, eps, _norm_cols, _fault)
+    int4_paired_fused_pair.launches += 1
+    return out
+
+
+def strip_body_pair(x, qp1, sc1, residual, gamma, qp2, sc2, *, siluglu1: bool = False, eps: float = 1e-6):
+    """K9's strip body (`csrc/quant_pair.cu`, its kernel before the
+    tensor-core pair), for comparing the two on one card. No model path
+    calls it, and it counts no launch."""
+    _check_pair_shapes(qp1, qp2)
+    return _launch_pair(x, qp1, sc1, residual, gamma, qp2, sc2, siluglu1, eps, None, 0, tensor_cores=False)
+
+
+def _launch_pair(x, qp1, sc1, residual, gamma, qp2, sc2, siluglu1, eps, norm_cols, fault, tensor_cores=True):
+    """One K9 launch on CUDA tensors: the tensor-core pair where
+    `gemv_plan.tc_pair_eligible` holds (and `tensor_cores`), else the strip
+    body. A launch the card refuses raises; it is never split in two."""
     cin1, cout1 = 2 * qp1.shape[0], qp1.shape[1]
     cout2 = qp2.shape[1]
     _check_activation(x, 2 * cin1 if siluglu1 else cin1)
@@ -743,18 +773,54 @@ def int4_paired_fused_pair(x, qp1, sc1, residual, gamma, qp2, sc2, *, siluglu1: 
         raise ValueError("K9 takes a residual for its first GEMV and a gamma for its second")
     _check_on_card("K9", x, (("qp1", qp1), ("sc1", sc1), ("residual", residual), ("gamma", gamma),
                              ("qp2", qp2), ("sc2", sc2)))
-    small = torch.empty((x.shape[0], cout1), dtype=torch.float32, device=x.device)
-    big = torch.empty((x.shape[0], cout2), dtype=torch.float32, device=x.device)
+    norm_cols = cout1 if norm_cols is None else norm_cols
+    if not 0 < norm_cols <= cout1:
+        raise ValueError(f"K9's statistics take 1-{cout1} columns of small, not {norm_cols}")
+    rows = x.shape[0]
+    small = torch.empty((rows, cout1), dtype=torch.float32, device=x.device)
+    big = torch.empty((rows, cout2), dtype=torch.float32, device=x.device)
+    if tensor_cores and GP.tc_pair_eligible(rows, cin1, cout1, cout2, qp1.data_ptr(), qp2.data_ptr(), x.data_ptr(),
+                                            x.stride(0)):
+        return _launch_pair_tc(x, qp1, sc1, residual, gamma, qp2, sc2, siluglu1, eps, norm_cols, fault, small, big)
+    if fault:
+        raise ValueError(f"planted faults are the tensor-core pair's; this call (cout1 {cout1}, cout2 {cout2}) takes "
+                         "the strip body")
     with torch.cuda.device(x.device):
         err = _pair_library().supir_qpair(
             x.data_ptr(), x.stride(0), int(siluglu1), qp1.data_ptr(), sc1.data_ptr(), residual.data_ptr(),
             gamma.data_ptr(), qp2.data_ptr(), sc2.data_ptr(), small.data_ptr(), big.data_ptr(),
-            x.shape[0], cin1, cout1, cout2, float(eps), cout1 if _norm_cols is None else _norm_cols,
-            _stream(x.device),
+            rows, cin1, cout1, cout2, float(eps), norm_cols, _stream(x.device),
         )
     if err != 0:
         raise RuntimeError(f"K9 cooperative launch failed: cudaError {err}")
-    int4_paired_fused_pair.launches += 1
+    return small, big
+
+
+def _launch_pair_tc(x, qp1, sc1, residual, gamma, qp2, sc2, siluglu1, eps, norm_cols, fault, small, big):
+    """One launch of `csrc/quant_gemv_tc.cu`'s pair kernel."""
+    if gamma.data_ptr() % 16:
+        gamma = gamma.clone()  # the kernel reads gamma in 16-byte vectors
+    device = x.device
+    index = device.index
+    rows, cin1, cout1, cout2 = x.shape[0], 2 * qp1.shape[0], qp1.shape[1], qp2.shape[1]
+    key = (rows, cin1, cout1, cout2, index)
+    hit = _PAIR_PLANS.get(key)
+    if hit is None:
+        plan = GP.tc_pair_plan(rows, cin1, cout1, cout2, _sm_count(index))
+        hit = _PAIR_PLANS[key] = (plan, ctypes.addressof(plan.packed()))
+    plan, plan_addr = hit
+    part, counters, ssq = _tc_scratch(device)[3:]
+    # FAULT_STALE_SMALL: phase 2 reads `small` as it stood at launch, zeros
+    small_in = torch.zeros_like(small) if fault == GP.FAULT_STALE_SMALL else small
+    with torch.cuda.device(device):
+        err = _tc_library().supir_qpair_tc(
+            _tc_map(qp1, plan.first, index), _tc_map(qp2, plan.second, index), plan_addr, x.data_ptr(), x.stride(0),
+            int(siluglu1), sc1.data_ptr(), residual.data_ptr(), small.data_ptr(), small_in.data_ptr(),
+            gamma.data_ptr(), float(eps), norm_cols, sc2.data_ptr(), big.data_ptr(), part, counters, ssq, fault,
+            _stream(device))
+    if err != 0:
+        raise RuntimeError(f"K9's tensor-core launch failed ({rows} rows, {cin1} -> {cout1} -> {cout2}): "
+                           f"cudaError {err}")
     return small, big
 
 

@@ -35,6 +35,7 @@ from supir_tpu_torch.captioner import vision as TV
 from supir_tpu_torch.models import clip as TC
 from supir_tpu_torch.utils import ckpt_rules as R
 from supir_tpu_torch.utils import weights as W
+from torch_parity import one_torch_thread  # noqa: F401
 
 ATOL = RTOL = 1e-4
 PREFILL_ATOL = 1e-4

@@ -41,6 +41,7 @@ from supir_tpu_torch.captioner import llama as TL
 from supir_tpu_torch.ops import quantize as Q
 from supir_tpu_torch.utils import weights as W
 from tests.test_torch_captioner import _ids, _image, _port_cfg, _random_like
+from torch_parity import one_torch_thread  # noqa: F401
 
 ATOL = RTOL = 1e-4
 INT4 = dict(quantize_int4=True, fused_qkv=True)

@@ -31,6 +31,7 @@ from supir_tpu_torch.engine.factory import build_model, create_engine
 from supir_tpu_torch.engine.supir import SUPIRModel
 from supir_tpu_torch.utils import weights as W
 from tests import torch_parity as P
+from torch_parity import one_torch_thread  # noqa: F401
 
 SLICE_BOUND = 5e-5
 ROOT = Path(__file__).resolve().parents[1]

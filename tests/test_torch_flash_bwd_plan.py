@@ -14,6 +14,7 @@ import torch
 
 from supir_tpu_torch.ops import flash_attention as fa
 from supir_tpu_torch.ops.flash_attention import BWD_BLOCK, BWD_BOX, PLAN_LEN, SLAB, bwd_rows, tma_plan
+from torch_parity import one_torch_thread  # noqa: F401
 
 BF16 = 2  # bytes
 CSRC = Path(fa.__file__).resolve().parents[1] / "csrc"

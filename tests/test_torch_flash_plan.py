@@ -13,6 +13,7 @@ import torch
 
 from supir_tpu_torch.ops import flash_attention as fa
 from supir_tpu_torch.ops.flash_attention import BLOCK_M, BLOCK_N, PLAN_LEN, SLAB, tma_plan
+from torch_parity import one_torch_thread  # noqa: F401
 
 BF16 = 2  # bytes
 

@@ -8,8 +8,11 @@ inside each step, the combine order; W4A8 in integers) and must equal the
 plain K5 (every prologue and residual form), K6, K7 (int8 and half-split
 int4), K11 and K5's act_int8 mode at the fp32 tolerance of
 tests/test_torch_quantize.py (atol 1e-4 + rtol 1e-5), the plain K10 bit
-for bit, and the JAX functions at that file's tolerances. The kernel
-itself (`csrc/quant_gemv_tc.cu`) runs only on the card
+for bit, and the JAX functions at that file's tolerances. K9's pair plan
+(`tc_pair_plan`: both weights' tiles over one grid, `pair_schedule`: the
+counters that order phase 2 after every phase-1 strip) and
+`tc_emulate_pair` are held the same way. The kernel itself
+(`csrc/quant_gemv_tc.cu`) runs only on the card
 (tests/test_torch_quantize.py, `gpu`)."""
 
 import numpy as np
@@ -18,6 +21,7 @@ import torch
 
 from supir_tpu_torch.ops import gemv_plan as GP
 from supir_tpu_torch.ops import quantize as Q
+from torch_parity import one_torch_thread  # noqa: F401
 
 ATOL, RTOL = 1e-4, 1e-5
 BF16_TOL = 2e-3
@@ -400,6 +404,11 @@ def test_plan_is_cached_and_packed_in_field_order():
     assert a is GP.tc_plan("paired", 1, 5120, 15360, SMS)
     assert a.packed() is a.packed()
     assert list(a.packed()) == [getattr(a, f) for f in GP.PLAN_FIELDS]
+    # K9: both plans' fields, then the grid and the shared memory (csrc/quant_gemv_tc.cu:supir_qpair_tc)
+    pair = GP.tc_pair_plan(1, 13824, 5120, 15360, SMS)
+    assert pair is GP.tc_pair_plan(1, 13824, 5120, 15360, SMS) and pair.packed() is pair.packed()
+    assert list(pair.packed()) == ([getattr(pair.first, f) for f in GP.PLAN_FIELDS]
+                                   + [getattr(pair.second, f) for f in GP.PLAN_FIELDS] + [pair.grid, pair.smem])
 
 
 def test_host_cost_tool_exits_without_cuda(monkeypatch):
@@ -469,6 +478,19 @@ def test_the_kernel_source_walks_these_rules():
     assert "if (fault == FAULT_ROW_SCALE) rs = __fmul_rn(rs, rs);" in src
     assert "rowsc[tid] = xsc[tid] * (1.f / 127.f);" in src and "mul[tid] = 127.f / xs;" in src
     assert "swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B" in src
+    # K9: the fault, the counters after both phases' strips, the statistics' order, x' from fp32 small
+    assert "constexpr int FAULT_STALE_SMALL = 5;" in src and GP.FAULT_STALE_SMALL == 5
+    assert "constexpr int FAULT_ONE_STRIP = 6;" in src and GP.FAULT_ONE_STRIP == 6
+    assert "int* done1 = counters2 + p2.strips;" in src and "int* through = done1 + 1;" in src
+    assert GP.PAIR_COUNTERS == 2
+    assert "ssq[s * rows + tid] = ((red[4 * tid] + red[4 * tid + 1]) + red[4 * tid + 2]) + red[4 * tid + 3];" in src
+    assert "for (int k = lane; k < stats_strips; k += 32) ss += __ldcg(a.ssq + k * p1.rows + row);" in src
+    assert "const int stats_strips = a.fault == FAULT_ONE_STRIP ? 1 : p1.strips;" in src
+    assert "rstd[row] = rsqrtf(ss / (float)a.norm_cols + a.eps);" in src
+    assert "for (int i = 0; i < 16; ++i) v[i] = (v[i] * rstd[n]) * gm[i];" in src
+    assert "if (a.fault == FAULT_COMBINE_TWICE) v += v;" in src
+    assert "pair_produce<0>(p1, &map1, n, base, full, empty, go);\n      pair_produce<1>(p2, &map2, n, base, full, empty, go);" \
+        in src
 
 
 @pytest.mark.parametrize("mode", ["half", "native"])
@@ -613,3 +635,186 @@ def test_w4a8_register_rules_decode_the_packer():
                                              torch.tensor(nibble)).item()
                             k = 32 * step + GP.x_word_k("w4a8", b_word)[i]
                             assert got == 16 * vals[k, col].item(), (step, warp, lane, frag, reg, i)
+
+
+# ------------------------------------------------ K9: two plans, one grid
+
+# (cin1, cout1, cout2, SiLU-GLU before the first): the 13B layer's two pairs, and ragged cuts
+PAIRS = ((5120, 5120, 27648, False), (13824, 5120, 15360, True), (640, 272, 400, False), (1000, 400, 144, True))
+
+
+def _pair_case(rows, cin1, cout1, cout2, siluglu1, seed, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(seed)
+    qp1, sc1 = Q.quantize_int4_paired(torch.randn(cin1, cout1, generator=g) * cin1 ** -0.5)
+    qp2, sc2 = Q.quantize_int4_paired(torch.randn(cout1, cout2, generator=g) * cout1 ** -0.5)
+    x = (torch.randn(rows, 2 * cin1 if siluglu1 else cin1, generator=g) * 2).to(dtype)
+    residual = torch.randn(rows, cout1, generator=g)
+    gamma = 1.0 + 0.1 * torch.randn(cout1, generator=g)
+    return x, (qp1, sc1, residual, gamma, qp2, sc2)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 32])
+@pytest.mark.parametrize("cin1,cout1,cout2,siluglu1", PAIRS)
+def test_pair_plan_covers_both_weights_once(rows, cin1, cout1, cout2, siluglu1):
+    """Each phase is K5's plan of its weight (so its tiles cover the weight's
+    bytes once, by test_tiles_cover_every_weight_byte_once); the pair's grid
+    walks both, every tile of each phase by one block of the grid; the
+    x' window holds either phase's; the counters of both phases fit."""
+    plan = GP.tc_pair_plan(rows, cin1, cout1, cout2, SMS)
+    assert plan.first == GP.tc_plan("paired", rows, cin1, cout1, SMS)
+    assert plan.second == GP.tc_plan("paired", rows, cout1, cout2, SMS)
+    assert plan.grid == max(plan.first.grid, plan.second.grid) <= SMS
+    for p in (plan.first, plan.second):
+        taken = sorted(t for b in range(plan.grid) for t in p.tiles_of(b))
+        assert taken == list(range(p.tiles))
+        assert p.strips * p.box_bytes >= p.wcols and p.chunks * p.box_rows >= p.wrows
+        assert [p.slice_chunks(q) for q in range(p.slices)] == [(q * p.chunks // p.slices, (q + 1) * p.chunks // p.slices)
+                                                               for q in range(p.slices)]
+    assert plan.first.wrows == cin1 // 2 and plan.second.wrows == cout1 // 2 and plan.second.wcols == cout2
+    window = 4 * rows * max(plan.first.xrs, plan.second.xrs)
+    assert plan.smem == plan.first.smem - (-(-4 * rows * plan.first.xrs // 16) * 16) + (-(-window // 16) * 16)
+    assert plan.smem <= 227 * 1024
+    assert plan.first.strips + plan.second.strips + GP.PAIR_COUNTERS <= GP.TC_MAX_STRIPS
+    # both phases' partials fit the scratch they share (each as K5's plan)
+    assert max(p.tiles * rows * GP.TC_STRIP * 4 for p in (plan.first, plan.second) if p.slices > 1) <= GP.TC_PART_BYTES \
+        or plan.first.slices == plan.second.slices == 1
+    assert GP.tc_pair_eligible(rows, cin1, cout1, cout2, 1 << 20, 1 << 21, 1 << 12, 2 * cin1 if siluglu1 else cin1)
+
+
+def test_what_the_tensor_core_pair_does_not_take():
+    assert not GP.tc_pair_eligible(1, 512, 512, 1032, 0, 0, 0, 512)      # cout2 8 mod 16
+    assert not GP.tc_pair_eligible(1, 512, 520, 1024, 0, 0, 0, 512)      # cout1 8 mod 16
+    assert not GP.tc_pair_eligible(1, 512, 512, 1024, 8, 0, 0, 512)      # W1 8-byte aligned only
+    assert not GP.tc_pair_eligible(1, 512, 512, 1024, 0, 8, 0, 512)      # W2
+    assert not GP.tc_pair_eligible(33, 512, 512, 1024, 0, 0, 0, 512)     # more rows than a launch takes
+    assert not GP.tc_pair_eligible(1, 512, 512, 128 * 4096, 0, 0, 0, 512)   # the strip counters run out
+    assert GP.tc_pair_eligible(32, 512, 512, 1024, 0, 0, 0, 512)
+    with pytest.raises(ValueError):
+        GP.tc_pair_plan(1, 512, 512, 128 * 4096, SMS)
+
+
+def _final_index(events, plan, phase):
+    """strip -> the index of the event that made it final: its combine, or
+    its one-slice tile's end."""
+    p = plan.first if phase == 1 else plan.second
+    what = f"combine{phase}" if p.slices > 1 else f"tile{phase}"
+    final = {}
+    for i, (_, w, t) in enumerate(events):
+        if w == what:
+            assert p.tile(t)[0] not in final             # every strip made final once
+            final[p.tile(t)[0]] = i
+    assert sorted(final) == list(range(p.strips))
+    return final
+
+
+@pytest.mark.parametrize("rows", [1, 8, 32])
+@pytest.mark.parametrize("cin1,cout1,cout2,siluglu1", PAIRS)
+def test_pair_combine_order_is_fixed_and_phase_2_waits(rows, cin1, cout1, cout2, siluglu1):
+    """The blocks' programs under the kernel's counters end; each phase's
+    strips are made final once, by the block that took the last slice,
+    after every slice's tile, summing the slices in slice order; no phase-2
+    staging comes before the last phase-1 strip is final, and every one
+    knows all of them. Without the wait (FAULT_STALE_SMALL) some staging is
+    ordered after none but its own block's phase-1 strips."""
+    plan = GP.tc_pair_plan(rows, cin1, cout1, cout2, SMS)
+    events, ordered = GP.pair_schedule(plan)
+    assert ordered
+    for phase, p in ((1, plan.first), (2, plan.second)):
+        final = _final_index(events, plan, phase)
+        tile_at = {t: i for i, (_, w, t) in enumerate(events) if w == f"tile{phase}"}
+        for s in range(p.strips):
+            contrib = p.contributors(s)
+            assert [p.tile(t) for t in contrib] == [(s, q) for q in range(p.slices)]
+            assert all(tile_at[t] <= final[s] for t in contrib)
+            # the last slice's tile and the combine: one block, the last slice's
+            owner = {b for b, w, t in events if w in (f"combine{phase}", f"tile{phase}") and t == contrib[-1]}
+            assert owner == {contrib[-1] % p.grid}
+    last1 = max(_final_index(events, plan, 1).values())
+    assert all(i > last1 for i, (_, w, _) in enumerate(events) if w == "stage2")
+    stale, stale_ordered = GP.pair_schedule(plan, GP.FAULT_STALE_SMALL)
+    assert not stale_ordered and not any(w == "wait" for _, w, _ in stale)
+
+
+def _rel(got, want):
+    return max(((g - w).norm() / w.norm()).item() for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("siluglu1", [False, True])
+@pytest.mark.parametrize("rows,cin1,cout1,cout2,sms", [(1, 640, 272, 400, 4), (8, 1000, 400, 144, 3),
+                                                       (32, 264, 384, 272, 7)])
+def test_pair_emulation_matches_plain(siluglu1, rows, cin1, cout1, cout2, sms):
+    """tc_emulate_pair at fp32 (x' staged in fp32) equals
+    int4_paired_fused_pair_plain, small and big, at atol 1e-4 + rtol 1e-5:
+    ragged shapes (couts not a multiple of the strip, cin not of the
+    chunk), a few grids. In bf16 it stages x' as the card does, the RMSNorm
+    over small in fp32, rounded to bf16 once: it equals that reference at
+    the same tolerance."""
+    x, w = _pair_case(rows, cin1, cout1, cout2, siluglu1, rows + cin1)
+    plan = GP.tc_pair_plan(rows, cin1, cout1, cout2, sms)
+    got = GP.tc_emulate_pair(plan, x.float(), *w, siluglu1=siluglu1)
+    want = Q.int4_paired_fused_pair_plain(x.float(), *w, siluglu1=siluglu1)
+    for g, v in zip(got, want):
+        torch.testing.assert_close(g, v, atol=ATOL, rtol=RTOL)
+    small, big = GP.tc_emulate_pair(plan, x, *w, siluglu1=siluglu1)
+    qp1, sc1, residual, gamma, qp2, sc2 = w
+    want_small = Q.int4_paired_fused_matmul_plain(x, qp1, sc1, siluglu=siluglu1, residual=residual)
+    xp = Q._prologue(want_small, cout1, gamma, 1e-6, False).to(torch.bfloat16)
+    torch.testing.assert_close(small, want_small, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(big, Q.int4_paired_matmul_plain(xp, qp2, sc2), atol=ATOL, rtol=RTOL)
+
+
+def test_pair_emulation_matches_plain_13b():
+    """The 13B layer's second pair (SiLU-GLU + down + residual -> RMSNorm ->
+    the next layer's qkv) at one row on the card's grid."""
+    x, w = _pair_case(1, 13824, 5120, 15360, True, 9)
+    plan = GP.tc_pair_plan(1, 13824, 5120, 15360, SMS)
+    assert plan.first.slices > 1
+    got = GP.tc_emulate_pair(plan, x.float(), *w, siluglu1=True)
+    for g, v in zip(got, Q.int4_paired_fused_pair_plain(x.float(), *w, siluglu1=True)):
+        torch.testing.assert_close(g, v, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("siluglu1", [False, True])
+def test_pair_emulation_matches_jax(siluglu1):
+    """tc_emulate_pair at fp32 against the JAX int4_paired_fused_pair (its
+    fallback off the TPU) on the shapes and tolerance of
+    tests/test_torch_quantize.py:test_fused_pair_plain_matches_jax."""
+    import jax.numpy as jnp
+
+    from supir_tpu.ops import quantize as JQ
+
+    cin1, cout1, cout2, b = (256, 128, 192, 2) if siluglu1 else (128, 128, 256, 2)
+    rng = np.random.default_rng(40 + siluglu1)
+    qp1, sc1 = JQ.quantize_int4_paired(jnp.asarray((rng.standard_normal((cin1, cout1)) * cin1 ** -0.5)
+                                                   .astype(np.float32)))
+    qp2, sc2 = JQ.quantize_int4_paired(jnp.asarray((rng.standard_normal((cout1, cout2)) * cout1 ** -0.5)
+                                                   .astype(np.float32)))
+    x = rng.standard_normal((b, 2 * cin1 if siluglu1 else cin1)).astype(np.float32)
+    residual = rng.standard_normal((b, cout1)).astype(np.float32)
+    gamma = (1.0 + 0.1 * rng.standard_normal(cout1)).astype(np.float32)
+    want = JQ.int4_paired_fused_pair(jnp.asarray(x), qp1, sc1, jnp.asarray(residual), jnp.asarray(gamma), qp2, sc2,
+                                     siluglu1=siluglu1, eps=1e-6)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    got = GP.tc_emulate_pair(GP.tc_pair_plan(b, cin1, cout1, cout2, 5), t(x), t(qp1), t(sc1), t(residual), t(gamma),
+                             t(qp2), t(sc2), siluglu1=siluglu1)
+    for g, v in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(v, np.float32), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("siluglu1", [False, True])
+def test_pair_emulated_faults_break_the_bound(siluglu1):
+    """Phase 2 staged before phase 1's strips are final (it reads small as it
+    stood at launch), the statistics from part of one strip or from one
+    strip's sums of squares alone, phase 1's combine run twice, one block's
+    share dropped, x' staged out of order:
+    each breaks the bound (relative L2 1e-2, the worse of small and big)."""
+    rows, cin1, cout1, cout2 = 4, 640, 400, 272
+    x, w = _pair_case(rows, cin1, cout1, cout2, siluglu1, 5)
+    plan = GP.tc_pair_plan(rows, cin1, cout1, cout2, 12)
+    assert plan.first.slices > 1 and plan.first.strips > 1     # phase 1 is combined, over strips
+    want = Q.int4_paired_fused_pair_plain(x.float(), *w, siluglu1=siluglu1)
+    assert _rel(GP.tc_emulate_pair(plan, x.float(), *w, siluglu1=siluglu1), want) < 1e-5
+    assert _rel(GP.tc_emulate_pair(plan, x.float(), *w, siluglu1=siluglu1, norm_cols=32), want) > 1e-2
+    for fault in (GP.FAULT_STALE_SMALL, GP.FAULT_ONE_STRIP, GP.FAULT_COMBINE_TWICE, GP.FAULT_DROP_SHARE,
+                  GP.FAULT_X_ORDER):
+        assert _rel(GP.tc_emulate_pair(plan, x.float(), *w, siluglu1=siluglu1, fault=fault), want) > 1e-2, fault

@@ -21,6 +21,7 @@ from supir_tpu_torch.models.attention import SpatialTransformer
 from supir_tpu_torch.models.unet import ResBlock
 from supir_tpu_torch.utils.weights import state_dict_from_jax, state_dict_from_rules
 from tests import torch_parity as P
+from torch_parity import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=2e-3, rtol=2e-3)
 

@@ -39,6 +39,7 @@ from supir_tpu_torch.ops import attention as attn_ops
 from supir_tpu_torch.ops.flash_attention import FlashAttention, alibi_bias
 from supir_tpu_torch.utils import ckpt_rules as R
 from supir_tpu_torch.utils import weights as W
+from torch_parity import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 GRAD_TOL = dict(atol=2e-3, rtol=2e-3)

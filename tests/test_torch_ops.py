@@ -35,6 +35,7 @@ from supir_tpu_torch.ops.flash_attention import (
     flash_attention_fwd_lse,
 )
 from supir_tpu_torch.ops.groupnorm import group_norm, group_norm_plain
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def _qkv(seed, b, s, t, h, d):

@@ -42,6 +42,7 @@ import torch
 
 from supir_tpu_torch.ops import probes as P
 from supir_tpu_torch.ops import quantize as Q
+from torch_parity import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PROBES = ("stream_ceiling", "gemv_sweep", "bitcast_probe", "int4_native_probe")

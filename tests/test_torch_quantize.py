@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from supir_tpu_torch.ops import quantize as Q
+from torch_parity import one_torch_thread  # noqa: F401
 
 ATOL, RTOL = 1e-4, 1e-5
 BF16_TOL = 2e-3
@@ -515,7 +516,8 @@ def test_native_kernel_matches_plain(cuda, rows, cin, cout):
 def test_pair_kernel_matches_plain(cuda, rows, siluglu1):
     """K9 against its fp32 plain version, small and big by relative L2 <=
     1e-2; phase 2 normalising by one strip's statistics instead of the
-    whole row must break it."""
+    whole row must break it. The first shape is taken by the tensor-core
+    pair, the second (cout2 8 mod 16) by the strip body."""
     g = torch.Generator(device=cuda).manual_seed(6)
     cin1, cout1, cout2 = (1536, 512, 1032) if siluglu1 else (512, 512, 1536)
     qp1, sc1 = Q.quantize_int4_paired(_card_weights(g, cin1, cout1, cuda))
@@ -534,6 +536,102 @@ def test_pair_kernel_matches_plain(cuda, rows, siluglu1):
     assert _rel_l2(big, want_big) <= CARD_REL_BOUND
     _, bad = Q.int4_paired_fused_pair(x, *args, siluglu1=siluglu1, _norm_cols=32)
     assert _rel_l2(bad, want_big) > CARD_REL_BOUND
+
+
+# K9 on the tensor-core body: both phases' paired plans over one cooperative
+# grid, phase 2 staged from fp32 small once every phase-1 strip is counted in
+# (csrc/quant_gemv_tc.cu:qpair_tc_kernel). (cin1, cout1, cout2, SiLU-GLU):
+# the 13B layer's two pairs and ragged cuts (couts not a multiple of the
+# 128-column strip, cin not of the chunk).
+TC_PAIRS = [(5120, 5120, 27648, False), (13824, 5120, 15360, True), (640, 272, 400, False), (1000, 400, 144, True)]
+
+
+def _tc_pair_case(cuda, seed, rows, cin1, cout1, cout2, siluglu1):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qp1, sc1 = Q.quantize_int4_paired(_card_weights(g, cin1, cout1, cuda))
+    qp2, sc2 = Q.quantize_int4_paired(_card_weights(g, cout1, cout2, cuda))
+    x = torch.randn(rows, 2 * cin1 if siluglu1 else cin1, generator=g, device=cuda).to(torch.bfloat16)
+    residual = torch.randn(rows, cout1, generator=g, device=cuda)
+    gamma = 1.0 + 0.1 * torch.randn(cout1, generator=g, device=cuda)
+    return x, (qp1, sc1, residual, gamma, qp2, sc2)
+
+
+def _pair_rel(got, want):
+    return max(_rel_l2(g_, w_) for g_, w_ in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 17, 32])
+@pytest.mark.parametrize("cin1,cout1,cout2,siluglu1", TC_PAIRS)
+def test_tc_pair_kernel_matches_plain(cuda, rows, cin1, cout1, cout2, siluglu1):
+    """K9, counted, on the tensor-core pair: small and big within relative
+    L2 1e-2 of the fp32 plain version (which rounds small to bf16 before
+    the RMSNorm, where the kernel reads it in fp32), and the strip body it
+    replaced within the same bound of both."""
+    from supir_tpu_torch.ops import gemv_plan as GP
+
+    x, w = _tc_pair_case(cuda, 30, rows, cin1, cout1, cout2, siluglu1)
+    assert GP.tc_pair_eligible(rows, cin1, cout1, cout2, w[0].data_ptr(), w[4].data_ptr(), x.data_ptr(), x.stride(0))
+    before = Q.int4_paired_fused_pair.launches
+    got = Q.int4_paired_fused_pair(x, *w, siluglu1=siluglu1)
+    torch.cuda.synchronize()
+    assert Q.int4_paired_fused_pair.launches == before + 1
+    want = Q.int4_paired_fused_pair_plain(x.float(), *w, siluglu1=siluglu1)
+    assert _pair_rel(got, want) <= CARD_REL_BOUND
+    strip = Q.strip_body_pair(x, *w, siluglu1=siluglu1)
+    assert Q.int4_paired_fused_pair.launches == before + 1
+    assert _pair_rel(strip, want) <= CARD_REL_BOUND and _pair_rel(got, strip) <= CARD_REL_BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 32])
+def test_tc_pair_two_runs_are_bit_identical(cuda, rows):
+    """No atomic adds a value: three more runs and a CUDA-graph replay of
+    the launch give the first run's bits."""
+    x, w = _tc_pair_case(cuda, 31, rows, 13824, 5120, 15360, True)
+    first = Q.int4_paired_fused_pair(x, *w, siluglu1=True)
+    for _ in range(3):
+        again = Q.int4_paired_fused_pair(x, *w, siluglu1=True)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        Q.int4_paired_fused_pair(x, *w, siluglu1=True)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = Q.int4_paired_fused_pair(x, *w, siluglu1=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], captured[0]) and torch.equal(first[1], captured[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", [0, 1])
+@pytest.mark.parametrize("rows", [1, 8])
+def test_tc_pair_planted_faults_break_the_bound(cuda, pair, rows):
+    """Phase 2 staged without waiting for phase 1's strips (it reads small
+    as it stood at launch), the statistics from 32 columns of one strip or
+    from one strip's sums of squares alone, phase 1's combine run twice, one block's share dropped, x' staged
+    without its interleave, W2's nibbles swapped: each must break the
+    bound; a sound launch after them still meets it (the counters were left
+    zero). Phase 1 is cut into k-slices on this card, so its combine runs."""
+    from supir_tpu_torch.ops import gemv_plan as GP
+
+    cin1, cout1, cout2, siluglu1 = TC_PAIRS[pair]
+    x, w = _tc_pair_case(cuda, 32, rows, cin1, cout1, cout2, siluglu1)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert GP.tc_pair_plan(rows, cin1, cout1, cout2, sms).first.slices > 1
+    want = Q.int4_paired_fused_pair_plain(x.float(), *w, siluglu1=siluglu1)
+    assert _pair_rel(Q.int4_paired_fused_pair(x, *w, siluglu1=siluglu1), want) <= CARD_REL_BOUND
+    assert _pair_rel(Q.int4_paired_fused_pair(x, *w, siluglu1=siluglu1, _norm_cols=32), want) > CARD_REL_BOUND
+    for fault in (GP.FAULT_STALE_SMALL, GP.FAULT_ONE_STRIP, GP.FAULT_COMBINE_TWICE, GP.FAULT_DROP_SHARE,
+                  GP.FAULT_X_ORDER):
+        got = Q.int4_paired_fused_pair(x, *w, siluglu1=siluglu1, _fault=fault)
+        assert _pair_rel(got, want) > CARD_REL_BOUND, fault
+    swapped = (*w[:4], _swap_nibbles(w[4]), w[5])
+    assert _pair_rel(Q.int4_paired_fused_pair(x, *swapped, siluglu1=siluglu1), want) > CARD_REL_BOUND
+    assert _pair_rel(Q.int4_paired_fused_pair(x, *w, siluglu1=siluglu1), want) <= CARD_REL_BOUND
 
 
 # ---------------------------- the tensor-core body (K5, K6, K7, K10, K11)

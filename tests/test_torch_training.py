@@ -36,6 +36,7 @@ from supir_tpu_torch.ops import attention as attn_ops
 from supir_tpu_torch.ops import flash_attention as flash_ops
 from supir_tpu_torch.utils import weights as W
 from tests import torch_parity as P
+from torch_parity import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=2e-3, rtol=2e-3)
 LR = 1e-3

@@ -5,16 +5,36 @@ packages. Weights start from the JAX package's own parameter shapes
 (`eval_shape_params`, no init compile) and every leaf is filled with random
 values, zero-initialised layers included: left at zero, those layers would
 hide most of the network from the comparison.
+
+Every tests/test_torch_*.py imports `one_torch_thread` from here, so its
+tests run torch on one intra-op thread. They import this module as
+`torch_parity` (pytest puts tests/ on the path), since another installed
+package may own the top-level name `tests`. JAX is imported inside the
+helpers that need it: the `gpu` tests import this module where JAX is not
+installed.
 """
 
 from __future__ import annotations
 
 import math
 
-import jax
 import numpy as np
+import pytest
+import torch
 
-from supir_tpu.engine.factory import eval_shape_params, tiny_test_config
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one intra-op thread for the module's tests, the previous
+    count restored after them. The suite runs six xdist workers; at torch's
+    default of one thread per core they oversubscribe the cores over
+    thousands of small tensor ops (one plan test: 1.3 s alone, 77 s with
+    six copies at once, 0.7 s at one thread). A fixture, not import-time
+    code: every worker imports every test module, the JAX package's too."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _random_leaf(name: str, shape, rng: np.random.Generator) -> np.ndarray:
@@ -31,6 +51,8 @@ def _random_leaf(name: str, shape, rng: np.random.Generator) -> np.ndarray:
 def random_params(shapes, seed: int):
     """A tree of jax.ShapeDtypeStruct (or arrays) -> the same tree of random
     float32 numpy leaves."""
+    import jax
+
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
@@ -40,12 +62,16 @@ def random_params(shapes, seed: int):
 
 
 def tiny_cfg():
+    from supir_tpu.engine.factory import tiny_test_config
+
     cfg, _ = tiny_test_config()
     return cfg
 
 
 def tiny_params(cfg, seed: int = 0):
     """Random {'unet', 'control', 'vae'} params of `cfg` (no conditioner)."""
+    from supir_tpu.engine.factory import eval_shape_params
+
     return random_params(eval_shape_params(cfg, None, image_size=64), seed)
 
 
