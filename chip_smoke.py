@@ -7,22 +7,31 @@
 Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is switched off for matmuls and cuDNN convolutions.
-  2. build: the CUDA C++ kernels (K1 and K3, K4, the strip-body GEMVs, the
-     tensor-core GEMV of K5, K6, K7, K9, K10, K5's act_int8 mode and K11,
-     K8, K9's strip body, the probes' kernels and their GEMV geometries; one
-     nvcc per source, all at once, into build/supir_tpu_torch/) with ptxas'
-     registers and spills (for each of the forward's eight instantiations,
-     K1/K3 x D 64/128 x ALiBi, and the tensor-core GEMV's seventeen, four
-     layouts x three row tiles, W4A8 x two and K9's pair x three, which may
-     not spill), and K2 (Triton).
+  2. build: the CUDA C++ kernels (K1 and K3, K4, K2, the strip-body GEMVs,
+     the tensor-core GEMV of K5, K6, K7, K9, K10, K5's act_int8 mode and
+     K11, K8, K9's strip body, the probes' kernels and their GEMV
+     geometries; one nvcc per source, all at once, into
+     build/supir_tpu_torch/) with ptxas' registers and spills (for each of
+     the forward's eight instantiations, K1/K3 x D 64/128 x ALiBi, and the
+     tensor-core GEMV's seventeen, four layouts x three row tiles, W4A8 x
+     two and K9's pair x three, which may not spill), and the Triton import
+     of K2's first design, which stays as a comparator.
   3. kernels against their plain PyTorch versions on the card, with
      CUDA-event or CUDA-graph times of both, the least time the card could
      take (bound) and, where one PyTorch call computes the same function,
-     its time: K1 and K2 at the restore path's shapes, K1 causal, and K5
+     its time: K1 at the restore path's shapes, K1 causal, K2 at each of
+     the restore path's shape classes (the cluster kernel in turns with
+     the Triton first design, by events and by CUDA-graph replay, host µs
+     per call of both, its planted faults: one rank's partials left out,
+     each CTA on its own part's statistics, the affine one channel off,
+     pass 2 reading the next group), and K5
      (also in its act_int8 mode), K6, K7, K8, K10 and K11 at the 13B
      captioner's decode shapes and K9 at its two pairs per layer, for 1 and
      8 rows, K5 (also act_int8), K7 (int8 and half-split int4), K9, K10 and
-     K11 also at 32 rows and in turns with the strip body they replaced (K9
+     K11 also at 32 rows and in turns with the strip body they replaced, K8
+     (also at the int8 head) in turns with its first design, equal to its
+     bytes for 3 seeds, with its planted faults (one rank's maxima left
+     out, the Philox words rotated, the tile one column off) (K9
      also with its yardstick, the same products as two tensor-core K5
      calls), with the tensor-core body's planted faults (one block's share
      dropped, the combine run twice, x' staged out of order; W4A8: the row
@@ -57,7 +66,9 @@ Phases, each printing its own lines:
      warm-up run, `--repeat` timed runs synchronised only at their end,
      then one run timed per stage. The launch counters are zeroed just
      before that last run and must show K1 at every eligible attention
-     site of every step and K2 at work.
+     site of every step and K2 at every GroupNorm site of every step and
+     VAE pass (expected_group_norm_launches; the warm-up logs K2's calls
+     by shape).
   5. reference: a reduced-width engine whose self-attention still reaches
      K1 runs the same path on the card (bf16, kernels) and on the CPU
      (fp32, plain versions) with the same weights and noise; the two
@@ -120,6 +131,7 @@ printing any result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -216,6 +228,30 @@ def expected_flash_launches(cfg, lat: int, steps: int, vae_passes: int) -> int:
     vae_head = cfg.vae.ch * cfg.vae.ch_mult[-1]
     vae = vae_passes if flash_eligible(lat * lat, lat * lat, vae_head) else 0
     return expected_flash_sites(cfg, lat) * steps + vae
+
+
+def expected_group_norm_launches(cfg, steps: int, vae_passes: int = 4) -> int:
+    """K2 launches of `steps` network calls and `vae_passes` VAE passes
+    (the counted run's four: the denoise encoder, a decode, the encoder, a
+    decode): every GroupNorm32 of the UNet and of the control net (ZeroSFT
+    and ZeroCrossAttn included) once per network call, and those of the
+    encoder or the decoder once per pass, counted on the config's modules
+    built on the meta device. GroupNorm sites do not depend on the image
+    size."""
+    import torch
+
+    from supir_tpu_torch.engine.supir import SUPIRModel
+    from supir_tpu_torch.models.layers import GroupNorm32
+
+    with torch.device("meta"):
+        model = SUPIRModel(cfg)
+
+    def sites(module):
+        return sum(isinstance(m, GroupNorm32) for m in module.modules())
+
+    net = sites(model.model["diffusion_model"]) + sites(model.model["control_model"])
+    vae = model.first_stage_model
+    return net * steps + vae_passes // 2 * (sites(vae.encoder) + sites(vae.decoder))
 
 
 def rel_l2(got, want) -> float:
@@ -336,8 +372,8 @@ def phase_build():
     from supir_tpu_torch.ops import cuda_build, groupnorm as k2
     from supir_tpu_torch.ops import flash_attention as k1, probes as kp, quantize as kq
 
-    # K1 and K3 share flash_attn_fwd.cu; K4 is flash_attn_bwd.cu
-    sources = k1.SOURCES + kq.SOURCES + kp.SOURCES
+    # K1 and K3 share flash_attn_fwd.cu; K4 is flash_attn_bwd.cu; K2 group_norm.cu
+    sources = k1.SOURCES + k2.SOURCES + kq.SOURCES + kp.SOURCES
     t0 = time.perf_counter()
     seconds = cuda_build.build_all(sources)
     wall = time.perf_counter() - t0
@@ -377,9 +413,10 @@ def phase_build():
     log(f"[build] K9's strip body (comparisons and calls the tensor-core pair does not take): grid "
         f"{kq.pair_grid_blocks(1)} co-resident blocks at 1 row, {kq.pair_grid_blocks(8)} at 8 (occupancy API x SMs)")
     t1 = time.perf_counter()
-    k2.build()
-    log(f"[build] nvcc wall {wall:.1f} s for {len(sources)} sources in parallel; K2 triton import "
-        f"{time.perf_counter() - t1:.1f} s (Triton compiles each specialisation at its first launch)")
+    k2.build_triton()
+    log(f"[build] nvcc wall {wall:.1f} s for {len(sources)} sources in parallel; K2's Triton first design (the "
+        f"comparator) imported in {time.perf_counter() - t1:.1f} s (Triton compiles each specialisation at its "
+        f"first launch)")
 
 
 def _vs(ms: float, bound_ms: float, lib_ms: float) -> str:
@@ -461,7 +498,6 @@ def phase_kernels():
     import torch.nn.functional as F
 
     from supir_tpu_torch.ops.flash_attention import attention_plain, flash_attention
-    from supir_tpu_torch.ops.groupnorm import group_norm, group_norm_plain
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -538,37 +574,101 @@ def phase_kernels():
             q, F.pad(k[:, 1:], shift), F.pad(v[:, 1:], shift), causal=True), want), K1_REL_BOUND)
     results["K1"] = dict(k1[0], max_abs_err=max(r["max_abs_err"] for r in k1))
 
-    k2 = []
-    for shape, eps, silu in (((2, 320, 128, 128), 1e-5, True),
-                             ((1, 128, 1024, 1024), 1e-6, True),
-                             ((2, 1280, 32, 32), 1e-5, False)):
-        x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-        w = 1.0 + 0.1 * torch.randn(shape[1], generator=g, device=dev)
-        bias = 0.1 * torch.randn(shape[1], generator=g, device=dev)
+    results["K2"] = phase_group_norm()
+    return results
+
+
+# K2 at each shape class of the restore path (UNet, GLVControl and ZeroSFT
+# at latent 128^2, CFG batch 2; the VAE at batch 1 on a 1024^2 image) and
+# one fp32 shape: shape, eps, SiLU, dtype
+K2_SHAPES = (((2, 320, 128, 128), 1e-5, True, "bfloat16"), ((2, 960, 128, 128), 1e-5, True, "bfloat16"),
+             ((2, 1920, 64, 64), 1e-5, True, "bfloat16"), ((2, 1280, 32, 32), 1e-5, False, "bfloat16"),
+             ((1, 512, 128, 128), 1e-6, True, "bfloat16"), ((1, 128, 1024, 1024), 1e-6, True, "bfloat16"),
+             ((1, 512, 256, 256), 1e-6, True, "bfloat16"), ((2, 640, 64, 64), 1e-5, True, "float32"))
+K2_BOUND = 3e-2  # K2 against its fp32 plain version on the same values, max abs
+
+
+def _gn_case(shape, dtype, g):
+    """x with its own mean and scale per channel (statistics taken over the
+    wrong elements show; on i.i.d. inputs per-part statistics would pass)
+    and the affine."""
+    import torch
+
+    c = shape[1]
+    view = (1, c) + (1,) * (len(shape) - 2)
+    scale = 0.5 + torch.rand(c, generator=g, device="cuda")
+    shift = 2.0 * torch.rand(c, generator=g, device="cuda") - 1.0
+    # clamped at 3 sigma: the outputs stay under 8, where one bf16 rounding
+    # (at most 2^-6) stays under K2's bound
+    x = (torch.randn(shape, generator=g, device="cuda").clamp(-3, 3) * scale.view(view) + shift.view(view)).to(dtype)
+    return x, 1.0 + 0.1 * torch.randn(c, generator=g, device="cuda"), 0.1 * torch.randn(c, generator=g, device="cuda")
+
+
+def phase_group_norm():
+    """K2 (csrc/group_norm.cu) at K2_SHAPES against its fp32 plain version,
+    two runs bit-identical; by events and by CUDA-graph replay (10 calls a
+    graph), in turns with the Triton first design (new, old, old, new),
+    beside F.group_norm(+F.silu) and the bound; host µs per call of both
+    designs; the planted faults. Returns the JSON numbers at the first shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from supir_tpu_torch.ops import groupnorm as G
+    from supir_tpu_torch.tools.gemv_host_cost import host_us
+
+    g = torch.Generator(device="cuda").manual_seed(2345)
+    rows = []
+    for shape, eps, silu, dname in K2_SHAPES:
+        dtype = getattr(torch, dname)
+        x, w, b = _gn_case(shape, dtype, g)
+        plan = G.plan_for(x)
+        placed = G.clusters(plan, dtype)
         t0 = time.perf_counter()
-        out = group_norm(x, w, bias, 32, eps, silu)
+        out = G.group_norm(x, w, b, 32, eps, silu)
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
-        # the plain version on the same values in fp32 is the reference: the
-        # bound then covers the kernel's single bf16 rounding of its output
-        err = (out.float() - group_norm_plain(x.float(), w, bias, 32, eps, silu)).abs().max().item()
-        ms = cuda_ms(lambda: group_norm(x, w, bias, 32, eps, silu), 20)
-        plain_ms = cuda_ms(lambda: group_norm_plain(x, w, bias, 32, eps, silu), 20)
-        wb, bb = w.to(x.dtype), bias.to(x.dtype)
-        if silu:
-            lib_ms = cuda_ms(lambda: F.silu(F.group_norm(x, 32, wb, bb, eps)), 20)
-        else:
-            lib_ms = cuda_ms(lambda: F.group_norm(x, 32, wb, bb, eps), 20)
-        bound_ms, bound_by = bound(nbytes(x, w, bias, out))
-        log(f"[kernels] K2 {list(shape)} eps {eps:g} silu {silu}: max_abs_err {err:.3e} (bound 3e-2), "
-            f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, F.group_norm{'+F.silu' if silu else ''} {lib_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}); first call {first:.2f} s")
-        if not err <= 3e-2:
-            raise AssertionError(f"K2 disagrees with its plain version at {list(shape)}: {err}")
-        k2.append(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                       bound_by=bound_by))
-    results["K2"] = dict(k2[0], max_abs_err=max(r["max_abs_err"] for r in k2))
-    return results
+        want = G.group_norm_plain(x.float(), w, b, 32, eps, silu)
+        err = (out.float() - want).abs().max().item()
+        again = torch.equal(out, G.group_norm(x, w, b, 32, eps, silu))
+        new = lambda: G.group_norm(x, w, b, 32, eps, silu)   # noqa: E731
+        old = lambda: G.group_norm_triton(x, w, b, 32, eps, silu)   # noqa: E731
+        old_err = (old().float() - want).abs().max().item()
+        wb, bb = w.to(dtype), b.to(dtype)
+        lib = (lambda: F.silu(F.group_norm(x, 32, wb, bb, eps))) if silu else (lambda: F.group_norm(x, 32, wb, bb, eps))
+        ms, old_ms = cuda_ms(new, 20), cuda_ms(old, 20)
+        plain_ms, lib_ms = cuda_ms(lambda: G.group_norm_plain(x, w, b, 32, eps, silu), 5), cuda_ms(lib, 20)
+        turns = [graph_ms([f] * 10) for f in (new, old, old, new)]
+        graph, graph_old = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        lib_graph = graph_ms([lib] * 10)
+        us, us_old = host_us(new, 200), host_us(old, 200)
+        bound_ms, bound_by = bound(nbytes(x, w, b, out))
+        tag = f"K2 {list(shape)} {dname} eps {eps:g} silu {silu}"
+        log(f"[kernels] {tag}: {plan.ranks} CTAs a cluster ({'portable' if plan.portable else 'non-portable'}), "
+            f"{plan.part * plan.itemsize} bytes a part, "
+            f"{plan.smem} B shared, {placed} clusters placed at once; max_abs_err {err:.3e} (bound {K2_BOUND:g}; "
+            f"Triton {old_err:.3e}), two runs bit-identical {again}; first call {first:.2f} s")
+        log(f"[kernels] {tag}: events {ms:.4f} ms (Triton first design {old_ms:.4f}, plain {plain_ms:.3f}, "
+            f"F.group_norm{'+F.silu' if silu else ''} {lib_ms:.4f}); graph replay in turns new {turns[0]:.4f}, "
+            f"old {turns[1]:.4f}, {turns[2]:.4f}, new {turns[3]:.4f} ms (library {lib_graph:.4f}); bound "
+            f"{bound_ms:.4f} ms ({bound_by}): {bound_ms / graph:.1%} of it by graph, {bound_ms / ms:.1%} by events, "
+            f"{graph_old / graph:.2f}x the first design; host {us:.1f} µs a call (Triton pair {us_old:.1f} µs)")
+        if not (err <= K2_BOUND and again and placed > 0):
+            raise AssertionError(f"{tag}: max_abs_err {err}, bit-identical {again}, clusters {placed}")
+        if shape in ((2, 320, 128, 128), (2, 960, 128, 128), (1, 128, 1024, 1024)):
+            faults = [("one rank's partials left out", G.FAULT_DROP_RANK),
+                      ("each CTA on its own part's statistics", G.FAULT_OWN_SLICE),
+                      ("the affine one channel off", G.FAULT_AFFINE_SHIFT),
+                      ("pass 2 reading the next group", G.FAULT_NEIGHBOUR_GROUP)]
+            for name, fault in faults:
+                bad = (G._launch(x, w, b, 32, eps, silu, plan, fault=fault).float() - want).abs().max().item()
+                log(f"[kernels] control ({tag} {name}): max_abs_err {bad:.3e}")
+                if bad <= K2_BOUND:   # a NaN reading breaks it too
+                    raise AssertionError(f"the bound {K2_BOUND:g} misses a planted fault ({tag} {name}): {bad:.3e}")
+        rows.append(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
+        del x, out, want
+        torch.cuda.empty_cache()
+    return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
 class _GeometryCount:
@@ -869,12 +969,18 @@ def _gemv_row(label, kernel, plain, x, weights, out_bytes, faults=(), rel_bound=
 def _check_int8_quantizer(label, w, seeds: int = 64):
     """K8 at one shape: nearest mode bit for bit with the plain version; in
     stochastic mode every value on floor or ceil of w / scale, the same seed
-    the same bytes, and the mean of q over `seeds` seeds within 7 sigma of
-    w / scale everywhere (one draw's rounding error has variance <= 1/4)."""
+    the same bytes, the first design's bytes for 3 seeds, and the mean of q
+    over `seeds` seeds within 7 sigma of w / scale everywhere (one draw's
+    rounding error has variance <= 1/4); the cluster kernel and the first
+    design timed in turns (new, old, old, new, CUDA events); the planted
+    faults (one rank's maxima left out, the Philox words rotated, the tile
+    loaded one column off) must change the bytes."""
     import torch
 
     from supir_tpu_torch.ops import quantize as Q
 
+    plan = Q.int8_plan(*w.shape)
+    placed = Q.int8_clusters(plan)
     q, s = Q.quantize_int8(w, stochastic=False)
     want_q, want_s = Q.quantize_int8_plain(w)
     mismatched = (q != want_q).sum().item() + (s != want_s).sum().item()
@@ -882,23 +988,46 @@ def _check_int8_quantizer(label, w, seeds: int = 64):
     a = Q.quantize_int8(w, seed=11)[0]
     same_seed = torch.equal(a, Q.quantize_int8(w, seed=11)[0])
     off_grid = (~((a.float() == scaled.floor()) | (a.float() == scaled.ceil()))).sum().item()
+    first_design = [torch.equal(Q.quantize_int8(w, seed=seed)[0], Q.quantize_int8_first_design(w, seed=seed)[0])
+                    for seed in (SEED, 11, 2**40 + 3)]
     total = torch.zeros_like(w)
     for seed in range(seeds):
         total += Q.quantize_int8(w, seed=seed)[0].float()
     dev_ = total / seeds - scaled
+    del total
     sigma = 0.5 / seeds ** 0.5
     worst, bias_ = dev_.abs().max().item(), dev_.mean().item()
+    del dev_, scaled
+    new = lambda: Q.quantize_int8(w, seed=1)   # noqa: E731
+    old = lambda: Q.quantize_int8_first_design(w, seed=1)   # noqa: E731
+    turns = [cuda_ms(f, 10) for f in (new, old, old, new)]
+    ms, old_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    nearest_ms = cuda_ms(lambda: Q.quantize_int8(w, stochastic=False), 10)
     u = torch.rand(w.shape, generator=torch.Generator(device=w.device).manual_seed(0), device=w.device)
-    ms = cuda_ms(lambda: Q.quantize_int8(w, seed=1), 10)
     plain_ms = cuda_ms(lambda: Q.quantize_int8_plain(w, u), 5)
+    del u
     bound_ms, bound_by = bound(nbytes(w, q, s))
-    log(f"[kernels] {label}: nearest mode {mismatched} values differ from plain (bound 0); stochastic: "
-        f"{off_grid} off floor/ceil, same seed same bytes {same_seed}, mean over {seeds} seeds: worst "
-        f"|mean - w/scale| {worst:.4f} (bound 7 sigma = {7 * sigma:.4f}), mean deviation {bias_:.2e}; "
-        f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    if mismatched or off_grid or not same_seed or not worst <= 7 * sigma:
+    log(f"[kernels] {label}: {plan.ranks} CTAs a cluster x {plan.tiles} tiles of {plan.cols} columns, {plan.rows} rows "
+        f"a slice in {plan.nboxes} TMA boxes, {plan.smem} B shared, {placed} clusters placed at once; nearest mode "
+        f"{mismatched} values differ from plain (bound 0); stochastic: {off_grid} off floor/ceil, same seed same "
+        f"bytes {same_seed}, the first design's bytes for 3 seeds {first_design}, mean over {seeds} seeds: worst "
+        f"|mean - w/scale| {worst:.4f} (bound 7 sigma = {7 * sigma:.4f}), mean deviation {bias_:.2e}")
+    log(f"[kernels] {label}: in turns new {turns[0]:.4f}, old {turns[1]:.4f}, {turns[2]:.4f}, new {turns[3]:.4f} ms "
+        f"(first design {old_ms / ms:.2f}x the time); nearest {nearest_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%} of it)")
+    if mismatched or off_grid or not same_seed or not all(first_design) or not worst <= 7 * sigma or placed < 1:
         raise AssertionError(f"{label} fails its checks")
-    return dict(max_abs_err=float(mismatched), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    first_q = Q.quantize_int8_first_design(w, seed=1)[0]
+    for name, fault, seed, stochastic, want in (
+            ("one rank's maxima left out", Q.Q8_FAULT_DROP_RANK, 0, False, want_q),
+            ("the Philox words rotated", Q.Q8_FAULT_ROTATE_WORDS, 1, True, first_q),
+            ("the tile loaded one column off", Q.Q8_FAULT_SHIFT_TILE, 0, False, want_q)):
+        differ = (Q._launch_int8(w, seed, stochastic, plan, fault=fault)[0] != want).sum().item()
+        log(f"[kernels] control ({label} {name}): {differ} bytes differ")
+        if not differ:
+            raise AssertionError(f"the byte check misses a planted fault ({label} {name})")
+    return dict(max_abs_err=float(mismatched), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                before_ms=old_ms)
 
 
 TINYGEMM_GROUP = 128  # the int4 yardstick's group size: every 13B cin is a multiple of it
@@ -1184,6 +1313,9 @@ def phase_quant_kernels():
             acc = yard.setdefault(rows, [0.0, 0.0])
             for i, ms in enumerate(_pair_yardstick(tag, x, weights, siluglu1)):
                 acc[i] += ms
+    w = torch.randn(5120, 32000, generator=g, device=dev) * 5120 ** -0.5
+    _check_int8_quantizer("K8 the int8 head [5120,32000] fp32", w)
+    del w
     for rows, (ms, yard_ms) in sorted(yard.items()):
         log(f"[kernels] K9 over one 13B layer's two pairs at {rows} rows, in turns with its yardstick (the same "
             f"products as two tensor-core K5 calls a pair): K9 {ms:.4f} ms, yardstick {yard_ms:.4f} ms "
@@ -1201,7 +1333,7 @@ def phase_quant_kernels():
         if name in ("K5", "K8", "K9", "K10", "K5-act") or not r["library_ms"]:
             r["library_ms"] = None   # no torch call computes the function (or it refused a projection)
     for (name, rows), (ms, before_ms, bound_ms) in sorted(by_rows.items()):
-        log(f"[kernels] {name} over one 13B layer at {rows} rows: {ms:.4f} ms (strip body before it "
+        log(f"[kernels] {name} over one 13B layer at {rows} rows: {ms:.4f} ms (the design before it, in turns, "
             f"{before_ms:.4f} ms, {before_ms / ms:.2f}x), bound {bound_ms:.4f} ms, {bound_ms / ms:.1%} of it; "
             f"{ms / by_rows[(name, 1)][0]:.2f}x its 1-row time")
     for rows, ms in sorted(wrapper.items()):
@@ -1275,14 +1407,23 @@ def phase_main(steps: int, repeat: int):
         return engine.batchify_sample(x, dict(c, control=z), dict(uc, control=z),
                                       num_steps=steps, seed=SEED, z_override=z, **SAMPLE_KW)
 
-    # warm-up (Triton specialisations, cuDNN algorithm choice), which also
-    # holds K1 at every site to the fp32 plain version on that site's inputs
+    # warm-up (cuDNN algorithm choice), which also holds K1 at every site
+    # to the fp32 plain version on that site's inputs and counts the K2
+    # calls by shape
+    k2_shapes = collections.Counter()
+
+    def k2_by_shape(x, *args):
+        k2_shapes[(tuple(x.shape), str(x.dtype).replace("torch.", ""))] += 1
+        return group_norm(x, *args)
+
     t0 = time.perf_counter()
-    with kernels_at_sites(flash_attention, group_norm) as site_rel:
+    with kernels_at_sites(flash_attention, k2_by_shape) as site_rel:
         run()
     torch.cuda.synchronize()
     log(f"[main] warm-up run {time.perf_counter() - t0:.2f} s; K1 at its {len(site_rel)} site calls vs "
         f"fp32 plain: worst rel_l2 {max(site_rel):.3e} (bound {K1_REL_BOUND:g})")
+    log("[main] K2 calls of one run by shape: " + ", ".join(
+        f"{list(shape)} {dtype} x{n}" for (shape, dtype), n in sorted(k2_shapes.items(), key=lambda kv: -kv[1])))
     if not max(site_rel) <= K1_REL_BOUND:
         raise AssertionError(f"K1 disagrees with its plain version on the main path: rel_l2 {max(site_rel)}")
 
@@ -1334,13 +1475,16 @@ def phase_main(steps: int, repeat: int):
     # the counted run holds four VAE passes: stage-1 encode and decode,
     # the x_center encode, the final decode
     want_k1 = expected_flash_launches(cfg, lat, steps, vae_passes=4)
+    want_k2 = expected_group_norm_launches(cfg, steps, vae_passes=4)
+    k2_sites = expected_group_norm_launches(cfg, 1, vae_passes=0)
     log(f"[main] launches: K1 {launches['K1']} (expected {expected_flash_sites(cfg, lat)} sites x "
         f"{steps} steps + {want_k1 - expected_flash_sites(cfg, lat) * steps} VAE = {want_k1}), "
-        f"K2 {launches['K2']}")
+        f"K2 {launches['K2']} (expected {k2_sites} sites x {steps} steps + {want_k2 - k2_sites * steps} VAE = "
+        f"{want_k2}; the warm-up's calls {sum(k2_shapes.values())})")
     if launches["K1"] != want_k1:
         raise AssertionError(f"K1 launched {launches['K1']} times, expected {want_k1}")
-    if launches["K2"] <= 0:
-        raise AssertionError("K2 was never launched on the main path")
+    if not launches["K2"] == want_k2 == sum(k2_shapes.values()):
+        raise AssertionError(f"K2 launched {launches['K2']} times, expected {want_k2}")
     del engine, out
     torch.cuda.empty_cache()
     return launches
@@ -2771,7 +2915,7 @@ def main() -> int:
 
     sources = {
         "K1": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:35"),
-        "K2": ("triton", "supir_tpu_torch/ops/groupnorm.py", "supir_tpu/ops/groupnorm.py:40"),
+        "K2": ("cuda", "supir_tpu_torch/csrc/group_norm.cu", "supir_tpu/ops/groupnorm.py:40"),
         "K3": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:164"),
         "K4": ("cuda", "supir_tpu_torch/csrc/flash_attn_bwd.cu", "supir_tpu/ops/flash_attention.py:499"),
         "K5": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:260"),

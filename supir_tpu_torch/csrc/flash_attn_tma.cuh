@@ -2,7 +2,8 @@
 // TMA tile copies, wgmma shared-memory descriptors and products, and the
 // host-side encode of the tensor maps that ops/flash_attention.py:tma_plan
 // lays out. flash_attn_fwd.cu (K1, K3) and flash_attn_bwd.cu (K4) each
-// include it into their own translation unit.
+// include it into their own translation unit; quantize_int8.cu (K8) takes
+// its mbarrier and tensor-map helpers.
 //
 // Shared-memory tiles: a tile of R rows and D head-dim columns (bf16) is
 // D / 64 slabs of R rows x 128 bytes, written by TMA in the 128-byte swizzle

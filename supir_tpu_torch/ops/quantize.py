@@ -34,7 +34,10 @@ allows it at the default geometry (`gemv_plan.tc_eligible`: cin % 8 == 0
 and activation rows, which every model shape meets), else the strip body
 of `csrc/quant_gemv.cu`. K9 launches the same file's pair kernel where
 `gemv_plan.tc_pair_eligible` holds (both weights as `tc_eligible` takes
-them), else `csrc/quant_pair.cu`. K8 is `csrc/quantize_int8.cu`; the
+them), else `csrc/quant_pair.cu`. K8 is `csrc/quantize_int8.cu`: one
+cluster of CTAs per tile of columns, w read once into shared memory, the
+column maxima exchanged over distributed shared memory (`int8_plan` lays
+it out, `int8_emulate` and `int8_thread_map` walk it on the CPU). The
 headers say what bounds each kernel on the card and how it is laid out.
 The tensor-core body's weight tensor maps are encoded once per weight and
 cached here (`_tc_map`), and each device keeps one partial-sum scratch, one
@@ -71,6 +74,7 @@ over cin terms stays below 127 * 7 * cin, 1.23e7 at the widest cin of the
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -282,6 +286,146 @@ def quantize_int8_plain(w: torch.Tensor, u: torch.Tensor | None = None):
     return q.clamp(-127, 127).to(torch.int8), scale
 
 
+# K8's geometry (csrc/quantize_int8.cu's Q8_* constants): a cluster of
+# `ranks` CTAs per tile of `cols` columns, rank r owning rows [r * rows,
+# min((r + 1) * rows, cin)), loaded as `nboxes` TMA boxes of `box_rows`
+# rows. The grid holds as many clusters as the card places at once, each
+# walking every gridDim-th tile.
+Q8_MAX_BOXES = 8
+Q8_BOX_ROWS = 256             # TMA's largest box side
+Q8_SMEM_MAX = 232448          # shared memory one CTA may use on the H100 (227 KB)
+# a slice's bytes, and the CTA's threads: up to 55 KB four CTAs of 256
+# threads share an SM, up to 110 KB two of 512 (more CTAs an SM hide the
+# cluster exchange and the loads under the others' quantization: PERF.md
+# §6)
+Q8_SLICE_TIERS = ((55 * 1024, 256), (110 * 1024, 512))
+Q8_FAULT_DROP_RANK = 1        # one rank's column maxima left out
+Q8_FAULT_ROTATE_WORDS = 2     # each element takes the next Philox word
+Q8_FAULT_SHIFT_TILE = 3       # the tile loaded one column to the right
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Plan:
+    cin: int
+    cout: int
+    cols: int
+    ranks: int
+    rows: int
+    box_rows: int
+    nboxes: int
+    threads: int
+    smem: int
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.cout // self.cols)
+
+    @property
+    def portable(self) -> bool:
+        return self.ranks <= 8
+
+    @property
+    def ranges(self):
+        """Each rank's [first row, end row)."""
+        return [(min(r * self.rows, self.cin), min((r + 1) * self.rows, self.cin)) for r in range(self.ranks)]
+
+
+def int8_smem(cols: int, box_rows: int, nboxes: int, threads: int) -> int:
+    """csrc/quantize_int8.cu's shared memory: the slice, the boxes'
+    mbarriers, the warps' column maxima, two sets of the CTA's maxima, the
+    tile's scales and the ranks' maxima (up to 16 ranks)."""
+    return (nboxes * box_rows * cols * 4 + 8 * Q8_MAX_BOXES + (threads // 32) * cols * 4 + 3 * cols * 4
+            + 16 * cols * 4)
+
+
+def _box_rows(rows: int, nboxes: int, cols: int) -> int:
+    """Rows of one TMA box: the slice over `nboxes` boxes, rounded up so
+    that a box is a multiple of 128 bytes (each box lands 128-byte aligned)."""
+    step = max(1, 32 // cols)
+    return -(-(-(-rows // nboxes)) // step) * step
+
+
+def int8_plan(cin: int, cout: int) -> Int8Plan:
+    """K8's geometry for w [cin, cout]: tiles of 32 columns (128 bytes of a
+    row; 16, 8 or 4 for matrices too tall for that), the first tier of
+    Q8_SLICE_TIERS whose slice holds the fewest ranks' rows (a power of two,
+    at most 16), the slice loaded as up to Q8_MAX_BOXES TMA boxes of equal
+    rows."""
+    for cols in (32, 16, 8, 4):
+        for cap, threads in Q8_SLICE_TIERS:
+            ranks = 1
+            while ranks <= 16 and -(-cin // ranks) * cols * 4 > cap:
+                ranks *= 2
+            if ranks > 16:
+                continue
+            rows = -(-cin // ranks)
+            while ranks > 1 and (ranks - 1) * rows >= cin:   # no empty rank
+                ranks -= 1
+            nboxes = -(-rows // Q8_BOX_ROWS)
+            box_rows = _box_rows(rows, nboxes, cols)
+            smem = int8_smem(cols, box_rows, nboxes, threads)
+            if nboxes <= Q8_MAX_BOXES and smem <= Q8_SMEM_MAX and -(-cout // cols) <= 65535:
+                return Int8Plan(cin, cout, cols, ranks, rows, box_rows, nboxes, threads, smem)
+    raise ValueError(f"quantize_int8 kernel: no geometry for [{cin}, {cout}]")
+
+
+def int8_emulate(w: torch.Tensor, plan: Int8Plan) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8 in nearest mode on `plan`, in torch: each rank's column maxima
+    over its row slice of each tile, their maximum over the ranks, then the
+    plain version's scale and rounding."""
+    amax = torch.zeros(plan.cout)
+    a = w.float().abs()
+    for tile in range(plan.tiles):
+        c0, c1 = tile * plan.cols, min((tile + 1) * plan.cols, plan.cout)
+        for r0, r1 in plan.ranges:
+            if r1 > r0:
+                amax[c0:c1] = torch.maximum(amax[c0:c1], a[r0:r1, c0:c1].amax(0))
+    scale = amax.reshape(1, -1) * (1.0 / 127.0)
+    q = torch.round(w.float() / scale.clamp_min(1e-12))
+    return q.clamp(-127, 127).to(torch.int8), scale
+
+
+def int8_thread_map(plan: Int8Plan) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The Philox (counter, word) each element of w takes in the kernel,
+    and how many times the kernel quantizes it, as the kernel's loops
+    compute them: where cout % 4 == 0, thread t of rank r and tile j takes
+    columns 4 (t % tpr) .. + 3 of rows r * rows + t / tpr + i * rps (tpr =
+    cols / 4 threads a row, rps = threads / tpr rows a step), one counter
+    e / 4 of the first element e for all four, words 0..3; otherwise each
+    element of the slice its own, e / 4 and e % 4. Returns int64 [cin,
+    cout] counters, words and visits."""
+    cin, cout, cols = plan.cin, plan.cout, plan.cols
+    counter = torch.full((cin * cout,), -1, dtype=torch.int64)
+    word = torch.full((cin * cout,), -1, dtype=torch.int64)
+    visits = torch.zeros(cin * cout, dtype=torch.int64)
+    tpr, t = cols // 4, torch.arange(plan.threads)
+    rps = plan.threads // tpr
+    for tile in range(plan.tiles):
+        col0 = tile * cols
+        for r0, r1 in plan.ranges:
+            nrows = r1 - r0
+            if cout % 4 == 0:
+                steps = -(-nrows // rps)
+                i = torch.arange(steps)[:, None]
+                r = (i * rps + t[None, :] // tpr).reshape(-1)
+                col = (col0 + 4 * (t % tpr))[None, :].expand(steps, -1).reshape(-1)
+                live = (r < nrows) & (col < cout)
+                e = (r0 + r[live]) * cout + col[live]
+                for k in range(4):
+                    counter[e + k] = e >> 2
+                    word[e + k] = k
+                    visits.index_add_(0, e + k, torch.ones_like(e))
+            else:
+                i = torch.arange(nrows * cols)
+                r, c = i // cols, i % cols
+                live = col0 + c < cout
+                e = (r0 + r[live]) * cout + col0 + c[live]
+                counter[e] = e >> 2
+                word[e] = e & 3
+                visits.index_add_(0, e, torch.ones_like(e))
+    return counter.reshape(cin, cout), word.reshape(cin, cout), visits.reshape(cin, cout)
+
+
 # ------------------------------------------------------------------ kernels
 
 
@@ -309,13 +453,16 @@ def _pair_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
 def _quant_library() -> ctypes.CDLL:
     from supir_tpu_torch.ops.cuda_build import load_library
 
     lib = load_library(_QUANT_SOURCE)
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
     lib.supir_quantize_int8.restype = i
-    lib.supir_quantize_int8.argtypes = [p, i, i, p, ctypes.c_ulonglong, i, p, p, p]
+    lib.supir_quantize_int8.argtypes = [p, i, i, i, i, i, i, i, i, u64, i, p, p, i, i, p, ctypes.POINTER(ctypes.c_int)]
+    lib.supir_quantize_int8_first.restype = i
+    lib.supir_quantize_int8_first.argtypes = [p, i, i, p, u64, i, p, p, p]
     return lib
 
 
@@ -832,28 +979,74 @@ def quantize_int8(w: torch.Tensor, seed: int = 0, stochastic: bool = True):
     """K8: w [in, out] -> (q int8 [in, out], scale fp32 [1, out]), rounding
     stochastically with u drawn from `seed`, or to nearest. On the CPU the
     plain version draws u from a torch.Generator seeded with `seed`; on the
-    card the kernel draws it from Philox, so the two differ bit for bit in
+    card one cluster launch (`csrc/quantize_int8.cu`, `int8_plan`) reads w
+    once and draws u from Philox, so the two differ bit for bit in
     stochastic mode and agree in nearest mode."""
     if w.device.type == "cpu":
         u = None
         if stochastic:
             u = torch.rand(w.shape, generator=torch.Generator().manual_seed(seed))
         return quantize_int8_plain(w, u)
+    _check_int8(w)
+    out = _launch_int8(w, seed, stochastic, _int8_plan(*w.shape))
+    quantize_int8.launches += 1
+    return out
+
+
+def _check_int8(w: torch.Tensor) -> None:
     _check_on_card("quantize_int8", w, ())
-    if w.dim() != 2 or w.dtype != torch.float32 or not w.is_contiguous():
+    if w.dim() != 2 or w.dtype != torch.float32 or not w.is_contiguous() or 0 in w.shape:
         raise ValueError(f"quantize_int8 takes a contiguous fp32 [in, out] tensor, got {w.dtype} {tuple(w.shape)}")
+
+
+_int8_plan = functools.lru_cache(maxsize=64)(int8_plan)
+
+
+def _launch_int8(w, seed: int, stochastic: bool, plan: Int8Plan, fault: int = 0):
+    """One launch of K8's cluster kernel on `plan`; returns (q, scale)."""
+    cin, cout = w.shape
+    q = torch.empty((cin, cout), dtype=torch.int8, device=w.device)
+    scale = torch.empty((1, cout), dtype=torch.float32, device=w.device)
+    with torch.cuda.device(w.device):
+        err = _quant_library().supir_quantize_int8(
+            w.data_ptr(), cin, cout, plan.cols, plan.ranks, plan.rows, plan.box_rows, plan.nboxes, plan.threads,
+            seed & (2**64 - 1), int(stochastic), q.data_ptr(), scale.data_ptr(), plan.smem, fault,
+            _stream(w.device), None)
+    if err != 0:
+        why = "the cluster cannot be placed on this card" if err == -1 else (
+            f"CUresult {-err} (tensor map)" if err < 0 else f"cudaError {err}")
+        raise RuntimeError(f"quantize_int8 kernel launch failed ([{cin}, {cout}], {plan.ranks} ranks): {why}")
+    return q, scale
+
+
+def int8_clusters(plan: Int8Plan) -> int:
+    """How many clusters of `plan` the current card holds at once
+    (cudaOccupancyMaxActiveClusters); 0: the plan cannot be launched."""
+    out = ctypes.c_int(0)
+    err = _quant_library().supir_quantize_int8(None, plan.cin, plan.cout, plan.cols, plan.ranks, plan.rows,
+                                               plan.box_rows, plan.nboxes, plan.threads, 0, 0, None, None,
+                                               plan.smem, 0, None, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"quantize_int8 occupancy query failed: cudaError {err}")
+    return out.value
+
+
+def quantize_int8_first_design(w: torch.Tensor, seed: int = 0, stochastic: bool = True):
+    """K8's first design (`supir_quantize_int8_first`: a zeroed amax scratch, the
+    column maxima by atomicMax over 64-row slabs, then a second read of w to
+    quantize), for the comparisons on the card only; the same seed gives
+    the same bytes as `quantize_int8`."""
+    _check_int8(w)
     cin, cout = w.shape
     amax = torch.zeros(cout, dtype=torch.int32, device=w.device)
     q = torch.empty((cin, cout), dtype=torch.int8, device=w.device)
     scale = torch.empty((1, cout), dtype=torch.float32, device=w.device)
     with torch.cuda.device(w.device):
-        err = _quant_library().supir_quantize_int8(
+        err = _quant_library().supir_quantize_int8_first(
             w.data_ptr(), cin, cout, amax.data_ptr(), seed & (2**64 - 1), int(stochastic),
-            q.data_ptr(), scale.data_ptr(), _stream(w.device),
-        )
+            q.data_ptr(), scale.data_ptr(), _stream(w.device))
     if err != 0:
-        raise RuntimeError(f"quantize_int8 kernel launch failed: cudaError {err}")
-    quantize_int8.launches += 1
+        raise RuntimeError(f"quantize_int8 first design launch failed: cudaError {err}")
     return q, scale
 
 

@@ -42,6 +42,26 @@ LAYER = (("qkv", 5120, 15360, "norm", False), ("o", 5120, 5120, None, True),
          ("gateup", 5120, 27648, "norm", False), ("down", 13824, 5120, "siluglu", True))
 
 
+def host_us(fn, calls: int, warmup: int = 100) -> float:
+    """The host's microseconds per call of fn(): after `warmup` calls, the
+    host clock summed over `calls` calls each timed on its own, with a
+    synchronise every 10 calls outside the timed spans (the queue stays
+    short: the card never paces the host)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    host = 0.0
+    for i in range(calls):
+        if i % 10 == 0:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / calls * 1e6
+
+
 def child(calls: int) -> dict:
     """Time this tree's wrappers (run with the tree first on sys.path)."""
     import torch
@@ -66,17 +86,7 @@ def child(calls: int) -> dict:
                 "K11": lambda: Q.int4_native_matmul(x, qn, sn)}
     out = {"package": str(Path(Q.__file__).resolve().parents[1])}
     for name, fn in calls_of.items():
-        for _ in range(100):
-            fn()
-        host = 0.0
-        for i in range(calls):
-            if i % 10 == 0:
-                torch.cuda.synchronize()  # the queue stays short: the card never paces the host
-            t0 = time.perf_counter()
-            fn()
-            host += time.perf_counter() - t0
-        torch.cuda.synchronize()
-        out[name] = host / calls * 1e6
+        out[name] = host_us(fn, calls)
     out["device"] = layer_ms(dev)
     return out
 

@@ -689,23 +689,76 @@ def test_flash_backward_planted_faults(cuda, s, d, causal):
             assert not _worst(bad, want) <= 2e-2, (name, slopes is not None)  # NaN breaks it too
 
 
+def _gn_card_case(cuda, shape, dtype, seed=0):
+    """x with its own mean and scale per channel (so that statistics taken
+    over the wrong elements show), and the affine, on the card."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    c = shape[1]
+    view = (1, c) + (1,) * (len(shape) - 2)
+    scale = 0.5 + torch.rand(c, generator=g, device=cuda)
+    shift = 2.0 * torch.rand(c, generator=g, device=cuda) - 1.0
+    # clamped at 3 sigma: the outputs stay under 8, where a bf16 rounding
+    # stays under the bound
+    x = (torch.randn(shape, generator=g, device=cuda).clamp(-3, 3) * scale.view(view) + shift.view(view)).to(dtype)
+    w = 1.0 + 0.1 * torch.randn(c, generator=g, device=cuda)
+    b = 0.1 * torch.randn(c, generator=g, device=cuda)
+    return x, w, b
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,eps,silu", [
-    ((2, 320, 128, 128), 1e-5, True),
-    ((1, 128, 256, 256), 1e-6, True),
-    ((2, 1280, 32, 32), 1e-5, False),
+@pytest.mark.parametrize("shape,eps,silu,dtype", [
+    ((2, 320, 128, 128), 1e-5, True, torch.bfloat16),
+    ((1, 128, 256, 256), 1e-6, True, torch.bfloat16),
+    ((2, 1280, 32, 32), 1e-5, False, torch.bfloat16),
+    ((1, 64, 1024, 1024), 1e-6, True, torch.bfloat16),   # 4 MB slabs
+    ((1, 96, 7, 9), 1e-6, True, torch.bfloat16),         # 189-element slabs: ragged heads and tails
+    ((3, 96, 7, 9), 1e-5, False, torch.float32),
+    ((2, 320, 64, 64), 1e-5, True, torch.float16),
 ])
-def test_group_norm_kernel_matches_plain(cuda, shape, eps, silu):
-    # bf16 in and out; the plain version on the same values in fp32 is the
-    # reference, so the bound covers the kernel's one output rounding
-    g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
-    w = 1.0 + 0.1 * torch.randn(shape[1], generator=g, device=cuda)
-    b = 0.1 * torch.randn(shape[1], generator=g, device=cuda)
+def test_group_norm_kernel_matches_plain(cuda, shape, eps, silu, dtype):
+    # the plain version on the same values in fp32 is the reference, so the
+    # bound covers the kernel's one output rounding; one launch a call, and
+    # two runs give the same bits (a fixed reduction order, no atomics)
+    x, w, b = _gn_card_case(cuda, shape, dtype)
+    before = group_norm.launches
     got = group_norm(x, w, b, 32, eps, silu)
+    torch.cuda.synchronize()
+    assert group_norm.launches == before + 1
     want = group_norm_plain(x.float(), w, b, 32, eps, silu)
     assert got.dtype == x.dtype
     assert (got.float() - want).abs().max().item() <= 3e-2
+    assert torch.equal(got, group_norm(x, w, b, 32, eps, silu))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_kernel_takes_an_unaligned_x(cuda, dtype):
+    """x at an offset that is not a multiple of 16 bytes: every slab's head
+    and tail go through plain loads, and y is placed at x's offset."""
+    x, w, b = _gn_card_case(cuda, (2, 64, 9, 7), dtype, seed=3)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    got = group_norm(shifted, w, b, 32, 1e-5, True)
+    want = group_norm_plain(x.float(), w, b, 32, 1e-5, True)
+    assert (got.float() - want).abs().max().item() <= 3e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 320, 128, 128), (1, 64, 1024, 1024)])
+def test_group_norm_planted_faults_break_the_bound(cuda, shape):
+    """Each planted fault of csrc/group_norm.cu breaks K2's 3e-2 bound: one
+    rank's partials left out, each CTA on its own part's statistics, the
+    affine one channel off, and pass 2 reading the next group."""
+    from supir_tpu_torch.ops import groupnorm as G
+
+    x, w, b = _gn_card_case(cuda, shape, torch.bfloat16, seed=1)
+    plan = G.plan_for(x)
+    want = group_norm_plain(x.float(), w, b, 32, 1e-5, True)
+    for fault in (G.FAULT_DROP_RANK, G.FAULT_OWN_SLICE, G.FAULT_AFFINE_SHIFT, G.FAULT_NEIGHBOUR_GROUP):
+        bad = G._launch(x, w, b, 32, 1e-5, True, plan, fault=fault)
+        assert not (bad.float() - want).abs().max().item() <= 3e-2, fault
 
 
 @pytest.mark.gpu

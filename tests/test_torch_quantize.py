@@ -414,10 +414,17 @@ def test_paired_and_qmm_kernels_match_plain(cuda, rows):
 
 
 @pytest.mark.gpu
-def test_quantize_int8_kernel(cuda):
+@pytest.mark.parametrize("cin,cout", [(1000, 264), (1000, 263), (13824, 96), (37, 13)])
+def test_quantize_int8_kernel(cuda, cin, cout):
+    """Nearest mode bit for bit with the plain version; stochastic: on floor
+    or ceil, the same seed the same bytes, unbiased over 64 seeds, and the
+    bytes of the first design (`quantize_int8_first_design`) for each seed,
+    at ragged couts too (not a multiple of 16, 32 or 4)."""
     g = torch.Generator(device=cuda).manual_seed(2)
-    w = torch.randn(1000, 264, generator=g, device=cuda)
+    w = torch.randn(cin, cout, generator=g, device=cuda)
+    before = Q.quantize_int8.launches
     q, s = Q.quantize_int8(w, stochastic=False)
+    assert Q.quantize_int8.launches == before + 1
     want_q, want_s = Q.quantize_int8_plain(w)
     assert torch.equal(q, want_q) and torch.equal(s, want_s)
     scaled = w / s
@@ -426,6 +433,30 @@ def test_quantize_int8_kernel(cuda):
     assert ((a.float() == scaled.floor()) | (a.float() == scaled.ceil())).all()
     mean = torch.stack([Q.quantize_int8(w, seed=i)[0].float() for i in range(64)]).mean(0)
     assert ((mean - scaled).abs() <= 6 * 0.5 / 8).all()
+    for seed in (3, 11, 2**40 + 7):
+        first_q, first_s = Q.quantize_int8_first_design(w, seed=seed)
+        got_q, got_s = Q.quantize_int8(w, seed=seed)
+        assert torch.equal(got_q, first_q) and torch.equal(got_s, first_s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout", [(5120, 512), (1000, 263)])
+def test_quantize_int8_planted_faults_change_the_bytes(cuda, cin, cout):
+    """Each planted fault of csrc/quantize_int8.cu breaks equality with the
+    plain version (nearest) or the first design (stochastic): one rank's
+    column maxima left out (the absmax planted in its rows), the Philox
+    words rotated, the tile loaded one column off."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    w = torch.randn(cin, cout, generator=g, device=cuda)
+    w[-1] = 8.0  # every column's absmax in the last rank's rows
+    plan = Q.int8_plan(cin, cout)
+    assert plan.ranks > 1
+    want_q, want_s = Q.quantize_int8_plain(w)
+    first_q = Q.quantize_int8_first_design(w, seed=9)[0]
+    dropped = Q._launch_int8(w, 0, False, plan, fault=Q.Q8_FAULT_DROP_RANK)
+    assert not torch.equal(dropped[1], want_s)
+    assert not torch.equal(Q._launch_int8(w, 9, True, plan, fault=Q.Q8_FAULT_ROTATE_WORDS)[0], first_q)
+    assert not torch.equal(Q._launch_int8(w, 0, False, plan, fault=Q.Q8_FAULT_SHIFT_TILE)[0], want_q)
 
 
 @pytest.mark.gpu
