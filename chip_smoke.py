@@ -55,11 +55,14 @@ Phases, each printing its own lines:
      the card's measured streaming ceiling; then each probe kernel at one
      geometry against its plain version: the column sum 1-D (strip 512) and
      2-D (1280x1920), the nibble unpack and the native cast bit for bit;
-     W4A8 at split-K 2 by 1e-6; the single-cast GEMV (strip 256) and K7
-     (strip 128) and K11 (strip 256) instances by rel-L2 1e-2; each with
-     planted faults that must break it, and beside T1c, T3b and T4b the
-     tensor-core body at the same shape (K7 int4, K6, K11 at the default
-     geometry).
+     W4A8 at split-K 2 by 1e-6; K7's strip 128 instance (T1c) and T3b
+     (paired) and T4b (native) on the tensor-core body at the plan's
+     k-slices by rel-L2 1e-2; each with planted faults that must break it;
+     beside T1c the tensor-core body at the same shape (K7 int4), and
+     beside T3b and T4b, in turns, their first designs (csrc/probes.cu
+     strip 256, K11's strip body at 256) and tinygemm; T3b and T4b on
+     all-positive x at cin 13824, 1 and 8 rows, at each slice count of the
+     probes' sweep.
   4. main path: a full-width SDXL/SUPIR engine (XL-base, bf16, random
      weights from a seeded CUDA generator) restores one image through
      SUPIREngine.batchify_sample with bench.py's headline settings: a
@@ -615,6 +618,7 @@ def phase_group_norm():
 
     from supir_tpu_torch.ops import groupnorm as G
     from supir_tpu_torch.tools.gemv_host_cost import host_us
+    from supir_tpu_torch.tools.timing import mean, turns
 
     g = torch.Generator(device="cuda").manual_seed(2345)
     rows = []
@@ -637,8 +641,8 @@ def phase_group_norm():
         lib = (lambda: F.silu(F.group_norm(x, 32, wb, bb, eps))) if silu else (lambda: F.group_norm(x, 32, wb, bb, eps))
         ms, old_ms = cuda_ms(new, 20), cuda_ms(old, 20)
         plain_ms, lib_ms = cuda_ms(lambda: G.group_norm_plain(x, w, b, 32, eps, silu), 5), cuda_ms(lib, 20)
-        turns = [graph_ms([f] * 10) for f in (new, old, old, new)]
-        graph, graph_old = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        t = turns({"new": [new] * 10, "old": [old] * 10}, graph_ms)
+        graph, graph_old = mean(t["new"]), mean(t["old"])
         lib_graph = graph_ms([lib] * 10)
         us, us_old = host_us(new, 200), host_us(old, 200)
         bound_ms, bound_by = bound(nbytes(x, w, b, out))
@@ -648,8 +652,8 @@ def phase_group_norm():
             f"{plan.smem} B shared, {placed} clusters placed at once; max_abs_err {err:.3e} (bound {K2_BOUND:g}; "
             f"Triton {old_err:.3e}), two runs bit-identical {again}; first call {first:.2f} s")
         log(f"[kernels] {tag}: events {ms:.4f} ms (Triton first design {old_ms:.4f}, plain {plain_ms:.3f}, "
-            f"F.group_norm{'+F.silu' if silu else ''} {lib_ms:.4f}); graph replay in turns new {turns[0]:.4f}, "
-            f"old {turns[1]:.4f}, {turns[2]:.4f}, new {turns[3]:.4f} ms (library {lib_graph:.4f}); bound "
+            f"F.group_norm{'+F.silu' if silu else ''} {lib_ms:.4f}); graph replay in turns new {t['new'][0]:.4f}, "
+            f"old {t['old'][0]:.4f}, {t['old'][1]:.4f}, new {t['new'][1]:.4f} ms (library {lib_graph:.4f}); bound "
             f"{bound_ms:.4f} ms ({bound_by}): {bound_ms / graph:.1%} of it by graph, {bound_ms / ms:.1%} by events, "
             f"{graph_old / graph:.2f}x the first design; host {us:.1f} µs a call (Triton pair {us_old:.1f} µs)")
         if not (err <= K2_BOUND and again and placed > 0):
@@ -687,7 +691,7 @@ def _probe_counters():
 
     return {"T1a": P.column_sum, "T1b": P.column_sum_2d, "T1c": _GeometryCount(Q.qmm), "T2": P.w4a8_preact,
             "T3a": P.unpack_nibbles, "T3b": P.int4_single_cast_matmul, "T4a": P.native_cast,
-            "T4b": _GeometryCount(Q.int4_native_matmul)}
+            "T4b": P.native_single_cast_matmul}
 
 
 def _probe_row(label, kernel, plain, copies, moved_bytes, faults, want=None, rel_bound=None, library=None,
@@ -738,15 +742,17 @@ def _probe_row(label, kernel, plain, copies, moved_bytes, faults, want=None, rel
 def phase_probes():
     """[probes]: the four probes' mains on the card at 3 replays, counted;
     the measured streaming ceiling; each probe kernel at one geometry
-    against its plain version, and beside T1c, T3b and T4b the tensor-core
-    body at the same shape (K7 int4, K6, K11 at the default geometry).
-    Returns the JSON numbers and the launches of T1a-T4b."""
+    against its plain version; beside T1c the tensor-core body at the same
+    shape (K7 int4), beside T3b and T4b in turns their first designs and
+    tinygemm; T3b and T4b on all-positive x (_probe_precision). Returns the
+    JSON numbers and the launches of T1a-T4b."""
     import gc
 
     import torch
 
     from supir_tpu_torch.ops import probes as P, quantize as Q
     from supir_tpu_torch.tools import bitcast_probe, gemv_sweep, int4_native_probe, stream_ceiling
+    from supir_tpu_torch.tools.timing import tinygemm
 
     counters = _probe_counters()
     t0 = time.perf_counter()
@@ -790,15 +796,15 @@ def phase_probes():
          ("last row block dropped", lambda: P.column_sum_2d(q0, 1280, 1920, _fault=2))], library=lib)
     x8 = torch.randn(8, cin, generator=g, device=dev).to(torch.bfloat16)
 
-    def tinygemm(unpack, layouts, xx):
+    def yardstick(unpack, layouts, xx):
         """The int4 yardstick (tinygemm) of these weights' values, its own
         layout made once per copy; (fn of the copy, copies), or (None, None)."""
-        made = [_try_library(_int4_library, unpack(q), scale) for (q,) in layouts]
+        made = [_try_library(tinygemm, unpack(q), scale) for (q,) in layouts]
         if any(m is None for m in made):
             return None, None
         return (lambda w_, s_: made[0][0](xx, w_, s_)), [m[1] for m in made]
 
-    lib, lib_qs = tinygemm(Q.unpack_int4, qs, x8)
+    lib, lib_qs = yardstick(Q.unpack_int4, qs, x8)
     rows["T1c"] = _probe_row(
         "T1c K7 int4 half-split [8,5120]x[2560,15360] strip 128", lambda q: Q.int4_matmul(x8, q, scale, strip=128),
         lambda q: Q.qmm_plain(x8, q, scale, 4), qs, per + nbytes(x8, scale) + 8 * cout * 4,
@@ -808,7 +814,7 @@ def phase_probes():
     tc_beside("T1c", "K7 int4 [8,5120]x[2560,15360]", lambda q: Q.int4_matmul(x8, q, scale),
               lambda q: Q.qmm_plain(x8, q, scale, 4), qs, per + nbytes(x8, scale) + 8 * cout * 4,
               Q.qmm_plain(x8.float(), q0, scale, 4))
-    lib, lib_qs = tinygemm(Q.unpack_int4_paired, qs, x8)
+    lib, lib_qs = yardstick(Q.unpack_int4_paired, qs, x8)
     xq = torch.randint(-127, 128, (1, cin), dtype=torch.int8, generator=g, device=dev)
     rows["T2"] = _probe_row(
         "T2 W4A8 qkv [1,5120]x[2560,15360] strip 32 split-K 2", lambda q: P.w4a8_preact(xq, q, scale, 32, 2),
@@ -816,15 +822,16 @@ def phase_probes():
         [("one partial dropped", lambda: P.w4a8_preact(xq, q0, scale, 32, 2, _skip_split=1))],
         rel_bound=W4A8_REL_BOUND)
     rows["T3b"] = _probe_row(
-        "T3b single-cast GEMV qkv [8,5120]x[2560,15360] strip 256",
-        lambda q: P.int4_single_cast_matmul(x8, q, scale, 256), lambda q: P.int4_single_cast_matmul_plain(x8, q, scale),
-        qs, per + nbytes(x8, scale) + 8 * cout * 4,
-        [("scale left out", lambda: P.int4_single_cast_matmul(x8, q0, ones, 256))],
+        "T3b single-cast GEMV on the tensor-core body (K6's instance) qkv [8,5120]x[2560,15360]",
+        lambda q: P.int4_single_cast_matmul(x8, q, scale), lambda q: P.int4_single_cast_matmul_plain(x8, q, scale),
+        qs, per + nbytes(x8, scale) + 8 * cout * 4, _body_faults(P.int4_single_cast_matmul, x8, q0, scale),
         want=P.int4_single_cast_matmul_plain(x8.float(), q0, scale), rel_bound=GEMV_REL_BOUND, library=lib,
         lib_copies=lib_qs, lib_name="tinygemm")
-    tc_beside("T3b", "K6 [8,5120]x[2560,15360]", lambda q: Q.int4_paired_matmul(x8, q, scale),
-              lambda q: Q.int4_paired_matmul_plain(x8, q, scale), qs, per + nbytes(x8, scale) + 8 * cout * 4,
-              Q.int4_paired_matmul_plain(x8.float(), q0, scale))
+    _probe_turns("T3b", P.int4_single_cast_matmul_plain(x8.float(), q0, scale), {
+        "T3b": [lambda q=q: P.int4_single_cast_matmul(x8, q, scale) for (q,) in qs],
+        "first design (csrc/probes.cu, strip 256)": [lambda q=q: P.int4_single_cast_matmul_strip(x8, q, scale, 256)
+                                                     for (q,) in qs],
+        "tinygemm": [lambda w=w: lib(*w) for w in lib_qs] if lib else None}, beside)
     del qs, q0, lib, lib_qs
     gc.collect()
     torch.cuda.empty_cache()
@@ -835,16 +842,18 @@ def phase_probes():
     sn = torch.rand(1, dcout, generator=g, device=dev) * 0.01 + 0.001
     x1 = torch.randn(1, dcin, generator=g, device=dev).to(torch.bfloat16)
     scale = sn
-    lib, lib_qs = tinygemm(Q.unpack_int4_native, qn, x1)
+    lib, lib_qs = yardstick(Q.unpack_int4_native, qn, x1)
     rows["T4b"] = _probe_row(
-        "T4b K11 down [1,13824]x[13824,5120] strip 256", lambda q: Q.int4_native_matmul(x1, q, sn, strip=256),
-        lambda q: Q.int4_native_matmul_plain(x1, q, sn), qn, dcin * dcout // 2 + nbytes(x1, sn) + dcout * 4,
-        [("scale left out", lambda: Q.int4_native_matmul(x1, qn[0][0], torch.ones_like(sn), strip=256))],
-        want=Q.int4_native_matmul_plain(x1.float(), qn[0][0], sn), rel_bound=GEMV_REL_BOUND, library=lib,
+        "T4b native single-cast GEMV on the tensor-core body (K11's instance) down [1,13824]x[13824,5120]",
+        lambda q: P.native_single_cast_matmul(x1, q, sn), lambda q: P.native_single_cast_matmul_plain(x1, q, sn), qn,
+        dcin * dcout // 2 + nbytes(x1, sn) + dcout * 4, _body_faults(P.native_single_cast_matmul, x1, qn[0][0], sn),
+        want=P.native_single_cast_matmul_plain(x1.float(), qn[0][0], sn), rel_bound=GEMV_REL_BOUND, library=lib,
         lib_copies=lib_qs, lib_name="tinygemm")
-    tc_beside("T4b", "K11 [1,13824]x[13824,5120]", lambda q: Q.int4_native_matmul(x1, q, sn),
-              lambda q: Q.int4_native_matmul_plain(x1, q, sn), qn, dcin * dcout // 2 + nbytes(x1, sn) + dcout * 4,
-              Q.int4_native_matmul_plain(x1.float(), qn[0][0], sn))
+    _probe_turns("T4b", P.native_single_cast_matmul_plain(x1.float(), qn[0][0], sn), {
+        "T4b": [lambda q=q: P.native_single_cast_matmul(x1, q, sn) for (q,) in qn],
+        "first design (K11's strip body, strip 256)": [lambda q=q: Q.int4_native_matmul(x1, q, sn, strip=256)
+                                                       for (q,) in qn],
+        "tinygemm": [lambda w=w: lib(*w) for w in lib_qs] if lib else None}, beside)
     del qn, lib, lib_qs
     gc.collect()
     torch.cuda.empty_cache()
@@ -866,9 +875,73 @@ def phase_probes():
     for probe, (label, ms) in beside.items():
         r = rows[probe]
         lib = "" if r["library_ms"] is None else f"; tinygemm {r['library_ms']:.4f} ms"
-        log(f"[probes] {probe} {r['ms']:.4f} ms beside the tensor-core body at its shape ({label}) {ms:.4f} ms: "
-            f"{r['ms'] / ms:.2f}x its time{lib}")
+        log(f"[probes] {probe} {r['ms']:.4f} ms beside {label} {ms:.4f} ms: {r['ms'] / ms:.2f}x its time{lib}")
+    _probe_precision(g)
     return rows, launches, ceiling
+
+
+def _body_faults(kernel, x, q, s):
+    """T3b's or T4b's planted faults, each a call of `kernel` on (x, q, s):
+    the tensor-core body's (gemv_plan.FAULT_*; the combine run twice at 2
+    k-slices) and the scale left out."""
+    import torch
+
+    from supir_tpu_torch.ops import gemv_plan as GP
+
+    return [("one share dropped", lambda: kernel(x, q, s, _fault=GP.FAULT_DROP_SHARE)),
+            ("x' staged in the wrong k order", lambda: kernel(x, q, s, _fault=GP.FAULT_X_ORDER)),
+            ("combine run twice (2 slices)", lambda: kernel(x, q, s, 2, _fault=GP.FAULT_COMBINE_TWICE)),
+            ("scale left out", lambda: kernel(x, q, torch.ones_like(s)))]
+
+
+def _probe_turns(probe, want, variants, beside):
+    """T3b or T4b in turns (a, b, c, c, b, a: tools/timing.py:turns) with
+    its first design and tinygemm over the same weight copies, each
+    variant's output on the first copy held to `want` by GEMV_REL_BOUND
+    first."""
+    from supir_tpu_torch.tools.timing import mean, turns
+
+    variants = {k: v for k, v in variants.items() if v is not None}
+    rels = {name: rel_l2(calls[0](), want) for name, calls in variants.items()}
+    log(f"[probes] {probe} in turns, each on the first copy: " + "; ".join(
+        f"{name} rel_l2 {rel:.3e}" for name, rel in rels.items()) + f" (bound {GEMV_REL_BOUND:g})")
+    for name, rel in rels.items():
+        _check_rel(f"{probe} {name}", rel, GEMV_REL_BOUND)
+    times = {name: mean(r) for name, r in turns(variants, graph_ms).items()}
+    ms = times.pop(probe)
+    log(f"[probes] {probe} in turns: {ms:.4f} ms; " + "; ".join(
+        f"{name} {t:.4f} ms ({t / ms:.2f}x its time)" for name, t in times.items()))
+    first = next(name for name in times if name.startswith("first design"))
+    beside[probe] = (f"its {first} in turns", times[first])
+
+
+def _probe_precision(g):
+    """T3b and T4b on all-positive x (|N(0,1)|, as after SiLU) over the 13B
+    down projection (cin 13824), quantized random weights, 1 and 8 rows, at
+    each slice count of the probes' sweep: each within GEMV_REL_BOUND of its
+    fp32 plain version."""
+    import torch
+
+    from supir_tpu_torch.ops import gemv_plan as GP, probes as P, quantize as Q
+
+    cin, cout = 13824, 5120
+    w = torch.randn(cin, cout, generator=g, device="cuda") * cin ** -0.5
+    for probe, layout, kernel, quantize, plain in (
+            ("T3b", "paired", P.int4_single_cast_matmul, Q.quantize_int4_paired, Q.int4_paired_matmul_plain),
+            ("T4b", "native", P.native_single_cast_matmul, Q.quantize_int4_native, Q.int4_native_matmul_plain)):
+        q, s = quantize(w)
+        for nrows in (1, 8):
+            x = torch.randn(nrows, cin, generator=g, device="cuda").abs().to(torch.bfloat16)
+            want = plain(x.float(), q, s)
+            own = GP.tc_plan(layout, nrows, cin, cout, Q._sm_count(0)).slices
+            errs = {n: rel_l2(kernel(x, q, s, n), want) for n in sorted({1, 2, 4, 8, own})}
+            log(f"[probes] {probe} [{nrows},{cin}]x[{cin},{cout}] all-positive x, rel_l2 by k-slices (plan {own}): "
+                + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + f" (bound {GEMV_REL_BOUND:g})")
+            for n, e in errs.items():
+                _check_rel(f"{probe}, all-positive x, {nrows} rows, {n} slices", e, GEMV_REL_BOUND)
+        del q
+    del w
+    torch.cuda.empty_cache()
 
 
 def _swap_nibbles(packed):
@@ -930,6 +1003,8 @@ def _gemv_row(label, kernel, plain, x, weights, out_bytes, faults=(), rel_bound=
     numbers."""
     import torch
 
+    from supir_tpu_torch.tools.timing import mean, turns
+
     out = kernel(x, *weights)
     want = plain(x.float(), *weights)
     rel = _worst_rel(out, want)
@@ -942,10 +1017,10 @@ def _gemv_row(label, kernel, plain, x, weights, out_bytes, faults=(), rel_bound=
         brel = _worst_rel(before(x, *weights), want)
         _check_rel(f"{label} (before)", brel, rel_bound)
         old = [lambda c=c: before(x, *c) for c in copies]
-        t_old, t_new, t_new2, t_old2 = graph_ms(old), graph_ms(chain), graph_ms(chain), graph_ms(old)
-        ms, before_ms = (t_new + t_new2) / 2, (t_old + t_old2) / 2
-        before_note = (f"; before {t_old:.4f}, {t_old2:.4f} ms, now {t_new:.4f}, {t_new2:.4f} ms in turns "
-                       f"({before_ms / ms:.2f}x)")
+        t = turns({"before": old, "now": chain}, graph_ms)
+        ms, before_ms = mean(t["now"]), mean(t["before"])
+        before_note = (f"; before {t['before'][0]:.4f}, {t['before'][1]:.4f} ms, now {t['now'][0]:.4f}, "
+                       f"{t['now'][1]:.4f} ms in turns ({before_ms / ms:.2f}x)")
     else:
         ms = graph_ms(chain)
     plain_ms = graph_ms([lambda c=c: plain(x, *c) for c in copies[:4]], replays=2)
@@ -978,6 +1053,7 @@ def _check_int8_quantizer(label, w, seeds: int = 64):
     import torch
 
     from supir_tpu_torch.ops import quantize as Q
+    from supir_tpu_torch.tools.timing import mean, turns
 
     plan = Q.int8_plan(*w.shape)
     placed = Q.int8_clusters(plan)
@@ -1000,8 +1076,8 @@ def _check_int8_quantizer(label, w, seeds: int = 64):
     del dev_, scaled
     new = lambda: Q.quantize_int8(w, seed=1)   # noqa: E731
     old = lambda: Q.quantize_int8_first_design(w, seed=1)   # noqa: E731
-    turns = [cuda_ms(f, 10) for f in (new, old, old, new)]
-    ms, old_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    t = turns({"new": new, "old": old}, lambda f: cuda_ms(f, 10))
+    ms, old_ms = mean(t["new"]), mean(t["old"])
     nearest_ms = cuda_ms(lambda: Q.quantize_int8(w, stochastic=False), 10)
     u = torch.rand(w.shape, generator=torch.Generator(device=w.device).manual_seed(0), device=w.device)
     plain_ms = cuda_ms(lambda: Q.quantize_int8_plain(w, u), 5)
@@ -1012,7 +1088,8 @@ def _check_int8_quantizer(label, w, seeds: int = 64):
         f"{mismatched} values differ from plain (bound 0); stochastic: {off_grid} off floor/ceil, same seed same "
         f"bytes {same_seed}, the first design's bytes for 3 seeds {first_design}, mean over {seeds} seeds: worst "
         f"|mean - w/scale| {worst:.4f} (bound 7 sigma = {7 * sigma:.4f}), mean deviation {bias_:.2e}")
-    log(f"[kernels] {label}: in turns new {turns[0]:.4f}, old {turns[1]:.4f}, {turns[2]:.4f}, new {turns[3]:.4f} ms "
+    log(f"[kernels] {label}: in turns new {t['new'][0]:.4f}, old {t['old'][0]:.4f}, {t['old'][1]:.4f}, new "
+        f"{t['new'][1]:.4f} ms "
         f"(first design {old_ms / ms:.2f}x the time); nearest {nearest_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
         f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%} of it)")
     if mismatched or off_grid or not same_seed or not all(first_design) or not worst <= 7 * sigma or placed < 1:
@@ -1030,9 +1107,6 @@ def _check_int8_quantizer(label, w, seeds: int = 64):
                 before_ms=old_ms)
 
 
-TINYGEMM_GROUP = 128  # the int4 yardstick's group size: every 13B cin is a multiple of it
-
-
 def _int8_library(q8, s8):
     """K7's function as one PyTorch call, torch._weight_int8pack_mm: the
     int8 weight as [N, K] and the scales in bf16 (the layout work done once,
@@ -1041,22 +1115,6 @@ def _int8_library(q8, s8):
 
     return (lambda xx, w_, s_: torch._weight_int8pack_mm(xx, w_, s_)), (q8.t().contiguous(),
                                                                        s8.reshape(-1).to(torch.bfloat16))
-
-
-def _int4_library(q, scale):
-    """The int4 weight-only GEMV as one PyTorch call, the tinygemm kernel
-    torch._weight_int4pack_mm: q the int4 values [K, N] in [-8, 7] (any of
-    the port's three layouts, unpacked), packed offset by +8 as [N, K/2]
-    bytes (even k in the high nibble) through _convert_weight_to_int4pack;
-    the per-channel scale repeated over groups of TINYGEMM_GROUP, zeros 0."""
-    import torch
-
-    u = (q.to(torch.int32) + 8).t().contiguous()
-    packed = torch._convert_weight_to_int4pack(((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8), 8)
-    groups = q.shape[0] // TINYGEMM_GROUP
-    sz = torch.stack([scale.reshape(1, -1).float().expand(groups, -1),
-                      torch.zeros(groups, q.shape[1], device=q.device)], -1).to(torch.bfloat16).contiguous()
-    return (lambda xx, w_, s_: torch._weight_int4pack_mm(xx, w_, TINYGEMM_GROUP, s_)), (packed, sz)
 
 
 def _try_library(make, *args):
@@ -1079,6 +1137,7 @@ def _pair_yardstick(tag, x, weights, siluglu1):
     import torch
 
     from supir_tpu_torch.ops import quantize as Q
+    from supir_tpu_torch.tools.timing import turns
 
     want = Q.int4_paired_fused_pair_plain(x.float(), *weights, siluglu1=siluglu1)
     small_bf16 = want[0].to(torch.bfloat16)
@@ -1092,7 +1151,8 @@ def _pair_yardstick(tag, x, weights, siluglu1):
     copies = _copies(weights, nbytes(*weights))
     yard = [lambda c=c: two_k5(c) for c in copies]
     pair = [lambda c=c: Q.int4_paired_fused_pair(x, *c, siluglu1=siluglu1) for c in copies]
-    t_y, t_k, t_k2, t_y2 = graph_ms(yard), graph_ms(pair), graph_ms(pair), graph_ms(yard)
+    t = turns({"yardstick": yard, "K9": pair}, graph_ms)
+    (t_y, t_y2), (t_k, t_k2) = t["yardstick"], t["K9"]
     log(f"[kernels] {tag}: yardstick (two tensor-core K5 calls) {t_y:.4f}, {t_y2:.4f} ms, K9 {t_k:.4f}, "
         f"{t_k2:.4f} ms in turns")
     del copies, yard, pair
@@ -1115,6 +1175,7 @@ def phase_quant_kernels():
     import torch
 
     from supir_tpu_torch.ops import gemv_plan as GP, quantize as Q
+    from supir_tpu_torch.tools.timing import tinygemm
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4321)
@@ -1174,7 +1235,7 @@ def phase_quant_kernels():
         q8, s8 = Q.quantize_int8(w, seed=SEED)
         del w
         lib8 = _try_library(_int8_library, q8, s8)
-        lib4 = _try_library(_int4_library, Q.unpack_int4_paired(packed), scale)
+        lib4 = _try_library(tinygemm, Q.unpack_int4_paired(packed), scale)
         for rows in (1, 8, 32):
             xin = 2 * cin if prologue == "siluglu" else cin
             x = torch.randn(rows, xin, generator=g, device=dev).to(torch.bfloat16)
@@ -2934,9 +2995,9 @@ def main() -> int:
         "T1c": ("cuda", "supir_tpu_torch/csrc/gemv_sweep.cu", "tools/stream_ceiling.py:162"),
         "T2": ("cuda", "supir_tpu_torch/csrc/gemv_sweep.cu", "tools/gemv_sweep.py:48"),
         "T3a": ("cuda", "supir_tpu_torch/csrc/probes.cu", "tools/bitcast_probe.py:33"),
-        "T3b": ("cuda", "supir_tpu_torch/csrc/probes.cu", "tools/bitcast_probe.py:63"),
+        "T3b": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "tools/bitcast_probe.py:63"),
         "T4a": ("cuda", "supir_tpu_torch/csrc/probes.cu", "tools/int4_native_probe.py:46"),
-        "T4b": ("cuda", "supir_tpu_torch/csrc/gemv_sweep.cu", "tools/int4_native_probe.py:58"),
+        "T4b": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "tools/int4_native_probe.py:58"),
     }
     # where each kernel's times were taken
     at = {"K1": "[2,4096,10,64] bf16", "K2": "[2,320,128,128] bf16, SiLU",
@@ -2949,8 +3010,10 @@ def main() -> int:
           "K4-alibi": "[1,2048,32,128] bf16 causal, dq dk dv",
           "T1a": "u8 [2560,15360], strip 512", "T1b": "u8 [2560,15360], 1280x1920 blocks",
           "T1c": "K7 int4 [8,5120]x[2560,15360], strip 128", "T2": "W4A8 qkv, 1 row, strip 32, split-K 2",
-          "T3a": "u8 [2,128], all 256 bytes", "T3b": "qkv, 8 rows, strip 256",
-          "T4a": "int4 [128,128], every value -8..7", "T4b": "K11 down [1,13824]x[13824,5120], strip 256"}
+          "T3a": "u8 [2,128], all 256 bytes",
+          "T3b": "qkv [8,5120]x[2560,15360], the plan's k-slices",
+          "T4a": "int4 [128,128], every value -8..7",
+          "T4b": "down [1,13824]x[13824,5120], the plan's k-slices"}
     kernels = []
     for name, (route, source, replaces) in sources.items():
         r = results[name]

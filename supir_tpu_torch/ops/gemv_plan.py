@@ -229,10 +229,12 @@ def _choose_slices(strips: int, chunks: int, grid: int, rows: int, chunk_bytes: 
 
 
 @functools.lru_cache(maxsize=1024)
-def tc_plan(mode: str, rows: int, cin: int, cout: int, sms: int) -> TcPlan:
+def tc_plan(mode: str, rows: int, cin: int, cout: int, sms: int, slices: int | None = None) -> TcPlan:
     """The plan of one launch: `rows` activation rows against [cin, cout]
     weights in `mode` ("paired", "half", "int8", "native" or "w4a8") on a
-    card of `sms` SMs."""
+    card of `sms` SMs. `slices` (the probes' geometry, T3b and T4b)
+    replaces `_choose_slices`' k-slices per strip; the model paths never
+    pass it."""
     if mode not in TC_BOX_ROWS:
         raise ValueError(f"the tensor-core GEMV takes the layouts {sorted(TC_BOX_ROWS)}, not {mode}")
     most = TC_W4A8_ROWS if mode == "w4a8" else TC_MAX_ROWS
@@ -250,7 +252,11 @@ def tc_plan(mode: str, rows: int, cin: int, cout: int, sms: int) -> TcPlan:
         raise ValueError(f"cout {cout} has more than {TC_MAX_STRIPS} strips")
     chunks = -(-wrows // box_rows)
     stage_bytes = box_rows * TC_BOX_BYTES[mode]
-    slices = _choose_slices(strips, chunks, sms, rows, stage_bytes)
+    if slices is None:
+        slices = _choose_slices(strips, chunks, sms, rows, stage_bytes)
+    elif not 1 <= slices <= chunks or (slices > 1 and strips * slices * rows * TC_STRIP * 4 > TC_PART_BYTES):
+        raise ValueError(f"{slices} k-slices of {chunks} chunks over {strips} strips at {rows} rows: a slice needs a "
+                         f"chunk and the partials must fit the {TC_PART_BYTES}-byte scratch")
     tiles = strips * slices
     grid = min(tiles, sms)
     nt = 1 if rows <= 8 else (2 if rows <= 16 else 4)

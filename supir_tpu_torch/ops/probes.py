@@ -17,11 +17,22 @@ and how it is laid out):
       [r, c] -> fp32 [2r, c], row 2i the low nibble of byte row i and 2i+1
       the high one, sign-extended: the order of quantize_int4_paired, read
       back through the GEMVs' own nibble conversion.
-  T3b int4_single_cast_matmul (gemv_kernel_bitcast :63, :111)  bf16 x @ paired
-      int4 -> bf16 by one packed subtract per byte -> fp32 sums * scale, at
-      strip 32-256.
   T4a native_cast     (tools/int4_native_probe.py:stage2_mosaic.k :46, :50)
       column-pair-packed int4 u8 [r, c/2] -> bf16 [r, c] x 2.
+  int4_single_cast_matmul_strip  T3b's first design (gemv_kernel_bitcast :63,
+      :111): bf16 x @ paired int4 -> bf16 by one packed subtract per byte ->
+      fp32 sums * scale, at strip 32-256; kept for timing T3b in turns.
+and of `csrc/quant_gemv_tc.cu`, the model paths' tensor-core body (TMA
+ring, mma.sync, k-slice tiles; ops/gemv_plan.py), with its own int4 decode
+(permute, lop3, hsub2 a nibble pair) at the probes' geometry:
+  T3b int4_single_cast_matmul   (tools/bitcast_probe.py:gemv_kernel_bitcast
+      :63, pallas_call :111)  bf16 x [B <= 32, cin] @ paired int4 -> fp32
+      sums * scale: K6's instances at `slices` k-slices per strip (the
+      plan's by default).
+  T4b native_single_cast_matmul (tools/int4_native_probe.py:_native_kernel
+      :58, pallas_call :72)  the same against column-pair-packed int4, on
+      K11's instances (the first design, K11's strip body at strip 256,
+      stays reachable as `quantize.int4_native_matmul(..., strip=256)`).
 and of `csrc/gemv_sweep.cu` through ops/quantize.py's geometry keywords:
   T2  w4a8_preact     (tools/gemv_sweep.py:_w4a8_kernel :48, :69)  int8 x [B,
       cin] @ paired int4 -> exact int32 sums * column scale, fp32, before the
@@ -31,14 +42,14 @@ and of `csrc/gemv_sweep.cu` through ops/quantize.py's geometry keywords:
       matrix unit against int8 activations; Hopper's tensor cores (wgmma,
       mma.sync) take no 4-bit operand and no mixed s8 x s4 product, so it
       has no twin here.
-  T1c K7 at a strip (`qmm(..., strip=)`), T4b K11 at strip 256
-      (`int4_native_matmul(..., strip=256)`).
+  T1c K7 at a strip (`qmm(..., strip=)`).
 
 On a CPU tensor every function returns its plain version; on a CUDA tensor
 it launches its kernel or raises. `_fault` selects a planted-fault instance
 of a kernel (column sum: 1 bytes read as int8, 2 last row block dropped;
-unpack and cast: 1 nibbles swapped, 2 sign not extended), for the checks
-that must see a fault break their bound.
+unpack and cast: 1 nibbles swapped, 2 sign not extended; T3b and T4b: one
+of gemv_plan.FAULT_*), for the checks that must see a fault break their
+bound.
 """
 
 from __future__ import annotations
@@ -47,7 +58,7 @@ import ctypes
 
 import torch
 
-from supir_tpu_torch.ops import quantize as Q
+from supir_tpu_torch.ops import gemv_plan as GP, quantize as Q
 
 _SOURCE = "probes.cu"
 SOURCES = (_SOURCE,)
@@ -186,9 +197,58 @@ def int4_single_cast_matmul_plain(x, packed, scale):
     return Q.int4_paired_matmul_plain(x, packed, scale)
 
 
-def int4_single_cast_matmul(x, packed, scale, strip: int = Q.STRIP):
-    """T3b: x [B <= 32, cin] bf16 @ paired int4, one bf16-pair conversion per
-    byte, fp32 sums * scale -> [B, cout] fp32, at `strip` columns per block."""
+def _on_body(name, x, packed, scale, layout, slices, fault):
+    """One launch of the tensor-core body (csrc/quant_gemv_tc.cu) over
+    packed int4 in `layout` ("paired" [cin/2, cout], "native" [cin,
+    cout/2]), without prologue or residual, at `slices` k-slices per strip
+    (None: the plan's)."""
+    cin = 2 * packed.shape[0] if layout == "paired" else packed.shape[0]
+    cout = packed.shape[1] if layout == "paired" else 2 * packed.shape[1]
+    if x.shape[0] > Q.DECODE_ROWS:
+        raise ValueError(f"{name} takes at most {Q.DECODE_ROWS} rows, got {x.shape[0]}")
+    Q._check_activation(x, cin)
+    Q._check_weights(packed, scale, packed.shape[0], packed.shape[1], cout, torch.uint8)
+    Q._check_on_card(name, x, (("weights", packed), ("scale", scale)))
+    if not GP.tc_eligible(layout, cin, cout, packed.data_ptr(), x.data_ptr(), x.stride(0)):
+        raise ValueError(f"{name} runs on the tensor-core body only: cin % 8 == 0, cout % "
+                         f"{32 if layout == 'native' else 16} == 0, 16-byte aligned rows; got {cin}, {cout}")
+    out = torch.empty((x.shape[0], cout), dtype=torch.float32, device=x.device)
+    return Q._launch_tc(x, packed, scale, layout, cin, cout, None, 1e-6, 0, None, out, fault, None, slices)
+
+
+def int4_single_cast_matmul(x, packed, scale, slices: int | None = None, *, _fault: int = 0):
+    """T3b: x [B <= 32, cin] bf16 @ paired int4 uint8 [cin/2, cout] ->
+    [B, cout] fp32 on the tensor-core body (K6's instances), `slices`
+    k-slices per strip (the plan's by default)."""
+    if x.device.type == "cpu":
+        return int4_single_cast_matmul_plain(x, packed, scale)
+    out = _on_body("the single-cast GEMV", x, packed, scale, "paired", slices, _fault)
+    int4_single_cast_matmul.launches += 1
+    return out
+
+
+def native_single_cast_matmul_plain(x, packed, scale):
+    """x [B, cin] @ dequant(packed, column pairs) * scale -> [B, cout] fp32
+    (K11's plain version)."""
+    return Q.int4_native_matmul_plain(x, packed, scale)
+
+
+def native_single_cast_matmul(x, packed, scale, slices: int | None = None, *, _fault: int = 0):
+    """T4b: x [B <= 32, cin] bf16 @ native int4 column pairs uint8 [cin,
+    cout/2] -> [B, cout] fp32 on the tensor-core body (K11's instances), as
+    int4_single_cast_matmul."""
+    if x.device.type == "cpu":
+        return native_single_cast_matmul_plain(x, packed, scale)
+    out = _on_body("the native single-cast GEMV", x, packed, scale, "native", slices, _fault)
+    native_single_cast_matmul.launches += 1
+    return out
+
+
+def int4_single_cast_matmul_strip(x, packed, scale, strip: int = Q.STRIP):
+    """T3b's first design: x [B <= 32, cin] bf16 @ paired int4, one
+    bf16-pair conversion per byte, fp32 sums * scale -> [B, cout] fp32, at
+    `strip` columns per block (csrc/probes.cu). Kept to time T3b in turns;
+    it counts no launch."""
     Q.check_geometry(strip)
     if x.device.type == "cpu":
         return int4_single_cast_matmul_plain(x, packed, scale)
@@ -205,7 +265,6 @@ def int4_single_cast_matmul(x, packed, scale, strip: int = Q.STRIP):
         err = _library().supir_gemv_single_cast(x.data_ptr(), x.stride(0), packed.data_ptr(), scale.data_ptr(),
                                                 out.data_ptr(), x.shape[0], cin, cout, strip, _stream(x))
     _raise_on(err, f"single-cast GEMV (strip {strip})")
-    int4_single_cast_matmul.launches += 1
     return out
 
 
@@ -236,4 +295,5 @@ column_sum_2d.launches = 0
 unpack_nibbles.launches = 0
 native_cast.launches = 0
 int4_single_cast_matmul.launches = 0
+native_single_cast_matmul.launches = 0
 w4a8_preact.launches = 0

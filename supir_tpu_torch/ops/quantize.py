@@ -600,7 +600,7 @@ def _launch_gemv(x, w, scale, mode: str, cin: int, gamma=None, eps: float = 1e-6
 
 _TC_MAPS: dict = {}       # (device, weight address, rows, row bytes, box) -> (buffer, its address)
 _TC_SCRATCH: dict = {}    # device index -> (partials, strip counters, K9's sums of squares, their addresses)
-_TC_PLANS: dict = {}      # (mode, rows, cin, cout, device index) -> (plan, its packed fields' address)
+_TC_PLANS: dict = {}      # (mode, rows, cin, cout, device index, slices) -> (plan, its packed fields' address)
 _PAIR_PLANS: dict = {}    # (rows, cin1, cout1, cout2, device index) -> (plan, its packed fields' address)
 
 
@@ -644,17 +644,18 @@ def _tc_scratch(device: torch.device):
     return hit
 
 
-def _launch_tc(x, w, scale, mode, cin, cout, gamma, eps, prologue, residual, out, fault=0, xs=None):
+def _launch_tc(x, w, scale, mode, cin, cout, gamma, eps, prologue, residual, out, fault=0, xs=None, slices=None):
     """One launch of `csrc/quant_gemv_tc.cu` (K5, K6, K7, K10, K11); xs:
-    K10's row scales (W4A8 only)."""
+    K10's row scales (W4A8 only); `slices`: the probes' k-slices per strip
+    (T3b, T4b) in place of the plan's."""
     if gamma is not None and gamma.data_ptr() % 16:
         gamma = gamma.clone()  # the kernel reads gamma in 16-byte vectors
     device = x.device
     index = device.index
-    key = (mode, x.shape[0], cin, cout, index)
+    key = (mode, x.shape[0], cin, cout, index, slices)
     hit = _TC_PLANS.get(key)
     if hit is None:
-        plan = GP.tc_plan(mode, x.shape[0], cin, cout, _sm_count(index))
+        plan = GP.tc_plan(mode, x.shape[0], cin, cout, _sm_count(index), slices)
         hit = _TC_PLANS[key] = (plan, ctypes.addressof(plan.packed()))
     plan, plan_addr = hit
     part, counters = _tc_scratch(device)[3:5]

@@ -9,17 +9,22 @@ nibble pair, the counterpart of the JAX package's `tools/bitcast_probe.py`.
                fails (non-zero exit) unless the order is the packer's: row 2i
                the low nibble, row 2i+1 the high one, sign-extended. A
                swapped order would leave every GEMV plausible but wrong.
-  bench_gemv   T3b's single-cast GEMV (bf16 x [8, cin] x paired int4, one
-               packed bf16 subtract per byte, fp32 sums) at the 13B decode
-               shapes and strips of 32-256 columns per block, against K6
-               (int4_paired_matmul on csrc/quant_gemv_tc.cu, in place of the
-               "shiftpair" line of the TPU probe),
-               chained over L distinct weight copies (timing.py). The TPU's
-               bouts 256-2048 were VMEM block widths; the card's strip stops
-               at 256 (csrc/gemv_sweep.cu).
+  bench_gemv   T3b, the single-cast GEMV (bf16 x times paired int4, fp32
+               sums) on the tensor-core body of csrc/quant_gemv_tc.cu (K6's
+               instances, with their own decode: a permute, a lop3 and an
+               hsub2 a nibble pair). At the four 13B decode shapes, 1 and 8
+               rows, and k-slices per strip of --slices and the plan's own
+               (the TPU probe's bouts were VMEM block widths; this body's
+               geometry is its k-slices), in turns: which slice count wins
+               and whether ops/gemv_plan.py:_choose_slices picked it; then,
+               in turns with T3b at the plan's slices, the first design
+               (csrc/probes.cu at strip 256, int4_single_cast_matmul_strip)
+               and tinygemm (torch._weight_int4pack_mm, the yardstick).
+               Each variant is chained over L distinct weight copies
+               (timing.py).
 
 Run on the card: python -m supir_tpu_torch.tools.bitcast_probe [--layers 8]
-[--reps 20]
+[--reps 20] [--slices 1,2,4,8]
 """
 
 from __future__ import annotations
@@ -67,7 +72,7 @@ def probe_order(dev) -> bool:
     return low_first and bytes_ok and packer_ok
 
 
-def bench_gemv(dev, layers: int, reps: int) -> dict:
+def bench_gemv(dev, layers: int, reps: int, slices) -> dict:
     from supir_tpu_torch.ops import probes as P, quantize as Q
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -76,18 +81,17 @@ def bench_gemv(dev, layers: int, reps: int) -> dict:
         packed = [torch.randint(0, 256, (cin // 2, cout), dtype=torch.uint8, generator=g, device=dev)
                   for _ in range(layers)]
         scale = torch.rand(1, cout, generator=g, device=dev) * 0.01
-        x0 = torch.randn(8, cin, generator=g, device=dev).to(torch.bfloat16)
-        per = cin * cout // 2
-        for strip in Q.GEMV_STRIPS:
-            key = f"{name} single-cast strip {strip}"
-            ms = timing.chain_ms([lambda q=q, s=strip: P.int4_single_cast_matmul(x0, q, scale, s) for q in packed],
-                                 reps)
-            results[key] = timing.report(f"{name:6s} [8,{cin}]x[{cin},{cout}] single-cast strip {strip}", ms, per,
-                                         per * layers, note=f"[{-(-cout // strip)} blocks]")
-        ms = timing.chain_ms([lambda q=q: Q.int4_paired_matmul(x0, q, scale) for q in packed], reps)
-        results[f"{name} K6"] = timing.report(f"{name:6s} [8,{cin}]x[{cin},{cout}] K6 (tensor-core body)", ms,
-                                              per, per * layers)
-        del packed
+        fn, _ = timing.tinygemm(Q.unpack_int4_paired(packed[0]), scale)
+        yard = [timing.tinygemm(Q.unpack_int4_paired(q), scale)[1] for q in packed]
+        for rows in (1, 8):
+            x0 = torch.randn(rows, cin, generator=g, device=dev).to(torch.bfloat16)
+            extra = {"first design, strip 256": [lambda q=q: P.int4_single_cast_matmul_strip(x0, q, scale, 256)
+                                                 for q in packed],
+                     "tinygemm": [lambda w=w: fn(x0, *w) for w in yard]}
+            found = timing.slices_sweep(f"{name:6s} [{rows},{cin}]x[{cin},{cout}]", "paired", packed, scale, x0,
+                                        slices, reps, extra)
+            results.update({f"{name} {rows} rows {k}": v for k, v in found.items()})
+        del packed, yard
         torch.cuda.empty_cache()
     return results
 
@@ -96,12 +100,13 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description="T3: nibble order and the single-cast GEMV (see the docstring)")
     ap.add_argument("--layers", type=int, default=8, help="distinct weight copies per chain")
     ap.add_argument("--reps", type=int, default=20, help="graph replays timed per variant")
+    ap.add_argument("--slices", default="1,2,4,8", help="k-slices per strip to sweep (the plan's own is added)")
     args = ap.parse_args(argv)
     dev = timing.require_cuda("bitcast_probe")
     print(f"bitcast_probe on {timing.card_line()}; torch {torch.__version__}", flush=True)
     if not probe_order(dev):
         raise SystemExit("bitcast_probe: the card's nibble order differs from quantize_int4_paired's packing")
-    return bench_gemv(dev, args.layers, args.reps)
+    return bench_gemv(dev, args.layers, args.reps, [int(n) for n in args.slices.split(",")])
 
 
 if __name__ == "__main__":

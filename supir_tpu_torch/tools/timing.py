@@ -71,6 +71,80 @@ def chain_ms(calls, reps: int = 20) -> float:
     return start.elapsed_time(end) / (reps * len(calls))
 
 
+def turns(variants: dict, timer=chain_ms) -> dict:
+    """Each variant (name -> what `timer` takes, by default a chain's
+    calls) timed twice in turns: every variant in order, then in the
+    reverse order (a, b, b, a). Returns {name: (first reading, second)};
+    compare variants only within one such call."""
+    names = list(variants)
+    readings = {name: [] for name in names}
+    for name in names + names[::-1]:
+        readings[name].append(timer(variants[name]))
+    return {name: tuple(r) for name, r in readings.items()}
+
+
+def mean(readings) -> float:
+    """The mean of one variant's readings from `turns`."""
+    return sum(readings) / len(readings)
+
+
+TINYGEMM_GROUP = 128   # the int4 yardstick's group size: every 13B cin is a multiple of it
+
+
+def tinygemm(q, scale):
+    """The int4 weight-only GEMV as one PyTorch call, the tinygemm kernel
+    torch._weight_int4pack_mm, as a yardstick (the port never calls it): q
+    the int4 values [K, N] in [-8, 7] (any of the port's three layouts,
+    unpacked), packed offset by +8 as [N, K/2] bytes (even k in the high
+    nibble) through _convert_weight_to_int4pack; the per-channel scale
+    repeated over groups of TINYGEMM_GROUP, zeros 0. Returns (fn(x, w, sz),
+    (w, sz))."""
+    u = (q.to(torch.int32) + 8).t().contiguous()
+    packed = torch._convert_weight_to_int4pack(((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8), 8)
+    groups = q.shape[0] // TINYGEMM_GROUP
+    sz = torch.stack([scale.reshape(1, -1).float().expand(groups, -1),
+                      torch.zeros(groups, q.shape[1], device=q.device)], -1).to(torch.bfloat16).contiguous()
+    return (lambda xx, w_, s_: torch._weight_int4pack_mm(xx, w_, TINYGEMM_GROUP, s_)), (packed, sz)
+
+
+def slices_sweep(label: str, layout: str, weights, scale, x, slices, reps: int, extra=None) -> dict:
+    """T3b ("paired") or T4b ("native") over `weights` (copies of one
+    packed int4 weight) at each slice count of `slices` and the plan's own,
+    in turns. Prints each line, the fastest count and whether
+    ops/gemv_plan.py:_choose_slices picked it; then `extra` (name -> calls,
+    e.g. the first design and tinygemm) in turns with the kernel at the
+    plan's count. Returns {name: report}, names "slices <n>" and extra's."""
+    from supir_tpu_torch.ops import gemv_plan as GP, probes as P, quantize as Q
+
+    q0 = weights[0]
+    rows, cin = x.shape
+    cout = q0.shape[1] if layout == "paired" else 2 * q0.shape[1]
+    sms = Q._sm_count(x.device.index or 0)
+    own = GP.tc_plan(layout, rows, cin, cout, sms).slices
+    kernel = P.int4_single_cast_matmul if layout == "paired" else P.native_single_cast_matmul
+    per, chain = q0.numel(), q0.numel() * len(weights)
+    counts = []
+    for n in sorted(set(slices) | {own}):
+        try:
+            GP.tc_plan(layout, rows, cin, cout, sms, n)
+            counts.append(n)
+        except ValueError as exc:
+            print(f"  {label}: no plan at {n} slices ({exc})", flush=True)
+    variants = {n: [lambda q=q, n=n: kernel(x, q, scale, n) for q in weights] for n in counts}
+    results, timer = {}, lambda calls: chain_ms(calls, reps)
+    for n, r in turns(variants, timer).items():
+        results[f"slices {n}"] = report(f"{label} {n} slices{' (plan)' if n == own else ''}", mean(r), per, chain)
+    best = min(counts, key=lambda n: results[f"slices {n}"]["ms"])
+    print(f"  {label}: fastest at {best} slices ({results[f'slices {best}']['ms']:.4f} ms); _choose_slices' {own} "
+          f"({results[f'slices {own}']['ms']:.4f} ms) {'picked it' if best == own else 'did not pick it'}",
+          flush=True)
+    if extra:
+        both = {"plan's slices": variants[own], **extra}
+        for name, r in turns(both, timer).items():
+            results[name] = report(f"{label} {name}", mean(r), per, chain)
+    return results
+
+
 def report(name: str, ms: float, read_bytes: float, chain_bytes: float | None = None, note: str = "") -> dict:
     """Print one line: ms per call, the read rate in GB/s and its share of
     3.35 TB/s; returns the numbers. `chain_bytes` (the whole chain's reads)

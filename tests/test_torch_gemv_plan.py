@@ -147,6 +147,48 @@ def test_what_the_tensor_cores_do_not_take():
     assert GP.tc_eligible("w4a8", 1000, 272, 0, 0, 1000)
 
 
+def test_slices_override_refuses_a_split_beyond_the_scratch():
+    """tc_plan(slices=): the probes' geometry (T3b, T4b) in place of
+    _choose_slices; at most one slice a chunk, and a split whose partials
+    exceed the device's scratch is refused. The plan's own count gives the
+    plan itself."""
+    base = GP.tc_plan("paired", 8, 5120, 15360, SMS)
+    for slices in (1, 2, 4, 8, base.slices):
+        plan = GP.tc_plan("paired", 8, 5120, 15360, SMS, slices)
+        assert plan.slices == slices and plan.tiles == plan.strips * slices and plan.grid == min(plan.tiles, SMS)
+        assert plan.tiles * plan.rows * GP.TC_STRIP * 4 <= GP.TC_PART_BYTES
+    assert GP.tc_plan("paired", 8, 5120, 15360, SMS, base.slices) == base
+    with pytest.raises(ValueError):
+        GP.tc_plan("paired", 8, 5120, 15360, SMS, 0)
+    with pytest.raises(ValueError):
+        GP.tc_plan("native", 1, 384, 512, SMS, 4)                   # 3 chunks
+    # gate-up at 16 rows: 216 strips x 16 rows x 128 x 4 bytes a slice, 1.77 MB; 10 slices would take 17.7
+    assert GP.tc_plan("paired", 16, 5120, 27648, SMS, 9).slices == 9
+    with pytest.raises(ValueError):
+        GP.tc_plan("paired", 16, 5120, 27648, SMS, 10)
+
+
+@pytest.mark.parametrize("slices", [1, 2, 3])
+@pytest.mark.parametrize("mode", ["paired", "native"])
+def test_emulated_probe_geometry_faults_break_the_bound(mode, slices):
+    """T3b's (paired) and T4b's (native) launch, the body at a slices
+    override, walked by tc_emulate at 4 rows: within 1e-5 of the plain
+    version, and each of the body's planted faults breaks the card's 1e-2
+    (the combine run twice only where there are partials to combine)."""
+    rows, cin, cout = 4, 640, 288
+    wq, scale, x, _, _ = _case(mode, rows, cin, cout, 0, False, 31)
+    plan = GP.tc_plan(mode, rows, cin, cout, 12, slices)
+    assert plan.slices == slices
+    want = _plain(mode, x, wq, scale, None, 0, None)
+
+    def rel(got):
+        return ((got - want).norm() / want.norm()).item()
+
+    assert rel(GP.tc_emulate(plan, x, wq, scale)) < 1e-5
+    for fault in (GP.FAULT_DROP_SHARE, GP.FAULT_X_ORDER) + ((GP.FAULT_COMBINE_TWICE,) if slices > 1 else ()):
+        assert rel(GP.tc_emulate(plan, x, wq, scale, fault=fault)) > 1e-2, fault
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_every_13b_shape_is_taken(mode):
     """Every projection of the 13B decode, in every layout, at 16-byte

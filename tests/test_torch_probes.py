@@ -17,7 +17,11 @@ Tolerances:
 - W4A8 before the activation scale: 1e-6 relative (exact integer sums, one
   rounded scale multiply on each side);
 - single-cast GEMV, native GEMV, K7 at a forced width: relative L2 1e-5 (the
-  same exact products summed in another order).
+  same exact products summed in another order);
+- T3b and T4b on the tensor-core body at a k-slices override, walked by
+  ops/gemv_plan.py:tc_emulate in IEEE fp32: relative L2 1e-5 too. The
+  emulation cannot show the tensor cores' own accumulation error: the card
+  check does.
 On the card the kernels are held to their plain versions: the bit-exact
 ones bit for bit, the GEMVs by relative L2 1e-2 (K10's body 1e-6), with
 planted faults that must break the bound.
@@ -40,6 +44,7 @@ import numpy as np
 import pytest
 import torch
 
+from supir_tpu_torch.ops import gemv_plan as GP
 from supir_tpu_torch.ops import probes as P
 from supir_tpu_torch.ops import quantize as Q
 from torch_parity import one_torch_thread  # noqa: F401
@@ -188,8 +193,10 @@ def test_unpack_matches_order_kernel_on_every_byte():
     assert torch.equal(P.unpack_nibbles(packed), w)
 
 
-@pytest.mark.parametrize("rows", [1, 8])
-def test_single_cast_matches_gemv_kernel_bitcast(rows):
+@functools.lru_cache(maxsize=4)
+def _bitcast_case(rows):
+    """gemv_kernel_bitcast in interpret mode on a seeded case: (x as fp32,
+    packed, scale, the kernel's output), numpy."""
     import jax
     import jax.numpy as jnp
     from jax.experimental import pallas as pl
@@ -210,10 +217,34 @@ def test_single_cast_matches_gemv_kernel_bitcast(rows):
         out_shape=jax.ShapeDtypeStruct((rows, cout), jnp.float32),
         interpret=True,
     )(x, jnp.asarray(packed), jnp.asarray(scale))
-    xt = torch.from_numpy(np.array(x.astype(jnp.float32)))
+    return np.array(x.astype(jnp.float32)), packed, scale, np.asarray(want)
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+def test_single_cast_matches_gemv_kernel_bitcast(rows):
+    """T3b's first design (the strip body's instances) and the CPU route of
+    T3b against gemv_kernel_bitcast."""
+    x, packed, scale, want = _bitcast_case(rows)
+    xt = torch.from_numpy(x)
     for strip in Q.GEMV_STRIPS:
-        got = P.int4_single_cast_matmul(xt, torch.from_numpy(packed), torch.from_numpy(scale), strip=strip)
+        got = P.int4_single_cast_matmul_strip(xt, torch.from_numpy(packed), torch.from_numpy(scale), strip=strip)
         assert _rel(got.numpy(), want) <= REL_1E5
+    assert _rel(P.int4_single_cast_matmul(xt, torch.from_numpy(packed), torch.from_numpy(scale)).numpy(),
+                want) <= REL_1E5
+
+
+@pytest.mark.parametrize("slices", [1, 2, 3])
+@pytest.mark.parametrize("rows", [1, 8])
+def test_body_emulation_matches_gemv_kernel_bitcast(rows, slices):
+    """T3b's kernel, the tensor-core body on the paired layout at a slices
+    override (3: uneven slices of the 4 chunks), walked by tc_emulate,
+    against gemv_kernel_bitcast."""
+    x, packed, scale, want = _bitcast_case(rows)
+    plan = GP.tc_plan("paired", rows, x.shape[1], packed.shape[1], 3, slices)
+    assert plan.slices == slices
+    got = GP.tc_emulate(plan, torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(packed),
+                        torch.from_numpy(scale))
+    assert _rel(got.numpy(), want) <= REL_1E5
 
 
 # --------------------------------------------------------------- T2: W4A8
@@ -297,6 +328,38 @@ def test_native_gemv_matches_native_int4_matmul(rows):
     for strip in (Q.STRIP, 256):
         got = Q.int4_native_matmul(xt, packed, torch.from_numpy(scale), strip=strip)
         assert _rel(got.numpy(), want) <= REL_1E5
+
+
+@functools.lru_cache(maxsize=4)
+def _native_case(rows):
+    """native_int4_matmul (bout 256) in interpret mode on a seeded case: (x
+    as fp32, s4 values int8 [cin, cout], scale, its output), numpy."""
+    import jax.numpy as jnp
+
+    mod = _tool("int4_native_probe")
+    mod.pl = _interpreting_pl()
+    cin, cout = 384, 512
+    rng = np.random.default_rng(7 + rows)
+    x = jnp.asarray(rng.standard_normal((rows, cin)).astype(np.float32)).astype(jnp.bfloat16)
+    q = rng.integers(-8, 8, (cin, cout)).astype(np.int8)
+    scale = (rng.random((1, cout)) * 0.1 + 0.01).astype(np.float32)
+    want = np.asarray(mod.native_int4_matmul(x, jnp.asarray(q).astype(jnp.int4), jnp.asarray(scale), bout=256))
+    return np.array(x.astype(jnp.float32)), q, scale, want
+
+
+@pytest.mark.parametrize("slices", [1, 2, 3])
+@pytest.mark.parametrize("rows", [1, 8])
+def test_body_emulation_matches_native_int4_matmul(rows, slices):
+    """T4b's kernel, the tensor-core body on the native layout (3 chunks:
+    one a slice at 3), walked by tc_emulate, against native_int4_matmul; on
+    the CPU native_single_cast_matmul is its plain version."""
+    x, q, scale, want = _native_case(rows)
+    packed = Q.pack_int4_native(torch.from_numpy(q))
+    plan = GP.tc_plan("native", rows, x.shape[1], q.shape[1], 3, slices)
+    assert plan.slices == slices
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    assert _rel(GP.tc_emulate(plan, xt, packed, torch.from_numpy(scale)).numpy(), want) <= REL_1E5
+    assert _rel(P.native_single_cast_matmul(xt, packed, torch.from_numpy(scale)).numpy(), want) <= REL_1E5
 
 
 # ----------------------------------------------------- T1c: K7, forced bout
@@ -527,14 +590,15 @@ def _card_weights(g, cin, cout, device):
 @pytest.mark.parametrize("rows", [1, 8, 20])
 @pytest.mark.parametrize("strip", [32, 64, 128, 256])
 def test_single_cast_and_strip_instances(cuda, rows, strip):
-    """T3b, and K7's half-split and K11's native instances at each strip,
-    against their fp32 plain versions; the scale left out must break it."""
+    """T3b's first design, and K7's half-split and K11's native instances
+    at each strip, against their fp32 plain versions; the scale left out
+    must break it."""
     g = torch.Generator(device=cuda).manual_seed(1)
     cin, cout = 1024, 1544
     w = _card_weights(g, cin, cout, cuda)
     x = torch.randn(rows, cin, generator=g, device=cuda).to(torch.bfloat16)
     for kernel, plain, (q, s) in (
-        (lambda xx, q, s: P.int4_single_cast_matmul(xx, q, s, strip), P.int4_single_cast_matmul_plain,
+        (lambda xx, q, s: P.int4_single_cast_matmul_strip(xx, q, s, strip), P.int4_single_cast_matmul_plain,
          Q.quantize_int4_paired(w)),
         (lambda xx, q, s: Q.int4_matmul(xx, q, s, strip=strip), lambda xx, q, s: Q.qmm_plain(xx, q, s, 4),
          Q.quantize_int4(w)),
@@ -544,6 +608,52 @@ def test_single_cast_and_strip_instances(cuda, rows, strip):
         want = plain(x.float(), q, s)
         assert _card_rel(kernel(x, q, s), want) <= CARD_REL_BOUND
         assert _card_rel(kernel(x, q, torch.ones_like(s)), want) > CARD_REL_BOUND
+
+
+SINGLE_CAST = {"paired": (P.int4_single_cast_matmul, Q.quantize_int4_paired, Q.int4_paired_matmul_plain),
+               "native": (P.native_single_cast_matmul, Q.quantize_int4_native, Q.int4_native_matmul_plain)}
+SLICES_SWEEP = (1, 2, 4, 8, None)   # the probes' sweep; None: the plan's own
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(SINGLE_CAST))
+@pytest.mark.parametrize("rows", [1, 8, 16])
+def test_single_cast_kernels(cuda, rows, layout):
+    """T3b (paired) and T4b (native) on the tensor-core body against their
+    fp32 plain versions at 1e-2, at every slice count of the probes' sweep,
+    two runs bit for bit, one launch counted a call; each of the body's
+    planted faults breaks the bound (the combine run twice at 4 slices)."""
+    kernel, quantize, plain = SINGLE_CAST[layout]
+    g = torch.Generator(device=cuda).manual_seed(3 + rows)
+    cin, cout = 1024, 1536
+    q, s = quantize(_card_weights(g, cin, cout, cuda))
+    x = torch.randn(rows, cin, generator=g, device=cuda).to(torch.bfloat16)
+    want = plain(x.float(), q, s)
+    for slices in SLICES_SWEEP:
+        before = kernel.launches
+        got = kernel(x, q, s, slices)
+        assert kernel.launches == before + 1
+        assert _card_rel(got, want) <= CARD_REL_BOUND, slices
+        assert torch.equal(got, kernel(x, q, s, slices))
+    for slices, fault in ((None, GP.FAULT_DROP_SHARE), (None, GP.FAULT_X_ORDER), (4, GP.FAULT_COMBINE_TWICE)):
+        assert _card_rel(kernel(x, q, s, slices, _fault=fault), want) > CARD_REL_BOUND, fault
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(SINGLE_CAST))
+@pytest.mark.parametrize("rows", [1, 8])
+def test_single_cast_holds_all_positive_x_at_the_longest_contraction(cuda, rows, layout):
+    """x of one sign (|N(0,1)|, as after SiLU) over the 13B down
+    projection's cin 13824: T3b and T4b within 1e-2 of their fp32 plain
+    versions at every slice count of the sweep."""
+    kernel, quantize, plain = SINGLE_CAST[layout]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    cin, cout = 13824, 5120
+    q, s = quantize(_card_weights(g, cin, cout, cuda))
+    x = torch.randn(rows, cin, generator=g, device=cuda).abs().to(torch.bfloat16)
+    want = plain(x.float(), q, s)
+    for slices in SLICES_SWEEP:
+        assert _card_rel(kernel(x, q, s, slices), want) <= CARD_REL_BOUND, slices
 
 
 @pytest.mark.gpu
