@@ -52,17 +52,20 @@ Phases, each printing its own lines:
      stream_ceiling T1, gemv_sweep T2, bitcast_probe T3, int4_native_probe
      T4) run through their `main` at 3 replays, with the launch counters of
      T1a-T4b zeroed just before and read just after (each must be > 0);
-     the card's measured streaming ceiling; then each probe kernel at one
-     geometry against its plain version: the column sum 1-D (strip 512) and
-     2-D (1280x1920), the nibble unpack and the native cast bit for bit;
-     W4A8 at split-K 2 by 1e-6; K7's strip 128 instance (T1c) and T3b
-     (paired) and T4b (native) on the tensor-core body at the plan's
-     k-slices by rel-L2 1e-2; each with planted faults that must break it;
-     beside T1c the tensor-core body at the same shape (K7 int4), and
-     beside T3b and T4b, in turns, their first designs (csrc/probes.cu
-     strip 256, K11's strip body at 256) and tinygemm; T3b and T4b on
-     all-positive x at cin 13824, 1 and 8 rows, at each slice count of the
-     probes' sweep.
+     the card's measured streaming ceiling, and the ring column sum in
+     turns with K6 at one row on the same bytes and plan at qkv and down;
+     then each probe kernel at one geometry against its plain version: the
+     ring column sum (csrc/colsum_tc.cu) at 1 (T1a) and 2 (T1b) k-slices,
+     and exact at 1, 2, 4, 8 and the plan's count, two runs the same bits,
+     the nibble unpack and the native cast bit for bit; W4A8 at split-K 2
+     by 1e-6; T1c (half-split), T3b (paired) and T4b (native) on the
+     tensor-core body at the plan's k-slices by rel-L2 1e-2; each with
+     planted faults that must break it; T1a, T1b, T1c, T3b and T4b in turns
+     with their first designs (csrc/probes.cu's column sum at strip 512 and
+     1280x1920, K7's strip body at 128, csrc/probes.cu strip 256, K11's
+     strip body at 256) and their PyTorch call (torch.sum, tinygemm); T1c,
+     T3b and T4b on all-positive x at cin 13824, 1 and 8 rows, at each
+     slice count of the probes' sweep.
   4. main path: a full-width SDXL/SUPIR engine (XL-base, bf16, random
      weights from a seeded CUDA generator) restores one image through
      SUPIREngine.batchify_sample with bench.py's headline settings: a
@@ -675,21 +678,10 @@ def phase_group_norm():
     return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
-class _GeometryCount:
-    """A GEMV wrapper's launches at a non-default geometry (its
-    `geometry_launches`), read and reset as one counter."""
-
-    def __init__(self, fn):
-        self.fn = fn
-
-    launches = property(lambda self: self.fn.geometry_launches,
-                        lambda self, n: setattr(self.fn, "geometry_launches", n))
-
-
 def _probe_counters():
-    from supir_tpu_torch.ops import probes as P, quantize as Q
+    from supir_tpu_torch.ops import probes as P
 
-    return {"T1a": P.column_sum, "T1b": P.column_sum_2d, "T1c": _GeometryCount(Q.qmm), "T2": P.w4a8_preact,
+    return {"T1a": P.column_sum, "T1b": P.column_sum_2d, "T1c": P.half_split_matmul, "T2": P.w4a8_preact,
             "T3a": P.unpack_nibbles, "T3b": P.int4_single_cast_matmul, "T4a": P.native_cast,
             "T4b": P.native_single_cast_matmul}
 
@@ -741,11 +733,13 @@ def _probe_row(label, kernel, plain, copies, moved_bytes, faults, want=None, rel
 
 def phase_probes():
     """[probes]: the four probes' mains on the card at 3 replays, counted;
-    the measured streaming ceiling; each probe kernel at one geometry
-    against its plain version; beside T1c the tensor-core body at the same
-    shape (K7 int4), beside T3b and T4b in turns their first designs and
-    tinygemm; T3b and T4b on all-positive x (_probe_precision). Returns the
-    JSON numbers and the launches of T1a-T4b."""
+    the measured streaming ceiling and the ring alone against K6 at qkv and
+    down (stream_ceiling); each probe kernel at one geometry against its
+    plain version; the ring column sum exact at every slice count of the
+    sweep; T1a, T1b, T1c, T3b and T4b in turns with their first designs and
+    their PyTorch call; T1c, T3b and T4b on all-positive x
+    (_probe_precision). Returns the JSON numbers and the launches of
+    T1a-T4b."""
     import gc
 
     import torch
@@ -757,7 +751,8 @@ def phase_probes():
     counters = _probe_counters()
     t0 = time.perf_counter()
     _reset(counters)
-    ceiling = stream_ceiling.main(["--reps", "3"])["ceiling"]
+    found = stream_ceiling.main(["--reps", "3"])
+    ceiling = found["ceiling"]
     gemv_sweep.main(["--reps", "3"])
     bitcast_probe.main(["--reps", "3"])
     int4_native_probe.main(["--reps", "3"])
@@ -768,6 +763,11 @@ def phase_probes():
     for name, n in launches.items():
         if not n > 0:
             raise AssertionError(f"{name} was never launched by the probes")
+    for shape in ("qkv", "down"):
+        ring, k6 = found[f"{shape} ring"], found[f"{shape} K6"]
+        log(f"[probes] ring alone vs K6 at {shape} (one row, the same bytes and plan, in turns): ring "
+            f"{ring['ms']:.4f} ms ({ring['share']:.1%} of 3.35 TB/s), K6 {k6['ms']:.4f} ms ({k6['share']:.1%}): "
+            f"K6 {k6['ms'] / ring['ms']:.2f}x the ring's time")
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
@@ -775,25 +775,25 @@ def phase_probes():
     qs = [(torch.randint(0, 256, (cin // 2, cout), dtype=torch.uint8, generator=g, device=dev),) for _ in range(8)]
     per = cin // 2 * cout
     scale = torch.rand(1, cout, generator=g, device=dev) * 0.01 + 0.001
-    ones = torch.ones_like(scale)
     q0 = qs[0][0]
     lib = lambda q: torch.sum(q, 0, dtype=torch.int32)  # noqa: E731
     rows, beside = {}, {}
-
-    def tc_beside(probe, label, kernel, plain, copies, moved_bytes, want):
-        """The tensor-core body on the probe row's inputs, held to the same
-        bound and timed the same way."""
-        beside[probe] = (label, _probe_row(f"{probe}'s shape on the tensor-core body: {label}", kernel, plain, copies,
-                                           moved_bytes, [], want=want, rel_bound=GEMV_REL_BOUND)["ms"])
-
+    want = P.column_sum_plain(q0)
     rows["T1a"] = _probe_row(
-        "T1a column sum 1-D [2560,15360] u8 strip 512", lambda q: P.column_sum(q, 512), P.column_sum_plain, qs,
-        per + cout * 4, [("bytes read as int8", lambda: P.column_sum(q0, 512, _fault=1))], library=lib)
+        "T1a ring column sum [2560,15360] u8, 1 k-slice", P.column_sum, P.column_sum_plain, qs, per + cout * 4,
+        [("bytes read as int8", lambda: P.column_sum(q0, _fault=P.RING_FAULT_SIGNED))], library=lib)
     rows["T1b"] = _probe_row(
-        "T1b column sum 2-D [2560,15360] u8 1280x1920", lambda q: P.column_sum_2d(q, 1280, 1920),
-        P.column_sum_plain, qs, per + cout * 4,
-        [("bytes read as int8", lambda: P.column_sum_2d(q0, 1280, 1920, _fault=1)),
-         ("last row block dropped", lambda: P.column_sum_2d(q0, 1280, 1920, _fault=2))], library=lib)
+        "T1b ring column sum [2560,15360] u8, 2 k-slices", lambda q: P.column_sum_2d(q, 2), P.column_sum_plain, qs,
+        per + cout * 4, _ring_faults(q0, 2), library=lib)
+    _ring_exact(q0)
+    _probe_turns("T1a", want, {
+        "T1a": [lambda q=q: P.column_sum(q) for (q,) in qs],
+        "first design (csrc/probes.cu, strip 512)": [lambda q=q: P.column_sum_strip(q, 512) for (q,) in qs],
+        "torch.sum": [lambda q=q: lib(q) for (q,) in qs]}, beside, exact=True)
+    _probe_turns("T1b", want, {
+        "T1b": [lambda q=q: P.column_sum_2d(q, 2) for (q,) in qs],
+        "first design (csrc/probes.cu, 1280x1920)": [lambda q=q: P.column_sum_strip(q, 1920, 1280) for (q,) in qs],
+        "torch.sum": [lambda q=q: lib(q) for (q,) in qs]}, beside, exact=True)
     x8 = torch.randn(8, cin, generator=g, device=dev).to(torch.bfloat16)
 
     def yardstick(unpack, layouts, xx):
@@ -806,14 +806,16 @@ def phase_probes():
 
     lib, lib_qs = yardstick(Q.unpack_int4, qs, x8)
     rows["T1c"] = _probe_row(
-        "T1c K7 int4 half-split [8,5120]x[2560,15360] strip 128", lambda q: Q.int4_matmul(x8, q, scale, strip=128),
-        lambda q: Q.qmm_plain(x8, q, scale, 4), qs, per + nbytes(x8, scale) + 8 * cout * 4,
-        [("scale left out", lambda: Q.int4_matmul(x8, q0, ones, strip=128))],
-        want=Q.qmm_plain(x8.float(), q0, scale, 4), rel_bound=GEMV_REL_BOUND, library=lib, lib_copies=lib_qs,
-        lib_name="tinygemm")
-    tc_beside("T1c", "K7 int4 [8,5120]x[2560,15360]", lambda q: Q.int4_matmul(x8, q, scale),
-              lambda q: Q.qmm_plain(x8, q, scale, 4), qs, per + nbytes(x8, scale) + 8 * cout * 4,
-              Q.qmm_plain(x8.float(), q0, scale, 4))
+        "T1c half-split GEMV on the tensor-core body (K7 int4's instance) [8,5120]x[2560,15360]",
+        lambda q: P.half_split_matmul(x8, q, scale), lambda q: P.half_split_matmul_plain(x8, q, scale), qs,
+        per + nbytes(x8, scale) + 8 * cout * 4, _body_faults(P.half_split_matmul, x8, q0, scale),
+        want=P.half_split_matmul_plain(x8.float(), q0, scale), rel_bound=GEMV_REL_BOUND, library=lib,
+        lib_copies=lib_qs, lib_name="tinygemm")
+    _probe_turns("T1c", P.half_split_matmul_plain(x8.float(), q0, scale), {
+        "T1c": [lambda q=q: P.half_split_matmul(x8, q, scale) for (q,) in qs],
+        "first design (K7's strip body, strip 128)": [lambda q=q: Q.int4_matmul(x8, q, scale, strip=128)
+                                                      for (q,) in qs],
+        "tinygemm": [lambda w=w: lib(*w) for w in lib_qs] if lib else None}, beside)
     lib, lib_qs = yardstick(Q.unpack_int4_paired, qs, x8)
     xq = torch.randint(-127, 128, (1, cin), dtype=torch.int8, generator=g, device=dev)
     rows["T2"] = _probe_row(
@@ -874,14 +876,42 @@ def phase_probes():
          ("sign not extended", lambda: P.native_cast(block, _fault=2))])
     for probe, (label, ms) in beside.items():
         r = rows[probe]
-        lib = "" if r["library_ms"] is None else f"; tinygemm {r['library_ms']:.4f} ms"
+        lib = "" if r["library_ms"] is None else f"; its PyTorch call {r['library_ms']:.4f} ms"
         log(f"[probes] {probe} {r['ms']:.4f} ms beside {label} {ms:.4f} ms: {r['ms'] / ms:.2f}x its time{lib}")
     _probe_precision(g)
     return rows, launches, ceiling
 
 
+def _ring_faults(q, slices):
+    """The ring column sum's planted faults at `slices` k-slices, each a
+    call on q: the bytes read as int8, slice 0's partial left out of the
+    combine, the combine run twice."""
+    from supir_tpu_torch.ops import probes as P
+
+    return [("bytes read as int8", lambda: P.column_sum_2d(q, slices, _fault=P.RING_FAULT_SIGNED)),
+            ("slice 0's partial dropped", lambda: P.column_sum_2d(q, slices, _fault=P.RING_FAULT_DROP_SLICE)),
+            ("combine run twice", lambda: P.column_sum_2d(q, slices, _fault=P.RING_FAULT_COMBINE_TWICE))]
+
+
+def _ring_exact(q):
+    """The ring column sum of q at 1, 2, 4 and 8 k-slices and the plan's
+    count: each equal to its plain version, and a second run the same bits."""
+    import torch
+
+    from supir_tpu_torch.ops import probes as P, quantize as Q
+
+    want = P.column_sum_plain(q)
+    own = P.ring_plan(*q.shape, Q._sm_count(q.device.index)).slices
+    for n in sorted({1, 2, 4, 8, own}):
+        got = P.column_sum_2d(q, n)
+        if not (torch.equal(got, want) and torch.equal(P.column_sum_2d(q, n), got)):
+            raise AssertionError(f"the ring column sum at {n} k-slices differs from its plain version or from itself")
+    log(f"[probes] ring column sum {tuple(q.shape)} at k-slices {sorted({1, 2, 4, 8, own})} (plan {own}): each equal "
+        "to its plain version, two runs the same bits")
+
+
 def _body_faults(kernel, x, q, s):
-    """T3b's or T4b's planted faults, each a call of `kernel` on (x, q, s):
+    """T1c's, T3b's or T4b's planted faults, each a call of `kernel` on (x, q, s):
     the tensor-core body's (gemv_plan.FAULT_*; the combine run twice at 2
     k-slices) and the scale left out."""
     import torch
@@ -894,19 +924,29 @@ def _body_faults(kernel, x, q, s):
             ("scale left out", lambda: kernel(x, q, torch.ones_like(s)))]
 
 
-def _probe_turns(probe, want, variants, beside):
-    """T3b or T4b in turns (a, b, c, c, b, a: tools/timing.py:turns) with
-    its first design and tinygemm over the same weight copies, each
-    variant's output on the first copy held to `want` by GEMV_REL_BOUND
-    first."""
+def _probe_turns(probe, want, variants, beside, exact=False):
+    """A probe kernel in turns (a, b, c, c, b, a: tools/timing.py:turns)
+    with its first design and its PyTorch call over the same weight copies,
+    each variant's output on the first copy held to `want` first: by
+    GEMV_REL_BOUND, or bit for bit (`exact`, the column sums)."""
+    import torch
+
     from supir_tpu_torch.tools.timing import mean, turns
 
     variants = {k: v for k, v in variants.items() if v is not None}
-    rels = {name: rel_l2(calls[0](), want) for name, calls in variants.items()}
-    log(f"[probes] {probe} in turns, each on the first copy: " + "; ".join(
-        f"{name} rel_l2 {rel:.3e}" for name, rel in rels.items()) + f" (bound {GEMV_REL_BOUND:g})")
-    for name, rel in rels.items():
-        _check_rel(f"{probe} {name}", rel, GEMV_REL_BOUND)
+    if exact:
+        same = {name: torch.equal(calls[0]().float().reshape(want.shape), want) for name, calls in variants.items()}
+        log(f"[probes] {probe} in turns, each on the first copy: " + "; ".join(
+            f"{name} equal {ok}" for name, ok in same.items()))
+        for name, ok in same.items():
+            if not ok:
+                raise AssertionError(f"{probe} {name} differs from the plain column sum")
+    else:
+        rels = {name: rel_l2(calls[0](), want) for name, calls in variants.items()}
+        log(f"[probes] {probe} in turns, each on the first copy: " + "; ".join(
+            f"{name} rel_l2 {rel:.3e}" for name, rel in rels.items()) + f" (bound {GEMV_REL_BOUND:g})")
+        for name, rel in rels.items():
+            _check_rel(f"{probe} {name}", rel, GEMV_REL_BOUND)
     times = {name: mean(r) for name, r in turns(variants, graph_ms).items()}
     ms = times.pop(probe)
     log(f"[probes] {probe} in turns: {ms:.4f} ms; " + "; ".join(
@@ -916,10 +956,10 @@ def _probe_turns(probe, want, variants, beside):
 
 
 def _probe_precision(g):
-    """T3b and T4b on all-positive x (|N(0,1)|, as after SiLU) over the 13B
-    down projection (cin 13824), quantized random weights, 1 and 8 rows, at
-    each slice count of the probes' sweep: each within GEMV_REL_BOUND of its
-    fp32 plain version."""
+    """T1c, T3b and T4b on all-positive x (|N(0,1)|, as after SiLU) over the
+    13B down projection (cin 13824), quantized random weights, 1 and 8
+    rows, at each slice count of the probes' sweep: each within
+    GEMV_REL_BOUND of its fp32 plain version."""
     import torch
 
     from supir_tpu_torch.ops import gemv_plan as GP, probes as P, quantize as Q
@@ -927,6 +967,7 @@ def _probe_precision(g):
     cin, cout = 13824, 5120
     w = torch.randn(cin, cout, generator=g, device="cuda") * cin ** -0.5
     for probe, layout, kernel, quantize, plain in (
+            ("T1c", "half", P.half_split_matmul, Q.quantize_int4, P.half_split_matmul_plain),
             ("T3b", "paired", P.int4_single_cast_matmul, Q.quantize_int4_paired, Q.int4_paired_matmul_plain),
             ("T4b", "native", P.native_single_cast_matmul, Q.quantize_int4_native, Q.int4_native_matmul_plain)):
         q, s = quantize(w)
@@ -2990,9 +3031,9 @@ def main() -> int:
         "K11": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:555"),
         "K3-alibi": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:197"),
         "K4-alibi": ("cuda", "supir_tpu_torch/csrc/flash_attn_bwd.cu", "supir_tpu/ops/flash_attention.py:481"),
-        "T1a": ("cuda", "supir_tpu_torch/csrc/probes.cu", "tools/stream_ceiling.py:48"),
-        "T1b": ("cuda", "supir_tpu_torch/csrc/probes.cu", "tools/stream_ceiling.py:99"),
-        "T1c": ("cuda", "supir_tpu_torch/csrc/gemv_sweep.cu", "tools/stream_ceiling.py:162"),
+        "T1a": ("cuda", "supir_tpu_torch/csrc/colsum_tc.cu", "tools/stream_ceiling.py:48"),
+        "T1b": ("cuda", "supir_tpu_torch/csrc/colsum_tc.cu", "tools/stream_ceiling.py:99"),
+        "T1c": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "tools/stream_ceiling.py:162"),
         "T2": ("cuda", "supir_tpu_torch/csrc/gemv_sweep.cu", "tools/gemv_sweep.py:48"),
         "T3a": ("cuda", "supir_tpu_torch/csrc/probes.cu", "tools/bitcast_probe.py:33"),
         "T3b": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "tools/bitcast_probe.py:63"),
@@ -3008,8 +3049,8 @@ def main() -> int:
           "K10": "one 13B layer, 1 row, the kernel alone on int8 x", "K11": "one 13B layer, 1 row",
           "K3-alibi": "[1,2048,32,128] bf16 causal, with lse (the MPT-7B gradient's forward)",
           "K4-alibi": "[1,2048,32,128] bf16 causal, dq dk dv",
-          "T1a": "u8 [2560,15360], strip 512", "T1b": "u8 [2560,15360], 1280x1920 blocks",
-          "T1c": "K7 int4 [8,5120]x[2560,15360], strip 128", "T2": "W4A8 qkv, 1 row, strip 32, split-K 2",
+          "T1a": "u8 [2560,15360], 1 k-slice", "T1b": "u8 [2560,15360], 2 k-slices",
+          "T1c": "K7 int4 [8,5120]x[2560,15360], the plan's k-slices", "T2": "W4A8 qkv, 1 row, strip 32, split-K 2",
           "T3a": "u8 [2,128], all 256 bytes",
           "T3b": "qkv [8,5120]x[2560,15360], the plan's k-slices",
           "T4a": "int4 [128,128], every value -8..7",

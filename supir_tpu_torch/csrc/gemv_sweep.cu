@@ -1,5 +1,6 @@
-// The decode GEMVs at other launch geometries, for the probes T1c, T2 and
-// T4b (supir_tpu_torch/tools/): the bodies of quant_gemv.cuh, instantiated
+// The decode GEMVs at other launch geometries, for the probe T2 and the
+// first designs of T1c and T4b (supir_tpu_torch/tools/; T1c and T4b run on
+// csrc/quant_gemv_tc.cu since): the bodies of quant_gemv.cuh, instantiated
 // at strips of 64, 128 and 256 output columns per block and, for K10's
 // W4A8 body, split-K of 2 and 4 as well. And the strip body's paired
 // (every prologue, with and without residual) and int8 instances at the
@@ -10,6 +11,7 @@
 // Replace the TPU probes' forced block widths:
 //   T1c  tools/stream_ceiling.py:162, K7's _qmm_kernel (supir_tpu/ops/
 //        quantize.py:606) at bout 512-3840: here K7's half-split instance
+//        (the first design, timed in turns with T1c on the tensor-core body)
 //   T2   tools/gemv_sweep.py:_w4a8_kernel (:48, pallas_call :69), the W4A8
 //        GEMV at _paired_bout's width: here K10's body (int8 x, paired int4
 //        w, exact int32 sums) at strip x split-K, in its pre-activation-

@@ -1,8 +1,10 @@
-// The decode-GEMV probes' own kernels (T1a, T1b, T3a, T3b, T4a) for Hopper
-// (sm_90a). Their counterparts are the Pallas kernels of the TPU probes in
-// tools/; supir_tpu_torch/tools/ runs them.
+// The decode-GEMV probes' own kernels (T3a, T4a, and the first designs of
+// T1a, T1b and T3b) for Hopper (sm_90a). Their counterparts are the Pallas
+// kernels of the TPU probes in tools/; supir_tpu_torch/tools/ runs them.
 //
-//   T1a/T1b column sum: u8 q [rows, cout] -> fp32 [1, cout], the column sums
+//   T1a/T1b column sum (the first design: T1a and T1b run on the GEMV
+//       body's ring, csrc/colsum_tc.cu, and this one is kept to time them in
+//       turns): u8 q [rows, cout] -> fp32 [1, cout], the column sums
 //       of the bytes read as unsigned. Replaces tools/stream_ceiling.py:
 //       sum_kernel (:48, pallas_call :78; 1-D grid of output strips) and the
 //       closure sum2d_kernel (:99, pallas_call :110; 2-D grid that also
@@ -24,8 +26,8 @@
 //       (byte (k, j) = column 2j low | 2j+1 high), through nib2_bf16 and one
 //       packed multiply. Replaces tools/int4_native_probe.py:stage2_mosaic's
 //       k (:46, pallas_call :50), the int4 -> bf16 cast of a [128, 128] block.
-// (T1c, T2 and T4b are the GEMVs of quant_gemv.cuh at other geometries:
-// csrc/gemv_sweep.cu.)
+// (T2 is K10's strip body at other geometries, csrc/gemv_sweep.cu; T1c,
+// T3b and T4b run on csrc/quant_gemv_tc.cu.)
 //
 // What bounds them: bytes. The column sum reads each byte once and adds it
 // (one integer op per byte, ~1.3 with the packing below), far under the

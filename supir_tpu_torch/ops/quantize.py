@@ -51,8 +51,7 @@ default, 2 or 4 slices of the contraction summed exactly in int32). The
 default is the geometry the model paths run (`csrc/quant_gemv.cu`); the
 others are instances in `csrc/gemv_sweep.cu` for the decode-GEMV probes
 (`supir_tpu_torch/tools/`). On a CPU tensor the keywords change nothing; on
-a CUDA tensor a geometry that was not built raises. Launches at a
-non-default geometry are counted also in `geometry_launches`.
+a CUDA tensor a geometry that was not built raises.
 
 Routing follows the JAX functions: an activation of at most `DECODE_ROWS`
 rows (decode) goes to the kernel; more rows (prefill) go to the plain
@@ -815,7 +814,7 @@ def int4_paired_matmul(x, packed, scale):
 def qmm(x, q, scale, bits: int, strip: int = STRIP):
     """K7: x [B, cin] @ dequant(q) * scale -> [B, cout] fp32, q int8
     [cin, cout] (bits 8) or half-split uint8 [cin/2, cout] (bits 4); the
-    half-split instance also at another `strip` (T1c's sweep)."""
+    half-split instance also at another `strip` (T1c's first design)."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     other = check_geometry(strip)
@@ -826,7 +825,6 @@ def qmm(x, q, scale, bits: int, strip: int = STRIP):
     cin = q.shape[0] if bits == 8 else 2 * q.shape[0]
     out = _launch_gemv(x, q, scale, "int8" if bits == 8 else "half", cin, strip=strip)
     qmm.launches += 1
-    qmm.geometry_launches += other
     return out
 
 
@@ -842,13 +840,12 @@ def int4_w4a8_matmul(x, packed, scale, strip: int = STRIP, split_k: int = 1):
     weight scales and then the row scales xs / 127. At the default geometry
     it runs on the tensor-core body; `strip` columns per block and `split_k`
     slices of the contraction select the strip body's probe instances."""
-    other = check_geometry(strip, split_k)
+    check_geometry(strip, split_k)
     if x.device.type == "cpu" or x.shape[0] > DECODE_ROWS:
         return int4_w4a8_matmul_plain(x, packed, scale)
     xq, xs = quantize_act_int8(x)
     out = _launch_w4a8(xq, xs, packed, scale, strip=strip, split_k=split_k)
     int4_w4a8_matmul.launches += 1
-    int4_w4a8_matmul.geometry_launches += other
     return out
 
 
@@ -856,12 +853,11 @@ def int4_native_matmul(x, packed, scale, strip: int = STRIP):
     """K11: x [B, cin] bf16 @ dequant(packed, column pairs) * scale ->
     [B, cout] fp32; packed uint8 [cin, cout/2] from quantize_int4_native;
     at `strip` columns per block (T4b runs 256)."""
-    other = check_geometry(strip)
+    check_geometry(strip)
     if x.device.type == "cpu" or x.shape[0] > DECODE_ROWS:
         return int4_native_matmul_plain(x, packed, scale)
     out = _launch_gemv(x, packed, scale, "native", packed.shape[0], strip=strip)
     int4_native_matmul.launches += 1
-    int4_native_matmul.geometry_launches += other
     return out
 
 
@@ -1055,10 +1051,7 @@ int4_paired_fused_matmul.launches = 0
 int4_paired_fused_matmul.act_int8_launches = 0
 int4_paired_matmul.launches = 0
 int4_w4a8_matmul.launches = 0
-int4_w4a8_matmul.geometry_launches = 0
 int4_native_matmul.launches = 0
-int4_native_matmul.geometry_launches = 0
 int4_paired_fused_pair.launches = 0
 qmm.launches = 0
-qmm.geometry_launches = 0
 quantize_int8.launches = 0

@@ -108,8 +108,9 @@ def tinygemm(q, scale):
 
 
 def slices_sweep(label: str, layout: str, weights, scale, x, slices, reps: int, extra=None) -> dict:
-    """T3b ("paired") or T4b ("native") over `weights` (copies of one
-    packed int4 weight) at each slice count of `slices` and the plan's own,
+    """T1c ("half"), T3b ("paired") or T4b ("native") over `weights`
+    (copies of one packed int4 weight) at each slice count of `slices` and
+    the plan's own,
     in turns. Prints each line, the fastest count and whether
     ops/gemv_plan.py:_choose_slices picked it; then `extra` (name -> calls,
     e.g. the first design and tinygemm) in turns with the kernel at the
@@ -118,10 +119,11 @@ def slices_sweep(label: str, layout: str, weights, scale, x, slices, reps: int, 
 
     q0 = weights[0]
     rows, cin = x.shape
-    cout = q0.shape[1] if layout == "paired" else 2 * q0.shape[1]
+    cout = 2 * q0.shape[1] if layout == "native" else q0.shape[1]
     sms = Q._sm_count(x.device.index or 0)
     own = GP.tc_plan(layout, rows, cin, cout, sms).slices
-    kernel = P.int4_single_cast_matmul if layout == "paired" else P.native_single_cast_matmul
+    kernel = {"half": P.half_split_matmul, "paired": P.int4_single_cast_matmul,
+              "native": P.native_single_cast_matmul}[layout]
     per, chain = q0.numel(), q0.numel() * len(weights)
     counts = []
     for n in sorted(set(slices) | {own}):

@@ -12,14 +12,15 @@ interprets. The closures `sum2d_kernel` (inside stream_ceiling.main) and `k`
 functions with a pallas_call that records the kernel it is handed.
 
 Tolerances:
-- column sum, nibble unpack, native cast: bit for bit (integers, and small
-  integers times 2 in bf16);
+- column sum (its first design, and the ring's tile walk and slice-order
+  combine as ops/probes.py:column_sum_emulate walks them), nibble unpack,
+  native cast: bit for bit (integers, and small integers times 2 in bf16);
 - W4A8 before the activation scale: 1e-6 relative (exact integer sums, one
   rounded scale multiply on each side);
 - single-cast GEMV, native GEMV, K7 at a forced width: relative L2 1e-5 (the
   same exact products summed in another order);
-- T3b and T4b on the tensor-core body at a k-slices override, walked by
-  ops/gemv_plan.py:tc_emulate in IEEE fp32: relative L2 1e-5 too. The
+- T1c, T3b and T4b on the tensor-core body at a k-slices override, walked
+  by ops/gemv_plan.py:tc_emulate in IEEE fp32: relative L2 1e-5 too. The
   emulation cannot show the tensor cores' own accumulation error: the card
   check does.
 On the card the kernels are held to their plain versions: the bit-exact
@@ -114,25 +115,31 @@ def sum2d_kernel():
     return mod, kernels[0]
 
 
-@pytest.mark.parametrize("brow,bout", [(16, 128), (32, 64)])
-def test_column_sum_matches_sum2d_kernel(sum2d_kernel, brow, bout):
+def _sum2d_call(kernel, q, brow, bout):
+    """sum2d_kernel in interpret mode under stream_ceiling's BlockSpecs."""
     import jax
     import jax.numpy as jnp
     from jax.experimental import pallas as pl
 
-    mod, kernel = sum2d_kernel
-    q = _bytes(0, 64, 256)
     rows, cout = q.shape
-    want = pl.pallas_call(
+    return np.asarray(pl.pallas_call(
         kernel,
         grid=(cout // bout, rows // brow),
         in_specs=[pl.BlockSpec((brow, bout), lambda oo, ii: (ii, oo))],
         out_specs=pl.BlockSpec((1, bout), lambda oo, ii: (0, oo)),
         out_shape=jax.ShapeDtypeStruct((1, cout), jnp.float32),
         interpret=True,
-    )(jnp.asarray(q))
+    )(jnp.asarray(q)))
+
+
+@pytest.mark.parametrize("brow,bout", [(16, 128), (32, 64)])
+def test_column_sum_matches_sum2d_kernel(sum2d_kernel, brow, bout):
+    _, kernel = sum2d_kernel
+    q = _bytes(0, 64, 256)
+    want = _sum2d_call(kernel, q, brow, bout)
     qt = torch.from_numpy(q)
-    np.testing.assert_array_equal(P.column_sum_2d(qt, brow, bout).numpy(), np.asarray(want))
+    np.testing.assert_array_equal(P.column_sum_strip(qt, bout, brow).numpy(), np.asarray(want))
+    np.testing.assert_array_equal(P.column_sum_2d(qt, 1).numpy(), np.asarray(want))
     np.testing.assert_array_equal(P.column_sum(qt).numpy(), np.asarray(want))
 
 
@@ -156,7 +163,8 @@ def _sum_kernel_call(q, bout):
 def test_column_sum_matches_sum_kernel_at_one_block():
     q = _bytes(1, 64, 256)
     want = _sum_kernel_call(q, 256)
-    np.testing.assert_array_equal(P.column_sum(torch.from_numpy(q), strip=256).numpy(), want)
+    np.testing.assert_array_equal(P.column_sum_strip(torch.from_numpy(q), 256).numpy(), want)
+    np.testing.assert_array_equal(P.column_sum(torch.from_numpy(q)).numpy(), want)
 
 
 def test_sum_kernel_defect_leaves_later_blocks_uninitialised():
@@ -169,6 +177,89 @@ def test_sum_kernel_defect_leaves_later_blocks_uninitialised():
     want = P.column_sum(torch.from_numpy(q)).numpy()
     np.testing.assert_array_equal(got[:, :128], want[:, :128])
     assert np.isnan(got[:, 128:]).all()
+
+
+@pytest.mark.parametrize("slices", [1, 2, 3])
+def test_ring_emulation_matches_sum2d_kernel(sum2d_kernel, slices):
+    """T1a/T1b's kernel, the column sum on the tensor-core body's ring,
+    walked by column_sum_emulate (4 chunks over 2 strips on 3 blocks; at 3
+    k-slices the chunks split 1, 1, 2), against sum2d_kernel at its row
+    blocks of one chunk, bit for bit; the CPU routes too."""
+    _, kernel = sum2d_kernel
+    q = _bytes(9, 256, 256)
+    want = _sum2d_call(kernel, q, 64, 128)
+    plan = P.ring_plan(256, 256, 3, slices)
+    assert (plan.slices, plan.strips, plan.chunks, plan.grid) == (slices, 2, 4, min(3, 2 * slices))
+    qt = torch.from_numpy(q)
+    np.testing.assert_array_equal(P.column_sum_emulate(plan, qt).numpy(), want)
+    np.testing.assert_array_equal(P.column_sum_2d(qt, slices).numpy(), want)
+    np.testing.assert_array_equal(P.column_sum(qt).numpy(), want)
+
+
+@pytest.mark.parametrize("fault,slices", [(P.RING_FAULT_SIGNED, 1), (P.RING_FAULT_SIGNED, 3),
+                                          (P.RING_FAULT_DROP_SLICE, 2), (P.RING_FAULT_DROP_SLICE, 3),
+                                          (P.RING_FAULT_COMBINE_TWICE, 2), (P.RING_FAULT_COMBINE_TWICE, 3)])
+def test_ring_emulated_faults_break_the_sum(fault, slices):
+    """Each of csrc/colsum_tc.cu's planted faults, emulated, changes the
+    column sums."""
+    q = torch.from_numpy(_bytes(10, 256, 256))
+    plan = P.ring_plan(256, 256, 3, slices)
+    assert torch.equal(P.column_sum_emulate(plan, q), P.column_sum_plain(q))
+    assert not torch.equal(P.column_sum_emulate(plan, q, fault), P.column_sum_plain(q))
+
+
+def test_ring_lane_words_read_each_byte_once_without_bank_conflicts():
+    """The consumers' reads of a 64 x 128-byte stage (TMA's 128-byte
+    swizzle): every byte read exactly once, the byte lane l takes as its
+    b-th is column 4l + b of its row, each warp load's 32 words in 32
+    distinct banks; and the 16-bit sums flushed before they could carry."""
+    box, strip, per_warp = 64, GP.TC_STRIP, 64 // P.RING_CONSUMERS
+    seen = torch.zeros(box * strip, dtype=torch.int64)
+    where = {GP.swizzle(r, c): (r, c) for r in range(box) for c in range(strip)}
+    for warp in range(P.RING_CONSUMERS):
+        for i in range(per_warp):
+            words = [P.ring_word(warp, lane) + 1024 * i for lane in range(32)]
+            assert len({(w // 4) % 32 for w in words}) == 32
+            for lane, w in enumerate(words):
+                assert w % 4 == 0
+                for b in range(4):
+                    assert where[w + b] == (warp + 8 * i, 4 * lane + b)
+                    seen[w + b] += 1
+    assert torch.equal(seen, torch.ones_like(seen))
+    assert P.RING_FLUSH_CHUNKS * per_warp * 255 < 2 ** 16
+
+
+@pytest.mark.parametrize("rows,cout,slices", [(100, 256, 1), (128, 200, 1), (65856, 128, 1), (128, 256, 3),
+                                              (128, 256, 0)])
+def test_ring_refuses_what_it_cannot_take(rows, cout, slices):
+    """The ring column sum refuses, on the CPU as on the card: rows not a
+    multiple of 64, cout not a multiple of 128, rows * 255 >= 2^24, more
+    k-slices than chunks, no k-slice."""
+    q = torch.zeros(rows, cout, dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        P.column_sum_2d(q, slices)
+    if slices == 1:
+        with pytest.raises(ValueError):
+            P.column_sum(q)
+
+
+def test_ring_refuses_unaligned_bytes_and_the_scratch_overflow():
+    """A tensor whose data does not start 16-byte aligned (the TMA box's
+    source), and a slice count whose int32 partials overflow the device's
+    partial-sum scratch, are refused."""
+    buf = torch.zeros(64 * 128 + 16, dtype=torch.uint8)
+    start = next(k for k in range(1, 16) if (buf.data_ptr() + k) % 16)
+    q = buf[start:start + 64 * 128].view(64, 128)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    with pytest.raises(ValueError):
+        P.column_sum(q)
+    with pytest.raises(ValueError):
+        P.column_sum_2d(q)
+    strips = GP.TC_MAX_STRIPS
+    most = GP.TC_PART_BYTES // (strips * GP.TC_STRIP * 4)     # the slices whose partials fit
+    assert P.ring_plan(64 * (most + 1), strips * GP.TC_STRIP, 132, most).slices == most
+    with pytest.raises(ValueError):
+        P.ring_plan(64 * (most + 1), strips * GP.TC_STRIP, 132, most + 1)
 
 
 # ------------------------------------------------------- T3: order, GEMV
@@ -365,17 +456,17 @@ def test_body_emulation_matches_native_int4_matmul(rows, slices):
 # ----------------------------------------------------- T1c: K7, forced bout
 
 
-@pytest.mark.parametrize("bout", [256, 512])
-def test_k7_strip_matches_forced_bout_qmm_kernel(bout):
-    """K7's half-split GEMV against quantize._qmm_kernel under
-    stream_ceiling's BlockSpecs (8 rows, full contraction, forced bout)."""
+@functools.lru_cache(maxsize=4)
+def _forced_bout_case(cin, cout, bout):
+    """quantize._qmm_kernel (bits 4) under stream_ceiling's BlockSpecs (8
+    rows, full contraction, forced bout) in interpret mode on a seeded
+    case: (x as fp32, half-split q, scale, its output), numpy."""
     import jax
     import jax.numpy as jnp
     from jax.experimental import pallas as pl
 
     from supir_tpu.ops import quantize as qz
 
-    cin, cout = 256, 1024
     rng = np.random.default_rng(bout)
     x = jnp.asarray(rng.standard_normal((8, cin)).astype(np.float32)).astype(jnp.bfloat16)
     q = _bytes(8, cin // 2, cout)
@@ -390,9 +481,30 @@ def test_k7_strip_matches_forced_bout_qmm_kernel(bout):
         out_shape=jax.ShapeDtypeStruct((8, cout), jnp.float32),
         interpret=True,
     )(x, jnp.asarray(q), jnp.asarray(scale))
-    xt = torch.from_numpy(np.array(x.astype(jnp.float32)))
-    got = Q.int4_matmul(xt, torch.from_numpy(q), torch.from_numpy(scale), strip=128)
+    return np.array(x.astype(jnp.float32)), q, scale, np.asarray(want)
+
+
+@pytest.mark.parametrize("bout", [256, 512])
+def test_k7_strip_matches_forced_bout_qmm_kernel(bout):
+    """K7's half-split GEMV (T1c's first design, the strip body at strip
+    128) against quantize._qmm_kernel under stream_ceiling's BlockSpecs."""
+    x, q, scale, want = _forced_bout_case(256, 1024, bout)
+    got = Q.int4_matmul(torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(scale), strip=128)
     assert _rel(got.numpy(), want) <= REL_1E5
+
+
+@pytest.mark.parametrize("slices", [1, 2, 3])
+def test_t1c_body_emulation_matches_forced_bout_qmm_kernel(slices):
+    """T1c's kernel, the tensor-core body on the half-split layout at a
+    slices override (3: uneven slices of the 4 chunks), walked by
+    tc_emulate, against the forced-bout _qmm_kernel; on the CPU
+    half_split_matmul is its plain version."""
+    x, q, scale, want = _forced_bout_case(512, 1024, 512)
+    plan = GP.tc_plan("half", 8, 512, 1024, 3, slices)
+    assert (plan.slices, plan.chunks) == (slices, 4)
+    xt, qt, st = torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(q), torch.from_numpy(scale)
+    assert _rel(GP.tc_emulate(plan, xt, qt, st).numpy(), want) <= REL_1E5
+    assert _rel(P.half_split_matmul(xt, qt, st, slices).numpy(), want) <= REL_1E5
 
 
 # ------------------------------------------------------ geometry keywords
@@ -547,20 +659,68 @@ def _card_rel(got, want):
 @pytest.mark.parametrize("rows,cout,strip", [(2560, 15360, 512), (100, 272, 16), (700, 4096, 15360 // 4),
                                              (33, 8192, 64)])
 def test_column_sum_kernel(cuda, rows, cout, strip):
+    """The column sum's first design (csrc/probes.cu), kept as the ring's
+    comparator: 1-D and 2-D grids against the plain sum, its faults."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randint(0, 256, (rows, cout), dtype=torch.uint8, generator=g, device=cuda)
     want = P.column_sum_plain(q)
-    before = P.column_sum.launches
-    assert torch.equal(P.column_sum(q, strip), want)
-    assert P.column_sum.launches == before + 1
-    assert not torch.equal(P.column_sum(q, strip, _fault=1), want)
+    assert torch.equal(P.column_sum_strip(q, strip), want)
+    assert not torch.equal(P.column_sum_strip(q, strip, _fault=1), want)
     for brow, bout in ((rows // 3 + 1, strip), (64, 256), (rows, 1024)):
-        before = P.column_sum_2d.launches
-        assert torch.equal(P.column_sum_2d(q, brow, bout), want)
-        assert P.column_sum_2d.launches == before + 1
-        assert not torch.equal(P.column_sum_2d(q, brow, bout, _fault=1), want)
+        assert torch.equal(P.column_sum_strip(q, bout, brow), want)
+        assert not torch.equal(P.column_sum_strip(q, bout, brow, _fault=1), want)
         if brow < rows:
-            assert not torch.equal(P.column_sum_2d(q, brow, bout, _fault=2), want)
+            assert not torch.equal(P.column_sum_strip(q, bout, brow, _fault=2), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cout", [(64, 128), (192, 1408), (640, 4096), (2560, 15360)])
+def test_ring_column_sum_kernel(cuda, rows, cout):
+    """T1a and T1b on the ring (csrc/colsum_tc.cu) equal the plain sum at
+    every k-slice count and the plan's, two runs the same bits, one launch
+    counted a call."""
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    q = torch.randint(0, 256, (rows, cout), dtype=torch.uint8, generator=g, device=cuda)
+    want = P.column_sum_plain(q)
+    before = P.column_sum.launches
+    assert torch.equal(P.column_sum(q), want)
+    assert P.column_sum.launches == before + 1
+    for slices in [None, *range(1, rows // 64 + 1)]:
+        before = P.column_sum_2d.launches
+        got = P.column_sum_2d(q, slices)
+        assert P.column_sum_2d.launches == before + 1
+        assert torch.equal(got, want), slices
+        assert torch.equal(P.column_sum_2d(q, slices), got), slices
+    top = torch.full_like(q, 255)                          # the largest sums: rows x 255
+    assert torch.equal(P.column_sum(top), P.column_sum_plain(top))
+    assert torch.equal(P.column_sum_2d(top, rows // 64), P.column_sum_plain(top))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slices", [1, 2, 3, 10])
+def test_ring_column_sum_planted_faults(cuda, slices):
+    """Each planted fault of the ring breaks equality: the bytes read as
+    int8 at any slice count, slice 0's partial dropped and the combine run
+    twice wherever a strip has more than one slice."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randint(0, 256, (640, 1408), dtype=torch.uint8, generator=g, device=cuda)
+    want = P.column_sum_plain(q)
+    assert not torch.equal(P.column_sum_2d(q, slices, _fault=P.RING_FAULT_SIGNED), want)
+    for fault in (P.RING_FAULT_DROP_SLICE, P.RING_FAULT_COMBINE_TWICE):
+        assert torch.equal(P.column_sum_2d(q, slices, _fault=fault), want) == (slices == 1), fault
+    assert torch.equal(P.column_sum_2d(q, slices), want)   # the scratch is left as a sound launch needs it
+
+
+@pytest.mark.gpu
+def test_ring_column_sum_refusals_on_the_card(cuda):
+    for shape in ((64, 200), (100, 256)):
+        with pytest.raises(ValueError):
+            P.column_sum(torch.zeros(shape, dtype=torch.uint8, device=cuda))
+    buf = torch.zeros(64 * 128 + 16, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        P.column_sum_2d(buf[1:1 + 64 * 128].view(64, 128))
+    with pytest.raises(ValueError):
+        P.column_sum_2d(torch.zeros(128, 256, dtype=torch.uint8, device=cuda), 3)
 
 
 @pytest.mark.gpu
@@ -610,20 +770,21 @@ def test_single_cast_and_strip_instances(cuda, rows, strip):
         assert _card_rel(kernel(x, q, torch.ones_like(s)), want) > CARD_REL_BOUND
 
 
-SINGLE_CAST = {"paired": (P.int4_single_cast_matmul, Q.quantize_int4_paired, Q.int4_paired_matmul_plain),
-               "native": (P.native_single_cast_matmul, Q.quantize_int4_native, Q.int4_native_matmul_plain)}
+ON_BODY = {"half": (P.half_split_matmul, Q.quantize_int4, P.half_split_matmul_plain),
+           "paired": (P.int4_single_cast_matmul, Q.quantize_int4_paired, Q.int4_paired_matmul_plain),
+           "native": (P.native_single_cast_matmul, Q.quantize_int4_native, Q.int4_native_matmul_plain)}
 SLICES_SWEEP = (1, 2, 4, 8, None)   # the probes' sweep; None: the plan's own
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("layout", sorted(SINGLE_CAST))
+@pytest.mark.parametrize("layout", sorted(ON_BODY))
 @pytest.mark.parametrize("rows", [1, 8, 16])
 def test_single_cast_kernels(cuda, rows, layout):
-    """T3b (paired) and T4b (native) on the tensor-core body against their
-    fp32 plain versions at 1e-2, at every slice count of the probes' sweep,
+    """T1c (half), T3b (paired) and T4b (native) on the tensor-core body
+    against their fp32 plain versions at 1e-2, at every slice count of the probes' sweep,
     two runs bit for bit, one launch counted a call; each of the body's
     planted faults breaks the bound (the combine run twice at 4 slices)."""
-    kernel, quantize, plain = SINGLE_CAST[layout]
+    kernel, quantize, plain = ON_BODY[layout]
     g = torch.Generator(device=cuda).manual_seed(3 + rows)
     cin, cout = 1024, 1536
     q, s = quantize(_card_weights(g, cin, cout, cuda))
@@ -640,13 +801,13 @@ def test_single_cast_kernels(cuda, rows, layout):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("layout", sorted(SINGLE_CAST))
+@pytest.mark.parametrize("layout", sorted(ON_BODY))
 @pytest.mark.parametrize("rows", [1, 8])
 def test_single_cast_holds_all_positive_x_at_the_longest_contraction(cuda, rows, layout):
     """x of one sign (|N(0,1)|, as after SiLU) over the 13B down
-    projection's cin 13824: T3b and T4b within 1e-2 of their fp32 plain
-    versions at every slice count of the sweep."""
-    kernel, quantize, plain = SINGLE_CAST[layout]
+    projection's cin 13824: T1c, T3b and T4b within 1e-2 of their fp32
+    plain versions at every slice count of the sweep."""
+    kernel, quantize, plain = ON_BODY[layout]
     g = torch.Generator(device=cuda).manual_seed(11)
     cin, cout = 13824, 5120
     q, s = quantize(_card_weights(g, cin, cout, cuda))
