@@ -75,11 +75,26 @@ Phases, each printing its own lines:
      site of every step and K2 at every GroupNorm site of every step and
      VAE pass (expected_group_norm_launches; the warm-up logs K2's calls
      by shape).
+  4b. cli: the batch CLI (supir_tpu_torch.apps.cli.main) in-process at
+     full width (options/SUPIR_v0.yaml, bf16, random weights, the main
+     path's steps): a 768x1152 PNG restored at 1024x1536 through
+     pil_to_array, stage 1, tokenize, prepare_condition (CLIP-L and bigG at
+     full width), batchify_sample and array_to_pil with --no_llava; the
+     saved PNG must have the input's size and K1 and K2 must launch as the
+     config says on that path (expected_flash_launches and
+     expected_group_norm_launches at a 128x192 latent, two encodes and
+     three decodes); per-stage times beside the card's name and power
+     limit. Then again with --load_4bit_llava and LLAVA_MODEL_PATH at a
+     tiny HF-layout llava directory the phase writes: the caption must
+     lead the prompt and K5 must launch.
   5. reference: a reduced-width engine whose self-attention still reaches
      K1 runs the same path on the card (bf16, kernels) and on the CPU
      (fp32, plain versions) with the same weights and noise; the two
      images must agree, and two planted faults (K2 without its SiLU, K1
-     with exp2 without the log2(e) fold) must break the bound.
+     with exp2 without the log2(e) fold) must break the bound. Its text
+     conditioner (towers 128 wide) gives prepare_condition on both, which
+     must agree; bigG's last hidden state in place of its penultimate one
+     must break that bound.
   6. captioner: LLaVA-1.5-13B at full width (CLIP ViT-L/14-336, Llama-13B,
      random weights drawn and quantized layer by layer on the card) captions
      a 1024^2 image through CaptionerAgent.gen_image_caption, greedy, 32
@@ -162,6 +177,7 @@ W4A8_REL_BOUND = 1e-6  # K10 against its plain version: exact integer sums, two 
 CAP_REF_REL_BOUND = 5e-2  # reduced-width captioner logits, card against CPU, relative L2
 CAP_TOKENS = 32       # max_new_tokens of the full-width caption
 REF_STEPS = 8         # teacher-forced decode steps of the captioner reference
+CLI_PNG = (768, 1152)  # (h, w) of the [cli] phase's photo; min_size 1024 takes it to 1024x1536
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor cores
 # the 13B decode projections per layer: name, cin, cout, prologue, residual
@@ -201,49 +217,61 @@ def graph_ms(fns, replays: int = 5) -> float:
     return chain_ms(fns, replays)
 
 
-def expected_flash_sites(cfg, lat: int) -> int:
+def _latent_hw(lat):
+    """A latent's (h, w) from a side (a square latent) or an (h, w) pair."""
+    return (lat, lat) if isinstance(lat, int) else tuple(lat)
+
+
+def expected_flash_sites(cfg, lat) -> int:
     """K1 sites per network call, derived from the config: every
     SpatialTransformer self-attention (UNet encoder, UNet decoder, GLVControl
     encoder, both middles) and every ZeroCrossAttn whose sequences hold at
-    least 1024 tokens with 64- or 128-wide heads."""
+    least 1024 tokens with 64- or 128-wide heads. `lat`: the latent's side,
+    or its (h, w)."""
     from supir_tpu_torch.ops.attention import flash_eligible
 
+    h, w = _latent_hw(lat)
     u = cfg.unet
     n = 0
     for level in range(u.levels):
         ds = 2**level
-        tokens = (lat // ds) ** 2
+        tokens = (h // ds) * (w // ds)
         if ds in u.attention_resolutions and flash_eligible(tokens, tokens, u.num_head_channels):
             n += 2 * u.num_res_blocks * u.transformer_depth[level]   # UNet + control encoders
             n += (u.num_res_blocks + 1) * u.transformer_depth[level]  # UNet decoder
         if level > 0 and flash_eligible(tokens, tokens, 64):
             n += 1  # ZeroCrossAttn before this level's upsample, 64-wide heads
-    mid = (lat // 2 ** (u.levels - 1)) ** 2
-    if (2 ** (u.levels - 1)) in u.attention_resolutions and flash_eligible(mid, mid, u.num_head_channels):
+    ds = 2 ** (u.levels - 1)
+    mid = (h // ds) * (w // ds)
+    if ds in u.attention_resolutions and flash_eligible(mid, mid, u.num_head_channels):
         n += 2 * u.middle_depth
     return n
 
 
-def expected_flash_launches(cfg, lat: int, steps: int, vae_passes: int) -> int:
-    """K1 launches of `steps` network calls and `vae_passes` VAE passes: the
-    VAE's mid-block attention is one head as wide as its last level, which
-    reaches K1 only where that width is 64 or 128 (at reduced width, not at
-    full width's 512)."""
+def expected_flash_launches(cfg, lat, steps: int, vae_passes: int) -> int:
+    """K1 launches of `steps` network calls and `vae_passes` VAE passes
+    (encoder or decoder, each holding one mid-block attention): that
+    attention is one head as wide as the VAE's last level, which reaches K1
+    only where that width is 64 or 128 (at reduced width, not at full
+    width's 512)."""
     from supir_tpu_torch.ops.attention import flash_eligible
 
+    h, w = _latent_hw(lat)
     vae_head = cfg.vae.ch * cfg.vae.ch_mult[-1]
-    vae = vae_passes if flash_eligible(lat * lat, lat * lat, vae_head) else 0
+    vae = vae_passes if flash_eligible(h * w, h * w, vae_head) else 0
     return expected_flash_sites(cfg, lat) * steps + vae
 
 
-def expected_group_norm_launches(cfg, steps: int, vae_passes: int = 4) -> int:
-    """K2 launches of `steps` network calls and `vae_passes` VAE passes
-    (the counted run's four: the denoise encoder, a decode, the encoder, a
-    decode): every GroupNorm32 of the UNet and of the control net (ZeroSFT
-    and ZeroCrossAttn included) once per network call, and those of the
-    encoder or the decoder once per pass, counted on the config's modules
-    built on the meta device. GroupNorm sites do not depend on the image
-    size."""
+def expected_group_norm_launches(cfg, steps: int, vae_passes: int = 4, encodes=None, decodes=None) -> int:
+    """K2 launches of `steps` network calls and the VAE passes: every
+    GroupNorm32 of the UNet and of the control net (ZeroSFT and
+    ZeroCrossAttn included) once per network call, and those of the encoder
+    once per encode and of the decoder once per decode, counted on the
+    config's modules built on the meta device. `vae_passes` alternate
+    encode and decode (the counted [main] run's four: the denoise encoder,
+    a decode, the encoder, a decode); `encodes` and `decodes` count them
+    apart (the CLI's five: two encodes, three decodes). GroupNorm sites do
+    not depend on the image size."""
     import torch
 
     from supir_tpu_torch.engine.supir import SUPIRModel
@@ -255,9 +283,11 @@ def expected_group_norm_launches(cfg, steps: int, vae_passes: int = 4) -> int:
     def sites(module):
         return sum(isinstance(m, GroupNorm32) for m in module.modules())
 
+    encodes = vae_passes // 2 if encodes is None else encodes
+    decodes = vae_passes - vae_passes // 2 if decodes is None else decodes
     net = sites(model.model["diffusion_model"]) + sites(model.model["control_model"])
     vae = model.first_stage_model
-    return net * steps + vae_passes // 2 * (sites(vae.encoder) + sites(vae.decoder))
+    return net * steps + encodes * sites(vae.encoder) + decodes * sites(vae.decoder)
 
 
 def rel_l2(got, want) -> float:
@@ -1622,6 +1652,59 @@ def _reduced_cfg():
     return SUPIRConfig(unet=unet, vae=VAEConfig().tiny(), control=ControlConfig().scaled_for(unet))
 
 
+def _reduced_cond_cfg():
+    """The references' text conditioner: CLIP-L-like (quick-GELU) and
+    bigG-like (exact GELU) towers 128 wide in two 64-wide heads, 2 and 3
+    layers; crossattn 128 + 128 and vector 64 + 6 x 32, the reduced UNet's
+    context and ADM widths."""
+    from supir_tpu_torch.config import CLIPTextConfig, ConditionerConfig
+
+    return ConditionerConfig(
+        clip_l=CLIPTextConfig(width=128, layers=2, heads=2),
+        clip_bigg=CLIPTextConfig(width=128, layers=3, heads=2, use_quick_gelu=False, projection_dim=64),
+        clip_l_hidden_layer=1, vector_outdim=32)
+
+
+def _reference_conditioning(cfg, cpu_engine, gpu_engine):
+    """The card's bf16 prepare_condition against the CPU's fp32 one on the
+    same weights and token ids (the config's prompts through the tokenizer);
+    bigG's last hidden state in place of its penultimate one must break the
+    bound."""
+    import torch
+
+    from supir_tpu_torch.utils.tokenizer import tokenize
+
+    tok, tok_n = tokenize([cfg.p_p]), tokenize([cfg.n_p])
+    z = torch.randn(1, 64, 64, 4, generator=torch.Generator().manual_seed(SEED + 4))
+    want = cpu_engine.prepare_condition(z, tok, tok, tok_n, tok_n)
+
+    def worst(engine):
+        got = engine.prepare_condition(z.cuda(), tok, tok, tok_n, tok_n)
+        return max(rel_l2(g[k].cpu(), w[k]) for g, w in zip(got, want) for k in ("crossattn", "vector"))
+
+    rel = worst(gpu_engine)
+    tower = gpu_engine.model.conditioner.clip_bigg
+    sound = tower.forward
+
+    def last_for_penultimate(ids):
+        out = sound(ids)
+        out["hidden"] = out["hidden"][:-2] + [out["hidden"][-1]] * 2
+        return out
+
+    tower.forward = last_for_penultimate
+    try:
+        bad = worst(gpu_engine)
+    finally:
+        del tower.forward
+    log(f"[reference] text conditioning (towers 128 wide, 2 + 3 layers; crossattn {cpu_engine.cond_cfg.context_dim}, "
+        f"vector {cpu_engine.cond_cfg.adm_dim}): card bf16 vs CPU fp32 worst rel_l2 {rel:.4f} (bound "
+        f"{REF_REL_BOUND:g}); control (bigG hidden[-1] for hidden[-2]): {bad:.4f}")
+    if not rel <= REF_REL_BOUND:
+        raise AssertionError(f"prepare_condition: card and CPU disagree, rel_l2 {rel}")
+    if not bad > REF_REL_BOUND:
+        raise AssertionError(f"the conditioning bound misses bigG's last hidden state: rel_l2 {bad}")
+
+
 def phase_reference():
     import torch
 
@@ -1631,12 +1714,14 @@ def phase_reference():
     from supir_tpu_torch.ops.groupnorm import group_norm
 
     cfg = _reduced_cfg()
+    cond = _reduced_cond_cfg()
     size = 512
     cpu_cfg = dataclasses.replace(cfg, ae_dtype="fp32", diffusion_dtype="fp32")
-    cpu_model = build_model(cpu_cfg, "cpu", seed=SEED)
+    cpu_model = build_model(cpu_cfg, "cpu", seed=SEED, cond_cfg=cond)
     _randomize_all(cpu_model, SEED)
     cpu_engine = SUPIREngine(cpu_cfg, cpu_model)
-    gpu_engine = create_engine(cfg, "cuda", state_dict=cpu_model.state_dict())
+    gpu_engine = create_engine(cfg, "cuda", state_dict=cpu_model.state_dict(), cond_cfg=cond)
+    _reference_conditioning(cfg, cpu_engine, gpu_engine)
 
     x, c, uc = _inputs(cfg, size, torch.device("cpu"), SEED + 2)
     g = torch.Generator().manual_seed(SEED + 3)
@@ -1694,6 +1779,120 @@ def phase_reference():
         f"worst site rel_l2 {bad_site:.3e}")
     if not bad_site > K1_REL_BOUND:
         raise AssertionError(f"the K1 site bound misses exp2 without log2(e): rel_l2 {bad_site}")
+
+
+def _tiny_llava_dir(path: str) -> None:
+    """An HF-layout llava directory at tiny widths (every one a multiple of
+    16, so K5 takes the tensor-core body): config.json with its
+    vision_config, and the port's own random tiny model's weights under
+    HF's keys in model.safetensors."""
+    from safetensors.torch import save_file
+
+    from supir_tpu_torch.captioner.agent import CaptionerConfig, create_captioner
+
+    cfg = CaptionerConfig.tiny()
+    model = create_captioner(cfg, "cpu", seed=SEED + 6).model
+    save_file({k: v.contiguous() for k, v in model.state_dict().items()}, f"{path}/model.safetensors")
+    l, v = cfg.llama, cfg.vision
+    with open(f"{path}/config.json", "w") as f:
+        json.dump({"vocab_size": l.vocab_size, "hidden_size": l.dim, "num_hidden_layers": l.layers,
+                   "num_attention_heads": l.heads, "num_key_value_heads": l.kv_heads,
+                   "intermediate_size": l.hidden_dim, "max_position_embeddings": 2048,
+                   "vision_config": {"image_size": v.image_size, "patch_size": v.patch_size,
+                                     "hidden_size": v.width, "num_hidden_layers": v.layers,
+                                     "num_attention_heads": v.heads}}, f)
+
+
+def phase_cli(steps: int, smi: str):
+    """The batch CLI, `supir_tpu_torch.apps.cli.main`, in-process at full
+    width (options/SUPIR_v0.yaml, XL-base, bf16, random weights): a
+    768x1152 PNG restored at 1024x1536 with --no_llava, then again with the
+    tiny captioner (--load_4bit_llava, LLAVA_MODEL_PATH at a directory this
+    phase writes). K1 and K2 must launch as the config says on the first
+    run's path: per step the network's sites, and the VAE's over the CLI's
+    two encodes (stage 1, x_center) and three decodes (stage 1, the
+    sampler's own stage-1 decode under z_override, the final one); K5 must
+    launch in the second. Returns the first run's launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from supir_tpu_torch.apps import cli
+    from supir_tpu_torch.config import load_yaml_config
+    from supir_tpu_torch.ops import quantize as Q
+    from supir_tpu_torch.ops.flash_attention import flash_attention
+    from supir_tpu_torch.ops.groupnorm import group_norm
+    from supir_tpu_torch.utils.image import pil_to_array
+
+    opt = "options/SUPIR_v0.yaml"
+    cfg, _ = load_yaml_config(opt)
+    h, w = CLI_PNG
+    g = torch.Generator().manual_seed(SEED + 7)
+    photo = Image.fromarray(torch.randint(0, 256, (h, w, 3), generator=g, dtype=torch.uint8).numpy())
+    model_h, model_w = pil_to_array(photo, min_size=1024)[0].shape[:2]
+    f = cfg.vae.downscale_factor
+    lat = (model_h // f, model_w // f)
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir, out_dir, llava = (os.path.join(tmp, d) for d in ("in", "out", "llava"))
+        for d in (img_dir, llava):
+            os.makedirs(d)
+        photo.save(os.path.join(img_dir, "photo.png"))
+        argv = ["--img_dir", img_dir, "--save_dir", out_dir, "--opt", opt, "--random_weights",
+                "--edm_steps", str(steps)]
+
+        flash_attention.launches = 0
+        group_norm.launches = 0
+        t0 = time.perf_counter()
+        rec, = cli.main(argv + ["--no_llava"])
+        total = time.perf_counter() - t0
+        launches = {"K1": flash_attention.launches, "K2": group_norm.launches}
+        _free()
+        out = np.asarray(Image.open(rec["saved"][0]))
+        t = rec["timings"]
+        log(f"[cli] {smi}: {opt}, {h}x{w} PNG -> {model_h}x{model_w} model image, "
+            f"{steps} RestoreEDM steps, --no_llava: stage1 {t['stage1']:.3f} s, tokenize {t['tokenize']:.3f} s "
+            f"(the process's first: it looks for HF's CLIP tokenizer once), conditioning {t['cond']:.3f} s, "
+            f"sample {t['sample']:.3f} s, save {t['save']:.3f} s; main() {total:.2f} s with the engine's "
+            f"random init")
+        if out.shape != (h, w, 3) or out.std() == 0:
+            raise AssertionError(f"[cli] saved PNG {out.shape}, std {out.std()}")
+        want_k1 = expected_flash_launches(cfg, lat, steps, vae_passes=5)
+        want_k2 = expected_group_norm_launches(cfg, steps, encodes=2, decodes=3)
+        log(f"[cli] saved {out.shape[0]}x{out.shape[1]} PNG (the input's size x --upscale 1); launches: K1 "
+            f"{launches['K1']} (expected {expected_flash_sites(cfg, lat)} sites x {steps} steps at the "
+            f"{lat[0]}x{lat[1]} latent = {want_k1}), K2 {launches['K2']} (expected {want_k2})")
+        if launches != {"K1": want_k1, "K2": want_k2}:
+            raise AssertionError(f"[cli] launches {launches}, expected K1 {want_k1}, K2 {want_k2}")
+
+        _tiny_llava_dir(llava)
+        prompts = []
+        tokenize = cli.tokenize
+        cli.tokenize = lambda texts: prompts.extend(texts) or tokenize(texts)
+        previous = os.environ.get("LLAVA_MODEL_PATH")
+        os.environ["LLAVA_MODEL_PATH"] = llava
+        Q.int4_paired_fused_matmul.launches = 0
+        try:
+            rec, = cli.main(argv + ["--load_4bit_llava"])
+        finally:
+            cli.tokenize = tokenize
+            os.environ.pop("LLAVA_MODEL_PATH")
+            if previous is not None:
+                os.environ["LLAVA_MODEL_PATH"] = previous
+        k5 = Q.int4_paired_fused_matmul.launches
+        _free()
+        caption, t = rec["caption"], rec["timings"]
+        log(f"[cli] with the tiny captioner (--load_4bit_llava, HF directory of {sorted(os.listdir(llava))}): "
+            f"caption {t['caption']:.3f} s, {len(caption)} characters {caption[:40]!r}; K5 launches {k5}; "
+            f"stage1 {t['stage1']:.3f} s, tokenize {t['tokenize']:.3f} s, conditioning {t['cond']:.3f} s, "
+            f"sample {t['sample']:.3f} s")
+        if not (caption and prompts[0] == caption + cfg.p_p == rec["prompt"]):
+            raise AssertionError(f"[cli] the caption {caption!r} is not in the prompt {prompts[:1]!r}")
+        if not k5 > 0:
+            raise AssertionError("[cli] the captioner run launched no K5")
+    return launches
 
 
 def _caption_image():
@@ -2991,6 +3190,7 @@ def main() -> int:
     results.update(probe_rows)
     launches = phase_main(args.steps, args.repeat)
     launches.update(probe_launches)
+    phase_cli(args.steps, smi)
     phase_reference()
     image = _caption_image()
     # each captioner kernel takes the launches of the mode whose path it serves

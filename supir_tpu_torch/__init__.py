@@ -7,12 +7,16 @@ Mirrors supir_tpu's tree, module for module:
               and the probes' kernels (CUDA C++, csrc/), GroupNorm+SiLU
               (Triton)
   models/     nn.Modules in NCHW: VAE, SDXL UNet, GLVControl/ZeroSFT path,
-              CLIP blocks
+              CLIP blocks and text towers, the SDXL conditioner
   diffusion/  sigma schedules, eps scaling, CFG, denoiser, RestoreEDM loop
-  engine/     SUPIREngine (stage-1 denoise, full sample pipeline), factory
+  engine/     SUPIREngine (stage-1 denoise, text conditioning, full sample
+              pipeline), factory
   captioner/  the LLaVA captioner: CLIP vision tower, Llama decoder with
-              quantized projections, prompt templates, CaptionerAgent
-  utils/      the JAX->torch weight bridge and its rule tables, colour fix
+              quantized projections, prompt templates, CaptionerAgent and
+              its checkpoint entry point
+  apps/       the batch restore CLI (python -m supir_tpu_torch.apps.cli)
+  utils/      the JAX->torch weight bridge and its rule tables, checkpoint
+              loading, image I/O, the CLIP tokenizer, colour fix
   tools/      the decode-GEMV probes T1-T4 (stream ceiling, GEMV sweep,
               nibble order, native int4), run as python -m
               supir_tpu_torch.tools.<name> on the card

@@ -12,7 +12,10 @@ text. Decode is a plain Python loop, one token per step: the JAX agent's
 are not carried over. Without a tokenizer the agent uses the JAX agent's
 byte fallback (agent.py:276-285), so the path needs no download.
 
-`create_captioner` builds the model on the card (the CPU only when asked),
+`CaptionerAgent.create_default` builds the agent from an HF llava-v1.5
+checkpoint directory (config.json, *.safetensors / *.bin, tokenizer files),
+by default $LLAVA_MODEL_PATH, as the reference's LLavaAgent does; the batch
+CLI calls it. `create_captioner` builds the model on the card (the CPU only when asked),
 from a state dict under HF LLaVA keys or from random weights drawn on the
 device from a seed, in every weight and execution mode of `LlamaConfig`
 and every KV-cache type of `CaptionerConfig`; in the quantized modes each
@@ -25,6 +28,8 @@ the block modules, as the JAX agent's does (agent.py:416-429).
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Iterator, List, Mapping, Optional
 
 import numpy as np
@@ -47,7 +52,7 @@ from supir_tpu_torch.captioner.vision import (
     preprocess_images,
     select_patch_features,
 )
-from supir_tpu_torch.models.layers import FusedLayerNorm
+from supir_tpu_torch.models.layers import FusedLayerNorm, Holder
 from supir_tpu_torch.utils.device import resolve_device
 
 DEFAULT_QUESTION = "Describe this image and its style in a very detailed manner."
@@ -75,6 +80,30 @@ class CaptionerConfig:
         return cls(vision=CLIPVisionConfig().tiny(), llama=LlamaConfig().tiny(),
                    max_new_tokens=8, cache_len=384)
 
+    @classmethod
+    def from_hf_config(cls, hf: dict) -> "CaptionerConfig":
+        """From an HF llava config.json dict (the fields the reference's
+        llava/model/builder.py:26-148 reads); a `vision_config` entry sets
+        the vision tower's dims, else CLIP ViT-L/14-336's."""
+        heads = hf.get("num_attention_heads", 40)
+        llama = LlamaConfig(
+            vocab_size=hf.get("vocab_size", 32000), dim=hf.get("hidden_size", 5120),
+            layers=hf.get("num_hidden_layers", 40), heads=heads,
+            kv_heads=hf.get("num_key_value_heads", heads), hidden_dim=hf.get("intermediate_size", 13824),
+            max_seq_len=hf.get("max_position_embeddings", 2048), rope_theta=hf.get("rope_theta", 10000.0),
+            rms_eps=hf.get("rms_norm_eps", 1e-6),
+        )
+        vision = CLIPVisionConfig()
+        if "vision_config" in hf:
+            v = hf["vision_config"]
+            vision = CLIPVisionConfig(
+                image_size=v.get("image_size", 336), patch_size=v.get("patch_size", 14),
+                width=v.get("hidden_size", 1024), layers=v.get("num_hidden_layers", 24),
+                heads=v.get("num_attention_heads", 16),
+            )
+        return cls(llama=llama, vision=vision, projector_type=hf.get("mm_projector_type", "mlp2x_gelu"),
+                   mm_hidden_layer=hf.get("mm_vision_select_layer", -2))
+
 
 class MMProjector(nn.Sequential):
     """mlp2x_gelu (llava/model/multimodal_projector/builder.py): Linear,
@@ -83,15 +112,6 @@ class MMProjector(nn.Sequential):
     def __init__(self, in_dim: int, out_dim: int, device=None, dtype=None):
         super().__init__(nn.Linear(in_dim, out_dim, device=device, dtype=dtype), nn.GELU(),
                          nn.Linear(out_dim, out_dim, device=device, dtype=dtype))
-
-
-class _Holder(nn.Module):
-    """A named level of the HF key tree (`vision_tower.vision_tower`)."""
-
-    def __init__(self, **children):
-        super().__init__()
-        for name, module in children.items():
-            setattr(self, name, module)
 
 
 class LlavaForCausalLM(LlamaForCausalLM):
@@ -103,7 +123,7 @@ class LlavaForCausalLM(LlamaForCausalLM):
             raise NotImplementedError(f"projector {cfg.projector_type!r} is not ported")
         super().__init__(cfg.llama, device, dtype)
         tower = CLIPVisionTower(cfg.vision, device=device, dtype=dtype)
-        self.model.vision_tower = _Holder(vision_tower=_Holder(vision_model=tower))
+        self.model.vision_tower = Holder(vision_tower=Holder(vision_model=tower))
         self.model.mm_projector = MMProjector(cfg.vision.width, cfg.llama.dim, device=device, dtype=dtype)
 
     @property
@@ -119,6 +139,65 @@ class CaptionerAgent:
         self.device = model.device
         self.dtype = _DTYPES[cfg.compute_dtype]
         self.kv_dtype = _KV_DTYPES[cfg.kv_dtype]
+
+    # ------------------------------------------------------------ factory
+
+    @classmethod
+    def create_default(cls, weights_dir: Optional[str] = None, cfg: Optional[CaptionerConfig] = None,
+                       device="cuda", param_dtype: Optional[torch.dtype] = None, load_8bit: bool = False,
+                       load_4bit: bool = False, seed: int = 0) -> "CaptionerAgent":
+        """From an HF llava-v1.5 checkpoint directory (reference
+        llava/model/builder.py:26-148, llava_agent.py:18-64): its
+        config.json gives `cfg` unless one is passed, every model key must
+        be in its weight files, and its tokenizer files the tokenizer.
+        weights_dir defaults to $LLAVA_MODEL_PATH. load_4bit / load_8bit are
+        --load_4bit_llava / --load_8bit_llava: paired int4 (K5) or int8 (K8
+        at load, K7 in decode) block projections (create_captioner's bits).
+        Parameters and activations in `param_dtype` (bf16 with a bf16 KV
+        cache by default on the card; on the CPU cfg's dtypes, fp32 unless
+        it says otherwise). A missing directory or an incomplete checkpoint
+        raises CaptionerCheckpointError."""
+        from supir_tpu_torch.captioner.convert import CaptionerCheckpointError, load_captioner_checkpoint
+
+        weights_dir = weights_dir or os.environ.get("LLAVA_MODEL_PATH")
+        if not weights_dir or not os.path.exists(weights_dir):
+            raise CaptionerCheckpointError(
+                f"no captioner weights at {weights_dir!r}: set LLAVA_MODEL_PATH to an HF llava-v1.5 "
+                "checkpoint dir (or pass weights_dir)")
+        device = resolve_device(device)
+        if cfg is None:
+            cfg_path = os.path.join(weights_dir, "config.json")
+            cfg = CaptionerConfig()
+            if os.path.exists(cfg_path):
+                with open(cfg_path) as f:
+                    cfg = CaptionerConfig.from_hf_config(json.load(f))
+        sd, report = load_captioner_checkpoint(weights_dir, cfg)
+        if report.missing:
+            raise CaptionerCheckpointError(f"captioner checkpoint incomplete ({report.summary()}); "
+                                           f"first missing: {report.missing[:5]}")
+        print("captioner conversion:", report.summary())
+        if param_dtype is None and device.type == "cuda":
+            param_dtype = torch.bfloat16
+        if param_dtype == torch.bfloat16:  # the reference serves fp16 end to end, its KV cache too
+            cfg = dataclasses.replace(cfg, compute_dtype="bfloat16", kv_dtype="bfloat16")
+        elif param_dtype is not None:
+            cfg = dataclasses.replace(cfg, compute_dtype={torch.float32: "float32"}[param_dtype])
+        bits = 4 if load_4bit else (8 if load_8bit else None)
+        return create_captioner(cfg, device, bits=bits, seed=seed, state_dict=sd,
+                                tokenizer=cls.load_tokenizer(weights_dir))
+
+    @staticmethod
+    def load_tokenizer(path: str):
+        """HF's tokenizer from the checkpoint directory's own files; where
+        there are none (or no transformers), None and a warning: the agent
+        then uses the byte fallback, as synthetic checkpoints need."""
+        try:
+            from transformers import AutoTokenizer
+
+            return AutoTokenizer.from_pretrained(path, local_files_only=True)
+        except Exception as e:
+            print(f"[warn] tokenizer load failed from {path!r} ({e}); using byte fallback")
+            return None
 
     # ------------------------------------------------------------ tokenize
 

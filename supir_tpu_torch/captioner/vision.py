@@ -124,15 +124,17 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     return w
 
 
-def bicubic_resize(img: torch.Tensor, size: int) -> torch.Tensor:
-    """[H, W, C] float32 -> [size, size, C], as jax.image.resize(..., "bicubic"):
-    two matmuls with the separable weights, on img's device."""
+def bicubic_resize(img: torch.Tensor, size) -> torch.Tensor:
+    """[H, W, C] float32 -> [size, size, C], or [h, w, C] for size (h, w),
+    as jax.image.resize(..., "bicubic"): two matmuls with the separable
+    weights, on img's device."""
     h, w, _ = img.shape
+    oh, ow = (size, size) if isinstance(size, int) else size
     out = img
-    if h != size:
-        out = torch.einsum("hwc,ho->owc", out, torch.tensor(resize_weights(h, size), device=img.device))
-    if w != size:
-        out = torch.einsum("hwc,wo->hoc", out, torch.tensor(resize_weights(w, size), device=img.device))
+    if h != oh:
+        out = torch.einsum("hwc,ho->owc", out, torch.tensor(resize_weights(h, oh), device=img.device))
+    if w != ow:
+        out = torch.einsum("hwc,wo->hoc", out, torch.tensor(resize_weights(w, ow), device=img.device))
     return out
 
 

@@ -1,14 +1,19 @@
 """Configuration: the port's own copy of the restore path's dataclasses.
 
 Field names, defaults and the `tiny()` / `scaled_for()` helpers are those of
-`supir_tpu/config.py`; `tests/test_torch_engine.py` holds the two copies
-equal. The port keeps its own so that it imports nothing of the JAX package.
-`dtype_of` maps a dtype name to the torch dtype.
+`supir_tpu/config.py`, and of the text towers' `CLIPTextConfig`
+(`supir_tpu/models/clip.py:28`) and `ConditionerConfig`
+(`supir_tpu/models/embedders.py:35`); `tests/test_torch_engine.py` and
+`tests/test_torch_conditioning.py` hold the copies equal. The port keeps its
+own so that it imports nothing of the JAX package. `dtype_of` maps a dtype
+name to the torch dtype; `load_yaml_config` reads an `options/*.yaml` as
+`supir_tpu/config.py:load_yaml_config` (:225) does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -199,8 +204,113 @@ class SUPIRConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    """A CLIP text tower: ViT-L/14 (the defaults) or OpenCLIP ViT-bigG/14."""
+
+    vocab_size: int = 49408
+    max_length: int = 77
+    width: int = 768
+    layers: int = 12
+    heads: int = 12
+    use_quick_gelu: bool = True
+    projection_dim: Optional[int] = None  # set for OpenCLIP pooled output
+
+    @classmethod
+    def vit_l(cls) -> "CLIPTextConfig":
+        return cls()
+
+    @classmethod
+    def vit_bigg(cls) -> "CLIPTextConfig":
+        return cls(width=1280, layers=32, heads=20, use_quick_gelu=False, projection_dim=1280)
+
+    def tiny(self) -> "CLIPTextConfig":
+        return dataclasses.replace(self, width=64, layers=2, heads=4,
+                                   projection_dim=64 if self.projection_dim else None)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConditionerConfig:
+    """The SDXL conditioner: CLIP-L at hidden layer `clip_l_hidden_layer`,
+    bigG's penultimate layer and pooled output, and three size scalars
+    embedded `vector_outdim` wide each."""
+
+    clip_l: CLIPTextConfig = CLIPTextConfig.vit_l()
+    clip_bigg: CLIPTextConfig = CLIPTextConfig.vit_bigg()
+    clip_l_hidden_layer: int = 11
+    vector_outdim: int = 256
+
+    def tiny(self) -> "ConditionerConfig":
+        return dataclasses.replace(self, clip_l=self.clip_l.tiny(), clip_bigg=self.clip_bigg.tiny(),
+                                   clip_l_hidden_layer=1, vector_outdim=8)
+
+    @property
+    def context_dim(self) -> int:
+        """Width of `crossattn`: both towers' hidden states side by side."""
+        return self.clip_l.width + self.clip_bigg.width
+
+    @property
+    def adm_dim(self) -> int:
+        """Width of `vector`: bigG's pooled output and two sinusoids for
+        each of the three size pairs."""
+        return self.clip_bigg.projection_dim + 6 * self.vector_outdim
+
+
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
 
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# YAML surface (options/*.yaml)
+
+EXTRA_KEYS = ("SDXL_CKPT", "SUPIR_CKPT_Q", "SUPIR_CKPT_F", "default_setting", "tile_vae")
+
+
+def _merge(base: dict, over: dict) -> dict:
+    """`over` on top of `base`, nested dicts merged key by key."""
+    out = dict(base)
+    for k, v in over.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def load_yaml_config(path: str):
+    """An options/*.yaml -> (SUPIRConfig, extras). An `include:` key layers
+    the file over the one it names (the tiled and lightning variants extend
+    the base file); extras carry the checkpoint paths, `default_setting`
+    and the tile_vae sizes. Keys a dataclass lacks are ignored."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    if "include" in raw:
+        with open(os.path.join(os.path.dirname(path), raw.pop("include"))) as f:
+            base = yaml.safe_load(f)
+        base.pop("include", None)
+        raw = _merge(base, raw)
+
+    m = raw.get("model", {})
+
+    def build(cls, key):
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: tuple(v) if isinstance(v, list) else v
+                      for k, v in m.get(key, {}).items() if k in names})
+
+    cfg = SUPIRConfig(
+        unet=build(UNetConfig, "unet"),
+        vae=build(VAEConfig, "vae"),
+        control=build(ControlConfig, "control"),
+        sampler=build(SamplerConfig, "sampler"),
+        scale_factor=m.get("scale_factor", 0.13025),
+        ae_dtype=m.get("ae_dtype", "bf16"),
+        diffusion_dtype=m.get("diffusion_dtype", "bf16"),
+        p_p=raw.get("p_p", SUPIRConfig.p_p),
+        n_p=raw.get("n_p", SUPIRConfig.n_p),
+    )
+    return cfg, {k: raw.get(k) for k in EXTRA_KEYS}

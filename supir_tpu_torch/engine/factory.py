@@ -5,22 +5,41 @@ The modules are built on the meta device and materialised directly on the
 target device in the target dtype, so a full-width engine never exists as
 an fp32 copy on the host (~14 GB). Random init follows `init_params`:
 convs and linears draw N(0, 1/fan_in) (flax's lecun_normal variance),
-biases are zero, norms are (1, 0), and zero-initialised layers stay zero.
-Every draw comes from one `torch.Generator` on the target device.
+biases are zero, norms are (1, 0), and zero-initialised layers stay zero;
+the text towers' token embeddings draw N(0, 1/width) (flax's Embed), their
+position embeddings N(0, 0.01^2) and bigG's text projection N(0, 1/width).
+Every draw comes from one `torch.Generator` on the target device, the
+conditioner's after the restore modules', so adding it leaves their
+weights as they were.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional
 
 import torch
 import torch.nn as nn
 
-from supir_tpu_torch.config import SUPIRConfig
+from supir_tpu_torch.config import ConditionerConfig, SUPIRConfig, UNetConfig
 from supir_tpu_torch.engine.supir import SUPIREngine, SUPIRModel
 from supir_tpu_torch.engine.training import SUPIRTrainer
+from supir_tpu_torch.models.clip import CLIPTextModel, OpenCLIPAttention
 from supir_tpu_torch.models.layers import Conv, Dense, FusedLayerNorm, GroupNorm32
 from supir_tpu_torch.utils.device import resolve_device
+
+
+def tiny_test_config():
+    """(SUPIRConfig, ConditionerConfig) at tiny widths whose UNet context
+    and ADM widths are the tiny conditioner's (supir_tpu/engine/factory.py:22),
+    fp32 throughout: the CLI's --tiny and the CPU tests."""
+    cond_cfg = ConditionerConfig().tiny()
+    unet = dataclasses.replace(UNetConfig().tiny(), context_dim=cond_cfg.context_dim,
+                               adm_in_channels=cond_cfg.adm_dim)
+    base = SUPIRConfig.tiny()
+    cfg = dataclasses.replace(base, unet=unet, control=dataclasses.replace(base.control, unet=unet),
+                              ae_dtype="fp32", diffusion_dtype="fp32")
+    return cfg, cond_cfg
 
 
 @torch.no_grad()
@@ -38,16 +57,31 @@ def init_random(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(module, (GroupNorm32, FusedLayerNorm)):
             module.weight.fill_(1.0)
             module.bias.zero_()
+        elif isinstance(module, nn.Linear):
+            module.weight.normal_(0.0, module.in_features ** -0.5, generator=generator)
+            module.bias.zero_()
+        elif isinstance(module, nn.Embedding):
+            module.weight.normal_(0.0, module.embedding_dim ** -0.5, generator=generator)
+        elif isinstance(module, OpenCLIPAttention):
+            w = module.in_proj_weight
+            w.normal_(0.0, w.shape[1] ** -0.5, generator=generator)
+            module.in_proj_bias.zero_()
+        elif isinstance(module, CLIPTextModel) and module.layout == "openclip":
+            module.positional_embedding.normal_(0.0, 0.01, generator=generator)
+            proj = module.text_projection
+            proj.normal_(0.0, proj.shape[0] ** -0.5, generator=generator)
 
 
 def build_model(cfg: SUPIRConfig, device, state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                seed: int = 0, param_dtype: Optional[torch.dtype] = None) -> SUPIRModel:
-    """SUPIRModel on `device`: filled from `state_dict` (strict) or, when
-    none is given, randomly from `seed`; every parameter in `param_dtype`
-    if given, else in the config's dtypes."""
+                seed: int = 0, param_dtype: Optional[torch.dtype] = None,
+                cond_cfg: Optional[ConditionerConfig] = None) -> SUPIRModel:
+    """SUPIRModel on `device`, with the text conditioner where `cond_cfg`
+    is given: filled from `state_dict` (strict, cast to the parameters'
+    dtypes) or, when none is given, randomly from `seed`; every parameter
+    in `param_dtype` if given, else in the config's dtypes."""
     device = resolve_device(device)
     with torch.device("meta"):
-        model = SUPIRModel(cfg, param_dtype=param_dtype)
+        model = SUPIRModel(cfg, param_dtype=param_dtype, cond_cfg=cond_cfg)
     model = model.to_empty(device=device)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
@@ -58,9 +92,10 @@ def build_model(cfg: SUPIRConfig, device, state_dict: Optional[Mapping[str, torc
 
 def create_engine(cfg: Optional[SUPIRConfig] = None, device="cuda",
                   state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                  seed: int = 0, param_dtype: Optional[torch.dtype] = None) -> SUPIREngine:
+                  seed: int = 0, param_dtype: Optional[torch.dtype] = None,
+                  cond_cfg: Optional[ConditionerConfig] = None) -> SUPIREngine:
     cfg = cfg or SUPIRConfig()
-    return SUPIREngine(cfg, build_model(cfg, device, state_dict, seed, param_dtype))
+    return SUPIREngine(cfg, build_model(cfg, device, state_dict, seed, param_dtype, cond_cfg))
 
 
 def create_trainer(cfg: Optional[SUPIRConfig] = None, device="cuda",

@@ -1,6 +1,7 @@
 """SUPIREngine: the restore path's orchestration (counterpart of
-supir_tpu/engine/supir.py): stage-1 denoise-encoding, the CFG-batched
-control denoiser, RestoreEDM sampling, decoding and colour fix.
+supir_tpu/engine/supir.py): stage-1 denoise-encoding, the SDXL text
+conditioning, the CFG-batched control denoiser, RestoreEDM sampling,
+decoding and colour fix.
 
 Public methods keep the JAX engine's layout, so tests compare like with
 like: images [B, H, W, 3] in [-1, 1] and latents [B, h, w, 4], NHWC, fp32,
@@ -13,30 +14,36 @@ from jax.random's, so parity runs inject the noise.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import hashlib
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from supir_tpu_torch.config import SUPIRConfig, dtype_of
+from supir_tpu_torch.config import ConditionerConfig, SUPIRConfig, dtype_of
 from supir_tpu_torch.diffusion.denoiser import DiscreteDenoiser
 from supir_tpu_torch.diffusion.discretization import legacy_ddpm_sigmas
 from supir_tpu_torch.diffusion.guidance import cfg_combine
 from supir_tpu_torch.diffusion.samplers import make_step_tables, restore_edm_sample
 from supir_tpu_torch.models.control import GLVControl, LightGLVUNet
+from supir_tpu_torch.models.embedders import Conditioner
 from supir_tpu_torch.models.vae import AutoencoderKL, DiagonalGaussian
 from supir_tpu_torch.utils.colorfix import adaptive_instance_normalization, wavelet_reconstruction
 
 
 class SUPIRModel(nn.Module):
     """The restore path's modules under the reference's state-dict keys:
-    model.diffusion_model.*, model.control_model.*, first_stage_model.*.
-    Parameters are in the config's dtypes, or all in `param_dtype` if given
-    (the trainer's fp32 parameters)."""
+    model.diffusion_model.*, model.control_model.*, first_stage_model.*,
+    and with a `cond_cfg` the text conditioner, conditioner.*. Parameters
+    are in the config's dtypes (the conditioner in `ae_dtype`, where the
+    JAX engine runs it, :104), or all in `param_dtype` if given (the
+    trainer's fp32 parameters)."""
 
-    def __init__(self, cfg: SUPIRConfig, device=None, param_dtype: Optional[torch.dtype] = None):
+    def __init__(self, cfg: SUPIRConfig, device=None, param_dtype: Optional[torch.dtype] = None,
+                 cond_cfg: Optional[ConditionerConfig] = None):
         super().__init__()
+        self.cond_cfg = cond_cfg
         diff = dict(device=device, dtype=param_dtype or dtype_of(cfg.diffusion_dtype))
         self.model = nn.ModuleDict({
             "diffusion_model": LightGLVUNet(cfg.unet, cfg.control, **diff),
@@ -45,6 +52,9 @@ class SUPIRModel(nn.Module):
         self.first_stage_model = AutoencoderKL(
             cfg.vae, device=device, dtype=param_dtype or dtype_of(cfg.ae_dtype)
         )
+        if cond_cfg is not None:
+            self.conditioner = Conditioner(cond_cfg, device=device,
+                                           dtype=param_dtype or dtype_of(cfg.ae_dtype))
 
 
 def _nchw(x) -> torch.Tensor:
@@ -58,13 +68,19 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 class SUPIREngine:
     """The reference engine's public surface for the restore path:
     `encode_first_stage_with_denoise`, `encode_first_stage`,
-    `decode_first_stage`, `batchify_denoise`, `batchify_sample`."""
+    `decode_first_stage`, `batchify_denoise`, `prepare_condition` (and its
+    cached and tiled forms, where the model holds a conditioner),
+    `batchify_sample`, `log_images`."""
+
+    COND_CACHE_SIZE = 32
 
     def __init__(self, cfg: SUPIRConfig, model: SUPIRModel):
         self.cfg = cfg
         self.model = model.eval()
+        self.cond_cfg = model.cond_cfg
         self.device = next(model.parameters()).device
         self.denoiser = DiscreteDenoiser(num_idx=cfg.num_idx)
+        self._cond_cache: Dict[str, Tuple[dict, dict]] = {}
 
     @property
     def vae(self) -> AutoencoderKL:
@@ -113,6 +129,76 @@ class SUPIREngine:
         got = tuple(arr.shape)
         if got != tuple(expected_shape):
             raise ValueError(f"{name} shape {got} != expected latent shape {tuple(expected_shape)}")
+
+    # ---------------------------------------------------------- conditioning
+
+    @torch.no_grad()
+    def _condition(self, tokens_l, tokens_bigg) -> Dict[str, torch.Tensor]:
+        """The conditioner on token ids [n, 77] at the fixed SDXL size
+        tuples (1024, 1024) original and target, crop (0, 0); fp32 out."""
+        if getattr(self.model, "conditioner", None) is None:
+            raise ValueError("this engine's model holds no conditioner (build it with cond_cfg)")
+        tl, tg = (torch.as_tensor(t if torch.is_tensor(t) else np.ascontiguousarray(t)).long().to(self.device)
+                  for t in (tokens_l, tokens_bigg))
+        n = tl.shape[0]
+        size = torch.full((n, 2), 1024.0, device=self.device)
+        crop = torch.zeros((n, 2), device=self.device)
+        out = self.model.conditioner(tl, tg, size, crop, size)
+        return {k: v.float() for k, v in out.items()}
+
+    def prepare_condition(self, z, tokens_l, tokens_bigg, tokens_l_uc, tokens_bigg_uc):
+        """SDXL conditioning of a batch (SUPIR_model.py:152-179): (c, uc),
+        each {'crossattn', 'vector', 'control'}; `control` is the stage-1
+        latent z [n, h, w, 4] itself."""
+        c = self._condition(tokens_l, tokens_bigg)
+        uc = self._condition(tokens_l_uc, tokens_bigg_uc)
+        z = self._tensor(z)
+        return dict(c, control=z), dict(uc, control=z)
+
+    @staticmethod
+    def condition_key(tokens_l, tokens_bigg, tokens_l_uc, tokens_bigg_uc) -> str:
+        """SHA-1 over the four int32 token arrays, the JAX engine's cache key."""
+        return hashlib.sha1(b"".join(
+            np.asarray(t.cpu() if torch.is_tensor(t) else t, np.int32).tobytes()
+            for t in (tokens_l, tokens_bigg, tokens_l_uc, tokens_bigg_uc))).hexdigest()
+
+    def prepare_condition_cached(self, z, tokens_l, tokens_bigg, tokens_l_uc, tokens_bigg_uc):
+        """prepare_condition with the towers' outputs kept per token set
+        (reference PreparedConditioner, encoders/modules.py:246): repeated
+        prompts run the towers once, and only the control latent changes
+        per call. The oldest of more than COND_CACHE_SIZE entries goes."""
+        key = self.condition_key(tokens_l, tokens_bigg, tokens_l_uc, tokens_bigg_uc)
+        if key not in self._cond_cache:
+            self._cond_cache[key] = (self._condition(tokens_l, tokens_bigg),
+                                     self._condition(tokens_l_uc, tokens_bigg_uc))
+            if len(self._cond_cache) > self.COND_CACHE_SIZE:
+                self._cond_cache.pop(next(iter(self._cond_cache)))
+        c_txt, uc_txt = self._cond_cache[key]
+        z = self._tensor(z)
+        return dict(c_txt, control=z), dict(uc_txt, control=z)
+
+    def prepare_condition_tiled(self, z, tokens_l_tiles, tokens_bigg_tiles, tokens_l_uc, tokens_bigg_uc):
+        """Per-tile local prompts (SUPIR_model.py:167-178): tokens_*_tiles
+        are [T, 77] and the uncond is shared. c carries 'crossattn_tiles'
+        [T, 1, 77, D] beside the first tile's conditioning. Batch 1 only,
+        as the reference."""
+        if self._tensor(z).shape[0] != 1:
+            raise ValueError("local prompts support batch 1 (reference parity)")
+        c, uc = self.prepare_condition(z, tokens_l_tiles[:1], tokens_bigg_tiles[:1], tokens_l_uc,
+                                       tokens_bigg_uc)
+        c["crossattn_tiles"] = self._condition(tokens_l_tiles, tokens_bigg_tiles)["crossattn"][:, None]
+        return c, uc
+
+    def log_images(self, x, c, uc, num_steps: int = 8, seed: int = 0) -> Dict[str, torch.Tensor]:
+        """The training loop's pictures (DiffusionEngine.log_images,
+        diffusion.py:272-320): the input, its stage-1 reconstruction and a
+        short sample."""
+        z = self.encode_first_stage_with_denoise(x)
+        return {
+            "inputs": self._tensor(x),
+            "stage1": self.decode_first_stage(z),
+            "samples": self.batchify_sample(x, c, uc, num_steps=num_steps, seed=seed, z_override=z),
+        }
 
     # -------------------------------------------------------------- sampling
 

@@ -113,6 +113,16 @@ class TimestepEmbedMLP(nn.Sequential):
         )
 
 
+class Holder(nn.Module):
+    """One named level of a reference key tree (HF's
+    `vision_tower.vision_tower`, SDXL's `embedders.0.transformer`)."""
+
+    def __init__(self, **children):
+        super().__init__()
+        for name, module in children.items():
+            setattr(self, name, module)
+
+
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x spatial upsample, NCHW."""
     return F.interpolate(x, scale_factor=2.0, mode="nearest")

@@ -8,7 +8,9 @@ keys. `tests/test_torch_engine.py` and `tests/test_torch_captioner.py` hold
 each table equal to the JAX package's, key for key and path for path.
 
 kind: "linear" ([out, in] torch, [in, out] flax), "conv" (OIHW torch, HWIO
-flax) or None (as is).
+flax), None (as is), or "qkv_w" / "qkv_b": OpenCLIP's packed in_proj
+weight [3w, w] or bias [3w], whose flax path ends in a placeholder
+(`__qkv_w__`, `__qkv_b__`) beside the q/k/v_proj Dense leaves it splits into.
 """
 
 from __future__ import annotations
@@ -245,6 +247,55 @@ def vae_rules(cfg: VAEConfig, with_denoise_encoder: bool = True) -> List[Rule]:
     rules += _conv(f"{tk}.post_quant_conv", ("post_quant_conv",))
     if with_denoise_encoder:
         rules += vae_encoder_rules(cfg, f"{tk}.denoise_encoder", ("denoise_encoder",))
+    return rules
+
+
+# ---------------------------------------------------------- text conditioner
+# supir_tpu/utils/ckpt.py:325-367: HF CLIP-L and OpenCLIP bigG under conditioner.*
+
+
+def clip_l_rules(layers: int = 12) -> List[Rule]:
+    """HF CLIP-L text tower (conditioner.embedders.0.transformer.text_model)."""
+    tk = "conditioner.embedders.0.transformer.text_model"
+    fp = ("clip_l",)
+    rules = [
+        (f"{tk}.embeddings.token_embedding.weight", fp + ("token_embedding", "embedding"), None),
+        (f"{tk}.embeddings.position_embedding.weight", fp + ("positional_embedding",), None),
+    ]
+    for i in range(layers):
+        lt = f"{tk}.encoder.layers.{i}"
+        lf = fp + (f"block_{i}",)
+        for p in ("q", "k", "v", "out"):
+            rules += _dense(f"{lt}.self_attn.{p}_proj", lf + ("attn", f"{p}_proj"))
+        rules += _norm(f"{lt}.layer_norm1", lf + ("ln_1",))
+        rules += _norm(f"{lt}.layer_norm2", lf + ("ln_2",))
+        rules += _dense(f"{lt}.mlp.fc1", lf + ("mlp_fc1",))
+        rules += _dense(f"{lt}.mlp.fc2", lf + ("mlp_fc2",))
+    rules += _norm(f"{tk}.final_layer_norm", fp + ("ln_final",))
+    return rules
+
+
+def clip_bigg_rules(layers: int = 32) -> List[Rule]:
+    """OpenCLIP bigG text tower (conditioner.embedders.1.model); the packed
+    in_proj q/k/v take the "qkv_w" / "qkv_b" kinds."""
+    tk = "conditioner.embedders.1.model"
+    fp = ("clip_bigg",)
+    rules = [
+        (f"{tk}.token_embedding.weight", fp + ("token_embedding", "embedding"), None),
+        (f"{tk}.positional_embedding", fp + ("positional_embedding",), None),
+        (f"{tk}.text_projection", fp + ("text_projection",), None),
+    ]
+    for i in range(layers):
+        lt = f"{tk}.transformer.resblocks.{i}"
+        lf = fp + (f"block_{i}",)
+        rules.append((f"{lt}.attn.in_proj_weight", lf + ("attn", "__qkv_w__"), "qkv_w"))
+        rules.append((f"{lt}.attn.in_proj_bias", lf + ("attn", "__qkv_b__"), "qkv_b"))
+        rules += _dense(f"{lt}.attn.out_proj", lf + ("attn", "out_proj"))
+        rules += _norm(f"{lt}.ln_1", lf + ("ln_1",))
+        rules += _norm(f"{lt}.ln_2", lf + ("ln_2",))
+        rules += _dense(f"{lt}.mlp.c_fc", lf + ("mlp_fc1",))
+        rules += _dense(f"{lt}.mlp.c_proj", lf + ("mlp_fc2",))
+    rules += _norm(f"{tk}.ln_final", fp + ("ln_final",))
     return rules
 
 

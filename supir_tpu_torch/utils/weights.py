@@ -7,11 +7,15 @@ transform, and the inverse transform turns the leaf into the torch tensor:
 
   linear  [in, out] -> [out, in]
   conv    HWIO -> OIHW
+  qkv_w   the q/k/v_proj kernels beside the placeholder, each [in, out] ->
+          [out, in], concatenated to OpenCLIP's in_proj_weight [3w, w]
+  qkv_b   their biases concatenated to in_proj_bias [3w]
   other   as is (norm scale -> weight, biases, embeddings)
 
 The keys are the reference's, so the results load with `strict=True`:
 `state_dict_from_jax` into `SUPIRModel` (`model.diffusion_model.*`,
-`model.control_model.*`, `first_stage_model.*`), and
+`model.control_model.*`, `first_stage_model.*`, and the text conditioner's
+`conditioner.embedders.{0,1}.*` where the tree holds one), and
 `captioner_state_dict_from_jax` into the unquantized `LlavaForCausalLM`
 (HF LLaVA keys: `model.layers.{i}.self_attn.q_proj.weight`,
 `model.vision_tower.vision_tower.vision_model.*`, `model.mm_projector.*`,
@@ -71,6 +75,11 @@ def light_glv_unet_rules(cfg: UNetConfig, ctrl: ControlConfig) -> List[C.Rule]:
     return rules
 
 
+def conditioner_rules(cond_cfg) -> List[C.Rule]:
+    """conditioner.* -> params['conditioner'] (cond_cfg: a ConditionerConfig)."""
+    return C.clip_l_rules(cond_cfg.clip_l.layers) + C.clip_bigg_rules(cond_cfg.clip_bigg.layers)
+
+
 def supir_rules(cfg: SUPIRConfig) -> Dict[str, List[C.Rule]]:
     """The rule table of each parameter branch of the restore path."""
     return {
@@ -106,11 +115,22 @@ def _to_torch(kind, v: np.ndarray) -> np.ndarray:
     raise ValueError(f"rule kind {kind!r} has no place in the bridge")
 
 
+def _packed_qkv(tree: Mapping[str, Any], fpath, kind) -> np.ndarray:
+    """The inverse of the JAX converter's split of OpenCLIP's in_proj
+    (supir_tpu/utils/ckpt.py:apply_rules, "qkv_w"/"qkv_b")."""
+    leaf = "kernel" if kind == "qkv_w" else "bias"
+    parts = [_leaf(tree, fpath[:-1] + (f"{p}_proj", "Dense_0", leaf)) for p in "qkv"]
+    return np.concatenate([p.T if kind == "qkv_w" else p for p in parts], axis=0)
+
+
 def state_dict_from_rules(tree: Mapping[str, Any], rules: List[C.Rule]) -> Dict[str, torch.Tensor]:
-    return {
-        tkey: torch.from_numpy(np.ascontiguousarray(_to_torch(kind, _leaf(tree, fpath)), np.float32))
-        for tkey, fpath, kind in rules
-    }
+    def value(fpath, kind):
+        if kind in ("qkv_w", "qkv_b"):
+            return _packed_qkv(tree, fpath, kind)
+        return _to_torch(kind, _leaf(tree, fpath))
+
+    return {tkey: torch.from_numpy(np.ascontiguousarray(value(fpath, kind), np.float32))
+            for tkey, fpath, kind in rules}
 
 
 def _bridge(params_np: Mapping[str, Any], tables: Dict[str, List[C.Rule]]) -> Dict[str, torch.Tensor]:
@@ -120,10 +140,20 @@ def _bridge(params_np: Mapping[str, Any], tables: Dict[str, List[C.Rule]]) -> Di
     return sd
 
 
+def _tower_layers(tower: Mapping[str, Any]) -> int:
+    return sum(k.startswith("block_") for k in tower)
+
+
 def state_dict_from_jax(params_np: Mapping[str, Any], cfg: SUPIRConfig) -> Dict[str, torch.Tensor]:
-    """{'unet', 'control', 'vae'} parameter trees (numpy or array leaves) ->
-    fp32 CPU tensors under the reference torch keys."""
-    return _bridge(params_np, supir_rules(cfg))
+    """{'unet', 'control', 'vae'} parameter trees (numpy or array leaves),
+    and 'conditioner' where the tree holds one (its towers' depths read off
+    the tree) -> fp32 CPU tensors under the reference torch keys."""
+    tables = supir_rules(cfg)
+    if "conditioner" in params_np:
+        cond = params_np["conditioner"]
+        tables["conditioner"] = (C.clip_l_rules(_tower_layers(cond["clip_l"]))
+                                 + C.clip_bigg_rules(_tower_layers(cond["clip_bigg"])))
+    return _bridge(params_np, tables)
 
 
 def _has(tree: Mapping[str, Any], path) -> bool:
