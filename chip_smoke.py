@@ -19,8 +19,10 @@ Phases, each printing its own lines:
   3. kernels against their plain PyTorch versions on the card, with
      CUDA-event or CUDA-graph times of both, the least time the card could
      take (bound) and, where one PyTorch call computes the same function,
-     its time: K1 at the restore path's shapes, K1 causal, K2 at each of
-     the restore path's shape classes (the cluster kernel in turns with
+     its time: K1 at the restore path's shapes and at the tiled path's
+     batches (98 rows: 49 windows of a 4096^2 image with CFG), K1 causal,
+     K2 at each of the restore path's shape classes and at the tiled
+     path's largest batch (the cluster kernel in turns with
      the Triton first design, by events and by CUDA-graph replay, host µs
      per call of both, its planted faults: one rank's partials left out,
      each CTA on its own part's statistics, the affine one channel off,
@@ -95,6 +97,23 @@ Phases, each printing its own lines:
      conditioner (towers 128 wide) gives prepare_condition on both, which
      must agree; bigG's last hidden state in place of its penultimate one
      must break that bound.
+  5b. tiled: the tiled 4K path through the batch CLI at full width
+     (options/SUPIR_v0_tiled.yaml, --use_tile_vae --use_tiled_sampling,
+     bf16, random weights, --no_llava, the main path's steps): a 1024^2
+     PNG at --upscale 2, a 2048^2 model image; 16 encoder tiles, 16
+     decoder tiles and 9 sampler windows, counted as the path makes them;
+     K1 and K2 must launch as expected_tiled_launches says (the tiled
+     VAE's pooled GroupNorm sites launch no K2); stage times, peak memory,
+     the saved PNG 2048^2. Then [tiled vae]: the same engine's tiled
+     denoise-encode and decode of one 4096^2 image, timed, peak memory.
+  5c. tiled reference: at the reference's reduced width, the tiled
+     pipeline (a 768^2 image, 4 windows, every VAE pass tiled and staged)
+     on the card (bf16, kernels) and on the CPU (fp32, plain versions),
+     same weights and injected noise, by relative L2; the blend without
+     its normaliser and chunk-local GroupNorm statistics must break it.
+  5d. lightning: options/SUPIR_v0_Juggernautv9_lightning.yaml through the
+     CLI at 1024x1536 with its own 8 RestoreDPMPP2M steps and CFG; stage
+     times, peak memory, K1 and K2 launches as the config says.
   6. captioner: LLaVA-1.5-13B at full width (CLIP ViT-L/14-336, Llama-13B,
      random weights drawn and quantized layer by layer on the card) captions
      a 1024^2 image through CaptionerAgent.gen_image_caption, greedy, 32
@@ -288,6 +307,53 @@ def expected_group_norm_launches(cfg, steps: int, vae_passes: int = 4, encodes=N
     net = sites(model.model["diffusion_model"]) + sites(model.model["control_model"])
     vae = model.first_stage_model
     return net * steps + encodes * sites(vae.encoder) + decodes * sites(vae.decoder)
+
+
+def expected_tiled_launches(cfg, lat, steps: int, tile_size: int = 128, tile_stride: int = 64,
+                            tile_chunk=None, vae_flash: int = 0) -> dict:
+    """K1 and K2 launches of the tiled path: each step runs the network once
+    on all `tile_size` windows of the latent folded into one batch (once a
+    group of `tile_chunk` windows with a chunk), each call K1 at the
+    window's sites and K2 at every GroupNorm of the UNet and control net.
+    The tiled VAE adds no K2 (its statistics are pooled over the tiles, in
+    plain torch) and `vae_flash` K1 (expected_tiled_vae_flash)."""
+    from supir_tpu_torch.utils.tiling import sliding_windows
+
+    h, w = _latent_hw(lat)
+    tiles = len(sliding_windows(h, w, tile_size, tile_stride))
+    calls = steps * (-(-tiles // tile_chunk) if tile_chunk else 1)
+    return {"K1": expected_flash_sites(cfg, tile_size) * calls + vae_flash,
+            "K2": expected_group_norm_launches(cfg, calls, vae_passes=0)}
+
+
+def tiled_vae_tiles(cfg, image_hw, enc_tile: int, dec_tile: int):
+    """(encoder tiles, decoder tiles) of an image: enc_tile image px and
+    dec_tile latent px a tile."""
+    h, w = image_hw
+    f = cfg.vae.downscale_factor
+    return (math.ceil(h / enc_tile) * math.ceil(w / enc_tile),
+            math.ceil(h // f / dec_tile) * math.ceil(w // f / dec_tile))
+
+
+def expected_tiled_vae_flash(cfg, image_hw, enc_tile: int, dec_tile: int, chunk, encodes: int, decodes: int) -> int:
+    """K1 launches of the tiled VAE's mid-block attention over `encodes`
+    encodes and `decodes` decodes: one a call of the encoder or decoder
+    (one call on all tiles, or one a chunk of tiles), where a tile's tokens
+    (its halo included: 32 image px, 8 latent px) and the VAE's single head
+    reach K1. At full width the 512-wide head reaches none."""
+    from supir_tpu_torch.ops.attention import flash_eligible
+
+    f = cfg.vae.downscale_factor
+    head = cfg.vae.ch * cfg.vae.ch_mult[-1]
+
+    def calls(tiles, side, per_call):
+        if not flash_eligible(side * side, side * side, head):
+            return 0
+        return 1 if not per_call or tiles <= per_call else -(-tiles // per_call)
+
+    enc_tiles, dec_tiles = tiled_vae_tiles(cfg, image_hw, enc_tile, dec_tile)
+    return (encodes * calls(enc_tiles, (enc_tile + 64) // f, chunk and chunk[0])
+            + decodes * calls(dec_tiles, dec_tile + 16, chunk and chunk[1]))
 
 
 def rel_l2(got, want) -> float:
@@ -584,6 +650,29 @@ def phase_kernels():
             shifted = flash_attention(q, F.pad(k[:, 1:], shift), F.pad(v[:, 1:], shift))
             _check_fault(f"K1 k/v shifted by one key [{b},{s},{h},{d}]", rel_l2(shifted, want), K1_REL_BOUND)
 
+    # K1 at the tiled path's batches: 2048^2 folds 9 windows into a batch of
+    # 18 (CFG's two halves), 4096^2 49 into 98, where the grid's B*H and the
+    # offsets are largest. The plain version runs 7 rows at a time; each
+    # row's relative L2 is held to the bound, so that an offset gone wrong
+    # at the end of the tensor shows.
+    for b, s, h, d in ((98, 4096, 10, 64), (98, 1024, 20, 64)):
+        q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+        out = flash_attention(q, k, v)
+        want = torch.cat([attention_plain(q[i:i + 7].float(), k[i:i + 7].float(), v[i:i + 7].float())
+                          for i in range(0, b, 7)])
+        rows = [rel_l2(out[i], want[i]) for i in range(b)]
+        ms = cuda_ms(lambda: flash_attention(q, k, v), 5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 5)
+        bound_ms, bound_by = bound(nbytes(q, k, v, out), 4 * b * h * s * s * d)
+        log(f"[kernels] K1 tiled batch [{b},{s},{h},{d}] bf16 vs fp32 plain: worst row rel_l2 {max(rows):.3e} "
+            f"(bound {K1_REL_BOUND:g}, last row {rows[-1]:.3e}), max_abs_err {(out.float() - want).abs().max().item():.3e}; "
+            f"{ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), {bound_ms / ms:.1%} of it, "
+            f"{ms / lib_ms:.2f}x SDPA")
+        _check_rel(f"K1 tiled batch [{b},{s},{h},{d}]", max(rows), K1_REL_BOUND)
+        del q, k, v, out, want
+        torch.cuda.empty_cache()
+
     # K1 with the TPU kernels' causal mask, at Llama-13B head shapes (the
     # caption prompt stays under 1024 tokens, so these are fixed shapes)
     for b, s, h, d in ((1, 1100, 40, 128), (1, 2048, 40, 128)):
@@ -615,12 +704,15 @@ def phase_kernels():
 
 
 # K2 at each shape class of the restore path (UNet, GLVControl and ZeroSFT
-# at latent 128^2, CFG batch 2; the VAE at batch 1 on a 1024^2 image) and
-# one fp32 shape: shape, eps, SiLU, dtype
+# at latent 128^2, CFG batch 2; the VAE at batch 1 on a 1024^2 image), the
+# UNet's widest site at the tiled path's largest batch (49 windows of a
+# 4096^2 image folded with CFG: 98 rows, 514 M elements) and one fp32
+# shape: shape, eps, SiLU, dtype
 K2_SHAPES = (((2, 320, 128, 128), 1e-5, True, "bfloat16"), ((2, 960, 128, 128), 1e-5, True, "bfloat16"),
              ((2, 1920, 64, 64), 1e-5, True, "bfloat16"), ((2, 1280, 32, 32), 1e-5, False, "bfloat16"),
              ((1, 512, 128, 128), 1e-6, True, "bfloat16"), ((1, 128, 1024, 1024), 1e-6, True, "bfloat16"),
-             ((1, 512, 256, 256), 1e-6, True, "bfloat16"), ((2, 640, 64, 64), 1e-5, True, "float32"))
+             ((1, 512, 256, 256), 1e-6, True, "bfloat16"), ((98, 320, 128, 128), 1e-5, True, "bfloat16"),
+             ((2, 640, 64, 64), 1e-5, True, "float32"))
 K2_BOUND = 3e-2  # K2 against its fp32 plain version on the same values, max abs
 
 
@@ -1892,6 +1984,342 @@ def phase_cli(steps: int, smi: str):
             raise AssertionError(f"[cli] the caption {caption!r} is not in the prompt {prompts[:1]!r}")
         if not k5 > 0:
             raise AssertionError("[cli] the captioner run launched no K5")
+    return launches
+
+
+TILED_OPT = "options/SUPIR_v0_tiled.yaml"
+TILED_PNG = 1024      # side of the [tiled] phase's photo; --upscale 2 takes it to 2048^2
+TILED_VAE_SIDE = 4096  # side of the [tiled vae] phase's image
+LIGHTNING_OPT = "options/SUPIR_v0_Juggernautv9_lightning.yaml"
+
+
+@contextlib.contextmanager
+def _watch_tiles(counts: dict):
+    """Record the tile counts of the tiled VAE's splits (encoder image
+    tiles and decoder latent tiles told apart by their channels) and of the
+    tiled sampler's plans, as the path makes them."""
+    from supir_tpu_torch.parallel import tiled_sampler as TS
+    from supir_tpu_torch.parallel import tiled_vae as TV
+
+    split, plan = TV.split_uniform_tiles, TS.make_tile_plan
+
+    def watched_split(x, tile, pad):
+        out = split(x, tile, pad)
+        counts.setdefault("encoder" if x.shape[1] == 3 else "decoder", set()).add(out[0].shape[0])
+        return out
+
+    def watched_plan(*args):
+        out = plan(*args)
+        counts.setdefault("sampler", set()).add(len(out[0]))
+        return out
+
+    TV.split_uniform_tiles, TS.make_tile_plan = watched_split, watched_plan
+    try:
+        yield counts
+    finally:
+        TV.split_uniform_tiles, TS.make_tile_plan = split, plan
+
+
+def _photo_dir(tmp: str, h: int, w: int, seed: int) -> str:
+    import os
+
+    import torch
+    from PIL import Image
+
+    img_dir = os.path.join(tmp, "in")
+    os.makedirs(img_dir)
+    g = torch.Generator().manual_seed(seed)
+    Image.fromarray(torch.randint(0, 256, (h, w, 3), generator=g, dtype=torch.uint8).numpy()).save(
+        os.path.join(img_dir, "photo.png"))
+    return img_dir
+
+
+def phase_tiled(steps: int, smi: str):
+    """The tiled 4K path through the batch CLI at full width: a 1024^2 PNG
+    at --upscale 2 (a 2048^2 model image, a 256^2 latent) with
+    options/SUPIR_v0_tiled.yaml, --use_tile_vae --use_tiled_sampling,
+    random weights, --no_llava: stage 1 through the tiled VAE (16 encoder
+    tiles of 512 px plus their 32 px halo, 16 decoder tiles of 64 latent px
+    plus 8), TiledRestoreEDM over 9 windows of 128 latent px at stride 64
+    folded into one network batch of 18, the tiled decode and colour fix.
+    K1 and K2 must launch as expected_tiled_launches says (the tiled VAE's
+    pooled GroupNorm sites add no K2). Then [tiled vae]: the same engine's
+    tiled denoise-encode and decode of one 4096^2 image, timed, with its
+    peak memory. Returns the CLI run's launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from supir_tpu_torch.apps import cli
+    from supir_tpu_torch.config import load_yaml_config
+    from supir_tpu_torch.models import layers
+    from supir_tpu_torch.models.layers import GroupNorm32
+    from supir_tpu_torch.ops.flash_attention import flash_attention
+    from supir_tpu_torch.ops.groupnorm import group_norm
+    from supir_tpu_torch.utils.tiling import sliding_windows
+
+    cfg, extras = load_yaml_config(TILED_OPT)
+    side = 2 * TILED_PNG
+    lat = side // cfg.vae.downscale_factor
+    enc_tile, dec_tile = extras["tile_vae"]["encoder_tile_size"], extras["tile_vae"]["decoder_tile_size"]
+    engines, times = [], {}
+
+    def create_timed(args):
+        engines.append(create(args))
+        restores.append(_instrument(engines[-1][0], times))
+        return engines[-1]
+
+    create, restores = cli.create_engine_from_args, []
+    cli.create_engine_from_args = create_timed
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir = _photo_dir(tmp, TILED_PNG, TILED_PNG, SEED + 8)
+        argv = ["--img_dir", img_dir, "--save_dir", os.path.join(tmp, "out"), "--opt", TILED_OPT, "--random_weights",
+                "--no_llava", "--edm_steps", str(steps), "--upscale", "2", "--use_tile_vae", "--use_tiled_sampling",
+                "--encoder_tile_size", str(enc_tile), "--decoder_tile_size", str(dec_tile),
+                "--sampler_tile_size", str(cfg.sampler.tile_size), "--sampler_tile_stride", str(cfg.sampler.tile_stride)]
+        torch.cuda.reset_peak_memory_stats()
+        pooled = GroupNorm32.pooled_sites
+        flash_attention.launches = 0
+        group_norm.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with _watch_tiles({}) as tiles:
+                rec, = cli.main(argv)
+        finally:
+            cli.create_engine_from_args = create
+            for restore in restores:
+                restore()
+        total = time.perf_counter() - t0
+        launches = {"K1": flash_attention.launches, "K2": group_norm.launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out = np.asarray(Image.open(rec["saved"][0]))
+    t = rec["timings"]
+    log(f"[tiled] {smi}: {TILED_OPT}, {TILED_PNG}^2 PNG at --upscale 2 -> {side}^2 model image ({lat}^2 latent), "
+        f"{steps} TiledRestoreEDM steps, --no_llava: stage1 (tiled encode + decode) {t['stage1']:.3f} s, "
+        f"conditioning {t['cond']:.3f} s, sample (tiled stage-1 decode, x_center encode, {steps} steps, tiled "
+        f"decode, colour fix) {t['sample']:.3f} s, save {t['save']:.3f} s; main() {total:.2f} s with the engine's "
+        f"random init; peak memory {peak:.2f} GiB")
+    dec, net = times["decode"], times["network"]
+    windows = len(sliding_windows(lat, lat, cfg.sampler.tile_size, cfg.sampler.tile_stride))
+    log(f"[tiled] stages (synchronised): stage-1 tiled encode {times['stage1_encode'][0]:.3f} s, tiled decodes "
+        f"{', '.join(f'{d:.3f}' for d in dec)} s (stage 1, the sampler's stage-1 image, the result), x_center "
+        f"tiled encode {times['center_encode'][0]:.3f} s, network calls ({windows} windows x CFG 2 = batch "
+        f"{2 * windows}) "
+        f"{', '.join(f'{n:.3f}' for n in net)} s, colour fix {times['colorfix'][0]:.3f} s")
+    want_tiles = dict(zip(("encoder", "decoder"), tiled_vae_tiles(cfg, (side, side), enc_tile, dec_tile)))
+    want_tiles["sampler"] = windows
+    log(f"[tiled] tiles: encoder {sorted(tiles.get('encoder', []))} of {enc_tile} px + 32 px halo, decoder "
+        f"{sorted(tiles.get('decoder', []))} of {dec_tile} latent px + 8, sampler {sorted(tiles.get('sampler', []))} "
+        f"windows of {cfg.sampler.tile_size} at stride {cfg.sampler.tile_stride} (expected {want_tiles})")
+    if {k: sorted(v) for k, v in tiles.items()} != {k: [v] for k, v in want_tiles.items()}:
+        raise AssertionError(f"[tiled] tile counts {tiles}, expected {want_tiles}")
+    want = expected_tiled_launches(cfg, lat, steps, cfg.sampler.tile_size, cfg.sampler.tile_stride,
+                                   vae_flash=expected_tiled_vae_flash(cfg, (side, side), enc_tile, dec_tile, (8, 4),
+                                                                      encodes=2, decodes=3))
+    log(f"[tiled] saved {out.shape[0]}x{out.shape[1]} PNG; launches: K1 {launches['K1']} (expected "
+        f"{expected_flash_sites(cfg, cfg.sampler.tile_size)} sites x {steps} steps, one folded call of "
+        f"{want_tiles['sampler']} windows a step = {want['K1']}), K2 {launches['K2']} (expected {want['K2']}: the "
+        f"network's sites only); the tiled VAE's pooled GroupNorm sites {GroupNorm32.pooled_sites - pooled} "
+        f"calls, plain torch, no K2")
+    if out.shape != (side, side, 3) or out.std() == 0:
+        raise AssertionError(f"[tiled] saved PNG {out.shape}, std {out.std()}")
+    if launches != want or not GroupNorm32.pooled_sites > pooled:
+        raise AssertionError(f"[tiled] launches {launches}, expected {want}")
+
+    engine, _ = engines[0]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    x = torch.rand(1, TILED_VAE_SIDE, TILED_VAE_SIDE, 3, generator=g, device="cuda") * 2 - 1
+    group_norm.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _watch_tiles({}) as vae_tiles:
+        z = engine.encode_first_stage_with_denoise(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img = engine.decode_first_stage(z)
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    enc_n, dec_n = tiled_vae_tiles(cfg, (TILED_VAE_SIDE, TILED_VAE_SIDE), enc_tile, dec_tile)
+    log(f"[tiled vae] {smi}: {TILED_VAE_SIDE}^2 image, tiled denoise-encode {t1 - t0:.3f} s ({enc_n} tiles, "
+        f"chunks of 8, staged exact), tiled decode {t2 - t1:.3f} s ({dec_n} tiles, chunks of 4); peak memory "
+        f"{peak:.2f} GiB (the engine's weights included); K2 launches {group_norm.launches}")
+    if tuple(img.shape) != (1, TILED_VAE_SIDE, TILED_VAE_SIDE, 3) or not torch.isfinite(img).all():
+        raise AssertionError(f"[tiled vae] output {tuple(img.shape)} not finite or of the wrong shape")
+    if group_norm.launches or vae_tiles != {"encoder": {enc_n}, "decoder": {dec_n}}:
+        raise AssertionError(f"[tiled vae] K2 launches {group_norm.launches}, tiles {vae_tiles}")
+    # the pooled GroupNorm sites' share: the same passes again with each such
+    # call synchronised and timed (plain torch: moments, FMA, SiLU)
+    pooled = layers.group_norm_pooled
+    spent = []
+
+    def timed_pooled(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = pooled(*args)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    layers.group_norm_pooled = timed_pooled
+    try:
+        shares = []
+        for run in (lambda: engine.encode_first_stage_with_denoise(x), lambda: engine.decode_first_stage(z)):
+            spent.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            shares.append((sum(spent), time.perf_counter() - t, len(spent)))
+    finally:
+        layers.group_norm_pooled = pooled
+    log("[tiled vae] pooled GroupNorm (plain torch) with each call synchronised: " + "; ".join(
+        f"{name} {gn:.3f} s of {tot:.3f} s ({gn / tot:.1%}, {n} calls)"
+        for name, (gn, tot, n) in zip(("encode", "decode"), shares)))
+    del engines, engine, x, z, img
+    _free()
+    return launches
+
+
+def phase_tiled_reference():
+    """The tiled pipeline at the references' reduced width on the card (bf16,
+    kernels) and on the CPU (fp32, plain versions), same weights and
+    injected noise: a 768^2 image (a horizontal ramp over uniform noise, so
+    that tiles differ in their statistics) through batchify_sample_tiled,
+    2 TiledRestoreEDM steps over 4 windows of 64 latent px at stride 32,
+    every VAE pass tiled (9 encoder tiles of 256 px, 9 decoder tiles of 32
+    latent px, chunks of 4: the staged-exact executor). Two planted faults
+    must break the bound: the blend without its normaliser, and chunk-local
+    GroupNorm statistics in place of the pooled ones (fast mode)."""
+    import torch
+
+    from supir_tpu_torch.engine.factory import build_model, create_engine
+    from supir_tpu_torch.engine.supir import SUPIREngine
+    from supir_tpu_torch.ops.flash_attention import flash_attention
+    from supir_tpu_torch.ops.groupnorm import group_norm
+    from supir_tpu_torch.parallel import tiled_sampler as TS
+
+    cfg = _reduced_cfg()
+    size, enc_tile, dec_tile, chunk, steps = 768, 256, 32, (4, 4), 2
+    cpu_cfg = dataclasses.replace(cfg, ae_dtype="fp32", diffusion_dtype="fp32")
+    cpu_model = build_model(cpu_cfg, "cpu", seed=SEED)
+    _randomize_all(cpu_model, SEED)
+    cpu_engine = SUPIREngine(cpu_cfg, cpu_model)
+    gpu_engine = create_engine(cfg, "cuda", state_dict=cpu_model.state_dict())
+    for engine in (cpu_engine, gpu_engine):
+        engine.init_tile_vae(enc_tile, dec_tile, chunk=chunk)
+
+    x, c, uc = _inputs(cfg, size, torch.device("cpu"), SEED + 10)
+    x = (0.5 * x + torch.linspace(-0.5, 0.5, size).view(1, 1, size, 1)).clamp(-1, 1)
+    g = torch.Generator().manual_seed(SEED + 11)
+    lat = size // cfg.vae.downscale_factor
+    noise, center = (torch.randn(1, lat, lat, 4, generator=g) for _ in range(2))
+    kw = dict(SAMPLE_KW, s_churn=0.0, num_steps=steps, tile_size=64, tile_stride=32, noise_override=noise,
+              center_noise_override=center)
+    z = cpu_engine.encode_first_stage_with_denoise(x)
+    t0 = time.perf_counter()
+    want = cpu_engine.batchify_sample_tiled(x, dict(c, control=z), dict(uc, control=z), z_override=z, **kw)
+    cpu_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    cg, ug, zg = {k: v.to(dev) for k, v in c.items()}, {k: v.to(dev) for k, v in uc.items()}, z.to(dev)
+
+    def card():
+        return gpu_engine.batchify_sample_tiled(x.to(dev), dict(cg, control=zg), dict(ug, control=zg), z_override=zg,
+                                                **kw).cpu()
+
+    flash_attention.launches = 0
+    group_norm.launches = 0
+    got = card()
+    launches = {"K1": flash_attention.launches, "K2": group_norm.launches}
+    # z comes from outside: the run holds the stage-1 decode, the x_center encode and the final decode
+    expected = expected_tiled_launches(cfg, lat, steps, 64, 32, vae_flash=expected_tiled_vae_flash(
+        cfg, (size, size), enc_tile, dec_tile, chunk, encodes=1, decodes=2))
+    rel = rel_l2(got, want)
+    log(f"[tiled reference] reduced width (model_channels 128, VAE ch 32), {size}^2, {steps} steps, 4 windows of "
+        f"64 at stride 32, tiled VAE ({enc_tile} px / {dec_tile} latent px tiles, chunks {chunk}, staged exact): "
+        f"card bf16 vs CPU fp32 ({cpu_s:.1f} s): max_abs_err {(got - want).abs().max().item():.4f}, rel_l2 "
+        f"{rel:.4f} (bound {REF_REL_BOUND:g}); launches {launches} (expected {expected})")
+    if not rel <= REF_REL_BOUND:
+        raise AssertionError(f"[tiled reference] card and CPU disagree: rel_l2 {rel}")
+    if launches != expected:
+        raise AssertionError(f"[tiled reference] launches {launches}, expected {expected}")
+
+    call = TS._Blend.__call__
+    TS._Blend.__call__ = lambda self, tiles: TS._scatter_tiles(tiles, self.starts, self.shape, self.weights)
+    try:
+        bad_blend = rel_l2(card(), want)
+    finally:
+        TS._Blend.__call__ = call
+    gpu_engine.init_tile_vae(enc_tile, dec_tile, chunk=chunk, fast_mode=True)
+    bad_stats = rel_l2(card(), want)
+    log(f"[tiled reference] controls: the blend without its normaliser rel_l2 {bad_blend:.4f}; chunk-local "
+        f"GroupNorm statistics (fast mode, chunks {chunk}) in place of the pooled ones rel_l2 {bad_stats:.4f}")
+    if not (bad_blend > REF_REL_BOUND and bad_stats > REF_REL_BOUND):
+        raise AssertionError(f"[tiled reference] the bound misses a planted fault: the blend without its "
+                             f"normaliser {bad_blend}, chunk-local statistics {bad_stats}")
+    del gpu_engine
+    _free()
+
+
+def phase_lightning(smi: str):
+    """The Lightning option file through the batch CLI at full width: a
+    768x1152 PNG restored at 1024x1536 with
+    options/SUPIR_v0_Juggernautv9_lightning.yaml and its own settings (8
+    RestoreDPMPP2M steps, eta 1, the SDE's Brownian-tree noise; CFG 2.0 from
+    its default_setting), random weights, --no_llava. K1 and K2 must launch
+    as the config says: per step the network's sites, and the VAE's over one
+    encode and three decodes (DPM++2M takes no x_center encode). Returns
+    the launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from supir_tpu_torch.apps import cli
+    from supir_tpu_torch.config import load_yaml_config
+    from supir_tpu_torch.ops.flash_attention import flash_attention
+    from supir_tpu_torch.ops.groupnorm import group_norm
+    from supir_tpu_torch.utils.image import pil_to_array
+
+    cfg, extras = load_yaml_config(LIGHTNING_OPT)
+    steps = extras["default_setting"]["edm_steps"]
+    s_cfg = extras["default_setting"]["s_cfg_Quality"]
+    h, w = CLI_PNG
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir = _photo_dir(tmp, h, w, SEED + 12)
+        model_h, model_w = pil_to_array(Image.open(os.path.join(img_dir, "photo.png")), min_size=1024)[0].shape[:2]
+        lat = (model_h // cfg.vae.downscale_factor, model_w // cfg.vae.downscale_factor)
+        argv = ["--img_dir", img_dir, "--save_dir", os.path.join(tmp, "out"), "--opt", LIGHTNING_OPT,
+                "--random_weights", "--no_llava", "--edm_steps", str(steps), "--s_cfg", str(s_cfg),
+                "--spt_linear_CFG", str(extras["default_setting"]["spt_linear_CFG_Quality"])]
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        group_norm.launches = 0
+        t0 = time.perf_counter()
+        rec, = cli.main(argv)
+        total = time.perf_counter() - t0
+        launches = {"K1": flash_attention.launches, "K2": group_norm.launches}
+        out = np.asarray(Image.open(rec["saved"][0]))
+    t = rec["timings"]
+    want = {"K1": expected_flash_launches(cfg, lat, steps, vae_passes=4),
+            "K2": expected_group_norm_launches(cfg, steps, encodes=1, decodes=3)}
+    log(f"[lightning] {smi}: {LIGHTNING_OPT}, {h}x{w} PNG -> {model_h}x{model_w} model image, {steps} "
+        f"{cfg.sampler.name} steps (eta {cfg.sampler.eta}, CFG {s_cfg}), --no_llava: stage1 {t['stage1']:.3f} s, "
+        f"conditioning {t['cond']:.3f} s, sample {t['sample']:.3f} s ({t['sample'] / steps:.3f} s a step with the "
+        f"decodes), save {t['save']:.3f} s; main() {total:.2f} s with the engine's random init; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches: K1 {launches['K1']} (expected "
+        f"{want['K1']}), K2 {launches['K2']} (expected {want['K2']})")
+    if out.shape != (h, w, 3) or out.std() == 0:
+        raise AssertionError(f"[lightning] saved PNG {out.shape}, std {out.std()}")
+    if launches != want:
+        raise AssertionError(f"[lightning] launches {launches}, expected {want}")
+    _free()
     return launches
 
 
@@ -3192,6 +3620,10 @@ def main() -> int:
     launches.update(probe_launches)
     phase_cli(args.steps, smi)
     phase_reference()
+    tiled = phase_tiled(args.steps, smi)
+    phase_tiled_reference()
+    lightning = phase_lightning(smi)
+    log(f"[launches] K1 and K2 on the other restore paths: tiled {tiled}, lightning {lightning}")
     image = _caption_image()
     # each captioner kernel takes the launches of the mode whose path it serves
     # (K5's act_int8 mode, K10 and K11 their W4A8 and native modes, K9 the

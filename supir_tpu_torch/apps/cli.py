@@ -9,16 +9,25 @@ Per image: `pil_to_array` (upscale, min_size, 64-rounded), the stage-1
 denoise-encode and decode, optionally a LLaVA caption of the stage-1
 denoise of a 512-short-side copy (test.py:84-92), `tokenize` of the caption
 plus the positive prompt and of the negative prompt, `prepare_condition`
-(CLIP-L and OpenCLIP bigG), `batchify_sample` (RestoreEDM) and
+(CLIP-L and OpenCLIP bigG), `batchify_sample` (RestoreEDM, or
+RestoreDPMPP2M: options/SUPIR_v0_Juggernautv9_lightning.yaml) and
 `array_to_pil` back to the input's size times `--upscale`, saved as
 `<name>_<i>.png`.
+
+The tiled path for large outputs (options/SUPIR_v0_tiled.yaml):
+`--use_tile_vae` sends every VAE pass through the tiled VAE
+(`--encoder_tile_size`, `--decoder_tile_size`), `--use_tiled_sampling`
+samples with `batchify_sample_tiled` over `--sampler_tile_size` windows at
+`--sampler_tile_stride` (TiledRestoreEDM, or TiledRestoreDPMPP2M where
+`--sampler` names a DPM++ sampler).
 
 The flags are the JAX CLI's, plus `--device` (default cuda; without a card
 that raises unless the caller names the CPU). Flags whose machinery the
 port does not have yet raise NotImplementedError naming the ROADMAP item:
-`--use_tile_vae`, `--use_tiled_sampling` (Queue 1 item 6), a
-`--feature_cache_interval` above 0 and a sampler other than RestoreEDM, by
-`--sampler` or the yaml (item 5).
+a `--feature_cache_interval` above 0 and a sampler other than RestoreEDM,
+RestoreDPMPP2M and their tiled forms, by `--sampler` or the yaml (item 5).
+A tiled sampler in the yaml without `--use_tiled_sampling` is a
+ValueError (the JAX CLI fails there too).
 """
 
 from __future__ import annotations
@@ -106,18 +115,36 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def check_ported(args, sampler_name: str) -> None:
-    """Raise on every option whose machinery the port does not hold yet."""
-    if args.use_tile_vae or args.use_tiled_sampling:
-        raise NotImplementedError("the tiled VAE and tiled sampling are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 6, tiled path)")
+PORTED_SAMPLERS = ("RestoreEDM", "RestoreDPMPP2M")
+
+
+def sampler_for(args) -> str | None:
+    """The sampler name batchify_sample(_tiled) gets, as the JAX CLI maps
+    it: with --use_tiled_sampling, --sampler picks TiledRestoreDPMPP2M for
+    a DPM++ sampler and TiledRestoreEDM for any other; None leaves the
+    choice to the config (the tiled call runs the yaml's tiled sampler, or
+    TiledRestoreEDM)."""
+    if args.sampler and args.use_tiled_sampling:
+        return "TiledRestoreDPMPP2M" if "DPMPP" in args.sampler else "TiledRestoreEDM"
+    return args.sampler
+
+
+def check_ported(args, config_sampler: str) -> None:
+    """Raise on every option whose machinery the port does not hold yet, and
+    on a tiled sampler without tiled sampling."""
     if args.feature_cache_interval > 0:
         raise NotImplementedError("--feature_cache_interval is not ported yet "
                                   "(ROADMAP.md Queue 1 item 5, sampler family and feature cache)")
-    sampler = args.sampler or sampler_name
-    if sampler != "RestoreEDM":
-        raise NotImplementedError(f"sampler {sampler!r} is not ported yet, RestoreEDM only "
-                                  "(ROADMAP.md Queue 1 item 5, sampler family and feature cache)")
+    if args.use_tiled_sampling:
+        return  # every name maps to one of the two tiled samplers
+    sampler = args.sampler or config_sampler
+    if sampler.startswith("Tiled"):
+        raise ValueError(f"the config's sampler {sampler!r} samples tiles: pass --use_tiled_sampling "
+                         "(or --sampler for the untiled path)")
+    if sampler not in PORTED_SAMPLERS:
+        raise NotImplementedError(f"sampler {sampler!r} is not ported yet, {' and '.join(PORTED_SAMPLERS)} and "
+                                  "their tiled forms only (ROADMAP.md Queue 1 item 5, sampler family and "
+                                  "feature cache)")
 
 
 def create_engine_from_args(args):
@@ -160,6 +187,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     engine, cfg = create_engine_from_args(args)
     device = engine.device
+    if args.use_tile_vae:
+        engine.init_tile_vae(args.encoder_tile_size, args.decoder_tile_size)
 
     os.makedirs(args.save_dir, exist_ok=True)
     names = sorted(f for f in os.listdir(args.img_dir) if f.lower().endswith(IMAGE_SUFFIXES))
@@ -221,15 +250,21 @@ def main(argv=None):
             if device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             profiler = torch.profiler.profile(activities=activities)
+        sample_kwargs = dict(
+            num_steps=args.edm_steps,
+            restoration_scale=args.s_stage1 if args.s_stage1 >= 0 else cfg.sampler.restore_cfg,
+            s_churn=args.s_churn, s_noise=args.s_noise, cfg_scale=args.s_cfg, control_scale=args.s_stage2,
+            seed=args.seed, color_fix_type=args.color_fix_type, use_linear_cfg=args.linear_CFG,
+            use_linear_control_scale=args.linear_s_stage2, cfg_scale_start=args.spt_linear_CFG,
+            control_scale_start=args.spt_linear_s_stage2, sampler_name=sampler_for(args),
+            z_override=zN,
+        )
         with profiler:
-            samples = engine.batchify_sample(
-                xN, c, uc, num_steps=args.edm_steps,
-                restoration_scale=args.s_stage1 if args.s_stage1 >= 0 else cfg.sampler.restore_cfg,
-                s_churn=args.s_churn, s_noise=args.s_noise, cfg_scale=args.s_cfg, control_scale=args.s_stage2,
-                seed=args.seed, color_fix_type=args.color_fix_type, use_linear_cfg=args.linear_CFG,
-                use_linear_control_scale=args.linear_s_stage2, cfg_scale_start=args.spt_linear_CFG,
-                control_scale_start=args.spt_linear_s_stage2, sampler_name=args.sampler, z_override=zN,
-            )
+            if args.use_tiled_sampling:
+                samples = engine.batchify_sample_tiled(xN, c, uc, tile_size=args.sampler_tile_size,
+                                                       tile_stride=args.sampler_tile_stride, **sample_kwargs)
+            else:
+                samples = engine.batchify_sample(xN, c, uc, **sample_kwargs)
             _sync(device)
         if args.profile_dir:
             os.makedirs(args.profile_dir, exist_ok=True)

@@ -5,7 +5,8 @@ __init__).
 
 LegacyDDPM: sqrt-linear beta schedule (linear_start=0.00085,
 linear_end=0.012, 1000 steps), sigma = sqrt((1-abar)/abar), returned
-descending with an appended terminal zero.
+descending with an appended terminal zero. Karras: a rho-7 ramp between
+two sigmas, with a terminal zero.
 """
 
 from __future__ import annotations
@@ -50,3 +51,15 @@ def legacy_ddpm_sigmas(n: int, num_timesteps: int = 1000) -> np.ndarray:
     else:
         raise ValueError(f"n={n} > num_timesteps={num_timesteps}")
     return np.concatenate([sel[::-1], np.zeros((1,), np.float32)]).astype(np.float32)
+
+
+def karras_sigmas(n: int, sigma_min: float, sigma_max: float, rho: float = 7.0) -> np.ndarray:
+    """k-diffusion's `get_sigmas_karras`: n descending sigmas from sigma_max
+    to sigma_min on a rho-7 ramp, plus a terminal zero. The Restore DPM++2M
+    (Lightning) samplers rebuild this ramp between the LegacyDDPM table's
+    extremes (sampling.py:486-494)."""
+    ramp = np.linspace(0, 1, n, dtype=np.float64)
+    min_inv_rho = float(sigma_min) ** (1.0 / rho)
+    max_inv_rho = float(sigma_max) ** (1.0 / rho)
+    sigmas = (max_inv_rho + ramp * (min_inv_rho - max_inv_rho)) ** rho
+    return np.concatenate([sigmas, [0.0]]).astype(np.float32)

@@ -1,23 +1,31 @@
-"""RestoreEDM, SUPIR's default sampler (counterpart of
-supir_tpu/diffusion/samplers.py:75-193), as a Python loop.
+"""RestoreEDM, SUPIR's default sampler, and RestoreDPMPP2M, the Lightning
+sampler (counterpart of supir_tpu/diffusion/samplers.py:75-193, 371-500),
+as Python loops.
 
 Every per-step scalar (churn, CFG scale, control scale, restoration
 weight) is precomputed into numpy `StepTables`, exactly as the JAX package
 does. The `denoise` callable is the engine's closure
     denoise(x, sigma[B], cfg_scale[B], control_scale) -> denoised
 which doubles the batch for CFG inside.
+
+DPM++(2M) SDE draws its noise from a virtual Brownian tree (`vbt_value`,
+`brownian_increment`) built on explicit torch.Generators: W(t) is
+deterministic in (seed, t), whatever other times are queried, as
+k-diffusion's BrownianTreeNoiseSampler is. Its streams differ from
+jax.random's, so parity tests inject the increments.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import numpy as np
 import torch
 
 from supir_tpu_torch.config import SamplerConfig
-from supir_tpu_torch.diffusion.discretization import SIGMA_MAX_LEGACY
+from supir_tpu_torch.diffusion.discretization import SIGMA_MAX_LEGACY, karras_sigmas, legacy_ddpm_sigmas
 from supir_tpu_torch.diffusion.guidance import linear_cfg_scale
 
 
@@ -108,4 +116,112 @@ def restore_edm_sample(
         denoised = denoised - (denoised - x_center) * float(tables.restore_weight[i])
         d = (x - denoised) / sigma_hat
         x = x + d * (float(tables.next_sigma[i]) - sigma_hat)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# DPM++(2M) SDE, the Restore DPM++2M (Lightning) sampler
+
+
+def restore_dpmpp2m_tables(cfg: SamplerConfig, num_steps: int, **control_kw) -> StepTables:
+    """The Restore DPM++2M samplers rebuild a Karras ramp between the
+    LegacyDDPM table's extremes (sampling.py:486-494)."""
+    base = legacy_ddpm_sigmas(num_steps)
+    return make_step_tables(karras_sigmas(num_steps, float(base[-2]), float(base[0])), cfg, **control_kw)
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def node_seed(seed: int, level: int, index: int) -> int:
+    """The generator seed of the tree's node `index` at depth `level`
+    (level 0: the end point W(t1)); a function of the path alone."""
+    h = _splitmix64(_splitmix64(_splitmix64(seed & _MASK64) ^ level) ^ index)
+    return h & ((1 << 63) - 1)
+
+
+def _node_normal(seed: int, level: int, index: int, shape, device) -> torch.Tensor:
+    g = torch.Generator(device=device).manual_seed(node_seed(seed, level, index))
+    return torch.randn(shape, generator=g, device=device)
+
+
+def vbt_value(seed: int, t: float, t0: float, t1: float, shape, device="cpu", levels: int = 24) -> torch.Tensor:
+    """W(t) fp32 of a Brownian motion pinned to W(t0) = 0, W(t1) ~ N(0,
+    t1 - t0), by `levels` bisections of the Brownian bridge, each midpoint
+    drawn from its node's own generator: the same (seed, t) gives the same
+    value whatever else is queried. Resolution |t1 - t0| * 2^-levels, linear
+    in between."""
+    ta, tb = float(t0), float(t1)
+    wa = torch.zeros(shape, device=device)
+    wb = _node_normal(seed, 0, 0, shape, device) * math.sqrt(max(tb - ta, 0.0))
+    index = 0
+    for level in range(levels):
+        tm = 0.5 * (ta + tb)
+        wm = 0.5 * (wa + wb) + _node_normal(seed, level + 1, index, shape, device) * math.sqrt(max(tb - ta, 0.0) / 4)
+        if t < tm:
+            tb, wb, index = tm, wm, 2 * index
+        else:
+            ta, wa, index = tm, wm, 2 * index + 1
+    frac = min(max((t - ta) / max(tb - ta, 1e-30), 0.0), 1.0)
+    return wa + (wb - wa) * frac
+
+
+def brownian_increment(seed: int, sigma_from: float, sigma_to: float, sigma_min: float, sigma_max: float,
+                       shape, device="cpu", levels: int = 24) -> torch.Tensor:
+    """Unit-variance noise (W(hi) - W(lo)) / sqrt(hi - lo) of the tree on
+    the span [sigma_min, sigma_max] (k-diffusion's BrownianTreeNoiseSampler,
+    whose time is sigma itself)."""
+    lo, hi = min(sigma_from, sigma_to), max(sigma_from, sigma_to)
+    w_hi = vbt_value(seed, hi, sigma_min, sigma_max, shape, device, levels)
+    w_lo = vbt_value(seed, lo, sigma_min, sigma_max, shape, device, levels)
+    return (w_hi - w_lo) / math.sqrt(max(hi - lo, 1e-30))
+
+
+def dpmpp2m_update(x: torch.Tensor, denoised: torch.Tensor, old_denoised: torch.Tensor, i: int,
+                   p_sigma: float, sigma: float, next_sigma: float, eta: float) -> tuple[torch.Tensor, float]:
+    """One DPM++(2M) step from x at sigma to next_sigma: (the stepped x, the
+    std of the SDE noise it takes, 0 where none). Step 0 (no old_denoised)
+    and a terminal step take the first-order update and no noise
+    (sampling.py:471-474)."""
+    t, t_next = -math.log(sigma), -math.log(max(next_sigma, 1e-20))
+    h = t_next - t
+    eta_h = eta * h
+    mult1 = (next_sigma / sigma) * math.exp(-eta_h)
+    mult2 = math.expm1(-h - eta_h)
+    if i > 0 and next_sigma > 1e-14:
+        r = (t + math.log(p_sigma)) / h
+        denoised = (1 + 1 / (2 * r)) * denoised - (1 / (2 * r)) * old_denoised
+        std = next_sigma * math.sqrt(-math.expm1(-2.0 * eta_h)) if eta > 0 else 0.0
+    else:
+        std = 0.0
+    return mult1 * x - mult2 * denoised, std
+
+
+def dpmpp2m_sample(denoise: Callable[..., torch.Tensor], x: torch.Tensor, seed: int, tables: StepTables,
+                   eta: float = 0.0, s_noise: float = 1.0) -> torch.Tensor:
+    """DPM++(2M), the SDE where eta > 0: the plain DPMPP2M and the
+    RestoreDPMPP2M step (reference sampling.py:293-368, 422-519). The SDE's
+    noise is the Brownian tree's increment over each step's sigma interval,
+    on the span [last sigma, first sigma] of this schedule, seeded by
+    `seed`."""
+    b = x.shape[0]
+    bt_min, bt_max = float(tables.sigma[-1]), float(tables.sigma[0])
+    old_denoised = torch.zeros_like(x)
+    p_sigma = 1.0
+    for i in range(tables.num_steps):
+        sigma, next_sigma = float(tables.sigma[i]), float(tables.next_sigma[i])
+        cfg_b = torch.full((b,), float(tables.cfg_scale[i]), device=x.device)
+        denoised = denoise(x, torch.full((b,), sigma, device=x.device), cfg_b, float(tables.control_scale[i]))
+        x, std = dpmpp2m_update(x, denoised, old_denoised, i, p_sigma, sigma, next_sigma, eta)
+        if std > 0:
+            noise = brownian_increment(seed, sigma, next_sigma, bt_min, bt_max, x.shape, x.device)
+            x = x + noise * (std * s_noise)
+        old_denoised, p_sigma = denoised, sigma
     return x

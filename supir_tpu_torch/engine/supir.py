@@ -1,7 +1,8 @@
 """SUPIREngine: the restore path's orchestration (counterpart of
 supir_tpu/engine/supir.py): stage-1 denoise-encoding, the SDXL text
-conditioning, the CFG-batched control denoiser, RestoreEDM sampling,
-decoding and colour fix.
+conditioning, the CFG-batched control denoiser, RestoreEDM and
+RestoreDPMPP2M (Lightning) sampling, their tiled forms over sliding-window
+latent tiles, the tiled VAE, decoding and colour fix.
 
 Public methods keep the JAX engine's layout, so tests compare like with
 like: images [B, H, W, 3] in [-1, 1] and latents [B, h, w, 4], NHWC, fp32,
@@ -25,10 +26,23 @@ from supir_tpu_torch.config import ConditionerConfig, SUPIRConfig, dtype_of
 from supir_tpu_torch.diffusion.denoiser import DiscreteDenoiser
 from supir_tpu_torch.diffusion.discretization import legacy_ddpm_sigmas
 from supir_tpu_torch.diffusion.guidance import cfg_combine
-from supir_tpu_torch.diffusion.samplers import make_step_tables, restore_edm_sample
+from supir_tpu_torch.diffusion.samplers import (
+    dpmpp2m_sample,
+    make_step_tables,
+    restore_dpmpp2m_tables,
+    restore_edm_sample,
+)
 from supir_tpu_torch.models.control import GLVControl, LightGLVUNet
 from supir_tpu_torch.models.embedders import Conditioner
 from supir_tpu_torch.models.vae import AutoencoderKL, DiagonalGaussian
+from supir_tpu_torch.parallel.tiled_sampler import (
+    _gather_tiles,
+    make_tile_plan,
+    make_tiled_denoise,
+    tiled_restore_dpmpp2m_sample,
+    tiled_restore_edm_sample,
+)
+from supir_tpu_torch.parallel.tiled_vae import DECODER_PAD, ENCODER_PAD, tiled_decode, tiled_encode
 from supir_tpu_torch.utils.colorfix import adaptive_instance_normalization, wavelet_reconstruction
 
 
@@ -70,7 +84,11 @@ class SUPIREngine:
     `encode_first_stage_with_denoise`, `encode_first_stage`,
     `decode_first_stage`, `batchify_denoise`, `prepare_condition` (and its
     cached and tiled forms, where the model holds a conditioner),
-    `batchify_sample`, `log_images`."""
+    `batchify_sample`, `batchify_sample_tiled`, `init_tile_vae`,
+    `log_images`."""
+
+    SAMPLERS = ("RestoreEDM", "RestoreDPMPP2M")
+    TILED_SAMPLERS = ("TiledRestoreEDM", "TiledRestoreDPMPP2M")
 
     COND_CACHE_SIZE = 32
 
@@ -81,6 +99,7 @@ class SUPIREngine:
         self.device = next(model.parameters()).device
         self.denoiser = DiscreteDenoiser(num_idx=cfg.num_idx)
         self._cond_cache: Dict[str, Tuple[dict, dict]] = {}
+        self._tile_vae: Optional[Tuple[int, int, Optional[Tuple[int, int]], bool]] = None
 
     @property
     def vae(self) -> AutoencoderKL:
@@ -92,10 +111,37 @@ class SUPIREngine:
 
     # ----------------------------------------------------------------- VAE
 
+    def init_tile_vae(self, encoder_tile_size: int = 512, decoder_tile_size: int = 64,
+                      chunk: Optional[Tuple[int, int]] = (8, 4), fast_mode: bool = False) -> None:
+        """Send every first-stage encode and decode through the tiled VAE
+        (reference init_tile_vae, SUPIR_model.py:138-151). Tile sizes are
+        image px for the encoder and latent px for the decoder; `chunk` is
+        (encode, decode) tiles per call, None for all tiles in one call.
+        Chunked, the GroupNorm statistics are exact (pooled over every tile
+        of the image, the staged executor) unless `fast_mode` pools them
+        per chunk (the reference's fast mode)."""
+        self._tile_vae = (encoder_tile_size, decoder_tile_size, chunk, fast_mode)
+
+    def _moments(self, x: torch.Tensor, use_denoise_encoder: bool = False) -> torch.Tensor:
+        """Image [B,3,H,W] -> posterior moments, tiled if init_tile_vae was called."""
+        if self._tile_vae is None:
+            return self.vae.moments(x, use_denoise_encoder=use_denoise_encoder)
+        tile, _, chunk, fast_mode = self._tile_vae
+        encoder = self.vae.denoise_encoder if use_denoise_encoder else self.vae.encoder
+        return tiled_encode(encoder, self.vae.quant_conv, x, tile, ENCODER_PAD,
+                            chunk[0] if chunk else None, fast_mode)
+
+    def _decode(self, z: torch.Tensor) -> torch.Tensor:
+        if self._tile_vae is None:
+            return self.vae.decode(z)
+        _, tile, chunk, fast_mode = self._tile_vae
+        return tiled_decode(self.vae.decoder, self.vae.post_quant_conv, z, tile, DECODER_PAD,
+                            chunk[1] if chunk else None, fast_mode)
+
     @torch.no_grad()
     def encode_first_stage_with_denoise(self, x) -> torch.Tensor:
         """LQ image [B,H,W,3] in [-1,1] -> stage-1 cleaned latent (mode)."""
-        moments = self.vae.moments(_nchw(self._tensor(x)), use_denoise_encoder=True)
+        moments = self._moments(_nchw(self._tensor(x)), use_denoise_encoder=True)
         z = DiagonalGaussian(moments).mode()
         return _nhwc((z * self.cfg.scale_factor).float())
 
@@ -103,8 +149,9 @@ class SUPIREngine:
     def encode_first_stage(self, x, noise=None, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """HQ image -> latent. With unit-normal `noise` [B,h,w,4] (or a
         `generator` to draw it) the posterior is sampled, as the reference's
-        first stage does; with neither, the mode."""
-        moments = self.vae.moments(_nchw(self._tensor(x)))
+        first stage does, in tiled mode too (one draw over the merged
+        latent); with neither, the mode."""
+        moments = self._moments(_nchw(self._tensor(x)))
         p = DiagonalGaussian(moments)
         if noise is None and generator is not None:
             noise = torch.randn(p.mean.shape, generator=generator, device=self.device)
@@ -116,7 +163,7 @@ class SUPIREngine:
     @torch.no_grad()
     def decode_first_stage(self, z) -> torch.Tensor:
         z = _nchw(self._tensor(z)) / self.cfg.scale_factor
-        return _nhwc(self.vae.decode(z).float())
+        return _nhwc(self._decode(z).float())
 
     def batchify_denoise(self, x) -> torch.Tensor:
         """Stage 1: degradation-robust encode, then decode."""
@@ -208,6 +255,61 @@ class SUPIREngine:
         control = control_net(cond["control"], t, x, cond["crossattn"], cond["vector"])
         return unet(x, t, cond["crossattn"], cond["vector"], control, control_scale)
 
+    def _tables(self, sampler: str, num_steps: int, restoration_scale: float, s_churn: float, s_noise: float,
+                cfg_scale: float, control_scale: float, use_linear_cfg: bool, use_linear_control_scale: bool,
+                cfg_scale_start: float, control_scale_start: float):
+        """The sampler's step tables and the sigma its initial noise is scaled
+        for: DPM++2M on a Karras ramp, RestoreEDM on the LegacyDDPM one."""
+        scfg = dataclasses.replace(
+            self.cfg.sampler, num_steps=num_steps, restore_cfg=restoration_scale, s_churn=s_churn,
+            s_noise=s_noise, cfg_scale=cfg_scale_start if use_linear_cfg else cfg_scale,
+            cfg_scale_min=cfg_scale, use_linear_cfg=use_linear_cfg,
+        )
+        control = dict(control_scale=control_scale, use_linear_control_scale=use_linear_control_scale,
+                       control_scale_start=control_scale_start)
+        if sampler.endswith("DPMPP2M"):
+            tables = restore_dpmpp2m_tables(scfg, num_steps, **control)
+            return tables, float(tables.sigma[0])
+        sigmas = legacy_ddpm_sigmas(num_steps)
+        return make_step_tables(sigmas, scfg, **control), float(sigmas[0])
+
+    def _stage1(self, x, z_override, sigma0: float, gen: torch.Generator, noise_override,
+                center_noise_override, sampled_center: bool):
+        """(x_stage1 NHWC, the initial noise NCHW scaled by sqrt(1 + sigma0^2),
+        x_center NCHW or None): the stage-1 image decoded from the latent,
+        and, for RestoreEDM, the stage-1 image encoded again with the
+        posterior sampled (the reference's first stage samples it).
+        DPM++2M has no restoration guidance, so it skips that encode."""
+        z = self._tensor(z_override) if z_override is not None else self.encode_first_stage_with_denoise(x)
+        x_stage1 = self.decode_first_stage(z)
+        self._check_override("center_noise_override", center_noise_override, z.shape)
+        self._check_override("noise_override", noise_override, z.shape)
+        if noise_override is not None:
+            noised_z = _nchw(self._tensor(noise_override))
+        else:
+            noised_z = torch.randn(_nchw(z).shape, generator=gen, device=self.device)
+        noised_z = noised_z * float(np.sqrt(1.0 + sigma0 ** 2))
+        x_center = None
+        if sampled_center:
+            x_center = _nchw(self.encode_first_stage(
+                x_stage1, noise=center_noise_override,
+                generator=None if center_noise_override is not None else gen,
+            ))
+        return x_stage1, noised_z, x_center
+
+    def _finish(self, samples_z: torch.Tensor, x_stage1: torch.Tensor, color_fix_type: str) -> torch.Tensor:
+        samples = self.decode_first_stage(_nhwc(samples_z))
+        if color_fix_type == "Wavelet":
+            samples = _nhwc(wavelet_reconstruction(_nchw(samples), _nchw(x_stage1)))
+        elif color_fix_type == "AdaIn":
+            samples = _nhwc(adaptive_instance_normalization(_nchw(samples), _nchw(x_stage1)))
+        return samples
+
+    @staticmethod
+    def _check_color_fix(color_fix_type: str) -> None:
+        if color_fix_type not in ("Wavelet", "AdaIn", "None"):
+            raise ValueError(f"unknown color_fix_type {color_fix_type!r}")
+
     @torch.no_grad()
     def batchify_sample(
         self,
@@ -233,46 +335,24 @@ class SUPIREngine:
     ) -> torch.Tensor:
         """Full stage-2 pipeline on an LQ image batch [B,H,W,3] in [-1,1].
         `c`/`uc` hold 'crossattn' [B,77,ctx], 'vector' [B,adm] and 'control'
-        [B,h,w,4] (the stage-1 latent), as `prepare_condition` builds them."""
-        if color_fix_type not in ("Wavelet", "AdaIn", "None"):
-            raise ValueError(f"unknown color_fix_type {color_fix_type!r}")
-        cfg = self.cfg
-        sampler_name = sampler_name or cfg.sampler.name
-        if sampler_name != "RestoreEDM":
-            raise NotImplementedError(f"sampler {sampler_name!r} is not ported yet (RestoreEDM only)")
-
-        scfg = dataclasses.replace(
-            cfg.sampler,
-            num_steps=num_steps,
-            restore_cfg=restoration_scale,
-            s_churn=s_churn,
-            s_noise=s_noise,
-            cfg_scale=cfg_scale_start if use_linear_cfg else cfg_scale,
-            cfg_scale_min=cfg_scale,
-            use_linear_cfg=use_linear_cfg,
-        )
-        sigmas = legacy_ddpm_sigmas(num_steps)
-        tables = make_step_tables(
-            sigmas, scfg, control_scale=control_scale,
-            use_linear_control_scale=use_linear_control_scale,
-            control_scale_start=control_scale_start,
-        )
+        [B,h,w,4] (the stage-1 latent), as `prepare_condition` builds them.
+        Samplers: RestoreEDM, and RestoreDPMPP2M (DPM++(2M) SDE at the
+        config's eta, its Brownian tree seeded by `seed`)."""
+        self._check_color_fix(color_fix_type)
+        sampler_name = sampler_name or self.cfg.sampler.name
+        if sampler_name in self.TILED_SAMPLERS:
+            raise ValueError(f"sampler {sampler_name!r} runs through batchify_sample_tiled "
+                             "(the CLI's --use_tiled_sampling)")
+        if sampler_name not in self.SAMPLERS:
+            raise NotImplementedError(f"sampler {sampler_name!r} is not ported yet, {' and '.join(self.SAMPLERS)} "
+                                      "only (ROADMAP.md Queue 1 item 5, sampler family and feature cache)")
+        tables, sigma0 = self._tables(sampler_name, num_steps, restoration_scale, s_churn, s_noise, cfg_scale,
+                                      control_scale, use_linear_cfg, use_linear_control_scale, cfg_scale_start,
+                                      control_scale_start)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-
-        z = self._tensor(z_override) if z_override is not None else self.encode_first_stage_with_denoise(x)
-        x_stage1 = self.decode_first_stage(z)
-        self._check_override("center_noise_override", center_noise_override, z.shape)
-        self._check_override("noise_override", noise_override, z.shape)
-        if noise_override is not None:
-            noised_z = _nchw(self._tensor(noise_override))
-        else:
-            noised_z = torch.randn(_nchw(z).shape, generator=gen, device=self.device)
-        noised_z = noised_z * float(np.sqrt(1.0 + float(sigmas[0]) ** 2))
-        # x_center is a sampled latent, as in the reference's first stage
-        z_stage1 = self.encode_first_stage(
-            x_stage1, noise=center_noise_override,
-            generator=None if center_noise_override is not None else gen,
-        )
+        edm = sampler_name == "RestoreEDM"
+        x_stage1, noised_z, x_center = self._stage1(x, z_override, sigma0, gen, noise_override,
+                                                    center_noise_override, sampled_center=edm)
 
         cond2 = {
             "crossattn": torch.cat([self._tensor(uc["crossattn"]), self._tensor(c["crossattn"])]),
@@ -287,12 +367,94 @@ class SUPIREngine:
             d_uc, d_c = den.chunk(2)
             return cfg_combine(d_uc, d_c, cfg_b)
 
-        samples_z = restore_edm_sample(
-            denoise, noised_z, gen, tables, x_center=_nchw(z_stage1), s_noise=s_noise,
-        )
-        samples = self.decode_first_stage(_nhwc(samples_z))
-        if color_fix_type == "Wavelet":
-            samples = _nhwc(wavelet_reconstruction(_nchw(samples), _nchw(x_stage1)))
-        elif color_fix_type == "AdaIn":
-            samples = _nhwc(adaptive_instance_normalization(_nchw(samples), _nchw(x_stage1)))
-        return samples
+        if edm:
+            samples_z = restore_edm_sample(denoise, noised_z, gen, tables, x_center=x_center, s_noise=s_noise)
+        else:
+            samples_z = dpmpp2m_sample(denoise, noised_z, seed, tables, eta=self.cfg.sampler.eta, s_noise=s_noise)
+        return self._finish(samples_z, x_stage1, color_fix_type)
+
+    @torch.no_grad()
+    def batchify_sample_tiled(
+        self,
+        x,
+        c: Dict[str, object],
+        uc: Dict[str, object],
+        num_steps: int = 50,
+        tile_size: int = 128,
+        tile_stride: int = 64,
+        restoration_scale: float = 4.0,
+        s_churn: float = 0.0,
+        s_noise: float = 1.003,
+        cfg_scale: float = 7.5,
+        seed: int = 0,
+        control_scale: float = 1.0,
+        color_fix_type: str = "None",
+        use_linear_cfg: bool = False,
+        use_linear_control_scale: bool = False,
+        cfg_scale_start: float = 1.0,
+        control_scale_start: float = 0.0,
+        z_override=None,
+        sampler_name: Optional[str] = None,
+        tile_chunk: Optional[int] = None,
+        noise_override=None,
+        center_noise_override=None,
+        feature_cache_interval: int = 0,
+    ) -> torch.Tensor:
+        """The tiled restore pipeline for outputs past one UNet window
+        (reference TiledRestoreEDMSampler / TiledRestoreDPMPP2MSampler,
+        sampling.py:600-730): the latent is sampled in `tile_size` windows
+        at `tile_stride`, all windows folded into one network batch per step,
+        or `tile_chunk` windows a call. With local prompts, `c` carries
+        'crossattn_tiles' [T, 1, 77, D] (`prepare_condition_tiled`), one per
+        window. The sampler is the config's where it is a tiled one, else
+        TiledRestoreEDM."""
+        self._check_color_fix(color_fix_type)
+        cfg = self.cfg
+        sampler_name = sampler_name or (cfg.sampler.name if cfg.sampler.name in self.TILED_SAMPLERS
+                                        else "TiledRestoreEDM")
+        if sampler_name not in self.TILED_SAMPLERS:
+            raise ValueError(f"batchify_sample_tiled runs {' or '.join(self.TILED_SAMPLERS)}, not {sampler_name!r}")
+        if feature_cache_interval:
+            raise NotImplementedError("feature_cache_interval is not ported yet "
+                                      "(ROADMAP.md Queue 1 item 5, sampler family and feature cache)")
+        tables, sigma0 = self._tables(sampler_name, num_steps, restoration_scale, s_churn, s_noise, cfg_scale,
+                                      control_scale, use_linear_cfg, use_linear_control_scale, cfg_scale_start,
+                                      control_scale_start)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        edm = sampler_name == "TiledRestoreEDM"
+        x_stage1, noised_z, x_center = self._stage1(x, z_override, sigma0, gen, noise_override,
+                                                    center_noise_override, sampled_center=edm)
+
+        ca_uc, vec_uc, vec_c = (self._tensor(d[k]) for d, k in ((uc, "crossattn"), (uc, "vector"), (c, "vector")))
+        ca_c = self._tensor(c["crossattn"])
+
+        def denoise_flat(x_flat, sigma_b, cfg_b, ctrl_s, control_flat, ca_flat):
+            # [B, ...] conditioning repeated tile-major to the flat batch [T*B, ...], then [uc; c]
+            reps = x_flat.shape[0] // ca_uc.shape[0]
+
+            def rep(a):
+                return a.repeat((reps,) + (1,) * (a.dim() - 1))
+
+            cond2 = {
+                "crossattn": torch.cat([rep(ca_uc), rep(ca_c) if ca_flat is None else ca_flat]),
+                "vector": torch.cat([rep(vec_uc), rep(vec_c)]),
+                "control": torch.cat([control_flat, control_flat]),
+            }
+            den = self.denoiser(self._network, torch.cat([x_flat, x_flat]), torch.cat([sigma_b, sigma_b]),
+                                cond2, ctrl_s)
+            d_uc, d_c = den.chunk(2)
+            return cfg_combine(d_uc, d_c, cfg_b)
+
+        starts, _, _ = make_tile_plan(noised_z.shape[2], noised_z.shape[3], tile_size, tile_stride)
+        control_tiles = _gather_tiles(_nchw(self._tensor(c["control"])), starts, tile_size)
+        ca_tiles = self._tensor(c["crossattn_tiles"]) if "crossattn_tiles" in c else None
+        denoise_tile = make_tiled_denoise(denoise_flat, tile_chunk=tile_chunk)
+        if edm:
+            samples_z = tiled_restore_edm_sample(
+                denoise_tile, noised_z, gen, tables, x_center=x_center, control_tiles=control_tiles,
+                tile_size=tile_size, tile_stride=tile_stride, s_noise=s_noise, crossattn_tiles=ca_tiles)
+        else:
+            samples_z = tiled_restore_dpmpp2m_sample(
+                denoise_tile, noised_z, seed, tables, control_tiles=control_tiles, tile_size=tile_size,
+                tile_stride=tile_stride, eta=cfg.sampler.eta, s_noise=s_noise, crossattn_tiles=ca_tiles)
+        return self._finish(samples_z, x_stage1, color_fix_type)

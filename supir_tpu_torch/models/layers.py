@@ -16,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from supir_tpu_torch.ops.grad_guard import needs_grad
-from supir_tpu_torch.ops.groupnorm import group_norm, group_norm_plain
+from supir_tpu_torch.ops.groupnorm import GivenStats, TilePooled, group_norm, group_norm_plain, group_norm_pooled
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -47,9 +47,16 @@ class GroupNorm32(nn.Module):
     K2 on CUDA, the plain version on the CPU. That includes the frozen UNet
     encoder during training. `GroupNorm32.plain_sites` counts the calls
     routed to the plain form.
+
+    `norm` takes the statistics from elsewhere (the tiled VAE): a
+    `TilePooled` pools them over the tiles of each image of a tile-major
+    batch, a `GivenStats` supplies them. Such a call never reaches K2,
+    which takes each slab's own statistics; it runs `group_norm_pooled`,
+    plain torch (differentiable), and counts in `GroupNorm32.pooled_sites`.
     """
 
     plain_sites = 0
+    pooled_sites = 0
 
     def __init__(self, channels: int, eps: float = 1e-5, fuse_silu: bool = False,
                  device=None, dtype=None):
@@ -59,7 +66,10 @@ class GroupNorm32(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels, device=device, dtype=dtype))
         self.bias = nn.Parameter(torch.zeros(channels, device=device, dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, norm: TilePooled | GivenStats | None = None) -> torch.Tensor:
+        if norm is not None:
+            GroupNorm32.pooled_sites += 1
+            return group_norm_pooled(x, self.weight, self.bias, 32, self.eps, self.fuse_silu, norm)
         if needs_grad(x, self.weight, self.bias):
             GroupNorm32.plain_sites += 1
             return group_norm_plain(x, self.weight, self.bias, 32, self.eps, self.fuse_silu)

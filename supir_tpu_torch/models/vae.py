@@ -2,6 +2,13 @@
 (counterpart of supir_tpu/models/vae.py), NCHW. GroupNorm eps is 1e-6, the
 VAE convention. State-dict keys are the reference's `first_stage_model.*`
 keys relative to that prefix.
+
+Every forward takes `norm`, the GroupNorm statistics' mode for a
+tile-major batch of tiles (ops.groupnorm.TilePooled or GivenStats; None:
+each sample's own, K2 on the card), the counterpart of `norm_axis` and
+`tile_weight` at supir_tpu/models/vae.py:31-113. The blocks' norm and conv
+parts, `VAEAttnBlock.attend` and `_Resample` are what the tiled VAE's
+staged executor (parallel/tiled_vae.py) runs stage by stage.
 """
 
 from __future__ import annotations
@@ -29,9 +36,9 @@ class VAEResnetBlock(nn.Module):
             Conv(in_channels, out_channels, 1, **kw) if in_channels != out_channels else nn.Identity()
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(self.norm1(x))
-        h = self.conv2(self.norm2(h))
+    def forward(self, x: torch.Tensor, norm=None) -> torch.Tensor:
+        h = self.conv1(self.norm1(x, norm))
+        h = self.conv2(self.norm2(h, norm))
         return self.nin_shortcut(x) + h
 
 
@@ -47,9 +54,12 @@ class VAEAttnBlock(nn.Module):
         self.v = Conv(channels, channels, 1, **kw)
         self.proj_out = Conv(channels, channels, 1, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, norm=None) -> torch.Tensor:
+        return self.attend(x, self.norm(x, norm))
+
+    def attend(self, x: torch.Tensor, hid: torch.Tensor) -> torch.Tensor:
+        """x plus the attention over the normalised `hid`."""
         b, c, h, w = x.shape
-        hid = self.norm(x)
 
         def tokens(t):  # [B, C, H, W] -> [B, HW, 1, C]
             return t.flatten(2).transpose(1, 2)[:, :, None, :].contiguous()
@@ -70,12 +80,19 @@ class _Level(nn.Module):
 
 
 class _Resample(nn.Module):
-    """Holds the `.conv` of a down- or upsampling step."""
+    """Holds the `.conv` of a down- or upsampling step: stride 2 is the
+    encoder's asymmetric (0,1,0,1) pad and stride-2 valid conv, stride 1
+    the decoder's nearest 2x upsample and conv."""
 
     def __init__(self, channels: int, stride: int, device=None, dtype=None):
         super().__init__()
         self.conv = Conv(channels, channels, 3, stride=stride, padding=0 if stride == 2 else None,
                          device=device, dtype=dtype)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        if self.conv.stride[0] == 2:
+            return self.conv(F.pad(h, (0, 1, 0, 1)))
+        return self.conv(nearest_upsample_2x(h))
 
 
 class _Mid(nn.Module):
@@ -85,8 +102,8 @@ class _Mid(nn.Module):
         self.attn_1 = VAEAttnBlock(ch, **kw)
         self.block_2 = VAEResnetBlock(ch, ch, **kw)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        return self.block_2(self.attn_1(self.block_1(h)))
+    def forward(self, h: torch.Tensor, norm=None) -> torch.Tensor:
+        return self.block_2(self.attn_1(self.block_1(h, norm), norm), norm)
 
 
 class VAEEncoder(nn.Module):
@@ -113,16 +130,15 @@ class VAEEncoder(nn.Module):
         out_ch = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
         self.conv_out = Conv(ch, out_ch, 3, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, norm=None) -> torch.Tensor:
         h = self.conv_in(x.to(self.conv_in.weight.dtype))
         for level in self.down:
             for block in level.block:
-                h = block(h)
+                h = block(h, norm)
             if hasattr(level, "downsample"):
-                # asymmetric (0,1,0,1) pad, then a stride-2 valid conv
-                h = level.downsample.conv(F.pad(h, (0, 1, 0, 1)))
-        h = self.mid(h)
-        return self.conv_out(self.norm_out(h))
+                h = level.downsample(h)
+        h = self.mid(h, norm)
+        return self.conv_out(self.norm_out(h, norm))
 
 
 class VAEDecoder(nn.Module):
@@ -148,14 +164,14 @@ class VAEDecoder(nn.Module):
         self.norm_out = GroupNorm32(ch, eps=1e-6, fuse_silu=True, **kw)
         self.conv_out = Conv(ch, cfg.out_channels, 3, **kw)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = self.mid(self.conv_in(z.to(self.conv_in.weight.dtype)))
+    def forward(self, z: torch.Tensor, norm=None) -> torch.Tensor:
+        h = self.mid(self.conv_in(z.to(self.conv_in.weight.dtype)), norm)
         for level in reversed(self.up):
             for block in level.block:
-                h = block(h)
+                h = block(h, norm)
             if hasattr(level, "upsample"):
-                h = level.upsample.conv(nearest_upsample_2x(h))
-        return self.conv_out(self.norm_out(h))
+                h = level.upsample(h)
+        return self.conv_out(self.norm_out(h, norm))
 
 
 class DiagonalGaussian:

@@ -86,6 +86,85 @@ def group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
+# ------------------------------------------------ statistics from elsewhere
+#
+# The tiled VAE normalises each tile with statistics taken over all the
+# tiles of its image (supir_tpu/models/layers.py:124-152): K2 takes each
+# slab's own statistics, so these sites run plain torch, fp32 sums and then
+# one FMA per channel (XLA's work in the JAX package, whose Pallas kernel
+# never takes a pooled site either, :82-88).
+
+MOMENT_SLICE = 2**27  # elements per fp32 temporary of group_moments
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePooled:
+    """Statistics pooled over the `tiles` tiles of each image of a
+    tile-major batch [T*B, C, ...] (the JAX package's `pmean` over the
+    vmapped tile axis), each tile's moments scaled by `weight` [T] (mean 1
+    over the tiles; zero for a padded duplicate) where given."""
+
+    tiles: int
+    weight: torch.Tensor | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class GivenStats:
+    """Statistics supplied from outside, `stats` [2, B, G] fp32 (mean and
+    E[x^2] per image and group), for every tile of a tile-major batch
+    [T*B, C, ...] (the JAX package's `gn_tape`)."""
+
+    stats: torch.Tensor
+
+
+def group_moments(x: torch.Tensor, groups: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, E[x^2]) fp32 [N, G] of x [N, C, ...] per sample and group,
+    taken over slices of samples so that the fp32 copies stay under
+    MOMENT_SLICE elements."""
+    n = x.shape[0]
+    step = max(1, MOMENT_SLICE // max(1, x[0].numel()))
+    means, means2 = [], []
+    for i in range(0, n, step):
+        xf = x[i:i + step].float().reshape(min(step, n - i), groups, -1)
+        means.append(xf.mean(-1))
+        means2.append((xf * xf).mean(-1))
+    return torch.cat(means), torch.cat(means2)
+
+
+def group_norm_given(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
+                     mean2: torch.Tensor, eps: float, silu: bool) -> torch.Tensor:
+    """GroupNorm of x [N, C, ...] with the fp32 moments [N, G] given:
+    var = max(E[x^2] - mean^2, 0), folded with the affine into one
+    x * a + b per channel in x's dtype, then SiLU."""
+    n, c = x.shape[:2]
+    cg = c // mean.shape[1]
+    rstd = torch.rsqrt((mean2 - mean * mean).clamp_min(0.0) + eps)
+    a = rstd.repeat_interleave(cg, 1) * weight.float()
+    b = bias.float() - (mean * rstd).repeat_interleave(cg, 1) * weight.float()
+    view = (n, c) + (1,) * (x.dim() - 2)
+    y = x * a.view(view).to(x.dtype) + b.view(view).to(x.dtype)
+    return F.silu(y) if silu else y
+
+
+def group_norm_pooled(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float,
+                      silu: bool, norm: TilePooled | GivenStats) -> torch.Tensor:
+    """GroupNorm of a tile-major batch x [T*B, C, ...] with the statistics
+    `norm` names: pooled over each image's tiles, or given."""
+    n = x.shape[0]
+    if isinstance(norm, GivenStats):
+        mean, mean2 = norm.stats[0], norm.stats[1]
+    elif isinstance(norm, TilePooled):
+        mean, mean2 = (m.view(norm.tiles, n // norm.tiles, groups) for m in group_moments(x, groups))
+        if norm.weight is not None:
+            w = norm.weight.float().view(-1, 1, 1)
+            mean, mean2 = mean * w, mean2 * w
+        mean, mean2 = mean.mean(0), mean2.mean(0)
+    else:
+        raise TypeError(f"norm must be TilePooled or GivenStats, not {type(norm).__name__}")
+    reps = n // mean.shape[0]
+    return group_norm_given(x, weight, bias, mean.repeat(reps, 1), mean2.repeat(reps, 1), eps, silu)
+
+
 # ------------------------------------------------------------------ the plan
 
 

@@ -248,12 +248,12 @@ def test_cli_tiny_end_to_end(tmp_path):
 
 
 UNPORTED = {
-    "tile_vae": (["--use_tile_vae"], "item 6"),
-    "tiled_sampling": (["--use_tiled_sampling"], "item 6"),
     "feature_cache": (["--feature_cache_interval", "2"], "item 5"),
     "sampler": (["--sampler", "EulerEDM"], "item 5"),
-    "lightning_yaml": (["--opt", str(ROOT / "options/SUPIR_v0_Juggernautv9_lightning.yaml")], "item 5"),
-    "tiled_yaml": (["--opt", str(ROOT / "options/SUPIR_v0_tiled.yaml")], "item 5"),
+    "heun": (["--sampler", "HeunEDM"], "item 5"),
+    "lms": (["--sampler", "LMS"], "item 5"),
+    "euler_ancestral": (["--sampler", "EulerAncestral"], "item 5"),
+    "tiled_feature_cache": (["--use_tiled_sampling", "--feature_cache_interval", "2"], "item 5"),
 }
 
 
@@ -264,6 +264,49 @@ def test_cli_unported_options_raise(tmp_path, case):
             "--device", "cpu"]
     with pytest.raises(NotImplementedError, match=item):
         cli.main(base + ([] if "--opt" in flags else ["--tiny"]) + flags)
+
+
+TILED_FLAGS = ["--use_tile_vae", "--use_tiled_sampling", "--encoder_tile_size", "32", "--decoder_tile_size", "4",
+               "--sampler_tile_size", "4", "--sampler_tile_stride", "2"]
+PORTED_RUNS = {
+    "tiled": TILED_FLAGS,
+    "tiled_dpmpp2m": TILED_FLAGS + ["--sampler", "RestoreDPMPP2M"],
+    "lightning": ["--sampler", "RestoreDPMPP2M"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(PORTED_RUNS))
+def test_cli_tiled_and_lightning_end_to_end(tmp_path, case):
+    """The tiny CLI through the tiled VAE and tiled sampling (TiledRestoreEDM,
+    and TiledRestoreDPMPP2M by --sampler), and through RestoreDPMPP2M
+    untiled: the restored image at the input's size."""
+    out = tmp_path / "out"
+    rec, = cli.main(["--img_dir", str(_img_dir(tmp_path)), "--save_dir", str(out), "--tiny", "--random_weights",
+                     "--no_llava", "--device", "cpu", "--min_size", "64", "--edm_steps", "3"] + PORTED_RUNS[case])
+    got = np.asarray(Image.open(out / "photo_0.png"))
+    assert got.shape == (48, 56, 3) and got.std() > 0
+    assert rec["saved"] == [str(out / "photo_0.png")]
+
+
+@pytest.mark.parametrize("name", ["SUPIR_v0_tiled.yaml", "SUPIR_v0_Juggernautv9_lightning.yaml"])
+def test_cli_shipped_options_are_ported(name, monkeypatch):
+    """Both option files that the port refused before pass check_ported
+    with the flags they are run with; the tiled one without
+    --use_tiled_sampling is a ValueError, as in the JAX CLI (its sampler
+    table has no tiled sampler)."""
+    cfg, _ = TCfg.load_yaml_config(str(ROOT / "options" / name))
+    tiled = cfg.sampler.name.startswith("Tiled")
+    args = cli.build_parser().parse_args(["--img_dir", ".", "--save_dir", "."]
+                                         + (["--use_tile_vae", "--use_tiled_sampling"] if tiled else []))
+    cli.check_ported(args, cfg.sampler.name)
+    assert cli.sampler_for(args) is None
+    if tiled:
+        args.use_tiled_sampling = False
+        with pytest.raises(ValueError, match="--use_tiled_sampling"):
+            cli.check_ported(args, cfg.sampler.name)
+    args.sampler = "DPMPP2M"
+    args.use_tiled_sampling = True
+    assert cli.sampler_for(args) == "TiledRestoreDPMPP2M"
 
 
 def test_cli_refuses_without_cuda(tmp_path, monkeypatch):
@@ -370,7 +413,8 @@ def test_new_modules_import_no_jax():
     code = (
         "import sys\n"
         "import supir_tpu_torch.apps.cli, supir_tpu_torch.captioner.convert, supir_tpu_torch.utils.ckpt\n"
-        "import supir_tpu_torch.utils.image, supir_tpu_torch.models.embedders\n"
+        "import supir_tpu_torch.utils.image, supir_tpu_torch.models.embedders, supir_tpu_torch.utils.tiling\n"
+        "import supir_tpu_torch.parallel.tiled_vae, supir_tpu_torch.parallel.tiled_sampler\n"
         "from supir_tpu_torch.utils.tokenizer import tokenize\n"
         "tokenize(['a photo'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'supir_tpu', 'CKPT_PTH'))\n"
@@ -405,3 +449,43 @@ def test_cli_launch_counts_match_chip_smoke(tmp_path, monkeypatch):
     assert chip_smoke.expected_flash_sites(full, (128, 192)) == chip_smoke.expected_flash_sites(full, 128) == 106
     assert chip_smoke.expected_flash_sites(full, (64, 96)) == chip_smoke.expected_flash_sites(full, (96, 64))
     assert chip_smoke.expected_flash_launches(full, (128, 192), 4, vae_passes=5) == 424
+
+
+@pytest.mark.parametrize("case", ["tiled", "lightning"])
+def test_cli_tiled_and_lightning_launch_counts_match_chip_smoke(tmp_path, monkeypatch, case):
+    """chip_smoke.py's [tiled] and [lightning] counts on tiny CPU runs. Tiled:
+    the tiled VAE's GroupNorm sites never call `layers.group_norm` (K2 on
+    the card; they take pooled or given statistics), so the calls are the
+    sampler's network calls alone, one per step on all windows folded.
+    Lightning: per step one network call, and the VAE's sites over one
+    encode (stage 1) and three decodes (RestoreDPMPP2M has no x_center
+    encode)."""
+    import chip_smoke
+    from supir_tpu_torch.models import layers
+    from supir_tpu_torch.ops import groupnorm as G
+
+    calls = []
+    monkeypatch.setattr(layers, "group_norm", lambda *a: calls.append(1) or G.group_norm_plain(*a))
+    pooled = layers.GroupNorm32.pooled_sites
+    img_dir = _img_dir(tmp_path)
+    cli.main(["--img_dir", str(img_dir), "--save_dir", str(tmp_path / "out"), "--tiny", "--no_llava", "--device",
+              "cpu", "--min_size", "64", "--edm_steps", "3"] + PORTED_RUNS[case])
+    cfg, _ = tiny_test_config()
+    if case == "lightning":
+        assert layers.GroupNorm32.pooled_sites == pooled
+        assert len(calls) == chip_smoke.expected_group_norm_launches(cfg, 3, encodes=1, decodes=3) > 0
+        return
+    model_h, model_w = TI.pil_to_array(Image.open(img_dir / "photo.png"), min_size=64)[0].shape[:2]
+    want = chip_smoke.expected_tiled_launches(cfg, (model_h // 8, model_w // 8), 3, tile_size=4, tile_stride=2)
+    assert len(calls) == want["K2"] == chip_smoke.expected_group_norm_launches(cfg, 3, vae_passes=0) > 0
+    assert layers.GroupNorm32.pooled_sites > pooled
+    # at full width: 2048^2 is 9 windows of 128 folded into one call a step,
+    # 4096^2 is 49 windows; the VAE's 512-wide head never reaches K1
+    full = TCfg.SUPIRConfig()
+    assert chip_smoke.expected_tiled_launches(full, 256, 4) == {
+        "K1": 106 * 4, "K2": chip_smoke.expected_group_norm_launches(full, 4, vae_passes=0)}
+    assert chip_smoke.expected_tiled_launches(full, 512, 2, tile_chunk=16)["K1"] == 106 * 2 * 4
+    assert chip_smoke.tiled_vae_tiles(full, (2048, 2048), 512, 64) == (16, 16)
+    assert chip_smoke.expected_tiled_vae_flash(full, (2048, 2048), 512, 64, (8, 4), 2, 3) == 0
+    reduced = chip_smoke._reduced_cfg()  # VAE head 128: each chunk call's attention reaches K1
+    assert chip_smoke.expected_tiled_vae_flash(reduced, (512, 512), 256, 32, (3, 4), 1, 1) == 2 + 1

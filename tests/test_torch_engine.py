@@ -97,8 +97,8 @@ def test_sample_is_seeded_and_checks_overrides(tiny):
         engine.batchify_sample(x, c, uc, noise_override=np.zeros((1, 4, 4, 4), np.float32), **kw)
     with pytest.raises(ValueError, match="center_noise_override"):
         engine.batchify_sample(x, c, uc, center_noise_override=np.zeros((1, 8, 8, 3), np.float32), **kw)
-    with pytest.raises(NotImplementedError):
-        engine.batchify_sample(x, c, uc, sampler_name="RestoreDPMPP2M", **kw)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        engine.batchify_sample(x, c, uc, sampler_name="EulerEDM", **kw)
 
 
 def test_bridge_loads_strict_and_round_trips(tiny):
@@ -166,7 +166,8 @@ def test_port_imports_no_jax(target):
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'supir_tpu'))\n"
             "assert not bad, bad\n"
             "assert {'supir_tpu_torch.captioner.mpt', 'supir_tpu_torch.captioner.preprocess',\n"
-            "        'supir_tpu_torch.captioner.train'} <= set(sys.modules)\n"
+            "        'supir_tpu_torch.captioner.train', 'supir_tpu_torch.parallel.tiled_vae',\n"
+            "        'supir_tpu_torch.parallel.tiled_sampler', 'supir_tpu_torch.utils.tiling'} <= set(sys.modules)\n"
             "print(sum(m.startswith('supir_tpu_torch.') for m in sys.modules))\n"
         )
         out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
