@@ -114,6 +114,26 @@ Phases, each printing its own lines:
   5d. lightning: options/SUPIR_v0_Juggernautv9_lightning.yaml through the
      CLI at 1024x1536 with its own 8 RestoreDPMPP2M steps and CFG; stage
      times, peak memory, K1 and K2 launches as the config says.
+  5e. samplers: the seven samplers beyond RestoreEDM and RestoreDPMPP2M
+     (EulerEDM, HeunEDM, EulerAncestral, DPMPP2SAncestral, DPMPP2M, LMS,
+     Substep) through batchify_sample at full width, 1024^2, 4 steps
+     each (Substep's cap): seconds, network calls (two a step but the
+     last for Heun and DPM++(2S)), K1 and K2 launches (calls x sites + the
+     VAE's), peak memory; finite output.
+  5f. feature cache: RestoreEDM's cross-step cache at full width, 1024^2, 8
+     steps: interval 1 equal to the plain path (to 0 where two plain runs
+     agree bit for bit), intervals 2 and 4 with each recompute and reuse
+     step timed by CUDA events, K1/K2 launches (a reuse call runs the
+     decoder's 38 K1 sites of the 106), the cache's bytes, peak memory;
+     then TiledRestoreEDM at 2048^2 (tiled VAE, 9 windows), 4 steps,
+     interval 2, folded, beside the plain tiled run.
+  5g. samplers reference: at the reduced width, card bf16 vs CPU fp32 on the
+     same weights and injected noise (each step's draw through the
+     samplers' noise hook): each new sampler, the cache at interval 2
+     (untiled; tiled folded and in chunks of 3), the plain UNetModel and
+     GLVControl with input_upscale 2, rel-L2 0.05; Heun without its
+     correction and a reuse step keeping the recompute step's time
+     embedding must break it.
   6. captioner: LLaVA-1.5-13B at full width (CLIP ViT-L/14-336, Llama-13B,
      random weights drawn and quantized layer by layer on the card) captions
      a 1024^2 image through CaptionerAgent.gen_image_caption, greedy, 32
@@ -241,12 +261,13 @@ def _latent_hw(lat):
     return (lat, lat) if isinstance(lat, int) else tuple(lat)
 
 
-def expected_flash_sites(cfg, lat) -> int:
+def expected_flash_sites(cfg, lat, reuse: bool = False) -> int:
     """K1 sites per network call, derived from the config: every
     SpatialTransformer self-attention (UNet encoder, UNet decoder, GLVControl
     encoder, both middles) and every ZeroCrossAttn whose sequences hold at
     least 1024 tokens with 64- or 128-wide heads. `lat`: the latent's side,
-    or its (h, w)."""
+    or its (h, w). `reuse`: a feature cache's reuse step, which runs only
+    the UNet's decoder and the ZeroCrossAttns of those."""
     from supir_tpu_torch.ops.attention import flash_eligible
 
     h, w = _latent_hw(lat)
@@ -256,13 +277,14 @@ def expected_flash_sites(cfg, lat) -> int:
         ds = 2**level
         tokens = (h // ds) * (w // ds)
         if ds in u.attention_resolutions and flash_eligible(tokens, tokens, u.num_head_channels):
-            n += 2 * u.num_res_blocks * u.transformer_depth[level]   # UNet + control encoders
+            if not reuse:
+                n += 2 * u.num_res_blocks * u.transformer_depth[level]  # UNet + control encoders
             n += (u.num_res_blocks + 1) * u.transformer_depth[level]  # UNet decoder
         if level > 0 and flash_eligible(tokens, tokens, 64):
             n += 1  # ZeroCrossAttn before this level's upsample, 64-wide heads
     ds = 2 ** (u.levels - 1)
     mid = (h // ds) * (w // ds)
-    if ds in u.attention_resolutions and flash_eligible(mid, mid, u.num_head_channels):
+    if not reuse and ds in u.attention_resolutions and flash_eligible(mid, mid, u.num_head_channels):
         n += 2 * u.middle_depth
     return n
 
@@ -281,7 +303,8 @@ def expected_flash_launches(cfg, lat, steps: int, vae_passes: int) -> int:
     return expected_flash_sites(cfg, lat) * steps + vae
 
 
-def expected_group_norm_launches(cfg, steps: int, vae_passes: int = 4, encodes=None, decodes=None) -> int:
+def expected_group_norm_launches(cfg, steps: int, vae_passes: int = 4, encodes=None, decodes=None,
+                                 reuse_steps: int = 0) -> int:
     """K2 launches of `steps` network calls and the VAE passes: every
     GroupNorm32 of the UNet and of the control net (ZeroSFT and
     ZeroCrossAttn included) once per network call, and those of the encoder
@@ -289,8 +312,10 @@ def expected_group_norm_launches(cfg, steps: int, vae_passes: int = 4, encodes=N
     config's modules built on the meta device. `vae_passes` alternate
     encode and decode (the counted [main] run's four: the denoise encoder,
     a decode, the encoder, a decode); `encodes` and `decodes` count them
-    apart (the CLI's five: two encodes, three decodes). GroupNorm sites do
-    not depend on the image size."""
+    apart (the CLI's five: two encodes, three decodes). `reuse_steps`: the
+    feature cache's reuse calls, each the UNet's sites without its input
+    blocks and middle block. GroupNorm sites do not depend on the image
+    size."""
     import torch
 
     from supir_tpu_torch.engine.supir import SUPIRModel
@@ -304,9 +329,11 @@ def expected_group_norm_launches(cfg, steps: int, vae_passes: int = 4, encodes=N
 
     encodes = vae_passes // 2 if encodes is None else encodes
     decodes = vae_passes - vae_passes // 2 if decodes is None else decodes
-    net = sites(model.model["diffusion_model"]) + sites(model.model["control_model"])
+    unet = model.model["diffusion_model"]
+    net = sites(unet) + sites(model.model["control_model"])
+    reuse = sites(unet) - sites(unet.input_blocks) - sites(unet.middle_block)
     vae = model.first_stage_model
-    return net * steps + encodes * sites(vae.encoder) + decodes * sites(vae.decoder)
+    return net * steps + reuse * reuse_steps + encodes * sites(vae.encoder) + decodes * sites(vae.decoder)
 
 
 def expected_tiled_launches(cfg, lat, steps: int, tile_size: int = 128, tile_stride: int = 64,
@@ -2323,6 +2350,393 @@ def phase_lightning(smi: str):
     return launches
 
 
+NEW_SAMPLERS = ("EulerEDM", "HeunEDM", "EulerAncestral", "DPMPP2SAncestral", "DPMPP2M", "LMS", "Substep")
+SAMPLER_STEPS = 4     # [samplers]: Substep's cap
+CACHE_STEPS = 8       # [feature cache], untiled
+CACHE_TILED_SIDE = 2048  # [feature cache], tiled: 9 windows of 128 latent px at stride 64
+CACHE_TILED_STEPS = 4
+
+
+def expected_network_calls(name: str, steps: int, eta: float) -> int:
+    """Network calls of `steps` steps of a sampler on the LegacyDDPM
+    schedule: one a step, and Heun's correction where the step does not end
+    at sigma 0, DPM++(2S)'s midpoint where sigma_down > 1e-14."""
+    from supir_tpu_torch.diffusion import samplers as S
+
+    sigmas = S.legacy_ddpm_sigmas(steps)
+    if name == "HeunEDM":
+        return steps + int((sigmas[1:] > 1e-14).sum())
+    if name == "DPMPP2SAncestral":
+        down, _ = S._ancestral_step_sigmas(sigmas[:-1], sigmas[1:], eta)
+        return steps + int((down > 1e-14).sum())
+    return steps
+
+
+def _count_calls(engine, method: str, calls: list):
+    """Wrap engine.<method> so each call appends its last argument (the
+    recompute flag of `_network_cached`, the control scale of `_network`)."""
+    sound = getattr(engine, method)
+
+    def counted(*args):
+        calls.append(args[-1])
+        return sound(*args)
+
+    setattr(engine, method, counted)
+    return lambda: delattr(engine, method)
+
+
+def _full_width_engine():
+    """The XL-base engine at full width, bf16, on the card, every weight
+    random (zero-initialised layers included: left at zero, the UNet's
+    output head would make eps 0 whatever the features, and the samplers'
+    and the cache's results would not depend on the network)."""
+    from supir_tpu_torch.config import SUPIRConfig
+    from supir_tpu_torch.engine.factory import create_engine
+
+    engine = create_engine(SUPIRConfig(), "cuda", seed=SEED)
+    _randomize_all(engine.model, SEED + 20)
+    return engine
+
+
+def phase_samplers(engine, smi: str):
+    """The seven samplers beyond RestoreEDM and RestoreDPMPP2M through
+    SUPIREngine.batchify_sample at full width, 1024^2, 4 steps each (Substep's
+    cap), the main path's settings (churn 5, linear CFG, eta 1): stage 1 and
+    the sample, synchronised. Each output must be finite, and K1 and K2 must
+    launch at every site of every network call (Heun and DPM++(2S) call
+    twice a step but on the last) plus the VAE's: one encode, two decodes
+    (no x_center encode: only RestoreEDM takes one). Returns each sampler's
+    launches."""
+    import torch
+
+    from supir_tpu_torch.ops.flash_attention import flash_attention
+    from supir_tpu_torch.ops.groupnorm import group_norm
+
+    cfg = engine.cfg
+    lat = SIZE // cfg.vae.downscale_factor
+    x, c, uc = _inputs(cfg, SIZE, torch.device("cuda"), SEED + 13)
+    out = {}
+    for name in NEW_SAMPLERS:
+        calls = []
+        restore = _count_calls(engine, "_network", calls)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        group_norm.launches = 0
+        t0 = time.perf_counter()
+        try:
+            z = engine.encode_first_stage_with_denoise(x)
+            img = engine.batchify_sample(x, dict(c, control=z), dict(uc, control=z), num_steps=SAMPLER_STEPS,
+                                         seed=SEED, z_override=z, sampler_name=name, **SAMPLE_KW)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        sec = time.perf_counter() - t0
+        launches = {"K1": flash_attention.launches, "K2": group_norm.launches}
+        want_calls = expected_network_calls(name, SAMPLER_STEPS, cfg.sampler.eta)
+        want = {"K1": expected_flash_launches(cfg, lat, len(calls), vae_passes=3),
+                "K2": expected_group_norm_launches(cfg, len(calls), encodes=1, decodes=2)}
+        log(f"[samplers] {smi}: {name}, {SIZE}^2, {SAMPLER_STEPS} steps: stage 1 + sample {sec:.3f} s, "
+            f"{len(calls)} network calls (expected {want_calls}), launches K1 {launches['K1']} / K2 "
+            f"{launches['K2']} (expected {want['K1']} / {want['K2']}: {expected_flash_sites(cfg, lat)} and "
+            f"{expected_group_norm_launches(cfg, 1, vae_passes=0)} sites a call + one encode, two decodes), peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, output range "
+            f"[{img.min().item():.3f}, {img.max().item():.3f}]")
+        if tuple(img.shape) != (1, SIZE, SIZE, 3) or not torch.isfinite(img).all():
+            raise AssertionError(f"[samplers] {name}: output {tuple(img.shape)} not finite or of the wrong shape")
+        if len(calls) != want_calls or launches != want:
+            raise AssertionError(f"[samplers] {name}: {len(calls)} calls, launches {launches}, expected "
+                                 f"{want_calls} calls, {want}")
+        out[name] = launches
+    return out
+
+
+def _cache_bytes(cache) -> int:
+    control, (hs, h) = cache
+    return nbytes(*control, *hs, h)
+
+
+def _cached_run(engine, run, interval: int):
+    """run(interval) with each network call of the cached path between two
+    CUDA events: (result, seconds, {True: recompute ms list, False: reuse
+    ms list}, launches, the last call's cache bytes)."""
+    import torch
+
+    from supir_tpu_torch.ops.flash_attention import flash_attention
+    from supir_tpu_torch.ops.groupnorm import group_norm
+
+    sound = engine._network_cached
+    records = []
+
+    def timed(x, t, cond, control_scale, cache, recompute):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = sound(x, t, cond, control_scale, cache, recompute)
+        end.record()
+        records.append((recompute, start, end, out[1]))
+        return out
+
+    engine._network_cached = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    group_norm.launches = 0
+    t0 = time.perf_counter()
+    try:
+        img = run(interval)
+        torch.cuda.synchronize()
+    finally:
+        del engine._network_cached
+    sec = time.perf_counter() - t0
+    launches = {"K1": flash_attention.launches, "K2": group_norm.launches}
+    steps = {True: [], False: []}
+    for rec, start, end, _ in records:
+        steps[rec].append(start.elapsed_time(end))
+    cache_bytes = _cache_bytes(records[-1][3]) if records else 0
+    return img, sec, steps, launches, cache_bytes
+
+
+def phase_feature_cache(engine, smi: str):
+    """RestoreEDM's cross-step feature cache at full width: 1024^2, 8 steps,
+    the main path's settings. The plain path twice (whether the card's run
+    is deterministic), interval 1 (equal to the plain path: to 0 where the
+    two plain runs agree bit for bit, else within REF_REL_BOUND), then
+    intervals 2 and 4: each network call of the cached path timed by CUDA
+    events, recompute and reuse steps apart; K1 and K2 launches (recompute
+    calls at every site, reuse calls at the decoder's, adapters' and head's
+    alone) asserted; the cache's bytes; peak memory. Then TiledRestoreEDM at
+    2048^2 (tiled VAE, 9 windows folded into a batch of 18), 4 steps, at
+    interval 2 and plain, with the same readings. Returns the launches."""
+    import torch
+
+    from supir_tpu_torch.utils.tiling import sliding_windows
+
+    cfg = engine.cfg
+    dev = torch.device("cuda")
+    lat = SIZE // cfg.vae.downscale_factor
+    x, c, uc = _inputs(cfg, SIZE, dev, SEED + 14)
+    z = engine.encode_first_stage_with_denoise(x)
+    cc, ucc = dict(c, control=z), dict(uc, control=z)
+
+    def run(interval, steps=CACHE_STEPS):
+        return engine.batchify_sample(x, cc, ucc, num_steps=steps, seed=SEED, z_override=z,
+                                      feature_cache_interval=interval, **SAMPLE_KW)
+
+    plain = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain.append(run(0))
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    deterministic = torch.equal(plain[0], plain[1])
+    one, one_s, _, _, _ = _cached_run(engine, run, 1)
+    diff = (one - plain[0]).abs().max().item()
+    log(f"[feature cache] {smi}: RestoreEDM {SIZE}^2, {CACHE_STEPS} steps: plain {plain_s:.3f} s (two plain runs "
+        f"bit-identical: {deterministic}); interval 1 {one_s:.3f} s, max |interval 1 - plain| {diff:.3e} "
+        f"(bound {'0' if deterministic else f'rel_l2 {REF_REL_BOUND:g}'})")
+    if deterministic and diff != 0:
+        raise AssertionError(f"[feature cache] interval 1 differs from the plain path by {diff}")
+    if not deterministic and not rel_l2(one, plain[0]) <= REF_REL_BOUND:
+        raise AssertionError(f"[feature cache] interval 1 differs from the plain path: rel_l2 {rel_l2(one, plain[0])}")
+
+    def check(label, interval, steps, img, sec, step_ms, launches, cache_bytes, lat_k1, vae_k1, vae_k2, want_shape):
+        rec, reuse = len(step_ms[True]), len(step_ms[False])
+        want = {"K1": expected_flash_sites(cfg, lat_k1) * rec + expected_flash_sites(cfg, lat_k1, reuse=True) * reuse
+                + vae_k1, "K2": expected_group_norm_launches(cfg, rec, reuse_steps=reuse, **vae_k2)}
+        mean = lambda v: sum(v) / len(v)  # noqa: E731
+        log(f"[feature cache] {label}, interval {interval}: {sec:.3f} s; recompute steps {rec} at "
+            f"{mean(step_ms[True]):.2f} ms ({', '.join(f'{m:.2f}' for m in step_ms[True])}), reuse steps {reuse} at "
+            f"{mean(step_ms[False]):.2f} ms ({', '.join(f'{m:.2f}' for m in step_ms[False])}), reuse/recompute "
+            f"{mean(step_ms[False]) / mean(step_ms[True]):.3f}; launches K1 {launches['K1']} / K2 {launches['K2']} "
+            f"(expected {want['K1']} / {want['K2']}: {expected_flash_sites(cfg, lat_k1)} and "
+            f"{expected_flash_sites(cfg, lat_k1, reuse=True)} K1 sites a recompute and a reuse call); cache "
+            f"{cache_bytes / 2**20:.1f} MiB; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if rec != -(-steps // interval) or rec + reuse != steps:
+            raise AssertionError(f"[feature cache] {label}: {rec} recompute and {reuse} reuse calls")
+        if launches != want:
+            raise AssertionError(f"[feature cache] {label}: launches {launches}, expected {want}")
+        if tuple(img.shape) != want_shape or not torch.isfinite(img).all():
+            raise AssertionError(f"[feature cache] {label}: output {tuple(img.shape)} not finite or misshapen")
+
+    out = {}
+    for interval in (2, 4):
+        img, sec, step_ms, launches, cache_bytes = _cached_run(engine, run, interval)
+        check(f"RestoreEDM {SIZE}^2, {CACHE_STEPS} steps", interval, CACHE_STEPS, img, sec, step_ms, launches,
+              cache_bytes, lat, expected_flash_launches(cfg, lat, 0, vae_passes=3), dict(encodes=1, decodes=2),
+              (1, SIZE, SIZE, 3))
+        log(f"[feature cache] interval {interval} vs plain (random weights): rel_l2 {rel_l2(img, plain[0]):.4f}")
+        out[f"interval {interval}"] = launches
+
+    side = CACHE_TILED_SIDE
+    tile = cfg.sampler.tile_size
+    engine.init_tile_vae(512, 64)
+    try:
+        xt, ct, uct = _inputs(cfg, side, dev, SEED + 15)
+        zt = engine.encode_first_stage_with_denoise(xt)
+        ct, uct = dict(ct, control=zt), dict(uct, control=zt)
+
+        def run_tiled(interval):
+            return engine.batchify_sample_tiled(xt, ct, uct, num_steps=CACHE_TILED_STEPS, tile_size=tile,
+                                                tile_stride=cfg.sampler.tile_stride, seed=SEED, z_override=zt,
+                                                feature_cache_interval=interval, **SAMPLE_KW)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        base = run_tiled(0)
+        torch.cuda.synchronize()
+        base_s = time.perf_counter() - t0
+        img, sec, step_ms, launches, cache_bytes = _cached_run(engine, run_tiled, 2)
+        windows = len(sliding_windows(side // cfg.vae.downscale_factor, side // cfg.vae.downscale_factor, tile,
+                                      cfg.sampler.tile_stride))
+        check(f"TiledRestoreEDM {side}^2 ({windows} windows of {tile}, batch {2 * windows}, tiled VAE), "
+              f"{CACHE_TILED_STEPS} steps", 2,
+              CACHE_TILED_STEPS, img, sec, step_ms, launches, cache_bytes, tile,
+              expected_tiled_vae_flash(cfg, (side, side), 512, 64, (8, 4), encodes=1, decodes=2),
+              dict(vae_passes=0), (1, side, side, 3))
+        log(f"[feature cache] tiled plain {base_s:.3f} s; interval 2 vs plain (random weights): rel_l2 "
+            f"{rel_l2(img, base):.4f}")
+        out["tiled interval 2"] = launches
+    finally:
+        engine._tile_vae = None
+    return out
+
+
+def phase_samplers_reference():
+    """At the references' reduced width, 512^2, 2 steps: the card (bf16,
+    kernels) against the CPU (fp32, plain versions) on the same weights and
+    the same injected noise (the initial and x_center noise, and each
+    step's draw through the samplers' noise hook, drawn on the CPU): each of
+    the seven samplers; RestoreEDM's feature cache at interval 2 (churn 0),
+    untiled, and tiled at 768^2 (4 windows of 64 at stride 32), folded and
+    in chunks of 3 (a padded last group); the plain UNetModel; GLVControl
+    with input_upscale 2. Two planted faults must break the bound: Heun
+    without its correction, and a reuse step that keeps the recompute
+    step's time embedding."""
+    import functools
+
+    import torch
+
+    from supir_tpu_torch.diffusion import samplers as S
+    from supir_tpu_torch.engine import supir as E
+    from supir_tpu_torch.engine.factory import build_model, create_engine
+    from supir_tpu_torch.engine.supir import SUPIREngine
+    from supir_tpu_torch.models.control import GLVControl
+    from supir_tpu_torch.models.unet import UNetModel
+
+    cfg = _reduced_cfg()
+    size, steps = 512, 2
+    cpu_cfg = dataclasses.replace(cfg, ae_dtype="fp32", diffusion_dtype="fp32")
+    cpu_model = build_model(cpu_cfg, "cpu", seed=SEED)
+    _randomize_all(cpu_model, SEED + 1)
+    cpu_engine = SUPIREngine(cpu_cfg, cpu_model)
+    gpu_engine = create_engine(cfg, "cuda", state_dict=cpu_model.state_dict())
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(SEED + 16)
+
+    def case(side):
+        x, c, uc = _inputs(cfg, side, torch.device("cpu"), SEED + 17)
+        lat = side // cfg.vae.downscale_factor
+        noise, center = (torch.randn(1, lat, lat, 4, generator=g) for _ in range(2))
+        z = cpu_engine.encode_first_stage_with_denoise(x)
+        return x, dict(c, control=z), dict(uc, control=z), z, dict(noise_override=noise,
+                                                                     center_noise_override=center)
+
+    moved = lambda d: {k: v.to(dev) for k, v in d.items()}  # noqa: E731
+
+    def card(method, x, c, uc, z, **kw):
+        return getattr(gpu_engine, method)(x.to(dev), moved(c), moved(uc), z_override=z.to(dev), **kw).cpu()
+
+    x, c, uc, z, noises = case(size)
+    lat = size // cfg.vae.downscale_factor
+    draws = [torch.randn(1, 4, lat, lat, generator=g) for _ in range(steps)]
+    hooked = {}
+    for entry in ("EulerEDM", "HeunEDM", "EulerAncestral", "DPMPP2SAncestral"):
+        hooked[entry] = E.SAMPLERS[entry]
+        E.SAMPLERS[entry] = functools.partial(hooked[entry], noise=lambda i, shape: draws[i])
+    kw = dict(SAMPLE_KW, num_steps=steps, **noises)
+    rels, wants = {}, {}
+    try:
+        for name in NEW_SAMPLERS:
+            t0 = time.perf_counter()
+            wants[name] = cpu_engine.batchify_sample(x, c, uc, z_override=z, sampler_name=name, **kw)
+            rels[name] = rel_l2(card("batchify_sample", x, c, uc, z, sampler_name=name, **kw), wants[name])
+            log(f"[samplers reference] {name}: reduced width, {size}^2, {steps} steps, churn 5, eta 1: card bf16 vs "
+                f"CPU fp32 rel_l2 {rels[name]:.4f} (bound {REF_REL_BOUND:g}; {time.perf_counter() - t0:.1f} s)")
+        correct = S.heun_correct
+        S.heun_correct = lambda denoise, x, x_euler, *a: x_euler
+        try:
+            bad_heun = rel_l2(card("batchify_sample", x, c, uc, z, sampler_name="HeunEDM", **kw), wants["HeunEDM"])
+        finally:
+            S.heun_correct = correct
+    finally:
+        E.SAMPLERS.update(hooked)
+
+    cached_kw = dict(kw, s_churn=0.0, feature_cache_interval=2)
+    want_cached = cpu_engine.batchify_sample(x, c, uc, z_override=z, **cached_kw)
+    rels["cache, untiled"] = rel_l2(card("batchify_sample", x, c, uc, z, **cached_kw), want_cached)
+    unet = gpu_engine.model.model["diffusion_model"]
+    sound_forward, sound_embed = unet.forward, unet.embed_time
+    held = {}
+
+    def stale_forward(*args, feature_cache=None, **kwargs):
+        if feature_cache is None:  # a recompute step: keep its time embedding
+            unet.embed_time = lambda t, y: held.__setitem__("emb", sound_embed(t, y)) or held["emb"]
+        else:  # a reuse step: the recompute step's embedding, not its own
+            unet.embed_time = lambda t, y: held["emb"]
+        try:
+            return sound_forward(*args, feature_cache=feature_cache, **kwargs)
+        finally:
+            del unet.embed_time
+
+    unet.forward = stale_forward
+    try:
+        bad_emb = rel_l2(card("batchify_sample", x, c, uc, z, **cached_kw), want_cached)
+    finally:
+        del unet.forward
+
+    xt, ct, uct, zt, tnoises = case(768)
+    tiled_kw = dict(SAMPLE_KW, s_churn=0.0, num_steps=steps, tile_size=64, tile_stride=32, feature_cache_interval=2,
+                    **tnoises)
+    want_tiled = cpu_engine.batchify_sample_tiled(xt, ct, uct, z_override=zt, **tiled_kw)
+    for chunk in (None, 3):
+        got = card("batchify_sample_tiled", xt, ct, uct, zt, tile_chunk=chunk, **tiled_kw)
+        rels[f"cache, tiled {'folded' if chunk is None else 'chunks of 3'}"] = rel_l2(got, want_tiled)
+
+    gen = torch.Generator().manual_seed(SEED + 18)
+    t = torch.tensor([999.0, 500.0])
+    ca = torch.randn(2, 77, cfg.unet.context_dim, generator=gen)
+    y = torch.randn(2, cfg.unet.adm_in_channels, generator=gen)
+    xl = torch.randn(2, 4, lat, lat, generator=gen)
+    plain_unet = UNetModel(cfg.unet)
+    _randomize_all(plain_unet, SEED + 19)
+    with torch.no_grad():
+        want = plain_unet(xl, t, ca, y)
+        card_unet = UNetModel(cfg.unet, device=dev, dtype=torch.bfloat16)
+        card_unet.load_state_dict(plain_unet.state_dict())
+        rels["UNetModel"] = rel_l2(card_unet(xl.to(dev), t.to(dev), ca.to(dev), y.to(dev)).cpu(), want)
+        control = GLVControl(cfg.unet, input_upscale=2)
+        control.load_state_dict(cpu_model.model["control_model"].state_dict())
+        card_control = GLVControl(cfg.unet, input_upscale=2, device=dev, dtype=torch.bfloat16)
+        card_control.load_state_dict(control.state_dict())
+        hint = torch.randn(2, 4, lat // 2, lat // 2, generator=gen)
+        want = control(hint, t, xl, ca, y)
+        got = card_control(hint.to(dev), t.to(dev), xl.to(dev), ca.to(dev), y.to(dev))
+        rels["GLVControl input_upscale 2"] = max(rel_l2(a.cpu(), b) for a, b in zip(got, want))
+    for label in list(rels)[len(NEW_SAMPLERS):]:
+        log(f"[samplers reference] {label}: card bf16 vs CPU fp32 rel_l2 {rels[label]:.4f} (bound {REF_REL_BOUND:g})")
+    log(f"[samplers reference] controls: Heun without its correction rel_l2 {bad_heun:.4f}; a reuse step keeping "
+        f"the recompute step's time embedding rel_l2 {bad_emb:.4f}")
+    bad = {k: v for k, v in rels.items() if not v <= REF_REL_BOUND}
+    if bad:
+        raise AssertionError(f"[samplers reference] card and CPU disagree: {bad}")
+    if not (bad_heun > REF_REL_BOUND and bad_emb > REF_REL_BOUND):
+        raise AssertionError(f"[samplers reference] the bound misses a planted fault: Heun without its correction "
+                             f"{bad_heun}, the stale time embedding {bad_emb}")
+    del gpu_engine, card_unet, card_control
+    _free()
+
+
 def _caption_image():
     """The captioner's input: a seeded 1024^2 uint8 image."""
     import torch
@@ -3623,7 +4037,14 @@ def main() -> int:
     tiled = phase_tiled(args.steps, smi)
     phase_tiled_reference()
     lightning = phase_lightning(smi)
-    log(f"[launches] K1 and K2 on the other restore paths: tiled {tiled}, lightning {lightning}")
+    engine = _full_width_engine()
+    samplers = phase_samplers(engine, smi)
+    cache = phase_feature_cache(engine, smi)
+    del engine
+    _free()
+    phase_samplers_reference()
+    log(f"[launches] K1 and K2 on the other restore paths: tiled {tiled}, lightning {lightning}, samplers "
+        f"{samplers}, feature cache {cache}")
     image = _caption_image()
     # each captioner kernel takes the launches of the mode whose path it serves
     # (K5's act_int8 mode, K10 and K11 their W4A8 and native modes, K9 the

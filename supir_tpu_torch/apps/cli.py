@@ -9,9 +9,10 @@ Per image: `pil_to_array` (upscale, min_size, 64-rounded), the stage-1
 denoise-encode and decode, optionally a LLaVA caption of the stage-1
 denoise of a 512-short-side copy (test.py:84-92), `tokenize` of the caption
 plus the positive prompt and of the negative prompt, `prepare_condition`
-(CLIP-L and OpenCLIP bigG), `batchify_sample` (RestoreEDM, or
-RestoreDPMPP2M: options/SUPIR_v0_Juggernautv9_lightning.yaml) and
-`array_to_pil` back to the input's size times `--upscale`, saved as
+(CLIP-L and OpenCLIP bigG), `batchify_sample` (the config's sampler,
+RestoreEDM or RestoreDPMPP2M (options/SUPIR_v0_Juggernautv9_lightning.yaml),
+or any of the JAX CLI's nine by `--sampler`; `--feature_cache_interval`
+turns on RestoreEDM's cross-step feature cache) and `array_to_pil` back to the input's size times `--upscale`, saved as
 `<name>_<i>.png`.
 
 The tiled path for large outputs (options/SUPIR_v0_tiled.yaml):
@@ -22,10 +23,9 @@ samples with `batchify_sample_tiled` over `--sampler_tile_size` windows at
 `--sampler` names a DPM++ sampler).
 
 The flags are the JAX CLI's, plus `--device` (default cuda; without a card
-that raises unless the caller names the CPU). Flags whose machinery the
-port does not have yet raise NotImplementedError naming the ROADMAP item:
-a `--feature_cache_interval` above 0 and a sampler other than RestoreEDM,
-RestoreDPMPP2M and their tiled forms, by `--sampler` or the yaml (item 5).
+that raises unless the caller names the CPU). As in the JAX CLI,
+`--feature_cache_interval` reaches only the untiled `batchify_sample`: the
+tiled cache is the engine's (`batchify_sample_tiled(feature_cache_interval=)`).
 A tiled sampler in the yaml without `--use_tiled_sampling` is a
 ValueError (the JAX CLI fails there too).
 """
@@ -109,13 +109,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile_dir", type=str, default=None,
                     help="write a torch.profiler trace of each image's sample phase there")
     ap.add_argument("--feature_cache_interval", type=int, default=0,
-                    help="cross-step feature cache of RestoreEDM (0 = off, exact)")
+                    help="cross-step encoder/control feature cache of RestoreEDM, untiled (0 = off, exact; "
+                         "N > 1 recomputes every N steps)")
     ap.add_argument("--device", type=str, default="cuda",
                     help="where the models run: cuda (the default) or cpu")
     return ap
-
-
-PORTED_SAMPLERS = ("RestoreEDM", "RestoreDPMPP2M")
 
 
 def sampler_for(args) -> str | None:
@@ -129,22 +127,13 @@ def sampler_for(args) -> str | None:
     return args.sampler
 
 
-def check_ported(args, config_sampler: str) -> None:
-    """Raise on every option whose machinery the port does not hold yet, and
-    on a tiled sampler without tiled sampling."""
-    if args.feature_cache_interval > 0:
-        raise NotImplementedError("--feature_cache_interval is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 5, sampler family and feature cache)")
-    if args.use_tiled_sampling:
-        return  # every name maps to one of the two tiled samplers
+def check_sampler(args, config_sampler: str) -> None:
+    """Raise on a tiled sampler without tiled sampling: with
+    --use_tiled_sampling every name maps to one of the two tiled samplers."""
     sampler = args.sampler or config_sampler
-    if sampler.startswith("Tiled"):
+    if not args.use_tiled_sampling and sampler.startswith("Tiled"):
         raise ValueError(f"the config's sampler {sampler!r} samples tiles: pass --use_tiled_sampling "
                          "(or --sampler for the untiled path)")
-    if sampler not in PORTED_SAMPLERS:
-        raise NotImplementedError(f"sampler {sampler!r} is not ported yet, {' and '.join(PORTED_SAMPLERS)} and "
-                                  "their tiled forms only (ROADMAP.md Queue 1 item 5, sampler family and "
-                                  "feature cache)")
 
 
 def create_engine_from_args(args):
@@ -154,10 +143,10 @@ def create_engine_from_args(args):
     param_dtype = torch.float32 if args.loading_half_params is False else None
     if args.tiny:
         cfg, cond_cfg = tiny_test_config()
-        check_ported(args, cfg.sampler.name)
+        check_sampler(args, cfg.sampler.name)
         return create_engine(cfg, device, seed=0, param_dtype=param_dtype, cond_cfg=cond_cfg), cfg
     cfg, extras = load_yaml_config(args.opt)
-    check_ported(args, cfg.sampler.name)
+    check_sampler(args, cfg.sampler.name)
     cfg = dataclasses.replace(
         cfg,
         ae_dtype=DTYPE_MAP[args.ae_dtype] if args.ae_dtype else cfg.ae_dtype,
@@ -259,6 +248,8 @@ def main(argv=None):
             control_scale_start=args.spt_linear_s_stage2, sampler_name=sampler_for(args),
             z_override=zN,
         )
+        if args.feature_cache_interval and not args.use_tiled_sampling:
+            sample_kwargs["feature_cache_interval"] = args.feature_cache_interval
         with profiler:
             if args.use_tiled_sampling:
                 samples = engine.batchify_sample_tiled(xN, c, uc, tile_size=args.sampler_tile_size,

@@ -25,12 +25,27 @@ class DiscreteDenoiser:
         table = torch.as_tensor(self.sigma_table, device=sigma.device)
         return torch.argmin((sigma[:, None] - table[None]).abs(), dim=-1)
 
+    def _precondition(self, x: torch.Tensor, sigma: torch.Tensor):
+        """(t, c_out, c_in, c_skip): the nearest table index as the timestep,
+        and eps scaling at that entry's sigma."""
+        idx = self.sigma_to_idx(sigma.float())
+        sigma_q = torch.as_tensor(self.sigma_table, device=x.device)[idx]
+        c_skip, c_out, c_in, _ = eps_scaling(sigma_q.reshape(-1, 1, 1, 1))
+        return idx.float(), c_out, c_in, c_skip
+
     def __call__(self, network: Callable[..., torch.Tensor], x: torch.Tensor,
                  sigma: torch.Tensor, cond: Any, control_scale: float = 1.0) -> torch.Tensor:
         """x: [B, C, H, W] fp32 noisy latent; sigma: [B]."""
-        sigma = sigma.float()
-        idx = self.sigma_to_idx(sigma)
-        sigma_q = torch.as_tensor(self.sigma_table, device=x.device)[idx]
-        c_skip, c_out, c_in, _ = eps_scaling(sigma_q.reshape(-1, 1, 1, 1))
-        out = network(x * c_in, idx.float(), cond, control_scale)
+        t, c_out, c_in, c_skip = self._precondition(x, sigma)
+        out = network(x * c_in, t, cond, control_scale)
         return out.float() * c_out + x * c_skip
+
+    def call_cached(self, network_cached: Callable[..., Any], x: torch.Tensor, sigma: torch.Tensor,
+                    cond: Any, control_scale, cache: Any, recompute: bool):
+        """The same preconditioning around a network that threads the
+        cross-step feature cache: `network_cached(x, t, cond, control_scale,
+        cache, recompute) -> (eps, cache)` (SUPIREngine._network_cached).
+        Returns (denoised, cache)."""
+        t, c_out, c_in, c_skip = self._precondition(x, sigma)
+        out, cache = network_cached(x * c_in, t, cond, control_scale, cache, recompute)
+        return out.float() * c_out + x * c_skip, cache

@@ -6,7 +6,7 @@ __init__).
 LegacyDDPM: sqrt-linear beta schedule (linear_start=0.00085,
 linear_end=0.012, 1000 steps), sigma = sqrt((1-abar)/abar), returned
 descending with an appended terminal zero. Karras: a rho-7 ramp between
-two sigmas, with a terminal zero.
+two sigmas, with a terminal zero; EDM: the same ramp at EDM's defaults.
 """
 
 from __future__ import annotations
@@ -51,6 +51,19 @@ def legacy_ddpm_sigmas(n: int, num_timesteps: int = 1000) -> np.ndarray:
     else:
         raise ValueError(f"n={n} > num_timesteps={num_timesteps}")
     return np.concatenate([sel[::-1], np.zeros((1,), np.float32)]).astype(np.float32)
+
+
+def edm_sigmas(n: int, sigma_min: float = 0.02, sigma_max: float = 80.0, rho: float = 7.0,
+               append_zero: bool = True) -> np.ndarray:
+    """EDM (Karras) rho-schedule, n sigmas descending from sigma_max to
+    sigma_min, float32, with a terminal zero unless `append_zero` is off."""
+    ramp = np.linspace(0, 1, n, dtype=np.float64)
+    min_inv_rho = sigma_min ** (1.0 / rho)
+    max_inv_rho = sigma_max ** (1.0 / rho)
+    out = ((max_inv_rho + ramp * (min_inv_rho - max_inv_rho)) ** rho).astype(np.float32)
+    if append_zero:
+        out = np.concatenate([out, np.zeros((1,), np.float32)])
+    return out
 
 
 def karras_sigmas(n: int, sigma_min: float, sigma_max: float, rho: float = 7.0) -> np.ndarray:

@@ -1,12 +1,18 @@
-"""RestoreEDM, SUPIR's default sampler, and RestoreDPMPP2M, the Lightning
-sampler (counterpart of supir_tpu/diffusion/samplers.py:75-193, 371-500),
-as Python loops.
+"""The sampler family (counterpart of supir_tpu/diffusion/samplers.py), as
+Python loops: RestoreEDM, SUPIR's default, and its cross-step feature
+cache; EulerEDM and HeunEDM; EulerAncestral, DPM++(2S) ancestral and the
+Substep schedule; DPM++(2M), the SDE of RestoreDPMPP2M (Lightning); LMS.
 
 Every per-step scalar (churn, CFG scale, control scale, restoration
 weight) is precomputed into numpy `StepTables`, exactly as the JAX package
 does. The `denoise` callable is the engine's closure
     denoise(x, sigma[B], cfg_scale[B], control_scale) -> denoised
 which doubles the batch for CFG inside.
+
+The samplers that draw noise (churn, ancestral steps) take a
+torch.Generator, and an optional hook `noise(i, shape) -> Tensor` that
+gives step i's unit-normal draw instead: the port's streams differ from
+jax.random's, so parity tests inject JAX's draws through it.
 
 DPM++(2M) SDE draws its noise from a virtual Brownian tree (`vbt_value`,
 `brownian_increment`) built on explicit torch.Generators: W(t) is
@@ -19,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -91,31 +97,184 @@ def make_step_tables(
     )
 
 
+NoiseHook = Callable[[int, tuple], torch.Tensor]
+
+
+def _draw(noise: Optional[NoiseHook], generator: torch.Generator, i: int, like: torch.Tensor) -> torch.Tensor:
+    """Step i's unit-normal draw shaped like `like`: the hook's where one is
+    given, else from `generator`."""
+    if noise is not None:
+        return noise(i, tuple(like.shape)).to(device=like.device, dtype=like.dtype)
+    return torch.randn(like.shape, generator=generator, device=like.device, dtype=like.dtype)
+
+
+def _to_d(x: torch.Tensor, sigma: float, denoised: torch.Tensor) -> torch.Tensor:
+    return (x - denoised) / sigma
+
+
+def _full(b: int, value: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((b,), value, device=like.device)
+
+
 def restore_edm_sample(
     denoise: Callable[..., torch.Tensor],
     x: torch.Tensor,
     generator: torch.Generator,
     tables: StepTables,
-    x_center: torch.Tensor,
+    x_center: Optional[torch.Tensor] = None,
     s_noise: float = 1.003,
+    noise: Optional[NoiseHook] = None,
 ) -> torch.Tensor:
     """Euler EDM with churn noise and restoration guidance toward the stage-1
-    latent x_center. Churn noise is drawn from `generator` on steps whose
-    churn is nonzero (the JAX package draws it every step from jax.random,
-    so the two streams differ; tests run with churn 0 or compare shapes)."""
+    latent x_center (zero where None, as EulerEDM runs it). The churn draw
+    of step i is taken on steps whose churn is nonzero (the JAX package
+    draws one every step and scales it by zero elsewhere)."""
     b = x.shape[0]
+    xc = 0.0 if x_center is None else x_center
     for i in range(tables.num_steps):
         sigma_hat = float(tables.sigma_hat[i])
         churn = float(tables.churn_std[i])
         if churn > 0.0:
-            eps = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
-            x = x + eps * (s_noise * churn)
-        sig_b = torch.full((b,), sigma_hat, device=x.device)
-        cfg_b = torch.full((b,), float(tables.cfg_scale[i]), device=x.device)
-        denoised = denoise(x, sig_b, cfg_b, float(tables.control_scale[i]))
-        denoised = denoised - (denoised - x_center) * float(tables.restore_weight[i])
-        d = (x - denoised) / sigma_hat
-        x = x + d * (float(tables.next_sigma[i]) - sigma_hat)
+            x = x + _draw(noise, generator, i, x) * (s_noise * churn)
+        denoised = denoise(x, _full(b, sigma_hat, x), _full(b, float(tables.cfg_scale[i]), x),
+                           float(tables.control_scale[i]))
+        denoised = denoised - (denoised - xc) * float(tables.restore_weight[i])
+        x = x + _to_d(x, sigma_hat, denoised) * (float(tables.next_sigma[i]) - sigma_hat)
+    return x
+
+
+def with_feature_cache(denoise_cached: Callable, recompute: Sequence[bool], num_steps: int) -> Callable:
+    """A denoise for a sampler that calls it once a step, in order, threading
+    the cross-step feature cache through
+        denoise_cached(*args, cache, recompute_i) -> (denoised, cache).
+    The cache is None until step 0, which must recompute, fills it."""
+    recompute = [bool(r) for r in recompute]
+    if len(recompute) != num_steps or not recompute[0]:
+        raise ValueError(f"recompute must hold one flag a step ({num_steps}) and start True: step 0 fills the "
+                         f"cache, got {recompute}")
+    state = {"step": 0, "cache": None}
+
+    def denoise(*args):
+        i = state["step"]
+        out, state["cache"] = denoise_cached(*args, state["cache"], recompute[i])
+        state["step"] = i + 1
+        return out
+
+    return denoise
+
+
+def restore_edm_sample_cached(
+    denoise_cached: Callable,
+    recompute: Sequence[bool],
+    x: torch.Tensor,
+    generator: torch.Generator,
+    tables: StepTables,
+    x_center: Optional[torch.Tensor] = None,
+    s_noise: float = 1.003,
+    noise: Optional[NoiseHook] = None,
+) -> torch.Tensor:
+    """RestoreEDM with the cross-step feature cache (opt-in approximation):
+    `denoise_cached(x, sigma_b, cfg_b, ctrl_s, cache, recompute_i)` returns
+    (denoised, cache); on steps where `recompute[i]` is False it reuses the
+    encoder and control features of the last recompute step, and only the
+    decoder, adapters and time embedding run. recompute[0] must be True.
+    With every flag True the result is bit-identical to
+    `restore_edm_sample`: the same loop and draws."""
+    return restore_edm_sample(with_feature_cache(denoise_cached, recompute, tables.num_steps), x, generator,
+                              tables, x_center=x_center, s_noise=s_noise, noise=noise)
+
+
+# ---------------------------------------------------------------------------
+# Euler / Heun EDM (reference sampling.py:86-136, 216-240)
+
+
+def euler_edm_sample(denoise, x, generator, tables, s_noise: float = 1.0, noise: Optional[NoiseHook] = None):
+    """RestoreEDM's loop with no stage-1 latent: the restoration weight, where
+    the tables hold one, pulls toward zero, as in the JAX package."""
+    return restore_edm_sample(denoise, x, generator, tables, x_center=None, s_noise=s_noise, noise=noise)
+
+
+def heun_correct(denoise, x, x_euler, d, dt: float, next_sigma: float, cfg_b, ctrl_s):
+    """Heun's second-order correction of an Euler step x -> x_euler: the
+    slope at x_euler averaged with the first one."""
+    den2 = denoise(x_euler, torch.full_like(cfg_b, next_sigma), cfg_b, ctrl_s)
+    return x + (d + _to_d(x_euler, next_sigma, den2)) / 2.0 * dt
+
+
+def heun_edm_sample(denoise, x, generator, tables, s_noise: float = 1.0, noise: Optional[NoiseHook] = None):
+    """Heun EDM with churn: two network calls a step, one where the step
+    ends at sigma 0 (the correction runs only where next_sigma > 1e-14)."""
+    b = x.shape[0]
+    for i in range(tables.num_steps):
+        sigma_hat, next_sigma = float(tables.sigma_hat[i]), float(tables.next_sigma[i])
+        churn = float(tables.churn_std[i])
+        if churn > 0.0:
+            x = x + _draw(noise, generator, i, x) * (s_noise * churn)
+        cfg_b, ctrl_s = _full(b, float(tables.cfg_scale[i]), x), float(tables.control_scale[i])
+        d = _to_d(x, sigma_hat, denoise(x, _full(b, sigma_hat, x), cfg_b, ctrl_s))
+        dt = next_sigma - sigma_hat
+        x_euler = x + d * dt
+        x = heun_correct(denoise, x, x_euler, d, dt, next_sigma, cfg_b, ctrl_s) if next_sigma > 1e-14 else x_euler
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Ancestral samplers (reference sampling.py:138-175, 243-289)
+
+
+def _ancestral_step_sigmas(sigma_from, sigma_to, eta: float):
+    """(sigma_down, sigma_up) of each step, float32 as the JAX package
+    computes them (k-diffusion sampling_utils.py:27-36)."""
+    sigma_from = np.asarray(sigma_from, np.float32)
+    sigma_to = np.asarray(sigma_to, np.float32)
+    if eta == 0:
+        return sigma_to, np.zeros_like(sigma_to)
+    up = np.minimum(sigma_to, np.float32(eta) * np.sqrt(
+        sigma_to**2 * (sigma_from**2 - sigma_to**2) / np.maximum(sigma_from**2, np.float32(1e-20))))
+    up = np.where(sigma_from > 0, up, np.float32(0.0)).astype(np.float32)
+    down = np.sqrt(np.maximum(sigma_to**2 - up**2, np.float32(0.0))).astype(np.float32)
+    return down, up
+
+
+def euler_ancestral_sample(denoise, x, generator, tables, eta: float = 1.0, s_noise: float = 1.0,
+                           noise: Optional[NoiseHook] = None):
+    """Euler ancestral: a deterministic step to sigma_down, then noise of
+    std sigma_up, none on a step that ends at sigma 0 (nor drawn where
+    sigma_up is 0, as at eta 0)."""
+    b = x.shape[0]
+    down, up = _ancestral_step_sigmas(tables.sigma, tables.next_sigma, eta)
+    for i in range(tables.num_steps):
+        sigma = float(tables.sigma[i])
+        denoised = denoise(x, _full(b, sigma, x), _full(b, float(tables.cfg_scale[i]), x),
+                           float(tables.control_scale[i]))
+        x = x + _to_d(x, sigma, denoised) * (float(down[i]) - sigma)
+        if float(tables.next_sigma[i]) > 0.0 and up[i] > 0:
+            x = x + _draw(noise, generator, i, x) * (s_noise * float(up[i]))
+    return x
+
+
+def dpmpp2s_ancestral_sample(denoise, x, generator, tables, eta: float = 1.0, s_noise: float = 1.0,
+                             noise: Optional[NoiseHook] = None):
+    """DPM++(2S) ancestral: a second network call at the log-sigma midpoint
+    toward sigma_down (only where sigma_down > 1e-14, else the Euler step),
+    then ancestral noise as in `euler_ancestral_sample`."""
+    b = x.shape[0]
+    down, up = _ancestral_step_sigmas(tables.sigma, tables.next_sigma, eta)
+    for i in range(tables.num_steps):
+        sigma, s_down = float(tables.sigma[i]), float(down[i])
+        cfg_b, ctrl_s = _full(b, float(tables.cfg_scale[i]), x), float(tables.control_scale[i])
+        denoised = denoise(x, _full(b, sigma, x), cfg_b, ctrl_s)
+        if s_down > 1e-14:
+            t, t_next = -math.log(sigma), -math.log(s_down)
+            h = t_next - t
+            sig_s = math.exp(-(t + 0.5 * h))
+            x2 = (sig_s / sigma) * x - math.expm1(-0.5 * h) * denoised
+            den2 = denoise(x2, _full(b, sig_s, x), cfg_b, ctrl_s)
+            x = (s_down / sigma) * x - math.expm1(-h) * den2
+        else:
+            x = x + _to_d(x, sigma, denoised) * (s_down - sigma)
+        if float(tables.next_sigma[i]) > 0.0 and up[i] > 0:
+            x = x + _draw(noise, generator, i, x) * (s_noise * float(up[i]))
     return x
 
 
@@ -225,3 +384,71 @@ def dpmpp2m_sample(denoise: Callable[..., torch.Tensor], x: torch.Tensor, seed: 
             x = x + noise * (std * s_noise)
         old_denoised, p_sigma = denoised, sigma
     return x
+
+
+# ---------------------------------------------------------------------------
+# Linear multistep (reference sampling.py:178-214)
+
+
+def lms_coefficients(tables: StepTables, order: int = 4) -> np.ndarray:
+    """[num_steps, order] float32: entry [i, j] weighs the j-th newest slope
+    at step i (0 where j is past the step's order), the Adams-Bashforth
+    integrals over the schedule (scipy quad at epsrel 1e-4, reference
+    sampling_utils.py:12-24)."""
+    from scipy import integrate
+
+    n = tables.num_steps
+    sig = np.concatenate([tables.sigma, [tables.next_sigma[-1]]]).astype(np.float64)
+
+    def coeff(cur: int, i: int, j: int) -> float:
+        def fn(tau):
+            prod = 1.0
+            for k in range(cur):
+                if k != j:
+                    prod *= (tau - sig[i - k]) / (sig[i - j] - sig[i - k])
+            return prod
+
+        return integrate.quad(fn, sig[i], sig[i + 1], epsrel=1e-4)[0]
+
+    table = np.zeros((n, order), np.float32)
+    for i in range(n):
+        cur = min(i + 1, order)
+        for j in range(cur):
+            table[i, j] = coeff(cur, i, j)
+    return table
+
+
+def lms_sample(denoise, x, generator, tables, order: int = 4):
+    """LMS: each step adds the newest `order` slopes weighted by
+    `lms_coefficients`. Draws nothing; `generator` keeps the family's
+    signature."""
+    b = x.shape[0]
+    coeffs = lms_coefficients(tables, order)
+    ds = []  # slopes, newest first
+    for i in range(tables.num_steps):
+        sigma = float(tables.sigma[i])
+        denoised = denoise(x, _full(b, sigma, x), _full(b, float(tables.cfg_scale[i]), x),
+                           float(tables.control_scale[i]))
+        ds = [_to_d(x, sigma, denoised)] + ds[:order - 1]
+        x = x + sum(float(c) * d for c, d in zip(coeffs[i], ds))
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Substep (reference sampling.py:372-419): EulerAncestral on a fixed subset
+
+
+SUBSTEP_SUBSET = (0, 100, 200, 300, 1000)
+SUBSTEP_MAX_STEPS = len(SUBSTEP_SUBSET) - 1
+
+
+def substep_sigmas(n_sample_steps: int) -> np.ndarray:
+    """The first n entries of the subset of the 1000-step LegacyDDPM table,
+    then its terminal zero. At 5 steps or more the subset runs out and the
+    JAX package's schedule ends 0, 0, whose last ancestral step divides by
+    sigma 0 (its output is not finite): the port raises there."""
+    if not 1 <= n_sample_steps <= SUBSTEP_MAX_STEPS:
+        raise ValueError(f"Substep takes 1 to {SUBSTEP_MAX_STEPS} steps (its subset {SUBSTEP_SUBSET} of the "
+                         f"1000-step table), not {n_sample_steps}")
+    full = legacy_ddpm_sigmas(1000)  # 1001 entries, descending, terminal zero
+    return full[np.asarray(list(SUBSTEP_SUBSET[:n_sample_steps]) + [SUBSTEP_SUBSET[-1]])]

@@ -1,7 +1,10 @@
 """SUPIREngine: the restore path's orchestration (counterpart of
 supir_tpu/engine/supir.py): stage-1 denoise-encoding, the SDXL text
-conditioning, the CFG-batched control denoiser, RestoreEDM and
-RestoreDPMPP2M (Lightning) sampling, their tiled forms over sliding-window
+conditioning, the CFG-batched control denoiser, sampling with any sampler
+of the JAX engine's table (RestoreEDM, the default; RestoreDPMPP2M,
+Lightning; EulerEDM, HeunEDM, EulerAncestral, DPMPP2SAncestral, DPMPP2M,
+LMS, Substep), RestoreEDM's cross-step feature cache, the tiled forms of
+RestoreEDM (with the cache too) and RestoreDPMPP2M over sliding-window
 latent tiles, the tiled VAE, decoding and colour fix.
 
 Public methods keep the JAX engine's layout, so tests compare like with
@@ -26,12 +29,7 @@ from supir_tpu_torch.config import ConditionerConfig, SUPIRConfig, dtype_of
 from supir_tpu_torch.diffusion.denoiser import DiscreteDenoiser
 from supir_tpu_torch.diffusion.discretization import legacy_ddpm_sigmas
 from supir_tpu_torch.diffusion.guidance import cfg_combine
-from supir_tpu_torch.diffusion.samplers import (
-    dpmpp2m_sample,
-    make_step_tables,
-    restore_dpmpp2m_tables,
-    restore_edm_sample,
-)
+from supir_tpu_torch.diffusion import samplers as S
 from supir_tpu_torch.models.control import GLVControl, LightGLVUNet
 from supir_tpu_torch.models.embedders import Conditioner
 from supir_tpu_torch.models.vae import AutoencoderKL, DiagonalGaussian
@@ -39,11 +37,40 @@ from supir_tpu_torch.parallel.tiled_sampler import (
     _gather_tiles,
     make_tile_plan,
     make_tiled_denoise,
+    make_tiled_denoise_cached,
     tiled_restore_dpmpp2m_sample,
     tiled_restore_edm_sample,
+    tiled_restore_edm_sample_cached,
 )
 from supir_tpu_torch.parallel.tiled_vae import DECODER_PAD, ENCODER_PAD, tiled_decode, tiled_encode
 from supir_tpu_torch.utils.colorfix import adaptive_instance_normalization, wavelet_reconstruction
+
+
+# The JAX engine's sampler table (supir_tpu/engine/supir.py:70-80); Substep
+# runs as EulerAncestral on its own schedule. Each takes (denoise, x, rng,
+# tables, **kwargs): rng is the DPM++ samplers' Brownian-tree seed, the
+# others' torch.Generator.
+SAMPLERS = {
+    "RestoreEDM": S.restore_edm_sample,
+    "EulerEDM": S.euler_edm_sample,
+    "HeunEDM": S.heun_edm_sample,
+    "EulerAncestral": S.euler_ancestral_sample,
+    "DPMPP2SAncestral": S.dpmpp2s_ancestral_sample,
+    "DPMPP2M": S.dpmpp2m_sample,
+    "RestoreDPMPP2M": S.dpmpp2m_sample,
+    "LMS": S.lms_sample,
+}
+
+
+def sampler_kwargs(name: str, eta: float, s_noise: float) -> dict:
+    """The keywords the JAX engine's `_sample_fn` (:488-499) gives each
+    sampler: eta and s_noise to the ancestral and Restore DPM++ ones,
+    s_noise to the EDM ones, none to DPMPP2M (the ODE, eta 0) and LMS."""
+    if name in ("RestoreDPMPP2M", "EulerAncestral", "DPMPP2SAncestral"):
+        return dict(eta=eta, s_noise=s_noise)
+    if name in ("RestoreEDM", "EulerEDM", "HeunEDM"):
+        return dict(s_noise=s_noise)
+    return {}
 
 
 class SUPIRModel(nn.Module):
@@ -87,7 +114,7 @@ class SUPIREngine:
     `batchify_sample`, `batchify_sample_tiled`, `init_tile_vae`,
     `log_images`."""
 
-    SAMPLERS = ("RestoreEDM", "RestoreDPMPP2M")
+    SAMPLERS = tuple(SAMPLERS) + ("Substep",)
     TILED_SAMPLERS = ("TiledRestoreEDM", "TiledRestoreDPMPP2M")
 
     COND_CACHE_SIZE = 32
@@ -255,11 +282,28 @@ class SUPIREngine:
         control = control_net(cond["control"], t, x, cond["crossattn"], cond["vector"])
         return unet(x, t, cond["crossattn"], cond["vector"], control, control_scale)
 
+    def _network_cached(self, x, t, cond, control_scale, cache, recompute: bool):
+        """The network with the cross-step feature cache (JAX :410-441): a
+        recompute step runs GLVControl and the whole UNet and returns
+        (eps, (control pyramid, (encoder features, middle output))); a reuse
+        step runs only the UNet's time embedding, adapters, decoder and
+        output head, on the cached features and control pyramid. With
+        recompute on every step it computes what `_network` does."""
+        unet = self.model.model["diffusion_model"]
+        if recompute:
+            control_net = self.model.model["control_model"]
+            control = control_net(cond["control"], t, x, cond["crossattn"], cond["vector"])
+            out, feats = unet(x, t, cond["crossattn"], cond["vector"], control, control_scale, return_features=True)
+            return out, (control, feats)
+        control, feats = cache
+        return unet(x, t, cond["crossattn"], cond["vector"], control, control_scale, feature_cache=feats), cache
+
     def _tables(self, sampler: str, num_steps: int, restoration_scale: float, s_churn: float, s_noise: float,
                 cfg_scale: float, control_scale: float, use_linear_cfg: bool, use_linear_control_scale: bool,
                 cfg_scale_start: float, control_scale_start: float):
         """The sampler's step tables and the sigma its initial noise is scaled
-        for: DPM++2M on a Karras ramp, RestoreEDM on the LegacyDDPM one."""
+        for: the Restore DPM++2M samplers on a Karras ramp, Substep on its
+        subset of the 1000-step table, the others on the LegacyDDPM one."""
         scfg = dataclasses.replace(
             self.cfg.sampler, num_steps=num_steps, restore_cfg=restoration_scale, s_churn=s_churn,
             s_noise=s_noise, cfg_scale=cfg_scale_start if use_linear_cfg else cfg_scale,
@@ -267,11 +311,11 @@ class SUPIREngine:
         )
         control = dict(control_scale=control_scale, use_linear_control_scale=use_linear_control_scale,
                        control_scale_start=control_scale_start)
-        if sampler.endswith("DPMPP2M"):
-            tables = restore_dpmpp2m_tables(scfg, num_steps, **control)
+        if sampler.endswith("RestoreDPMPP2M"):
+            tables = S.restore_dpmpp2m_tables(scfg, num_steps, **control)
             return tables, float(tables.sigma[0])
-        sigmas = legacy_ddpm_sigmas(num_steps)
-        return make_step_tables(sigmas, scfg, **control), float(sigmas[0])
+        sigmas = S.substep_sigmas(num_steps) if sampler == "Substep" else legacy_ddpm_sigmas(num_steps)
+        return S.make_step_tables(sigmas, scfg, **control), float(sigmas[0])
 
     def _stage1(self, x, z_override, sigma0: float, gen: torch.Generator, noise_override,
                 center_noise_override, sampled_center: bool):
@@ -306,6 +350,13 @@ class SUPIREngine:
         return samples
 
     @staticmethod
+    def _check_cache_interval(interval: int, sampler_name: str, cached_sampler: str) -> None:
+        if interval < 0:
+            raise ValueError(f"feature_cache_interval {interval} < 0")
+        if interval and sampler_name != cached_sampler:
+            raise ValueError(f"feature_cache_interval is only supported with {cached_sampler}")
+
+    @staticmethod
     def _check_color_fix(color_fix_type: str) -> None:
         if color_fix_type not in ("Wavelet", "AdaIn", "None"):
             raise ValueError(f"unknown color_fix_type {color_fix_type!r}")
@@ -332,25 +383,34 @@ class SUPIREngine:
         z_override=None,
         noise_override=None,
         center_noise_override=None,
+        feature_cache_interval: int = 0,
     ) -> torch.Tensor:
         """Full stage-2 pipeline on an LQ image batch [B,H,W,3] in [-1,1].
         `c`/`uc` hold 'crossattn' [B,77,ctx], 'vector' [B,adm] and 'control'
         [B,h,w,4] (the stage-1 latent), as `prepare_condition` builds them.
-        Samplers: RestoreEDM, and RestoreDPMPP2M (DPM++(2M) SDE at the
-        config's eta, its Brownian tree seeded by `seed`)."""
+        `sampler_name`: any of SAMPLERS, the config's by default (DPM++ at
+        the config's eta for RestoreDPMPP2M, its Brownian tree seeded by
+        `seed`; eta 0 for DPMPP2M; the config's eta for the ancestral ones;
+        Substep 1 to 4 steps).
+
+        `feature_cache_interval` (RestoreEDM only): 0 disables; N >= 1
+        recomputes the UNet's encoder and middle block and the control
+        pyramid on every N-th step and reuses them in between (N = 1 is
+        exact, N > 1 approximates)."""
         self._check_color_fix(color_fix_type)
         sampler_name = sampler_name or self.cfg.sampler.name
         if sampler_name in self.TILED_SAMPLERS:
             raise ValueError(f"sampler {sampler_name!r} runs through batchify_sample_tiled "
                              "(the CLI's --use_tiled_sampling)")
         if sampler_name not in self.SAMPLERS:
-            raise NotImplementedError(f"sampler {sampler_name!r} is not ported yet, {' and '.join(self.SAMPLERS)} "
-                                      "only (ROADMAP.md Queue 1 item 5, sampler family and feature cache)")
+            raise ValueError(f"unknown sampler {sampler_name!r}, not one of {self.SAMPLERS}")
+        self._check_cache_interval(feature_cache_interval, sampler_name, "RestoreEDM")
         tables, sigma0 = self._tables(sampler_name, num_steps, restoration_scale, s_churn, s_noise, cfg_scale,
                                       control_scale, use_linear_cfg, use_linear_control_scale, cfg_scale_start,
                                       control_scale_start)
+        name = "EulerAncestral" if sampler_name == "Substep" else sampler_name
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        edm = sampler_name == "RestoreEDM"
+        edm = name == "RestoreEDM"
         x_stage1, noised_z, x_center = self._stage1(x, z_override, sigma0, gen, noise_override,
                                                     center_noise_override, sampled_center=edm)
 
@@ -361,16 +421,26 @@ class SUPIREngine:
         }
 
         def denoise(xt, sigma_b, cfg_b, ctrl_s):
-            x2 = torch.cat([xt, xt])
-            s2 = torch.cat([sigma_b, sigma_b])
-            den = self.denoiser(self._network, x2, s2, cond2, ctrl_s)
+            den = self.denoiser(self._network, torch.cat([xt, xt]), torch.cat([sigma_b, sigma_b]), cond2, ctrl_s)
             d_uc, d_c = den.chunk(2)
             return cfg_combine(d_uc, d_c, cfg_b)
 
-        if edm:
-            samples_z = restore_edm_sample(denoise, noised_z, gen, tables, x_center=x_center, s_noise=s_noise)
+        def denoise_cached(xt, sigma_b, cfg_b, ctrl_s, cache, rec):
+            den, cache = self.denoiser.call_cached(self._network_cached, torch.cat([xt, xt]),
+                                                   torch.cat([sigma_b, sigma_b]), cond2, ctrl_s, cache, rec)
+            d_uc, d_c = den.chunk(2)
+            return cfg_combine(d_uc, d_c, cfg_b), cache
+
+        kwargs = sampler_kwargs(name, self.cfg.sampler.eta, s_noise)
+        if feature_cache_interval:
+            recompute = np.arange(num_steps) % int(feature_cache_interval) == 0
+            samples_z = S.restore_edm_sample_cached(denoise_cached, recompute, noised_z, gen, tables,
+                                                    x_center=x_center, **kwargs)
         else:
-            samples_z = dpmpp2m_sample(denoise, noised_z, seed, tables, eta=self.cfg.sampler.eta, s_noise=s_noise)
+            if edm:
+                kwargs["x_center"] = x_center
+            rng = seed if name.endswith("DPMPP2M") else gen
+            samples_z = SAMPLERS[name](denoise, noised_z, rng, tables, **kwargs)
         return self._finish(samples_z, x_stage1, color_fix_type)
 
     @torch.no_grad()
@@ -407,16 +477,19 @@ class SUPIREngine:
         or `tile_chunk` windows a call. With local prompts, `c` carries
         'crossattn_tiles' [T, 1, 77, D] (`prepare_condition_tiled`), one per
         window. The sampler is the config's where it is a tiled one, else
-        TiledRestoreEDM."""
+        TiledRestoreEDM.
+
+        `feature_cache_interval` (TiledRestoreEDM only): 0 disables; N >= 1
+        runs the tile-indexed feature cache, every window's encoder, middle
+        block and control pyramid recomputed every N steps and reused in
+        between (N = 1 is exact)."""
         self._check_color_fix(color_fix_type)
         cfg = self.cfg
         sampler_name = sampler_name or (cfg.sampler.name if cfg.sampler.name in self.TILED_SAMPLERS
                                         else "TiledRestoreEDM")
         if sampler_name not in self.TILED_SAMPLERS:
             raise ValueError(f"batchify_sample_tiled runs {' or '.join(self.TILED_SAMPLERS)}, not {sampler_name!r}")
-        if feature_cache_interval:
-            raise NotImplementedError("feature_cache_interval is not ported yet "
-                                      "(ROADMAP.md Queue 1 item 5, sampler family and feature cache)")
+        self._check_cache_interval(feature_cache_interval, sampler_name, "TiledRestoreEDM")
         tables, sigma0 = self._tables(sampler_name, num_steps, restoration_scale, s_churn, s_noise, cfg_scale,
                                       control_scale, use_linear_cfg, use_linear_control_scale, cfg_scale_start,
                                       control_scale_start)
@@ -428,7 +501,7 @@ class SUPIREngine:
         ca_uc, vec_uc, vec_c = (self._tensor(d[k]) for d, k in ((uc, "crossattn"), (uc, "vector"), (c, "vector")))
         ca_c = self._tensor(c["crossattn"])
 
-        def denoise_flat(x_flat, sigma_b, cfg_b, ctrl_s, control_flat, ca_flat):
+        def batch2(x_flat, sigma_b, control_flat, ca_flat):
             # [B, ...] conditioning repeated tile-major to the flat batch [T*B, ...], then [uc; c]
             reps = x_flat.shape[0] // ca_uc.shape[0]
 
@@ -440,21 +513,34 @@ class SUPIREngine:
                 "vector": torch.cat([rep(vec_uc), rep(vec_c)]),
                 "control": torch.cat([control_flat, control_flat]),
             }
-            den = self.denoiser(self._network, torch.cat([x_flat, x_flat]), torch.cat([sigma_b, sigma_b]),
-                                cond2, ctrl_s)
-            d_uc, d_c = den.chunk(2)
+            return torch.cat([x_flat, x_flat]), torch.cat([sigma_b, sigma_b]), cond2
+
+        def denoise_flat(x_flat, sigma_b, cfg_b, ctrl_s, control_flat, ca_flat):
+            x2, s2, cond2 = batch2(x_flat, sigma_b, control_flat, ca_flat)
+            d_uc, d_c = self.denoiser(self._network, x2, s2, cond2, ctrl_s).chunk(2)
             return cfg_combine(d_uc, d_c, cfg_b)
+
+        def denoise_flat_cached(x_flat, sigma_b, cfg_b, ctrl_s, control_flat, ca_flat, cache, rec):
+            x2, s2, cond2 = batch2(x_flat, sigma_b, control_flat, ca_flat)
+            den, cache = self.denoiser.call_cached(self._network_cached, x2, s2, cond2, ctrl_s, cache, rec)
+            d_uc, d_c = den.chunk(2)
+            return cfg_combine(d_uc, d_c, cfg_b), cache
 
         starts, _, _ = make_tile_plan(noised_z.shape[2], noised_z.shape[3], tile_size, tile_stride)
         control_tiles = _gather_tiles(_nchw(self._tensor(c["control"])), starts, tile_size)
         ca_tiles = self._tensor(c["crossattn_tiles"]) if "crossattn_tiles" in c else None
-        denoise_tile = make_tiled_denoise(denoise_flat, tile_chunk=tile_chunk)
-        if edm:
-            samples_z = tiled_restore_edm_sample(
-                denoise_tile, noised_z, gen, tables, x_center=x_center, control_tiles=control_tiles,
-                tile_size=tile_size, tile_stride=tile_stride, s_noise=s_noise, crossattn_tiles=ca_tiles)
+        tiles = dict(control_tiles=control_tiles, tile_size=tile_size, tile_stride=tile_stride,
+                     crossattn_tiles=ca_tiles)
+        if feature_cache_interval:
+            recompute = np.arange(num_steps) % int(feature_cache_interval) == 0
+            samples_z = tiled_restore_edm_sample_cached(
+                make_tiled_denoise_cached(denoise_flat_cached, tile_chunk=tile_chunk), recompute, noised_z, gen,
+                tables, x_center=x_center, s_noise=s_noise, **tiles)
+        elif edm:
+            samples_z = tiled_restore_edm_sample(make_tiled_denoise(denoise_flat, tile_chunk=tile_chunk), noised_z,
+                                                 gen, tables, x_center=x_center, s_noise=s_noise, **tiles)
         else:
-            samples_z = tiled_restore_dpmpp2m_sample(
-                denoise_tile, noised_z, seed, tables, control_tiles=control_tiles, tile_size=tile_size,
-                tile_stride=tile_stride, eta=cfg.sampler.eta, s_noise=s_noise, crossattn_tiles=ca_tiles)
+            samples_z = tiled_restore_dpmpp2m_sample(make_tiled_denoise(denoise_flat, tile_chunk=tile_chunk),
+                                                     noised_z, seed, tables, eta=cfg.sampler.eta, s_noise=s_noise,
+                                                     **tiles)
         return self._finish(samples_z, x_stage1, color_fix_type)

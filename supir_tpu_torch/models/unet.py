@@ -1,11 +1,13 @@
-"""SDXL UNet pieces (counterpart of supir_tpu/models/unet.py), NCHW.
+"""SDXL UNet (counterpart of supir_tpu/models/unet.py), NCHW.
 
 State-dict keys are the reference's (`input_blocks.{i}.{j}`,
-`middle_block.{j}`, `time_embed.{0,2}`, `label_emb.0.{0,2}`). The JAX
-package nests the time embedding and the encoder under scopes of their own;
-here `TimeEmbedding` and `UNetEncoder` are base classes of the models that
-own them (GLVControl, LightGLVUNet), so their children sit at the root of the
-state dict as the reference's do.
+`middle_block.{j}`, `output_blocks.{i}.{j}`, `out.{0,2}`,
+`time_embed.{0,2}`, `label_emb.0.{0,2}`). The JAX package nests the time
+embedding, the encoder and the plain decoder under scopes of their own;
+here `TimeEmbedding`, `UNetEncoder` and `UNetDecoderPlain` are base classes
+of the models that own them (GLVControl, LightGLVUNet, the plain
+`UNetModel`), so their children sit at the root of the state dict as the
+reference's do.
 
 Training: `remat` (off by default) recomputes each ResBlock and
 SpatialTransformer in the backward pass, through
@@ -191,6 +193,58 @@ class UNetEncoder(TimeEmbedding):
             h = h.detach()
         h = run_block(self.middle_block, h, emb, context, self.remat)
         return hs, h
+
+
+class UNetDecoderPlain(UNetEncoder):
+    """The encoder and the standard SDXL decoder: each output block takes the
+    decoder stream with its skip concatenated behind it, a ResBlock (and a
+    SpatialTransformer at the attention levels), and an Upsample closing
+    every level but the last; then the output head. `decode` runs them."""
+
+    def __init__(self, cfg: UNetConfig, device=None, dtype=None):
+        super().__init__(cfg, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype)
+        ted = cfg.model_channels * 4
+        skips = encoder_feature_channels(cfg)
+        blocks = []
+        ch = cfg.model_channels * cfg.channel_mult[-1]
+        ds = 2 ** (cfg.levels - 1)
+        for rlevel, mult in enumerate(reversed(cfg.channel_mult)):
+            level = cfg.levels - 1 - rlevel
+            out_ch = mult * cfg.model_channels
+            for i in range(cfg.num_res_blocks + 1):
+                layers = [ResBlock(ch + skips.pop(), out_ch, ted, **kw)]
+                ch = out_ch
+                if ds in cfg.attention_resolutions:
+                    layers.append(_transformer(cfg, ch, cfg.transformer_depth[level], kw))
+                if level > 0 and i == cfg.num_res_blocks:
+                    layers.append(Upsample(ch, **kw))
+                    ds //= 2
+                blocks.append(nn.ModuleList(layers))
+        self.output_blocks = nn.ModuleList(blocks)
+        self.out = OutputHead(ch, cfg.out_channels, **kw)
+
+    def decode(self, h: torch.Tensor, hs: List[torch.Tensor], emb: torch.Tensor,
+               context: torch.Tensor) -> torch.Tensor:
+        """The decoder stream from the middle block's h and the encoder's
+        features hs (left as they are), through the output head."""
+        hs = list(hs)
+        for block in self.output_blocks:
+            h = run_block(block, torch.cat([h, hs.pop()], dim=1), emb, context, self.remat)
+        return self.out(h)
+
+
+class UNetModel(UNetDecoderPlain):
+    """The plain SDXL UNet (txt2img): forward(x, t, context, y) -> eps
+    prediction, fp32."""
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dtype = self.out[2].weight.dtype
+        context = context.to(dtype)
+        emb = self.embed_time(timesteps, y)
+        hs, h = self.encode(x.to(dtype), emb, context)
+        return self.decode(h, hs, emb, context).float()
 
 
 def run_block(block: nn.ModuleList, h: torch.Tensor, emb: torch.Tensor,

@@ -1,5 +1,5 @@
 """Tiled diffusion sampling (counterpart of supir_tpu/parallel/tiled_sampler.py,
-without its mesh and its feature cache), NCHW.
+without its mesh and its step segments), NCHW.
 
 At every step each sliding-window latent tile is denoised with its own
 slice of the control latent (and, with local prompts, its own text
@@ -10,6 +10,11 @@ all tiles go through the network as one batch (tile axis folded into the
 batch: with CFG's two halves, 2*T*B), or `tile_chunk` tiles at a time. The
 blend accumulates in fp32 on the latent's device and is divided by the
 weight sum, which does not depend on the step and is computed once.
+
+The cross-step feature cache (`tiled_restore_edm_sample_cached`) keeps,
+for every window, the control pyramid and the UNet's encoder features of
+the last recompute step: one cache over all windows folded, or one per
+group of `tile_chunk` windows.
 """
 
 from __future__ import annotations
@@ -147,6 +152,79 @@ def tiled_restore_dpmpp2m_sample(
     return x
 
 
+def tiled_restore_edm_sample_cached(
+    denoise_tile_cached: Callable,
+    recompute,
+    x: torch.Tensor,
+    generator: torch.Generator,
+    tables: StepTables,
+    x_center: torch.Tensor,
+    control_tiles: torch.Tensor,
+    tile_size: int,
+    tile_stride: int,
+    s_noise: float = 1.003,
+    crossattn_tiles: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """TiledRestoreEDM with the tile-indexed cross-step feature cache: every
+    window's encoder, middle block and control pyramid run only on steps
+    where `recompute[i]` holds (recompute[0] must) and are reused between.
+    denoise_tile_cached(x_tiles, sigma, cfg, control_scale, control_tiles,
+                        crossattn_tiles, cache, recompute_i)
+        -> (denoised tiles, cache)
+    (`make_tiled_denoise_cached`). With every flag True the result is
+    bit-identical to `tiled_restore_edm_sample`."""
+    return tiled_restore_edm_sample(
+        S.with_feature_cache(denoise_tile_cached, recompute, tables.num_steps), x, generator, tables,
+        x_center=x_center, control_tiles=control_tiles, tile_size=tile_size, tile_stride=tile_stride,
+        s_noise=s_noise, crossattn_tiles=crossattn_tiles)
+
+
+def make_tiled_denoise_cached(denoise_flat_cached: Callable, tile_chunk: Optional[int] = None) -> Callable:
+    """Lift a batch denoiser that threads the feature cache onto the tile axis.
+
+    denoise_flat_cached(x [B',C,h,w], sigma [B'], cfg [B'], control_scale,
+                        control [B',...], crossattn or None, cache, recompute)
+        -> ([B',C,h,w], cache)
+
+    The tile axis folds into the batch (tile-major, T*B), one network call
+    and one cache for all tiles; with `tile_chunk` (and more tiles than
+    that), `tile_chunk` tiles a call, the last call padded with copies of
+    the last tiles, and a list of one cache per call, each over its padded
+    batch as the JAX package's chunk-major cache (`engine/supir.py:
+    _tiled_feature_cache_zeros`). The padded rows never reach the result."""
+
+    def folded(x_tiles, sigma, cfg, ctrl_s, control_tiles, crossattn_tiles, cache, rec):
+        t, b = x_tiles.shape[:2]
+        flat = x_tiles.reshape((t * b,) + x_tiles.shape[2:])
+        ctrl = control_tiles.reshape((t * b,) + control_tiles.shape[2:])
+        ca = None if crossattn_tiles is None else crossattn_tiles.reshape((t * b,) + crossattn_tiles.shape[2:])
+        out, cache = denoise_flat_cached(flat, sigma.repeat(t), cfg.repeat(t), ctrl_s, ctrl, ca, cache, rec)
+        return out.reshape(x_tiles.shape), cache
+
+    def chunked(x_tiles, sigma, cfg, ctrl_s, control_tiles, crossattn_tiles, cache, rec):
+        t = x_tiles.shape[0]
+        if t <= tile_chunk:
+            return folded(x_tiles, sigma, cfg, ctrl_s, control_tiles, crossattn_tiles, cache, rec)
+        pad = (-t) % tile_chunk
+
+        def padded(a):
+            return a if a is None or not pad else torch.cat([a, a[-pad:]])
+
+        x_tiles, control_tiles, crossattn_tiles = (padded(a) for a in (x_tiles, control_tiles, crossattn_tiles))
+        groups = range(0, t + pad, tile_chunk)
+        caches = [None] * len(groups) if cache is None else cache
+        out, new = [], []
+        for i, group_cache in zip(groups, caches):
+            ca = None if crossattn_tiles is None else crossattn_tiles[i:i + tile_chunk]
+            o, c = folded(x_tiles[i:i + tile_chunk], sigma, cfg, ctrl_s, control_tiles[i:i + tile_chunk], ca,
+                          group_cache, rec)
+            out.append(o)
+            new.append(c)
+        return torch.cat(out)[:t], new
+
+    return chunked if tile_chunk else folded
+
+
 def make_tiled_denoise(denoise_flat: Callable, tile_chunk: Optional[int] = None) -> Callable:
     """Lift a batch denoiser onto the tile axis.
 
@@ -155,30 +233,7 @@ def make_tiled_denoise(denoise_flat: Callable, tile_chunk: Optional[int] = None)
 
     The tile axis folds into the batch (tile-major, T*B), one network call
     for all tiles; with `tile_chunk`, `tile_chunk` tiles a call, the last
-    call padded with copies of the last tiles."""
-
-    def folded(x_tiles, sigma, cfg, ctrl_s, control_tiles, crossattn_tiles):
-        t, b = x_tiles.shape[:2]
-        flat = x_tiles.reshape((t * b,) + x_tiles.shape[2:])
-        ctrl = control_tiles.reshape((t * b,) + control_tiles.shape[2:])
-        ca = None if crossattn_tiles is None else crossattn_tiles.reshape((t * b,) + crossattn_tiles.shape[2:])
-        out = denoise_flat(flat, sigma.repeat(t), cfg.repeat(t), ctrl_s, ctrl, ca)
-        return out.reshape(x_tiles.shape)
-
-    def chunked(x_tiles, sigma, cfg, ctrl_s, control_tiles, crossattn_tiles):
-        t = x_tiles.shape[0]
-        if t <= tile_chunk:
-            return folded(x_tiles, sigma, cfg, ctrl_s, control_tiles, crossattn_tiles)
-        pad = (-t) % tile_chunk
-
-        def padded(a):
-            return a if a is None or not pad else torch.cat([a, a[-pad:]])
-
-        x_tiles, control_tiles, crossattn_tiles = (padded(a) for a in (x_tiles, control_tiles, crossattn_tiles))
-        out = []
-        for i in range(0, t + pad, tile_chunk):
-            ca = None if crossattn_tiles is None else crossattn_tiles[i:i + tile_chunk]
-            out.append(folded(x_tiles[i:i + tile_chunk], sigma, cfg, ctrl_s, control_tiles[i:i + tile_chunk], ca))
-        return torch.cat(out)[:t]
-
-    return chunked if tile_chunk else folded
+    call padded with copies of the last tiles (`make_tiled_denoise_cached`
+    without a cache)."""
+    lifted = make_tiled_denoise_cached(lambda *args: (denoise_flat(*args[:6]), None), tile_chunk)
+    return lambda *args: lifted(*args, None, True)[0]

@@ -179,6 +179,18 @@ def glv_control_rules(cfg: UNetConfig) -> List[Rule]:
     return rules
 
 
+def plain_unet_rules(cfg: UNetConfig, tk: str = "model.diffusion_model.") -> List[Rule]:
+    """The plain SDXL UNetModel (txt2img), its encoder under ('enc',) and
+    its decoder under ('dec',), the output head at the root, as
+    supir_tpu/utils/ckpt.py:237-251 fixes the decoder's head up."""
+    from supir_tpu_torch.models.unet import encoder_feature_channels
+
+    rules = _time_embed(tk, (), with_label=cfg.adm_in_channels is not None)
+    rules += unet_encoder_rules(cfg, tk, ("enc",))
+    rules += unet_decoder_rules(cfg, tk, ("dec",), encoder_feature_channels(cfg))
+    return [(k, fp[1:] if fp[:2] == ("dec", "out") else fp, kind) for k, fp, kind in rules]
+
+
 def _vae_resblock(tk: str, fp: Tuple[str, ...], has_nin: bool) -> List[Rule]:
     rules = []
     rules += _norm(f"{tk}.norm1", fp + ("norm1",))

@@ -40,6 +40,9 @@ tree: it drops the keys that the JAX converter also leaves unused
 (`supir_tpu/captioner/convert.py:84,151`) and the port's `LlavaForCausalLM`
 does not hold, and reports them.
 
+`plain_unet_state_dict_from_jax` carries the plain SDXL UNetModel's tree
+into the port's `models/unet.py:UNetModel` (`C.plain_unet_rules`).
+
 `train_state_from_jax` carries a JAX trainer state (params, optax's AdamW
 mu and nu, the EMA and the step) into the port's trainer state by the same
 rules: the transforms are linear, so they serve the moments and the EMA as
@@ -154,6 +157,13 @@ def state_dict_from_jax(params_np: Mapping[str, Any], cfg: SUPIRConfig) -> Dict[
         tables["conditioner"] = (C.clip_l_rules(_tower_layers(cond["clip_l"]))
                                  + C.clip_bigg_rules(_tower_layers(cond["clip_bigg"])))
     return _bridge(params_np, tables)
+
+
+def plain_unet_state_dict_from_jax(params_np: Mapping[str, Any], cfg: UNetConfig) -> Dict[str, torch.Tensor]:
+    """A JAX `UNetModel` tree (supir_tpu/models/unet.py:240) -> fp32 CPU
+    tensors under the port's `UNetModel` keys (the reference's without the
+    `model.diffusion_model.` prefix)."""
+    return state_dict_from_rules(params_np, C.plain_unet_rules(cfg, tk=""))
 
 
 def _has(tree: Mapping[str, Any], path) -> bool:

@@ -247,23 +247,35 @@ def test_cli_tiny_end_to_end(tmp_path):
     assert set(rec["timings"]) == {"stage1", "tokenize", "cond", "sample", "save"}
 
 
-UNPORTED = {
-    "feature_cache": (["--feature_cache_interval", "2"], "item 5"),
-    "sampler": (["--sampler", "EulerEDM"], "item 5"),
-    "heun": (["--sampler", "HeunEDM"], "item 5"),
-    "lms": (["--sampler", "LMS"], "item 5"),
-    "euler_ancestral": (["--sampler", "EulerAncestral"], "item 5"),
-    "tiled_feature_cache": (["--use_tiled_sampling", "--feature_cache_interval", "2"], "item 5"),
-}
+SAMPLER_CHOICES = ("RestoreEDM", "RestoreDPMPP2M", "EulerEDM", "HeunEDM", "EulerAncestral", "DPMPP2SAncestral",
+                   "DPMPP2M", "LMS", "Substep")
+CACHE_RUNS = {"feature_cache": ["--feature_cache_interval", "2"],
+              "tiled_feature_cache": ["--use_tiled_sampling", "--sampler_tile_size", "4", "--sampler_tile_stride", "2",
+                                      "--feature_cache_interval", "2"]}
 
 
-@pytest.mark.parametrize("case", sorted(UNPORTED))
-def test_cli_unported_options_raise(tmp_path, case):
-    flags, item = UNPORTED[case]
-    base = ["--img_dir", str(tmp_path), "--save_dir", str(tmp_path / "out"), "--random_weights", "--no_llava",
-            "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(base + ([] if "--opt" in flags else ["--tiny"]) + flags)
+@pytest.mark.parametrize("case", SAMPLER_CHOICES + tuple(sorted(CACHE_RUNS)))
+def test_cli_runs_every_sampler_and_the_feature_cache(tmp_path, monkeypatch, case):
+    """The tiny CLI with each --sampler choice of the JAX CLI (Substep at
+    its cap of 4 steps, the others 3) and with --feature_cache_interval 2
+    writes the restored image; the cache's flag reaches the untiled
+    batchify_sample (recompute, reuse, recompute), and, as in the JAX CLI,
+    not the tiled one."""
+    from supir_tpu_torch.engine import supir as E
+
+    flags = CACHE_RUNS.get(case, ["--sampler", case])
+    steps = "4" if case == "Substep" else "3"
+    seen = []
+    cached = E.SUPIREngine._network_cached
+    monkeypatch.setattr(E.SUPIREngine, "_network_cached",
+                        lambda self, *a: seen.append(a[-1]) or cached(self, *a))
+    out = tmp_path / "out"
+    rec, = cli.main(["--img_dir", str(_img_dir(tmp_path)), "--save_dir", str(out), "--tiny", "--random_weights",
+                     "--no_llava", "--device", "cpu", "--min_size", "64", "--edm_steps", steps] + flags)
+    got = np.asarray(Image.open(out / "photo_0.png"))
+    assert got.shape == (48, 56, 3) and got.std() > 0
+    assert rec["saved"] == [str(out / "photo_0.png")]
+    assert seen == ([True, False, True] if case == "feature_cache" else [])
 
 
 TILED_FLAGS = ["--use_tile_vae", "--use_tiled_sampling", "--encoder_tile_size", "32", "--decoder_tile_size", "4",
@@ -290,7 +302,7 @@ def test_cli_tiled_and_lightning_end_to_end(tmp_path, case):
 
 @pytest.mark.parametrize("name", ["SUPIR_v0_tiled.yaml", "SUPIR_v0_Juggernautv9_lightning.yaml"])
 def test_cli_shipped_options_are_ported(name, monkeypatch):
-    """Both option files that the port refused before pass check_ported
+    """Both option files that the port refused before pass check_sampler
     with the flags they are run with; the tiled one without
     --use_tiled_sampling is a ValueError, as in the JAX CLI (its sampler
     table has no tiled sampler)."""
@@ -298,12 +310,12 @@ def test_cli_shipped_options_are_ported(name, monkeypatch):
     tiled = cfg.sampler.name.startswith("Tiled")
     args = cli.build_parser().parse_args(["--img_dir", ".", "--save_dir", "."]
                                          + (["--use_tile_vae", "--use_tiled_sampling"] if tiled else []))
-    cli.check_ported(args, cfg.sampler.name)
+    cli.check_sampler(args, cfg.sampler.name)
     assert cli.sampler_for(args) is None
     if tiled:
         args.use_tiled_sampling = False
         with pytest.raises(ValueError, match="--use_tiled_sampling"):
-            cli.check_ported(args, cfg.sampler.name)
+            cli.check_sampler(args, cfg.sampler.name)
     args.sampler = "DPMPP2M"
     args.use_tiled_sampling = True
     assert cli.sampler_for(args) == "TiledRestoreDPMPP2M"

@@ -27,6 +27,7 @@ from supir_tpu.config import SUPIRConfig
 from supir_tpu.engine.factory import eval_shape_params
 from supir_tpu.engine.supir import SUPIREngine as JaxEngine
 from supir_tpu.utils import ckpt as C
+from supir_tpu_torch.engine import supir as E
 from supir_tpu_torch.engine.factory import build_model, create_engine
 from supir_tpu_torch.engine.supir import SUPIRModel
 from supir_tpu_torch.utils import weights as W
@@ -97,8 +98,30 @@ def test_sample_is_seeded_and_checks_overrides(tiny):
         engine.batchify_sample(x, c, uc, noise_override=np.zeros((1, 4, 4, 4), np.float32), **kw)
     with pytest.raises(ValueError, match="center_noise_override"):
         engine.batchify_sample(x, c, uc, center_noise_override=np.zeros((1, 8, 8, 3), np.float32), **kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        engine.batchify_sample(x, c, uc, sampler_name="EulerEDM", **kw)
+    with pytest.raises(ValueError, match="unknown sampler"):
+        engine.batchify_sample(x, c, uc, sampler_name="Euler", **kw)
+    with pytest.raises(ValueError, match="only supported with RestoreEDM"):
+        engine.batchify_sample(x, c, uc, sampler_name="EulerEDM", feature_cache_interval=2, **kw)
+    for name in ("EulerEDM", "Substep"):  # the paths the port refused before run
+        assert torch.isfinite(engine.batchify_sample(x, c, uc, sampler_name=name, **kw)).all()
+    assert torch.isfinite(engine.batchify_sample(x, c, uc, feature_cache_interval=2, **kw)).all()
+
+
+@pytest.mark.parametrize("method", ["batchify_sample", "batchify_sample_tiled"])
+def test_sample_methods_take_every_jax_keyword(method):
+    """The port's batchify_sample and batchify_sample_tiled take every
+    keyword of the JAX methods, with the same defaults, but for
+    steps_per_call (the segmented program, on ROADMAP.md's TPU-only list)."""
+    import inspect
+
+    jax_params = inspect.signature(getattr(JaxEngine, method)).parameters
+    port_params = inspect.signature(getattr(E.SUPIREngine, method)).parameters
+    not_ported = {"steps_per_call"} if method == "batchify_sample_tiled" else set()
+    assert not_ported <= set(jax_params)
+    missing = set(jax_params) - set(port_params) - not_ported
+    assert not missing, missing
+    for name in set(jax_params) - not_ported - {"self", "x", "c", "uc"}:
+        assert port_params[name].default == jax_params[name].default, name
 
 
 def test_bridge_loads_strict_and_round_trips(tiny):

@@ -367,8 +367,11 @@ def test_batchify_sample_tiled_checks_its_arguments(engines):
         engine.batchify_sample_tiled(x, c, uc, noise_override=noise[:, :4], z_override=z, **TILED_KW)
     with pytest.raises(ValueError, match="center_noise_override"):
         engine.batchify_sample_tiled(x, c, uc, center_noise_override=noise[..., :3], z_override=z, **TILED_KW)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        engine.batchify_sample_tiled(x, c, uc, feature_cache_interval=2, z_override=z, **TILED_KW)
+    with pytest.raises(ValueError, match="only supported with TiledRestoreEDM"):
+        engine.batchify_sample_tiled(x, c, uc, feature_cache_interval=2, sampler_name="TiledRestoreDPMPP2M",
+                                     z_override=z, **TILED_KW)
+    assert torch.isfinite(engine.batchify_sample_tiled(x, c, uc, feature_cache_interval=2, z_override=z,
+                                                       **TILED_KW)).all()
     with pytest.raises(ValueError, match="RestoreEDM"):
         engine.batchify_sample_tiled(x, c, uc, sampler_name="RestoreEDM", z_override=z, **TILED_KW)
     with pytest.raises(ValueError, match="batchify_sample_tiled"):
