@@ -58,16 +58,21 @@ Phases, each printing its own lines:
      turns with K6 at one row on the same bytes and plan at qkv and down;
      then each probe kernel at one geometry against its plain version: the
      ring column sum (csrc/colsum_tc.cu) at 1 (T1a) and 2 (T1b) k-slices,
-     and exact at 1, 2, 4, 8 and the plan's count, two runs the same bits,
-     the nibble unpack and the native cast bit for bit; W4A8 at split-K 2
-     by 1e-6; T1c (half-split), T3b (paired) and T4b (native) on the
-     tensor-core body at the plan's k-slices by rel-L2 1e-2; each with
-     planted faults that must break it; T1a, T1b, T1c, T3b and T4b in turns
-     with their first designs (csrc/probes.cu's column sum at strip 512 and
-     1280x1920, K7's strip body at 128, csrc/probes.cu strip 256, K11's
-     strip body at 256) and their PyTorch call (torch.sum, tinygemm); T1c,
-     T3b and T4b on all-positive x at cin 13824, 1 and 8 rows, at each
-     slice count of the probes' sweep.
+     and exact at 1, 2, 4, 8 and the plan's count, two runs the same bits;
+     T2 (W4A8 on the tensor-core body, csrc/quant_gemv_tc.cu) bit for bit
+     at the plan's k-slices, and at 1, 2, 4 and 8, two runs the same bits;
+     the nibble unpack T3a through both of the body's decodes
+     (csrc/nibble_order.cu on csrc/tc_decode.cuh's nib2 and quad16) and
+     the native cast bit for bit, T3a beside an empty kernel's launch;
+     T1c (half-split), T3b (paired) and T4b (native) on the tensor-core
+     body at the plan's k-slices by rel-L2 1e-2; each with planted faults
+     that must break it; T1a and T1b in turns with torch.sum, T2 with its
+     first design (K10's strip body at strip 32, split-K 2, and at the
+     fastest strip x split-K of this run's sweep-strip) and the yardstick
+     torch._int_mm on int8 weights, T1c and T4b with their first designs
+     (K7's strip body at 128, K11's at 256) and tinygemm, T3b with
+     tinygemm; T1c, T3b and T4b on all-positive x at cin 13824, 1 and 8
+     rows, at each slice count of the probes' sweep.
   4. main path: a full-width SDXL/SUPIR engine (XL-base, bf16, random
      weights from a seeded CUDA generator) restores one image through
      SUPIREngine.batchify_sample with bench.py's headline settings: a
@@ -884,9 +889,10 @@ def phase_probes():
     """[probes]: the four probes' mains on the card at 3 replays, counted;
     the measured streaming ceiling and the ring alone against K6 at qkv and
     down (stream_ceiling); each probe kernel at one geometry against its
-    plain version; the ring column sum exact at every slice count of the
-    sweep; T1a, T1b, T1c, T3b and T4b in turns with their first designs and
-    their PyTorch call; T1c, T3b and T4b on all-positive x
+    plain version; the ring column sum and T2 exact at every slice count of
+    the sweep; T1a-T2, T3b and T4b in turns with their first designs (where
+    kept) and their PyTorch call or yardstick; T3a through both decodes
+    beside the launch floor; T1c, T3b and T4b on all-positive x
     (_probe_precision). Returns the JSON numbers and the launches of
     T1a-T4b."""
     import gc
@@ -902,7 +908,7 @@ def phase_probes():
     _reset(counters)
     found = stream_ceiling.main(["--reps", "3"])
     ceiling = found["ceiling"]
-    gemv_sweep.main(["--reps", "3"])
+    sweep = gemv_sweep.main(["--reps", "3"])
     bitcast_probe.main(["--reps", "3"])
     int4_native_probe.main(["--reps", "3"])
     launches = _read(counters)
@@ -937,11 +943,9 @@ def phase_probes():
     _ring_exact(q0)
     _probe_turns("T1a", want, {
         "T1a": [lambda q=q: P.column_sum(q) for (q,) in qs],
-        "first design (csrc/probes.cu, strip 512)": [lambda q=q: P.column_sum_strip(q, 512) for (q,) in qs],
         "torch.sum": [lambda q=q: lib(q) for (q,) in qs]}, beside, exact=True)
     _probe_turns("T1b", want, {
         "T1b": [lambda q=q: P.column_sum_2d(q, 2) for (q,) in qs],
-        "first design (csrc/probes.cu, 1280x1920)": [lambda q=q: P.column_sum_strip(q, 1920, 1280) for (q,) in qs],
         "torch.sum": [lambda q=q: lib(q) for (q,) in qs]}, beside, exact=True)
     x8 = torch.randn(8, cin, generator=g, device=dev).to(torch.bfloat16)
 
@@ -965,13 +969,14 @@ def phase_probes():
         "first design (K7's strip body, strip 128)": [lambda q=q: Q.int4_matmul(x8, q, scale, strip=128)
                                                       for (q,) in qs],
         "tinygemm": [lambda w=w: lib(*w) for w in lib_qs] if lib else None}, beside)
-    lib, lib_qs = yardstick(Q.unpack_int4_paired, qs, x8)
     xq = torch.randint(-127, 128, (1, cin), dtype=torch.int8, generator=g, device=dev)
     rows["T2"] = _probe_row(
-        "T2 W4A8 qkv [1,5120]x[2560,15360] strip 32 split-K 2", lambda q: P.w4a8_preact(xq, q, scale, 32, 2),
-        lambda q: P.w4a8_preact_plain(xq, q, scale), qs, per + nbytes(xq, scale) + cout * 4,
-        [("one partial dropped", lambda: P.w4a8_preact(xq, q0, scale, 32, 2, _skip_split=1))],
-        rel_bound=W4A8_REL_BOUND)
+        "T2 W4A8 on the tensor-core body qkv [1,5120]x[2560,15360], the plan's k-slices",
+        lambda q: P.w4a8_preact(xq, q, scale), lambda q: P.w4a8_preact_plain(xq, q, scale), qs,
+        per + nbytes(xq, scale) + cout * 4, _t2_faults(xq, q0, scale))
+    _t2_exact(xq, q0, scale)
+    _t2_turns(xq, qs, scale, sweep, beside)
+    lib, lib_qs = yardstick(Q.unpack_int4_paired, qs, x8)
     rows["T3b"] = _probe_row(
         "T3b single-cast GEMV on the tensor-core body (K6's instance) qkv [8,5120]x[2560,15360]",
         lambda q: P.int4_single_cast_matmul(x8, q, scale), lambda q: P.int4_single_cast_matmul_plain(x8, q, scale),
@@ -980,8 +985,6 @@ def phase_probes():
         lib_copies=lib_qs, lib_name="tinygemm")
     _probe_turns("T3b", P.int4_single_cast_matmul_plain(x8.float(), q0, scale), {
         "T3b": [lambda q=q: P.int4_single_cast_matmul(x8, q, scale) for (q,) in qs],
-        "first design (csrc/probes.cu, strip 256)": [lambda q=q: P.int4_single_cast_matmul_strip(x8, q, scale, 256)
-                                                     for (q,) in qs],
         "tinygemm": [lambda w=w: lib(*w) for w in lib_qs] if lib else None}, beside)
     del qs, q0, lib, lib_qs
     gc.collect()
@@ -1009,12 +1012,7 @@ def phase_probes():
     gc.collect()
     torch.cuda.empty_cache()
 
-    every = torch.arange(256, dtype=torch.int32).to(torch.uint8).reshape(2, 128).to(dev)
-    rows["T3a"] = _probe_row(
-        "T3a nibble unpack, all 256 bytes [2,128] u8", P.unpack_nibbles, P.unpack_nibbles_plain,
-        [(every.clone(),) for _ in range(8)], every.numel() * 9,
-        [("nibbles swapped", lambda: P.unpack_nibbles(every, _fault=1)),
-         ("sign not extended", lambda: P.unpack_nibbles(every, _fault=2))])
+    rows["T3a"] = _t3a_rows(dev)
     # every int4 value, -8..7: the TPU probe's block (arange % 7) holds no
     # negative one, so a cast that drops the sign would pass it
     block = Q.pack_int4_native((torch.arange(128 * 128, device=dev).reshape(128, 128) % 16 - 8).to(torch.int8))
@@ -1029,6 +1027,107 @@ def phase_probes():
         log(f"[probes] {probe} {r['ms']:.4f} ms beside {label} {ms:.4f} ms: {r['ms'] / ms:.2f}x its time{lib}")
     _probe_precision(g)
     return rows, launches, ceiling
+
+
+def _t2_faults(xq, q, s):
+    """T2's planted faults, each a call on (xq, q, s) that must break bit
+    equality: the tensor-core body's (gemv_plan.FAULT_*; the combine run
+    twice at 2 k-slices) and the scale left out. FAULT_ROW_SCALE squares
+    the row factor, which is 1.0 on T2, so T2 cannot see it."""
+    import torch
+
+    from supir_tpu_torch.ops import gemv_plan as GP, probes as P
+
+    return [("one share dropped", lambda: P.w4a8_preact(xq, q, s, _fault=GP.FAULT_DROP_SHARE)),
+            ("x staged in the wrong k order", lambda: P.w4a8_preact(xq, q, s, _fault=GP.FAULT_X_ORDER)),
+            ("combine run twice (2 slices)", lambda: P.w4a8_preact(xq, q, s, 2, _fault=GP.FAULT_COMBINE_TWICE)),
+            ("scale left out", lambda: P.w4a8_preact(xq, q, torch.ones_like(s)))]
+
+
+def _t2_exact(xq, q, s):
+    """T2 at 1, 2, 4 and 8 k-slices and the plan's count: each bit-equal to
+    its plain version, and a second run the same bits."""
+    import torch
+
+    from supir_tpu_torch.ops import gemv_plan as GP, probes as P, quantize as Q
+
+    want = P.w4a8_preact_plain(xq, q, s)
+    own = GP.tc_plan("w4a8", xq.shape[0], xq.shape[1], q.shape[1], Q._sm_count(xq.device.index)).slices
+    for n in sorted({1, 2, 4, 8, own}):
+        got = P.w4a8_preact(xq, q, s, n)
+        if not (torch.equal(got, want) and torch.equal(P.w4a8_preact(xq, q, s, n), got)):
+            raise AssertionError(f"T2 at {n} k-slices differs from its plain version or from itself")
+    log(f"[probes] T2 {tuple(xq.shape)} x {tuple(q.shape)} at k-slices {sorted({1, 2, 4, 8, own})} (plan {own}): "
+        "each bit-equal to its plain version, two runs the same bits")
+
+
+def _int_mm_yardstick(xq, qs, s):
+    """T2's yardstick where this torch takes it: torch._int_mm over the
+    weights unpacked once to int8 [cin, cout] (twice T2's bytes), x padded
+    to 32 rows (its least m), then * scale: two calls. Returns the calls
+    over the copies, or None with the refusal logged."""
+    import torch
+
+    from supir_tpu_torch.ops import quantize as Q
+
+    xp = torch.zeros(32, xq.shape[1], dtype=torch.int8, device=xq.device)
+    xp[:xq.shape[0]] = xq
+    try:
+        w8 = [Q.unpack_int4_paired(q).to(torch.int8) for (q,) in qs]
+        torch._int_mm(xp, w8[0])
+    except (RuntimeError, AttributeError) as exc:
+        log(f"[probes] T2 yardstick torch._int_mm: none ({str(exc).splitlines()[0][:160]})")
+        return None
+    rows = xq.shape[0]
+    return [lambda w=w: torch._int_mm(xp, w)[:rows] * s for w in w8]
+
+
+def _t2_turns(xq, qs, s, sweep, beside):
+    """T2 on the body in turns with its first design at strip 32, split-K 2
+    (the row measured before) and at the old sweep's fastest geometry at
+    qkv (gemv_sweep's sweep-strip lines of this run), and with the
+    torch._int_mm yardstick (a yardstick: two calls and twice the bytes,
+    not T2's library call); each bit-equal to the plain version first."""
+    from supir_tpu_torch.ops import probes as P
+
+    strip_rows = {k: v for k, v in sweep.items() if k.startswith("qkv sweep-strip ")}
+    fastest = min(strip_rows, key=lambda k: strip_rows[k]["ms"])
+    strip, split = (int(v) for v in fastest.split()[3::2])
+    log(f"[probes] T2's first design, fastest in this run's sweep-strip at qkv: strip {strip} split-K {split} "
+        f"({strip_rows[fastest]['ms']:.4f} ms)")
+    variants = {
+        "T2": [lambda q=q: P.w4a8_preact(xq, q, s) for (q,) in qs],
+        "first design (strip 32, split-K 2)": [lambda q=q: P.w4a8_preact_strip(xq, q, s, 32, 2) for (q,) in qs],
+        f"first design (sweep's fastest, strip {strip} split-K {split})": [
+            lambda q=q: P.w4a8_preact_strip(xq, q, s, strip, split) for (q,) in qs],
+        "yardstick torch._int_mm on int8 weights + * scale": _int_mm_yardstick(xq, qs, s)}
+    _probe_turns("T2", P.w4a8_preact_plain(xq, qs[0][0], s), variants, beside, exact=True)
+
+
+def _t3a_rows(dev):
+    """T3a through each of the body's decodes on all 256 bytes, bit for bit
+    with the plain unpack, with its planted faults; the paired decode's row
+    is the JSON row (max_abs_err over both). Beside it, the launch floor:
+    an empty kernel on the same stream, by CUDA graph."""
+    import torch
+
+    from supir_tpu_torch.ops import probes as P
+
+    every = torch.arange(256, dtype=torch.int32).to(torch.uint8).reshape(2, 128).to(dev)
+    copies = [(every.clone(),) for _ in range(8)]
+    names = {P.ORDER_FAULT_SWAP: "nibbles swapped", P.ORDER_FAULT_UNSIGNED: "sign not restored",
+             P.ORDER_FAULT_K_ORDER: "k order left permuted"}
+    found = {}
+    for decode, what in (("paired", "nib2"), ("w4a8", "quad16")):
+        faults = [(names[f], lambda f=f, d=decode: P.unpack_nibbles(every, d, _fault=f))
+                  for f in names if decode == "w4a8" or f != P.ORDER_FAULT_K_ORDER]
+        found[decode] = _probe_row(f"T3a nibble unpack, all 256 bytes [2,128] u8, the {decode} decode ({what})",
+                                   lambda q, d=decode: P.unpack_nibbles(q, d), P.unpack_nibbles_plain, copies,
+                                   every.numel() * 9, faults)
+    floor = graph_ms([lambda: P.empty_launch(dev) for _ in range(8)])
+    log(f"[probes] T3a launch floor: an empty kernel {floor:.4f} ms by CUDA graph; T3a paired "
+        f"{found['paired']['ms']:.4f} ms, w4a8 {found['w4a8']['ms']:.4f} ms: T3a's time is its launch")
+    return dict(found["paired"], max_abs_err=max(r["max_abs_err"] for r in found.values()), floor_ms=floor)
 
 
 def _ring_faults(q, slices):
@@ -1075,7 +1174,8 @@ def _body_faults(kernel, x, q, s):
 
 def _probe_turns(probe, want, variants, beside, exact=False):
     """A probe kernel in turns (a, b, c, c, b, a: tools/timing.py:turns)
-    with its first design and its PyTorch call over the same weight copies,
+    with its first design, if it keeps one, and its PyTorch call or
+    yardstick over the same weight copies,
     each variant's output on the first copy held to `want` first: by
     GEMV_REL_BOUND, or bit for bit (`exact`, the column sums)."""
     import torch
@@ -1100,8 +1200,9 @@ def _probe_turns(probe, want, variants, beside, exact=False):
     ms = times.pop(probe)
     log(f"[probes] {probe} in turns: {ms:.4f} ms; " + "; ".join(
         f"{name} {t:.4f} ms ({t / ms:.2f}x its time)" for name, t in times.items()))
-    first = next(name for name in times if name.startswith("first design"))
-    beside[probe] = (f"its {first} in turns", times[first])
+    first = next((name for name in times if name.startswith("first design")), None)
+    if first is not None:
+        beside[probe] = (f"its {first} in turns", times[first])
 
 
 def _probe_precision(g):
@@ -4087,8 +4188,8 @@ def main() -> int:
         "T1a": ("cuda", "supir_tpu_torch/csrc/colsum_tc.cu", "tools/stream_ceiling.py:48"),
         "T1b": ("cuda", "supir_tpu_torch/csrc/colsum_tc.cu", "tools/stream_ceiling.py:99"),
         "T1c": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "tools/stream_ceiling.py:162"),
-        "T2": ("cuda", "supir_tpu_torch/csrc/gemv_sweep.cu", "tools/gemv_sweep.py:48"),
-        "T3a": ("cuda", "supir_tpu_torch/csrc/probes.cu", "tools/bitcast_probe.py:33"),
+        "T2": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "tools/gemv_sweep.py:48"),
+        "T3a": ("cuda", "supir_tpu_torch/csrc/nibble_order.cu", "tools/bitcast_probe.py:33"),
         "T3b": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "tools/bitcast_probe.py:63"),
         "T4a": ("cuda", "supir_tpu_torch/csrc/probes.cu", "tools/int4_native_probe.py:46"),
         "T4b": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "tools/int4_native_probe.py:58"),
@@ -4103,8 +4204,8 @@ def main() -> int:
           "K3-alibi": "[1,2048,32,128] bf16 causal, with lse (the MPT-7B gradient's forward)",
           "K4-alibi": "[1,2048,32,128] bf16 causal, dq dk dv",
           "T1a": "u8 [2560,15360], 1 k-slice", "T1b": "u8 [2560,15360], 2 k-slices",
-          "T1c": "K7 int4 [8,5120]x[2560,15360], the plan's k-slices", "T2": "W4A8 qkv, 1 row, strip 32, split-K 2",
-          "T3a": "u8 [2,128], all 256 bytes",
+          "T1c": "K7 int4 [8,5120]x[2560,15360], the plan's k-slices", "T2": "W4A8 qkv, 1 row, the plan's k-slices",
+          "T3a": "u8 [2,128], all 256 bytes, the paired decode (nib2)",
           "T3b": "qkv [8,5120]x[2560,15360], the plan's k-slices",
           "T4a": "int4 [128,128], every value -8..7",
           "T4b": "down [1,13824]x[13824,5120], the plan's k-slices"}

@@ -1,6 +1,7 @@
-// The decode GEMVs at other launch geometries, for the probe T2 and the
-// first designs of T1c and T4b (supir_tpu_torch/tools/; T1c and T4b run on
-// csrc/quant_gemv_tc.cu since): the bodies of quant_gemv.cuh, instantiated
+// The decode GEMVs at other launch geometries, the first designs of the
+// probes T1c, T2 and T4b (supir_tpu_torch/tools/; all three run on
+// csrc/quant_gemv_tc.cu since, and these are kept to time them in turns):
+// the bodies of quant_gemv.cuh, instantiated
 // at strips of 64, 128 and 256 output columns per block and, for K10's
 // W4A8 body, split-K of 2 and 4 as well. And the strip body's paired
 // (every prologue, with and without residual) and int8 instances at the
@@ -13,9 +14,10 @@
 //        quantize.py:606) at bout 512-3840: here K7's half-split instance
 //        (the first design, timed in turns with T1c on the tensor-core body)
 //   T2   tools/gemv_sweep.py:_w4a8_kernel (:48, pallas_call :69), the W4A8
-//        GEMV at _paired_bout's width: here K10's body (int8 x, paired int4
-//        w, exact int32 sums) at strip x split-K, in its pre-activation-
+//        GEMV at _paired_bout's width: here K10's strip body (int8 x, paired
+//        int4 w, exact int32 sums) at strip x split-K, in its pre-activation-
 //        scale form when the caller passes xs = 127 (127 * (1/127) is 1.0f)
+//        (the first design, ops/probes.py:w4a8_preact_strip)
 //   T4b  tools/int4_native_probe.py:_native_kernel (:58, pallas_call :72),
 //        native int4 at bout 256: here K11's NATIVE instance
 // The TPU's bout is the width of a VMEM block that one core walks in order;

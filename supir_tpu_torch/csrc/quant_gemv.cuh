@@ -2,10 +2,10 @@
 // columns (32 by default) for a tile of up to 8 activation rows, streaming
 // the strip's weights down the whole contraction. quant_gemv.cu (K5, K6,
 // K7, K10, K11) runs one strip per block; quant_pair.cu (K9) runs many
-// strips per block in a persistent, cooperative launch; gemv_sweep.cu and
-// probes.cu instantiate the same kernels at other strip widths (and K10's
-// with split-K) for the decode-GEMV probes. All keep the arithmetic of this
-// file.
+// strips per block in a persistent, cooperative launch; gemv_sweep.cu
+// instantiates the same kernels at other strip widths (and K10's with
+// split-K) for the decode-GEMV probes' first designs, and probes.cu takes
+// nib2_bf16 for T4a. All keep the arithmetic of this file.
 //
 // Layout of a block of 256 threads at the default strip: 4 column threads x
 // 8 columns cover the strip, 64 k-groups walk the weight rows with stride
@@ -59,14 +59,11 @@ template <int BT, int S> struct Red {
 //   INT8       int8 [cin, cout]
 //   NATIVE     uint8 [cin, cout/2], byte (k, j) = column 2j (low) | column 2j+1 (high):
 //              a dense row-major s4 buffer, one byte feeding two outputs of one row
-//   PAIRED_BF16  the PAIRED layout, each byte turned into a bf16 pair by one
-//              packed subtract (nib2_bf16) instead of two exponent tricks: the
-//              single-cast GEMV of the bitcast probe (T3b, probes.cu)
-enum { PAIRED = 0, HALF_SPLIT = 1, INT8 = 2, NATIVE = 3, PAIRED_BF16 = 4 };
+enum { PAIRED = 0, HALF_SPLIT = 1, INT8 = 2, NATIVE = 3 };
 enum { PRO_NONE = 0, PRO_NORM = 1, PRO_SILUGLU = 2 };
 
 template <int MODE> struct Layout {
-  static constexpr bool PAIR = MODE == PAIRED || MODE == PAIRED_BF16;       // byte i = rows 2i, 2i+1
+  static constexpr bool PAIR = MODE == PAIRED;                              // byte i = rows 2i, 2i+1
   static constexpr int VALS = (PAIR || MODE == HALF_SPLIT) ? 2 : 1;          // activation values per weight row
 };
 
@@ -220,14 +217,6 @@ __device__ __forceinline__ void strip_dot(const Act& act, int nb, const uint8_t*
             for (int j = 0; j < 8; ++j) {
               const uint32_t word = j < 4 ? wv[u].x : wv[u].y;
               acc[b][j] = fmaf(x0, sbyte(word >> (8 * (j % 4))), acc[b][j]);
-            }
-          } else if (MODE == PAIRED_BF16) {
-            const float2 xx = reinterpret_cast<const float2*>(xs)[b * ROWS + r];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              const float2 wf = __bfloat1622float2(nib2_bf16((j < 4 ? wv[u].x : wv[u].y) >> (8 * (j % 4))));
-              acc[b][j] = fmaf(xx.x, wf.x, acc[b][j]);
-              acc[b][j] = fmaf(xx.y, wf.y, acc[b][j]);
             }
           } else {
             const float2 xx = reinterpret_cast<const float2*>(xs)[b * ROWS + r];

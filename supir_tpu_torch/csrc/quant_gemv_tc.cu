@@ -28,7 +28,13 @@
 // not take (a weight row stride that is not a multiple of 16 bytes,
 // unaligned pointers: ops/gemv_plan.py:tc_eligible, tc_pair_eligible) keep
 // the strip body of quant_gemv.cuh (K9's in quant_pair.cu), and so do K10's
-// other strips and split-K (gemv_sweep.cu, the probes).
+// other strips and split-K (gemv_sweep.cu, T2's first design). The probes
+// T1c, T2, T3b and T4b launch this body's instances at a k-slices override
+// (ops/probes.py); T2 is W4A8 with every row scale 127, so that the row
+// factor xs / 127 is exactly 1.0f.
+//
+// The int4 decodes (nib2_sel, nib2, quad16) live in tc_decode.cuh, which the
+// nibble-order check T3a (nibble_order.cu) compiles too.
 //
 // How each layout meets the A fragments (lane g = lane / 4, t = lane % 4;
 // rows g and g + 8 of fragment F are columns 4g + 2F and 4g + 2F + 1):
@@ -130,8 +136,13 @@
 
 #include "flash_attn_tma.cuh"
 #include "quant_gemv.cuh"
+#include "tc_decode.cuh"
 
 namespace {
+
+using tcdec::nib2;
+using tcdec::nib2_sel;
+using tcdec::quad16;
 
 using qgemv::PRO_NONE;
 using qgemv::PRO_NORM;
@@ -230,47 +241,12 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// two nibbles as a bf16x2: the low nibbles of bytes 0 and 2 of
-// __byte_perm(w, w4, sel) (w4 = w >> 4: byte i + 4 of the pair is byte i's
-// high nibble), the first in the low half; nib2_bf16's exponent trick by
-// that permute, one lop3 ((r & 0x000F000F) ^ 0x43084308: each nibble's sign
-// bit flipped under the exponent of 128) and one hsub2
-__device__ __forceinline__ uint32_t nib2_sel(uint32_t w, uint32_t w4, int sel) {
-  const uint32_t r = __byte_perm(w, w4, sel);
-  uint32_t bits;                                                        // bf16 128 + (n ^ 8)
-  asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n" : "=r"(bits) : "r"(r), "r"(0x000F000Fu), "r"(0x43084308u));
-  const uint32_t k136 = 0x43084308u;
-  const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&bits),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&k136));
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// the two nibbles of byte i of w, low nibble in the low half (a paired or
-// half-split byte: one column's k pair)
-__device__ __forceinline__ uint32_t nib2(uint32_t w, uint32_t w4, int i) {
-  return nib2_sel(w, w4, i | ((4 + i) << 8));                           // byte 0: b_i, byte 2: b_i >> 4
-}
-
 __device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint32_t b0,
                                        uint32_t b1) {
   asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// W4A8: the A registers of columns 4g + 2f (lo) and 4g + 2f + 1 (hi) at k
-// 4t .. 4t + 3 from the lane's words of packed rows 2t (wa) and 2t + 1 (wb)
-// (or 2t + 8, 2t + 9): one permute joins the columns' bytes of both rows,
-// the high nibbles masked in place and the low ones shifted up and masked
-// are s8 bytes of value 16 n, and two permutes sort them per column, bytes
-// in the k order 4t, 4t + 2, 4t + 1, 4t + 3
-__device__ __forceinline__ void quad16(uint32_t& lo, uint32_t& hi, uint32_t wa, uint32_t wb, int f) {
-  const uint32_t u = __byte_perm(wa, wb, (2 * f) | ((4 + 2 * f) << 4) | ((2 * f + 1) << 8) | ((5 + 2 * f) << 12));
-  const uint32_t h = u & 0xF0F0F0F0u;            // k 4t + 1 (row 2t), 4t + 3 (row 2t + 1) of both columns
-  const uint32_t l = (u << 4) & 0xF0F0F0F0u;     // k 4t, 4t + 2
-  lo = __byte_perm(l, h, 0x5410);
-  hi = __byte_perm(l, h, 0x7632);
 }
 
 // signed byte i of wx (= w ^ 0x80808080) as an exact float

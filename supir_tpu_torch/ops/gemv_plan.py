@@ -232,7 +232,7 @@ def _choose_slices(strips: int, chunks: int, grid: int, rows: int, chunk_bytes: 
 def tc_plan(mode: str, rows: int, cin: int, cout: int, sms: int, slices: int | None = None) -> TcPlan:
     """The plan of one launch: `rows` activation rows against [cin, cout]
     weights in `mode` ("paired", "half", "int8", "native" or "w4a8") on a
-    card of `sms` SMs. `slices` (the probes' geometry, T3b and T4b)
+    card of `sms` SMs. `slices` (the probes' geometry: T1c, T2, T3b, T4b)
     replaces `_choose_slices`' k-slices per strip; the model paths never
     pass it."""
     if mode not in TC_BOX_ROWS:
@@ -460,6 +460,56 @@ def _decode(mode, stage, offs, nibble):
         v = (b >> (4 * nibble)) & 0xF
         return ((v ^ 8) - 8).float()
     return b.to(torch.int8).float()
+
+
+# The decodes of csrc/tc_decode.cuh, bit for bit on int64 tensors of 32-bit
+# words (the nibble-order check T3a walks them in ops/probes.py:
+# unpack_emulate; `_decode` above is what they amount to per byte).
+
+
+def byte_perm(x: torch.Tensor, y: torch.Tensor, sel: int) -> torch.Tensor:
+    """__byte_perm(x, y, sel): byte i of the result is byte (sel >> 4 i) & 7
+    of the 8 bytes y:x (0-3 from x, 4-7 from y)."""
+    out = torch.zeros_like(x)
+    for i in range(4):
+        src = (sel >> (4 * i)) & 7
+        out |= (((x if src < 4 else y) >> (8 * (src & 3))) & 0xFF) << (8 * i)
+    return out
+
+
+def nib2_sel(w: torch.Tensor, w4: torch.Tensor, sel: int, signed: bool = True) -> torch.Tensor:
+    """tc_decode.cuh's nib2_sel: the low nibbles of bytes 0 and 2 of
+    byte_perm(w, w4, sel) as a bf16x2 word, by the lop3 ((r & 0x000F000F) ^
+    0x43084308; `signed` False drops the ^ 8) and the hsub2 of 136, each
+    half rounded to bf16 as the hsub2 rounds it."""
+    r = byte_perm(w, w4, sel)
+    bits = (r & 0x000F000F) ^ (0x43084308 if signed else 0x43004300)
+    halves = torch.stack([bits & 0xFFFF, bits >> 16])
+    diff = ((halves.to(torch.int32) << 16).view(torch.float32) - 136.0).to(torch.bfloat16)
+    h = diff.view(torch.int16).to(torch.int64) & 0xFFFF
+    return h[0] | (h[1] << 16)
+
+
+def nib2(w: torch.Tensor, w4: torch.Tensor, i: int, signed: bool = True, swap: bool = False) -> torch.Tensor:
+    """tc_decode.cuh's nib2: byte i's two nibbles, low in the low half
+    (`swap` mirrors the selector)."""
+    return nib2_sel(w, w4, (4 + i) | (i << 8) if swap else i | ((4 + i) << 8), signed)
+
+
+def quad16(wa: torch.Tensor, wb: torch.Tensor, f: int, swap: bool = False):
+    """tc_decode.cuh's quad16: the W4A8 A registers (lo, hi) of columns 2f
+    and 2f + 1 of a word pair, each byte an s8 of value 16 n, in the k order
+    (row a low, row b low, row a high, row b high); `swap` mirrors the
+    sorting permutes."""
+    u = byte_perm(wa, wb, (2 * f) | ((4 + 2 * f) << 4) | ((2 * f + 1) << 8) | ((5 + 2 * f) << 12))
+    h = u & 0xF0F0F0F0
+    low = (u << 4) & 0xF0F0F0F0
+    return byte_perm(low, h, 0x1054 if swap else 0x5410), byte_perm(low, h, 0x3276 if swap else 0x7632)
+
+
+def bf16x2_floats(v: torch.Tensor):
+    """A bf16x2 word's halves as floats, (low, high)."""
+    return tuple(((v >> s) & 0xFFFF).to(torch.int32).bitwise_left_shift(16).view(torch.float32) for s in (0, 16))
 
 
 @functools.lru_cache(maxsize=8)

@@ -16,19 +16,22 @@ byte sum in place of the decode and the products:
       with the rows cut into `slices` k-slices (the TPU's row blocks: its
       brow 1280 and 640 are 2 and 4 slices of 2560 rows), the slices'
       int32 partials summed in slice order.
-  column_sum_strip    T1a's and T1b's first design (`csrc/probes.cu`, one
-      block per strip x row block, fp32 atomics), kept to time them in
-      turns; it counts no launch.
-Kernels of `csrc/probes.cu`:
+Kernel of `csrc/nibble_order.cu`, on the tensor-core body's own int4
+decodes (`csrc/tc_decode.cuh`, which `csrc/quant_gemv_tc.cu` compiles too):
   T3a unpack_nibbles  (tools/bitcast_probe.py:order_kernel :33, :46)  u8
       [r, c] -> fp32 [2r, c], row 2i the low nibble of byte row i and 2i+1
       the high one, sign-extended: the order of quantize_int4_paired, read
-      back through the GEMVs' own nibble conversion.
+      back through the decode the GEMVs run on the card: `decode="paired"`
+      by nib2 (a word of 4 columns, each byte a bf16x2; the paired and
+      half-split layouts), `decode="w4a8"` by quad16 (the words of two
+      packed rows, s8 bytes of 16 n in the k order 4t, 4t + 2, 4t + 1,
+      4t + 3, shifted back and put in row order). `unpack_emulate` walks
+      the same bit operations on the CPU (ops/gemv_plan.py:nib2, quad16).
+      `empty_launch` launches an empty kernel, the launch floor T3a's time
+      is read against; it counts no launch.
+Kernel of `csrc/probes.cu`:
   T4a native_cast     (tools/int4_native_probe.py:stage2_mosaic.k :46, :50)
       column-pair-packed int4 u8 [r, c/2] -> bf16 [r, c] x 2.
-  int4_single_cast_matmul_strip  T3b's first design (gemv_kernel_bitcast :63,
-      :111): bf16 x @ paired int4 -> bf16 by one packed subtract per byte ->
-      fp32 sums * scale, at strip 32-256; kept for timing T3b in turns.
 and of `csrc/quant_gemv_tc.cu`, the model paths' tensor-core body (TMA
 ring, mma.sync, k-slice tiles; ops/gemv_plan.py), with its own int4 decode
 (permute, lop3, hsub2 a nibble pair) at the probes' geometry:
@@ -45,23 +48,28 @@ ring, mma.sync, k-slice tiles; ops/gemv_plan.py), with its own int4 decode
       :58, pallas_call :72)  the same against column-pair-packed int4, on
       K11's instances (the first design, K11's strip body at strip 256,
       stays reachable as `quantize.int4_native_matmul(..., strip=256)`).
-and of `csrc/gemv_sweep.cu` through ops/quantize.py's geometry keywords:
-  T2  w4a8_preact     (tools/gemv_sweep.py:_w4a8_kernel :48, :69)  int8 x [B,
-      cin] @ paired int4 -> exact int32 sums * column scale, fp32, before the
-      activation scale (w4a8_matmul :58-83): K10's body with xs = 127 (so
-      the row factor xs / 127 is exactly 1.0f), at strip x split-K. The
-      probe's `direct` variant hands the s4 operand straight to the TPU's
-      matrix unit against int8 activations; Hopper's tensor cores (wgmma,
-      mma.sync) take no 4-bit operand and no mixed s8 x s4 product, so it
-      has no twin here.
+  T2  w4a8_preact     (tools/gemv_sweep.py:_w4a8_kernel :48, :69)  int8 x [B
+      <= 32, cin] @ paired int4 -> exact int32 sums * column scale, fp32,
+      before the activation scale (w4a8_matmul :58-83): K10's W4A8
+      instances with every row scale 127 (so the row factor xs / 127 is
+      exactly 1.0f and the output is bit-equal to the plain version), at
+      `slices` k-slices per strip, 16 rows a launch. The TPU sweep's
+      split-K is the body's k-slices; its strip width has no counterpart
+      (the body's strip is 128 columns). Its first design, K10's strip body
+      at strip x split-K (`csrc/gemv_sweep.cu`, `csrc/quant_gemv.cu` at
+      strip 32), stays reachable as `w4a8_preact_strip` to time T2 in
+      turns. The probe's `direct` variant hands the s4 operand straight to
+      the TPU's matrix unit against int8 activations; Hopper's tensor cores
+      (wgmma, mma.sync) take no 4-bit operand and no mixed s8 x s4 product,
+      so it has no twin here.
 
 On a CPU tensor every function returns its plain version; on a CUDA tensor
 it launches its kernel or raises. The ring column sum refuses what the
 ring cannot take on either device. `_fault` selects a planted-fault instance
-of a kernel (the ring column sum: RING_FAULT_*; its first design: 1 bytes
-read as int8, 2 last row block dropped; unpack and cast: 1 nibbles
-swapped, 2 sign not extended; T1c, T3b and T4b: one of gemv_plan.FAULT_*),
-for the checks that must see a fault break their bound.
+of a kernel (the ring column sum: RING_FAULT_*; the unpack: ORDER_FAULT_*;
+the cast: 1 nibbles swapped, 2 sign not extended; T1c, T2, T3b and T4b: one
+of gemv_plan.FAULT_*), for the checks that must see a fault break their
+bound.
 """
 
 from __future__ import annotations
@@ -73,13 +81,19 @@ import torch
 from supir_tpu_torch.ops import gemv_plan as GP, quantize as Q
 
 _SOURCE = "probes.cu"
+_ORDER_SOURCE = "nibble_order.cu"
 _RING_SOURCE = "colsum_tc.cu"
-SOURCES = (_SOURCE, _RING_SOURCE)
+SOURCES = (_SOURCE, _ORDER_SOURCE, _RING_SOURCE)
 RING_FLUSH_CHUNKS = 16    # csrc/colsum_tc.cu: chunks (8 rows a lane each) between flushes of the 16-bit sums
 RING_CONSUMERS = 8        # consumer warps; warp w takes rows w, w + 8, ... of a 64-row stage
 # csrc/colsum_tc.cu's planted faults (tests and chip_smoke only): the bytes
 # read as int8, slice 0's partial left out of the combine, the combine run twice
 RING_FAULT_SIGNED, RING_FAULT_DROP_SLICE, RING_FAULT_COMBINE_TWICE = 1, 2, 3
+# csrc/nibble_order.cu's: the nibbles swapped (nib2's or quad16's selector
+# mirrored), the sign not restored (nib2's ^ 8 dropped; W4A8's bytes read
+# back unsigned), W4A8's k order left permuted
+ORDER_FAULT_SWAP, ORDER_FAULT_UNSIGNED, ORDER_FAULT_K_ORDER = 1, 2, 3
+DECODES = ("paired", "w4a8")
 
 
 def _library() -> ctypes.CDLL:
@@ -87,14 +101,20 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library(_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.supir_colsum.restype = i
-    lib.supir_colsum.argtypes = [p, i, i, i, i, i, i, p, p]
-    lib.supir_unpack_nibbles.restype = i
-    lib.supir_unpack_nibbles.argtypes = [p, i, i, i, p, p]
     lib.supir_native_cast.restype = i
     lib.supir_native_cast.argtypes = [p, ctypes.c_longlong, i, p, p]
-    lib.supir_gemv_single_cast.restype = i
-    lib.supir_gemv_single_cast.argtypes = [p, i, p, p, p, i, i, i, i, p]
+    return lib
+
+
+def _order_library() -> ctypes.CDLL:
+    from supir_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library(_ORDER_SOURCE)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.supir_unpack_nibbles.restype = i
+    lib.supir_unpack_nibbles.argtypes = [p, i, i, i, i, p, p]
+    lib.supir_empty_launch.restype = i
+    lib.supir_empty_launch.argtypes = [p]
     return lib
 
 
@@ -239,32 +259,6 @@ def column_sum_2d(q: torch.Tensor, slices: int | None = None, *, _fault: int = 0
     return out
 
 
-def column_sum_strip(q: torch.Tensor, strip: int = 512, brow: int | None = None, *, _fault: int = 0) -> torch.Tensor:
-    """T1a's and T1b's first design (csrc/probes.cu): one block per strip of
-    `strip` columns (a multiple of 16) x block of `brow` rows (all by
-    default); the row blocks' partials meet by fp32 atomics (exact: every
-    partial and running total is an integer below 2^24). Kept to time the
-    ring in turns; it counts no launch."""
-    if brow is not None and brow <= 0:
-        raise ValueError(f"brow must be positive, got {brow}")
-    if q.device.type == "cpu":
-        return column_sum_plain(q)
-    _check_bytes(q, "the column sum")
-    rows, cout = q.shape
-    if cout % 16 or strip % 16 or strip <= 0 or q.data_ptr() % 16:
-        raise ValueError(f"the column sum needs cout and strip multiples of 16 and 16-byte aligned rows, "
-                         f"got cout {cout}, strip {strip}")
-    if rows * 255 >= 2**24:
-        raise ValueError(f"{rows} rows could sum past 2^24, where fp32 stops being exact")
-    two_d = brow is not None
-    out = (torch.zeros if two_d else torch.empty)((1, cout), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _library().supir_colsum(q.data_ptr(), rows, cout, strip, brow or rows, int(two_d), _fault,
-                                      out.data_ptr(), _stream(q))
-    _raise_on(err, "column sum")
-    return out
-
-
 # -------------------------------------------------------- nibbles, casts
 
 
@@ -274,18 +268,65 @@ def unpack_nibbles_plain(q: torch.Tensor) -> torch.Tensor:
     return Q.unpack_int4_paired(q).float()
 
 
-def unpack_nibbles(q: torch.Tensor, *, _fault: int = 0) -> torch.Tensor:
-    """T3a: the nibble unpack through the GEMVs' own conversion."""
+def unpack_emulate(q: torch.Tensor, decode: str = "paired", fault: int = 0) -> torch.Tensor:
+    """T3a's kernel on the CPU: u8 [r, c] (c % 4 == 0) -> fp32 [2r, c] by
+    the bit operations of csrc/tc_decode.cuh (ops/gemv_plan.py:nib2,
+    quad16) on the 4-byte words the kernel reads: "paired", each word's
+    bytes by nib2 into a bf16x2; "w4a8", the words of packed rows 2p and 2p
+    + 1 (zeros past r) by quad16, each s8 byte shifted back by 4 and put
+    from the k order 4p, 4p + 2, 4p + 1, 4p + 3 into row order. `fault`
+    plants ORDER_FAULT_*."""
+    if decode not in DECODES:
+        raise ValueError(f"the nibble unpack decodes as one of {DECODES}, not {decode}")
+    r, c = q.shape
+    b = q.to(torch.int64).reshape(r, c // 4, 4)
+    words = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)      # [r, c / 4]
+    out = torch.zeros(4 * ((r + 1) // 2), c // 4, 4)                                   # [rows, words, column]
+    if decode == "paired":
+        for i in range(4):
+            v = GP.nib2(words, words >> 4, i, fault != ORDER_FAULT_UNSIGNED, fault == ORDER_FAULT_SWAP)
+            out[0:2 * r:2, :, i], out[1:2 * r:2, :, i] = GP.bf16x2_floats(v)
+        return out[:2 * r].reshape(2 * r, c)
+    if r % 2:
+        words = torch.cat([words, torch.zeros_like(words[:1])])
+    regs = []                                                                          # columns 0-3 of a word
+    for f in range(2):
+        regs += list(GP.quad16(words[0::2], words[1::2], f, fault == ORDER_FAULT_SWAP))
+    rows = (0, 1, 2, 3) if fault == ORDER_FAULT_K_ORDER else (0, 2, 1, 3)            # byte b holds k 4p + rows[b]
+    for col, reg in enumerate(regs):
+        for byte in range(4):
+            v = (reg >> (8 * byte)) & 0xFF
+            v = v >> 4 if fault == ORDER_FAULT_UNSIGNED else v.to(torch.uint8).view(torch.int8).to(torch.int64) >> 4
+            out[rows[byte]::4, :, col] = v.float()
+    return out[:2 * r].reshape(2 * r, c)
+
+
+def unpack_nibbles(q: torch.Tensor, decode: str = "paired", *, _fault: int = 0) -> torch.Tensor:
+    """T3a: the nibble unpack through the tensor-core body's own decode,
+    `decode` "paired" (nib2) or "w4a8" (quad16); on a CUDA tensor c % 4 ==
+    0 (the kernel reads 4-byte words)."""
+    if decode not in DECODES:
+        raise ValueError(f"the nibble unpack decodes as one of {DECODES}, not {decode}")
     if q.device.type == "cpu":
         return unpack_nibbles_plain(q)
     _check_bytes(q, "the nibble unpack")
     r, c = q.shape
+    if c % 4 or q.data_ptr() % 4:
+        raise ValueError(f"the nibble unpack reads 4-byte words: c % 4 == 0 and 4-byte aligned rows, got {c}")
     out = torch.empty((2 * r, c), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _library().supir_unpack_nibbles(q.data_ptr(), r, c, _fault, out.data_ptr(), _stream(q))
-    _raise_on(err, "nibble unpack")
+        err = _order_library().supir_unpack_nibbles(q.data_ptr(), r, c, DECODES.index(decode), _fault,
+                                                    out.data_ptr(), _stream(q))
+    _raise_on(err, f"nibble unpack ({decode})")
     unpack_nibbles.launches += 1
     return out
+
+
+def empty_launch(device: torch.device) -> None:
+    """One empty kernel on the current stream of `device`: the launch floor
+    T3a is read against. It counts no launch."""
+    with torch.cuda.device(device):
+        _raise_on(_order_library().supir_empty_launch(torch.cuda.current_stream(device).cuda_stream), "empty")
 
 
 def native_cast_plain(packed: torch.Tensor) -> torch.Tensor:
@@ -319,24 +360,37 @@ def int4_single_cast_matmul_plain(x, packed, scale):
     return Q.int4_paired_matmul_plain(x, packed, scale)
 
 
+_ROW_SCALES: dict = {}    # device index -> fp32 [DECODE_ROWS, 1] of 127: T2's row scales
+
+
 def _on_body(name, x, packed, scale, layout, slices, fault):
-    """One launch of the tensor-core body (csrc/quant_gemv_tc.cu) over
-    packed int4 in `layout` ("paired" or "half" [cin/2, cout], "native"
-    [cin, cout/2]), without prologue or residual, at `slices` k-slices per
-    strip (None: the plan's)."""
-    native = layout == "native"
+    """The tensor-core body (csrc/quant_gemv_tc.cu) over packed int4 in
+    `layout` ("paired", "half" or "w4a8" [cin/2, cout], "native" [cin,
+    cout/2]), without prologue or residual, at `slices` k-slices per strip
+    (None: the plan's): one launch, or for "w4a8" (int8 x, every row scale
+    127) one launch a block of gemv_plan.TC_W4A8_ROWS rows."""
+    native, w4a8 = layout == "native", layout == "w4a8"
     cin = packed.shape[0] if native else 2 * packed.shape[0]
     cout = 2 * packed.shape[1] if native else packed.shape[1]
     if x.shape[0] > Q.DECODE_ROWS:
         raise ValueError(f"{name} takes at most {Q.DECODE_ROWS} rows, got {x.shape[0]}")
-    Q._check_activation(x, cin)
+    Q._check_activation(x, cin, torch.int8 if w4a8 else torch.bfloat16)
     Q._check_weights(packed, scale, packed.shape[0], packed.shape[1], cout, torch.uint8)
     Q._check_on_card(name, x, (("weights", packed), ("scale", scale)))
     if not GP.tc_eligible(layout, cin, cout, packed.data_ptr(), x.data_ptr(), x.stride(0)):
         raise ValueError(f"{name} runs on the tensor-core body only: cin % {16 if layout == 'half' else 8} == 0, "
                          f"cout % {32 if native else 16} == 0, 16-byte aligned rows; got {cin}, {cout}")
     out = torch.empty((x.shape[0], cout), dtype=torch.float32, device=x.device)
-    return Q._launch_tc(x, packed, scale, layout, cin, cout, None, 1e-6, 0, None, out, fault, None, slices)
+    if not w4a8:
+        return Q._launch_tc(x, packed, scale, layout, cin, cout, None, 1e-6, 0, None, out, fault, None, slices)
+    xs = _ROW_SCALES.get(x.device.index)
+    if xs is None:
+        xs = _ROW_SCALES[x.device.index] = torch.full((Q.DECODE_ROWS, 1), 127.0, device=x.device)
+    for r0 in range(0, x.shape[0], GP.TC_W4A8_ROWS):
+        rs = slice(r0, r0 + GP.TC_W4A8_ROWS)
+        Q._launch_tc(x[rs], packed, scale, "w4a8", cin, cout, None, 1e-6, 0, None, out[rs], fault,
+                     xs[r0:r0 + x[rs].shape[0]], slices)
+    return out
 
 
 def half_split_matmul_plain(x, q, scale):
@@ -385,30 +439,6 @@ def native_single_cast_matmul(x, packed, scale, slices: int | None = None, *, _f
     return out
 
 
-def int4_single_cast_matmul_strip(x, packed, scale, strip: int = Q.STRIP):
-    """T3b's first design: x [B <= 32, cin] bf16 @ paired int4, one
-    bf16-pair conversion per byte, fp32 sums * scale -> [B, cout] fp32, at
-    `strip` columns per block (csrc/probes.cu). Kept to time T3b in turns;
-    it counts no launch."""
-    Q.check_geometry(strip)
-    if x.device.type == "cpu":
-        return int4_single_cast_matmul_plain(x, packed, scale)
-    cin, cout = 2 * packed.shape[0], packed.shape[1]
-    if x.shape[0] > Q.DECODE_ROWS:
-        raise ValueError(f"the single-cast GEMV takes at most {Q.DECODE_ROWS} rows, got {x.shape[0]}")
-    Q._check_activation(x, cin)
-    if cout % 8:
-        raise ValueError(f"the single-cast GEMV needs cout % 8 == 0, got {cout}")
-    Q._check_weights(packed, scale, cin // 2, cout, cout, torch.uint8)
-    Q._check_on_card("the single-cast GEMV", x, (("weights", packed), ("scale", scale)))
-    out = torch.empty((x.shape[0], cout), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _library().supir_gemv_single_cast(x.data_ptr(), x.stride(0), packed.data_ptr(), scale.data_ptr(),
-                                                out.data_ptr(), x.shape[0], cin, cout, strip, _stream(x))
-    _raise_on(err, f"single-cast GEMV (strip {strip})")
-    return out
-
-
 def w4a8_preact_plain(xq, packed, scale):
     """int8 xq [B, cin] @ dequant(packed, adjacent pairs) -> the exact integer
     sums * scale, fp32 [B, cout]: gemv_sweep.py's w4a8_matmul, before the
@@ -416,19 +446,32 @@ def w4a8_preact_plain(xq, packed, scale):
     return Q._int_dot(xq, Q.unpack_int4_paired(packed)) * scale.float()
 
 
-def w4a8_preact(xq, packed, scale, strip: int = Q.STRIP, split_k: int = 1, *, _skip_split: int = -1):
-    """T2: K10's body on int8 xq with the row factor fixed at 1 (xs = 127),
-    at `strip` columns per block and `split_k` slices of the contraction;
-    `_skip_split` drops one slice (planted fault)."""
+def w4a8_preact(xq, packed, scale, slices: int | None = None, *, _fault: int = 0):
+    """T2: int8 xq [B <= 32, cin] @ paired int4 uint8 [cin/2, cout] -> the
+    exact integer sums * scale, [B, cout] fp32, on the tensor-core body
+    (K10's W4A8 instances, the row factor fixed at 1 by xs = 127), `slices`
+    k-slices per strip (the plan's by default)."""
+    if xq.device.type == "cpu":
+        return w4a8_preact_plain(xq, packed, scale)
+    out = _on_body("the W4A8 GEMV", xq, packed, scale, "w4a8", slices, _fault)
+    w4a8_preact.launches += 1
+    return out
+
+
+def w4a8_preact_strip(xq, packed, scale, strip: int = Q.STRIP, split_k: int = 1, *, _skip_split: int = -1):
+    """T2's first design: K10's strip body on int8 xq with the row factor
+    fixed at 1 (xs = 127), at `strip` columns per block and `split_k`
+    slices of the contraction (`csrc/quant_gemv.cu` at strip 32 without a
+    split, `csrc/gemv_sweep.cu` otherwise); `_skip_split` drops one slice
+    (planted fault). Kept to time T2 in turns; it counts no launch."""
     Q.check_geometry(strip, split_k)
     if xq.device.type == "cpu":
         return w4a8_preact_plain(xq, packed, scale)
     if xq.shape[0] > Q.DECODE_ROWS:
         raise ValueError(f"the W4A8 GEMV takes at most {Q.DECODE_ROWS} rows, got {xq.shape[0]}")
     xs = torch.full((xq.shape[0], 1), 127.0, dtype=torch.float32, device=xq.device)
-    out = Q._launch_w4a8(xq, xs, packed, scale, strip=strip, split_k=split_k, skip_split=_skip_split)
-    w4a8_preact.launches += 1
-    return out
+    return Q._launch_w4a8(xq, xs, packed, scale, strip=strip, split_k=split_k, skip_split=_skip_split,
+                          _tensor_cores=False)
 
 
 column_sum.launches = 0

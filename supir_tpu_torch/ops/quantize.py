@@ -646,7 +646,7 @@ def _tc_scratch(device: torch.device):
 def _launch_tc(x, w, scale, mode, cin, cout, gamma, eps, prologue, residual, out, fault=0, xs=None, slices=None):
     """One launch of `csrc/quant_gemv_tc.cu` (K5, K6, K7, K10, K11); xs:
     K10's row scales (W4A8 only); `slices`: the probes' k-slices per strip
-    (T3b, T4b) in place of the plan's."""
+    (T1c, T2, T3b, T4b) in place of the plan's."""
     if gamma is not None and gamma.data_ptr() % 16:
         gamma = gamma.clone()  # the kernel reads gamma in 16-byte vectors
     device = x.device

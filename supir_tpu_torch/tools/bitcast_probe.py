@@ -1,10 +1,12 @@
 """T3: the nibble order the card's unpack gives, and a GEMV with one cast per
 nibble pair, the counterpart of the JAX package's `tools/bitcast_probe.py`.
 
-  probe_order  T3a's unpack kernel (csrc/probes.cu, through quant_gemv.cuh's
-               nib, the conversion K5-K7, K9 and K11 use) on the TPU probe's
-               pattern (byte row i = nibbles 2i low, 2i+1 high) and on all
-               256 byte values, and on weights packed by
+  probe_order  T3a's unpack kernel (csrc/nibble_order.cu) through each of
+               the tensor-core body's int4 decodes (csrc/tc_decode.cuh:
+               nib2, which K5-K7, K9, K11, T1c, T3b and T4b run; quad16,
+               which K10, K5's act_int8 mode and T2 run) on the TPU probe's
+               pattern (byte row i = nibbles 2i low, 2i+1 high), on all 256
+               byte values, and on weights packed by
                ops/quantize.py:quantize_int4_paired. It prints the order and
                fails (non-zero exit) unless the order is the packer's: row 2i
                the low nibble, row 2i+1 the high one, sign-extended. A
@@ -17,11 +19,9 @@ nibble pair, the counterpart of the JAX package's `tools/bitcast_probe.py`.
                (the TPU probe's bouts were VMEM block widths; this body's
                geometry is its k-slices), in turns: which slice count wins
                and whether ops/gemv_plan.py:_choose_slices picked it; then,
-               in turns with T3b at the plan's slices, the first design
-               (csrc/probes.cu at strip 256, int4_single_cast_matmul_strip)
-               and tinygemm (torch._weight_int4pack_mm, the yardstick).
-               Each variant is chained over L distinct weight copies
-               (timing.py).
+               in turns with T3b at the plan's slices, tinygemm
+               (torch._weight_int4pack_mm, the yardstick). Each variant is
+               chained over L distinct weight copies (timing.py).
 
 Run on the card: python -m supir_tpu_torch.tools.bitcast_probe [--layers 8]
 [--reps 20] [--slices 1,2,4,8]
@@ -40,7 +40,8 @@ SHAPES = {"qkv": (D, 3 * D), "gateup": (D, 2 * 13824), "down": (13824, D), "o": 
 
 
 def probe_order(dev) -> bool:
-    """True when the card's unpack order equals quantize_int4_paired's."""
+    """True when the card's unpack order equals quantize_int4_paired's
+    through both of the body's decodes."""
     from supir_tpu_torch.ops import probes as P, quantize as Q
 
     rows, cols = 8, 128
@@ -48,32 +49,34 @@ def probe_order(dev) -> bool:
     for i in range(rows):
         lo, hi = (2 * i) % 8, (2 * i + 1) % 8
         b[i, :] = (hi << 4) | lo
-    out = P.unpack_nibbles(b.to(dev)).cpu()[:, 0]
-    print(f"unpack u8 -> s4 rows (column 0): {out.to(torch.int64).tolist()}", flush=True)
-    idx = torch.arange(rows)
-    low_first = torch.equal(out[0::2], ((2 * idx) % 8).float()) and torch.equal(out[1::2], ((2 * idx + 1) % 8).float())
-    if low_first:
-        print("ORDER: byte row i -> rows (2i = LOW nibble, 2i+1 = HIGH nibble)", flush=True)
-    elif torch.equal(out[0::2], ((2 * idx + 1) % 8).float()):
-        print("ORDER: byte row i -> rows (2i = HIGH nibble, 2i+1 = LOW)", flush=True)
-    else:
-        print(f"ORDER: something else: {out[:16].tolist()}", flush=True)
-
     every = torch.arange(256, dtype=torch.int32).to(torch.uint8).reshape(2, 128)
-    got = P.unpack_nibbles(every.to(dev)).cpu()
-    bytes_ok = torch.equal(got, P.unpack_nibbles_plain(every))
     # weights on the int4 grid with scale 1 (column absmax 7), through the packer
     w = torch.arange(16 * 128).reshape(16, 128).remainder(15).sub(7).float()
     w[0] = 7.0
     packed, scale = Q.quantize_int4_paired(w)
-    packer_ok = bool((scale == 1).all()) and torch.equal(P.unpack_nibbles(packed.to(dev)).cpu(), w)
-    print(f"all 256 bytes match the plain unpack: {bytes_ok}; quantize_int4_paired's packing read back: "
-          f"{packer_ok}", flush=True)
-    return low_first and bytes_ok and packer_ok
+    ok = bool((scale == 1).all())
+    idx = torch.arange(rows)
+    for decode in P.DECODES:
+        out = P.unpack_nibbles(b.to(dev), decode).cpu()[:, 0]
+        print(f"unpack u8 -> s4 rows by the {decode} decode (column 0): {out.to(torch.int64).tolist()}", flush=True)
+        low_first = (torch.equal(out[0::2], ((2 * idx) % 8).float())
+                     and torch.equal(out[1::2], ((2 * idx + 1) % 8).float()))
+        if low_first:
+            print("ORDER: byte row i -> rows (2i = LOW nibble, 2i+1 = HIGH nibble)", flush=True)
+        elif torch.equal(out[0::2], ((2 * idx + 1) % 8).float()):
+            print("ORDER: byte row i -> rows (2i = HIGH nibble, 2i+1 = LOW)", flush=True)
+        else:
+            print(f"ORDER: something else: {out[:16].tolist()}", flush=True)
+        bytes_ok = torch.equal(P.unpack_nibbles(every.to(dev), decode).cpu(), P.unpack_nibbles_plain(every))
+        packer_ok = torch.equal(P.unpack_nibbles(packed.to(dev), decode).cpu(), w)
+        print(f"{decode}: all 256 bytes match the plain unpack: {bytes_ok}; quantize_int4_paired's packing read "
+              f"back: {packer_ok}", flush=True)
+        ok = ok and low_first and bytes_ok and packer_ok
+    return ok
 
 
 def bench_gemv(dev, layers: int, reps: int, slices) -> dict:
-    from supir_tpu_torch.ops import probes as P, quantize as Q
+    from supir_tpu_torch.ops import quantize as Q
 
     g = torch.Generator(device=dev).manual_seed(0)
     results = {}
@@ -85,9 +88,7 @@ def bench_gemv(dev, layers: int, reps: int, slices) -> dict:
         yard = [timing.tinygemm(Q.unpack_int4_paired(q), scale)[1] for q in packed]
         for rows in (1, 8):
             x0 = torch.randn(rows, cin, generator=g, device=dev).to(torch.bfloat16)
-            extra = {"first design, strip 256": [lambda q=q: P.int4_single_cast_matmul_strip(x0, q, scale, 256)
-                                                 for q in packed],
-                     "tinygemm": [lambda w=w: fn(x0, *w) for w in yard]}
+            extra = {"tinygemm": [lambda w=w: fn(x0, *w) for w in yard]}
             found = timing.slices_sweep(f"{name:6s} [{rows},{cin}]x[{cin},{cout}]", "paired", packed, scale, x0,
                                         slices, reps, extra)
             results.update({f"{name} {rows} rows {k}": v for k, v in found.items()})

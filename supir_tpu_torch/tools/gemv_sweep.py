@@ -9,9 +9,17 @@ against the data-sheet 3.35 TB/s.
 Kinds:
   sweep    T2's kernel: int8 x [1, cin] @ paired int4 -> exact int32 sums x
            column scale, fp32, before the activation scale (the TPU probe's
-           w4a8_matmul :58-83): K10's body (ops/probes.py:w4a8_preact) at
-           strips of 32-256 columns per block x split-K 1, 2, 4. Today's K10
-           is strip 32, split 1.
+           w4a8_matmul :58-83), on the tensor-core body
+           (ops/probes.py:w4a8_preact, K10's W4A8 instances) at k-slices
+           per strip 1-8 and the plan's own, in turns: the TPU sweep's
+           split-K is the body's k-slices, and its strip width has no
+           counterpart (the body's strip is 128 columns). Prints which
+           slice count wins and whether ops/gemv_plan.py:_choose_slices
+           picked it; then T2 at the plan's count in turns with its first
+           design at strip 32, split-K 2.
+  sweep-strip  T2's first design (ops/probes.py:w4a8_preact_strip, K10's
+           strip body) at strips of 32-256 columns per block x split-K 1,
+           2, 4 (strip 32, split 1: csrc/quant_gemv.cu's strip body).
   paired   K6 (int4_paired_matmul)
   w4a8     K10 with its per-call activation quantization (int4_w4a8_matmul)
   s4mxu    the TPU probe's `direct` variant, the s4 operand handed straight
@@ -46,7 +54,8 @@ SHAPES = {
     "down": (HID, D),
     "o": (D, D),
 }
-KINDS = "sweep,paired,w4a8,s4mxu,packed,native,xla_s4,int8"
+KINDS = "sweep,sweep-strip,paired,w4a8,s4mxu,packed,native,xla_s4,int8"
+SWEEP_SLICES = tuple(range(1, 9))
 
 
 def main(argv=None) -> dict:
@@ -80,15 +89,21 @@ def main(argv=None) -> dict:
             results[key] = timing.report(f"{name:6s} [{cin}x{cout}] {label}", timing.chain_ms(calls, args.reps),
                                          read_bytes, read_bytes * len(calls), note)
 
-        if {"sweep", "paired", "w4a8", "packed"} & set(kinds):
+        if {"sweep", "sweep-strip", "paired", "w4a8", "packed"} & set(kinds):
             q4 = u8(cin // 2, cout)   # any bytes are valid paired or half-split int4
+            xq = torch.randint(-127, 128, (1, cin), dtype=torch.int8, generator=g, device=dev)
             if "sweep" in kinds:
-                xq = torch.randint(-127, 128, (1, cin), dtype=torch.int8, generator=g, device=dev)
+                first = {"first design, strip 32 split-K 2": [lambda q=q: P.w4a8_preact_strip(xq, q, scale, 32, 2)
+                                                              for q in q4]}
+                found = timing.slices_sweep(f"{name:6s} [1,{cin}]x[{cin},{cout}] T2 on the body", "w4a8", q4, scale,
+                                            xq, SWEEP_SLICES, args.reps, first)
+                results.update({f"{name} sweep {k}": v for k, v in found.items()})
+            if "sweep-strip" in kinds:
                 for strip in Q.GEMV_STRIPS:
                     for split in Q.W4A8_SPLITS:
-                        run(f"sweep strip {strip} split-K {split}",
-                            [lambda q=q, s=strip, k=split: P.w4a8_preact(xq, q, scale, s, k) for q in q4], int4,
-                            note=f"[{-(-cout // strip) * split} blocks]")
+                        run(f"sweep-strip strip {strip} split-K {split}",
+                            [lambda q=q, s=strip, k=split: P.w4a8_preact_strip(xq, q, scale, s, k) for q in q4],
+                            int4, note=f"[{-(-cout // strip) * split} blocks]")
             if "paired" in kinds:
                 run("paired (K6)", [lambda q=q: Q.int4_paired_matmul(x, q, scale) for q in q4], int4)
             if "w4a8" in kinds:

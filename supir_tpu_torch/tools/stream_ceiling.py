@@ -10,10 +10,9 @@ chained through one CUDA graph (timing.py):
                   row over the same bytes: TMA ring, k-slice tiles,
                   slice-order combine) with no decode and no products, at
                   k-slices 1 (T1a), 2, 4, 8 and the plan's count, in turns;
-                  then the plan's count in turns with the first design
-                  (csrc/probes.cu, the TPU's strip 512 and 1280x1920
-                  blocks) and `torch.sum(q, 0, dtype=torch.int32)`, in
-                  place of the TPU's sum_xla.
+                  then the plan's count in turns with
+                  `torch.sum(q, 0, dtype=torch.int32)`, in place of the
+                  TPU's sum_xla.
   ring vs K6      the ring column sum in turns with K6 at one row over the
                   same bytes on the same plan, at qkv ([2560,15360] bytes:
                   [1,5120] x [5120,15360]) and down ([6912,5120] bytes:
@@ -56,8 +55,7 @@ SIZE_ROWS = (640, 1280, 5120, 10240)   # with qkv's 2560: [rows, COUT] bytes, 9.
 
 def column_sums(qs, slices, reps: int) -> dict:
     """The ring column sum at each count of `slices` and the plan's own, in
-    turns; then the plan's count in turns with the first design and
-    torch.sum."""
+    turns; then the plan's count in turns with torch.sum."""
     from supir_tpu_torch.ops import probes as P, quantize as Q
 
     rows, cout = qs[0].shape
@@ -71,8 +69,6 @@ def column_sums(qs, slices, reps: int) -> dict:
         tag = f"{' (T1a)' if n == 1 else ''}{' (plan)' if n == own else ''}"
         results[f"ring {n} slices"] = timing.report(f"ring column sum {n} k-slices{tag}", timing.mean(r), per, chain)
     others = {f"ring column sum, the plan's {own}": ring[own],
-              "first design 1-D strip 512": [lambda q=q: P.column_sum_strip(q, 512) for q in qs],
-              "first design 2-D 1280x1920": [lambda q=q: P.column_sum_strip(q, 1920, 1280) for q in qs],
               "torch.sum(q, 0, int32)": [lambda q=q: torch.sum(q, 0, dtype=torch.int32) for q in qs]}
     for name, r in timing.turns(others, timer).items():
         results[name] = timing.report(name, timing.mean(r), per, chain, "(in turns)")

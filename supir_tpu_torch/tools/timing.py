@@ -108,10 +108,9 @@ def tinygemm(q, scale):
 
 
 def slices_sweep(label: str, layout: str, weights, scale, x, slices, reps: int, extra=None) -> dict:
-    """T1c ("half"), T3b ("paired") or T4b ("native") over `weights`
-    (copies of one packed int4 weight) at each slice count of `slices` and
-    the plan's own,
-    in turns. Prints each line, the fastest count and whether
+    """T1c ("half"), T2 ("w4a8", x int8), T3b ("paired") or T4b ("native")
+    over `weights` (copies of one packed int4 weight) at each slice count
+    of `slices` and the plan's own, in turns. Prints each line, the fastest count and whether
     ops/gemv_plan.py:_choose_slices picked it; then `extra` (name -> calls,
     e.g. the first design and tinygemm) in turns with the kernel at the
     plan's count. Returns {name: report}, names "slices <n>" and extra's."""
@@ -123,7 +122,7 @@ def slices_sweep(label: str, layout: str, weights, scale, x, slices, reps: int, 
     sms = Q._sm_count(x.device.index or 0)
     own = GP.tc_plan(layout, rows, cin, cout, sms).slices
     kernel = {"half": P.half_split_matmul, "paired": P.int4_single_cast_matmul,
-              "native": P.native_single_cast_matmul}[layout]
+              "native": P.native_single_cast_matmul, "w4a8": P.w4a8_preact}[layout]
     per, chain = q0.numel(), q0.numel() * len(weights)
     counts = []
     for n in sorted(set(slices) | {own}):

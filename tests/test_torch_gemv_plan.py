@@ -467,7 +467,10 @@ def test_the_kernel_source_walks_these_rules():
     kernel's source as written here."""
     from pathlib import Path
 
-    src = (Path(GP.__file__).resolve().parents[1] / "csrc" / "quant_gemv_tc.cu").read_text()
+    csrc = Path(GP.__file__).resolve().parents[1] / "csrc"
+    src = (csrc / "quant_gemv_tc.cu").read_text()
+    assert '#include "tc_decode.cuh"' in src   # the int4 decodes the body compiles
+    src += (csrc / "tc_decode.cuh").read_text()
     assert f"constexpr int TC_STRIP = {GP.TC_STRIP};" in src
     assert "BOX_ROWS = MODE == MODE_PAIRED || MODE == MODE_HALF || MODE == MODE_W4A8 ? 64 : 128;" in src
     assert GP.TC_BOX_ROWS == {"paired": 64, "half": 64, "int8": 128, "native": 128, "w4a8": 64}
@@ -511,7 +514,8 @@ def test_the_kernel_source_walks_these_rules():
     assert ("const uint32_t u = __byte_perm(wa, wb, (2 * f) | ((4 + 2 * f) << 4) | ((2 * f + 1) << 8) | "
             "((5 + 2 * f) << 12));") in src
     assert "const uint32_t h = u & 0xF0F0F0F0u;" in src and "const uint32_t l = (u << 4) & 0xF0F0F0F0u;" in src
-    assert "lo = __byte_perm(l, h, 0x5410);" in src and "hi = __byte_perm(l, h, 0x7632);" in src
+    assert "lo = __byte_perm(l, h, SWAP ? 0x1054 : 0x5410);" in src
+    assert "hi = __byte_perm(l, h, SWAP ? 0x3276 : 0x7632);" in src
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in src
     # no 4-tile W4A8 instance: 16 rows a launch
     assert "if constexpr (MODE != MODE_W4A8) {\n    if (p.nt == 4)" in src and GP.TC_W4A8_ROWS == 16

@@ -12,10 +12,13 @@ interprets. The closures `sum2d_kernel` (inside stream_ceiling.main) and `k`
 functions with a pallas_call that records the kernel it is handed.
 
 Tolerances:
-- column sum (its first design, and the ring's tile walk and slice-order
-  combine as ops/probes.py:column_sum_emulate walks them), nibble unpack,
-  native cast: bit for bit (integers, and small integers times 2 in bf16);
-- W4A8 before the activation scale: 1e-6 relative (exact integer sums, one
+- column sum (the ring's tile walk and slice-order combine as
+  ops/probes.py:column_sum_emulate walks them), nibble unpack (and the walk
+  of the body's decodes, ops/probes.py:unpack_emulate), native cast: bit for
+  bit (integers, and small integers times 2 in bf16);
+- W4A8 before the activation scale (T2): its plain version 1e-6 relative
+  against the JAX probe; the tensor-core body's walk (tc_emulate on the
+  W4A8 plan, every row scale 127) bit for bit (exact integer sums, one
   rounded scale multiply on each side);
 - single-cast GEMV, native GEMV, K7 at a forced width: relative L2 1e-5 (the
   same exact products summed in another order);
@@ -24,8 +27,8 @@ Tolerances:
   emulation cannot show the tensor cores' own accumulation error: the card
   check does.
 On the card the kernels are held to their plain versions: the bit-exact
-ones bit for bit, the GEMVs by relative L2 1e-2 (K10's body 1e-6), with
-planted faults that must break the bound.
+ones (T2 among them) bit for bit, the GEMVs by relative L2 1e-2 (K10's
+strip body 1e-6), with planted faults that must break the bound.
 JAX is imported inside the parity tests only, so the `gpu` tests also run on
 a machine without it:
 python -m pytest --noconftest tests/test_torch_probes.py -m gpu -q
@@ -36,6 +39,7 @@ import importlib
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import types
@@ -138,7 +142,7 @@ def test_column_sum_matches_sum2d_kernel(sum2d_kernel, brow, bout):
     q = _bytes(0, 64, 256)
     want = _sum2d_call(kernel, q, brow, bout)
     qt = torch.from_numpy(q)
-    np.testing.assert_array_equal(P.column_sum_strip(qt, bout, brow).numpy(), np.asarray(want))
+    np.testing.assert_array_equal(P.column_sum_2d(qt).numpy(), np.asarray(want))
     np.testing.assert_array_equal(P.column_sum_2d(qt, 1).numpy(), np.asarray(want))
     np.testing.assert_array_equal(P.column_sum(qt).numpy(), np.asarray(want))
 
@@ -163,7 +167,7 @@ def _sum_kernel_call(q, bout):
 def test_column_sum_matches_sum_kernel_at_one_block():
     q = _bytes(1, 64, 256)
     want = _sum_kernel_call(q, 256)
-    np.testing.assert_array_equal(P.column_sum_strip(torch.from_numpy(q), 256).numpy(), want)
+    np.testing.assert_array_equal(P.column_sum_2d(torch.from_numpy(q)).numpy(), want)
     np.testing.assert_array_equal(P.column_sum(torch.from_numpy(q)).numpy(), want)
 
 
@@ -284,6 +288,87 @@ def test_unpack_matches_order_kernel_on_every_byte():
     assert torch.equal(P.unpack_nibbles(packed), w)
 
 
+@functools.lru_cache(maxsize=1)
+def _order_kernel_every_byte():
+    """order_kernel in interpret mode on all 256 byte values, u8 [2, 128]:
+    (the bytes, its fp32 [4, 128] output), numpy."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    mod = _tool("bitcast_probe")
+    q = np.arange(256, dtype=np.int32).astype(np.uint8).reshape(2, 128)
+    want = pl.pallas_call(mod.order_kernel, out_shape=jax.ShapeDtypeStruct((4, 128), jnp.float32),
+                          interpret=True)(jnp.asarray(q))
+    return q, np.asarray(want)
+
+
+@pytest.mark.parametrize("decode", P.DECODES)
+def test_body_decode_walk_matches_order_kernel(decode):
+    """T3a's kernel, the walk of csrc/tc_decode.cuh's bit operations
+    (nib2 for "paired", quad16 for "w4a8", ops/probes.py:unpack_emulate), on
+    all 256 bytes against order_kernel, bit for bit; and on odd row counts
+    (the W4A8 walk's zero row) and quantize_int4_paired's packing."""
+    q, want = _order_kernel_every_byte()
+    np.testing.assert_array_equal(P.unpack_emulate(torch.from_numpy(q), decode).numpy(), want)
+    odd = torch.from_numpy(_bytes(13, 5, 12))
+    assert torch.equal(P.unpack_emulate(odd, decode), P.unpack_nibbles_plain(odd))
+    w = torch.arange(16 * 128).reshape(16, 128).remainder(15).sub(7).float()
+    w[0] = 7.0
+    packed, _ = Q.quantize_int4_paired(w)
+    assert torch.equal(P.unpack_emulate(packed, decode), w)
+
+
+@pytest.mark.parametrize("decode,fault", [("paired", P.ORDER_FAULT_SWAP), ("paired", P.ORDER_FAULT_UNSIGNED),
+                                          ("w4a8", P.ORDER_FAULT_SWAP), ("w4a8", P.ORDER_FAULT_UNSIGNED),
+                                          ("w4a8", P.ORDER_FAULT_K_ORDER)])
+def test_body_decode_walk_faults_break_it(decode, fault):
+    """Each of csrc/nibble_order.cu's planted faults, walked, breaks the
+    equality with order_kernel: the nibbles swapped (the selector
+    mirrored), the sign not restored, W4A8's k order left permuted."""
+    q, want = _order_kernel_every_byte()
+    assert not np.array_equal(P.unpack_emulate(torch.from_numpy(q), decode, fault).numpy(), want)
+
+
+@pytest.mark.parametrize("mode", ["paired", "w4a8"])
+def test_body_decode_walk_is_the_emulators_decode(mode):
+    """The registers chunk_products builds from a lane's words by nib2
+    (paired) or quad16 (W4A8) hold, byte for byte or half for half, what
+    tc_emulate decodes at gemv_plan.a_register's (word, byte, nibble):
+    every byte value in every position, and random words."""
+    rng = np.random.default_rng(14)
+    v = torch.arange(256, dtype=torch.int64)
+    words = torch.from_numpy(rng.integers(0, 2 ** 32, (4, 512)).astype(np.int64))
+    words[:, :256] = torch.stack([v * 0x01010101, (255 - v) * 0x01010101, v << 8 * (v % 4), v * 0x00010001])
+    stage = torch.stack([(words[i] >> 8 * b) & 0xFF for i in range(4) for b in range(4)]).to(torch.uint8)  # [16, N]
+    for frag in range(2):
+        for reg in range(4):
+            parts = GP.a_register(mode, [0, 4, 8, 12], frag, reg)        # (word index, byte, nibble)
+            want = [GP._decode(mode, stage, torch.tensor(4 * wi + b), torch.full((stage.shape[1],), n))
+                    for wi, b, n in parts]
+            if mode == "paired":        # a[f][reg] = nib2(w[reg >> 1], ., 2 f + (reg & 1))
+                w = words[reg >> 1]
+                got = GP.bf16x2_floats(GP.nib2(w, w >> 4, 2 * frag + (reg & 1)))
+            else:                       # a[f][0], a[f][1] = quad16(w0, w1, f); a[f][2], a[f][3] from w2, w3
+                r = GP.quad16(words[2 * (reg >> 1)], words[2 * (reg >> 1) + 1], frag)[reg & 1]
+                got = [((r >> 8 * i) & 0xFF).to(torch.uint8).view(torch.int8).to(torch.int64) for i in range(4)]
+            for g_, w_ in zip(got, want):
+                assert torch.equal(g_.to(w_.dtype), w_), (frag, reg)
+
+
+def test_body_decodes_defined_in_one_csrc_file():
+    """nib2_sel, nib2 and quad16 are defined once, in csrc/tc_decode.cuh,
+    which the tensor-core body and the nibble-order check both include:
+    the check reads the bytes back through the conversion the body
+    compiles."""
+    csrc = ROOT / "supir_tpu_torch" / "csrc"
+    for name in ("nib2_sel", "nib2", "quad16"):
+        pattern = re.compile(rf"__device__\s+__forceinline__\s+\w+\s+{name}\s*\(")
+        assert [f.name for f in sorted(csrc.glob("*.cu*")) if pattern.search(f.read_text())] == ["tc_decode.cuh"]
+    for source in ("quant_gemv_tc.cu", "nibble_order.cu"):
+        assert '#include "tc_decode.cuh"' in (csrc / source).read_text()
+
+
 @functools.lru_cache(maxsize=4)
 def _bitcast_case(rows):
     """gemv_kernel_bitcast in interpret mode on a seeded case: (x as fp32,
@@ -313,15 +398,13 @@ def _bitcast_case(rows):
 
 @pytest.mark.parametrize("rows", [1, 8])
 def test_single_cast_matches_gemv_kernel_bitcast(rows):
-    """T3b's first design (the strip body's instances) and the CPU route of
-    T3b against gemv_kernel_bitcast."""
+    """The CPU route of T3b, at every slice count of the probes' sweep,
+    against gemv_kernel_bitcast."""
     x, packed, scale, want = _bitcast_case(rows)
     xt = torch.from_numpy(x)
-    for strip in Q.GEMV_STRIPS:
-        got = P.int4_single_cast_matmul_strip(xt, torch.from_numpy(packed), torch.from_numpy(scale), strip=strip)
+    for slices in (None, 1, 2, 4, 8):
+        got = P.int4_single_cast_matmul(xt, torch.from_numpy(packed), torch.from_numpy(scale), slices)
         assert _rel(got.numpy(), want) <= REL_1E5
-    assert _rel(P.int4_single_cast_matmul(xt, torch.from_numpy(packed), torch.from_numpy(scale)).numpy(),
-                want) <= REL_1E5
 
 
 @pytest.mark.parametrize("slices", [1, 2, 3])
@@ -341,25 +424,74 @@ def test_body_emulation_matches_gemv_kernel_bitcast(rows, slices):
 # --------------------------------------------------------------- T2: W4A8
 
 
-@pytest.mark.parametrize("direct", [False, True])
-@pytest.mark.parametrize("rows", [1, 8])
-def test_w4a8_preact_matches_jax(direct, rows):
+@functools.lru_cache(maxsize=4)
+def _w4a8_case(rows, direct=False):
+    """gemv_sweep.w4a8_matmul in interpret mode on a seeded case (512 x 512:
+    _paired_bout needs cout >= 512): (xq, packed, scale, its output), numpy."""
     import jax.numpy as jnp
 
     mod = _tool("gemv_sweep")
     mod.pl = _interpreting_pl()
-    cin, cout = 512, 512   # _paired_bout needs cout >= 512
+    cin, cout = 512, 512
     rng = np.random.default_rng(5 + rows)
     xq = rng.integers(-127, 128, (rows, cin)).astype(np.int8)
     packed = _bytes(6, cin // 2, cout)
     scale = (rng.random((1, cout)) * 0.1 + 0.01).astype(np.float32)
     want = np.asarray(mod.w4a8_matmul(jnp.asarray(xq), jnp.asarray(packed), jnp.asarray(scale), direct=direct))
+    return xq, packed, scale, want
+
+
+@pytest.mark.parametrize("direct", [False, True])
+@pytest.mark.parametrize("rows", [1, 8])
+def test_w4a8_preact_matches_jax(direct, rows):
+    """T2's plain version against w4a8_matmul; on the CPU T2 at every slice
+    count of the sweep and its first design at every strip x split-K equal
+    the plain version."""
+    xq, packed, scale, want = _w4a8_case(rows, direct)
     args = (torch.from_numpy(xq), torch.from_numpy(packed), torch.from_numpy(scale))
-    base = P.w4a8_preact(*args)
+    base = P.w4a8_preact_plain(*args)
     assert _rel(base.numpy(), want) <= W4A8_REL
+    for slices in (None, *range(1, 9)):
+        assert torch.equal(P.w4a8_preact(*args, slices), base)
     for strip in Q.GEMV_STRIPS:
         for split in Q.W4A8_SPLITS:
-            assert torch.equal(P.w4a8_preact(*args, strip=strip, split_k=split), base)
+            assert torch.equal(P.w4a8_preact_strip(*args, strip=strip, split_k=split), base)
+
+
+def _row_scales_127(rows):
+    return torch.full((rows, 1), 127.0)
+
+
+@pytest.mark.parametrize("slices", [1, 2, 3])
+@pytest.mark.parametrize("rows", [1, 8, 16])
+def test_t2_body_emulation_matches_w4a8_matmul(rows, slices):
+    """T2's kernel, the tensor-core body's W4A8 instances with every row
+    scale 127 at a slices override (3: uneven slices of the 4 chunks),
+    walked by tc_emulate in integers, against w4a8_matmul bit for bit: the
+    sums are exact integers and the row factor 127 * (1 / 127) is 1.0f."""
+    xq, packed, scale, want = _w4a8_case(rows)
+    plan = GP.tc_plan("w4a8", rows, 512, 512, 3, slices)
+    assert (plan.slices, plan.chunks, plan.strips) == (slices, 4, 4)
+    got = GP.tc_emulate(plan, torch.from_numpy(xq), torch.from_numpy(packed), torch.from_numpy(scale),
+                        xs=_row_scales_127(rows))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("fault,slices,breaks", [(GP.FAULT_DROP_SHARE, None, True), (GP.FAULT_X_ORDER, None, True),
+                                                 (GP.FAULT_COMBINE_TWICE, 2, True), ("scale", None, True),
+                                                 (GP.FAULT_ROW_SCALE, None, False)])
+def test_t2_body_emulated_faults(fault, slices, breaks):
+    """The faults T2 is held to, emulated, each break bit equality with
+    w4a8_matmul: one block's share dropped, x staged out of the A
+    registers' k order, the combine run twice (2 slices), the scale left
+    out. FAULT_ROW_SCALE squares the row factor, 1.0 here, so T2 cannot
+    see it: it stays equal."""
+    xq, packed, scale, want = _w4a8_case(8)
+    plan = GP.tc_plan("w4a8", 8, 512, 512, 3, slices)
+    sc = torch.ones(1, 512) if fault == "scale" else torch.from_numpy(scale)
+    got = GP.tc_emulate(plan, torch.from_numpy(xq), torch.from_numpy(packed), sc, xs=_row_scales_127(8),
+                        fault=0 if fault == "scale" else fault)
+    assert np.array_equal(got.numpy(), want) != breaks
 
 
 # --------------------------------------------------------------- T4: native
@@ -656,24 +788,6 @@ def _card_rel(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,cout,strip", [(2560, 15360, 512), (100, 272, 16), (700, 4096, 15360 // 4),
-                                             (33, 8192, 64)])
-def test_column_sum_kernel(cuda, rows, cout, strip):
-    """The column sum's first design (csrc/probes.cu), kept as the ring's
-    comparator: 1-D and 2-D grids against the plain sum, its faults."""
-    g = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randint(0, 256, (rows, cout), dtype=torch.uint8, generator=g, device=cuda)
-    want = P.column_sum_plain(q)
-    assert torch.equal(P.column_sum_strip(q, strip), want)
-    assert not torch.equal(P.column_sum_strip(q, strip, _fault=1), want)
-    for brow, bout in ((rows // 3 + 1, strip), (64, 256), (rows, 1024)):
-        assert torch.equal(P.column_sum_strip(q, bout, brow), want)
-        assert not torch.equal(P.column_sum_strip(q, bout, brow, _fault=1), want)
-        if brow < rows:
-            assert not torch.equal(P.column_sum_strip(q, bout, brow, _fault=2), want)
-
-
-@pytest.mark.gpu
 @pytest.mark.parametrize("rows,cout", [(64, 128), (192, 1408), (640, 4096), (2560, 15360)])
 def test_ring_column_sum_kernel(cuda, rows, cout):
     """T1a and T1b on the ring (csrc/colsum_tc.cu) equal the plain sum at
@@ -742,6 +856,32 @@ def test_unpack_and_native_cast_kernels(cuda):
         assert not torch.equal(P.native_cast(q, _fault=2), want)
 
 
+ORDER_FAULTS = {"paired": (P.ORDER_FAULT_SWAP, P.ORDER_FAULT_UNSIGNED),
+                "w4a8": (P.ORDER_FAULT_SWAP, P.ORDER_FAULT_UNSIGNED, P.ORDER_FAULT_K_ORDER)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decode", P.DECODES)
+def test_unpack_through_the_body_decodes(cuda, decode):
+    """T3a (csrc/nibble_order.cu) through each of the body's decodes
+    (csrc/tc_decode.cuh) equals the plain unpack on all 256 bytes, on
+    random bytes and on an odd row count, one launch counted a call; each
+    planted fault breaks it; the empty kernel launches."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    every = torch.arange(256, dtype=torch.int32).to(torch.uint8).reshape(2, 128).to(cuda)
+    for q in (every, torch.randint(0, 256, (301, 1000), dtype=torch.uint8, generator=g, device=cuda)):
+        want = P.unpack_nibbles_plain(q)
+        before = P.unpack_nibbles.launches
+        assert torch.equal(P.unpack_nibbles(q, decode), want)
+        assert P.unpack_nibbles.launches == before + 1
+        for fault in ORDER_FAULTS[decode]:
+            assert not torch.equal(P.unpack_nibbles(q, decode, _fault=fault), want), fault
+    with pytest.raises(ValueError):
+        P.unpack_nibbles(every[:, :126].contiguous(), decode)
+    P.empty_launch(cuda)
+    torch.cuda.synchronize()
+
+
 def _card_weights(g, cin, cout, device):
     return torch.randn(cin, cout, generator=g, device=device) * cin ** -0.5
 
@@ -750,16 +890,14 @@ def _card_weights(g, cin, cout, device):
 @pytest.mark.parametrize("rows", [1, 8, 20])
 @pytest.mark.parametrize("strip", [32, 64, 128, 256])
 def test_single_cast_and_strip_instances(cuda, rows, strip):
-    """T3b's first design, and K7's half-split and K11's native instances
-    at each strip, against their fp32 plain versions; the scale left out
-    must break it."""
+    """K7's half-split and K11's native instances (the first designs of T1c
+    and T4b) at each strip, against their fp32 plain versions; the scale
+    left out must break it."""
     g = torch.Generator(device=cuda).manual_seed(1)
     cin, cout = 1024, 1544
     w = _card_weights(g, cin, cout, cuda)
     x = torch.randn(rows, cin, generator=g, device=cuda).to(torch.bfloat16)
     for kernel, plain, (q, s) in (
-        (lambda xx, q, s: P.int4_single_cast_matmul_strip(xx, q, s, strip), P.int4_single_cast_matmul_plain,
-         Q.quantize_int4_paired(w)),
         (lambda xx, q, s: Q.int4_matmul(xx, q, s, strip=strip), lambda xx, q, s: Q.qmm_plain(xx, q, s, 4),
          Q.quantize_int4(w)),
         (lambda xx, q, s: Q.int4_native_matmul(xx, q, s, strip=strip), Q.int4_native_matmul_plain,
@@ -822,18 +960,51 @@ def test_single_cast_holds_all_positive_x_at_the_longest_contraction(cuda, rows,
 @pytest.mark.parametrize("strip", [32, 64, 128, 256])
 @pytest.mark.parametrize("split", [1, 2, 4])
 def test_w4a8_geometry_instances(cuda, rows, strip, split):
-    """T2: K10's body at each strip x split-K, exact integer sums: relative
-    1e-6 against the plain version; one slice dropped must break it."""
+    """T2's first design: K10's strip body at each strip x split-K, exact
+    integer sums: relative 1e-6 against the plain version; one slice
+    dropped must break it. It counts no launch."""
     g = torch.Generator(device=cuda).manual_seed(2)
     cin, cout = 1536, 520
     packed, scale = Q.quantize_int4_paired(_card_weights(g, cin, cout, cuda))
     xq = torch.randint(-127, 128, (rows, cin), dtype=torch.int8, generator=g, device=cuda)
     want = P.w4a8_preact_plain(xq, packed, scale)
     before = P.w4a8_preact.launches
-    assert _card_rel(P.w4a8_preact(xq, packed, scale, strip, split), want) <= W4A8_REL
-    assert P.w4a8_preact.launches == before + 1
+    assert _card_rel(P.w4a8_preact_strip(xq, packed, scale, strip, split), want) <= W4A8_REL
+    assert P.w4a8_preact.launches == before
     if split > 1:
-        assert _card_rel(P.w4a8_preact(xq, packed, scale, strip, split, _skip_split=split - 1), want) > W4A8_REL
+        assert _card_rel(P.w4a8_preact_strip(xq, packed, scale, strip, split, _skip_split=split - 1),
+                         want) > W4A8_REL
     x = torch.randn(rows, cin, generator=g, device=cuda).to(torch.bfloat16)
     got = Q.int4_w4a8_matmul(x, packed, scale, strip=strip, split_k=split)
     assert _card_rel(got, Q.int4_w4a8_matmul_plain(x.float(), packed, scale)) <= W4A8_REL
+
+
+T2_SHAPES = {"qkv": (5120, 15360), "down": (13824, 5120)}   # the 13B projections, cin x cout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 16, 20])
+@pytest.mark.parametrize("shape", sorted(T2_SHAPES))
+def test_w4a8_preact_on_the_body(cuda, shape, rows):
+    """T2 on the tensor-core body (K10's W4A8 instances, every row scale
+    127; 20 rows are two launches) bit-equal to its plain version at 1, 2,
+    4 and 8 k-slices and the plan's count, two runs the same bits, one
+    launch counted a call; each planted fault breaks the equality: one
+    block's share dropped, x staged out of order, the combine run twice (2
+    slices), the scale left out."""
+    cin, cout = T2_SHAPES[shape]
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    packed = torch.randint(0, 256, (cin // 2, cout), dtype=torch.uint8, generator=g, device=cuda)
+    scale = torch.rand(1, cout, generator=g, device=cuda) * 0.01 + 0.001
+    xq = torch.randint(-127, 128, (rows, cin), dtype=torch.int8, generator=g, device=cuda)
+    want = P.w4a8_preact_plain(xq, packed, scale)
+    for slices in SLICES_SWEEP:
+        before = P.w4a8_preact.launches
+        got = P.w4a8_preact(xq, packed, scale, slices)
+        assert P.w4a8_preact.launches == before + 1
+        assert torch.equal(got, want), slices
+        assert torch.equal(P.w4a8_preact(xq, packed, scale, slices), got), slices
+    for slices, fault in ((None, GP.FAULT_DROP_SHARE), (None, GP.FAULT_X_ORDER), (2, GP.FAULT_COMBINE_TWICE)):
+        assert not torch.equal(P.w4a8_preact(xq, packed, scale, slices, _fault=fault), want), fault
+    assert not torch.equal(P.w4a8_preact(xq, packed, torch.ones_like(scale)), want)
+    assert torch.equal(P.w4a8_preact(xq, packed, scale), want)   # the scratch is left as a sound launch needs it
