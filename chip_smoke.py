@@ -139,6 +139,31 @@ Phases, each printing its own lines:
      GLVControl with input_upscale 2, rel-L2 0.05; Heun without its
      correction and a reuse step keeping the recompute step's time
      embedding must break it.
+  5h. web demo: apps.web_demo's DemoServer at full width (the CLI's flags:
+     options/SUPIR_v0.yaml, bf16, random weights, the tiny 4-bit
+     captioner) behind serve_demo on 127.0.0.1, port 0, in a thread,
+     driven over HTTP with urllib: the page, stage 1 on a 512^2 PNG,
+     caption (K5 must launch), stage 2 at --upscale 2 (1024^2) with the
+     Quality and the Fidelity preset (K1/K2 per request as
+     expected_flash_launches and expected_group_norm_launches say, two
+     encodes, two decodes), feedback, stage 2 after the hot swap to F (a
+     synthetic SDXL + SUPIR file pair written here, loaded lazily once
+     through convert_and_cache), stage 2 after the swap back (equal to the
+     first), two stage-2 requests at once (equal to the serial ones); no
+     answer may carry "error"; the history files; each request's wall
+     time, the swaps' times, peak memory.
+  5i. face: apps.face_demo.restore_with_faces at face_resolution 1024 on a
+     1536x1024 image with two faces (a landmark callable): two 1024^2
+     restores and the background's, K1/K2 as their shapes say, pasted
+     through ParsedPasteBack with a random FaceParser at 512; the random
+     RetinaFaceDetector (canvas 640) and parse_mask timed on the card.
+  5j. eval: apps.eval.evaluate_dirs over those outputs against their
+     inputs on the card, LPIPS from a torchvision-keyed random state dict
+     through convert_lpips_state.
+  5k. apps reference: the tiny face and eval pipeline (warps, both pastes,
+     ParseNet 64, RetinaFace at canvas 128, PSNR, SSIM, LPIPS) on the card
+     against the CPU, fp32, rel-L2 1e-3; the paste through the matrix not
+     inverted and the blur padded with zeros must break it.
   6. captioner: LLaVA-1.5-13B at full width (CLIP ViT-L/14-336, Llama-13B,
      random weights drawn and quantized layer by layer on the card) captions
      a 1024^2 image through CaptionerAgent.gen_image_caption, greedy, 32
@@ -201,6 +226,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -4110,6 +4136,500 @@ def phase_mpt_reference():
         _free()
 
 
+# ------------------------------------------------------------------ the apps
+
+WEB_OPT = "options/SUPIR_v0.yaml"
+WEB_PNG = 512         # side of the [web demo]'s photo; stage 2 at --upscale 2 restores it at 1024^2
+WEB_MIN_SIZE = 1024   # stage 2's min_size (the demo's default)
+FACE_IMAGE = (1024, 1536)  # (h, w) of the [face] phase's image
+FACE_RESOLUTION = 1024
+APPS_REF_BOUND = 1e-3  # [apps reference]: card fp32 against CPU fp32, relative L2 of each output
+
+
+def _png_b64(arr) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _unpng(b64: str):
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(base64.b64decode(b64))).convert("RGB"))
+
+
+def _http(port: int, path: str, body=None):
+    """One request to the demo on 127.0.0.1 -> (decoded JSON or page text,
+    wall seconds)."""
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}{path}"
+    req = urllib.request.Request(url, data=None if body is None else json.dumps(body).encode(),
+                                 method="GET" if body is None else "POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        raw = r.read()
+    wall = time.perf_counter() - t0
+    return (raw.decode() if body is None else json.loads(raw)), wall
+
+
+def two_faces(img):
+    """A landmark callable: two faces of the [face] phase's image, the
+    template at a third and at a quarter of its height."""
+    import numpy as np
+
+    from supir_tpu_torch.utils.face_restore import FACE_TEMPLATE_512
+
+    h, w = img.shape[:2]
+    return np.stack([(FACE_TEMPLATE_512 - 256.0) * (h / 3 / 512) + np.array([w * 0.3, h * 0.45], np.float32),
+                     (FACE_TEMPLATE_512 - 256.0) * (h / 4 / 512) + np.array([w * 0.72, h * 0.55], np.float32)])
+
+
+def phase_web_demo(steps: int, smi: str, apps_dir: str):
+    """The web demo's HTTP server at full width (options/SUPIR_v0.yaml,
+    XL-base, bf16, every weight random; the engine and the tiny captioner
+    built by web_demo.create_demo_from_args from the CLI's flags with
+    --load_4bit_llava) on 127.0.0.1, port 0, in a thread, driven over HTTP:
+    the page, stage 1 on a 512^2 PNG, caption, stage 2 at --upscale 2
+    (1024^2) with Quality and with Fidelity, feedback, stage 2 after a
+    swap to F (a synthetic SDXL + SUPIR checkpoint pair this phase writes,
+    loaded lazily through convert_and_cache), stage 2 after the swap back
+    (equal to the first Quality one), then two stage-2 requests at once
+    (equal to the serial ones). No answer may carry "error"; K1/K2 launch
+    per stage-2 request as the config says, K5 in the caption request.
+    Returns (engine, cfg) for [face]."""
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    from supir_tpu_torch.apps import web_demo
+    from supir_tpu_torch.ops import quantize as Q
+    from supir_tpu_torch.ops.flash_attention import flash_attention
+    from supir_tpu_torch.ops.groupnorm import group_norm
+    from supir_tpu_torch.utils.checkpoint import convert_and_cache
+
+    torch.cuda.reset_peak_memory_stats()
+    llava = os.path.join(apps_dir, "llava")
+    os.makedirs(llava)
+    _tiny_llava_dir(llava)
+    previous = os.environ.get("LLAVA_MODEL_PATH")
+    os.environ["LLAVA_MODEL_PATH"] = llava
+    t0 = time.perf_counter()
+    try:
+        args = web_demo.build_parser().parse_args(["--opt", WEB_OPT, "--random_weights", "--load_4bit_llava",
+                                                   "--port", "0", "--device", "cuda"])
+        demo = web_demo.create_demo_from_args(args, history_dir=os.path.join(apps_dir, "history"))
+    finally:
+        os.environ.pop("LLAVA_MODEL_PATH")
+        if previous is not None:
+            os.environ["LLAVA_MODEL_PATH"] = previous
+    engine, cfg = demo.engine, demo.cfg
+    _randomize_all(engine.model, SEED + 30)  # the zero-initialised heads would make eps 0
+    build_s = time.perf_counter() - t0
+
+    # the F checkpoint: the reference's two files, Q's weights with the
+    # control net's signs flipped; convert_and_cache merges them once
+    ckpt_dir = os.path.join(apps_dir, "ckpt")
+    os.makedirs(ckpt_dir)
+    t0 = time.perf_counter()
+    from safetensors.torch import save_file
+
+    sd = {k: (-v if k.startswith("model.control_model.") else v).to("cpu").contiguous()
+          for k, v in engine.model.state_dict().items()}
+    supir_keys = ("model.control_model.", "model.diffusion_model.project_modules.", "first_stage_model.denoise_encoder.")
+    sdxl_path, supir_path = os.path.join(ckpt_dir, "sdxl.safetensors"), os.path.join(ckpt_dir, "supir_F.safetensors")
+    save_file({k: v for k, v in sd.items() if not k.startswith(supir_keys)}, sdxl_path)
+    save_file({k: v for k, v in sd.items() if k.startswith(supir_keys)}, supir_path)
+    del sd
+    write_s = time.perf_counter() - t0
+    loads = []
+
+    def load_f():
+        t = time.perf_counter()
+        out = convert_and_cache(cfg, sdxl_path, supir_path, os.path.join(ckpt_dir, "cache"), sign="F",
+                                cond_cfg=engine.cond_cfg)
+        loads.append(time.perf_counter() - t)
+        return out
+
+    demo.param_sets["F"] = load_f
+    swaps = []
+    select = demo.select_model
+
+    def timed_select(sign):
+        t = time.perf_counter()
+        out = select(sign)
+        torch.cuda.synchronize()
+        swaps.append((demo.active_sign, time.perf_counter() - t))
+        return out
+
+    demo.select_model = timed_select
+    samples = []
+    sample = engine.batchify_sample
+
+    def timed_sample(*a, **k):
+        t = time.perf_counter()
+        out = sample(*a, **k)
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t)
+        return out
+
+    engine.batchify_sample = timed_sample
+
+    httpd = web_demo.serve_demo(demo, host="127.0.0.1", port=0)
+    port = httpd.server_address[1]
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    g = torch.Generator().manual_seed(SEED + 31)
+    photo = torch.randint(0, 256, (WEB_PNG, WEB_PNG, 3), generator=g, dtype=torch.uint8).numpy()
+    image = _png_b64(photo)
+    from PIL import Image
+
+    from supir_tpu_torch.utils.image import pil_to_array
+
+    side = pil_to_array(Image.fromarray(photo), upscale=2, min_size=WEB_MIN_SIZE)[0].shape[0]
+    lat = side // cfg.vae.downscale_factor
+    want = {"K1": expected_flash_launches(cfg, lat, steps, vae_passes=4),
+            "K2": expected_group_norm_launches(cfg, steps, encodes=2, decodes=2)}
+    walls, outs = {}, {}
+
+    def request(label, path, body, counted=None):
+        flash_attention.launches = 0
+        group_norm.launches = 0
+        Q.int4_paired_fused_matmul.launches = 0
+        out, wall = _http(port, path, body)
+        if "error" in out:
+            raise AssertionError(f"[web demo] {label}: the server answered {out}")
+        walls[label] = wall
+        got = {"K1": flash_attention.launches, "K2": group_norm.launches, "K5": Q.int4_paired_fused_matmul.launches}
+        if counted is not None and {k: got[k] for k in counted} != counted:
+            raise AssertionError(f"[web demo] {label}: launches {got}, expected {counted}")
+        return out, got
+
+    try:
+        page, walls["page"] = _http(port, "/")
+        if "<h2>" not in page:
+            raise AssertionError("[web demo] GET / returned no page")
+        out, got = request("stage1", "/api/stage1", {"image": image},
+                           {"K2": expected_group_norm_launches(cfg, 0, encodes=1, decodes=1)})
+        s1 = _unpng(out["image"])
+        cap, got_cap = request("caption", "/api/caption", {"image": image})
+        if not (cap["caption"] and got_cap["K5"] > 0):
+            raise AssertionError(f"[web demo] caption {cap!r}, K5 launches {got_cap['K5']}")
+        stage2 = {"image": image, "edm_steps": steps, "upscale": 2, "min_size": WEB_MIN_SIZE,
+                  "prompt": cap["caption"] + ", "}
+        quality, got_q = request("stage2 Quality", "/api/stage2", dict(stage2, preset="Quality"), want)
+        fidelity, _ = request("stage2 Fidelity", "/api/stage2", dict(stage2, preset="Fidelity"), want)
+        fb, _ = request("feedback", "/api/feedback", {"event_id": quality["event_id"], "score": 1})
+        if fb != {"ok": True}:
+            raise AssertionError(f"[web demo] feedback answered {fb}")
+        swapped, _ = request("stage2 F (lazy load)", "/api/stage2", dict(stage2, preset="Quality", model_select="F"),
+                             want)
+        back, _ = request("stage2 Q (swap back)", "/api/stage2", dict(stage2, preset="Quality", model_select="Q"),
+                          want)
+        outs = {k: _unpng(v["image"]) for k, v in (("Quality", quality), ("Fidelity", fidelity), ("F", swapped),
+                                                      ("back", back))}
+        both = [None, None]
+
+        def send(i, preset):
+            both[i] = _http(port, "/api/stage2", dict(stage2, preset=preset))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=(i, p)) for i, p in enumerate(("Quality", "Fidelity"))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        walls["two stage2 at once"] = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        del engine.batchify_sample
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    for i, preset in enumerate(("Quality", "Fidelity")):
+        if both[i] is None or "error" in both[i][0]:
+            raise AssertionError(f"[web demo] concurrent {preset} request: {both[i]}")
+        diff = np.abs(_unpng(both[i][0]["image"]).astype(np.int16) - outs[preset]).max()
+        log(f"[web demo] concurrent {preset} stage 2 ({both[i][1]:.3f} s) against the serial one: max diff {diff}")
+        if diff:
+            raise AssertionError(f"[web demo] the concurrent {preset} request differs from the serial one by {diff}")
+    back_diff = np.abs(outs["back"].astype(np.int16) - outs["Quality"]).max()
+    f_diff = np.abs(outs["F"].astype(np.int16) - outs["Quality"]).mean()
+    if back_diff or not f_diff > 0:
+        raise AssertionError(f"[web demo] swap back differs from the first Quality run by {back_diff}; "
+                             f"F against Q mean diff {f_diff}")
+    if [sign for sign, _ in swaps] != ["F", "Q"] or len(loads) != 1:
+        raise AssertionError(f"[web demo] swaps {swaps}, lazy loads {loads}")
+    events = sorted(os.listdir(demo.history_dir))
+    kinds = collections.Counter(json.load(open(os.path.join(demo.history_dir, e, "params.json")))["kind"]
+                                for e in events)
+    if kinds != {"stage1": 1, "caption": 1, "stage2": 6} or not os.path.exists(
+            os.path.join(demo.history_dir, quality["event_id"], "feedback.json")):
+        raise AssertionError(f"[web demo] history {dict(kinds)}")
+    for o in outs.values():
+        if o.shape != (side, side, 3) or o.std() == 0:
+            raise AssertionError(f"[web demo] stage-2 PNG {o.shape}, std {o.std()}")
+    Image.fromarray(photo).save(os.path.join(apps_dir, "ref", "demo.png"))
+    Image.fromarray(outs["Quality"]).save(os.path.join(apps_dir, "pred", "demo_0.png"))
+    log(f"[web demo] {smi}: {WEB_OPT}, {WEB_PNG}^2 PNG, stage 2 at --upscale 2 ({side}^2), {steps} steps; "
+        f"built in {build_s:.2f} s (engine, tiny 4-bit captioner); stage1 {s1.shape[0]}^2; caption "
+        f"{cap['caption'][:40]!r}; launches per stage-2 request K1 {got_q['K1']}, K2 {got_q['K2']} (expected "
+        f"{want}), caption K5 {got_cap['K5']}")
+    log("[web demo] wall per request (HTTP, synchronised by the answer): "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+        + "; batchify_sample in the six stage-2 requests, in order: " + ", ".join(f"{t:.3f}" for t in samples)
+        + " s (the rest of a request: the stage-1 encode, conditioning, the host's resize, PNG encodes, "
+        "base64 and the history's files)")
+    log(f"[web demo] F checkpoint: two safetensors files ({os.path.getsize(sdxl_path) / 2**30:.2f} + "
+        f"{os.path.getsize(supir_path) / 2**30:.2f} GiB) written in {write_s:.2f} s; convert_and_cache "
+        f"{loads[0]:.2f} s (once); swaps " + ", ".join(f"to {s} {t:.3f} s" for s, t in swaps)
+        + f" (to F: the lazy load, then the host copy of Q and the copy to the card); peak memory "
+        f"{peak:.2f} GiB; history {dict(kinds)}")
+    httpd = demo = None
+    return engine, cfg
+
+
+def phase_face(engine, cfg, steps: int, smi: str, apps_dir: str):
+    """restore_with_faces at full width, face_resolution 1024, on a
+    1536x1024 image with two faces given by a landmark callable: two
+    1024^2 face restores and the 1024x1536 background, each
+    batchify_sample timed, pasted back through ParsedPasteBack with a
+    random FaceParser at 512. K1/K2 must launch as the three restores'
+    shapes say. RetinaFaceDetector (canvas 640, random weights) timed on
+    the same image; FaceParser.parse_mask timed on one face."""
+    import os
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from supir_tpu_torch.apps.face_demo import restore_with_faces
+    from supir_tpu_torch.models.parsenet import FaceParser
+    from supir_tpu_torch.models.retinaface import RetinaFaceDetector
+    from supir_tpu_torch.ops.flash_attention import flash_attention
+    from supir_tpu_torch.ops.groupnorm import group_norm
+    from supir_tpu_torch.utils.face_restore import detector_from_models
+
+    torch.cuda.reset_peak_memory_stats()
+    h, w = FACE_IMAGE
+    g = torch.Generator().manual_seed(SEED + 32)
+    photo = torch.randint(0, 256, (h, w, 3), generator=g, dtype=torch.uint8).numpy()
+    image = photo.astype(np.float32) / 127.5 - 1.0
+    detector = RetinaFaceDetector.create(seed=SEED + 33, canvas=640, device="cuda")
+    parser = FaceParser.create(seed=SEED + 34, in_size=512, device="cuda")
+
+    def timed(fn, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    detector.detect_faces(photo[..., ::-1])  # warm-up
+    _, net_s = timed(detector.forward_canvas, photo[..., ::-1])
+    dets, det_s = timed(detector.detect_faces, photo[..., ::-1], conf_threshold=0.5)
+    lms, lm_s = timed(detector_from_models(detector), image * 0.5 + 0.5)
+    face = torch.rand(512, 512, 3, generator=g).numpy() * 255
+    parser.parse_mask(face)
+    mask, parse_s = timed(parser.parse_mask, face)
+    if not (torch.isfinite(mask).all() and mask.shape == (512, 512)):
+        raise AssertionError(f"[face] parse mask {tuple(mask.shape)}")
+
+    samples = []
+    sound = engine.batchify_sample
+
+    def counted(x, *a, **k):
+        out, s = timed(sound, x, *a, **k)
+        samples.append((tuple(x.shape[1:3]), s))
+        return out
+
+    engine.batchify_sample = counted
+    flash_attention.launches = 0
+    group_norm.launches = 0
+    try:
+        out, total_s = timed(restore_with_faces, engine, cfg, image, prompt="two people, ",
+                             face_resolution=FACE_RESOLUTION, num_steps=steps, cfg_scale=7.5, seed=SEED,
+                             detector=two_faces, parser=parser)
+    finally:
+        del engine.batchify_sample
+    launches = {"K1": flash_attention.launches, "K2": group_norm.launches}
+    f = cfg.vae.downscale_factor
+    lats = [(s[0] // f, s[1] // f) for s, _ in samples]
+    want = {"K1": sum(expected_flash_launches(cfg, lat, steps, vae_passes=4) for lat in lats),
+            "K2": len(lats) * expected_group_norm_launches(cfg, steps, encodes=2, decodes=2)}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = out.cpu().numpy()
+    log(f"[face] {smi}: restore_with_faces at face_resolution {FACE_RESOLUTION}, {h}x{w} image, two faces "
+        f"(landmark callable), {steps} steps, ParsedPasteBack with a random FaceParser at 512: "
+        f"{total_s:.3f} s; batchify_sample " + ", ".join(f"{a}x{b} {s:.3f} s" for (a, b), s in samples)
+        + f"; the rest (align, encode, conditioning, paste with the parse mask) "
+        f"{total_s - sum(s for _, s in samples):.3f} s; launches K1 {launches['K1']}, K2 {launches['K2']} "
+        f"(expected {want}); peak memory {peak:.2f} GiB")
+    log(f"[face] RetinaFaceDetector canvas 640, random weights, on the {h}x{w} image: detect_faces "
+        f"{det_s * 1e3:.2f} ms ({dets.shape[0]} rows at conf 0.5; the resize, letterbox and network "
+        f"{net_s * 1e3:.2f} ms, the rest the host's decode and NMS), through detector_from_models "
+        f"{lm_s * 1e3:.2f} ms ({len(lms)} faces at conf 0.8, eye distance 5); FaceParser 512 parse_mask "
+        f"{parse_s * 1e3:.2f} ms")
+    if [s for s, _ in samples] != [(FACE_RESOLUTION, FACE_RESOLUTION)] * 2 + [(h, w)]:
+        raise AssertionError(f"[face] restores {[s for s, _ in samples]}")
+    if launches != want:
+        raise AssertionError(f"[face] launches {launches}, expected {want}")
+    if out.shape != (h, w, 3) or not np.isfinite(out).all() or np.abs(out - image).max() == 0:
+        raise AssertionError(f"[face] output {out.shape}")
+    Image.fromarray(photo).save(os.path.join(apps_dir, "ref", "face.png"))
+    Image.fromarray(((out + 1) * 127.5).round().clip(0, 255).astype(np.uint8)).save(
+        os.path.join(apps_dir, "pred", "face_0.png"))
+
+
+def _lpips_sources(seed: int):
+    """A torchvision-keyed vgg16 `features` state dict and taming `vgg.pth`
+    heads, random (N(0, 1/fan_in) convs, |N(0, 1)| heads)."""
+    import torch
+
+    from supir_tpu_torch.utils.metrics import VGG_CHANNELS, VGG_SLICES, VGG_TORCH_CONV_IDX
+
+    g = torch.Generator().manual_seed(seed)
+    chans = [c for n, c in zip(VGG_SLICES, VGG_CHANNELS) for _ in range(n)]
+    vgg, cin = {}, 3
+    for t, cout in zip(VGG_TORCH_CONV_IDX, chans):
+        vgg[f"features.{t}.weight"] = torch.randn(cout, cin, 3, 3, generator=g) * (9 * cin) ** -0.5
+        vgg[f"features.{t}.bias"] = 0.05 * torch.randn(cout, generator=g)
+        cin = cout
+    lin = {f"lin{i}.model.1.weight": torch.randn(1, c, 1, 1, generator=g).abs() for i, c in enumerate(VGG_CHANNELS)}
+    return vgg, lin
+
+
+def phase_eval(apps_dir: str, smi: str):
+    """evaluate_dirs over [web demo]'s and [face]'s outputs against their
+    inputs on the card, LPIPS with random weights: a torchvision-keyed
+    vgg16 state dict and heads written here, converted by
+    convert_lpips_state and saved as the port's state dict."""
+    import os
+
+    import torch
+
+    from supir_tpu_torch.apps.eval import evaluate_dirs
+    from supir_tpu_torch.utils import metrics
+    from supir_tpu_torch.utils.checkpoint import save_params
+
+    vgg, lin = _lpips_sources(SEED + 35)
+    torch.save(vgg, os.path.join(apps_dir, "vgg16.pth"))
+    torch.save(lin, os.path.join(apps_dir, "vgg.pth"))
+    from supir_tpu_torch.utils.ckpt import load_torch_file
+
+    path = os.path.join(apps_dir, "lpips.safetensors")
+    save_params(path, metrics.convert_lpips_state(load_torch_file(os.path.join(apps_dir, "vgg16.pth")),
+                                                  load_torch_file(os.path.join(apps_dir, "vgg.pth"))))
+    t0 = time.perf_counter()
+    out = evaluate_dirs(os.path.join(apps_dir, "pred"), os.path.join(apps_dir, "ref"), path, device="cuda")
+    wall = time.perf_counter() - t0
+    log(f"[eval] {smi}: evaluate_dirs over {out['n']} pairs ([web demo] stage 2 at 1024^2 against its 512^2 "
+        f"input, [face] against its input) on the card: {json.dumps(out)} in {wall:.3f} s (PNG reads, bicubic "
+        f"resizes, LPIPS-VGG with random weights)")
+    if out["n"] != 2 or not all(math.isfinite(out[k]) for k in ("psnr", "ssim", "lpips")):
+        raise AssertionError(f"[eval] {out}")
+    if next(metrics._lpips_model.parameters()).device.type != "cuda":
+        raise AssertionError("[eval] LPIPS did not run on the card")
+    metrics._lpips_model = None
+
+
+def _zero_pad_blur(x, ksize: int, sigma: float):
+    """gaussian_blur with its border padded with zeros, not reflected (a
+    planted fault)."""
+    import torch
+
+    half = ksize // 2
+    t = torch.arange(-half, half + 1, dtype=torch.float32, device=x.device)
+    k = torch.exp(-0.5 * (t / sigma) ** 2)
+    k = (k / k.sum()).to(x.dtype)
+    c = x.shape[-1]
+    y = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (half,) * 4)
+    y = torch.nn.functional.conv2d(y, k.view(1, 1, ksize, 1).expand(c, 1, ksize, 1), groups=c)
+    y = torch.nn.functional.conv2d(y, k.view(1, 1, 1, ksize).expand(c, 1, 1, ksize), groups=c)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def phase_apps_reference():
+    """The tiny face and eval pipeline on the card (fp32) against the same
+    on the CPU (fp32): alignment warps of two faces, the border-mask paste,
+    the parse-mask paste (ParseNet 64, depth 2), RetinaFace at canvas 128,
+    PSNR, SSIM and LPIPS; each output by relative L2 against
+    APPS_REF_BOUND. Planted on the card side, the paste through the
+    matrix itself (the inverse affine not inverted) and the blur padded
+    with zeros must break it."""
+    import numpy as np
+    import torch
+
+    from supir_tpu_torch.models import parsenet
+    from supir_tpu_torch.models.parsenet import FaceParser
+    from supir_tpu_torch.models.retinaface import RetinaFaceDetector
+    from supir_tpu_torch.utils import face_restore as FR
+    from supir_tpu_torch.utils import metrics
+
+    g = torch.Generator().manual_seed(SEED + 36)
+    img = torch.rand(96, 128, 3, generator=g)
+    restored = [torch.rand(64, 64, 3, generator=g) for _ in range(2)]
+    photo = (torch.rand(100, 90, 3, generator=g) * 255).round()
+    det_cpu = RetinaFaceDetector.create(seed=SEED + 37, canvas=128, device="cpu")
+    parser_cpu = FaceParser.create(seed=SEED + 38, in_size=64, res_depth=2, device="cpu")
+    vgg, lin = _lpips_sources(SEED + 39)
+    lpips_sd = metrics.convert_lpips_state(vgg, lin)
+    x_cpu = img[None] * 2 - 1
+    y_cpu = (x_cpu + 0.2 * torch.randn(x_cpu.shape, generator=g)).clamp(-1, 1)
+
+    def pipeline(device, invert=True):
+        det = RetinaFaceDetector.from_state_dict(det_cpu.model.state_dict(), canvas=128, device=device)
+        parser = FaceParser.from_state_dict(parser_cpu.model.state_dict(), in_size=64, res_depth=2, device=device)
+        helper = FR.FaceRestoreHelper(face_size=64, detector=two_faces)
+        faces = helper.align_warp_faces(img.to(device))
+        if not invert:
+            faces = [FR.AlignedFace(f.crop, FR.invert_affine(f.affine)) for f in faces]
+        rest = [r.to(device) for r in restored]
+        (loc, conf, ldm), _ = det.forward_canvas(photo.numpy())
+        metrics.load_lpips_state(lpips_sd, device)
+        x, y = x_cpu.to(device), y_cpu.to(device)
+        out = {"crops": torch.stack([f.crop for f in faces]), "paste": helper.paste_faces_to_input_image(
+            img.to(device), faces, rest), "parsed paste": FR.ParsedPasteBack(helper, parser)(img.to(device), faces,
+                                                                                              rest),
+               "parse logits": parser.logits(rest[0].flip(-1) * 255), "retinaface loc": loc, "retinaface conf": conf,
+               "retinaface landmarks": ldm, "psnr": metrics.psnr(x, y),
+               "ssim": metrics.ssim(x, y), "lpips": metrics.lpips(x, y)}
+        metrics._lpips_model = None
+        return {k: v.float().cpu() for k, v in out.items()}
+
+    want = pipeline("cpu")
+    got = pipeline("cuda")
+    rels = {k: rel_l2(got[k], want[k]) for k in want}
+    log("[apps reference] tiny face and eval pipeline, card fp32 vs CPU fp32, rel_l2: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()) + f" (bound {APPS_REF_BOUND:g})")
+    if not max(rels.values()) <= APPS_REF_BOUND:
+        raise AssertionError(f"[apps reference] card and CPU disagree: {rels}")
+    bad = pipeline("cuda", invert=False)
+    bad_rel = max(rel_l2(bad[k], want[k]) for k in ("paste", "parsed paste"))
+    blur = FR.gaussian_blur
+    FR.gaussian_blur = parsenet.gaussian_blur = _zero_pad_blur
+    try:
+        zero = pipeline("cuda")
+    finally:
+        FR.gaussian_blur = parsenet.gaussian_blur = blur
+    zero_rel = rel_l2(zero["parsed paste"], want["parsed paste"])
+    log(f"[apps reference] controls: paste through the matrix not inverted rel_l2 {bad_rel:.3e}; blur padded "
+        f"with zeros: parsed paste rel_l2 {zero_rel:.3e}")
+    if not (bad_rel > APPS_REF_BOUND and zero_rel > APPS_REF_BOUND):
+        raise AssertionError(f"[apps reference] a planted fault stays under the bound: {bad_rel}, {zero_rel}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4, help="RestoreEDM steps of the main path")
@@ -4144,6 +4664,19 @@ def main() -> int:
     del engine
     _free()
     phase_samplers_reference()
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as apps_dir:
+        for d in ("pred", "ref"):
+            os.makedirs(os.path.join(apps_dir, d))
+        engine, cfg = phase_web_demo(args.steps, smi, apps_dir)
+        phase_face(engine, cfg, args.steps, smi, apps_dir)
+        del engine
+        _free()
+        phase_eval(apps_dir, smi)
+    phase_apps_reference()
+    log(f"[apps] the four app phases took {time.perf_counter() - t0:.1f} s")
     log(f"[launches] K1 and K2 on the other restore paths: tiled {tiled}, lightning {lightning}, samplers "
         f"{samplers}, feature cache {cache}")
     image = _caption_image()

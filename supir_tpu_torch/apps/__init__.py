@@ -1,1 +1,1 @@
-"""User entry points: the batch restore CLI."""
+"""User entry points: the batch restore CLI, the web demo, the face demo and the eval app."""

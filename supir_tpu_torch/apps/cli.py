@@ -56,13 +56,39 @@ IMAGE_SUFFIXES = (".png", ".jpg", ".jpeg", ".webp", ".bmp")
 DTYPE_MAP = {"fp16": "bf16", "bf16": "bf16", "fp32": "fp32"}
 
 
+def add_engine_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The flags that `create_engine_from_args` and
+    `create_captioner_from_args` read: the model, its weights and dtypes,
+    the captioner and the device. The web demo builds its parser on them."""
+    ap.add_argument("--opt", type=str, default="options/SUPIR_v0.yaml")
+    ap.add_argument("--SUPIR_sign", type=str, default="Q", choices=["F", "Q"])
+    ap.add_argument("--no_llava", action="store_true", default=False)
+    ap.add_argument("--load_8bit_llava", action="store_true", default=False)
+    ap.add_argument("--load_4bit_llava", action="store_true", default=False)
+    ap.add_argument("--loading_half_params", action="store_true", default=None,
+                    help="parameters in the compute dtypes (the default)")
+    ap.add_argument("--full_params", dest="loading_half_params", action="store_false",
+                    help="every parameter in fp32, and so every computation (the CPU only for now: "
+                         "on the card the flash attention sites take bf16)")
+    ap.add_argument("--ae_dtype", type=str, default=None, choices=["bf16", "fp32"],
+                    help="autoencoder (and text conditioner) dtype (reference test.py --ae_dtype)")
+    ap.add_argument("--diff_dtype", type=str, default=None, choices=["fp16", "bf16", "fp32"],
+                    help="diffusion dtype (reference test.py --diff_dtype; fp16 maps to bf16; fp32 the CPU only "
+                         "for now)")
+    ap.add_argument("--random_weights", action="store_true",
+                    help="random weights from a seed, no checkpoints (smoke runs, benchmarks)")
+    ap.add_argument("--tiny", action="store_true", help="the width-scaled tiny model (tests)")
+    ap.add_argument("--device", type=str, default="cuda",
+                    help="where the models run: cuda (the default) or cpu")
+    return ap
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser("supir_tpu_torch batch restorer")
     ap.add_argument("--img_dir", type=str, required=True)
     ap.add_argument("--save_dir", type=str, required=True)
-    ap.add_argument("--opt", type=str, default="options/SUPIR_v0.yaml")
+    add_engine_args(ap)
     ap.add_argument("--upscale", type=float, default=1.0)
-    ap.add_argument("--SUPIR_sign", type=str, default="Q", choices=["F", "Q"])
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--min_size", type=int, default=1024)
     ap.add_argument("--edm_steps", type=int, default=50)
@@ -82,9 +108,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--linear_s_stage2", action="store_true", default=False)
     ap.add_argument("--spt_linear_CFG", type=float, default=4.0)
     ap.add_argument("--spt_linear_s_stage2", type=float, default=0.0)
-    ap.add_argument("--no_llava", action="store_true", default=False)
-    ap.add_argument("--load_8bit_llava", action="store_true", default=False)
-    ap.add_argument("--load_4bit_llava", action="store_true", default=False)
     ap.add_argument("--use_tile_vae", action="store_true", default=False)
     ap.add_argument("--encoder_tile_size", type=int, default=512)
     ap.add_argument("--decoder_tile_size", type=int, default=64)
@@ -95,24 +118,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--use_tiled_sampling", action="store_true", default=False)
     ap.add_argument("--sampler_tile_size", type=int, default=128)
     ap.add_argument("--sampler_tile_stride", type=int, default=64)
-    ap.add_argument("--loading_half_params", action="store_true", default=None,
-                    help="parameters in the compute dtypes (the default)")
-    ap.add_argument("--full_params", dest="loading_half_params", action="store_false",
-                    help="every parameter in fp32, and so every computation")
-    ap.add_argument("--ae_dtype", type=str, default=None, choices=["bf16", "fp32"],
-                    help="autoencoder (and text conditioner) dtype (reference test.py --ae_dtype)")
-    ap.add_argument("--diff_dtype", type=str, default=None, choices=["fp16", "bf16", "fp32"],
-                    help="diffusion dtype (reference test.py --diff_dtype; fp16 maps to bf16)")
-    ap.add_argument("--random_weights", action="store_true",
-                    help="random weights from a seed, no checkpoints (smoke runs, benchmarks)")
-    ap.add_argument("--tiny", action="store_true", help="the width-scaled tiny model (tests)")
     ap.add_argument("--profile_dir", type=str, default=None,
                     help="write a torch.profiler trace of each image's sample phase there")
     ap.add_argument("--feature_cache_interval", type=int, default=0,
                     help="cross-step encoder/control feature cache of RestoreEDM, untiled (0 = off, exact; "
                          "N > 1 recomputes every N steps)")
-    ap.add_argument("--device", type=str, default="cuda",
-                    help="where the models run: cuda (the default) or cpu")
     return ap
 
 
@@ -164,6 +174,20 @@ def create_engine_from_args(args):
                      "--random_weights for a smoke run")
 
 
+def create_captioner_from_args(args, device):
+    """The LLaVA captioner at LLAVA_MODEL_PATH in the flags' weight mode,
+    or None with --no_llava or where no complete checkpoint is found (a
+    warning, as the JAX CLI gives)."""
+    if args.no_llava:
+        return None
+    try:
+        return CaptionerAgent.create_default(device=device, load_8bit=args.load_8bit_llava,
+                                             load_4bit=args.load_4bit_llava)
+    except CaptionerCheckpointError as e:
+        print(f"[warn] captioner unavailable ({e}); proceeding without")
+        return None
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -182,13 +206,7 @@ def main(argv=None):
     os.makedirs(args.save_dir, exist_ok=True)
     names = sorted(f for f in os.listdir(args.img_dir) if f.lower().endswith(IMAGE_SUFFIXES))
 
-    captioner = None
-    if not args.no_llava:
-        try:
-            captioner = CaptionerAgent.create_default(device=device, load_8bit=args.load_8bit_llava,
-                                                      load_4bit=args.load_4bit_llava)
-        except CaptionerCheckpointError as e:
-            print(f"[warn] captioner unavailable ({e}); proceeding without")
+    captioner = create_captioner_from_args(args, device)
 
     p_p = args.a_prompt if args.a_prompt is not None else cfg.p_p
     n_p = args.n_prompt if args.n_prompt is not None else cfg.n_p

@@ -112,7 +112,7 @@ class SUPIREngine:
     `decode_first_stage`, `batchify_denoise`, `prepare_condition` (and its
     cached and tiled forms, where the model holds a conditioner),
     `batchify_sample`, `batchify_sample_tiled`, `init_tile_vae`,
-    `log_images`."""
+    `log_images`; `load_weights` swaps the checkpoint in place."""
 
     SAMPLERS = tuple(SAMPLERS) + ("Substep",)
     TILED_SAMPLERS = ("TiledRestoreEDM", "TiledRestoreDPMPP2M")
@@ -131,6 +131,12 @@ class SUPIREngine:
     @property
     def vae(self) -> AutoencoderKL:
         return self.model.first_stage_model
+
+    def load_weights(self, state_dict) -> None:
+        """Load a whole state dict into the model's tensors (strict), and
+        drop the text conditioning cached from the weights it replaces."""
+        self.model.load_state_dict(state_dict, strict=True)
+        self._cond_cache.clear()
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,

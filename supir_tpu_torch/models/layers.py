@@ -136,3 +136,40 @@ class Holder(nn.Module):
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x spatial upsample, NCHW."""
     return F.interpolate(x, scale_factor=2.0, mode="nearest")
+
+
+class FrozenBatchNorm(nn.Module):
+    """Inference BatchNorm on a checkpoint's running statistics (the face
+    models' `ConvBN`, `_bn`: supir_tpu/models/retinaface.py:69-74,
+    parsenet.py:36-42): x * a + (bias - mean * a) with a = weight *
+    rsqrt(var + 1e-5) in fp32, cast to x's dtype. It holds torch's
+    BatchNorm2d keys (weight, bias, running_mean, running_var) without
+    num_batches_tracked, which no inference reads."""
+
+    def __init__(self, channels: int, device=None, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device, dtype=dtype))
+        self.register_buffer("running_mean", torch.zeros(channels, device=device, dtype=dtype))
+        self.register_buffer("running_var", torch.ones(channels, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.weight.float() * torch.rsqrt(self.running_var.float() + 1e-5)
+        shift = self.bias.float() - self.running_mean.float() * a
+        return x * a.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+@torch.no_grad()
+def init_conv_random(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Random weights for the plain-conv networks (the face models, LPIPS):
+    each nn.Conv2d's weight from N(0, 1 / fan_in) (flax's lecun_normal
+    variance), biases zero, FrozenBatchNorm left at identity; drawn
+    from one generator on the model's device, seeded."""
+    device = next(model.parameters()).device
+    generator = torch.Generator(device=device).manual_seed(seed)
+    for module in model.modules():
+        if isinstance(module, nn.Conv2d):
+            module.weight.normal_(0.0, module.weight[0].numel() ** -0.5, generator=generator)
+            if module.bias is not None:
+                module.bias.zero_()
+    return model

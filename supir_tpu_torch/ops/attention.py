@@ -7,7 +7,9 @@ goes to flash attention, causal or not; everything else - cross-attention
 to the 77 text tokens, the VAE mid-block's single 512-wide head, a call with
 a bias, a causal call whose queries and keys differ in number - uses the
 plain fp32-softmax form, which autograd differentiates. Shapes are
-[B, S, H, D].
+[B, S, H, D]. The kernels take bf16: on the card a flash site of another
+dtype (an engine with fp32 parameters) raises, where the JAX package runs
+its kernel in fp32; K1 has no fp32 instance yet (ROADMAP.md, Queue 2).
 
 Under autograd, a flash site whose q, k or v requires grad (grad mode on)
 goes to `FlashAttention` (K3 forward, K4 backward), as JAX differentiates
@@ -44,5 +46,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
     if bias is None and flash_eligible(s, t, q.shape[-1]) and (not causal or s == t):
         if needs_grad(q, k, v):
             return FlashAttention.apply(q, k, v, causal, alibi_slopes)
+        if q.is_cuda and q.dtype != torch.bfloat16:
+            raise TypeError(f"a flash attention site on the card takes bf16, got {q.dtype} (an engine with "
+                            "fp32 parameters: --full_params, --diff_dtype fp32); K1 has no fp32 instance "
+                            "yet (ROADMAP.md, Queue 2: K1 in fp32)")
         return flash_attention(q, k, v, causal, alibi_slopes)
     return attention_plain(q, k, v, causal=causal, bias=bias, alibi_slopes=alibi_slopes)

@@ -43,6 +43,11 @@ does not hold, and reports them.
 `plain_unet_state_dict_from_jax` carries the plain SDXL UNetModel's tree
 into the port's `models/unet.py:UNetModel` (`C.plain_unet_rules`).
 
+`retinaface_state_dict_from_jax`, `parsenet_state_dict_from_jax` and
+`lpips_state_dict_from_jax` carry the face models' and LPIPS's trees into
+the port's modules under facexlib's keys (`utils/face_ckpt.py`'s tables)
+and under torchvision's and the taming heads' keys.
+
 `train_state_from_jax` carries a JAX trainer state (params, optax's AdamW
 mu and nu, the EMA and the step) into the port's trainer state by the same
 rules: the transforms are linear, so they serve the moments and the EMA as
@@ -312,3 +317,34 @@ def convert_llava_state_dict(torch_sd: Mapping[str, Any], cfg) -> Tuple[Dict[str
     report.filled = len(sd)
     report.unused.sort()
     return sd, report
+
+
+def retinaface_state_dict_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX RetinaFace tree -> the port's RetinaFace state dict (facexlib keys)."""
+    from supir_tpu_torch.utils.face_ckpt import retinaface_rules
+
+    return state_dict_from_rules(params_np, retinaface_rules())
+
+
+def parsenet_state_dict_from_jax(params_np: Mapping[str, Any], in_size: int = 512,
+                                 res_depth: int = 10) -> Dict[str, torch.Tensor]:
+    """A JAX ParseNet tree -> the port's ParseNet state dict (facexlib keys)."""
+    from supir_tpu_torch.utils.face_ckpt import parsenet_rules
+
+    return state_dict_from_rules(params_np, parsenet_rules(in_size=in_size, res_depth=res_depth))
+
+
+def lpips_state_dict_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX LPIPS tree ({'vgg': {'conv_i': ...}, 'lin_i': [1, 1, 1, C]}) ->
+    the port's LPIPS state dict (`vgg.features.{t}.*` at torchvision's
+    indices, `lin{i}.model.1.weight` [1, C, 1, 1])."""
+    from supir_tpu_torch.utils.metrics import VGG_TORCH_CONV_IDX
+
+    sd: Dict[str, torch.Tensor] = {}
+    for i, t in enumerate(VGG_TORCH_CONV_IDX):
+        conv = params_np["vgg"][f"conv_{i}"]
+        sd[f"vgg.features.{t}.weight"] = _to_torch("conv", np.asarray(conv["kernel"], np.float32))
+        sd[f"vgg.features.{t}.bias"] = np.asarray(conv["bias"], np.float32)
+    for i in range(5):
+        sd[f"lin{i}.model.1.weight"] = np.asarray(params_np[f"lin_{i}"], np.float32).transpose(0, 3, 1, 2)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}

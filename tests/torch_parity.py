@@ -87,3 +87,42 @@ def nchw(x: np.ndarray) -> np.ndarray:
 
 def nhwc(x) -> np.ndarray:
     return np.ascontiguousarray(np.moveaxis(np.asarray(x), 1, -1))
+
+
+def tiny_engine_pair(seed: int = 21):
+    """(cfg, JAX engine, port cfg, port engine on the CPU): the tiny model
+    with its conditioner, every leaf random from `seed`, in both packages."""
+    import jax
+    import jax.numpy as jnp
+
+    from supir_tpu.engine import factory as JF
+    from supir_tpu.engine.supir import SUPIREngine as JaxEngine
+    from supir_tpu_torch.engine.factory import create_engine, tiny_test_config
+    from supir_tpu_torch.utils.weights import state_dict_from_jax
+
+    cfg, cond = JF.tiny_test_config()
+    params = random_params(JF.eval_shape_params(cfg, cond, image_size=64), seed=seed)
+    jengine = JaxEngine(cfg, jax.tree_util.tree_map(jnp.asarray, params), cond_cfg=cond)
+    tcfg, tcond = tiny_test_config()
+    tengine = create_engine(tcfg, "cpu", state_dict=state_dict_from_jax(params, cfg), cond_cfg=tcond)
+    return cfg, jengine, tcfg, tengine
+
+
+def inject_noise(engine, seed: int = 0):
+    """Wrap engine.batchify_sample (JAX or port) so that its n-th call gets
+    noise_override and center_noise_override drawn with numpy from (seed,
+    n): the two packages draw different noise from a seed, so parity runs
+    of an app that passes `seed` give both engines these draws instead.
+    Returns the list of the calls' latent shapes."""
+    original = engine.batchify_sample
+    calls = []
+
+    def wrapped(x, c, uc, **kw):
+        shape = tuple(np.shape(c["control"]))
+        rng = np.random.default_rng((seed, len(calls)))
+        calls.append(shape)
+        noise, center = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+        return original(x, c, uc, noise_override=noise, center_noise_override=center, **kw)
+
+    engine.batchify_sample = wrapped
+    return calls
