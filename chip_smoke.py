@@ -7,20 +7,27 @@
 Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is switched off for matmuls and cuDNN convolutions.
-  2. build: the CUDA C++ kernels (K1 and K3, K4, K2, the strip-body GEMVs,
+  2. build: the CUDA C++ kernels (K1 and K3, K1 fp32, K4, K2, the strip-body GEMVs,
      the tensor-core GEMV of K5, K6, K7, K9, K10, K5's act_int8 mode and
      K11, K8, K9's strip body, the probes' kernels and their GEMV
      geometries; one nvcc per source, all at once, into
      build/supir_tpu_torch/) with ptxas' registers and spills (for each of
      the forward's eight instantiations, K1/K3 x D 64/128 x ALiBi, and the
      tensor-core GEMV's seventeen, four layouts x three row tiles, W4A8 x
-     two and K9's pair x three, which may not spill), and the Triton import
+     two and K9's pair x three, which may not spill; and K1 fp32's eight,
+     D 64/128 x the kernel and its three planted faults, which may not
+     spill either), and the Triton import
      of K2's first design, which stays as a comparator.
   3. kernels against their plain PyTorch versions on the card, with
      CUDA-event or CUDA-graph times of both, the least time the card could
      take (bound) and, where one PyTorch call computes the same function,
      its time: K1 at the restore path's shapes and at the tiled path's
      batches (98 rows: 49 windows of a 4096^2 image with CFG), K1 causal,
+     K1 fp32 at the restore's two shapes and a ragged D 128 one, causal and
+     not (rel-L2 1e-5 against the fp32 plain version, which the bf16
+     kernel on the same values misses; planted faults: no rescale when
+     the max rises, the ragged tile unmasked, the diagonal unmasked; in
+     turns with SDPA fp32 by CUDA-graph replay),
      K2 at each of the restore path's shape classes and at the tiled
      path's largest batch (the cluster kernel in turns with
      the Triton first design, by events and by CUDA-graph replay, host µs
@@ -63,7 +70,8 @@ Phases, each printing its own lines:
      at the plan's k-slices, and at 1, 2, 4 and 8, two runs the same bits;
      the nibble unpack T3a through both of the body's decodes
      (csrc/nibble_order.cu on csrc/tc_decode.cuh's nib2 and quad16) and
-     the native cast bit for bit, T3a beside an empty kernel's launch;
+     the native cast T4a through nib2 bit for bit (and equal to its CPU
+     walk), T3a and T4a beside an empty kernel's launch;
      T1c (half-split), T3b (paired) and T4b (native) on the tensor-core
      body at the plan's k-slices by rel-L2 1e-2; each with planted faults
      that must break it; T1a and T1b in turns with torch.sum, T2 with its
@@ -94,6 +102,10 @@ Phases, each printing its own lines:
      limit. Then again with --load_4bit_llava and LLAVA_MODEL_PATH at a
      tiny HF-layout llava directory the phase writes: the caption must
      lead the prompt and K5 must launch.
+  4c. fp32: the same photo through cli.main with --full_params (every
+     parameter fp32): K1 fp32 at every flash site (106 a step), no bf16
+     K1 launch, K2 as in [cli] on fp32 tensors, a finite fp32 sample;
+     stage times and peak memory.
   5. reference: a reduced-width engine whose self-attention still reaches
      K1 runs the same path on the card (bf16, kernels) and on the CPU
      (fp32, plain versions) with the same weights and noise; the two
@@ -101,7 +113,11 @@ Phases, each printing its own lines:
      with exp2 without the log2(e) fold) must break the bound. Its text
      conditioner (towers 128 wide) gives prepare_condition on both, which
      must agree; bigG's last hidden state in place of its penultimate one
-     must break that bound.
+     must break that bound. Then [fp32 reference]: the same reduced
+     engine with every parameter fp32 on the card (K1 fp32, K2 fp32)
+     against the CPU, same weights and injected noise, 512^2, TF32 off:
+     the image within 1e-3 rel-L2, each K1 fp32 site within 1e-5, bf16 K1
+     never launched; K1 fp32 without its rescale must break the bound.
   5b. tiled: the tiled 4K path through the batch CLI at full width
      (options/SUPIR_v0_tiled.yaml, --use_tile_vae --use_tiled_sampling,
      bf16, random weights, --no_llava, the main path's steps): a 1024^2
@@ -236,6 +252,7 @@ import time
 SIZE = 1024  # image side of the main path, as bench.py's headline
 SEED = 0
 K1_REL_BOUND = 1e-2   # K1 against its fp32 plain version, relative L2
+K1_FP32_REL_BOUND = 1e-5  # K1 fp32 against its fp32 plain version, relative L2 (a bf16 cast gives ~4e-3)
 K3_LSE_BOUND = 1e-3   # K3's lse against the fp32 plain version, max abs
 K4_REL_BOUND = 2e-2   # K4's dq, dk, dv against their fp32 plain versions, relative L2 each
 TRAIN_LOSS_BOUND = 2e-2  # reduced-width train step, card against CPU: loss, relative
@@ -250,6 +267,7 @@ REF_STEPS = 8         # teacher-forced decode steps of the captioner reference
 CLI_PNG = (768, 1152)  # (h, w) of the [cli] phase's photo; min_size 1024 takes it to 1024x1536
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor cores
+FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 # the 13B decode projections per layer: name, cin, cout, prologue, residual
 LLAMA_13B_SHAPES = (("qkv", 5120, 15360, "norm", False), ("o", 5120, 5120, None, True),
                     ("gateup", 5120, 27648, "norm", False), ("down", 13824, 5120, "siluglu", True))
@@ -422,11 +440,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(bytes_moved: float, flops: float = 0.0):
+def bound(bytes_moved: float, flops: float = 0.0, flop_rate: float = BF16_FLOP_PER_S):
     """(ms, "bytes" | "operations"): the least time the card could take, the
-    larger of the bytes over the memory rate and the bf16 operations over
-    the tensor cores' dense peak."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    larger of the bytes over the memory rate and the operations over their
+    peak rate (by default bf16 on the tensor cores, dense)."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -528,11 +546,32 @@ def _tc_instances(report: str):
     return rows
 
 
+def _fp32_instances(report: str):
+    """(D, fault, registers, spill stores, spill loads) of each
+    flash_fwd_fp32_kernel<D, FAULT> instance in nvcc's -Xptxas -v output."""
+    rows, current, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        name = re.search(r"(?:Compiling entry function|Function properties for) '?\S*flash_fwd_fp32_kernelILi(\d+)ELi(\d+)E",
+                         line)
+        if name:
+            current = (int(name.group(1)), int(name.group(2)))
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if current and spill:
+            spills = (int(spill.group(1)), int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if current and used:
+            rows.append(current + (int(used.group(1)),) + spills)
+            current, spills = None, (0, 0)
+    return rows
+
+
 def phase_build():
     from supir_tpu_torch.ops import cuda_build, groupnorm as k2
     from supir_tpu_torch.ops import flash_attention as k1, probes as kp, quantize as kq
 
-    # K1 and K3 share flash_attn_fwd.cu; K4 is flash_attn_bwd.cu; K2 group_norm.cu
+    # K1 and K3 share flash_attn_fwd.cu; K1 fp32 is flash_attn_fwd_fp32.cu; K4 is
+    # flash_attn_bwd.cu; K2 group_norm.cu
     sources = k1.SOURCES + k2.SOURCES + kq.SOURCES + kp.SOURCES
     t0 = time.perf_counter()
     seconds = cuda_build.build_all(sources)
@@ -555,6 +594,14 @@ def phase_build():
     for source, rows in ((k1._FWD_SOURCE, fwd), (k1._BWD_SOURCE, bwd)):
         if reports[source] and len(rows) != 8:  # no report: the library was built earlier
             raise AssertionError(f"expected 8 instantiations in the ptxas report of {source}, found {len(rows)}")
+    # K1 fp32's eight (D 64/128 x the kernel and its three planted faults),
+    # which may not spill
+    fp32 = _fp32_instances(reports[k1._FP32_SOURCE])
+    for d, fault, regs, stores, loads in sorted(fp32):
+        log(f"[build] flash_fwd_fp32_kernel<D={d}, fault={fault}> (K1 fp32{' planted fault' if fault else ''}): "
+            f"{regs} registers, spill stores {stores} B, spill loads {loads} B")
+    if reports[k1._FP32_SOURCE] and (len(fp32) != 8 or any(st or ld for *_, st, ld in fp32)):
+        raise AssertionError(f"K1 fp32's instances: expected 8 without spills, found {fp32}")
     # the tensor-core GEMV's seventeen instances (K5/K6 paired, K7 half-split
     # int4, K7 int8, K11 native: 1, 2 or 4 n-tiles of 8 rows; K10/K5
     # act_int8 W4A8: 1 or 2, 16 rows a launch; K9's pair kernel: 1, 2 or 4):
@@ -759,6 +806,83 @@ def phase_kernels():
 
     results["K2"] = phase_group_norm()
     return results
+
+
+# K1 fp32 at the restore's shapes (15 and 91 of its 106 sites a step in an
+# fp32 engine) and at a ragged D = 128 shape, causal (its diagonal in the
+# ragged last block) and not: b, s, h, d, causal
+K1_FP32_SHAPES = ((2, 4096, 10, 64, False), (2, 1024, 20, 64, False), (1, 1000, 2, 128, True),
+                  (1, 1000, 2, 128, False))
+
+
+def phase_flash_fp32_kernels():
+    """[kernels] K1 fp32 against the plain version in fp32 on the same
+    inputs (relative L2 K1_FP32_REL_BOUND, which the bf16 kernel on the
+    same values misses: nothing may cast down), each planted fault where it
+    can show (no rescale everywhere, the ragged tile where T % 64 and not
+    causal, the diagonal where causal) breaking it; timed by CUDA events
+    and by CUDA-graph replay in turns with SDPA in fp32 (the library
+    call), beside the plain version; bound: 4 B H S T D flops (causal: the
+    visible half) at the fp32 CUDA-core peak. Returns the JSON numbers
+    (times at the first shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from supir_tpu_torch.ops import flash_attention as FA
+    from supir_tpu_torch.tools.timing import chain_ms, mean, turns
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    rows = []
+    for b, s, h, d, causal in K1_FP32_SHAPES:
+        tag = f"[{b},{s},{h},{d}]{' causal' if causal else ''}"
+        q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev) for _ in range(3))
+        t0 = time.perf_counter()
+        out = FA.flash_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        want = FA.attention_plain(q, k, v, causal=causal)
+        rel, err = rel_l2(out, want), (out - want).abs().max().item()
+        cast = rel_l2(FA.flash_attention(*(x.bfloat16() for x in (q, k, v)), causal), want)
+        _check_rel(f"K1 fp32 {tag}", rel, K1_FP32_REL_BOUND)
+        if not cast > K1_FP32_REL_BOUND:
+            raise AssertionError(f"the K1 fp32 bound does not tell a bf16 kernel from it: {cast}")
+        faults = [(FA.FP32_FAULT_NO_RESCALE, "the accumulator not rescaled when the max rises")]
+        if s % FA.FP32_BLOCK and not causal:
+            faults.append((FA.FP32_FAULT_RAGGED, "the ragged last key tile not masked"))
+        if causal:
+            faults.append((FA.FP32_FAULT_DIAGONAL, "the causal diagonal tile not masked"))
+        for fault, name in faults:
+            _check_fault(f"K1 fp32 {name} {tag}", rel_l2(FA._forward_fp32(q, k, v, causal, fault), want),
+                         K1_FP32_REL_BOUND)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def kernel():
+            return FA.flash_attention(q, k, v, causal)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+        lib_rel = rel_l2(sdpa().transpose(1, 2), want)
+        ms = cuda_ms(kernel, 10)
+        plain_ms = cuda_ms(lambda: FA.attention_plain(q, k, v, causal=causal), 3)
+        lib_ev = cuda_ms(sdpa, 10)
+        graph = turns({"K1 fp32": [kernel] * 5, "SDPA fp32": [sdpa] * 5}, lambda calls: chain_ms(calls, 4))
+        graph_k, graph_lib = mean(graph["K1 fp32"]), mean(graph["SDPA fp32"])
+        flops = 4 * b * h * d * (s * (s + 1) // 2 if causal else s * s)
+        bound_ms, bound_by = bound(nbytes(q, k, v, out), flops, FP32_FLOP_PER_S)
+        log(f"[kernels] K1 fp32 {tag} vs fp32 plain: rel_l2 {rel:.3e} (bound {K1_FP32_REL_BOUND:g}; the bf16 "
+            f"kernel on the same values {cast:.3e}; SDPA fp32 {lib_rel:.3e}), max_abs_err {err:.3e}; events "
+            f"{ms:.4f} ms vs plain {plain_ms:.3f} ms, SDPA fp32 {lib_ev:.4f} ms; graph in turns "
+            f"{'/'.join(f'{x:.4f}' for x in graph['K1 fp32'])} vs SDPA fp32 "
+            f"{'/'.join(f'{x:.4f}' for x in graph['SDPA fp32'])} ms: {graph_k / graph_lib:.2f}x SDPA; bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP at 67 TFLOP/s fp32): "
+            f"{bound_ms / graph_k:.1%} of it by graph; first call {first:.2f} s")
+        # the JSON row's ms and library_ms: the in-turns graph times
+        rows.append(dict(max_abs_err=err, ms=graph_k, event_ms=ms, plain_ms=plain_ms, library_ms=graph_lib,
+                         library_event_ms=lib_ev, bound_ms=bound_ms, bound_by=bound_by))
+        del q, k, v, out, want, qt, kt, vt
+        _free()
+    return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
 # K2 at each shape class of the restore path (UNet, GLVControl and ZeroSFT
@@ -1043,10 +1167,18 @@ def phase_probes():
     # negative one, so a cast that drops the sign would pass it
     block = Q.pack_int4_native((torch.arange(128 * 128, device=dev).reshape(128, 128) % 16 - 8).to(torch.int8))
     rows["T4a"] = _probe_row(
-        "T4a native cast [128,128] int4, every value -> bf16 x 2", P.native_cast, P.native_cast_plain,
-        [(block.clone(),) for _ in range(8)], block.numel() * 5,
-        [("nibbles swapped", lambda: P.native_cast(block, _fault=1)),
-         ("sign not extended", lambda: P.native_cast(block, _fault=2))])
+        "T4a native cast [128,128] int4, every value -> bf16 x 2, through nib2 (csrc/tc_decode.cuh)",
+        P.native_cast, P.native_cast_plain, [(block.clone(),) for _ in range(8)], block.numel() * 5,
+        [("nibbles swapped (nib2's selector mirrored)", lambda: P.native_cast(block, _fault=P.ORDER_FAULT_SWAP)),
+         ("sign not restored (the lop3's ^ 8 dropped)",
+          lambda: P.native_cast(block, _fault=P.ORDER_FAULT_UNSIGNED))])
+    walk = P.native_cast_emulate(block.cpu())
+    if not torch.equal(P.native_cast(block).cpu().view(torch.int16), walk.view(torch.int16)):
+        raise AssertionError("T4a differs from its CPU walk (native_cast_emulate)")
+    floor = graph_ms([lambda: P.empty_launch(dev) for _ in range(8)])
+    rows["T4a"]["floor_ms"] = floor
+    log(f"[probes] T4a launch floor: an empty kernel {floor:.4f} ms by CUDA graph; T4a {rows['T4a']['ms']:.4f} ms "
+        f"({rows['T4a']['ms'] / floor:.2f}x), equal to its CPU walk bit for bit")
     for probe, (label, ms) in beside.items():
         r = rows[probe]
         lib = "" if r["library_ms"] is None else f"; its PyTorch call {r['library_ms']:.4f} ms"
@@ -2139,6 +2271,163 @@ def phase_cli(steps: int, smi: str):
         if not k5 > 0:
             raise AssertionError("[cli] the captioner run launched no K5")
     return launches
+
+
+FP32_REF_BOUND = 1e-3  # [fp32 reference]: card fp32 (K1 fp32, K2 fp32) against CPU fp32 plain, relative L2
+
+
+def _fp32_counters():
+    from supir_tpu_torch.ops.flash_attention import flash_attention
+    from supir_tpu_torch.ops.groupnorm import group_norm
+
+    return flash_attention, group_norm
+
+
+def phase_fp32(steps: int, smi: str, cli_launches: dict):
+    """[fp32]: the batch CLI with --full_params at full width
+    (options/SUPIR_v0.yaml, XL-base, every parameter fp32, random weights,
+    --no_llava) on [cli]'s seeded 768x1152 PNG. Every flash site runs K1
+    fp32 (106 a step) and none the bf16 K1; K2 launches as in [cli], now on
+    fp32; the engine's parameters are all fp32 and the restored image
+    finite. Seconds per phase and peak memory. Returns K1 fp32's launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from supir_tpu_torch.apps import cli
+    from supir_tpu_torch.config import load_yaml_config
+    from supir_tpu_torch.utils.image import pil_to_array
+
+    k1, k2 = _fp32_counters()
+    opt = "options/SUPIR_v0.yaml"
+    cfg, _ = load_yaml_config(opt)
+    h, w = CLI_PNG
+    seen = {}
+    make_engine, to_pil = cli.create_engine_from_args, cli.array_to_pil
+
+    def engine_from_args(args):
+        engine, c = make_engine(args)
+        seen["dtypes"] = {p.dtype for p in engine.model.parameters()}
+        seen["params"] = sum(p.numel() for p in engine.model.parameters())
+        return engine, c
+
+    def array_to_pil(arr, *a):
+        seen["finite"] = bool(torch.isfinite(arr).all())
+        seen["dtype"] = arr.dtype
+        return to_pil(arr, *a)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir, out_dir = _photo_dir(tmp, h, w, SEED + 7), os.path.join(tmp, "out")  # [cli]'s photo
+        model_h, model_w = pil_to_array(Image.open(os.path.join(img_dir, "photo.png")), min_size=1024)[0].shape[:2]
+        lat = (model_h // cfg.vae.downscale_factor, model_w // cfg.vae.downscale_factor)
+        cli.create_engine_from_args, cli.array_to_pil = engine_from_args, array_to_pil
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = k1.fp32_launches = k2.launches = 0
+        t0 = time.perf_counter()
+        try:
+            rec, = cli.main(["--img_dir", img_dir, "--save_dir", out_dir, "--opt", opt, "--random_weights",
+                             "--edm_steps", str(steps), "--no_llava", "--full_params"])
+        finally:
+            cli.create_engine_from_args, cli.array_to_pil = make_engine, to_pil
+        total = time.perf_counter() - t0
+        launches = {"K1": k1.launches, "K1-fp32": k1.fp32_launches, "K2": k2.launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out = np.asarray(Image.open(rec["saved"][0]))
+    _free()
+    t = rec["timings"]
+    want_k1 = expected_flash_launches(cfg, lat, steps, vae_passes=5)
+    log(f"[fp32] {smi}: cli.main --full_params, {opt}, {seen['params'] / 1e9:.3f} B parameters in "
+        f"{sorted(str(d) for d in seen['dtypes'])}, {h}x{w} PNG -> {model_h}x{model_w}, {steps} RestoreEDM "
+        f"steps, --no_llava: stage1 {t['stage1']:.3f} s, tokenize {t['tokenize']:.3f} s, conditioning "
+        f"{t['cond']:.3f} s, sample {t['sample']:.3f} s, save {t['save']:.3f} s; main() {total:.2f} s with the "
+        f"engine's random init; peak memory {peak:.2f} GiB")
+    sites = expected_flash_sites(cfg, lat)
+    log(f"[fp32] launches: K1 fp32 {launches['K1-fp32']} (expected {sites} sites x {steps} steps + "
+        f"{want_k1 - sites * steps} VAE = {want_k1}), bf16 K1 {launches['K1']} (expected 0), K2 {launches['K2']} ([cli]'s bf16 "
+        f"run: {cli_launches['K2']}); sample {seen['dtype']}, finite {seen['finite']}; saved {out.shape}")
+    if seen["dtypes"] != {torch.float32}:
+        raise AssertionError(f"[fp32] --full_params left parameters in {seen['dtypes']}")
+    if launches != {"K1": 0, "K1-fp32": want_k1, "K2": cli_launches["K2"]}:
+        raise AssertionError(f"[fp32] launches {launches}, expected K1 fp32 {want_k1}, K1 0, K2 {cli_launches['K2']}")
+    if not (seen["finite"] and seen["dtype"] == torch.float32 and out.shape == (h, w, 3) and out.std() > 0):
+        raise AssertionError(f"[fp32] output: finite {seen['finite']}, {seen['dtype']}, PNG {out.shape} std "
+                             f"{out.std()}")
+    return launches["K1-fp32"]
+
+
+def phase_fp32_reference():
+    """[fp32 reference]: the references' reduced-width engine with every
+    parameter fp32 on the card (K1 fp32 at every flash site, the 32^2
+    level's self-attention and the VAE's 128-wide mid-block head; K2 on
+    fp32) against the same weights on the CPU (fp32, plain versions), same
+    injected noise, 512^2, 2 steps, TF32 off: the decoded image within
+    FP32_REF_BOUND, each K1 fp32 site within K1_FP32_REL_BOUND of its plain
+    version, bf16 K1 never launched; K1 fp32 without its rescale (planted
+    fault 1) at every site must break the image's bound."""
+    import torch
+
+    from supir_tpu_torch.engine.factory import build_model, create_engine
+    from supir_tpu_torch.engine.supir import SUPIREngine
+    from supir_tpu_torch.ops import flash_attention as FA
+
+    k1, k2 = _fp32_counters()
+    cfg = dataclasses.replace(_reduced_cfg(), ae_dtype="fp32", diffusion_dtype="fp32")
+    size = 512
+    cpu_model = build_model(cfg, "cpu", seed=SEED)
+    _randomize_all(cpu_model, SEED + 40)
+    cpu_engine = SUPIREngine(cfg, cpu_model)
+    gpu_engine = create_engine(cfg, "cuda", state_dict=cpu_model.state_dict(), param_dtype=torch.float32)
+    x, c, uc = _inputs(cfg, size, torch.device("cpu"), SEED + 41)
+    g = torch.Generator().manual_seed(SEED + 42)
+    lat = size // cfg.vae.downscale_factor
+    noise = torch.randn(1, lat, lat, 4, generator=g)
+    center = torch.randn(1, lat, lat, 4, generator=g)
+    kw = dict(SAMPLE_KW, s_churn=0.0, num_steps=2, noise_override=noise, center_noise_override=center)
+
+    t0 = time.perf_counter()
+    z = cpu_engine.encode_first_stage_with_denoise(x)
+    want = cpu_engine.batchify_sample(x, dict(c, control=z), dict(uc, control=z), z_override=z, **kw)
+    cpu_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    cg = {key: val.to(dev) for key, val in c.items()}
+    ug = {key: val.to(dev) for key, val in uc.items()}
+
+    def card(kernel):
+        with kernels_at_sites(kernel, k2) as site_rel:
+            zg = gpu_engine.encode_first_stage_with_denoise(x.to(dev))
+            out = gpu_engine.batchify_sample(x.to(dev), dict(cg, control=zg), dict(ug, control=zg), z_override=zg,
+                                             **kw).cpu()
+        return out, site_rel
+
+    k1.launches = k1.fp32_launches = 0
+    t0 = time.perf_counter()
+    got, site_rel = card(k1)
+    card_s = time.perf_counter() - t0
+    launches = (k1.launches, k1.fp32_launches)
+    # the counted run holds four VAE passes: the denoise encode, stage-1
+    # decode, x_center encode, final decode
+    want_k1 = expected_flash_launches(cfg, lat, 2, vae_passes=4)
+    rel = rel_l2(got, want)
+    log(f"[fp32 reference] reduced width (model_channels 128, 64-wide heads, VAE ch 32), every parameter fp32, "
+        f"{size}^2, 2 steps, injected noise, TF32 off: card ({card_s:.1f} s) vs CPU ({cpu_s:.1f} s): rel_l2 "
+        f"{rel:.3e} (bound {FP32_REF_BOUND:g}), max_abs_err {(got - want).abs().max().item():.3e}; K1 fp32 "
+        f"launches {launches[1]} (expected {want_k1}), bf16 K1 {launches[0]}; worst K1 fp32 site vs fp32 plain "
+        f"rel_l2 {max(site_rel):.3e} over {len(site_rel)} sites (bound {K1_FP32_REL_BOUND:g})")
+    if not (rel <= FP32_REF_BOUND and torch.isfinite(got).all() and max(site_rel) <= K1_FP32_REL_BOUND):
+        raise AssertionError(f"[fp32 reference] card and CPU disagree: rel_l2 {rel}, worst site {max(site_rel)}")
+    if launches != (0, want_k1):
+        raise AssertionError(f"[fp32 reference] launches (bf16 K1, K1 fp32) {launches}, expected (0, {want_k1})")
+    bad, bad_sites = card(lambda q, k, v, causal=False: FA._forward_fp32(q, k, v, causal, FA.FP32_FAULT_NO_RESCALE))
+    bad_rel = rel_l2(bad, want)
+    log(f"[fp32 reference] control (K1 fp32 without its rescale): rel_l2 {bad_rel:.3e}, worst site "
+        f"{max(bad_sites):.3e}")
+    if not bad_rel > FP32_REF_BOUND:
+        raise AssertionError(f"the [fp32 reference] bound misses K1 fp32 without its rescale: rel_l2 {bad_rel}")
+    del gpu_engine
+    _free()
 
 
 TILED_OPT = "options/SUPIR_v0_tiled.yaml"
@@ -4646,6 +4935,7 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     results = phase_kernels()
+    results["K1-fp32"] = phase_flash_fp32_kernels()
     results.update(phase_quant_kernels())
     results.update(phase_flash_train_kernels())
     results.update(phase_alibi_kernels())
@@ -4653,8 +4943,12 @@ def main() -> int:
     results.update(probe_rows)
     launches = phase_main(args.steps, args.repeat)
     launches.update(probe_launches)
-    phase_cli(args.steps, smi)
+    cli_launches = phase_cli(args.steps, smi)
+    t0 = time.perf_counter()
+    launches["K1-fp32"] = phase_fp32(args.steps, smi, cli_launches)
     phase_reference()
+    phase_fp32_reference()
+    log(f"[fp32] the two fp32 phases took {time.perf_counter() - t0:.1f} s with [reference]")
     tiled = phase_tiled(args.steps, smi)
     phase_tiled_reference()
     lightning = phase_lightning(smi)
@@ -4704,6 +4998,7 @@ def main() -> int:
 
     sources = {
         "K1": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:35"),
+        "K1-fp32": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd_fp32.cu", "supir_tpu/ops/flash_attention.py:35"),
         "K2": ("cuda", "supir_tpu_torch/csrc/group_norm.cu", "supir_tpu/ops/groupnorm.py:40"),
         "K3": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:164"),
         "K4": ("cuda", "supir_tpu_torch/csrc/flash_attn_bwd.cu", "supir_tpu/ops/flash_attention.py:499"),
@@ -4724,11 +5019,11 @@ def main() -> int:
         "T2": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "tools/gemv_sweep.py:48"),
         "T3a": ("cuda", "supir_tpu_torch/csrc/nibble_order.cu", "tools/bitcast_probe.py:33"),
         "T3b": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "tools/bitcast_probe.py:63"),
-        "T4a": ("cuda", "supir_tpu_torch/csrc/probes.cu", "tools/int4_native_probe.py:46"),
+        "T4a": ("cuda", "supir_tpu_torch/csrc/nibble_order.cu", "tools/int4_native_probe.py:46"),
         "T4b": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "tools/int4_native_probe.py:58"),
     }
     # where each kernel's times were taken
-    at = {"K1": "[2,4096,10,64] bf16", "K2": "[2,320,128,128] bf16, SiLU",
+    at = {"K1": "[2,4096,10,64] bf16", "K1-fp32": "[2,4096,10,64] fp32", "K2": "[2,320,128,128] bf16, SiLU",
           "K3": "[1,4096,10,64] bf16, with lse", "K4": "[1,4096,10,64] bf16, dq dk dv",
           "K5": "one 13B layer (qkv, o, gate-up, down), 1 row", "K6": "one 13B layer, 1 row",
           "K7": "one 13B layer, int8, 1 row", "K7-int4": "one 13B layer, half-split int4, 1 row", "K8": "one 13B layer's four fp32 kernels",
@@ -4740,14 +5035,14 @@ def main() -> int:
           "T1c": "K7 int4 [8,5120]x[2560,15360], the plan's k-slices", "T2": "W4A8 qkv, 1 row, the plan's k-slices",
           "T3a": "u8 [2,128], all 256 bytes, the paired decode (nib2)",
           "T3b": "qkv [8,5120]x[2560,15360], the plan's k-slices",
-          "T4a": "int4 [128,128], every value -8..7",
+          "T4a": "int4 [128,128], every value -8..7, through nib2",
           "T4b": "down [1,13824]x[13824,5120], the plan's k-slices"}
     kernels = []
     for name, (route, source, replaces) in sources.items():
         r = results[name]
         kernels.append({
             "name": {"K5-act": "K5 act_int8", "K7-int4": "K7 int4", "K3-alibi": "K3 ALiBi",
-                     "K4-alibi": "K4 ALiBi"}.get(name, name),
+                     "K4-alibi": "K4 ALiBi", "K1-fp32": "K1 fp32"}.get(name, name),
             "route": route, "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -68,13 +68,14 @@ def add_engine_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
     ap.add_argument("--loading_half_params", action="store_true", default=None,
                     help="parameters in the compute dtypes (the default)")
     ap.add_argument("--full_params", dest="loading_half_params", action="store_false",
-                    help="every parameter in fp32, and so every computation (the CPU only for now: "
-                         "on the card the flash attention sites take bf16)")
+                    help="every parameter in fp32, and so every computation (on the card the flash "
+                         "attention sites run K1 fp32, on the CUDA cores, no TF32; cuDNN's convolutions "
+                         "follow torch.backends.cudnn.allow_tf32)")
     ap.add_argument("--ae_dtype", type=str, default=None, choices=["bf16", "fp32"],
                     help="autoencoder (and text conditioner) dtype (reference test.py --ae_dtype)")
     ap.add_argument("--diff_dtype", type=str, default=None, choices=["fp16", "bf16", "fp32"],
-                    help="diffusion dtype (reference test.py --diff_dtype; fp16 maps to bf16; fp32 the CPU only "
-                         "for now)")
+                    help="diffusion dtype (reference test.py --diff_dtype; fp16 maps to bf16; fp32 runs the "
+                         "flash sites on K1 fp32)")
     ap.add_argument("--random_weights", action="store_true",
                     help="random weights from a seed, no checkpoints (smoke runs, benchmarks)")
     ap.add_argument("--tiny", action="store_true", help="the width-scaled tiny model (tests)")

@@ -1,8 +1,10 @@
-// T3a, the nibble-order check, for Hopper (sm_90a): quantize_int4_paired's
-// bytes read back through the int4 decodes that the tensor-core decode GEMV
-// (quant_gemv_tc.cu) compiles, from the one definition both include
-// (tc_decode.cuh). Replaces tools/bitcast_probe.py:order_kernel (:33,
-// pallas_call :46), which reads the order pltpu.bitcast gives.
+// T3a, the nibble-order check, and T4a, the native int4 cast, for Hopper
+// (sm_90a): packed int4 bytes read back through the int4 decodes that the
+// tensor-core decode GEMV (quant_gemv_tc.cu) compiles, from the one
+// definition both include (tc_decode.cuh).
+//
+// T3a replaces tools/bitcast_probe.py:order_kernel (:33, pallas_call :46),
+// which reads the order pltpu.bitcast gives: quantize_int4_paired's bytes.
 //
 // What it computes: u8 q [r, c] -> fp32 [2r, c], row 2i the low nibble of
 // byte row i and row 2i + 1 the high one, sign-extended (8 -> -8): the order
@@ -19,15 +21,25 @@
 //       stages x in that order instead).
 // Either decode must give the plain unpack on every byte.
 //
-// What bounds it: one launch. The probe's input is u8 [2, 128] (all 256
-// byte values), 256 bytes in and 1 KB out: 0.3 ns of memory traffic, so its
-// time is the launch; supir_empty_launch, an empty kernel, measures that
-// floor on the same stream.
+// T4a replaces tools/int4_native_probe.py:stage2_mosaic's k (:46,
+// pallas_call :50), the int4 -> bf16 cast of a [128, 128] block, doubled:
+// column-pair-packed int4 u8 [r, c/2] (byte (k, j) = column 2j low | 2j+1
+// high, quantize_int4_native's layout) -> bf16 [r, c] x 2. A thread takes
+// one 4-byte word (4 column pairs, as a native lane of the body reads its
+// weight stage) and turns each byte into a bf16x2 by nib2, the decode K11's
+// MODE_NATIVE runs (a permute, a lop3, an hsub2; exact for every nibble),
+// then doubles it with one packed multiply (exact).
+//
+// What bounds them: one launch. T3a's input is u8 [2, 128] (all 256 byte
+// values), 256 bytes in and 1 KB out; T4a's [128, 64], 8 KB in and 32 KB
+// out: nanoseconds of memory traffic, so their time is the launch;
+// supir_empty_launch, an empty kernel, measures that floor on the same
+// stream.
 //
 // Planted faults (checks only): 1 the nibbles swapped (nib2's or quad16's
-// permute selector mirrored), 2 the sign not restored (nib2: the lop3's ^ 8
-// dropped; w4a8: the bytes read back unsigned), 3 (w4a8) the k order left
-// permuted.
+// permute selector mirrored: tc_decode.cuh's SWAP), 2 the sign not restored
+// (nib2: the lop3's ^ 8 dropped, SIGNED false; w4a8: the bytes read back
+// unsigned), 3 (T3a's w4a8) the k order left permuted.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,6 +104,35 @@ __global__ void order_w4a8_kernel(const uint32_t* __restrict__ q, int r, int cw,
   }
 }
 
+// T4a: one thread per 4-byte word of q (n bytes; a last partial word read
+// and written byte by byte); out word i = bf16x2 of byte i, doubled
+template <bool SIGNED, bool SWAP>
+__global__ void native_cast_kernel(const uint8_t* __restrict__ q, size_t n, uint32_t* __restrict__ out) {
+  const __nv_bfloat162 two = __floats2bfloat162_rn(2.f, 2.f);
+  const size_t words = (n + 3) / 4;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < words; e += (size_t)gridDim.x * blockDim.x) {
+    const size_t i0 = 4 * e;
+    const bool whole = i0 + 4 <= n;
+    uint32_t w = 0;
+    if (whole)
+      w = reinterpret_cast<const uint32_t*>(q)[e];
+    else
+      for (size_t b = 0; i0 + b < n; ++b) w |= (uint32_t)q[i0 + b] << (8 * b);
+    const uint32_t w4 = w >> 4;
+    uint32_t r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t pair = tcdec::nib2<SIGNED, SWAP>(w, w4, i);
+      const __nv_bfloat162 x = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&pair), two);
+      r[i] = *reinterpret_cast<const uint32_t*>(&x);
+    }
+    if (whole)
+      reinterpret_cast<uint4*>(out)[e] = make_uint4(r[0], r[1], r[2], r[3]);
+    else
+      for (size_t b = 0; i0 + b < n; ++b) out[i0 + b] = r[b];
+  }
+}
+
 __global__ void empty_kernel() {}
 
 int grid_for(size_t n) {
@@ -129,8 +170,26 @@ extern "C" int supir_unpack_nibbles(const void* q, int r, int c, int decode, int
   return (int)cudaErrorInvalidValue;
 }
 
+// supir_native_cast (T4a): q uint8 [n] column-pair-packed int4, 4-byte
+// aligned -> out bf16 [2n], 16-byte aligned: out[2i] = 2 * low nibble of
+// byte i, out[2i+1] = 2 * high; fault 0 none, 1 nibbles swapped, 2 sign not
+// restored. Returns the launch's cudaError_t.
+extern "C" int supir_native_cast(const void* q, long long n, int fault, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || reinterpret_cast<uintptr_t>(q) % 4 || reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = grid_for(((size_t)n + 3) / 4);
+  const uint8_t* qq = static_cast<const uint8_t*>(q);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  if (fault == 0) native_cast_kernel<true, false><<<blocks, 256, 0, s>>>(qq, (size_t)n, o);
+  else if (fault == FAULT_SWAP) native_cast_kernel<true, true><<<blocks, 256, 0, s>>>(qq, (size_t)n, o);
+  else if (fault == FAULT_UNSIGNED) native_cast_kernel<false, false><<<blocks, 256, 0, s>>>(qq, (size_t)n, o);
+  else return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
 // supir_empty_launch: one empty kernel of one warp on `stream`, the launch
-// floor T3a's time is read against. Returns the launch's cudaError_t.
+// floor T3a's and T4a's times are read against. Returns the launch's cudaError_t.
 extern "C" int supir_empty_launch(void* stream) {
   empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();

@@ -4,8 +4,8 @@
 // K7, K10, K11) runs one strip per block; quant_pair.cu (K9) runs many
 // strips per block in a persistent, cooperative launch; gemv_sweep.cu
 // instantiates the same kernels at other strip widths (and K10's with
-// split-K) for the decode-GEMV probes' first designs, and probes.cu takes
-// nib2_bf16 for T4a. All keep the arithmetic of this file.
+// split-K) for the decode-GEMV probes' first designs. All keep the
+// arithmetic of this file.
 //
 // Layout of a block of 256 threads at the default strip: 4 column threads x
 // 8 columns cover the strip, 64 k-groups walk the weight rows with stride
@@ -77,16 +77,6 @@ template <int MODE, int BT, int S = STRIP> struct Chunk {
 // signed nibble (low 4 bits of n) -> float, by the exponent trick
 __device__ __forceinline__ float nib(uint32_t n) {
   return __int_as_float((n & 0xFu) ^ 0x4B000008u) - 8388616.0f;
-}
-
-// the two signed nibbles of byte n (low 8 bits) -> a bf16 pair (low nibble in
-// the low half), by one packed subtract: each nibble, its sign bit flipped,
-// becomes the mantissa of bf16 128 + m (0x4300 | m), and 136 - 8 leaves
-// m - 8, the nibble's two's-complement value, exactly
-__device__ __forceinline__ __nv_bfloat162 nib2_bf16(uint32_t n) {
-  const uint32_t bits = ((((n & 0x0Fu) | ((n & 0xF0u) << 12)) ^ 0x00080008u) | 0x43004300u);
-  const uint32_t k136 = 0x43084308u;   // bf16 136.0 in both halves
-  return __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&bits), *reinterpret_cast<const __nv_bfloat162*>(&k136));
 }
 
 // signed byte (low 8 bits of n) -> float

@@ -7,9 +7,12 @@ goes to flash attention, causal or not; everything else - cross-attention
 to the 77 text tokens, the VAE mid-block's single 512-wide head, a call with
 a bias, a causal call whose queries and keys differ in number - uses the
 plain fp32-softmax form, which autograd differentiates. Shapes are
-[B, S, H, D]. The kernels take bf16: on the card a flash site of another
-dtype (an engine with fp32 parameters) raises, where the JAX package runs
-its kernel in fp32; K1 has no fp32 instance yet (ROADMAP.md, Queue 2).
+[B, S, H, D]. A flash site runs in its inputs' dtype, as the JAX package
+runs its kernel: q, k and v of mixed dtypes are first promoted to their
+common type (as `attention_plain` promotes its weights and v); bf16 goes
+to K1, fp32 (an engine with fp32 parameters: `--full_params`,
+`--diff_dtype fp32`) to K1 fp32, and fp16 is widened exactly to fp32, runs
+on K1 fp32 and is rounded once back to fp16. No site is cast down.
 
 Under autograd, a flash site whose q, k or v requires grad (grad mode on)
 goes to `FlashAttention` (K3 forward, K4 backward), as JAX differentiates
@@ -46,9 +49,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
     if bias is None and flash_eligible(s, t, q.shape[-1]) and (not causal or s == t):
         if needs_grad(q, k, v):
             return FlashAttention.apply(q, k, v, causal, alibi_slopes)
-        if q.is_cuda and q.dtype != torch.bfloat16:
-            raise TypeError(f"a flash attention site on the card takes bf16, got {q.dtype} (an engine with "
-                            "fp32 parameters: --full_params, --diff_dtype fp32); K1 has no fp32 instance "
-                            "yet (ROADMAP.md, Queue 2: K1 in fp32)")
-        return flash_attention(q, k, v, causal, alibi_slopes)
+        dtype = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+        if dtype == torch.float16:
+            return flash_attention(q.float(), k.float(), v.float(), causal, alibi_slopes).to(dtype)
+        return flash_attention(q.to(dtype), k.to(dtype), v.to(dtype), causal, alibi_slopes)
     return attention_plain(q, k, v, causal=causal, bias=bias, alibi_slopes=alibi_slopes)

@@ -35,6 +35,18 @@ differentiated, and raise when grad mode is on and an input requires grad.
 `FlashAttention` is the counterpart of the `custom_vjp`: its forward runs
 K3 and saves q, k, v, out and lse, its backward runs K4.
 
+K1 fp32 is K1 for fp32 q, k and v, as the TPU kernels run in the
+inputs' dtype (`_flash_primal`'s `out_shape`, :373): an engine with fp32
+parameters (`--full_params`, `--diff_dtype fp32`) attends in fp32. Its
+source, `supir_tpu_torch/csrc/flash_attn_fwd_fp32.cu`, runs every product
+as an fp32 FMA on the CUDA cores (wgmma takes no fp32 operand; TF32 would
+lower the precision), reading q, k and v through their strides with
+16-byte loads. `flash_attention` launches it for fp32 inputs and counts
+those calls in `flash_attention.fp32_launches`, apart from `launches`.
+`flash_fp32_emulate` walks its tiles on the CPU. K3, K4 and the ALiBi
+variants take bf16 only: no path of the port reaches them in fp32 (the
+trainer runs under bf16 autocast, MPT in bf16).
+
 Each wrapper, on a CPU tensor, returns its plain version (`attention_plain`,
 `attention_fwd_lse_plain`, `attention_bwd_plain`); on a CUDA tensor it
 launches its kernel or raises. `<wrapper>.launches` counts launching calls.
@@ -59,7 +71,8 @@ from supir_tpu_torch.ops.grad_guard import refuse_grad
 
 _FWD_SOURCE = "flash_attn_fwd.cu"
 _BWD_SOURCE = "flash_attn_bwd.cu"
-SOURCES = (_FWD_SOURCE, _BWD_SOURCE)  # for cuda_build.build_all
+_FP32_SOURCE = "flash_attn_fwd_fp32.cu"
+SOURCES = (_FWD_SOURCE, _BWD_SOURCE, _FP32_SOURCE)  # for cuda_build.build_all
 HEAD_DIMS = (64, 128)
 # the forward's tiles (csrc/flash_attn_fwd.cu: BM, BN, SLAB)
 BLOCK_M = 128  # query rows per block: two consumer warpgroups of 64
@@ -69,6 +82,12 @@ PLAN_LEN = 15  # values of a packed plan: rank, dims[4], strides[3], box[4], pos
 # the backward's tiles (csrc/flash_attn_bwd.cu: BLOCK, BOX)
 BWD_BLOCK = 128  # rows a backward block owns; the lse/delta scratch is padded to it
 BWD_BOX = 64     # rows of every backward TMA box (q, k, v and dout)
+# K1 fp32's tiles (csrc/flash_attn_fwd_fp32.cu: BM, BN) and planted faults:
+# the accumulator not rescaled when the max rises, the ragged last key tile
+# not masked, the causal diagonal tile not masked
+FP32_BLOCK = 64
+LOG2E = 1.4426950408889634  # the kernels' fp32 log2(e), folded into the scale
+FP32_FAULT_NO_RESCALE, FP32_FAULT_RAGGED, FP32_FAULT_DIAGONAL = 1, 2, 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,6 +270,22 @@ def _fwd_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _fp32_library() -> ctypes.CDLL:
+    from supir_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library(_FP32_SOURCE)
+    fn = lib.supir_flash_attn_fwd_fp32
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4   # q, k, v, out
+        + [ctypes.c_int] * 6    # B H S T D causal
+        + [ctypes.POINTER(ctypes.c_longlong)]  # strides of q, k, v, out
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, fault, stream
+    )
+    return lib
+
+
 def _bwd_library() -> ctypes.CDLL:
     from supir_tpu_torch.ops.cuda_build import load_library
 
@@ -277,9 +312,17 @@ def _on_card(kernel: str, q: torch.Tensor, inputs) -> bool:
     return True
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, *more) -> None:
+BF16_ONLY = (torch.bfloat16,)
+K1_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, *more,
+           dtypes=BF16_ONLY, kernel: str = "the bf16 kernels") -> None:
     """Shapes, dtype, device and layout the kernels take: q [B,S,H,D], k/v
-    [B,T,H,D]; `more` are further [B,*,H,D] operands (out, dout)."""
+    [B,T,H,D], all of one dtype of `dtypes`; `more` are further [B,*,H,D]
+    operands (out, dout). Every operand 16-byte aligned with strides in
+    multiples of 16 bytes: TMA's rule for the bf16 kernels, the 16-byte
+    loads' for K1 fp32."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"flash attention wants q [B,S,H,D], k/v [B,T,H,D]; got {q.shape}, {k.shape}, {v.shape}")
     if q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
@@ -294,12 +337,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, *mor
             raise ValueError(f"{name} {tuple(t.shape)} is not shaped like q {tuple(q.shape)}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the flash kernels take bf16; {name} is {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != q.dtype:
+            if dtypes == BF16_ONLY:
+                raise TypeError(f"{kernel} take bf16 (no path of the port reaches them in fp32); {name} is "
+                                f"{t.dtype}")
+            raise TypeError(f"K1 takes all-bf16 or all-fp32 q, k, v; q is {q.dtype}, {name} {t.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous (stride {t.stride()})")
-        if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned with strides in multiples of 8 (stride {t.stride()})")
+        if any(s * t.element_size() % 16 for s in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned with strides in multiples of 16 bytes "
+                             f"(stride {t.stride()}, {t.element_size()} bytes an element)")
 
 
 def _slopes(alibi_slopes, q: torch.Tensor) -> torch.Tensor | None:
@@ -356,16 +403,88 @@ def _forward(q, k, v, causal: bool, with_lse: bool, slopes: torch.Tensor | None 
     return out, lse
 
 
+def _forward_fp32(q, k, v, causal: bool, fault: int = 0) -> torch.Tensor:
+    """Launch K1 fp32 (`fault` > 0: one of its FP32_FAULT_* instances, for
+    the checks); returns out, fp32 [B,S,H,D]. Counts nothing."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    out = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
+    if s == 0 or b * h == 0:
+        return out
+    if t == 0:  # no keys: what the plain version gives
+        return out.zero_()
+    strides = (ctypes.c_longlong * 12)(*_strides(q, k, v, out))
+    fn = _fp32_library().supir_flash_attn_fwd_fp32
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s, t, d, int(causal), strides,
+                 d ** -0.5, fault, stream)
+    _raise_on(err, "flash attention forward (fp32)")
+    return out
+
+
+def flash_fp32_emulate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
+                       fault: int = 0) -> torch.Tensor:
+    """K1 fp32's kernel walked on the CPU in its own order: 64-row query
+    blocks, 64-key tiles (zero-filled past T, none wholly above the causal
+    diagonal), the ragged and diagonal masks, the online softmax in raw
+    q.k units with exp2 and the scale folded in (a row with no key yet
+    subtracts 0), the accumulator and sum rescaled when the max rises, O /
+    max(l, 1e-30); `fault` plants FP32_FAULT_*. Returns fp32 [B,S,H,D]."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    c = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(LOG2E, dtype=torch.float32)
+    qh, kh, vh = (x.float().transpose(1, 2) for x in (q, k, v))  # [B, H, N, D]
+    n_tiles = -(-t // FP32_BLOCK)
+    out = torch.empty(b, h, s, d)
+    for qb in range(-(-s // FP32_BLOCK)):
+        first = qb * FP32_BLOCK
+        qt = qh[:, :, first:first + FP32_BLOCK]
+        rows = torch.arange(first, first + qt.shape[2])
+        m = torch.full(qt.shape[:3], float("-inf"))
+        l = torch.zeros(qt.shape[:3])
+        acc = torch.zeros(qt.shape)
+        for j in range(min(n_tiles, qb + 1) if causal else n_tiles):
+            kf = j * FP32_BLOCK
+            pad = (0, 0, 0, FP32_BLOCK - min(FP32_BLOCK, t - kf))
+            kt = torch.nn.functional.pad(kh[:, :, kf:kf + FP32_BLOCK], pad)
+            vt = torch.nn.functional.pad(vh[:, :, kf:kf + FP32_BLOCK], pad)
+            scores = qt @ kt.transpose(-1, -2)
+            cols = torch.arange(kf, kf + FP32_BLOCK)
+            drop = torch.zeros(len(rows), FP32_BLOCK, dtype=torch.bool)
+            if fault != FP32_FAULT_RAGGED and kf + FP32_BLOCK > t:
+                drop |= cols[None] >= t
+            if fault != FP32_FAULT_DIAGONAL and causal and j == qb:
+                drop |= cols[None] > rows[:, None]
+            scores = scores.masked_fill(drop, float("-inf"))
+            m_new = torch.maximum(m, scores.amax(-1))
+            sub = torch.where(m_new == float("-inf"), torch.zeros(()), m_new)
+            corr = torch.exp2((m - sub) * c)
+            p = torch.exp2((scores - sub[..., None]) * c)
+            l = l * corr + p.sum(-1)
+            if fault != FP32_FAULT_NO_RESCALE:
+                acc = acc * corr[..., None]
+            acc = acc + p @ vt
+            m = m_new
+        out[:, :, first:first + qt.shape[2]] = acc / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, alibi_slopes=None) -> torch.Tensor:
     """K1: softmax(q k^T / sqrt(D)) v over q [B,S,H,D] and k/v [B,T,H,D];
-    with `causal`, query i sees keys 0..i (S == T). With `alibi_slopes` it
-    is K3 ALiBi without the lse (counted in `alibi_launches`). Not
-    differentiable on the card: raises there if grad mode is on and an input
-    requires grad."""
+    with `causal`, query i sees keys 0..i (S == T). bf16 q, k, v launch the
+    bf16 kernel (counted in `launches`), fp32 ones K1 fp32 (counted in
+    `fp32_launches`). With `alibi_slopes` it is K3 ALiBi without the lse
+    (bf16 only; counted in `alibi_launches`). Not differentiable on the
+    card: raises there if grad mode is on and an input requires grad."""
     if not _on_card("flash_attention (K1)", q, (q, k, v)):
         return attention_plain(q, k, v, causal=causal, alibi_slopes=alibi_slopes)
-    _check(q, k, v, causal)
+    _check(q, k, v, causal, dtypes=K1_DTYPES if alibi_slopes is None else BF16_ONLY, kernel="the ALiBi kernels")
+    if q.dtype == torch.float32:
+        out = _forward_fp32(q, k, v, causal)
+        flash_attention.fp32_launches += 1
+        return out
     slopes = _slopes(alibi_slopes, q)
     out, _ = _forward(q, k, v, causal, with_lse=False, slopes=slopes)
     if slopes is None:
@@ -382,7 +501,7 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches are counted in `alibi_launches`."""
     if not _on_card("flash_attention_fwd_lse (K3)", q, (q, k, v)):
         return attention_fwd_lse_plain(q, k, v, causal, alibi_slopes)
-    _check(q, k, v, causal)
+    _check(q, k, v, causal, kernel="K3 and K3 ALiBi")
     slopes = _slopes(alibi_slopes, q)
     out, lse = _forward(q, k, v, causal, with_lse=True, slopes=slopes)
     if slopes is None:
@@ -399,7 +518,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     output gradient dout. ALiBi launches are counted in `alibi_launches`."""
     if not _on_card("flash_attention_bwd (K4)", q, (q, k, v, out, lse, dout)):
         return attention_bwd_plain(q, k, v, out, lse, dout, causal, alibi_slopes)
-    _check(q, k, v, causal, out, dout)
+    _check(q, k, v, causal, out, dout, kernel="K4 and K4 ALiBi")
     slopes = _slopes(alibi_slopes, q)
     b, s, h, d = q.shape
     t = k.shape[1]
@@ -432,6 +551,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
 for _wrapper in (flash_attention, flash_attention_fwd_lse, flash_attention_bwd):
     _wrapper.launches = 0
     _wrapper.alibi_launches = 0
+flash_attention.fp32_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

@@ -16,7 +16,7 @@ byte sum in place of the decode and the products:
       with the rows cut into `slices` k-slices (the TPU's row blocks: its
       brow 1280 and 640 are 2 and 4 slices of 2560 rows), the slices'
       int32 partials summed in slice order.
-Kernel of `csrc/nibble_order.cu`, on the tensor-core body's own int4
+Kernels of `csrc/nibble_order.cu`, on the tensor-core body's own int4
 decodes (`csrc/tc_decode.cuh`, which `csrc/quant_gemv_tc.cu` compiles too):
   T3a unpack_nibbles  (tools/bitcast_probe.py:order_kernel :33, :46)  u8
       [r, c] -> fp32 [2r, c], row 2i the low nibble of byte row i and 2i+1
@@ -27,11 +27,13 @@ decodes (`csrc/tc_decode.cuh`, which `csrc/quant_gemv_tc.cu` compiles too):
       packed rows, s8 bytes of 16 n in the k order 4t, 4t + 2, 4t + 1,
       4t + 3, shifted back and put in row order). `unpack_emulate` walks
       the same bit operations on the CPU (ops/gemv_plan.py:nib2, quad16).
-      `empty_launch` launches an empty kernel, the launch floor T3a's time
-      is read against; it counts no launch.
-Kernel of `csrc/probes.cu`:
   T4a native_cast     (tools/int4_native_probe.py:stage2_mosaic.k :46, :50)
-      column-pair-packed int4 u8 [r, c/2] -> bf16 [r, c] x 2.
+      column-pair-packed int4 u8 [r, c/2] -> bf16 [r, c] x 2: each 4-byte
+      word's bytes through nib2, the decode of K11's native layout, then
+      one packed doubling. `native_cast_emulate` walks the same bits on the
+      CPU (ops/gemv_plan.py:nib2).
+  `empty_launch` launches an empty kernel, the launch floor T3a's and
+  T4a's times are read against; it counts no launch.
 and of `csrc/quant_gemv_tc.cu`, the model paths' tensor-core body (TMA
 ring, mma.sync, k-slice tiles; ops/gemv_plan.py), with its own int4 decode
 (permute, lop3, hsub2 a nibble pair) at the probes' geometry:
@@ -67,9 +69,9 @@ On a CPU tensor every function returns its plain version; on a CUDA tensor
 it launches its kernel or raises. The ring column sum refuses what the
 ring cannot take on either device. `_fault` selects a planted-fault instance
 of a kernel (the ring column sum: RING_FAULT_*; the unpack: ORDER_FAULT_*;
-the cast: 1 nibbles swapped, 2 sign not extended; T1c, T2, T3b and T4b: one
-of gemv_plan.FAULT_*), for the checks that must see a fault break their
-bound.
+the cast: ORDER_FAULT_SWAP, nibbles swapped, or ORDER_FAULT_UNSIGNED, sign
+not restored; T1c, T2, T3b and T4b: one of gemv_plan.FAULT_*), for the
+checks that must see a fault break their bound.
 """
 
 from __future__ import annotations
@@ -80,30 +82,19 @@ import torch
 
 from supir_tpu_torch.ops import gemv_plan as GP, quantize as Q
 
-_SOURCE = "probes.cu"
 _ORDER_SOURCE = "nibble_order.cu"
 _RING_SOURCE = "colsum_tc.cu"
-SOURCES = (_SOURCE, _ORDER_SOURCE, _RING_SOURCE)
+SOURCES = (_ORDER_SOURCE, _RING_SOURCE)
 RING_FLUSH_CHUNKS = 16    # csrc/colsum_tc.cu: chunks (8 rows a lane each) between flushes of the 16-bit sums
 RING_CONSUMERS = 8        # consumer warps; warp w takes rows w, w + 8, ... of a 64-row stage
 # csrc/colsum_tc.cu's planted faults (tests and chip_smoke only): the bytes
 # read as int8, slice 0's partial left out of the combine, the combine run twice
 RING_FAULT_SIGNED, RING_FAULT_DROP_SLICE, RING_FAULT_COMBINE_TWICE = 1, 2, 3
-# csrc/nibble_order.cu's: the nibbles swapped (nib2's or quad16's selector
-# mirrored), the sign not restored (nib2's ^ 8 dropped; W4A8's bytes read
-# back unsigned), W4A8's k order left permuted
+# csrc/nibble_order.cu's (T3a's, and T4a's first two): the nibbles swapped
+# (nib2's or quad16's selector mirrored), the sign not restored (nib2's ^ 8
+# dropped; W4A8's bytes read back unsigned), W4A8's k order left permuted
 ORDER_FAULT_SWAP, ORDER_FAULT_UNSIGNED, ORDER_FAULT_K_ORDER = 1, 2, 3
 DECODES = ("paired", "w4a8")
-
-
-def _library() -> ctypes.CDLL:
-    from supir_tpu_torch.ops.cuda_build import load_library
-
-    lib = load_library(_SOURCE)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.supir_native_cast.restype = i
-    lib.supir_native_cast.argtypes = [p, ctypes.c_longlong, i, p, p]
-    return lib
 
 
 def _order_library() -> ctypes.CDLL:
@@ -115,6 +106,8 @@ def _order_library() -> ctypes.CDLL:
     lib.supir_unpack_nibbles.argtypes = [p, i, i, i, i, p, p]
     lib.supir_empty_launch.restype = i
     lib.supir_empty_launch.argtypes = [p]
+    lib.supir_native_cast.restype = i
+    lib.supir_native_cast.argtypes = [p, ctypes.c_longlong, i, p, p]
     return lib
 
 
@@ -324,7 +317,7 @@ def unpack_nibbles(q: torch.Tensor, decode: str = "paired", *, _fault: int = 0) 
 
 def empty_launch(device: torch.device) -> None:
     """One empty kernel on the current stream of `device`: the launch floor
-    T3a is read against. It counts no launch."""
+    T3a and T4a are read against. It counts no launch."""
     with torch.cuda.device(device):
         _raise_on(_order_library().supir_empty_launch(torch.cuda.current_stream(device).cuda_stream), "empty")
 
@@ -335,16 +328,36 @@ def native_cast_plain(packed: torch.Tensor) -> torch.Tensor:
     return Q.unpack_int4_native(packed).to(torch.bfloat16) * 2.0
 
 
+def native_cast_emulate(packed: torch.Tensor, fault: int = 0) -> torch.Tensor:
+    """T4a's kernel on the CPU: u8 [r, c/2] -> bf16 [r, c] by the bit
+    operations of csrc/tc_decode.cuh's nib2 (ops/gemv_plan.py:nib2) on the
+    4-byte words the kernel reads (the last one zero-padded), each byte's
+    bf16x2 doubled in bf16 (exact). `fault`: ORDER_FAULT_SWAP or
+    ORDER_FAULT_UNSIGNED."""
+    r, half = packed.shape
+    n = r * half
+    b = torch.nn.functional.pad(packed.reshape(-1).to(torch.int64), (0, -n % 4)).reshape(-1, 4)
+    words = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
+    pairs = torch.stack([GP.nib2(words, words >> 4, i, fault != ORDER_FAULT_UNSIGNED, fault == ORDER_FAULT_SWAP)
+                         for i in range(4)], dim=-1).reshape(-1)[:n]                  # one bf16x2 a byte
+    halves = torch.stack(GP.bf16x2_floats(pairs), dim=-1).to(torch.bfloat16)          # [n, (low, high)]
+    return (halves * 2.0).reshape(r, 2 * half)
+
+
 def native_cast(packed: torch.Tensor, *, _fault: int = 0) -> torch.Tensor:
-    """T4a: the native int4 -> bf16 cast, doubled."""
+    """T4a: the native int4 -> bf16 cast, doubled, through the tensor-core
+    body's nib2; on a CUDA tensor the bytes 4-byte aligned (the kernel reads
+    words)."""
     if packed.device.type == "cpu":
         return native_cast_plain(packed)
     _check_bytes(packed, "the native cast")
+    if packed.data_ptr() % 4:
+        raise ValueError("the native cast reads 4-byte words: the bytes must be 4-byte aligned")
     r, half = packed.shape
     out = torch.empty((r, 2 * half), dtype=torch.bfloat16, device=packed.device)
     with torch.cuda.device(packed.device):
-        err = _library().supir_native_cast(packed.data_ptr(), packed.numel(), _fault, out.data_ptr(),
-                                           _stream(packed))
+        err = _order_library().supir_native_cast(packed.data_ptr(), packed.numel(), _fault, out.data_ptr(),
+                                                 _stream(packed))
     _raise_on(err, "native cast")
     native_cast.launches += 1
     return out

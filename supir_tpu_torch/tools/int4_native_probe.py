@@ -5,9 +5,11 @@ package's `tools/int4_native_probe.py`.
            (ops/quantize.py:pack_int4_native, column pairs in uint8): a
            [4096, 4096] weight must take 8.4 MB, not 16.8. A host check: no
            kernel.
-  stage 2  T4a's native cast (csrc/probes.cu: column-pair-packed int4
-           [128, 128] -> bf16 x 2, one packed conversion per byte) against
-           its plain version, bit for bit, on the TPU probe's values
+  stage 2  T4a's native cast (csrc/nibble_order.cu: column-pair-packed
+           int4 [128, 128] -> bf16 x 2, each byte through nib2 of
+           csrc/tc_decode.cuh, the decode of K11's native layout on the
+           tensor-core body, then one packed doubling) against its plain
+           version, bit for bit, on the TPU probe's values
            (arange % 7) and on every int4 value (-8..7): the probe's own
            values are never negative, so alone they cannot show a cast
            that drops the sign.

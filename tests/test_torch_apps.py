@@ -497,25 +497,34 @@ def _rel_l2(got, want) -> float:
 
 
 @pytest.mark.gpu
-def test_fp32_flash_site_on_the_card_refuses():
+def test_fp32_flash_site_on_the_card_runs():
     """A flash-eligible attention site with fp32 q, k, v on the card (an
-    engine with fp32 parameters: --full_params, the tiny test engine)
-    raises TypeError naming the missing fp32 instance of K1, where a silent
-    cast to bf16 would change the computation's precision; K1 launches not."""
+    engine with fp32 parameters: --full_params, the tiny test engine) runs
+    on K1 fp32 (csrc/flash_attn_fwd_fp32.cu), counted in
+    `flash_attention.fp32_launches`, within relative L2 1e-5 of the plain
+    version in fp32; an fp16 site is widened to fp32, runs there too and
+    comes back fp16. The bf16 kernel launches not: nothing is cast down."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K1 has no CPU mode")
     from supir_tpu_torch.ops.attention import attention
-    from supir_tpu_torch.ops.flash_attention import flash_attention
+    from supir_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(1, 4096, 1, 64, generator=g, device="cuda") for _ in range(3))
-    before = flash_attention.launches
-    for dtype in (torch.float32, torch.float16):
-        with pytest.raises(TypeError, match="no fp32 instance"):
-            attention(q.to(dtype), k.to(dtype), v.to(dtype))
-    assert flash_attention.launches == before
-    with pytest.raises(TypeError, match="take bf16"):
-        flash_attention(q, k, v)
+    want = attention_plain(q, k, v)
+    for dtype, bound in ((torch.float32, 1e-5), (torch.float16, 1e-3)):
+        before = (flash_attention.launches, flash_attention.fp32_launches)
+        out = attention(q.to(dtype), k.to(dtype), v.to(dtype))
+        torch.cuda.synchronize()
+        assert (flash_attention.launches, flash_attention.fp32_launches) == (before[0], before[1] + 1)
+        assert out.dtype == dtype
+        # fp16: the inputs and the output each rounded once to fp16, and the
+        # output exactly K1 fp32's on the widened inputs, rounded once
+        ref = want if dtype == torch.float32 else attention_plain(*(x.half().float() for x in (q, k, v)))
+        assert _rel_l2(out.float().cpu(), ref.cpu()) <= bound, dtype
+        if dtype == torch.float16:
+            assert torch.equal(out, flash_attention(*(x.half().float() for x in (q, k, v))).half())
 
 
 @pytest.mark.gpu

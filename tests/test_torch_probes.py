@@ -534,6 +534,37 @@ def test_native_cast_matches_stage2_kernel():
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
 
 
+def test_native_cast_emulation_matches_stage2_kernel():
+    """T4a's walk of its kernel (nib2 of csrc/tc_decode.cuh on the packed
+    words, doubled in bf16) against stage2_mosaic's closure k in interpret
+    mode, bit for bit, on the probe's block and on every int4 value, and on
+    a byte count that leaves a partial last word; each planted fault differs
+    from it."""
+    import jax
+    import jax.numpy as jnp
+
+    mod = _tool("int4_native_probe")
+    recorded = []
+    pl_interp = _interpreting_pl(recorded)
+    mod.pl = pl_interp
+    mod.stage2_mosaic()
+    kernel, = recorded
+    arange = np.arange(128 * 128).reshape(128, 128)
+    for ints in (arange % 7, arange % 16 - 8):
+        ints = ints.astype(np.int8)
+        want = pl_interp.pallas_call(kernel, out_shape=jax.ShapeDtypeStruct((128, 128), jnp.bfloat16))(
+            jnp.asarray(ints).astype(jnp.int4))
+        packed = Q.pack_int4_native(torch.from_numpy(ints))
+        got = P.native_cast_emulate(packed)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+        for fault in (P.ORDER_FAULT_SWAP, P.ORDER_FAULT_UNSIGNED):
+            bad = P.native_cast_emulate(packed, fault).float().numpy()
+            assert not np.array_equal(bad, np.asarray(want.astype(jnp.float32))), fault
+    odd = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (3, 7)).astype(np.uint8))
+    assert torch.equal(P.native_cast_emulate(odd).view(torch.int16), P.native_cast_plain(odd).view(torch.int16))
+
+
 @pytest.mark.parametrize("rows", [1, 8])
 def test_native_gemv_matches_native_int4_matmul(rows):
     import jax.numpy as jnp
@@ -854,6 +885,30 @@ def test_unpack_and_native_cast_kernels(cuda):
         assert P.native_cast.launches == before + 1
         assert not torch.equal(P.native_cast(q, _fault=1), want)
         assert not torch.equal(P.native_cast(q, _fault=2), want)
+
+
+@pytest.mark.gpu
+def test_native_cast_through_the_body_decode(cuda):
+    """T4a (csrc/nibble_order.cu, nib2 of csrc/tc_decode.cuh) equals the
+    plain cast and its CPU walk bit for bit on every int4 value, on random
+    bytes and on byte counts that leave a partial last word; each planted
+    fault equals its walk and breaks the cast; one launch counted a call."""
+    every = Q.pack_int4_native((torch.arange(128 * 128).reshape(128, 128) % 16 - 8).to(torch.int8))
+    g = torch.Generator().manual_seed(11)
+    for q in (every, torch.randint(0, 256, (300, 1000), dtype=torch.uint8, generator=g),
+              torch.randint(0, 256, (3, 7), dtype=torch.uint8, generator=g),
+              torch.randint(0, 256, (1, 2), dtype=torch.uint8, generator=g)):
+        want = P.native_cast_plain(q)
+        before = P.native_cast.launches
+        got = P.native_cast(q.to(cuda))
+        assert P.native_cast.launches == before + 1
+        assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+        for fault in (P.ORDER_FAULT_SWAP, P.ORDER_FAULT_UNSIGNED):
+            bad = P.native_cast(q.to(cuda), _fault=fault).cpu()
+            assert torch.equal(bad.view(torch.int16), P.native_cast_emulate(q, fault).view(torch.int16))
+            assert not torch.equal(bad, want)
+    with pytest.raises(ValueError, match="4-byte"):
+        P.native_cast(torch.zeros(1, 64, dtype=torch.uint8, device=cuda).view(-1)[1:33].view(1, 32))
 
 
 ORDER_FAULTS = {"paired": (P.ORDER_FAULT_SWAP, P.ORDER_FAULT_UNSIGNED),
