@@ -176,6 +176,20 @@ Phases, each printing its own lines:
   5j. eval: apps.eval.evaluate_dirs over those outputs against their
      inputs on the card, LPIPS from a torchvision-keyed random state dict
      through convert_lpips_state.
+  5h'. serve: the port's controller and a restoration worker
+     (supir_tpu_torch/serve/) over [web demo]'s engine on 127.0.0.1, port
+     0, in threads; requests dispatched through /get_worker_address to
+     /worker_generate_stream: a 1024^2 restoration equal within the demo's
+     PNG bound to a direct batchify_sample on the same inputs and seed
+     (K1/K2 per request as the config says), a second seed, both at once
+     (each equal to its serial answer), a request without an image
+     (an error payload); seconds per request split into batchify_sample,
+     the rest of the device part and the host's base64/PNG work.
+  5j'. load_real: the port's drill (supir_tpu_torch/tools/load_real.py) at
+     full width on [web demo]'s synthetic SDXL + SUPIR pair and the tiny HF
+     llava directory, 5 steps at 512^2: every stage PASS, a rerun against
+     the first output at --psnr_min, a copy without one key FAIL naming it;
+     then captioner/chat.py --weights on the llava directory.
   5k. apps reference: the tiny face and eval pipeline (warps, both pastes,
      ParseNet 64, RetinaFace at canvas 128, PSNR, SSIM, LPIPS) on the card
      against the CPU, fp32, rel-L2 1e-3; the paste through the matrix not
@@ -193,6 +207,11 @@ Phases, each printing its own lines:
      decode step is then held to its fp32 plain version on that call's
      inputs, and torch.profiler reads three decode steps (device busy
      share, kernels). In int4-lean, one text-only `chat` turn follows.
+     On the int4 agent, the caption side of [serve]: a caption worker
+     behind the controller and the web chat, one /send with a 1024^2 PNG
+     whose reply must be the agent's own caption (K5 per request as the
+     config says); and [captioner eval]: run_vqa over three synthetic
+     questions (K5 against each answer's tokens), then score-pope.
   7. captioner reference: a reduced-width captioner on the card (bf16,
      kernels) and on the CPU (fp32, plain versions) with the same weights,
      in every mode: prefill logits and the logits of decode steps
@@ -3318,13 +3337,14 @@ def _mode_cfg(cfg, label: str):
     return dataclasses.replace(cfg, kv_dtype=kv, llama=dataclasses.replace(cfg.llama, **flags))
 
 
-def phase_captioner(label: str, image, chat: bool = False):
+def phase_captioner(label: str, image, chat: bool = False, then=None):
     """LLaVA-1.5-13B at full width on the card in one mode of CAPTION_MODES:
     load (random weights drawn and quantized layer by layer), one counted
     gen_image_caption, one timed again warm, then
     every GEMV call of one decode step held to its plain version, a profile
-    of three decode steps and, with `chat`, one text-only chat turn.
-    Returns the counted launches."""
+    of three decode steps and, with `chat`, one text-only chat turn; then
+    `then(agent)`, where given, on the same agent. Returns the counted
+    launches."""
     import gc
 
     import torch
@@ -3415,6 +3435,8 @@ def phase_captioner(label: str, image, chat: bool = False):
             f"(prefill {marks['prefill'] * 1e3:.1f} ms, no image); reply {reply[:48]!r}")
         if tokens < 1:
             raise AssertionError("chat produced no token")
+    if then is not None:
+        then(agent)
     del agent, caches
     gc.collect()
     torch.cuda.empty_cache()
@@ -4457,8 +4479,8 @@ def _unpng(b64: str):
 
 
 def _http(port: int, path: str, body=None):
-    """One request to the demo on 127.0.0.1 -> (decoded JSON or page text,
-    wall seconds)."""
+    """One request to a server on 127.0.0.1 (the demo, the controller) ->
+    (decoded JSON or page text, wall seconds)."""
     import urllib.request
 
     url = f"http://127.0.0.1:{port}{path}"
@@ -4833,6 +4855,456 @@ def phase_eval(apps_dir: str, smi: str):
     metrics._lpips_model = None
 
 
+SERVE_SIDE = 1024     # [serve]: side of the restoration requests' PNG (upscale 1, min_size 1024)
+DRILL_STEPS = 5       # [load_real]: the drill's restore, as tools/load_real.py runs it
+DRILL_SIZE = 512
+DRILL_PSNR_MIN = 35.0  # the drill's own --psnr_min default
+
+
+def _stream(addr: str, body: dict):
+    """POST to a worker's /worker_generate_stream -> (every frame, wall s)."""
+    import urllib.request
+
+    from supir_tpu_torch.serve.worker import iter_stream_frames
+
+    req = urllib.request.Request(addr + "/worker_generate_stream", data=json.dumps(body).encode())
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        frames = list(iter_stream_frames(r))
+    return frames, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def serve_cluster(work_fn, model: str):
+    """The port's controller and one model worker over `work_fn`, both on
+    127.0.0.1 at port 0 in threads, the worker registered -> the
+    controller's port; both stopped on exit."""
+    import threading
+
+    from supir_tpu_torch.serve import controller, worker
+
+    ctl, _ = controller.serve_controller("127.0.0.1", 0)
+    httpd = worker.serve_worker(None, "127.0.0.1", 0)
+    servers = (ctl, httpd)
+    for s in servers:
+        threading.Thread(target=s.serve_forever, daemon=True).start()
+    ctl_addr, addr = (f"http://127.0.0.1:{s.server_address[1]}" for s in servers)
+    w = worker.ModelWorker(ctl_addr, addr, work_fn, model_names=(model,))
+    httpd.RequestHandlerClass.worker = w
+    try:
+        yield ctl.server_address[1]
+    finally:
+        w.stop()
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+
+
+@contextlib.contextmanager
+def timed_restoration_work(engine, cfg):
+    """serve/worker.py:restoration_work_fn with each request's seconds taken
+    from outside it -> (the work function, the list it appends to): `decode`
+    (base64 and PNG, the worker's _decode_image), `prepare` (the host's
+    resize and the tokenizer, and any wait on the worker's device lock),
+    `device` (from the stage-1 encode to the end of array_to_pil, whose copy
+    back synchronises) and `encode` (PNG and base64, to the work function's
+    return). Every wrapper is undone on exit."""
+    import threading
+
+    from supir_tpu_torch.serve import worker
+    from supir_tpu_torch.utils import image as I
+
+    marks, timings = threading.local(), []
+
+    def mark_after(fn, name):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            setattr(marks, name, time.perf_counter())
+            return out
+        return wrapped
+
+    encode = engine.encode_first_stage_with_denoise
+
+    def timed_encode(*a, **k):
+        marks.device = time.perf_counter()
+        return encode(*a, **k)
+
+    decode, to_pil = worker._decode_image, I.array_to_pil
+    I.array_to_pil = mark_after(to_pil, "copied")
+    try:
+        work = worker.restoration_work_fn(engine, cfg)  # binds the wrapped array_to_pil
+    finally:
+        I.array_to_pil = to_pil
+
+    def timed_work(params):
+        t0 = time.perf_counter()
+        out = work(params)
+        timings.append({"decode": marks.decoded - t0, "prepare": marks.device - marks.decoded,
+                        "device": marks.copied - marks.device, "encode": time.perf_counter() - marks.copied})
+        return out
+
+    worker._decode_image = mark_after(decode, "decoded")
+    engine.encode_first_stage_with_denoise = timed_encode
+    try:
+        yield timed_work, timings
+    finally:
+        worker._decode_image = decode
+        del engine.encode_first_stage_with_denoise
+
+
+def _restore_counters():
+    from supir_tpu_torch.ops.flash_attention import flash_attention
+    from supir_tpu_torch.ops.groupnorm import group_norm
+
+    return {"K1": flash_attention, "K2": group_norm}
+
+
+def phase_serve(engine, cfg, steps: int, smi: str):
+    """Serving at full width: the port's controller and a restoration worker
+    (serve/worker.py:restoration_work_fn) over [web demo]'s engine
+    (options/SUPIR_v0.yaml, XL-base, bf16, random weights), on 127.0.0.1 at
+    port 0 in threads, each request dispatched through /get_worker_address
+    and sent to /worker_generate_stream: a 1024^2 restoration equal to a
+    direct batchify_sample on the same inputs and seed, pixel for pixel,
+    with K1/K2 per request as the config says; a second seed
+    serially; both at once, each equal to its serial answer; a request
+    without an image, answered with an error payload. Seconds per request:
+    HTTP wall, batchify_sample, the rest of the device part, and the
+    host's base64/PNG work."""
+    import threading
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from supir_tpu_torch.serve.worker import ErrorCode_ERROR
+    from supir_tpu_torch.utils.image import array_to_pil, pil_to_array
+    from supir_tpu_torch.utils.tokenizer import tokenize
+
+    g = torch.Generator().manual_seed(SEED + 40)
+    photo = torch.randint(0, 256, (SERVE_SIDE, SERVE_SIDE, 3), generator=g, dtype=torch.uint8).numpy()
+    image = _png_b64(photo)
+    prompt = "a photo of a lake, "
+    lat = SERVE_SIDE // cfg.vae.downscale_factor
+    want = {"K1": expected_flash_launches(cfg, lat, steps, vae_passes=4),
+            "K2": expected_group_norm_launches(cfg, steps, encodes=2, decodes=2)}
+
+    def direct(seed):
+        arr, h0, w0 = pil_to_array(Image.fromarray(photo), upscale=1, min_size=SERVE_SIDE)
+        x = torch.from_numpy(arr)[None]
+        tok_p, tok_n = tokenize([prompt + cfg.p_p]), tokenize([cfg.n_p])
+        z = engine.encode_first_stage_with_denoise(x)
+        c, uc = engine.prepare_condition(z, tok_p, tok_p, tok_n, tok_n)
+        out = engine.batchify_sample(x, c, uc, num_steps=steps, cfg_scale=7.5, seed=seed, color_fix_type="Wavelet",
+                                     z_override=z)
+        return np.asarray(array_to_pil(out[0], h0, w0))
+
+    t0 = time.perf_counter()
+    want_img = direct(0)
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    samples = []
+    sample = engine.batchify_sample
+
+    def timed_sample(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = sample(*a, **k)
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t)
+        return out
+
+    engine.batchify_sample = timed_sample
+    counters = _restore_counters()
+    request = {"image": image, "edm_steps": steps, "upscale": 1, "min_size": SERVE_SIDE, "prompt": prompt}
+    try:
+        with timed_restoration_work(engine, cfg) as (work, timings), serve_cluster(work, "supir") as ctl:
+            def send(seed, count=False):
+                addr = _http(ctl, "/get_worker_address", {"model": "supir"})[0]["address"]
+                if not addr:
+                    raise AssertionError("[serve] the controller dispatched to no worker")
+                if count:
+                    for fn in counters.values():
+                        fn.launches = 0
+                frames, wall = _stream(addr, dict(request, seed=seed) if seed is not None else {"edm_steps": 1})
+                got = {k: fn.launches for k, fn in counters.items()}
+                return frames, wall, got
+
+            frames, wall_a, got = send(0, count=True)
+            if got != want:
+                raise AssertionError(f"[serve] launches per restoration request {got}, expected {want}")
+            serial = {0: _unpng(frames[-1]["image"])}
+            frames_b, wall_b, _ = send(1)
+            serial[1] = _unpng(frames_b[-1]["image"])
+            both = [None, None]
+
+            def run(i):
+                both[i] = send(i)
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall_both = time.perf_counter() - t0
+            err, wall_err, _ = send(None)
+    finally:
+        del engine.batchify_sample
+    diff = np.abs(serial[0].astype(np.int16) - want_img).max() if serial[0].shape == want_img.shape else None
+    log(f"[serve] {smi}: options/SUPIR_v0.yaml, {SERVE_SIDE}^2 PNG, {steps} steps, through the controller's "
+        f"dispatch to one restoration worker: against a direct batchify_sample on the same inputs and seed, max "
+        f"diff {diff} (bound 0); launches per request K1 {got['K1']}, K2 {got['K2']} (expected {want})")
+    if serial[0].shape != (SERVE_SIDE, SERVE_SIDE, 3) or diff != 0:
+        raise AssertionError(f"[serve] restoration {serial[0].shape} differs from the direct run by {diff}")
+    if not np.abs(serial[1].astype(np.int16) - serial[0]).mean() > 0:
+        raise AssertionError("[serve] two seeds gave the same image")
+    for i in (0, 1):
+        if both[i] is None or "image" not in both[i][0][-1]:
+            raise AssertionError(f"[serve] concurrent request {i}: {both[i] and both[i][0][-1]}")
+        d = np.abs(_unpng(both[i][0][-1]["image"]).astype(np.int16) - serial[i]).max()
+        log(f"[serve] concurrent request seed {i} ({both[i][1]:.3f} s) against the serial one: max diff {d}")
+        if d:
+            raise AssertionError(f"[serve] the concurrent request {i} differs from the serial one by {d}")
+    if len(err) != 1 or err[0].get("error_code") != ErrorCode_ERROR or "image" in err[0]:
+        raise AssertionError(f"[serve] the request without an image answered {err}")
+    log(f"[serve] error request: {err[0]} in {wall_err:.3f} s")
+    parts = []
+    for i, (t, s_, w) in enumerate(zip(timings[:2], samples[:2], (wall_a, wall_b))):
+        host = t["decode"] + t["encode"]
+        parts.append(f"request {i + 1}: wall {w:.3f} s = batchify_sample {s_:.3f} s + encode/conditioning/copy back "
+                     f"{t['device'] - s_:.3f} s + host I/O {host:.3f} s (base64+PNG decode {t['decode']:.3f}, PNG+"
+                     f"base64 encode {t['encode']:.3f}) + resize/tokenize {t['prepare']:.3f} s + HTTP and JSON "
+                     f"{w - t['device'] - host - t['prepare']:.3f} s")
+    log("[serve] seconds per restoration request, serial: " + "; ".join(parts) + f"; two at once {wall_both:.3f} s "
+        f"(one after the other on the worker's device lock; batchify_sample "
+        + ", ".join(f"{t:.3f}" for t in samples[2:4]) + f" s); the direct run {direct_s:.3f} s")
+    return got
+
+
+def _multipart(fields: dict, image: bytes):
+    boundary = "----chipsmoke"
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+             for k, v in fields.items()]
+    parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="image"; filename="a.png"\r\n'
+                 f"Content-Type: image/png\r\n\r\n".encode() + image + b"\r\n")
+    parts.append(f"--{boundary}--\r\n".encode())
+    return f"multipart/form-data; boundary={boundary}", b"".join(parts)
+
+
+def phase_serve_caption(agent, image, smi: str):
+    """The caption side of serving: a caption worker
+    (serve/worker.py:caption_work_fn) over [captioner int4]'s full-width
+    agent behind the port's controller, and the web chat
+    (serve/web_chat.py) in front of it, all on 127.0.0.1 at port 0: one
+    /send with a 1024^2 PNG and a question, the reply equal to the agent's
+    own caption of that image at the same temperature, top_p and seed, with
+    K5 per request as the config says for its tokens."""
+    import base64
+    import urllib.request
+
+    import torch
+
+    from supir_tpu_torch.ops import quantize as Q
+    from supir_tpu_torch.serve import web_chat
+    from supir_tpu_torch.serve.worker import caption_work_fn
+
+    question = "Describe this photo."
+    png = base64.b64decode(_png_b64(image))
+    t0 = time.perf_counter()
+    seqs, stop_at, stop_str = agent.generate([image], temperature=0.2, top_p=0.7, qs=question, seed=0)
+    want = agent._texts_from(seqs, stop_at, 2, stop_str)[0]
+    direct_s = time.perf_counter() - t0
+    tokens = seqs.shape[1]
+    want_k5 = expected_caption_launches(agent.cfg.llama, tokens - 1, load=False)["K5"]
+    model = "llava-v1.5-13b-int4"
+    with serve_cluster(caption_work_fn(agent), model) as ctl:
+        chat = web_chat.serve_web_chat(f"http://127.0.0.1:{ctl}", "127.0.0.1", 0)
+        try:
+            ctype, body = _multipart({"text": question, "session": "smoke", "model": model}, png)
+            req = urllib.request.Request(f"http://127.0.0.1:{chat.server_address[1]}/send", data=body,
+                                         headers={"Content-Type": ctype})
+            Q.int4_paired_fused_matmul.launches = 0
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=600) as r:
+                page = r.read().decode()
+            wall = time.perf_counter() - t0
+            k5 = Q.int4_paired_fused_matmul.launches
+            turns = chat.RequestHandlerClass.state.turns("smoke")
+        finally:
+            chat.shutdown()
+            chat.server_close()
+    torch.cuda.synchronize()
+    reply = turns[-1]["text"] if turns else ""
+    log(f"[serve] {smi}: web chat /send with a {image.shape[0]}^2 PNG through the controller to a caption worker "
+        f"over LLaVA-1.5-13B int4 (full width): {wall:.3f} s for {tokens} tokens (the agent alone "
+        f"{direct_s:.3f} s); K5 launches {k5} (expected {want_k5}); reply {reply[:40]!r}")
+    if reply != want or not want or f'value="{model}"' not in page:
+        raise AssertionError(f"[serve] the chat's reply {reply!r} is not the caption {want!r}")
+    if k5 != want_k5:
+        raise AssertionError(f"[serve] K5 launched {k5} times in the caption request, expected {want_k5}")
+    return k5
+
+
+def phase_captioner_eval(agent, smi: str):
+    """captioner/eval.py at full width: run_vqa over three synthetic
+    questions on [captioner int4]'s agent (K5 counted against each
+    answer's tokens), then `score-pope` on synthetic labels over those
+    answers."""
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from supir_tpu_torch.captioner import eval as ev
+    from supir_tpu_torch.ops import quantize as Q
+
+    decoded = []
+    decode = agent._decode_tokens
+
+    def counted(*a, **k):
+        out = decode(*a, **k)
+        decoded.append(out[0].shape[1])
+        return out
+
+    agent._decode_tokens = counted
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            for sub in ("img", "pope"):
+                os.makedirs(os.path.join(d, sub))
+            rng = np.random.default_rng(SEED + 41)
+            with open(os.path.join(d, "q.jsonl"), "w") as fq, \
+                    open(os.path.join(d, "pope", "coco_pope_random.json"), "w") as fa:
+                for i in range(3):
+                    Image.fromarray(rng.integers(0, 256, (336, 448, 3), dtype=np.uint8)).save(
+                        os.path.join(d, "img", f"{i}.png"))
+                    fq.write(json.dumps({"question_id": i, "image": f"{i}.png", "text": f"Is there a dog {i}?",
+                                         "category": "random"}) + "\n")
+                    fa.write(json.dumps({"label": ["yes", "no", "yes"][i]}) + "\n")
+            Q.int4_paired_fused_matmul.launches = 0
+            t0 = time.perf_counter()
+            n = ev.run_vqa(agent, os.path.join(d, "q.jsonl"), os.path.join(d, "img"), os.path.join(d, "a.jsonl"))
+            wall = time.perf_counter() - t0
+            k5 = Q.int4_paired_fused_matmul.launches
+            with open(os.path.join(d, "a.jsonl")) as f:
+                answers = [json.loads(line) for line in f]
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                ev.main(["score-pope", "--annotation-dir", os.path.join(d, "pope"), "--question-file",
+                         os.path.join(d, "q.jsonl"), "--result-file", os.path.join(d, "a.jsonl")])
+            pope = json.loads(out.getvalue())
+    finally:
+        agent._decode_tokens = decode
+    want_k5 = sum(expected_caption_launches(agent.cfg.llama, t - 1, load=False)["K5"] for t in decoded)
+    log(f"[captioner eval] {smi}: run_vqa over {n} synthetic questions on LLaVA-1.5-13B int4 (full width) in "
+        f"{wall:.3f} s ({wall / max(n, 1):.3f} s a question; tokens {decoded}); K5 launches {k5} (expected "
+        f"{want_k5}); answers {[a['text'][:16] for a in answers]}; score-pope {json.dumps(pope)}")
+    if n != 3 or len(answers) != 3 or not all(a["text"] for a in answers):
+        raise AssertionError(f"[captioner eval] answered {n}: {answers}")
+    if k5 != want_k5 or not k5:
+        raise AssertionError(f"[captioner eval] K5 launched {k5} times, expected {want_k5}")
+    r = pope.get("random", {})
+    if sum(r.get(k, 0) for k in ("TP", "FP", "TN", "FN")) != 3:
+        raise AssertionError(f"[captioner eval] score-pope {pope}")
+
+
+def _drill(argv):
+    """tools/load_real.main on `argv` -> (return code, its printed lines, s)."""
+    import io
+
+    from supir_tpu_torch.tools import load_real
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = load_real.main(argv)
+    wall = time.perf_counter() - t0
+    _free()
+    return rc, out.getvalue().splitlines(), wall
+
+
+def phase_load_real(apps_dir: str, smi: str):
+    """The port's real-weight drill (tools/load_real.py) at full width on
+    the synthetic SDXL + SUPIR file pair [web demo] wrote and the tiny HF
+    llava directory: conversion, tokenizer (the hash fallback allowed),
+    a 5-step 512^2 restore and a caption must PASS; a rerun with the first
+    output as --ref_out must reach --psnr_min; a copy of the SUPIR file
+    with one key removed must FAIL at the conversion, naming that key."""
+    import os
+
+    from safetensors.torch import load_file, save_file
+
+    sdxl, supir = os.path.join(apps_dir, "ckpt", "sdxl.safetensors"), os.path.join(apps_dir, "ckpt", "supir_F.safetensors")
+    first, again = os.path.join(apps_dir, "drill.png"), os.path.join(apps_dir, "drill_again.png")
+    flags = ["--opt", WEB_OPT, "--sdxl", sdxl, "--llava", os.path.join(apps_dir, "llava"), "--steps",
+             str(DRILL_STEPS), "--size", str(DRILL_SIZE), "--allow_hash_tokenizer", "--device", "cuda"]
+    counters = _restore_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    rc, lines, wall = _drill(flags + ["--supir", supir, "--save", first])
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for line in lines:
+        log(f"[load_real] {line}")
+    if rc or "VERDICT: PASS (4 stages)" not in lines:
+        raise AssertionError(f"[load_real] the drill failed on the good pair (rc {rc})")
+    rc2, lines2, wall2 = _drill(flags + ["--supir", supir, "--save", again, "--ref_out", first, "--psnr_min",
+                                         str(DRILL_PSNR_MIN)])
+    psnr = [line for line in lines2 if line.startswith("[PASS] psnr")]
+    log(f"[load_real] rerun against the first output: {psnr[0] if psnr else lines2[-3:]}")
+    if rc2 or not psnr:
+        raise AssertionError(f"[load_real] the PSNR rerun failed (rc {rc2}): {lines2}")
+    t0 = time.perf_counter()
+    sd = load_file(supir)
+    gone = sorted(k for k in sd if k.startswith("model.control_model."))[0]
+    del sd[gone]
+    bad = os.path.join(apps_dir, "ckpt", "supir_missing.safetensors")
+    save_file(sd, bad)
+    del sd
+    write_s = time.perf_counter() - t0
+    rc3, lines3, wall3 = _drill(flags + ["--supir", bad, "--save", os.path.join(apps_dir, "drill_bad.png")])
+    os.remove(bad)
+    fail = [line for line in lines3 if line.startswith("[FAIL] conversion")]
+    log(f"[load_real] the SUPIR file without {gone}: rc {rc3}, {fail[0][:160] if fail else lines3}")
+    if rc3 != 1 or not fail or gone not in fail[0] or "VERDICT: FAIL" not in lines3[-1]:
+        raise AssertionError(f"[load_real] the planted missing key did not fail the drill: {lines3}")
+    log(f"[load_real] {smi}: options/SUPIR_v0.yaml at full width, {DRILL_STEPS} steps at {DRILL_SIZE}^2, the "
+        f"tiny llava directory in int4: drill {wall:.1f} s (K1 {launches['K1']}, K2 {launches['K2']} launches: "
+        f"the restore and the caption's stage-1 denoise), rerun with --ref_out {wall2:.1f} s, the missing-key "
+        f"copy written in {write_s:.1f} s and refused in {wall3:.1f} s")
+    if not (launches["K1"] > 0 and launches["K2"] > 0):
+        raise AssertionError(f"[load_real] the drill's restore launched {launches}")
+
+
+def phase_chat_weights(apps_dir: str):
+    """captioner/chat.py with --weights on the tiny HF llava directory, on
+    the card: one question about an image, greedy."""
+    import io
+    import os
+
+    import torch
+    from PIL import Image
+
+    from supir_tpu_torch.captioner import chat
+
+    g = torch.Generator().manual_seed(SEED + 42)
+    path = os.path.join(apps_dir, "chat.png")
+    Image.fromarray(torch.randint(0, 256, (336, 336, 3), generator=g, dtype=torch.uint8).numpy()).save(path)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        chat.main(["--weights", os.path.join(apps_dir, "llava"), "--image", path, "--query", "What is this?",
+                   "--temperature", "0", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    answer = out.getvalue().strip().splitlines()[-1]
+    log(f"[chat] --weights (the tiny HF llava directory, bf16 on the card): one greedy answer in {wall:.3f} s "
+        f"with the load: {answer[:40]!r}")
+    if not answer or "captioner conversion" in answer:
+        raise AssertionError(f"[chat] --weights printed no answer: {out.getvalue()!r}")
+    _free()
+
+
 def _zero_pad_blur(x, ksize: int, sigma: float):
     """gaussian_blur with its border padded with zeros, not reflected (a
     planted fault)."""
@@ -4965,12 +5437,20 @@ def main() -> int:
         for d in ("pred", "ref"):
             os.makedirs(os.path.join(apps_dir, d))
         engine, cfg = phase_web_demo(args.steps, smi, apps_dir)
+        t1 = time.perf_counter()
+        serve = phase_serve(engine, cfg, args.steps, smi)
+        serve_s = time.perf_counter() - t1
         phase_face(engine, cfg, args.steps, smi, apps_dir)
         del engine
         _free()
         phase_eval(apps_dir, smi)
+        t1 = time.perf_counter()
+        phase_load_real(apps_dir, smi)
+        phase_chat_weights(apps_dir)
+        drill_s = time.perf_counter() - t1
     phase_apps_reference()
-    log(f"[apps] the four app phases took {time.perf_counter() - t0:.1f} s")
+    log(f"[apps] the app phases took {time.perf_counter() - t0:.1f} s ([serve]'s restoration side {serve_s:.1f} s, "
+        f"[load_real] and [chat] --weights {drill_s:.1f} s)")
     log(f"[launches] K1 and K2 on the other restore paths: tiled {tiled}, lightning {lightning}, samplers "
         f"{samplers}, feature cache {cache}")
     image = _caption_image()
@@ -4980,9 +5460,18 @@ def main() -> int:
     counted_in = {"K5": ("int4", "K5"), "K6": ("int4-unfused", "K6"), "K7": ("int8", "K7"), "K8": ("int8", "K8"),
                   "K9": ("int4-lean", "K9"), "K5-act": ("int4-w4a8", "K5-act"), "K10": ("int4-w4a8-unfused", "K10"),
                   "K11": ("int4-native", "K11"), "K7-int4": ("int4-half", "K7")}
+    def serve_and_eval(agent):
+        t = time.perf_counter()
+        serve["K5"] = phase_serve_caption(agent, image, smi)
+        phase_captioner_eval(agent, smi)
+        log(f"[serve] [captioner eval] the caption side of serving and the eval took {time.perf_counter() - t:.1f} s")
+
     for label in CAPTION_MODES:
-        counted = phase_captioner(label, image, chat=label == "int4-lean")
+        counted = phase_captioner(label, image, chat=label == "int4-lean",
+                                  then=serve_and_eval if label == "int4" else None)
         launches.update({row: counted[k] for row, (mode, k) in counted_in.items() if mode == label})
+    log(f"[launches] serving: K1 {serve['K1']} and K2 {serve['K2']} a 1024^2 restoration request, K5 {serve['K5']} "
+        f"a caption request")
     phase_captioner_reference(image)
     # K1 and K2 keep the restore path's counts; K3 and K4 run on the trainer's
     train = phase_train()

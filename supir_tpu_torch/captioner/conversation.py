@@ -1,10 +1,10 @@
 """Conversation templates and stop-keyword matching for the captioner
-(the port's copy of what the caption path uses from
-supir_tpu/captioner/conversation.py: the prompt formats, `conv_templates`,
-`KeywordStopper` :313-358 and `build_prompt` :361-369). System prompts, roles
+(the port's copy of supir_tpu/captioner/conversation.py, the reference's
+llava/conversation.py): the prompt formats, `conv_templates`, the chat
+UI's image messages (`(text, image, mode)` tuples, `process_image`,
+`get_images`), `KeywordStopper` and `build_prompt`. System prompts, roles
 and separators are prompt-format contracts with the released checkpoints
-and are kept verbatim. Messages are plain strings: the chat UI's image
-tuples are not ported.
+and are kept verbatim.
 """
 
 from __future__ import annotations
@@ -34,25 +34,40 @@ class Conversation:
     version: str = "Unknown"
 
     def get_prompt(self) -> str:
-        msgs = self.messages
+        msgs = [list(m) for m in self.messages]
+        # an image message is a (text, image, mode) tuple: the first becomes
+        # "<image>\n<text>", or for an mmtag version an image turn of its own
+        if msgs and isinstance(msgs[0][1], tuple):
+            role0, (txt, *_rest) = msgs[0][0], msgs[0][1]
+            txt = txt.replace("<image>", "").strip()
+            if "mmtag" in self.version:
+                msgs[0] = [role0, txt]
+                msgs.insert(0, [self.roles[0], "<Image><image></Image>"])
+                msgs.insert(1, [self.roles[1], "Received."])
+            else:
+                msgs[0] = [role0, "<image>\n" + txt]
+
+        def text_of(m):
+            return m[0] if isinstance(m, tuple) else m
+
         style = self.sep_style
         if style == SeparatorStyle.SINGLE:
             parts = [self.system + self.sep]
             for role, msg in msgs:
-                parts.append(f"{role}: {msg}{self.sep}" if msg else f"{role}:")
+                parts.append(f"{role}: {text_of(msg)}{self.sep}" if msg else f"{role}:")
             return "".join(parts)
 
         if style == SeparatorStyle.TWO:
             seps = (self.sep, self.sep2)
             parts = [self.system + seps[0]]
             for i, (role, msg) in enumerate(msgs):
-                parts.append(f"{role}: {msg}{seps[i % 2]}" if msg else f"{role}:")
+                parts.append(f"{role}: {text_of(msg)}{seps[i % 2]}" if msg else f"{role}:")
             return "".join(parts)
 
         if style == SeparatorStyle.MPT:
             parts = [self.system + self.sep]
             for role, msg in msgs:
-                parts.append(f"{role}{msg}{self.sep}" if msg else role)
+                parts.append(f"{role}{text_of(msg)}{self.sep}" if msg else role)
             return "".join(parts)
 
         if style == SeparatorStyle.LLAMA_2:
@@ -62,7 +77,7 @@ class Conversation:
                     raise ValueError("the first message must be a non-empty user turn")
                 if not msg:
                     continue
-                txt = msg
+                txt = text_of(msg)
                 if i == 0:
                     txt = f"<<SYS>>\n{self.system}\n<</SYS>>\n\n" + txt
                 if i % 2 == 0:
@@ -76,7 +91,7 @@ class Conversation:
             out = self.system
             for i, (_role, msg) in enumerate(msgs):
                 if msg:
-                    out += msg + seps[i % 2]
+                    out += text_of(msg) + seps[i % 2]
             return out
 
         raise ValueError(f"Invalid style: {style}")
@@ -89,8 +104,67 @@ class Conversation:
         """The decode stop string: sep, or sep2 for the TWO style."""
         return self.sep if self.sep_style != SeparatorStyle.TWO else self.sep2
 
+    @staticmethod
+    def process_image(image, image_process_mode: str):
+        """The chat UI's image mode, then the 800/400 downscale rule
+        (conversation.py:117-149): Pad squares the image on the CLIP mean
+        colour, Resize forces 336x336, Default and Crop pass it through;
+        an image whose long edge exceeds the cap its aspect gives is resized."""
+        from PIL import Image
+
+        if image_process_mode == "Pad":
+            w, h = image.size
+            if w != h:
+                side = max(w, h)
+                bg = Image.new(image.mode, (side, side), (122, 116, 104))
+                bg.paste(image, ((side - w) // 2, (side - h) // 2))
+                image = bg
+        elif image_process_mode == "Resize":
+            image = image.resize((336, 336))
+        elif image_process_mode not in ("Default", "Crop"):
+            raise ValueError(f"Invalid image_process_mode: {image_process_mode}")
+        max_hw, min_hw = max(image.size), min(image.size)
+        aspect_ratio = max_hw / min_hw
+        shortest_edge = int(min(800 / aspect_ratio, 400, min_hw))
+        longest_edge = int(shortest_edge * aspect_ratio)
+        w, h = image.size
+        if longest_edge != max(image.size):
+            h, w = (longest_edge, shortest_edge) if h > w else (shortest_edge, longest_edge)
+            image = image.resize((w, h))
+        return image
+
+    def get_images(self, return_pil: bool = False) -> list:
+        """The processed images of the user turns (conversation.py:109-157),
+        as PIL images or base64 PNG strings."""
+        import base64
+        import io
+
+        images = []
+        for i, (_role, msg) in enumerate(self.messages[self.offset:]):
+            if i % 2 == 0 and isinstance(msg, tuple):
+                _txt, image, mode = (list(msg) + ["Default"])[:3]
+                image = self.process_image(image, mode)
+                if return_pil:
+                    images.append(image)
+                else:
+                    buf = io.BytesIO()
+                    image.save(buf, format="PNG")
+                    images.append(base64.b64encode(buf.getvalue()).decode())
+        return images
+
     def copy(self) -> "Conversation":
         return dataclasses.replace(self, messages=[list(m) for m in self.messages])
+
+    def dict(self) -> dict:
+        """The state as JSON-ready values, image messages by their text."""
+        return {
+            "system": self.system,
+            "roles": list(self.roles),
+            "messages": [[r, m[0] if isinstance(m, tuple) else m] for r, m in self.messages],
+            "offset": self.offset,
+            "sep": self.sep,
+            "sep2": self.sep2,
+        }
 
 
 _V0_SEED_Q = "What are the key differences between renewable and non-renewable energy sources?"
@@ -202,6 +276,8 @@ conv_templates = {
     "llava_llama_2": conv_llava_llama_2,
     "mpt": conv_mpt,
 }
+
+default_conversation = conv_vicuna_v1
 
 
 class KeywordStopper:

@@ -147,7 +147,7 @@ def preprocess_images(images, image_size: int, pad_to_square: bool = True, devic
     std = torch.from_numpy(CLIP_IMAGE_STD).to(device)
     out = []
     for img in images:
-        arr = torch.as_tensor(np.asarray(img, np.uint8)).to(device).float() / 255.0
+        arr = torch.from_numpy(np.array(img, np.uint8)).to(device).float() / 255.0
         h, w, _ = arr.shape
         if pad_to_square and h != w:
             side = max(h, w)

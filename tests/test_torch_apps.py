@@ -71,41 +71,13 @@ class Greedy:
 def demos(tmp_path_factory):
     """The JAX and the port DemoServer on one random tiny engine (noise
     injected) and one random tiny captioner (int4, greedy)."""
-    import dataclasses
-
-    import jax
-    import jax.numpy as jnp
-
     from supir_tpu.apps.web_demo import DemoServer as JDemo
-    from supir_tpu.captioner import agent as JA
-    from supir_tpu.captioner import llama as JL
-    from supir_tpu_torch.captioner import agent as TA
-    from supir_tpu_torch.captioner import llama as TL
-    from supir_tpu_torch.captioner import vision as TV
-    from torch_parity import inject_noise, tiny_engine_pair
+    from torch_parity import inject_noise, tiny_captioner_pair, tiny_engine_pair
 
     cfg, jengine, tcfg, tengine = tiny_engine_pair()
     inject_noise(jengine)
     inject_noise(tengine)
-    jcap_cfg = JA.CaptionerConfig.tiny()
-    rng = np.random.default_rng(1)
-
-    def fill(path, leaf):  # as tests/test_torch_captioner.py fills it: norm weights near 1
-        shape, name = np.shape(leaf), path[-1].key
-        if name == "kernel":
-            return (rng.standard_normal(shape) * float(np.prod(shape[:-1])) ** -0.5).astype(np.float32)
-        return ((1.0 if name in ("scale", "weight") else 0.0) + 0.1 * rng.standard_normal(shape)).astype(np.float32)
-
-    params = jax.tree_util.tree_map_with_path(fill, JA.CaptionerAgent.create_random(jcap_cfg, seed=0).params)
-    qllama, _ = JL.quantize_llama_params(params["llama"], bits=4, fuse=True)
-    llama = dataclasses.replace(jcap_cfg.llama, quantize_int4=True, fused_qkv=True, fused_glue=True)
-    jagent = JA.CaptionerAgent(dataclasses.replace(jcap_cfg, llama=llama),
-                               jax.tree_util.tree_map(jnp.asarray, dict(params, llama=qllama)))
-    d = dataclasses.asdict(jcap_cfg)
-    tcap_cfg = TA.CaptionerConfig(vision=TV.CLIPVisionConfig(**d.pop("vision")),
-                                  llama=TL.LlamaConfig(**d.pop("llama")), **d)
-    tagent = TA.create_captioner(tcap_cfg, "cpu", bits=4, state_dict=W.captioner_state_dict_from_jax(params, jcap_cfg),
-                                 stochastic=False)
+    jagent, tagent = tiny_captioner_pair()
     jdemo = JDemo(jengine, cfg, captioner=Greedy(jagent), history_dir=str(tmp_path_factory.mktemp("jhist")))
     tdemo = TW.DemoServer(tengine, tcfg, captioner=Greedy(tagent), history_dir=str(tmp_path_factory.mktemp("thist")))
     return jdemo, tdemo

@@ -190,7 +190,11 @@ def test_port_imports_no_jax(target):
             "assert not bad, bad\n"
             "assert {'supir_tpu_torch.captioner.mpt', 'supir_tpu_torch.captioner.preprocess',\n"
             "        'supir_tpu_torch.captioner.train', 'supir_tpu_torch.parallel.tiled_vae',\n"
-            "        'supir_tpu_torch.parallel.tiled_sampler', 'supir_tpu_torch.utils.tiling'} <= set(sys.modules)\n"
+            "        'supir_tpu_torch.parallel.tiled_sampler', 'supir_tpu_torch.utils.tiling',\n"
+            "        'supir_tpu_torch.serve.controller', 'supir_tpu_torch.serve.worker',\n"
+            "        'supir_tpu_torch.serve.web_chat', 'supir_tpu_torch.captioner.weight_tools',\n"
+            "        'supir_tpu_torch.captioner.eval', 'supir_tpu_torch.captioner.evals',\n"
+            "        'supir_tpu_torch.tools.load_real'} <= set(sys.modules)\n"
             "print(sum(m.startswith('supir_tpu_torch.') for m in sys.modules))\n"
         )
         out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

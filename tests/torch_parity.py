@@ -126,3 +126,82 @@ def inject_noise(engine, seed: int = 0):
 
     engine.batchify_sample = wrapped
     return calls
+
+
+def tiny_captioner_pair(seed: int = 1):
+    """(JAX agent, port agent on the CPU): the tiny captioner in int4 (merged
+    qkv and gate-up, the glue fused), every leaf random from `seed` with the
+    norm weights near 1, in both packages. Greedy decodes agree token for
+    token (tests/test_torch_captioner.py)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from supir_tpu.captioner import agent as JA
+    from supir_tpu.captioner import llama as JL
+    from supir_tpu_torch.captioner import agent as TA
+    from supir_tpu_torch.captioner import llama as TL
+    from supir_tpu_torch.captioner import vision as TV
+    from supir_tpu_torch.utils.weights import captioner_state_dict_from_jax
+
+    jcfg = JA.CaptionerConfig.tiny()
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        shape, name = np.shape(leaf), path[-1].key
+        if name == "kernel":
+            return (rng.standard_normal(shape) * float(np.prod(shape[:-1])) ** -0.5).astype(np.float32)
+        return ((1.0 if name in ("scale", "weight") else 0.0) + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(fill, JA.CaptionerAgent.create_random(jcfg, seed=0).params)
+    qllama, _ = JL.quantize_llama_params(params["llama"], bits=4, fuse=True)
+    llama = dataclasses.replace(jcfg.llama, quantize_int4=True, fused_qkv=True, fused_glue=True)
+    jagent = JA.CaptionerAgent(dataclasses.replace(jcfg, llama=llama),
+                               jax.tree_util.tree_map(jnp.asarray, dict(params, llama=qllama)))
+    d = dataclasses.asdict(jcfg)
+    tcfg = TA.CaptionerConfig(vision=TV.CLIPVisionConfig(**d.pop("vision")), llama=TL.LlamaConfig(**d.pop("llama")),
+                              **d)
+    tagent = TA.create_captioner(tcfg, "cpu", bits=4, state_dict=captioner_state_dict_from_jax(params, jcfg),
+                                 stochastic=False)
+    return jagent, tagent
+
+
+def write_tiny_llava_dir(path: str, seed: int = 0) -> dict:
+    """A tiny HF-layout llava directory written with transformers' own
+    modules (Llama, the CLIP vision tower, the mm_projector's two linears):
+    model.safetensors and config.json, no tokenizer files. Returns the
+    config.json dict."""
+    import json
+    import os
+
+    from safetensors.torch import save_file
+    from transformers import CLIPVisionConfig, CLIPVisionModel, LlamaConfig, LlamaForCausalLM
+
+    from supir_tpu.captioner.agent import CaptionerConfig
+
+    cfg = CaptionerConfig.tiny()
+    torch.manual_seed(seed)
+    llama = LlamaForCausalLM(LlamaConfig(
+        vocab_size=cfg.llama.vocab_size, hidden_size=cfg.llama.dim, intermediate_size=cfg.llama.hidden_dim,
+        num_hidden_layers=cfg.llama.layers, num_attention_heads=cfg.llama.heads,
+        num_key_value_heads=cfg.llama.kv_heads, max_position_embeddings=cfg.llama.max_seq_len))
+    vision = CLIPVisionModel(CLIPVisionConfig(
+        hidden_size=cfg.vision.width, intermediate_size=cfg.vision.width * 4,
+        num_hidden_layers=cfg.vision.layers, num_attention_heads=cfg.vision.heads,
+        image_size=cfg.vision.image_size, patch_size=cfg.vision.patch_size))
+    sd = dict(llama.state_dict())
+    sd.update({"model.vision_tower.vision_tower." + k: v for k, v in vision.state_dict().items()})
+    for i, (cin, cout) in ((0, (cfg.vision.width, cfg.llama.dim)), (2, (cfg.llama.dim, cfg.llama.dim))):
+        sd.update({f"model.mm_projector.{i}.{k}": v for k, v in torch.nn.Linear(cin, cout).state_dict().items()})
+    os.makedirs(path, exist_ok=True)
+    save_file({k: v.contiguous() for k, v in sd.items()}, os.path.join(path, "model.safetensors"))
+    hf = {"hidden_size": cfg.llama.dim, "num_hidden_layers": cfg.llama.layers,
+          "num_attention_heads": cfg.llama.heads, "intermediate_size": cfg.llama.hidden_dim,
+          "vocab_size": cfg.llama.vocab_size, "max_position_embeddings": cfg.llama.max_seq_len,
+          "vision_config": {"image_size": cfg.vision.image_size, "patch_size": cfg.vision.patch_size,
+                            "hidden_size": cfg.vision.width, "num_hidden_layers": cfg.vision.layers,
+                            "num_attention_heads": cfg.vision.heads}}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f)
+    return hf
