@@ -247,6 +247,33 @@ Phases, each printing its own lines:
      kernels) and on the CPU (fp32, plain versions) with the same weights:
      logits, each gradient group, greedy tokens up to the first
      divergence, prefix-LM logits.
+ 13. captioner train: LLaVA-1.5-13B at full width and depth (dense bf16,
+     random weights) through CaptionerTrainer.train_step_tokens on one
+     collate batch (a 336^2 image and a vicuna_v1 conversation on the byte
+     tokenizer, spliced to 2048 positions): "lora" (rank 64, alpha 16; a
+     warm-up step with every K3/K4 call held to its plain version, then a
+     counted and timed step), "projector" (one counted step), then "full"
+     at full width and 2 of the 40 layers: K3 and K4 causal at
+     [1,2048,40,128] once per layer per step and no K1; a finite loss, the
+     base bit-identical, every trainable leaf moved; forward+backward and
+     optimizer seconds, peak memory.
+ 14. captioner train reference: the same step at a reduced width (Llama
+     512 wide, 2 layers, 2048 positions) on the card (bf16 base, K3/K4)
+     and on the CPU (fp32, plain) from the same weights, each mode: loss
+     and gradients (the first Adam moments) within 5e-2.
+ 15. ae train: SDXL's AutoencoderKL with its denoise encoder (fp32
+     parameters, bf16 autocast), LPIPS (random) perceptual, disc_start 0,
+     a 512^2 HQ batch of 2 and its blurred, noisy LQ copy: two
+     denoise-encoder steps, one step of the whole autoencoder: K2 only in
+     the discriminator phase's no-grad reconstruction (encoder and decoder
+     sites), the generator phase's GroupNorms on the plain form; d_weight
+     1.0 and in [0, 1e4]; the frozen parts bit-identical; seconds by phase,
+     peak memory.
+ 16. ae train reference: one step of each branch at VAE ch 32, 128^2, the
+     card (bf16 autocast; and fp32) against the CPU (fp32), same weights,
+     discriminator and draws: losses within 5e-2, the gradients of the
+     generator and the discriminator within 5e-2 in fp32 (in bf16 the L1
+     loss's and LeakyReLU's kinks flip them; printed).
 Then one JSON line with each kernel's numbers, the card line, and last
 `{"ok": true, "device": {...}}`. There is no fallback: without a CUDA
 device, or outside a checkout of the repository, it exits non-zero before
@@ -3714,6 +3741,42 @@ def _check_train_sites(label: str, readings) -> None:
 
 
 @contextlib.contextmanager
+def group_norm_sites():
+    """Hold every K2 call of the GroupNorm32 sites to its fp32 plain version
+    on that call's inputs: per shape, the worst error in units of
+    max(1, |y|) lands in the dict this yields. At |y| <= 1 that is the
+    absolute error that K2_BOUND bounds in [kernels] (whose inputs are
+    clamped so that |y| stays small); above, one bf16 rounding grows with
+    |y| (2^-9 |y|), and so does the bound."""
+    from supir_tpu_torch.models import layers
+    from supir_tpu_torch.ops.groupnorm import group_norm_plain
+
+    readings = collections.defaultdict(list)
+    k2 = layers.group_norm
+
+    def check(out, x, w, b, groups=32, eps=1e-5, silu=False):
+        want = group_norm_plain(x.float(), w, b, groups, eps, silu)
+        err = ((out.float() - want).abs() / want.abs().clamp_min(1.0)).max().item()
+        readings[(tuple(x.shape), str(x.dtype).removeprefix("torch."), eps, silu)].append(err)
+
+    layers.group_norm = _Watched(k2, check)
+    try:
+        yield readings
+    finally:
+        layers.group_norm = k2
+
+
+def _check_norm_sites(label: str, readings) -> None:
+    worst = {k: max(v, key=lambda e: (math.isnan(e), e)) for k, v in readings.items()}
+    log(f"[{label}] every K2 call vs fp32 plain: {sum(map(len, readings.values()))} calls at {len(readings)} "
+        f"shapes, worst error in units of max(1, |y|) by shape (bound {K2_BOUND:g}): "
+        + "; ".join(f"{list(k[0])} {k[1]} eps {k[2]:g} silu {k[3]}: {e:.3e} ({len(readings[k])} calls)"
+                    for k, e in worst.items()))
+    if not readings or not all(e <= K2_BOUND for e in worst.values()):
+        raise AssertionError(f"{label}: a K2 site disagrees with its plain version")
+
+
+@contextlib.contextmanager
 def detached_grad_sites():
     """Planted fault: the port before its repair. Every attention and
     GroupNorm site that trains runs K1 or K2 on detached inputs, so no
@@ -3740,11 +3803,13 @@ def detached_grad_sites():
 
 
 def _bit_sums(tensors):
-    """Per tensor, the int64 sum of its fp32 bit patterns: it changes when
-    an element changes (short of a cancellation no optimizer step makes)."""
+    """Per tensor, the int64 sum of its bit patterns (int32 words; int16
+    for 2-byte types): it changes when an element changes (short of a
+    cancellation no optimizer step makes)."""
     import torch
 
-    return torch.stack([t.detach().view(torch.int32).sum(dtype=torch.int64) for t in tensors]).cpu()
+    return torch.stack([t.detach().view(torch.int16 if t.element_size() == 2 else torch.int32).sum(dtype=torch.int64)
+                        for t in tensors]).cpu()
 
 
 # kernel name -> category of the train profile; the first match wins
@@ -4444,6 +4509,538 @@ def phase_mpt_reference():
                 raise AssertionError(f"mpt reference prefix-LM: rel_l2 {prel}, launches {plaunch}")
             del pcpu, pcard
         del cpu, card
+        _free()
+
+
+# ------------------------------------------------------------ training, the rest
+
+CAPTRAIN_LORA = (64, 16.0)   # LoRA rank and alpha of [captioner train]
+CAPTRAIN_LR = 2e-5           # the JAX CaptionerTrainer's default
+CAPTRAIN_FULL_LAYERS = 2     # [captioner train] full mode: full width, 2 of the 40 layers
+AE_SIDE, AE_BATCH = 512, 2   # [ae train]: a 512^2 HQ batch of 2
+AE_LR = 4.5e-6               # the JAX AETrainer's default
+TRAIN_REF_BOUND = 5e-2       # card bf16 against CPU fp32: loss and gradients, relative
+AE_REF_GRAD_BOUND = 1e-2     # [ae train reference], card fp32 against CPU fp32: gradients, relative L2
+ADAM_FORM_BOUND = 1e-2       # a card step's change against the closed-form first Adam(W) step, relative L2
+
+
+def _caption_train_batch(image_size: int, tokens: int, seed: int):
+    """One `collate` batch on the host: a seeded image_size^2 image,
+    CLIP-normalised, and a generated vicuna_v1 conversation with the image
+    marker through preprocess(has_image=True) on the byte tokenizer, the
+    user turns masked, cut to `tokens` ids. The tokenizer reads the round
+    separator "</s>" as one eos id, as Llama's does: preprocess_v1's round
+    walk (llava train.py:407-489) counts on that, and with the separator as
+    four bytes it finds a mismatch and masks every label."""
+    import numpy as np
+
+    from supir_tpu_torch.captioner.preprocess import (
+        IGNORE_INDEX,
+        IMAGE_TOKEN_INDEX,
+        ByteTokenizer,
+        collate,
+        normalize_multimodal,
+        preprocess,
+    )
+    from supir_tpu_torch.captioner.vision import preprocess_images
+
+    rng = np.random.default_rng(seed)
+    words = ["harbor", "ship", "amber", "teal", "light", "water", "sail", "grey", "dusk", "wave", "stone", "mast"]
+    turns = []
+    while sum(len(t["value"]) for t in turns) < 2 * tokens:
+        ask = " ".join(rng.choice(words, 12)) + "?"
+        turns.append({"from": "human", "value": ask if turns else "<image>\n" + ask})
+        turns.append({"from": "gpt", "value": " ".join(rng.choice(words, 40)) + "."})
+    class EosByteTokenizer(ByteTokenizer):
+        def encode(self, text):
+            parts = text.split("</s>")
+            return [self.bos_token_id] * self.bos + [t for i, part in enumerate(parts)
+                                                     for t in [self.eos_token_id] * (i > 0) + [b + 3 for b in part.encode()]]
+
+    out = preprocess(normalize_multimodal([turns]), EosByteTokenizer(), has_image=True, template_name="vicuna_v1")
+    image = rng.integers(0, 256, (image_size, image_size, 3), dtype=np.uint8)
+    item = {"input_ids": np.asarray(out["input_ids"][0]), "labels": np.asarray(out["labels"][0]),
+            "image": preprocess_images([image], image_size)[0].numpy()}
+    batch = collate([item], pad_id=0, max_len=tokens)
+    ids, labels = batch["input_ids"][0], batch["labels"][0]
+    if len(item["input_ids"]) < tokens or (ids == IMAGE_TOKEN_INDEX).sum() != 1 or (labels == IGNORE_INDEX).all():
+        raise AssertionError(f"the generated conversation holds {len(item['input_ids'])} tokens (wanted {tokens}), "
+                             f"{int((ids == IMAGE_TOKEN_INDEX).sum())} markers, "
+                             f"{int((labels != IGNORE_INDEX).sum())} unmasked labels")
+    return {k: batch[k] for k in ("input_ids", "labels", "images")}
+
+
+def _captrain_counters():
+    from supir_tpu_torch.ops import flash_attention as fa
+    from supir_tpu_torch.ops.groupnorm import group_norm
+
+    return {"K1": fa.flash_attention, "K2": group_norm, "K3": fa.flash_attention_fwd_lse, "K4": fa.flash_attention_bwd}
+
+
+def _timed(obj, attr: str) -> list:
+    """Wrap obj.<attr> to record the seconds of each call, synchronised
+    before and after; returns the list."""
+    import torch
+
+    seconds, fn = [], getattr(obj, attr)
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        return out
+
+    setattr(obj, attr, timed)
+    return seconds
+
+
+def _captrain_step(trainer, batch, counters):
+    """One counted and timed train_step_tokens: (loss, forward+backward s,
+    optimizer s, launches)."""
+    import torch
+
+    opt_s = _timed(trainer.optimizer, "step")
+    _reset(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = trainer.train_step_tokens(batch).item()
+    total = time.perf_counter() - t0
+    return loss, total - opt_s[-1], opt_s[-1], _read(counters)
+
+
+def phase_captioner_train(smi: str):
+    """The captioner trainer at LLaVA-1.5-13B's full width and depth
+    (create_captioner's default: dense bf16, random weights): one batch of
+    one 336^2 image and a vicuna_v1 conversation spliced to max_seq_len
+    positions; "lora" (rank 64, alpha 16) takes a warm-up step with every
+    K3/K4 call held to its plain version, then a counted and timed step;
+    "projector" one counted step on the same model; then "full" one step
+    at full width and CAPTRAIN_FULL_LAYERS layers. Returns K3's and K4's
+    launches of one counted lora step."""
+    import dataclasses as dc
+
+    import torch
+
+    from supir_tpu_torch.captioner.agent import CaptionerConfig, create_captioner
+    from supir_tpu_torch.captioner.llama import LlamaConfig
+    from supir_tpu_torch.captioner.train import PROJECTOR, CaptionerTrainer
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    cfg = dc.replace(CaptionerConfig(), compute_dtype="bfloat16", kv_dtype="bfloat16")
+    t0 = time.perf_counter()
+    agent = create_captioner(cfg, dev, seed=SEED + 41)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tokens = cfg.llama.max_seq_len - cfg.vision.num_patches + 1
+    host = _caption_train_batch(cfg.vision.image_size, tokens, SEED + 42)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    layers = cfg.llama.layers
+    log(f"[captioner train] {smi}: LLaVA-1.5-13B, dense bf16 parameters ({sum(p.numel() for p in agent.model.parameters()) / 1e9:.3f} B), "
+        f"built and randomised on the card in {build_s:.1f} s; one {tokens}-token vicuna_v1 "
+        f"conversation (byte tokenizer, {int((host['labels'] != -100).sum())} unmasked labels) and one "
+        f"{cfg.vision.image_size}^2 image, spliced to {cfg.llama.max_seq_len} positions")
+    counters = _captrain_counters()
+    want = {"K1": 0, "K2": 0, "K3": layers, "K4": layers}
+    base = {k: p for k, p in agent.model.named_parameters() if not k.startswith(PROJECTOR)}
+    base_sums = _bit_sums(base.values())
+    out = {}
+    for mode in ("lora", "projector"):
+        torch.cuda.reset_peak_memory_stats()
+        trainer = CaptionerTrainer(agent, learning_rate=CAPTRAIN_LR, mode=mode, lora_rank=CAPTRAIN_LORA[0],
+                                   lora_alpha=CAPTRAIN_LORA[1])
+        trainer.init_state(seed=SEED + 43)
+        n_train = sum(p.numel() for p in trainer.params.values())
+        if mode == "lora":
+            with flash_train_sites() as readings:
+                t0 = time.perf_counter()
+                warm = trainer.train_step_tokens(batch).item()
+                warm_s = time.perf_counter() - t0
+            _check_train_sites("captioner train", readings)
+            log(f"[captioner train] lora warm-up step (every K3/K4 call held to its plain version): loss {warm:.6g}, "
+                f"{warm_s:.3f} s")
+        before = _bit_sums(trainer.params.values())
+        loss, fb, opt, launches = _captrain_step(trainer, batch, counters)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        unmoved = [k for k, a, b in zip(trainer.params, before, _bit_sums(trainer.params.values())) if a == b]
+        changed = [k for k, a, b in zip(base, base_sums, _bit_sums(base.values())) if a != b]
+        log(f"[captioner train] {mode}: {n_train / 1e6:.2f} M trainable fp32 parameters ({len(trainer.params)} "
+            f"leaves); loss {loss:.6g}; forward+backward {fb:.3f} s, optimizer {opt:.4f} s; peak memory "
+            f"{peak:.2f} GiB; launches {launches} (expected {want}); {len(trainer.params) - len(unmoved)}/"
+            f"{len(trainer.params)} trainable leaves moved, {len(base) - len(changed)}/{len(base)} base leaves "
+            f"bit-identical")
+        if launches != want:
+            raise AssertionError(f"captioner train {mode} launched {launches}, expected {want}")
+        if not math.isfinite(loss) or unmoved or changed:
+            raise AssertionError(f"captioner train {mode}: loss {loss}, unmoved {unmoved[:3]}, changed {changed[:3]}")
+        out[mode] = launches
+        del trainer
+        _free()
+    del agent, base
+    _free()
+
+    torch.cuda.reset_peak_memory_stats()
+    fcfg = dc.replace(cfg, llama=dc.replace(LlamaConfig(), layers=CAPTRAIN_FULL_LAYERS))
+    agent = create_captioner(fcfg, dev, seed=SEED + 44)
+    trainer = CaptionerTrainer(agent, learning_rate=CAPTRAIN_LR, mode="full")
+    trainer.init_state()
+    frozen = {k: p for k, p in agent.model.named_parameters() if k not in trainer.params}
+    frozen_sums, before = _bit_sums(frozen.values()), _bit_sums(trainer.params.values())
+    loss, fb, opt, launches = _captrain_step(trainer, batch, counters)
+    fwant = dict(want, K3=CAPTRAIN_FULL_LAYERS, K4=CAPTRAIN_FULL_LAYERS)
+    unmoved = [k for k, a, b in zip(trainer.params, before, _bit_sums(trainer.params.values())) if a == b]
+    changed = [k for k, a, b in zip(frozen, frozen_sums, _bit_sums(frozen.values())) if a != b]
+    log(f"[captioner train] full, {CAPTRAIN_FULL_LAYERS} of {layers} layers at full width: "
+        f"{sum(p.numel() for p in trainer.params.values()) / 1e9:.3f} B trainable fp32 parameters; loss {loss:.6g}; "
+        f"forward+backward {fb:.3f} s, optimizer {opt:.4f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches} (expected {fwant}); "
+        f"{len(trainer.params) - len(unmoved)}/{len(trainer.params)} leaves moved, {len(frozen) - len(changed)}/"
+        f"{len(frozen)} vision-tower leaves bit-identical")
+    if launches != fwant or not math.isfinite(loss) or unmoved or changed:
+        raise AssertionError(f"captioner train full: launches {launches}, loss {loss}, unmoved {unmoved[:3]}, "
+                             f"changed {changed[:3]}")
+    del trainer, agent, frozen
+    _free()
+    return out["lora"]
+
+
+def _reduced_captioner_cfg(dtype: str):
+    """The captioner references' reduced width: CLIP 256 wide, 2 layers, at
+    336^2 (576 patches); Llama 512 wide in 4 heads of 128, 2 layers,
+    max_seq_len 2048, so the spliced sequence still reaches K3/K4."""
+    from supir_tpu_torch.captioner.agent import CaptionerConfig
+    from supir_tpu_torch.captioner.llama import LlamaConfig
+    from supir_tpu_torch.captioner.vision import CLIPVisionConfig
+
+    return CaptionerConfig(vision=CLIPVisionConfig(width=256, layers=2, heads=4),
+                           llama=LlamaConfig(dim=512, layers=2, heads=4, kv_heads=4, hidden_dim=1024),
+                           compute_dtype=dtype, kv_dtype=dtype)
+
+
+def _moment_rels(got, want):
+    """Relative L2 of the trainable tree's first Adam moments ((1 - b1) x
+    the gradient after one step), all leaves as one vector."""
+    keys = sorted(want)
+    err = sum(float((got[k].float().cpu() - want[k]).norm()) ** 2 for k in keys)
+    return (err / sum(float(want[k].norm()) ** 2 for k in keys)) ** 0.5
+
+
+def _change_rel(got, want):
+    """Relative L2 of one step's change of the trainable tree, all leaves
+    as one vector; got and want are {'before', 'after'} runs."""
+    keys = sorted(want["before"])
+    change = {name: {k: run["after"][k] - run["before"][k] for k in keys} for name, run in (("got", got), ("want", want))}
+    err = sum(float((change["got"][k] - change["want"][k]).norm()) ** 2 for k in keys)
+    return (err / sum(float(change["want"][k].norm()) ** 2 for k in keys)) ** 0.5
+
+
+def _adam_form_rel(run, lr: float, betas, weight_decay: float = 0.0) -> float:
+    """Relative L2, every leaf the optimizer holds as one vector, of one
+    step's change (run['after'] - run['before']) against the closed-form
+    first step of optax's adam/adamw from the moments the optimizer kept
+    (run['m'], run['v']): -lr (m^ / (sqrt(v^) + 1e-8) + wd p), with
+    m^ = m / (1 - b1) and v^ = v / (1 - b2); in float64. It holds the
+    fused optimizer's learning rate, bias corrections and eps on the card;
+    the weight decay's share of one step (lr wd p, ~1e-9 p here) is below
+    fp32 resolution, and the CPU parity tests, which run the same fused
+    optimizer, hold it."""
+    b1, b2 = betas
+    err = ref = 0.0
+    for k, m in run["m"].items():
+        p = run["before"][k].double()
+        form = -lr * ((m.double() / (1 - b1)) / ((run["v"][k].double() / (1 - b2)).sqrt() + 1e-8) + weight_decay * p)
+        err += float((run["after"][k].double() - p - form).norm()) ** 2
+        ref += float(form.norm()) ** 2
+    return (err / ref) ** 0.5
+
+
+def _check_adam_form(label: str, run, lr: float, betas, weight_decay: float = 0.0) -> str:
+    """_adam_form_rel within ADAM_FORM_BOUND, and the same form at twice the
+    learning rate (a planted control) far outside it; returns the log."""
+    rel = _adam_form_rel(run, lr, betas, weight_decay)
+    control = _adam_form_rel(run, 2 * lr, betas, weight_decay)
+    if not (rel <= ADAM_FORM_BOUND and control > 10 * ADAM_FORM_BOUND):
+        raise AssertionError(f"{label}: the card's step against the closed-form Adam step {rel}, "
+                             f"control (2 lr) {control}")
+    return (f"step against the closed-form Adam step rel_l2 {rel:.3e} (bound {ADAM_FORM_BOUND:g}; control at 2 lr "
+            f"{control:.3e})")
+
+
+def phase_captioner_train_reference():
+    """The captioner trainer's token-level step at the reduced width on the
+    card (bf16 base, fp32 trainable leaves, bf16 autocast, K3/K4) and on
+    the CPU (fp32, plain versions) from the same weights and adapters, in
+    every mode: the loss and the gradients (the first Adam moments, every
+    trainable leaf as one vector) must agree to TRAIN_REF_BOUND, and the
+    card's step must be the closed-form AdamW step (optax's defaults) from
+    its own moments (_check_adam_form). The change of the trainable leaves
+    against the CPU's is printed beside them: Adam's first step is about
+    lr x sign(gradient), so its difference counts the elements whose tiny
+    gradients differ in sign between bf16 and fp32."""
+    import torch
+
+    from supir_tpu_torch.captioner.agent import create_captioner
+    from supir_tpu_torch.captioner.train import MODES, CaptionerTrainer, init_lora
+
+    cpu_cfg, card_cfg = _reduced_captioner_cfg("float32"), _reduced_captioner_cfg("bfloat16")
+    tokens = cpu_cfg.llama.max_seq_len - cpu_cfg.vision.num_patches + 1
+    host = _caption_train_batch(cpu_cfg.vision.image_size, tokens, SEED + 45)
+    sd = create_captioner(cpu_cfg, "cpu", seed=SEED + 46).model.state_dict()
+    counters = _captrain_counters()
+    for mode in MODES:
+        runs = {}
+        for name, cfg, dev in (("cpu", cpu_cfg, torch.device("cpu")), ("card", card_cfg, torch.device("cuda"))):
+            agent = create_captioner(cfg, dev, state_dict=sd)
+            trainer = CaptionerTrainer(agent, learning_rate=CAPTRAIN_LR, mode=mode, lora_rank=16, lora_alpha=16.0)
+            if mode == "lora" and name == "cpu":
+                lora = init_lora(agent.model, 16, torch.Generator().manual_seed(SEED + 47))
+            trainer.init_state(lora=lora if mode == "lora" else None)
+            before = {k: p.detach().float().cpu().clone() for k, p in trainer.params.items()}
+            _reset(counters)
+            t0 = time.perf_counter()
+            loss = trainer.train_step_tokens({k: torch.from_numpy(v).to(dev) for k, v in host.items()}).item()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            runs[name] = dict(loss=loss, s=time.perf_counter() - t0, launches=_read(counters), before=before,
+                              after={k: p.detach().float().cpu() for k, p in trainer.params.items()},
+                              m={k: v.float().cpu() for k, v in trainer.state()["exp_avg"].items()},
+                              v={k: v.float().cpu() for k, v in trainer.state()["exp_avg_sq"].items()})
+            del trainer, agent
+        cpu, card = runs["cpu"], runs["card"]
+        loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        grad_rel = _moment_rels(card["m"], cpu["m"])
+        change_rel = _change_rel(card, cpu)
+        # optax's adamw defaults: b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4
+        form = _check_adam_form(f"captioner train reference {mode}", card, CAPTRAIN_LR, (0.9, 0.999), 1e-4)
+        want = {"K1": 0, "K2": 0, "K3": cpu_cfg.llama.layers, "K4": cpu_cfg.llama.layers}
+        log(f"[captioner train reference] {mode} (Llama 512 wide, 2 layers, {cpu_cfg.llama.max_seq_len} positions): "
+            f"card bf16 loss {card['loss']:.6g} vs CPU fp32 {cpu['loss']:.6g} ({cpu['s']:.1f} s), relative "
+            f"{loss_rel:.3e}; gradients (first moments) rel_l2 {grad_rel:.3e} (bound {TRAIN_REF_BOUND:g}); "
+            f"one-step change rel_l2 {change_rel:.3e} (printed); card {form}; card launches {card['launches']} "
+            f"(expected {want})")
+        if not (loss_rel <= TRAIN_REF_BOUND and grad_rel <= TRAIN_REF_BOUND) or card["launches"] != want:
+            raise AssertionError(f"captioner train reference {mode}: loss {loss_rel}, gradients {grad_rel}, "
+                                 f"launches {card['launches']}")
+        _free()
+
+
+def expected_ae_train_launches(cfg) -> int:
+    """K2 launches of one AE train step: the discriminator phase's
+    reconstruction (no grad), the encoder's and the decoder's GroupNorm
+    sites once each (the denoise encoder has the encoder's); every
+    generator-phase site is differentiated and takes the plain form."""
+    import torch
+
+    from supir_tpu_torch.models.layers import GroupNorm32
+    from supir_tpu_torch.models.vae import AutoencoderKL
+
+    with torch.device("meta"):
+        vae = AutoencoderKL(cfg)
+    return sum(isinstance(m, GroupNorm32) for part in (vae.encoder, vae.decoder) for m in part.modules())
+
+
+def _ae_images(side: int, n: int, seed: int):
+    """(LQ, HQ) NHWC fp32 on the host in [-1, 1]: HQ a seeded smooth random
+    image (a 32^2 field, bicubically upsampled, plus fine noise), LQ its
+    copy degraded: Gaussian blur (ksize 9, sigma 2), noise sigma 0.1."""
+    import torch
+    import torch.nn.functional as F
+
+    from supir_tpu_torch.ops.resize import gaussian_blur
+
+    g = torch.Generator().manual_seed(seed)
+    field = F.interpolate(torch.rand(n, 3, 32, 32, generator=g), size=(side, side), mode="bicubic",
+                          align_corners=False)
+    hq = (2 * field - 1 + 0.05 * torch.randn(n, 3, side, side, generator=g)).clamp(-1, 1).permute(0, 2, 3, 1)
+    lq = (gaussian_blur(hq.contiguous(), 9, 2.0) + 0.1 * torch.randn(hq.shape, generator=g)).clamp(-1, 1)
+    return lq.contiguous(), hq.contiguous()
+
+
+def _random_lpips(device):
+    from supir_tpu_torch.utils.metrics import LPIPS, convert_lpips_state
+
+    lpips = LPIPS()
+    lpips.load_state_dict(convert_lpips_state(*_lpips_sources(SEED + 48)), strict=True)
+    return lpips.to(device).eval().requires_grad_(False)
+
+
+def phase_ae_train(smi: str):
+    """The autoencoder GAN trainer at SDXL's full VAE width (VAEConfig():
+    fp32 parameters, bf16 autocast) with its denoise encoder, LPIPS with
+    random weights as the perceptual term, disc_start 0: two
+    denoise-encoder steps (LQ in, HQ target: SUPIR's stage-1 recipe), then
+    one step of the whole autoencoder. K2 runs only in the discriminator
+    phase's reconstruction; the first step holds each of its calls to the
+    plain version (group_norm_sites). Returns K2's launches per step."""
+    import torch
+
+    from supir_tpu_torch.config import VAEConfig
+    from supir_tpu_torch.diffusion.ae_losses import AELossConfig
+    from supir_tpu_torch.engine.ae_training import METRICS, AETrainer
+    from supir_tpu_torch.engine.factory import create_ae_trainer
+    from supir_tpu_torch.models.layers import GroupNorm32
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    cfg = VAEConfig()
+    lpips = _random_lpips(dev)
+    lq, hq = (t.to(dev) for t in _ae_images(AE_SIDE, AE_BATCH, SEED + 49))
+    loss_cfg = AELossConfig(disc_start=0)
+    trainer = create_ae_trainer(cfg, dev, seed=SEED + 50, loss_cfg=loss_cfg, learning_rate=AE_LR,
+                                train_branch="denoise_encoder", perceptual_fn=lpips)
+    g = torch.Generator(device=dev).manual_seed(SEED + 51)
+    per_step = expected_ae_train_launches(cfg)
+    counters = _captrain_counters()
+    want = {"K1": 0, "K2": per_step, "K3": 0, "K4": 0}
+    log(f"[ae train] {smi}: SDXL AutoencoderKL with its denoise encoder, fp32 parameters "
+        f"({sum(p.numel() for p in trainer.model.parameters()) / 1e6:.1f} M), bf16 autocast; NLayerDiscriminator "
+        f"({sum(p.numel() for p in trainer.disc.parameters()) / 1e6:.2f} M); LPIPS-VGG (random) perceptual; "
+        f"{AE_BATCH} x {AE_SIDE}^2, disc_start 0, Adam lr {AE_LR:g} (b1 0.5, b2 0.9)")
+    frozen = {k: p for k, p in trainer.model.named_parameters() if not k.startswith("denoise_encoder.")}
+    frozen_sums = _bit_sums(frozen.values())
+    k2 = None
+    for branch, steps in (("denoise_encoder", 2), ("all", 1)):
+        if branch == "all":
+            trainer = AETrainer(trainer.model, loss_cfg, AE_LR, train_branch="all", perceptual_fn=lpips,
+                                seed=SEED + 52)
+        seconds = {name: _timed(trainer, f"_{name}_phase") for name in ("generator", "discriminator")}
+        before = _bit_sums(trainer.params.values())
+        for i in range(steps):
+            _reset(counters)
+            GroupNorm32.plain_sites = 0
+            torch.cuda.reset_peak_memory_stats()
+            # the first step holds every K2 call to its plain version
+            check = branch == "denoise_encoder" and i == 0
+            with group_norm_sites() if check else contextlib.nullcontext() as norms:
+                m = trainer.train_step(lq if branch == "denoise_encoder" else hq, hq, g)
+            if check:
+                _check_norm_sites("ae train", norms)
+            metrics = {k: float(v) for k, v in m.items()}
+            launches, plain = _read(counters), GroupNorm32.plain_sites
+            log(f"[ae train] {branch} step {i + 1}/{steps}{' (K2 held to plain)' if check else ''}: generator "
+                f"phase {seconds['generator'][-1]:.3f} s, discriminator phase {seconds['discriminator'][-1]:.3f} s; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches} (expected {want}), "
+                f"{plain} GroupNorm calls on the plain differentiable form; "
+                + ", ".join(f"{k} {metrics[k]:.5g}" for k in METRICS))
+            if launches != want or plain != per_step:
+                raise AssertionError(f"ae train {branch}: launches {launches}, plain GroupNorm calls {plain}, "
+                                     f"expected {want} and {per_step}")
+            if not all(math.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"ae train {branch}: non-finite metrics {metrics}")
+            d_weight = metrics["d_weight"]
+            if (branch == "all" and not 0.0 <= d_weight <= 1e4) or (branch == "denoise_encoder" and d_weight != 1.0):
+                raise AssertionError(f"ae train {branch}: d_weight {d_weight}")
+        unmoved = [k for k, a, b in zip(trainer.params, before, _bit_sums(trainer.params.values())) if a == b]
+        if branch == "denoise_encoder":
+            changed = [k for k, a, b in zip(frozen, frozen_sums, _bit_sums(frozen.values())) if a != b]
+            log(f"[ae train] denoise_encoder: {len(trainer.params) - len(unmoved)}/{len(trainer.params)} branch "
+                f"leaves moved, {len(frozen) - len(changed)}/{len(frozen)} encoder, decoder and quant-conv leaves "
+                f"bit-identical")
+            if unmoved or changed:
+                raise AssertionError(f"ae train denoise_encoder: unmoved {unmoved[:3]}, changed {changed[:3]}")
+            k2 = launches["K2"]
+        else:
+            # the denoise encoder is outside the "all" forward and stays put
+            moved = [k for k in trainer.params if k not in unmoved]
+            log(f"[ae train] all: {len(moved)}/{len(trainer.params)} leaves moved (the denoise encoder's "
+                f"{sum(k.startswith('denoise_encoder.') for k in trainer.params)} get no gradient)")
+            if any(not k.startswith("denoise_encoder.") for k in unmoved):
+                raise AssertionError(f"ae train all: unmoved {unmoved[:3]}")
+    del trainer, lpips, frozen
+    _free()
+    return k2
+
+
+def phase_ae_train_reference():
+    """One AE train step in each branch at the reduced width (VAEConfig
+    ch 32, 128^2, batch 2, LPIPS random) on the CPU (fp32, plain) and on
+    the card twice, as the trainer runs (bf16 autocast, K2 in the
+    reconstruction) and with autocast off (fp32, K2 on fp32 tensors), same
+    weights, same discriminator, same posterior draws. The generator's
+    losses must agree to TRAIN_REF_BOUND in both; in fp32 the gradients of
+    the generator's trainable tree and of the discriminator (first Adam
+    moments, each tree as one vector) must agree to AE_REF_GRAD_BOUND, and
+    both card runs' steps must be the closed-form Adam step from their own
+    moments (_check_adam_form). In bf16 the gradients are printed only: the L1 loss's sign(recon - target) and the
+    discriminator's LeakyReLU kinks flip wherever bf16's ~1e-2 error
+    crosses them, a discrete change of the gradient no bound on rounding
+    covers (even fp32's different summation orders flip a few kinks of the
+    discriminator's small maps: ~1e-3). At 128^2 the mid-block attention (256 tokens) takes the plain
+    route, as the full width's 512-wide head does: no flash kernel runs,
+    and none takes fp32 under grad."""
+    import torch
+
+    from supir_tpu_torch.config import VAEConfig
+    from supir_tpu_torch.diffusion.ae_losses import AELossConfig
+    from supir_tpu_torch.engine import ae_training
+    from supir_tpu_torch.engine.factory import create_ae_trainer
+
+    cfg, side = VAEConfig().tiny(), 128
+    lq, hq = _ae_images(side, 2, SEED + 53)
+    latent = (2, cfg.embed_dim, side // cfg.downscale_factor, side // cfg.downscale_factor)
+    g = torch.Generator().manual_seed(SEED + 54)
+    draws = [torch.randn(latent, generator=g) for _ in range(2)]
+    counters = _captrain_counters()
+    unit_normal, autocast = ae_training.unit_normal, ae_training.train_autocast
+    want_launches = {"K1": 0, "K2": expected_ae_train_launches(cfg), "K3": 0, "K4": 0}
+    cpu, card = torch.device("cpu"), torch.device("cuda")
+    for branch in ("denoise_encoder", "all"):
+        runs, state = {}, None
+        for name, dev in (("cpu", cpu), ("card bf16", card), ("card fp32", card)):
+            queue = list(draws)
+            ae_training.unit_normal = lambda shape, generator, device: queue.pop(0).to(device)
+            trainer = create_ae_trainer(cfg, dev, seed=SEED + 55, loss_cfg=AELossConfig(disc_start=0),
+                                        learning_rate=AE_LR, train_branch=branch, perceptual_fn=_random_lpips(dev))
+            # the fp32 card run: the trainer's bf16 autocast off
+            ae_training.train_autocast = autocast if name != "card fp32" else lambda device: contextlib.nullcontext()
+            if state is None:
+                state = {"gen": {k: v.detach().clone() for k, v in trainer.state()["gen"].items()},
+                         "disc": {k: v.detach().clone() for k, v in trainer.state()["disc"].items()},
+                         "opt_g": {"exp_avg": {}, "exp_avg_sq": {}}, "opt_d": {"exp_avg": {}, "exp_avg_sq": {}},
+                         "step": 0}
+            trainer.load_state(state)
+            _reset(counters)
+            t0 = time.perf_counter()
+            m = trainer.train_step((lq if branch == "denoise_encoder" else hq).to(dev), hq.to(dev))
+            st = trainer.state()
+            runs[name] = dict(metrics={k: float(v) for k, v in m.items()}, s=time.perf_counter() - t0,
+                              launches=_read(counters))
+            for tree, opt in (("gen", "opt_g"), ("disc", "opt_d")):
+                runs[name][tree] = dict(before=state[tree], after={k: st[tree][k].detach().float().cpu() for k in
+                                                                   st[opt]["exp_avg"]},
+                                        m={k: v.float().cpu() for k, v in st[opt]["exp_avg"].items()},
+                                        v={k: v.float().cpu() for k, v in st[opt]["exp_avg_sq"].items()})
+            del trainer
+        ae_training.unit_normal, ae_training.train_autocast = unit_normal, autocast
+        want = runs["cpu"]
+        for name in ("card bf16", "card fp32"):
+            got = runs[name]
+            rels = {k: abs(got["metrics"][k] - want["metrics"][k]) / abs(want["metrics"][k])
+                    for k in ("loss_g", "rec", "kl")}
+            grads = {"generator": _moment_rels(got["gen"]["m"], want["gen"]["m"]),
+                     "discriminator": _moment_rels(got["disc"]["m"], want["disc"]["m"])}
+            bound = AE_REF_GRAD_BOUND if name == "card fp32" else None
+            # optax's adam(lr, b1=0.5, b2=0.9), eps 1e-8, for both phases
+            forms = [_check_adam_form(f"ae train reference {branch}, {name}, {tree}", got[tree], AE_LR, (0.5, 0.9))
+                     for tree in ("gen", "disc")]
+            log(f"[ae train reference] {branch} (VAE ch {cfg.ch}, 2 x {side}^2): {name} vs CPU fp32 "
+                f"({want['s']:.1f} s): " + ", ".join(f"{k} {got['metrics'][k]:.5g} vs {want['metrics'][k]:.5g}"
+                                                     for k in ("loss_g", "rec", "kl", "d_weight"))
+                + "; relative " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+                + f" (bound {TRAIN_REF_BOUND:g}); gradients (first moments) rel_l2 "
+                + ", ".join(f"{k} {v:.3e}" for k, v in grads.items())
+                + (f" (bound {bound:g})" if bound else " (printed: kinks, see the docstring)")
+                + f"; generator {forms[0]}; discriminator {forms[1]}; launches {got['launches']} "
+                f"(expected {want_launches})")
+            if max(rels.values()) > TRAIN_REF_BOUND or (bound and max(grads.values()) > bound):
+                raise AssertionError(f"ae train reference {branch}, {name}: losses {rels}, gradients {grads}")
+            if got["launches"] != want_launches:
+                raise AssertionError(f"ae train reference {branch}, {name}: launches {got['launches']}, "
+                                     f"expected {want_launches}")
         _free()
 
 
@@ -5484,6 +6081,16 @@ def main() -> int:
     grad = phase_mpt_grad()
     launches.update({"K3-alibi": grad["K3-alibi lse"], "K4-alibi": grad["K4-alibi"]})
     phase_mpt_reference()
+    # the rest of training: K3 and K4 causal on the captioner trainer's step,
+    # K2 in the AE trainer's no-grad reconstruction, added to their rows
+    t0 = time.perf_counter()
+    captrain = phase_captioner_train(smi)
+    phase_captioner_train_reference()
+    ae_k2 = phase_ae_train(smi)
+    phase_ae_train_reference()
+    launches.update({"K3": launches["K3"] + captrain["K3"], "K4": launches["K4"] + captrain["K4"],
+                     "K2": launches["K2"] + ae_k2})
+    log(f"[train] [captioner train], [ae train] and their references took {time.perf_counter() - t0:.1f} s")
 
     sources = {
         "K1": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:35"),

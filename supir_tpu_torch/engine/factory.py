@@ -21,11 +21,14 @@ from typing import Mapping, Optional
 import torch
 import torch.nn as nn
 
-from supir_tpu_torch.config import ConditionerConfig, SUPIRConfig, UNetConfig
+from supir_tpu_torch.config import ConditionerConfig, SUPIRConfig, UNetConfig, VAEConfig
+from supir_tpu_torch.diffusion.ae_losses import AELossConfig
+from supir_tpu_torch.engine.ae_training import AETrainer
 from supir_tpu_torch.engine.supir import SUPIREngine, SUPIRModel
 from supir_tpu_torch.engine.training import SUPIRTrainer
 from supir_tpu_torch.models.clip import CLIPTextModel, OpenCLIPAttention
 from supir_tpu_torch.models.layers import Conv, Dense, FusedLayerNorm, GroupNorm32
+from supir_tpu_torch.models.vae import AutoencoderKL
 from supir_tpu_torch.utils.device import resolve_device
 
 
@@ -111,3 +114,24 @@ def create_trainer(cfg: Optional[SUPIRConfig] = None, device="cuda",
     for name in ("diffusion_model", "control_model"):
         engine.model.model[name].remat = remat
     return SUPIRTrainer(engine, learning_rate, weight_decay, ema_decay)
+
+
+def create_ae_trainer(cfg: Optional[VAEConfig] = None, device="cuda",
+                      state_dict: Optional[Mapping[str, torch.Tensor]] = None, seed: int = 0,
+                      loss_cfg: AELossConfig = AELossConfig(), learning_rate: float = 4.5e-6,
+                      train_branch: str = "all", perceptual_fn=None) -> AETrainer:
+    """An AETrainer over an fp32 AutoencoderKL with its denoise encoder
+    (SDXL's VAEConfig by default) on `device`, filled from `state_dict`
+    (strict; the port's AutoencoderKL keys) or randomly from `seed`; the
+    discriminator is drawn from seed + 1. On the card its steps run under
+    bf16 autocast. Raises without a card unless `device="cpu"`."""
+    device = resolve_device(device)
+    with torch.device("meta"):
+        model = AutoencoderKL(cfg or VAEConfig(), dtype=torch.float32)
+    model = model.to_empty(device=device)
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    else:
+        init_random(model, torch.Generator(device=device).manual_seed(seed))
+    return AETrainer(model, loss_cfg, learning_rate, train_branch=train_branch, perceptual_fn=perceptual_fn,
+                     seed=seed + 1)

@@ -47,6 +47,28 @@ STOP_GRADIENT_PREFIXES = tuple(
 )
 
 
+def train_autocast(device: torch.device):
+    """The trainers' forward and backward precision: bf16 autocast on the
+    card (the Flax modules' `dtype`), none on the CPU."""
+    return torch.autocast("cuda", dtype=torch.bfloat16, enabled=device.type == "cuda")
+
+
+def set_adam_state(optimizer: torch.optim.Optimizer, params: Mapping[str, torch.Tensor],
+                   exp_avg: Mapping[str, torch.Tensor], exp_avg_sq: Mapping[str, torch.Tensor], step: int) -> None:
+    """Give each of `params` (by name) that `exp_avg` holds the state of an
+    Adam or AdamW `optimizer` after `step` steps with those moments (optax's
+    mu and nu). torch keeps the step count per parameter: a float32 scalar,
+    on the card when the optimizer is fused."""
+    fused = bool(optimizer.defaults.get("fused"))
+    for k, p in params.items():
+        if k in exp_avg:
+            optimizer.state[p] = {
+                "step": torch.tensor(float(step), dtype=torch.float32, device=p.device if fused else "cpu"),
+                "exp_avg": exp_avg[k].to(p).clone(),
+                "exp_avg_sq": exp_avg_sq[k].to(p).clone(),
+            }
+
+
 class EMA:
     """Exponential moving average of named parameters (reference
     sgm/modules/ema.py), with LitEma's warm-up of the decay."""
@@ -137,16 +159,7 @@ class SUPIRTrainer:
         for k, v in state["params"].items():
             named[k].copy_(v)
         self.step = int(state["step"])
-        fused = self.engine.device.type == "cuda"
-        for k, p in self.params.items():
-            self.optimizer.state[p] = {
-                # AdamW keeps its step count per parameter: a float32 scalar,
-                # on the card when fused
-                "step": torch.tensor(float(self.step), dtype=torch.float32,
-                                     device=p.device if fused else "cpu"),
-                "exp_avg": state["exp_avg"][k].to(p).clone(),
-                "exp_avg_sq": state["exp_avg_sq"][k].to(p).clone(),
-            }
+        set_adam_state(self.optimizer, self.params, state["exp_avg"], state["exp_avg_sq"], self.step)
         if self.ema:
             self.ema_params = {k: state["ema"][k].to(named[k]).clone() for k in self._ema_sources()}
 
@@ -168,7 +181,7 @@ class SUPIRTrainer:
         noise = None if noise is None else _nchw(t(noise))
         for p in self.params.values():
             p.grad = None
-        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=engine.device.type == "cuda"):
+        with train_autocast(engine.device):
             loss = diffusion_loss(self._denoise, z, batch, generator, weighting="eps",
                                   sigma_sampler="discrete", sigma=sigma, noise=noise)
         loss.backward()

@@ -390,3 +390,39 @@ def mpt_rules(cfg) -> List[Rule]:
         rules += _dense(f"{lt}.ffn.up_proj", lf + ("up_proj",), bias=False)
         rules += _dense(f"{lt}.ffn.down_proj", lf + ("down_proj",), bias=False)
     return rules
+
+
+# ------------------------------------------------------------------ training
+# trees of the trainers that no reference checkpoint holds: the port's keys
+# against the JAX modules' own paths
+
+
+def discriminator_rules(n_layers: int = 3) -> List[Rule]:
+    """NLayerDiscriminator (diffusion/ae_losses.py) -> the JAX
+    discriminator's tree (supir_tpu/diffusion/ae_losses.py:20): flax Conv
+    leaves directly under conv{i}, GroupNorm's scale -> weight."""
+    def conv(name: str, bias: bool = True) -> List[Rule]:
+        rules = [(f"{name}.weight", (name, "kernel"), "conv")]
+        return rules + [(f"{name}.bias", (name, "bias"), None)] if bias else rules
+
+    rules = conv("conv0")
+    for i in range(1, n_layers + 1):
+        rules += conv(f"conv{i}", bias=False)
+        rules += _norm(f"norm{i}", (f"norm{i}",))
+    return rules + conv("conv_out")
+
+
+LORA_MLP = ("gate_proj", "up_proj", "down_proj")
+
+
+def lora_rules(layers: int, targets) -> List[Rule]:
+    """The trainer's LoRA leaves (captioner/train.py:init_lora) -> JAX's
+    `init_lora` tree (supir_tpu/captioner/train.py:32): a [in, r] and b
+    [r, out] in the same layout under params['lora']['model']['layer_{i}']."""
+    rules: List[Rule] = []
+    for i in range(layers):
+        for p in targets:
+            group = "mlp" if p in LORA_MLP else "self_attn"
+            for leaf in ("a", "b"):
+                rules.append((f"model.layers.{i}.{group}.{p}.lora_{leaf}", ("model", f"layer_{i}", p, leaf), None))
+    return rules

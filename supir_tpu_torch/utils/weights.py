@@ -51,7 +51,11 @@ and under torchvision's and the taming heads' keys.
 `train_state_from_jax` carries a JAX trainer state (params, optax's AdamW
 mu and nu, the EMA and the step) into the port's trainer state by the same
 rules: the transforms are linear, so they serve the moments and the EMA as
-they serve the parameters.
+they serve the parameters. `ae_train_state_from_jax` does the same for the
+autoencoder's GAN trainer (the generator, the discriminator and both Adam
+states), `discriminator_state_dict_from_jax` for its discriminator alone,
+and `lora_state_dict_from_jax` carries the captioner trainer's LoRA
+adapters (`utils/ckpt_rules.py:discriminator_rules`, `lora_rules`).
 """
 
 from __future__ import annotations
@@ -231,7 +235,7 @@ def train_state_from_jax(state_np: Mapping[str, Any], cfg: SUPIRConfig) -> Dict[
     and 'ema' over the trainable branches (control, unet), and 'step'."""
     tables = supir_rules(cfg)
     trainable = {k: tables[k] for k in ("control", "unet")}
-    adam = next(s for s in state_np["opt"] if hasattr(s, "mu"))
+    adam = _adam(state_np["opt"])
     out = {
         "params": _bridge(state_np["params"], tables),
         "exp_avg": _bridge(adam.mu, trainable),
@@ -240,6 +244,56 @@ def train_state_from_jax(state_np: Mapping[str, Any], cfg: SUPIRConfig) -> Dict[
     }
     if "ema" in state_np:
         out["ema"] = _bridge(state_np["ema"], trainable)
+    return out
+
+
+def _adam(opt_state):
+    """optax's ScaleByAdamState (count, mu, nu) within an optimizer state."""
+    return next(s for s in opt_state if hasattr(s, "mu"))
+
+
+def lora_state_dict_from_jax(lora_np: Mapping[str, Any], layers: int) -> Dict[str, torch.Tensor]:
+    """JAX's `init_lora` tree ({'model': {'layer_{i}': {'q_proj': {'a',
+    'b'}, ...}}}) -> the trainer's adapters
+    (`captioner/train.py:init_lora`'s keys, the same [in, r] / [r, out]
+    layout), fp32; a site the tree lacks is left out."""
+    from supir_tpu_torch.captioner.train import LORA_TARGETS
+
+    rules = [r for r in C.lora_rules(layers, LORA_TARGETS) if _has(lora_np, r[1])]
+    return state_dict_from_rules(lora_np, rules)
+
+
+def discriminator_state_dict_from_jax(params_np: Mapping[str, Any], n_layers: int = 3) -> Dict[str, torch.Tensor]:
+    """A JAX NLayerDiscriminator tree -> the port's NLayerDiscriminator
+    state dict, fp32."""
+    return state_dict_from_rules(params_np, C.discriminator_rules(n_layers))
+
+
+def _vae_rules_of(cfg, tree: Mapping[str, Any]) -> List[C.Rule]:
+    """The VAE's rules under the port's AutoencoderKL keys (the reference's
+    without `first_stage_model.`), those whose leaf the tree holds."""
+    n = len("first_stage_model.")
+    return [(tk[n:], fp, kind) for tk, fp, kind in C.vae_rules(cfg) if _has(tree, fp)]
+
+
+def ae_train_state_from_jax(state_np: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """A JAX `AETrainer` state (numpy or array leaves; cfg a VAEConfig) ->
+    the state `engine/ae_training.py:AETrainer.load_state` takes: 'gen'
+    (every autoencoder parameter), 'disc', 'opt_g' and 'opt_d' ({'exp_avg',
+    'exp_avg_sq'}: optax's mu and nu of the generator's trainable tree and
+    of the discriminator) and 'step'."""
+    gen_rules = _vae_rules_of(cfg, state_np["gen"])
+    disc_rules = C.discriminator_rules()
+    out: Dict[str, Any] = {
+        "gen": state_dict_from_rules(state_np["gen"], gen_rules),
+        "disc": state_dict_from_rules(state_np["disc"], disc_rules),
+        "step": int(np.asarray(state_np["step"])),
+    }
+    for key, rules in (("opt_g", gen_rules), ("opt_d", disc_rules)):
+        adam = _adam(state_np[key])
+        held = [r for r in rules if _has(adam.mu, r[1])]
+        out[key] = {"exp_avg": state_dict_from_rules(adam.mu, held),
+                    "exp_avg_sq": state_dict_from_rules(adam.nu, held)}
     return out
 
 

@@ -1,14 +1,17 @@
 """The port's checkpoint key spaces against the reference's real ones (the
 counterpart of tests/test_ckpt_manifest.py), one case per port tree:
-restore (UNet, control, VAE), text conditioner, LLaVA, MPT and the face
-models.
+restore (UNet, control, VAE), text conditioner, LLaVA, MPT, the face
+models, and the trainers' own trees: the autoencoder GAN's discriminator
+and the captioner's LoRA adapters (rank 64 on LLaVA-1.5-13B).
 
 The manifests (`supir_tpu/data/ref_key_manifests.json`,
 `face_key_manifests.json`) hold the state-dict keys and shapes of the
 reference's own torch modules at full width. MPT has no entry there: its
 key space is the JAX converter's rule table
 (supir_tpu/captioner/convert.py:mpt_rules) with each torch shape taken
-back from JAX's full-width MPT-7B tree. For each tree:
+back from JAX's full-width MPT-7B tree; so is each trainer tree's, from
+JAX's `NLayerDiscriminator` and from `init_lora` over the 13B Llama. For
+each tree:
 
   1. every rule's reference key is in the manifest;
   2. the manifest's shapes, passed through the port's converter for that
@@ -40,6 +43,8 @@ ALLOWED_UNUSED = {
     "mpt": (),
     # BatchNorm's step counters
     "face": ("num_batches_tracked",),
+    "discriminator": (),
+    "lora": (),
 }
 
 
@@ -133,7 +138,56 @@ def _face():
     return manifest, rules, held, convert
 
 
-TREES = {"restore": _restore, "conditioner": _conditioner, "llava": _llava, "mpt": _mpt, "face": _face}
+def _from_jax_shapes(shapes, rules):
+    """A rule table's torch keys with each torch shape taken back from a
+    JAX tree of shapes."""
+    def torch_shape(fpath, kind):
+        leaf = shapes
+        for p in fpath:
+            leaf = leaf[p]
+        return {"linear": lambda s: tuple(reversed(s)), "conv": lambda s: (s[3], s[2], s[0], s[1])}.get(
+            kind, tuple)(tuple(leaf.shape))
+
+    return {tk: torch_shape(fp, kind) for tk, fp, kind in rules}
+
+
+def _discriminator():
+    import jax
+    import numpy as np
+
+    from supir_tpu.diffusion import ae_losses as JL
+    from supir_tpu_torch.diffusion.ae_losses import NLayerDiscriminator
+    from supir_tpu_torch.utils import ckpt_rules as C
+
+    shapes = jax.eval_shape(lambda: JL.NLayerDiscriminator().init(
+        jax.random.PRNGKey(0), np.zeros((1, 256, 256, 3), np.float32)))["params"]
+    rules = C.discriminator_rules()
+    return _from_jax_shapes(shapes, rules), rules, _meta(NLayerDiscriminator), lambda sd: sd
+
+
+def _lora():
+    import jax
+    import numpy as np
+
+    from supir_tpu.captioner import llama as JLL
+    from supir_tpu.captioner import train as JT
+    from supir_tpu_torch.captioner.agent import CaptionerConfig, LlavaForCausalLM
+    from supir_tpu_torch.captioner.train import LORA_TARGETS, init_lora
+    from supir_tpu_torch.utils import ckpt_rules as C
+
+    cfg = CaptionerConfig()  # llava-v1.5-13b, rank 64
+    ids = np.zeros((1, 4), np.int32)
+    module = JLL.LlamaForCausalLM(JLL.LlamaConfig())
+    llama = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), ids, ids, method=module.forward_ids))["params"]
+    shapes = jax.eval_shape(lambda p: JT.init_lora(p, rank=64), llama)
+    rules = C.lora_rules(cfg.llama.layers, LORA_TARGETS)
+    with torch.device("meta"):
+        held = {k: tuple(v.shape) for k, v in init_lora(LlavaForCausalLM(cfg), rank=64).items()}
+    return _from_jax_shapes(shapes, rules), rules, held, lambda sd: sd
+
+
+TREES = {"restore": _restore, "conditioner": _conditioner, "llava": _llava, "mpt": _mpt, "face": _face,
+         "discriminator": _discriminator, "lora": _lora}
 
 
 @pytest.mark.parametrize("tree", sorted(TREES))
@@ -151,4 +205,5 @@ def test_port_tree_against_the_reference_key_space(tree):
     assert set(held) <= set(converted)
     unused = sorted(k for k in manifest if k not in rule_keys and not k.endswith(ALLOWED_UNUSED[tree]))
     assert not unused, f"{len(unused)} reference keys neither consumed nor allowed, e.g. {unused[:5]}"
-    assert len(held) >= {"restore": 2900, "conditioner": 580, "llava": 750, "mpt": 190, "face": 500}[tree]
+    assert len(held) >= {"restore": 2900, "conditioner": 580, "llava": 750, "mpt": 190, "face": 500,
+                         "discriminator": 13, "lora": 560}[tree]

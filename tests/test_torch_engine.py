@@ -194,7 +194,9 @@ def test_port_imports_no_jax(target):
             "        'supir_tpu_torch.serve.controller', 'supir_tpu_torch.serve.worker',\n"
             "        'supir_tpu_torch.serve.web_chat', 'supir_tpu_torch.captioner.weight_tools',\n"
             "        'supir_tpu_torch.captioner.eval', 'supir_tpu_torch.captioner.evals',\n"
-            "        'supir_tpu_torch.tools.load_real'} <= set(sys.modules)\n"
+            "        'supir_tpu_torch.tools.load_real', 'supir_tpu_torch.captioner.data',\n"
+            "        'supir_tpu_torch.diffusion.ae_losses', 'supir_tpu_torch.engine.ae_training',\n"
+            "        } <= set(sys.modules)\n"
             "print(sum(m.startswith('supir_tpu_torch.') for m in sys.modules))\n"
         )
         out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

@@ -128,11 +128,12 @@ def inject_noise(engine, seed: int = 0):
     return calls
 
 
-def tiny_captioner_pair(seed: int = 1):
+def tiny_captioner_pair(seed: int = 1, quantized: bool = True):
     """(JAX agent, port agent on the CPU): the tiny captioner in int4 (merged
-    qkv and gate-up, the glue fused), every leaf random from `seed` with the
-    norm weights near 1, in both packages. Greedy decodes agree token for
-    token (tests/test_torch_captioner.py)."""
+    qkv and gate-up, the glue fused), or unquantized fp32 with
+    `quantized=False`, every leaf random from `seed` with the norm weights
+    near 1, in both packages. Greedy decodes agree token for token
+    (tests/test_torch_captioner.py)."""
     import dataclasses
 
     import jax
@@ -155,15 +156,18 @@ def tiny_captioner_pair(seed: int = 1):
         return ((1.0 if name in ("scale", "weight") else 0.0) + 0.1 * rng.standard_normal(shape)).astype(np.float32)
 
     params = jax.tree_util.tree_map_with_path(fill, JA.CaptionerAgent.create_random(jcfg, seed=0).params)
-    qllama, _ = JL.quantize_llama_params(params["llama"], bits=4, fuse=True)
-    llama = dataclasses.replace(jcfg.llama, quantize_int4=True, fused_qkv=True, fused_glue=True)
-    jagent = JA.CaptionerAgent(dataclasses.replace(jcfg, llama=llama),
-                               jax.tree_util.tree_map(jnp.asarray, dict(params, llama=qllama)))
+    if quantized:
+        qllama, _ = JL.quantize_llama_params(params["llama"], bits=4, fuse=True)
+        llama = dataclasses.replace(jcfg.llama, quantize_int4=True, fused_qkv=True, fused_glue=True)
+        jagent = JA.CaptionerAgent(dataclasses.replace(jcfg, llama=llama),
+                                   jax.tree_util.tree_map(jnp.asarray, dict(params, llama=qllama)))
+    else:
+        jagent = JA.CaptionerAgent(jcfg, jax.tree_util.tree_map(jnp.asarray, params))
     d = dataclasses.asdict(jcfg)
     tcfg = TA.CaptionerConfig(vision=TV.CLIPVisionConfig(**d.pop("vision")), llama=TL.LlamaConfig(**d.pop("llama")),
                               **d)
-    tagent = TA.create_captioner(tcfg, "cpu", bits=4, state_dict=captioner_state_dict_from_jax(params, jcfg),
-                                 stochastic=False)
+    tagent = TA.create_captioner(tcfg, "cpu", bits=4 if quantized else None,
+                                 state_dict=captioner_state_dict_from_jax(params, jcfg), stochastic=False)
     return jagent, tagent
 
 
