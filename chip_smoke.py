@@ -14,20 +14,23 @@ Phases, each printing its own lines:
      build/supir_tpu_torch/) with ptxas' registers and spills (for each of
      the forward's eight instantiations, K1/K3 x D 64/128 x ALiBi, and the
      tensor-core GEMV's seventeen, four layouts x three row tiles, W4A8 x
-     two and K9's pair x three, which may not spill; and K1 fp32's eight,
-     D 64/128 x the kernel and its three planted faults, which may not
-     spill either), and the Triton import
+     two and K9's pair x three, which may not spill; and K1 fp32's
+     fourteen, D 64/128 x the kernel and its six planted faults, which may
+     not spill either), and the Triton import
      of K2's first design, which stays as a comparator.
   3. kernels against their plain PyTorch versions on the card, with
      CUDA-event or CUDA-graph times of both, the least time the card could
      take (bound) and, where one PyTorch call computes the same function,
      its time: K1 at the restore path's shapes and at the tiled path's
      batches (98 rows: 49 windows of a 4096^2 image with CFG), K1 causal,
-     K1 fp32 at the restore's two shapes and a ragged D 128 one, causal and
-     not (rel-L2 1e-5 against the fp32 plain version, which the bf16
-     kernel on the same values misses; planted faults: no rescale when
-     the max rises, the ragged tile unmasked, the diagonal unmasked; in
-     turns with SDPA fp32 by CUDA-graph replay),
+     K1 fp32 (3xTF32 on wgmma) at the restore's two shapes, the fp32 CLI
+     path's two and a ragged D 128 one, causal and not (rel-L2 1e-5
+     against the fp32 plain version, which the bf16 kernel on the same
+     values misses; planted faults: no rescale when the max rises, the
+     ragged tile unmasked, the diagonal unmasked, S on one TF32 product, P V
+     without V's lo part, V^T without the fragment permutation; in turns
+     with SDPA fp32 by CUDA-graph replay, beside the 3xTF32 bound and the
+     CUDA-core one),
      K2 at each of the restore path's shape classes and at the tiled
      path's largest batch (the cluster kernel in turns with
      the Triton first design, by events and by CUDA-graph replay, host µs
@@ -105,7 +108,8 @@ Phases, each printing its own lines:
   4c. fp32: the same photo through cli.main with --full_params (every
      parameter fp32): K1 fp32 at every flash site (106 a step), no bf16
      K1 launch, K2 as in [cli] on fp32 tensors, a finite fp32 sample;
-     stage times and peak memory.
+     stage times and peak memory; one network call of that run again under
+     torch.profiler: K1 fp32's device ms and share of its kernel time.
   5. reference: a reduced-width engine whose self-attention still reaches
      K1 runs the same path on the card (bf16, kernels) and on the CPU
      (fp32, plain versions) with the same weights and noise; the two
@@ -314,6 +318,7 @@ CLI_PNG = (768, 1152)  # (h, w) of the [cli] phase's photo; min_size 1024 takes 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor cores
 FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12   # H100 SXM dense TF32 tensor cores (K1 fp32 takes three TF32 products a product)
 # the 13B decode projections per layer: name, cin, cout, prologue, residual
 LLAMA_13B_SHAPES = (("qkv", 5120, 15360, "norm", False), ("o", 5120, 5120, None, True),
                     ("gateup", 5120, 27648, "norm", False), ("down", 13824, 5120, "siluglu", True))
@@ -640,14 +645,14 @@ def phase_build():
     for source, rows in ((k1._FWD_SOURCE, fwd), (k1._BWD_SOURCE, bwd)):
         if reports[source] and len(rows) != 8:  # no report: the library was built earlier
             raise AssertionError(f"expected 8 instantiations in the ptxas report of {source}, found {len(rows)}")
-    # K1 fp32's eight (D 64/128 x the kernel and its three planted faults),
-    # which may not spill
+    # K1 fp32's fourteen (D 64/128 x the kernel and its six planted
+    # faults), which may not spill
     fp32 = _fp32_instances(reports[k1._FP32_SOURCE])
     for d, fault, regs, stores, loads in sorted(fp32):
         log(f"[build] flash_fwd_fp32_kernel<D={d}, fault={fault}> (K1 fp32{' planted fault' if fault else ''}): "
             f"{regs} registers, spill stores {stores} B, spill loads {loads} B")
-    if reports[k1._FP32_SOURCE] and (len(fp32) != 8 or any(st or ld for *_, st, ld in fp32)):
-        raise AssertionError(f"K1 fp32's instances: expected 8 without spills, found {fp32}")
+    if reports[k1._FP32_SOURCE] and (len(fp32) != 14 or any(st or ld for *_, st, ld in fp32)):
+        raise AssertionError(f"K1 fp32's instances: expected 14 without spills, found {fp32}")
     # the tensor-core GEMV's seventeen instances (K5/K6 paired, K7 half-split
     # int4, K7 int8, K11 native: 1, 2 or 4 n-tiles of 8 rows; K10/K5
     # act_int8 W4A8: 1 or 2, 16 rows a launch; K9's pair kernel: 1, 2 or 4):
@@ -855,22 +860,26 @@ def phase_kernels():
 
 
 # K1 fp32 at the restore's shapes (15 and 91 of its 106 sites a step in an
-# fp32 engine) and at a ragged D = 128 shape, causal (its diagonal in the
-# ragged last block) and not: b, s, h, d, causal
-K1_FP32_SHAPES = ((2, 4096, 10, 64, False), (2, 1024, 20, 64, False), (1, 1000, 2, 128, True),
-                  (1, 1000, 2, 128, False))
+# fp32 engine at 1024^2), the fp32 CLI path's (the same sites at the
+# 1024x1536 model image of [fp32]) and a ragged D = 128 shape, causal (its
+# diagonal in the ragged last block) and not: b, s, h, d, causal
+K1_FP32_SHAPES = ((2, 4096, 10, 64, False), (2, 1024, 20, 64, False), (2, 6144, 10, 64, False),
+                  (2, 1536, 20, 64, False), (1, 1000, 2, 128, True), (1, 1000, 2, 128, False))
 
 
 def phase_flash_fp32_kernels():
     """[kernels] K1 fp32 against the plain version in fp32 on the same
     inputs (relative L2 K1_FP32_REL_BOUND, which the bf16 kernel on the
-    same values misses: nothing may cast down), each planted fault where it
-    can show (no rescale everywhere, the ragged tile where T % 64 and not
-    causal, the diagonal where causal) breaking it; timed by CUDA events
-    and by CUDA-graph replay in turns with SDPA in fp32 (the library
-    call), beside the plain version; bound: 4 B H S T D flops (causal: the
-    visible half) at the fp32 CUDA-core peak. Returns the JSON numbers
-    (times at the first shape)."""
+    same values misses: nothing may cast down; two runs bit-identical),
+    each planted fault where it can show breaking it (no rescale, S on one
+    TF32 product, P V without V's lo part and V^T in key order everywhere;
+    the ragged tile where T is not a whole number of key tiles and not
+    causal; the diagonal where causal); timed by CUDA events and by
+    CUDA-graph replay in turns with SDPA in fp32 (the library call),
+    beside the plain version; bound: 3 x 4 B H S T D flops (causal: the
+    visible half) at TF32's 495 TFLOP/s, the first design's CUDA-core
+    bound (67 TFLOP/s fp32) beside it. Returns the JSON numbers (times at
+    the first shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -887,17 +896,23 @@ def phase_flash_fp32_kernels():
         out = FA.flash_attention(q, k, v, causal)
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
+        same = torch.equal(out, FA.flash_attention(q, k, v, causal))
         want = FA.attention_plain(q, k, v, causal=causal)
         rel, err = rel_l2(out, want), (out - want).abs().max().item()
         cast = rel_l2(FA.flash_attention(*(x.bfloat16() for x in (q, k, v)), causal), want)
         _check_rel(f"K1 fp32 {tag}", rel, K1_FP32_REL_BOUND)
+        if not same:
+            raise AssertionError(f"K1 fp32 {tag}: two runs differ")
         if not cast > K1_FP32_REL_BOUND:
             raise AssertionError(f"the K1 fp32 bound does not tell a bf16 kernel from it: {cast}")
-        faults = [(FA.FP32_FAULT_NO_RESCALE, "the accumulator not rescaled when the max rises")]
-        if s % FA.FP32_BLOCK and not causal:
+        faults = [(FA.FP32_FAULT_NO_RESCALE, "the accumulator not rescaled when the max rises"),
+                  (FA.FP32_FAULT_ONE_PRODUCT, "S on one TF32 product (hi hi)"),
+                  (FA.FP32_FAULT_NO_V_LO, "P V without V's lo part"),
+                  (FA.FP32_FAULT_VT_ORDER, "V^T in key order (no fragment permutation)")]
+        if s % FA.FP32_TILES[d][1] and not causal:
             faults.append((FA.FP32_FAULT_RAGGED, "the ragged last key tile not masked"))
         if causal:
-            faults.append((FA.FP32_FAULT_DIAGONAL, "the causal diagonal tile not masked"))
+            faults.append((FA.FP32_FAULT_DIAGONAL, "the causal diagonal not masked"))
         for fault, name in faults:
             _check_fault(f"K1 fp32 {name} {tag}", rel_l2(FA._forward_fp32(q, k, v, causal, fault), want),
                          K1_FP32_REL_BOUND)
@@ -916,13 +931,16 @@ def phase_flash_fp32_kernels():
         graph = turns({"K1 fp32": [kernel] * 5, "SDPA fp32": [sdpa] * 5}, lambda calls: chain_ms(calls, 4))
         graph_k, graph_lib = mean(graph["K1 fp32"]), mean(graph["SDPA fp32"])
         flops = 4 * b * h * d * (s * (s + 1) // 2 if causal else s * s)
-        bound_ms, bound_by = bound(nbytes(q, k, v, out), flops, FP32_FLOP_PER_S)
+        bound_ms, bound_by = bound(nbytes(q, k, v, out), 3 * flops, TF32_FLOP_PER_S)
+        core_ms, _ = bound(nbytes(q, k, v, out), flops, FP32_FLOP_PER_S)
         log(f"[kernels] K1 fp32 {tag} vs fp32 plain: rel_l2 {rel:.3e} (bound {K1_FP32_REL_BOUND:g}; the bf16 "
-            f"kernel on the same values {cast:.3e}; SDPA fp32 {lib_rel:.3e}), max_abs_err {err:.3e}; events "
-            f"{ms:.4f} ms vs plain {plain_ms:.3f} ms, SDPA fp32 {lib_ev:.4f} ms; graph in turns "
-            f"{'/'.join(f'{x:.4f}' for x in graph['K1 fp32'])} vs SDPA fp32 "
-            f"{'/'.join(f'{x:.4f}' for x in graph['SDPA fp32'])} ms: {graph_k / graph_lib:.2f}x SDPA; bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP at 67 TFLOP/s fp32): "
-            f"{bound_ms / graph_k:.1%} of it by graph; first call {first:.2f} s")
+            f"kernel on the same values {cast:.3e}; SDPA fp32 {lib_rel:.3e}), max_abs_err {err:.3e}, two runs "
+            f"bit-identical; events {ms:.4f} ms vs plain {plain_ms:.3f} ms, SDPA fp32 {lib_ev:.4f} ms; graph in "
+            f"turns {'/'.join(f'{x:.4f}' for x in graph['K1 fp32'])} vs SDPA fp32 "
+            f"{'/'.join(f'{x:.4f}' for x in graph['SDPA fp32'])} ms: {graph_k / graph_lib:.2f}x SDPA; bound "
+            f"{bound_ms:.4f} ms ({bound_by}, 3 x {flops / 1e9:.1f} GFLOP at 495 TFLOP/s TF32): {bound_ms / graph_k:.1%} "
+            f"of it by graph; CUDA-core bound {core_ms:.4f} ms (67 TFLOP/s fp32): {core_ms / graph_k:.1%}; first "
+            f"call {first:.2f} s")
         # the JSON row's ms and library_ms: the in-turns graph times
         rows.append(dict(max_abs_err=err, ms=graph_k, event_ms=ms, plain_ms=plain_ms, library_ms=graph_lib,
                          library_event_ms=lib_ev, bound_ms=bound_ms, bound_by=bound_by))
@@ -2358,6 +2376,13 @@ def phase_fp32(steps: int, smi: str, cli_launches: dict):
         engine, c = make_engine(args)
         seen["dtypes"] = {p.dtype for p in engine.model.parameters()}
         seen["params"] = sum(p.numel() for p in engine.model.parameters())
+        network = engine._network
+
+        def first_call(*a, **kw):  # keeps the first network call's inputs for the profile
+            seen.setdefault("call", (network, a, kw))
+            return network(*a, **kw)
+
+        engine._network = first_call
         return engine, c
 
     def array_to_pil(arr, *a):
@@ -2382,6 +2407,7 @@ def phase_fp32(steps: int, smi: str, cli_launches: dict):
         launches = {"K1": k1.launches, "K1-fp32": k1.fp32_launches, "K2": k2.launches}
         peak = torch.cuda.max_memory_allocated() / 2**30
         out = np.asarray(Image.open(rec["saved"][0]))
+    profile = profile_fp32_network_call(*seen.pop("call"))
     _free()
     t = rec["timings"]
     want_k1 = expected_flash_launches(cfg, lat, steps, vae_passes=5)
@@ -2394,14 +2420,42 @@ def phase_fp32(steps: int, smi: str, cli_launches: dict):
     log(f"[fp32] launches: K1 fp32 {launches['K1-fp32']} (expected {sites} sites x {steps} steps + "
         f"{want_k1 - sites * steps} VAE = {want_k1}), bf16 K1 {launches['K1']} (expected 0), K2 {launches['K2']} ([cli]'s bf16 "
         f"run: {cli_launches['K2']}); sample {seen['dtype']}, finite {seen['finite']}; saved {out.shape}")
+    log(f"[fp32] one network call again under torch.profiler (CFG batch 2, {lat[0]}x{lat[1]} latent): "
+        f"kernel time {profile['busy_ms']:.1f} ms, K1 fp32 {profile['k1_ms']:.2f} ms in {profile['k1_count']} "
+        f"launches ({profile['k1_ms'] / profile['busy_ms']:.1%} of it), wall {profile['wall_s']:.3f} s with the "
+        f"profiler on")
     if seen["dtypes"] != {torch.float32}:
         raise AssertionError(f"[fp32] --full_params left parameters in {seen['dtypes']}")
+    if profile["k1_count"] != sites:
+        raise AssertionError(f"[fp32] the profiled network call ran {profile['k1_count']} K1 fp32 kernels, "
+                             f"expected {sites}")
     if launches != {"K1": 0, "K1-fp32": want_k1, "K2": cli_launches["K2"]}:
         raise AssertionError(f"[fp32] launches {launches}, expected K1 fp32 {want_k1}, K1 0, K2 {cli_launches['K2']}")
     if not (seen["finite"] and seen["dtype"] == torch.float32 and out.shape == (h, w, 3) and out.std() > 0):
         raise AssertionError(f"[fp32] output: finite {seen['finite']}, {seen['dtype']}, PNG {out.shape} std "
                              f"{out.std()}")
     return launches["K1-fp32"]
+
+
+def profile_fp32_network_call(network, args, kwargs) -> dict:
+    """torch.profiler over one call of an fp32 engine's network on the
+    inputs it was first given: wall seconds, kernel milliseconds, and K1
+    fp32's milliseconds and launches (flash_fwd_fp32_kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        network(*args, **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+    k1 = [(us, n) for key, us, n in rows if "flash_fwd_fp32_kernel" in key]
+    return {"wall_s": wall, "busy_ms": sum(r[1] for r in rows) / 1e3, "k1_ms": sum(us for us, _ in k1) / 1e3,
+            "k1_count": sum(n for _, n in k1)}
 
 
 def phase_fp32_reference():

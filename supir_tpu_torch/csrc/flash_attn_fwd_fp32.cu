@@ -1,292 +1,582 @@
 // K1 fp32: the flash-attention forward for Hopper (sm_90a) in fp32, on the
-// CUDA cores: fp32 q, k, v and output, fp32 running max, sum and
-// accumulator, optionally causal.
+// tensor cores: fp32 q, k, v and output, every product of Q K^T and P V
+// taken as three TF32 products (3xTF32) on wgmma, fed by TMA; fp32 running
+// max, sum and accumulator; optionally causal.
 //
 // It replaces supir_tpu/ops/flash_attention.py:_attn_kernel_packed (:35) and
 // _attn_kernel_packed_single (:123), launched from _flash_primal (:363), for
 // fp32 inputs: the TPU kernels run in the inputs' dtype
 // (out_shape=jax.ShapeDtypeStruct(qb.shape, q.dtype), :373), so an engine
 // with fp32 parameters (--full_params, --diff_dtype fp32) attends in fp32
-// there. flash_attn_fwd.cu is the bf16 instance (wgmma, TMA); this file is
-// its fp32 twin. The TPU's 128-lane head packing and its single-block
-// variant are TPU layout and have no counterpart here.
+// there. flash_attn_fwd.cu is the bf16 instance; this file is its fp32
+// twin. The TPU's 128-lane head packing and its single-block variant are
+// TPU layout and have no counterpart here.
 //
 // What it computes: O = softmax(Q K^T / sqrt(D)) V over q [B,S,H,D] and
-// k/v [B,T,H,D], D 64 or 128, each read in place through its own strides
-// (views of one packed qkv, k/v expanded over heads with stride 0). Keys
-// past T (the ragged last tile) are masked; rows past S are read as zeros
-// and never stored. With `causal` (S == T) query i sees keys 0..i: key
-// tiles wholly above the diagonal are never loaded, the diagonal tile is
-// masked per element. Each row's running max m is kept in raw q.k units and
-// P = exp2((s - m) * scale * log2 e), as the TPU kernel computes it (:84-86).
+// k/v [B,T,H,D], D 64 or 128, read in place through TMA tensor maps
+// (ops/flash_attention.py:tma_plan, 32-column slabs of 128 bytes: views of
+// one packed qkv, k/v expanded over heads with stride 0). Keys past T (the
+// ragged last tile) are masked; rows past S arrive as zeros and are never
+// stored. With `causal` (S == T) query i sees keys 0..i: key tiles wholly
+// above a warpgroup's rows are not multiplied, the tiles that cut the
+// diagonal are masked per element. Each row's running max m is kept in raw
+// q.k units and P = exp2((s - m) * scale * log2 e), as the TPU kernel
+// computes it (:84-86); a row with no key yet subtracts 0, so no NaN
+// arises; O / max(l, 1e-30) (:114-116).
 //
-// Why the CUDA cores: wgmma takes no fp32 operand, and TF32 (10 mantissa
-// bits) would lower what --full_params promises, so every product here is
-// an fp32 FMA. What bounds it: operations, 4 B H S T D flops against the
-// card's 67 TFLOP/s fp32 peak outside the tensor cores ([2,4096,10,64]:
-// 85.9 GFLOP, 1.28 ms); the bytes (q, k, v, out once: 84 MB, 0.025 ms) are
-// far below. The design feeds the FMA pipes from shared memory with 16-byte
-// loads and keeps S, P's row statistics and O in registers:
-// - Block: 64 query rows of one (batch, head), 256 threads as 16 x 16;
-//   thread (ty, tx) owns rows 4 ty .. 4 ty + 3 and, of each 64-key tile,
-//   score columns 4 tx .. 4 tx + 3, and of O the columns 64 g + 4 tx .. + 3
-//   (g < D / 64): a 4 x 4 score micro-tile and a 4 x 4 (D 64) or 4 x 8
-//   (D 128) accumulator.
-// - Shared memory (fp32): Q and each K tile transposed, [D][68] (the 4
-//   floats of padding keep 16-byte rows and spread the transposing stores
-//   over the banks), so a step of S = Q K^T reads one float4 of 4 rows of Q
-//   and one of 4 keys for 16 FMAs; V [64][D] as stored; P transposed
-//   [64][68], so a step of O += P V reads one float4 of P and D / 64 of V
-//   for 16 D / 64 FMAs. D = 64: 68.6 KB (three blocks an SM); D = 128:
-//   119.8 KB (one).
-// - Global loads: 16-byte vectors, two neighbouring lanes on one 32-byte
-//   sector of a row, a warp on 16 rows; rows past S or T load zeros.
-// - Softmax: a row's 64 scores lie on the 16 lanes of one half-warp, so its
-//   max and sum take four xor-shuffles each. When the max rises the
-//   accumulator and the sum are rescaled by exp2((m_old - m_new) c). A row
-//   whose max is still -inf subtracts 0, so no NaN arises.
-// - Epilogue: O / max(l, 1e-30) (the TPU kernel's norm, :114-116) in
-//   16-byte stores, rows past S clipped.
-// - Grid: B*H x ceil(S/64), query blocks in reverse order when causal (the
+// 3xTF32. The tensor cores take fp32 operands only as TF32 (10 mantissa
+// bits: they do not read an fp32 word's low 13 mantissa bits), and one TF32
+// product misses the 1e-5 bound that --full_params is held to by some 30x.
+// Each operand x is split into hi = x rounded to TF32 (its bits + 0x1000,
+// the low 13 cleared: nearest, ties away from zero) and lo = x - hi (exact
+// in fp32), and lo too is handed over with its low 13 bits cleared, so
+// what the tensor cores read is defined whatever they do with those bits
+// (ops/flash_attention.py:flash_fp32_emulate walks exactly this on the
+// CPU). A product is lo_a hi_b + hi_a lo_b + hi_a hi_b, the small terms
+// first, into one fp32 accumulator; lo_a lo_b (~2^-22 of it) is dropped.
+//
+// What bounds it: operations, 3 x 4 B H S T D flops at TF32's 495 TFLOP/s
+// ([2,4096,10,64]: 0.52 ms; the CUDA-core bound of the first design was
+// 1.28 ms); the bytes (q, k, v, out once: 84 MB, 0.025 ms) are far below.
+// Beside the products every score takes an exp2 (B H S T of them, 16 a
+// clock an SM: a sixth of the bound) and a split, and every K and V
+// element a split in shared memory, so the CUDA-core work is kept to
+// integer add-and-mask and runs on warps apart from the products:
+// - Block: BM query rows of one (batch, head), 128 at D = 64 (two consumer
+//   warpgroups of 64 rows), 64 at D = 128 (one), and a producer warpgroup
+//   in front. Key tiles of BN keys: 64 at D = 64, 32 at D = 128, so every
+//   tile (BN x D fp32) is 16 KB and Q (BM x D) 32 KB at either head dim.
+// - Producer warpgroup (setmaxnreg 120): thread 0 issues every TMA copy,
+//   all 128 threads split. Q lands once (128-byte swizzle) and is split in
+//   place: hi over the raw words, lo into a second tile at the same
+//   swizzled places. K and V of one tile land raw in one landing buffer;
+//   the splitters read it into registers (8 float4 of K and 32 words of V a
+//   thread), free it (each fences its reads against the async proxy, then
+//   a named barrier, then thread 0 issues the next tile's copy, which lands
+//   while they write), and write a ring of two stages, each K hi, K lo,
+//   V^T hi and V^T lo; every thread fences its writes to the async proxy
+//   and arrives on the stage's "ready" barrier. The consumers' 4 or 8 warps
+//   arrive on its "empty" barrier when their products are done with it.
+// - TF32 wgmma takes K-major operands only (the transpose bits exist for
+//   16-bit types alone). Q (A) and K (B of S = Q K^T) are K-major as
+//   stored; V, the B of O += P V, is not, so the splitters write V^T
+//   [D][keys] (32-key slabs of 128-byte rows, the 128-byte swizzle).
+// - The fragment permutation. S's accumulator gives lane (g, t) of a warp
+//   the columns 2t and 2t + 1 of every 8-column group (rows g and g + 8);
+//   the TF32 A operand from registers wants k-indices t and t + 4 of every
+//   k8 step. So slot p of each 8-key group of a V^T row holds key
+//   VT_KEY[p] = 2 (p % 4) + p / 4: a lane's score of key 2t meets V^T's
+//   slot t, that of key 2t + 1 slot t + 4, and P goes from the accumulator
+//   to the A fragment without an exchange. The split pass writes V^T in
+//   that order at no cost. Its lanes are laid out so that every read of
+//   raw V and every write of V^T hits 32 distinct banks: lane (s4, d4, z)
+//   of warp w (s4 = lane % 4, d4 = lane / 4 % 4, z = lane / 16) writes
+//   16-byte chunk c = w ^ 5z of V^T's row d = 4 i + d4 at word s4, for
+//   i = 0 .. D/4 - 1 and each 32-key slab.
+// - Consumers (setmaxnreg 192 at D = 64, 240 at D = 128): S = Q K^T,
+//   wgmma m64nBNk8 with both operands in shared memory, 3 D/8 products; the
+//   online softmax on S's fragment (a row's max over its four lanes, two
+//   shuffles; the sum per lane until the end); the masks only on the tiles
+//   that cut T or the diagonal; P split in registers straight into the A
+//   fragment's order; P V, wgmma m64nDk8 with A from registers, 3 BN/8
+//   products into a fresh accumulator while O, in registers, is rescaled;
+//   then O += P V in fp32 adds, so the tensor cores' sums never run over
+//   more than one tile's keys.
+// - Shared memory, either head dim: Q hi and lo 64 KB, the landing buffer
+//   32 KB, two stages of 64 KB: 224 KB, one block an SM.
+// - Epilogue: O / max(l, 1e-30) from registers in 8-byte stores (each
+//   32-byte sector whole), rows past S clipped.
+// - Grid: B*H x ceil(S/BM), query blocks in reverse order when causal (the
 //   heaviest first).
-// Later work, not here: a 3xTF32 tensor-core design (hi/lo split operands,
-// three products, fp32-grade accuracy), cp.async double buffering, larger
-// micro-tiles.
+// Two runs are bit-identical: every sum has a fixed order.
+//
+// Chosen by measurement on an H100 (PERF.md §6; chip_smoke.py
+// [kernels] K1 fp32 and tools/flash_fp32_ab.py): the tiles are the largest
+// whose Q, landing buffer and two split stages fit one block's 227 KB; a
+// third stage does not fit. The landing buffer frees each raw tile as soon
+// as it is in registers, so the next copy overlaps the split. The fresh P V
+// accumulator costs ~4 % of the time and keeps O within 6e-7 of an fp64
+// reference at T = 6144; O accumulated in the tensor cores across every
+// tile strayed by 7e-6 at T = 1024 and 4.3e-5 at 6144. The kernel reads
+// 45-58 % of the 3xTF32 bound at the restore's shapes, 2.4-3.0x SDPA
+// fp32's speed; what likely paces it is S's wgmma, both operands from
+// shared memory at N = 64 (128 bytes a clock at the TF32 rate, the SM's
+// whole shared-memory bandwidth), beside the split pass' traffic. Taking
+// S's issue in turns between the two consumer warpgroups (ping-pong on
+// named barriers) measured 0.5-2.7 % faster, within a call's spread, and
+// is left out. The D = 128 instance (one consumer warpgroup, 32-key
+// tiles) runs on no path.
 //
 // FAULT instantiations exist for planted faults only (checks): 1 the
 // accumulator is not rescaled when the max rises, 2 the ragged last key tile
-// is not masked, 3 the causal diagonal tile is not masked.
+// is not masked, 3 the causal diagonal is not masked, 4 S on one product
+// (hi hi: plain TF32), 5 P V without V's lo part, 6 V^T written in key
+// order (without the fragment permutation).
 
-#include <cuda_runtime.h>
+#include <climits>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_attn_tma.cuh"
 
 namespace {
 
-constexpr int BM = 64;         // query rows per block
-constexpr int BN = 64;         // keys per K/V tile
-constexpr int THREADS = 256;   // 16 x 16
-constexpr int LDT = BM + 4;    // row stride of the transposed tiles (Q, K, P), floats
-static_assert(BM == BN, "the causal diagonal is one tile: tile qb of block qb");
+constexpr int STAGES = 2;          // split K / V^T stages
+constexpr int FP32_SLAB = 32;      // fp32 columns per 128-byte swizzle slab (one TMA box)
+constexpr int PRODUCER_REGS = 120;
+constexpr uint32_t TF32_HALF = 0x1000u;      // half a TF32 ulp, in the fp32 bits
+constexpr uint32_t TF32_KEEP = 0xFFFFE000u;  // the bits of an fp32 word a TF32 operand keeps
+// slot p of each 8-key group of a V^T row holds key VT_KEY[p] (the fragment permutation)
+constexpr int VT_KEY[8] = {0, 2, 4, 6, 1, 3, 5, 7};
+
+constexpr bool vt_key_is_the_rule() {
+  for (int p = 0; p < 8; ++p)
+    if (VT_KEY[p] != 2 * (p & 3) + (p >> 2)) return false;
+  return true;
+}
+static_assert(vt_key_is_the_rule(), "the split pass writes V^T by 2 (p % 4) + p / 4");
 
 template <int D>
-struct Smem {
-  static constexpr int QT = 0;               // Q^T [D][LDT]
-  static constexpr int KT = QT + D * LDT;    // K^T [D][LDT]
-  static constexpr int V = KT + D * LDT;     // V [BN][D]
-  static constexpr int PT = V + BN * D;      // P^T [BN][LDT]
-  static constexpr int BYTES = (PT + BN * LDT) * 4;
+struct Tiles {
+  static constexpr int BM = D == 64 ? 128 : 64;  // query rows per block
+  static constexpr int BN = D == 64 ? 64 : 32;   // keys per K/V tile
+  static constexpr int CW = BM / 64;             // consumer warpgroups
+  static constexpr int THREADS = 128 * (1 + CW);
+  // the block's registers stay within 64,512 of the SM's 65,536 (as 384 x 168 at launch): a larger
+  // request never completes
+  static constexpr int CONSUMER_REGS = D == 64 ? 192 : 240;  // 128 x 120 + 256 x 192 = 64,512
+  static constexpr int SLABS = D / FP32_SLAB;
+  static constexpr int QT = BM * D * 4;          // bytes of Q's hi (or lo) tile
+  static constexpr int KT = BN * D * 4;          // bytes of one K or V tile (raw, hi or lo)
+  static constexpr int Q_HI = 0;
+  static constexpr int Q_LO = QT;
+  static constexpr int LAND = 2 * QT;            // raw K, then raw V, of the next tile
+  static constexpr int RING = LAND + 2 * KT;     // stage s at RING + s * STAGE: K hi, K lo, V^T hi, V^T lo
+  static constexpr int STAGE = 4 * KT;
+  static constexpr int BAR = RING + STAGES * STAGE;  // q_full, q_ready, land_full, ready[STAGES], empty[STAGES]
+  static constexpr int ALLOC = BAR + 8 * (3 + 2 * STAGES) + 1024;  // + slack to align the base to 1024
+  static_assert(ALLOC <= 232448, "one block's shared memory");
 };
 
-// rows first .. first + 63 of one (b, h) of a [*, n, *, D] operand (`base`
-// at (b, 0, h), row stride `ss`) into t[d * LDT + row], zeros past n. Two
-// neighbouring lanes read the two 16-byte halves of a 32-byte sector, so a
-// warp reads 16 rows and its transposing stores hit 32 distinct banks.
-template <int D>
-__device__ __forceinline__ void load_transposed(const float* __restrict__ base, long long ss, int first, int n,
-                                                float* __restrict__ t) {
-  for (int e = threadIdx.x; e < BM * D / 4; e += THREADS) {
-    const int row = (e >> 1) & (BM - 1), d4 = 2 * (e >> 7) + (e & 1);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (first + row < n) x = __ldg(reinterpret_cast<const float4*>(base + (first + row) * ss) + d4);
-    float* col = t + 4 * d4 * LDT + row;
-    col[0] = x.x;
-    col[LDT] = x.y;
-    col[2 * LDT] = x.z;
-    col[3 * LDT] = x.w;
-  }
+// the TF32 pair of x as the tensor cores read it: hi = x rounded to TF32,
+// lo = x - hi with its low 13 bits cleared
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + TF32_HALF) & TF32_KEEP;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & TF32_KEEP;
 }
 
-// rows first .. first + 63 as stored, [BN][D], zeros past n
-template <int D>
-__device__ __forceinline__ void load_rows(const float* __restrict__ base, long long ss, int first, int n,
-                                          float* __restrict__ t) {
-  for (int e = threadIdx.x; e < BN * D / 4; e += THREADS) {
-    const int row = e / (D / 4), d4 = e % (D / 4);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (first + row < n) x = __ldg(reinterpret_cast<const float4*>(base + (first + row) * ss) + d4);
-    reinterpret_cast<float4*>(t + row * D)[d4] = x;
-  }
+__device__ __forceinline__ void tf32_split4(const float4& x, uint4& hi, uint4& lo) {
+  tf32_split(x.x, hi.x, lo.x);
+  tf32_split(x.y, hi.y, lo.y);
+  tf32_split(x.z, hi.z, lo.z);
+  tf32_split(x.w, hi.w, lo.w);
 }
 
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// the producer warpgroup's own barrier (id 1; 0 is __syncthreads)
+__device__ __forceinline__ void producer_sync() { asm volatile("bar.sync 1, 128;\n" ::: "memory"); }
+
+// this thread's shared-memory writes, made visible to the async proxy (wgmma)
+__device__ __forceinline__ void fence_to_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// S (+)= A B^T over one k8 step at TF32, A and B K-major in shared memory
+// (128-byte swizzle); N = 32 or 64 by the accumulator's size; scale_d 0
+// overwrites S.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
+
+// O (+)= A B^T over one k8 step at TF32, A from registers (four TF32 words
+// a thread: rows g and g + 8 at k-indices t and t + 4, g = lane / 4, t =
+// lane % 4), B K-major in shared memory; N = 64 or 128 by the
+// accumulator's size; scale_d 0 overwrites O.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t* a, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64], const uint32_t* a, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 
 template <int D, int FAULT>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                      float* __restrict__ o, int H, int S, int T, long long qsb, long long qss, long long qsh,
-                      long long ksb, long long kss, long long ksh, long long vsb, long long vss, long long vsh,
-                      long long osb, long long oss, long long osh, float scale_log2, int causal) {
-  constexpr int G = D / 64;  // 4-column groups of O a thread owns
-  using L = Smem<D>;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* qt = smem + L::QT;
-  float* kt = smem + L::KT;
-  float* vs = smem + L::V;
-  float* pt = smem + L::PT;
+__global__ void __launch_bounds__(Tiles<D>::THREADS, 1)
+flash_fwd_fp32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, MapPos qpos, MapPos kpos, MapPos vpos,
+                      float* __restrict__ o, int H, int S, int T, long long osb, long long oss, long long osh,
+                      float scale_log2, int causal) {
+  using L = Tiles<D>;
+  constexpr int BM = L::BM, BN = L::BN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the 128-byte swizzle repeats every 1024 bytes
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t q_full = base + L::BAR, q_ready = q_full + 8, land_full = q_full + 16;
+  const uint32_t ready = q_full + 24, empty = ready + 8 * STAGES;
 
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int first = qb * BM;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* kbase = k + b * ksb + h * ksh;
-  const float* vbase = v + b * vsb + h * vsh;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BM;
+  const int kv_end = causal ? min(T, q0 + BM) : T;
+  const int n_tiles = (kv_end + BN - 1) / BN;
 
-  load_transposed<D>(q + b * qsb + h * qsh, qss, first, S, qt);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_ready, 128);
+    mbar_init(land_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(ready + 8 * s, 128);        // every splitter thread
+      mbar_init(empty + 8 * s, 4 * L::CW);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  float acc[4][4 * G];
-  float m[4], l[4];
+  if (threadIdx.x < 128) {
+    // producer warpgroup: thread 0 copies, all 128 split
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+    const int tid = threadIdx.x;
+    if (tid == 0) {
+      mbar_expect_tx(q_full, L::QT);
+      tma_tile<L::SLABS, BM, BM, FP32_SLAB>(base + L::Q_HI, &qmap, qpos, q_full, q0, h, b);
+      mbar_expect_tx(land_full, 2 * L::KT);
+      tma_tile<L::SLABS, BN, BN, FP32_SLAB>(base + L::LAND, &kmap, kpos, land_full, 0, h, b);
+      tma_tile<L::SLABS, BN, BN, FP32_SLAB>(base + L::LAND + L::KT, &vmap, vpos, land_full, 0, h, b);
+    }
+    // Q: hi over the raw words, lo at the same places of the second tile
+    mbar_wait(q_full, 0);
+    for (int i = tid; i < L::QT / 16; i += 128) {
+      uint4 hi, lo;
+      tf32_split4(*reinterpret_cast<const float4*>(smem + L::Q_HI + 16 * i), hi, lo);
+      *reinterpret_cast<uint4*>(smem + L::Q_HI + 16 * i) = hi;
+      *reinterpret_cast<uint4*>(smem + L::Q_LO + 16 * i) = lo;
+    }
+    fence_to_async();
+    mbar_arrive(q_ready);
+
+    // V^T: lane (s4, d4, z) of warp w takes chunk c = w ^ 5z (words
+    // s4) of rows d = 4 i + d4, i < D/4, of each 32-key slab: the keys of
+    // slot 4 c + s4 of the slab, VT_KEY order (FAULT 6: key order)
+    const int lane = tid % 32, s4 = lane & 3, d4 = (lane >> 2) & 3;
+    const int c = (tid / 32) ^ (5 * (lane >> 4));
+    const int key = FAULT == 6 ? 4 * c + s4 : 8 * (c >> 1) + 2 * s4 + (c & 1);  // in its slab
+    const int k7 = key & 7;                         // the raw V row's swizzle phase
+    constexpr int V_ITEMS = L::KT / 4 / 128;        // 32 words of V a thread
+    constexpr int K_ITEMS = L::KT / 16 / 128;       // 8 float4 of K a thread
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % STAGES;
+      mbar_wait(land_full, t & 1);
+      float4 kr[K_ITEMS];
+      float vr[V_ITEMS];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
+      for (int j = 0; j < K_ITEMS; ++j) kr[j] = *reinterpret_cast<const float4*>(smem + L::LAND + 16 * (tid + 128 * j));
 #pragma unroll
-    for (int c = 0; c < 4 * G; ++c) acc[i][c] = 0.f;
+      for (int it = 0; it < V_ITEMS; ++it) {
+        const int i = it % (D / 4), ks = it / (D / 4);  // row group of V^T (d = 4 i + d4), key slab
+        // raw V [BN][D]: slab (4 i) / 32 of 32 columns, row 32 ks + key, 16-byte chunk i % 8 swizzled
+        vr[it] = *reinterpret_cast<const float*>(smem + L::LAND + L::KT + (i / 8) * BN * 128 + (32 * ks + key) * 128 +
+                                                 (((i % 8) ^ k7) << 4) + 4 * d4);
+      }
+      // every splitter has read the landing buffer: its reads ordered before
+      // the next copy's writes, which come through the async proxy (without
+      // the fence the copy overtook some of them on the card)
+      fence_to_async();
+      producer_sync();
+      if (tid == 0 && t + 1 < n_tiles) {
+        mbar_expect_tx(land_full, 2 * L::KT);
+        tma_tile<L::SLABS, BN, BN, FP32_SLAB>(base + L::LAND, &kmap, kpos, land_full, (t + 1) * BN, h, b);
+        tma_tile<L::SLABS, BN, BN, FP32_SLAB>(base + L::LAND + L::KT, &vmap, vpos, land_full, (t + 1) * BN, h, b);
+      }
+      mbar_wait(empty + 8 * s, ((t / STAGES) & 1) ^ 1);  // a fresh barrier passes parity 1
+      unsigned char* st = smem + L::RING + s * L::STAGE;
+#pragma unroll
+      for (int j = 0; j < K_ITEMS; ++j) {
+        uint4 hi, lo;
+        tf32_split4(kr[j], hi, lo);
+        *reinterpret_cast<uint4*>(st + 16 * (tid + 128 * j)) = hi;
+        *reinterpret_cast<uint4*>(st + L::KT + 16 * (tid + 128 * j)) = lo;
+      }
+#pragma unroll
+      for (int it = 0; it < V_ITEMS; ++it) {
+        const int i = it % (D / 4), ks = it / (D / 4);
+        const int d = 4 * i + d4;
+        // V^T [D][BN]: slab ks of 32 keys, row d, chunk c swizzled, word s4
+        const int at = ks * D * 128 + d * 128 + ((c ^ (d & 7)) << 4) + 4 * s4;
+        uint32_t hi, lo;
+        tf32_split(vr[it], hi, lo);
+        *reinterpret_cast<uint32_t*>(st + 2 * L::KT + at) = hi;
+        *reinterpret_cast<uint32_t*>(st + 3 * L::KT + at) = lo;
+      }
+      fence_to_async();
+      mbar_arrive(ready + 8 * s);
+    }
+    return;
   }
 
-  const int n_tiles = (T + BN - 1) / BN;
-  const int tiles = causal ? min(n_tiles, qb + 1) : n_tiles;  // causal: tile qb holds the diagonal
-  for (int j = 0; j < tiles; ++j) {
-    const int kfirst = j * BN;
-    __syncthreads();  // the previous tile's products are done with K, V and P
-    load_transposed<D>(kbase, kss, kfirst, T, kt);
-    load_rows<D>(vbase, vss, kfirst, T, vs);
-    __syncthreads();
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::CONSUMER_REGS) : "memory");
+  const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup: rows q0 + 64 cw ...
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int first = q0 + 64 * cw;          // the warpgroup's first row
+  const int row0 = first + 16 * warp + g;  // this thread's rows: row0 and row0 + 8
+  // the keys a row sees: those below T (FAULT 2: every key loaded) and, with
+  // `causal`, up to the row (FAULT 3: past it too)
+  const int t_lim = FAULT == 2 ? INT_MAX : T;
+  const int lim0 = causal && FAULT != 3 ? min(t_lim, row0 + 1) : t_lim;
+  const int lim1 = causal && FAULT != 3 ? min(t_lim, row0 + 9) : t_lim;
+  // causal: the tiles past the warpgroup's last row are not multiplied
+  const int wg_tiles = causal ? (min(T, first + 64) + BN - 1) / BN : n_tiles;
+  const uint32_t q_hi = base + L::Q_HI + cw * 64 * 128, q_lo = base + L::Q_LO + cw * 64 * 128;
 
-    float s[4][4];
+  float acc[D / 2];  // O: rows row0 (acc[4j], acc[4j+1]) and row0 + 8 (acc[4j+2], acc[4j+3]), cols 8j + 2tq
+  float sc[BN / 2];  // S, the same layout over the tile's keys
+  uint32_t ph[BN / 2], pl[BN / 2];  // P's TF32 pair, A fragments: k8 step j at [4j, 4j + 4)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + d * LDT + 4 * ty);
-      const float4 kk = *reinterpret_cast<const float4*>(kt + d * LDT + 4 * tx);
-      const float ar[4] = {a.x, a.y, a.z, a.w}, kr[4] = {kk.x, kk.y, kk.z, kk.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[i][c] = fmaf(ar[i], kr[c], s[i][c]);
-    }
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max, raw score units
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the running sum
 
-    const bool ragged = FAULT != 2 && kfirst + BN > T;
-    const bool diagonal = FAULT != 3 && causal && j == qb;
-    if (ragged || diagonal) {
+  mbar_wait(q_ready, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(ready + 8 * s, (t / STAGES) & 1);
+    if (t < wg_tiles) {
+      const int k0 = t * BN;
+      const uint32_t k_hi = base + L::RING + s * L::STAGE, k_lo = k_hi + L::KT;
+      const uint32_t v_hi = k_lo + L::KT, v_lo = v_hi + L::KT;
+
+      // S = Q K^T over the head dim, k8 steps of 32 bytes inside each slab
+      wgmma_fence();
+      if (FAULT != 4) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int kk = 0; kk < D / 8; ++kk)
+          wgmma_tf32(sc, desc_kmajor(q_lo + (kk / 4) * BM * 128 + (kk % 4) * 32),
+                     desc_kmajor(k_hi + (kk / 4) * BN * 128 + (kk % 4) * 32), kk > 0);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int col = kfirst + 4 * tx + c, row = first + 4 * ty + i;
-          if ((ragged && col >= T) || (diagonal && col > row)) s[i][c] = -INFINITY;
+        for (int kk = 0; kk < D / 8; ++kk)
+          wgmma_tf32(sc, desc_kmajor(q_hi + (kk / 4) * BM * 128 + (kk % 4) * 32),
+                     desc_kmajor(k_lo + (kk / 4) * BN * 128 + (kk % 4) * 32), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        wgmma_tf32(sc, desc_kmajor(q_hi + (kk / 4) * BM * 128 + (kk % 4) * 32),
+                   desc_kmajor(k_hi + (kk / 4) * BN * 128 + (kk % 4) * 32), FAULT != 4 || kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      if ((FAULT != 2 && k0 + BN > T) || (causal && FAULT != 3 && k0 + BN - 1 > first)) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = k0 + 8 * j + 2 * tq + e;
+            if (col >= lim0) sc[4 * j + e] = -INFINITY;
+            if (col >= lim1) sc[4 * j + 2 + e] = -INFINITY;
+          }
+      }
+
+      // online softmax: the four lanes of a row share its max
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int w = 1; w < 4; w *= 2) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
+      }
+      const float sub0 = mx0 == -INFINITY ? 0.f : mx0;  // a row with no key yet: every p is 0
+      const float sub1 = mx1 == -INFINITY ? 0.f : mx1;
+      const float corr0 = exp2f((m0 - sub0) * scale_log2), corr1 = exp2f((m1 - sub1) * scale_log2);
+      m0 = mx0;
+      m1 = mx1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float p00 = exp2f((sc[4 * j] - sub0) * scale_log2);
+        const float p01 = exp2f((sc[4 * j + 1] - sub0) * scale_log2);
+        const float p10 = exp2f((sc[4 * j + 2] - sub1) * scale_log2);
+        const float p11 = exp2f((sc[4 * j + 3] - sub1) * scale_log2);
+        sum0 += p00 + p01;
+        sum1 += p10 + p11;
+        // k-indices tq and tq + 4 of rows g and g + 8 are keys 2 tq and 2 tq + 1 (VT_KEY)
+        tf32_split(p00, ph[4 * j], pl[4 * j]);
+        tf32_split(p10, ph[4 * j + 1], pl[4 * j + 1]);
+        tf32_split(p01, ph[4 * j + 2], pl[4 * j + 2]);
+        tf32_split(p11, ph[4 * j + 3], pl[4 * j + 3]);
+      }
+      l0 = l0 * corr0 + sum0;
+      l1 = l1 * corr1 + sum1;
+
+      // P V of the tile's keys into a fresh accumulator, k8 steps of 32 bytes
+      // inside each slab of V^T; O takes it in fp32 adds
+      float pv[D / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk)
+        wgmma_tf32_rs(pv, pl + 4 * kk, desc_kmajor(v_hi + (kk / 4) * D * 128 + (kk % 4) * 32), kk > 0);
+      if (FAULT != 5) {
+#pragma unroll
+        for (int kk = 0; kk < BN / 8; ++kk)
+          wgmma_tf32_rs(pv, ph + 4 * kk, desc_kmajor(v_lo + (kk / 4) * D * 128 + (kk % 4) * 32), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk)
+        wgmma_tf32_rs(pv, ph + 4 * kk, desc_kmajor(v_hi + (kk / 4) * D * 128 + (kk % 4) * 32), 1);
+      wgmma_commit();
+      if (FAULT != 1) {  // O's rescale runs beside the products
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[4 * j] *= corr0;
+          acc[4 * j + 1] *= corr0;
+          acc[4 * j + 2] *= corr1;
+          acc[4 * j + 3] *= corr1;
         }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float mx = half_warp_max(fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
-      const float m_new = fmaxf(m[i], mx);
-      const float sub = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet: every p is 0
-      const float corr = exp2f((m[i] - sub) * scale_log2);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[i][c] = exp2f((s[i][c] - sub) * scale_log2);
-        sum += s[i][c];
       }
-      l[i] = l[i] * corr + half_warp_sum(sum);
-      if (FAULT != 1) {
+      wgmma_wait_all();
+      fence_regs(pv);
 #pragma unroll
-        for (int c = 0; c < 4 * G; ++c) acc[i][c] *= corr;
-      }
-      m[i] = m_new;
+      for (int i = 0; i < D / 2; ++i) acc[i] += pv[i];
     }
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      *reinterpret_cast<float4*>(pt + (4 * tx + c) * LDT + 4 * ty) = make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int key = 0; key < BN; ++key) {
-      const float4 p = *reinterpret_cast<const float4*>(pt + key * LDT + 4 * ty);
-      const float pr[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float4 vv = *reinterpret_cast<const float4*>(vs + key * D + 64 * g + 4 * tx);
-        const float vr[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[i][4 * g + c] = fmaf(pr[i], vr[c], acc[i][4 * g + c]);
-      }
-    }
+    if (lane == 0) mbar_arrive(empty + 8 * s);
   }
 
+  // epilogue: the row sums over the four lanes of a row, O normalised, the
+  // rows below S stored
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = first + 4 * ty + i;
-    if (row >= S) continue;
-    const float norm = fmaxf(l[i], 1e-30f);
-    float* dst = o + b * osb + row * oss + h * osh;
+  for (int w = 1; w < 4; w *= 2) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, w);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, w);
+  }
+  const float n0 = fmaxf(l0, 1e-30f), n1 = fmaxf(l1, 1e-30f);
+  float* out = o + b * osb + h * osh + 2 * tq;
+  if (row0 < S) {
 #pragma unroll
-    for (int g = 0; g < G; ++g)
-      reinterpret_cast<float4*>(dst + 64 * g)[tx] =
-          make_float4(acc[i][4 * g] / norm, acc[i][4 * g + 1] / norm, acc[i][4 * g + 2] / norm,
-                      acc[i][4 * g + 3] / norm);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(out + row0 * oss + 8 * j) = make_float2(acc[4 * j] / n0, acc[4 * j + 1] / n0);
+  }
+  if (row0 + 8 < S) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(out + (row0 + 8) * oss + 8 * j) =
+          make_float2(acc[4 * j + 2] / n1, acc[4 * j + 3] / n1);
   }
 }
 
+// ------------------------------------------------------------------ host
+
+struct Maps {
+  CUtensorMap q, k, v;
+  MapPos qp, kp, vp;
+};
+
 template <int D, int FAULT>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o, int B, int H, int S, int T,
-                   const long long* st, float scale_log2, int causal, cudaStream_t stream) {
+cudaError_t launch(const Maps& m, float* o, int B, int H, int S, int T, const long long* ost, float scale_log2,
+                   int causal, cudaStream_t stream) {
+  using L = Tiles<D>;
   const cudaError_t err = cudaFuncSetAttribute(flash_fwd_fp32_kernel<D, FAULT>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, L::ALLOC);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (S + BM - 1) / BM);
-  flash_fwd_fp32_kernel<D, FAULT><<<grid, THREADS, Smem<D>::BYTES, stream>>>(
-      q, k, v, o, H, S, T, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      scale_log2, causal);
+  const dim3 grid(B * H, (S + L::BM - 1) / L::BM);
+  flash_fwd_fp32_kernel<D, FAULT><<<grid, L::THREADS, L::ALLOC, stream>>>(
+      m.q, m.k, m.v, m.qp, m.kp, m.vp, o, H, S, T, ost[0], ost[1], ost[2], scale_log2, causal);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t dispatch(const float* q, const float* k, const float* v, float* o, int B, int H, int S, int T,
-                     const long long* st, float scale_log2, int causal, int fault, cudaStream_t s) {
+cudaError_t dispatch(const Maps& m, float* o, int B, int H, int S, int T, const long long* ost, float scale_log2,
+                     int causal, int fault, cudaStream_t s) {
+  if ((S + Tiles<D>::BM - 1) / Tiles<D>::BM > 65535) return cudaErrorInvalidValue;
   switch (fault) {
-    case 0: return launch<D, 0>(q, k, v, o, B, H, S, T, st, scale_log2, causal, s);
-    case 1: return launch<D, 1>(q, k, v, o, B, H, S, T, st, scale_log2, causal, s);
-    case 2: return launch<D, 2>(q, k, v, o, B, H, S, T, st, scale_log2, causal, s);
-    case 3: return launch<D, 3>(q, k, v, o, B, H, S, T, st, scale_log2, causal, s);
+    case 0: return launch<D, 0>(m, o, B, H, S, T, ost, scale_log2, causal, s);
+    case 1: return launch<D, 1>(m, o, B, H, S, T, ost, scale_log2, causal, s);
+    case 2: return launch<D, 2>(m, o, B, H, S, T, ost, scale_log2, causal, s);
+    case 3: return launch<D, 3>(m, o, B, H, S, T, ost, scale_log2, causal, s);
+    case 4: return launch<D, 4>(m, o, B, H, S, T, ost, scale_log2, causal, s);
+    case 5: return launch<D, 5>(m, o, B, H, S, T, ost, scale_log2, causal, s);
+    case 6: return launch<D, 6>(m, o, B, H, S, T, ost, scale_log2, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes: fp32 q [B,S,H,D], k/v [B,T,H,D] and o
-// [B,S,H,D], each 16-byte aligned with its head dim contiguous; strides:
-// 12 values in elements, (batch, seq, head) of q, k, v and o, each a
-// multiple of 4 (a stride may be 0). causal is 0 or 1 (then S == T). fault
-// 0 is the kernel, 1-3 its planted faults. Returns 0 or a cudaError_t.
+// Plain C entry point for ctypes: fp32 q [B,S,H,D], k/v [B,T,H,D], o
+// [B,S,H,D]. plans: three tensor-map plans of PLAN_LEN values each (q, k,
+// v; ops/flash_attention.py:tma_plan of fp32 operands: 32-column boxes of
+// BM rows for q, BN for k and v); o's strides in elements (batch, seq,
+// head; the head dim has stride 1, o 8-byte aligned). causal is 0 or 1
+// (then S == T). fault 0 is the kernel, 1-6 its planted faults. Returns 0,
+// a cudaError_t, or minus the CUresult of a failed tensor-map encode.
 extern "C" int supir_flash_attn_fwd_fp32(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
-                                         int T, int D, int causal, const long long* strides, float scale, int fault,
-                                         void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || T <= 0 || (S + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
+                                         int T, int D, int causal, const long long* plans, long long osb,
+                                         long long oss, long long osh, float scale, int fault, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || T <= 0 || (D != 64 && D != 128)) return static_cast<int>(cudaErrorInvalidValue);
+  EncodeTiled fn;
+  const cudaError_t found = encode_tiled(&fn);
+  if (found != cudaSuccess) return static_cast<int>(found);
+  Maps m;
+  const void* ptrs[3] = {q, k, v};
+  CUtensorMap* maps[3] = {&m.q, &m.k, &m.v};
+  MapPos* pos[3] = {&m.qp, &m.kp, &m.vp};
+  for (int i = 0; i < 3; ++i) {
+    const CUresult r = encode(fn, maps[i], pos[i], ptrs[i], plans + i * PLAN_LEN, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+    if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  }
+  const long long ost[3] = {osb, oss, osh};
   const float scale_log2 = scale * 1.4426950408889634f;
-  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k), *vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)dispatch<64>(qf, kf, vf, of, B, H, S, T, strides, scale_log2, causal, fault, s);
-  if (D == 128) return (int)dispatch<128>(qf, kf, vf, of, B, H, S, T, strides, scale_log2, causal, fault, s);
-  return (int)cudaErrorInvalidValue;
+  const cudaError_t err = D == 64 ? dispatch<64>(m, of, B, H, S, T, ost, scale_log2, causal, fault, s)
+                                  : dispatch<128>(m, of, B, H, S, T, ost, scale_log2, causal, fault, s);
+  return static_cast<int>(err);
 }

@@ -1,14 +1,15 @@
-// The Hopper machinery both flash-attention sources build on: mbarriers,
+// The Hopper machinery the flash-attention sources build on: mbarriers,
 // TMA tile copies, wgmma shared-memory descriptors and products, and the
 // host-side encode of the tensor maps that ops/flash_attention.py:tma_plan
-// lays out. flash_attn_fwd.cu (K1, K3) and flash_attn_bwd.cu (K4) each
-// include it into their own translation unit; quantize_int8.cu (K8) takes
-// its mbarrier and tensor-map helpers.
+// lays out. flash_attn_fwd.cu (K1, K3), flash_attn_fwd_fp32.cu (K1 fp32)
+// and flash_attn_bwd.cu (K4) each include it into their own translation
+// unit; quantize_int8.cu (K8) takes its mbarrier and tensor-map helpers.
 //
 // Shared-memory tiles: a tile of R rows and D head-dim columns (bf16) is
 // D / 64 slabs of R rows x 128 bytes, written by TMA in the 128-byte swizzle
 // that wgmma reads (16-byte chunk c of row r at ((c ^ (r & 7)) * 16)). A
-// tile's base is 1024-byte aligned, the swizzle's period.
+// tile's base is 1024-byte aligned, the swizzle's period. An fp32 tile
+// (flash_attn_fwd_fp32.cu) is the same with 32 columns a slab.
 
 #pragma once
 
@@ -61,10 +62,11 @@ __device__ __forceinline__ int map_coord(const MapPos& p, int i, int row, int h,
   return (p.seq == i ? row : 0) + (p.head == i ? h : 0) + (p.batch == i ? b : 0);
 }
 
-// one tile of ROWS rows (all its slabs) from `map` at sequence row `row` of
-// (batch b, head h) into shared memory at dst, in boxes of BOX rows (the
-// map's box); completes on `bar`. Rows past the map's extent arrive as zeros.
-template <int SLABS, int ROWS, int BOX>
+// one tile of ROWS rows (all its slabs, COLS columns each) from `map` at
+// sequence row `row` of (batch b, head h) into shared memory at dst, in
+// boxes of BOX rows (the map's box); completes on `bar`. Rows past the map's
+// extent arrive as zeros.
+template <int SLABS, int ROWS, int BOX, int COLS = SLAB>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, const MapPos& p, uint32_t bar,
                                          int row, int h, int b) {
   const uint64_t m = reinterpret_cast<uint64_t>(map);
@@ -75,7 +77,7 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, c
 #pragma unroll
     for (int s = 0; s < SLABS; ++s) {
       const uint32_t to = dst + s * ROWS * 128 + r * 128;
-      const int c0 = s * SLAB;
+      const int c0 = s * COLS;
       if (p.rank == 2)
         asm volatile(
             "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
@@ -280,9 +282,10 @@ cudaError_t encode_tiled(EncodeTiled* fn) {
 
 // A plan of PLAN_LEN values (ops/flash_attention.py:tma_plan): rank, dims
 // innermost-first (4), byte strides of dims 1.. (3), box (4), and the map
-// positions of the seq, head and batch coordinates (3). Returns the
-// CUresult of the encode.
-CUresult encode(EncodeTiled fn, CUtensorMap* map, MapPos* pos, const void* ptr, const long long* plan) {
+// positions of the seq, head and batch coordinates (3), of elements of
+// `type`. Returns the CUresult of the encode.
+CUresult encode(EncodeTiled fn, CUtensorMap* map, MapPos* pos, const void* ptr, const long long* plan,
+                CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const int rank = static_cast<int>(plan[0]);
   cuuint64_t dims[4], strides[3];
   cuuint32_t box[4], unit[4] = {1, 1, 1, 1};
@@ -292,7 +295,7 @@ CUresult encode(EncodeTiled fn, CUtensorMap* map, MapPos* pos, const void* ptr, 
     if (i) strides[i - 1] = static_cast<cuuint64_t>(plan[4 + i]);
   }
   *pos = MapPos{rank, static_cast<int>(plan[12]), static_cast<int>(plan[13]), static_cast<int>(plan[14])};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank), const_cast<void*>(ptr), dims,
+  return fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(ptr), dims,
             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

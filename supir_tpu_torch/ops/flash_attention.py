@@ -38,20 +38,25 @@ K3 and saves q, k, v, out and lse, its backward runs K4.
 K1 fp32 is K1 for fp32 q, k and v, as the TPU kernels run in the
 inputs' dtype (`_flash_primal`'s `out_shape`, :373): an engine with fp32
 parameters (`--full_params`, `--diff_dtype fp32`) attends in fp32. Its
-source, `supir_tpu_torch/csrc/flash_attn_fwd_fp32.cu`, runs every product
-as an fp32 FMA on the CUDA cores (wgmma takes no fp32 operand; TF32 would
-lower the precision), reading q, k and v through their strides with
-16-byte loads. `flash_attention` launches it for fp32 inputs and counts
-those calls in `flash_attention.fp32_launches`, apart from `launches`.
-`flash_fp32_emulate` walks its tiles on the CPU. K3, K4 and the ALiBi
-variants take bf16 only: no path of the port reaches them in fp32 (the
-trainer runs under bf16 autocast, MPT in bf16).
+source, `supir_tpu_torch/csrc/flash_attn_fwd_fp32.cu`, runs on the tensor
+cores at TF32 with fp32-grade accuracy (3xTF32): every operand is split
+into a TF32 high part and the TF32 of the rest (`tf32_split`,
+`tf32_operand`), and every product of Q K^T and P V is taken as three
+wgmma products (lo hi + hi lo + hi hi), fed by TMA (`tma_plan` of fp32
+operands: 32-column slabs); V is written transposed in the key order of
+`VT_KEY`, which lets P go from S's accumulator to the A operand in
+registers. `flash_attention` launches it for fp32 inputs and counts those
+calls in `flash_attention.fp32_launches`, apart from `launches`.
+`flash_fp32_emulate` walks its warpgroups, tiles, TF32 roundings and
+products on the CPU. K3, K4 and the ALiBi variants take bf16 only: no
+path of the port reaches them in fp32 (the trainer runs under bf16
+autocast, MPT in bf16).
 
 Each wrapper, on a CPU tensor, returns its plain version (`attention_plain`,
 `attention_fwd_lse_plain`, `attention_bwd_plain`); on a CUDA tensor it
 launches its kernel or raises. `<wrapper>.launches` counts launching calls.
 
-The forward reads q, k and v, the backward q, k, v and dout, through TMA
+The forwards read q, k and v, the backward q, k, v and dout, through TMA
 tensor maps. `tma_plan` lays each one out in Python (dims innermost-first,
 byte strides, box, and where the seq, head and batch coordinates go), so
 the CPU tests reach it; the C side only encodes the plan
@@ -82,12 +87,19 @@ PLAN_LEN = 15  # values of a packed plan: rank, dims[4], strides[3], box[4], pos
 # the backward's tiles (csrc/flash_attn_bwd.cu: BLOCK, BOX)
 BWD_BLOCK = 128  # rows a backward block owns; the lse/delta scratch is padded to it
 BWD_BOX = 64     # rows of every backward TMA box (q, k, v and dout)
-# K1 fp32's tiles (csrc/flash_attn_fwd_fp32.cu: BM, BN) and planted faults:
-# the accumulator not rescaled when the max rises, the ragged last key tile
-# not masked, the causal diagonal tile not masked
-FP32_BLOCK = 64
+# K1 fp32's tiles (csrc/flash_attn_fwd_fp32.cu: Tiles<D>::BM, BN): head dim
+# -> (query rows a block, keys a tile); every warpgroup takes 64 of a block's rows
+FP32_TILES = {64: (128, 64), 128: (64, 32)}
+FP32_WG_ROWS = 64
 LOG2E = 1.4426950408889634  # the kernels' fp32 log2(e), folded into the scale
-FP32_FAULT_NO_RESCALE, FP32_FAULT_RAGGED, FP32_FAULT_DIAGONAL = 1, 2, 3
+# K1 fp32's planted faults: the accumulator not rescaled when the max rises,
+# the ragged last key tile not masked, the causal diagonal not masked, S on
+# one product (hi hi: plain TF32), P V without V's lo part, V^T written in
+# key order (without the fragment permutation)
+(FP32_FAULT_NO_RESCALE, FP32_FAULT_RAGGED, FP32_FAULT_DIAGONAL, FP32_FAULT_ONE_PRODUCT, FP32_FAULT_NO_V_LO,
+ FP32_FAULT_VT_ORDER) = range(1, 7)
+TF32_HALF = 0x1000  # half a TF32 ulp, in the fp32 bits
+TF32_KEEP = -0x2000  # 0xFFFFE000 as an int32: the bits of an fp32 word a TF32 operand keeps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,14 +131,16 @@ class TmaPlan:
 
 
 def tma_plan(x: torch.Tensor, rows: int) -> TmaPlan:
-    """The tensor map of a [B, N, H, D] bf16 operand read in boxes of
-    `rows` rows (the forward: BLOCK_M for q, BLOCK_N for k and v; the
-    backward: BWD_BOX for q, k, v and dout). Raises ValueError on
-    what TMA cannot take: a head dim that is not contiguous or not a whole
-    number of slabs, a base address that is not 16-byte aligned, or a kept
-    stride that is not a multiple of 16 bytes."""
-    if x.dim() != 4 or x.shape[-1] % SLAB or x.stride(-1) != 1:
-        raise ValueError(f"a TMA plan wants [B,N,H,D] with a contiguous D a multiple of {SLAB}; got "
+    """The tensor map of a [B, N, H, D] bf16 or fp32 operand read in boxes
+    of `rows` rows (the forward: BLOCK_M for q, BLOCK_N for k and v; the
+    backward: BWD_BOX for q, k, v and dout; K1 fp32: FP32_TILES), one
+    128-byte slab of columns a box (SLAB bf16, 32 fp32). Raises ValueError
+    on what TMA cannot take: a head dim that is not contiguous or not a
+    whole number of slabs, a base address that is not 16-byte aligned, or a
+    kept stride that is not a multiple of 16 bytes."""
+    slab = 128 // x.element_size()
+    if x.dim() != 4 or x.shape[-1] % slab or x.stride(-1) != 1:
+        raise ValueError(f"a TMA plan wants [B,N,H,D] with a contiguous D a multiple of {slab}; got "
                          f"{tuple(x.shape)} with strides {x.stride()}")
     if x.data_ptr() % 16:
         raise ValueError(f"TMA needs a 16-byte aligned base address; this view starts {x.data_ptr() % 16} bytes off")
@@ -139,7 +153,7 @@ def _layout_plan(shape, stride, size: int, rows: int) -> TmaPlan:
     cached, since the main path calls the same few layouts thousands of
     times."""
     b, n, h, d = shape
-    dims, strides, box, pos = [d], [], [SLAB], {}
+    dims, strides, box, pos = [d], [], [128 // size], {}
     for name, extent, step, keep in (("seq", n, stride[1], True), ("head", h, stride[2], False),
                                      ("batch", b, stride[0], False)):
         if not keep and (step == 0 or extent == 1):
@@ -280,7 +294,8 @@ def _fp32_library() -> ctypes.CDLL:
     fn.argtypes = (
         [ctypes.c_void_p] * 4   # q, k, v, out
         + [ctypes.c_int] * 6    # B H S T D causal
-        + [ctypes.POINTER(ctypes.c_longlong)]  # strides of q, k, v, out
+        + [ctypes.POINTER(ctypes.c_longlong)]  # the three plans
+        + [ctypes.c_longlong] * 3  # out's strides
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, fault, stream
     )
     return lib
@@ -321,8 +336,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, *mor
     """Shapes, dtype, device and layout the kernels take: q [B,S,H,D], k/v
     [B,T,H,D], all of one dtype of `dtypes`; `more` are further [B,*,H,D]
     operands (out, dout). Every operand 16-byte aligned with strides in
-    multiples of 16 bytes: TMA's rule for the bf16 kernels, the 16-byte
-    loads' for K1 fp32."""
+    multiples of 16 bytes: TMA's rule."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"flash attention wants q [B,S,H,D], k/v [B,T,H,D]; got {q.shape}, {k.shape}, {v.shape}")
     if q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
@@ -411,50 +425,98 @@ def _forward_fp32(q, k, v, causal: bool, fault: int = 0) -> torch.Tensor:
     out = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
     if s == 0 or b * h == 0:
         return out
-    if t == 0:  # no keys: what the plain version gives
+    if t == 0:  # no keys: what the plain version gives (TMA takes no empty dim)
         return out.zero_()
-    strides = (ctypes.c_longlong * 12)(*_strides(q, k, v, out))
+    rows, keys = FP32_TILES[d]
+    plans = _packed_plans(tma_plan(q, rows), tma_plan(k, keys), tma_plan(v, keys))
     fn = _fp32_library().supir_flash_attn_fwd_fp32
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s, t, d, int(causal), strides,
-                 d ** -0.5, fault, stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s, t, d, int(causal), plans,
+                 *out.stride()[:3], d ** -0.5, fault, stream)
+    if err < 0:
+        raise RuntimeError(f"flash attention forward (fp32): cuTensorMapEncodeTiled failed with CUresult {-err}")
     _raise_on(err, "flash attention forward (fp32)")
     return out
 
 
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of fp32 x as K1 fp32 splits it: hi = x rounded to TF32 (its
+    bits + TF32_HALF with the low 13 cleared: nearest, ties away from
+    zero), lo = x - hi, exact in fp32 (hi + lo == x)."""
+    hi = ((x.view(torch.int32) + TF32_HALF) & TF32_KEEP).view(torch.float32)
+    return hi, x - hi
+
+
+def tf32_operand(x: torch.Tensor) -> torch.Tensor:
+    """The TF32 word K1 fp32 hands the tensor cores for fp32 x: its low 13
+    mantissa bits cleared, which the tensor cores do not read."""
+    return (x.view(torch.int32) & TF32_KEEP).view(torch.float32)
+
+
+def _tf32_pair(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two TF32 operands of x's three products: hi and lo's TF32."""
+    hi, lo = tf32_split(x)
+    return hi, tf32_operand(lo)
+
+
+def vt_key(p: int) -> int:
+    """The key that slot p (0..7) of each 8-key group of a V^T row holds in
+    K1 fp32 (csrc: VT_KEY): S's accumulator gives lane t of a quad the
+    columns 2t and 2t + 1 of every 8-column group, the TF32 A operand wants
+    k-indices t and t + 4, so slot t holds key 2t and slot t + 4 key 2t + 1."""
+    return 2 * (p % 4) + p // 4
+
+
+VT_KEY = tuple(vt_key(p) for p in range(8))
+
+
 def flash_fp32_emulate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
                        fault: int = 0) -> torch.Tensor:
-    """K1 fp32's kernel walked on the CPU in its own order: 64-row query
-    blocks, 64-key tiles (zero-filled past T, none wholly above the causal
-    diagonal), the ragged and diagonal masks, the online softmax in raw
-    q.k units with exp2 and the scale folded in (a row with no key yet
-    subtracts 0), the accumulator and sum rescaled when the max rises, O /
-    max(l, 1e-30); `fault` plants FP32_FAULT_*. Returns fp32 [B,S,H,D]."""
+    """K1 fp32's kernel walked on the CPU in its own order: warpgroups of 64
+    query rows, key tiles of FP32_TILES[D][1] keys (zero past T; with
+    `causal`, none past the warpgroup's last row), every operand split into
+    its TF32 pair (`tf32_split`, `tf32_operand`) and every product of
+    Q K^T and P V taken as lo hi + hi lo + hi hi, the ragged and causal
+    masks, the online softmax in raw q.k units with exp2 and the scale
+    folded in (a row with no key yet subtracts 0), the accumulator and sum
+    rescaled when the max rises, each tile's P V summed apart and added to
+    it, O / max(l, 1e-30). `fault` plants
+    FP32_FAULT_*: with FP32_FAULT_VT_ORDER P's key 8 g + VT_KEY[p] meets V's
+    key 8 g + p. Returns fp32 [B,S,H,D]."""
     b, s, h, d = q.shape
     t = k.shape[1]
+    bn = FP32_TILES[d][1]
     c = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(LOG2E, dtype=torch.float32)
-    qh, kh, vh = (x.float().transpose(1, 2) for x in (q, k, v))  # [B, H, N, D]
-    n_tiles = -(-t // FP32_BLOCK)
+    n_tiles = -(-t // bn)
+    pad = (0, 0, 0, n_tiles * bn - t)
+    qh, kh, vh = (x.float().transpose(1, 2).contiguous() for x in (q, k, v))  # [B, H, N, D]
+    q_hi, q_lo = _tf32_pair(qh)
+    k_hi, k_lo = _tf32_pair(torch.nn.functional.pad(kh, pad))
+    v_hi, v_lo = _tf32_pair(torch.nn.functional.pad(vh, pad))
+    if fault == FP32_FAULT_VT_ORDER:
+        # slot p of V^T holds key p where P's k-index p is key VT_KEY[p]
+        meets = torch.tensor([8 * (key // 8) + VT_KEY.index(key % 8) for key in range(n_tiles * bn)])
+        v_hi, v_lo = v_hi[:, :, meets], v_lo[:, :, meets]
     out = torch.empty(b, h, s, d)
-    for qb in range(-(-s // FP32_BLOCK)):
-        first = qb * FP32_BLOCK
-        qt = qh[:, :, first:first + FP32_BLOCK]
-        rows = torch.arange(first, first + qt.shape[2])
-        m = torch.full(qt.shape[:3], float("-inf"))
-        l = torch.zeros(qt.shape[:3])
-        acc = torch.zeros(qt.shape)
-        for j in range(min(n_tiles, qb + 1) if causal else n_tiles):
-            kf = j * FP32_BLOCK
-            pad = (0, 0, 0, FP32_BLOCK - min(FP32_BLOCK, t - kf))
-            kt = torch.nn.functional.pad(kh[:, :, kf:kf + FP32_BLOCK], pad)
-            vt = torch.nn.functional.pad(vh[:, :, kf:kf + FP32_BLOCK], pad)
-            scores = qt @ kt.transpose(-1, -2)
-            cols = torch.arange(kf, kf + FP32_BLOCK)
-            drop = torch.zeros(len(rows), FP32_BLOCK, dtype=torch.bool)
-            if fault != FP32_FAULT_RAGGED and kf + FP32_BLOCK > t:
+    for first in range(0, s, FP32_WG_ROWS):
+        rows = torch.arange(first, min(s, first + FP32_WG_ROWS))
+        qa_hi, qa_lo = q_hi[:, :, rows], q_lo[:, :, rows]
+        m = torch.full(qa_hi.shape[:3], float("-inf"))
+        l = torch.zeros(qa_hi.shape[:3])
+        acc = torch.zeros(qa_hi.shape)
+        tiles = -(-min(t, first + FP32_WG_ROWS) // bn) if causal else n_tiles
+        for j in range(tiles):
+            keys = slice(j * bn, (j + 1) * bn)
+            kt_hi, kt_lo = k_hi[:, :, keys].transpose(-1, -2), k_lo[:, :, keys].transpose(-1, -2)
+            scores = qa_hi @ kt_hi
+            if fault != FP32_FAULT_ONE_PRODUCT:
+                scores = qa_lo @ kt_hi + qa_hi @ kt_lo + scores
+            cols = torch.arange(j * bn, (j + 1) * bn)
+            drop = torch.zeros(len(rows), bn, dtype=torch.bool)
+            if fault != FP32_FAULT_RAGGED:
                 drop |= cols[None] >= t
-            if fault != FP32_FAULT_DIAGONAL and causal and j == qb:
+            if fault != FP32_FAULT_DIAGONAL and causal:
                 drop |= cols[None] > rows[:, None]
             scores = scores.masked_fill(drop, float("-inf"))
             m_new = torch.maximum(m, scores.amax(-1))
@@ -464,9 +526,13 @@ def flash_fp32_emulate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal
             l = l * corr + p.sum(-1)
             if fault != FP32_FAULT_NO_RESCALE:
                 acc = acc * corr[..., None]
-            acc = acc + p @ vt
+            p_hi, p_lo = _tf32_pair(p)
+            pv = p_lo @ v_hi[:, :, keys]
+            if fault != FP32_FAULT_NO_V_LO:
+                pv = pv + p_hi @ v_lo[:, :, keys]
+            acc = acc + (pv + p_hi @ v_hi[:, :, keys])
             m = m_new
-        out[:, :, first:first + qt.shape[2]] = acc / l.clamp_min(1e-30)[..., None]
+        out[:, :, rows] = acc / l.clamp_min(1e-30)[..., None]
     return out.transpose(1, 2)
 
 

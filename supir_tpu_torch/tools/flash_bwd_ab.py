@@ -49,17 +49,19 @@ def _rel(got, want) -> float:
     return ((got.float() - want).norm() / want.norm()).item()
 
 
-def build(variants: dict[str, Path]) -> dict:
-    """The loaded library of each variant; prints its spills."""
+def build(variants: dict[str, Path], source: str | None = None) -> dict:
+    """The loaded library of `source` (by default K4's flash_attn_bwd.cu)
+    from each variant's directory; prints its spills."""
     from supir_tpu_torch.ops import cuda_build, flash_attention as fa
 
+    source = source or fa._BWD_SOURCE
     own, libs = cuda_build.CSRC, {}
     try:
         for name, src in variants.items():
             cuda_build.CSRC = src.resolve()
-            cuda_build._loaded.pop(fa._BWD_SOURCE, None)
-            libs[name] = cuda_build.load_library(fa._BWD_SOURCE)
-            report = cuda_build.ptxas_report(fa._BWD_SOURCE)
+            cuda_build._loaded.pop(source, None)
+            libs[name] = cuda_build.load_library(source)
+            report = cuda_build.ptxas_report(source)
             spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", report)]
             print(f"[build] {name} ({src}): {len(spills)} kernels, spill stores max {max(spills, default=0)} B",
                   flush=True)
@@ -140,6 +142,17 @@ def bench(libs: dict, dev, reps: int) -> dict:
     return results
 
 
+def parse_variants(specs) -> dict[str, Path]:
+    """NAME=DIR flags (DIR 'csrc': the package's own sources) as {name: dir}."""
+    from supir_tpu_torch.ops import cuda_build
+
+    variants = {}
+    for spec in specs or ["csrc=csrc"]:
+        name, _, src = spec.partition("=")
+        variants[name] = cuda_build.CSRC if src == "csrc" else Path(src)
+    return variants
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description="K4 from several source trees, in turns (see the docstring)")
     ap.add_argument("--variant", action="append", default=[], metavar="NAME=DIR",
@@ -147,12 +160,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--reps", type=int, default=30, help="calls per event timing")
     args = ap.parse_args(argv)
     dev = timing.require_cuda("flash_bwd_ab")
-    from supir_tpu_torch.ops import cuda_build
-
-    variants = {}
-    for spec in args.variant or ["csrc=csrc"]:
-        name, _, src = spec.partition("=")
-        variants[name] = cuda_build.CSRC if src == "csrc" else Path(src)
+    variants = parse_variants(args.variant)
     print(f"flash_bwd_ab on {timing.card_line()}; torch {torch.__version__}", flush=True)
     libs = build(variants)
     check(libs, dev)
