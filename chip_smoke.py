@@ -278,6 +278,18 @@ Phases, each printing its own lines:
      discriminator and draws: losses within 5e-2, the gradients of the
      generator and the discriminator within 5e-2 in fp32 (in bf16 the L1
      loss's and LeakyReLU's kinks flip them; printed).
+ 17. multi-device: one spawn of two ranks (gloo sharing card 0 on one
+     card, NCCL one rank per card on two or more) at full XL-base width,
+     bf16, each split run beside rank 0's one-process run: (a)
+     shard_for_inference on a (1,1,2) mesh and the 1024^2 restore (bit
+     for bit; K1/K2 424/428 a rank); (b) set_sequence_mesh and one untiled
+     2048^2 network call, its 16384-token sites on ring attention with K3
+     blocks (5e-2 against K1), and ring_attention alone at [2,16384,10,64]
+     against K1 and attention_plain (1e-2) with a planted fault (the merge
+     without its rescale) and the fp32 and requires-grad refusals; (c)
+     the [tiled] configuration at 2048^2 on a (1,2,1) tile mesh (5e-2);
+     (d) LLaVA-13B int4 sharded over 'model': the greedy tokens equal.
+     Seconds, peak memory, the collectives' share and launches per rank.
 Then one JSON line with each kernel's numbers, the card line, and last
 `{"ok": true, "device": {...}}`. There is no fallback: without a CUDA
 device, or outside a checkout of the repository, it exits non-zero before
@@ -6042,6 +6054,383 @@ def phase_apps_reference():
         raise AssertionError(f"[apps reference] a planted fault stays under the bound: {bad_rel}, {zero_rel}")
 
 
+# ------------------------------------------------------------------ [multi-device]
+
+MD_RANKS = 2           # [multi-device]: two gloo ranks on one card, or NCCL at world size 2 on two or more
+MD_TILED_SIDE = 2048   # (c): the [tiled] configuration's model image
+MD_RING_SIDE = 2048    # (b): an untiled network call at a 256^2 latent: 16384 tokens at the first attention level
+MD_RING_SHAPE = (2, 16384, 10, 64)  # (b): ring_attention alone, at those sites' shape
+MD_REL_BOUND = 5e-2    # (b), (c): the split run against the one-process run, relative L2 (bf16 sums in another order)
+MD_ROWS = 1024         # attention_plain's row chunk at MD_RING_SHAPE (a whole fp32 logit tensor is 21 GB)
+
+
+def _md_collective_timer():
+    """Wrap the port's collective helpers, in every module that holds them,
+    in synchronised timers: returns (seconds list, restore). On a gloo group
+    their time is the staging through host memory and gloo's transfer."""
+    import torch
+
+    from supir_tpu_torch.parallel import mesh, ring_attention, sharding, tiled_sampler, tiled_vae
+
+    spent = [0.0]
+    saved = []
+    for module, name in ((mesh, "all_reduce_"), (sharding, "all_gather"), (ring_attention, "all_gather"),
+                         (ring_attention, "ring_shift"), (tiled_vae, "all_gather"), (tiled_sampler, "all_gather")):
+        fn = getattr(module, name)
+
+        def timed(*a, _fn=fn, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t
+            return out
+
+        saved.append((module, name, fn))
+        setattr(module, name, timed)
+    return spent, lambda: [setattr(m, n, f) for m, n, f in saved]
+
+
+def _md_counters():
+    from supir_tpu_torch.ops import quantize as Q
+    from supir_tpu_torch.ops.flash_attention import flash_attention, flash_attention_fwd_lse
+    from supir_tpu_torch.ops.groupnorm import group_norm
+
+    return {"K1": flash_attention, "K2": group_norm, "K3": flash_attention_fwd_lse, "K5": Q.int4_paired_fused_matmul}
+
+
+def _md_zero():
+    for fn in _md_counters().values():
+        fn.launches = 0
+
+
+def _md_read():
+    return {k: fn.launches for k, fn in _md_counters().items()}
+
+
+def _md_rank(rank: int, world: int, tmp: str, backend: str, steps: int):
+    """One rank of [multi-device]: (a) the sharded 1024^2 restore, (b) the
+    ring at 2048^2 and alone, (c) the tile axis at 2048^2, (d) the sharded
+    LLaVA-13B int4 captioner. Rank 0 also runs the one-process references
+    (the other rank waits); every split run is held to them there. Writes
+    its readings to tmp/rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{os.path.join(tmp, 'store')}", rank=rank, world_size=world)
+    try:
+        out = _md_body(rank, world, dev, backend, steps)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def _md_body(rank, world, dev, backend, steps):
+    import torch
+    import torch.distributed as dist
+
+    from supir_tpu_torch.captioner.agent import CaptionerConfig, create_captioner
+    from supir_tpu_torch.config import load_yaml_config
+    from supir_tpu_torch.engine.factory import create_engine
+    from supir_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+    from supir_tpu_torch.parallel import ring_attention as RA
+    from supir_tpu_torch.parallel.mesh import make_mesh
+
+    out = {"secs": {}, "launches": {}, "peak": {}, "staging": {}}
+    spent, restore_timers = _md_collective_timer()
+    lead = rank == 0
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = fn()
+        torch.cuda.synchronize()
+        return y, time.perf_counter() - t
+
+    def split_run(label, fn):
+        """fn on every rank with the counters zeroed just before and read
+        just after, its seconds, its collectives' seconds and its peak."""
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        _md_zero()
+        spent[0] = 0.0
+        y, secs = sync_time(fn)
+        out["launches"][label] = _md_read()
+        out["secs"][label] = secs
+        out["staging"][label] = spent[0]
+        out["peak"][label] = torch.cuda.max_memory_allocated() / 2**30
+        return y
+
+    def reference(label, fn):
+        """fn on rank 0 alone, the others waiting: the one-process run."""
+        y = None
+        if lead:
+            torch.cuda.reset_peak_memory_stats()
+            _md_zero()
+            y, out["secs"][label] = sync_time(fn)
+            out["launches"][label] = _md_read()
+            out["peak"][label] = torch.cuda.max_memory_allocated() / 2**30
+        dist.barrier()
+        return y
+
+    t_all = time.perf_counter()
+    cfg, extras = load_yaml_config(TILED_OPT)
+    engine, out["secs"]["build"] = sync_time(lambda: create_engine(cfg, dev, seed=SEED))
+    _randomize_all(engine.model, SEED + 20)
+    out["params_gib"] = sum(p.numel() * p.element_size() for p in engine.model.parameters()) / 2**30
+
+    # (a)'s inputs and its one-process run, the [main] path's settings
+    x, c, uc = _inputs(cfg, SIZE, dev, SEED + 1)
+
+    def restore():
+        z = engine.encode_first_stage_with_denoise(x)
+        return engine.batchify_sample(x, dict(c, control=z), dict(uc, control=z), num_steps=steps, seed=SEED,
+                                      z_override=z, sampler_name="RestoreEDM", **SAMPLE_KW)
+
+    a_ref = reference("a one-process", restore)
+
+    # (b) one untiled network call at a 256^2 latent, the 16384-token sites on the ring
+    lat = MD_RING_SIDE // cfg.vae.downscale_factor
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    xb = torch.randn(2, 4, lat, lat, generator=g, device=dev)
+    tb = torch.full((2,), 500.0, device=dev)
+    cond = {"crossattn": torch.randn(2, 77, cfg.unet.context_dim, generator=g, device=dev),
+            "vector": torch.randn(2, cfg.unet.adm_in_channels, generator=g, device=dev),
+            "control": torch.randn(2, 4, lat, lat, generator=g, device=dev)}
+
+    def network():
+        with torch.no_grad(), engine._seq_ctx():
+            return engine._network(xb, tb, cond, 1.0)
+
+    b_ref = reference("b one-process", network)
+    ring_calls = []
+    real_ring = RA.ring_attention
+
+    def counted(*a, **k):
+        ring_calls.append(tuple(a[0].shape))
+        return real_ring(*a, **k)
+
+    seq = make_mesh((world,), ("seq",))
+    engine.set_sequence_mesh(seq)
+    RA.ring_attention = counted
+    try:
+        b_got = split_run("b ring", network)
+    finally:
+        RA.ring_attention = real_ring
+        engine.set_sequence_mesh(None)
+    out["ring_sites"] = collections.Counter(ring_calls)
+    if lead:
+        out["b_rel"] = rel_l2(b_got, b_ref)
+    del b_got, b_ref, xb, cond
+
+    # ring_attention alone at the ring sites' shape, keys whose halves differ
+    # in scale (so that the blocks' lse differ and the merge's rescale matters)
+    q, k, v = (torch.randn(MD_RING_SHAPE, generator=g, device=dev) for _ in range(3))
+    k[:, MD_RING_SHAPE[1] // 2:] *= 2.0
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    ring = split_run("ring alone", lambda: RA.ring_attention(q, k, v, seq, axis="seq"))
+
+    def no_rescale(o, lse, o_i, lse_i):  # the planted fault: the accumulator is not rescaled
+        m = torch.maximum(lse, lse_i)
+        a, b = torch.exp(lse - m), torch.exp(lse_i - m)
+        a_, b_ = (w.transpose(1, 2)[..., None] for w in (a, b))
+        return (o + o_i.float() * b_) / (a_ + b_), m + torch.log(a + b)
+
+    real_merge = RA._merge
+    RA._merge = no_rescale
+    try:
+        faulty = RA.ring_attention(q, k, v, seq, axis="seq")
+    finally:
+        RA._merge = real_merge
+    if lead:
+        k1 = flash_attention(q, k, v)
+        plain = torch.cat([attention_plain(q[:, i:i + MD_ROWS].float(), k.float(), v.float())
+                           for i in range(0, MD_RING_SHAPE[1], MD_ROWS)], dim=1)
+        out["ring_rel"] = {"plain": rel_l2(ring, plain), "k1": rel_l2(ring, k1), "k1 vs plain": rel_l2(k1, plain),
+                           "fault": rel_l2(faulty, plain)}
+        del k1, plain
+    for bad, label in ((q.float(), "fp32"), (q.clone().requires_grad_(True), "grad")):
+        try:
+            RA.ring_attention(bad, bad.detach() if label == "grad" else bad, bad.detach() if label == "grad" else bad,
+                              seq, axis="seq")
+            out[f"ring_{label}"] = "accepted"
+        except (TypeError, RuntimeError) as e:
+            out[f"ring_{label}"] = f"{type(e).__name__}: {e}"
+    del q, k, v, ring, faulty
+    torch.cuda.empty_cache()
+
+    # (c) the [tiled] configuration at 2048^2 over a (1, 2, 1) tile mesh
+    enc_tile, dec_tile = extras["tile_vae"]["encoder_tile_size"], extras["tile_vae"]["decoder_tile_size"]
+    engine.init_tile_vae(enc_tile, dec_tile)
+    xc, cc, ucc = _inputs(cfg, MD_TILED_SIDE, dev, SEED + 8)
+
+    def tiled():
+        z = engine.encode_first_stage_with_denoise(xc)
+        return engine.batchify_sample_tiled(xc, dict(cc, control=z), dict(ucc, control=z), num_steps=steps,
+                                            seed=SEED, z_override=z, tile_size=cfg.sampler.tile_size,
+                                            tile_stride=cfg.sampler.tile_stride, **SAMPLE_KW)
+
+    c_ref = reference("c one-process", tiled)
+    engine.set_tiled_mesh(make_mesh((1, world, 1), ("data", "tile", "model")))
+    c_got = split_run("c tile axis", tiled)
+    engine.set_tiled_mesh(None)
+    engine._tile_vae = None
+    if lead:
+        out["c_rel"] = rel_l2(c_got, c_ref)
+    out["c_shape"] = tuple(c_got.shape)
+    out["c_finite"] = bool(torch.isfinite(c_got).all())
+    del c_got, c_ref, xc, cc, ucc
+    torch.cuda.empty_cache()
+
+    # (a) the engine sharded over a (1, 1, 2) mesh's 'model' axis
+    engine.shard_for_inference(make_mesh((1, 1, world), ("data", "tile", "model")))
+    torch.cuda.empty_cache()
+    out["resident_gib"] = torch.cuda.memory_allocated() / 2**30
+    a_got = split_run("a sharded", restore)
+    if lead:
+        out["a_equal"] = bool(torch.equal(a_got, a_ref))
+        out["a_rel"] = rel_l2(a_got, a_ref)
+        out["a_max_abs"] = (a_got.float() - a_ref.float()).abs().max().item()
+    out["a_finite"] = bool(torch.isfinite(a_got).all()) and tuple(a_got.shape) == (1, SIZE, SIZE, 3)
+    del engine, a_got, a_ref, x, c, uc
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) LLaVA-13B int4, sharded over 'model'
+    ccfg = _mode_cfg(dataclasses.replace(CaptionerConfig(), compute_dtype="bfloat16", max_new_tokens=CAP_TOKENS),
+                     "int4")
+    agent, out["secs"]["captioner build"] = sync_time(lambda: create_captioner(ccfg, dev, seed=SEED))
+    image = _caption_image()
+
+    def caption():
+        return [int(t) for t in agent.generate([image], temperature=0.0)[0][0]]
+
+    d_ref = reference("d one-process", caption)
+    agent.shard(make_mesh((1, world), ("data", "model")))
+    torch.cuda.empty_cache()
+    d_got = split_run("d sharded", caption)
+    out["tokens"] = d_got
+    if lead:
+        out["tokens_one"] = d_ref
+    restore_timers()
+    out["secs"]["rank total"] = time.perf_counter() - t_all
+    return out
+
+
+def phase_multi_device(steps: int, smi: str) -> dict:
+    """[multi-device]: the JAX package's multi-chip inference drill on the
+    port, one spawn of MD_RANKS ranks (two gloo ranks sharing card 0 on a
+    one-card machine, NCCL with one rank per card on two or more) that runs
+    every sub-phase at full XL-base width, bf16, random weights, `steps`
+    steps: (a) `shard_for_inference` on a (1, 1, 2) mesh and a 1024^2
+    batchify_sample, held to the one-process run (bit for bit where the
+    gathered weights are exact); (b) `set_sequence_mesh` over the two ranks
+    and one untiled 2048^2 network call, its 16384-token self-attention
+    sites on ring attention with K3 blocks of [2, 8192, 10, 64], held to the
+    one-process call on K1 at 5e-2, and ring_attention alone at
+    [2, 16384, 10, 64] against the one-process K1 and attention_plain by row
+    chunks at K1's 1e-2, a skipped rescale in the merge breaking it, fp32
+    and requires-grad inputs refused; (c) the [tiled] configuration at
+    2048^2 on a (1, 2, 1) tile mesh (16 VAE tiles, 9 windows: one padded
+    duplicate of zero weight), held to the one-process tiled run at 5e-2;
+    (d) LLaVA-13B int4 `shard`ed over 'model', 31 greedy tokens equal to the
+    one-process tokens. Prints seconds, per-rank peaks, collectives' share
+    and launches per rank. Returns rank 0's launches of its split runs."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from supir_tpu_torch.config import load_yaml_config
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= MD_RANKS else "gloo"
+    cfg, _ = load_yaml_config(TILED_OPT)
+    lat = SIZE // cfg.vae.downscale_factor
+    want = {"K1": expected_flash_launches(cfg, lat, steps, vae_passes=4),
+            "K2": expected_group_norm_launches(cfg, steps, vae_passes=4)}
+    _free()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_md_rank, args=(MD_RANKS, tmp, backend, steps), nprocs=MD_RANKS, join=True,
+                           start_method="spawn")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(MD_RANKS)]
+    return _md_report(ranks, backend, cards, time.perf_counter() - t0, want, smi)
+
+
+def _md_report(ranks, backend: str, cards: int, total: float, want: dict, smi: str) -> dict:
+    """[multi-device]'s lines and checks from the ranks' readings."""
+    lead = ranks[0]
+    where = (f"{MD_RANKS} gloo ranks sharing card 0" if backend == "gloo"
+             else f"NCCL, {MD_RANKS} ranks on cards 0-{MD_RANKS - 1} of {cards}")
+    log(f"[multi-device] {smi}: {where}; one spawn, {total:.1f} s with start-up (rank 0's body "
+        f"{lead['secs']['rank total']:.1f} s); XL-base bf16, {lead['params_gib']:.2f} GiB of parameters")
+    if backend == "gloo":
+        log("[multi-device] parallel/mesh.py gathers by send/recv, which gloo takes on host tensors only: staged "
+            "through pinned host memory, split over the mesh line's lanes (python -m "
+            "supir_tpu_torch.tools.gloo_cuda_probe asks this PyTorch what gloo takes on CUDA tensors)")
+    for label in ("a one-process", "b one-process", "c one-process", "d one-process"):
+        log(f"[multi-device] {label} (rank 0 alone): {lead['secs'][label]:.3f} s, peak {lead['peak'][label]:.2f} GiB, "
+            f"launches {lead['launches'][label]}")
+    for label in ("a sharded", "b ring", "ring alone", "c tile axis", "d sharded"):
+        log(f"[multi-device] {label}: " + "; ".join(
+            f"rank {r} {rk['secs'][label]:.3f} s (collectives {rk['staging'][label]:.3f} s, "
+            f"{rk['staging'][label] / rk['secs'][label]:.1%}), peak {rk['peak'][label]:.2f} GiB, launches "
+            f"{rk['launches'][label]}" for r, rk in enumerate(ranks)))
+    resident = ", ".join(f"{rk['resident_gib']:.2f}" for rk in ranks)
+    log(f"[multi-device] (a) resident after sharding {resident} GiB "
+        f"a rank; sharded restore equal to the one-process restore bit for bit: {lead['a_equal']} (rel-L2 "
+        f"{lead['a_rel']:.3e}, max abs {lead['a_max_abs']:.3e}); K1/K2 a rank expected {want['K1']}/{want['K2']}")
+    log(f"[multi-device] (b) ring sites {dict(lead['ring_sites'])}; network call rel-L2 against one-process K1 "
+        f"{lead['b_rel']:.3e} (bound {MD_REL_BOUND:g}); ring alone {MD_RING_SHAPE}: rel-L2 vs attention_plain "
+        f"{lead['ring_rel']['plain']:.3e}, vs one-process K1 {lead['ring_rel']['k1']:.3e} (K1 vs plain "
+        f"{lead['ring_rel']['k1 vs plain']:.3e}; bound {K1_REL_BOUND:g}); planted fault (merge without the "
+        f"rescale) {lead['ring_rel']['fault']:.3e}; fp32 input: {lead['ring_fp32'][:90]}; requires grad: "
+        f"{lead['ring_grad'][:60]}")
+    log(f"[multi-device] (c) {MD_TILED_SIDE}^2 tiled over the tile axis: rel-L2 against one-process "
+        f"{lead['c_rel']:.3e} (bound {MD_REL_BOUND:g}), shape {lead['c_shape']}")
+    log(f"[multi-device] (d) {len(lead['tokens'])} greedy tokens sharded, equal to one-process: "
+        f"{all(rk['tokens'] == lead['tokens_one'] for rk in ranks)}")
+    failures = []
+    for r, rk in enumerate(ranks):
+        la = rk["launches"]
+        if (la["a sharded"]["K1"], la["a sharded"]["K2"]) != (want["K1"], want["K2"]):
+            failures.append(f"rank {r} (a) launches {la['a sharded']}, expected K1/K2 {want}")
+        sites = sum(rk["ring_sites"].values())
+        if not sites or la["b ring"]["K3"] != MD_RANKS * sites or la["ring alone"]["K3"] != MD_RANKS:
+            failures.append(f"rank {r} (b) K3 {la['b ring']['K3']} for {sites} ring sites, alone "
+                            f"{la['ring alone']['K3']}")
+        if not la["d sharded"]["K5"] or la["d sharded"]["K5"] != lead["launches"]["d one-process"]["K5"]:
+            failures.append(f"rank {r} (d) K5 {la['d sharded']['K5']}, one-process "
+                            f"{lead['launches']['d one-process']['K5']}")
+        if rk["tokens"] != lead["tokens_one"] or len(rk["tokens"]) < CAP_TOKENS - 1:
+            failures.append(f"rank {r} (d) tokens differ from the one-process tokens")
+        if not (rk["a_finite"] and rk["c_finite"]) or rk["c_shape"] != (1, MD_TILED_SIDE, MD_TILED_SIDE, 3):
+            failures.append(f"rank {r} outputs not finite or of the wrong shape")
+    if not lead["a_rel"] <= MD_REL_BOUND:
+        failures.append(f"(a) rel-L2 {lead['a_rel']}")
+    if not lead["b_rel"] <= MD_REL_BOUND or not lead["c_rel"] <= MD_REL_BOUND:
+        failures.append(f"(b) {lead['b_rel']}, (c) {lead['c_rel']} over {MD_REL_BOUND}")
+    rr = lead["ring_rel"]
+    if not (rr["plain"] <= K1_REL_BOUND and rr["k1"] <= K1_REL_BOUND and rr["fault"] > K1_REL_BOUND):
+        failures.append(f"ring alone {rr}")
+    if not (lead["ring_fp32"].startswith("TypeError") and lead["ring_grad"].startswith("RuntimeError")):
+        failures.append(f"ring refusals: {lead['ring_fp32']}, {lead['ring_grad']}")
+    if failures:
+        raise AssertionError("[multi-device] " + "; ".join(failures))
+    la = lead["launches"]
+    return {"K1": la["a sharded"]["K1"] + la["b ring"]["K1"], "K2": la["a sharded"]["K2"],
+            "K3": la["b ring"]["K3"], "K5": la["d sharded"]["K5"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4, help="RestoreEDM steps of the main path")
@@ -6145,6 +6534,8 @@ def main() -> int:
     launches.update({"K3": launches["K3"] + captrain["K3"], "K4": launches["K4"] + captrain["K4"],
                      "K2": launches["K2"] + ae_k2})
     log(f"[train] [captioner train], [ae train] and their references took {time.perf_counter() - t0:.1f} s")
+    multi = phase_multi_device(args.steps, smi)
+    launches.update({k: launches[k] + n for k, n in multi.items()})
 
     sources = {
         "K1": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:35"),

@@ -23,6 +23,12 @@ projection's weights are drawn and quantized at once, so a full bf16 13B
 copy never exists. Under `fused_pairs` the decode step is
 `llama.fused_pair_decode_step` (two K9 launches per layer); prefill keeps
 the block modules, as the JAX agent's does (agent.py:416-429).
+
+`CaptionerAgent.shard(mesh)` splits every tensor of the model (the
+quantized packs too) over the mesh's 'model' axis, one process per rank,
+each rank keeping its shard and gathering a tensor where it is read
+(parallel/sharding.py); every rank then decodes the same tokens.
+`create_default(mesh=)` shards the agent it builds.
 """
 
 from __future__ import annotations
@@ -145,7 +151,7 @@ class CaptionerAgent:
     @classmethod
     def create_default(cls, weights_dir: Optional[str] = None, cfg: Optional[CaptionerConfig] = None,
                        device="cuda", param_dtype: Optional[torch.dtype] = None, load_8bit: bool = False,
-                       load_4bit: bool = False, seed: int = 0) -> "CaptionerAgent":
+                       load_4bit: bool = False, seed: int = 0, mesh=None) -> "CaptionerAgent":
         """From an HF llava-v1.5 checkpoint directory (reference
         llava/model/builder.py:26-148, llava_agent.py:18-64): its
         config.json gives `cfg` unless one is passed, every model key must
@@ -156,7 +162,8 @@ class CaptionerAgent:
         Parameters and activations in `param_dtype` (bf16 with a bf16 KV
         cache by default on the card; on the CPU cfg's dtypes, fp32 unless
         it says otherwise). A missing directory or an incomplete checkpoint
-        raises CaptionerCheckpointError."""
+        raises CaptionerCheckpointError. With a `mesh`, the agent is
+        sharded over its 'model' axis (`shard`)."""
         from supir_tpu_torch.captioner.convert import CaptionerCheckpointError, load_captioner_checkpoint
 
         weights_dir = weights_dir or os.environ.get("LLAVA_MODEL_PATH")
@@ -183,8 +190,21 @@ class CaptionerAgent:
         elif param_dtype is not None:
             cfg = dataclasses.replace(cfg, compute_dtype={torch.float32: "float32"}[param_dtype])
         bits = 4 if load_4bit else (8 if load_8bit else None)
-        return create_captioner(cfg, device, bits=bits, seed=seed, state_dict=sd,
-                                tokenizer=cls.load_tokenizer(weights_dir))
+        agent = create_captioner(cfg, device, bits=bits, seed=seed, state_dict=sd,
+                                 tokenizer=cls.load_tokenizer(weights_dir))
+        if mesh is not None:
+            agent.shard(mesh)
+        return agent
+
+    def shard(self, mesh) -> "CaptionerAgent":
+        """Split the model's tensors over the mesh's 'model' axis (JAX
+        agent.py:261-272, the TPU form of the reference's second-GPU
+        placement, test.py:10-17). Every rank of the mesh calls it, then
+        runs the same generate calls."""
+        from supir_tpu_torch.parallel.sharding import shard_module
+
+        shard_module(self.model, mesh)
+        return self
 
     @staticmethod
     def load_tokenizer(path: str):

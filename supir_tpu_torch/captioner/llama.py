@@ -378,7 +378,9 @@ class LlamaForCausalLM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.model.embed_tokens.weight.device
+        # the stored tensor, not `embed_tokens.weight`: a sharded model
+        # (parallel/sharding.py) gathers that on every read
+        return next(self.parameters()).device
 
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
         return self.model.embed_tokens(ids).to(self.dtype)

@@ -5,7 +5,14 @@ of the JAX engine's table (RestoreEDM, the default; RestoreDPMPP2M,
 Lightning; EulerEDM, HeunEDM, EulerAncestral, DPMPP2SAncestral, DPMPP2M,
 LMS, Substep), RestoreEDM's cross-step feature cache, the tiled forms of
 RestoreEDM (with the cache too) and RestoreDPMPP2M over sliding-window
-latent tiles, the tiled VAE, decoding and colour fix.
+latent tiles, the tiled VAE, decoding and colour fix; and the multi-device
+inference of the JAX engine on torch.distributed, one process per rank:
+`shard_for_inference` (the engine's tensors split over a mesh's 'model'
+axis, parallel/sharding.py), `set_tiled_mesh` (the tiled VAE's tiles and
+the tiled sampler's windows over its 'tile' axis) and `set_sequence_mesh`
+(long self-attention sites on ring attention over a 'seq' axis). Every
+rank of a mesh calls the same methods with the same inputs and gets the
+whole result.
 
 Public methods keep the JAX engine's layout, so tests compare like with
 like: images [B, H, W, 3] in [-1, 1] and latents [B, h, w, 4], NHWC, fp32,
@@ -127,6 +134,9 @@ class SUPIREngine:
         self.denoiser = DiscreteDenoiser(num_idx=cfg.num_idx)
         self._cond_cache: Dict[str, Tuple[dict, dict]] = {}
         self._tile_vae: Optional[Tuple[int, int, Optional[Tuple[int, int]], bool]] = None
+        self._tiled_mesh = None
+        self._seq_mesh = None
+        self._seq_axis = "seq"
 
     @property
     def vae(self) -> AutoencoderKL:
@@ -152,8 +162,47 @@ class SUPIREngine:
         (encode, decode) tiles per call, None for all tiles in one call.
         Chunked, the GroupNorm statistics are exact (pooled over every tile
         of the image, the staged executor) unless `fast_mode` pools them
-        per chunk (the reference's fast mode)."""
+        per chunk (the reference's fast mode). Under a tile mesh
+        (`set_tiled_mesh`) the chunk is ignored, as in JAX (:176-180): each
+        rank runs its share of the tiles at once."""
         self._tile_vae = (encoder_tile_size, decoder_tile_size, chunk, fast_mode)
+
+    # ------------------------------------------------------------ devices
+
+    def shard_for_inference(self, mesh) -> "SUPIREngine":
+        """Split the model's tensors (text towers included) over the mesh's
+        'model' axis, each rank keeping its shard and gathering a tensor
+        where it is read (parallel/sharding.py:shard_module; JAX :376-387).
+        Shard after loading the weights: a sharded model loads no state
+        dict. A mesh with a 'tile' axis also becomes the tiled mesh."""
+        from supir_tpu_torch.parallel.sharding import shard_module
+
+        shard_module(self.model, mesh)
+        self.set_tiled_mesh(mesh if "tile" in (mesh.mesh_dim_names or ()) else None)
+        return self
+
+    def set_tiled_mesh(self, mesh) -> None:
+        """A mesh whose 'tile' axis splits the tiled VAE's tiles and the
+        tiled sampler's windows; None for one card."""
+        self._tiled_mesh = mesh
+
+    def set_sequence_mesh(self, mesh, axis: str = "seq") -> "SUPIREngine":
+        """Long-context mode (JAX :468-476): while the engine samples,
+        self-attention sites of at least SUPIR_RING_MIN_SEQ (8192) tokens
+        with no bias, not causal, run ring attention over `axis` of `mesh`.
+        None disables."""
+        self._seq_mesh = mesh
+        self._seq_axis = axis
+        return self
+
+    def _seq_ctx(self):
+        import contextlib
+
+        from supir_tpu_torch.ops.attention import sequence_sharding
+
+        if self._seq_mesh is None:
+            return contextlib.nullcontext()
+        return sequence_sharding(self._seq_mesh, self._seq_axis)
 
     def _moments(self, x: torch.Tensor, use_denoise_encoder: bool = False) -> torch.Tensor:
         """Image [B,3,H,W] -> posterior moments, tiled if init_tile_vae was called."""
@@ -162,14 +211,14 @@ class SUPIREngine:
         tile, _, chunk, fast_mode = self._tile_vae
         encoder = self.vae.denoise_encoder if use_denoise_encoder else self.vae.encoder
         return tiled_encode(encoder, self.vae.quant_conv, x, tile, ENCODER_PAD,
-                            chunk[0] if chunk else None, fast_mode)
+                            chunk[0] if chunk else None, fast_mode, self._tiled_mesh)
 
     def _decode(self, z: torch.Tensor) -> torch.Tensor:
         if self._tile_vae is None:
             return self.vae.decode(z)
         _, tile, chunk, fast_mode = self._tile_vae
         return tiled_decode(self.vae.decoder, self.vae.post_quant_conv, z, tile, DECODER_PAD,
-                            chunk[1] if chunk else None, fast_mode)
+                            chunk[1] if chunk else None, fast_mode, self._tiled_mesh)
 
     @torch.no_grad()
     def encode_first_stage_with_denoise(self, x) -> torch.Tensor:
@@ -438,15 +487,16 @@ class SUPIREngine:
             return cfg_combine(d_uc, d_c, cfg_b), cache
 
         kwargs = sampler_kwargs(name, self.cfg.sampler.eta, s_noise)
-        if feature_cache_interval:
-            recompute = np.arange(num_steps) % int(feature_cache_interval) == 0
-            samples_z = S.restore_edm_sample_cached(denoise_cached, recompute, noised_z, gen, tables,
-                                                    x_center=x_center, **kwargs)
-        else:
-            if edm:
-                kwargs["x_center"] = x_center
-            rng = seed if name.endswith("DPMPP2M") else gen
-            samples_z = SAMPLERS[name](denoise, noised_z, rng, tables, **kwargs)
+        with self._seq_ctx():
+            if feature_cache_interval:
+                recompute = np.arange(num_steps) % int(feature_cache_interval) == 0
+                samples_z = S.restore_edm_sample_cached(denoise_cached, recompute, noised_z, gen, tables,
+                                                        x_center=x_center, **kwargs)
+            else:
+                if edm:
+                    kwargs["x_center"] = x_center
+                rng = seed if name.endswith("DPMPP2M") else gen
+                samples_z = SAMPLERS[name](denoise, noised_z, rng, tables, **kwargs)
         return self._finish(samples_z, x_stage1, color_fix_type)
 
     @torch.no_grad()
@@ -480,9 +530,10 @@ class SUPIREngine:
         (reference TiledRestoreEDMSampler / TiledRestoreDPMPP2MSampler,
         sampling.py:600-730): the latent is sampled in `tile_size` windows
         at `tile_stride`, all windows folded into one network batch per step,
-        or `tile_chunk` windows a call. With local prompts, `c` carries
-        'crossattn_tiles' [T, 1, 77, D] (`prepare_condition_tiled`), one per
-        window. The sampler is the config's where it is a tiled one, else
+        or `tile_chunk` windows a call, or each rank its share of the
+        windows under a tile mesh (`set_tiled_mesh`). With local prompts,
+        `c` carries 'crossattn_tiles' [T, 1, 77, D]
+        (`prepare_condition_tiled`), one per window. The sampler is the config's where it is a tiled one, else
         TiledRestoreEDM.
 
         `feature_cache_interval` (TiledRestoreEDM only): 0 disables; N >= 1
@@ -537,16 +588,18 @@ class SUPIREngine:
         ca_tiles = self._tensor(c["crossattn_tiles"]) if "crossattn_tiles" in c else None
         tiles = dict(control_tiles=control_tiles, tile_size=tile_size, tile_stride=tile_stride,
                      crossattn_tiles=ca_tiles)
-        if feature_cache_interval:
-            recompute = np.arange(num_steps) % int(feature_cache_interval) == 0
-            samples_z = tiled_restore_edm_sample_cached(
-                make_tiled_denoise_cached(denoise_flat_cached, tile_chunk=tile_chunk), recompute, noised_z, gen,
-                tables, x_center=x_center, s_noise=s_noise, **tiles)
-        elif edm:
-            samples_z = tiled_restore_edm_sample(make_tiled_denoise(denoise_flat, tile_chunk=tile_chunk), noised_z,
-                                                 gen, tables, x_center=x_center, s_noise=s_noise, **tiles)
-        else:
-            samples_z = tiled_restore_dpmpp2m_sample(make_tiled_denoise(denoise_flat, tile_chunk=tile_chunk),
-                                                     noised_z, seed, tables, eta=cfg.sampler.eta, s_noise=s_noise,
-                                                     **tiles)
+        lift = dict(tile_chunk=tile_chunk, mesh=self._tiled_mesh)
+        with self._seq_ctx():
+            if feature_cache_interval:
+                recompute = np.arange(num_steps) % int(feature_cache_interval) == 0
+                samples_z = tiled_restore_edm_sample_cached(
+                    make_tiled_denoise_cached(denoise_flat_cached, **lift), recompute, noised_z, gen,
+                    tables, x_center=x_center, s_noise=s_noise, **tiles)
+            elif edm:
+                samples_z = tiled_restore_edm_sample(make_tiled_denoise(denoise_flat, **lift), noised_z,
+                                                     gen, tables, x_center=x_center, s_noise=s_noise, **tiles)
+            else:
+                samples_z = tiled_restore_dpmpp2m_sample(make_tiled_denoise(denoise_flat, **lift),
+                                                         noised_z, seed, tables, eta=cfg.sampler.eta,
+                                                         s_noise=s_noise, **tiles)
         return self._finish(samples_z, x_stage1, color_fix_type)

@@ -24,9 +24,17 @@ site, where nothing is differentiated, goes to K1 (`flash_attention`).
 takes it into the kernel (K3 ALiBi through `flash_attention`, or
 `FlashAttention` under grad); every other site takes the plain route,
 which adds the materialised [1, H, 1, T] bias to the logits.
+
+Inside `sequence_sharding(mesh, axis)` (JAX :29-60, :95-99) a site goes
+to `parallel.ring_attention` before any other route when it is
+self-attention (as many keys as queries) with no bias and no ALiBi, not
+causal, and S is at least `min_seq` and divides by the axis's size.
 """
 
 from __future__ import annotations
+
+import contextlib
+import os
 
 import torch
 
@@ -34,6 +42,38 @@ from supir_tpu_torch.ops.flash_attention import HEAD_DIMS, FlashAttention, atten
 from supir_tpu_torch.ops.grad_guard import needs_grad
 
 FLASH_MIN_SEQ = 1024
+
+# the active sequence-sharding context: (mesh, axis, min_seq), or None
+_SEQ_SHARD: list = [None]
+
+
+@contextlib.contextmanager
+def sequence_sharding(mesh, axis: str = "seq", min_seq: int | None = None):
+    """Route eligible attention sites through the ring while active.
+    min_seq defaults to SUPIR_RING_MIN_SEQ or 8192: below it one card's
+    flash kernel holds the sequence, and the ring's exchanges do not pay."""
+    if min_seq is None:
+        min_seq = int(os.environ.get("SUPIR_RING_MIN_SEQ", "8192"))
+    prev = _SEQ_SHARD[0]
+    _SEQ_SHARD[0] = (mesh, axis, min_seq)
+    try:
+        yield
+    finally:
+        _SEQ_SHARD[0] = prev
+
+
+def _ring_eligible(q, k, bias, causal):
+    """(mesh, axis) where the active context takes this site, else None."""
+    from supir_tpu_torch.parallel.mesh import axis_size
+
+    ctx = _SEQ_SHARD[0]
+    if ctx is None or bias is not None or causal:
+        return None
+    mesh, axis, min_seq = ctx
+    s = q.shape[1]
+    if s != k.shape[1] or s < min_seq or s % axis_size(mesh, axis):
+        return None
+    return mesh, axis
 
 
 def flash_eligible(s: int, t: int, d: int) -> bool:
@@ -45,6 +85,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
     """[B, S, H, D] x [B, T, H, D] -> [B, S, H, D]. `causal` aligns the last
     query with the last key (attention_plain); `bias` is added to the logits,
     and so is the ALiBi column bias of `alibi_slopes`."""
+    ring = _ring_eligible(q, k, bias, causal) if alibi_slopes is None else None
+    if ring is not None:
+        from supir_tpu_torch.parallel.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, ring[0], axis=ring[1])
     s, t = q.shape[1], k.shape[1]
     if bias is None and flash_eligible(s, t, q.shape[-1]) and (not causal or s == t):
         if needs_grad(q, k, v):

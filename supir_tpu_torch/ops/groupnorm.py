@@ -43,6 +43,7 @@ import functools
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from supir_tpu_torch.ops.grad_guard import refuse_grad
@@ -102,10 +103,14 @@ class TilePooled:
     """Statistics pooled over the `tiles` tiles of each image of a
     tile-major batch [T*B, C, ...] (the JAX package's `pmean` over the
     vmapped tile axis), each tile's moments scaled by `weight` [T] (mean 1
-    over the tiles; zero for a padded duplicate) where given."""
+    over the tiles; zero for a padded duplicate) where given. With a
+    process `group` (the tile axis of a mesh, each rank holding `tiles` of
+    the image's tiles) the means are averaged over the group's ranks too,
+    by an all-reduce: JAX's `pmean` over ("tile_local", "tile")."""
 
     tiles: int
     weight: torch.Tensor | None = None
+    group: object = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +164,11 @@ def group_norm_pooled(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             w = norm.weight.float().view(-1, 1, 1)
             mean, mean2 = mean * w, mean2 * w
         mean, mean2 = mean.mean(0), mean2.mean(0)
+        if norm.group is not None:
+            from supir_tpu_torch.parallel.mesh import all_reduce_
+
+            both = all_reduce_(torch.stack([mean, mean2]), norm.group) / dist.get_world_size(norm.group)
+            mean, mean2 = both[0], both[1]
     else:
         raise TypeError(f"norm must be TilePooled or GivenStats, not {type(norm).__name__}")
     reps = n // mean.shape[0]

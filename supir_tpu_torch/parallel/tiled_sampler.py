@@ -1,5 +1,5 @@
 """Tiled diffusion sampling (counterpart of supir_tpu/parallel/tiled_sampler.py,
-without its mesh and its step segments), NCHW.
+without its step segments), NCHW, on one card or over a tile mesh.
 
 At every step each sliding-window latent tile is denoised with its own
 slice of the control latent (and, with local prompts, its own text
@@ -7,14 +7,17 @@ conditioning), then the tiles are blended back with Gaussian weights
 (reference TiledRestoreEDMSampler and TiledRestoreDPMPP2MSampler,
 sampling.py:600-730). The reference denoises one tile after another; here
 all tiles go through the network as one batch (tile axis folded into the
-batch: with CFG's two halves, 2*T*B), or `tile_chunk` tiles at a time. The
+batch: with CFG's two halves, 2*T*B), or `tile_chunk` tiles at a time, or,
+over a mesh with a 'tile' axis of n > 1 ranks (JAX's `shard_map`), each
+rank its T/n windows as one batch, the tile axis padded to a multiple of n,
+the results all-gathered (`tile_chunk` is ignored there, as in JAX). The
 blend accumulates in fp32 on the latent's device and is divided by the
 weight sum, which does not depend on the step and is computed once.
 
 The cross-step feature cache (`tiled_restore_edm_sample_cached`) keeps,
 for every window, the control pyramid and the UNet's encoder features of
 the last recompute step: one cache over all windows folded, or one per
-group of `tile_chunk` windows.
+group of `tile_chunk` windows, or one per rank for its own windows.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from supir_tpu_torch.diffusion import samplers as S
 from supir_tpu_torch.diffusion.samplers import StepTables
+from supir_tpu_torch.parallel.mesh import all_gather, axis_group, axis_size
 from supir_tpu_torch.utils.tiling import gaussian_weights, sliding_windows
 
 
@@ -179,7 +183,7 @@ def tiled_restore_edm_sample_cached(
         s_noise=s_noise, crossattn_tiles=crossattn_tiles)
 
 
-def make_tiled_denoise_cached(denoise_flat_cached: Callable, tile_chunk: Optional[int] = None) -> Callable:
+def make_tiled_denoise_cached(denoise_flat_cached: Callable, tile_chunk: Optional[int] = None, mesh=None) -> Callable:
     """Lift a batch denoiser that threads the feature cache onto the tile axis.
 
     denoise_flat_cached(x [B',C,h,w], sigma [B'], cfg [B'], control_scale,
@@ -191,7 +195,11 @@ def make_tiled_denoise_cached(denoise_flat_cached: Callable, tile_chunk: Optiona
     that), `tile_chunk` tiles a call, the last call padded with copies of
     the last tiles, and a list of one cache per call, each over its padded
     batch as the JAX package's chunk-major cache (`engine/supir.py:
-    _tiled_feature_cache_zeros`). The padded rows never reach the result."""
+    _tiled_feature_cache_zeros`). The padded rows never reach the result.
+    Over a `mesh` with a 'tile' axis of n > 1 ranks, each rank folds its
+    share of the windows (padded to a multiple of n with the last windows)
+    into one call with its own cache, and the outputs are all-gathered;
+    `tile_chunk` is ignored there."""
 
     def folded(x_tiles, sigma, cfg, ctrl_s, control_tiles, crossattn_tiles, cache, rec):
         t, b = x_tiles.shape[:2]
@@ -222,10 +230,26 @@ def make_tiled_denoise_cached(denoise_flat_cached: Callable, tile_chunk: Optiona
             new.append(c)
         return torch.cat(out)[:t], new
 
+    def sharded(x_tiles, sigma, cfg, ctrl_s, control_tiles, crossattn_tiles, cache, rec):
+        group, n, rank = axis_group(mesh, "tile")
+        t = x_tiles.shape[0]
+        pad = (-t) % n
+        local = (t + pad) // n
+        mine = slice(rank * local, (rank + 1) * local)
+
+        def share(a):
+            return None if a is None else (torch.cat([a, a[-pad:]]) if pad else a)[mine]
+
+        out, cache = folded(share(x_tiles), sigma, cfg, ctrl_s, share(control_tiles), share(crossattn_tiles), cache,
+                            rec)
+        return all_gather(out, group)[:t], cache
+
+    if axis_size(mesh, "tile") > 1:
+        return sharded
     return chunked if tile_chunk else folded
 
 
-def make_tiled_denoise(denoise_flat: Callable, tile_chunk: Optional[int] = None) -> Callable:
+def make_tiled_denoise(denoise_flat: Callable, tile_chunk: Optional[int] = None, mesh=None) -> Callable:
     """Lift a batch denoiser onto the tile axis.
 
     denoise_flat(x [B',C,h,w], sigma [B'], cfg [B'], control_scale,
@@ -233,7 +257,7 @@ def make_tiled_denoise(denoise_flat: Callable, tile_chunk: Optional[int] = None)
 
     The tile axis folds into the batch (tile-major, T*B), one network call
     for all tiles; with `tile_chunk`, `tile_chunk` tiles a call, the last
-    call padded with copies of the last tiles (`make_tiled_denoise_cached`
-    without a cache)."""
-    lifted = make_tiled_denoise_cached(lambda *args: (denoise_flat(*args[:6]), None), tile_chunk)
+    call padded with copies of the last tiles; over a tile `mesh`, each
+    rank its share (`make_tiled_denoise_cached` without a cache)."""
+    lifted = make_tiled_denoise_cached(lambda *args: (denoise_flat(*args[:6]), None), tile_chunk, mesh)
     return lambda *args: lifted(*args, None, True)[0]

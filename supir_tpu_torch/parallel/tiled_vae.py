@@ -1,5 +1,5 @@
 """Tiled VAE encode and decode (counterpart of
-supir_tpu/parallel/tiled_vae.py, without its mesh), NCHW.
+supir_tpu/parallel/tiled_vae.py), NCHW, on one card or over a tile mesh.
 
 The reference's "Ultimate VAE Tile Optimization" (`SUPIR/utils/tilevae.py:
 677-971`) runs each tile through the VAE as a task queue that stops at
@@ -15,6 +15,12 @@ every GroupNorm until the statistics of all tiles are pooled. Here:
     on one card), the default is the staged-exact executor below, which
     gives the unchunked result; `fast_mode` pools over each chunk only
     (the reference's fast mode, tilevae.py:855-876);
+  - over a mesh with a 'tile' axis of n > 1 ranks (JAX's `shard_map`,
+    :74-129), the tile axis is padded to a multiple of n with copies of the
+    last tile, each rank runs its T/n tiles unchunked, the GroupNorm
+    moments are all-reduced over the tile group with the padded copies at
+    weight 0 (so the statistics stay exact where n does not divide T), and
+    the outputs are all-gathered; every rank gets the whole result;
   - the merge crops each tile's halo and lays the tiles out on the grid.
 
 Everything runs under torch.no_grad. The pooled GroupNorm sites run plain
@@ -31,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from supir_tpu_torch.ops.groupnorm import GivenStats, TilePooled, group_moments
+from supir_tpu_torch.parallel.mesh import all_gather, axis_group, axis_size
 
 GROUPS = 32
 ENCODER_PAD = 32  # image px of halo around each encoder tile
@@ -80,12 +87,23 @@ def _unflat(u: torch.Tensor, chunk: int) -> torch.Tensor:
     return u.reshape((chunk, u.shape[0] // chunk) + u.shape[1:])
 
 
-def _run_tiles(module: nn.Module, tiles: torch.Tensor, chunk: Optional[int] = None) -> torch.Tensor:
+def _run_tiles(module: nn.Module, tiles: torch.Tensor, chunk: Optional[int] = None, mesh=None) -> torch.Tensor:
     """`module` (an encoder or decoder taking `norm`) over the tile axis.
     Unchunked: one call on all tiles, statistics pooled over all of them.
     Chunked (fast mode): one call per group of `chunk` tiles, the tile axis
     padded with copies of the last tile, statistics pooled within each
-    group."""
+    group. Over a tile mesh: each rank its share of the padded tiles, the
+    statistics pooled over all real tiles; `chunk` is ignored."""
+    n = axis_size(mesh, "tile")
+    if n > 1:
+        group, _, rank = axis_group(mesh, "tile")
+        tiles_p, t_orig = _pad_tile_axis(tiles, n)
+        t_pad = tiles_p.shape[0]
+        local = t_pad // n
+        weight = (torch.arange(t_pad, device=tiles.device) < t_orig).float() * (t_pad / t_orig)
+        mine = slice(rank * local, (rank + 1) * local)
+        out = _unflat(module(_flat(tiles_p[mine]), TilePooled(local, weight[mine], group)), local)
+        return all_gather(out, group)[:t_orig]
     t = tiles.shape[0]
     if chunk is not None and t > chunk:
         tiles_p, t_orig = _pad_tile_axis(tiles, chunk)
@@ -219,25 +237,28 @@ def _staged_decode_exact(decoder: nn.Module, tiles: torch.Tensor, chunk: int) ->
 
 
 def _tiles_through(module: nn.Module, staged: Callable, tiles: torch.Tensor, chunk: Optional[int],
-                   fast_mode: bool) -> torch.Tensor:
-    if chunk is not None and tiles.shape[0] > chunk and not fast_mode:
+                   fast_mode: bool, mesh) -> torch.Tensor:
+    if axis_size(mesh, "tile") == 1 and chunk is not None and tiles.shape[0] > chunk and not fast_mode:
         return staged(module, tiles, chunk)
-    return _run_tiles(module, tiles, chunk)
+    return _run_tiles(module, tiles, chunk, mesh)
 
 
 @torch.no_grad()
 def tiled_encode(encoder: nn.Module, quant_conv: nn.Module, x: torch.Tensor, tile_size: int = 512,
-                 pad: int = ENCODER_PAD, chunk: Optional[int] = None, fast_mode: bool = False) -> torch.Tensor:
+                 pad: int = ENCODER_PAD, chunk: Optional[int] = None, fast_mode: bool = False,
+                 mesh=None) -> torch.Tensor:
     """Tiled VAE encode: image [B, 3, H, W] -> moments [B, 2z, H/f, W/f].
     tile_size and pad are image px, multiples of the downscale factor f.
     `chunk` bounds the tiles of one call; chunked, the statistics are exact
-    (staged) unless `fast_mode` pools them per chunk."""
+    (staged) unless `fast_mode` pools them per chunk. Over a `mesh` with a
+    'tile' axis the tiles split over its ranks (every rank of the axis
+    calls it with the same x) and `chunk` is ignored."""
     f = 2 ** (len(encoder.down) - 1)
     if tile_size % f or pad % f:
         raise ValueError(f"encoder tile_size {tile_size} and pad {pad} must be multiples of {f}")
     b, _, h, w = x.shape
     tiles, grid, (hp, wp) = split_uniform_tiles(x, tile_size, pad)
-    z_tiles = _tiles_through(encoder, _staged_encode_exact, tiles, chunk, fast_mode)
+    z_tiles = _tiles_through(encoder, _staged_encode_exact, tiles, chunk, fast_mode, mesh)
     moments = merge_valid_tiles(z_tiles, grid, (hp // f, wp // f), pad // f)[:, :, :h // f, :w // f]
     # the 1x1 quant conv commutes with tiling: applied to the merged map
     return quant_conv(moments)
@@ -245,13 +266,14 @@ def tiled_encode(encoder: nn.Module, quant_conv: nn.Module, x: torch.Tensor, til
 
 @torch.no_grad()
 def tiled_decode(decoder: nn.Module, post_quant_conv: nn.Module, z: torch.Tensor, tile_size: int = 64,
-                 pad: int = DECODER_PAD, chunk: Optional[int] = None, fast_mode: bool = False) -> torch.Tensor:
+                 pad: int = DECODER_PAD, chunk: Optional[int] = None, fast_mode: bool = False,
+                 mesh=None) -> torch.Tensor:
     """Tiled VAE decode: latent [B, z, h, w] -> image [B, 3, h*f, w*f].
-    tile_size and pad are latent px; `chunk` and `fast_mode` as in
+    tile_size and pad are latent px; `chunk`, `fast_mode` and `mesh` as in
     tiled_encode."""
     f = 2 ** (len(decoder.up) - 1)
     _, _, h, w = z.shape
     z = post_quant_conv(z.to(post_quant_conv.weight.dtype))
     tiles, grid, (hp, wp) = split_uniform_tiles(z, tile_size, pad)
-    img_tiles = _tiles_through(decoder, _staged_decode_exact, tiles, chunk, fast_mode)
+    img_tiles = _tiles_through(decoder, _staged_decode_exact, tiles, chunk, fast_mode, mesh)
     return merge_valid_tiles(img_tiles, grid, (hp * f, wp * f), pad * f)[:, :, :h * f, :w * f]
