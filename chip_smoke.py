@@ -657,14 +657,15 @@ def phase_build():
     for source, rows in ((k1._FWD_SOURCE, fwd), (k1._BWD_SOURCE, bwd)):
         if reports[source] and len(rows) != 8:  # no report: the library was built earlier
             raise AssertionError(f"expected 8 instantiations in the ptxas report of {source}, found {len(rows)}")
-    # K1 fp32's fourteen (D 64/128 x the kernel and its six planted
-    # faults), which may not spill
+    # K1 fp32's and K3 fp32's sixteen (D 64/128 x the kernel and its seven
+    # planted faults; the lse is a runtime pointer), which may not spill
     fp32 = _fp32_instances(reports[k1._FP32_SOURCE])
     for d, fault, regs, stores, loads in sorted(fp32):
-        log(f"[build] flash_fwd_fp32_kernel<D={d}, fault={fault}> (K1 fp32{' planted fault' if fault else ''}): "
-            f"{regs} registers, spill stores {stores} B, spill loads {loads} B")
-    if reports[k1._FP32_SOURCE] and (len(fp32) != 14 or any(st or ld for *_, st, ld in fp32)):
-        raise AssertionError(f"K1 fp32's instances: expected 14 without spills, found {fp32}")
+        log(f"[build] flash_fwd_fp32_kernel<D={d}, fault={fault}> (K1 fp32 and K3 fp32"
+            f"{' planted fault' if fault else ''}): {regs} registers, spill stores {stores} B, spill loads {loads} B")
+    if reports[k1._FP32_SOURCE] and (len(fp32) != 16 or any(st or ld for *_, st, ld in fp32)):
+        raise AssertionError(f"K1 fp32's instances: expected 16 without spills, found {fp32}")
+    log(f"[build] K4 fp32 ({k1._BWD_FP32_SOURCE}): {_ptxas_summary(reports[k1._BWD_FP32_SOURCE])}")
     # the tensor-core GEMV's seventeen instances (K5/K6 paired, K7 half-split
     # int4, K7 int8, K11 native: 1, 2 or 4 n-tiles of 8 rows; K10/K5
     # act_int8 W4A8: 1 or 2, 16 rows a launch; K9's pair kernel: 1, 2 or 4):
@@ -702,12 +703,12 @@ def _graph_vs(kernel, library, bound_ms: float, calls: int = 10) -> str:
     return f"graph replay {ms:.4f} ms vs SDPA {lib_ms:.4f} ms: {_vs(ms, bound_ms, lib_ms)}"
 
 
-def _k4_graph_vs(kernel, qkv, grad, bound_ms: float, calls: int = 10, **sdpa) -> str:
-    """K4 and SDPA's backward timed by CUDA-graph replay, with _vs. Autograd
-    runs a backward op on the stream of its forward, so SDPA's backward is
-    captured together with its forward, on fresh leaves made from `qkv`
-    ([B,H,N,D] views) inside the capture: its graph time is that of forward
-    and backward less that of the forward alone."""
+def _sdpa_backward_graph_ms(qkv, grad, calls: int = 10, **sdpa) -> float:
+    """SDPA's backward by CUDA-graph replay. Autograd runs a backward op on
+    the stream of its forward, so the backward is captured together with
+    its forward, on fresh leaves made from `qkv` ([B,H,N,D] views) inside
+    the capture: its graph time is that of forward and backward less that
+    of the forward alone."""
     import torch
     import torch.nn.functional as F
 
@@ -719,8 +720,14 @@ def _k4_graph_vs(kernel, qkv, grad, bound_ms: float, calls: int = 10, **sdpa) ->
         leaves, out = forward()
         return torch.autograd.grad(out, leaves, grad)
 
+    return graph_ms([forward_backward] * calls) - graph_ms([forward] * calls)
+
+
+def _k4_graph_vs(kernel, qkv, grad, bound_ms: float, calls: int = 10, **sdpa) -> str:
+    """K4 and SDPA's backward (`_sdpa_backward_graph_ms`) timed by
+    CUDA-graph replay, with _vs."""
     ms = graph_ms([kernel] * calls)
-    lib_ms = graph_ms([forward_backward] * calls) - graph_ms([forward] * calls)
+    lib_ms = _sdpa_backward_graph_ms(qkv, grad, calls, **sdpa)
     return f"graph replay {ms:.4f} ms vs SDPA backward {lib_ms:.4f} ms: {_vs(ms, bound_ms, lib_ms)}"
 
 
@@ -3708,6 +3715,126 @@ def phase_flash_train_kernels():
     return {name: dict(r[0], max_abs_err=max(x["max_abs_err"] for x in r)) for name, r in rows.items()}
 
 
+# K3 fp32 and K4 fp32: [1,4096,10,64] (the K3/K4 rows' shape), the fp32
+# ring's block [2,8192,10,64] ((b) of [multi-device]; K3 fp32 only), the
+# AE trainer's 1024-token D 128 site at 256^2 ([ae train reference]) and a
+# causal ragged case for the diagonal: (b, s, h, d, causal, K4 too)
+FLASH_FP32_TRAIN_SHAPES = ((1, 4096, 10, 64, False, True), (2, 8192, 10, 64, False, False),
+                           (2, 1024, 1, 128, False, True), (1, 1000, 2, 128, True, True))
+K3_FP32_LSE_BOUND = 1e-3  # K3 fp32's lse against the fp32 plain version, max abs
+K4_FP32_REL_BOUND = 2e-5  # K4 fp32's dQ, dK, dV, each relative L2 (twice K1 fp32's, as K4's is twice K1's)
+
+
+def phase_flash_train_fp32_kernels():
+    """[kernels] K3 fp32 and K4 fp32 against their fp32 plain versions (O
+    at K1_FP32_REL_BOUND and the lse at K3_FP32_LSE_BOUND; dQ, dK and dV at
+    K4_FP32_REL_BOUND each, which a bf16 K4 on the same values misses), read
+    against fp64 too, two K4 fp32 runs bit-identical, each planted fault
+    over its bound; timed by CUDA events and by CUDA-graph replay beside
+    SDPA fp32 (forward; backward as forward+backward less forward) and the
+    plain version; bounds: 3xTF32 products at 495 TFLOP/s (K3 two products,
+    K4 five, as K4's bound counts) and the CUDA cores' 67 TFLOP/s beside.
+    Returns the JSON numbers of each (times at the first shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from supir_tpu_torch.ops import flash_attention as FA
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2626)
+    rows = {"K3-fp32": [], "K4-fp32": []}
+    for b, s, h, d, causal, with_bwd in FLASH_FP32_TRAIN_SHAPES:
+        tag = f"[{b},{s},{h},{d}]{' causal' if causal else ''}"
+        q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev) for _ in range(4))
+        out, lse = FA.flash_attention_fwd_lse(q, k, v, causal)
+        want_out, want_lse = FA.attention_fwd_lse_plain(q, k, v, causal)
+        rel, lse_err = rel_l2(out, want_out), (lse - want_lse).abs().max().item()
+        o64, lse64 = FA.attention_fwd_lse_plain(*(x.double() for x in (q, k, v)), causal)
+        rel64, lse64_err = rel_l2(out, o64), (lse.double() - lse64).abs().max().item()
+        del o64, lse64
+        _check_rel(f"K3 fp32 {tag}", rel, K1_FP32_REL_BOUND)
+        if not lse_err <= K3_FP32_LSE_BOUND:
+            raise AssertionError(f"K3 fp32 {tag}: lse max_abs_err {lse_err} over {K3_FP32_LSE_BOUND}")
+        _check_fault(f"K3 fp32 the accumulator not rescaled {tag}",
+                     rel_l2(FA._forward_fp32_lse(q, k, v, causal, FA.FP32_FAULT_NO_RESCALE)[0], want_out),
+                     K1_FP32_REL_BOUND)
+        _check_fault(f"K3 fp32 lse in log2 units {tag}: lse max_abs_err",
+                     (FA._forward_fp32_lse(q, k, v, causal, FA.FP32_FAULT_LSE_LOG2)[1] - want_lse).abs().max().item(),
+                     K3_FP32_LSE_BOUND)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def k3():
+            return FA.flash_attention_fwd_lse(q, k, v, causal)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+        k3_ms = cuda_ms(k3, 10)
+        k3_plain = cuda_ms(lambda: FA.attention_fwd_lse_plain(q, k, v, causal), 2)
+        k3_lib = cuda_ms(sdpa, 10)
+        k3_graph, k3_lib_graph = graph_ms([k3] * 5), graph_ms([sdpa] * 5)
+        k3_bound, k3_by = bound(nbytes(q, k, v, out, lse), 3 * _flash_flops(b, s, h, d, causal, 2), TF32_FLOP_PER_S)
+        k3_core, _ = bound(nbytes(q, k, v, out, lse), _flash_flops(b, s, h, d, causal, 2), FP32_FLOP_PER_S)
+        log(f"[kernels] K3 fp32 {tag} vs fp32 plain: out rel_l2 {rel:.3e} (bound {K1_FP32_REL_BOUND:g}; vs fp64 "
+            f"{rel64:.3e}), lse max_abs_err {lse_err:.3e} (bound {K3_FP32_LSE_BOUND:g}; vs fp64 {lse64_err:.3e}); "
+            f"events {k3_ms:.4f} ms vs plain {k3_plain:.3f} ms, SDPA fp32 forward {k3_lib:.4f} ms; graph "
+            f"{k3_graph:.4f} ms vs SDPA fp32 {k3_lib_graph:.4f} ms ({k3_graph / k3_lib_graph:.2f}x); bound "
+            f"{k3_bound:.4f} ms ({k3_by}, 3xTF32 at 495 TFLOP/s): {k3_bound / k3_graph:.1%}; CUDA-core bound "
+            f"{k3_core:.4f} ms: {k3_core / k3_graph:.1%}")
+        rows["K3-fp32"].append(dict(max_abs_err=(out - want_out).abs().max().item(), ms=k3_graph, event_ms=k3_ms,
+                                    plain_ms=k3_plain, library_ms=k3_lib_graph, bound_ms=k3_bound, bound_by=k3_by))
+        del want_out, want_lse
+        if with_bwd:
+            grads = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+            again = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+            want = FA.attention_bwd_plain(q, k, v, out, lse, dout, causal)
+            rels = _k4_rels(grads, want)
+            w64 = FA.attention_bwd_plain(*(x.double() for x in (q, k, v, out)), lse, dout.double(), causal)
+            rels64 = _k4_rels(grads, w64)
+            del w64
+            cast = max(_k4_rels(FA.flash_attention_bwd(*(x.bfloat16() for x in (q, k, v, out)), lse,
+                                                       dout.bfloat16(), causal), want))
+            same = all(torch.equal(a, a2) for a, a2 in zip(grads, again))
+            _check_rel(f"K4 fp32 {tag}", max(rels), K4_FP32_REL_BOUND)
+            if not same:
+                raise AssertionError(f"K4 fp32 {tag}: two runs differ")
+            if not cast > K4_FP32_REL_BOUND:
+                raise AssertionError(f"the K4 fp32 bound does not tell the bf16 K4 from it: {cast}")
+            faults = [(FA.BWD_FP32_FAULT_NO_DELTA, "delta dropped"), (FA.BWD_FP32_FAULT_DK_SCALE, "dK without scale"),
+                      (FA.BWD_FP32_FAULT_LSE_LOG2, "P read with the lse in log2 units")]
+            if causal:
+                faults.append((FA.BWD_FP32_FAULT_DIAGONAL, "the causal diagonal not masked"))
+            for fault, name in faults:
+                _check_fault(f"K4 fp32 {name} {tag}",
+                             max(_k4_rels(FA._backward_fp32(q, k, v, out, lse, dout, causal, fault), want)),
+                             K4_FP32_REL_BOUND)
+
+            def k4():
+                return FA.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+
+            k4_ms = cuda_ms(k4, 5)
+            k4_plain = cuda_ms(lambda: FA.attention_bwd_plain(q, k, v, out, lse, dout, causal), 2)
+            k4_bound, k4_by = bound(nbytes(q, k, v, out, dout, lse, *grads), 3 * _flash_flops(b, s, h, d, causal, 5),
+                                    TF32_FLOP_PER_S)
+            k4_core, _ = bound(nbytes(q, k, v, out, dout, lse, *grads), _flash_flops(b, s, h, d, causal, 5),
+                               FP32_FLOP_PER_S)
+            k4_graph = graph_ms([k4] * 5)
+            lib_ms = _sdpa_backward_graph_ms((qt, kt, vt), dout.transpose(1, 2), 5, is_causal=causal)
+            log(f"[kernels] K4 fp32 {tag} vs fp32 plain: rel_l2 dq {rels[0]:.3e}, dk {rels[1]:.3e}, dv {rels[2]:.3e} "
+                f"(bound {K4_FP32_REL_BOUND:g} each; vs fp64 {max(rels64):.3e}; the bf16 K4 on the same values "
+                f"{cast:.3e}), two runs bit-identical; events {k4_ms:.3f} ms vs plain {k4_plain:.3f} ms; graph "
+                f"{k4_graph:.4f} ms vs SDPA fp32 backward {lib_ms:.4f} ms ({k4_graph / lib_ms:.2f}x): "
+                f"{_vs(k4_graph, k4_bound, lib_ms)}; bound {k4_bound:.4f} ms ({k4_by}, 5 products in 3xTF32 at 495 "
+                f"TFLOP/s); CUDA-core bound {k4_core:.4f} ms (67 TFLOP/s): {k4_core / k4_graph:.1%}")
+            rows["K4-fp32"].append(dict(max_abs_err=max((a - w).abs().max().item() for a, w in zip(grads, want)),
+                                        ms=k4_graph, event_ms=k4_ms, plain_ms=k4_plain, library_ms=lib_ms,
+                                        bound_ms=k4_bound, bound_by=k4_by))
+            del grads, again, want
+        del q, k, v, dout, out, lse, qt, kt, vt
+        _free()
+    return {name: dict(r[0], max_abs_err=max(x["max_abs_err"] for x in r)) for name, r in rows.items()}
+
+
 def expected_train_launches(cfg, lat: int, remat: bool) -> dict:
     """Kernel launches of one train step, derived from the config. K1 runs
     at the frozen UNet encoder's flash sites (nothing there is
@@ -4058,7 +4185,11 @@ def phase_train_reference():
     """One reduced-width train step on the card (bf16 autocast, kernels) and
     on the CPU (fp32, plain versions) from the same state with the same
     sigma and noise: loss and gradients must agree; the detached-sites
-    fault must break the bound."""
+    fault must break the bound. Then the same step by an fp32 trainer
+    (diffusion_dtype fp32: no autocast, K1 fp32 at the frozen sites, K3
+    fp32 and K4 fp32 under grad, as many as the bf16 step's K1/K3/K4),
+    held to the CPU step at FP32_REF_BOUND: the loss and the first Adam
+    moments. Returns the fp32 step's launches."""
     import torch
 
     from supir_tpu_torch.diffusion.sigma_sampling import discrete_sampling
@@ -4117,7 +4248,40 @@ def phase_train_reference():
         + ", ".join(f"{k} {v:.3e}" for k, v in bad_rels.items()))
     if not max(bad_rels.values()) > TRAIN_GRAD_BOUND:
         raise AssertionError(f"the train reference bound misses detached gradient sites: {bad_rels}")
-    del cpu, card
+
+    # the fp32 trainer (diffusion_dtype fp32): no autocast, its flash sites
+    # under grad on K3 fp32 and K4 fp32; the step held to the CPU step
+    from supir_tpu_torch.ops import flash_attention as fa
+
+    cpu.apply_gradients()
+    want_m = {k: v.float() for k, v in cpu.state()["exp_avg"].items()}
+    card32 = create_trainer(dataclasses.replace(cfg, diffusion_dtype="fp32"), "cuda",
+                            state_dict=card.engine.model.state_dict())
+    del card
+    for fn in counters.values():
+        fn.launches = 0
+    fp32 = {"K1 fp32": fa.flash_attention, "K3 fp32": fa.flash_attention_fwd_lse, "K4 fp32": fa.flash_attention_bwd}
+    for fn in fp32.values():
+        fn.fp32_launches = 0
+    loss32 = card32.loss_and_grads(*args, **kw).item()
+    card32.apply_gradients()
+    launches32 = {**{name: fn.launches for name, fn in counters.items()},
+                  **{name: fn.fp32_launches for name, fn in fp32.items()}}
+    got_m = {k: v.float().cpu() for k, v in card32.state()["exp_avg"].items()}
+    want32 = {"K1": 0, "K2": expected["K2"], "K3": 0, "K4": 0, "K1 fp32": expected["K1"], "K3 fp32": expected["K3"],
+              "K4 fp32": expected["K4"]}
+    rel32 = abs(loss32 - want_loss) / abs(want_loss)
+    rels32 = _group_rels(got_m, want_m)
+    log(f"[train reference] fp32 trainer (diffusion_dtype fp32, no autocast): card loss {loss32:.6g} vs CPU "
+        f"{want_loss:.6g}, relative {rel32:.3e}; first Adam moments rel_l2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rels32.items()) + f" (bound {FP32_REF_BOUND:g}); launches "
+        f"{launches32} (expected {want32})")
+    if not (rel32 <= FP32_REF_BOUND and max(rels32.values()) <= FP32_REF_BOUND):
+        raise AssertionError(f"train reference fp32: card and CPU disagree (loss {rel32}, moments {rels32})")
+    if launches32 != want32 or not launches32["K3 fp32"] > 0:
+        raise AssertionError(f"train reference fp32 launched {launches32}, expected {want32}")
+    del cpu, card32
+    return launches32
 
 
 # ------------------------------------------------------------------- MPT
@@ -4586,6 +4750,10 @@ CAPTRAIN_FULL_LAYERS = 2     # [captioner train] full mode: full width, 2 of the
 AE_SIDE, AE_BATCH = 512, 2   # [ae train]: a 512^2 HQ batch of 2
 AE_LR = 4.5e-6               # the JAX AETrainer's default
 TRAIN_REF_BOUND = 5e-2       # card bf16 against CPU fp32: loss and gradients, relative
+# [ae train reference]'s card runs and their sides: the bf16 autoencoder at
+# 128^2 (its mid-block, 256 tokens, on the plain route), the fp32 one at
+# 256^2 (1024 tokens, D 128: K3 fp32 and K4 fp32 under grad)
+AE_REF_RUNS = ((128, "card bf16"), (256, "card fp32"))
 AE_REF_GRAD_BOUND = 1e-2     # [ae train reference], card fp32 against CPU fp32: gradients, relative L2
 ADAM_FORM_BOUND = 1e-2       # a card step's change against the closed-form first Adam(W) step, relative L2
 
@@ -4957,7 +5125,7 @@ def phase_ae_train(smi: str):
     lq, hq = (t.to(dev) for t in _ae_images(AE_SIDE, AE_BATCH, SEED + 49))
     loss_cfg = AELossConfig(disc_start=0)
     trainer = create_ae_trainer(cfg, dev, seed=SEED + 50, loss_cfg=loss_cfg, learning_rate=AE_LR,
-                                train_branch="denoise_encoder", perceptual_fn=lpips)
+                                train_branch="denoise_encoder", perceptual_fn=lpips, ae_dtype="bf16")
     g = torch.Generator(device=dev).manual_seed(SEED + 51)
     per_step = expected_ae_train_launches(cfg)
     counters = _captrain_counters()
@@ -4972,7 +5140,7 @@ def phase_ae_train(smi: str):
     for branch, steps in (("denoise_encoder", 2), ("all", 1)):
         if branch == "all":
             trainer = AETrainer(trainer.model, loss_cfg, AE_LR, train_branch="all", perceptual_fn=lpips,
-                                seed=SEED + 52)
+                                seed=SEED + 52, compute_dtype=torch.bfloat16)
         seconds = {name: _timed(trainer, f"_{name}_phase") for name in ("generator", "discriminator")}
         before = _bit_sums(trainer.params.values())
         for i in range(steps):
@@ -5023,10 +5191,12 @@ def phase_ae_train(smi: str):
 
 def phase_ae_train_reference():
     """One AE train step in each branch at the reduced width (VAEConfig
-    ch 32, 128^2, batch 2, LPIPS random) on the CPU (fp32, plain) and on
-    the card twice, as the trainer runs (bf16 autocast, K2 in the
-    reconstruction) and with autocast off (fp32, K2 on fp32 tensors), same
-    weights, same discriminator, same posterior draws. The generator's
+    ch 32, batch 2, LPIPS random) on the CPU (fp32, plain) and on the card
+    (AE_REF_RUNS): a bf16 autoencoder at 128^2 (ae_dtype bf16: bf16
+    autocast, K2 in the reconstruction) and an fp32 one at 256^2 (ae_dtype
+    fp32: no autocast, K2 on fp32 tensors, K3 fp32 and K4 fp32 under grad,
+    K1 fp32 in the no-grad reconstruction), each against the CPU step at
+    its size: same weights, same discriminator, same posterior draws. The generator's
     losses must agree to TRAIN_REF_BOUND in both; in fp32 the gradients of
     the generator's trainable tree and of the discriminator (first Adam
     moments, each tree as one vector) must agree to AE_REF_GRAD_BOUND, and
@@ -5035,34 +5205,58 @@ def phase_ae_train_reference():
     discriminator's LeakyReLU kinks flip wherever bf16's ~1e-2 error
     crosses them, a discrete change of the gradient no bound on rounding
     covers (even fp32's different summation orders flip a few kinks of the
-    discriminator's small maps: ~1e-3). At 128^2 the mid-block attention (256 tokens) takes the plain
-    route, as the full width's 512-wide head does: no flash kernel runs,
-    and none takes fp32 under grad."""
+    discriminator's small maps: ~1e-3). At 256^2 the mid-blocks'
+    attention is a 1024-token, D 128 site (the full width's 512-wide head
+    takes the plain route): in the generator phase the encoder's and the
+    decoder's each run K3 fp32 and K4 fp32 once (d_weight's two gradients
+    stop at the decoder's last kernel), in the discriminator phase's
+    reconstruction K1 fp32 twice; at 128^2 (256 tokens) no flash kernel
+    runs. The bf16 run stays at 128^2: at 256^2 its loss_g, a sum whose
+    adversarial term (d_weight ~10 times g) cancels most of the
+    reconstruction term, read 1.5e-1 from the CPU's on an H100.
+    Returns the fp32 run's K3 fp32 and K4 fp32 launches."""
     import torch
 
     from supir_tpu_torch.config import VAEConfig
+    from supir_tpu_torch.engine import ae_training
+    from supir_tpu_torch.ops import flash_attention as fa
+
+    cfg = VAEConfig().tiny()
+    counters = _captrain_counters()
+    fp32 = {"K1 fp32": fa.flash_attention, "K3 fp32": fa.flash_attention_fwd_lse, "K4 fp32": fa.flash_attention_bwd}
+    unit_normal = ae_training.unit_normal
+    k2 = expected_ae_train_launches(cfg)
+    want_by = {"card bf16": {"K1": 0, "K2": k2, "K3": 0, "K4": 0, "K1 fp32": 0, "K3 fp32": 0, "K4 fp32": 0},
+               "card fp32": {"K1": 0, "K2": k2, "K3": 0, "K4": 0, "K1 fp32": 2, "K3 fp32": 2, "K4 fp32": 2}}
+    cpu, card = torch.device("cpu"), torch.device("cuda")
+    fp32_launches = {"K3 fp32": 0, "K4 fp32": 0}
+    for side, name in AE_REF_RUNS:
+        _ae_reference_runs(cfg, side, name, cpu, card, counters, fp32, want_by[name], fp32_launches)
+    ae_training.unit_normal = unit_normal
+    return fp32_launches
+
+
+def _ae_reference_runs(cfg, side, card_name, cpu, card, counters, fp32, want_launches, fp32_launches):
+    """[ae train reference]'s two branches at `side`^2: the CPU step and the
+    card step of `card_name`, compared."""
+    import torch
+
     from supir_tpu_torch.diffusion.ae_losses import AELossConfig
     from supir_tpu_torch.engine import ae_training
     from supir_tpu_torch.engine.factory import create_ae_trainer
 
-    cfg, side = VAEConfig().tiny(), 128
     lq, hq = _ae_images(side, 2, SEED + 53)
     latent = (2, cfg.embed_dim, side // cfg.downscale_factor, side // cfg.downscale_factor)
     g = torch.Generator().manual_seed(SEED + 54)
     draws = [torch.randn(latent, generator=g) for _ in range(2)]
-    counters = _captrain_counters()
-    unit_normal, autocast = ae_training.unit_normal, ae_training.train_autocast
-    want_launches = {"K1": 0, "K2": expected_ae_train_launches(cfg), "K3": 0, "K4": 0}
-    cpu, card = torch.device("cpu"), torch.device("cuda")
     for branch in ("denoise_encoder", "all"):
         runs, state = {}, None
-        for name, dev in (("cpu", cpu), ("card bf16", card), ("card fp32", card)):
+        for name, dev in (("cpu", cpu), (card_name, card)):
             queue = list(draws)
             ae_training.unit_normal = lambda shape, generator, device: queue.pop(0).to(device)
             trainer = create_ae_trainer(cfg, dev, seed=SEED + 55, loss_cfg=AELossConfig(disc_start=0),
-                                        learning_rate=AE_LR, train_branch=branch, perceptual_fn=_random_lpips(dev))
-            # the fp32 card run: the trainer's bf16 autocast off
-            ae_training.train_autocast = autocast if name != "card fp32" else lambda device: contextlib.nullcontext()
+                                        learning_rate=AE_LR, train_branch=branch, perceptual_fn=_random_lpips(dev),
+                                        ae_dtype="bf16" if name == "card bf16" else "fp32")
             if state is None:
                 state = {"gen": {k: v.detach().clone() for k, v in trainer.state()["gen"].items()},
                          "disc": {k: v.detach().clone() for k, v in trainer.state()["disc"].items()},
@@ -5070,20 +5264,21 @@ def phase_ae_train_reference():
                          "step": 0}
             trainer.load_state(state)
             _reset(counters)
+            for fn in fp32.values():
+                fn.fp32_launches = 0
             t0 = time.perf_counter()
             m = trainer.train_step((lq if branch == "denoise_encoder" else hq).to(dev), hq.to(dev))
             st = trainer.state()
             runs[name] = dict(metrics={k: float(v) for k, v in m.items()}, s=time.perf_counter() - t0,
-                              launches=_read(counters))
+                              launches={**_read(counters), **{k: fn.fp32_launches for k, fn in fp32.items()}})
             for tree, opt in (("gen", "opt_g"), ("disc", "opt_d")):
                 runs[name][tree] = dict(before=state[tree], after={k: st[tree][k].detach().float().cpu() for k in
                                                                    st[opt]["exp_avg"]},
                                         m={k: v.float().cpu() for k, v in st[opt]["exp_avg"].items()},
                                         v={k: v.float().cpu() for k, v in st[opt]["exp_avg_sq"].items()})
             del trainer
-        ae_training.unit_normal, ae_training.train_autocast = unit_normal, autocast
         want = runs["cpu"]
-        for name in ("card bf16", "card fp32"):
+        for name in (card_name,):
             got = runs[name]
             rels = {k: abs(got["metrics"][k] - want["metrics"][k]) / abs(want["metrics"][k])
                     for k in ("loss_g", "rec", "kl")}
@@ -5107,6 +5302,8 @@ def phase_ae_train_reference():
             if got["launches"] != want_launches:
                 raise AssertionError(f"ae train reference {branch}, {name}: launches {got['launches']}, "
                                      f"expected {want_launches}")
+        for k in fp32_launches:
+            fp32_launches[k] += runs[card_name]["launches"][k]
         _free()
 
 
@@ -6062,6 +6259,9 @@ MD_RING_SIDE = 2048    # (b): an untiled network call at a 256^2 latent: 16384 t
 MD_RING_SHAPE = (2, 16384, 10, 64)  # (b): ring_attention alone, at those sites' shape
 MD_REL_BOUND = 5e-2    # (b), (c): the split run against the one-process run, relative L2 (bf16 sums in another order)
 MD_ROWS = 1024         # attention_plain's row chunk at MD_RING_SHAPE (a whole fp32 logit tensor is 21 GB)
+MD_CAP_TOKENS = 8      # (d): greedy tokens of the sharded caption (the decode's collectives take 94 % of it)
+MD_TRAIN_LOSS_BOUND = 1e-6    # (e1) at dp 2 against one process: the loss, relative
+MD_TRAIN_MOMENT_BOUND = 1e-5  # ... and the first moments (the whole tree), relative L2
 
 
 def _md_collective_timer():
@@ -6074,7 +6274,8 @@ def _md_collective_timer():
 
     spent = [0.0]
     saved = []
-    for module, name in ((mesh, "all_reduce_"), (sharding, "all_gather"), (ring_attention, "all_gather"),
+    for module, name in ((mesh, "all_reduce_"), (mesh, "all_reduce_mean_"), (sharding, "all_gather"),
+                         (sharding, "all_reduce_mean_bucket"), (ring_attention, "all_gather"),
                          (ring_attention, "ring_shift"), (tiled_vae, "all_gather"), (tiled_sampler, "all_gather")):
         fn = getattr(module, name)
 
@@ -6092,20 +6293,24 @@ def _md_collective_timer():
 
 
 def _md_counters():
+    """{row: (wrapper, the counter attribute)}."""
     from supir_tpu_torch.ops import quantize as Q
-    from supir_tpu_torch.ops.flash_attention import flash_attention, flash_attention_fwd_lse
+    from supir_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd, flash_attention_fwd_lse
     from supir_tpu_torch.ops.groupnorm import group_norm
 
-    return {"K1": flash_attention, "K2": group_norm, "K3": flash_attention_fwd_lse, "K5": Q.int4_paired_fused_matmul}
+    return {"K1": (flash_attention, "launches"), "K2": (group_norm, "launches"),
+            "K3": (flash_attention_fwd_lse, "launches"), "K4": (flash_attention_bwd, "launches"),
+            "K5": (Q.int4_paired_fused_matmul, "launches"), "K1 fp32": (flash_attention, "fp32_launches"),
+            "K3 fp32": (flash_attention_fwd_lse, "fp32_launches"), "K4 fp32": (flash_attention_bwd, "fp32_launches")}
 
 
 def _md_zero():
-    for fn in _md_counters().values():
-        fn.launches = 0
+    for fn, attr in _md_counters().values():
+        setattr(fn, attr, 0)
 
 
 def _md_read():
-    return {k: fn.launches for k, fn in _md_counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in _md_counters().items()}
 
 
 def _md_rank(rank: int, world: int, tmp: str, backend: str, steps: int):
@@ -6231,10 +6436,11 @@ def _md_body(rank, world, dev, backend, steps):
 
     # ring_attention alone at the ring sites' shape, keys whose halves differ
     # in scale (so that the blocks' lse differ and the merge's rescale matters)
-    q, k, v = (torch.randn(MD_RING_SHAPE, generator=g, device=dev) for _ in range(3))
-    k[:, MD_RING_SHAPE[1] // 2:] *= 2.0
-    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    q32, k32, v32 = (torch.randn(MD_RING_SHAPE, generator=g, device=dev) for _ in range(3))
+    k32[:, MD_RING_SHAPE[1] // 2:] *= 2.0
+    q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
     ring = split_run("ring alone", lambda: RA.ring_attention(q, k, v, seq, axis="seq"))
+    ring32 = split_run("ring fp32", lambda: RA.ring_attention(q32, k32, v32, seq, axis="seq"))
 
     def no_rescale(o, lse, o_i, lse_i):  # the planted fault: the accumulator is not rescaled
         m = torch.maximum(lse, lse_i)
@@ -6246,23 +6452,35 @@ def _md_body(rank, world, dev, backend, steps):
     RA._merge = no_rescale
     try:
         faulty = RA.ring_attention(q, k, v, seq, axis="seq")
+        faulty32 = RA.ring_attention(q32, k32, v32, seq, axis="seq")
     finally:
         RA._merge = real_merge
+    # fp16 widens to the fp32 ring and is rounded back once
+    qh, kh, vh = (t.half() for t in (q32, k32, v32))
+    half = RA.ring_attention(qh, kh, vh, seq, axis="seq")
+    out["ring_fp16_once"] = half.dtype == torch.float16 and bool(torch.equal(
+        half, RA.ring_attention(qh.float(), kh.float(), vh.float(), seq, axis="seq").half()))
+    del qh, kh, vh, half
     if lead:
         k1 = flash_attention(q, k, v)
         plain = torch.cat([attention_plain(q[:, i:i + MD_ROWS].float(), k.float(), v.float())
                            for i in range(0, MD_RING_SHAPE[1], MD_ROWS)], dim=1)
         out["ring_rel"] = {"plain": rel_l2(ring, plain), "k1": rel_l2(ring, k1), "k1 vs plain": rel_l2(k1, plain),
                            "fault": rel_l2(faulty, plain)}
+        k1 = flash_attention(q32, k32, v32)
+        plain = torch.cat([attention_plain(q32[:, i:i + MD_ROWS], k32, v32)
+                           for i in range(0, MD_RING_SHAPE[1], MD_ROWS)], dim=1)
+        out["ring32_rel"] = {"plain": rel_l2(ring32, plain), "k1": rel_l2(ring32, k1),
+                             "k1 vs plain": rel_l2(k1, plain), "fault": rel_l2(faulty32, plain),
+                             "dtype": str(ring32.dtype)}
         del k1, plain
-    for bad, label in ((q.float(), "fp32"), (q.clone().requires_grad_(True), "grad")):
-        try:
-            RA.ring_attention(bad, bad.detach() if label == "grad" else bad, bad.detach() if label == "grad" else bad,
-                              seq, axis="seq")
-            out[f"ring_{label}"] = "accepted"
-        except (TypeError, RuntimeError) as e:
-            out[f"ring_{label}"] = f"{type(e).__name__}: {e}"
-    del q, k, v, ring, faulty
+    try:
+        qg = q.clone().requires_grad_(True)
+        RA.ring_attention(qg, k, v, seq, axis="seq")
+        out["ring_grad"] = "accepted"
+    except RuntimeError as e:
+        out["ring_grad"] = f"{type(e).__name__}: {e}"
+    del q, k, v, ring, faulty, q32, k32, v32, ring32, faulty32
     torch.cuda.empty_cache()
 
     # (c) the [tiled] configuration at 2048^2 over a (1, 2, 1) tile mesh
@@ -6305,7 +6523,7 @@ def _md_body(rank, world, dev, backend, steps):
     torch.cuda.empty_cache()
 
     # (d) LLaVA-13B int4, sharded over 'model'
-    ccfg = _mode_cfg(dataclasses.replace(CaptionerConfig(), compute_dtype="bfloat16", max_new_tokens=CAP_TOKENS),
+    ccfg = _mode_cfg(dataclasses.replace(CaptionerConfig(), compute_dtype="bfloat16", max_new_tokens=MD_CAP_TOKENS),
                      "int4")
     agent, out["secs"]["captioner build"] = sync_time(lambda: create_captioner(ccfg, dev, seed=SEED))
     image = _caption_image()
@@ -6320,9 +6538,186 @@ def _md_body(rank, world, dev, backend, steps):
     out["tokens"] = d_got
     if lead:
         out["tokens_one"] = d_ref
+    del agent
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _md_train(world, dev, out, split_run, reference, lead)
     restore_timers()
     out["secs"]["rank total"] = time.perf_counter() - t_all
     return out
+
+
+MD_TRAIN_SIDE = 512    # (e2): the XL-base step's image side
+MD_DIGEST_MOD = 8191   # _bit_digest's position weights
+
+
+def _bit_digest(t) -> tuple:
+    """(the int64 sum of t's bit patterns, their sum weighted by position
+    mod MD_DIGEST_MOD + 1): equal for equal bits; any changed, dropped or
+    moved element changes it (short of a cancellation no step makes)."""
+    import torch
+
+    bits = t.detach().reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+    total = weighted = 0
+    for at in range(0, bits.numel(), 1 << 24):
+        c = bits[at:at + (1 << 24)].to(torch.int64)
+        w = (torch.arange(at, at + c.numel(), device=c.device) % MD_DIGEST_MOD) + 1
+        total, weighted = total + c.sum(), weighted + (c * w).sum()
+    return int(total), int(weighted)
+
+
+def _block_digests(tensors, world: int) -> dict:
+    """{name: [the digest of rank r's block]} of full tensors, cut as the
+    FSDP rule cuts them over a 'model' axis of `world` ranks."""
+    from supir_tpu_torch.parallel.sharding import fsdp_spec
+
+    out = {}
+    for k, t in tensors.items():
+        spec = fsdp_spec(tuple(t.shape), world)
+        out[k] = ([_bit_digest(c) for c in t.chunk(world, spec.index("model"))] if spec
+                  else [_bit_digest(t)] * world)
+    return out
+
+
+def _md_train(world, dev, out, split_run, reference, lead):
+    """[multi-device] (e), the trainers over a mesh, each held to rank 0's
+    one-process step: (e1) the JAX drill's step (tiny_test_config, fp32,
+    64^2, batch 2 dp, lr 1e-4, the drill's (dp, n/dp) mesh); (e2) the
+    XL-base trainer at full width, default config (bf16 compute, fp32
+    parameters, remat), MD_TRAIN_SIDE^2, batch 2, EMA off, on a (1, n)
+    mesh: the loss, the first moments and the updated trainable parameters
+    bit for bit (each rank's blocks against the one-process tensors' blocks
+    by _bit_digest); (e3) CaptionerTrainer lora at LLaVA-13B width, 2 of 40
+    layers, shard_state on 'model', one token-level step, bit for bit."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from supir_tpu_torch.captioner.agent import CaptionerConfig, create_captioner
+    from supir_tpu_torch.captioner.llama import LlamaConfig
+    from supir_tpu_torch.captioner.train import CaptionerTrainer
+    from supir_tpu_torch.config import SUPIRConfig
+    from supir_tpu_torch.diffusion.sigma_sampling import discrete_sampling
+    from supir_tpu_torch.engine.factory import create_engine, tiny_test_config
+    from supir_tpu_torch.engine.training import SUPIRTrainer
+    from supir_tpu_torch.parallel.mesh import make_mesh
+
+    rank = dist.get_rank()
+
+    def inputs(cfg, side, batch, seed):
+        lat = side // cfg.vae.downscale_factor
+        g = torch.Generator(device=dev).manual_seed(seed)
+        z = torch.randn(batch, lat, lat, 4, generator=g, device=dev)
+        cond = {"crossattn": torch.randn(batch, 77, cfg.unet.context_dim, generator=g, device=dev),
+                "vector": torch.randn(batch, cfg.unet.adm_in_channels, generator=g, device=dev),
+                "control": torch.randn(batch, lat, lat, 4, generator=g, device=dev)}
+        sigma, _ = discrete_sampling(g, batch, device=dev)
+        return z, cond, sigma, torch.randn(z.shape, generator=g, device=dev)
+
+    def trainer_of(cfg, mesh, seed, lr, ema, randomise):
+        engine = create_engine(cfg, dev, seed=seed, param_dtype=torch.float32)
+        for name in ("diffusion_model", "control_model"):
+            engine.model.model[name].remat = True
+        if randomise:
+            _randomize_all(engine.model, seed + 1)
+        return SUPIRTrainer(engine, mesh, learning_rate=lr, ema_decay=ema)
+
+    def step(trainer, z, cond, sigma, noise):
+        loss = trainer.loss_and_grads(z, cond, sigma=sigma, noise=noise)
+        trainer.apply_gradients()
+        return loss
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (e1) the drill's step
+    dp = 2 if world % 2 == 0 else 1
+    cfg, _ = tiny_test_config()
+    e1_in = inputs(cfg, 64, 2 * dp, SEED + 60)
+    drill = make_mesh((dp, world // dp), ("data", "model"))
+
+    def e1(mesh):
+        trainer = trainer_of(cfg, mesh, SEED + 61, 1e-4, 0.9999, False)
+        loss = step(trainer, *e1_in).item()
+        return loss, {k: v.float().cpu() for k, v in trainer.state()["exp_avg"].items()}
+
+    e1_ref = reference("e1 one-process", lambda: e1(None))
+    e1_got = split_run("e1 drill step", lambda: e1(drill))
+    if lead:
+        keys = sorted(e1_ref[1])
+        flat = [torch.cat([m[k].reshape(-1) for k in keys]) for m in (e1_got[1], e1_ref[1])]
+        out["e1"] = {"mesh": (dp, world // dp), "loss": e1_got[0], "loss_one": e1_ref[0],
+                     "loss_rel": abs(e1_got[0] - e1_ref[0]) / abs(e1_ref[0]), "moments_rel": rel_l2(*flat)}
+    free()
+
+    # (e2) XL-base at full width on a (1, n) mesh
+    cfg = SUPIRConfig()
+    e2_in = inputs(cfg, MD_TRAIN_SIDE, 2, SEED + 62)
+
+    def e2_one():
+        trainer = trainer_of(cfg, None, SEED + 63, 1e-5, None, True)
+        loss = step(trainer, *e2_in)
+        st = trainer.state()
+        res = {"loss": loss.item(), "m": _block_digests(st["exp_avg"], world),
+               "p": _block_digests({k: st["params"][k] for k in st["exp_avg"]}, world)}
+        del trainer, st
+        free()
+        return res
+
+    e2_ref = reference("e2 one-process", e2_one)
+    mesh = make_mesh((1, world), ("data", "model"))
+    trainer = None
+    for r in range(world):  # one rank at a time holds a whole fp32 model while it shards
+        if rank == r:
+            trainer = trainer_of(cfg, mesh, SEED + 63, 1e-5, None, True)
+            free()
+        dist.barrier()
+    out["e2_resident_gib"] = torch.cuda.memory_allocated() / 2**30
+    loss = split_run("e2 XL-base step", lambda: step(trainer, *e2_in).item())
+    opt = trainer.optimizer.state
+    out["e2"] = {"loss": loss, "m": {k: _bit_digest(opt[p]["exp_avg"]) for k, p in trainer.params.items()},
+                 "p": {k: _bit_digest(p) for k, p in trainer.params.items()}}
+    if lead:
+        out["e2_ref"] = e2_ref
+    del trainer
+    free()
+
+    # (e3) the captioner trainer, lora, LLaVA-13B width at 2 of 40 layers
+    ccfg = dataclasses.replace(CaptionerConfig(), compute_dtype="bfloat16", kv_dtype="bfloat16",
+                               llama=dataclasses.replace(LlamaConfig(), layers=CAPTRAIN_FULL_LAYERS))
+    tokens = ccfg.llama.max_seq_len - ccfg.vision.num_patches + 1
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in _caption_train_batch(ccfg.vision.image_size, tokens, SEED + 64).items()}
+
+    def e3_trainer(mesh):
+        agent = create_captioner(ccfg, dev, seed=SEED + 65)
+        trainer = CaptionerTrainer(agent, mesh, learning_rate=CAPTRAIN_LR, mode="lora", lora_rank=CAPTRAIN_LORA[0],
+                                   lora_alpha=CAPTRAIN_LORA[1])
+        trainer.init_state(seed=SEED + 66)
+        return trainer.shard_state()
+
+    def e3_one():
+        trainer = e3_trainer(None)
+        loss = trainer.train_step_tokens(batch).item()
+        st = trainer.state()
+        res = {"loss": loss, "m": _block_digests(st["exp_avg"], world), "lora": _block_digests(st["lora"], world)}
+        del trainer, st
+        free()
+        return res
+
+    e3_ref = reference("e3 one-process", e3_one)
+    trainer = e3_trainer(mesh)
+    loss = split_run("e3 captioner lora", lambda: trainer.train_step_tokens(batch).item())
+    opt = trainer.optimizer.state
+    out["e3"] = {"loss": loss, "m": {k: _bit_digest(opt[p]["exp_avg"]) for k, p in trainer.params.items()},
+                 "lora": {k: _bit_digest(p) for k, p in trainer.lora.items()}}
+    if lead:
+        out["e3_ref"] = e3_ref
+    del trainer
+    free()
 
 
 def phase_multi_device(steps: int, smi: str) -> dict:
@@ -6337,13 +6732,19 @@ def phase_multi_device(steps: int, smi: str) -> dict:
     sites on ring attention with K3 blocks of [2, 8192, 10, 64], held to the
     one-process call on K1 at 5e-2, and ring_attention alone at
     [2, 16384, 10, 64] against the one-process K1 and attention_plain by row
-    chunks at K1's 1e-2, a skipped rescale in the merge breaking it, fp32
-    and requires-grad inputs refused; (c) the [tiled] configuration at
+    chunks at K1's 1e-2, a skipped rescale in the merge breaking it; the
+    same ring in fp32 on K3 fp32 blocks of [2, 8192, 10, 64] against the
+    one-process K1 fp32 and attention_plain at 1e-5, the skipped rescale
+    breaking that too; fp16 widened and rounded back once; requires-grad
+    inputs refused; (c) the [tiled] configuration at
     2048^2 on a (1, 2, 1) tile mesh (16 VAE tiles, 9 windows: one padded
     duplicate of zero weight), held to the one-process tiled run at 5e-2;
-    (d) LLaVA-13B int4 `shard`ed over 'model', 31 greedy tokens equal to the
-    one-process tokens. Prints seconds, per-rank peaks, collectives' share
-    and launches per rank. Returns rank 0's launches of its split runs."""
+    (d) LLaVA-13B int4 `shard`ed over 'model', MD_CAP_TOKENS - 1 greedy
+    tokens equal to the one-process tokens; (e) the trainers over a mesh
+    (`_md_train`: the drill's train step, the XL-base step and the
+    captioner's lora step, the last two bit for bit). Prints seconds,
+    per-rank peaks, collectives' share and launches per rank. Returns rank
+    0's launches of its split runs."""
     import tempfile
 
     import torch
@@ -6377,10 +6778,12 @@ def _md_report(ranks, backend: str, cards: int, total: float, want: dict, smi: s
         log("[multi-device] parallel/mesh.py gathers by send/recv, which gloo takes on host tensors only: staged "
             "through pinned host memory, split over the mesh line's lanes (python -m "
             "supir_tpu_torch.tools.gloo_cuda_probe asks this PyTorch what gloo takes on CUDA tensors)")
-    for label in ("a one-process", "b one-process", "c one-process", "d one-process"):
+    for label in ("a one-process", "b one-process", "c one-process", "d one-process", "e1 one-process",
+                  "e2 one-process", "e3 one-process"):
         log(f"[multi-device] {label} (rank 0 alone): {lead['secs'][label]:.3f} s, peak {lead['peak'][label]:.2f} GiB, "
             f"launches {lead['launches'][label]}")
-    for label in ("a sharded", "b ring", "ring alone", "c tile axis", "d sharded"):
+    for label in ("a sharded", "b ring", "ring alone", "ring fp32", "c tile axis", "d sharded", "e1 drill step",
+                  "e2 XL-base step", "e3 captioner lora"):
         log(f"[multi-device] {label}: " + "; ".join(
             f"rank {r} {rk['secs'][label]:.3f} s (collectives {rk['staging'][label]:.3f} s, "
             f"{rk['staging'][label] / rk['secs'][label]:.1%}), peak {rk['peak'][label]:.2f} GiB, launches "
@@ -6393,8 +6796,29 @@ def _md_report(ranks, backend: str, cards: int, total: float, want: dict, smi: s
         f"{lead['b_rel']:.3e} (bound {MD_REL_BOUND:g}); ring alone {MD_RING_SHAPE}: rel-L2 vs attention_plain "
         f"{lead['ring_rel']['plain']:.3e}, vs one-process K1 {lead['ring_rel']['k1']:.3e} (K1 vs plain "
         f"{lead['ring_rel']['k1 vs plain']:.3e}; bound {K1_REL_BOUND:g}); planted fault (merge without the "
-        f"rescale) {lead['ring_rel']['fault']:.3e}; fp32 input: {lead['ring_fp32'][:90]}; requires grad: "
-        f"{lead['ring_grad'][:60]}")
+        f"rescale) {lead['ring_rel']['fault']:.3e}; requires grad: {lead['ring_grad'][:60]}")
+    r32 = lead["ring32_rel"]
+    log(f"[multi-device] (b) the fp32 ring on K3 fp32 blocks of [{MD_RING_SHAPE[0]},{MD_RING_SHAPE[1] // MD_RANKS},"
+        f"{MD_RING_SHAPE[2]},{MD_RING_SHAPE[3]}] ({r32['dtype']}): rel-L2 vs attention_plain {r32['plain']:.3e}, vs "
+        f"one-process K1 fp32 {r32['k1']:.3e} (K1 fp32 vs plain {r32['k1 vs plain']:.3e}; bound "
+        f"{K1_FP32_REL_BOUND:g}); planted fault (merge without the rescale) {r32['fault']:.3e}; fp16 widened and "
+        f"rounded back once: {all(rk['ring_fp16_once'] for rk in ranks)}")
+    e1 = lead["e1"]
+    log(f"[multi-device] (e1) the drill's step, tiny_test_config fp32, 64^2, batch {2 * e1['mesh'][0]}, mesh "
+        f"{e1['mesh']}: loss {e1['loss']:.6g} vs one-process {e1['loss_one']:.6g} (relative {e1['loss_rel']:.3e}, "
+        f"bound {MD_TRAIN_LOSS_BOUND:g}); first moments rel-L2 {e1['moments_rel']:.3e} (bound "
+        f"{MD_TRAIN_MOMENT_BOUND:g})")
+    resident = ", ".join(f"{rk['e2_resident_gib']:.2f}" for rk in ranks)
+    for tag, key, trees in (("e2", "e2 XL-base step", ("m", "p")), ("e3", "e3 captioner lora", ("m", "lora"))):
+        ref = lead[f"{tag}_ref"]
+        same = {r: rk[tag]["loss"] == ref["loss"] and rk[tag][trees[0]].keys() == ref[trees[0]].keys()
+                and all(rk[tag][t][k] == ref[t][k][r] for t in trees for k in ref[t])
+                for r, rk in enumerate(ranks)}
+        lead[f"{tag}_same"] = same
+        log(f"[multi-device] ({tag}) loss {ranks[0][tag]['loss']:.8g} vs one-process {ref['loss']:.8g}; the loss, "
+            f"first moments and {'updated parameters' if tag == 'e2' else 'LoRA adapters'} of every rank's blocks "
+            f"equal to one process's bit for bit: {same}"
+            + (f"; resident after sharding {resident} GiB a rank" if tag == "e2" else ""))
     log(f"[multi-device] (c) {MD_TILED_SIDE}^2 tiled over the tile axis: rel-L2 against one-process "
         f"{lead['c_rel']:.3e} (bound {MD_REL_BOUND:g}), shape {lead['c_shape']}")
     log(f"[multi-device] (d) {len(lead['tokens'])} greedy tokens sharded, equal to one-process: "
@@ -6411,7 +6835,7 @@ def _md_report(ranks, backend: str, cards: int, total: float, want: dict, smi: s
         if not la["d sharded"]["K5"] or la["d sharded"]["K5"] != lead["launches"]["d one-process"]["K5"]:
             failures.append(f"rank {r} (d) K5 {la['d sharded']['K5']}, one-process "
                             f"{lead['launches']['d one-process']['K5']}")
-        if rk["tokens"] != lead["tokens_one"] or len(rk["tokens"]) < CAP_TOKENS - 1:
+        if rk["tokens"] != lead["tokens_one"] or len(rk["tokens"]) < MD_CAP_TOKENS - 1:
             failures.append(f"rank {r} (d) tokens differ from the one-process tokens")
         if not (rk["a_finite"] and rk["c_finite"]) or rk["c_shape"] != (1, MD_TILED_SIDE, MD_TILED_SIDE, 3):
             failures.append(f"rank {r} outputs not finite or of the wrong shape")
@@ -6422,13 +6846,33 @@ def _md_report(ranks, backend: str, cards: int, total: float, want: dict, smi: s
     rr = lead["ring_rel"]
     if not (rr["plain"] <= K1_REL_BOUND and rr["k1"] <= K1_REL_BOUND and rr["fault"] > K1_REL_BOUND):
         failures.append(f"ring alone {rr}")
-    if not (lead["ring_fp32"].startswith("TypeError") and lead["ring_grad"].startswith("RuntimeError")):
-        failures.append(f"ring refusals: {lead['ring_fp32']}, {lead['ring_grad']}")
+    if not lead["ring_grad"].startswith("RuntimeError"):
+        failures.append(f"ring refusal of inputs that require grad: {lead['ring_grad']}")
+    if not (r32["plain"] <= K1_FP32_REL_BOUND and r32["k1"] <= K1_FP32_REL_BOUND and r32["fault"] > K1_FP32_REL_BOUND
+            and r32["dtype"] == "torch.float32"):
+        failures.append(f"the fp32 ring {r32}")
+    if not all(rk["ring_fp16_once"] for rk in ranks):
+        failures.append("the fp16 ring is not the fp32 ring rounded once")
+    if not (e1["loss_rel"] <= MD_TRAIN_LOSS_BOUND and e1["moments_rel"] <= MD_TRAIN_MOMENT_BOUND):
+        failures.append(f"(e1) {e1}")
+    for tag in ("e2", "e3"):
+        if not all(lead[f"{tag}_same"].values()):
+            failures.append(f"({tag}) not equal to one process bit for bit: {lead[f'{tag}_same']}")
+    for r, rk in enumerate(ranks):
+        la = rk["launches"]
+        if la["ring fp32"]["K3 fp32"] != MD_RANKS or la["ring fp32"]["K3"]:
+            failures.append(f"rank {r} fp32 ring launches {la['ring fp32']}")
+        for key, ref in (("e2 XL-base step", "e2 one-process"), ("e3 captioner lora", "e3 one-process")):
+            one = lead["launches"][ref]
+            if (la[key]["K3"], la[key]["K4"], la[key]["K2"]) != (one["K3"], one["K4"], one["K2"]) or not la[key]["K3"]:
+                failures.append(f"rank {r} {key} launches {la[key]}, one process {one}")
     if failures:
         raise AssertionError("[multi-device] " + "; ".join(failures))
     la = lead["launches"]
-    return {"K1": la["a sharded"]["K1"] + la["b ring"]["K1"], "K2": la["a sharded"]["K2"],
-            "K3": la["b ring"]["K3"], "K5": la["d sharded"]["K5"]}
+    return {"K1": la["a sharded"]["K1"] + la["b ring"]["K1"], "K2": la["a sharded"]["K2"] + la["e2 XL-base step"]["K2"],
+            "K3": la["b ring"]["K3"] + la["e2 XL-base step"]["K3"] + la["e3 captioner lora"]["K3"],
+            "K4": la["e2 XL-base step"]["K4"] + la["e3 captioner lora"]["K4"], "K3-fp32": la["ring fp32"]["K3 fp32"],
+            "K5": la["d sharded"]["K5"]}
 
 
 def main() -> int:
@@ -6450,6 +6894,7 @@ def main() -> int:
     results["K1-fp32"] = phase_flash_fp32_kernels()
     results.update(phase_quant_kernels())
     results.update(phase_flash_train_kernels())
+    results.update(phase_flash_train_fp32_kernels())
     results.update(phase_alibi_kernels())
     probe_rows, probe_launches, ceiling = phase_probes()
     results.update(probe_rows)
@@ -6516,7 +6961,8 @@ def main() -> int:
     # K1 and K2 keep the restore path's counts; K3 and K4 run on the trainer's
     train = phase_train()
     launches.update({k: train[k] for k in ("K3", "K4")})
-    phase_train_reference()
+    # the fp32 trainers' flash sites under grad run K3 fp32 and K4 fp32
+    fp32_train = phase_train_reference()
     # the generate path's prefill (K3 ALiBi without lse) asserts its launches
     # in its phase; the K3 ALiBi row is the instantiation with lse, timed at
     # the gradient's shape, so it takes the gradient path's launches
@@ -6530,9 +6976,10 @@ def main() -> int:
     captrain = phase_captioner_train(smi)
     phase_captioner_train_reference()
     ae_k2 = phase_ae_train(smi)
-    phase_ae_train_reference()
+    ae_fp32 = phase_ae_train_reference()
     launches.update({"K3": launches["K3"] + captrain["K3"], "K4": launches["K4"] + captrain["K4"],
-                     "K2": launches["K2"] + ae_k2})
+                     "K2": launches["K2"] + ae_k2, "K3-fp32": fp32_train["K3 fp32"] + ae_fp32["K3 fp32"],
+                     "K4-fp32": fp32_train["K4 fp32"] + ae_fp32["K4 fp32"]})
     log(f"[train] [captioner train], [ae train] and their references took {time.perf_counter() - t0:.1f} s")
     multi = phase_multi_device(args.steps, smi)
     launches.update({k: launches[k] + n for k, n in multi.items()})
@@ -6543,6 +6990,8 @@ def main() -> int:
         "K2": ("cuda", "supir_tpu_torch/csrc/group_norm.cu", "supir_tpu/ops/groupnorm.py:40"),
         "K3": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:164"),
         "K4": ("cuda", "supir_tpu_torch/csrc/flash_attn_bwd.cu", "supir_tpu/ops/flash_attention.py:499"),
+        "K3-fp32": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd_fp32.cu", "supir_tpu/ops/flash_attention.py:459"),
+        "K4-fp32": ("cuda", "supir_tpu_torch/csrc/flash_attn_bwd_fp32.cu", "supir_tpu/ops/flash_attention.py:499"),
         "K5": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:260"),
         "K6": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:116"),
         "K7": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:606"),
@@ -6566,6 +7015,7 @@ def main() -> int:
     # where each kernel's times were taken
     at = {"K1": "[2,4096,10,64] bf16", "K1-fp32": "[2,4096,10,64] fp32", "K2": "[2,320,128,128] bf16, SiLU",
           "K3": "[1,4096,10,64] bf16, with lse", "K4": "[1,4096,10,64] bf16, dq dk dv",
+          "K3-fp32": "[1,4096,10,64] fp32, with lse", "K4-fp32": "[1,4096,10,64] fp32, dq dk dv",
           "K5": "one 13B layer (qkv, o, gate-up, down), 1 row", "K6": "one 13B layer, 1 row",
           "K7": "one 13B layer, int8, 1 row", "K7-int4": "one 13B layer, half-split int4, 1 row", "K8": "one 13B layer's four fp32 kernels",
           "K5-act": "one 13B layer, act_int8, 1 row", "K9": "one 13B layer's two pairs, 1 row",
@@ -6583,7 +7033,8 @@ def main() -> int:
         r = results[name]
         kernels.append({
             "name": {"K5-act": "K5 act_int8", "K7-int4": "K7 int4", "K3-alibi": "K3 ALiBi",
-                     "K4-alibi": "K4 ALiBi", "K1-fp32": "K1 fp32"}.get(name, name),
+                     "K4-alibi": "K4 ALiBi", "K1-fp32": "K1 fp32", "K3-fp32": "K3 fp32",
+                     "K4-fp32": "K4 fp32"}.get(name, name),
             "route": route, "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -1,4 +1,4 @@
-"""Captioner (LLaVA) training on one card (counterpart of
+"""Captioner (LLaVA) training, on one card or over a mesh (counterpart of
 supir_tpu/captioner/train.py; reference llava/train/train.py and
 llava_trainer.py): causal-LM cross entropy on conversation data with the
 image's patch embeddings spliced in, in three modes:
@@ -35,14 +35,22 @@ Kept from the JAX trainer:
 - the trainable leaves and their AdamW moments are fp32: `init_state`
   widens any trainable parameter that is narrower. A frozen base keeps its
   dtype (bf16 at 13B) and its bits.
-- on the card the forward runs under bf16 autocast; the merged LoRA
-  kernels are built in fp32 and cast, as JAX casts them.
+- the forward computes in the agent's `compute_dtype` (JAX's agent
+  :63, :132, float32 by default): bf16 runs under bf16 autocast on the
+  card, float32 with none (`engine/training.py:train_autocast`); the
+  merged LoRA kernels are built in fp32 and cast, as JAX casts them.
 - `train_step_tokens` splices with static shapes, as the JAX step does:
   each row's output holds T + P - 1 positions whether or not it holds the
   image marker.
-Differences: no mesh and no `shard_state` (one card holds everything;
-sharding is a later module); the selective saves write one `.safetensors`
-file (JAX writes an orbax tree).
+- `shard_state` (JAX :135-147) in every mode: the model's tensors, the
+  frozen base as the trainable leaves, the LoRA adapters and AdamW's
+  moments held as this rank's shards over the mesh's 'model' axis by the
+  FSDP rule (`parallel/sharding.py`); each rank's optimizer steps its own
+  shards. As in JAX, the batch is not split: every rank computes the step
+  on the whole batch, so a shard's gradient is its slice of the one-card
+  gradient.
+Difference: the selective saves write one `.safetensors` file (JAX writes
+an orbax tree).
 """
 
 from __future__ import annotations
@@ -55,7 +63,8 @@ import torch.nn.functional as F
 
 from supir_tpu_torch.captioner.preprocess import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from supir_tpu_torch.captioner.vision import select_patch_features
-from supir_tpu_torch.engine.training import train_autocast
+from supir_tpu_torch.engine.training import set_adam_state, train_autocast
+from supir_tpu_torch.parallel.sharding import drop_gathered, full_tensor, held_parameters, local_block, shard_module
 
 __all__ = ["IGNORE_INDEX", "LORA_TARGETS", "MODES", "CaptionerTrainer", "MergedLoRALinear", "causal_lm_loss",
            "init_lora", "lora_sites", "merge_lora", "merged_weight", "splice_image"]
@@ -214,10 +223,27 @@ def splice_image(tok_emb: torch.Tensor, img_emb: torch.Tensor, ids: torch.Tensor
 # --------------------------------------------------------------- trainer
 
 
+class _Adapters(nn.Module):
+    """The LoRA adapters as parameters of one module, so that
+    `shard_module` shards them as it shards the model: `p<i>` is the
+    adapter of key `keys[i]`."""
+
+    def __init__(self, lora: Mapping[str, torch.Tensor]):
+        super().__init__()
+        self.keys = list(lora)
+        for i, k in enumerate(self.keys):
+            self.register_parameter(f"p{i}", lora[k])
+
+    def values(self) -> Dict[str, torch.Tensor]:
+        """{key: the adapter as the forward reads it (gathered where sharded)}."""
+        return {k: getattr(self, f"p{i}") for i, k in enumerate(self.keys)}
+
+
 class CaptionerTrainer:
-    """One-card trainer of a CaptionerAgent's unquantized LlavaForCausalLM
+    """Trainer of a CaptionerAgent's unquantized LlavaForCausalLM
     (`captioner/agent.py:create_captioner`, on the card unless the caller
-    names the CPU). mode: "full" | "projector" | "lora" (MODES).
+    names the CPU), on one card or, after `shard_state`, over `mesh`.
+    mode: "full" | "projector" | "lora" (MODES).
 
     `train_step(batch)` is the feature-level step ({image_feats [B, P, Dv],
     pre_embeds [B, n, D], post_embeds [B, m, D], labels [B, n+P+m]});
@@ -225,25 +251,30 @@ class CaptionerTrainer:
     batches ({input_ids [B, T], labels [B, T], images [B, S, S, 3]}). Each
     returns the step's loss, fp32 and detached."""
 
-    def __init__(self, agent, learning_rate: float = 2e-5, mode: str = "full", lora_rank: int = 64,
+    def __init__(self, agent, mesh=None, learning_rate: float = 2e-5, mode: str = "full", lora_rank: int = 64,
                  lora_alpha: float = 16.0):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         self.agent = agent
         self.model = agent.model
+        self.mesh = mesh
         self.mode = mode
         self.lora_rank = lora_rank
         self.lora_alpha = lora_alpha
         self.learning_rate = learning_rate
         self.device = agent.model.device
+        self.compute_dtype = agent.dtype
         self.lora: Dict[str, nn.Parameter] = {}
+        self.adapters: Optional[_Adapters] = None  # the adapters' module once sharded
+        self.sharded = False
 
     # ------------------------------------------------------------- state
 
     def trainable_of(self) -> Dict[str, torch.Tensor]:
         """The leaves that train, by name: the projector, and the LoRA
-        adapters ("lora") or every Llama parameter ("full")."""
-        named = dict(self.model.named_parameters())
+        adapters ("lora") or every Llama parameter ("full"); this rank's
+        shards once sharded."""
+        named = {k: p for k, (p, _) in held_parameters(self.model).items()}
         out = {k: p for k, p in named.items() if k.startswith(PROJECTOR)}
         if self.mode == "lora":
             out.update(self.lora)
@@ -262,27 +293,71 @@ class CaptionerTrainer:
                 lora = init_lora(self.model, self.lora_rank, torch.Generator(device=self.device).manual_seed(seed))
             self.lora = {k: nn.Parameter(torch.as_tensor(v).to(self.device, torch.float32).clone())
                          for k, v in lora.items()}
+        if self.sharded:
+            raise RuntimeError("init_state draws whole tensors: call it before shard_state")
         self.model.requires_grad_(False)
         self.params = self.trainable_of()
         for p in self.params.values():
             if p.dtype != torch.float32:
                 p.data = p.data.float()
             p.requires_grad_(True)
-        self.optimizer = torch.optim.AdamW(list(self.params.values()), lr=self.learning_rate, betas=(0.9, 0.999),
-                                           eps=1e-8, weight_decay=WEIGHT_DECAY, fused=True)
+        self._optimizer()
         self.step = 0
         return self.state()
+
+    def _optimizer(self) -> None:
+        self.optimizer = torch.optim.AdamW(list(self.params.values()), lr=self.learning_rate, betas=(0.9, 0.999),
+                                           eps=1e-8, weight_decay=WEIGHT_DECAY, fused=True)
+
+    def _dims(self) -> Dict[str, Optional[int]]:
+        """Every parameter's and adapter's split dim by name (None: whole)."""
+        dims = {k: d for k, (_, d) in held_parameters(self.model).items()}
+        if self.adapters is not None:
+            held = held_parameters(self.adapters)
+            dims.update({k: held[f"p{i}"][1] for i, k in enumerate(self.adapters.keys)})
+        return dims
+
+    def shard_state(self) -> "CaptionerTrainer":
+        """Hold the model (the frozen base as the trainable leaves), the LoRA
+        adapters and AdamW's moments as this rank's shards over the mesh's
+        'model' axis (JAX :135-147), after `init_state`; a no-op without a
+        mesh. Every rank calls it on the same state."""
+        if self.mesh is None or self.sharded:
+            return self
+        state = self.state()
+        shard_module(self.model, self.mesh)
+        if self.lora:
+            self.adapters = shard_module(_Adapters(self.lora), self.mesh)
+            held = held_parameters(self.adapters)
+            self.lora = {k: held[f"p{i}"][0] for i, k in enumerate(self.adapters.keys)}
+        self.sharded = True
+        self.params = self.trainable_of()
+        self._optimizer()
+        dims = self._dims()
+        cut = {m: {k: local_block(v, dims[k], self.mesh) for k, v in state[m].items()}
+               for m in ("exp_avg", "exp_avg_sq")}
+        set_adam_state(self.optimizer, self.params, cut["exp_avg"], cut["exp_avg_sq"], self.step)
+        return self
+
+    def _full(self, tree: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Full tensors by name (gathered over 'model' once sharded)."""
+        if not self.sharded:
+            return dict(tree)
+        dims = self._dims()
+        return {k: full_tensor(v, dims[k], self.mesh) for k, v in tree.items()}
 
     def state(self) -> Dict[str, Any]:
         """'params' (every parameter of the model), 'lora', 'exp_avg' and
         'exp_avg_sq' (AdamW's moments of the trainable leaves, optax's mu
-        and nu; empty before the first step) and 'step'."""
+        and nu; empty before the first step) and 'step'; full tensors,
+        gathered once sharded."""
         opt = self.optimizer.state
+        full = self._full
         return {
-            "params": dict(self.model.named_parameters()),
-            "lora": dict(self.lora),
-            "exp_avg": {k: opt[p]["exp_avg"] for k, p in self.params.items() if p in opt},
-            "exp_avg_sq": {k: opt[p]["exp_avg_sq"] for k, p in self.params.items() if p in opt},
+            "params": full({k: p for k, (p, _) in held_parameters(self.model).items()}),
+            "lora": full(self.lora),
+            "exp_avg": full({k: opt[p]["exp_avg"] for k, p in self.params.items() if p in opt}),
+            "exp_avg_sq": full({k: opt[p]["exp_avg_sq"] for k, p in self.params.items() if p in opt}),
             "step": self.step,
         }
 
@@ -296,7 +371,8 @@ class CaptionerTrainer:
         positions = torch.arange(s, device=self.device)[None].expand(b, -1)
         if self.mode != "lora":
             return self.model(embeds, positions)
-        with lora_sites(self.model, self.lora, self.lora_alpha / self.lora_rank):
+        lora = self.adapters.values() if self.adapters is not None else self.lora
+        with lora_sites(self.model, lora, self.lora_alpha / self.lora_rank):
             return self.model(embeds, positions)
 
     def _apply(self, loss: torch.Tensor) -> torch.Tensor:
@@ -308,13 +384,16 @@ class CaptionerTrainer:
                 p.grad = torch.zeros_like(p)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
+        for module in (self.model, self.adapters):
+            if module is not None:
+                drop_gathered(module)
         self.step += 1
         return loss.detach()
 
     def _loss_features(self, batch: Mapping[str, Any]) -> torch.Tensor:
         """The feature-level step's loss: projected image features between
         the given text embeddings."""
-        with train_autocast(self.device):
+        with train_autocast(self.device, self.compute_dtype):
             img = self.model.model.mm_projector(self._tensor(batch["image_feats"], torch.float32))
             dt = self.model.dtype
             embeds = torch.cat([self._tensor(batch["pre_embeds"]).to(dt), img.to(dt),
@@ -326,7 +405,7 @@ class CaptionerTrainer:
         """The token-level step's loss: the frozen tower's patch features,
         projected and spliced at each row's image marker."""
         ids = self._tensor(batch["input_ids"], torch.long)
-        with train_autocast(self.device):
+        with train_autocast(self.device, self.compute_dtype):
             with torch.no_grad():
                 hidden = self.model.vision(self._tensor(batch["images"], torch.float32))
                 feats = select_patch_features(hidden, self.agent.cfg.mm_hidden_layer)
@@ -345,7 +424,8 @@ class CaptionerTrainer:
     # -------------------------------------------------------------- saves
 
     def _projector_state(self) -> Dict[str, torch.Tensor]:
-        return {k: p.detach() for k, p in self.model.named_parameters() if k.startswith(PROJECTOR)}
+        held = {k: p for k, (p, _) in held_parameters(self.model).items() if k.startswith(PROJECTOR)}
+        return {k: p.detach() for k, p in self._full(held).items()}
 
     def save_projector_only(self, path: str) -> None:
         """The mm projector alone as one safetensors file
@@ -359,4 +439,4 @@ class CaptionerTrainer:
         reference's get_peft_state_maybe_zero_3 save, train.py:109-131)."""
         from supir_tpu_torch.utils.checkpoint import save_params
 
-        save_params(path, {**{k: p.detach() for k, p in self.lora.items()}, **self._projector_state()})
+        save_params(path, {**{k: p.detach() for k, p in self._full(self.lora).items()}, **self._projector_state()})

@@ -12,6 +12,15 @@
 // twin. The TPU's 128-lane head packing and its single-block variant are
 // TPU layout and have no counterpart here.
 //
+// K3 fp32 is the same kernel with an lse pointer (a runtime argument, not
+// an instance: null for K1 fp32): it replaces _attn_kernel (:164) with
+// with_lse=True, launched from _flash_fwd_lse (:434, pallas_call :459) for
+// fp32 inputs (out_shape q.dtype, :467-470), and also stores each query
+// row's natural-log logsumexp of the scaled scores, lse = m scale + ln(l),
+// [B, H, S] fp32, as K3 does in flash_attn_fwd.cu. The fp32 ring
+// (parallel/ring_attention.py) and the fp32 trainers' FlashAttention
+// forward run it; K4 fp32 (flash_attn_bwd_fp32.cu) reads its lse.
+//
 // What it computes: O = softmax(Q K^T / sqrt(D)) V over q [B,S,H,D] and
 // k/v [B,T,H,D], D 64 or 128, read in place through TMA tensor maps
 // (ops/flash_attention.py:tma_plan, 32-column slabs of 128 bytes: views of
@@ -248,8 +257,8 @@ template <int D, int FAULT>
 __global__ void __launch_bounds__(Tiles<D>::THREADS, 1)
 flash_fwd_fp32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap, MapPos qpos, MapPos kpos, MapPos vpos,
-                      float* __restrict__ o, int H, int S, int T, long long osb, long long oss, long long osh,
-                      float scale_log2, int causal) {
+                      float* __restrict__ o, float* __restrict__ lse, int H, int S, int T, long long osb,
+                      long long oss, long long osh, float scale_log2, int causal) {
   using L = Tiles<D>;
   constexpr int BM = L::BM, BN = L::BN;
   extern __shared__ unsigned char smem_raw[];
@@ -510,6 +519,19 @@ flash_fwd_fp32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_con
       *reinterpret_cast<float2*>(out + (row0 + 8) * oss + 8 * j) =
           make_float2(acc[4 * j + 2] / n1, acc[4 * j + 3] / n1);
   }
+  // K3 fp32: lse = m scale + ln(l) in natural-log units of the scaled
+  // scores, one lane of each row's quad stores it (FAULT 7: log2 units)
+  if (lse != nullptr && tq == 0) {
+    constexpr float LN2 = 0.6931471805599453f;
+    float* lrow = lse + static_cast<long long>(bh) * S;
+    if (FAULT == 7) {
+      if (row0 < S) lrow[row0] = m0 * scale_log2 + log2f(n0);
+      if (row0 + 8 < S) lrow[row0 + 8] = m1 * scale_log2 + log2f(n1);
+    } else {
+      if (row0 < S) lrow[row0] = m0 * scale_log2 * LN2 + logf(n0);
+      if (row0 + 8 < S) lrow[row0 + 8] = m1 * scale_log2 * LN2 + logf(n1);
+    }
+  }
 }
 
 // ------------------------------------------------------------------ host
@@ -520,46 +542,43 @@ struct Maps {
 };
 
 template <int D, int FAULT>
-cudaError_t launch(const Maps& m, float* o, int B, int H, int S, int T, const long long* ost, float scale_log2,
-                   int causal, cudaStream_t stream) {
+cudaError_t launch(const Maps& m, float* o, float* lse, int B, int H, int S, int T, const long long* ost,
+                   float scale_log2, int causal, cudaStream_t stream) {
   using L = Tiles<D>;
   const cudaError_t err = cudaFuncSetAttribute(flash_fwd_fp32_kernel<D, FAULT>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, L::ALLOC);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (S + L::BM - 1) / L::BM);
   flash_fwd_fp32_kernel<D, FAULT><<<grid, L::THREADS, L::ALLOC, stream>>>(
-      m.q, m.k, m.v, m.qp, m.kp, m.vp, o, H, S, T, ost[0], ost[1], ost[2], scale_log2, causal);
+      m.q, m.k, m.v, m.qp, m.kp, m.vp, o, lse, H, S, T, ost[0], ost[1], ost[2], scale_log2, causal);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t dispatch(const Maps& m, float* o, int B, int H, int S, int T, const long long* ost, float scale_log2,
-                     int causal, int fault, cudaStream_t s) {
+cudaError_t dispatch(const Maps& m, float* o, float* lse, int B, int H, int S, int T, const long long* ost,
+                     float scale_log2, int causal, int fault, cudaStream_t s) {
   if ((S + Tiles<D>::BM - 1) / Tiles<D>::BM > 65535) return cudaErrorInvalidValue;
   switch (fault) {
-    case 0: return launch<D, 0>(m, o, B, H, S, T, ost, scale_log2, causal, s);
-    case 1: return launch<D, 1>(m, o, B, H, S, T, ost, scale_log2, causal, s);
-    case 2: return launch<D, 2>(m, o, B, H, S, T, ost, scale_log2, causal, s);
-    case 3: return launch<D, 3>(m, o, B, H, S, T, ost, scale_log2, causal, s);
-    case 4: return launch<D, 4>(m, o, B, H, S, T, ost, scale_log2, causal, s);
-    case 5: return launch<D, 5>(m, o, B, H, S, T, ost, scale_log2, causal, s);
-    case 6: return launch<D, 6>(m, o, B, H, S, T, ost, scale_log2, causal, s);
+    case 0: return launch<D, 0>(m, o, lse, B, H, S, T, ost, scale_log2, causal, s);
+    case 1: return launch<D, 1>(m, o, lse, B, H, S, T, ost, scale_log2, causal, s);
+    case 2: return launch<D, 2>(m, o, lse, B, H, S, T, ost, scale_log2, causal, s);
+    case 3: return launch<D, 3>(m, o, lse, B, H, S, T, ost, scale_log2, causal, s);
+    case 4: return launch<D, 4>(m, o, lse, B, H, S, T, ost, scale_log2, causal, s);
+    case 5: return launch<D, 5>(m, o, lse, B, H, S, T, ost, scale_log2, causal, s);
+    case 6: return launch<D, 6>(m, o, lse, B, H, S, T, ost, scale_log2, causal, s);
+    case 7: return launch<D, 7>(m, o, lse, B, H, S, T, ost, scale_log2, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes: fp32 q [B,S,H,D], k/v [B,T,H,D], o
-// [B,S,H,D]. plans: three tensor-map plans of PLAN_LEN values each (q, k,
-// v; ops/flash_attention.py:tma_plan of fp32 operands: 32-column boxes of
-// BM rows for q, BN for k and v); o's strides in elements (batch, seq,
-// head; the head dim has stride 1, o 8-byte aligned). causal is 0 or 1
-// (then S == T). fault 0 is the kernel, 1-6 its planted faults. Returns 0,
-// a cudaError_t, or minus the CUresult of a failed tensor-map encode.
-extern "C" int supir_flash_attn_fwd_fp32(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
-                                         int T, int D, int causal, const long long* plans, long long osb,
-                                         long long oss, long long osh, float scale, int fault, void* stream) {
+namespace {
+
+// both entry points: lse null for K1 fp32
+int forward(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int S, int T, int D,
+            int causal, const long long* plans, long long osb, long long oss, long long osh, float scale, int fault,
+            void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || T <= 0 || (D != 64 && D != 128)) return static_cast<int>(cudaErrorInvalidValue);
   EncodeTiled fn;
   const cudaError_t found = encode_tiled(&fn);
@@ -576,7 +595,33 @@ extern "C" int supir_flash_attn_fwd_fp32(const void* q, const void* k, const voi
   const float scale_log2 = scale * 1.4426950408889634f;
   float* of = static_cast<float*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = D == 64 ? dispatch<64>(m, of, B, H, S, T, ost, scale_log2, causal, fault, s)
-                                  : dispatch<128>(m, of, B, H, S, T, ost, scale_log2, causal, fault, s);
+  const cudaError_t err = D == 64 ? dispatch<64>(m, of, lse, B, H, S, T, ost, scale_log2, causal, fault, s)
+                                  : dispatch<128>(m, of, lse, B, H, S, T, ost, scale_log2, causal, fault, s);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Plain C entry point for ctypes: fp32 q [B,S,H,D], k/v [B,T,H,D], o
+// [B,S,H,D]. plans: three tensor-map plans of PLAN_LEN values each (q, k,
+// v; ops/flash_attention.py:tma_plan of fp32 operands: 32-column boxes of
+// BM rows for q, BN for k and v); o's strides in elements (batch, seq,
+// head; the head dim has stride 1, o 8-byte aligned). causal is 0 or 1
+// (then S == T). fault 0 is the kernel, 1-6 its planted faults. Returns 0,
+// a cudaError_t, or minus the CUresult of a failed tensor-map encode.
+extern "C" int supir_flash_attn_fwd_fp32(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
+                                         int T, int D, int causal, const long long* plans, long long osb,
+                                         long long oss, long long osh, float scale, int fault, void* stream) {
+  return forward(q, k, v, o, nullptr, B, H, S, T, D, causal, plans, osb, oss, osh, scale, fault, stream);
+}
+
+// K3 fp32: the same, and lse [B, H, S] fp32 (contiguous) receives each
+// query row's natural-log logsumexp of the scaled scores; fault 7 writes
+// it in log2 units.
+extern "C" int supir_flash_attn_fwd_lse_fp32(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                                             int H, int S, int T, int D, int causal, const long long* plans,
+                                             long long osb, long long oss, long long osh, float scale, int fault,
+                                             void* stream) {
+  return forward(q, k, v, o, static_cast<float*>(lse), B, H, S, T, D, causal, plans, osb, oss, osh, scale, fault,
+                 stream);
 }

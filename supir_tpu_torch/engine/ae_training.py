@@ -1,5 +1,5 @@
-"""Autoencoder (first-stage) adversarial training on one card (counterpart
-of supir_tpu/engine/ae_training.py; reference
+"""Autoencoder (first-stage) adversarial training, on one card or over a
+mesh (counterpart of supir_tpu/engine/ae_training.py; reference
 sgm/models/autoencoder.py:182-215 with GeneralLPIPSWithDiscriminator,
 sgm/modules/autoencoding/losses/__init__.py).
 
@@ -38,11 +38,22 @@ Kept from the JAX trainer:
   stop_gradient), so its GroupNorm sites run K2 on the card; every
   GroupNorm site under grad takes the plain form
   (`models/layers.py:GroupNorm32`).
-- fp32 parameters; on the card the forward and backward run under bf16
-  autocast, as `engine/training.py:SUPIRTrainer` does.
-Differences: no mesh (one card holds everything); the two unit-normal
-draws of a step come from the `torch.Generator` passed to `train_step`,
-through `unit_normal`, where JAX splits its key.
+- fp32 parameters, computing in the autoencoder's dtype (`compute_dtype`,
+  JAX's module `dtype`, fp32 by default as in `supir_tpu/models/vae.py:
+  160`): bf16 runs under bf16 autocast on the card, fp32 with none
+  (`engine/training.py:train_autocast`).
+- `mesh=` and `shard_state` (JAX :97-102): the whole state, the generator,
+  the discriminator and both optimizers' moments, held as shards over the
+  mesh's 'model' axis by the FSDP rule (`parallel/sharding.py`); each
+  rank's optimizers step their own shards. As in JAX, the trainer does not
+  split the batch: every rank computes the step on the whole batch, so the
+  gradients of the shards are the slices of the one-card gradients. Each
+  phase reads its sharded tensors under `parametrize.cached()`: one gather
+  a tensor a phase, and the decoder's last kernel that d_weight
+  differentiates is the tensor the forward read.
+Difference: the two unit-normal draws of a step come from the
+`torch.Generator` passed to `train_step`, through `unit_normal`, where JAX
+splits its key.
 
 Images are NHWC [B, H, W, 3] in [-1, 1], as the JAX trainer takes them;
 `perceptual_fn(recon, target)` gets NHWC tensors too (e.g.
@@ -55,6 +66,7 @@ from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 import torch.nn as nn
+from torch.nn.utils import parametrize
 
 from supir_tpu_torch.diffusion.ae_losses import (
     AELossConfig,
@@ -66,6 +78,7 @@ from supir_tpu_torch.diffusion.ae_losses import (
 )
 from supir_tpu_torch.engine.training import set_adam_state, train_autocast
 from supir_tpu_torch.models.vae import AutoencoderKL, DiagonalGaussian
+from supir_tpu_torch.parallel.sharding import drop_gathered, full_tensor, held_parameters, local_block, shard_module
 
 BRANCHES = ("all", "denoise_encoder")
 METRICS = ("loss_g", "loss_d", "rec", "kl", "g_adv", "d_weight", "logits_real", "logits_fake")
@@ -100,7 +113,8 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 class AETrainer:
     """Two-phase adversarial trainer of an fp32 AutoencoderKL on its
-    device (`engine/factory.py:create_ae_trainer` builds both).
+    device (`engine/factory.py:create_ae_trainer` builds both); with
+    `mesh`, its state sharded over the mesh's 'model' axis (`shard_state`).
 
     `train_step(x, target, generator)` runs one step and returns the
     metrics of METRICS as 0-d fp32 tensors: loss_g, loss_d, rec, kl,
@@ -108,7 +122,8 @@ class AETrainer:
 
     def __init__(self, model: AutoencoderKL, loss_cfg: AELossConfig = AELossConfig(),
                  learning_rate: float = 4.5e-6, disc_lr: Optional[float] = None, train_branch: str = "all",
-                 perceptual_fn: Optional[Callable] = None, seed: int = 0):
+                 perceptual_fn: Optional[Callable] = None, seed: int = 0, mesh=None,
+                 compute_dtype: Optional[torch.dtype] = None):
         if train_branch not in BRANCHES:
             raise ValueError(f"train_branch must be one of {BRANCHES}, got {train_branch!r}")
         self.model = model
@@ -118,33 +133,75 @@ class AETrainer:
         self.train_branch = train_branch
         self.perceptual_fn = perceptual_fn
         self.device = next(model.parameters()).device
+        self.compute_dtype = compute_dtype or next(model.parameters()).dtype
+        self.mesh = mesh
+        self.sharded = False
         self.disc = NLayerDiscriminator(device=self.device)
         self.init_state(seed)
+        if mesh is not None:
+            self.shard_state()
 
     # ------------------------------------------------------------- state
 
     def trainable_of(self) -> Dict[str, torch.Tensor]:
         """The generator's trainable leaves by state-dict name (JAX's
-        `_trainable`): the denoise encoder, or every parameter."""
-        named = dict(self.model.named_parameters())
+        `_trainable`): the denoise encoder, or every parameter (this rank's
+        shards over a mesh)."""
+        named = {k: p for k, (p, _) in held_parameters(self.model).items()}
         if self.train_branch == "denoise_encoder":
             return {k: p for k, p in named.items() if k.startswith("denoise_encoder.")}
         return named
 
     def init_state(self, seed: int = 0) -> Dict[str, Any]:
         """A fresh discriminator drawn from `seed` on the device, fresh Adam
-        moments for both phases, step 0."""
+        moments for both phases, step 0 (before `shard_state`: the draws
+        write whole tensors)."""
+        if self.sharded:
+            raise RuntimeError("init_state draws whole tensors: call it before shard_state")
         init_discriminator(self.disc, torch.Generator(device=self.device).manual_seed(seed))
         self.params = self.trainable_of()
         for name, p in self.model.named_parameters():
             p.requires_grad_(name in self.params)
         self.disc.requires_grad_(False)
-        self.opt_g = torch.optim.Adam(list(self.params.values()), lr=self.learning_rate, betas=(0.5, 0.9),
-                                      eps=1e-8, fused=True)
-        self.opt_d = torch.optim.Adam(list(self.disc.parameters()), lr=self.disc_lr, betas=(0.5, 0.9), eps=1e-8,
-                                      fused=True)
+        self._optimizers()
         self.step = 0
         return self.state()
+
+    def _optimizers(self) -> None:
+        disc = [p for p, _ in held_parameters(self.disc).values()]
+        self.opt_g = torch.optim.Adam(list(self.params.values()), lr=self.learning_rate, betas=(0.5, 0.9),
+                                      eps=1e-8, fused=True)
+        self.opt_d = torch.optim.Adam(disc, lr=self.disc_lr, betas=(0.5, 0.9), eps=1e-8, fused=True)
+
+    def shard_state(self) -> "AETrainer":
+        """Hold the generator, the discriminator and both optimizers'
+        moments as this rank's shards over the mesh's 'model' axis (JAX
+        :97-102); a no-op without a mesh. Every rank calls it on the same
+        state."""
+        if self.mesh is None or self.sharded:
+            return self
+        state = self.state()
+        shard_module(self.model, self.mesh)
+        shard_module(self.disc, self.mesh)
+        self.sharded = True
+        self.params = self.trainable_of()
+        self._optimizers()
+        self.load_state(state)
+        return self
+
+    def _full(self, module: nn.Module, tree: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Full tensors (gathered over 'model' where sharded) by name."""
+        if not self.sharded:
+            return dict(tree)
+        held = held_parameters(module)
+        return {k: full_tensor(v, held[k][1], self.mesh) for k, v in tree.items()}
+
+    def _cut(self, module: nn.Module, tree: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's blocks of full tensors by name."""
+        if not self.sharded:
+            return dict(tree)
+        held = held_parameters(module)
+        return {k: local_block(v, held[k][1], self.mesh) for k, v in tree.items()}
 
     @staticmethod
     def _moments(opt: torch.optim.Optimizer, named: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
@@ -154,24 +211,30 @@ class AETrainer:
     def state(self) -> Dict[str, Any]:
         """'gen' (every autoencoder parameter), 'disc', 'opt_g' and 'opt_d'
         ({'exp_avg', 'exp_avg_sq'} by name: optax's mu and nu, empty before
-        the first step) and 'step'."""
-        disc = dict(self.disc.named_parameters())
-        return {"gen": dict(self.model.named_parameters()), "disc": disc,
-                "opt_g": self._moments(self.opt_g, self.params), "opt_d": self._moments(self.opt_d, disc),
+        the first step) and 'step'; full tensors, gathered over a mesh."""
+        gen = {k: p for k, (p, _) in held_parameters(self.model).items()}
+        disc = {k: p for k, (p, _) in held_parameters(self.disc).items()}
+        return {"gen": self._full(self.model, gen), "disc": self._full(self.disc, disc),
+                "opt_g": {m: self._full(self.model, t) for m, t in self._moments(self.opt_g, self.params).items()},
+                "opt_d": {m: self._full(self.disc, t) for m, t in self._moments(self.opt_d, disc).items()},
                 "step": self.step}
 
     @torch.no_grad()
     def load_state(self, state: Mapping[str, Any]) -> None:
         """Load a state shaped as `state()` returns it (for instance from
-        `utils/weights.py:ae_train_state_from_jax`)."""
+        `utils/weights.py:ae_train_state_from_jax`), full tensors cut to
+        this rank's blocks over a mesh."""
         for module, key in ((self.model, "gen"), (self.disc, "disc")):
-            named = dict(module.named_parameters())
-            for k, v in state[key].items():
+            named = {k: p for k, (p, _) in held_parameters(module).items()}
+            for k, v in self._cut(module, state[key]).items():
                 named[k].copy_(v)
         self.step = int(state["step"])
-        for opt, named, moments in ((self.opt_g, self.params, state["opt_g"]),
-                                    (self.opt_d, dict(self.disc.named_parameters()), state["opt_d"])):
-            set_adam_state(opt, named, moments["exp_avg"], moments["exp_avg_sq"], self.step)
+        disc = {k: p for k, (p, _) in held_parameters(self.disc).items()}
+        for opt, module, named, moments in ((self.opt_g, self.model, self.params, state["opt_g"]),
+                                            (self.opt_d, self.disc, disc, state["opt_d"])):
+            set_adam_state(opt, named, self._cut(module, moments["exp_avg"]), self._cut(module, moments["exp_avg_sq"]),
+                           self.step)
+            drop_gathered(module)
 
     # -------------------------------------------------------------- step
 
@@ -192,8 +255,12 @@ class AETrainer:
         return (rec_grad.norm() / (g_grad.norm() + 1e-4)).clamp(0.0, 1e4).detach()
 
     def _generator_phase(self, x, target, generator):
+        with parametrize.cached():
+            return self._generator_step(x, target, generator)
+
+    def _generator_step(self, x, target, generator):
         cfg = self.loss_cfg
-        with train_autocast(self.device):
+        with train_autocast(self.device, self.compute_dtype):
             recon, mean, logvar = self._recon(x, generator)
             recon = recon.float()
             rec = (recon - target).abs().mean()
@@ -209,14 +276,15 @@ class AETrainer:
             p.grad = grad
         self.opt_g.step()
         self.opt_g.zero_grad(set_to_none=True)
+        drop_gathered(self.model)
         return {"loss_g": total, "rec": rec, "kl": kl, "g_adv": g, "d_weight": d_weight}
 
     def _discriminator_phase(self, x, target, generator):
-        with torch.no_grad(), train_autocast(self.device):
+        with torch.no_grad(), train_autocast(self.device, self.compute_dtype):
             recon, _, _ = self._recon(x, generator)
         self.disc.requires_grad_(True)
         try:
-            with train_autocast(self.device):
+            with parametrize.cached(), train_autocast(self.device, self.compute_dtype):
                 logits_real = self.disc(target).float()
                 logits_fake = self.disc(recon).float()
                 loss_d = discriminator_loss(logits_real, logits_fake, self.step, self.loss_cfg)
@@ -225,6 +293,7 @@ class AETrainer:
             self.disc.requires_grad_(False)
         self.opt_d.step()
         self.opt_d.zero_grad(set_to_none=True)
+        drop_gathered(self.disc)
         return {"loss_d": loss_d, "logits_real": logits_real.mean(), "logits_fake": logits_fake.mean()}
 
     def train_step(self, x, target, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:

@@ -21,7 +21,7 @@ from typing import Mapping, Optional
 import torch
 import torch.nn as nn
 
-from supir_tpu_torch.config import ConditionerConfig, SUPIRConfig, UNetConfig, VAEConfig
+from supir_tpu_torch.config import ConditionerConfig, SUPIRConfig, UNetConfig, VAEConfig, dtype_of
 from supir_tpu_torch.diffusion.ae_losses import AELossConfig
 from supir_tpu_torch.engine.ae_training import AETrainer
 from supir_tpu_torch.engine.supir import SUPIREngine, SUPIRModel
@@ -104,27 +104,32 @@ def create_engine(cfg: Optional[SUPIRConfig] = None, device="cuda",
 def create_trainer(cfg: Optional[SUPIRConfig] = None, device="cuda",
                    state_dict: Optional[Mapping[str, torch.Tensor]] = None, seed: int = 0,
                    remat: bool = True, learning_rate: float = 1e-5, weight_decay: float = 0.0,
-                   ema_decay: Optional[float] = 0.9999) -> SUPIRTrainer:
+                   ema_decay: Optional[float] = 0.9999, mesh=None) -> SUPIRTrainer:
     """A SUPIRTrainer over an engine with fp32 parameters (the JAX trainer's
-    default, `create_engine(param_dtype=None)`); on the card its steps run
-    under bf16 autocast. `remat` recomputes ResBlocks and
-    SpatialTransformers in the backward pass. Raises without a card unless
-    `device="cpu"`."""
+    default, `create_engine(param_dtype=None)`); on the card its steps
+    compute in the config's `diffusion_dtype` (bf16 autocast, or fp32 with
+    none). `remat` recomputes ResBlocks and SpatialTransformers in the
+    backward pass. With `mesh` the state is sharded over it (every rank
+    builds the same engine from the same seed or state dict, then shards).
+    Raises without a card unless `device="cpu"`."""
     engine = create_engine(cfg, device, state_dict, seed, param_dtype=torch.float32)
     for name in ("diffusion_model", "control_model"):
         engine.model.model[name].remat = remat
-    return SUPIRTrainer(engine, learning_rate, weight_decay, ema_decay)
+    return SUPIRTrainer(engine, mesh, learning_rate, weight_decay, ema_decay)
 
 
 def create_ae_trainer(cfg: Optional[VAEConfig] = None, device="cuda",
                       state_dict: Optional[Mapping[str, torch.Tensor]] = None, seed: int = 0,
                       loss_cfg: AELossConfig = AELossConfig(), learning_rate: float = 4.5e-6,
-                      train_branch: str = "all", perceptual_fn=None) -> AETrainer:
+                      train_branch: str = "all", perceptual_fn=None, ae_dtype: str = "fp32",
+                      mesh=None) -> AETrainer:
     """An AETrainer over an fp32 AutoencoderKL with its denoise encoder
     (SDXL's VAEConfig by default) on `device`, filled from `state_dict`
     (strict; the port's AutoencoderKL keys) or randomly from `seed`; the
-    discriminator is drawn from seed + 1. On the card its steps run under
-    bf16 autocast. Raises without a card unless `device="cpu"`."""
+    discriminator is drawn from seed + 1. Its steps compute in `ae_dtype`
+    (the JAX VAE's `dtype`, fp32 by default; "bf16" runs under bf16
+    autocast on the card); with `mesh` its state is sharded over the mesh's
+    'model' axis. Raises without a card unless `device="cpu"`."""
     device = resolve_device(device)
     with torch.device("meta"):
         model = AutoencoderKL(cfg or VAEConfig(), dtype=torch.float32)
@@ -134,4 +139,4 @@ def create_ae_trainer(cfg: Optional[VAEConfig] = None, device="cuda",
     else:
         init_random(model, torch.Generator(device=device).manual_seed(seed))
     return AETrainer(model, loss_cfg, learning_rate, train_branch=train_branch, perceptual_fn=perceptual_fn,
-                     seed=seed + 1)
+                     seed=seed + 1, mesh=mesh, compute_dtype=dtype_of(ae_dtype))

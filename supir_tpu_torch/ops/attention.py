@@ -15,7 +15,8 @@ to K1, fp32 (an engine with fp32 parameters: `--full_params`,
 on K1 fp32 and is rounded once back to fp16. No site is cast down.
 
 Under autograd, a flash site whose q, k or v requires grad (grad mode on)
-goes to `FlashAttention` (K3 forward, K4 backward), as JAX differentiates
+goes to `FlashAttention` (K3 forward, K4 backward; K3 fp32 and K4 fp32 for
+fp32, with the same promotion and fp16 widening), as JAX differentiates
 `flash_attention` through its `custom_vjp`
 (`supir_tpu/ops/flash_attention.py:263-267, 305-325`); every other flash
 site, where nothing is differentiated, goes to K1 (`flash_attention`).
@@ -92,10 +93,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
         return ring_attention(q, k, v, ring[0], axis=ring[1])
     s, t = q.shape[1], k.shape[1]
     if bias is None and flash_eligible(s, t, q.shape[-1]) and (not causal or s == t):
+        dtype, work = kernel_dtypes(q, k, v)
+        qw, kw, vw = (x.to(work) for x in (q, k, v))
         if needs_grad(q, k, v):
-            return FlashAttention.apply(q, k, v, causal, alibi_slopes)
-        dtype = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
-        if dtype == torch.float16:
-            return flash_attention(q.float(), k.float(), v.float(), causal, alibi_slopes).to(dtype)
-        return flash_attention(q.to(dtype), k.to(dtype), v.to(dtype), causal, alibi_slopes)
+            return FlashAttention.apply(qw, kw, vw, causal, alibi_slopes).to(dtype)
+        return flash_attention(qw, kw, vw, causal, alibi_slopes).to(dtype)
     return attention_plain(q, k, v, causal=causal, bias=bias, alibi_slopes=alibi_slopes)
+
+
+def kernel_dtypes(*tensors: torch.Tensor):
+    """(the operands' common dtype, the dtype a flash kernel runs them in):
+    mixed dtypes are promoted; fp16 runs in fp32, widened exactly and
+    rounded back once; bf16 and fp32 run as they are. Nothing is cast
+    down."""
+    dtype = tensors[0].dtype
+    for t in tensors[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return dtype, torch.float32 if dtype == torch.float16 else dtype

@@ -48,9 +48,18 @@ operands: 32-column slabs); V is written transposed in the key order of
 registers. `flash_attention` launches it for fp32 inputs and counts those
 calls in `flash_attention.fp32_launches`, apart from `launches`.
 `flash_fp32_emulate` walks its warpgroups, tiles, TF32 roundings and
-products on the CPU. K3, K4 and the ALiBi variants take bf16 only: no
-path of the port reaches them in fp32 (the trainer runs under bf16
-autocast, MPT in bf16).
+products on the CPU.
+
+K3 fp32 and K4 fp32 are K3 and K4 for fp32 operands, as `_flash_fwd_lse`
+and `_flash_bwd` write in q's dtype (:467-470, :637, :663): the fp32 ring
+(`parallel/ring_attention.py`) and the trainers whose model computes in
+fp32 (`FlashAttention` under grad) run them. K3 fp32 is K1 fp32's kernel
+with an lse output (`flash_attention_fwd_lse` counts it in
+`fp32_launches`); K4 fp32, `supir_tpu_torch/csrc/flash_attn_bwd_fp32.cu`,
+is a first design on the CUDA cores in fp32 FMA tiles (the source says
+why), counted in `flash_attention_bwd.fp32_launches`. The ALiBi variants
+take bf16 only: MPT runs in bf16 in both packages, and no fp32 ALiBi
+kernel is ported.
 
 Each wrapper, on a CPU tensor, returns its plain version (`attention_plain`,
 `attention_fwd_lse_plain`, `attention_bwd_plain`); on a CUDA tensor it
@@ -77,7 +86,8 @@ from supir_tpu_torch.ops.grad_guard import refuse_grad
 _FWD_SOURCE = "flash_attn_fwd.cu"
 _BWD_SOURCE = "flash_attn_bwd.cu"
 _FP32_SOURCE = "flash_attn_fwd_fp32.cu"
-SOURCES = (_FWD_SOURCE, _BWD_SOURCE, _FP32_SOURCE)  # for cuda_build.build_all
+_BWD_FP32_SOURCE = "flash_attn_bwd_fp32.cu"
+SOURCES = (_FWD_SOURCE, _BWD_SOURCE, _FP32_SOURCE, _BWD_FP32_SOURCE)  # for cuda_build.build_all
 HEAD_DIMS = (64, 128)
 # the forward's tiles (csrc/flash_attn_fwd.cu: BM, BN, SLAB)
 BLOCK_M = 128  # query rows per block: two consumer warpgroups of 64
@@ -92,12 +102,18 @@ BWD_BOX = 64     # rows of every backward TMA box (q, k, v and dout)
 FP32_TILES = {64: (128, 64), 128: (64, 32)}
 FP32_WG_ROWS = 64
 LOG2E = 1.4426950408889634  # the kernels' fp32 log2(e), folded into the scale
+LN2 = 0.6931471805599453
 # K1 fp32's planted faults: the accumulator not rescaled when the max rises,
 # the ragged last key tile not masked, the causal diagonal not masked, S on
 # one product (hi hi: plain TF32), P V without V's lo part, V^T written in
 # key order (without the fragment permutation)
 (FP32_FAULT_NO_RESCALE, FP32_FAULT_RAGGED, FP32_FAULT_DIAGONAL, FP32_FAULT_ONE_PRODUCT, FP32_FAULT_NO_V_LO,
  FP32_FAULT_VT_ORDER) = range(1, 7)
+FP32_FAULT_LSE_LOG2 = 7  # K3 fp32 only: the lse written in log2 units (O untouched)
+# K4 fp32's planted faults (csrc/flash_attn_bwd_fp32.cu): delta dropped, dK
+# without the scale, the causal diagonal not masked, P read with the lse in
+# log2 units
+BWD_FP32_FAULT_NO_DELTA, BWD_FP32_FAULT_DK_SCALE, BWD_FP32_FAULT_DIAGONAL, BWD_FP32_FAULT_LSE_LOG2 = range(1, 5)
 TF32_HALF = 0x1000  # half a TF32 ulp, in the fp32 bits
 TF32_KEEP = -0x2000  # 0xFFFFE000 as an int32: the bits of an fp32 word a TF32 operand keeps
 
@@ -289,13 +305,30 @@ def _fp32_library() -> ctypes.CDLL:
     from supir_tpu_torch.ops.cuda_build import load_library
 
     lib = load_library(_FP32_SOURCE)
-    fn = lib.supir_flash_attn_fwd_fp32
+    # q, k, v, out[, lse]; B H S T D causal; the three plans; out's strides; scale, fault, stream
+    for fn, n_ptrs in ((lib.supir_flash_attn_fwd_fp32, 4), (lib.supir_flash_attn_fwd_lse_fp32, 5)):
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * n_ptrs
+            + [ctypes.c_int] * 6
+            + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_longlong] * 3
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        )
+    return lib
+
+
+@functools.cache
+def _bwd_fp32_library() -> ctypes.CDLL:
+    from supir_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library(_BWD_FP32_SOURCE)
+    fn = lib.supir_flash_attn_bwd_fp32
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 4   # q, k, v, out
+        [ctypes.c_void_p] * 10  # q, k, v, out, dout, lse, delta scratch, dq, dk, dv
         + [ctypes.c_int] * 6    # B H S T D causal
-        + [ctypes.POINTER(ctypes.c_longlong)]  # the three plans
-        + [ctypes.c_longlong] * 3  # out's strides
+        + [ctypes.POINTER(ctypes.c_longlong)]  # strides of q, k, v, out, dout
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, fault, stream
     )
     return lib
@@ -327,12 +360,12 @@ def _on_card(kernel: str, q: torch.Tensor, inputs) -> bool:
     return True
 
 
-BF16_ONLY = (torch.bfloat16,)
-K1_DTYPES = (torch.bfloat16, torch.float32)
+BF16_ONLY = (torch.bfloat16,)  # the ALiBi kernels
+K1_DTYPES = (torch.bfloat16, torch.float32)  # K1, K3 and K4: bf16 and fp32 instances
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, *more,
-           dtypes=BF16_ONLY, kernel: str = "the bf16 kernels") -> None:
+           dtypes=K1_DTYPES, kernel: str = "K1") -> None:
     """Shapes, dtype, device and layout the kernels take: q [B,S,H,D], k/v
     [B,T,H,D], all of one dtype of `dtypes`; `more` are further [B,*,H,D]
     operands (out, dout). Every operand 16-byte aligned with strides in
@@ -353,9 +386,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, *mor
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype not in dtypes or t.dtype != q.dtype:
             if dtypes == BF16_ONLY:
-                raise TypeError(f"{kernel} take bf16 (no path of the port reaches them in fp32); {name} is "
-                                f"{t.dtype}")
-            raise TypeError(f"K1 takes all-bf16 or all-fp32 q, k, v; q is {q.dtype}, {name} {t.dtype}")
+                raise TypeError(f"{kernel} take bf16 only (the fp32 ALiBi kernels are not ported: MPT runs in "
+                                f"bf16); {name} is {t.dtype}")
+            raise TypeError(f"{kernel} takes all-bf16 or all-fp32 operands; q is {q.dtype}, {name} {t.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous (stride {t.stride()})")
         if any(s * t.element_size() % 16 for s in t.stride()[:3]) or t.data_ptr() % 16:
@@ -417,27 +450,66 @@ def _forward(q, k, v, causal: bool, with_lse: bool, slopes: torch.Tensor | None 
     return out, lse
 
 
-def _forward_fp32(q, k, v, causal: bool, fault: int = 0) -> torch.Tensor:
-    """Launch K1 fp32 (`fault` > 0: one of its FP32_FAULT_* instances, for
-    the checks); returns out, fp32 [B,S,H,D]. Counts nothing."""
+def _launch_fp32(q, k, v, causal: bool, fault: int, with_lse: bool):
+    """Launch K1 fp32, or K3 fp32 (with_lse: the same kernel, which then
+    also writes the lse); returns (out, lse or None)."""
     b, s, h, d = q.shape
     t = k.shape[1]
     out = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
     if s == 0 or b * h == 0:
-        return out
+        return out, lse
     if t == 0:  # no keys: what the plain version gives (TMA takes no empty dim)
-        return out.zero_()
+        return out.zero_(), None if lse is None else lse.fill_(float("-inf"))
     rows, keys = FP32_TILES[d]
     plans = _packed_plans(tma_plan(q, rows), tma_plan(k, keys), tma_plan(v, keys))
-    fn = _fp32_library().supir_flash_attn_fwd_fp32
+    lib = _fp32_library()
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    fn = lib.supir_flash_attn_fwd_fp32
+    if with_lse:
+        ptrs.append(lse.data_ptr())
+        fn = lib.supir_flash_attn_fwd_lse_fp32
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s, t, d, int(causal), plans,
-                 *out.stride()[:3], d ** -0.5, fault, stream)
+        err = fn(*ptrs, b, h, s, t, d, int(causal), plans, *out.stride()[:3], d ** -0.5, fault, stream)
+    label = "flash attention forward (fp32" + (", lse)" if with_lse else ")")
     if err < 0:
-        raise RuntimeError(f"flash attention forward (fp32): cuTensorMapEncodeTiled failed with CUresult {-err}")
-    _raise_on(err, "flash attention forward (fp32)")
-    return out
+        raise RuntimeError(f"{label}: cuTensorMapEncodeTiled failed with CUresult {-err}")
+    _raise_on(err, label)
+    return out, lse
+
+
+def _forward_fp32(q, k, v, causal: bool, fault: int = 0) -> torch.Tensor:
+    """Launch K1 fp32 (`fault` > 0: one of its FP32_FAULT_* instances, for
+    the checks); returns out, fp32 [B,S,H,D]. Counts nothing."""
+    return _launch_fp32(q, k, v, causal, fault, with_lse=False)[0]
+
+
+def _forward_fp32_lse(q, k, v, causal: bool, fault: int = 0):
+    """Launch K3 fp32 (`fault`: an FP32_FAULT_*, FP32_FAULT_LSE_LOG2 too);
+    returns (out fp32 [B,S,H,D], lse fp32 [B,H,S]). Counts nothing."""
+    return _launch_fp32(q, k, v, causal, fault, with_lse=True)
+
+
+def _backward_fp32(q, k, v, out, lse, dout, causal: bool, fault: int = 0):
+    """Launch K4 fp32 (`fault`: a BWD_FP32_FAULT_*, for the checks) on
+    checked operands; returns (dq, dk, dv), fp32 and contiguous. Counts
+    nothing."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    dq, dk, dv = (torch.empty(x.shape, dtype=torch.float32, device=q.device) for x in (q, k, v))
+    if s == 0 or t == 0 or b * h == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty(b * h * s, dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 15)(*_strides(q, k, v, out, dout))
+    fn = _bwd_fp32_library().supir_flash_attn_bwd_fp32
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s, t, d, int(causal), strides,
+                 d ** -0.5, fault, stream)
+    _raise_on(err, "flash attention backward (fp32)")
+    return dq, dk, dv
 
 
 def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -472,7 +544,7 @@ VT_KEY = tuple(vt_key(p) for p in range(8))
 
 
 def flash_fp32_emulate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
-                       fault: int = 0) -> torch.Tensor:
+                       fault: int = 0, with_lse: bool = False):
     """K1 fp32's kernel walked on the CPU in its own order: warpgroups of 64
     query rows, key tiles of FP32_TILES[D][1] keys (zero past T; with
     `causal`, none past the warpgroup's last row), every operand split into
@@ -483,7 +555,9 @@ def flash_fp32_emulate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal
     rescaled when the max rises, each tile's P V summed apart and added to
     it, O / max(l, 1e-30). `fault` plants
     FP32_FAULT_*: with FP32_FAULT_VT_ORDER P's key 8 g + VT_KEY[p] meets V's
-    key 8 g + p. Returns fp32 [B,S,H,D]."""
+    key 8 g + p. Returns fp32 [B,S,H,D]; with `with_lse` (K3 fp32) also the
+    lse [B,H,S], m scale + ln(max(l, 1e-30)) (FP32_FAULT_LSE_LOG2: in log2
+    units)."""
     b, s, h, d = q.shape
     t = k.shape[1]
     bn = FP32_TILES[d][1]
@@ -499,6 +573,7 @@ def flash_fp32_emulate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal
         meets = torch.tensor([8 * (key // 8) + VT_KEY.index(key % 8) for key in range(n_tiles * bn)])
         v_hi, v_lo = v_hi[:, :, meets], v_lo[:, :, meets]
     out = torch.empty(b, h, s, d)
+    lse = torch.empty(b, h, s)
     for first in range(0, s, FP32_WG_ROWS):
         rows = torch.arange(first, min(s, first + FP32_WG_ROWS))
         qa_hi, qa_lo = q_hi[:, :, rows], q_lo[:, :, rows]
@@ -533,7 +608,11 @@ def flash_fp32_emulate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal
             acc = acc + (pv + p_hi @ v_hi[:, :, keys])
             m = m_new
         out[:, :, rows] = acc / l.clamp_min(1e-30)[..., None]
-    return out.transpose(1, 2)
+        if fault == FP32_FAULT_LSE_LOG2:
+            lse[:, :, rows] = m * c + torch.log2(l.clamp_min(1e-30))
+        else:
+            lse[:, :, rows] = m * c * torch.tensor(LN2, dtype=torch.float32) + torch.log(l.clamp_min(1e-30))
+    return (out.transpose(1, 2), lse) if with_lse else out.transpose(1, 2)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -546,7 +625,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     card: raises there if grad mode is on and an input requires grad."""
     if not _on_card("flash_attention (K1)", q, (q, k, v)):
         return attention_plain(q, k, v, causal=causal, alibi_slopes=alibi_slopes)
-    _check(q, k, v, causal, dtypes=K1_DTYPES if alibi_slopes is None else BF16_ONLY, kernel="the ALiBi kernels")
+    _check(q, k, v, causal, **_dtypes(alibi_slopes, "K1"))
     if q.dtype == torch.float32:
         out = _forward_fp32(q, k, v, causal)
         flash_attention.fp32_launches += 1
@@ -560,14 +639,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _dtypes(alibi_slopes, kernel: str) -> dict:
+    """`_check`'s dtypes and kernel name: bf16 or fp32, ALiBi bf16 only."""
+    if alibi_slopes is None:
+        return {"dtypes": K1_DTYPES, "kernel": kernel}
+    return {"dtypes": BF16_ONLY, "kernel": "the ALiBi kernels"}
+
+
 def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             causal: bool = False, alibi_slopes=None) -> tuple[torch.Tensor, torch.Tensor]:
     """K3: (out [B,S,H,D], lse [B,H,S] fp32), lse the natural-log
-    logsumexp of each query row's scaled (ALiBi-biased) scores. ALiBi
-    launches are counted in `alibi_launches`."""
+    logsumexp of each query row's scaled (ALiBi-biased) scores. bf16 q, k,
+    v launch K3 (counted in `launches`), fp32 ones K3 fp32 (counted in
+    `fp32_launches`); ALiBi (bf16 only) launches are counted in
+    `alibi_launches`."""
     if not _on_card("flash_attention_fwd_lse (K3)", q, (q, k, v)):
         return attention_fwd_lse_plain(q, k, v, causal, alibi_slopes)
-    _check(q, k, v, causal, kernel="K3 and K3 ALiBi")
+    _check(q, k, v, causal, **_dtypes(alibi_slopes, "K3"))
+    if q.dtype == torch.float32:
+        out, lse = _forward_fp32_lse(q, k, v, causal)
+        flash_attention_fwd_lse.fp32_launches += 1
+        return out, lse
     slopes = _slopes(alibi_slopes, q)
     out, lse = _forward(q, k, v, causal, with_lse=True, slopes=slopes)
     if slopes is None:
@@ -581,15 +673,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
                         lse: torch.Tensor, dout: torch.Tensor, causal: bool = False, alibi_slopes=None):
     """K4: (dq, dk, dv) in q's dtype from the forward's residuals (q, k, v,
     out, lse as K3 returns them, with the same `alibi_slopes`) and the
-    output gradient dout. ALiBi launches are counted in `alibi_launches`."""
+    output gradient dout. bf16 operands launch K4 (counted in `launches`),
+    fp32 ones K4 fp32 (counted in `fp32_launches`); ALiBi (bf16 only)
+    launches are counted in `alibi_launches`."""
     if not _on_card("flash_attention_bwd (K4)", q, (q, k, v, out, lse, dout)):
         return attention_bwd_plain(q, k, v, out, lse, dout, causal, alibi_slopes)
-    _check(q, k, v, causal, out, dout, kernel="K4 and K4 ALiBi")
-    slopes = _slopes(alibi_slopes, q)
+    _check(q, k, v, causal, out, dout, **_dtypes(alibi_slopes, "K4"))
     b, s, h, d = q.shape
     t = k.shape[1]
     if lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous fp32 [{b},{h},{s}] tensor, got {lse.dtype} {tuple(lse.shape)}")
+    if q.dtype == torch.float32:
+        grads = _backward_fp32(q, k, v, out, lse, dout, causal)
+        flash_attention_bwd.fp32_launches += 1
+        return grads
+    slopes = _slopes(alibi_slopes, q)
     dq, dk, dv = (torch.empty_like(x, memory_format=torch.contiguous_format) for x in (q, k, v))
     if s == 0 or t == 0 or b * h == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
@@ -617,13 +715,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
 for _wrapper in (flash_attention, flash_attention_fwd_lse, flash_attention_bwd):
     _wrapper.launches = 0
     _wrapper.alibi_launches = 0
-flash_attention.fp32_launches = 0
+    _wrapper.fp32_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention, the counterpart of the JAX function's
     `custom_vjp` (`_make_diff_fn`, :305-325): the forward runs K3 and saves
-    q, k, v, out and lse (and the ALiBi slopes); the backward runs K4. On
+    q, k, v, out and lse (and the ALiBi slopes); the backward runs K4, each
+    in the operands' dtype (bf16, or fp32 on K3 fp32 and K4 fp32). On
     CPU tensors both are the plain versions, so the CPU tests run the
     backward's arithmetic. The backward runs under the forward's autocast
     state."""

@@ -24,8 +24,9 @@ send/recv pair does (0.47-0.82 against 0.81-1.34 GB/s on an H100
 machine's host, PERF.md §5), so on gloo the port's all-gather is a
 send/recv exchange between every pair of ranks, its bytes split over
 LANES gloo groups that `make_mesh` opens beside each mesh line. The
-helpers below (`all_gather`, `all_reduce_`, `ring_shift`) are the port's
-one place that knows this: on a gloo group they stage a CUDA tensor bound
+helpers below (`all_gather`, `all_reduce_`, `ring_shift`, and the
+trainers' `all_reduce_mean_` and its bucketed form
+`all_reduce_mean_bucket`) are the port's one place that knows this: on a gloo group they stage a CUDA tensor bound
 for send/recv through pinned host memory (PyTorch's caching host
 allocator keeps the pinned blocks), and on NCCL or on the CPU they hand
 the tensor over as it is. The compute stays on the card.
@@ -149,6 +150,28 @@ def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     """Sum x over the group, in place (gloo takes CUDA tensors here)."""
     dist.all_reduce(x, group=group)
     return x
+
+
+def all_reduce_mean_(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of x over the group, in place: a summed all-reduce divided
+    by the group's size (gloo takes CUDA tensors here)."""
+    dist.all_reduce(x, group=group)
+    return x.div_(dist.get_world_size(group))
+
+
+def all_reduce_mean_bucket(tensors, group) -> None:
+    """`all_reduce_mean_` of every tensor of a bucket, in one collective a
+    dtype: the tensors laid end to end, reduced, and copied back."""
+    by_dtype: dict = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        all_reduce_mean_(flat, group)
+        at = 0
+        for t in ts:
+            t.copy_(flat[at:at + t.numel()].view_as(t))
+            at += t.numel()
 
 
 def ring_shift(x: torch.Tensor, group) -> torch.Tensor:

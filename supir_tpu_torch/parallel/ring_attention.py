@@ -9,25 +9,27 @@ k/v slices rotate n - 1 times around the ring (`mesh.ring_shift`, JAX's
 The ranks' outputs are all-gathered back to the replicated [B, S, H, D],
 as the JAX function's `shard_map` output is used.
 
-Each block is K3 (`flash_attention_fwd_lse`, bf16, on the card; its plain
-version on the CPU), which returns the block's output and the logsumexp of
-its rows. The blocks merge by their lse in fp32: with m = max(lse_acc,
+Each block is K3 (`flash_attention_fwd_lse`: K3 for bf16, K3 fp32 for
+fp32, on the card; its plain version on the CPU), which returns the
+block's output and the logsumexp of its rows. The blocks merge by their lse in fp32: with m = max(lse_acc,
 lse_i), a = e^(lse_acc - m) and b = e^(lse_i - m),
 o <- (o a + o_i b) / (a + b) and lse_acc <- m + log(a + b). In exact
 arithmetic this is the JAX function's (o, m, l) online softmax
 (:47-58); it lets the kernel do the block where `_local_attn_stats` would
 build a [B, H, S/n, S/n] fp32 logit tensor.
 
-K3 is bf16-only, so on the card an input of another dtype raises
-TypeError rather than being cast down. No path of either package
-differentiates the ring: inputs that require grad under grad mode raise,
-as the kernel wrappers' do.
+The ring runs in its inputs' dtype, as the JAX function does: mixed
+dtypes are promoted, and fp16 is widened exactly to fp32, runs on K3 fp32
+and is rounded back once (`ops.attention.kernel_dtypes`); nothing is cast
+down. No path of either package differentiates the ring: inputs that
+require grad under grad mode raise, as the kernel wrappers' do.
 """
 
 from __future__ import annotations
 
 import torch
 
+from supir_tpu_torch.ops.attention import kernel_dtypes
 from supir_tpu_torch.ops.flash_attention import flash_attention_fwd_lse
 from supir_tpu_torch.ops.grad_guard import refuse_grad
 from supir_tpu_torch.parallel.mesh import all_gather, axis_group, ring_shift
@@ -48,9 +50,6 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, axis
     of the axis calls it with the same q, k and v; each gets the whole
     [B, S, H, D] result."""
     refuse_grad("ring_attention", q, k, v)
-    if q.is_cuda and not q.dtype == k.dtype == v.dtype == torch.bfloat16:
-        raise TypeError(f"ring_attention runs its blocks on K3, which takes bf16; got q {q.dtype}, k {k.dtype}, "
-                        f"v {v.dtype} (no cast down: an fp32 ring on the card is not ported)")
     if q.shape != k.shape or k.shape != v.shape:
         raise ValueError(f"ring_attention is self-attention: q, k, v of one shape; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -59,7 +58,8 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, axis
     if s % n:
         raise ValueError(f"sequence {s} does not divide over the {n} ranks of axis {axis!r}")
     part = s // n
-    qc, kc, vc = (x[:, r * part:(r + 1) * part].contiguous() for x in (q, k, v))
+    dtype, work = kernel_dtypes(q, k, v)
+    qc, kc, vc = (x[:, r * part:(r + 1) * part].to(work).contiguous() for x in (q, k, v))
     o, lse = None, None
     for i in range(n):
         o_i, lse_i = flash_attention_fwd_lse(qc, kc, vc)
@@ -67,4 +67,4 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, axis
         if i + 1 < n:
             kv = ring_shift(torch.stack([kc, vc]), group)
             kc, vc = kv[0], kv[1]
-    return all_gather(o.to(q.dtype), group, dim=1)
+    return all_gather(o.to(dtype), group, dim=1)

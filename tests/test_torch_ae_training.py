@@ -321,3 +321,38 @@ def test_trainer_two_steps_match_jax(trees, monkeypatch, branch, disc_start):
 def test_trainer_refuses_unknown_branch():
     with pytest.raises(ValueError, match="train_branch"):
         create_ae_trainer(VAEConfig().tiny(), "cpu", train_branch="decoder")
+
+
+def test_sharded_trainer_step_matches_jax(trees, tmp_path):
+    """AETrainer with its state sharded over two gloo ranks' 'model' axis
+    (`mesh=`, `shard_state`), branch "all" at disc_start 0, against JAX's
+    first step as the one-process test holds it: the generator's metrics,
+    its updated leaves and its Adam moments (2e-3, or the other side of a
+    kink)."""
+    import torch_ranks
+
+    model, gen, disc = trees
+    jtrainer = JAETrainer(model, JL.AELossConfig(disc_start=0), learning_rate=LR, train_branch="all")
+    copy = lambda tree: jax.tree_util.tree_map(jnp.array, tree)  # noqa: E731
+    state = {"gen": copy(gen), "disc": copy(disc), "opt_g": jtrainer.opt_g.init(copy(gen)),
+             "opt_d": jtrainer.opt_d.init(copy(disc)), "step": jnp.zeros((), jnp.int32)}
+    before = jax.tree_util.tree_map(np.asarray, state)
+    _, hq = _images(2)
+    key = jax.random.PRNGKey(40)
+    moved = [jax.tree_util.tree_map(np.asarray, jtrainer.train_step(copy(before), *_perturbed((hq, hq), sign),
+                                                                        key)[0]) for sign in (1, -1)]
+    after, metrics = jtrainer.train_step(state, hq, hq, key)
+    bridged = [ae_train_state_from_jax(jax.tree_util.tree_map(np.asarray, s), VAEConfig().tiny())
+               for s in (before, after)]
+    draws = _jax_draws(key, (2, SIZE // 8, SIZE // 8, JVAEConfig().tiny().embed_dim))
+    ranks = torch_ranks.spawn(2, tmp_path, ae_sharded_step=dict(
+        cfg=VAEConfig().tiny(), state=bridged[0], x=hq, target=hq, draws=draws, lr=LR, branch="all")).join()
+    for r, rank in enumerate(ranks):
+        got, label = rank["ae_sharded_step"], f"sharded rank {r}"
+        assert got["sharded"] and got["draws_left"] == 0
+        _check_metrics(label, got["metrics"], {k: float(v) for k, v in metrics.items()}, GEN_METRICS)
+        _check_leaves(label + " gen", got["gen"], bridged[0]["gen"], bridged[1]["gen"])
+        for m in ("exp_avg", "exp_avg_sq"):
+            others = [ae_train_state_from_jax(o, VAEConfig().tiny())["opt_g"][m] for o in moved]
+            _check_close(f"{label} opt_g {m}", got["opt_g"][m], bridged[1]["opt_g"][m], LEAF_REL, others)
+

@@ -225,6 +225,21 @@ def _bridged(tree, jagent):
     return sd
 
 
+def _check_changes(got, trainable, want_before, want_after):
+    """Each trainable leaf's one-step change against JAX's at CHANGE_REL."""
+    assert trainable <= set(want_after)
+    for k in trainable:
+        change, want = got[k].detach() - want_before[k], want_after[k] - want_before[k]
+        assert float(want.abs().max()) > 0 and float(change.abs().max()) > 0, k
+        if float(want.abs().max()) < DECAY_ONLY:
+            # no gradient reaches the leaf (the token table of the feature-level
+            # step): its change is the weight decay alone, lr * 1e-4 * p, at
+            # the leaf's last bits; both updates land within two ulps
+            np.testing.assert_allclose(got[k].detach().numpy(), want_after[k].numpy(), rtol=2.5e-7, err_msg=k)
+            continue
+        assert rel_l2(change, want) <= CHANGE_REL, (k, rel_l2(change, want))
+
+
 @pytest.mark.parametrize("step_name", ["train_step", "train_step_tokens"])
 @pytest.mark.parametrize("mode", TT.MODES)
 def test_trainer_step_matches_jax(pair, mode, step_name, tmp_path):
@@ -244,17 +259,7 @@ def test_trainer_step_matches_jax(pair, mode, step_name, tmp_path):
 
     np.testing.assert_allclose(loss, jloss, rtol=LOSS_RTOL)
     got = {**dict(agent.model.named_parameters()), **trainer.lora}
-    assert trainable <= set(want_after)
-    for k in trainable:
-        change, want = got[k].detach() - want_before[k], want_after[k] - want_before[k]
-        assert float(want.abs().max()) > 0 and float(change.abs().max()) > 0, k
-        if float(want.abs().max()) < DECAY_ONLY:
-            # no gradient reaches the leaf (the token table of the feature-level
-            # step): its change is the weight decay alone, lr * 1e-4 * p, at
-            # the leaf's last bits; both updates land within two ulps
-            np.testing.assert_allclose(got[k].detach().numpy(), want_after[k].numpy(), rtol=2.5e-7, err_msg=k)
-            continue
-        assert rel_l2(change, want) <= CHANGE_REL, (k, rel_l2(change, want))
+    _check_changes(got, trainable, want_before, want_after)
     for k, v in frozen.items():
         assert torch.equal(got[k], v), k
         assert torch.equal(v, want_after[k]), k  # JAX left it too
@@ -275,3 +280,27 @@ def test_trainer_refuses_unknown_mode(pair):
     jagent, params_np = pair
     with pytest.raises(ValueError, match="mode"):
         TT.CaptionerTrainer(_port_agent(jagent, params_np), mode="adapter")
+
+
+def test_sharded_trainer_step_matches_jax(pair, tmp_path):
+    """CaptionerTrainer after `shard_state` over two gloo ranks' 'model'
+    axis (lora mode: the frozen base, the projector and the adapters
+    sharded), the feature-level step against JAX's as the one-process test
+    holds it: the loss and each trainable leaf's change."""
+    import torch_ranks
+
+    jagent, params_np = pair
+    batch = _feature_batch(jagent.cfg)
+    jbefore, jafter, jloss = _jax_step(jagent, params_np, "lora", "train_step", batch)
+    want_before, want_after = _bridged(jbefore, jagent), _bridged(jafter, jagent)
+    cfg = _port_agent(jagent, params_np).cfg
+    ranks = torch_ranks.spawn(2, tmp_path, captioner_sharded_step=dict(
+        cfg=cfg, state_dict=captioner_state_dict_from_jax(params_np, jagent.cfg),
+        lora=lora_state_dict_from_jax(jbefore["lora"], jagent.cfg.llama.layers), batch=batch, lr=LR, mode="lora",
+        rank_lora=RANK, alpha=ALPHA)).join()
+    for rank in ranks:
+        got = rank["captioner_sharded_step"]
+        assert got["sharded"]
+        np.testing.assert_allclose(got["loss"], jloss, rtol=LOSS_RTOL)
+        _check_changes(got["params"], set(got["trainable"]), want_before, want_after)
+

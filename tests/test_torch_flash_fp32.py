@@ -303,13 +303,14 @@ def test_only_bf16_sites_reach_the_bf16_kernel(stub_card):
 
 
 def test_fp32_refusals_name_the_missing_path(stub_card):
-    """K3, K4 and the ALiBi variants take bf16 only: no path of the port
-    reaches them in fp32; K1 takes no mix of dtypes."""
+    """The ALiBi variants take bf16 only (K3 and K4 have fp32 instances,
+    tests/test_torch_flash_train_fp32.py): the refusal names the missing
+    fp32 ALiBi kernels; K1 takes no mix of dtypes."""
     q, k, v = _site(6, [torch.float32] * 3)
-    with pytest.raises(TypeError, match="no path"):
+    with pytest.raises(TypeError, match="fp32 ALiBi kernels are not ported"):
         flash_attention(q, k, v, alibi_slopes=torch.ones(1))
-    with pytest.raises(TypeError, match="no path"):
-        fa.flash_attention_fwd_lse(q, k, v)
+    with pytest.raises(TypeError, match="fp32 ALiBi kernels are not ported"):
+        fa.flash_attention_fwd_lse(q, k, v, alibi_slopes=torch.ones(1))
     with pytest.raises(TypeError, match="all-bf16 or all-fp32"):
         flash_attention(q, k.bfloat16(), v)
     with pytest.raises(TypeError, match="all-bf16 or all-fp32"):

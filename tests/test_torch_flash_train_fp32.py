@@ -1,0 +1,319 @@
+"""K3 fp32 and K4 fp32: the flash forward with its logsumexp and the flash
+backward for fp32 operands (`csrc/flash_attn_fwd_fp32.cu` with an lse
+output, `csrc/flash_attn_bwd_fp32.cu`), and the routing that sends fp32
+work under grad and fp32 rings to them.
+
+On the CPU: the port's fp32 lse forward and backward (the plain versions
+the wrappers return for CPU tensors, and K3 fp32's walk
+`flash_fp32_emulate(..., with_lse=True)`) against the JAX package's
+`_flash_fwd_lse` and `_flash_bwd` in Pallas interpret mode on fp32 inputs,
+causal and not, at relative L2 1e-5 (the lse at 1e-5 absolute); the walk's
+planted lse fault over that bound; and the routing with the card stubbed
+in: an fp32 site under grad runs `FlashAttention` on the fp32 launchers,
+an fp16 one is widened, computed in fp32 and rounded back once (its
+gradients too), bf16 stays on the bf16 launchers, and ALiBi with fp32
+raises naming the missing fp32 ALiBi kernels. The `gpu` tests hold the
+kernels to their plain versions on the card (K3 fp32: O 1e-5 relative L2
+and lse 1e-3 absolute; K4 fp32: dQ, dK, dV 2e-5 each), every planted fault
+over its bound, two K4 fp32 runs bit-identical:
+python -m pytest --noconftest tests/test_torch_flash_train_fp32.py -m gpu
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from supir_tpu_torch.ops import attention as attn_ops
+from supir_tpu_torch.ops import flash_attention as fa
+from supir_tpu_torch.ops.flash_attention import (
+    BWD_FP32_FAULT_DIAGONAL,
+    BWD_FP32_FAULT_DK_SCALE,
+    BWD_FP32_FAULT_LSE_LOG2,
+    BWD_FP32_FAULT_NO_DELTA,
+    FP32_FAULT_LSE_LOG2,
+    FP32_FAULT_NO_RESCALE,
+    FlashAttention,
+    attention_bwd_plain,
+    attention_fwd_lse_plain,
+    flash_attention_bwd,
+    flash_attention_fwd_lse,
+    flash_fp32_emulate,
+)
+from torch_parity import one_torch_thread  # noqa: F401
+
+O_BOUND = 1e-5     # K3 fp32's O, relative L2 (K1 fp32's bound)
+LSE_BOUND = 1e-3   # K3 fp32's lse on the card, absolute
+CPU_LSE = 1e-5     # the CPU walk's and plain lse against JAX, absolute
+GRAD_BOUND = 2e-5  # K4 fp32's dQ, dK, dV on the card, each relative L2
+JAX_BOUND = 1e-5   # the plain versions against JAX's interpret mode, relative L2
+
+# (b, s, t, h, d, causal): ragged S and T, both head dims
+CASES = [
+    (1, 130, 130, 2, 64, False),
+    (1, 130, 130, 2, 64, True),
+    (1, 100, 150, 2, 128, False),
+    (1, 96, 96, 1, 128, True),
+]
+
+
+def _inputs(seed, b, s, t, h, d):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((b, s, h, d), (b, t, h, d), (b, t, h, d), (b, s, h, d)))
+
+
+def _rel(got, want) -> float:
+    got, want = (np.asarray(x, np.float64) for x in (got, want))
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_case(case):
+    """(q, k, v, g, JAX's out, lse [B,H,S], dq, dk, dv) in fp32, interpret mode."""
+    import jax.numpy as jnp
+
+    from supir_tpu.ops.flash_attention import _flash_bwd, _flash_fwd_lse
+
+    b, s, t, h, d, causal = case
+    q, k, v, g = _inputs(sum(case[:5]), b, s, t, h, d)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    out, lse_lanes = _flash_fwd_lse(jq, jk, jv, causal, None, 64, 64, True)
+    grads = _flash_bwd(jq, jk, jv, out, lse_lanes, jnp.asarray(g), causal, None, 64, 64, True)
+    lse = np.asarray(lse_lanes)[:, :s, 0].reshape(b, h, s)
+    assert np.asarray(out).dtype == np.float32 and all(np.asarray(x).dtype == np.float32 for x in grads)
+    return (q, k, v, g, np.asarray(out), lse) + tuple(np.asarray(x) for x in grads)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_fp32_lse_forward_matches_jax(case):
+    """The port's fp32 lse forward (the plain version the CPU runs, and K3
+    fp32's walk) against `_flash_fwd_lse` on fp32 inputs."""
+    q, k, v, _, want_out, want_lse = _jax_case(case)[:6]
+    causal = case[-1]
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out, lse = flash_attention_fwd_lse(tq, tk, tv, causal)
+    assert out.dtype == lse.dtype == torch.float32
+    assert _rel(out, want_out) <= JAX_BOUND
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=CPU_LSE, rtol=0)
+    walk_out, walk_lse = flash_fp32_emulate(tq, tk, tv, causal, with_lse=True)
+    assert _rel(walk_out, want_out) <= JAX_BOUND
+    np.testing.assert_allclose(walk_lse.numpy(), want_lse, atol=CPU_LSE, rtol=0)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_fp32_backward_matches_jax(case):
+    """The port's fp32 backward (plain on the CPU), from JAX's own
+    residuals, against `_flash_bwd`; and FlashAttention's fp32 gradients
+    through autograd."""
+    q, k, v, g, out, lse, *want = _jax_case(case)
+    causal = case[-1]
+    got = flash_attention_bwd(*map(torch.from_numpy, (q, k, v, np.array(out), lse, g)), causal)
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == torch.float32
+        assert _rel(a, w) <= JAX_BOUND, f"d{name}"
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    (FlashAttention.apply(tq, tk, tv, causal) * torch.from_numpy(g)).sum().backward()
+    for name, a, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        assert _rel(a, w) <= JAX_BOUND, f"d{name} via autograd"
+
+
+def test_walk_lse_fault_breaks_the_bound():
+    """K3 fp32's planted lse fault (log2 units) moves the lse far past the
+    bound and leaves O as it was."""
+    q, k, v, *_ = (torch.from_numpy(x) for x in _inputs(1, 1, 130, 130, 2, 64))
+    out, lse = flash_fp32_emulate(q, k, v, True, with_lse=True)
+    bad_out, bad_lse = flash_fp32_emulate(q, k, v, True, FP32_FAULT_LSE_LOG2, with_lse=True)
+    assert torch.equal(out, bad_out)
+    assert (bad_lse - lse).abs().max().item() > LSE_BOUND
+
+
+# ------------------------------------------------------------ routing
+
+
+@pytest.fixture
+def stub_card(monkeypatch):
+    """The wrappers' card branch on CPU tensors: `_on_card` says yes, and
+    the launchers are recorders that return what the kernels compute (the
+    plain versions). Yields the list of (launcher, dtype of q)."""
+    calls = []
+
+    def fwd_fp32_lse(q, k, v, causal, fault=0):
+        calls.append(("K3 fp32", q.dtype))
+        return attention_fwd_lse_plain(q, k, v, causal)
+
+    def bwd_fp32(q, k, v, out, lse, dout, causal, fault=0):
+        calls.append(("K4 fp32", q.dtype))
+        return attention_bwd_plain(q, k, v, out, lse, dout, causal)
+
+    def forward(q, k, v, causal, with_lse, slopes=None):
+        calls.append(("K3" if with_lse else "K1", q.dtype))
+        out, lse = attention_fwd_lse_plain(q.float(), k.float(), v.float(), causal)
+        return out.to(q.dtype), lse if with_lse else None
+
+    monkeypatch.setattr(fa, "_on_card", lambda kernel, q, inputs: not torch.is_grad_enabled() or not any(
+        x.requires_grad for x in inputs))
+    monkeypatch.setattr(fa, "_forward_fp32_lse", fwd_fp32_lse)
+    monkeypatch.setattr(fa, "_backward_fp32", bwd_fp32)
+    monkeypatch.setattr(fa, "_forward", forward)
+    monkeypatch.setattr(fa, "_bwd_library", lambda: pytest.fail("the bf16 backward was reached"))
+    yield calls
+
+
+def _site(seed, dtype, s=1024, d=64):
+    q, k, v, g = _inputs(seed, 1, s, s, 1, d)
+    return tuple(torch.from_numpy(x).to(dtype) for x in (q, k, v, g))
+
+
+def test_fp32_site_under_grad_runs_k3_and_k4_fp32(stub_card):
+    q, k, v, g = _site(1, torch.float32)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    counts = (flash_attention_fwd_lse.fp32_launches, flash_attention_bwd.fp32_launches,
+              flash_attention_fwd_lse.launches, flash_attention_bwd.launches)
+    out = attn_ops.attention(q, k, v)
+    (out * g).sum().backward()
+    assert stub_card == [("K3 fp32", torch.float32), ("K4 fp32", torch.float32)]
+    assert (flash_attention_fwd_lse.fp32_launches, flash_attention_bwd.fp32_launches,
+            flash_attention_fwd_lse.launches, flash_attention_bwd.launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2], counts[3])
+    assert out.dtype == q.grad.dtype == torch.float32
+    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    (fa.attention_plain(qr, kr, vr) * g).sum().backward()
+    for a, w in ((q.grad, qr.grad), (k.grad, kr.grad), (v.grad, vr.grad)):
+        assert _rel(a, w) <= JAX_BOUND
+
+
+def test_fp16_site_under_grad_is_widened_and_rounded_once(stub_card):
+    q, k, v, g = _site(2, torch.float16)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out = attn_ops.attention(q, k, v)
+    (out.float() * g.float()).sum().backward()
+    assert stub_card == [("K3 fp32", torch.float32), ("K4 fp32", torch.float32)]
+    assert out.dtype == q.grad.dtype == k.grad.dtype == v.grad.dtype == torch.float16
+    # the widening is exact: the fp32 result on the same values, rounded once
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    want = FlashAttention.apply(qf, kf, vf)
+    assert torch.equal(out, want.half())
+    (want * g.float()).sum().backward()
+    assert torch.equal(q.grad, qf.grad.half()) and torch.equal(v.grad, vf.grad.half())
+
+
+def test_mixed_site_under_grad_is_promoted(stub_card):
+    q, k, v, g = _site(3, torch.float32)
+    q, k, v = q.bfloat16().requires_grad_(), k.requires_grad_(), v.requires_grad_()
+    out = attn_ops.attention(q, k, v)
+    out.sum().backward()
+    assert [route for route, _ in stub_card] == ["K3 fp32", "K4 fp32"]
+    assert out.dtype == torch.float32 and q.grad.dtype == torch.bfloat16
+
+
+def test_bf16_site_under_grad_stays_on_k3(stub_card):
+    q, k, v, _ = _site(4, torch.bfloat16)
+    out = attn_ops.attention(*(x.requires_grad_() for x in (q, k, v)))
+    assert stub_card == [("K3", torch.bfloat16)] and out.dtype == torch.bfloat16
+
+
+def test_fp32_alibi_names_the_missing_kernels(stub_card):
+    q, k, v, _ = _site(5, torch.float32)
+    for call in (lambda: fa.flash_attention(q, k, v, alibi_slopes=torch.ones(1)),
+                 lambda: flash_attention_fwd_lse(q, k, v, alibi_slopes=torch.ones(1))):
+        with pytest.raises(TypeError, match="fp32 ALiBi kernels are not ported"):
+            call()
+    lse = torch.zeros(1, 1, q.shape[1])
+    with pytest.raises(TypeError, match="fp32 ALiBi kernels are not ported"):
+        flash_attention_bwd(q, k, v, q, lse, q, alibi_slopes=torch.ones(1))
+    assert stub_card == []
+
+
+# ------------------------------------------------------------ on the card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K3 fp32 and K4 fp32 have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _card(cuda, seed, b, s, t, h, d):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=cuda)
+                 for shape in ((b, s, h, d), (b, t, h, d), (b, t, h, d), (b, s, h, d)))
+
+
+def _card_rel(got, want) -> float:
+    return ((got.double() - want.double()).norm() / want.double().norm()).item()
+
+
+# the trainers' and the ring's shape classes, then tile edges: ragged S and
+# T, causal with the diagonal in a ragged last block, both head dims
+CARD_CASES = [
+    (1, 4096, 4096, 10, 64, False),
+    (2, 1024, 1024, 1, 128, False),
+    (1, 1000, 1000, 2, 128, True),
+    (2, 1100, 1500, 3, 64, False),
+    (1, 1100, 1100, 4, 64, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,t,h,d,causal", CARD_CASES)
+def test_k3_fp32_matches_plain(cuda, b, s, t, h, d, causal):
+    q, k, v, _ = _card(cuda, 11, b, s, t, h, d)
+    before = flash_attention_fwd_lse.fp32_launches
+    out, lse = flash_attention_fwd_lse(q, k, v, causal)
+    assert flash_attention_fwd_lse.fp32_launches == before + 1
+    want_out, want_lse = attention_fwd_lse_plain(q, k, v, causal)
+    assert _card_rel(out, want_out) <= O_BOUND
+    assert (lse - want_lse).abs().max().item() <= LSE_BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault,causal", [(FP32_FAULT_NO_RESCALE, False), (FP32_FAULT_LSE_LOG2, True)])
+def test_k3_fp32_planted_faults(cuda, fault, causal):
+    q, k, v, _ = _card(cuda, 12, 1, 1000, 1000, 2, 64)
+    want_out, want_lse = attention_fwd_lse_plain(q, k, v, causal)
+    out, lse = fa._forward_fp32_lse(q, k, v, causal, fault)
+    broken = _card_rel(out, want_out) > O_BOUND or (lse - want_lse).abs().max().item() > LSE_BOUND
+    assert broken
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,t,h,d,causal", CARD_CASES)
+def test_k4_fp32_matches_plain(cuda, b, s, t, h, d, causal):
+    q, k, v, g = _card(cuda, 13, b, s, t, h, d)
+    out, lse = attention_fwd_lse_plain(q, k, v, causal)
+    before = flash_attention_bwd.fp32_launches
+    got = flash_attention_bwd(q, k, v, out, lse, g, causal)
+    again = flash_attention_bwd(q, k, v, out, lse, g, causal)
+    assert flash_attention_bwd.fp32_launches == before + 2
+    want = attention_bwd_plain(q, k, v, out, lse, g, causal)
+    for name, a, w, b2 in zip("qkv", got, want, again):
+        assert a.dtype == torch.float32 and torch.equal(a, b2), f"d{name} differs between two runs"
+        assert _card_rel(a, w) <= GRAD_BOUND, f"d{name}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", [BWD_FP32_FAULT_NO_DELTA, BWD_FP32_FAULT_DK_SCALE, BWD_FP32_FAULT_DIAGONAL,
+                                   BWD_FP32_FAULT_LSE_LOG2])
+def test_k4_fp32_planted_faults(cuda, fault):
+    q, k, v, g = _card(cuda, 14, 1, 1000, 1000, 2, 128)
+    out, lse = attention_fwd_lse_plain(q, k, v, True)
+    want = attention_bwd_plain(q, k, v, out, lse, g, True)
+    sound = fa._backward_fp32(q, k, v, out, lse, g, True)
+    assert max(_card_rel(a, w) for a, w in zip(sound, want)) <= GRAD_BOUND
+    bad = fa._backward_fp32(q, k, v, out, lse, g, True, fault)
+    assert max(_card_rel(a, w) for a, w in zip(bad, want)) > GRAD_BOUND
+
+
+@pytest.mark.gpu
+def test_fp32_flash_attention_grads_on_the_card(cuda):
+    q, k, v, g = _card(cuda, 15, 1, 1024, 1024, 2, 64)
+    qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+    (attn_ops.attention(qs, ks, vs) * g).sum().backward()
+    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+    (fa.attention_plain(qr, kr, vr) * g).sum().backward()
+    for a, w in ((qs.grad, qr.grad), (ks.grad, kr.grad), (vs.grad, vr.grad)):
+        assert _card_rel(a, w) <= GRAD_BOUND

@@ -7,7 +7,9 @@ point-to-point operations go through host memory (parallel/mesh.py); the
 cards. No JAX here: the card's machine has none.
 
 Bounds: the ring against attention_plain in fp32 at K1's rel-L2 1e-2, two
-K3 launches per rank (one block each); the sharded restore against the
+K3 launches per rank (one block each); the fp32 ring on K3 fp32 blocks at
+K1 fp32's 1e-5, two K3 fp32 launches per rank; an fp16 ring is the fp32
+ring rounded once; the sharded restore against the
 same rank's unsharded run bit for bit (the gathered weights are the same
 bits, and the kernels run on the same shapes).
 
@@ -23,6 +25,7 @@ from torch_parity import one_torch_thread  # noqa: F401
 
 RING_SHAPE = (2, 4096, 10, 64)  # two K3 blocks of [2, 2048, 10, 64] a rank
 RING_BOUND = 1e-2
+RING_FP32_BOUND = 1e-5  # the fp32 ring on K3 fp32 blocks, K1 fp32's bound
 BACKENDS = {"one_card": "gloo", "multi_gpu": "nccl"}
 
 
@@ -40,9 +43,12 @@ def test_ring_on_k3_blocks_matches_plain(case, tmp_path):
     _needs(backend)
     for rank in torch_ranks.spawn(2, tmp_path, backend=backend, card_ring=dict(shape=RING_SHAPE, seed=3)).join():
         got = rank["card_ring"]
-        assert got["rel"] <= RING_BOUND, got["rel"]
-        assert got["launches"] == 2
-        assert got["fp32"].startswith("TypeError") and "bf16" in got["fp32"]
+        assert got["bf16"]["rel"] <= RING_BOUND, got["bf16"]
+        assert got["bf16"]["launches"] == (2, 0) and got["bf16"]["dtype"] == torch.bfloat16
+        # the fp32 ring runs on K3 fp32 blocks, held at K1 fp32's bound
+        assert got["fp32"]["rel"] <= RING_FP32_BOUND, got["fp32"]
+        assert got["fp32"]["launches"] == (0, 2) and got["fp32"]["dtype"] == torch.float32
+        assert got["fp16_once"]
         assert got["grad"].startswith("RuntimeError") and "no autograd rule" in got["grad"]
 
 

@@ -294,30 +294,37 @@ def _card() -> torch.device:
 
 
 def card_ring(rank, world, shape, seed):
-    """ring_attention over all ranks on bf16 q, k, v on the card (K3
-    blocks), against attention_plain in fp32; the K3 launches; the
-    refusals of fp32 and of inputs that require grad."""
+    """ring_attention over all ranks on the card: bf16 q, k, v (K3 blocks)
+    and fp32 ones (K3 fp32 blocks) against attention_plain in fp32, with
+    their launches; fp16 ones (widened to K3 fp32, rounded back once); the
+    refusal of inputs that require grad."""
     from supir_tpu_torch.ops.flash_attention import attention_plain, flash_attention_fwd_lse
     from supir_tpu_torch.parallel.mesh import make_mesh
     from supir_tpu_torch.parallel.ring_attention import ring_attention
 
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+    k[:, shape[1] // 2:] *= 2.0  # the halves' lse differ, so the merge's rescale matters
     mesh = make_mesh((world,), ("seq",))
-    flash_attention_fwd_lse.launches = 0
-    got = ring_attention(q, k, v, mesh, axis="seq")
-    torch.cuda.synchronize()
-    launches = flash_attention_fwd_lse.launches
-    want = attention_plain(q.float(), k.float(), v.float())
-    rel = ((got.float() - want).norm() / want.norm()).item()
-    out = {"rel": rel, "launches": launches}
-    for name, args in (("fp32", (q.float(), k.float(), v.float())),
-                       ("grad", (q.clone().requires_grad_(True), k, v))):
-        try:
-            ring_attention(*args, mesh, axis="seq")
-        except (TypeError, RuntimeError) as e:
-            out[name] = f"{type(e).__name__}: {e}"
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+        flash_attention_fwd_lse.launches = flash_attention_fwd_lse.fp32_launches = 0
+        got = ring_attention(qd, kd, vd, mesh, axis="seq")
+        torch.cuda.synchronize()
+        want = attention_plain(qd.float(), kd.float(), vd.float())
+        out[name] = {"rel": ((got.float() - want).norm() / want.norm()).item(), "dtype": got.dtype,
+                     "launches": (flash_attention_fwd_lse.launches, flash_attention_fwd_lse.fp32_launches)}
+        del want
+    qh, kh, vh = (x.half() for x in (q, k, v))
+    half = ring_attention(qh, kh, vh, mesh, axis="seq")
+    out["fp16_once"] = half.dtype == torch.float16 and bool(torch.equal(
+        half, ring_attention(qh.float(), kh.float(), vh.float(), mesh, axis="seq").half()))
+    try:
+        ring_attention(q.clone().requires_grad_(True), k, v, mesh, axis="seq")
+    except RuntimeError as e:
+        out["grad"] = f"{type(e).__name__}: {e}"
     return out
 
 
@@ -343,3 +350,135 @@ def card_restore(rank, world, seed, steps):
     engine.shard_for_inference(make_mesh((1, 1, world), ("data", "tile", "model")))
     split = engine.batchify_sample(x, c, uc, **kw).cpu()
     return {"one": one, "split": split}
+
+
+# ------------------------------------------------------------------ training over a mesh
+
+
+def _digest(tree) -> dict:
+    return {k: v.detach().clone() for k, v in tree.items()}
+
+
+def sharded_train(rank, world, supir, ae, cap):
+    """The trainers over meshes of the four ranks, each held to the same
+    rank's one-process step on the same state and draws: SUPIRTrainer on a
+    (2, 2) ('data', 'model') mesh (the drill's rule at four) over all
+    ranks; then on a (1, 2) mesh ranks 0-1 run SUPIRTrainer and AETrainer,
+    ranks 2-3 CaptionerTrainer in lora and full modes."""
+    from supir_tpu_torch.parallel.mesh import in_mesh, make_mesh
+
+    quad = make_mesh((2, 2), ("data", "model"))
+    pairs = [make_mesh((1, 2), ("data", "model"), devices=d) for d in ([0, 1], [2, 3])]
+    out = {"supir_22": _supir_run(quad, **supir)}
+    if in_mesh(pairs[0]):
+        out["supir_12"] = _supir_run(pairs[0], **supir)
+        out["ae_12"] = _ae_run(pairs[0], **ae)
+    else:
+        out["cap_12"] = {mode: _cap_run(pairs[1], mode=mode, **cap) for mode in ("lora", "full")}
+    return out
+
+
+def _supir_run(mesh, state_dict, cfg, z, cond, sigma, noise, lr):
+    """(one-process step, sharded step): each the loss, the full first and
+    second moments, the updated trainable parameters, the EMA."""
+    from supir_tpu_torch.engine.factory import create_trainer
+
+    state_dict = {k: _t(v) for k, v in state_dict.items()}
+
+    def run(m):
+        trainer = create_trainer(cfg, "cpu", state_dict=state_dict, learning_rate=lr, mesh=m)
+        loss = trainer.loss_and_grads(z, cond, sigma=sigma, noise=noise)
+        trainer.apply_gradients()
+        st = trainer.state()
+        return {"loss": loss.clone(), "exp_avg": _digest(st["exp_avg"]), "exp_avg_sq": _digest(st["exp_avg_sq"]),
+                "params": {k: st["params"][k].detach().clone() for k in st["exp_avg"]},
+                "ema": _digest(st["ema"]), "held": {k: tuple(p.shape) for k, p in trainer.params.items()}}
+
+    return {"one": run(None), "split": run(mesh)}
+
+
+def _ae_run(mesh, cfg, seed, x, target, lr):
+    """AETrainer (branch "all", disc_start 0): the one-process step and the
+    step with its state sharded over `mesh`, the same weights and draws."""
+    from supir_tpu_torch.diffusion.ae_losses import AELossConfig
+    from supir_tpu_torch.engine import ae_training as TA
+    from supir_tpu_torch.engine.factory import create_ae_trainer
+
+    real = TA.unit_normal
+
+    def run(m):
+        g = torch.Generator().manual_seed(seed)  # the posterior draws, the same for both runs
+        TA.unit_normal = lambda shape, generator, device: torch.randn(shape, generator=g)
+        try:
+            trainer = create_ae_trainer(cfg, "cpu", seed=seed, loss_cfg=AELossConfig(disc_start=0),
+                                        learning_rate=lr, mesh=m)
+            metrics = trainer.train_step(x, target)
+        finally:
+            TA.unit_normal = real
+        st = trainer.state()
+        return {"metrics": {k: v.clone() for k, v in metrics.items()},
+                "opt_g": _digest(st["opt_g"]["exp_avg"]), "opt_d": _digest(st["opt_d"]["exp_avg"]),
+                "gen": _digest(st["gen"]), "disc": _digest(st["disc"]), "sharded": trainer.sharded}
+
+    return {"one": run(None), "split": run(mesh)}
+
+
+def _cap_run(mesh, cfg, seed, batch, lr, mode):
+    """CaptionerTrainer's feature-level step: one process, and after
+    `shard_state` over `mesh`."""
+    from supir_tpu_torch.captioner.agent import create_captioner
+    from supir_tpu_torch.captioner.train import CaptionerTrainer
+
+    def run(m):
+        agent = create_captioner(cfg, "cpu", seed=seed, stochastic=False)
+        trainer = CaptionerTrainer(agent, m, learning_rate=lr, mode=mode, lora_rank=4, lora_alpha=8.0)
+        trainer.init_state(seed=seed)
+        trainer.shard_state()
+        losses = [trainer.train_step(batch).clone() for _ in range(2)]
+        st = trainer.state()
+        return {"losses": losses, "exp_avg": _digest(st["exp_avg"]), "lora": _digest(st["lora"]),
+                "params": {k: st["params"][k].detach().clone() for k in st["exp_avg"] if k in st["params"]},
+                "sharded": trainer.sharded, "held": {k: tuple(p.shape) for k, p in trainer.params.items()}}
+
+    return {"one": run(None), "split": run(mesh)}
+
+
+def ae_sharded_step(rank, world, cfg, state, x, target, draws, lr, branch):
+    """AETrainer's first step (disc_start 0) with its state sharded over a
+    (1, world) mesh's 'model' axis, from `state` (full tensors by name, as
+    `state()` gives them) with the posterior draws `draws`; the metrics and
+    the full state after the step."""
+    from supir_tpu_torch.diffusion.ae_losses import AELossConfig
+    from supir_tpu_torch.engine import ae_training as TA
+    from supir_tpu_torch.engine.factory import create_ae_trainer
+    from supir_tpu_torch.parallel.mesh import make_mesh
+
+    queue = [_t(d) for d in draws]
+    TA.unit_normal = lambda shape, generator, device: queue.pop(0)
+    trainer = create_ae_trainer(cfg, "cpu", state_dict=state["gen"], loss_cfg=AELossConfig(disc_start=0),
+                                learning_rate=lr, train_branch=branch, mesh=make_mesh((1, world), ("data", "model")))
+    trainer.load_state(state)
+    metrics = trainer.train_step(_t(x), _t(target))
+    st = trainer.state()
+    return {"metrics": {k: v.clone() for k, v in metrics.items()}, "gen": _digest(st["gen"]),
+            "opt_g": {m: _digest(t) for m, t in st["opt_g"].items()}, "disc": _digest(st["disc"]),
+            "sharded": trainer.sharded, "draws_left": len(queue)}
+
+
+def captioner_sharded_step(rank, world, cfg, state_dict, lora, batch, lr, mode, rank_lora, alpha):
+    """CaptionerTrainer's feature-level step after `shard_state` over a
+    (1, world) mesh's 'model' axis, from `state_dict` (and the adapters
+    `lora`); the loss and the full parameters and adapters after it."""
+    from supir_tpu_torch.captioner.agent import create_captioner
+    from supir_tpu_torch.captioner.train import CaptionerTrainer
+    from supir_tpu_torch.parallel.mesh import make_mesh
+
+    agent = create_captioner(cfg, "cpu", state_dict={k: _t(v) for k, v in state_dict.items()})
+    trainer = CaptionerTrainer(agent, make_mesh((1, world), ("data", "model")), learning_rate=lr, mode=mode,
+                               lora_rank=rank_lora, lora_alpha=alpha)
+    trainer.init_state(lora=None if lora is None else {k: _t(v) for k, v in lora.items()})
+    trainer.shard_state()
+    loss = trainer.train_step(batch)
+    st = trainer.state()
+    return {"loss": float(loss), "params": {**_digest(st["params"]), **_digest(st["lora"])},
+            "trainable": sorted(trainer.params), "sharded": trainer.sharded}
