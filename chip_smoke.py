@@ -15,8 +15,9 @@ Phases, each printing its own lines:
      the forward's eight instantiations, K1/K3 x D 64/128 x ALiBi, and the
      tensor-core GEMV's seventeen, four layouts x three row tiles, W4A8 x
      two and K9's pair x three, which may not spill; and K1 fp32's
-     fourteen, D 64/128 x the kernel and its six planted faults, which may
-     not spill either), and the Triton import
+     instances, D 64/128 x the kernel and its planted faults, which may
+     not spill either; twenty-two since the ALiBi instance and its two
+     faults), and the Triton import
      of K2's first design, which stays as a comparator.
   3. kernels against their plain PyTorch versions on the card, with
      CUDA-event or CUDA-graph times of both, the least time the card could
@@ -58,8 +59,11 @@ Phases, each printing its own lines:
      prologue; and K3 (the forward with
      logsumexp) and K4 (the backward) at the training path's shapes and
      causal at Llama-13B's, and K3 ALiBi and K4 ALiBi at the MPT-7B
-     prefill's shape and a non-causal one. Each is held to a stated bound,
-     and planted faults must break it.
+     prefill's shape and a non-causal one, in bf16 and in fp32 (K3 ALiBi
+     fp32 with and without the lse, K4 ALiBi fp32, multiquery too; O held
+     to attention_plain at 1e-5, timed in turns with SDPA fp32 given the
+     bias as a mask). Each is held to a stated bound, and planted faults
+     must break it.
   3b. probes: the four decode-GEMV probes (supir_tpu_torch/tools/:
      stream_ceiling T1, gemv_sweep T2, bitcast_probe T3, int4_native_probe
      T4) run through their `main` at 3 replays, with the launch counters of
@@ -200,8 +204,8 @@ Phases, each printing its own lines:
      inverted and the blur padded with zeros must break it.
   6. captioner: LLaVA-1.5-13B at full width (CLIP ViT-L/14-336, Llama-13B,
      random weights drawn and quantized layer by layer on the card) captions
-     a 1024^2 image through CaptionerAgent.gen_image_caption, greedy, 32
-     tokens, in each mode of CAPTION_MODES: int4 (K5), int4 without fused
+     a 1024^2 image through CaptionerAgent.gen_image_caption, greedy,
+     CAP_TOKENS tokens, in each mode of CAPTION_MODES: int4 (K5), int4 without fused
      glue (K6), int8 (K8 at load, K7 in decode), int4-lean (fused pairs,
      int8 KV cache, int8 head: K9, K5, K7; K8 at load), int4-w4a8 (K5's
      act_int8 mode), int4-w4a8-unfused (K10), int4-native (K11) and
@@ -209,7 +213,7 @@ Phases, each printing its own lines:
      counters are zeroed before each mode's load and read after its caption
      and must equal expected_caption_launches; every GEMV call of one
      decode step is then held to its fp32 plain version on that call's
-     inputs, and torch.profiler reads three decode steps (device busy
+     inputs, and torch.profiler reads one decode step (device busy
      share, kernels). In int4-lean, one text-only `chat` turn follows.
      On the int4 agent, the caption side of [serve]: a caption worker
      behind the controller and the web chat, one /send with a 1024^2 PNG
@@ -237,20 +241,25 @@ Phases, each printing its own lines:
      break the bound.
  10. mpt generate: MPT-7B at full width and depth (random bf16 weights
      drawn on the card) runs mpt_generate on a 1536-token prompt of random
-     ids, cache_len 2048, 32 greedy tokens: the prefill's attention is K3
+     ids, cache_len 2048, MPT_TOKENS greedy tokens: the prefill's attention is K3
      ALiBi at every layer (counted: as many launches as layers), decode
      the plain biased route; prefill ms, ms/token, torch.profiler over
-     three decode steps, peak memory, and every prefill attention held to
+     one decode step, peak memory, and every prefill attention held to
      its fp32 plain version.
  11. mpt grad: one causal-LM loss and its backward through MPT-7B (bf16
      parameters) on a 2048-token conversation labelled by preprocess_mpt:
      K3 ALiBi with lse and K4 ALiBi once per layer, every call held to its
      plain version; s per forward+backward and peak memory.
+ 11b. mpt fp32: MPT-7B in fp32, the JAX module's default dtype: the
+     generate (K3 ALiBi fp32 without the lse once per layer) and one
+     gradient step (K3 ALiBi fp32 with it and K4 ALiBi fp32 once per
+     layer), every site held to its plain version; prefill ms, ms/token,
+     s per step, peak memory (under 75 GiB).
  12. mpt reference: reduced-width MPT (512 wide, 4 layers; 8 heads,
-     multiquery, and 6 heads on the plain route) on the card (bf16,
-     kernels) and on the CPU (fp32, plain versions) with the same weights:
-     logits, each gradient group, greedy tokens up to the first
-     divergence, prefix-LM logits.
+     multiquery, and 6 heads on the plain route) on the card (bf16 and
+     fp32, kernels) and on the CPU (fp32, plain versions) with the same
+     weights: logits, each gradient group, greedy tokens (fp32: equal up
+     to a near tie), prefix-LM logits.
  13. captioner train: LLaVA-1.5-13B at full width and depth (dense bf16,
      random weights) through CaptionerTrainer.train_step_tokens on one
      collate batch (a 336^2 image and a vicuna_v1 conversation on the byte
@@ -281,8 +290,8 @@ Phases, each printing its own lines:
  17. multi-device: one spawn of two ranks (gloo sharing card 0 on one
      card, NCCL one rank per card on two or more) at full XL-base width,
      bf16, each split run beside rank 0's one-process run: (a)
-     shard_for_inference on a (1,1,2) mesh and the 1024^2 restore (bit
-     for bit; K1/K2 424/428 a rank); (b) set_sequence_mesh and one untiled
+     shard_for_inference on a (1,1,2) mesh and the 1024^2 restore at
+     MD_STEPS steps (bit for bit; K1/K2 as one process's, a rank); (b) set_sequence_mesh and one untiled
      2048^2 network call, its 16384-token sites on ring attention with K3
      blocks (5e-2 against K1), and ring_attention alone at [2,16384,10,64]
      against K1 and attention_plain (1e-2) with a planted fault (the merge
@@ -324,7 +333,7 @@ REF_REL_BOUND = 5e-2  # reduced-width card (bf16, kernels) against CPU (fp32, pl
 GEMV_REL_BOUND = 1e-2  # K5-K7, K9, K11 and K5's act_int8 mode against their fp32 plain versions, relative L2
 W4A8_REL_BOUND = 1e-6  # K10 against its plain version: exact integer sums, two rounded scale multiplies
 CAP_REF_REL_BOUND = 5e-2  # reduced-width captioner logits, card against CPU, relative L2
-CAP_TOKENS = 32       # max_new_tokens of the full-width caption
+CAP_TOKENS = 16       # max_new_tokens of the full-width caption (32 until the smoke neared its limit)
 REF_STEPS = 8         # teacher-forced decode steps of the captioner reference
 CLI_PNG = (768, 1152)  # (h, w) of the [cli] phase's photo; min_size 1024 takes it to 1024x1536
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -610,14 +619,15 @@ def _tc_instances(report: str):
 
 
 def _fp32_instances(report: str):
-    """(D, fault, registers, spill stores, spill loads) of each
-    flash_fwd_fp32_kernel<D, FAULT> instance in nvcc's -Xptxas -v output."""
+    """(D, fault, alibi, registers, spill stores, spill loads) of each
+    flash_fwd_fp32_kernel<D, FAULT, ALIBI> instance in nvcc's -Xptxas -v
+    output."""
     rows, current, spills = [], None, (0, 0)
     for line in report.splitlines():
-        name = re.search(r"(?:Compiling entry function|Function properties for) '?\S*flash_fwd_fp32_kernelILi(\d+)ELi(\d+)E",
-                         line)
+        name = re.search(r"(?:Compiling entry function|Function properties for) '?\S*flash_fwd_fp32_kernel"
+                         r"ILi(\d+)ELi(\d+)ELb([01])E", line)
         if name:
-            current = (int(name.group(1)), int(name.group(2)))
+            current = (int(name.group(1)), int(name.group(2)), name.group(3) == "1")
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if current and spill:
@@ -657,14 +667,16 @@ def phase_build():
     for source, rows in ((k1._FWD_SOURCE, fwd), (k1._BWD_SOURCE, bwd)):
         if reports[source] and len(rows) != 8:  # no report: the library was built earlier
             raise AssertionError(f"expected 8 instantiations in the ptxas report of {source}, found {len(rows)}")
-    # K1 fp32's and K3 fp32's sixteen (D 64/128 x the kernel and its seven
-    # planted faults; the lse is a runtime pointer), which may not spill
+    # K1 fp32's and K3 fp32's twenty-two (D 64/128 x the kernel and its seven
+    # planted faults, and with ALiBi the kernel and its two; the lse is a
+    # runtime pointer), which may not spill
     fp32 = _fp32_instances(reports[k1._FP32_SOURCE])
-    for d, fault, regs, stores, loads in sorted(fp32):
-        log(f"[build] flash_fwd_fp32_kernel<D={d}, fault={fault}> (K1 fp32 and K3 fp32"
-            f"{' planted fault' if fault else ''}): {regs} registers, spill stores {stores} B, spill loads {loads} B")
-    if reports[k1._FP32_SOURCE] and (len(fp32) != 16 or any(st or ld for *_, st, ld in fp32)):
-        raise AssertionError(f"K1 fp32's instances: expected 16 without spills, found {fp32}")
+    for d, fault, alibi, regs, stores, loads in sorted(fp32):
+        log(f"[build] flash_fwd_fp32_kernel<D={d}, fault={fault}, alibi={alibi}> (K1 fp32 and K3 fp32"
+            f"{' ALiBi' if alibi else ''}{' planted fault' if fault else ''}): {regs} registers, spill stores "
+            f"{stores} B, spill loads {loads} B")
+    if reports[k1._FP32_SOURCE] and (len(fp32) != 22 or any(st or ld for *_, st, ld in fp32)):
+        raise AssertionError(f"K1 fp32's instances: expected 22 without spills, found {fp32}")
     log(f"[build] K4 fp32 ({k1._BWD_FP32_SOURCE}): {_ptxas_summary(reports[k1._BWD_FP32_SOURCE])}")
     # the tensor-core GEMV's seventeen instances (K5/K6 paired, K7 half-split
     # int4, K7 int8, K11 native: 1, 2 or 4 n-tiles of 8 rows; K10/K5
@@ -2887,7 +2899,7 @@ def phase_lightning(smi: str):
 
 NEW_SAMPLERS = ("EulerEDM", "HeunEDM", "EulerAncestral", "DPMPP2SAncestral", "DPMPP2M", "LMS", "Substep")
 SAMPLER_STEPS = 4     # [samplers]: Substep's cap
-CACHE_STEPS = 8       # [feature cache], untiled
+CACHE_STEPS = 4       # [feature cache], untiled (8 until the smoke neared its limit)
 CACHE_TILED_SIDE = 2048  # [feature cache], tiled: 9 windows of 128 latent px at stride 64
 CACHE_TILED_STEPS = 4
 
@@ -3032,7 +3044,7 @@ def _cached_run(engine, run, interval: int):
 
 
 def phase_feature_cache(engine, smi: str):
-    """RestoreEDM's cross-step feature cache at full width: 1024^2, 8 steps,
+    """RestoreEDM's cross-step feature cache at full width: 1024^2, CACHE_STEPS steps,
     the main path's settings. The plain path twice (whether the card's run
     is deterministic), interval 1 (equal to the plain path: to 0 where the
     two plain runs agree bit for bit, else within REF_REL_BOUND), then
@@ -3404,7 +3416,7 @@ def _check_sites(label: str, rels, want_one_step) -> str:
     return "; ".join(parts)
 
 
-def profile_decode(label: str, agent, image, steps: int = 3):
+def profile_decode(label: str, agent, image, steps: int = 1):
     """torch.profiler over `steps` greedy decode steps after a prefill:
     wall time, the device's busy share of it, and device time by kernel."""
     import torch
@@ -3442,7 +3454,7 @@ def phase_captioner(label: str, image, chat: bool = False, then=None):
     load (random weights drawn and quantized layer by layer), one counted
     gen_image_caption, one timed again warm, then
     every GEMV call of one decode step held to its plain version, a profile
-    of three decode steps and, with `chat`, one text-only chat turn; then
+    of one decode step and, with `chat`, one text-only chat turn; then
     `then(agent)`, where given, on the same agent. Returns the counted
     launches."""
     import gc
@@ -3893,13 +3905,21 @@ class _Watched:
     launches = property(lambda self: self.fn.launches, lambda self, n: setattr(self.fn, "launches", n))
     alibi_launches = property(lambda self: self.fn.alibi_launches,
                               lambda self, n: setattr(self.fn, "alibi_launches", n))
+    fp32_launches = property(lambda self: self.fn.fp32_launches,
+                             lambda self, n: setattr(self.fn, "fp32_launches", n))
+    alibi_fp32_launches = property(lambda self: self.fn.alibi_fp32_launches,
+                                   lambda self, n: setattr(self.fn, "alibi_fp32_launches", n))
 
 
 @contextlib.contextmanager
 def flash_train_sites():
     """Hold every K3 and K4 call to its fp32 plain version on that call's
-    inputs (K4's plain version on K4's own residuals); the readings land in
-    the dict this yields."""
+    inputs (K4's plain version on K4's own residuals; an fp32 K3's O to
+    attention_plain, which normalises by the sum as the kernel does, where
+    K3's plain version's own fp32 lse moves its O by ~1e-5 at MPT-7B's
+    biases); the readings land in the dict this yields."""
+    import torch
+
     from supir_tpu_torch.ops import flash_attention as fa
 
     readings = {"K3 out": [], "K3 lse": [], "K4": []}
@@ -3908,6 +3928,8 @@ def flash_train_sites():
     def check_k3(result, q, k, v, causal=False, alibi_slopes=None):
         out, lse = result
         want_out, want_lse = fa.attention_fwd_lse_plain(q.float(), k.float(), v.float(), causal, alibi_slopes)
+        if q.dtype == torch.float32:
+            want_out = fa.attention_plain(q, k, v, causal, alibi_slopes=alibi_slopes)
         readings["K3 out"].append(rel_l2(out, want_out))
         readings["K3 lse"].append((lse - want_lse).abs().max().item())
 
@@ -3923,13 +3945,18 @@ def flash_train_sites():
         fa.flash_attention_fwd_lse, fa.flash_attention_bwd = k3, k4
 
 
-def _check_train_sites(label: str, readings) -> None:
+def _check_train_sites(label: str, readings, fp32: bool = False) -> None:
+    """The readings of flash_train_sites against the bf16 kernels' bounds,
+    or with `fp32` the fp32 ALiBi kernels' (O, dQ, dK, dV at
+    ALIBI_FP32_REL_BOUND, the lse at K3_FP32_LSE_BOUND)."""
+    o_bound, lse_bound, k4_bound = ((ALIBI_FP32_REL_BOUND, K3_FP32_LSE_BOUND, ALIBI_FP32_REL_BOUND) if fp32
+                                    else (K1_REL_BOUND, K3_LSE_BOUND, K4_REL_BOUND))
     log(f"[{label}] every K3/K4 call vs fp32 plain: {len(readings['K3 out'])} K3 calls, worst out rel_l2 "
-        f"{max(readings['K3 out']):.3e} (bound {K1_REL_BOUND:g}), worst lse max_abs_err {max(readings['K3 lse']):.3e} "
-        f"(bound {K3_LSE_BOUND:g}); {len(readings['K4'])} K4 calls, worst rel_l2 {max(readings['K4']):.3e} "
-        f"(bound {K4_REL_BOUND:g})")
-    if not (max(readings["K3 out"]) <= K1_REL_BOUND and max(readings["K3 lse"]) <= K3_LSE_BOUND
-            and max(readings["K4"]) <= K4_REL_BOUND):
+        f"{max(readings['K3 out']):.3e} (bound {o_bound:g}), worst lse max_abs_err {max(readings['K3 lse']):.3e} "
+        f"(bound {lse_bound:g}); {len(readings['K4'])} K4 calls, worst rel_l2 {max(readings['K4']):.3e} "
+        f"(bound {k4_bound:g})")
+    if not (max(readings["K3 out"]) <= o_bound and max(readings["K3 lse"]) <= lse_bound
+            and max(readings["K4"]) <= k4_bound):
         raise AssertionError(f"{label}: a K3/K4 site disagrees with its plain version")
 
 
@@ -4287,7 +4314,7 @@ def phase_train_reference():
 # ------------------------------------------------------------------- MPT
 
 MPT_PROMPT = 1536     # prompt tokens of the full-width generate (random ids)
-MPT_TOKENS = 32       # greedy tokens decoded after it
+MPT_TOKENS = 8        # greedy tokens decoded after it (32 until the smoke neared its limit)
 MPT_CACHE = 2048      # cache_len: MPT-7B's context
 MPT_GRAD_TOKENS = 2048  # one sequence of the gradient phase
 MPT_REF_TOKENS = 1024  # reduced-width reference: flash-eligible sequences
@@ -4297,15 +4324,16 @@ ALIBI_SHAPES = ((1, 2048, 32, 128, True), (1, 1024, 8, 64, False))
 
 
 class _AlibiCount:
-    """The ALiBi launches of `fns` (their `alibi_launches`), read as one
-    counter and reset together: K3 ALiBi runs under K1's wrapper (no lse,
-    no grad) and K3's (with lse, under grad)."""
+    """The ALiBi launches of `fns` (their `alibi_launches`, or with `fp32`
+    their `alibi_fp32_launches`), read as one counter and reset together:
+    K3 ALiBi runs under K1's wrapper (no lse, no grad) and K3's (with lse,
+    under grad)."""
 
-    def __init__(self, *fns):
-        self.fns = fns
+    def __init__(self, *fns, fp32: bool = False):
+        self.fns, self.name = fns, "alibi_fp32_launches" if fp32 else "alibi_launches"
 
-    launches = property(lambda self: sum(f.alibi_launches for f in self.fns),
-                        lambda self, n: [setattr(f, "alibi_launches", n) for f in self.fns])
+    launches = property(lambda self: sum(getattr(f, self.name) for f in self.fns),
+                        lambda self, n: [setattr(f, self.name, n) for f in self.fns])
 
 
 def _mpt_counters():
@@ -4313,7 +4341,22 @@ def _mpt_counters():
 
     return {"K3-alibi": _AlibiCount(fa.flash_attention, fa.flash_attention_fwd_lse),
             "K3-alibi lse": _AlibiCount(fa.flash_attention_fwd_lse), "K4-alibi": _AlibiCount(fa.flash_attention_bwd),
-            "K1": fa.flash_attention, "K3": fa.flash_attention_fwd_lse, "K4": fa.flash_attention_bwd}
+            "K3-alibi fp32": _AlibiCount(fa.flash_attention, fp32=True),
+            "K3-alibi fp32 lse": _AlibiCount(fa.flash_attention_fwd_lse, fp32=True),
+            "K4-alibi fp32": _AlibiCount(fa.flash_attention_bwd, fp32=True),
+            "K1": fa.flash_attention, "K3": fa.flash_attention_fwd_lse, "K4": fa.flash_attention_bwd,
+            "K1-fp32": _Fp32Count(fa.flash_attention), "K3-fp32": _Fp32Count(fa.flash_attention_fwd_lse),
+            "K4-fp32": _Fp32Count(fa.flash_attention_bwd)}
+
+
+class _Fp32Count:
+    """A wrapper's fp32 launches without ALiBi (its `fp32_launches`) as a
+    counter."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    launches = property(lambda self: self.fn.fp32_launches, lambda self, n: setattr(self.fn, "fp32_launches", n))
 
 
 def _reset(counters):
@@ -4434,6 +4477,164 @@ def phase_alibi_kernels():
     return {name: dict(r[0], max_abs_err=max(x["max_abs_err"] for x in r)) for name, r in rows.items()}
 
 
+# K3 ALiBi fp32 and K4 ALiBi fp32 (an MPT at its default dtype): (b, s, h,
+# d, causal, layout, with the lse and K4): the MPT-7B gradient's shape, the
+# MPT-7B prompt's (without the lse: the generate path's prefill), the
+# non-causal shape of ALIBI_SHAPES, and multiquery (k and v expanded over
+# the heads, stride 0)
+ALIBI_FP32_SHAPES = ((1, 2048, 32, 128, True, "contiguous", True), (1, 1536, 32, 128, True, "contiguous", False),
+                     (1, 1024, 8, 64, False, "contiguous", True), (1, 1024, 8, 128, True, "mqa", True))
+ALIBI_FP32_REL_BOUND = 1e-5  # K3 ALiBi fp32's O and K4 ALiBi fp32's dQ, dK, dV, relative L2 (K1 fp32's bound)
+
+
+def phase_alibi_fp32_kernels():
+    """[kernels] K3 ALiBi fp32 (with and without the lse) and K4 ALiBi fp32
+    against their fp32 plain versions at ALIBI_FP32_SHAPES with MPT's
+    slopes: O against attention_plain at ALIBI_FP32_REL_BOUND (K3's plain
+    version normalises by its own fp32 lse, whose rounding at |lse| ~ 1700
+    moves O by ~1e-5; attention_plain normalises by the sum, as the kernel
+    does), the lse against attention_fwd_lse_plain's at K3_FP32_LSE_BOUND,
+    dQ, dK, dV against attention_bwd_plain at ALIBI_FP32_REL_BOUND, each
+    beside fp64; two K4 runs bit-identical; the planted faults (the bias in
+    raw q.k units, the slopes reversed, the -(T - 1) offset dropped, K4
+    without the bias) over their bounds; timed by CUDA events and by
+    CUDA-graph replay in turns with SDPA fp32 given the bias (and the causal
+    mask) as an fp32 attn_mask, forward and backward, beside the plain
+    versions, the 3xTF32 bound and the CUDA cores'. Returns the JSON
+    numbers of the three kernels (times at the first shape, the no-lse
+    instance at the second)."""
+    import torch
+    import torch.nn.functional as F
+
+    from supir_tpu_torch.captioner.mpt import alibi_slopes
+    from supir_tpu_torch.ops import flash_attention as FA
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2727)
+    rows = {"K3-alibi-fp32": [], "K3-alibi-fp32-nolse": [], "K4-alibi-fp32": []}
+    for b, s, h, d, causal, layout, with_lse in ALIBI_FP32_SHAPES:
+        tag = f"[{b},{s},{h},{d}]{' causal' if causal else ''}{' multiquery' if layout == 'mqa' else ''}"
+        q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev) for _ in range(4))
+        if layout == "mqa":
+            k, v = (x[:, :, :1].expand(b, s, h, d) for x in (k, v))
+        slopes = torch.from_numpy(alibi_slopes(h)).to(dev)
+        primal = FA.flash_attention(q, k, v, causal, slopes)
+        want_out = FA.attention_plain(q, k, v, causal, alibi_slopes=slopes)
+        o64, lse64 = FA.attention_fwd_lse_plain(*(x.double() for x in (q, k, v)), causal, slopes.double())
+        rel, rel64 = rel_l2(primal, want_out), rel_l2(primal.double(), o64)
+        _check_rel(f"K3 ALiBi fp32 {tag}", rel, ALIBI_FP32_REL_BOUND)
+        raw = FA._forward_fp32(q, k, v, causal, FA.FP32_FAULT_ALIBI_RAW_UNITS, slopes)
+        _check_fault(f"K3 ALiBi fp32 the bias in raw q.k units {tag}", rel_l2(raw, want_out), ALIBI_FP32_REL_BOUND)
+        _check_fault(f"K3 ALiBi fp32 the slopes reversed {tag}",
+                     rel_l2(FA.flash_attention(q, k, v, causal, slopes.flip(0)), want_out), ALIBI_FP32_REL_BOUND)
+        mask = FA.alibi_bias(slopes, s, dev).expand(b, h, s, s)
+        if causal:
+            mask = mask.masked_fill(~torch.ones(s, s, dtype=torch.bool, device=dev).tril(), float("-inf"))
+        mask = mask.contiguous()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        lib_ms = graph_ms([sdpa] * 5)
+        if not with_lse:
+            def k3():
+                return FA.flash_attention(q, k, v, causal, slopes)
+
+            ms, ev_ms = graph_ms([k3] * 5), cuda_ms(k3, 10)
+            lib_ms2 = graph_ms([sdpa] * 5)
+            plain = cuda_ms(lambda: FA.attention_plain(q, k, v, causal, alibi_slopes=slopes), 2)
+            bnd, by = bound(nbytes(q, k, v, primal, slopes), 3 * _flash_flops(b, s, h, d, causal, 2), TF32_FLOP_PER_S)
+            core, _ = bound(nbytes(q, k, v, primal, slopes), _flash_flops(b, s, h, d, causal, 2), FP32_FLOP_PER_S)
+            log(f"[kernels] K3 ALiBi fp32 without lse {tag} vs fp32 plain (attention_plain): rel_l2 {rel:.3e} (bound "
+                f"{ALIBI_FP32_REL_BOUND:g}; vs fp64 {rel64:.3e}); events {ev_ms:.4f} ms vs plain {plain:.3f} ms; "
+                f"graph {ms:.4f} ms vs SDPA fp32 with the bias as attn_mask {lib_ms:.4f}/{lib_ms2:.4f} ms (in turns; "
+                f"{ms / lib_ms:.2f}x); bound {bnd:.4f} ms ({by}, 3xTF32 at 495 TFLOP/s): {bnd / ms:.1%}; CUDA-core "
+                f"bound {core:.4f} ms: {core / ms:.1%}")
+            rows["K3-alibi-fp32-nolse"].append(dict(max_abs_err=(primal - want_out).abs().max().item(), ms=ms,
+                                                    event_ms=ev_ms, plain_ms=plain, library_ms=lib_ms, bound_ms=bnd,
+                                                    bound_by=by))
+            del q, k, v, dout, primal, want_out, o64, lse64, mask, qt, kt, vt, raw
+            _free()
+            continue
+
+        out, lse = FA.flash_attention_fwd_lse(q, k, v, causal, slopes)
+        want_lse = FA.attention_fwd_lse_plain(q, k, v, causal, slopes)[1]
+        lse_err, lse64_err = (lse - want_lse).abs().max().item(), (lse.double() - lse64).abs().max().item()
+        same_primal = torch.equal(out, primal)
+        if not (lse_err <= K3_FP32_LSE_BOUND and same_primal):
+            raise AssertionError(f"K3 ALiBi fp32 {tag}: lse max_abs_err {lse_err}, the same O as without the lse "
+                                 f"{same_primal}")
+        _, no_offset = FA._forward_fp32_lse(q, k, v, causal, FA.FP32_FAULT_ALIBI_NO_OFFSET, slopes)
+        no_offset_o = FA._forward_fp32(q, k, v, causal, FA.FP32_FAULT_ALIBI_NO_OFFSET, slopes)
+        log(f"[kernels] control (K3 ALiBi fp32 offset -(T-1) dropped {tag}): O rel_l2 "
+            f"{rel_l2(no_offset_o, want_out):.3e} (O carries no offset; its scores round otherwise)")
+        _check_fault(f"K3 ALiBi fp32 offset -(T-1) dropped {tag}: lse max_abs_err",
+                     (no_offset - want_lse).abs().max().item(), K3_FP32_LSE_BOUND)
+
+        grads = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal, slopes)
+        again = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal, slopes)
+        want = FA.attention_bwd_plain(q, k, v, out, lse, dout, causal, slopes)
+        rels = _k4_rels(grads, want)
+        w64 = FA.attention_bwd_plain(*(x.double() for x in (q, k, v, out)), lse, dout.double(), causal,
+                                     slopes.double())
+        rels64 = _k4_rels([x.double() for x in grads], w64)
+        del w64
+        same = all(torch.equal(a, a2) for a, a2 in zip(grads, again))
+        _check_rel(f"K4 ALiBi fp32 {tag}", max(rels), ALIBI_FP32_REL_BOUND)
+        if not same:
+            raise AssertionError(f"K4 ALiBi fp32 {tag}: two runs differ")
+        _check_fault(f"K4 ALiBi fp32 without the bias {tag}",
+                     max(_k4_rels(FA.flash_attention_bwd(q, k, v, out, lse, dout, causal), want)),
+                     ALIBI_FP32_REL_BOUND)
+        _check_fault(f"K4 ALiBi fp32 the slopes reversed {tag}",
+                     max(_k4_rels(FA.flash_attention_bwd(q, k, v, out, lse, dout, causal, slopes.flip(0)), want)),
+                     ALIBI_FP32_REL_BOUND)
+
+        def k3():
+            return FA.flash_attention_fwd_lse(q, k, v, causal, slopes)
+
+        def k4():
+            return FA.flash_attention_bwd(q, k, v, out, lse, dout, causal, slopes)
+
+        k3_ms, k3_ev = graph_ms([k3] * 5), cuda_ms(k3, 10)
+        k3_lib2 = graph_ms([sdpa] * 5)
+        k3_plain = cuda_ms(lambda: FA.attention_fwd_lse_plain(q, k, v, causal, slopes), 2)
+        k3_bound, k3_by = bound(nbytes(q, k, v, out, lse, slopes), 3 * _flash_flops(b, s, h, d, causal, 2),
+                                TF32_FLOP_PER_S)
+        k3_core, _ = bound(nbytes(q, k, v, out, lse, slopes), _flash_flops(b, s, h, d, causal, 2), FP32_FLOP_PER_S)
+        k4_lib = _sdpa_backward_graph_ms((qt, kt, vt), dout.transpose(1, 2), 5, attn_mask=mask)
+        k4_ms, k4_ev = graph_ms([k4] * 5), cuda_ms(k4, 5)
+        k4_lib2 = _sdpa_backward_graph_ms((qt, kt, vt), dout.transpose(1, 2), 5, attn_mask=mask)
+        k4_plain = cuda_ms(lambda: FA.attention_bwd_plain(q, k, v, out, lse, dout, causal, slopes), 2)
+        moved = nbytes(q, k, v, out, dout, lse, slopes, *grads)
+        k4_bound, k4_by = bound(moved, 3 * _flash_flops(b, s, h, d, causal, 5), TF32_FLOP_PER_S)
+        k4_core, _ = bound(moved, _flash_flops(b, s, h, d, causal, 5), FP32_FLOP_PER_S)
+        log(f"[kernels] K3 ALiBi fp32 {tag} vs fp32 plain: O rel_l2 {rel:.3e} (bound {ALIBI_FP32_REL_BOUND:g}; vs "
+            f"fp64 {rel64:.3e}; K3's plain version's O vs fp64 "
+            f"{rel_l2(FA.attention_fwd_lse_plain(q, k, v, causal, slopes)[0].double(), o64):.3e}), lse max_abs_err "
+            f"{lse_err:.3e} (bound {K3_FP32_LSE_BOUND:g}; vs fp64 {lse64_err:.3e}), O equal to the no-lse "
+            f"instance's; events {k3_ev:.4f} ms vs plain {k3_plain:.3f} ms; graph {k3_ms:.4f} ms vs SDPA fp32 with "
+            f"the bias as attn_mask {lib_ms:.4f}/{k3_lib2:.4f} ms (in turns; {k3_ms / lib_ms:.2f}x); bound "
+            f"{k3_bound:.4f} ms ({k3_by}, 3xTF32): {k3_bound / k3_ms:.1%}; CUDA-core bound {k3_core:.4f} ms: "
+            f"{k3_core / k3_ms:.1%}")
+        log(f"[kernels] K4 ALiBi fp32 {tag} vs fp32 plain: rel_l2 dq {rels[0]:.3e}, dk {rels[1]:.3e}, dv "
+            f"{rels[2]:.3e} (bound {ALIBI_FP32_REL_BOUND:g} each; vs fp64 {max(rels64):.3e}), two runs "
+            f"bit-identical; events {k4_ev:.3f} ms vs plain {k4_plain:.3f} ms; graph {k4_ms:.4f} ms vs SDPA fp32 "
+            f"backward with the mask {k4_lib:.4f}/{k4_lib2:.4f} ms (in turns; {k4_ms / k4_lib:.2f}x); bound "
+            f"{k4_bound:.4f} ms ({k4_by}, 5 products in 3xTF32): {k4_bound / k4_ms:.1%}; CUDA-core bound "
+            f"{k4_core:.4f} ms: {k4_core / k4_ms:.1%}")
+        rows["K3-alibi-fp32"].append(dict(max_abs_err=(out - want_out).abs().max().item(), ms=k3_ms, event_ms=k3_ev,
+                                          plain_ms=k3_plain, library_ms=lib_ms, bound_ms=k3_bound, bound_by=k3_by))
+        rows["K4-alibi-fp32"].append(dict(max_abs_err=max((a - w).abs().max().item() for a, w in zip(grads, want)),
+                                          ms=k4_ms, event_ms=k4_ev, plain_ms=k4_plain, library_ms=k4_lib,
+                                          bound_ms=k4_bound, bound_by=k4_by))
+        del q, k, v, dout, primal, want_out, o64, lse64, mask, qt, kt, vt, raw, out, lse, want_lse, no_offset
+        del no_offset_o, grads, again, want
+        _free()
+    return {name: dict(r[0], max_abs_err=max(x["max_abs_err"] for x in r)) for name, r in rows.items()}
+
+
 @contextlib.contextmanager
 def alibi_prefill_sites():
     """Hold every K3-alibi call without lse (the prefill's attention sites)
@@ -4464,7 +4665,7 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def profile_mpt_decode(model, tok, plen: int, caches, steps: int = 3):
+def profile_mpt_decode(model, tok, plen: int, caches, steps: int = 1):
     """torch.profiler over `steps` cached decode steps: wall per step, the
     device's busy share, kernels per step and the top kernels."""
     import torch
@@ -4520,7 +4721,7 @@ def phase_mpt_generate():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read(counters)
-    want = {"K3-alibi": cfg.n_layers, "K3-alibi lse": 0, "K4-alibi": 0, "K1": 0, "K3": 0, "K4": 0}
+    want = dict.fromkeys(counters, 0) | {"K3-alibi": cfg.n_layers}
     log(f"[mpt generate] mpt_generate, prompt {MPT_PROMPT} tokens, cache_len {MPT_CACHE}, {toks.shape[1]} greedy "
         f"tokens in {wall:.3f} s; launches {launches} (expected {want}); tokens {toks[0, :12].tolist()}...")
     if launches != want:
@@ -4621,8 +4822,8 @@ def phase_mpt_grad():
     _reset(counters)
     loss, seconds = step()
     launches = _read(counters)
-    want = {"K3-alibi": cfg.n_layers, "K3-alibi lse": cfg.n_layers, "K4-alibi": cfg.n_layers, "K1": 0, "K3": 0,
-            "K4": 0}
+    want = dict.fromkeys(counters, 0) | {"K3-alibi": cfg.n_layers, "K3-alibi lse": cfg.n_layers,
+                                         "K4-alibi": cfg.n_layers}
     grads = [p.grad for p in model.parameters()]
     sq = sum(float(g.float().pow(2).sum()) for g in grads if g is not None)
     missing = sum(g is None for g in grads)
@@ -4636,6 +4837,129 @@ def phase_mpt_grad():
     del model, grads
     _free()
     return launches
+
+
+MPT_FP32_TOKENS = 8   # [mpt fp32]: greedy tokens after the MPT_PROMPT-token prompt
+MPT_FP32_PEAK_GIB = 75.0  # [mpt fp32]: the gradient's peak memory may not pass it
+
+
+def phase_mpt_fp32():
+    """[mpt fp32] MPT-7B at full width and depth in fp32, the JAX module's
+    default dtype (`MPTBlock`, `MPTForCausalLM`: supir_tpu/captioner/mpt.py
+    :113, :195), random weights drawn once on the card: mpt_generate over
+    MPT_PROMPT ids for MPT_FP32_TOKENS greedy tokens (the prefill's
+    attention is K3 ALiBi fp32 without the lse at every layer, the decode
+    steps the plain biased route), every prefill site held to its plain
+    version; then one causal-LM loss and its backward at MPT_GRAD_TOKENS
+    tokens (K3 ALiBi fp32 with the lse and K4 ALiBi fp32 at every layer),
+    the warm-up holding every site to its plain version. The smoke runs
+    with TF32 off, so the projections are fp32 GEMMs. Returns the launches
+    of the counted generate and gradient step."""
+    import torch
+
+    from supir_tpu_torch.captioner.mpt import MPTConfig, create_mpt, mpt_generate
+    from supir_tpu_torch.captioner.train import IGNORE_INDEX, causal_lm_loss
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = MPTConfig()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = create_mpt(cfg, dev, torch.float32, seed=SEED + 26)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"[mpt fp32] MPT-7B (d_model {cfg.d_model}, {cfg.n_layers} layers, {cfg.n_heads} heads of {cfg.head_dim}): "
+        f"{n / 1e9:.3f} B parameters, fp32, drawn on the card in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    ids = torch.randint(0, cfg.vocab_size, (1, MPT_PROMPT), generator=torch.Generator().manual_seed(SEED + 21))
+    ids = ids.to(dev)
+    counters = _mpt_counters()
+    mpt_generate(model, ids, max_new_tokens=2, cache_len=MPT_CACHE, eos_id=-1)  # warm-up
+    _reset(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = mpt_generate(model, ids, max_new_tokens=MPT_FP32_TOKENS, cache_len=MPT_CACHE, eos_id=-1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    generate = _read(counters)
+    want = dict.fromkeys(counters, 0) | {"K3-alibi fp32": cfg.n_layers}
+    log(f"[mpt fp32] mpt_generate, prompt {MPT_PROMPT} tokens, cache_len {MPT_CACHE}, {toks.shape[1]} greedy tokens "
+        f"in {wall:.3f} s; launches {generate} (expected {want}); tokens {toks[0].tolist()}")
+    if generate != want:
+        raise AssertionError(f"mpt fp32 generate launched {generate}, expected {want}")
+    if toks.shape != (1, MPT_FP32_TOKENS) or not (0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size):
+        raise AssertionError(f"mpt fp32 generate: tokens {tuple(toks.shape)} out of shape or range")
+    with torch.no_grad():
+        caches = model.init_cache(1, MPT_CACHE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model(ids, caches=caches, cache_index=0)
+        torch.cuda.synchronize()
+        prefill = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        tok = logits[:, -1].argmax(-1)
+        steps = 8
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step_logits, caches = model(tok[:, None], caches=caches, cache_index=MPT_PROMPT + i)
+            tok = step_logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        per_token = (time.perf_counter() - t0) / steps
+        log(f"[mpt fp32] prefill {MPT_PROMPT} tokens {prefill * 1e3:.1f} ms (logits {tuple(logits.shape)} "
+            f"{logits.dtype}, finite {finite}); decode {per_token * 1e3:.2f} ms/token over {steps} steps "
+            f"(synchronised each step); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not finite:
+            raise AssertionError("mpt fp32 prefill logits are not finite")
+        del caches, logits, step_logits
+        with alibi_prefill_sites() as rels:
+            model(ids, caches=model.init_cache(1, MPT_CACHE), cache_index=0)
+    log(f"[mpt fp32] every prefill attention (K3 ALiBi fp32) vs fp32 plain: {len(rels)} calls, worst rel_l2 "
+        f"{max(rels):.3e} (bound {ALIBI_FP32_REL_BOUND:g})")
+    if len(rels) != cfg.n_layers or not max(rels) <= ALIBI_FP32_REL_BOUND:
+        raise AssertionError(f"mpt fp32 prefill sites: {len(rels)} calls, worst {max(rels)}")
+    _free()
+
+    ids, labels = _mpt_labels(MPT_GRAD_TOKENS)
+    ids, labels = torch.from_numpy(ids)[None].to(dev), torch.from_numpy(labels)[None].to(dev)
+    log(f"[mpt fp32] one causal-LM loss and backward, all {n / 1e9:.3f} B fp32 parameters trained, one sequence of "
+        f"{MPT_GRAD_TOKENS} tokens from preprocess_mpt, {int((labels != IGNORE_INDEX).sum())} unmasked labels")
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = causal_lm_loss(model(ids), labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), time.perf_counter() - t0
+
+    with flash_train_sites() as readings:
+        warm_loss, warm_s = step()
+    _check_train_sites("mpt fp32", readings, fp32=True)
+    model.zero_grad(set_to_none=True)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(counters)
+    loss, seconds = step()
+    grad = _read(counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = dict.fromkeys(counters, 0) | {"K3-alibi fp32 lse": cfg.n_layers, "K4-alibi fp32": cfg.n_layers}
+    grads = [p.grad for p in model.parameters()]
+    sq = sum(float(g.pow(2).sum()) for g in grads if g is not None)
+    missing = sum(g is None for g in grads)
+    log(f"[mpt fp32] loss {loss:.6g} (warm-up, sites checked: {warm_loss:.6g}, {warm_s:.3f} s); forward+backward "
+        f"{seconds:.3f} s; gradient norm {sq ** 0.5:.4g}, {missing} parameters without a gradient; launches {grad} "
+        f"(expected {want}); peak memory {peak:.2f} GiB (limit {MPT_FP32_PEAK_GIB:g})")
+    if grad != want:
+        raise AssertionError(f"mpt fp32 grad launched {grad}, expected {want}")
+    if not (math.isfinite(loss) and math.isfinite(sq) and sq > 0 and missing == 0):
+        raise AssertionError(f"mpt fp32 grad: loss {loss}, gradient norm^2 {sq}, {missing} missing")
+    if peak > MPT_FP32_PEAK_GIB:
+        raise AssertionError(f"mpt fp32 grad: peak {peak:.2f} GiB over {MPT_FP32_PEAK_GIB:g}")
+    del model, grads
+    _free()
+    return generate, grad
 
 
 MPT_GRAD_GROUPS = {
@@ -4655,11 +4979,33 @@ def _mpt_group_rels(got, want):
     return rels
 
 
+MPT_REF_RUNS = (  # [mpt reference]'s card runs: dtype, logits bound, gradient groups' bound (relative L2)
+    ("bf16", "bfloat16", REF_REL_BOUND, REF_REL_BOUND),
+    ("fp32", "float32", 1e-4, 1e-3),
+)
+MPT_MARGIN = 1e-3  # [mpt reference] fp32: greedy tokens may part only where the CPU's top-2 logit margin is below it
+
+
+def _top2_margins(model, ids, toks):
+    """The CPU model's top-2 logit margin at each greedy step of `toks`
+    after `ids`, from one forward over both (teacher-forced)."""
+    import torch
+
+    with torch.no_grad():
+        logits = model(torch.cat([ids, toks], 1))[0, ids.shape[1] - 1:-1].float()
+    top = logits.topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).tolist()
+
+
 def phase_mpt_reference():
     """Reduced-width MPT (d_model 512, 8 heads of 64, 4 layers; multiquery
-    too; six heads on the plain route) on the card (bf16 parameters,
-    kernels) and on the CPU (fp32, plain versions) with the same weights:
-    logits, gradient groups, greedy tokens, prefix-LM logits."""
+    too; six heads on the plain route) on the card, in bf16 (K3/K4 ALiBi)
+    and in fp32 (K3/K4 ALiBi fp32), and on the CPU (fp32, plain versions)
+    with the same weights: logits, gradient groups, greedy tokens, prefix-LM
+    logits, each card run at its MPT_REF_RUNS bounds. In bf16 the greedy
+    tokens are logged up to their first divergence; in fp32 they must agree
+    up to the first step whose top-2 logit margin on the CPU is under
+    MPT_MARGIN."""
     import numpy as np
     import torch
 
@@ -4679,7 +5025,6 @@ def phase_mpt_reference():
     for label, (cfg, n) in variants.items():
         sd = mpt_state_dict_from_jax(init_mpt_params(cfg, seed=SEED + 24), cfg)
         cpu = create_mpt(cfg, "cpu", torch.float32, state_dict=sd)
-        card = create_mpt(cfg, dev, torch.bfloat16, state_dict=sd)
         rng = np.random.default_rng(SEED + 25)
         ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n)))
         labels = ids.clone()
@@ -4692,53 +5037,72 @@ def phase_mpt_reference():
         want_loss.backward()
         cpu_s = time.perf_counter() - t0
         want = {k: p.grad for k, p in cpu.named_parameters()}
-        _reset(counters)
-        with torch.no_grad():
-            logits = card(ids.to(dev))
-        fwd = _read(counters)
-        _reset(counters)
-        loss = causal_lm_loss(card(ids.to(dev)), labels.to(dev))
-        loss.backward()
-        bwd = _read(counters)
-        got = {k: p.grad.float().cpu() for k, p in card.named_parameters()}
-        logit_rel = rel_l2(logits.cpu(), want_logits.detach())
-        loss_rel = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
-        rels = _mpt_group_rels(got, want)
-        log(f"[mpt reference] {label} (d_model {cfg.d_model}, {cfg.n_layers} layers, {n} tokens): card bf16 vs CPU "
-            f"fp32 ({cpu_s:.1f} s): logits rel_l2 {logit_rel:.3e}, loss {loss.item():.6g} vs {want_loss.item():.6g} "
-            f"(relative {loss_rel:.3e}); gradients rel_l2 " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
-            + f" (bound {REF_REL_BOUND:g}); launches forward {fwd}, forward+backward {bwd}")
-        k = cfg.n_layers if flash else 0
-        if fwd["K3-alibi"] != k or bwd["K3-alibi lse"] != k or bwd["K4-alibi"] != k:
-            raise AssertionError(f"mpt reference {label}: launches {fwd} / {bwd}, expected {k} of each")
-        if not (logit_rel <= REF_REL_BOUND and max(rels.values()) <= REF_REL_BOUND):
-            raise AssertionError(f"mpt reference {label}: card and CPU disagree ({logit_rel}, {rels})")
-        del want, got, logits, want_logits
-
-        if label == "8 heads":
-            # greedy tokens up to the first divergence (bf16 against fp32:
-            # a near tie may flip a token, after which the streams part)
-            want_toks = mpt_generate(cpu, ids, max_new_tokens=MPT_REF_NEW, eos_id=-1)
-            got_toks = mpt_generate(card, ids.to(dev), max_new_tokens=MPT_REF_NEW, eos_id=-1)
-            agree = next((i for i in range(MPT_REF_NEW) if got_toks[0, i] != want_toks[0, i]), MPT_REF_NEW)
-            log(f"[mpt reference] greedy: {agree}/{MPT_REF_NEW} tokens agree before the first divergence "
-                f"(card {got_toks[0, :8].tolist()}, CPU {want_toks[0, :8].tolist()})")
-            # prefix-LM on the plain route (no kernel): the first quarter is the prefix
-            pcfg = dataclasses.replace(cfg, prefix_lm=True)
-            pcpu = create_mpt(pcfg, "cpu", torch.float32, state_dict=sd)
-            pcard = create_mpt(pcfg, dev, torch.bfloat16, state_dict=sd)
-            mask = torch.zeros(1, n, dtype=torch.long)
-            mask[:, : n // 4] = 1
+        want_logits = want_logits.detach()
+        for run, dtype_name, logit_bound, grad_bound in MPT_REF_RUNS:
+            fp32 = run == "fp32"
+            card = create_mpt(cfg, dev, getattr(torch, dtype_name), state_dict=sd)
             _reset(counters)
             with torch.no_grad():
-                prel = rel_l2(pcard(ids.to(dev), prefix_mask=mask.to(dev)).cpu(), pcpu(ids, prefix_mask=mask))
-            plaunch = _read(counters)
-            log(f"[mpt reference] prefix-LM ({n // 4}-token prefix): logits rel_l2 {prel:.3e} (bound "
-                f"{REF_REL_BOUND:g}); launches {plaunch} (the plain route: none)")
-            if not prel <= REF_REL_BOUND or any(plaunch.values()):
-                raise AssertionError(f"mpt reference prefix-LM: rel_l2 {prel}, launches {plaunch}")
-            del pcpu, pcard
-        del cpu, card
+                logits = card(ids.to(dev))
+            fwd = _read(counters)
+            _reset(counters)
+            loss = causal_lm_loss(card(ids.to(dev)), labels.to(dev))
+            loss.backward()
+            bwd = _read(counters)
+            got = {k: p.grad.float().cpu() for k, p in card.named_parameters()}
+            logit_rel = rel_l2(logits.cpu(), want_logits)
+            loss_rel = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+            rels = _mpt_group_rels(got, want)
+            log(f"[mpt reference] {label} (d_model {cfg.d_model}, {cfg.n_layers} layers, {n} tokens): card {run} vs "
+                f"CPU fp32 ({cpu_s:.1f} s): logits rel_l2 {logit_rel:.3e} (bound {logit_bound:g}), loss "
+                f"{loss.item():.6g} vs {want_loss.item():.6g} (relative {loss_rel:.3e}); gradients rel_l2 "
+                + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()) + f" (bound {grad_bound:g}); launches forward "
+                f"{fwd}, forward+backward {bwd}")
+            k = cfg.n_layers if flash else 0
+            names = ("K3-alibi fp32", "K3-alibi fp32 lse", "K4-alibi fp32") if fp32 else (
+                "K3-alibi", "K3-alibi lse", "K4-alibi")
+            want_fwd = dict.fromkeys(counters, 0) | {names[0]: k}
+            want_bwd = dict.fromkeys(counters, 0) | {names[1]: k, names[2]: k} | (
+                {} if fp32 else {names[0]: k})  # the bf16 "K3-alibi" counts both forwards
+            if fwd != want_fwd or bwd != want_bwd:
+                raise AssertionError(f"mpt reference {label} {run}: launches {fwd} / {bwd}, expected {want_fwd} / "
+                                     f"{want_bwd}")
+            if not (logit_rel <= logit_bound and max(rels.values()) <= grad_bound):
+                raise AssertionError(f"mpt reference {label} {run}: card and CPU disagree ({logit_rel}, {rels})")
+            del got, logits
+
+            if label == "8 heads":
+                # greedy tokens up to the first divergence (bf16 against fp32:
+                # a near tie may flip a token, after which the streams part)
+                want_toks = mpt_generate(cpu, ids, max_new_tokens=MPT_REF_NEW, eos_id=-1)
+                got_toks = mpt_generate(card, ids.to(dev), max_new_tokens=MPT_REF_NEW, eos_id=-1).cpu()
+                agree = next((i for i in range(MPT_REF_NEW) if got_toks[0, i] != want_toks[0, i]), MPT_REF_NEW)
+                margins = _top2_margins(cpu, ids, want_toks)
+                log(f"[mpt reference] {run} greedy: {agree}/{MPT_REF_NEW} tokens agree before the first divergence "
+                    f"(card {got_toks[0, :8].tolist()}, CPU {want_toks[0, :8].tolist()}); the CPU's top-2 margins "
+                    f"{min(margins):.3e} at least" + (f", {margins[agree]:.3e} where they part" if agree < MPT_REF_NEW
+                                                      else ""))
+                if fp32 and agree < MPT_REF_NEW and not margins[agree] < MPT_MARGIN:
+                    raise AssertionError(f"mpt reference fp32: greedy tokens part at step {agree}, where the top-2 "
+                                         f"margin is {margins[agree]} (>= {MPT_MARGIN})")
+                # prefix-LM on the plain route (no kernel): the first quarter is the prefix
+                pcfg = dataclasses.replace(cfg, prefix_lm=True)
+                pcpu = create_mpt(pcfg, "cpu", torch.float32, state_dict=sd)
+                pcard = create_mpt(pcfg, dev, getattr(torch, dtype_name), state_dict=sd)
+                mask = torch.zeros(1, n, dtype=torch.long)
+                mask[:, : n // 4] = 1
+                _reset(counters)
+                with torch.no_grad():
+                    prel = rel_l2(pcard(ids.to(dev), prefix_mask=mask.to(dev)).cpu(), pcpu(ids, prefix_mask=mask))
+                plaunch = _read(counters)
+                log(f"[mpt reference] {run} prefix-LM ({n // 4}-token prefix): logits rel_l2 {prel:.3e} (bound "
+                    f"{logit_bound:g}); launches {plaunch} (the plain route: none)")
+                if not prel <= logit_bound or any(plaunch.values()):
+                    raise AssertionError(f"mpt reference prefix-LM {run}: rel_l2 {prel}, launches {plaunch}")
+                del pcpu, pcard
+            del card
+            _free()
+        del cpu, want, want_logits
         _free()
 
 
@@ -6259,7 +6623,8 @@ MD_RING_SIDE = 2048    # (b): an untiled network call at a 256^2 latent: 16384 t
 MD_RING_SHAPE = (2, 16384, 10, 64)  # (b): ring_attention alone, at those sites' shape
 MD_REL_BOUND = 5e-2    # (b), (c): the split run against the one-process run, relative L2 (bf16 sums in another order)
 MD_ROWS = 1024         # attention_plain's row chunk at MD_RING_SHAPE (a whole fp32 logit tensor is 21 GB)
-MD_CAP_TOKENS = 8      # (d): greedy tokens of the sharded caption (the decode's collectives take 94 % of it)
+MD_CAP_TOKENS = 4      # (d): greedy tokens of the sharded caption (the decode's collectives take 94 % of it)
+MD_STEPS = 2           # (a), (c): RestoreEDM steps of the sharded restore and the tiled one
 MD_TRAIN_LOSS_BOUND = 1e-6    # (e1) at dp 2 against one process: the loss, relative
 MD_TRAIN_MOMENT_BOUND = 1e-5  # ... and the first moments (the whole tree), relative L2
 
@@ -6896,6 +7261,7 @@ def main() -> int:
     results.update(phase_flash_train_kernels())
     results.update(phase_flash_train_fp32_kernels())
     results.update(phase_alibi_kernels())
+    results.update(phase_alibi_fp32_kernels())
     probe_rows, probe_launches, ceiling = phase_probes()
     results.update(probe_rows)
     launches = phase_main(args.steps, args.repeat)
@@ -6969,6 +7335,13 @@ def main() -> int:
     phase_mpt_generate()
     grad = phase_mpt_grad()
     launches.update({"K3-alibi": grad["K3-alibi lse"], "K4-alibi": grad["K4-alibi"]})
+    # MPT-7B in fp32: the generate's prefill runs K3 ALiBi fp32 without the
+    # lse, the gradient step K3 ALiBi fp32 with it and K4 ALiBi fp32
+    t0 = time.perf_counter()
+    fp32_generate, fp32_grad = phase_mpt_fp32()
+    launches.update({"K3-alibi-fp32": fp32_grad["K3-alibi fp32 lse"], "K4-alibi-fp32": fp32_grad["K4-alibi fp32"],
+                     "K3-alibi-fp32-nolse": fp32_generate["K3-alibi fp32"]})
+    log(f"[mpt fp32] took {time.perf_counter() - t0:.1f} s")
     phase_mpt_reference()
     # the rest of training: K3 and K4 causal on the captioner trainer's step,
     # K2 in the AE trainer's no-grad reconstruction, added to their rows
@@ -6981,7 +7354,7 @@ def main() -> int:
                      "K2": launches["K2"] + ae_k2, "K3-fp32": fp32_train["K3 fp32"] + ae_fp32["K3 fp32"],
                      "K4-fp32": fp32_train["K4 fp32"] + ae_fp32["K4 fp32"]})
     log(f"[train] [captioner train], [ae train] and their references took {time.perf_counter() - t0:.1f} s")
-    multi = phase_multi_device(args.steps, smi)
+    multi = phase_multi_device(MD_STEPS, smi)
     launches.update({k: launches[k] + n for k, n in multi.items()})
 
     sources = {
@@ -7003,6 +7376,10 @@ def main() -> int:
         "K11": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "supir_tpu/ops/quantize.py:555"),
         "K3-alibi": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd.cu", "supir_tpu/ops/flash_attention.py:197"),
         "K4-alibi": ("cuda", "supir_tpu_torch/csrc/flash_attn_bwd.cu", "supir_tpu/ops/flash_attention.py:481"),
+        "K3-alibi-fp32": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd_fp32.cu", "supir_tpu/ops/flash_attention.py:459"),
+        "K3-alibi-fp32-nolse": ("cuda", "supir_tpu_torch/csrc/flash_attn_fwd_fp32.cu",
+                                "supir_tpu/ops/flash_attention.py:399"),
+        "K4-alibi-fp32": ("cuda", "supir_tpu_torch/csrc/flash_attn_bwd_fp32.cu", "supir_tpu/ops/flash_attention.py:481"),
         "T1a": ("cuda", "supir_tpu_torch/csrc/colsum_tc.cu", "tools/stream_ceiling.py:48"),
         "T1b": ("cuda", "supir_tpu_torch/csrc/colsum_tc.cu", "tools/stream_ceiling.py:99"),
         "T1c": ("cuda", "supir_tpu_torch/csrc/quant_gemv_tc.cu", "tools/stream_ceiling.py:162"),
@@ -7022,6 +7399,9 @@ def main() -> int:
           "K10": "one 13B layer, 1 row, the kernel alone on int8 x", "K11": "one 13B layer, 1 row",
           "K3-alibi": "[1,2048,32,128] bf16 causal, with lse (the MPT-7B gradient's forward)",
           "K4-alibi": "[1,2048,32,128] bf16 causal, dq dk dv",
+          "K3-alibi-fp32": "[1,2048,32,128] fp32 causal, with lse (the fp32 MPT-7B gradient's forward)",
+          "K3-alibi-fp32-nolse": "[1,1536,32,128] fp32 causal, without lse (the fp32 MPT-7B prefill)",
+          "K4-alibi-fp32": "[1,2048,32,128] fp32 causal, dq dk dv",
           "T1a": "u8 [2560,15360], 1 k-slice", "T1b": "u8 [2560,15360], 2 k-slices",
           "T1c": "K7 int4 [8,5120]x[2560,15360], the plan's k-slices", "T2": "W4A8 qkv, 1 row, the plan's k-slices",
           "T3a": "u8 [2,128], all 256 bytes, the paired decode (nib2)",
@@ -7034,7 +7414,8 @@ def main() -> int:
         kernels.append({
             "name": {"K5-act": "K5 act_int8", "K7-int4": "K7 int4", "K3-alibi": "K3 ALiBi",
                      "K4-alibi": "K4 ALiBi", "K1-fp32": "K1 fp32", "K3-fp32": "K3 fp32",
-                     "K4-fp32": "K4 fp32"}.get(name, name),
+                     "K4-fp32": "K4 fp32", "K3-alibi-fp32": "K3 ALiBi fp32",
+                     "K3-alibi-fp32-nolse": "K3 ALiBi fp32 (no lse)", "K4-alibi-fp32": "K4 ALiBi fp32"}.get(name, name),
             "route": route, "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

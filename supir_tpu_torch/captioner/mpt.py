@@ -25,6 +25,12 @@ Attention routes as the JAX block routes it (mpt.py:146-179):
   cache, index > 0  decode: valid mask plus the [1, H, 1, L] column bias over
                     the whole cache, plain form
   prefix-LM         the full [B, H, S, S] bias of `prefix_lm_bias`, plain form
+The kernels run in the model's dtype, as the TPU kernels run in the
+inputs' dtype: a bf16 model on K3 ALiBi and K4 ALiBi, an fp32 one (the
+default here, as `MPTBlock` and `MPTForCausalLM` default to fp32 in the
+JAX module, mpt.py:113, :195) on K3 ALiBi fp32 and K4 ALiBi fp32; an
+fp16 model is widened to fp32 for the kernel and rounded back once
+(`ops/attention.py:kernel_dtypes`).
 The KV cache is updated in place (JAX returns a new one) and returned for
 the same call form. Multiquery broadcasts k and v to every head with
 `expand` (head stride 0), which the kernels read as they are.

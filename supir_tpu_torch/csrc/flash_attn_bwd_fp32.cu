@@ -19,6 +19,15 @@
 // Keys past T, queries past S and, with `causal` (S == T), keys after the
 // query get P = 0.
 //
+// K4 ALiBi fp32 is the same kernels given fp32 slopes [H] (null: no bias):
+// the recomputed scores get the forward's bias back, as _bwd_scores adds it
+// (:489-490), P = exp(scale * Q K^T + slope_h * (col - (T - 1)) - lse),
+// with the product by the scale and the bias' product and sum each rounded
+// to fp32 as K3 ALiBi fp32 (flash_attn_fwd_fp32.cu) and the plain version
+// round them, so P is the forward's. Both kernels take the score through
+// one helper, `scaled_score`. The delta pre-pass needs no bias; the slopes
+// get no gradient (static in JAX's custom VJP).
+//
 // Design: fp32 FMA tiles on the CUDA cores, every product in fp32 (no TF32
 // rounding), so the result is the plain version's up to the order of fp32
 // sums. Chosen over 3xTF32 on wgmma (flash_attn_fwd_fp32.cu's route)
@@ -75,6 +84,15 @@ struct Smem {
   static constexpr int LS = BN + 1;  // floats between rows of a score tile
 };
 
+// P's exponent, the scaled score less the row's lse: scale s - l, or with
+// ALiBi (`alibi`, the head's slope) scale s + slope (col - (T - 1)) - l,
+// each step rounded to fp32 as the forward and the plain version round it
+__device__ __forceinline__ float scaled_score(float s, float scale, float l, bool alibi, float slope, int col,
+                                              int T) {
+  if (!alibi) return s * scale - l;
+  return __fadd_rn(__fmul_rn(s, scale), __fmul_rn(slope, static_cast<float>(col - (T - 1)))) - l;
+}
+
 // rows [row0, row0 + BN) of one (b, h) of x into shared rows of LD floats;
 // zeros past n
 template <int D>
@@ -114,8 +132,9 @@ template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_fp32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                          const float* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, float* __restrict__ dq, Strides sq, Strides sk,
-                         Strides sv, Strides sd, int H, int S, int T, float scale, int causal, int fault) {
+                         const float* __restrict__ delta, const float* __restrict__ slopes,
+                         float* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sd, int H, int S, int T,
+                         float scale, int causal, int fault) {
   constexpr int LD = Smem<D>::LD, LS = Smem<D>::LS, DF = D / 16;
   extern __shared__ float smem[];
   float* qs = smem;            // [BM][LD]
@@ -129,6 +148,8 @@ flash_bwd_fp32_dq_kernel(const float* __restrict__ q, const float* __restrict__ 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = blockIdx.y * BM;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const bool alibi = slopes != nullptr;
+  const float slope = alibi ? slopes[h] : 0.f;
   load_rows<D>(qs, q, sq, b, h, q0, S);
   load_rows<D>(gs, dout, sd, b, h, q0, S);
   for (int r = threadIdx.x; r < BM; r += THREADS) {
@@ -183,7 +204,7 @@ flash_bwd_fp32_dq_kernel(const float* __restrict__ q, const float* __restrict__ 
       for (int j = 0; j < CF; ++j) {
         const int col = k0 + tx + 16 * j;
         const bool keep = col < T && (!causal || fault == 3 || col <= row);
-        const float p = keep ? expf(sc[i][j] * scale - l) : 0.f;
+        const float p = keep ? expf(scaled_score(sc[i][j], scale, l, alibi, slope, col, T)) : 0.f;
         ds[r * LS + tx + 16 * j] = fault == 1 ? p * dp[i][j] : p * (dp[i][j] - es[r]);
       }
     }
@@ -218,9 +239,9 @@ template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_fp32_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                           const float* __restrict__ dout, const float* __restrict__ lse,
-                          const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
-                          Strides sq, Strides sk, Strides sv, Strides sd, int H, int S, int T, float scale,
-                          int causal, int fault) {
+                          const float* __restrict__ delta, const float* __restrict__ slopes,
+                          float* __restrict__ dk, float* __restrict__ dv, Strides sq, Strides sk, Strides sv,
+                          Strides sd, int H, int S, int T, float scale, int causal, int fault) {
   constexpr int LD = Smem<D>::LD, LS = Smem<D>::LS, DF = D / 16;
   extern __shared__ float smem[];
   float* ks = smem;            // [BM][LD]
@@ -235,6 +256,8 @@ flash_bwd_fp32_dkv_kernel(const float* __restrict__ q, const float* __restrict__
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int k0 = blockIdx.y * BM;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const bool alibi = slopes != nullptr;
+  const float slope = alibi ? slopes[h] : 0.f;
   load_rows<D>(ks, k, sk, b, h, k0, T);
   load_rows<D>(vs, v, sv, b, h, k0, T);
   float dka[RF][DF], dva[RF][DF];
@@ -289,7 +312,7 @@ flash_bwd_fp32_dkv_kernel(const float* __restrict__ q, const float* __restrict__
         const int c = tx + 16 * j, row = q0 + c;
         const float l = fault == 4 ? ls[c] * LOG2E : ls[c];
         const bool keep = key < T && (!causal || fault == 3 || key <= row);
-        const float p = keep ? expf(st[i][j] * scale - l) : 0.f;
+        const float p = keep ? expf(scaled_score(st[i][j], scale, l, alibi, slope, key, T)) : 0.f;
         ps[r * LS + c] = p;
         ds[r * LS + c] = fault == 1 ? p * dpt[i][j] : p * (dpt[i][j] - es[c]);
       }
@@ -345,8 +368,8 @@ static_assert(dkv_smem<128>() <= 232448, "one block's shared memory");
 
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* dout, const float* lse,
-                   const float* delta, float* dq, float* dk, float* dv, const Strides* st, int B, int H, int S,
-                   int T, float scale, int causal, int fault, cudaStream_t stream) {
+                   const float* delta, const float* slopes, float* dq, float* dk, float* dv, const Strides* st, int B,
+                   int H, int S, int T, float scale, int causal, int fault, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_fp32_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          dq_smem<D>());
   if (err != cudaSuccess) return err;
@@ -354,11 +377,11 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
                              dkv_smem<D>());
   if (err != cudaSuccess) return err;
   flash_bwd_fp32_dq_kernel<D><<<dim3(B * H, (S + BM - 1) / BM), THREADS, dq_smem<D>(), stream>>>(
-      q, k, v, dout, lse, delta, dq, st[0], st[1], st[2], st[4], H, S, T, scale, causal, fault);
+      q, k, v, dout, lse, delta, slopes, dq, st[0], st[1], st[2], st[4], H, S, T, scale, causal, fault);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_fp32_dkv_kernel<D><<<dim3(B * H, (T + BM - 1) / BM), THREADS, dkv_smem<D>(), stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, st[0], st[1], st[2], st[4], H, S, T, scale, causal, fault);
+      q, k, v, dout, lse, delta, slopes, dk, dv, st[0], st[1], st[2], st[4], H, S, T, scale, causal, fault);
   return cudaGetLastError();
 }
 
@@ -367,14 +390,14 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
 // Plain C entry point for ctypes: fp32 q, o, dout [B,S,H,D], k, v [B,T,H,D]
 // (any strides with a contiguous head dim: `strides` holds batch, sequence
 // and head strides in elements of q, k, v, o and dout, 15 values); lse
-// [B,H,S] fp32 contiguous; delta scratch of B*H*S floats; dq [B,S,H,D], dk
-// and dv [B,T,H,D] fp32 contiguous. causal is 0 or 1 (then S == T); fault 0
-// is the kernel, 1-4 its planted faults. Launches the delta pre-pass, then
-// the dQ kernel and the dK/dV kernel on `stream`. Returns 0 or a
-// cudaError_t.
+// [B,H,S] fp32 contiguous; delta scratch of B*H*S floats; slopes: fp32 [H]
+// ALiBi slopes on the device, or null for none; dq [B,S,H,D], dk and dv
+// [B,T,H,D] fp32 contiguous. causal is 0 or 1 (then S == T); fault 0 is
+// the kernel, 1-4 its planted faults. Launches the delta pre-pass, then the
+// dQ kernel and the dK/dV kernel on `stream`. Returns 0 or a cudaError_t.
 extern "C" int supir_flash_attn_bwd_fp32(const void* q, const void* k, const void* v, const void* o,
-                                         const void* dout, const void* lse, void* delta, void* dq, void* dk,
-                                         void* dv, int B, int H, int S, int T, int D, int causal,
+                                         const void* dout, const void* lse, void* delta, const void* slopes,
+                                         void* dq, void* dk, void* dv, int B, int H, int S, int T, int D, int causal,
                                          const long long* strides, float scale, int fault, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || T <= 0 || (D != 64 && D != 128)) return static_cast<int>(cudaErrorInvalidValue);
   if ((S + BM - 1) / BM > 65535 || (T + BM - 1) / BM > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -396,7 +419,8 @@ extern "C" int supir_flash_attn_bwd_fp32(const void* q, const void* k, const voi
   float* dqf = static_cast<float*>(dq);
   float* dkf = static_cast<float*>(dk);
   float* dvf = static_cast<float*>(dv);
-  err = D == 64 ? launch<64>(qf, kf, vf, gf, lf, df, dqf, dkf, dvf, st, B, H, S, T, scale, causal, fault, s)
-                : launch<128>(qf, kf, vf, gf, lf, df, dqf, dkf, dvf, st, B, H, S, T, scale, causal, fault, s);
+  const float* sl = static_cast<const float*>(slopes);
+  err = D == 64 ? launch<64>(qf, kf, vf, gf, lf, df, sl, dqf, dkf, dvf, st, B, H, S, T, scale, causal, fault, s)
+                : launch<128>(qf, kf, vf, gf, lf, df, sl, dqf, dkf, dvf, st, B, H, S, T, scale, causal, fault, s);
   return static_cast<int>(err);
 }

@@ -21,6 +21,31 @@
 // (parallel/ring_attention.py) and the fp32 trainers' FlashAttention
 // forward run it; K4 fp32 (flash_attn_bwd_fp32.cu) reads its lse.
 //
+// K3 ALiBi fp32 is the same kernel with ALiBi (MPT's positional bias: the
+// TPU kernel's `alibi` branch, :197-201, with its slopes operand :395-396,
+// :456-458), with or without the lse, for fp32 inputs: an MPT at the JAX
+// module's default dtype (supir_tpu/captioner/mpt.py:113, :195) runs it at
+// every flash site. Given fp32 slopes [H], head h's scores become
+// scale * q.k + slope_h * (col - (T - 1)), T the unpadded key length, as
+// the TPU kernel computes them (:193-201): the product by the scale and the
+// bias' product and sum are each rounded to fp32 there (__fmul_rn,
+// __fadd_rn: nvcc may not contract them into one FMA), and the running
+// max, the exp2 (its factor log2 e, not scale log2 e) and the lse
+// (m + ln(l)) then all run in those scaled units. So the bias enters in the
+// running max's units, 3xTF32 leaves it alone (it is added in fp32 after
+// the three products), the lse holds the whole bias with its -(T - 1)
+// offset (which cancels in O, constant along a row, but not in the lse K4
+// reads), and a key masked after the bias is -inf, never finite again.
+// ALIBI is a template flag: the instances without it carry no bias code.
+// The rounding is the TPU kernel's and the plain version's on purpose: at
+// MPT-7B's slopes and T = 2048 the biased scores reach ~1700, where an fp32
+// ulp is 1.2e-4, so each score carries a rounding of up to 6e-5 that is
+// part of the function the plain version computes. A kernel that rounded
+// them otherwise (in raw q.k units, as the bf16 instance adds its bias, or
+// relative to the row, exactly) would stand ~1e-5 from the plain version
+// in relative L2 at [1,2048,32,128] causal, at K1 fp32's bound, whatever
+// its own accuracy (PERF.md §6).
+//
 // What it computes: O = softmax(Q K^T / sqrt(D)) V over q [B,S,H,D] and
 // k/v [B,T,H,D], D 64 or 128, read in place through TMA tensor maps
 // (ops/flash_attention.py:tma_plan, 32-column slabs of 128 bytes: views of
@@ -120,7 +145,10 @@
 // accumulator is not rescaled when the max rises, 2 the ragged last key tile
 // is not masked, 3 the causal diagonal is not masked, 4 S on one product
 // (hi hi: plain TF32), 5 P V without V's lo part, 6 V^T written in key
-// order (without the fragment permutation).
+// order (without the fragment permutation), 7 the lse in log2 units; with
+// ALIBI only: 8 the bias added to the raw q.k (before the scale: the slope
+// left in the wrong units), 9 the -(T - 1) offset dropped (O as it was in
+// exact arithmetic, the lse off by slope_h (T - 1)).
 
 #include <climits>
 #include <math.h>
@@ -134,6 +162,7 @@ constexpr int FP32_SLAB = 32;      // fp32 columns per 128-byte swizzle slab (on
 constexpr int PRODUCER_REGS = 120;
 constexpr uint32_t TF32_HALF = 0x1000u;      // half a TF32 ulp, in the fp32 bits
 constexpr uint32_t TF32_KEEP = 0xFFFFE000u;  // the bits of an fp32 word a TF32 operand keeps
+constexpr float LOG2E = 1.4426950408889634f;
 // slot p of each 8-key group of a V^T row holds key VT_KEY[p] (the fragment permutation)
 constexpr int VT_KEY[8] = {0, 2, 4, 6, 1, 3, 5, 7};
 
@@ -178,6 +207,14 @@ __device__ __forceinline__ void tf32_split4(const float4& x, uint4& hi, uint4& l
   tf32_split(x.y, hi.y, lo.y);
   tf32_split(x.z, hi.z, lo.z);
   tf32_split(x.w, hi.w, lo.w);
+}
+
+// ALiBi: a raw score s as the softmax of the ALiBi instance sees it, scale
+// s + bias with each step rounded to fp32 (FAULT 8: the bias added to the
+// raw score, then scaled)
+template <int FAULT>
+__device__ __forceinline__ float alibi_score(float s, float scale, float bias) {
+  return FAULT == 8 ? __fmul_rn(__fadd_rn(s, bias), scale) : __fadd_rn(__fmul_rn(s, scale), bias);
 }
 
 // the producer warpgroup's own barrier (id 1; 0 is __syncthreads)
@@ -253,12 +290,13 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64], const uint32_t* a,
 }
 
 
-template <int D, int FAULT>
+template <int D, int FAULT, bool ALIBI>
 __global__ void __launch_bounds__(Tiles<D>::THREADS, 1)
 flash_fwd_fp32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap, MapPos qpos, MapPos kpos, MapPos vpos,
-                      float* __restrict__ o, float* __restrict__ lse, int H, int S, int T, long long osb,
-                      long long oss, long long osh, float scale_log2, int causal) {
+                      float* __restrict__ o, float* __restrict__ lse, const float* __restrict__ slopes, int H,
+                      int S, int T, long long osb, long long oss, long long osh, float scale, float scale_log2,
+                      int causal) {
   using L = Tiles<D>;
   constexpr int BM = L::BM, BN = L::BN;
   extern __shared__ unsigned char smem_raw[];
@@ -382,13 +420,17 @@ flash_fwd_fp32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_con
   // causal: the tiles past the warpgroup's last row are not multiplied
   const int wg_tiles = causal ? (min(T, first + 64) + BN - 1) / BN : n_tiles;
   const uint32_t q_hi = base + L::Q_HI + cw * 64 * 128, q_lo = base + L::Q_LO + cw * 64 * 128;
+  // ALiBi: the head's slope, and the softmax in scaled units (exp2's factor
+  // log2 e); without it the softmax runs in raw q.k units (scale log2 e)
+  const float slope = ALIBI ? slopes[h] : 0.f;
+  const float unit_log2 = ALIBI ? LOG2E : scale_log2;
 
   float acc[D / 2];  // O: rows row0 (acc[4j], acc[4j+1]) and row0 + 8 (acc[4j+2], acc[4j+3]), cols 8j + 2tq
   float sc[BN / 2];  // S, the same layout over the tile's keys
   uint32_t ph[BN / 2], pl[BN / 2];  // P's TF32 pair, A fragments: k8 step j at [4j, 4j + 4)
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max, raw score units
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max, raw score units (ALiBi: scaled)
   float l0 = 0.f, l1 = 0.f;              // this thread's share of the running sum
 
   mbar_wait(q_ready, 0);
@@ -420,6 +462,17 @@ flash_fwd_fp32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_con
       wgmma_wait_all();
       fence_regs(sc);
 
+      if (ALIBI) {  // the bias before the masks, so a masked key stays -inf (FAULT 9: no -(T - 1))
+        const int c0 = k0 + 2 * tq - (FAULT == 9 ? 0 : T - 1);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float bias = __fmul_rn(slope, static_cast<float>(c0 + 8 * j + e));
+            sc[4 * j + e] = alibi_score<FAULT>(sc[4 * j + e], scale, bias);
+            sc[4 * j + 2 + e] = alibi_score<FAULT>(sc[4 * j + 2 + e], scale, bias);
+          }
+      }
       if ((FAULT != 2 && k0 + BN > T) || (causal && FAULT != 3 && k0 + BN - 1 > first)) {
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j)
@@ -445,16 +498,16 @@ flash_fwd_fp32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_con
       }
       const float sub0 = mx0 == -INFINITY ? 0.f : mx0;  // a row with no key yet: every p is 0
       const float sub1 = mx1 == -INFINITY ? 0.f : mx1;
-      const float corr0 = exp2f((m0 - sub0) * scale_log2), corr1 = exp2f((m1 - sub1) * scale_log2);
+      const float corr0 = exp2f((m0 - sub0) * unit_log2), corr1 = exp2f((m1 - sub1) * unit_log2);
       m0 = mx0;
       m1 = mx1;
       float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
-        const float p00 = exp2f((sc[4 * j] - sub0) * scale_log2);
-        const float p01 = exp2f((sc[4 * j + 1] - sub0) * scale_log2);
-        const float p10 = exp2f((sc[4 * j + 2] - sub1) * scale_log2);
-        const float p11 = exp2f((sc[4 * j + 3] - sub1) * scale_log2);
+        const float p00 = exp2f((sc[4 * j] - sub0) * unit_log2);
+        const float p01 = exp2f((sc[4 * j + 1] - sub0) * unit_log2);
+        const float p10 = exp2f((sc[4 * j + 2] - sub1) * unit_log2);
+        const float p11 = exp2f((sc[4 * j + 3] - sub1) * unit_log2);
         sum0 += p00 + p01;
         sum1 += p10 + p11;
         // k-indices tq and tq + 4 of rows g and g + 8 are keys 2 tq and 2 tq + 1 (VT_KEY)
@@ -520,11 +573,15 @@ flash_fwd_fp32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_con
           make_float2(acc[4 * j + 2] / n1, acc[4 * j + 3] / n1);
   }
   // K3 fp32: lse = m scale + ln(l) in natural-log units of the scaled
-  // scores, one lane of each row's quad stores it (FAULT 7: log2 units)
+  // scores (ALiBi: m is in those units already, lse = m + ln(l)), one lane
+  // of each row's quad stores it (FAULT 7: log2 units)
   if (lse != nullptr && tq == 0) {
     constexpr float LN2 = 0.6931471805599453f;
     float* lrow = lse + static_cast<long long>(bh) * S;
-    if (FAULT == 7) {
+    if (ALIBI) {
+      if (row0 < S) lrow[row0] = m0 + logf(n0);
+      if (row0 + 8 < S) lrow[row0 + 8] = m1 + logf(n1);
+    } else if (FAULT == 7) {
       if (row0 < S) lrow[row0] = m0 * scale_log2 + log2f(n0);
       if (row0 + 8 < S) lrow[row0 + 8] = m1 * scale_log2 + log2f(n1);
     } else {
@@ -541,32 +598,52 @@ struct Maps {
   MapPos qp, kp, vp;
 };
 
-template <int D, int FAULT>
-cudaError_t launch(const Maps& m, float* o, float* lse, int B, int H, int S, int T, const long long* ost,
-                   float scale_log2, int causal, cudaStream_t stream) {
+// the kernel's arguments past the tensor maps
+struct Args {
+  float* o;
+  float* lse;
+  const float* slopes;
+  int B, H, S, T;
+  long long ost[3];
+  float scale, scale_log2;
+  int causal;
+};
+
+template <int D, int FAULT, bool ALIBI>
+cudaError_t launch(const Maps& m, const Args& a, cudaStream_t stream) {
   using L = Tiles<D>;
-  const cudaError_t err = cudaFuncSetAttribute(flash_fwd_fp32_kernel<D, FAULT>,
+  const cudaError_t err = cudaFuncSetAttribute(flash_fwd_fp32_kernel<D, FAULT, ALIBI>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, L::ALLOC);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (S + L::BM - 1) / L::BM);
-  flash_fwd_fp32_kernel<D, FAULT><<<grid, L::THREADS, L::ALLOC, stream>>>(
-      m.q, m.k, m.v, m.qp, m.kp, m.vp, o, lse, H, S, T, ost[0], ost[1], ost[2], scale_log2, causal);
+  const dim3 grid(a.B * a.H, (a.S + L::BM - 1) / L::BM);
+  flash_fwd_fp32_kernel<D, FAULT, ALIBI><<<grid, L::THREADS, L::ALLOC, stream>>>(
+      m.q, m.k, m.v, m.qp, m.kp, m.vp, a.o, a.lse, a.slopes, a.H, a.S, a.T, a.ost[0], a.ost[1], a.ost[2], a.scale,
+      a.scale_log2, a.causal);
   return cudaGetLastError();
 }
 
+// the instances: without ALiBi the kernel and faults 1-7, with it (slopes
+// given) the kernel and faults 8 and 9; any other pairing is refused
 template <int D>
-cudaError_t dispatch(const Maps& m, float* o, float* lse, int B, int H, int S, int T, const long long* ost,
-                     float scale_log2, int causal, int fault, cudaStream_t s) {
-  if ((S + Tiles<D>::BM - 1) / Tiles<D>::BM > 65535) return cudaErrorInvalidValue;
+cudaError_t dispatch(const Maps& m, const Args& a, int fault, cudaStream_t s) {
+  if ((a.S + Tiles<D>::BM - 1) / Tiles<D>::BM > 65535) return cudaErrorInvalidValue;
+  if (a.slopes != nullptr) {
+    switch (fault) {
+      case 0: return launch<D, 0, true>(m, a, s);
+      case 8: return launch<D, 8, true>(m, a, s);
+      case 9: return launch<D, 9, true>(m, a, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (fault) {
-    case 0: return launch<D, 0>(m, o, lse, B, H, S, T, ost, scale_log2, causal, s);
-    case 1: return launch<D, 1>(m, o, lse, B, H, S, T, ost, scale_log2, causal, s);
-    case 2: return launch<D, 2>(m, o, lse, B, H, S, T, ost, scale_log2, causal, s);
-    case 3: return launch<D, 3>(m, o, lse, B, H, S, T, ost, scale_log2, causal, s);
-    case 4: return launch<D, 4>(m, o, lse, B, H, S, T, ost, scale_log2, causal, s);
-    case 5: return launch<D, 5>(m, o, lse, B, H, S, T, ost, scale_log2, causal, s);
-    case 6: return launch<D, 6>(m, o, lse, B, H, S, T, ost, scale_log2, causal, s);
-    case 7: return launch<D, 7>(m, o, lse, B, H, S, T, ost, scale_log2, causal, s);
+    case 0: return launch<D, 0, false>(m, a, s);
+    case 1: return launch<D, 1, false>(m, a, s);
+    case 2: return launch<D, 2, false>(m, a, s);
+    case 3: return launch<D, 3, false>(m, a, s);
+    case 4: return launch<D, 4, false>(m, a, s);
+    case 5: return launch<D, 5, false>(m, a, s);
+    case 6: return launch<D, 6, false>(m, a, s);
+    case 7: return launch<D, 7, false>(m, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -575,10 +652,10 @@ cudaError_t dispatch(const Maps& m, float* o, float* lse, int B, int H, int S, i
 
 namespace {
 
-// both entry points: lse null for K1 fp32
-int forward(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int S, int T, int D,
-            int causal, const long long* plans, long long osb, long long oss, long long osh, float scale, int fault,
-            void* stream) {
+// both entry points: lse null for K1 fp32, slopes null for no ALiBi
+int forward(const void* q, const void* k, const void* v, void* o, float* lse, const void* slopes, int B, int H, int S,
+            int T, int D, int causal, const long long* plans, long long osb, long long oss, long long osh,
+            float scale, int fault, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || T <= 0 || (D != 64 && D != 128)) return static_cast<int>(cudaErrorInvalidValue);
   EncodeTiled fn;
   const cudaError_t found = encode_tiled(&fn);
@@ -591,37 +668,38 @@ int forward(const void* q, const void* k, const void* v, void* o, float* lse, in
     const CUresult r = encode(fn, maps[i], pos[i], ptrs[i], plans + i * PLAN_LEN, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
     if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   }
-  const long long ost[3] = {osb, oss, osh};
-  const float scale_log2 = scale * 1.4426950408889634f;
-  float* of = static_cast<float*>(o);
+  const Args a{static_cast<float*>(o), lse, static_cast<const float*>(slopes), B, H, S, T, {osb, oss, osh}, scale,
+               scale * LOG2E, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = D == 64 ? dispatch<64>(m, of, lse, B, H, S, T, ost, scale_log2, causal, fault, s)
-                                  : dispatch<128>(m, of, lse, B, H, S, T, ost, scale_log2, causal, fault, s);
+  const cudaError_t err = D == 64 ? dispatch<64>(m, a, fault, s) : dispatch<128>(m, a, fault, s);
   return static_cast<int>(err);
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes: fp32 q [B,S,H,D], k/v [B,T,H,D], o
-// [B,S,H,D]. plans: three tensor-map plans of PLAN_LEN values each (q, k,
-// v; ops/flash_attention.py:tma_plan of fp32 operands: 32-column boxes of
-// BM rows for q, BN for k and v); o's strides in elements (batch, seq,
-// head; the head dim has stride 1, o 8-byte aligned). causal is 0 or 1
-// (then S == T). fault 0 is the kernel, 1-6 its planted faults. Returns 0,
-// a cudaError_t, or minus the CUresult of a failed tensor-map encode.
-extern "C" int supir_flash_attn_fwd_fp32(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
-                                         int T, int D, int causal, const long long* plans, long long osb,
-                                         long long oss, long long osh, float scale, int fault, void* stream) {
-  return forward(q, k, v, o, nullptr, B, H, S, T, D, causal, plans, osb, oss, osh, scale, fault, stream);
+// [B,S,H,D]. slopes: fp32 [H] ALiBi slopes on the device, or null for none.
+// plans: three tensor-map plans of PLAN_LEN values each (q, k, v;
+// ops/flash_attention.py:tma_plan of fp32 operands: 32-column boxes of BM
+// rows for q, BN for k and v); o's strides in elements (batch, seq, head;
+// the head dim has stride 1, o 8-byte aligned). causal is 0 or 1 (then
+// S == T). fault 0 is the kernel, 1-6 its planted faults without ALiBi, 8
+// and 9 with it. Returns 0, a cudaError_t, or minus the CUresult of a
+// failed tensor-map encode.
+extern "C" int supir_flash_attn_fwd_fp32(const void* q, const void* k, const void* v, void* o, const void* slopes,
+                                         int B, int H, int S, int T, int D, int causal, const long long* plans,
+                                         long long osb, long long oss, long long osh, float scale, int fault,
+                                         void* stream) {
+  return forward(q, k, v, o, nullptr, slopes, B, H, S, T, D, causal, plans, osb, oss, osh, scale, fault, stream);
 }
 
 // K3 fp32: the same, and lse [B, H, S] fp32 (contiguous) receives each
-// query row's natural-log logsumexp of the scaled scores; fault 7 writes
-// it in log2 units.
-extern "C" int supir_flash_attn_fwd_lse_fp32(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                                             int H, int S, int T, int D, int causal, const long long* plans,
-                                             long long osb, long long oss, long long osh, float scale, int fault,
-                                             void* stream) {
-  return forward(q, k, v, o, static_cast<float*>(lse), B, H, S, T, D, causal, plans, osb, oss, osh, scale, fault,
-                 stream);
+// query row's natural-log logsumexp of the scaled (and ALiBi-biased)
+// scores; fault 7 writes it in log2 units.
+extern "C" int supir_flash_attn_fwd_lse_fp32(const void* q, const void* k, const void* v, void* o, void* lse,
+                                             const void* slopes, int B, int H, int S, int T, int D, int causal,
+                                             const long long* plans, long long osb, long long oss, long long osh,
+                                             float scale, int fault, void* stream) {
+  return forward(q, k, v, o, static_cast<float*>(lse), slopes, B, H, S, T, D, causal, plans, osb, oss, osh, scale,
+                 fault, stream);
 }

@@ -21,11 +21,14 @@ ALiBi (MPT's positional bias; the TPU kernels' `alibi` branch, :197-201 and
 (a tensor or anything `torch.as_tensor` takes), and adds
 slope_h * (col - (T - 1)) to head h's scaled scores before the mask, T the
 key length; the lse is then that of the biased scores, and the backward
-re-adds the bias. The kernels take it as a runtime argument (K3 ALiBi in
-`flash_attn_fwd.cu`, K4 ALiBi in `flash_attn_bwd.cu`). ALiBi is never
-head-packed on the TPU (:339), so its forward is `_attn_kernel`, K3's
-kernel, with or without the lse: a wrapper's ALiBi launches are counted in
-`<wrapper>.alibi_launches`, apart from `launches`.
+re-adds the bias. The kernels take the slopes as a runtime pointer, in bf16
+(K3 ALiBi in `flash_attn_fwd.cu`, K4 ALiBi in `flash_attn_bwd.cu`) and in
+fp32 (K3 ALiBi fp32 in `flash_attn_fwd_fp32.cu`, K4 ALiBi fp32 in
+`flash_attn_bwd_fp32.cu`). ALiBi is never head-packed on the TPU (:339), so
+its forward is `_attn_kernel`, K3's kernel, with or without the lse: a
+wrapper's ALiBi launches are counted in `<wrapper>.alibi_launches` (bf16)
+and `<wrapper>.alibi_fp32_launches` (fp32), apart from `launches` and
+`fp32_launches`.
 
 Routing under autograd, as the JAX function is differentiable through its
 `custom_vjp` (`_make_diff_fn`, :305-325): the kernel wrappers
@@ -57,9 +60,15 @@ fp32 (`FlashAttention` under grad) run them. K3 fp32 is K1 fp32's kernel
 with an lse output (`flash_attention_fwd_lse` counts it in
 `fp32_launches`); K4 fp32, `supir_tpu_torch/csrc/flash_attn_bwd_fp32.cu`,
 is a first design on the CUDA cores in fp32 FMA tiles (the source says
-why), counted in `flash_attention_bwd.fp32_launches`. The ALiBi variants
-take bf16 only: MPT runs in bf16 in both packages, and no fp32 ALiBi
-kernel is ported.
+why), counted in `flash_attention_bwd.fp32_launches`. Their ALiBi
+instances serve MPT at its default dtype: `MPTBlock` and `MPTForCausalLM`
+compute in fp32 unless told otherwise (`supir_tpu/captioner/mpt.py:113,
+:195`), and on a TPU every such self-attention site of 1024 tokens or more
+runs the Pallas ALiBi kernel in fp32, its backward too under `jax.grad`.
+K3 ALiBi fp32 rounds the biased scores as the TPU kernel does (:193-201),
+scale * q.k and the bias each rounded to fp32 before their sum, and runs
+its softmax in those units (the source says why); `flash_fp32_emulate`
+takes the slopes too.
 
 Each wrapper, on a CPU tensor, returns its plain version (`attention_plain`,
 `attention_fwd_lse_plain`, `attention_bwd_plain`); on a CUDA tensor it
@@ -110,6 +119,10 @@ LN2 = 0.6931471805599453
 (FP32_FAULT_NO_RESCALE, FP32_FAULT_RAGGED, FP32_FAULT_DIAGONAL, FP32_FAULT_ONE_PRODUCT, FP32_FAULT_NO_V_LO,
  FP32_FAULT_VT_ORDER) = range(1, 7)
 FP32_FAULT_LSE_LOG2 = 7  # K3 fp32 only: the lse written in log2 units (O untouched)
+# K3 ALiBi fp32's planted faults (with slopes only): the bias added to the raw
+# q.k before the scale (the slope in the wrong units), the -(T - 1) offset
+# dropped (the lse moves by slope_h (T - 1), O does not in exact arithmetic)
+FP32_FAULT_ALIBI_RAW_UNITS, FP32_FAULT_ALIBI_NO_OFFSET = 8, 9
 # K4 fp32's planted faults (csrc/flash_attn_bwd_fp32.cu): delta dropped, dK
 # without the scale, the causal diagonal not masked, P read with the lse in
 # log2 units
@@ -305,8 +318,8 @@ def _fp32_library() -> ctypes.CDLL:
     from supir_tpu_torch.ops.cuda_build import load_library
 
     lib = load_library(_FP32_SOURCE)
-    # q, k, v, out[, lse]; B H S T D causal; the three plans; out's strides; scale, fault, stream
-    for fn, n_ptrs in ((lib.supir_flash_attn_fwd_fp32, 4), (lib.supir_flash_attn_fwd_lse_fp32, 5)):
+    # q, k, v, out[, lse], slopes; B H S T D causal; the three plans; out's strides; scale, fault, stream
+    for fn, n_ptrs in ((lib.supir_flash_attn_fwd_fp32, 5), (lib.supir_flash_attn_fwd_lse_fp32, 6)):
         fn.restype = ctypes.c_int
         fn.argtypes = (
             [ctypes.c_void_p] * n_ptrs
@@ -326,7 +339,7 @@ def _bwd_fp32_library() -> ctypes.CDLL:
     fn = lib.supir_flash_attn_bwd_fp32
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 10  # q, k, v, out, dout, lse, delta scratch, dq, dk, dv
+        [ctypes.c_void_p] * 11  # q, k, v, out, dout, lse, delta scratch, slopes, dq, dk, dv
         + [ctypes.c_int] * 6    # B H S T D causal
         + [ctypes.POINTER(ctypes.c_longlong)]  # strides of q, k, v, out, dout
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, fault, stream
@@ -360,8 +373,7 @@ def _on_card(kernel: str, q: torch.Tensor, inputs) -> bool:
     return True
 
 
-BF16_ONLY = (torch.bfloat16,)  # the ALiBi kernels
-K1_DTYPES = (torch.bfloat16, torch.float32)  # K1, K3 and K4: bf16 and fp32 instances
+K1_DTYPES = (torch.bfloat16, torch.float32)  # K1, K3 and K4, with ALiBi or not: bf16 and fp32 instances
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, *more,
@@ -385,9 +397,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, *mor
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype not in dtypes or t.dtype != q.dtype:
-            if dtypes == BF16_ONLY:
-                raise TypeError(f"{kernel} take bf16 only (the fp32 ALiBi kernels are not ported: MPT runs in "
-                                f"bf16); {name} is {t.dtype}")
             raise TypeError(f"{kernel} takes all-bf16 or all-fp32 operands; q is {q.dtype}, {name} {t.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous (stride {t.stride()})")
@@ -450,9 +459,10 @@ def _forward(q, k, v, causal: bool, with_lse: bool, slopes: torch.Tensor | None 
     return out, lse
 
 
-def _launch_fp32(q, k, v, causal: bool, fault: int, with_lse: bool):
+def _launch_fp32(q, k, v, causal: bool, fault: int, with_lse: bool, slopes: torch.Tensor | None = None):
     """Launch K1 fp32, or K3 fp32 (with_lse: the same kernel, which then
-    also writes the lse); returns (out, lse or None)."""
+    also writes the lse), with ALiBi if `slopes` (K3 ALiBi fp32, with or
+    without the lse); returns (out, lse or None)."""
     b, s, h, d = q.shape
     t = k.shape[1]
     out = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
@@ -469,32 +479,37 @@ def _launch_fp32(q, k, v, causal: bool, fault: int, with_lse: bool):
     if with_lse:
         ptrs.append(lse.data_ptr())
         fn = lib.supir_flash_attn_fwd_lse_fp32
+    ptrs.append(None if slopes is None else slopes.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*ptrs, b, h, s, t, d, int(causal), plans, *out.stride()[:3], d ** -0.5, fault, stream)
-    label = "flash attention forward (fp32" + (", lse)" if with_lse else ")")
+    label = ("flash attention forward (fp32" + (", ALiBi" if slopes is not None else "")
+             + (", lse)" if with_lse else ")"))
     if err < 0:
         raise RuntimeError(f"{label}: cuTensorMapEncodeTiled failed with CUresult {-err}")
     _raise_on(err, label)
     return out, lse
 
 
-def _forward_fp32(q, k, v, causal: bool, fault: int = 0) -> torch.Tensor:
+def _forward_fp32(q, k, v, causal: bool, fault: int = 0, slopes: torch.Tensor | None = None) -> torch.Tensor:
     """Launch K1 fp32 (`fault` > 0: one of its FP32_FAULT_* instances, for
-    the checks); returns out, fp32 [B,S,H,D]. Counts nothing."""
-    return _launch_fp32(q, k, v, causal, fault, with_lse=False)[0]
+    the checks), or with `slopes` (fp32 [H] on the card) K3 ALiBi fp32
+    without the lse (faults FP32_FAULT_ALIBI_*); returns out, fp32
+    [B,S,H,D]. Counts nothing."""
+    return _launch_fp32(q, k, v, causal, fault, False, slopes)[0]
 
 
-def _forward_fp32_lse(q, k, v, causal: bool, fault: int = 0):
-    """Launch K3 fp32 (`fault`: an FP32_FAULT_*, FP32_FAULT_LSE_LOG2 too);
-    returns (out fp32 [B,S,H,D], lse fp32 [B,H,S]). Counts nothing."""
-    return _launch_fp32(q, k, v, causal, fault, with_lse=True)
+def _forward_fp32_lse(q, k, v, causal: bool, fault: int = 0, slopes: torch.Tensor | None = None):
+    """Launch K3 fp32 (`fault`: an FP32_FAULT_*, FP32_FAULT_LSE_LOG2 too),
+    or with `slopes` K3 ALiBi fp32 (FP32_FAULT_ALIBI_*); returns (out fp32
+    [B,S,H,D], lse fp32 [B,H,S]). Counts nothing."""
+    return _launch_fp32(q, k, v, causal, fault, True, slopes)
 
 
-def _backward_fp32(q, k, v, out, lse, dout, causal: bool, fault: int = 0):
-    """Launch K4 fp32 (`fault`: a BWD_FP32_FAULT_*, for the checks) on
-    checked operands; returns (dq, dk, dv), fp32 and contiguous. Counts
-    nothing."""
+def _backward_fp32(q, k, v, out, lse, dout, causal: bool, fault: int = 0, slopes: torch.Tensor | None = None):
+    """Launch K4 fp32 (`fault`: a BWD_FP32_FAULT_*, for the checks), with
+    ALiBi if `slopes` (K4 ALiBi fp32), on checked operands; returns (dq,
+    dk, dv), fp32 and contiguous. Counts nothing."""
     b, s, h, d = q.shape
     t = k.shape[1]
     dq, dk, dv = (torch.empty(x.shape, dtype=torch.float32, device=q.device) for x in (q, k, v))
@@ -506,9 +521,9 @@ def _backward_fp32(q, k, v, out, lse, dout, causal: bool, fault: int = 0):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s, t, d, int(causal), strides,
-                 d ** -0.5, fault, stream)
-    _raise_on(err, "flash attention backward (fp32)")
+                 delta.data_ptr(), None if slopes is None else slopes.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, h, s, t, d, int(causal), strides, d ** -0.5, fault, stream)
+    _raise_on(err, "flash attention backward (fp32" + (", ALiBi)" if slopes is not None else ")"))
     return dq, dk, dv
 
 
@@ -544,7 +559,7 @@ VT_KEY = tuple(vt_key(p) for p in range(8))
 
 
 def flash_fp32_emulate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
-                       fault: int = 0, with_lse: bool = False):
+                       fault: int = 0, with_lse: bool = False, alibi_slopes=None):
     """K1 fp32's kernel walked on the CPU in its own order: warpgroups of 64
     query rows, key tiles of FP32_TILES[D][1] keys (zero past T; with
     `causal`, none past the warpgroup's last row), every operand split into
@@ -557,11 +572,18 @@ def flash_fp32_emulate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal
     FP32_FAULT_*: with FP32_FAULT_VT_ORDER P's key 8 g + VT_KEY[p] meets V's
     key 8 g + p. Returns fp32 [B,S,H,D]; with `with_lse` (K3 fp32) also the
     lse [B,H,S], m scale + ln(max(l, 1e-30)) (FP32_FAULT_LSE_LOG2: in log2
-    units)."""
+    units). With `alibi_slopes` (fp32 [H]) it walks K3 ALiBi fp32: each
+    tile's scores become scale s + slope_h (col - (T - 1)), each step
+    rounded to fp32 (FP32_FAULT_ALIBI_RAW_UNITS: (s + bias) scale;
+    FP32_FAULT_ALIBI_NO_OFFSET: slope_h col), before the masks; the softmax
+    then runs in those units (exp2's factor log2 e) and the lse is
+    m + ln(max(l, 1e-30))."""
     b, s, h, d = q.shape
     t = k.shape[1]
     bn = FP32_TILES[d][1]
-    c = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(LOG2E, dtype=torch.float32)
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    slopes = None if alibi_slopes is None else torch.as_tensor(alibi_slopes, dtype=torch.float32)[:, None, None]
+    c = torch.tensor(LOG2E, dtype=torch.float32) if slopes is not None else scale * torch.tensor(LOG2E, dtype=torch.float32)
     n_tiles = -(-t // bn)
     pad = (0, 0, 0, n_tiles * bn - t)
     qh, kh, vh = (x.float().transpose(1, 2).contiguous() for x in (q, k, v))  # [B, H, N, D]
@@ -588,6 +610,12 @@ def flash_fp32_emulate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal
             if fault != FP32_FAULT_ONE_PRODUCT:
                 scores = qa_lo @ kt_hi + qa_hi @ kt_lo + scores
             cols = torch.arange(j * bn, (j + 1) * bn)
+            if slopes is not None:
+                bias = slopes * (cols - (0 if fault == FP32_FAULT_ALIBI_NO_OFFSET else t - 1)).float()
+                if fault == FP32_FAULT_ALIBI_RAW_UNITS:
+                    scores = (scores + bias) * scale
+                else:
+                    scores = scores * scale + bias
             drop = torch.zeros(len(rows), bn, dtype=torch.bool)
             if fault != FP32_FAULT_RAGGED:
                 drop |= cols[None] >= t
@@ -608,7 +636,9 @@ def flash_fp32_emulate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal
             acc = acc + (pv + p_hi @ v_hi[:, :, keys])
             m = m_new
         out[:, :, rows] = acc / l.clamp_min(1e-30)[..., None]
-        if fault == FP32_FAULT_LSE_LOG2:
+        if slopes is not None:
+            lse[:, :, rows] = m + torch.log(l.clamp_min(1e-30))
+        elif fault == FP32_FAULT_LSE_LOG2:
             lse[:, :, rows] = m * c + torch.log2(l.clamp_min(1e-30))
         else:
             lse[:, :, rows] = m * c * torch.tensor(LN2, dtype=torch.float32) + torch.log(l.clamp_min(1e-30))
@@ -621,29 +651,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with `causal`, query i sees keys 0..i (S == T). bf16 q, k, v launch the
     bf16 kernel (counted in `launches`), fp32 ones K1 fp32 (counted in
     `fp32_launches`). With `alibi_slopes` it is K3 ALiBi without the lse
-    (bf16 only; counted in `alibi_launches`). Not differentiable on the
-    card: raises there if grad mode is on and an input requires grad."""
+    (counted in `alibi_launches`; fp32: K3 ALiBi fp32, counted in
+    `alibi_fp32_launches`). Not differentiable on the card: raises there if
+    grad mode is on and an input requires grad."""
     if not _on_card("flash_attention (K1)", q, (q, k, v)):
         return attention_plain(q, k, v, causal=causal, alibi_slopes=alibi_slopes)
-    _check(q, k, v, causal, **_dtypes(alibi_slopes, "K1"))
-    if q.dtype == torch.float32:
-        out = _forward_fp32(q, k, v, causal)
-        flash_attention.fp32_launches += 1
-        return out
+    _check(q, k, v, causal, kernel="K1" if alibi_slopes is None else "K3 ALiBi")
     slopes = _slopes(alibi_slopes, q)
-    out, _ = _forward(q, k, v, causal, with_lse=False, slopes=slopes)
-    if slopes is None:
-        flash_attention.launches += 1
+    if q.dtype == torch.float32:
+        out = _forward_fp32(q, k, v, causal, slopes=slopes)
     else:
-        flash_attention.alibi_launches += 1
+        out, _ = _forward(q, k, v, causal, with_lse=False, slopes=slopes)
+    _count(flash_attention, q, slopes)
     return out
 
 
-def _dtypes(alibi_slopes, kernel: str) -> dict:
-    """`_check`'s dtypes and kernel name: bf16 or fp32, ALiBi bf16 only."""
-    if alibi_slopes is None:
-        return {"dtypes": K1_DTYPES, "kernel": kernel}
-    return {"dtypes": BF16_ONLY, "kernel": "the ALiBi kernels"}
+def _count(wrapper, q: torch.Tensor, slopes) -> None:
+    """One launch of `wrapper`'s kernel, in the counter of its instance:
+    `launches`, `fp32_launches`, `alibi_launches` or `alibi_fp32_launches`."""
+    name = ("alibi_" if slopes is not None else "") + ("fp32_" if q.dtype == torch.float32 else "") + "launches"
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -651,21 +678,17 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K3: (out [B,S,H,D], lse [B,H,S] fp32), lse the natural-log
     logsumexp of each query row's scaled (ALiBi-biased) scores. bf16 q, k,
     v launch K3 (counted in `launches`), fp32 ones K3 fp32 (counted in
-    `fp32_launches`); ALiBi (bf16 only) launches are counted in
-    `alibi_launches`."""
+    `fp32_launches`); ALiBi launches are counted in `alibi_launches` (bf16)
+    and `alibi_fp32_launches` (fp32)."""
     if not _on_card("flash_attention_fwd_lse (K3)", q, (q, k, v)):
         return attention_fwd_lse_plain(q, k, v, causal, alibi_slopes)
-    _check(q, k, v, causal, **_dtypes(alibi_slopes, "K3"))
-    if q.dtype == torch.float32:
-        out, lse = _forward_fp32_lse(q, k, v, causal)
-        flash_attention_fwd_lse.fp32_launches += 1
-        return out, lse
+    _check(q, k, v, causal, kernel="K3" if alibi_slopes is None else "K3 ALiBi")
     slopes = _slopes(alibi_slopes, q)
-    out, lse = _forward(q, k, v, causal, with_lse=True, slopes=slopes)
-    if slopes is None:
-        flash_attention_fwd_lse.launches += 1
+    if q.dtype == torch.float32:
+        out, lse = _forward_fp32_lse(q, k, v, causal, slopes=slopes)
     else:
-        flash_attention_fwd_lse.alibi_launches += 1
+        out, lse = _forward(q, k, v, causal, with_lse=True, slopes=slopes)
+    _count(flash_attention_fwd_lse, q, slopes)
     return out, lse
 
 
@@ -674,20 +697,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     """K4: (dq, dk, dv) in q's dtype from the forward's residuals (q, k, v,
     out, lse as K3 returns them, with the same `alibi_slopes`) and the
     output gradient dout. bf16 operands launch K4 (counted in `launches`),
-    fp32 ones K4 fp32 (counted in `fp32_launches`); ALiBi (bf16 only)
-    launches are counted in `alibi_launches`."""
+    fp32 ones K4 fp32 (counted in `fp32_launches`); ALiBi launches are
+    counted in `alibi_launches` (bf16) and `alibi_fp32_launches` (fp32)."""
     if not _on_card("flash_attention_bwd (K4)", q, (q, k, v, out, lse, dout)):
         return attention_bwd_plain(q, k, v, out, lse, dout, causal, alibi_slopes)
-    _check(q, k, v, causal, out, dout, **_dtypes(alibi_slopes, "K4"))
+    _check(q, k, v, causal, out, dout, kernel="K4" if alibi_slopes is None else "K4 ALiBi")
     b, s, h, d = q.shape
     t = k.shape[1]
     if lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous fp32 [{b},{h},{s}] tensor, got {lse.dtype} {tuple(lse.shape)}")
-    if q.dtype == torch.float32:
-        grads = _backward_fp32(q, k, v, out, lse, dout, causal)
-        flash_attention_bwd.fp32_launches += 1
-        return grads
     slopes = _slopes(alibi_slopes, q)
+    if q.dtype == torch.float32:
+        grads = _backward_fp32(q, k, v, out, lse, dout, causal, slopes=slopes)
+        _count(flash_attention_bwd, q, slopes)
+        return grads
     dq, dk, dv = (torch.empty_like(x, memory_format=torch.contiguous_format) for x in (q, k, v))
     if s == 0 or t == 0 or b * h == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
@@ -705,10 +728,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     if err < 0:
         raise RuntimeError(f"flash attention backward: cuTensorMapEncodeTiled failed with CUresult {-err}")
     _raise_on(err, "flash attention backward")
-    if slopes is None:
-        flash_attention_bwd.launches += 1
-    else:
-        flash_attention_bwd.alibi_launches += 1
+    _count(flash_attention_bwd, q, slopes)
     return dq, dk, dv
 
 
@@ -716,13 +736,16 @@ for _wrapper in (flash_attention, flash_attention_fwd_lse, flash_attention_bwd):
     _wrapper.launches = 0
     _wrapper.alibi_launches = 0
     _wrapper.fp32_launches = 0
+    _wrapper.alibi_fp32_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention, the counterpart of the JAX function's
     `custom_vjp` (`_make_diff_fn`, :305-325): the forward runs K3 and saves
-    q, k, v, out and lse (and the ALiBi slopes); the backward runs K4, each
-    in the operands' dtype (bf16, or fp32 on K3 fp32 and K4 fp32). On
+    q, k, v, out and lse (and the ALiBi slopes, which get no gradient, as
+    the JAX function holds them static); the backward runs K4 with the same
+    slopes, each in the operands' dtype (bf16, or fp32 on K3 fp32 and K4
+    fp32, with ALiBi or not). On
     CPU tensors both are the plain versions, so the CPU tests run the
     backward's arithmetic. The backward runs under the forward's autocast
     state."""

@@ -8,8 +8,9 @@ Each variant is NAME=DIR, DIR a directory holding a
 package's own sources; a copy of an older source, e.g. unpacked with `git
 archive` under the gitignored `build/`, names that). A source that
 includes `flash_attn_tma.cuh` takes the TMA plans (the 3xTF32 design, the
-wrapper's own launch); one that does not takes the first design's twelve
-element strides. For each variant it builds the library (ops/cuda_build.py,
+wrapper's own launch; one from before the ALiBi instance, whose entry
+points take no slopes pointer, through `_without_slopes`); one that does
+not takes the first design's twelve element strides. For each variant it builds the library (ops/cuda_build.py,
 the same flags) and prints ptxas's spills, holds the kernel to its fp32
 plain version at the tile edges (relative L2, two runs bit-identical;
 beside it the distance to the walk, flash_fp32_emulate), then at
@@ -70,6 +71,25 @@ def _strided_launcher(lib):
     return run
 
 
+class _without_slopes:
+    """A 3xTF32 library from before the ALiBi instance, seen through the
+    current entry points: their slopes pointer (null without ALiBi) is
+    dropped before the call."""
+
+    def __init__(self, lib):
+        def entry(fn, n_ptrs):
+            def call(*args):
+                return fn(*args[:n_ptrs], *args[n_ptrs + 1:])
+            return call
+
+        self.supir_flash_attn_fwd_fp32 = entry(lib.supir_flash_attn_fwd_fp32, 4)
+        self.supir_flash_attn_fwd_lse_fp32 = entry(lib.supir_flash_attn_fwd_lse_fp32, 5)
+        for fn, n_ptrs in ((lib.supir_flash_attn_fwd_fp32, 4), (lib.supir_flash_attn_fwd_lse_fp32, 5)):
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+                           + [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
 def launchers(variants: dict, libs: dict) -> dict:
     """name -> (run(q, k, v, causal, fault=0), whether it takes TMA plans)
     for each built variant."""
@@ -77,8 +97,12 @@ def launchers(variants: dict, libs: dict) -> dict:
 
     runs = {}
     for name, lib in libs.items():
-        tma = '#include "flash_attn_tma.cuh"' in (variants[name] / fa._FP32_SOURCE).read_text()
+        text = (variants[name] / fa._FP32_SOURCE).read_text()
+        tma = '#include "flash_attn_tma.cuh"' in text
         if tma:
+            if "const void* slopes" not in text:
+                lib = _without_slopes(lib)
+
             def run(q, k, v, causal, fault=0, lib=lib):
                 cuda_build._loaded[fa._FP32_SOURCE] = lib
                 fa._fp32_library.cache_clear()

@@ -13,10 +13,20 @@ the bound tells 3xTF32 from TF32); the fragment permutation of V^T
 (`vt_key`) against the kernel's constants and the wgmma fragments; the
 fp32 TMA plans; and the routing with the card stubbed in: fp32 sites go to
 K1 fp32, fp16 ones are widened exactly and rounded back once, mixed dtypes
-are promoted, and no site that was not bf16 reaches the bf16 kernel. The
-`gpu` tests hold the kernel to `attention_plain` in fp32 and to its walk
-on the card. JAX is imported inside the parity tests only, so the `gpu`
-tests also run where it is not installed:
+are promoted, and no site that was not bf16 reaches the bf16 kernel.
+
+K3 ALiBi fp32 (the same source, MPT's bias, `alibi_slopes`): the walk with
+slopes against JAX's `flash_attention(..., alibi_slopes=, interpret=True)`
+in fp32 at 2e-5 absolute (the JAX package's own tolerance for its ALiBi
+kernel, tests/test_flash_attention.py:72), causal and not, both head dims,
+multiquery; each planted ALiBi fault (the bias in raw q.k units, the slopes
+reversed) over the bound, the dropped -(T - 1) offset in the lse alone; and
+fp32 and fp16 ALiBi sites reaching the fp32 ALiBi launcher with their
+slopes, through `attention` and MPT's prefill.
+
+The `gpu` tests hold the kernels to `attention_plain` in fp32 and to
+their walk on the card. JAX is imported inside the parity tests only, so
+the `gpu` tests also run where it is not installed:
 python -m pytest --noconftest tests/test_torch_flash_fp32.py -m gpu
 """
 
@@ -28,9 +38,12 @@ import numpy as np
 import pytest
 import torch
 
+from supir_tpu_torch.captioner.mpt import MPTConfig, MPTForCausalLM, alibi_slopes
 from supir_tpu_torch.ops import attention as attn_ops
 from supir_tpu_torch.ops import flash_attention as fa
 from supir_tpu_torch.ops.flash_attention import (
+    FP32_FAULT_ALIBI_NO_OFFSET,
+    FP32_FAULT_ALIBI_RAW_UNITS,
     FP32_FAULT_DIAGONAL,
     FP32_FAULT_NO_RESCALE,
     FP32_FAULT_NO_V_LO,
@@ -124,6 +137,93 @@ def test_one_product_walk_is_tf32_grade():
     args = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), CASES[0][-1])
     assert 10 * REL_BOUND < _rel(flash_fp32_emulate(*args, FP32_FAULT_ONE_PRODUCT).numpy(), want) < 1e-2
     assert _rel(flash_fp32_emulate(*args).numpy(), want) < REL_BOUND / 10
+
+
+# ------------------------------------------------------------ K3 ALiBi fp32
+
+ALIBI_ATOL = 2e-5  # the ALiBi walk against JAX's ALiBi kernel, absolute (tests/test_flash_attention.py:72)
+LSE_MOVE = 1e-3    # K3 fp32's lse bound on the card, absolute: a fault must move the lse past it
+# (b, s, t, h, d, causal, layout): both head dims, causal and not (T != S
+# too: the bias runs over the keys), multiquery (k and v expanded over the
+# heads, stride 0); the walk's tiles cut every case several times
+ALIBI_CASES = [
+    (1, 200, 150, 4, 64, False, "contiguous"),
+    (1, 150, 150, 4, 64, True, "contiguous"),
+    (1, 130, 200, 2, 128, False, "contiguous"),
+    (1, 130, 130, 2, 128, True, "contiguous"),
+    (1, 150, 150, 6, 64, True, "mqa"),
+    (1, 100, 160, 4, 128, False, "mqa"),
+]
+
+
+def _alibi_inputs(case):
+    """(q, k, v, slopes) as torch tensors, multiquery k and v expanded."""
+    b, s, t, h, d, causal, layout = case
+    q, k, v = (torch.from_numpy(x) for x in _qkv(sum(case[:5]), b, s, t, h, d))
+    if layout == "mqa":
+        k, v = (x[:, :, :1].expand(b, t, h, d) for x in (k, v))
+    return q, k, v, torch.from_numpy(alibi_slopes(h))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_alibi_case(case):
+    """JAX's fp32 ALiBi flash_attention (interpret mode) on a case's inputs."""
+    import jax.numpy as jnp
+
+    from supir_tpu.ops.flash_attention import flash_attention as jax_flash_attention
+
+    q, k, v, slopes = _alibi_inputs(case)
+    want = jax_flash_attention(*(jnp.asarray(x.contiguous().numpy()) for x in (q, k, v)), causal=case[5],
+                               alibi_slopes=slopes.numpy(), interpret=True)
+    assert want.dtype == jnp.float32
+    return np.asarray(want)
+
+
+@pytest.mark.parametrize("case", ALIBI_CASES)
+def test_alibi_emulation_matches_jax_flash_attention_fp32(case):
+    """K3 ALiBi fp32's walk (TF32 pairs, three products, the bias added in
+    scaled units before the masks) and the plain version against JAX's
+    Pallas ALiBi kernel in fp32."""
+    q, k, v, slopes = _alibi_inputs(case)
+    want = _jax_alibi_case(case)
+    got = flash_fp32_emulate(q, k, v, case[5], alibi_slopes=slopes)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=ALIBI_ATOL, rtol=0)
+    plain = attention_plain(q, k, v, causal=case[5], alibi_slopes=slopes)
+    np.testing.assert_allclose(plain.numpy(), want, atol=ALIBI_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", [ALIBI_CASES[1], ALIBI_CASES[2], ALIBI_CASES[4]])
+def test_alibi_emulated_faults_break_the_bound(case):
+    """The bias in raw q.k units (added before the scale) and the heads'
+    slopes reversed move O far past the bound; the -(T - 1) offset dropped
+    moves only the lse, by slope_h (T - 1) a head, and leaves O within it."""
+    q, k, v, slopes = _alibi_inputs(case)
+    want = _jax_alibi_case(case)
+    causal, t = case[5], case[2]
+    raw = flash_fp32_emulate(q, k, v, causal, FP32_FAULT_ALIBI_RAW_UNITS, alibi_slopes=slopes)
+    assert _rel(raw.numpy(), want) > REL_BOUND
+    flipped = flash_fp32_emulate(q, k, v, causal, alibi_slopes=slopes.flip(0))
+    assert _rel(flipped.numpy(), want) > REL_BOUND
+    out, lse = flash_fp32_emulate(q, k, v, causal, with_lse=True, alibi_slopes=slopes)
+    no_offset, bad_lse = flash_fp32_emulate(q, k, v, causal, FP32_FAULT_ALIBI_NO_OFFSET, with_lse=True,
+                                            alibi_slopes=slopes)
+    np.testing.assert_allclose(no_offset.numpy(), want, atol=ALIBI_ATOL, rtol=0)
+    assert _rel(no_offset.numpy(), out.numpy()) <= REL_BOUND
+    shift = (bad_lse - lse).amax(dim=(0, 2))  # per head
+    torch.testing.assert_close(shift, slopes * (t - 1), rtol=1e-5, atol=1e-4)
+    assert (bad_lse - lse).abs().max().item() > LSE_MOVE
+
+
+def test_alibi_walk_without_slopes_is_k1_fp32():
+    """Slopes of zero add nothing but change the softmax's units: the walk
+    agrees with the walk without ALiBi within the bound, and without slopes
+    it is K1 fp32's walk bit for bit."""
+    q, k, v, _ = _alibi_inputs(ALIBI_CASES[1])
+    plain_walk = flash_fp32_emulate(q, k, v, True)
+    assert _rel(flash_fp32_emulate(q, k, v, True, alibi_slopes=torch.zeros(4)).numpy(),
+                plain_walk.numpy()) <= REL_BOUND
+    assert torch.equal(flash_fp32_emulate(q, k, v, True, alibi_slopes=None), plain_walk)
 
 
 def _split_inputs(kind):
@@ -231,12 +331,16 @@ def stub_card(monkeypatch):
     """Run the kernel wrapper's card branch on CPU tensors: `_on_card` says
     yes, and the two launchers are replaced by recorders that return what
     the kernels compute (the fp32 walk; the plain version rounded to bf16).
-    Yields the list of (launcher, dtypes of q, k, v)."""
+    Yields the list of (launcher, dtypes of q, k, v); the slopes the fp32
+    launcher was given land in `stub_slopes`."""
     calls = []
+    stub_slopes.clear()
 
-    def fp32(q, k, v, causal, fault=0):
-        calls.append(("fp32", (q.dtype, k.dtype, v.dtype)))
-        return flash_fp32_emulate(q, k, v, causal, fault)
+    def fp32(q, k, v, causal, fault=0, slopes=None):
+        calls.append(("fp32" if slopes is None else "fp32 alibi", (q.dtype, k.dtype, v.dtype)))
+        if slopes is not None:
+            stub_slopes.append(slopes)
+        return flash_fp32_emulate(q, k, v, causal, fault, alibi_slopes=slopes)
 
     def bf16(q, k, v, causal, with_lse, slopes=None):
         calls.append(("bf16", (q.dtype, k.dtype, v.dtype)))
@@ -246,6 +350,9 @@ def stub_card(monkeypatch):
     monkeypatch.setattr(fa, "_forward_fp32", fp32)
     monkeypatch.setattr(fa, "_forward", bf16)
     yield calls
+
+
+stub_slopes = []
 
 
 def _site(seed, dtypes, s=1024, d=64):
@@ -303,19 +410,60 @@ def test_only_bf16_sites_reach_the_bf16_kernel(stub_card):
 
 
 def test_fp32_refusals_name_the_missing_path(stub_card):
-    """The ALiBi variants take bf16 only (K3 and K4 have fp32 instances,
-    tests/test_torch_flash_train_fp32.py): the refusal names the missing
-    fp32 ALiBi kernels; K1 takes no mix of dtypes."""
+    """What the kernels refuse: no mix of dtypes and no fp16, with ALiBi or
+    without (the refusal names the dtypes they take; `attention` promotes
+    and widens before it calls them). fp32 with ALiBi is no longer refused:
+    it launches K3 ALiBi fp32 with the slopes, counted apart."""
     q, k, v = _site(6, [torch.float32] * 3)
-    with pytest.raises(TypeError, match="fp32 ALiBi kernels are not ported"):
-        flash_attention(q, k, v, alibi_slopes=torch.ones(1))
-    with pytest.raises(TypeError, match="fp32 ALiBi kernels are not ported"):
-        fa.flash_attention_fwd_lse(q, k, v, alibi_slopes=torch.ones(1))
-    with pytest.raises(TypeError, match="all-bf16 or all-fp32"):
-        flash_attention(q, k.bfloat16(), v)
-    with pytest.raises(TypeError, match="all-bf16 or all-fp32"):
-        flash_attention(q.half(), k.half(), v.half())
+    slopes = torch.tensor([0.5])
+    for kwargs in ({}, {"alibi_slopes": slopes}):
+        with pytest.raises(TypeError, match="all-bf16 or all-fp32"):
+            flash_attention(q, k.bfloat16(), v, **kwargs)
+        with pytest.raises(TypeError, match="all-bf16 or all-fp32"):
+            flash_attention(q.half(), k.half(), v.half(), **kwargs)
     assert stub_card == []
+    before = (flash_attention.alibi_fp32_launches, flash_attention.fp32_launches, flash_attention.alibi_launches)
+    out = flash_attention(q, k, v, alibi_slopes=slopes)
+    assert stub_card == [("fp32 alibi", (torch.float32,) * 3)] and torch.equal(stub_slopes[0], slopes)
+    assert (flash_attention.alibi_fp32_launches, flash_attention.fp32_launches,
+            flash_attention.alibi_launches) == (before[0] + 1, before[1], before[2])
+    assert _rel(out.numpy(), attention_plain(q, k, v, alibi_slopes=slopes).numpy()) <= REL_BOUND
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_fp32_alibi_site_reaches_the_fp32_alibi_launcher(stub_card, dtype):
+    """An fp32 ALiBi site, and an fp16 one widened to fp32, reach K3 ALiBi
+    fp32 with the slopes through `attention` (causal, MPT's form), counted in
+    `alibi_fp32_launches`; the result is the walk with those slopes, rounded
+    to the site's dtype once."""
+    q, k, v = _site(7, [dtype] * 3)
+    slopes = torch.from_numpy(alibi_slopes(1))
+    before = (flash_attention.alibi_fp32_launches, flash_attention.fp32_launches, flash_attention.alibi_launches)
+    out = attn_ops.attention(q, k, v, causal=True, alibi_slopes=slopes)
+    assert stub_card == [("fp32 alibi", (torch.float32,) * 3)] and torch.equal(stub_slopes[0], slopes)
+    assert (flash_attention.alibi_fp32_launches, flash_attention.fp32_launches,
+            flash_attention.alibi_launches) == (before[0] + 1, before[1], before[2])
+    assert out.dtype == dtype
+    walk = flash_fp32_emulate(q.float(), k.float(), v.float(), True, alibi_slopes=slopes)
+    assert torch.equal(out, walk.to(dtype))
+
+
+def test_fp32_mpt_prefill_reaches_the_fp32_alibi_launcher(stub_card, monkeypatch):
+    """An fp32 MPT's prefill (the fast path at cache index 0) at 1024 tokens:
+    every layer's attention reaches K3 ALiBi fp32 with the model's slopes,
+    and the logits are those of the plain route."""
+    cfg = MPTConfig(d_model=128, n_heads=2, n_layers=2, vocab_size=64, max_seq_len=1024)
+    torch.manual_seed(0)
+    model = MPTForCausalLM(cfg)
+    ids = torch.randint(0, cfg.vocab_size, (1, 1024), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        logits, _ = model(ids, caches=model.init_cache(1, 1024), cache_index=0)
+    assert stub_card == [("fp32 alibi", (torch.float32,) * 3)] * cfg.n_layers
+    assert all(torch.equal(x, model.slopes("cpu")) for x in stub_slopes)
+    monkeypatch.setattr(fa, "_on_card", lambda kernel, q, inputs: False)  # the plain route
+    with torch.no_grad():
+        want, _ = model(ids, caches=model.init_cache(1, 1024), cache_index=0)
+    assert _rel(logits.numpy(), want.numpy()) <= REL_BOUND
 
 
 def test_fp32_alignment_rule_is_the_loads():
@@ -433,3 +581,42 @@ def test_fp16_site_runs_on_the_card(cuda):
     want = attention_plain(q.float(), k.float(), v.float())
     assert _card_rel(out.float(), want.half().float()) <= 1e-3  # one fp16 rounding on each side
     assert torch.equal(out, flash_attention(q.float(), k.float(), v.float()).half())
+
+
+# K3 ALiBi fp32 without the lse (the generate path's prefill): MPT-7B's
+# prompt shape, then tile edges, both head dims, multiquery, packed
+ALIBI_CARD_CASES = [
+    (1, 1536, 1536, 32, 128, True, "contiguous"),
+    (2, 1100, 1500, 3, 64, False, "contiguous"),
+    (1, 1030, 1030, 8, 128, True, "mqa"),
+    (1, 1100, 1100, 4, 64, True, "packed"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,t,h,d,causal,layout", ALIBI_CARD_CASES)
+def test_alibi_fp32_kernel_matches_plain(cuda, b, s, t, h, d, causal, layout):
+    """K3 ALiBi fp32 without the lse against attention_plain in fp32 with
+    the slopes within 1e-5, counted in `alibi_fp32_launches`, two runs
+    bit-identical and equal to the instance with the lse (one kernel, the
+    lse a runtime pointer)."""
+    q, k, v = _card_inputs(cuda, 11, b, s, t, h, d, layout)
+    slopes = torch.from_numpy(alibi_slopes(h)).to(cuda)
+    before = (flash_attention.alibi_fp32_launches, flash_attention.fp32_launches)
+    out = flash_attention(q, k, v, causal, slopes)
+    again = flash_attention(q, k, v, causal, slopes)
+    torch.cuda.synchronize()
+    assert (flash_attention.alibi_fp32_launches, flash_attention.fp32_launches) == (before[0] + 2, before[1])
+    assert torch.equal(out, again) and torch.equal(out, fa.flash_attention_fwd_lse(q, k, v, causal, slopes)[0])
+    assert _card_rel(out, attention_plain(q, k, v, causal=causal, alibi_slopes=slopes)) <= REL_BOUND
+
+
+@pytest.mark.gpu
+def test_alibi_fp32_kernel_equals_its_walk(cuda):
+    """K3 ALiBi fp32 and flash_fp32_emulate with the slopes on the same
+    values: the same tiles, TF32 roundings and fp32-rounded bias."""
+    q, k, v = _card_inputs(cuda, 12, 1, 300, 300, 4, 64, "contiguous")
+    slopes = torch.from_numpy(alibi_slopes(4))
+    got = fa._forward_fp32(q, k, v, True, slopes=slopes.to(cuda)).cpu()
+    walk = flash_fp32_emulate(q.cpu(), k.cpu(), v.cpu(), True, alibi_slopes=slopes)
+    assert _card_rel(got, walk) <= WALK_BOUND

@@ -11,11 +11,16 @@ causal and not, at relative L2 1e-5 (the lse at 1e-5 absolute); the walk's
 planted lse fault over that bound; and the routing with the card stubbed
 in: an fp32 site under grad runs `FlashAttention` on the fp32 launchers,
 an fp16 one is widened, computed in fp32 and rounded back once (its
-gradients too), bf16 stays on the bf16 launchers, and ALiBi with fp32
-raises naming the missing fp32 ALiBi kernels. The `gpu` tests hold the
-kernels to their plain versions on the card (K3 fp32: O 1e-5 relative L2
-and lse 1e-3 absolute; K4 fp32: dQ, dK, dV 2e-5 each), every planted fault
-over its bound, two K4 fp32 runs bit-identical:
+gradients too), bf16 stays on the bf16 launchers, and an fp32 or fp16
+ALiBi site under grad (MPT's) reaches K3 ALiBi fp32 and K4 ALiBi fp32 with
+its slopes, through `attention`, `FlashAttention` and MPT's causal-LM loss.
+K3 ALiBi fp32's walk and K4 ALiBi fp32's plain version are held to JAX's
+`_flash_fwd_lse` and `_flash_bwd` with slopes in fp32 (2e-5 absolute, the
+JAX package's ALiBi tolerance). The `gpu` tests hold the kernels to their
+plain versions on the card (K3 fp32: O 1e-5 relative L2 and lse 1e-3
+absolute; K4 fp32: dQ, dK, dV 2e-5 each; with ALiBi: O against
+`attention_plain` and dQ, dK, dV at 1e-5), every planted fault over its
+bound, two K4 fp32 runs bit-identical:
 python -m pytest --noconftest tests/test_torch_flash_train_fp32.py -m gpu
 """
 
@@ -119,6 +124,71 @@ def test_fp32_backward_matches_jax(case):
         assert _rel(a, w) <= JAX_BOUND, f"d{name} via autograd"
 
 
+ALIBI_ATOL = 2e-5  # against JAX's ALiBi kernels, absolute (tests/test_flash_attention.py:72)
+# (b, s, t, h, d, causal, multiquery): both head dims, causal and not
+ALIBI_CASES = [
+    (1, 130, 130, 4, 64, True, False),
+    (1, 100, 150, 2, 128, False, False),
+    (1, 96, 96, 2, 128, True, False),
+    (1, 130, 130, 6, 64, True, True),
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_alibi_case(case):
+    """(q, k, v, g, slopes, JAX's out, lse [B,H,S], dq, dk, dv) in fp32 with
+    MPT's slopes, interpret mode; multiquery k and v broadcast over heads."""
+    import jax.numpy as jnp
+
+    from supir_tpu.ops.flash_attention import _flash_bwd, _flash_fwd_lse
+    from supir_tpu_torch.captioner.mpt import alibi_slopes
+
+    b, s, t, h, d, causal, mqa = case
+    q, k, v, g = _inputs(sum(case[:5]), b, s, t, h, d)
+    if mqa:
+        k, v = (np.ascontiguousarray(np.broadcast_to(x[:, :, :1], x.shape)) for x in (k, v))
+    slopes = alibi_slopes(h)
+    static = tuple(float(x) for x in slopes)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    out, lse_lanes = _flash_fwd_lse(jq, jk, jv, causal, static, 64, 64, True)
+    grads = _flash_bwd(jq, jk, jv, out, lse_lanes, jnp.asarray(g), causal, static, 64, 64, True)
+    lse = np.asarray(lse_lanes)[:, :s, 0].reshape(b, h, s)
+    return (q, k, v, g, slopes, np.asarray(out), lse) + tuple(np.asarray(x) for x in grads)
+
+
+@pytest.mark.parametrize("case", ALIBI_CASES)
+def test_alibi_fp32_lse_forward_matches_jax(case):
+    """K3 ALiBi fp32's walk (with its lse) and the plain version against
+    `_flash_fwd_lse` with MPT's slopes on fp32 inputs: O and the lse, which
+    holds the whole bias, its -(T - 1) offset too."""
+    q, k, v, _, slopes, want_out, want_lse = _jax_alibi_case(case)[:7]
+    causal = case[5]
+    tq, tk, tv, ts = map(torch.from_numpy, (q, k, v, slopes))
+    walk_out, walk_lse = flash_fp32_emulate(tq, tk, tv, causal, with_lse=True, alibi_slopes=ts)
+    np.testing.assert_allclose(walk_out.numpy(), want_out, atol=ALIBI_ATOL, rtol=0)
+    np.testing.assert_allclose(walk_lse.numpy(), want_lse, atol=ALIBI_ATOL, rtol=0)
+    out, lse = flash_attention_fwd_lse(tq, tk, tv, causal, ts)
+    np.testing.assert_allclose(out.numpy(), want_out, atol=ALIBI_ATOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=ALIBI_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", ALIBI_CASES)
+def test_alibi_fp32_backward_matches_jax(case):
+    """K4 ALiBi fp32's plain version, from JAX's own residuals, against
+    `_flash_bwd` with the slopes; and FlashAttention's gradients with the
+    slopes through autograd."""
+    q, k, v, g, slopes, out, lse, *want = _jax_alibi_case(case)
+    causal = case[5]
+    ts = torch.from_numpy(slopes)
+    got = flash_attention_bwd(*map(torch.from_numpy, (q, k, v, np.array(out), lse, g)), causal, ts)
+    for name, a, w in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), w, atol=ALIBI_ATOL, rtol=0, err_msg=f"d{name}")
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    (FlashAttention.apply(tq, tk, tv, causal, ts) * torch.from_numpy(g)).sum().backward()
+    for name, a, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(a.numpy(), w, atol=ALIBI_ATOL, rtol=0, err_msg=f"d{name} via autograd")
+
+
 def test_walk_lse_fault_breaks_the_bound():
     """K3 fp32's planted lse fault (log2 units) moves the lse far past the
     bound and leaves O as it was."""
@@ -136,16 +206,20 @@ def test_walk_lse_fault_breaks_the_bound():
 def stub_card(monkeypatch):
     """The wrappers' card branch on CPU tensors: `_on_card` says yes, and
     the launchers are recorders that return what the kernels compute (the
-    plain versions). Yields the list of (launcher, dtype of q)."""
+    plain versions). Yields the list of (launcher, dtype of q); the slopes
+    each fp32 launcher was given land in `given`."""
     calls = []
+    given.clear()
 
-    def fwd_fp32_lse(q, k, v, causal, fault=0):
-        calls.append(("K3 fp32", q.dtype))
-        return attention_fwd_lse_plain(q, k, v, causal)
+    def fwd_fp32_lse(q, k, v, causal, fault=0, slopes=None):
+        calls.append(("K3 fp32" if slopes is None else "K3 ALiBi fp32", q.dtype))
+        given.append(slopes)
+        return attention_fwd_lse_plain(q, k, v, causal, slopes)
 
-    def bwd_fp32(q, k, v, out, lse, dout, causal, fault=0):
-        calls.append(("K4 fp32", q.dtype))
-        return attention_bwd_plain(q, k, v, out, lse, dout, causal)
+    def bwd_fp32(q, k, v, out, lse, dout, causal, fault=0, slopes=None):
+        calls.append(("K4 fp32" if slopes is None else "K4 ALiBi fp32", q.dtype))
+        given.append(slopes)
+        return attention_bwd_plain(q, k, v, out, lse, dout, causal, slopes)
 
     def forward(q, k, v, causal, with_lse, slopes=None):
         calls.append(("K3" if with_lse else "K1", q.dtype))
@@ -159,6 +233,9 @@ def stub_card(monkeypatch):
     monkeypatch.setattr(fa, "_forward", forward)
     monkeypatch.setattr(fa, "_bwd_library", lambda: pytest.fail("the bf16 backward was reached"))
     yield calls
+
+
+given = []
 
 
 def _site(seed, dtype, s=1024, d=64):
@@ -215,15 +292,67 @@ def test_bf16_site_under_grad_stays_on_k3(stub_card):
 
 
 def test_fp32_alibi_names_the_missing_kernels(stub_card):
-    q, k, v, _ = _site(5, torch.float32)
-    for call in (lambda: fa.flash_attention(q, k, v, alibi_slopes=torch.ones(1)),
-                 lambda: flash_attention_fwd_lse(q, k, v, alibi_slopes=torch.ones(1))):
-        with pytest.raises(TypeError, match="fp32 ALiBi kernels are not ported"):
-            call()
-    lse = torch.zeros(1, 1, q.shape[1])
-    with pytest.raises(TypeError, match="fp32 ALiBi kernels are not ported"):
-        flash_attention_bwd(q, k, v, q, lse, q, alibi_slopes=torch.ones(1))
-    assert stub_card == []
+    """No fp32 ALiBi kernel is missing: each wrapper takes fp32 operands
+    with slopes to its fp32 ALiBi launcher, counted in
+    `alibi_fp32_launches`; what is refused is a mix of dtypes."""
+    q, k, v, g = _site(5, torch.float32)
+    slopes = torch.tensor([0.25])
+    counters = (flash_attention_fwd_lse, flash_attention_bwd)
+    before = [(f.alibi_fp32_launches, f.fp32_launches, f.alibi_launches) for f in counters]
+    out, lse = flash_attention_fwd_lse(q, k, v, True, slopes)
+    flash_attention_bwd(q, k, v, out, lse, g, True, slopes)
+    assert stub_card == [("K3 ALiBi fp32", torch.float32), ("K4 ALiBi fp32", torch.float32)]
+    assert all(torch.equal(x, slopes) for x in given)
+    assert [(f.alibi_fp32_launches, f.fp32_launches, f.alibi_launches) for f in counters] == [
+        (a + 1, b, c) for a, b, c in before]
+    with pytest.raises(TypeError, match="all-bf16 or all-fp32"):
+        flash_attention_bwd(q, k, v, out.bfloat16(), lse, g, True, slopes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_alibi_site_under_grad_runs_k3_and_k4_alibi_fp32(stub_card, dtype):
+    """MPT's attention (causal, ALiBi) under grad at an fp32 or fp16 site:
+    `attention` sends it through `FlashAttention`, whose forward reaches K3
+    ALiBi fp32 and whose backward hands the same slopes to K4 ALiBi fp32;
+    the slopes get no gradient, and the gradients are the plain route's."""
+    q, k, v, g = _site(6, dtype)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    slopes = torch.tensor([0.5], requires_grad=True)
+    out = attn_ops.attention(q, k, v, causal=True, alibi_slopes=slopes)
+    (out.float() * g.float()).sum().backward()
+    assert stub_card == [("K3 ALiBi fp32", torch.float32), ("K4 ALiBi fp32", torch.float32)]
+    assert len(given) == 2 and all(torch.equal(x, slopes.detach()) for x in given)
+    assert slopes.grad is None and out.dtype == q.grad.dtype == dtype
+    qr, kr, vr = (x.detach().float().requires_grad_() for x in (q, k, v))
+    want = fa.attention_plain(qr, kr, vr, causal=True, alibi_slopes=slopes.detach())
+    (want * g.float()).sum().backward()
+    tol = JAX_BOUND if dtype == torch.float32 else 1e-3  # fp16: one rounding of out and each gradient
+    assert _rel(out.detach().float(), want.detach()) <= tol
+    for a, w in ((q.grad, qr.grad), (k.grad, kr.grad), (v.grad, vr.grad)):
+        assert _rel(a.float(), w) <= tol
+
+
+def test_fp32_mpt_loss_under_grad_runs_k3_and_k4_alibi_fp32(stub_card, monkeypatch):
+    """One causal-LM loss and backward through an fp32 MPT at 1024 tokens:
+    every layer's attention runs K3 ALiBi fp32 and K4 ALiBi fp32 with the
+    model's slopes, and every gradient is the plain route's."""
+    from supir_tpu_torch.captioner.mpt import MPTConfig, MPTForCausalLM
+    from supir_tpu_torch.captioner.train import causal_lm_loss
+
+    cfg = MPTConfig(d_model=128, n_heads=2, n_layers=2, vocab_size=64, max_seq_len=1024)
+    torch.manual_seed(0)
+    model = MPTForCausalLM(cfg)
+    ids = torch.randint(0, cfg.vocab_size, (1, 1024), generator=torch.Generator().manual_seed(2))
+    causal_lm_loss(model(ids), ids).backward()
+    assert stub_card == [("K3 ALiBi fp32", torch.float32)] * cfg.n_layers + [
+        ("K4 ALiBi fp32", torch.float32)] * cfg.n_layers
+    assert all(torch.equal(x, model.slopes("cpu")) for x in given)
+    got = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad()
+    monkeypatch.setattr(fa, "_on_card", lambda kernel, q, inputs: False)  # the plain route
+    causal_lm_loss(model(ids), ids).backward()
+    for name, p in model.named_parameters():
+        assert _rel(got[name], p.grad) <= JAX_BOUND, name
 
 
 # ------------------------------------------------------------ on the card
@@ -317,3 +446,74 @@ def test_fp32_flash_attention_grads_on_the_card(cuda):
     (fa.attention_plain(qr, kr, vr) * g).sum().backward()
     for a, w in ((qs.grad, qr.grad), (ks.grad, kr.grad), (vs.grad, vr.grad)):
         assert _card_rel(a, w) <= GRAD_BOUND
+
+
+def _card_slopes(cuda, h):
+    from supir_tpu_torch.captioner.mpt import alibi_slopes
+
+    return torch.from_numpy(alibi_slopes(h)).to(cuda)
+
+
+def _card_alibi(cuda, seed, b, s, t, h, d, mqa):
+    q, k, v, g = _card(cuda, seed, b, s, t, h, d)
+    if mqa:
+        k, v = (x[:, :, :1].expand(b, t, h, d) for x in (k, v))
+    return q, k, v, g, _card_slopes(cuda, h)
+
+
+# (b, s, t, h, d, causal, multiquery): MPT-7B's gradient shape, then tile
+# edges, both head dims, MPT's multiquery k and v (expanded, stride 0)
+ALIBI_CARD_CASES = [
+    (1, 2048, 2048, 32, 128, True, False),
+    (1, 1000, 1000, 4, 128, True, False),
+    (2, 1100, 1500, 3, 64, False, False),
+    (1, 1030, 1030, 8, 128, True, True),
+]
+ALIBI_BOUND = 1e-5  # K3 ALiBi fp32's O and K4 ALiBi fp32's dQ, dK, dV, each relative L2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,t,h,d,causal,mqa", ALIBI_CARD_CASES)
+def test_k3_and_k4_alibi_fp32_match_plain(cuda, b, s, t, h, d, causal, mqa):
+    """K3 ALiBi fp32: O against attention_plain in fp32 (K3's plain version
+    normalises by its fp32 lse, whose rounding at |lse| ~ 1700 moves O by
+    ~1e-5; attention_plain normalises by the sum, as the kernel does), the
+    lse against attention_fwd_lse_plain's; K4 ALiBi fp32 on K3's residuals
+    against attention_bwd_plain, two runs bit-identical; counted in
+    `alibi_fp32_launches` alone."""
+    q, k, v, g, slopes = _card_alibi(cuda, 16, b, s, t, h, d, mqa)
+    counters = (flash_attention_fwd_lse, flash_attention_bwd)
+    before = [(f.alibi_fp32_launches, f.fp32_launches, f.alibi_launches) for f in counters]
+    out, lse = flash_attention_fwd_lse(q, k, v, causal, slopes)
+    got = flash_attention_bwd(q, k, v, out, lse, g, causal, slopes)
+    again = flash_attention_bwd(q, k, v, out, lse, g, causal, slopes)
+    torch.cuda.synchronize()
+    assert [(f.alibi_fp32_launches, f.fp32_launches, f.alibi_launches) for f in counters] == [
+        (before[0][0] + 1,) + before[0][1:], (before[1][0] + 2,) + before[1][1:]]
+    assert _card_rel(out, fa.attention_plain(q, k, v, causal=causal, alibi_slopes=slopes)) <= ALIBI_BOUND
+    assert (lse - attention_fwd_lse_plain(q, k, v, causal, slopes)[1]).abs().max().item() <= LSE_BOUND
+    want = attention_bwd_plain(q, k, v, out, lse, g, causal, slopes)
+    for name, a, w, a2 in zip("qkv", got, want, again):
+        assert a.dtype == torch.float32 and torch.equal(a, a2), f"d{name} differs between two runs"
+        assert _card_rel(a, w) <= ALIBI_BOUND, f"d{name}"
+
+
+@pytest.mark.gpu
+def test_k3_and_k4_alibi_fp32_planted_faults(cuda):
+    """The bias in raw q.k units and the slopes reversed break O's bound,
+    the -(T - 1) offset dropped breaks the lse's, K4 without the bias (or
+    with the reversed slopes) the gradients'."""
+    q, k, v, g, slopes = _card_alibi(cuda, 17, 1, 1000, 1000, 4, 128, False)
+    want_out = fa.attention_plain(q, k, v, causal=True, alibi_slopes=slopes)
+    want_lse = attention_fwd_lse_plain(q, k, v, True, slopes)[1]
+    out, lse = fa._forward_fp32_lse(q, k, v, True, slopes=slopes)
+    assert _card_rel(out, want_out) <= ALIBI_BOUND
+    raw, _ = fa._forward_fp32_lse(q, k, v, True, fa.FP32_FAULT_ALIBI_RAW_UNITS, slopes)
+    assert _card_rel(raw, want_out) > ALIBI_BOUND
+    assert _card_rel(fa._forward_fp32_lse(q, k, v, True, slopes=slopes.flip(0))[0], want_out) > ALIBI_BOUND
+    _, no_offset = fa._forward_fp32_lse(q, k, v, True, fa.FP32_FAULT_ALIBI_NO_OFFSET, slopes)
+    assert (no_offset - want_lse).abs().max().item() > LSE_BOUND
+    want = attention_bwd_plain(q, k, v, out, lse, g, True, slopes)
+    for bad in (fa._backward_fp32(q, k, v, out, lse, g, True), fa._backward_fp32(q, k, v, out, lse, g, True,
+                                                                                   slopes=slopes.flip(0))):
+        assert not max(_card_rel(a, w) for a, w in zip(bad, want)) <= ALIBI_BOUND

@@ -854,7 +854,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         flash_attention(q.half(), q.half(), q.half())  # K1 takes bf16 or fp32; attention() widens fp16
     with pytest.raises(TypeError):
-        flash_attention_fwd_lse(q, q, q)  # K3 takes bf16 only
+        flash_attention_fwd_lse(q.half(), q.half(), q.half())  # K3 takes bf16 or fp32
     x = torch.randn(1, 64, 8, 8, device=cuda).transpose(2, 3)
     with pytest.raises(ValueError):
         group_norm(x, torch.ones(64, device=cuda), torch.zeros(64, device=cuda))
