@@ -17,7 +17,8 @@ Phases, each printing its own lines:
      two and K9's pair x three, which may not spill; and K1 fp32's
      instances, D 64/128 x the kernel and its planted faults, which may
      not spill either; twenty-two since the ALiBi instance and its two
-     faults), and the Triton import
+     faults; and K4 fp32's eight, the dQ and the dK/dV kernel x D 64/128 x
+     ALiBi, which may not spill), and the Triton import
      of K2's first design, which stays as a comparator.
   3. kernels against their plain PyTorch versions on the card, with
      CUDA-event or CUDA-graph times of both, the least time the card could
@@ -62,8 +63,9 @@ Phases, each printing its own lines:
      prefill's shape and a non-causal one, in bf16 and in fp32 (K3 ALiBi
      fp32 with and without the lse, K4 ALiBi fp32, multiquery too; O held
      to attention_plain at 1e-5, timed in turns with SDPA fp32 given the
-     bias as a mask). Each is held to a stated bound, and planted faults
-     must break it.
+     bias as a mask); K4 fp32 and K4 ALiBi fp32 also beside their CPU walk
+     on a slice of each row's inputs, with their seven planted faults.
+     Each is held to a stated bound, and planted faults must break it.
   3b. probes: the four decode-GEMV probes (supir_tpu_torch/tools/:
      stream_ceiling T1, gemv_sweep T2, bitcast_probe T3, int4_native_probe
      T4) run through their `main` at 3 replays, with the launch counters of
@@ -568,7 +570,7 @@ def _ptxas_summary(report: str) -> str:
     stores = [int(r) for r in re.findall(r"(\d+) bytes spill stores", report)]
     loads = [int(r) for r in re.findall(r"(\d+) bytes spill loads", report)]
     if not regs:
-        return "no ptxas report (library built earlier)"
+        return "no ptxas report (a library built before its report was kept)"
     return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, spill stores max {max(stores, default=0)} B, "
             f"spill loads max {max(loads, default=0)} B")
 
@@ -665,7 +667,7 @@ def phase_build():
         log(f"[build] {name}<D={d}, alibi={alibi}> (K4{' ALiBi' if alibi else ''} "
             f"{'dQ' if '_dq_' in name else 'dK/dV'}): {regs} registers, spill stores {stores} B, spill loads {loads} B")
     for source, rows in ((k1._FWD_SOURCE, fwd), (k1._BWD_SOURCE, bwd)):
-        if reports[source] and len(rows) != 8:  # no report: the library was built earlier
+        if reports[source] and len(rows) != 8:  # no report: a library built before its report was kept
             raise AssertionError(f"expected 8 instantiations in the ptxas report of {source}, found {len(rows)}")
     # K1 fp32's and K3 fp32's twenty-two (D 64/128 x the kernel and its seven
     # planted faults, and with ALiBi the kernel and its two; the lse is a
@@ -677,7 +679,14 @@ def phase_build():
             f"{stores} B, spill loads {loads} B")
     if reports[k1._FP32_SOURCE] and (len(fp32) != 22 or any(st or ld for *_, st, ld in fp32)):
         raise AssertionError(f"K1 fp32's instances: expected 22 without spills, found {fp32}")
-    log(f"[build] K4 fp32 ({k1._BWD_FP32_SOURCE}): {_ptxas_summary(reports[k1._BWD_FP32_SOURCE])}")
+    # K4 fp32's eight (the dQ and the dK/dV kernel, D 64/128, with and
+    # without ALiBi; the faults are a runtime argument), which may not spill
+    bwd32 = _instances(reports[k1._BWD_FP32_SOURCE], "flash_bwd_fp32_kernel")
+    for _, d, dkv, alibi, regs, stores, loads in sorted(bwd32):
+        log(f"[build] flash_bwd_fp32_kernel<D={d}, {'dK/dV' if dkv else 'dQ'}, alibi={alibi}> (K4"
+            f"{' ALiBi' if alibi else ''} fp32): {regs} registers, spill stores {stores} B, spill loads {loads} B")
+    if reports[k1._BWD_FP32_SOURCE] and (len(bwd32) != 8 or any(st or ld for *_, st, ld in bwd32)):
+        raise AssertionError(f"K4 fp32's instances: expected 8 without spills, found {bwd32}")
     # the tensor-core GEMV's seventeen instances (K5/K6 paired, K7 half-split
     # int4, K7 int8, K11 native: 1, 2 or 4 n-tiles of 8 rows; K10/K5
     # act_int8 W4A8: 1 or 2, 16 rows a launch; K9's pair kernel: 1, 2 or 4):
@@ -3735,14 +3744,37 @@ FLASH_FP32_TRAIN_SHAPES = ((1, 4096, 10, 64, False, True), (2, 8192, 10, 64, Fal
                            (2, 1024, 1, 128, False, True), (1, 1000, 2, 128, True, True))
 K3_FP32_LSE_BOUND = 1e-3  # K3 fp32's lse against the fp32 plain version, max abs
 K4_FP32_REL_BOUND = 2e-5  # K4 fp32's dQ, dK, dV, each relative L2 (twice K1 fp32's, as K4's is twice K1's)
+# K4 fp32's planted faults (ops.flash_attention.BWD_FP32_FAULT_*, 1-7; the
+# diagonal's only where causal)
+K4_FP32_FAULTS = ((1, "delta dropped"), (2, "dK without scale"), (3, "the causal diagonal not masked"),
+                  (4, "P read with the lse in log2 units"), (5, "one TF32 product (hi hi)"),
+                  (6, "the transposed operands' lo dropped"), (7, "the transposed operands in row order"))
+WALK_SLICE = (512, 2)  # queries/keys and heads of the slice on which K4 fp32 is held to its walk
+
+
+def _k4_fp32_walk_rel(q, k, v, dout, causal, slopes=None) -> str:
+    """K4 fp32 (or K4 ALiBi fp32) on a slice of the row's inputs (its first
+    WALK_SLICE tokens and heads) against its CPU walk
+    (ops.flash_attention.flash_bwd_fp32_emulate): the worst relative L2 of
+    dQ, dK, dV, the walk's rounding against the card's."""
+    from supir_tpu_torch.ops import flash_attention as FA
+
+    n, heads = WALK_SLICE
+    q, k, v, dout = (x[:, :n, :heads].contiguous() for x in (q, k, v, dout))
+    slopes = None if slopes is None else slopes[:heads].contiguous()
+    out, lse = FA.attention_fwd_lse_plain(q, k, v, causal, slopes)
+    got = FA._backward_fp32(q, k, v, out, lse, dout, causal, 0, slopes)
+    cpu = [x.cpu() for x in (q, k, v, out, lse, dout)]
+    walk = FA.flash_bwd_fp32_emulate(*cpu, causal, alibi_slopes=None if slopes is None else slopes.cpu())
+    return f"{max(rel_l2(a.cpu(), w) for a, w in zip(got, walk)):.3e} on {list(q.shape)}"
 
 
 def phase_flash_train_fp32_kernels():
     """[kernels] K3 fp32 and K4 fp32 against their fp32 plain versions (O
     at K1_FP32_REL_BOUND and the lse at K3_FP32_LSE_BOUND; dQ, dK and dV at
     K4_FP32_REL_BOUND each, which a bf16 K4 on the same values misses), read
-    against fp64 too, two K4 fp32 runs bit-identical, each planted fault
-    over its bound; timed by CUDA events and by CUDA-graph replay beside
+    against fp64 too and K4 fp32 against its walk on a slice, two K4 fp32
+    runs bit-identical, each planted fault (K4_FP32_FAULTS) over its bound; timed by CUDA events and by CUDA-graph replay beside
     SDPA fp32 (forward; backward as forward+backward less forward) and the
     plain version; bounds: 3xTF32 products at 495 TFLOP/s (K3 two products,
     K4 five, as K4's bound counts) and the CUDA cores' 67 TFLOP/s beside.
@@ -3812,14 +3844,12 @@ def phase_flash_train_fp32_kernels():
                 raise AssertionError(f"K4 fp32 {tag}: two runs differ")
             if not cast > K4_FP32_REL_BOUND:
                 raise AssertionError(f"the K4 fp32 bound does not tell the bf16 K4 from it: {cast}")
-            faults = [(FA.BWD_FP32_FAULT_NO_DELTA, "delta dropped"), (FA.BWD_FP32_FAULT_DK_SCALE, "dK without scale"),
-                      (FA.BWD_FP32_FAULT_LSE_LOG2, "P read with the lse in log2 units")]
-            if causal:
-                faults.append((FA.BWD_FP32_FAULT_DIAGONAL, "the causal diagonal not masked"))
-            for fault, name in faults:
-                _check_fault(f"K4 fp32 {name} {tag}",
-                             max(_k4_rels(FA._backward_fp32(q, k, v, out, lse, dout, causal, fault), want)),
-                             K4_FP32_REL_BOUND)
+            for fault, name in K4_FP32_FAULTS:
+                if fault != FA.BWD_FP32_FAULT_DIAGONAL or causal:
+                    _check_fault(f"K4 fp32 {name} {tag}",
+                                 max(_k4_rels(FA._backward_fp32(q, k, v, out, lse, dout, causal, fault), want)),
+                                 K4_FP32_REL_BOUND)
+            walk = _k4_fp32_walk_rel(q, k, v, dout, causal)
 
             def k4():
                 return FA.flash_attention_bwd(q, k, v, out, lse, dout, causal)
@@ -3834,7 +3864,8 @@ def phase_flash_train_fp32_kernels():
             lib_ms = _sdpa_backward_graph_ms((qt, kt, vt), dout.transpose(1, 2), 5, is_causal=causal)
             log(f"[kernels] K4 fp32 {tag} vs fp32 plain: rel_l2 dq {rels[0]:.3e}, dk {rels[1]:.3e}, dv {rels[2]:.3e} "
                 f"(bound {K4_FP32_REL_BOUND:g} each; vs fp64 {max(rels64):.3e}; the bf16 K4 on the same values "
-                f"{cast:.3e}), two runs bit-identical; events {k4_ms:.3f} ms vs plain {k4_plain:.3f} ms; graph "
+                f"{cast:.3e}; vs its walk {walk}), two runs bit-identical, {len(K4_FP32_FAULTS)} planted faults over "
+                f"the bound; events {k4_ms:.3f} ms vs plain {k4_plain:.3f} ms; graph "
                 f"{k4_graph:.4f} ms vs SDPA fp32 backward {lib_ms:.4f} ms ({k4_graph / lib_ms:.2f}x): "
                 f"{_vs(k4_graph, k4_bound, lib_ms)}; bound {k4_bound:.4f} ms ({k4_by}, 5 products in 3xTF32 at 495 "
                 f"TFLOP/s); CUDA-core bound {k4_core:.4f} ms (67 TFLOP/s): {k4_core / k4_graph:.1%}")
@@ -4590,6 +4621,12 @@ def phase_alibi_fp32_kernels():
         _check_fault(f"K4 ALiBi fp32 the slopes reversed {tag}",
                      max(_k4_rels(FA.flash_attention_bwd(q, k, v, out, lse, dout, causal, slopes.flip(0)), want)),
                      ALIBI_FP32_REL_BOUND)
+        for fault, name in K4_FP32_FAULTS:
+            if fault != FA.BWD_FP32_FAULT_DIAGONAL or causal:
+                _check_fault(f"K4 ALiBi fp32 {name} {tag}",
+                             max(_k4_rels(FA._backward_fp32(q, k, v, out, lse, dout, causal, fault, slopes), want)),
+                             ALIBI_FP32_REL_BOUND)
+        walk = _k4_fp32_walk_rel(q, k, v, dout, causal, slopes)
 
         def k3():
             return FA.flash_attention_fwd_lse(q, k, v, causal, slopes)
@@ -4619,8 +4656,9 @@ def phase_alibi_fp32_kernels():
             f"{k3_bound:.4f} ms ({k3_by}, 3xTF32): {k3_bound / k3_ms:.1%}; CUDA-core bound {k3_core:.4f} ms: "
             f"{k3_core / k3_ms:.1%}")
         log(f"[kernels] K4 ALiBi fp32 {tag} vs fp32 plain: rel_l2 dq {rels[0]:.3e}, dk {rels[1]:.3e}, dv "
-            f"{rels[2]:.3e} (bound {ALIBI_FP32_REL_BOUND:g} each; vs fp64 {max(rels64):.3e}), two runs "
-            f"bit-identical; events {k4_ev:.3f} ms vs plain {k4_plain:.3f} ms; graph {k4_ms:.4f} ms vs SDPA fp32 "
+            f"{rels[2]:.3e} (bound {ALIBI_FP32_REL_BOUND:g} each; vs fp64 {max(rels64):.3e}; vs its walk {walk}), two "
+            f"runs bit-identical, the bias dropped, the slopes reversed and {len(K4_FP32_FAULTS)} planted faults over "
+            f"the bound; events {k4_ev:.3f} ms vs plain {k4_plain:.3f} ms; graph {k4_ms:.4f} ms vs SDPA fp32 "
             f"backward with the mask {k4_lib:.4f}/{k4_lib2:.4f} ms (in turns; {k4_ms / k4_lib:.2f}x); bound "
             f"{k4_bound:.4f} ms ({k4_by}, 5 products in 3xTF32): {k4_bound / k4_ms:.1%}; CUDA-core bound "
             f"{k4_core:.4f} ms: {k4_core / k4_ms:.1%}")

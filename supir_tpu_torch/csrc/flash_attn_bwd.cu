@@ -497,36 +497,6 @@ struct Maps {
   MapPos qp, kp, vp, dp;
 };
 
-// The dQ kernel runs on a second stream beside the dK/dV kernel: both read
-// only the inputs and the pre-pass's scratch, and each alone leaves part of
-// its last wave of blocks idle. One side stream and two events per device,
-// made at first use; the caller's stream forks after the pre-pass and joins
-// after both kernels, which CUDA-graph capture records as the same fork
-// and join.
-struct Fork {
-  cudaStream_t side;
-  cudaEvent_t ready, done;
-};
-
-cudaError_t device_fork(Fork** out) {
-  constexpr int MAX_DEVICES = 64;
-  static Fork forks[MAX_DEVICES];
-  static bool made[MAX_DEVICES];
-  int dev;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  Fork& f = forks[dev];
-  if (!made[dev]) {
-    if ((err = cudaStreamCreateWithFlags(&f.side, cudaStreamNonBlocking)) != cudaSuccess) return err;
-    if ((err = cudaEventCreateWithFlags(&f.ready, cudaEventDisableTiming)) != cudaSuccess) return err;
-    if ((err = cudaEventCreateWithFlags(&f.done, cudaEventDisableTiming)) != cudaSuccess) return err;
-    made[dev] = true;
-  }
-  *out = &f;
-  return cudaSuccess;
-}
-
 // st: element strides (batch, seq, head) of o, dout, dq, dk, dv
 template <int D, bool ALIBI>
 cudaError_t launch(const Maps& m, const bf16* o, const bf16* dout, const float* lse, float* rows, const float* slopes,

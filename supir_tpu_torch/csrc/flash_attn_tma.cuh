@@ -280,6 +280,37 @@ cudaError_t encode_tiled(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
+// The backward sources (flash_attn_bwd.cu, flash_attn_bwd_fp32.cu) run
+// their dQ kernel on a second stream beside the dK/dV kernel: both read only
+// the inputs and the pre-pass's scratch, and each alone leaves part of its
+// last wave of blocks idle. One side stream and two events per device,
+// made at first use; the caller's stream forks after the pre-pass and joins
+// after both kernels, which CUDA-graph capture records as the same fork
+// and join.
+struct Fork {
+  cudaStream_t side;
+  cudaEvent_t ready, done;
+};
+
+cudaError_t device_fork(Fork** out) {
+  constexpr int MAX_DEVICES = 64;
+  static Fork forks[MAX_DEVICES];
+  static bool made[MAX_DEVICES];
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  Fork& f = forks[dev];
+  if (!made[dev]) {
+    if ((err = cudaStreamCreateWithFlags(&f.side, cudaStreamNonBlocking)) != cudaSuccess) return err;
+    if ((err = cudaEventCreateWithFlags(&f.ready, cudaEventDisableTiming)) != cudaSuccess) return err;
+    if ((err = cudaEventCreateWithFlags(&f.done, cudaEventDisableTiming)) != cudaSuccess) return err;
+    made[dev] = true;
+  }
+  *out = &f;
+  return cudaSuccess;
+}
+
 // A plan of PLAN_LEN values (ops/flash_attention.py:tma_plan): rank, dims
 // innermost-first (4), byte strides of dims 1.. (3), box (4), and the map
 // positions of the seq, head and batch coordinates (3), of elements of

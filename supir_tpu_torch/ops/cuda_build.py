@@ -40,14 +40,20 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
+def _library_path(source: str) -> Path:
+    """Where `csrc/<source>`'s library goes: its name carries a hash of the
+    source, the shared headers (a source that includes an edited header is
+    rebuilt) and the flags."""
+    src = CSRC / source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+
+
 def _compile(source: str) -> Path:
     """Compile `csrc/<source>` unless its library exists; return its path."""
     src = CSRC / source
-    # the shared headers are hashed too: a source that includes an edited
-    # header is rebuilt
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    out = _library_path(source)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -60,7 +66,7 @@ def _compile(source: str) -> Path:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
             # ptxas -v reports registers, shared memory and spills per kernel
-            (BUILD_DIR / f"{src.stem}.ptxas.txt").write_text(proc.stderr)
+            out.with_suffix(".ptxas.txt").write_text(proc.stderr)
             os.replace(tmp, out)
         finally:
             if os.path.exists(tmp):
@@ -86,9 +92,10 @@ def build_all(sources) -> dict[str, float]:
 
 
 def ptxas_report(source: str) -> str:
-    """The `-Xptxas -v` lines nvcc printed for `source`: registers, shared
-    memory and spills per kernel (empty if this process did not build it)."""
-    path = BUILD_DIR / f"{Path(source).stem}.ptxas.txt"
+    """The `-Xptxas -v` lines nvcc printed for `source` as it stands under
+    CSRC: registers, shared memory and spills per kernel (empty if no build
+    directory holds its library's report)."""
+    path = _library_path(source).with_suffix(".ptxas.txt")
     return path.read_text() if path.exists() else ""
 
 

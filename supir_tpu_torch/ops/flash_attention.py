@@ -59,8 +59,11 @@ and `_flash_bwd` write in q's dtype (:467-470, :637, :663): the fp32 ring
 fp32 (`FlashAttention` under grad) run them. K3 fp32 is K1 fp32's kernel
 with an lse output (`flash_attention_fwd_lse` counts it in
 `fp32_launches`); K4 fp32, `supir_tpu_torch/csrc/flash_attn_bwd_fp32.cu`,
-is a first design on the CUDA cores in fp32 FMA tiles (the source says
-why), counted in `flash_attention_bwd.fp32_launches`. Their ALiBi
+is K4's split (a delta pre-pass, a dQ kernel, a dK/dV kernel) in 3xTF32
+on `wgmma` as K1 fp32 is, fed by TMA (`tma_plan` at BWD_FP32_BOX rows),
+with K^T, Q^T and dO^T written in the `VT_KEY` order, counted in
+`flash_attention_bwd.fp32_launches`; `flash_bwd_fp32_emulate` walks its
+blocks, tiles, TF32 roundings and products on the CPU. Their ALiBi
 instances serve MPT at its default dtype: `MPTBlock` and `MPTForCausalLM`
 compute in fp32 unless told otherwise (`supir_tpu/captioner/mpt.py:113,
 :195`), and on a TPU every such self-attention site of 1024 tokens or more
@@ -125,8 +128,16 @@ FP32_FAULT_LSE_LOG2 = 7  # K3 fp32 only: the lse written in log2 units (O untouc
 FP32_FAULT_ALIBI_RAW_UNITS, FP32_FAULT_ALIBI_NO_OFFSET = 8, 9
 # K4 fp32's planted faults (csrc/flash_attn_bwd_fp32.cu): delta dropped, dK
 # without the scale, the causal diagonal not masked, P read with the lse in
-# log2 units
-BWD_FP32_FAULT_NO_DELTA, BWD_FP32_FAULT_DK_SCALE, BWD_FP32_FAULT_DIAGONAL, BWD_FP32_FAULT_LSE_LOG2 = range(1, 5)
+# log2 units, every product on one TF32 product (hi hi: plain TF32), the lo
+# part of the transposed operands (K^T, Q^T, dO^T) dropped, the transposed
+# operands written in row order (without the fragment permutation)
+(BWD_FP32_FAULT_NO_DELTA, BWD_FP32_FAULT_DK_SCALE, BWD_FP32_FAULT_DIAGONAL, BWD_FP32_FAULT_LSE_LOG2,
+ BWD_FP32_FAULT_ONE_PRODUCT, BWD_FP32_FAULT_NO_T_LO, BWD_FP32_FAULT_T_ORDER) = range(1, 8)
+# K4 fp32's tiles (csrc/flash_attn_bwd_fp32.cu: ROWS, R): rows a block owns
+# (queries in the dQ kernel, keys in the dK/dV kernel), rows of a streamed
+# tile and of every TMA box
+BWD_FP32_ROWS = 64
+BWD_FP32_BOX = 32
 TF32_HALF = 0x1000  # half a TF32 ulp, in the fp32 bits
 TF32_KEEP = -0x2000  # 0xFFFFE000 as an int32: the bits of an fp32 word a TF32 operand keeps
 
@@ -339,9 +350,9 @@ def _bwd_fp32_library() -> ctypes.CDLL:
     fn = lib.supir_flash_attn_bwd_fp32
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 11  # q, k, v, out, dout, lse, delta scratch, slopes, dq, dk, dv
+        [ctypes.c_void_p] * 11  # q, k, v, out, dout, lse, rows scratch, slopes, dq, dk, dv
         + [ctypes.c_int] * 6    # B H S T D causal
-        + [ctypes.POINTER(ctypes.c_longlong)]  # strides of q, k, v, out, dout
+        + [ctypes.POINTER(ctypes.c_longlong)] * 2  # the four plans; strides of out, dout
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, fault, stream
     )
     return lib
@@ -515,15 +526,20 @@ def _backward_fp32(q, k, v, out, lse, dout, causal: bool, fault: int = 0, slopes
     dq, dk, dv = (torch.empty(x.shape, dtype=torch.float32, device=q.device) for x in (q, k, v))
     if s == 0 or t == 0 or b * h == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty(b * h * s, dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 15)(*_strides(q, k, v, out, dout))
+    # lse and delta per query row, padded to whole blocks (the pre-pass fills it)
+    rows = torch.empty(2 * b * h * bwd_rows(s), dtype=torch.float32, device=q.device)
+    plans = _packed_plans(*(tma_plan(x, BWD_FP32_BOX) for x in (q, k, v, dout)))
+    strides = (ctypes.c_longlong * 6)(*_strides(out, dout))
     fn = _bwd_fp32_library().supir_flash_attn_bwd_fp32
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), None if slopes is None else slopes.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, h, s, t, d, int(causal), strides, d ** -0.5, fault, stream)
-    _raise_on(err, "flash attention backward (fp32" + (", ALiBi)" if slopes is not None else ")"))
+                 rows.data_ptr(), None if slopes is None else slopes.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, h, s, t, d, int(causal), plans, strides, d ** -0.5, fault, stream)
+    label = "flash attention backward (fp32" + (", ALiBi)" if slopes is not None else ")")
+    if err < 0:
+        raise RuntimeError(f"{label}: cuTensorMapEncodeTiled failed with CUresult {-err}")
+    _raise_on(err, label)
     return dq, dk, dv
 
 
@@ -643,6 +659,107 @@ def flash_fp32_emulate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal
         else:
             lse[:, :, rows] = m * c * torch.tensor(LN2, dtype=torch.float32) + torch.log(l.clamp_min(1e-30))
     return (out.transpose(1, 2), lse) if with_lse else out.transpose(1, 2)
+
+
+def flash_bwd_fp32_emulate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                           lse: torch.Tensor, dout: torch.Tensor, causal: bool = False, fault: int = 0,
+                           alibi_slopes=None):
+    """K4 fp32's kernels walked on the CPU in their own order: the pre-pass's
+    delta = rowsum(dO * O) (lse +inf and delta 0 past S); the dQ kernel's
+    blocks of BWD_FP32_ROWS queries over key tiles of BWD_FP32_BOX (with
+    `causal`, none past the block's last query), the dK/dV kernel's blocks
+    of keys over query tiles (with `causal`, from the block's first key);
+    every operand split into its TF32 pair and every product taken as lo hi
+    + hi lo + hi hi, each tile's S (or S^T) and dP (or dP^T) over the head
+    dim, P = exp(scale s - lse) (with `alibi_slopes`, scale s +
+    slope_h (col - (T - 1)) - lse, each step rounded to fp32), the ragged and
+    causal masks, dS = P (dP - delta), and each tile's dQ, dK and dV product
+    taken apart and added to the block's fp32 sums; dQ and dK times the
+    scale. The sums inside a product are the CPU's: the tensor cores' own
+    (truncating) fp32 sums are not walked, which leaves the kernel 1-3e-6
+    from the walk. `fault` plants BWD_FP32_FAULT_*: with
+    BWD_FP32_FAULT_T_ORDER the tile's column 8 g + VT_KEY[p] meets the
+    transposed operand's row 8 g + p. Returns (dq, dk, dv), fp32
+    [B,S|T,H,D]."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    rows_n, box = BWD_FP32_ROWS, BWD_FP32_BOX
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    one = fault == BWD_FP32_FAULT_ONE_PRODUCT
+    masked = causal and fault != BWD_FP32_FAULT_DIAGONAL
+    slopes = None if alibi_slopes is None else torch.as_tensor(alibi_slopes, dtype=torch.float32)[:, None, None]
+    qh, kh, vh, oh, gh = (x.float().transpose(1, 2) for x in (q, k, v, out, dout))  # [B, H, N, D]
+    delta = (gh * oh).sum(-1)
+    lse = lse.float()
+    if fault == BWD_FP32_FAULT_LSE_LOG2:
+        lse = lse * torch.tensor(LOG2E, dtype=torch.float32)
+    if fault == BWD_FP32_FAULT_NO_DELTA:
+        delta = torch.zeros_like(delta)
+    meets = torch.tensor([8 * (c // 8) + VT_KEY.index(c % 8) for c in range(box)])
+
+    def padded(x, n):  # rows past the extent arrive as zeros (TMA)
+        return torch.nn.functional.pad(x, (0, 0, 0, n - x.shape[2]))
+
+    def padded_rows(x, n, fill):  # the pre-pass's rows: `fill` past S
+        return torch.nn.functional.pad(x, (0, n - x.shape[2]), value=fill)
+
+    def product(a, bb):  # a [.., M, D] . bb [.., R, D]^T, 3xTF32
+        a_hi, a_lo = _tf32_pair(a)
+        b_hi, b_lo = _tf32_pair(bb)
+        hh = a_hi @ b_hi.transpose(-1, -2)
+        return hh if one else a_lo @ b_hi.transpose(-1, -2) + a_hi @ b_lo.transpose(-1, -2) + hh
+
+    def out_product(a, rows):  # a [.., M, R] . rows [.., R, D] (the transposed operand), 3xTF32
+        a_hi, a_lo = _tf32_pair(a)
+        b_hi, b_lo = _tf32_pair(rows)
+        if fault == BWD_FP32_FAULT_T_ORDER:
+            b_hi, b_lo = b_hi[..., meets, :], b_lo[..., meets, :]
+        hh = a_hi @ b_hi
+        if one:
+            return hh
+        return (a_lo @ b_hi + hh) if fault == BWD_FP32_FAULT_NO_T_LO else a_lo @ b_hi + a_hi @ b_lo + hh
+
+    def p_of(sc, lse_, bias):  # P from the tile's raw scores
+        x = sc * scale
+        if slopes is not None:
+            x = x + bias
+        return torch.exp(x - lse_)
+
+    def bias_of(idx):  # the ALiBi bias of key indices `idx`, by head ([H, *idx.shape])
+        return None if slopes is None else slopes * (idx - (t - 1)).float()
+
+    t_pad, s_pad = -(-t // box) * box, -(-s // box) * box
+    kp, vp, qp, gp = padded(kh, t_pad), padded(vh, t_pad), padded(qh, s_pad), padded(gh, s_pad)
+    lse_p, delta_p = padded_rows(lse, s_pad, float("inf")), padded_rows(delta, s_pad, 0.0)
+    dq, dk, dv = torch.zeros(b, h, s, d), torch.zeros(b, h, t, d), torch.zeros(b, h, t, d)
+    for first in range(0, s, rows_n):  # the dQ kernel: owned queries
+        rows = torch.arange(first, min(s, first + rows_n))
+        end = min(t, first + rows_n) if masked else t
+        sums = torch.zeros(b, h, len(rows), d)
+        for c0 in range(0, end, box):
+            cols = torch.arange(c0, c0 + box)
+            kt, vt = kp[:, :, c0:c0 + box], vp[:, :, c0:c0 + box]
+            p = p_of(product(qh[:, :, rows], kt), lse[:, :, rows, None], bias_of(cols))
+            drop = (cols[None] >= t) | ((cols[None] > rows[:, None]) if masked else False)
+            p = p.masked_fill(drop, 0.0)
+            ds = p * (product(gh[:, :, rows], vt) - delta[:, :, rows, None])
+            sums = sums + out_product(ds, kt)
+        dq[:, :, rows] = sums * scale
+    for first in range(0, t, rows_n):  # the dK/dV kernel: owned keys
+        keys = torch.arange(first, min(t, first + rows_n))
+        sums_k, sums_v = torch.zeros(b, h, len(keys), d), torch.zeros(b, h, len(keys), d)
+        for c0 in range(first if masked else 0, s, box):
+            cols = torch.arange(c0, c0 + box)
+            qt, gt = qp[:, :, c0:c0 + box], gp[:, :, c0:c0 + box]
+            p = p_of(product(kh[:, :, keys], qt), lse_p[:, :, None, c0:c0 + box], bias_of(keys[:, None]))
+            if masked:
+                p = p.masked_fill(cols[None] < keys[:, None], 0.0)
+            ds = p * (product(vh[:, :, keys], gt) - delta_p[:, :, None, c0:c0 + box])
+            sums_v = sums_v + out_product(p, gt)
+            sums_k = sums_k + out_product(ds, qt)
+        dk[:, :, keys] = sums_k if fault == BWD_FP32_FAULT_DK_SCALE else sums_k * scale
+        dv[:, :, keys] = sums_v
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

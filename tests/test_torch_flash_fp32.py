@@ -270,9 +270,11 @@ def test_fragment_permutation_matches_the_kernel_source():
     of a quad holds S's columns 2t and 2t + 1 of each 8-column group
     (wgmma's accumulator fragment), the TF32 A fragment takes its k-indices
     t and t + 4, so V^T's slots t and t + 4 must hold keys 2t and 2t + 1.
-    The tile constants are the kernel's too."""
+    The tile constants are the kernel's too. The table lives in the 3xTF32
+    header the forward and K4 fp32 share."""
     src = (CSRC / fa._FP32_SOURCE).read_text()
-    table = re.search(r"constexpr int VT_KEY\[8\] = \{([^}]*)\};", src)
+    assert '#include "flash_attn_tf32.cuh"' in src
+    table = re.search(r"constexpr int VT_KEY\[8\] = \{([^}]*)\};", (CSRC / "flash_attn_tf32.cuh").read_text())
     assert table and tuple(int(x) for x in table.group(1).split(",")) == VT_KEY
     assert sorted(VT_KEY) == list(range(8))
     for lane in range(32):
@@ -308,13 +310,15 @@ def test_fp32_tma_plans(d):
 
 
 def test_ab_tool_exits_without_a_card(monkeypatch):
-    """tools/flash_fp32_ab measures the card and has no CPU mode."""
+    """tools/flash_fp32_ab measures the card and has no CPU mode, for K1
+    fp32 and with --backward for K4 fp32."""
     from supir_tpu_torch.tools import flash_fp32_ab
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit) as exc:
-        flash_fp32_ab.main(["--variant", "new=csrc"])
-    assert "no CUDA device" in str(exc.value.code)
+    for extra in ([], ["--backward"]):
+        with pytest.raises(SystemExit) as exc:
+            flash_fp32_ab.main(["--variant", "new=csrc", *extra])
+        assert "no CUDA device" in str(exc.value.code)
 
 
 def test_emulation_of_a_row_past_every_key_is_finite():

@@ -3,6 +3,14 @@ backward for fp32 operands (`csrc/flash_attn_fwd_fp32.cu` with an lse
 output, `csrc/flash_attn_bwd_fp32.cu`), and the routing that sends fp32
 work under grad and fp32 rings to them.
 
+K4 fp32's walk (`flash_bwd_fp32_emulate`: the dQ and dK/dV kernels'
+blocks and tiles, TF32 pairs, three products, the transposed operands'
+key order), from JAX's own residuals, against JAX's `_flash_bwd` in
+interpret mode at JAX_BOUND (relative L2), with and without MPT's slopes,
+multiquery too, and against the plain version; each emulated planted
+fault over K4_FP32_REL_BOUND; the tile constants and the TMA plans at the
+backward's box rows. On the card the kernel is held to its walk.
+
 On the CPU: the port's fp32 lse forward and backward (the plain versions
 the wrappers return for CPU tensors, and K3 fp32's walk
 `flash_fp32_emulate(..., with_lse=True)`) against the JAX package's
@@ -33,10 +41,15 @@ import torch
 from supir_tpu_torch.ops import attention as attn_ops
 from supir_tpu_torch.ops import flash_attention as fa
 from supir_tpu_torch.ops.flash_attention import (
+    BWD_FP32_BOX,
     BWD_FP32_FAULT_DIAGONAL,
     BWD_FP32_FAULT_DK_SCALE,
     BWD_FP32_FAULT_LSE_LOG2,
     BWD_FP32_FAULT_NO_DELTA,
+    BWD_FP32_FAULT_NO_T_LO,
+    BWD_FP32_FAULT_ONE_PRODUCT,
+    BWD_FP32_FAULT_T_ORDER,
+    BWD_FP32_ROWS,
     FP32_FAULT_LSE_LOG2,
     FP32_FAULT_NO_RESCALE,
     FlashAttention,
@@ -44,7 +57,9 @@ from supir_tpu_torch.ops.flash_attention import (
     attention_fwd_lse_plain,
     flash_attention_bwd,
     flash_attention_fwd_lse,
+    flash_bwd_fp32_emulate,
     flash_fp32_emulate,
+    tma_plan,
 )
 from torch_parity import one_torch_thread  # noqa: F401
 
@@ -197,6 +212,75 @@ def test_walk_lse_fault_breaks_the_bound():
     bad_out, bad_lse = flash_fp32_emulate(q, k, v, True, FP32_FAULT_LSE_LOG2, with_lse=True)
     assert torch.equal(out, bad_out)
     assert (bad_lse - lse).abs().max().item() > LSE_BOUND
+
+
+# ------------------------------------------------------------ K4 fp32's walk
+
+BWD_FAULTS = [BWD_FP32_FAULT_NO_DELTA, BWD_FP32_FAULT_DK_SCALE, BWD_FP32_FAULT_DIAGONAL, BWD_FP32_FAULT_LSE_LOG2,
+              BWD_FP32_FAULT_ONE_PRODUCT, BWD_FP32_FAULT_NO_T_LO, BWD_FP32_FAULT_T_ORDER]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_bwd_walk_matches_jax(case):
+    """K4 fp32's walk, from JAX's residuals, against `_flash_bwd` on fp32
+    inputs and against the plain version: the 3xTF32 products and the
+    per-tile sums stay within JAX_BOUND."""
+    q, k, v, g, out, lse, *want = _jax_case(case)
+    causal = case[-1]
+    args = tuple(map(torch.from_numpy, (q, k, v, np.array(out), lse, g)))
+    walk = flash_bwd_fp32_emulate(*args, causal)
+    plain = attention_bwd_plain(*args, causal)
+    for name, a, w, pl in zip("qkv", walk, want, plain):
+        assert a.dtype == torch.float32 and a.shape == pl.shape
+        assert _rel(a, w) <= JAX_BOUND, f"d{name}"
+        assert _rel(a, pl) <= JAX_BOUND, f"d{name} vs plain"
+
+
+@pytest.mark.parametrize("case", ALIBI_CASES)
+def test_alibi_bwd_walk_matches_jax(case):
+    """K4 ALiBi fp32's walk (the bias added to the scaled score, each step
+    rounded to fp32) against `_flash_bwd` with MPT's slopes, multiquery
+    k and v too."""
+    q, k, v, g, slopes, out, lse, *want = _jax_alibi_case(case)
+    causal = case[5]
+    walk = flash_bwd_fp32_emulate(*map(torch.from_numpy, (q, k, v, np.array(out), lse, g)), causal,
+                                  alibi_slopes=torch.from_numpy(slopes))
+    for name, a, w in zip("qkv", walk, want):
+        assert _rel(a, w) <= JAX_BOUND, f"d{name}"
+
+
+K4_FP32_REL_BOUND = 2e-5  # chip_smoke.py's bound on K4 fp32's dQ, dK, dV (GRAD_BOUND on the card)
+
+
+@pytest.mark.parametrize("fault", BWD_FAULTS)
+def test_bwd_walk_faults_break_the_bound(fault):
+    """Every planted fault of K4 fp32, walked, leaves the plain version by
+    more than the card's bound: the one-product walk (plain TF32) and the
+    walk without the transposed operands' lo parts are why 3xTF32 takes
+    three products and both halves of every operand."""
+    q, k, v, g, out, lse, *_ = _jax_case(CASES[1])
+    args = tuple(map(torch.from_numpy, (q, k, v, np.array(out), lse, g)))
+    want = attention_bwd_plain(*args, True)
+    assert max(_rel(a, w) for a, w in zip(flash_bwd_fp32_emulate(*args, True), want)) <= JAX_BOUND
+    bad = flash_bwd_fp32_emulate(*args, True, fault)
+    assert max(_rel(a, w) for a, w in zip(bad, want)) > K4_FP32_REL_BOUND
+
+
+def test_bwd_tiles_and_plans_are_the_kernels():
+    """The walk's tiles are the source's ROWS and R; q, k, v and dout map in
+    R-row boxes of 32 fp32 columns, multiquery k/v without the head axis."""
+    import re
+    from pathlib import Path
+
+    src = (Path(fa.__file__).resolve().parents[1] / "csrc" / fa._BWD_FP32_SOURCE).read_text()
+    assert re.search(rf"constexpr int ROWS = {BWD_FP32_ROWS};", src)
+    assert re.search(rf"constexpr int R = {BWD_FP32_BOX};", src)
+    assert '#include "flash_attn_tf32.cuh"' in src and "CU_TENSOR_MAP_DATA_TYPE_FLOAT32" in src
+    for d in (64, 128):
+        plan = tma_plan(torch.empty(2, 300, 4, d), BWD_FP32_BOX)
+        assert plan.box == (32, BWD_FP32_BOX, 1, 1) and plan.dims == (d, 300, 4, 2)
+        kv = tma_plan(torch.empty(1, 300, 1, d).expand(1, 300, 4, d), BWD_FP32_BOX)
+        assert kv.head == -1 and kv.dims == (d, 300)
 
 
 # ------------------------------------------------------------ routing
@@ -425,8 +509,7 @@ def test_k4_fp32_matches_plain(cuda, b, s, t, h, d, causal):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("fault", [BWD_FP32_FAULT_NO_DELTA, BWD_FP32_FAULT_DK_SCALE, BWD_FP32_FAULT_DIAGONAL,
-                                   BWD_FP32_FAULT_LSE_LOG2])
+@pytest.mark.parametrize("fault", BWD_FAULTS)
 def test_k4_fp32_planted_faults(cuda, fault):
     q, k, v, g = _card(cuda, 14, 1, 1000, 1000, 2, 128)
     out, lse = attention_fwd_lse_plain(q, k, v, True)
@@ -517,3 +600,38 @@ def test_k3_and_k4_alibi_fp32_planted_faults(cuda):
     for bad in (fa._backward_fp32(q, k, v, out, lse, g, True), fa._backward_fp32(q, k, v, out, lse, g, True,
                                                                                    slopes=slopes.flip(0))):
         assert not max(_card_rel(a, w) for a, w in zip(bad, want)) <= ALIBI_BOUND
+
+
+# the kernel against its walk on the same values: the same blocks, tiles,
+# TF32 roundings and products, causal with ragged blocks, both head dims.
+# The walk's sums are the CPU's; the tensor cores' own fp32 accumulation
+# (its S, dP and each tile's products) sits 1-2e-6 from an exact sum (the
+# kernel's distance to fp64 on the card), so the walk is held at 5e-6, a
+# fortieth of the faults' 2e-4.
+BWD_WALK_BOUND = 5e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", [0, BWD_FP32_FAULT_ONE_PRODUCT, BWD_FP32_FAULT_NO_T_LO, BWD_FP32_FAULT_T_ORDER])
+@pytest.mark.parametrize("d,alibi", [(64, False), (128, True)])
+def test_k4_fp32_kernel_equals_its_walk(cuda, fault, d, alibi):
+    """K4 fp32 (and K4 ALiBi fp32) and flash_bwd_fp32_emulate on the same
+    values. Where the TF32 rounding decides the result (one product, the
+    transposed operands without their lo parts: ~5e-4 and ~2e-4 from the
+    plain version) the walk stays within a twentieth of the kernel's
+    distance to the plain version: the walk's rounding is what the card's
+    tensor cores read. On one product (plain TF32 in S and dP too) the
+    tensor cores' sums of TF32 products leave the walk's by ~1.1e-5, so
+    that fault is held to the second test alone."""
+    q, k, v, g = _card(cuda, 18, 1, 300, 300, 2, d)
+    slopes = _card_slopes(cuda, 2) if alibi else None
+    out, lse = attention_fwd_lse_plain(q, k, v, True, slopes)
+    got = [x.cpu() for x in fa._backward_fp32(q, k, v, out, lse, g, True, fault, slopes)]
+    cpu = [x.cpu() for x in (q, k, v, out, lse, g)]
+    walk = flash_bwd_fp32_emulate(*cpu, True, fault, None if slopes is None else slopes.cpu())
+    plain = attention_bwd_plain(*cpu, True, None if slopes is None else slopes.cpu())
+    for name, a, w, pl in zip("qkv", got, walk, plain):
+        if fault != BWD_FP32_FAULT_ONE_PRODUCT:
+            assert _card_rel(a, w) <= BWD_WALK_BOUND, f"d{name}"
+        if fault in (BWD_FP32_FAULT_ONE_PRODUCT, BWD_FP32_FAULT_NO_T_LO):
+            assert _card_rel(a, w) <= _card_rel(a, pl) / 20, f"d{name}"
